@@ -1,0 +1,161 @@
+"""Build and load the port's CUDA kernels (nvcc + ctypes).
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
+first use, alone, into ``ops/build/lib<name>-<hash>.so``::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -Xptxas -v -o lib<name>-<hash>.so csrc/<name>.cu
+
+The hash covers the source text and the flags, so an edited source never
+loads a stale library. The directory is listed in ``.gitignore``. Nothing
+here runs at import time: the first wrapper call on a CUDA tensor builds
+and loads its library; ``build_all`` starts one ``nvcc`` per source at
+once (``chip_smoke.py`` builds both kernels in parallel that way).
+
+A failed build raises ``KernelBuildError`` with nvcc's output. A kernel
+entry point returns ``cudaGetLastError()`` after its launch, and
+``check`` raises ``KernelLaunchError`` when that is not 0 — there is no
+fallback to the plain PyTorch version on a CUDA tensor.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_HERE, "csrc")
+BUILD_DIR = os.path.join(_HERE, "build")
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_c_void_p, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+#: C entry points per library: name -> (argtypes). Every entry returns
+#: an int — the launchers a cudaError_t; pointers and the stream are
+#: c_void_p so ctypes never truncates them to 32 bits.
+SIGNATURES: dict[str, dict[str, tuple]] = {
+    "paged_attention": {
+        # q, k_pool, v_pool, table, q_pos, out, part_acc, part_ml, B, H, S,
+        # D, NB, bs, MB, scale, stream
+        **{fn: (_c_void_p,) * 8 + (_c_int,) * 7 + (_c_float, _c_void_p)
+           for fn in ("paged_attention_f32", "paged_attention_bf16")},
+        # D, bs, MB, elem_size -> splits (sizes the scratch)
+        "paged_attention_splits": (_c_int,) * 4,
+    },
+    "ln_matmul": {
+        # x, gamma, beta, w, bias, y, M, d, n, w_stride_k, w_stride_n,
+        # eps, stream
+        fn: (_c_void_p,) * 6 + (_c_int,) * 5 + (_c_float, _c_void_p)
+        for fn in ("ln_matmul_f32", "ln_matmul_bf16_f32", "ln_matmul_bf16")
+    },
+}
+
+
+class KernelBuildError(RuntimeError):
+    """nvcc failed (or is missing) for one of the port's sources."""
+
+
+class KernelLaunchError(RuntimeError):
+    """A kernel entry point returned a CUDA error after its launch."""
+
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    """``$CUDA_HOME/bin/nvcc``, else ``/usr/local/cuda/bin/nvcc``, else
+    the first ``nvcc`` on PATH."""
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
+            return os.path.join(home, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise KernelBuildError(
+            "nvcc not found (CUDA_HOME, /usr/local/cuda, PATH): the port's "
+            "kernels are built from source on first use")
+    return found
+
+
+def _paths(name: str) -> tuple[str, str, str]:
+    src = os.path.join(CSRC, f"{name}.cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(
+            f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    so = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    return src, so, so[:-3] + ".log"
+
+
+def _start(name: str) -> tuple[subprocess.Popen, str, str] | None:
+    """Start nvcc for ``name`` unless its library is already built."""
+    src, so, log = _paths(name)
+    if os.path.exists(so):
+        return None
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    proc = subprocess.Popen(
+        [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, log
+
+
+def _finish(name: str, started) -> None:
+    proc, tmp, log = started
+    out, _ = proc.communicate()
+    with open(log, "w") as f:
+        f.write(out)
+    if proc.returncode != 0:
+        raise KernelBuildError(
+            f"nvcc failed for csrc/{name}.cu (rc {proc.returncode}):\n{out}")
+    os.replace(tmp, _paths(name)[1])  # atomic: a torn .so never loads
+
+
+def build_all(names=tuple(SIGNATURES)) -> dict[str, str]:
+    """Build every named library, one nvcc per source, all started
+    together; returns name -> the ptxas report (registers, shared memory,
+    spills) from the build log, empty when the library was cached."""
+    started = {n: _start(n) for n in names}
+    for n, s in started.items():
+        if s is not None:
+            _finish(n, s)
+    reports = {}
+    for n in names:
+        log = _paths(n)[2]
+        reports[n] = ""
+        if os.path.exists(log):
+            with open(log) as f:
+                reports[n] = f.read()
+    return reports
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is not None:
+            return lib
+        build_all((name,))
+        lib = ctypes.CDLL(_paths(name)[1])
+        for fn, argtypes in SIGNATURES[name].items():
+            f = getattr(lib, fn)
+            f.argtypes = list(argtypes)
+            f.restype = ctypes.c_int
+        lib.dtf_error_string.argtypes = [ctypes.c_int]
+        lib.dtf_error_string.restype = ctypes.c_char_p
+        _libs[name] = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise ``KernelLaunchError`` unless the entry returned cudaSuccess."""
+    if rc != 0:
+        msg = lib.dtf_error_string(rc).decode(errors="replace")
+        raise KernelLaunchError(f"{what}: CUDA error {rc} ({msg})")
