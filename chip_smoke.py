@@ -10,12 +10,15 @@ and exits non-zero — printing no result line — when there is none, when
 the port cannot be imported (e.g. the script alone in a directory), or
 when any phase fails:
 
-1. build both kernels from ``distributed_tensorflow_tpu_torch/ops/csrc``
-   (one nvcc per source, started together) and print ptxas's report;
-2. hold each kernel against its plain PyTorch version on the card at the
-   serve path's shapes (gpt_small: H=12, D=64, bs=16; d=768), with the
-   tolerances stated in ``TOL``; time kernel, plain version, one library
-   call and the bound with CUDA events;
+1. build every kernel library from ``distributed_tensorflow_tpu_torch/ops/
+   csrc`` (one nvcc per source, started together) and print ptxas's
+   report;
+2. hold each kernel against its plain PyTorch version on the card at its
+   path's shapes (serving, gpt_small: H=12, D=64, bs=16; d=768 — and the
+   three flash kernels at the training shapes B=8, H=12, S=1024, D=64,
+   causal, bf16 and f32, with and without a kv_mask), with the tolerances
+   stated in ``TOL``; time kernel, plain version, one library call and the
+   bound with CUDA events and the profiler;
 3. serve 8 requests through ``gpt_small`` at full width (bf16, random
    weights from seed 0, 4 slots, block_size 16, prefill_chunk 64, a
    shared 128-token system prefix on four prompts, max_new 32, greedy)
@@ -27,7 +30,18 @@ when any phase fails:
    within ``TOL["logits"]``, greedy streams equal (a stream may diverge
    only where the reference's top-2 logit margin is below that
    tolerance);
-5. print the ``kernels`` JSON line, then the ``ok`` line last.
+5. train ``gpt_lm`` (gpt_small, full width, S=1024, bf16, random weights
+   from seed 0, global batch 8, 6 steps of adamw at a constant lr 3e-4 —
+   a smoke setting, not a recipe — on a fixed corpus of SyntheticLM's
+   first 8 sequences, which the steps revisit) through
+   ``run_workload`` twice from the same weights and batches: with the
+   flash kernels (``attention_impl="flash"``) and with no kernel on the
+   path (``"dense"``); hold the step-1 gradients and the per-step losses
+   of the two against each other (``TOL``), check that the loss falls and
+   that each flash kernel launched exactly 12 times a step; print
+   tokens/s, step ms, MFU and peak memory, the device idle share of one
+   profiled step, and one flash run at global batch 64;
+6. print the ``kernels`` JSON line, then the ``ok`` line last.
 
 TF32 is off for every f32 product compared here
 (``torch.backends.cuda.matmul.allow_tf32 = False``).
@@ -58,6 +72,21 @@ TOL = {
     # 2^-8 relative
     "paged_attention/bfloat16": (1e-2, 2 ** -7),
     "ln_matmul/bfloat16": (1e-2, 2 ** -7),
+    # flash kernels vs their plain versions: f32 — the same f32 math in
+    # another summation order over up to 1024 keys; bf16 — both round p
+    # and ds to bf16 before their products and each result once at the
+    # end, so one bf16 ulp (2^-7 relative at worst) plus what a p or ds
+    # rounded the other way moves a 1024-term sum
+    "flash/float32": (1e-4, 1e-4),
+    "flash/bfloat16": (1e-2, 2 ** -7),
+    "flash/lse": (1e-4, 1e-5),
+    # gpt_lm training, flash pass vs dense pass (bf16 model): the two
+    # attention paths round p to bf16 at other points (online vs final
+    # max), and the difference runs through 12 layers forward and back.
+    # Step-1 gradient: relative L2 error per parameter; per-step loss:
+    # absolute (a mean over 8k tokens of ~10.8 nats)
+    "train/grad_rel_l2": 5e-2,
+    "train/loss": 2e-2,
     # f32 logits of the bf16 model, kernel path vs the gather path with no
     # kernel: one-ulp bf16 differences in attention / LN+matmul outputs,
     # carried through 12 residual layers (logits of random weights have
@@ -129,9 +158,12 @@ def cuda_ms(torch, fns, iters: int = 50, warmup: int = 5) -> dict:
 def device_events(torch, prof):
     """The profiler's device-side entries (kernels, copies, memsets).
     The CPU-side operator entries carry their kernels' device time too,
-    so summing every entry would count it twice."""
+    and so do the device-side ranges of annotations such as
+    ``Optimizer.step#AdamW.step``, so summing every entry would count it
+    twice."""
     cuda = torch.autograd.DeviceType.CUDA
-    return [e for e in prof.key_averages() if e.device_type == cuda]
+    return [e for e in prof.key_averages()
+            if e.device_type == cuda and not getattr(e, "is_user_annotation", False)]
 
 
 def copies_for(nbytes: int) -> int:
@@ -355,6 +387,315 @@ def phase_kernels(torch, np, F):
                     f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}); "
                     f"wrapper call_ms={row['call_ms']:.4f}")
     return results
+
+
+# ---------------------------------------------------------------------------
+# phase 2c: the flash attention kernels at the training shapes
+# ---------------------------------------------------------------------------
+
+
+def flash_case(torch, np, rng, dtype, masked, B=8, H=12, S=1024, D=64):
+    """q/k/v/dout as the model makes them ([B,S,H,D] viewed as
+    [B,H,S,D]); with ``masked`` a kv_mask of ~75% keys whose last batch
+    row attends nothing."""
+    mk = lambda: torch.from_numpy(  # noqa: E731
+        rng.standard_normal((B, S, H, D), dtype=np.float32)).to(DEVICE, dtype).transpose(1, 2)
+    c = dict(q=mk(), k=mk(), v=mk(), dout=mk(), mask=None)
+    if masked:
+        m = rng.random((B, S)) > 0.25
+        m[:, 0] = True
+        m[-1] = False
+        c["mask"] = torch.from_numpy(m).to(DEVICE)
+    return c
+
+
+def flash_bound_ms(torch, c, kind, dtype_name) -> tuple[float, str]:
+    """Least time for the work these inputs need: each input read once and
+    each output written once (forward: q, k, v -> out, lse; dK/dV: q, k,
+    v, out, dout, lse -> dk, dv; dQ: the same inputs -> dq), and 2*D
+    operations per attended (query, key) pair for each of the kernel's
+    products (forward 2: QK^T, PV; dK/dV 4: QK^T, dO V^T, P^T dO, dS^T Q;
+    dQ 3: QK^T, dO V^T, dS K)."""
+    q = c["q"]
+    B, H, S, D = q.shape
+    tensor = q.numel() * q.element_size()
+    lse = B * H * S * 4
+    rows = torch.arange(S, device=q.device)
+    keys = (rows[None, :] <= rows[:, None])                        # causal [S, S]
+    if c["mask"] is not None:
+        pairs = int((keys[None] & c["mask"][:, None, :]).sum()) * H
+    else:
+        pairs = int(keys.sum()) * B * H
+    mask_bytes = c["mask"].numel() if c["mask"] is not None else 0
+    nbytes, products = {
+        "fwd": (3 * tensor + mask_bytes + tensor + lse, 2),
+        "dkv": (5 * tensor + lse + mask_bytes + 2 * tensor, 4),
+        "dq": (5 * tensor + lse + mask_bytes + tensor, 3),
+    }[kind]
+    ops = products * 2 * D * pairs
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dtype_name]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_flash(torch, np, F):
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(1)
+    names = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+    results = {n: {"err": 0.0, "rows": []} for n in names}
+    log("phase 2c: flash attention kernels vs plain versions (B=8 H=12 S=1024 D=64, "
+        "causal; kv_mask cases hold a batch row that attends nothing)")
+    before = {n: getattr(fa, n).launches for n in names}
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[-1]
+        tol = TOL[f"flash/{dn}"]
+        for masked in (False, True):
+            c = flash_case(torch, np, rng, dtype, masked)
+            args = (c["q"], c["k"], c["v"], c["mask"])
+            out, lse = fa.flash_fwd(*args, causal=True)
+            dk, dv = fa.flash_bwd_dkv(*args, out, lse, c["dout"], causal=True)
+            dq = fa.flash_bwd_dq(*args, out, lse, c["dout"], causal=True)
+            torch.cuda.synchronize()
+            want_out, want_lse = fa.flash_attention_plain(*args, causal=True)
+            want = fa.flash_attention_bwd_plain(*args, out, lse, c["dout"], causal=True)
+            tag = f"{dn} {'kv_mask' if masked else 'no mask'}"
+            errs = {"flash_fwd": [check_close(torch, f"flash_fwd/out {tag}", out, want_out, tol),
+                                  check_close(torch, f"flash_fwd/lse {tag}", lse, want_lse,
+                                              TOL["flash/lse"])],
+                    "flash_bwd_dkv": [check_close(torch, f"flash_bwd_dkv/dk {tag}", dk,
+                                                  want[1], tol),
+                                      check_close(torch, f"flash_bwd_dkv/dv {tag}", dv,
+                                                  want[2], tol)],
+                    "flash_bwd_dq": [check_close(torch, f"flash_bwd_dq/dq {tag}", dq,
+                                                 want[0], tol)]}
+            if masked and (out[-1].float().abs().sum() or dq[-1].float().abs().sum()
+                           or dk[-1].float().abs().sum() or (lse[-1] != fa.NEG_INF).any()):
+                raise SmokeFailure("flash: a row that attends nothing is not 0 / NEG_INF")
+            for n in names:
+                results[n]["err"] = max(results[n]["err"], *errs[n])
+            if dtype != torch.bfloat16 or masked:
+                continue
+            # timing on cold inputs: independent copies past the L2
+            tensor = c["q"].numel() * c["q"].element_size()
+            sets = [c] + [flash_case(torch, np, rng, dtype, False)
+                          for _ in range(copies_for(5 * tensor) - 1)]
+            for st in sets:
+                st["out"], st["lse"] = fa.flash_fwd(st["q"], st["k"], st["v"], None,
+                                                    causal=True)
+            qkv = lambda st: (st["q"], st["k"], st["v"], None)  # noqa: E731
+            bwd_in = lambda st: (*qkv(st), st["out"], st["lse"], st["dout"])  # noqa: E731
+            kern = {
+                "flash_fwd": [lambda st=st: fa.flash_fwd(*qkv(st), causal=True) for st in sets],
+                "flash_bwd_dkv": [lambda st=st: fa.flash_bwd_dkv(*bwd_in(st), causal=True)
+                                  for st in sets],
+                "flash_bwd_dq": [lambda st=st: fa.flash_bwd_dq(*bwd_in(st), causal=True)
+                                 for st in sets],
+            }
+            plain_fwd = [lambda st=st: fa.flash_attention_plain(*qkv(st), causal=True)
+                         for st in sets]
+            plain_bwd = [lambda st=st: fa.flash_attention_bwd_plain(*bwd_in(st), causal=True)
+                         for st in sets]
+            # library yardstick, timed only: SDPA forward; SDPA backward
+            # through autograd, which computes dq, dk and dv in one call
+            lib_fwd = [lambda st=st: F.scaled_dot_product_attention(
+                st["q"], st["k"], st["v"], is_causal=True) for st in sets]
+            lib_graphs = []
+            for st in sets:
+                leaves = [t.detach().requires_grad_() for t in (st["q"], st["k"], st["v"])]
+                lib_graphs.append((F.scaled_dot_product_attention(*leaves, is_causal=True),
+                                   leaves, st["dout"]))
+            lib_bwd = [lambda g=g: torch.autograd.grad(g[0], g[1], g[2], retain_graph=True)
+                       for g in lib_graphs]
+            t_plain_fwd, t_plain_bwd = cuda_ms(torch, plain_fwd), cuda_ms(torch, plain_bwd)
+            t_lib_fwd, t_lib_bwd = cuda_ms(torch, lib_fwd), cuda_ms(torch, lib_bwd)
+            for n in names:
+                tk = cuda_ms(torch, kern[n])
+                fwd = n == "flash_fwd"
+                row = dict(ms=tk["device_ms"], call_ms=tk["call_ms"],
+                           plain_ms=(t_plain_fwd if fwd else t_plain_bwd)["device_ms"],
+                           library_ms=(t_lib_fwd["device_ms"] if fwd else
+                                       t_lib_bwd["device_ms"] if n == "flash_bwd_dkv"
+                                       else None))
+                row["bound_ms"], row["bound_by"] = flash_bound_ms(
+                    torch, c, {"flash_fwd": "fwd", "flash_bwd_dkv": "dkv", "flash_bwd_dq": "dq"}[n],
+                    dn)
+                results[n]["rows"].append(row)
+                lib = f"{row['library_ms']:.5f}" if row["library_ms"] is not None else "null"
+                log(f"    {n} bf16: kernel_ms={row['ms']:.5f} plain_ms={row['plain_ms']:.5f} "
+                    f"library_ms={lib} bound_ms={row['bound_ms']:.5f} ({row['bound_by']}); "
+                    f"wrapper call_ms={row['call_ms']:.4f}")
+            log(f"    SDPA backward (dq, dk, dv in one call) {t_lib_bwd['device_ms']:.5f} ms vs "
+                f"dK/dV + dQ kernels {sum(results[n]['rows'][-1]['ms'] for n in names[1:]):.5f}"
+                f" ms; plain backward (all three) {t_plain_bwd['device_ms']:.5f} ms")
+    for n in names:  # comparison launches do not count
+        getattr(fa, n).launches = before[n]
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 5: train gpt_lm at full width, flash kernels vs no kernel
+# ---------------------------------------------------------------------------
+
+TRAIN_OVERRIDES = [
+    "--train.log_every=1", "--optimizer.warmup_steps=0", "--optimizer.schedule=constant",
+    "--optimizer.learning_rate=3e-4",
+]
+
+
+def train_pass(torch, np, impl, batch=8, steps=6, extra=()):
+    """One ``run_workload("gpt_lm", ...)`` on the card (global batch
+    ``batch``, ``steps`` steps) with the launch counts set to 0 just
+    before it and read just after, and the step-1 gradient captured where
+    the step hands it to the optimizer."""
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+    from distributed_tensorflow_tpu_torch.train import optimizers as topt
+    from distributed_tensorflow_tpu_torch.workloads import run_workload
+
+    captured = {}
+    update = topt.Optimizer.update
+
+    def spy(self, grads):
+        if self.count == 0:
+            captured["grads"] = [g.detach().float().clone() for g in grads]
+        return update(self, grads)
+
+    names = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+    topt.Optimizer.update = spy
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for n in names:
+            getattr(fa, n).launches = 0  # main path starts
+        t0 = time.perf_counter()
+        res = run_workload("gpt_lm", TRAIN_OVERRIDES + [
+            f"--model.attention_impl={impl}", f"--data.global_batch_size={batch}",
+            f"--train.num_steps={steps}", *extra], device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {n: getattr(fa, n).launches for n in names}  # main path read
+    finally:
+        topt.Optimizer.update = update
+    hist = res.history
+    steady = [r for r in hist if "steps_per_sec" in r]
+    step_ms = 1e3 / float(np.median([r["steps_per_sec"] for r in steady]))
+    return dict(impl=impl, batch=batch, res=res, losses=[r["loss"] for r in hist],
+                wall_s=wall, step_ms=step_ms,
+                tok_s=batch * res.state.model.cfg.max_len * 1e3 / step_ms,
+                mfu=float(np.median([r.get("mfu", np.nan) for r in steady])),
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                grads=captured.get("grads"), launches=launches,
+                names=[n for n, _ in res.state.model.named_parameters()])
+
+
+def profile_train_step(torch, res, batch=8):
+    """Where the time of a training step goes: one more flash step of the
+    trained state under torch.profiler — device time by kernel, and the
+    device's busy share of the step's wall time."""
+    from distributed_tensorflow_tpu_torch.data.text import SyntheticLM, TextDataConfig
+    from distributed_tensorflow_tpu_torch.models import transformer as tfm
+    from distributed_tensorflow_tpu_torch.train import make_train_step
+
+    model = res.state.model
+    cfg = model.cfg
+    step = make_train_step(tfm.causal_lm_loss(model, cfg.xent_chunk))
+    data = SyntheticLM(TextDataConfig(dataset="synthetic_lm", global_batch_size=batch,
+                                      seq_len=cfg.max_len, vocab_size=cfg.vocab_size))
+    host = data.batch(100)
+    dev = {k: torch.from_numpy(v).to(DEVICE) for k, v in host.items()}
+    state, m = step(res.state, dev)
+    float(m["loss"])
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, dev)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = [e for e in device_events(torch, prof) if e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    log(f"  profiled flash step (B={batch}, profiler on): wall {wall_ms:.2f} ms, device busy "
+        f"{busy_ms:.2f} ms = {100 * busy_ms / wall_ms:.1f}% (idle "
+        f"{100 - 100 * busy_ms / wall_ms:.1f}%)")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
+        log(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms}
+
+
+def phase_train(torch, np, card):
+    log(f"phase 5: train gpt_lm (gpt_small, S=1024, bf16, random weights from seed 0, "
+        f"SyntheticLM tokens, adamw at constant lr 3e-4, dropout 0.1 — a smoke setting) "
+        f"through run_workload, flash kernels vs no kernel; on {card}")
+    import dataclasses
+    import tempfile
+
+    from distributed_tensorflow_tpu_torch.data.text import SyntheticLM
+    from distributed_tensorflow_tpu_torch.utils.config import apply_overrides
+    from distributed_tensorflow_tpu_torch.workloads import gpt_lm
+
+    # On the SyntheticLM stream every step brings 8k fresh next-token pairs
+    # of a 50k-entry map, so 6 steps do not lower the loss (on an H100 it
+    # stayed within +-0.01 of 10.97 at lr 3e-4; PERF.md). The smoke
+    # therefore trains on a fixed corpus of SyntheticLM's first 8
+    # sequences, written as a token file: the steps revisit its pairs, and
+    # the loss falls if the backward is right.
+    data_cfg = apply_overrides(gpt_lm.default_config(), TRAIN_OVERRIDES).data
+    corpus = SyntheticLM(dataclasses.replace(data_cfg, global_batch_size=8)).batch(0)
+    tmp = tempfile.TemporaryDirectory()
+    path = os.path.join(tmp.name, "corpus.npy")
+    np.save(path, np.append(corpus["input_ids"].reshape(-1), 0).astype(np.int32))
+    log(f"  corpus: SyntheticLM batch 0 ({corpus['input_ids'].shape} tokens) as tokens:{path}")
+    with tmp:
+        passes = {impl: train_pass(torch, np, impl, extra=[f"--data.dataset=tokens:{path}"])
+                  for impl in ("flash", "dense")}
+    flash, dense = passes["flash"], passes["dense"]
+    steps, layers = len(flash["losses"]), flash["res"].state.model.cfg.num_layers
+    for p in passes.values():
+        log(f"  {p['impl']}: losses {[round(x, 5) for x in p['losses']]}; step "
+            f"{p['step_ms']:.2f} ms (median of steps 2-{steps}), {p['tok_s']:.0f} tokens/s, "
+            f"MFU {100 * p['mfu']:.2f}% (flops_per_example x3 over 989e12), peak memory "
+            f"{p['peak_gib']:.2f} GiB, run wall {p['wall_s']:.1f} s, launches {p['launches']}")
+        if not np.isfinite(p["losses"]).all():
+            raise SmokeFailure(f"{p['impl']}: non-finite loss")
+        if not p["losses"][-1] < p["losses"][0]:
+            raise SmokeFailure(f"{p['impl']}: loss did not fall ({p['losses']})")
+    if any(n != layers * steps for n in flash["launches"].values()):
+        raise SmokeFailure(f"flash pass: want {layers} launches a step of each kernel over "
+                           f"{steps} steps, got {flash['launches']}")
+    if any(dense["launches"].values()):
+        raise SmokeFailure(f"dense pass launched a flash kernel: {dense['launches']}")
+    loss_diff = max(abs(a - b) for a, b in zip(flash["losses"], dense["losses"]))
+    log(f"  per-step |loss flash - loss dense| max {loss_diff:.3e} (tol {TOL['train/loss']})")
+    if loss_diff > TOL["train/loss"]:
+        raise SmokeFailure(f"losses differ by {loss_diff}")
+    worst, worst_name, skipped = 0.0, "", []
+    for name, a, b in zip(flash["names"], flash["grads"], dense["grads"]):
+        if not torch.isfinite(a).all():
+            raise SmokeFailure(f"step-1 gradient of {name}: non-finite")
+        if name.endswith("attn.key.bias"):
+            # its exact gradient is 0 (softmax ignores a shift shared by a
+            # row's logits): both passes hold rounding noise only
+            skipped.append(f"{float(a.norm()):.1e}/{float(b.norm()):.1e}")
+            continue
+        rel = float((a - b).norm() / b.norm().clamp_min(1e-30))
+        if rel > worst:
+            worst, worst_name = rel, name
+    log(f"  step-1 gradients: worst relative L2 error {worst:.3e} ({worst_name}; tol "
+        f"{TOL['train/grad_rel_l2']}) over {len(flash['names']) - len(skipped)} parameters; "
+        f"attn.key.bias (exact gradient 0) norms flash/dense {skipped[:3]}...")
+    if worst > TOL["train/grad_rel_l2"]:
+        raise SmokeFailure(f"step-1 gradient of {worst_name} differs by {worst}")
+    prof = profile_train_step(torch, flash["res"])
+    out = {k: flash[k] for k in ("launches", "losses", "step_ms", "tok_s", "mfu", "peak_gib")}
+    out.update(dense_step_ms=dense["step_ms"], loss_diff=loss_diff, grad_rel=worst,
+               profile=prof)
+    del passes, flash, dense
+    torch.cuda.empty_cache()
+    big = train_pass(torch, np, "flash", batch=64, steps=3)
+    log(f"  flash at global batch 64: losses {[round(x, 5) for x in big['losses']]}; step "
+        f"{big['step_ms']:.2f} ms, {big['tok_s']:.0f} tokens/s, MFU {100 * big['mfu']:.2f}%, "
+        f"peak memory {big['peak_gib']:.2f} GiB")
+    out["batch64"] = {k: big[k] for k in ("step_ms", "tok_s", "mfu", "peak_gib")}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -599,7 +940,10 @@ def main() -> int:
                 if "registers" in line or "spill" in line or "error" in line:
                     log(f"  [{name}] {line.strip()}")
         kern = phase_kernels(torch, np, F)
+        kern.update(phase_flash(torch, np, F))
         launches, counts, steps = phase_serve(torch, np, smi)
+        train = phase_train(torch, np, smi)
+        launches.update(train["launches"])
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -612,6 +956,9 @@ def main() -> int:
         ("ln_matmul", "distributed_tensorflow_tpu_torch/ops/csrc/ln_matmul.cu",
          "distributed_tensorflow_tpu/ops/fused_ln_matmul.py:53",
          kern["ln_matmul"]["rows"][3]),
+        *((name, "distributed_tensorflow_tpu_torch/ops/csrc/flash_attention.cu",
+           f"distributed_tensorflow_tpu/ops/flash_attention.py:{line}", kern[name]["rows"][0])
+          for name, line in (("flash_fwd", 75), ("flash_bwd_dkv", 205), ("flash_bwd_dq", 241))),
     ):
         entries.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -621,7 +968,14 @@ def main() -> int:
         })
     log(f"card: {smi}")
     log(f"launches by pass (paged_attention, ln_matmul): {counts}; engine steps by pass: "
-        f"{steps}; timed shapes: paged_attention decode B=8 S=1, ln_matmul M=8 n=3072")
+        f"{steps}; timed shapes: paged_attention decode B=8 S=1, ln_matmul M=8 n=3072, "
+        f"flash B=8 H=12 S=1024 D=64 causal bf16 (flash_bwd_dkv library_ms: SDPA's whole "
+        f"backward, dq+dk+dv; flash_bwd_dq: null)")
+    log(f"gpt_lm training (B=8, S=1024): flash step {train['step_ms']:.2f} ms, "
+        f"{train['tok_s']:.0f} tokens/s, MFU {100 * train['mfu']:.2f}%, dense step "
+        f"{train['dense_step_ms']:.2f} ms; profiled step idle "
+        f"{100 - 100 * train['profile']['busy_ms'] / train['profile']['wall_ms']:.1f}%; "
+        f"batch 64: {train['batch64']}")
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

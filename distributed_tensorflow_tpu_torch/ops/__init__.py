@@ -1,12 +1,23 @@
-"""Ops of the ported serve path. The two CUDA kernels (``csrc/``) are
-built on their first launch, never at import (``_build.py``)."""
+"""Ops of the ported serve and training paths. The CUDA kernels
+(``csrc/``) are built on their first launch, never at import
+(``_build.py``). The dispatch ``attention.attention`` and the
+differentiable ``flash_attention.flash_attention`` are not re-exported
+here: their names are their modules'."""
 
 from .attention import (  # noqa: F401
     NEG_INF,
+    attention_reference,
     cached_attention,
     paged_append_kv,
     paged_attention,
     paged_gather_kv,
+)
+from .flash_attention import (  # noqa: F401
+    flash_attention_bwd_plain,
+    flash_attention_plain,
+    flash_bwd_dkv,
+    flash_bwd_dq,
+    flash_fwd,
 )
 from .fused_ln_matmul import ln_matmul, ln_matmul_plain  # noqa: F401
 from .paged_attention import (  # noqa: F401

@@ -10,7 +10,7 @@ The hash covers the source text and the flags, so an edited source never
 loads a stale library. The directory is listed in ``.gitignore``. Nothing
 here runs at import time: the first wrapper call on a CUDA tensor builds
 and loads its library; ``build_all`` starts one ``nvcc`` per source at
-once (``chip_smoke.py`` builds both kernels in parallel that way).
+once (``chip_smoke.py`` builds every kernel in parallel that way).
 
 A failed build raises ``KernelBuildError`` with nvcc's output. A kernel
 entry point returns ``cudaGetLastError()`` after its launch, and
@@ -27,6 +27,8 @@ import shutil
 import subprocess
 import threading
 
+import torch
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
@@ -37,6 +39,8 @@ NVCC_FLAGS = (
 )
 
 _c_void_p, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_STRIDED = (_c_void_p,) + (ctypes.c_longlong,) * 3
+_FLASH_TAIL = (_c_int,) * 6 + (_c_float, _c_void_p)
 
 #: C entry points per library: name -> (argtypes). Every entry returns
 #: an int — the launchers a cudaError_t; pointers and the stream are
@@ -55,6 +59,19 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
         # eps, stream
         fn: (_c_void_p,) * 6 + (_c_int,) * 5 + (_c_float, _c_void_p)
         for fn in ("ln_matmul_f32", "ln_matmul_bf16_f32", "ln_matmul_bf16")
+    },
+    # each [B,H,S,D] input as (pointer, stride_b, stride_h, stride_s);
+    # then mask, outputs; B, H, Sq, Sk, D, causal, scale, stream
+    "flash_attention": {
+        # q, k, v, mask, out, lse
+        **{f"flash_fwd_{s}": _STRIDED * 3 + (_c_void_p,) * 3 + _FLASH_TAIL
+           for s in ("f32", "bf16")},
+        # q, k, v, o, dout, mask, lse, dk, dv
+        **{f"flash_bwd_dkv_{s}": _STRIDED * 5 + (_c_void_p,) * 4 + _FLASH_TAIL
+           for s in ("f32", "bf16")},
+        # q, k, v, o, dout, mask, lse, dq
+        **{f"flash_bwd_dq_{s}": _STRIDED * 5 + (_c_void_p,) * 3 + _FLASH_TAIL
+           for s in ("f32", "bf16")},
     },
 }
 
@@ -152,6 +169,18 @@ def load(name: str) -> ctypes.CDLL:
         lib.dtf_error_string.restype = ctypes.c_char_p
         _libs[name] = lib
         return lib
+
+
+def refuse_grad(what: str, tensors, hint: str) -> None:
+    """Raise when autograd would record a launch whose kernel has no
+    backward: the ctypes launch returns a tensor with no ``grad_fn``, so
+    a training step would silently give its inputs no gradient."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what} has no backward kernel and an input requires grad; "
+            f"{hint} (or run it under torch.no_grad() / with frozen "
+            f"parameters, as serving does)")
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

@@ -1,10 +1,11 @@
-"""Attention over the paged KV pool: the K/V scatter, the gather view,
-masked cached attention, and the ``paged_attention`` dispatch.
+"""Attention: the dense reference and the training dispatch
+(``attention``), and over the paged KV pool the K/V scatter, the gather
+view, masked cached attention and the ``paged_attention`` dispatch.
 
-Counterpart of the paged half of ``distributed_tensorflow_tpu/ops/
-attention.py``, with its layouts: attention tensors ``[B,H,S,D]``, the
-per-layer pool ``[NB,H,bs,D]``, block tables int32 ``[B,MB]``. One
-difference is deliberate: JAX scatters with ``mode="drop"`` so padded
+Counterpart of ``distributed_tensorflow_tpu/ops/attention.py``
+(``attention_reference`` and the paged half), with its layouts:
+attention tensors ``[B,H,S,D]``, the per-layer pool ``[NB,H,bs,D]``,
+block tables int32 ``[B,MB]``. One difference is deliberate: JAX scatters with ``mode="drop"`` so padded
 rows and idle slots write nothing, while an out-of-range index on a
 CUDA tensor is a device-side assert. The port's per-layer pool therefore
 carries ONE extra trailing block (``[NB+1,H,bs,D]``, see
@@ -19,10 +20,71 @@ import torch
 NEG_INF = -1e30  # large-negative instead of -inf: keeps masked softmax NaN-free
 
 PAGED_IMPLS = ("auto", "gather", "fused", "cuda")
+IMPLS = ("auto", "dense", "flash")
 
 
 def _scale(q: torch.Tensor, sm_scale: float | None) -> float:
     return sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
+
+
+def attention_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    kv_mask: torch.Tensor | None = None,
+    sm_scale: float | None = None,
+) -> torch.Tensor:
+    """Plain softmax(QKᵀ)V: q [B,H,Sq,D], k/v [B,H,Sk,D], kv_mask [B,Sk]
+    bool (True = attend), causal aligned by ``Sk - Sq``. f32 logits and
+    softmax, probabilities cast to v's dtype for the value product;
+    returns [B,H,Sq,D] in q's dtype. As in the JAX version, a row that
+    attends nothing is a uniform softmax over ``NEG_INF`` logits (the
+    mean of v), not zeros as in the flash kernel."""
+    Sq, Sk = q.shape[2], k.shape[2]
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * _scale(q, sm_scale)
+    if kv_mask is not None:
+        logits = torch.where(kv_mask.to(torch.bool)[:, None, None, :], logits, NEG_INF)
+    if causal:
+        qi = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
+        ki = torch.arange(Sk, device=q.device)[None, :]
+        logits = torch.where(ki <= qi, logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.matmul(probs.to(v.dtype), v).to(q.dtype)
+
+
+def attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    kv_mask: torch.Tensor | None = None,
+    impl: str = "auto",
+    sm_scale: float | None = None,
+) -> torch.Tensor:
+    """Training attention (the model's uncached path), selected by ``impl``:
+
+    - ``"dense"`` — ``attention_reference`` (autograd through plain ops);
+    - ``"flash"`` — the hand-written kernels
+      (``ops.flash_attention.flash_attention``: forward, dK/dV, dQ); on
+      CPU tensors their plain versions;
+    - ``"auto"`` — ``"flash"`` for a CUDA tensor, ``"dense"`` on the CPU
+      (the JAX model's "flash on the accelerator" rule).
+
+    ``"blockwise"`` is not ported yet (ROADMAP Queue A item 2)."""
+    if impl == "auto":
+        impl = "flash" if q.is_cuda else "dense"
+    if impl == "flash":
+        from .flash_attention import flash_attention
+
+        return flash_attention(q, k, v, causal=causal, kv_mask=kv_mask, sm_scale=sm_scale)
+    if impl == "dense":
+        return attention_reference(q, k, v, causal=causal, kv_mask=kv_mask,
+                                   sm_scale=sm_scale)
+    raise ValueError(f"attention impl must be one of {IMPLS} (blockwise is not ported "
+                     f"yet: ROADMAP Queue A item 2), got {impl!r}")
 
 
 def paged_append_kv(

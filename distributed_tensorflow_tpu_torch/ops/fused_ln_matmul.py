@@ -7,8 +7,10 @@ result straight into a Dense matmul (q/k/v, mlp_in); the kernel
 normalises each row tile in shared memory, so the normalised tensor
 never reaches device memory. Numerics as in that file: f32 row
 statistics (eps inside the rsqrt), the normalised rows cast to x's
-dtype, f32 accumulation, f32 bias, cast to ``out_dtype``. The backward
-kernels come with the training slice; serving never differentiates.
+dtype, f32 accumulation, f32 bias, cast to ``out_dtype``. Forward only:
+the backward kernels are ROADMAP Queue B rows 6-7, so on a CUDA tensor
+that requires grad (with grad mode on) the wrapper raises instead of
+returning a result autograd cannot differentiate.
 
 ``ln_matmul`` launches the kernel for CUDA tensors (building it with
 nvcc on first use) and raises on what the kernel does not take; for CPU
@@ -64,6 +66,9 @@ def ln_matmul(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     if x.device.type == "cpu":
         return ln_matmul_plain(x, gamma, beta, w, bias, eps=eps,
                                out_dtype=out_dtype)
+    _build.refuse_grad("ln_matmul", (x, gamma, beta, w, bias),
+                       "its backward kernels are ROADMAP Queue B rows 6-7 "
+                       "(slice 3: fused_ln_matmul training)")
     if x.device.type != "cuda":
         raise ValueError(f"ln_matmul runs on cuda or cpu, got {x.device}")
     out_dtype = out_dtype or x.dtype

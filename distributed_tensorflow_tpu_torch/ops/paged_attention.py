@@ -9,7 +9,8 @@ Counterpart of ``distributed_tensorflow_tpu/ops/flash_attention.py``
 ``pool[block_table[b, p // bs], :, p % bs]`` and attends iff
 ``p <= q_pos``. Sentinel ids (>= NB) clamp to NB-1. A row that attends
 nothing (``q_pos = -1``) comes out exactly 0. Forward only: decode never
-differentiates.
+differentiates, and on a CUDA tensor that requires grad (with grad mode
+on) the wrapper raises rather than return a result with no gradient.
 
 ``paged_flash_attention`` launches the kernel for CUDA tensors (building
 it with nvcc on first use) and raises on what the kernel does not take;
@@ -120,6 +121,8 @@ def paged_flash_attention(
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pool, v_pool, block_table,
                                      q_pos=q_pos, sm_scale=sm_scale)
+    _build.refuse_grad("paged_flash_attention", (q, k_pool, v_pool),
+                       "paged attention is the forward-only decode kernel")
     if q.device.type != "cuda":
         raise ValueError(f"paged attention runs on cuda or cpu, got {q.device}")
     _check(q, k_pool, v_pool, block_table, q_pos)

@@ -41,21 +41,11 @@ import torch
 from ..models import transformer as tfm
 from ..obs import flightrec as flightrec_lib
 from ..obs.registry import Registry
+from ..utils.device import resolve_device
 from . import decode as decode_lib
 from . import sampling
 from .kv_cache import BlockAllocator, NoFreeBlocks, PagedKVCache, init_paged_cache
 from .scheduler import FINISH_REASONS, Request, Scheduler
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a torch.device; a CUDA device with no CUDA present
-    raises instead of running anywhere else."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device!r} requested but torch.cuda.is_available() is "
-            f"False; pass device='cpu' to run the plain versions on the CPU")
-    return dev
 
 
 @dataclasses.dataclass

@@ -17,6 +17,7 @@ import dataclasses
 import torch
 
 from ..models.transformer import TransformerConfig, torch_dtype
+from ..utils.device import resolve_device
 
 
 @dataclasses.dataclass
@@ -61,11 +62,13 @@ def init_paged_cache(
     num_blocks: int,
     block_size: int,
     dtype: str | torch.dtype | None = None,
-    device="cpu",
+    device="cuda",
 ) -> PagedKVCache:
     """Zero-filled block pool for ``cfg`` on ``device`` (plus the drop
-    block). Capacity is ``num_blocks * block_size`` tokens shared by
-    every resident request."""
+    block; the card by default — raises without one unless
+    ``device="cpu"``). Capacity is ``num_blocks * block_size`` tokens
+    shared by every resident request."""
+    device = resolve_device(device)
     if num_blocks < 1:
         raise ValueError("num_blocks must be >= 1")
     if block_size < 1:

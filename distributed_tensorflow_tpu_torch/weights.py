@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from .models.transformer import Transformer, TransformerConfig, build
+from .utils.device import resolve_device
 
 
 def _t(a) -> torch.Tensor:
@@ -51,6 +52,10 @@ def _state_dict_from_jax(params_np: Mapping, cfg: TransformerConfig
 
 
 def from_jax_params(params_np: Mapping, cfg: TransformerConfig,
-                    device="cpu") -> Transformer:
-    """``Transformer(cfg)`` on ``device`` with the flax tree's weights."""
-    return build(cfg, _state_dict_from_jax(params_np, cfg), device)
+                    device="cuda", trainable: bool = False) -> Transformer:
+    """``Transformer(cfg)`` on ``device`` with the flax tree's weights —
+    the card by default (raises without one unless ``device="cpu"``).
+    ``trainable=True`` gives f32 masters with gradients on (a model to
+    train); otherwise a frozen serving model."""
+    device = resolve_device(device)
+    return build(cfg, _state_dict_from_jax(params_np, cfg), device, trainable=trainable)

@@ -8,9 +8,11 @@
   ``"distributed_tensorflow_tpu_torch".startswith(
   "distributed_tensorflow_tpu")``, so the JAX package is matched as the
   exact name or the name followed by a dot.
-- Entry points run on the card by default and raise without CUDA:
-  ``ServeEngine`` with no device, and ``python chip_smoke.py``, which
-  exits non-zero and prints no ``"ok": true`` line.
+- Entry points and helpers run on the card by default and raise without
+  CUDA: ``ServeEngine``, ``init_params``, ``init_paged_cache``,
+  ``from_jax_params``, ``run_workload`` and ``python -m
+  distributed_tensorflow_tpu_torch.train`` with no device, and ``python
+  chip_smoke.py``, which exits non-zero and prints no ``"ok": true`` line.
 """
 
 import ast
@@ -112,6 +114,31 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         ServeEngine.with_random_params(cfg)
     eng = ServeEngine(cfg, params, device="cpu")  # explicit CPU is allowed
     assert list(eng.stream([1, 2, 3], max_new_tokens=2)) and eng.device.type == "cpu"
+
+
+def test_helpers_and_training_entry_points_raise_without_cuda(monkeypatch):
+    import torch
+
+    from distributed_tensorflow_tpu_torch.models import transformer as tfm
+    from distributed_tensorflow_tpu_torch.serve.kv_cache import init_paged_cache
+    from distributed_tensorflow_tpu_torch.train.__main__ import main as train_main
+    from distributed_tensorflow_tpu_torch.weights import from_jax_params
+    from distributed_tensorflow_tpu_torch.workloads import run_workload
+
+    cfg = tfm.TransformerConfig(vocab_size=64, max_len=16, num_layers=1, d_model=16,
+                                num_heads=2, d_ff=32, dtype="float32", causal=True,
+                                pre_ln=True)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: tfm.init_params(cfg),
+                 lambda: init_paged_cache(cfg, 4, 8),
+                 lambda: from_jax_params({}, cfg),
+                 lambda: run_workload("gpt_lm", ["--train.num_steps=1"]),
+                 lambda: train_main(["gpt_lm", "--train.num_steps=1"])):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+    # explicit CPU is allowed
+    assert tfm.init_params(cfg, device="cpu")["pos_embed"].device.type == "cpu"
+    assert init_paged_cache(cfg, 4, 8, device="cpu").k_buf.device.type == "cpu"
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["checkout", "script_alone"])

@@ -62,8 +62,9 @@ class Pair:
 
     def __init__(self, jcfg, params, **kw):
         self.j = jserve.ServeEngine(jcfg, params, **kw)
-        self.t = tserve.ServeEngine(H.port_cfg(jcfg), from_jax_params(params, H.port_cfg(jcfg)),
-                                    device="cpu", **kw)
+        self.t = tserve.ServeEngine(
+            H.port_cfg(jcfg), from_jax_params(params, H.port_cfg(jcfg), device="cpu"),
+            device="cpu", **kw)
         names = ["_prefill_chunk_fn", "_decode"] + (["_verify"] if kw.get("spec_k") else [])
         self.jl, self.tl = [], []
         _record(self.j, names, self.jl)

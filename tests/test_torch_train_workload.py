@@ -1,0 +1,106 @@
+"""The port's workload layer against the JAX package: the text stream is
+bit-identical for the same (seed, index), every LR schedule kind gives
+JAX's values, the config overrides parse to the same tree, and
+``run_workload("gpt_lm", ...)`` trains a tiny config on the CPU with a
+finite, falling loss; what this slice does not have is refused with the
+ROADMAP item named."""
+
+import numpy as np
+import pytest
+
+from distributed_tensorflow_tpu.data import text as jtext
+from distributed_tensorflow_tpu.train import optimizers as jopt
+from distributed_tensorflow_tpu.utils import config as jconfig
+from distributed_tensorflow_tpu.workloads import gpt_lm as jgpt
+from distributed_tensorflow_tpu_torch.data import text as ttext
+from distributed_tensorflow_tpu_torch.train import optimizers as topt
+from distributed_tensorflow_tpu_torch.utils import config as tconfig
+from distributed_tensorflow_tpu_torch.workloads import gpt_lm as tgpt
+from distributed_tensorflow_tpu_torch.workloads import run_workload
+
+TINY = ["--model.num_layers=2", "--model.d_model=64", "--model.num_heads=4",
+        "--model.d_ff=128", "--model.vocab_size=256", "--data.vocab_size=256",
+        "--model.max_len=32", "--data.seq_len=32", "--model.xent_chunk=16",
+        "--model.dtype=float32", "--model.dropout=0.0", "--data.global_batch_size=4",
+        "--train.log_every=1", "--optimizer.warmup_steps=0",
+        "--optimizer.learning_rate=3e-3", "--optimizer.schedule=constant"]
+
+
+@pytest.mark.parametrize("index", [0, 7, 1_000_000])
+def test_synthetic_lm_batch_is_bit_identical_to_jax(index):
+    kw = dict(dataset="synthetic_lm", global_batch_size=4, seq_len=48, vocab_size=512, seed=3)
+    got = ttext.SyntheticLM(ttext.TextDataConfig(**kw)).batch(index)
+    want = jtext.SyntheticLM(jtext.TextDataConfig(**kw)).batch(index)
+    assert got.keys() == want.keys()
+    for k in want:
+        assert got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k])
+
+
+def test_token_file_batches_match_jax(tmp_path):
+    path = tmp_path / "tokens.npy"
+    np.save(path, np.random.default_rng(0).integers(0, 100, 5000).astype(np.int32))
+    kw = dict(dataset=f"tokens:{path}", global_batch_size=3, seq_len=16, vocab_size=100)
+    got = ttext.make_text_dataset(ttext.TextDataConfig(**kw), index_offset=5).batch(2)
+    want = jtext.make_text_dataset(jtext.TextDataConfig(**kw), index_offset=5).batch(2)
+    assert np.array_equal(got["input_ids"], want["input_ids"])
+
+
+@pytest.mark.parametrize("kind", ["constant", "cosine", "warmup_cosine", "exponential",
+                                  "linear"])
+@pytest.mark.parametrize("warmup", [0, 3])
+def test_schedules_match_jax(kind, warmup):
+    kw = dict(learning_rate=0.05, schedule=kind, warmup_steps=warmup, total_steps=12,
+              end_lr_factor=0.1, decay_rate=0.5, decay_steps=4)
+    if kind == "warmup_cosine" and warmup == 0:
+        kw["warmup_steps"] = 1
+    got = topt.make_schedule(topt.OptimizerConfig(**kw))
+    want = jopt.make_schedule(jopt.OptimizerConfig(**kw))
+    for step in range(16):
+        assert got(step) == pytest.approx(float(want(step)), abs=1e-7), step
+    if warmup:
+        assert got(0) == 0.0  # the first update has lr 0
+
+
+def test_overrides_parse_to_the_same_config_as_jax():
+    """The same --section.key=value list on both default gpt_lm configs
+    gives the same values in every section the port has (the port keeps
+    a subset of the JAX sections' fields)."""
+    overrides = ["--train.num_steps=7", "--optimizer.learning_rate=1e-3",
+                 "--optimizer.schedule=warmup_cosine", "--model.xent_chunk=128",
+                 "--data.global_batch_size=8", "--model.attention_impl=dense",
+                 "--train.clip_grad_norm=1.0", "--model.head_dtype=bfloat16",
+                 "--mesh.data=-1"]
+    got = tconfig.to_dict(tconfig.apply_overrides(tgpt.default_config(), overrides))
+    want = jconfig.to_dict(jconfig.apply_overrides(jgpt.default_config(), overrides))
+    assert got["workload"] == want["workload"]
+    for section in ("model", "data", "optimizer", "train", "mesh"):
+        for key, value in got[section].items():
+            assert value == want[section][key], (section, key)
+    assert got["model"]["xent_chunk"] == 128 and got["train"]["num_steps"] == 7
+    with pytest.raises(ValueError, match="Unknown config key"):
+        tconfig.apply_overrides(tgpt.default_config(), ["--train.bogus=1"])
+
+
+def test_run_workload_trains_gpt_lm_on_cpu():
+    res = run_workload("gpt_lm", TINY + ["--train.num_steps=3"], device="cpu")
+    losses = [row["loss"] for row in res.history]
+    assert res.state.step == 3 and len(losses) == 3 and res.device.type == "cpu"
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]
+    assert "steps_per_sec" in res.history[-1]
+
+
+@pytest.mark.parametrize("override,match", [
+    ("--checkpoint.directory=/tmp/ckpt", "checkpoint.py"),
+    ("--mesh.data=2", "more than one"),
+    ("--mesh.pipe=2", "pipeline"),
+    ("--fleet.dir=/tmp/fleet", "fleet"),
+    ("--train.anomaly_defense=true", "anomaly"),
+    ("--model.seq_impl=ring", "ring_attention"),
+    ("--model.num_experts=4", "moe"),
+    ("--model.fused_ln_matmul=true", "rows 6-7"),
+    ("--optimizer.name=lamb", "not ported"),
+])
+def test_unsupported_configs_raise_naming_the_roadmap_item(override, match):
+    with pytest.raises((ValueError, NotImplementedError), match=match):
+        run_workload("gpt_lm", TINY + ["--train.num_steps=1", override], device="cpu")
+

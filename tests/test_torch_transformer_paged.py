@@ -82,8 +82,8 @@ def jax_apply(model):
 def test_paged_forward_matches_jax(jax_run, impl):
     jcfg, params, outs = jax_run
     cfg = H.port_cfg(jcfg, paged_attention_impl=impl)
-    model = from_jax_params(params, cfg)
-    cache = tkv.init_paged_cache(cfg, NB, BS, dtype="float32")
+    model = from_jax_params(params, cfg, device="cpu")
+    cache = tkv.init_paged_cache(cfg, NB, BS, dtype="float32", device="cpu")
     for i, ((tokens, pos, table), (jl, jk, jv)) in enumerate(zip(_steps(), outs)):
         with torch.no_grad():
             logits, same = model(torch.from_numpy(tokens), kv_cache=cache,
@@ -110,7 +110,7 @@ def test_port_config_and_weights_contract():
     assert H.port_cfg(jtfm.gpt_small()) == g
     jcfg = H.jax_cfg(d_ff=96)
     params = H.params_np(jcfg)
-    model = from_jax_params(params, H.port_cfg(jcfg))
+    model = from_jax_params(params, H.port_cfg(jcfg), device="cpu")
     np.testing.assert_array_equal(model.layers[1].mlp_in.weight.numpy(),
                                   params["layer_1"]["mlp_in"]["kernel"].T)
     with pytest.raises(ValueError, match="pre-LN"):
