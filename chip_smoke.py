@@ -41,7 +41,28 @@ when any phase fails:
    that each flash kernel launched exactly 12 times a step; print
    tokens/s, step ms, MFU and peak memory, the device idle share of one
    profiled step, and one flash run at global batch 64;
-6. print the ``kernels`` JSON line, then the ``ok`` line last.
+6. train ``resnet50_imagenet`` (ResNet-50 at full depth and width,
+   ``space_to_depth`` stem, 224x224, 1000 classes, bf16, random weights
+   from seed 0, global batch 256, 6 steps of momentum + L2 at a constant
+   lr 0.1 on two fixed SyntheticClassification batches written as an
+   npz) through ``run_workload`` three times from the same weights (the
+   bn3 scales drawn non-zero) and batches: ``block_impl="fused"`` with
+   ``DTF_FUSED_BWD=pallas`` (the four conv+BN kernels), ``fused`` with
+   ``xla``, and ``standard`` (no kernel), then one f32 step fused +
+   pallas and standard; hold the f32 fused step's loss, BN update and
+   gradients to the f32 standard step, the bf16 kernel passes' losses and
+   BN updates to the bf16 standard pass and their gradients to the f32
+   standard step no further than the bf16 standard pass's (``TOL``);
+   check that the loss falls and that the launch counts are the port's
+   rule's (36 forwards a step, the single-pass backward where
+   ``single_pass`` holds, the dx + dw pair elsewhere); print images/s,
+   step ms, MFU and peak memory of each pass and the device idle share of
+   one profiled fused step with its batch preloaded. (Phase 2d,
+   before serving: the four kernels against their plain versions at a
+   conv3 and a conv1/projection shape of each stage at batch 256, bf16,
+   f32 at two shapes, a bitwise repeat, timed against the bound, the plain
+   version and the product alone in ``torch.matmul``.)
+7. print the ``kernels`` JSON line, then the ``ok`` line last.
 
 TF32 is off for every f32 product compared here
 (``torch.backends.cuda.matmul.allow_tf32 = False``).
@@ -92,6 +113,51 @@ TOL = {
     # carried through 12 residual layers (logits of random weights have
     # std ~0.5)
     "logits": 5e-2,
+    # fused 1x1 conv + BN kernels vs their plain versions. Elementwise
+    # outputs (y, dx): f32 — the same f32 math in another summation order
+    # over up to 2048 channels; bf16 — both round one f32 result (and h, g
+    # before the products) to bf16, so one ulp (2^-7 relative at worst).
+    # Reductions over M (the statistics, dw, dscale, dshift: up to 802816
+    # rows), relative L2 error: f32 — f32 sums in another order; bf16 —
+    # an h or g rounded to bf16 on the other side of a tie (the kernel
+    # fuses x*scale+shift into one FMA) moves a term by one ulp
+    "conv_bn/float32": (1e-4, 1e-4),
+    "conv_bn/bfloat16": (1e-2, 2 ** -7),
+    "conv_bn/reduction/float32": 1e-5,
+    "conv_bn/reduction/bfloat16": 2e-3,
+    # resnet50_imagenet training, B=256, every pass from the same weights
+    # with non-zero bn3 scales (RESNET_BN3_SCALE). A step-1 gradient of
+    # this 50-layer net at init is exponentially sensitive to rounding:
+    # each BatchNorm backward cancels most of its input gradient and passes
+    # on what rounding left, so summation order alone moves the f32
+    # gradients by a median 7.4e-3 and bf16 rounding moves the bf16
+    # standard model's gradients by a median 0.46 from the f32 one (on an
+    # H100, PERF.md; each limit below stands beside what was measured
+    # there). So:
+    # - f32, one step, fused + pallas (all four kernels) vs standard:
+    #   gradients per parameter (relative L2) within a few times that f32
+    #   floor; the loss and the BN statistics' step-1 update (the forward
+    #   alone) within a few times f32 summation order;
+    "resnet/f32/loss": 1e-5,                  # measured 0
+    "resnet/f32/bn_update": 1e-4,             # 3.1e-5
+    "resnet/f32/grad_rel_l2": 4e-2,           # 1.06e-2
+    "resnet/f32/grad_rel_l2/median": 2.5e-2,  # 7.4e-3
+    # - bf16, each kernel pass vs the standard pass (BatchNorm applied as
+    #   x*scale+shift vs (x-mean)*mul+bias, the residual added in f32 vs
+    #   bf16, 1x1 products summed in another order): the step-1 loss and
+    #   BN update (the forward alone) within a few ulps' worth, the
+    #   per-step loss over 6 steps (absolute, ~7 nats) a few times what
+    #   diverging trajectories measured; the step-1 gradients' median
+    #   distance to the f32 standard model at most 1.2x the bf16 standard
+    #   model's — no noisier than the model with no kernel;
+    "resnet/loss/step1": 3e-4,                # 6.5e-5
+    "resnet/loss": 5e-3,                      # 1.03e-3
+    "resnet/bn_update": 1e-2,                 # 2.8e-3
+    "resnet/grad_vs_f32": 1.2,                # 0.99 (0.452 vs 0.457)
+    # - bf16, pallas vs xla: the same forward, so the backward kernels
+    #   against the plain math alone, worst and median
+    "resnet/grad_rel_l2/bwd": 6e-2,           # 1.89e-2
+    "resnet/grad_rel_l2/bwd/median": 3e-2,    # 8.6e-3
 }
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -533,6 +599,170 @@ def phase_flash(torch, np, F):
 
 
 # ---------------------------------------------------------------------------
+# phase 2d: the fused 1x1 conv + BN kernels at ResNet-50's batch-256 shapes
+# ---------------------------------------------------------------------------
+
+#: (M, cin, cout, prologue): one conv3 (bn2 + ReLU prologue) and one conv1
+#: or projection (no prologue) of each stage; every one emits statistics
+CONV_BN_SHAPES = [
+    (802816, 64, 256, True), (802816, 256, 64, False),
+    (200704, 128, 512, True), (200704, 256, 512, False),
+    (50176, 256, 1024, True), (50176, 1024, 256, False),
+    (12544, 512, 2048, True), (12544, 2048, 512, False),
+]
+#: f32 checks (no timing): a stage-3 conv3 (two-pass) and a stage-0 conv3
+#: (single-pass: the f32 kernel's ~220 KB of shared memory)
+CONV_BN_F32_SHAPES = [(12544, 512, 2048), (12544, 64, 256)]
+#: the shape of each kernel's row in the kernels line and PERF.md
+CONV_BN_MAIN = {"conv_bn_fwd": (802816, 64, 256, True),
+                "conv_bn_bwd_dx": (200704, 128, 512, True),
+                "conv_bn_bwd_dw": (200704, 128, 512, True),
+                "conv_bn_bwd_single": (802816, 64, 256, True)}
+
+
+def conv_bn_case(torch, np, rng, dtype, M, cin, cout, prologue):
+    """x, the OIHW weight's [cin, cout] view, the previous BN's affine and
+    the backward's cotangents, as the ResNet path gives them."""
+    def f(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(DEVICE)
+    return dict(x=f(M, cin).to(dtype), w=(f(cout, cin) / cin ** 0.5).to(dtype).t(),
+                scale=1 + 0.2 * f(cin) if prologue else None,
+                shift=0.2 * f(cin) if prologue else None,
+                dy=(f(M, cout) / M ** 0.5).to(dtype), dsum=f(cout) / M, dssq=f(cout) / M)
+
+
+def conv_bn_bound_ms(c, kind, dtype_name) -> tuple[float, str]:
+    """Least time for the work: each input read once, each output written
+    once (forward: x, w, scale/shift -> y, sum, sumsq; dx: y, dy, w,
+    dsum/dssq and, with a prologue only, x and scale/shift -> dx and, with
+    a prologue, dscale, dshift; dw: x, y, dy, scale/shift, dsum/dssq -> dw
+    f32; single: both), and 2*M*cin*cout operations per product (one, one,
+    one, two)."""
+    M, cin = c["x"].shape
+    cout = c["w"].shape[1]
+    e = c["x"].element_size()
+    aff = 8 * cin if c["scale"] is not None else 0
+    mat = {"fwd": (M * cin * e + cin * cout * e + aff, M * cout * e + 8 * cout, 1),
+           "dx": (M * 2 * cout * e + (aff and M * cin * e) + cin * cout * e + aff + 8 * cout,
+                  M * cin * e + (aff and 8 * cin), 1),
+           "dw": (M * (cin + 2 * cout) * e + aff + 8 * cout, 4 * cin * cout, 1),
+           "single": (M * (cin + 2 * cout) * e + cin * cout * e + aff + 8 * cout,
+                      M * cin * e + 4 * cin * cout + (aff and 8 * cin), 2)}[kind]
+    t_bytes = (mat[0] + mat[1]) / HBM_BYTES_PER_S
+    t_ops = mat[2] * 2 * M * cin * cout / PEAK_OPS[dtype_name]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_conv_bn(torch, np):
+    from distributed_tensorflow_tpu_torch.ops import fused_conv_bn as fcb
+
+    rng = np.random.default_rng(4)
+    names = tuple(fcb.KERNELS)
+    results = {n: {"err": 0.0, "rows": []} for n in names}
+    before = {n: k.launches for n, k in fcb.KERNELS.items()}
+    log("phase 2d: fused 1x1 conv + BN kernels vs plain versions at ResNet-50's batch-256 "
+        "shapes (bf16; f32 at two) — elementwise outputs (atol, rtol), reductions over M as "
+        "relative L2 error")
+
+    def rel(got, want):
+        return float((got.float() - want.float()).norm() / want.float().norm().clamp_min(1e-30))
+
+    def check(c, dtype, tag, timed):
+        dn = str(dtype).split(".")[-1]
+        tol, rtol = TOL[f"conv_bn/{dn}"], TOL[f"conv_bn/reduction/{dn}"]
+        M, cin = c["x"].shape
+        cout = c["w"].shape[1]
+        aff = (c["scale"], c["shift"])
+        y, s, q = fcb.conv1x1_bn_fwd(c["x"], c["w"], *aff)
+        bwd = (c["x"], y, c["dy"], c["w"], *aff, c["dsum"], c["dssq"])
+        dx, dsc, dsh = fcb.conv1x1_bn_bwd_dx(*bwd)
+        dw = fcb.conv1x1_bn_bwd_dw(c["x"], y, c["dy"], *aff, c["dsum"], c["dssq"])
+        single = fcb.conv1x1_bn_bwd_single(*bwd) if fcb.single_pass(cin, cout) else None
+        torch.cuda.synchronize()
+        wy, ws, wq = fcb.conv1x1_bn_act_plain(c["x"], c["w"], *aff)
+        ref = fcb.conv1x1_bn_bwd_plain(*bwd)
+        errs = {"conv_bn_fwd": [check_close(torch, f"conv_bn_fwd/y {tag}", y, wy, tol)]}
+        reds = {"sum": rel(s, ws), "sumsq": rel(q, wq)}
+        errs["conv_bn_bwd_dx"] = [check_close(torch, f"conv_bn_bwd_dx/dx {tag}", dx, ref[0], tol)]
+        reds["dw"] = rel(dw, ref[1])
+        if aff[0] is not None:
+            reds.update(dscale=rel(dsc, ref[2]), dshift=rel(dsh, ref[3]))
+        if single is not None:
+            errs["conv_bn_bwd_single"] = [check_close(
+                torch, f"conv_bn_bwd_single/dx {tag}", single[0], ref[0], tol)]
+            reds["single/dw"] = rel(single[1], ref[1])
+            if aff[0] is not None:
+                reds.update({"single/dscale": rel(single[2], ref[2]),
+                             "single/dshift": rel(single[3], ref[3])})
+        # max_abs_err: the elementwise outputs (y, dx); dw, the dw kernel's
+        # only output, is held by its relative L2 error like every reduction
+        errs["conv_bn_bwd_dw"] = [float((dw - ref[1]).abs().max())]
+        log(f"    {tag} reductions, relative L2 (tol {rtol:g}): "
+            + " ".join(f"{k}={v:.2e}" for k, v in reds.items()))
+        if max(reds.values()) > rtol:
+            raise SmokeFailure(f"conv_bn {tag}: a reduction is off by {max(reds.values()):.3e}")
+        for n, e in errs.items():
+            results[n]["err"] = max(results[n]["err"], *e)
+        # bitwise repeat: the reductions use no float atomics
+        if timed and not (torch.equal(y, fcb.conv1x1_bn_fwd(c["x"], c["w"], *aff)[0])
+                          and torch.equal(dw, fcb.conv1x1_bn_bwd_dw(
+                              c["x"], y, c["dy"], *aff, c["dsum"], c["dssq"]))
+                          and torch.equal(dx, fcb.conv1x1_bn_bwd_dx(*bwd)[0])
+                          and (single is None
+                               or torch.equal(single[1], fcb.conv1x1_bn_bwd_single(*bwd)[1]))):
+            raise SmokeFailure(f"conv_bn {tag}: a second call is not bitwise equal")
+        return y
+
+    for M, cin, cout, prologue in CONV_BN_SHAPES:
+        c = conv_bn_case(torch, np, rng, torch.bfloat16, M, cin, cout, prologue)
+        tag = f"bf16 M={M} {cin}->{cout} {'bn+relu prologue' if prologue else 'no prologue'}"
+        y = check(c, torch.bfloat16, tag, timed=True)
+        aff = (c["scale"], c["shift"])
+        bwd = (c["x"], y, c["dy"], c["w"], *aff, c["dsum"], c["dssq"])
+        g = (c["dy"].float() + c["dsum"] + 2 * y.float() * c["dssq"]).to(torch.bfloat16)
+        h = fcb._hq(c["x"], *aff, True)
+        kern = {"conv_bn_fwd": lambda: fcb.conv1x1_bn_fwd(c["x"], c["w"], *aff),
+                "conv_bn_bwd_dx": lambda: fcb.conv1x1_bn_bwd_dx(*bwd),
+                "conv_bn_bwd_dw": lambda: fcb.conv1x1_bn_bwd_dw(c["x"], y, c["dy"], *aff,
+                                                                c["dsum"], c["dssq"])}
+        if fcb.single_pass(cin, cout):
+            kern["conv_bn_bwd_single"] = lambda: fcb.conv1x1_bn_bwd_single(*bwd)
+        # library yardstick, the product alone: x@w, g@w^T, h^T@g (both for single)
+        lib = {"conv_bn_fwd": lambda: torch.matmul(c["x"], c["w"]),
+               "conv_bn_bwd_dx": lambda: torch.matmul(g, c["w"].t()),
+               "conv_bn_bwd_dw": lambda: torch.matmul(h.t(), g),
+               "conv_bn_bwd_single": lambda: (torch.matmul(g, c["w"].t()),
+                                              torch.matmul(h.t(), g))}
+        plain = {"fwd": cuda_ms(torch, [lambda: fcb.conv1x1_bn_act_plain(c["x"], c["w"], *aff)],
+                                iters=10, warmup=2),
+                 "bwd": cuda_ms(torch, [lambda: fcb.conv1x1_bn_bwd_plain(*bwd)], iters=10,
+                                warmup=2)}
+        for n, fn in kern.items():
+            tk, tl = cuda_ms(torch, [fn], iters=20), cuda_ms(torch, [lib[n]], iters=20)
+            kind = n.split("_")[-1]
+            row = dict(M=M, cin=cin, cout=cout, prologue=prologue, ms=tk["device_ms"],
+                       call_ms=tk["call_ms"], library_ms=tl["device_ms"],
+                       plain_ms=plain["fwd" if kind == "fwd" else "bwd"]["device_ms"])
+            row["bound_ms"], row["bound_by"] = conv_bn_bound_ms(c, kind, "bfloat16")
+            results[n]["rows"].append(row)
+            log(f"    {n} M={M} {cin}->{cout}: kernel_ms={row['ms']:.5f} "
+                f"plain_ms={row['plain_ms']:.5f} library_ms={row['library_ms']:.5f} "
+                f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}) "
+                f"({row['bound_ms'] / row['ms']:.1%} of bound); wrapper call_ms={row['call_ms']:.4f}")
+        del c, y, g, h, bwd, kern, lib
+        torch.cuda.empty_cache()
+    for M, cin, cout in CONV_BN_F32_SHAPES:
+        c = conv_bn_case(torch, np, rng, torch.float32, M, cin, cout, True)
+        check(c, torch.float32, f"f32 M={M} {cin}->{cout} bn+relu prologue", timed=False)
+    for n in names:  # comparison launches do not count
+        fcb.KERNELS[n].launches = before[n]
+    for n in names:
+        results[n]["main"] = next(r for r in results[n]["rows"]
+                                  if (r["M"], r["cin"], r["cout"], r["prologue"]) == CONV_BN_MAIN[n])
+    return results
+
+
+# ---------------------------------------------------------------------------
 # phase 5: train gpt_lm at full width, flash kernels vs no kernel
 # ---------------------------------------------------------------------------
 
@@ -695,6 +925,290 @@ def phase_train(torch, np, card):
         f"{big['step_ms']:.2f} ms, {big['tok_s']:.0f} tokens/s, MFU {100 * big['mfu']:.2f}%, "
         f"peak memory {big['peak_gib']:.2f} GiB")
     out["batch64"] = {k: big[k] for k in ("step_ms", "tok_s", "mfu", "peak_gib")}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 6: train resnet50_imagenet at full size, fused kernels vs standard
+# ---------------------------------------------------------------------------
+
+#: momentum 0.9 with the preset's coupled L2 1e-4 at a constant lr 0.1 (the
+#: preset's 0.4 scaled to batch 256; its 6255-step warmup would train at
+#: lr ~0 for the smoke's 6 steps) — a smoke setting, not a recipe
+RESNET_OVERRIDES = [
+    "--train.log_every=1", "--optimizer.warmup_steps=0", "--optimizer.schedule=constant",
+    "--optimizer.learning_rate=0.1", "--data.global_batch_size=256", "--train.num_steps=6",
+]
+#: parameters listed with their gradient errors, worst first
+RESNET_SHOW = 5
+#: (mean, std) of the bn3 scales every pass starts from (numpy, seed 5) in
+#: place of flax's zero init, so that step 1's branch gradients are not 0
+RESNET_BN3_SCALE = (0.25, 0.05)
+#: (block_impl, DTF_FUSED_BWD) of the three passes; the last is the reference
+RESNET_PASSES = (("fused", "pallas"), ("fused", "xla"), ("standard", "xla"))
+#: the f32 check: one step of the fused model with every kernel and one of
+#: the standard model, which every bf16 pass's gradient is held to
+RESNET_F32_PASSES = (("fused", "pallas"), ("standard", "xla"))
+RESNET_F32_OVERRIDES = ("--model.dtype=float32", "--train.num_steps=1")
+
+
+def resnet_launch_rule(cfg) -> dict[str, int]:
+    """Launches a step the port's rule predicts for the fused model under
+    bwd_impl="pallas": one forward per 1x1 conv; the single-pass backward
+    where ``single_pass`` holds, else the dx + dw pair."""
+    from distributed_tensorflow_tpu_torch.ops.fused_conv_bn import single_pass
+
+    convs, cin = [], cfg.width
+    for stage, blocks in enumerate(cfg.stage_sizes):
+        f = cfg.width * 2 ** stage
+        for block in range(blocks):
+            stride = 2 if stage > 0 and block == 0 else 1
+            convs += [(cin, f), (f, 4 * f)] + ([(cin, 4 * f)] if cin != 4 * f or stride != 1
+                                               else [])
+            cin = 4 * f
+    single = sum(single_pass(*c) for c in convs)
+    return {"conv_bn_fwd": len(convs), "conv_bn_bwd_single": single,
+            "conv_bn_bwd_dx": len(convs) - single, "conv_bn_bwd_dw": len(convs) - single}
+
+
+def resnet_pass(torch, np, impl, bwd, path, extra=()):
+    """One ``run_workload("resnet50_imagenet", ...)`` with the launch counts
+    set to 0 just before it and read just after, from the workload's
+    random weights with the bn3 scales drawn from ``RESNET_BN3_SCALE``.
+    Where step 1 hands its gradient to the optimizer it captures the
+    gradient and the BN running statistics' step-1 update (running minus
+    initial: the batch statistics of step 1's forward, times 0.1)."""
+    from distributed_tensorflow_tpu_torch.models import resnet
+    from distributed_tensorflow_tpu_torch.ops import fused_conv_bn as fcb
+    from distributed_tensorflow_tpu_torch.train import optimizers as topt
+    from distributed_tensorflow_tpu_torch.workloads import run_workload
+
+    captured = {}
+    update, init_params, build = topt.Optimizer.update, resnet.init_params, resnet.build
+
+    def spy(self, grads):
+        if self.count == 0:
+            captured["grads"] = [g.detach().float().clone() for g in grads]
+            captured["bn_update"] = {n: b.detach().float() - captured["bn_init"][n]
+                                     for n, b in captured["model"].named_buffers()}
+        return update(self, grads)
+
+    def perturbed_init(*args, **kw):
+        params = init_params(*args, **kw)
+        rng = np.random.default_rng(5)
+        for name in sorted(params):
+            if name.endswith("bn3.weight"):
+                params[name] = torch.from_numpy(rng.normal(
+                    *RESNET_BN3_SCALE, params[name].shape).astype(np.float32)).to(params[name])
+        return params
+
+    def recording_build(*args, **kw):
+        model = captured["model"] = build(*args, **kw)
+        captured["bn_init"] = {n: b.detach().float().clone() for n, b in model.named_buffers()}
+        return model
+
+    os.environ["DTF_FUSED_BWD"] = bwd
+    topt.Optimizer.update, resnet.init_params, resnet.build = spy, perturbed_init, recording_build
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in fcb.KERNELS.values():
+            k.launches = 0  # main path starts
+        t0 = time.perf_counter()
+        res = run_workload("resnet50_imagenet", RESNET_OVERRIDES + [
+            f"--model.block_impl={impl}", f"--data.dataset=npz:{path}", *extra], device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {n: k.launches for n, k in fcb.KERNELS.items()}  # main path read
+    finally:
+        topt.Optimizer.update, resnet.init_params, resnet.build = update, init_params, build
+    if "grads" not in captured:
+        raise SmokeFailure(f"resnet {impl}/{bwd}: no step-1 gradient reached the optimizer")
+    hist = res.history
+    steady = [r for r in hist if "steps_per_sec" in r]  # none in a one-step pass
+
+    def median(key):
+        return float(np.median([r.get(key, np.nan) for r in steady])) if steady else np.nan
+
+    step_ms = 1e3 / median("steps_per_sec")
+    model = res.state.model
+    batch = resnet_run_cfg().data.global_batch_size
+    return dict(impl=impl, bwd=bwd, res=res, losses=[r["loss"] for r in hist], wall_s=wall,
+                step_ms=step_ms, img_s=batch * 1e3 / step_ms, mfu=median("mfu"),
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                grads=captured["grads"], bn_update=captured["bn_update"], launches=launches,
+                names=[n for n, _ in model.named_parameters()])
+
+
+def profile_resnet_step(torch, np, res, path):
+    """One more fused step (bwd_impl="pallas") of the trained state under
+    torch.profiler, its batch already on the device: device time by
+    kernel, and the device's busy share of the step's wall time (the
+    timed steps of ``run_workload`` also gather and copy their batch)."""
+    from distributed_tensorflow_tpu_torch.data.pipeline import NpzDataset
+    from distributed_tensorflow_tpu_torch.models import common
+    from distributed_tensorflow_tpu_torch.train import make_train_step
+
+    os.environ["DTF_FUSED_BWD"] = "pallas"
+    model = res.state.model
+    step = make_train_step(common.classification_loss_fn(model, label_smoothing=0.1))
+    host = NpzDataset(path, resnet_run_cfg().data).batch(0)
+    dev = {k: torch.from_numpy(v).to(DEVICE) for k, v in host.items()}
+    state, m = step(res.state, dev)
+    float(m["loss"])
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, dev)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = [e for e in device_events(torch, prof) if e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    log(f"  profiled fused step (B=256, bwd pallas, batch preloaded on the device, profiler "
+        f"on): wall {wall_ms:.2f} ms, device "
+        f"busy {busy_ms:.2f} ms = {100 * busy_ms / wall_ms:.1f}% (idle "
+        f"{100 - 100 * busy_ms / wall_ms:.1f}%)")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:20]:
+        log(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms}
+
+
+def resnet_run_cfg():
+    """The RunConfig the passes run (before their block_impl and dataset)."""
+    from distributed_tensorflow_tpu_torch.utils.config import apply_overrides
+    from distributed_tensorflow_tpu_torch.workloads import resnet50_imagenet
+
+    return apply_overrides(resnet50_imagenet.default_config(), RESNET_OVERRIDES)
+
+
+def resnet_diffs(torch, p, q) -> dict:
+    """Pass ``p`` against pass ``q``: the step-1 loss difference, the
+    largest per-step loss difference, the worst relative L2 error of the
+    BN statistics' step-1 update (per buffer), and the step-1 gradients'
+    relative L2 errors per parameter (``rows``, worst first)."""
+    def rel(a, b):
+        return float((a - b).norm()) / max(float(b.norm()), 1e-30)
+
+    rows = []
+    for name, a, b in zip(p["names"], p["grads"], q["grads"]):
+        if not torch.isfinite(a).all():
+            raise SmokeFailure(f"resnet {p['tag']}: step-1 gradient of {name} is non-finite")
+        rows.append((rel(a, b), name, float((a - b).norm()), float(b.norm())))
+    rows.sort(reverse=True)
+    return dict(tag=f"{p['tag']} vs {q['tag']}", rows=rows, worst=rows[0][0],
+                median=rows[len(rows) // 2][0], loss1=abs(p["losses"][0] - q["losses"][0]),
+                loss=max(abs(a - b) for a, b in zip(p["losses"], q["losses"])),
+                bn=max((rel(a, q["bn_update"][n]), n) for n, a in p["bn_update"].items()))
+
+
+def gate_resnet(d, limits: dict, note: str = "") -> dict:
+    """Log ``d`` (``resnet_diffs``) with the ``RESNET_SHOW`` worst
+    gradients and fail if a number named in ``limits`` exceeds its limit."""
+    got = {"loss1": d["loss1"], "loss": d["loss"], "bn": d["bn"][0], "worst": d["worst"],
+           "median": d["median"]}
+    lim = lambda k: f" (limit {limits[k]:.3g})" if k in limits else ""  # noqa: E731
+    log(f"  {d['tag']}: step-1 |loss diff| {d['loss1']:.3e}{lim('loss1')}, per-step max "
+        f"{d['loss']:.3e}{lim('loss')}; BN step-1 update worst relative L2 {d['bn'][0]:.3e} "
+        f"({d['bn'][1]}){lim('bn')}; step-1 gradients relative L2: worst {d['worst']:.3e} "
+        f"({d['rows'][0][1]}){lim('worst')}, median {d['median']:.3e}{lim('median')} over "
+        f"{len(d['rows'])} parameters{note}")
+    for rel, name, err, ref in d["rows"][:RESNET_SHOW]:
+        log(f"    {name}: relative {rel:.3e}, |a-b| {err:.3e}, |b| {ref:.3e}")
+    bad = {k: got[k] for k in limits if not got[k] <= limits[k]}
+    if bad:
+        raise SmokeFailure(f"resnet {d['tag']}: outside tolerance: {bad}")
+    return got
+
+
+def phase_resnet(torch, np, card):
+    log(f"phase 6: train resnet50_imagenet (ResNet-50, space_to_depth stem, 224x224, 1000 "
+        f"classes, bf16, random weights from seed 0 with bn3 scales ~N{RESNET_BN3_SCALE}, "
+        f"global batch 256, momentum + L2 1e-4 at "
+        f"a constant lr 0.1, label smoothing 0.1, 6 steps — a smoke setting) through "
+        f"run_workload: fused + pallas backward, fused + xla backward, standard; then one f32 "
+        f"step fused + pallas and standard; on {card}")
+    import tempfile
+
+    from distributed_tensorflow_tpu_torch.data.pipeline import SyntheticClassification
+
+    # two SyntheticClassification batches (a 602 MB teacher and a 77 GFLOP
+    # host product each), built once and written as an npz: the steps
+    # revisit its 512 images, so the loss falls if the backward is right
+    t0 = time.perf_counter()
+    data = SyntheticClassification(resnet_run_cfg().data)
+    corpus = [data.batch(i) for i in range(2)]
+    del data
+    tmp = tempfile.TemporaryDirectory()
+    path = os.path.join(tmp.name, "images.npz")
+    np.savez(path, image=np.concatenate([b["image"] for b in corpus]),
+             label=np.concatenate([b["label"] for b in corpus]))
+    del corpus
+    log(f"  corpus: SyntheticClassification batches 0-1 (512 images) as npz:{path} in "
+        f"{time.perf_counter() - t0:.1f}s")
+    passes, f32 = [], []
+    with tmp:
+        for impl, bwd in RESNET_PASSES:
+            passes.append(resnet_pass(torch, np, impl, bwd, path))
+            p = passes[-1]
+            p["tag"] = f"{impl}/{bwd}"
+            log(f"  {impl} ({bwd} backward): losses {[round(x, 5) for x in p['losses']]}; step "
+                f"{p['step_ms']:.2f} ms (median of steps 2-6), {p['img_s']:.1f} images/s, MFU "
+                f"{100 * p['mfu']:.2f}% (flops_per_example x 256 x 3 over 989e12), peak memory "
+                f"{p['peak_gib']:.2f} GiB, run wall {p['wall_s']:.1f} s, launches {p['launches']}")
+            if not np.isfinite(p["losses"]).all():
+                raise SmokeFailure(f"resnet {impl}/{bwd}: non-finite loss")
+            if not p["losses"][-1] < p["losses"][0]:
+                raise SmokeFailure(f"resnet {impl}/{bwd}: loss did not fall ({p['losses']})")
+            if impl == "fused" and bwd == "pallas":
+                prof = profile_resnet_step(torch, np, p["res"], path)
+            p["res"] = None  # keep the numbers, free the model
+            torch.cuda.empty_cache()
+        for impl, bwd in RESNET_F32_PASSES:
+            f32.append(resnet_pass(torch, np, impl, bwd, path, RESNET_F32_OVERRIDES))
+            f32[-1].update(res=None, tag=f"f32 {impl}/{bwd}")
+            log(f"  f32 {impl} ({bwd} backward), one step: loss {f32[-1]['losses'][0]:.6f}, "
+                f"peak memory {f32[-1]['peak_gib']:.2f} GiB, launches {f32[-1]['launches']}")
+            torch.cuda.empty_cache()
+    pallas, xla, ref = passes
+    f32_pallas, f32_ref = f32
+    rule = resnet_launch_rule(resnet_run_cfg().model)
+    steps = len(ref["losses"])
+    want = {"fused/pallas": {n: c * steps for n, c in rule.items()},
+            "fused/xla": {n: (c * steps if n == "conv_bn_fwd" else 0) for n, c in rule.items()},
+            "standard/xla": {n: 0 for n in rule}, "f32 fused/pallas": rule,
+            "f32 standard/xla": {n: 0 for n in rule}}
+    for p in passes + f32:
+        if p["launches"] != want[p["tag"]]:
+            raise SmokeFailure(f"resnet {p['tag']}: launches {p['launches']}, the rule predicts "
+                               f"{want[p['tag']]} ({rule} a step)")
+    log(f"  launches a step by the port's rule (fused, pallas): {rule}; every pass matched")
+    out = {"launches": pallas["launches"], "rule": rule, "profile": prof, "compare": {},
+           "passes": {}}
+    # f32: every kernel against the standard model, where rounding is small
+    # enough for a step-1 gradient to show a kernel's fault
+    out["compare"]["f32"] = f32_diff = gate_resnet(resnet_diffs(torch, f32_pallas, f32_ref), {
+        "loss1": TOL["resnet/f32/loss"], "bn": TOL["resnet/f32/bn_update"],
+        "worst": TOL["resnet/f32/grad_rel_l2"], "median": TOL["resnet/f32/grad_rel_l2/median"]})
+    # bf16: the step-1 gradient is held to the f32 standard model, no
+    # further from it than the bf16 standard model is (nor than f32's own
+    # summation order moves it)
+    floor = gate_resnet(resnet_diffs(torch, ref, f32_ref), {}, " (the bf16 noise floor)")
+    floor = max(floor["median"], f32_diff["median"])
+    for p in (pallas, xla):
+        out["compare"][f"{p['tag']} vs standard/xla"] = gate_resnet(resnet_diffs(torch, p, ref), {
+            "loss1": TOL["resnet/loss/step1"], "loss": TOL["resnet/loss"],
+            "bn": TOL["resnet/bn_update"]})
+        limit = TOL["resnet/grad_vs_f32"] * floor
+        out["compare"][f"{p['tag']} vs f32"] = gate_resnet(
+            resnet_diffs(torch, p, f32_ref), {"median": limit},
+            f" (limit: {TOL['resnet/grad_vs_f32']} x the noise floor's median)")
+    out["compare"]["bwd"] = gate_resnet(resnet_diffs(torch, pallas, xla), {
+        "bn": TOL["resnet/bn_update"], "worst": TOL["resnet/grad_rel_l2/bwd"],
+        "median": TOL["resnet/grad_rel_l2/bwd/median"]})
+    for p in passes:
+        out["passes"][p["tag"]] = {
+            k: p[k] for k in ("step_ms", "img_s", "mfu", "peak_gib", "losses")}
     return out
 
 
@@ -927,6 +1441,7 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     try:
         smi = nvidia_smi_line()
         log(f"card: {smi}")
@@ -941,9 +1456,13 @@ def main() -> int:
                     log(f"  [{name}] {line.strip()}")
         kern = phase_kernels(torch, np, F)
         kern.update(phase_flash(torch, np, F))
+        conv_bn = phase_conv_bn(torch, np)
+        kern.update({n: {"err": r["err"], "rows": [r["main"]]} for n, r in conv_bn.items()})
         launches, counts, steps = phase_serve(torch, np, smi)
         train = phase_train(torch, np, smi)
         launches.update(train["launches"])
+        resnet = phase_resnet(torch, np, smi)
+        launches.update(resnet["launches"])
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -959,6 +1478,10 @@ def main() -> int:
         *((name, "distributed_tensorflow_tpu_torch/ops/csrc/flash_attention.cu",
            f"distributed_tensorflow_tpu/ops/flash_attention.py:{line}", kern[name]["rows"][0])
           for name, line in (("flash_fwd", 75), ("flash_bwd_dkv", 205), ("flash_bwd_dq", 241))),
+        *((name, "distributed_tensorflow_tpu_torch/ops/csrc/fused_conv_bn.cu",
+           f"distributed_tensorflow_tpu/ops/fused_conv_bn.py:{line}", kern[name]["rows"][0])
+          for name, line in (("conv_bn_fwd", 60), ("conv_bn_bwd_dx", 121), ("conv_bn_bwd_dw", 201),
+                             ("conv_bn_bwd_single", 266))),
     ):
         entries.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -976,6 +1499,17 @@ def main() -> int:
         f"{train['dense_step_ms']:.2f} ms; profiled step idle "
         f"{100 - 100 * train['profile']['busy_ms'] / train['profile']['wall_ms']:.1f}%; "
         f"batch 64: {train['batch64']}")
+    log(f"resnet50_imagenet training (B=256, 224x224, bf16): " + "; ".join(
+        f"{k} step {v['step_ms']:.2f} ms, {v['img_s']:.1f} images/s, MFU {100 * v['mfu']:.2f}%, "
+        f"peak {v['peak_gib']:.2f} GiB" for k, v in resnet["passes"].items())
+        + f"; device idle of one profiled fused step with its batch preloaded (the timed "
+        f"steps also gather and copy their batch on the host) "
+        f"{100 - 100 * resnet['profile']['busy_ms'] / resnet['profile']['wall_ms']:.1f}%; "
+        f"f32 step-1 gradients, fused+pallas vs standard: median "
+        f"{resnet['compare']['f32']['median']:.3e}, worst {resnet['compare']['f32']['worst']:.3e}; "
+        f"conv_bn timed shapes: {CONV_BN_MAIN} (library_ms: the product alone, x@w, g@w^T, "
+        f"h^T@g, both for single)")
+    log(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s (builds included)")
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

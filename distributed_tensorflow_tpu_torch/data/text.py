@@ -2,8 +2,8 @@
 corpus and the token-file reader.
 
 The LM subset of ``distributed_tensorflow_tpu/data/text.py`` with the
-seeding of ``data/pipeline.py`` (``batch_rng``, ``local_batch_size``),
-numpy only. A batch is bit-identical to the JAX package's for the same
+seeding of ``data/pipeline.py`` (``batch_rng``, ``local_batch_size``,
+imported from the port's ``data/pipeline.py``), numpy only. A batch is bit-identical to the JAX package's for the same
 ``(seed, index)``: the process index and count come from
 ``torch.distributed`` when a process group is initialised, else 0 and 1
 (the JAX package reads them from ``jax.process_index/count``). The MLM
@@ -16,6 +16,8 @@ import dataclasses
 from typing import Iterator
 
 import numpy as np
+
+from .pipeline import batch_rng, local_batch_size, process_index_count
 
 IGNORE_INDEX = -100
 
@@ -30,34 +32,6 @@ class TextDataConfig:
     seed: int = 0
     mask_token: int = 103  # [MASK] in BERT vocab
     max_predictions: int = 0
-
-
-def _process() -> tuple[int, int]:
-    """(index, count) of this process: torch.distributed's rank and world
-    size when a process group is up, else (0, 1)."""
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
-
-
-def batch_rng(seed: int, index: int) -> np.random.RandomState:
-    """Per-batch, per-process RandomState: deterministic in (seed, index)
-    and disjoint across processes (the process index folded in) — the
-    JAX package's stream-seeding scheme."""
-    s = (seed * 1_000_003 + index) * 97 + _process()[0]
-    return np.random.RandomState(s & 0x7FFFFFFF)
-
-
-def local_batch_size(global_batch_size: int) -> int:
-    n = _process()[1]
-    if global_batch_size % n != 0:
-        raise ValueError(
-            f"global_batch_size={global_batch_size} not divisible by "
-            f"process_count={n}"
-        )
-    return global_batch_size // n
 
 
 class SyntheticLM:
@@ -114,7 +88,7 @@ class TokenFileLM:
         every process draws the same global start list (seed+index, no
         process fold) and takes its disjoint stride slice."""
         cfg = self.cfg
-        rank, world = _process()
+        rank, world = process_index_count()
         rng = np.random.RandomState((cfg.seed + index) & 0x7FFFFFFF)
         n_windows = (len(self.tokens) - 1) // cfg.seq_len
         starts = rng.randint(0, n_windows, self.local_bs * world)

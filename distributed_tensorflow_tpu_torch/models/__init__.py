@@ -1,1 +1,2 @@
-"""Models of the port: so far the causal pre-LN decoder's serve subset."""
+"""Models of the port: the causal pre-LN decoder (``transformer``: serving
+and training) and ResNet-50 (``resnet``) with its loss (``common``)."""

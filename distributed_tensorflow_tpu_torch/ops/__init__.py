@@ -19,6 +19,17 @@ from .flash_attention import (  # noqa: F401
     flash_bwd_dq,
     flash_fwd,
 )
+from .fused_conv_bn import (  # noqa: F401
+    bn_scale_shift,
+    conv1x1_bn_act,
+    conv1x1_bn_act_plain,
+    conv1x1_bn_bwd_dw,
+    conv1x1_bn_bwd_dx,
+    conv1x1_bn_bwd_plain,
+    conv1x1_bn_bwd_single,
+    conv1x1_bn_fwd,
+    moments_from_sums,
+)
 from .fused_ln_matmul import ln_matmul, ln_matmul_plain  # noqa: F401
 from .paged_attention import (  # noqa: F401
     paged_attention_plain,

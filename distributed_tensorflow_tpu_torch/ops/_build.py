@@ -41,6 +41,8 @@ NVCC_FLAGS = (
 _c_void_p, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _STRIDED = (_c_void_p,) + (ctypes.c_longlong,) * 3
 _FLASH_TAIL = (_c_int,) * 6 + (_c_float, _c_void_p)
+_W_STRIDES = (ctypes.c_longlong,) * 2
+_CONV_TAIL = (_c_int,) * 7 + (_c_void_p,)
 
 #: C entry points per library: name -> (argtypes). Every entry returns
 #: an int — the launchers a cudaError_t; pointers and the stream are
@@ -72,6 +74,21 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
         # q, k, v, o, dout, mask, lse, dq
         **{f"flash_bwd_dq_{s}": _STRIDED * 5 + (_c_void_p,) * 3 + _FLASH_TAIL
            for s in ("f32", "bf16")},
+    },
+    # w as (pointer, stride_k, stride_n); M, cin, cout, G (partial chunks),
+    # prologue, relu, stats; stream
+    "fused_conv_bn": {
+        # x, w, sk, sn, scale, shift, y, ws, sum, ssq
+        **{f"conv_bn_fwd_{s}": (_c_void_p,) * 2 + _W_STRIDES + (_c_void_p,) * 6 + _CONV_TAIL
+           for s in ("f32", "bf16")},
+        # x, y, dy, w, sk, sn, scale, shift, dsum, dssq, dx, ws, dscale, dshift
+        **{f"conv_bn_bwd_dx_{s}": (_c_void_p,) * 4 + _W_STRIDES + (_c_void_p,) * 8
+           + _CONV_TAIL for s in ("f32", "bf16")},
+        # x, y, dy, scale, shift, dsum, dssq, ws, dw
+        **{f"conv_bn_bwd_dw_{s}": (_c_void_p,) * 9 + _CONV_TAIL for s in ("f32", "bf16")},
+        # x, y, dy, w, sk, sn, scale, shift, dsum, dssq, dx, ws, dw, dscale, dshift
+        **{f"conv_bn_bwd_single_{s}": (_c_void_p,) * 4 + _W_STRIDES + (_c_void_p,) * 9
+           + _CONV_TAIL for s in ("f32", "bf16")},
     },
 }
 

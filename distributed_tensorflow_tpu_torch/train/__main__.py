@@ -8,6 +8,13 @@ Usage:
         --model.max_len=64 --data.seq_len=64 --model.xent_chunk=32 \\
         --model.dtype=float32 --data.global_batch_size=4 \\
         --train.num_steps=5 --train.log_every=1 --optimizer.warmup_steps=0
+    python -m distributed_tensorflow_tpu_torch.train resnet50_imagenet \
+        --data.global_batch_size=256 --model.block_impl=fused --train.num_steps=20
+    python -m distributed_tensorflow_tpu_torch.train resnet50_imagenet --device cpu \
+        --model.stage_sizes=[1,1] --model.width=8 --model.num_classes=10 \
+        --model.dtype=float32 --data.image_size=16 --data.num_classes=10 \
+        --data.global_batch_size=8 --train.num_steps=3 --train.log_every=1 \
+        --optimizer.warmup_steps=0 --optimizer.schedule=constant
 
 Runs on the GPU unless ``--device cpu`` is given; with no CUDA present
 the GPU default raises. Every ``--section.key=value`` override is the

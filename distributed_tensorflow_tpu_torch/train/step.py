@@ -8,10 +8,16 @@ parameters live in its model and are updated in place by its optimizer.
 - **RNG**: the state holds a seed and one ``torch.Generator``; each step
   reseeds it from ``(seed, step)``, so a step's dropout draws are a pure
   function of the two (a resumed run redraws the same masks).
+- **Model state**: buffers a model updates in its train forward
+  (BatchNorm running statistics) are the JAX step's ``model_state``;
+  under gradient accumulation each microbatch's forward sees the buffers
+  the previous one left, as the JAX scan threads ``model_state``.
 - **skip_nonfinite**: a step whose loss or any gradient is non-finite
-  leaves the parameters, the optimizer state AND the step counter
-  unchanged and reports ``nonfinite = 1``; the JAX step selects the old
-  state on the device, the port decides on the host (one scalar read).
+  leaves the parameters, the buffers, the optimizer state AND the step
+  counter unchanged and reports ``nonfinite = 1``; the JAX step selects
+  the old state on the device, the port decides on the host (one scalar
+  read) and copies the buffers back from a snapshot taken before the
+  forward.
 """
 
 from __future__ import annotations
@@ -74,6 +80,8 @@ def make_train_step(loss_fn: LossFn, options: StepOptions = StepOptions()
     def train_step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         params = state.optimizer.params
         gen = state.generator
+        buffers = list(state.model.buffers()) if options.skip_nonfinite else []
+        saved = [b.detach().clone() for b in buffers]
         gen.manual_seed(step_seed(state.seed, state.step))
         if accum == 1:
             loss, aux = loss_fn(batch, gen)
@@ -114,6 +122,9 @@ def make_train_step(loss_fn: LossFn, options: StepOptions = StepOptions()
                              + [torch.isfinite(g).all() for g in grads]).all()
             metrics["nonfinite"] = 1.0 - ok.float()
             if not bool(ok):
+                with torch.no_grad():
+                    for b, old in zip(buffers, saved):
+                        b.copy_(old)
                 return state, metrics  # nothing updated, step not counted
         state.optimizer.update(grads)
         state.step += 1

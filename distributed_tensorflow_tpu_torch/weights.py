@@ -1,4 +1,4 @@
-"""Convert the JAX package's flax parameter tree into the port's model.
+"""Convert the JAX package's flax parameter trees into the port's models.
 
 ``from_jax_params(params_np, cfg)`` takes the tree of a
 ``distributed_tensorflow_tpu.models.transformer.Transformer`` (causal,
@@ -7,7 +7,16 @@ of the params gives one) and returns a ``models.transformer.Transformer``
 holding the same numbers. Layout: a flax Dense ``kernel`` is ``[in,
 out]``, the port's ``Dense.weight`` is ``[out, in]`` (``nn.Linear``).
 The same tree serves ``fused_ln_matmul=True``: both flax paths own the
-same parameters. Nothing here imports jax.
+same parameters.
+
+``resnet_from_jax(params_np, batch_stats_np, cfg)`` does the same for a
+``distributed_tensorflow_tpu.models.resnet.ResNet`` (``block_impl``
+standard or fused: one tree): every conv ``kernel`` HWIO -> OIHW
+(``stem_conv_s2d`` ``[4, 4, 12, w]`` included: the port's
+``space_to_depth`` keeps the JAX channel order), the head's Dense
+``[in, out]`` -> ``[out, in]``, BatchNorm ``scale``/``bias`` -> ``weight``/
+``bias`` and ``batch_stats`` ``mean``/``var`` -> ``running_mean``/
+``running_var``. Nothing here imports jax.
 """
 
 from __future__ import annotations
@@ -17,6 +26,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from .models import resnet
 from .models.transformer import Transformer, TransformerConfig, build
 from .utils.device import resolve_device
 
@@ -59,3 +69,40 @@ def from_jax_params(params_np: Mapping, cfg: TransformerConfig,
     train); otherwise a frozen serving model."""
     device = resolve_device(device)
     return build(cfg, _state_dict_from_jax(params_np, cfg), device, trainable=trainable)
+
+
+def resnet_state_dict_from_jax(params_np: Mapping, cfg: resnet.ResNetConfig,
+                               batch_stats_np: Mapping | None = None
+                               ) -> dict[str, torch.Tensor]:
+    """The flax ResNet tree as a state dict of ``resnet.ResNet(cfg)`` (f32).
+    Without ``batch_stats_np`` the running-statistics buffers are left out
+    (a gradient tree converts this way)."""
+    sd = {}
+    for name, mod in resnet.ResNet(cfg, device="meta").named_modules():
+        node = params_np
+        for part in name.split(".") if name else ():
+            node = node[part]
+        if isinstance(mod, resnet.ConvKernel):
+            sd[name + ".weight"] = _t(node["kernel"]).permute(3, 2, 0, 1).contiguous()
+        elif isinstance(mod, resnet.BatchNorm):
+            sd[name + ".weight"] = _t(node["scale"])
+            sd[name + ".bias"] = _t(node["bias"])
+            if batch_stats_np is not None:
+                stats = batch_stats_np
+                for part in name.split("."):
+                    stats = stats[part]
+                sd[name + ".running_mean"] = _t(stats["mean"])
+                sd[name + ".running_var"] = _t(stats["var"])
+        elif name == "head":
+            sd["head.weight"] = _t(node["kernel"]).t().contiguous()
+            sd["head.bias"] = _t(node["bias"])
+    return sd
+
+
+def resnet_from_jax(params_np: Mapping, batch_stats_np: Mapping, cfg: resnet.ResNetConfig,
+                    device="cuda") -> resnet.ResNet:
+    """``resnet.ResNet(cfg)`` on ``device`` (the card by default; raises
+    without one unless ``device="cpu"``) holding the flax tree's params and
+    batch_stats, as f32 masters that require grad."""
+    device = resolve_device(device)
+    return resnet.build(cfg, resnet_state_dict_from_jax(params_np, cfg, batch_stats_np), device)

@@ -1,5 +1,6 @@
-"""Workload registry of the port: ``gpt_lm`` so far (the other presets of
-the JAX package come with their slices, ROADMAP Queue A)."""
+"""Workload registry of the port: ``gpt_lm`` and ``resnet50_imagenet`` so
+far (the other presets of the JAX package come with their slices, ROADMAP
+Queue A)."""
 
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ from .runner import RunConfig, RunResult, TrainSection, WorkloadParts, run  # no
 
 _REGISTRY: dict[str, str] = {
     "gpt_lm": ".gpt_lm",
+    "resnet50_imagenet": ".resnet50_imagenet",
 }
 
 

@@ -79,7 +79,7 @@ class RunConfig:
     workload: str = "gpt_lm"
     model: Any = None  # workload-specific config dataclass, set by preset
     mesh: MeshSpec = MeshSpec()
-    data: TextDataConfig = TextDataConfig()
+    data: Any = TextDataConfig()  # the workload's: TextDataConfig or data.pipeline.DataConfig
     optimizer: OptimizerConfig = OptimizerConfig()
     train: TrainSection = TrainSection()
     checkpoint: CheckpointConfig = CheckpointConfig()
@@ -130,7 +130,11 @@ def run(cfg: RunConfig, build: Callable[[RunConfig, torch.device], WorkloadParts
         extra_callbacks: Iterable[cb.Callback] = (), device="cuda") -> RunResult:
     """``build(cfg, device) -> WorkloadParts``, then train
     ``cfg.train.num_steps`` steps on ``device`` (the card by default; no
-    CPU fallback — pass ``device="cpu"`` for the plain versions)."""
+    CPU fallback — pass ``device="cpu"`` for the plain versions). The
+    steps run with ``torch.backends.cudnn.deterministic`` on, restored
+    after: a step is bitwise repeatable, as the JAX package's is on a TPU
+    (same-seed recovery relies on it), and with cuDNN's default convolution
+    algorithms the card's ResNet steps were not."""
     check_supported(cfg)
     dev = resolve_device(device)
     logger.info("config:\n%s", config_lib.to_json(cfg))
@@ -149,5 +153,10 @@ def run(cfg: RunConfig, build: Callable[[RunConfig, torch.device], WorkloadParts
         check_grads_finite=cfg.train.debug_metrics,
         clip_grad_norm=cfg.train.clip_grad_norm or None))
     trainer = Trainer(step_fn, state, callbacks=callbacks)
-    state = trainer.fit(parts.dataset_fn(state.step), num_steps=cfg.train.num_steps)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        state = trainer.fit(parts.dataset_fn(state.step), num_steps=cfg.train.num_steps)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
     return RunResult(state, metrics_logger.history, dev)

@@ -119,10 +119,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 def test_helpers_and_training_entry_points_raise_without_cuda(monkeypatch):
     import torch
 
+    from distributed_tensorflow_tpu_torch.models import resnet
     from distributed_tensorflow_tpu_torch.models import transformer as tfm
     from distributed_tensorflow_tpu_torch.serve.kv_cache import init_paged_cache
     from distributed_tensorflow_tpu_torch.train.__main__ import main as train_main
-    from distributed_tensorflow_tpu_torch.weights import from_jax_params
+    from distributed_tensorflow_tpu_torch.weights import from_jax_params, resnet_from_jax
     from distributed_tensorflow_tpu_torch.workloads import run_workload
 
     cfg = tfm.TransformerConfig(vocab_size=64, max_len=16, num_layers=1, d_model=16,
@@ -133,7 +134,11 @@ def test_helpers_and_training_entry_points_raise_without_cuda(monkeypatch):
                  lambda: init_paged_cache(cfg, 4, 8),
                  lambda: from_jax_params({}, cfg),
                  lambda: run_workload("gpt_lm", ["--train.num_steps=1"]),
-                 lambda: train_main(["gpt_lm", "--train.num_steps=1"])):
+                 lambda: train_main(["gpt_lm", "--train.num_steps=1"]),
+                 lambda: resnet.init_params(resnet.ResNetConfig()),
+                 lambda: resnet_from_jax({}, {}, resnet.ResNetConfig()),
+                 lambda: run_workload("resnet50_imagenet", ["--train.num_steps=1"]),
+                 lambda: train_main(["resnet50_imagenet", "--train.num_steps=1"])):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
     # explicit CPU is allowed

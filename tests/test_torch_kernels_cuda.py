@@ -260,3 +260,229 @@ def test_training_steps_on_card_match_the_cpu(card):
     for (name, p), q in zip(gmodel.named_parameters(), wmodel.parameters()):
         torch.testing.assert_close(p.detach().cpu(), q.detach(), atol=1e-4, rtol=1e-4,
                                    msg=lambda m: f"{name}: {m}")
+
+
+# ---------------------------------------------------------------------------
+# fused 1x1 conv + BatchNorm (rows 8-11 of the kernel table)
+# ---------------------------------------------------------------------------
+
+#: (M, cin, cout): ragged M, channels that are not tile multiples, the
+#: single-pass shapes of ResNet-50's stage 0 and a two-pass shape
+CONV_BN_CASES = [(37, 16, 24), (200, 64, 256), (130, 256, 64), (300, 128, 512), (100, 72, 40)]
+#: (prologue, relu, emit_stats)
+CONV_BN_VARIANTS = [(False, False, True), (False, False, False), (True, True, True),
+                    (True, False, True), (True, True, False)]
+
+
+def _conv_bn_inputs(rng, card, dtype, M, cin, cout, prologue):
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(card)  # noqa: E731
+    x = f(M, cin).to(dtype)
+    w = (f(cout, cin) / cin ** 0.5).to(dtype).t()  # the OIHW weight's [cin, cout] view
+    scale = 1 + 0.2 * f(cin) if prologue else None
+    shift = 0.2 * f(cin) if prologue else None
+    return x, w, scale, shift, f(M, cout).to(dtype), 0.1 * f(cout), 0.01 * f(cout)
+
+
+def _rel_l2(got, want):
+    return float((got.float() - want.float()).norm() / want.float().norm().clamp_min(1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_conv_bn_kernels_match_plain_on_card(card, dtype):
+    """Rows 8-11 against their plain versions at every prologue/relu/stats
+    variant. Elementwise outputs (y, dx): f32 same math in another order
+    (1e-4); bf16 one ulp (1e-2, 2^-7). Reductions over M (statistics, dw,
+    dscale, dshift): relative L2 error 1e-5 in f32; 2e-3 in bf16, where an
+    operand rounded to bf16 on the other side of a tie moves a sum by one
+    ulp of one term."""
+    from distributed_tensorflow_tpu_torch.ops import fused_conv_bn as fcb
+
+    rng = np.random.default_rng(5)
+    tol = TOLS[dtype] if dtype == torch.bfloat16 else (1e-4, 1e-4)
+    red_tol = 2e-3 if dtype == torch.bfloat16 else 1e-5
+    for M, cin, cout in CONV_BN_CASES:
+        for prologue, relu, stats in CONV_BN_VARIANTS:
+            x, w, sc, sh, dy, dsum, dssq = _conv_bn_inputs(rng, card, dtype, M, cin, cout,
+                                                           prologue)
+            case = (M, cin, cout, prologue, relu, stats)
+            kw = dict(relu=relu, emit_stats=stats)
+            before = {n: k.launches for n, k in fcb.KERNELS.items()}
+            y, s, q = fcb.conv1x1_bn_fwd(x, w, sc, sh, **kw)
+            want = fcb.conv1x1_bn_act_plain(x, w, sc, sh, **kw)
+            want_y = want[0] if stats else want
+            torch.testing.assert_close(y.float(), want_y.float(), atol=tol[0], rtol=tol[1],
+                                       msg=lambda m: f"y {case}: {m}")
+            if stats:
+                assert _rel_l2(s, want[1]) < red_tol and _rel_l2(q, want[2]) < red_tol, case
+            bwd = (x, y, dy, w, sc, sh, dsum if stats else None, dssq if stats else None)
+            dx, dsc, dsh = fcb.conv1x1_bn_bwd_dx(*bwd, **kw)
+            dw = fcb.conv1x1_bn_bwd_dw(x, y, dy, sc, sh, *bwd[6:], **kw)
+            ref = fcb.conv1x1_bn_bwd_plain(*bwd, **kw)
+            got = [(dx, dw, dsc, dsh)]
+            if fcb.single_pass(cin, cout):
+                got.append(fcb.conv1x1_bn_bwd_single(*bwd, **kw))
+            torch.cuda.synchronize()
+            for g in got:
+                torch.testing.assert_close(g[0].float(), ref[0].float(), atol=tol[0],
+                                           rtol=tol[1], msg=lambda m: f"dx {case}: {m}")
+                assert _rel_l2(g[1], ref[1]) < red_tol, ("dw", case, _rel_l2(g[1], ref[1]))
+                if prologue:
+                    assert _rel_l2(g[2], ref[2]) < red_tol, ("dscale", case)
+                    assert _rel_l2(g[3], ref[3]) < red_tol, ("dshift", case)
+                else:
+                    assert g[2] is None and g[3] is None
+            after = {n: k.launches for n, k in fcb.KERNELS.items()}
+            assert after["conv_bn_fwd"] == before["conv_bn_fwd"] + 1
+            assert after["conv_bn_bwd_dx"] == before["conv_bn_bwd_dx"] + 1
+            assert after["conv_bn_bwd_single"] == before["conv_bn_bwd_single"] + (len(got) - 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bwd_impl", ["xla", "pallas"])
+def test_conv_bn_autograd_on_card_matches_cpu(card, bwd_impl):
+    """conv1x1_bn_act through autograd on the card (the kernels, or the
+    xla backward's torch.mm) against the same call on the CPU (plain
+    versions), f32: outputs, statistics and all four gradients (1e-4;
+    same math, other summation order)."""
+    from distributed_tensorflow_tpu_torch.ops import fused_conv_bn as fcb
+
+    rng = np.random.default_rng(6)
+    for M, cin, cout in ((150, 64, 128), (90, 256, 512)):
+        x, w, sc, sh, dy, dsum, dssq = _conv_bn_inputs(rng, card, torch.float32, M, cin, cout,
+                                                       True)
+        outs = []
+        for dev in (card, torch.device("cpu")):
+            leaves = [t.detach().to(dev).clone().requires_grad_() for t in (x, w, sc, sh)]
+            y, s, q = fcb.conv1x1_bn_act(*leaves, relu=True, bwd_impl=bwd_impl)
+            torch.autograd.backward((y, s, q), (dy.to(dev), dsum.to(dev), dssq.to(dev)))
+            outs.append([t.detach().cpu() for t in (y, s, q)] + [t.grad.cpu() for t in leaves])
+        for name, a, b in zip(("y", "sum", "sumsq", "dx", "dw", "dscale", "dshift"), *outs):
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4,
+                                       msg=lambda m: f"{name} {(M, cin, cout)}: {m}")
+
+
+@pytest.mark.cuda
+def test_conv_bn_kernels_are_deterministic(card):
+    """Two calls of every kernel on the same bf16 inputs give bitwise-equal
+    results: the reductions over M use per-chunk partials summed in a
+    fixed order, no float atomics."""
+    from distributed_tensorflow_tpu_torch.ops import fused_conv_bn as fcb
+
+    rng = np.random.default_rng(7)
+    for M, cin, cout in ((5000, 64, 256), (3000, 256, 128)):
+        x, w, sc, sh, dy, dsum, dssq = _conv_bn_inputs(rng, card, torch.bfloat16, M, cin, cout,
+                                                       True)
+        runs = []
+        for _ in range(2):
+            y, s, q = fcb.conv1x1_bn_fwd(x, w, sc, sh)
+            out = [y, s, q, *fcb.conv1x1_bn_bwd_dx(x, y, dy, w, sc, sh, dsum, dssq),
+                   fcb.conv1x1_bn_bwd_dw(x, y, dy, sc, sh, dsum, dssq)]
+            if fcb.single_pass(cin, cout):
+                out += list(fcb.conv1x1_bn_bwd_single(x, y, dy, w, sc, sh, dsum, dssq))
+            runs.append(out)
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_conv_bn_wrappers_raise_on_what_the_kernels_do_not_take(card):
+    from distributed_tensorflow_tpu_torch.ops import fused_conv_bn as fcb
+
+    x = torch.zeros(16, 64, device=card, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        fcb.conv1x1_bn_fwd(x, torch.zeros(64, 64, device=card, dtype=torch.float16))
+    x = torch.zeros(16, 60, device=card)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fcb.conv1x1_bn_fwd(x, torch.zeros(60, 64, device=card))
+    x = torch.zeros(16, 64, device=card)
+    with pytest.raises(TypeError, match="out_dtype"):
+        fcb.conv1x1_bn_fwd(x, torch.zeros(64, 64, device=card), out_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="single-pass budget"):
+        y = torch.zeros(16, 512, device=card)
+        fcb.conv1x1_bn_bwd_single(torch.zeros(16, 256, device=card), y, y,
+                                  torch.zeros(256, 512, device=card))
+
+
+@pytest.mark.cuda
+def test_resnet_fused_steps_on_card_match_the_cpu(card, monkeypatch):
+    """Two momentum steps of a tiny f32 fused ResNet (width 64, one block a
+    stage: stage 0's three 1x1 convs take the single-pass backward, stage
+    1's the dx + dw pair) on the card against the same steps on the CPU (the plain
+    versions), after a poisoned step that skip_nonfinite turns into a
+    no-op on both: losses within 1e-4, parameters and BatchNorm buffers
+    within atol 2e-4, rtol 1e-4 (f32, other summation order; a ReLU input
+    within rounding of 0 fell on the other side on an H100 and moved seven
+    elements of one ``stage1_block0.proj_conv`` column by up to 1.52e-4).
+    cuDNN is deterministic here, as in ``run()``, so the card's side
+    repeats."""
+    from distributed_tensorflow_tpu_torch.data.pipeline import DataConfig, SyntheticClassification
+    from distributed_tensorflow_tpu_torch.models import common, resnet
+    from distributed_tensorflow_tpu_torch.ops import fused_conv_bn as fcb
+    from distributed_tensorflow_tpu_torch.train import (
+        OptimizerConfig, StepOptions, init_train_state, make_optimizer, make_train_step)
+
+    monkeypatch.setenv("DTF_FUSED_BWD", "pallas")
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)  # f32 stem and 3x3 convs
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    cfg = resnet.ResNetConfig(stage_sizes=(1, 1), width=64, num_classes=10, dtype="float32",
+                              stem="space_to_depth", block_impl="fused")
+    params = resnet.init_params(cfg, seed=0, device="cpu")
+    params["stage0_block0.bn3.weight"].fill_(0.5)  # let the branch carry a gradient at step 1
+    params["stage1_block0.bn3.weight"].fill_(0.5)
+    data = SyntheticClassification(DataConfig(global_batch_size=8, image_size=16, channels=3,
+                                              num_classes=10))
+    runs = []
+    for device in (card, torch.device("cpu")):
+        model = resnet.build(cfg, params, device)
+        state = init_train_state(model, make_optimizer(
+            OptimizerConfig(name="momentum", learning_rate=0.1, weight_decay=1e-4),
+            model.parameters()))
+        base = common.classification_loss_fn(model, label_smoothing=0.1)
+
+        def loss_fn(batch, gen, base=base):
+            loss, aux = base(batch, gen)
+            return loss * batch["scale"], aux
+
+        step = make_train_step(loss_fn, StepOptions(skip_nonfinite=True))
+        before = {n: k.launches for n, k in fcb.KERNELS.items()}
+        losses = []
+        for i, scale in enumerate((float("nan"), 1.0, 1.0)):
+            batch = {k: torch.from_numpy(v).to(device) for k, v in data.batch(i).items()}
+            state, metrics = step(state, dict(batch, scale=torch.tensor(scale, device=device)))
+            losses.append(float(metrics["loss"]))
+            if i == 0:
+                assert state.step == 0 and all(torch.equal(b.cpu(), params[n]) for n, b in
+                                               model.named_buffers())
+        runs.append((losses, model, {n: k.launches - before[n]
+                                     for n, k in fcb.KERNELS.items()}))
+    (got, gmodel, glaunch), (want, wmodel, wlaunch) = runs
+    # 3 forwards (the poisoned step runs its forward and backward too), 6 convs
+    assert glaunch == {"conv_bn_fwd": 18, "conv_bn_bwd_dx": 9, "conv_bn_bwd_dw": 9,
+                       "conv_bn_bwd_single": 9}
+    assert not any(wlaunch.values())
+    np.testing.assert_allclose(got[1:], want[1:], atol=1e-4, rtol=1e-4)
+    bad = {name: float((a.cpu() - b).abs().max()) for (name, a), b in
+           zip(gmodel.state_dict().items(), wmodel.state_dict().values())
+           if not torch.allclose(a.cpu(), b, atol=2e-4, rtol=1e-4)}
+    assert bad == {}
+
+
+@pytest.mark.cuda
+def test_resnet_run_on_card_is_bitwise_repeatable(card, monkeypatch):
+    """Two ``run_workload("resnet50_imagenet")`` runs of a small fused
+    ResNet with the backward kernels, from the same seed and data, end in
+    bitwise equal parameters and BatchNorm buffers: the conv+BN kernels
+    reduce without float atomics and the runner has cuDNN pick
+    deterministic algorithms for the stem and 3x3 convolutions."""
+    from distributed_tensorflow_tpu_torch.workloads import run_workload
+
+    monkeypatch.setenv("DTF_FUSED_BWD", "pallas")
+    overrides = ["--model.stage_sizes=[1,1]", "--model.width=64", "--model.num_classes=10",
+                 "--data.image_size=64", "--data.num_classes=10", "--data.global_batch_size=32",
+                 "--model.block_impl=fused", "--train.num_steps=3", "--train.log_every=1",
+                 "--optimizer.warmup_steps=0", "--optimizer.schedule=constant",
+                 "--optimizer.learning_rate=0.1"]
+    a, b = (run_workload("resnet50_imagenet", overrides, device=card).state.model.state_dict()
+            for _ in range(2))
+    assert [k for k in a if not torch.equal(a[k], b[k])] == []

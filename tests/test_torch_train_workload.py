@@ -1,21 +1,25 @@
-"""The port's workload layer against the JAX package: the text stream is
-bit-identical for the same (seed, index), every LR schedule kind gives
-JAX's values, the config overrides parse to the same tree, and
-``run_workload("gpt_lm", ...)`` trains a tiny config on the CPU with a
-finite, falling loss; what this slice does not have is refused with the
-ROADMAP item named."""
+"""The port's workload layer against the JAX package: the text and image
+streams are bit-identical for the same (seed, index), every LR schedule
+kind gives JAX's values, the config overrides parse to the same tree, and
+``run_workload`` trains tiny ``gpt_lm`` and ``resnet50_imagenet`` configs
+on the CPU with a finite, falling loss; what the port does not have yet
+is refused with the ROADMAP item named."""
 
 import numpy as np
 import pytest
 
+from distributed_tensorflow_tpu.data import pipeline as jpipe
 from distributed_tensorflow_tpu.data import text as jtext
 from distributed_tensorflow_tpu.train import optimizers as jopt
 from distributed_tensorflow_tpu.utils import config as jconfig
 from distributed_tensorflow_tpu.workloads import gpt_lm as jgpt
+from distributed_tensorflow_tpu.workloads import resnet50_imagenet as jres
+from distributed_tensorflow_tpu_torch.data import pipeline as tpipe
 from distributed_tensorflow_tpu_torch.data import text as ttext
 from distributed_tensorflow_tpu_torch.train import optimizers as topt
 from distributed_tensorflow_tpu_torch.utils import config as tconfig
 from distributed_tensorflow_tpu_torch.workloads import gpt_lm as tgpt
+from distributed_tensorflow_tpu_torch.workloads import resnet50_imagenet as tres
 from distributed_tensorflow_tpu_torch.workloads import run_workload
 
 TINY = ["--model.num_layers=2", "--model.d_model=64", "--model.num_heads=4",
@@ -104,3 +108,91 @@ def test_unsupported_configs_raise_naming_the_roadmap_item(override, match):
     with pytest.raises((ValueError, NotImplementedError), match=match):
         run_workload("gpt_lm", TINY + ["--train.num_steps=1", override], device="cpu")
 
+
+
+RESNET_TINY = ["--model.stage_sizes=[1,1]", "--model.width=8", "--model.num_classes=10",
+               "--model.dtype=float32", "--data.image_size=16", "--data.num_classes=10",
+               "--data.global_batch_size=8", "--train.log_every=1", "--optimizer.warmup_steps=0",
+               "--optimizer.schedule=constant", "--optimizer.learning_rate=0.05"]
+
+
+@pytest.mark.parametrize("index,flat", [(0, False), (9, True), (1_000_000, False)])
+def test_synthetic_classification_batch_is_bit_identical_to_jax(index, flat):
+    kw = dict(dataset="synthetic", global_batch_size=3, image_size=8, channels=3,
+              num_classes=10, seed=2, flat=flat)
+    got = tpipe.SyntheticClassification(tpipe.DataConfig(**kw), index_offset=4).batch(index)
+    want = jpipe.SyntheticClassification(jpipe.DataConfig(**kw), index_offset=4).batch(index)
+    assert got.keys() == want.keys()
+    for k in want:
+        assert got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k])
+
+
+def test_npz_batches_match_jax(tmp_path):
+    rng = np.random.default_rng(0)
+    path = tmp_path / "images.npz"
+    np.savez(path, image=rng.standard_normal((10, 4, 4, 3)).astype(np.float32),
+             label=rng.integers(0, 5, 10).astype(np.int32))
+    kw = dict(dataset=f"npz:{path}", global_batch_size=4, image_size=4, channels=3,
+              num_classes=5, seed=1)
+    got = tpipe.make_dataset(tpipe.DataConfig(**kw), index_offset=1)
+    want = jpipe.make_dataset(jpipe.DataConfig(**kw), index_offset=1)
+    for (a, b, _) in zip(got, want, range(5)):  # two epochs: reshuffled from seed + epoch
+        assert np.array_equal(a["image"], b["image"]) and np.array_equal(a["label"], b["label"])
+
+
+def test_resnet_overrides_parse_to_the_same_config_as_jax():
+    overrides = ["--model.block_impl=fused", "--model.stem=conv", "--data.global_batch_size=256",
+                 "--data.dataset=npz:/tmp/x.npz", "--optimizer.learning_rate=0.1",
+                 "--optimizer.schedule=constant", "--train.num_steps=6", "--mesh.data=-1"]
+    got = tconfig.to_dict(tconfig.apply_overrides(tres.default_config(), overrides))
+    want = jconfig.to_dict(jconfig.apply_overrides(jres.default_config(), overrides))
+    assert got["workload"] == want["workload"] == "resnet50_imagenet"
+    for section in ("model", "data", "optimizer", "train", "mesh"):
+        for key, value in got[section].items():
+            assert value == want[section][key], (section, key)
+    assert got["model"]["stem"] == "conv" and got["data"]["image_size"] == 224
+
+
+@pytest.mark.parametrize("impl,bwd", [("standard", "xla"), ("fused", "pallas")])
+def test_run_workload_trains_resnet50_imagenet_on_cpu(impl, bwd, monkeypatch):
+    monkeypatch.setenv("DTF_FUSED_BWD", bwd)
+    res = run_workload("resnet50_imagenet", RESNET_TINY + [
+        "--train.num_steps=3", f"--model.block_impl={impl}"], device="cpu")
+    losses = [row["loss"] for row in res.history]
+    assert res.state.step == 3 and len(losses) == 3 and res.device.type == "cpu"
+    assert np.isfinite(losses).all() and "accuracy" in res.history[-1]
+    assert res.state.model.cfg.block_impl == impl
+
+
+def test_run_workload_steps_with_deterministic_cudnn_and_restores_it(monkeypatch):
+    """The steps run with cuDNN's deterministic algorithms (a bitwise
+    repeatable step, as the JAX package's); the caller's setting returns."""
+    import torch
+
+    from distributed_tensorflow_tpu_torch.train import callbacks
+
+    seen = []
+
+    class Spy(callbacks.Callback):
+        def on_step_end(self, trainer, step, metrics):
+            seen.append(torch.backends.cudnn.deterministic)
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", False)
+    run_workload("resnet50_imagenet", RESNET_TINY + ["--train.num_steps=2"], device="cpu",
+                 extra_callbacks=[Spy()])
+    assert seen == [True, True] and torch.backends.cudnn.deterministic is False
+
+
+@pytest.mark.parametrize("override,match", [
+    ("--data.dataset=records:/tmp/r", "records"),
+    ("--data.dataset=jpeg:/tmp/j", "jpeg"),
+    ("--data.augment=crop_flip", "augment"),
+    ("--data.eval_dataset=synthetic", "evaluation"),
+    ("--data.channels=1", "3 channels"),
+    ("--model.block_impl=pallas", "block_impl"),
+    ("--mesh.fsdp=2", "more than one"),
+])
+def test_resnet_unsupported_configs_raise(override, match):
+    with pytest.raises((ValueError, NotImplementedError), match=match):
+        run_workload("resnet50_imagenet", RESNET_TINY + ["--train.num_steps=1", override],
+                     device="cpu")
