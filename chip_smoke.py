@@ -40,7 +40,17 @@ when any phase fails:
    of the two against each other (``TOL``), check that the loss falls and
    that each flash kernel launched exactly 12 times a step; print
    tokens/s, step ms, MFU and peak memory, the device idle share of one
-   profiled step, and one flash run at global batch 64;
+   profiled step, and one flash run at global batch 64; then (phase 5b)
+   the same training with ``fused_ln_matmul=True`` under
+   ``DTF_FUSED_BWD=pallas`` (the LN+matmul forward, dx and dw kernels, 48
+   launches a step each) and ``xla`` (the forward, 48), held to the
+   unfused flash pass and to each other (losses, step-1 gradients), one
+   profiled fused+pallas step, and one f32 step fused+pallas vs unfused
+   gated tightly (``TOL``). (Phase 2e, before serving: the LN+matmul
+   forward, dx and dw kernels against their plain versions at M=8192,
+   d=768, n=768 and 3072 in bf16, f32 at one smaller shape, both w
+   layouts, a bitwise repeat, timed against the bound, the plain version
+   and one library call.)
 6. train ``resnet50_imagenet`` (ResNet-50 at full depth and width,
    ``space_to_depth`` stem, 224x224, 1000 classes, bf16, random weights
    from seed 0, global batch 256, 6 steps of momentum + L2 at a constant
@@ -70,6 +80,7 @@ TF32 is off for every f32 product compared here
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -108,6 +119,23 @@ TOL = {
     # absolute (a mean over 8k tokens of ~10.8 nats)
     "train/grad_rel_l2": 5e-2,
     "train/loss": 2e-2,
+    # gpt_lm with fused_ln_matmul (phase 5b), bf16, against phase 5's
+    # unfused flash pass: the kernel's two-pass LayerNorm variance against
+    # flax's fast one, and the normalised rows rounded to bf16 inside the
+    # kernel, move each layer's input by rounding, carried through 12
+    # layers forward and back — the same kind of difference as flash vs
+    # dense, so flash vs dense's gradient limit and a few times the loss
+    # difference measured on an H100 (PERF.md); pallas vs xla: the same
+    # forward, the backward kernels' sums in another order than cuBLAS's
+    # (dx rounded to bf16 once on each side)
+    "train/fused/loss": 5e-3,                 # measured 1.34e-3
+    "train/fused/grad_rel_l2": 5e-2,          # 1.57e-2
+    "train/fused/bwd/grad_rel_l2": 2.5e-2,    # 8.44e-3
+    # one f32 step, fused + pallas vs unfused (flash both): f32 rounding
+    # only (LayerNorm variance formula, summation orders) through 12
+    # layers, where a kernel fault would show: ~10x what was measured
+    "train/f32/loss": 1e-5,                   # 9.5e-7
+    "train/f32/grad_rel_l2": 3e-5,            # 3.27e-6
     # f32 logits of the bf16 model, kernel path vs the gather path with no
     # kernel: one-ulp bf16 differences in attention / LN+matmul outputs,
     # carried through 12 residual layers (logits of random weights have
@@ -121,6 +149,19 @@ TOL = {
     # rows), relative L2 error: f32 — f32 sums in another order; bf16 —
     # an h or g rounded to bf16 on the other side of a tie (the kernel
     # fuses x*scale+shift into one FMA) moves a term by one ulp
+    # LN+matmul backward kernels vs their plain versions. dx: f32 — the
+    # same f32 math in another summation order over up to 3072 columns of
+    # dy; bf16 — both round one f32 result to bf16, so one ulp (2^-7
+    # relative at worst; atol for values near 0, where the f32 results
+    # differ by ~1e-6). Sums over M (dgamma, dbeta, dbias over 8192 rows;
+    # dw, then rounded to w's dtype), relative L2: f32 — another order;
+    # bf16 — dw rounded to bf16 once from sums taken in another order (a
+    # value near a rounding tie lands one ulp, 2^-8, away) and an h on a tie
+    # rounded the other way (the kernel fuses xhat*gamma+beta into one FMA)
+    "ln_bwd/float32": (1e-4, 1e-4),
+    "ln_bwd/bfloat16": (1e-3, 2 ** -7),
+    "ln_bwd/reduction/float32": 1e-5,
+    "ln_bwd/reduction/bfloat16": 2e-3,
     "conv_bn/float32": (1e-4, 1e-4),
     "conv_bn/bfloat16": (1e-2, 2 ** -7),
     "conv_bn/reduction/float32": 1e-5,
@@ -599,6 +640,149 @@ def phase_flash(torch, np, F):
 
 
 # ---------------------------------------------------------------------------
+# phase 2e: the LN+matmul kernels at gpt_small's training shapes
+# ---------------------------------------------------------------------------
+
+#: (M, d, n, dtype): gpt_small at B=8, S=1024 — q/k/v (n=768) and mlp_in
+#: (n=3072) — in bf16, timed; one smaller f32 shape, checked only
+LN_TRAIN_SHAPES = [(8192, 768, 768, "bfloat16"), (8192, 768, 3072, "bfloat16"),
+                   (1000, 768, 3072, "float32")]
+#: the n of each backward kernel's row in the kernels line
+LN_BWD_MAIN_N = 3072
+
+
+def ln_bwd_case(torch, np, rng, M, d, n, dtype, linear_layout=True):
+    """x, gamma, beta, w (the nn.Linear weight's [d, n] view, or contiguous)
+    and an output gradient dy, as the fused model's backward gives them."""
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(DEVICE)  # noqa: E731
+    w_nd = (0.02 * f(n, d)).to(dtype)
+    return dict(x=f(M, d).to(dtype), gamma=1 + 0.1 * f(d), beta=0.1 * f(d),
+                w=w_nd.t() if linear_layout else w_nd.t().contiguous(), bias=0.02 * f(n),
+                dy=f(M, n).to(dtype))
+
+
+def ln_bwd_bound_ms(c, kind, dtype_name) -> tuple[float, str]:
+    """Least time for the work: each input read once, each output written
+    once (dx: x, gamma, w, dy -> dx, dgamma, dbeta, dbias and the rows'
+    mean and rstd; dw: x, gamma, beta, dy and the rows' mean and rstd ->
+    dw in w's dtype), and 2*M*d*n operations for the one product of each."""
+    M, d = c["x"].shape
+    n = c["dy"].shape[1]
+    e = c["x"].element_size()
+    nbytes = {"dx": e * (2 * M * d + d * n + M * n) + 4 * (3 * d + n) + 8 * M,
+              "dw": e * (M * d + M * n + d * n) + 8 * d + 8 * M}[kind]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * M * d * n / PEAK_OPS[dtype_name]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_ln_train(torch, np, F):
+    from distributed_tensorflow_tpu_torch.ops import fused_ln_matmul as fln
+
+    rng = np.random.default_rng(5)
+    names = ("ln_matmul_bwd_dx", "ln_matmul_bwd_dw")
+    results = {n: {"err": 0.0, "rows": []} for n in names}
+    results["ln_matmul/train"] = {"err": 0.0, "rows": []}
+    before = {n: k.launches for n, k in fln.KERNELS.items()}
+    log("phase 2e: LN+matmul forward and backward kernels vs plain versions at gpt_small's "
+        "training shapes (M = B*S = 8192, d=768; bf16, f32 at one smaller shape; w as "
+        "linear.weight.t() and contiguous) — dx (atol, rtol), sums over M as relative L2 "
+        "error")
+
+    def rel(got, want):
+        return float((got.float() - want.float()).norm() / want.float().norm().clamp_min(1e-30))
+
+    for M, d, n, dn in LN_TRAIN_SHAPES:
+        dtype = getattr(torch, dn)
+        tol, rtol = TOL[f"ln_bwd/{dn}"], TOL[f"ln_bwd/reduction/{dn}"]
+        for linear_layout in (True, False):
+            c = ln_bwd_case(torch, np, rng, M, d, n, dtype, linear_layout)
+            tag = f"{dn} M={M} d={d} n={n} " + ("w=linear.weight.t()" if linear_layout
+                                                 else "w contiguous [d,n]")
+            args = (c["x"], c["gamma"], c["beta"], c["w"])
+            y = fln.ln_matmul(*args, c["bias"])
+            dx, dg, db, dbias, mean, rstd = fln.ln_matmul_bwd_dx(
+                c["x"], c["gamma"], c["w"], c["dy"])
+            dw = fln.ln_matmul_bwd_dw(c["x"], c["gamma"], c["beta"], c["dy"], mean, rstd)
+            torch.cuda.synchronize()
+            want_y = fln.ln_matmul_plain(*args, c["bias"])
+            want = fln.ln_matmul_bwd_plain(*args, c["dy"])
+            err_y = check_close(torch, f"ln_matmul/y {tag}", y, want_y, TOL[f"ln_matmul/{dn}"])
+            err_dx = check_close(torch, f"ln_matmul_bwd_dx/dx {tag}", dx, want[0], tol)
+            reds = {"dgamma": rel(dg, want[1]), "dbeta": rel(db, want[2]),
+                    "dbias": rel(dbias, want[4]), "dw": rel(dw, want[3])}
+            log(f"    {tag} sums over M, relative L2 (tol {rtol:g}): "
+                + " ".join(f"{k}={v:.2e}" for k, v in reds.items()))
+            if max(reds.values()) > rtol:
+                raise SmokeFailure(f"ln_matmul backward {tag}: a sum is off by "
+                                   f"{max(reds.values()):.3e}")
+            results["ln_matmul/train"]["err"] = max(results["ln_matmul/train"]["err"], err_y)
+            results["ln_matmul_bwd_dx"]["err"] = max(results["ln_matmul_bwd_dx"]["err"], err_dx)
+            results["ln_matmul_bwd_dw"]["err"] = max(
+                results["ln_matmul_bwd_dw"]["err"], float((dw.float() - want[3].float()).abs().max()))
+            # bitwise repeat: the sums over M use no float atomics
+            again = fln.ln_matmul_bwd_dx(c["x"], c["gamma"], c["w"], c["dy"])
+            if not (all(torch.equal(a, b) for a, b in zip(again, (dx, dg, db, dbias, mean, rstd)))
+                    and torch.equal(dw, fln.ln_matmul_bwd_dw(c["x"], c["gamma"], c["beta"],
+                                                             c["dy"], *again[4:]))):
+                raise SmokeFailure(f"ln_matmul backward {tag}: a second call is not bitwise "
+                                   f"equal")
+            if dn != "bfloat16" or not linear_layout:
+                continue
+            # timing on cold inputs (the model's layout), as the path calls them
+            nbytes = c["x"].numel() * 2 * 2 + c["dy"].numel() * 2
+            sets = [c] + [ln_bwd_case(torch, np, rng, M, d, n, dtype)
+                          for _ in range(copies_for(nbytes) - 1)]
+            for st in sets:
+                st["stats"] = fln.ln_matmul_bwd_dx(st["x"], st["gamma"], st["w"], st["dy"])[4:]
+                mu, rs = (t[:, None] for t in st["stats"])
+                st["h"] = ((st["x"].float() - mu) * rs * st["gamma"] + st["beta"]).to(dtype)
+            kern = {
+                "ln_matmul/train": [lambda s=s: fln.ln_matmul(s["x"], s["gamma"], s["beta"],
+                                                              s["w"], s["bias"]) for s in sets],
+                "ln_matmul_bwd_dx": [lambda s=s: fln.ln_matmul_bwd_dx(
+                    s["x"], s["gamma"], s["w"], s["dy"]) for s in sets],
+                "ln_matmul_bwd_dw": [lambda s=s: fln.ln_matmul_bwd_dw(
+                    s["x"], s["gamma"], s["beta"], s["dy"], *s["stats"]) for s in sets],
+            }
+            plain = {"fwd": [lambda s=s: fln.ln_matmul_plain(s["x"], s["gamma"], s["beta"],
+                                                             s["w"], s["bias"]) for s in sets],
+                     "bwd": [lambda s=s: fln.ln_matmul_bwd_plain(s["x"], s["gamma"], s["beta"],
+                                                                 s["w"], s["dy"]) for s in sets]}
+            # library yardsticks, timed only: layer_norm + linear for the
+            # forward; the product alone for each backward kernel
+            lib = {"ln_matmul/train": [lambda s=s: F.linear(F.layer_norm(
+                       s["x"], (d,), s["gamma"].to(dtype), s["beta"].to(dtype), 1e-6),
+                       s["w"].t(), s["bias"].to(dtype)) for s in sets],
+                   "ln_matmul_bwd_dx": [lambda s=s: torch.mm(s["dy"], s["w"].t())
+                                        for s in sets],
+                   "ln_matmul_bwd_dw": [lambda s=s: torch.mm(s["h"].t(), s["dy"])
+                                        for s in sets]}
+            t_plain = {k: cuda_ms(torch, v, iters=10, warmup=2) for k, v in plain.items()}
+            for k in kern:
+                tk, tl = cuda_ms(torch, kern[k], iters=20), cuda_ms(torch, lib[k], iters=20)
+                if k == "ln_matmul/train":
+                    bound = ln_bound_ms(c, dn)
+                else:
+                    bound = ln_bwd_bound_ms(c, k.split("_")[-1], dn)
+                row = dict(M=M, d=d, n=n, ms=tk["device_ms"], call_ms=tk["call_ms"],
+                           library_ms=tl["device_ms"],
+                           plain_ms=t_plain["fwd" if k == "ln_matmul/train" else "bwd"][
+                               "device_ms"], bound_ms=bound[0], bound_by=bound[1])
+                results[k]["rows"].append(row)
+                log(f"    {k} M={M} n={n}: kernel_ms={row['ms']:.5f} plain_ms={row['plain_ms']:.5f}"
+                    f" library_ms={row['library_ms']:.5f} bound_ms={row['bound_ms']:.5f} "
+                    f"({row['bound_by']}) ({row['bound_ms'] / row['ms']:.1%} of bound); "
+                    f"wrapper call_ms={row['call_ms']:.4f}")
+            del sets, kern, plain, lib
+            torch.cuda.empty_cache()
+    for n, k in fln.KERNELS.items():  # comparison launches do not count
+        k.launches = before[n]
+    for n in names:
+        results[n]["main"] = next(r for r in results[n]["rows"] if r["n"] == LN_BWD_MAIN_N)
+    return results
+
+
+# ---------------------------------------------------------------------------
 # phase 2d: the fused 1x1 conv + BN kernels at ResNet-50's batch-256 shapes
 # ---------------------------------------------------------------------------
 
@@ -772,12 +956,34 @@ TRAIN_OVERRIDES = [
 ]
 
 
-def train_pass(torch, np, impl, batch=8, steps=6, extra=()):
+FLASH_NAMES = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+LN_NAMES = ("ln_matmul", "ln_matmul_bwd_dx", "ln_matmul_bwd_dw")
+
+
+@contextlib.contextmanager
+def fused_bwd(bwd):
+    """``DTF_FUSED_BWD=bwd`` inside the block (``None``: as it is), its
+    old value restored after, so no phase inherits another's backward."""
+    old = os.environ.get("DTF_FUSED_BWD")
+    if bwd is not None:
+        os.environ["DTF_FUSED_BWD"] = bwd
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("DTF_FUSED_BWD", None)
+        else:
+            os.environ["DTF_FUSED_BWD"] = old
+
+
+def train_pass(torch, np, impl, batch=8, steps=6, extra=(), bwd=None):
     """One ``run_workload("gpt_lm", ...)`` on the card (global batch
-    ``batch``, ``steps`` steps) with the launch counts set to 0 just
-    before it and read just after, and the step-1 gradient captured where
-    the step hands it to the optimizer."""
+    ``batch``, ``steps`` steps; ``DTF_FUSED_BWD=bwd`` when given) with the
+    launch counts of the flash and LN+matmul kernels set to 0 just before
+    it and read just after, and the step-1 gradient captured where the
+    step hands it to the optimizer."""
     from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+    from distributed_tensorflow_tpu_torch.ops import fused_ln_matmul as fln
     from distributed_tensorflow_tpu_torch.train import optimizers as topt
     from distributed_tensorflow_tpu_torch.workloads import run_workload
 
@@ -789,36 +995,39 @@ def train_pass(torch, np, impl, batch=8, steps=6, extra=()):
             captured["grads"] = [g.detach().float().clone() for g in grads]
         return update(self, grads)
 
-    names = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+    counters = {**{n: getattr(fa, n) for n in FLASH_NAMES}, **fln.KERNELS}
     topt.Optimizer.update = spy
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for n in names:
-            getattr(fa, n).launches = 0  # main path starts
+        for k in counters.values():
+            k.launches = 0  # main path starts
         t0 = time.perf_counter()
-        res = run_workload("gpt_lm", TRAIN_OVERRIDES + [
-            f"--model.attention_impl={impl}", f"--data.global_batch_size={batch}",
-            f"--train.num_steps={steps}", *extra], device=DEVICE)
+        with fused_bwd(bwd):
+            res = run_workload("gpt_lm", TRAIN_OVERRIDES + [
+                f"--model.attention_impl={impl}", f"--data.global_batch_size={batch}",
+                f"--train.num_steps={steps}", *extra], device=DEVICE)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {n: getattr(fa, n).launches for n in names}  # main path read
+        launches = {n: k.launches for n, k in counters.items()}  # main path read
     finally:
         topt.Optimizer.update = update
     hist = res.history
-    steady = [r for r in hist if "steps_per_sec" in r]
-    step_ms = 1e3 / float(np.median([r["steps_per_sec"] for r in steady]))
+    steady = [r for r in hist if "steps_per_sec" in r]  # none in a one-step pass
+    step_ms = (1e3 / float(np.median([r["steps_per_sec"] for r in steady])) if steady
+               else np.nan)
     return dict(impl=impl, batch=batch, res=res, losses=[r["loss"] for r in hist],
                 wall_s=wall, step_ms=step_ms,
                 tok_s=batch * res.state.model.cfg.max_len * 1e3 / step_ms,
-                mfu=float(np.median([r.get("mfu", np.nan) for r in steady])),
+                mfu=float(np.median([r.get("mfu", np.nan) for r in steady])) if steady
+                else np.nan,
                 peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                 grads=captured.get("grads"), launches=launches,
                 names=[n for n, _ in res.state.model.named_parameters()])
 
 
-def profile_train_step(torch, res, batch=8):
-    """Where the time of a training step goes: one more flash step of the
+def profile_train_step(torch, res, batch=8, label="flash"):
+    """Where the time of a training step goes: one more step of the
     trained state under torch.profiler — device time by kernel, and the
     device's busy share of the step's wall time."""
     from distributed_tensorflow_tpu_torch.data.text import SyntheticLM, TextDataConfig
@@ -843,12 +1052,99 @@ def profile_train_step(torch, res, batch=8):
         wall_ms = 1e3 * (time.perf_counter() - t0)
     events = [e for e in device_events(torch, prof) if e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    log(f"  profiled flash step (B={batch}, profiler on): wall {wall_ms:.2f} ms, device busy "
+    log(f"  profiled {label} step (B={batch}, profiler on): wall {wall_ms:.2f} ms, device busy "
         f"{busy_ms:.2f} ms = {100 * busy_ms / wall_ms:.1f}% (idle "
         f"{100 - 100 * busy_ms / wall_ms:.1f}%)")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
         log(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
     return {"wall_ms": wall_ms, "busy_ms": busy_ms}
+
+
+def train_diffs(torch, p, q) -> dict:
+    """Pass ``p`` against pass ``q``: the largest per-step loss difference
+    and the step-1 gradients' relative L2 error per parameter (worst and
+    median; attn.key.bias, whose exact gradient is 0 — softmax ignores a
+    shift shared by a row's logits — holds rounding noise only and is
+    left out)."""
+    rows = []
+    for name, a, b in zip(p["names"], p["grads"], q["grads"]):
+        if not torch.isfinite(a).all():
+            raise SmokeFailure(f"step-1 gradient of {name}: non-finite")
+        if not name.endswith("attn.key.bias"):
+            rows.append((float((a - b).norm() / b.norm().clamp_min(1e-30)), name))
+    rows.sort(reverse=True)
+    return dict(loss=max(abs(a - b) for a, b in zip(p["losses"], q["losses"])),
+                worst=rows[0][0], worst_name=rows[0][1], median=rows[len(rows) // 2][0],
+                n=len(rows))
+
+
+def gate_train(d, tag, loss_tol, grad_tol) -> dict:
+    log(f"  {tag}: per-step |loss diff| max {d['loss']:.3e} (tol {loss_tol}); step-1 "
+        f"gradients relative L2 worst {d['worst']:.3e} ({d['worst_name']}; tol {grad_tol}), "
+        f"median {d['median']:.3e} over {d['n']} parameters")
+    if d["loss"] > loss_tol or d["worst"] > grad_tol:
+        raise SmokeFailure(f"{tag}: outside tolerance ({d})")
+    return {k: d[k] for k in ("loss", "worst", "median")}
+
+
+def phase_train_fused(torch, np, card, data, flash):
+    """Phase 5b: ``fused_ln_matmul=True`` through run_workload with both
+    backward impls, held to phase 5's unfused flash pass ``flash`` (the
+    same weights and batches), then one f32 step fused + pallas vs
+    unfused."""
+    log(f"phase 5b: train gpt_lm with fused_ln_matmul=True (ln1->q/k/v and ln2->mlp_in "
+        f"through the LN+matmul kernels; flash attention) at phase 5's setting, "
+        f"DTF_FUSED_BWD=pallas and =xla, against phase 5's unfused flash pass; on {card}")
+    fused = ["--model.fused_ln_matmul=true", *data]
+    layers, steps = flash["res"].state.model.cfg.num_layers, len(flash["losses"])
+    per_step = 4 * layers  # q, k, v and mlp_in of every layer
+    passes = {}
+    for bwd in ("pallas", "xla"):
+        p = passes[bwd] = train_pass(torch, np, "flash", extra=fused, bwd=bwd)
+        log(f"  fused + {bwd}: losses {[round(x, 5) for x in p['losses']]}; step "
+            f"{p['step_ms']:.2f} ms (median of steps 2-{steps}), {p['tok_s']:.0f} tokens/s, "
+            f"MFU {100 * p['mfu']:.2f}%, peak memory {p['peak_gib']:.2f} GiB, run wall "
+            f"{p['wall_s']:.1f} s, launches {p['launches']}")
+        if not np.isfinite(p["losses"]).all():
+            raise SmokeFailure(f"fused + {bwd}: non-finite loss")
+        if not p["losses"][-1] < p["losses"][0]:
+            raise SmokeFailure(f"fused + {bwd}: loss did not fall ({p['losses']})")
+        want = {**{n: layers * steps for n in FLASH_NAMES}, "ln_matmul": per_step * steps,
+                "ln_matmul_bwd_dx": per_step * steps if bwd == "pallas" else 0,
+                "ln_matmul_bwd_dw": per_step * steps if bwd == "pallas" else 0}
+        if p["launches"] != want:
+            raise SmokeFailure(f"fused + {bwd}: launches {p['launches']}, want {want}")
+    out = {"passes": {bwd: {k: p[k] for k in ("losses", "step_ms", "tok_s", "mfu", "peak_gib",
+                                               "launches")} for bwd, p in passes.items()}}
+    out["compare"] = {
+        f"fused/{bwd} vs unfused": gate_train(
+            train_diffs(torch, p, flash), f"fused + {bwd} vs unfused (bf16)",
+            TOL["train/fused/loss"], TOL["train/fused/grad_rel_l2"])
+        for bwd, p in passes.items()}
+    out["compare"]["pallas vs xla"] = gate_train(
+        train_diffs(torch, passes["pallas"], passes["xla"]), "fused: pallas vs xla backward (bf16)",
+        TOL["train/fused/loss"], TOL["train/fused/bwd/grad_rel_l2"])
+    with fused_bwd("pallas"):
+        out["fused_profile"] = profile_train_step(torch, passes["pallas"]["res"],
+                                                  label="fused + pallas")
+    del passes
+    torch.cuda.empty_cache()
+    f32 = {}
+    for name, extra, bwd in (("fused + pallas", fused, "pallas"), ("unfused", data, None)):
+        f32[name] = train_pass(torch, np, "flash", steps=1,
+                               extra=[*extra, "--model.dtype=float32"], bwd=bwd)
+        f32[name]["res"] = None
+        log(f"  f32 {name}, one step: loss {f32[name]['losses'][0]:.6f}, peak memory "
+            f"{f32[name]['peak_gib']:.2f} GiB, launches {f32[name]['launches']}")
+        torch.cuda.empty_cache()
+    if f32["fused + pallas"]["launches"]["ln_matmul_bwd_dw"] != per_step:
+        raise SmokeFailure(f"f32 fused pass: launches {f32['fused + pallas']['launches']}")
+    out["compare"]["f32"] = gate_train(
+        train_diffs(torch, f32["fused + pallas"], f32["unfused"]),
+        "f32 one step, fused + pallas vs unfused", TOL["train/f32/loss"],
+        TOL["train/f32/grad_rel_l2"])
+    out["launches"] = out["passes"]["pallas"]["launches"]
+    return out
 
 
 def phase_train(torch, np, card):
@@ -874,10 +1170,18 @@ def phase_train(torch, np, card):
     path = os.path.join(tmp.name, "corpus.npy")
     np.save(path, np.append(corpus["input_ids"].reshape(-1), 0).astype(np.int32))
     log(f"  corpus: SyntheticLM batch 0 ({corpus['input_ids'].shape} tokens) as tokens:{path}")
+    data = [f"--data.dataset=tokens:{path}"]
     with tmp:
-        passes = {impl: train_pass(torch, np, impl, extra=[f"--data.dataset=tokens:{path}"])
-                  for impl in ("flash", "dense")}
-    flash, dense = passes["flash"], passes["dense"]
+        passes = {impl: train_pass(torch, np, impl, extra=data) for impl in ("flash", "dense")}
+        flash, dense = passes["flash"], passes["dense"]
+        fused = phase_5(torch, np, flash, dense)
+        fused.update(phase_train_fused(torch, np, card, data, flash))
+    return fused
+
+
+def phase_5(torch, np, flash, dense):
+    """Phase 5's gates and measurements on its flash and dense passes."""
+    passes = {"flash": flash, "dense": dense}
     steps, layers = len(flash["losses"]), flash["res"].state.model.cfg.num_layers
     for p in passes.values():
         log(f"  {p['impl']}: losses {[round(x, 5) for x in p['losses']]}; step "
@@ -888,9 +1192,10 @@ def phase_train(torch, np, card):
             raise SmokeFailure(f"{p['impl']}: non-finite loss")
         if not p["losses"][-1] < p["losses"][0]:
             raise SmokeFailure(f"{p['impl']}: loss did not fall ({p['losses']})")
-    if any(n != layers * steps for n in flash["launches"].values()):
-        raise SmokeFailure(f"flash pass: want {layers} launches a step of each kernel over "
-                           f"{steps} steps, got {flash['launches']}")
+    if any(flash["launches"][n] != layers * steps for n in FLASH_NAMES) \
+            or any(flash["launches"][n] for n in LN_NAMES):
+        raise SmokeFailure(f"flash pass: want {layers} launches a step of each flash kernel "
+                           f"over {steps} steps and none of LN+matmul, got {flash['launches']}")
     if any(dense["launches"].values()):
         raise SmokeFailure(f"dense pass launched a flash kernel: {dense['launches']}")
     loss_diff = max(abs(a - b) for a, b in zip(flash["losses"], dense["losses"]))
@@ -915,10 +1220,10 @@ def phase_train(torch, np, card):
     if worst > TOL["train/grad_rel_l2"]:
         raise SmokeFailure(f"step-1 gradient of {worst_name} differs by {worst}")
     prof = profile_train_step(torch, flash["res"])
-    out = {k: flash[k] for k in ("launches", "losses", "step_ms", "tok_s", "mfu", "peak_gib")}
+    out = {k: flash[k] for k in ("losses", "step_ms", "tok_s", "mfu", "peak_gib")}
     out.update(dense_step_ms=dense["step_ms"], loss_diff=loss_diff, grad_rel=worst,
-               profile=prof)
-    del passes, flash, dense
+               profile=prof, flash_launches={n: flash["launches"][n] for n in FLASH_NAMES})
+    dense["res"] = None
     torch.cuda.empty_cache()
     big = train_pass(torch, np, "flash", batch=64, steps=3)
     log(f"  flash at global batch 64: losses {[round(x, 5) for x in big['losses']]}; step "
@@ -1007,7 +1312,6 @@ def resnet_pass(torch, np, impl, bwd, path, extra=()):
         captured["bn_init"] = {n: b.detach().float().clone() for n, b in model.named_buffers()}
         return model
 
-    os.environ["DTF_FUSED_BWD"] = bwd
     topt.Optimizer.update, resnet.init_params, resnet.build = spy, perturbed_init, recording_build
     try:
         torch.cuda.synchronize()
@@ -1015,8 +1319,10 @@ def resnet_pass(torch, np, impl, bwd, path, extra=()):
         for k in fcb.KERNELS.values():
             k.launches = 0  # main path starts
         t0 = time.perf_counter()
-        res = run_workload("resnet50_imagenet", RESNET_OVERRIDES + [
-            f"--model.block_impl={impl}", f"--data.dataset=npz:{path}", *extra], device=DEVICE)
+        with fused_bwd(bwd):
+            res = run_workload("resnet50_imagenet", RESNET_OVERRIDES + [
+                f"--model.block_impl={impl}", f"--data.dataset=npz:{path}", *extra],
+                device=DEVICE)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {n: k.launches for n, k in fcb.KERNELS.items()}  # main path read
@@ -1049,20 +1355,20 @@ def profile_resnet_step(torch, np, res, path):
     from distributed_tensorflow_tpu_torch.models import common
     from distributed_tensorflow_tpu_torch.train import make_train_step
 
-    os.environ["DTF_FUSED_BWD"] = "pallas"
     model = res.state.model
     step = make_train_step(common.classification_loss_fn(model, label_smoothing=0.1))
     host = NpzDataset(path, resnet_run_cfg().data).batch(0)
     dev = {k: torch.from_numpy(v).to(DEVICE) for k, v in host.items()}
-    state, m = step(res.state, dev)
-    float(m["loss"])
     act = torch.profiler.ProfilerActivity
-    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state, m = step(state, dev)
+    with fused_bwd("pallas"):
+        state, m = step(res.state, dev)
         float(m["loss"])
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
+        with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, m = step(state, dev)
+            float(m["loss"])
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
     events = [e for e in device_events(torch, prof) if e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     log(f"  profiled fused step (B=256, bwd pallas, batch preloaded on the device, profiler "
@@ -1456,11 +1762,21 @@ def main() -> int:
                     log(f"  [{name}] {line.strip()}")
         kern = phase_kernels(torch, np, F)
         kern.update(phase_flash(torch, np, F))
+        ln_train = phase_ln_train(torch, np, F)
+        kern.update({n: {"err": ln_train[n]["err"], "rows": [ln_train[n]["main"]]}
+                     for n in ("ln_matmul_bwd_dx", "ln_matmul_bwd_dw")})
+        kern["ln_matmul"]["err"] = max(kern["ln_matmul"]["err"],
+                                       ln_train["ln_matmul/train"]["err"])
         conv_bn = phase_conv_bn(torch, np)
         kern.update({n: {"err": r["err"], "rows": [r["main"]]} for n, r in conv_bn.items()})
         launches, counts, steps = phase_serve(torch, np, smi)
         train = phase_train(torch, np, smi)
-        launches.update(train["launches"])
+        launches.update(train["flash_launches"])
+        # the LN+matmul forward runs on two main paths: serving and the fused
+        # training pass with the pallas backward (which also runs dx and dw)
+        launches["ln_matmul"] += train["launches"]["ln_matmul"]
+        launches.update({n: train["launches"][n] for n in ("ln_matmul_bwd_dx",
+                                                            "ln_matmul_bwd_dw")})
         resnet = phase_resnet(torch, np, smi)
         launches.update(resnet["launches"])
     except Exception:
@@ -1475,6 +1791,9 @@ def main() -> int:
         ("ln_matmul", "distributed_tensorflow_tpu_torch/ops/csrc/ln_matmul.cu",
          "distributed_tensorflow_tpu/ops/fused_ln_matmul.py:53",
          kern["ln_matmul"]["rows"][3]),
+        *((name, "distributed_tensorflow_tpu_torch/ops/csrc/ln_matmul_bwd.cu",
+           f"distributed_tensorflow_tpu/ops/fused_ln_matmul.py:{line}", kern[name]["rows"][0])
+          for name, line in (("ln_matmul_bwd_dx", 87), ("ln_matmul_bwd_dw", 156))),
         *((name, "distributed_tensorflow_tpu_torch/ops/csrc/flash_attention.cu",
            f"distributed_tensorflow_tpu/ops/flash_attention.py:{line}", kern[name]["rows"][0])
           for name, line in (("flash_fwd", 75), ("flash_bwd_dkv", 205), ("flash_bwd_dq", 241))),
@@ -1499,6 +1818,22 @@ def main() -> int:
         f"{train['dense_step_ms']:.2f} ms; profiled step idle "
         f"{100 - 100 * train['profile']['busy_ms'] / train['profile']['wall_ms']:.1f}%; "
         f"batch 64: {train['batch64']}")
+    log(f"gpt_lm fused_ln_matmul training (B=8, S=1024): " + "; ".join(
+        f"{bwd} backward step {v['step_ms']:.2f} ms, {v['tok_s']:.0f} tokens/s, MFU "
+        f"{100 * v['mfu']:.2f}%, peak {v['peak_gib']:.2f} GiB"
+        for bwd, v in train["passes"].items())
+        + f"; profiled fused+pallas step idle "
+        f"{100 - 100 * train['fused_profile']['busy_ms'] / train['fused_profile']['wall_ms']:.1f}"
+        f"%; "
+        f"gates {train['compare']}; LN+matmul at M=8192 (bf16, kernel / bound / plain / "
+        f"library ms): " + "; ".join(
+            f"{k} n={r['n']} {r['ms']:.5f} / {r['bound_ms']:.5f} / {r['plain_ms']:.5f} / "
+            f"{r['library_ms']:.5f}" for k in ("ln_matmul/train", "ln_matmul_bwd_dx",
+                                               "ln_matmul_bwd_dw")
+            for r in ln_train[k]["rows"])
+        + "; kernels line: ln_matmul's row is serving's M=8 n=3072 and its launches serving's "
+        f"plus the fused+pallas training pass's; the backward rows are n={LN_BWD_MAIN_N} "
+        f"(library_ms: the product alone, dy@w^T and h^T@dy)")
     log(f"resnet50_imagenet training (B=256, 224x224, bf16): " + "; ".join(
         f"{k} step {v['step_ms']:.2f} ms, {v['img_s']:.1f} images/s, MFU {100 * v['mfu']:.2f}%, "
         f"peak {v['peak_gib']:.2f} GiB" for k, v in resnet["passes"].items())

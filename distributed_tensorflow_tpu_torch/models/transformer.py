@@ -20,10 +20,13 @@ and the FLOPs count. The cast points mirror the flax model exactly:
   output): keep with probability ``1 - rate``, scale the kept by
   ``1 / (1 - rate)``;
 - the tied head in ``head_dtype`` with f32 logits, plus ``mlm_bias``;
-- ``fused_ln_matmul=True`` (paged path only): ln1→q/k/v and ln2→mlp_in
-  run through ``ops.fused_ln_matmul.ln_matmul`` (f32 bias, as the JAX
-  branch does); forward only — a trainable model and the uncached forward
-  refuse it (ROADMAP Queue B rows 6-7).
+- ``fused_ln_matmul=True``: ln1→q/k/v and ln2→mlp_in run through
+  ``ops.fused_ln_matmul.ln_matmul`` on the raw residual stream (f32 bias,
+  the Dense weight cast to ``cfg.dtype`` at use, as the JAX branch does),
+  in the paged and the uncached forward; it trains through the op's
+  backward (``DTF_FUSED_BWD``, ``ops/_policy.py``). Its LayerNorm variance
+  is the kernel's two-pass one, so fused and unfused passes differ by
+  rounding.
 
 Parameters follow the flax tree (``weights.from_jax_params`` converts
 one). Biases, LayerNorm parameters and embeddings are f32. Dense weights
@@ -79,8 +82,8 @@ class TransformerConfig:
     num_experts: int = 0
     remat: bool = False
     fused_qkv: bool = False
-    # ln1->q/k/v and ln2->mlp_in through the fused LN+matmul kernel
-    # (forward only: serving)
+    # ln1->q/k/v and ln2->mlp_in through the fused LN+matmul kernels
+    # (same parameter tree as the unfused path)
     fused_ln_matmul: bool = False
     # >0: the training loss projects and scores this many positions at a
     # time (chunked_lm_loss_fn), so [B, S, vocab] logits never exist
@@ -165,6 +168,14 @@ class Dense(nn.Module):
         return F.linear(x, self.weight.to(self.dtype), self.bias.to(self.dtype))
 
 
+def _ln_dense(x2: torch.Tensor, ln: "LayerNorm", dense: Dense, dt) -> torch.Tensor:
+    """``dense(ln(x2))`` through the fused LN+matmul op: x2 [M, d] is the raw
+    residual stream; the weight is cast to the compute dtype at use (a no-op
+    for serving weights) and passed as its ``[in, out]`` view."""
+    return ln_matmul(x2, ln.weight, ln.bias, dense.weight.to(dt).t(), dense.bias,
+                     eps=LN_EPS, out_dtype=dt)
+
+
 class SelfAttention(nn.Module):
     def __init__(self, cfg: TransformerConfig, device=None, param_dtype=None):
         super().__init__()
@@ -186,8 +197,7 @@ class SelfAttention(nn.Module):
             x2 = x.reshape(B * S, d)
 
             def proj(dense):
-                return ln_matmul(x2, ln.weight, ln.bias, dense.weight.t(),
-                                 dense.bias, eps=LN_EPS, out_dtype=x.dtype)
+                return _ln_dense(x2, ln, dense, x.dtype)
         else:
             def proj(dense):
                 return dense(x)
@@ -213,11 +223,12 @@ class SelfAttention(nn.Module):
             impl=self.cfg.paged_attention_impl)
         return self._out(out)
 
-    def forward_uncached(self, x, mask, *, train: bool, generator=None):
+    def forward_uncached(self, x, mask, *, train: bool, generator=None, ln=None):
         """Uncached (training) attention over the whole sequence: ``mask``
-        [B,S] bool or None; dropout on the output projection."""
+        [B,S] bool or None; dropout on the output projection; ``ln`` as in
+        ``forward``."""
         cfg = self.cfg
-        q, k, v = self._qkv(x)
+        q, k, v = self._qkv(x, ln)
         out = attention(q, k, v, causal=cfg.causal, kv_mask=mask,
                         impl=cfg.attention_impl)
         return dropout(self._out(out), cfg.dropout, train, generator)
@@ -244,22 +255,26 @@ class Block(nn.Module):
         dt = x.dtype
         if self.cfg.fused_ln_matmul:
             x = x + self.attn(x, k_pool, v_pool, block_table, pos, ln=self.ln1)
-            B, S, d = x.shape
-            h = ln_matmul(x.reshape(B * S, d), self.ln2.weight, self.ln2.bias,
-                          self.mlp_in.weight.t(), self.mlp_in.bias, eps=LN_EPS,
-                          out_dtype=dt).reshape(B, S, -1)
-            return x + self._mlp_tail(h)
+            return x + self._mlp_tail(self._fused_mlp_in(x))
         x = x + self.attn(self.ln1(x).to(dt), k_pool, v_pool, block_table, pos)
         return x + self._mlp_tail(self.mlp_in(self.ln2(x).to(dt)))
 
+    def _fused_mlp_in(self, x):
+        B, S, d = x.shape
+        return _ln_dense(x.reshape(B * S, d), self.ln2, self.mlp_in, x.dtype).reshape(B, S, -1)
+
     def forward_uncached(self, x, mask, *, train: bool, generator=None):
         dt = x.dtype
+        if self.cfg.fused_ln_matmul:
+            x = x + self.attn.forward_uncached(x, mask, train=train, generator=generator,
+                                               ln=self.ln1)
+            return x + self._mlp_tail(self._fused_mlp_in(x), train, generator)
         x = x + self.attn.forward_uncached(self.ln1(x).to(dt), mask, train=train,
                                            generator=generator)
         return x + self._mlp_tail(self.mlp_in(self.ln2(x).to(dt)), train, generator)
 
 
-def check_supported(cfg: TransformerConfig, *, trainable: bool = False) -> None:
+def check_supported(cfg: TransformerConfig) -> None:
     """Refuse what the port does not have yet, naming the ROADMAP item."""
     if not (cfg.causal and cfg.pre_ln):
         raise ValueError(
@@ -272,10 +287,6 @@ def check_supported(cfg: TransformerConfig, *, trainable: bool = False) -> None:
         if getattr(cfg, name) != default:
             raise ValueError(f"model.{name}={getattr(cfg, name)!r} is not ported yet "
                              f"(ROADMAP Queue A {item})")
-    if trainable and cfg.fused_ln_matmul:
-        raise ValueError(
-            "fused_ln_matmul=True cannot train yet: the LN+matmul backward "
-            "kernels are ROADMAP Queue B rows 6-7 (slice 3)")
 
 
 class Transformer(nn.Module):
@@ -300,7 +311,7 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: TransformerConfig, device=None, trainable: bool = False):
         super().__init__()
-        check_supported(cfg, trainable=trainable)
+        check_supported(cfg)
         self.cfg = cfg
         pdt = torch.float32 if trainable else None
         self.tok_embed = nn.Embedding(cfg.vocab_size, cfg.d_model, device=device,
@@ -328,10 +339,6 @@ class Transformer(nn.Module):
             x = self.final_ln(x).to(dt)
             return head_projection(x, self.tok_embed.weight, cfg.head_dtype) \
                 + self.mlm_bias, kv_cache
-        if cfg.fused_ln_matmul:
-            raise ValueError("the uncached forward has no fused_ln_matmul branch: it "
-                             "trains, and the LN+matmul backward kernels are ROADMAP "
-                             "Queue B rows 6-7 (slice 3)")
         S = input_ids.shape[1]
         if S > cfg.max_len:
             raise ValueError(f"sequence length {S} exceeds max_len={cfg.max_len}")

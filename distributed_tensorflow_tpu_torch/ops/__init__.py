@@ -30,7 +30,13 @@ from .fused_conv_bn import (  # noqa: F401
     conv1x1_bn_fwd,
     moments_from_sums,
 )
-from .fused_ln_matmul import ln_matmul, ln_matmul_plain  # noqa: F401
+from .fused_ln_matmul import (  # noqa: F401
+    ln_matmul,
+    ln_matmul_bwd_dw,
+    ln_matmul_bwd_dx,
+    ln_matmul_bwd_plain,
+    ln_matmul_plain,
+)
 from .paged_attention import (  # noqa: F401
     paged_attention_plain,
     paged_flash_attention,

@@ -62,6 +62,15 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
         fn: (_c_void_p,) * 6 + (_c_int,) * 5 + (_c_float, _c_void_p)
         for fn in ("ln_matmul_f32", "ln_matmul_bf16_f32", "ln_matmul_bf16")
     },
+    "ln_matmul_bwd": {
+        # x, gamma, w, sk, sn, dy, dx, mean, rstd, ws, out; M, d, n, G, eps,
+        # stream
+        **{f"ln_bwd_dx_{s}": (_c_void_p,) * 3 + _W_STRIDES + (_c_void_p,) * 6
+           + (_c_int,) * 4 + (_c_float, _c_void_p) for s in ("f32", "bf16")},
+        # x, gamma, beta, dy, mean, rstd, ws, dw; M, d, n, G, stream
+        **{f"ln_bwd_dw_{s}": (_c_void_p,) * 8 + (_c_int,) * 4 + (_c_void_p,)
+           for s in ("f32", "bf16")},
+    },
     # each [B,H,S,D] input as (pointer, stride_b, stride_h, stride_s);
     # then mask, outputs; B, H, Sq, Sk, D, causal, scale, stream
     "flash_attention": {
@@ -186,6 +195,17 @@ def load(name: str) -> ctypes.CDLL:
         lib.dtf_error_string.restype = ctypes.c_char_p
         _libs[name] = lib
         return lib
+
+
+def on_cuda(t: torch.Tensor, what: str) -> bool:
+    """True for a CUDA tensor (the wrapper launches its kernel), False for
+    a CPU one (the wrapper computes its plain version); raises on any other
+    device."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{what} runs on cuda or cpu, got {t.device}")
+    return True
 
 
 def refuse_grad(what: str, tensors, hint: str) -> None:

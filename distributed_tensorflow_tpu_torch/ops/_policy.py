@@ -25,6 +25,8 @@ from __future__ import annotations
 
 import os
 
+import torch
+
 BWD_IMPLS = ("xla", "pallas")
 
 
@@ -35,3 +37,18 @@ def resolve_bwd_impl(bwd_impl: str | None = None) -> str:
     if impl not in BWD_IMPLS:
         raise ValueError(f"bwd_impl must be 'xla' or 'pallas', got {impl!r}")
     return impl
+
+
+def mm_exact(a, b):
+    """f32 product of the operands as they are (exact products of bf16):
+    the kernels' plain versions multiply this way."""
+    return torch.matmul(a.float(), b.float())
+
+
+def mm_library(a, b):
+    """The ``"xla"`` backward's products: on the card a bf16 ``torch.mm``
+    with an f32 result (cuBLAS, as XLA's ``preferred_element_type=f32``);
+    anything else multiplies in f32."""
+    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return mm_exact(a, b)

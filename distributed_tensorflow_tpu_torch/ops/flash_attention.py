@@ -153,18 +153,10 @@ def _common_tail(q, k, causal, scale):
             torch.cuda.current_stream(q.device).cuda_stream]
 
 
-def _on_cuda(t: torch.Tensor, what: str) -> bool:
-    if t.device.type == "cpu":
-        return False
-    if t.device.type != "cuda":
-        raise ValueError(f"{what} runs on cuda or cpu, got {t.device}")
-    return True
-
-
 def flash_fwd(q, k, v, kv_mask=None, *, causal: bool = False, sm_scale: float | None = None):
     """Forward: ``(out, lse)``. CUDA tensors: one launch of the forward
     kernel on the current stream; CPU tensors: ``flash_attention_plain``."""
-    if not _on_cuda(q, "flash_fwd"):
+    if not _build.on_cuda(q, "flash_fwd"):
         return flash_attention_plain(q, k, v, kv_mask, causal=causal, sm_scale=sm_scale)
     kv_mask = _check(q, k, v, kv_mask)
     (q, qa), (k, ka), (v, va) = (_strided(n, t) for n, t in (("q", q), ("k", k), ("v", v)))
@@ -204,7 +196,7 @@ def flash_bwd_dkv(q, k, v, kv_mask, out, lse, dout, *, causal: bool = False,
                   sm_scale: float | None = None):
     """dK, dV with the kv tile resident. CUDA tensors: one launch;
     CPU tensors: the plain backward's dk, dv."""
-    if not _on_cuda(q, "flash_bwd_dkv"):
+    if not _build.on_cuda(q, "flash_bwd_dkv"):
         _, dk, dv = flash_attention_bwd_plain(q, k, v, kv_mask, out, lse, dout,
                                               causal=causal, sm_scale=sm_scale)
         return dk, dv
@@ -223,7 +215,7 @@ def flash_bwd_dq(q, k, v, kv_mask, out, lse, dout, *, causal: bool = False,
                  sm_scale: float | None = None):
     """dQ with the q tile resident. CUDA tensors: one launch; CPU
     tensors: the plain backward's dq."""
-    if not _on_cuda(q, "flash_bwd_dq"):
+    if not _build.on_cuda(q, "flash_bwd_dq"):
         return flash_attention_bwd_plain(q, k, v, kv_mask, out, lse, dout,
                                          causal=causal, sm_scale=sm_scale)[0]
     args, _alive = _bwd_args(q, k, v, kv_mask, out, lse, dout)

@@ -37,7 +37,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from ._policy import resolve_bwd_impl
+from ._policy import mm_exact, mm_library, resolve_bwd_impl
 
 #: tile edge of every kernel (rows of an M tile, columns of a channel tile)
 TILE = 64
@@ -139,11 +139,6 @@ def _bwd_math(x, y, dy, w, scale, shift, dsum, dssq, *, relu, emit_stats, mm):
     return dh.to(x.dtype), mm(hq.t(), gq.to(hq.dtype)), dscale, dshift
 
 
-def _mm_exact(a, b):
-    """f32 product of the operands as they are (exact products of bf16)."""
-    return torch.matmul(a.float(), b.float())
-
-
 def conv1x1_bn_bwd_plain(x, y, dy, w, scale=None, shift=None, dsum=None, dssq=None, *,
                          relu: bool = True, emit_stats: bool = True):
     """The backward kernels' math in plain PyTorch — the JAX package's
@@ -151,16 +146,7 @@ def conv1x1_bn_bwd_plain(x, y, dy, w, scale=None, shift=None, dsum=None, dssq=No
     ``(dx, dw f32 [cin, cout], dscale, dshift)``, the last two None
     without the prologue."""
     return _bwd_math(x, y, dy, w, scale, shift, dsum, dssq, relu=relu,
-                     emit_stats=emit_stats, mm=_mm_exact)
-
-
-def _mm_library(a, b):
-    """The ``"xla"`` backward's products: on the card a bf16 ``torch.mm``
-    with an f32 result (cuBLAS, as XLA's ``preferred_element_type=f32``);
-    f32 operands and CPU tensors multiply in f32."""
-    if a.is_cuda and a.dtype == torch.bfloat16:
-        return torch.mm(a, b, out_dtype=torch.float32)
-    return _mm_exact(a, b)
+                     emit_stats=emit_stats, mm=mm_exact)
 
 
 def xla_bwd(x, y, dy, w, scale=None, shift=None, dsum=None, dssq=None, *, relu: bool = True,
@@ -168,7 +154,7 @@ def xla_bwd(x, y, dy, w, scale=None, shift=None, dsum=None, dssq=None, *, relu: 
     """``bwd_impl="xla"``: the plain-math backward with its dgrad and wgrad
     products in ``torch.mm`` (no kernel of this module)."""
     return _bwd_math(x, y, dy, w, scale, shift, dsum, dssq, relu=relu,
-                     emit_stats=emit_stats, mm=_mm_library)
+                     emit_stats=emit_stats, mm=mm_library)
 
 
 # ---------------------------------------------------------------------------
@@ -176,14 +162,6 @@ def xla_bwd(x, y, dy, w, scale=None, shift=None, dsum=None, dssq=None, *, relu: 
 # ---------------------------------------------------------------------------
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
-
-
-def _on_cuda(t: torch.Tensor, what: str) -> bool:
-    if t.device.type == "cpu":
-        return False
-    if t.device.type != "cuda":
-        raise ValueError(f"{what} runs on cuda or cpu, got {t.device}")
-    return True
 
 
 def _rows(name: str, t: torch.Tensor, dtype, shape) -> None:
@@ -254,7 +232,7 @@ def conv1x1_bn_fwd(x, w, scale=None, shift=None, *, relu: bool = True,
     """Forward: ``(y, col_sum, col_sumsq)`` (the sums None without
     ``emit_stats``). CUDA tensors: one launch of the forward kernel (and
     its partial-sum reduction); CPU tensors: ``conv1x1_bn_act_plain``."""
-    if not _on_cuda(x, "conv1x1_bn_fwd"):
+    if not _build.on_cuda(x, "conv1x1_bn_fwd"):
         out = conv1x1_bn_act_plain(x, w, scale, shift, relu=relu, emit_stats=emit_stats,
                                    out_dtype=out_dtype)
         return out if emit_stats else (out, None, None)
@@ -284,7 +262,7 @@ def conv1x1_bn_bwd_dx(x, y, dy, w, scale=None, shift=None, dsum=None, dssq=None,
     """Two-pass backward, part 1: ``(dx, dscale, dshift)`` (the last two
     None without the prologue). CUDA tensors: one launch; CPU tensors: the
     plain backward's."""
-    if not _on_cuda(x, "conv1x1_bn_bwd_dx"):
+    if not _build.on_cuda(x, "conv1x1_bn_bwd_dx"):
         dx, _, dscale, dshift = conv1x1_bn_bwd_plain(
             x, y, dy, w, scale, shift, dsum, dssq, relu=relu, emit_stats=emit_stats)
         return dx, dscale, dshift
@@ -315,8 +293,8 @@ def conv1x1_bn_bwd_dw(x, y, dy, scale=None, shift=None, dsum=None, dssq=None, *,
     """Two-pass backward, part 2: ``dw = prologue(x)^T @ g`` in f32
     ``[cin, cout]``. CUDA tensors: one launch; CPU tensors: the plain
     backward's."""
-    if not _on_cuda(x, "conv1x1_bn_bwd_dw"):
-        return _mm_exact(_hq(x, scale, shift, relu).t(), _gq(y, dy, dsum, dssq, emit_stats))
+    if not _build.on_cuda(x, "conv1x1_bn_bwd_dw"):
+        return mm_exact(_hq(x, scale, shift, relu).t(), _gq(y, dy, dsum, dssq, emit_stats))
     cout = dy.shape[-1]
     M, cin, _, _, sfx = _check("conv1x1_bn_bwd_dw", x, None, scale, shift, cout, ("y", y),
                                ("dy", dy))
@@ -341,7 +319,7 @@ def conv1x1_bn_bwd_single(x, y, dy, w, scale=None, shift=None, dsum=None, dssq=N
     over x, y and dy. CUDA tensors: one launch (raises where
     ``single_pass(cin, cout)`` does not hold); CPU tensors: the plain
     backward."""
-    if not _on_cuda(x, "conv1x1_bn_bwd_single"):
+    if not _build.on_cuda(x, "conv1x1_bn_bwd_single"):
         return conv1x1_bn_bwd_plain(x, y, dy, w, scale, shift, dsum, dssq, relu=relu,
                                     emit_stats=emit_stats)
     cout = w.shape[-1]

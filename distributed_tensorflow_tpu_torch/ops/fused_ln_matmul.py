@@ -1,21 +1,33 @@
-"""Fused LayerNorm + matmul (+bias), forward only — the hand-written
-CUDA kernel (``csrc/ln_matmul.cu``) and its plain PyTorch version.
+"""Fused LayerNorm + matmul (+bias) — the hand-written CUDA kernels
+(``csrc/ln_matmul.cu``: the forward; ``csrc/ln_matmul_bwd.cu``: the dx and
+dw backward), their plain PyTorch versions and the
+``torch.autograd.Function`` that wires them.
 
-Counterpart of the forward of ``distributed_tensorflow_tpu/ops/
-fused_ln_matmul.py``: every pre-LN block applies LayerNorm and feeds the
-result straight into a Dense matmul (q/k/v, mlp_in); the kernel
-normalises each row tile in shared memory, so the normalised tensor
-never reaches device memory. Numerics as in that file: f32 row
-statistics (eps inside the rsqrt), the normalised rows cast to x's
-dtype, f32 accumulation, f32 bias, cast to ``out_dtype``. Forward only:
-the backward kernels are ROADMAP Queue B rows 6-7, so on a CUDA tensor
-that requires grad (with grad mode on) the wrapper raises instead of
-returning a result autograd cannot differentiate.
+Counterpart of ``distributed_tensorflow_tpu/ops/fused_ln_matmul.py``
+(``_fwd_kernel``, ``_bwd_dx_kernel``, ``_bwd_dw_kernel`` behind
+``jax.custom_vjp``): every pre-LN block applies LayerNorm and feeds the
+result straight into a Dense matmul (q/k/v, mlp_in); the forward kernel
+normalises each row tile in shared memory, so the normalised tensor never
+reaches device memory, and the backward recomputes it. Numerics as in that
+file: f32 row statistics (eps inside the rsqrt; the mean, then the mean of
+squared deviations), the normalised rows cast to x's dtype, f32
+accumulation, f32 bias, cast to ``out_dtype``. In the backward (JAX's
+``_xla_bwd``): dy cast to ``out_dtype``; ``dh = dy @ w^T`` in f32; dx from
+the coupled, row-local LayerNorm backward, cast to x's dtype; dgamma =
+sum dh*xhat, dbeta = sum dh, dbias = sum dy in f32; ``dw = h^T @ dy`` in
+f32 with h = xhat*gamma + beta cast to x's dtype, then cast to w's dtype.
 
-``ln_matmul`` launches the kernel for CUDA tensors (building it with
-nvcc on first use) and raises on what the kernel does not take; for CPU
-tensors — and only for those — it computes ``ln_matmul_plain``.
-``ln_matmul.launches`` counts kernel launches.
+The kernel wrappers ``ln_matmul`` (forward), ``ln_matmul_bwd_dx`` and
+``ln_matmul_bwd_dw`` launch their kernel for CUDA tensors (built with nvcc
+on first use) and raise on what it does not take; for CPU tensors — and
+only for those — they compute the plain version. Each counts its launches
+in ``.launches``. The backward kernels take x, w and dy in one dtype (f32
+or bf16), d and n multiples of 8.
+
+``ln_matmul`` routes through ``LnMatmul`` whenever autograd records the
+call; its backward follows ``_policy.resolve_bwd_impl``: ``"xla"`` is the
+plain math with its two products in ``torch.mm``; ``"pallas"`` launches the
+dx kernel and then the dw kernel.
 """
 
 from __future__ import annotations
@@ -23,9 +35,11 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from ._policy import mm_exact, mm_library, resolve_bwd_impl
 
-#: shared memory a CTA may use (227 KB on Hopper): 16 normalised rows of
-#: width d (padded to 128) plus one 128x64 w tile and the f32 epilogue tile
+#: shared memory a CTA may use (227 KB on Hopper); the forward's needs 16
+#: normalised rows of width d (padded to 128) plus one 128x64 w tile and
+#: the f32 epilogue tile, the dx kernel's ``_dx_smem``
 _SMEM_LIMIT = 232448
 
 
@@ -47,31 +61,94 @@ def ln_matmul_plain(x, gamma, beta, w, bias=None, *, eps: float = 1e-6,
     return y.to(out_dtype)
 
 
+#: rows of x one dx CTA owns (their f32 dh rows sit in shared memory)
+#: and the columns of d one of its product passes covers
+DX_ROWS, DX_COLS = 32, 256
+#: tile edge of the dw kernel (d rows, n columns, rows of x per chunk)
+DW_TILE = 64
+#: dw CTAs the grid aims to keep resident on one SM
+DW_CTAS_PER_SM = 8
+
+_SMS: dict = {}
+
+
+def _sms(dev) -> int:
+    """The device's SM count, read once per device. The dx grid takes one
+    CTA per SM (a CTA holds ~160 KB of shared memory at gpt_small's
+    widths, so one fits an SM) and the dw grid ``DW_CTAS_PER_SM`` per SM;
+    the partial sums' order depends on the card and the shapes alone, so a
+    step stays bitwise repeatable on one card."""
+    if dev not in _SMS:
+        _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _SMS[dev]
+
+
+def _round_up(a: int, m: int) -> int:
+    return -(-a // m) * m
+
+
+def _dx_math(x, gamma, w, dy, eps, mm):
+    """The dx kernel's function: ``(dx, dgamma, dbeta, dbias, mean, rstd)``;
+    the f32 row statistics as the kernels take them: mean, then rsqrt of
+    the mean of squared deviations plus eps."""
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    inv = torch.rsqrt(((x32 - mu) ** 2).mean(-1, keepdim=True) + eps)
+    xhat = (x32 - mu) * inv
+    dh = mm(dy, w.t())
+    dxhat = dh * gamma.float().reshape(1, -1)
+    m1 = dxhat.mean(-1, keepdim=True)
+    m2 = (dxhat * xhat).mean(-1, keepdim=True)
+    dx = ((dxhat - m1 - xhat * m2) * inv).to(x.dtype)
+    return (dx, (dh * xhat).sum(0), dh.sum(0), dy.float().sum(0), mu.reshape(-1),
+            inv.reshape(-1))
+
+
+def _dw_math(x, gamma, beta, dy, mean, rstd, mm):
+    """The dw kernel's function: ``h^T @ dy`` summed in f32, with h =
+    (xhat*gamma + beta) rounded to x's dtype, xhat from the rows' f32
+    ``mean, rstd`` [M]."""
+    h = ((x.float() - mean.reshape(-1, 1)) * rstd.reshape(-1, 1)
+         * gamma.float().reshape(1, -1) + beta.float().reshape(1, -1)).to(x.dtype)
+    return mm(h.t(), dy)
+
+
+def _bwd(x, gamma, beta, w, dy, eps, mm):
+    dx, dg, db, dbias, mean, rstd = _dx_math(x, gamma, w, dy, eps, mm)
+    return dx, dg, db, _dw_math(x, gamma, beta, dy, mean, rstd, mm).to(w.dtype), dbias
+
+
+def ln_matmul_bwd_plain(x, gamma, beta, w, dy, *, eps: float = 1e-6):
+    """The backward kernels' math in plain PyTorch — JAX's ``_xla_bwd``
+    with both products in f32 on the rounded operands (exact products, f32
+    sums): ``(dx, dgamma, dbeta, dw, dbias)``; dx in x's dtype, dw in w's,
+    the rest f32. ``dy`` is the output gradient in the forward's output
+    dtype."""
+    return _bwd(x, gamma, beta, w, dy, eps, mm_exact)
+
+
+def xla_bwd(x, gamma, beta, w, dy, *, eps: float = 1e-6):
+    """``bwd_impl="xla"``: the plain-math backward with its dgrad and wgrad
+    products in ``torch.mm`` (no kernel of this module)."""
+    return _bwd(x, gamma, beta, w, dy, eps, mm_library)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
 _ENTRY = {
     (torch.float32, torch.float32): "ln_matmul_f32",
     (torch.bfloat16, torch.bfloat16): "ln_matmul_bf16",
     (torch.bfloat16, torch.float32): "ln_matmul_bf16_f32",
 }
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
-def ln_matmul(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-              w: torch.Tensor, bias: torch.Tensor | None = None, *,
-              eps: float = 1e-6, out_dtype=None) -> torch.Tensor:
-    """``LayerNorm(x; gamma, beta) @ w + bias`` in one kernel.
-
-    x: [M, d] f32 or bf16; gamma/beta: [d] f32; w: [d, n] in x's dtype,
-    either contiguous or the transposed view ``linear.weight.t()`` of an
-    ``nn.Linear`` weight [n, d]; bias: [n] f32 or None. Returns [M, n] in
-    ``out_dtype`` (default x.dtype; bf16 input may also give f32)."""
-    if x.device.type == "cpu":
-        return ln_matmul_plain(x, gamma, beta, w, bias, eps=eps,
-                               out_dtype=out_dtype)
-    _build.refuse_grad("ln_matmul", (x, gamma, beta, w, bias),
-                       "its backward kernels are ROADMAP Queue B rows 6-7 "
-                       "(slice 3: fused_ln_matmul training)")
-    if x.device.type != "cuda":
-        raise ValueError(f"ln_matmul runs on cuda or cpu, got {x.device}")
-    out_dtype = out_dtype or x.dtype
+def _fwd(x, gamma, beta, w, bias, eps, out_dtype):
+    """The forward kernel's launch (CPU tensors: the plain version)."""
+    if not _build.on_cuda(x, "ln_matmul"):
+        return ln_matmul_plain(x, gamma, beta, w, bias, eps=eps, out_dtype=out_dtype)
     entry = _ENTRY.get((x.dtype, out_dtype))
     if entry is None:
         raise TypeError(f"ln_matmul kernel takes (x, out) dtypes "
@@ -115,4 +192,170 @@ def ln_matmul(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return y
 
 
-ln_matmul.launches = 0
+def _dx_smem(d: int, n: int, elem_size: int) -> int:
+    """Shared memory of one dx CTA: its f32 dh rows, statistics and
+    running column sums, one dy chunk and one w chunk."""
+    lda = 64 + 16 // elem_size
+    return (4 * (DX_ROWS * (_round_up(d, DX_COLS) + 4) + 2 * DX_ROWS + 2 * d + n)
+            + elem_size * (DX_ROWS + DX_COLS) * lda)
+
+
+def _rows(what, name, t, dtype, shape) -> None:
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what}: {name} must be {dtype} {tuple(shape)}, got {t.dtype} "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{what}: {name} must be contiguous with a 16-byte aligned base")
+
+
+def _check_bwd(what, x, dy, w, gamma, beta):
+    """Validate what the backward kernels take; returns (M, d, n, suffix)."""
+    if x.dtype not in _SUFFIX:
+        raise TypeError(f"{what}: the kernels take f32 or bf16 x, got {x.dtype}")
+    if x.dim() != 2 or dy.dim() != 2 or dy.shape[0] != x.shape[0]:
+        raise ValueError(f"{what}: want x [M, d] and dy [M, n], got {tuple(x.shape)}, "
+                         f"{tuple(dy.shape)}")
+    M, d = x.shape
+    n = dy.shape[1]
+    if M < 1 or d % 8 or n % 8:
+        raise ValueError(f"{what}: the kernels take M >= 1 and d, n multiples of 8, got "
+                         f"M={M} d={d} n={n}")
+    if dy.dtype != x.dtype:
+        raise TypeError(f"{what}: the kernels take x, w and dy in one dtype, got x "
+                        f"{x.dtype}, dy {dy.dtype}")
+    _rows(what, "x", x, x.dtype, (M, d))
+    _rows(what, "dy", dy, x.dtype, (M, n))
+    for name, t in (("gamma", gamma), ("beta", beta)):
+        if t is not None:
+            _rows(what, name, t, torch.float32, (d,))
+    if w is not None:
+        if tuple(w.shape) != (d, n) or w.dtype != x.dtype:
+            raise TypeError(f"{what}: w must be {x.dtype} [{d}, {n}], got {w.dtype} "
+                            f"{tuple(w.shape)}")
+        sk, sn = w.stride()
+        vec = 16 // x.element_size()
+        if not ((sk == 1 and sn % vec == 0) or (sn == 1 and sk % vec == 0)) \
+                or w.data_ptr() % 16:
+            raise ValueError(f"{what}: w [d, n] needs a unit stride in one dim, the other a "
+                             f"multiple of {vec}, and a 16-byte aligned base; got strides "
+                             f"{w.stride()}")
+    for name, t in (("dy", dy), ("w", w), ("gamma", gamma), ("beta", beta)):
+        if t is not None and t.device != x.device:
+            raise ValueError(f"{what}: {name} is on {t.device}, x on {x.device}")
+    return M, d, n, _SUFFIX[x.dtype]
+
+
+def ln_matmul_bwd_dx(x, gamma, w, dy, *, eps: float = 1e-6):
+    """Backward, part 1: ``(dx, dgamma, dbeta, dbias, mean, rstd)``; mean
+    and rstd are the rows' statistics [M] f32, the dw kernel's input. CUDA
+    tensors: one launch (and its partial-sum reduction); CPU tensors: the
+    plain backward's."""
+    if not _build.on_cuda(x, "ln_matmul_bwd_dx"):
+        return _dx_math(x, gamma, w, dy, eps, mm_exact)
+    M, d, n, sfx = _check_bwd("ln_matmul_bwd_dx", x, dy, w, gamma, None)
+    smem = _dx_smem(d, n, x.element_size())
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"ln_matmul_bwd_dx: d={d}, n={n} need {smem} bytes of shared memory "
+                         f"per CTA (limit {_SMEM_LIMIT})")
+    dev = x.device
+    G = max(1, min(-(-M // DX_ROWS), _sms(dev)))
+    dx = torch.empty(M, d, dtype=x.dtype, device=dev)
+    stats = torch.empty(2, M, dtype=torch.float32, device=dev)
+    ws = torch.empty(G * (2 * d + n), dtype=torch.float32, device=dev)
+    out = torch.empty(2 * d + n, dtype=torch.float32, device=dev)
+    sk, sn = w.stride()
+    lib = _build.load("ln_matmul_bwd")
+    rc = getattr(lib, f"ln_bwd_dx_{sfx}")(
+        x.data_ptr(), gamma.data_ptr(), w.data_ptr(), sk, sn, dy.data_ptr(), dx.data_ptr(),
+        stats[0].data_ptr(), stats[1].data_ptr(), ws.data_ptr(), out.data_ptr(), M, d, n, G,
+        float(eps), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, "ln_matmul_bwd_dx")
+    ln_matmul_bwd_dx.launches += 1
+    return dx, out[:d], out[d:2 * d], out[2 * d:], stats[0], stats[1]
+
+
+def ln_matmul_bwd_dw(x, gamma, beta, dy, mean, rstd):
+    """Backward, part 2: ``dw = h^T @ dy`` [d, n], summed in f32 and cast
+    to x's dtype (the kernels' one dtype, w's), with h = (x - mean) * rstd
+    * gamma + beta from the rows' ``mean, rstd`` that ``ln_matmul_bwd_dx``
+    returns (the statistics JAX's kernel recomputes from x: the same
+    function). CUDA tensors: one launch; CPU tensors: the plain
+    backward's."""
+    if not _build.on_cuda(x, "ln_matmul_bwd_dw"):
+        return _dw_math(x, gamma, beta, dy, mean, rstd, mm_exact).to(x.dtype)
+    M, d, n, sfx = _check_bwd("ln_matmul_bwd_dw", x, dy, None, gamma, beta)
+    dev = x.device
+    for name, t in (("mean", mean), ("rstd", rstd)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (M,) or not t.is_contiguous() \
+                or t.device != dev:
+            raise ValueError(f"ln_matmul_bwd_dw: {name} must be contiguous f32 [{M}] on {dev}")
+    tiles = -(-d // DW_TILE) * -(-n // DW_TILE)
+    G = max(1, min(-(-M // DW_TILE), -(-DW_CTAS_PER_SM * _sms(dev) // tiles)))
+    ws = torch.empty(G * d * n, dtype=torch.float32, device=dev)
+    dw = torch.empty(d, n, dtype=x.dtype, device=dev)
+    lib = _build.load("ln_matmul_bwd")
+    rc = getattr(lib, f"ln_bwd_dw_{sfx}")(
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), dy.data_ptr(), mean.data_ptr(),
+        rstd.data_ptr(), ws.data_ptr(), dw.data_ptr(), M, d, n, G,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, "ln_matmul_bwd_dw")
+    ln_matmul_bwd_dw.launches += 1
+    return dw
+
+
+# ---------------------------------------------------------------------------
+# the differentiable op
+# ---------------------------------------------------------------------------
+
+
+class LnMatmul(torch.autograd.Function):
+    """The custom VJP of the JAX op: the forward kernel saves ``(x, gamma,
+    beta, w)``; the backward casts dy to the output dtype and runs the
+    ``bwd_impl`` backward. Gradients: dx in x's dtype, dw in w's dtype (a
+    view such as ``linear.weight.t()`` gets it in its own shape), dgamma,
+    dbeta and dbias f32."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, w, bias, eps, out_dtype, bwd_impl):
+        ctx.save_for_backward(x, gamma, beta, w)
+        ctx.eps, ctx.out_dtype, ctx.bwd_impl = eps, out_dtype, bwd_impl
+        ctx.has_bias = bias is not None
+        return _fwd(x, gamma, beta, w, bias, eps, out_dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gamma, beta, w = ctx.saved_tensors
+        dy = dy.to(ctx.out_dtype).contiguous()
+        if ctx.bwd_impl == "xla":
+            dx, dg, db, dw, dbias = xla_bwd(x, gamma, beta, w, dy, eps=ctx.eps)
+        else:
+            dx, dg, db, dbias, mean, rstd = ln_matmul_bwd_dx(x, gamma, w, dy, eps=ctx.eps)
+            dw = ln_matmul_bwd_dw(x, gamma, beta, dy, mean, rstd).to(w.dtype)
+        return dx, dg, db, dw, dbias if ctx.has_bias else None, None, None, None
+
+
+def ln_matmul(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+              w: torch.Tensor, bias: torch.Tensor | None = None, *,
+              eps: float = 1e-6, out_dtype=None, bwd_impl: str | None = None) -> torch.Tensor:
+    """``LayerNorm(x; gamma, beta) @ w + bias`` in one kernel.
+
+    x: [M, d] f32 or bf16; gamma/beta: [d] f32; w: [d, n] in x's dtype,
+    either contiguous or the transposed view ``linear.weight.t()`` of an
+    ``nn.Linear`` weight [n, d]; bias: [n] f32 or None. Returns [M, n] in
+    ``out_dtype`` (default x.dtype; bf16 input may also give f32). When
+    autograd records the call it runs through ``LnMatmul``, whose backward
+    is ``bwd_impl``'s (``_policy.resolve_bwd_impl``); ``ln_matmul.launches``
+    counts forward kernel launches."""
+    out_dtype = out_dtype or x.dtype
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, gamma, beta, w, bias)):
+        return LnMatmul.apply(x, gamma, beta, w, bias, float(eps), out_dtype,
+                              resolve_bwd_impl(bwd_impl))
+    return _fwd(x, gamma, beta, w, bias, eps, out_dtype)
+
+
+ln_matmul.launches = ln_matmul_bwd_dx.launches = ln_matmul_bwd_dw.launches = 0
+
+#: the three kernel wrappers, by the name chip_smoke.py and PERF.md use
+KERNELS = {"ln_matmul": ln_matmul, "ln_matmul_bwd_dx": ln_matmul_bwd_dx,
+           "ln_matmul_bwd_dw": ln_matmul_bwd_dw}

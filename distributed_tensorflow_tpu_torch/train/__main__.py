@@ -8,6 +8,8 @@ Usage:
         --model.max_len=64 --data.seq_len=64 --model.xent_chunk=32 \\
         --model.dtype=float32 --data.global_batch_size=4 \\
         --train.num_steps=5 --train.log_every=1 --optimizer.warmup_steps=0
+    DTF_FUSED_BWD=pallas python -m distributed_tensorflow_tpu_torch.train gpt_lm \
+        --model.fused_ln_matmul=true --train.num_steps=20
     python -m distributed_tensorflow_tpu_torch.train resnet50_imagenet \
         --data.global_batch_size=256 --model.block_impl=fused --train.num_steps=20
     python -m distributed_tensorflow_tpu_torch.train resnet50_imagenet --device cpu \
@@ -18,7 +20,10 @@ Usage:
 
 Runs on the GPU unless ``--device cpu`` is given; with no CUDA present
 the GPU default raises. Every ``--section.key=value`` override is the
-JAX package's.
+JAX package's. ``--model.fused_ln_matmul=true`` runs ln1->q/k/v and
+ln2->mlp_in through the fused LN+matmul kernels; ``DTF_FUSED_BWD=pallas``
+(default ``xla``) picks their backward kernels, as it does for
+``resnet50_imagenet --model.block_impl=fused``.
 """
 
 from __future__ import annotations

@@ -28,7 +28,7 @@ def transformer_parts(cfg: RunConfig, device: torch.device, *, mlm: bool) -> Wor
     if cfg.data.vocab_size != mcfg.vocab_size:
         raise ValueError(f"data.vocab_size={cfg.data.vocab_size} != "
                          f"model.vocab_size={mcfg.vocab_size}")
-    tfm.check_supported(mcfg, trainable=True)
+    tfm.check_supported(mcfg)
     params = tfm.init_params(mcfg, seed=cfg.train.seed, device=device, trainable=True)
     model = tfm.build(mcfg, params, device, trainable=True)
     return WorkloadParts(

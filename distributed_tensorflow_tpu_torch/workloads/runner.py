@@ -7,8 +7,7 @@ The config tree keeps the JAX package's section names, so the same
 ``--section.key=value`` overrides parse; a config that asks for what the
 port does not have yet raises with the ROADMAP item named: a checkpoint
 directory, a mesh of more than one device, a pipeline, a fleet, the
-anomaly defense, sequence parallelism, MoE, ``fused_ln_matmul``
-training.
+anomaly defense, sequence parallelism, MoE.
 """
 
 from __future__ import annotations

@@ -486,3 +486,151 @@ def test_resnet_run_on_card_is_bitwise_repeatable(card, monkeypatch):
     a, b = (run_workload("resnet50_imagenet", overrides, device=card).state.model.state_dict()
             for _ in range(2))
     assert [k for k in a if not torch.equal(a[k], b[k])] == []
+
+
+# ---------------------------------------------------------------------------
+# fused LayerNorm + matmul backward (rows 6-7 of the kernel table)
+# ---------------------------------------------------------------------------
+
+#: (M, d, n): a ragged M smaller than one 32-row dx tile, d and n that are
+#: no multiple of the kernels' 256/64 tiles, and gpt_small's two widths
+LN_BWD_CASES = {torch.float32: [(37, 64, 96), (300, 768, 3072)],
+                torch.bfloat16: [(75, 200, 136), (1000, 768, 768)]}
+
+
+def _ln_bwd_inputs(rng, card, dtype, M, d, n, linear_layout):
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(card)  # noqa: E731
+    w_nd = (f(n, d) / d ** 0.5).to(dtype)  # nn.Linear weight [n, d]
+    return (2 * f(M, d).to(dtype) + 0.5, 1 + 0.1 * f(d), 0.1 * f(d),
+            w_nd.t() if linear_layout else w_nd.t().contiguous(), f(M, n).to(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_ln_matmul_bwd_kernels_match_plain_on_card(card, dtype):
+    """Rows 6-7 against the plain backward, both w layouts. dx: f32 same
+    math in another order (1e-4); bf16 one ulp (1e-2, 2^-7). The sums over
+    M (dgamma, dbeta, dbias, dw), relative L2: 1e-5 in f32; 2e-3 in bf16,
+    where dw is rounded to bf16 once from sums taken in another order and
+    an h on a rounding tie may fall the other way. The dw kernel reads the
+    row statistics the dx kernel writes."""
+    from distributed_tensorflow_tpu_torch.ops import fused_ln_matmul as fln
+
+    rng = np.random.default_rng(8)
+    tol = TOLS[dtype] if dtype == torch.bfloat16 else (1e-4, 1e-4)
+    red_tol = 2e-3 if dtype == torch.bfloat16 else 1e-5
+    for M, d, n in LN_BWD_CASES[dtype]:
+        for linear_layout in (True, False):
+            x, g, b, w, dy = _ln_bwd_inputs(rng, card, dtype, M, d, n, linear_layout)
+            case = (M, d, n, linear_layout)
+            before = {k: f.launches for k, f in fln.KERNELS.items()}
+            dx, dg, db, dbias, mean, rstd = fln.ln_matmul_bwd_dx(x, g, w, dy)
+            dw = fln.ln_matmul_bwd_dw(x, g, b, dy, mean, rstd)
+            torch.cuda.synchronize()
+            after = {k: f.launches for k, f in fln.KERNELS.items()}
+            assert after["ln_matmul_bwd_dx"] == before["ln_matmul_bwd_dx"] + 1
+            assert after["ln_matmul_bwd_dw"] == before["ln_matmul_bwd_dw"] + 1
+            want = fln.ln_matmul_bwd_plain(x, g, b, w, dy)
+            torch.testing.assert_close(dx.float(), want[0].float(), atol=tol[0], rtol=tol[1],
+                                       msg=lambda m: f"dx {case}: {m}")
+            for name, got, ref in (("dgamma", dg, want[1]), ("dbeta", db, want[2]),
+                                   ("dw", dw, want[3]), ("dbias", dbias, want[4])):
+                assert got.dtype == ref.dtype and got.shape == ref.shape, (name, case)
+                assert _rel_l2(got, ref) < red_tol, (name, case, _rel_l2(got, ref))
+            x32 = x.float()
+            torch.testing.assert_close(mean, x32.mean(-1), atol=1e-5, rtol=1e-5)
+            torch.testing.assert_close(
+                rstd, torch.rsqrt(x32.var(-1, unbiased=False) + 1e-6), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_ln_matmul_bwd_kernels_are_deterministic(card):
+    """Two calls of each backward kernel on the same bf16 inputs give
+    bitwise-equal results: the sums over M are per-chunk partials reduced
+    in a fixed order, no float atomics."""
+    from distributed_tensorflow_tpu_torch.ops import fused_ln_matmul as fln
+
+    rng = np.random.default_rng(9)
+    x, g, b, w, dy = _ln_bwd_inputs(rng, card, torch.bfloat16, 4100, 768, 3072, True)
+    runs = []
+    for _ in range(2):
+        out = fln.ln_matmul_bwd_dx(x, g, w, dy)
+        runs.append([*out, fln.ln_matmul_bwd_dw(x, g, b, dy, *out[4:])])
+    for a, c in zip(*runs):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_ln_matmul_bwd_wrappers_raise_on_what_the_kernels_do_not_take(card):
+    from distributed_tensorflow_tpu_torch.ops import fused_ln_matmul as fln
+
+    g = torch.ones(64, device=card)
+    st = torch.zeros(16, device=card)
+    x = torch.zeros(16, 64, device=card, dtype=torch.float16)
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        fln.ln_matmul_bwd_dx(x, g, torch.zeros(64, 32, device=card, dtype=torch.float16),
+                             torch.zeros(16, 32, device=card, dtype=torch.float16))
+    x = torch.zeros(16, 64, device=card, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="one dtype"):  # dy f32 with x bf16
+        fln.ln_matmul_bwd_dw(x, g, g, torch.zeros(16, 32, device=card), st, st)
+    with pytest.raises(TypeError, match="w must be"):
+        fln.ln_matmul_bwd_dx(x, g, torch.zeros(64, 32, device=card),
+                             torch.zeros(16, 32, device=card, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fln.ln_matmul_bwd_dw(torch.zeros(16, 60, device=card), torch.ones(60, device=card),
+                             torch.ones(60, device=card), torch.zeros(16, 32, device=card),
+                             st, st)
+    with pytest.raises(ValueError, match="contiguous"):
+        fln.ln_matmul_bwd_dw(x, g, g, torch.zeros(32, 16, device=card,
+                                                 dtype=torch.bfloat16).t(), st, st)
+    with pytest.raises(ValueError, match="rstd must be"):
+        fln.ln_matmul_bwd_dw(x, g, g, torch.zeros(16, 32, device=card, dtype=torch.bfloat16),
+                             st, st[:8])
+    with pytest.raises(ValueError, match="shared memory"):
+        fln.ln_matmul_bwd_dx(torch.zeros(16, 1024, device=card), torch.ones(1024, device=card),
+                             torch.zeros(1024, 8192, device=card),
+                             torch.zeros(16, 8192, device=card))
+
+
+@pytest.mark.cuda
+def test_fused_ln_training_steps_on_card_match_the_cpu(card, monkeypatch):
+    """Two adamw steps of a tiny f32 ``fused_ln_matmul=True`` causal LM with
+    the pallas backward on the card — the LN+matmul forward, dx and dw
+    kernels at q/k/v and mlp_in of every layer, with w the transposed view
+    of each Dense weight — against the same steps on the CPU (the plain
+    versions), from the same weights and batches: losses and parameters
+    within 1e-4 (f32, other summation order)."""
+    from distributed_tensorflow_tpu_torch.data.text import SyntheticLM, TextDataConfig
+    from distributed_tensorflow_tpu_torch.ops import fused_ln_matmul as fln
+    from distributed_tensorflow_tpu_torch.train import (
+        OptimizerConfig, init_train_state, make_optimizer, make_train_step)
+
+    monkeypatch.setenv("DTF_FUSED_BWD", "pallas")
+    cfg = tfm.TransformerConfig(vocab_size=256, max_len=96, num_layers=2, d_model=128,
+                                num_heads=2, d_ff=256, dropout=0.0, dtype="float32",
+                                causal=True, pre_ln=True, attention_impl="dense",
+                                fused_ln_matmul=True)
+    params = tfm.init_params(cfg, seed=0, device="cpu", trainable=True)
+    data = SyntheticLM(TextDataConfig(dataset="synthetic_lm", global_batch_size=4,
+                                      seq_len=96, vocab_size=256))
+    runs = []
+    for device in (card, torch.device("cpu")):
+        model = tfm.build(cfg, params, device, trainable=True)
+        state = init_train_state(model, make_optimizer(
+            OptimizerConfig(name="adamw", learning_rate=1e-3, weight_decay=0.1),
+            model.parameters()))
+        step = make_train_step(tfm.causal_lm_loss(model, 32))
+        before = {k: f.launches for k, f in fln.KERNELS.items()}
+        losses = []
+        for i in range(2):
+            batch = {k: torch.from_numpy(v).to(device) for k, v in data.batch(i).items()}
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+        runs.append((losses, model, {k: f.launches - before[k] for k, f in fln.KERNELS.items()}))
+    (got, gmodel, glaunch), (want, wmodel, wlaunch) = runs
+    # 4 projections (q, k, v, mlp_in) x 2 layers x 2 steps on the card
+    assert glaunch == {k: 16 for k in fln.KERNELS} and not any(wlaunch.values())
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+    for (name, p), q in zip(gmodel.named_parameters(), wmodel.parameters()):
+        torch.testing.assert_close(p.detach().cpu(), q.detach(), atol=1e-4, rtol=1e-4,
+                                   msg=lambda m: f"{name}: {m}")

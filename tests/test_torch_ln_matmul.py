@@ -1,13 +1,23 @@
 """The port's fused LayerNorm + matmul (ops/fused_ln_matmul.py) against
 the JAX package's: the Pallas forward kernel (interpret mode here) and
-``ln_matmul_reference``, on the same numpy inputs.
+``ln_matmul_reference``, on the same numpy inputs; and the backward —
+``ln_matmul_bwd_plain``, ``xla_bwd``, the kernel wrappers' CPU versions
+and the ``LnMatmul`` autograd path — against ``jax.vjp`` of the JAX op
+under both ``bwd_impl`` (the Pallas dx and dw kernels in interpret mode,
+or its ``_xla_bwd``), for all five cotangents.
 
 Tolerances: f32 1e-5 (same math, other summation order). bf16: both
 sides round the normalised rows and the output to bf16, so a row value
 sitting on a rounding boundary may come out one bf16 ulp apart, before
-and after the product — atol = rtol = 2^-7 (two ulps at |y| ~ 1).
+and after the product — atol = rtol = 2^-7 (two ulps at |y| ~ 1). The
+backward's bf16 outputs (dx, dw) are rounded once from f32 sums taken in
+another order, so the same 2^-7 holds them; the f32 sums (dgamma, dbeta,
+dbias) of the same exact products sit well inside it.
 """
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,6 +27,7 @@ from distributed_tensorflow_tpu.ops.fused_ln_matmul import (
     ln_matmul as jax_ln_matmul,
     ln_matmul_reference,
 )
+from distributed_tensorflow_tpu_torch.ops import fused_ln_matmul as fln
 from distributed_tensorflow_tpu_torch.ops.fused_ln_matmul import (
     ln_matmul,
     ln_matmul_plain,
@@ -80,3 +91,102 @@ def test_ln_matmul_wrapper_on_cpu_takes_both_w_layouts_and_out_dtype():
                                atol=0, rtol=0)
     with pytest.raises(ValueError, match="cuda or cpu"):
         ln_matmul(x.to("meta"), g, b, w)
+
+
+# ---------------------------------------------------------------------------
+# the backward
+# ---------------------------------------------------------------------------
+
+#: M = 40 is no multiple of 16 (the Pallas kernels' rows and the port's
+#: 32-row dx tiles both end ragged)
+BWD_M, BWD_N = 40, 96
+GRADS = ("dx", "dgamma", "dbeta", "dw", "dbias")
+
+
+def _dy(dtype):
+    rng = np.random.default_rng(7)
+    return rng.standard_normal((BWD_M, BWD_N), dtype=np.float32).astype(
+        jnp.dtype(dtype))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_grads(dtype, bwd_impl):
+    """The five cotangents of the JAX op (``jax.vjp`` under ``jax.jit``)
+    for the shared inputs and a fixed output gradient, as f32 numpy."""
+    jargs = _jax_args(_inputs(BWD_M, BWD_N, seed=3), dtype)
+    f = jax.jit(lambda dy, *a: jax.vjp(functools.partial(
+        jax_ln_matmul, interpret=True, bwd_impl=bwd_impl), *a)[1](dy))
+    return tuple(np.asarray(g.astype(jnp.float32)) for g in f(jnp.asarray(_dy(dtype)), *jargs))
+
+
+def _assert_grads(got, want, dtype, what):
+    tol = TOLS[dtype]
+    for name, g, w in zip(GRADS, got, want):
+        np.testing.assert_allclose(g.detach().float().reshape(w.shape).numpy(), w, atol=tol,
+                                   rtol=tol, err_msg=f"{what}: {name}")
+
+
+@pytest.mark.parametrize("bwd_impl", ["xla", "pallas"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ln_matmul_bwd_plain_and_xla_bwd_match_jax(dtype, bwd_impl):
+    """``ln_matmul_bwd_plain`` and ``xla_bwd`` against the JAX op's
+    backward under ``bwd_impl``: dx in x's dtype, dw in w's, the rest f32."""
+    want = _jax_grads(dtype, bwd_impl)
+    x, g, b, w, _ = _torch_args(_inputs(BWD_M, BWD_N, seed=3), dtype)
+    dy = torch.from_numpy(_dy("float32")).to(x.dtype)
+    for fn in (fln.ln_matmul_bwd_plain, fln.xla_bwd):
+        got = fn(x, g, b, w, dy)
+        assert [t.dtype for t in got] == [x.dtype, torch.float32, torch.float32, w.dtype,
+                                          torch.float32]
+        _assert_grads(got, want, dtype, fn.__name__)
+
+
+@pytest.mark.parametrize("bwd_impl", ["xla", "pallas"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ln_matmul_autograd_matches_jax_in_both_w_layouts(dtype, bwd_impl):
+    """``ln_matmul`` under autograd (``LnMatmul``): the gradients of x,
+    gamma, beta, w and bias against the JAX op's, with w contiguous
+    [d, n] and as the transposed view of an nn.Linear weight [n, d] (the
+    gradient comes back in the view's shape). On the CPU the ``pallas``
+    backward runs the kernel wrappers' plain versions."""
+    want = _jax_grads(dtype, bwd_impl)
+    x, g, b, w, bias = _torch_args(_inputs(BWD_M, BWD_N, seed=3), dtype)
+    dy = torch.from_numpy(_dy("float32")).to(x.dtype)
+    for linear_layout in (False, True):
+        leaves = [t.clone().requires_grad_() for t in (x, g, b)]
+        w_leaf = (w.t().contiguous() if linear_layout else w.clone()).requires_grad_()
+        bias_leaf = bias.clone().requires_grad_()
+        wv = w_leaf.t() if linear_layout else w_leaf
+        counts = {k: f.launches for k, f in fln.KERNELS.items()}
+        y = ln_matmul(*leaves, wv, bias_leaf, bwd_impl=bwd_impl)
+        assert y.grad_fn is not None and y.dtype == x.dtype
+        y.backward(dy)
+        assert {k: f.launches for k, f in fln.KERNELS.items()} == counts  # the CPU launches none
+        dw = w_leaf.grad.t() if linear_layout else w_leaf.grad
+        assert dw.shape == (64, BWD_N) and w_leaf.grad.dtype == w.dtype
+        _assert_grads([leaves[0].grad, leaves[1].grad, leaves[2].grad, dw, bias_leaf.grad],
+                      want, dtype, f"linear_layout={linear_layout}")
+
+
+def test_ln_matmul_bwd_wrappers_on_cpu_compute_the_plain_version():
+    """On CPU tensors ``ln_matmul_bwd_dx`` and ``ln_matmul_bwd_dw`` are the
+    plain backward's parts: dx/dgamma/dbeta/dbias and the rows' mean and
+    rstd, then dw in x's dtype from those statistics."""
+    x, g, b, w, _ = _torch_args(_inputs(BWD_M, BWD_N, seed=3), "bfloat16")
+    dy = torch.from_numpy(_dy("float32")).to(x.dtype)
+    dx, dg, db, dw, dbias = fln.ln_matmul_bwd_plain(x, g, b, w, dy)
+    *got, mean, rstd = fln.ln_matmul_bwd_dx(x, g, w, dy)
+    for a, e in zip(got, (dx, dg, db, dbias)):
+        torch.testing.assert_close(a, e, atol=0, rtol=0)
+    *_, mean_t, rstd_t = fln.ln_matmul_bwd_dx(x, g, w.t().contiguous().t(), dy)
+    torch.testing.assert_close(mean_t, mean, atol=0, rtol=0)
+    torch.testing.assert_close(rstd_t, rstd, atol=0, rtol=0)
+    x32 = x.float()
+    torch.testing.assert_close(mean, x32.mean(-1))
+    torch.testing.assert_close(rstd, torch.rsqrt(x32.var(-1, unbiased=False) + 1e-6))
+    torch.testing.assert_close(fln.ln_matmul_bwd_dw(x, g, b, dy, mean, rstd), dw,
+                               atol=0, rtol=0)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fln.ln_matmul_bwd_dx(x.to("meta"), g, w, dy)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fln.ln_matmul_bwd_dw(x.to("meta"), g, b, dy, mean, rstd)

@@ -3,7 +3,9 @@ and the same batches: the next-token losses and every gradient
 (``lm_loss_fn``, ``chunked_lm_loss_fn``; dense attention and the flash
 path — JAX's Pallas kernels in interpret mode, the port's plain
 versions), three adamw steps against optax, gradient accumulation, the
-no-update-on-nonfinite step, and the refusals of what cannot train yet.
+no-update-on-nonfinite step, the refusal of what cannot train, and the
+``fused_ln_matmul=True`` model (loss, gradients, adamw steps and eval)
+against JAX's fused model.
 
 Tiny config of ``torch_port_helpers`` (2 layers, d=64, f32, dropout 0),
 weights from ``params_np`` converted by ``weights.from_jax_params(...,
@@ -13,8 +15,6 @@ relative (two layers of f32 products summed in another order); params
 after three adamw steps 1e-5 (lr 1e-3: an update is lr * m / sqrt(v), so
 gradient noise of 1e-4 moves a parameter by at most ~1e-7).
 """
-
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -184,29 +184,137 @@ def test_skip_nonfinite_leaves_state_and_step_unchanged():
 
 
 def test_forward_only_kernels_and_fused_ln_training_are_refused():
-    """ln_matmul and paged_flash_attention launch through raw pointers, so
-    on a device tensor that requires grad they would return a result with
-    no grad_fn (silently zero gradients): they raise instead (shown on the
-    meta device, where the check runs before the launch would). A
-    trainable model refuses fused_ln_matmul=True; serving is unaffected
-    (no grad)."""
+    """paged_flash_attention launches through raw pointers and has no
+    backward (its training counterpart is flash attention), so on a device
+    tensor that requires grad it would return a result with no grad_fn
+    (silently zero gradients): it raises instead (shown on the meta device,
+    where the check runs before the launch would). The name's fused-LN half
+    is historical: ln_matmul no longer refuses a tensor that requires grad,
+    so it reaches its device check; that the fused model trains is
+    ``test_trainable_fused_ln_model_builds_and_steps``."""
     from distributed_tensorflow_tpu_torch.ops.fused_ln_matmul import ln_matmul
     from distributed_tensorflow_tpu_torch.ops.paged_attention import paged_flash_attention
 
-    x = torch.zeros(4, 64, device="meta", requires_grad=True)
-    g = torch.ones(64, device="meta")
-    with pytest.raises(RuntimeError, match="rows 6-7"):
-        ln_matmul(x, g, g, torch.zeros(64, 8, device="meta"))
     q = torch.zeros(1, 2, 1, 64, device="meta", requires_grad=True)
     pool = torch.zeros(4, 2, 16, 64, device="meta")
     table = torch.zeros(1, 2, dtype=torch.int32, device="meta")
     with pytest.raises(RuntimeError, match="no backward"):
         paged_flash_attention(q, pool, pool, table, q_pos=table[:, :1])
-    with torch.no_grad(), pytest.raises(ValueError, match="cuda or cpu"):
-        ln_matmul(x, g, g, torch.zeros(64, 8, device="meta"))  # past the grad check
-    cfg = dataclasses.replace(H.port_cfg(H.jax_cfg()), fused_ln_matmul=True)
-    with pytest.raises(ValueError, match="rows 6-7"):
-        ttfm.Transformer(cfg, device="meta", trainable=True)
-    serving = ttfm.Transformer(cfg, device="meta")  # serving builds
-    with pytest.raises(ValueError, match="rows 6-7"):  # but has no uncached fused path
-        serving(torch.zeros(1, 4, dtype=torch.long, device="meta"))
+    x = torch.zeros(4, 64, device="meta", requires_grad=True)
+    g = torch.ones(64, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):  # the device check, not a refusal
+        ln_matmul(x, g, g, torch.zeros(64, 8, device="meta"))
+
+
+def test_trainable_fused_ln_model_builds_and_steps():
+    """Under autograd ln_matmul runs through ``LnMatmul``, so a trainable
+    ``fused_ln_matmul=True`` model builds and takes a step that moves every
+    parameter, and a serving model runs the uncached fused forward."""
+    jcfg = H.jax_cfg(fused_ln_matmul=True)
+    params = H.params_np(jcfg, seed=6)
+    model = _port(jcfg, params, "dense")
+    assert model.cfg.fused_ln_matmul
+    opt = topt.make_optimizer(topt.OptimizerConfig(name="sgd", learning_rate=0.1),
+                              model.parameters())
+    before = [p.detach().clone() for p in model.parameters()]
+    st, metrics = tstep.make_train_step(ttfm.lm_loss_fn(model))(
+        tstep.init_train_state(model, opt), _tbatch(_batch(6)))
+    assert st.step == 1 and np.isfinite(float(metrics["loss"]))
+    for (name, p), b in zip(model.named_parameters(), before):
+        if not name.endswith("attn.key.bias"):  # its exact gradient is 0
+            assert not torch.equal(p.detach(), b), name
+    serving = ttfm.build(model.cfg, model, "cpu")
+    with torch.no_grad():
+        assert torch.isfinite(serving(torch.zeros(1, 4, dtype=torch.long))).all()
+
+
+# ---------------------------------------------------------------------------
+# fused_ln_matmul=True: ln1->q/k/v and ln2->mlp_in through the LN+matmul op
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("bwd_impl", ["xla", "pallas"])
+def test_fused_ln_loss_and_every_gradient_match_jax(bwd_impl, monkeypatch):
+    """The fused model against JAX's fused model (its Pallas LN+matmul
+    kernels in interpret mode) under the same ``DTF_FUSED_BWD``: loss and
+    every gradient, from a flax tree that ``from_jax_params`` converts with
+    no change (the fused branch has the unfused branch's parameter tree).
+    The fused model is held to the fused reference, never to the unfused
+    one: the kernel's two-pass variance differs from flax's fast variance
+    by rounding."""
+    monkeypatch.setenv("DTF_FUSED_BWD", bwd_impl)
+    jcfg = H.jax_cfg(fused_ln_matmul=True)
+    shapes = [jax.eval_shape(jtfm.make_init_fn(jtfm.Transformer(c), 8),
+                             jax.random.PRNGKey(0))[0] for c in (jcfg, H.jax_cfg())]
+    assert jax.tree.structure(shapes[0]) == jax.tree.structure(shapes[1])
+    assert jax.tree.leaves(jax.tree.map(lambda a, b: a.shape == b.shape, *shapes)) \
+        == [True] * len(jax.tree.leaves(shapes[0]))
+    params = H.params_np(jcfg, seed=7)
+    batch = _batch(8)
+    loss_fn = _jax_loss_fn(jcfg, False)
+    (jloss, _), jgrads = jax.jit(jax.value_and_grad(
+        lambda p: loss_fn(p, {}, batch, jax.random.PRNGKey(0)), has_aux=True))(
+        jax.tree.map(jnp.asarray, params))
+    model = _port(jcfg, params, "dense")
+    loss, _ = ttfm.lm_loss_fn(model)(_tbatch(batch))
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(jloss), atol=1e-5, rtol=1e-5)
+    want = _state_dict_from_jax(jax.tree.map(np.asarray, jgrads), model.cfg)
+    for name, p in model.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), want[name].numpy(), atol=1e-4, rtol=1e-4,
+                                   err_msg=name)
+
+
+def test_fused_ln_three_adamw_steps_match_optax(monkeypatch):
+    """Three adamw steps of the fused model (the ``pallas`` backward: the
+    kernel wrappers' plain versions here) against ``jax.grad`` of JAX's
+    fused model + JAX ``make_optimizer``, within 1e-5."""
+    monkeypatch.setenv("DTF_FUSED_BWD", "pallas")
+    jcfg = H.jax_cfg(fused_ln_matmul=True)
+    params = H.params_np(jcfg, seed=9)
+    ocfg = dict(name="adamw", learning_rate=1e-3, weight_decay=0.1, warmup_steps=1,
+                schedule="cosine", total_steps=10, clip_grad_norm=1.0)
+    tx = jopt.make_optimizer(jopt.OptimizerConfig(**ocfg))
+    loss_fn = _jax_loss_fn(jcfg, False)
+    grad_fn = jax.jit(jax.grad(lambda p, b: loss_fn(p, {}, b, jax.random.PRNGKey(0))[0]))
+    jp = jax.tree.map(jnp.asarray, params)
+    state = tx.init(jp)
+    tx_update = jax.jit(tx.update)
+    model = _port(jcfg, params, "dense")
+    opt = topt.make_optimizer(topt.OptimizerConfig(**ocfg), model.parameters())
+    ts = tstep.init_train_state(model, opt)
+    step = tstep.make_train_step(ttfm.lm_loss_fn(model))
+    for i in range(3):
+        batch = _batch(20 + i)
+        updates, state = tx_update(grad_fn(jp, batch), state, jp)
+        jp = jax.tree.map(lambda a, u: a + u, jp, updates)
+        ts, _ = step(ts, _tbatch(batch))
+    want = _state_dict_from_jax(jax.tree.map(np.asarray, jp), model.cfg)
+    init = _state_dict_from_jax(params, model.cfg)
+    moved = 0.0
+    for name, p in model.named_parameters():
+        if name.endswith("attn.key.bias"):  # exact gradient 0: see the unfused test
+            assert float((p.detach() - init[name]).abs().max()) <= 3.01e-3
+            continue
+        np.testing.assert_allclose(p.detach().numpy(), want[name].numpy(), atol=1e-5,
+                                   err_msg=name)
+        moved = max(moved, float((want[name] - init[name]).abs().max()))
+    assert moved > 1e-4
+
+
+def test_fused_ln_eval_matches_jax_uncached_forward():
+    """``lm_eval_fn`` of a fused model runs (it raised before the fused
+    uncached forward existed) and matches JAX's ``lm_eval_fn`` of the
+    fused model on a padded batch."""
+    jcfg = H.jax_cfg(fused_ln_matmul=True)
+    params = H.params_np(jcfg, seed=10)
+    batch = _batch(11)
+    batch["attention_mask"] = np.ones_like(batch["input_ids"])
+    batch["attention_mask"][0, 24:] = 0
+    want = jax.jit(jtfm.lm_eval_fn(jtfm.Transformer(jcfg), 0))(
+        jax.tree.map(jnp.asarray, params), {}, batch)
+    model = from_jax_params(params, H.port_cfg(jcfg), device="cpu")
+    got = ttfm.lm_eval_fn(model, 0)(_tbatch(batch))
+    assert float(got["count"]) == float(want["count"]) == BATCH * (SEQ - 1) - 8
+    assert float(got["correct"]) == float(want["correct"])
+    np.testing.assert_allclose(float(got["loss_sum"]), float(want["loss_sum"]), rtol=1e-5)

@@ -2,8 +2,9 @@
 streams are bit-identical for the same (seed, index), every LR schedule
 kind gives JAX's values, the config overrides parse to the same tree, and
 ``run_workload`` trains tiny ``gpt_lm`` and ``resnet50_imagenet`` configs
-on the CPU with a finite, falling loss; what the port does not have yet
-is refused with the ROADMAP item named."""
+on the CPU with a finite, falling loss (``gpt_lm`` also with
+``fused_ln_matmul`` under both backward impls); what the port does not
+have yet is refused with the ROADMAP item named."""
 
 import numpy as np
 import pytest
@@ -93,6 +94,19 @@ def test_run_workload_trains_gpt_lm_on_cpu():
     assert "steps_per_sec" in res.history[-1]
 
 
+@pytest.mark.parametrize("bwd", ["xla", "pallas"])
+def test_run_workload_trains_gpt_lm_fused_ln_on_cpu(bwd, monkeypatch):
+    """``--model.fused_ln_matmul=true`` trains under both ``DTF_FUSED_BWD``
+    values (on the CPU the ``pallas`` backward runs the kernel wrappers'
+    plain versions): a finite, falling loss."""
+    monkeypatch.setenv("DTF_FUSED_BWD", bwd)
+    res = run_workload("gpt_lm", TINY + ["--train.num_steps=3", "--model.fused_ln_matmul=true"],
+                       device="cpu")
+    losses = [row["loss"] for row in res.history]
+    assert res.state.step == 3 and res.state.model.cfg.fused_ln_matmul
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]
+
+
 @pytest.mark.parametrize("override,match", [
     ("--checkpoint.directory=/tmp/ckpt", "checkpoint.py"),
     ("--mesh.data=2", "more than one"),
@@ -101,7 +115,6 @@ def test_run_workload_trains_gpt_lm_on_cpu():
     ("--train.anomaly_defense=true", "anomaly"),
     ("--model.seq_impl=ring", "ring_attention"),
     ("--model.num_experts=4", "moe"),
-    ("--model.fused_ln_matmul=true", "rows 6-7"),
     ("--optimizer.name=lamb", "not ported"),
 ])
 def test_unsupported_configs_raise_naming_the_roadmap_item(override, match):
