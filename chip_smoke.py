@@ -48,9 +48,10 @@ when any phase fails:
    profiled fused+pallas step, and one f32 step fused+pallas vs unfused
    gated tightly (``TOL``). (Phase 2e, before serving: the LN+matmul
    forward, dx and dw kernels against their plain versions at M=8192,
-   d=768, n=768 and 3072 in bf16, f32 at one smaller shape, both w
-   layouts, a bitwise repeat, timed against the bound, the plain version
-   and one library call.)
+   d=768, n=768 and 3072 in bf16, f32 at two smaller shapes (one of them
+   d=1024, n=8192), both w layouts, a bitwise repeat, timed against the
+   bound, the plain version and one library call, dx's time split into
+   its product, row pass and reduction.)
 6. train ``resnet50_imagenet`` (ResNet-50 at full depth and width,
    ``space_to_depth`` stem, 224x224, 1000 classes, bf16, random weights
    from seed 0, global batch 256, 6 steps of momentum + L2 at a constant
@@ -235,9 +236,10 @@ def cuda_ms(torch, fns, iters: int = 50, warmup: int = 5) -> dict:
     cold as the serve path does). Returns ``device_ms``: the device time
     of every kernel the calls launched, per call, from ``torch.profiler``
     (CUPTI; the fullest of three traces) — the kernel's own time, free of
-    the Python wrapper's host overhead; and ``call_ms``: CUDA events around the back-to-back calls,
-    per call, which includes the host time between launches whenever
-    that exceeds the device time."""
+    the Python wrapper's host overhead; ``by_name``: that device time
+    split by kernel name, from the same trace; and ``call_ms``: CUDA
+    events around the back-to-back calls, per call, which includes the
+    host time between launches whenever that exceeds the device time."""
     for i in range(warmup):
         fns[i % len(fns)]()
     torch.cuda.synchronize()
@@ -256,10 +258,12 @@ def cuda_ms(torch, fns, iters: int = 50, warmup: int = 5) -> dict:
             for i in range(iters):
                 fns[i % len(fns)]()
             torch.cuda.synchronize()
-        traces.append(sum(e.self_device_time_total for e in device_events(torch, prof)))
-    if max(traces) <= 0:
+        traces.append({e.key: e.self_device_time_total / 1e3 / iters
+                       for e in device_events(torch, prof)})
+    fullest = max(traces, key=lambda t: sum(t.values()))
+    if sum(fullest.values()) <= 0:
         raise SmokeFailure("torch.profiler recorded no device time in 3 traces")
-    return {"device_ms": max(traces) / 1e3 / iters, "call_ms": call_ms}
+    return {"device_ms": sum(fullest.values()), "by_name": fullest, "call_ms": call_ms}
 
 
 def device_events(torch, prof):
@@ -644,9 +648,14 @@ def phase_flash(torch, np, F):
 # ---------------------------------------------------------------------------
 
 #: (M, d, n, dtype): gpt_small at B=8, S=1024 — q/k/v (n=768) and mlp_in
-#: (n=3072) — in bf16, timed; one smaller f32 shape, checked only
+#: (n=3072) — in bf16, timed; two smaller f32 shapes, checked only: the
+#: second, d=1024 and n=8192, is one the whole-row dx design refused (its
+#: CTA held 32 rows of dh in shared memory)
 LN_TRAIN_SHAPES = [(8192, 768, 768, "bfloat16"), (8192, 768, 3072, "bfloat16"),
-                   (1000, 768, 3072, "float32")]
+                   (1000, 768, 3072, "float32"), (256, 1024, 8192, "float32")]
+#: the dx wrapper's kernels, by the device name the profiler gives each
+LN_DX_PARTS = {"dh": "ln_bwd_dh_kernel", "rows": "ln_bwd_dx_rows_kernel",
+               "reduce": "reduce2_kernel"}
 #: the n of each backward kernel's row in the kernels line
 LN_BWD_MAIN_N = 3072
 
@@ -675,6 +684,23 @@ def ln_bwd_bound_ms(c, kind, dtype_name) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def ln_dx_split(by_name: dict) -> dict:
+    """The dx wrapper's device time per call split into its product, row
+    pass and reductions; fails on a kernel name it does not know, so the
+    split always adds up to the row's time."""
+    split = dict.fromkeys(LN_DX_PARTS, 0.0)
+    for key, ms in by_name.items():
+        part = next((p for p, name in LN_DX_PARTS.items() if name in key), None)
+        if part is None:
+            raise SmokeFailure(f"ln_matmul_bwd_dx launched an unexpected kernel: {key}")
+        split[part] += ms
+    return split
+
+
+def fmt_split(split: dict) -> str:
+    return ", ".join(f"{p} {ms:.5f}" for p, ms in split.items())
+
+
 def phase_ln_train(torch, np, F):
     from distributed_tensorflow_tpu_torch.ops import fused_ln_matmul as fln
 
@@ -684,7 +710,7 @@ def phase_ln_train(torch, np, F):
     results["ln_matmul/train"] = {"err": 0.0, "rows": []}
     before = {n: k.launches for n, k in fln.KERNELS.items()}
     log("phase 2e: LN+matmul forward and backward kernels vs plain versions at gpt_small's "
-        "training shapes (M = B*S = 8192, d=768; bf16, f32 at one smaller shape; w as "
+        "training shapes (M = B*S = 8192, d=768; bf16, f32 at two smaller shapes; w as "
         "linear.weight.t() and contiguous) — dx (atol, rtol), sums over M as relative L2 "
         "error")
 
@@ -768,11 +794,15 @@ def phase_ln_train(torch, np, F):
                            library_ms=tl["device_ms"],
                            plain_ms=t_plain["fwd" if k == "ln_matmul/train" else "bwd"][
                                "device_ms"], bound_ms=bound[0], bound_by=bound[1])
+                if k == "ln_matmul_bwd_dx":
+                    row["split"] = ln_dx_split(tk["by_name"])
                 results[k]["rows"].append(row)
                 log(f"    {k} M={M} n={n}: kernel_ms={row['ms']:.5f} plain_ms={row['plain_ms']:.5f}"
                     f" library_ms={row['library_ms']:.5f} bound_ms={row['bound_ms']:.5f} "
                     f"({row['bound_by']}) ({row['bound_ms'] / row['ms']:.1%} of bound); "
-                    f"wrapper call_ms={row['call_ms']:.4f}")
+                    f"wrapper call_ms={row['call_ms']:.4f}"
+                    + (f"; device ms by kernel {fmt_split(row['split'])}" if "split" in row
+                       else ""))
             del sets, kern, plain, lib
             torch.cuda.empty_cache()
     for n, k in fln.KERNELS.items():  # comparison launches do not count
@@ -1828,8 +1858,9 @@ def main() -> int:
         f"gates {train['compare']}; LN+matmul at M=8192 (bf16, kernel / bound / plain / "
         f"library ms): " + "; ".join(
             f"{k} n={r['n']} {r['ms']:.5f} / {r['bound_ms']:.5f} / {r['plain_ms']:.5f} / "
-            f"{r['library_ms']:.5f}" for k in ("ln_matmul/train", "ln_matmul_bwd_dx",
-                                               "ln_matmul_bwd_dw")
+            f"{r['library_ms']:.5f}" + (f" (device ms by kernel: {fmt_split(r['split'])})"
+                                        if "split" in r else "")
+            for k in ("ln_matmul/train", "ln_matmul_bwd_dx", "ln_matmul_bwd_dw")
             for r in ln_train[k]["rows"])
         + "; kernels line: ln_matmul's row is serving's M=8 n=3072 and its launches serving's "
         f"plus the fused+pallas training pass's; the backward rows are n={LN_BWD_MAIN_N} "

@@ -18,16 +18,18 @@ sum dh*xhat, dbeta = sum dh, dbias = sum dy in f32; ``dw = h^T @ dy`` in
 f32 with h = xhat*gamma + beta cast to x's dtype, then cast to w's dtype.
 
 The kernel wrappers ``ln_matmul`` (forward), ``ln_matmul_bwd_dx`` and
-``ln_matmul_bwd_dw`` launch their kernel for CUDA tensors (built with nvcc
-on first use) and raise on what it does not take; for CPU tensors — and
-only for those — they compute the plain version. Each counts its launches
-in ``.launches``. The backward kernels take x, w and dy in one dtype (f32
+``ln_matmul_bwd_dw`` launch their kernels for CUDA tensors (built with
+nvcc on first use) and raise on what they do not take; for CPU tensors —
+and only for those — they compute the plain version. Each counts the calls
+that launch in ``.launches`` (dx: the product dh = dy @ w^T into an f32
+workspace, the row-local LayerNorm pass and the partial sums' reduction,
+counted as one). The backward kernels take x, w and dy in one dtype (f32
 or bf16), d and n multiples of 8.
 
 ``ln_matmul`` routes through ``LnMatmul`` whenever autograd records the
 call; its backward follows ``_policy.resolve_bwd_impl``: ``"xla"`` is the
 plain math with its two products in ``torch.mm``; ``"pallas"`` launches the
-dx kernel and then the dw kernel.
+dx kernels and then the dw kernel.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ from ._policy import mm_exact, mm_library, resolve_bwd_impl
 
 #: shared memory a CTA may use (227 KB on Hopper); the forward's needs 16
 #: normalised rows of width d (padded to 128) plus one 128x64 w tile and
-#: the f32 epilogue tile, the dx kernel's ``_dx_smem``
+#: the f32 epilogue tile
 _SMEM_LIMIT = 232448
 
 
@@ -61,9 +63,13 @@ def ln_matmul_plain(x, gamma, beta, w, bias=None, *, eps: float = 1e-6,
     return y.to(out_dtype)
 
 
-#: rows of x one dx CTA owns (their f32 dh rows sit in shared memory)
-#: and the columns of d one of its product passes covers
-DX_ROWS, DX_COLS = 32, 256
+#: the dx product's output tile, (rows of dy, columns of d), and the rows
+#: of one tile of the dx row pass (``csrc/ln_matmul_bwd.cu``: DH_BM, DH_BN,
+#: RW_BM)
+DH_TILE = (128, 128)
+DX_ROW_TILE = 16
+#: row-pass CTAs the dx plan aims to keep resident on one SM
+DX_ROW_CTAS_PER_SM = 2
 #: tile edge of the dw kernel (d rows, n columns, rows of x per chunk)
 DW_TILE = 64
 #: dw CTAs the grid aims to keep resident on one SM
@@ -73,18 +79,14 @@ _SMS: dict = {}
 
 
 def _sms(dev) -> int:
-    """The device's SM count, read once per device. The dx grid takes one
-    CTA per SM (a CTA holds ~160 KB of shared memory at gpt_small's
-    widths, so one fits an SM) and the dw grid ``DW_CTAS_PER_SM`` per SM;
-    the partial sums' order depends on the card and the shapes alone, so a
-    step stays bitwise repeatable on one card."""
+    """The device's SM count, read once per device. The dx row pass takes
+    at most ``DX_ROW_CTAS_PER_SM`` CTAs per SM (``dx_plan``) and the dw
+    grid ``DW_CTAS_PER_SM`` per SM; the partial sums' order depends on the
+    card and the shapes alone, so a step stays bitwise repeatable on one
+    card."""
     if dev not in _SMS:
         _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
     return _SMS[dev]
-
-
-def _round_up(a: int, m: int) -> int:
-    return -(-a // m) * m
 
 
 def _dx_math(x, gamma, w, dy, eps, mm):
@@ -192,12 +194,21 @@ def _fwd(x, gamma, beta, w, bias, eps, out_dtype):
     return y
 
 
-def _dx_smem(d: int, n: int, elem_size: int) -> int:
-    """Shared memory of one dx CTA: its f32 dh rows, statistics and
-    running column sums, one dy chunk and one w chunk."""
-    lda = 64 + 16 // elem_size
-    return (4 * (DX_ROWS * (_round_up(d, DX_COLS) + 4) + 2 * DX_ROWS + 2 * d + n)
-            + elem_size * (DX_ROWS + DX_COLS) * lda)
+def dx_plan(M: int, d: int, n: int, sms: int) -> dict:
+    """The dx wrapper's launch plan, from the shapes and the SM count alone.
+
+    ``dh_grid``: the product's (row tiles, column tiles) of ``DH_TILE``
+    over dh [M, d]; ``rows_grid``: G, the row pass's CTAs (at most
+    ``DX_ROW_CTAS_PER_SM`` per SM; CTA c takes the row tiles c, c+G, ...).
+    The f32 workspace holds dh (M*d), the row pass's dgamma/dbeta
+    partials (G*2d) and dbias's partials, one per row tile of the product
+    (row tiles * n): ``ws`` elements in all."""
+    bm, bn = DH_TILE
+    mtiles = -(-M // bm)
+    G = max(1, min(-(-M // DX_ROW_TILE), DX_ROW_CTAS_PER_SM * sms))
+    sizes = {"dh": M * d, "rows_partials": G * 2 * d, "bias_partials": mtiles * n}
+    return {"dh_grid": (mtiles, -(-d // bn)), "rows_grid": G, **sizes,
+            "ws": sum(sizes.values())}
 
 
 def _rows(what, name, t, dtype, shape) -> None:
@@ -248,27 +259,24 @@ def _check_bwd(what, x, dy, w, gamma, beta):
 def ln_matmul_bwd_dx(x, gamma, w, dy, *, eps: float = 1e-6):
     """Backward, part 1: ``(dx, dgamma, dbeta, dbias, mean, rstd)``; mean
     and rstd are the rows' statistics [M] f32, the dw kernel's input. CUDA
-    tensors: one launch (and its partial-sum reduction); CPU tensors: the
-    plain backward's."""
+    tensors: the product dh = dy @ w^T into an f32 workspace, the row pass
+    and the partial sums' reductions (``dx_plan``), counted as one launch;
+    CPU tensors: the plain backward's."""
     if not _build.on_cuda(x, "ln_matmul_bwd_dx"):
         return _dx_math(x, gamma, w, dy, eps, mm_exact)
     M, d, n, sfx = _check_bwd("ln_matmul_bwd_dx", x, dy, w, gamma, None)
-    smem = _dx_smem(d, n, x.element_size())
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"ln_matmul_bwd_dx: d={d}, n={n} need {smem} bytes of shared memory "
-                         f"per CTA (limit {_SMEM_LIMIT})")
     dev = x.device
-    G = max(1, min(-(-M // DX_ROWS), _sms(dev)))
+    plan = dx_plan(M, d, n, _sms(dev))
     dx = torch.empty(M, d, dtype=x.dtype, device=dev)
     stats = torch.empty(2, M, dtype=torch.float32, device=dev)
-    ws = torch.empty(G * (2 * d + n), dtype=torch.float32, device=dev)
+    ws = torch.empty(plan["ws"], dtype=torch.float32, device=dev)
     out = torch.empty(2 * d + n, dtype=torch.float32, device=dev)
     sk, sn = w.stride()
     lib = _build.load("ln_matmul_bwd")
     rc = getattr(lib, f"ln_bwd_dx_{sfx}")(
         x.data_ptr(), gamma.data_ptr(), w.data_ptr(), sk, sn, dy.data_ptr(), dx.data_ptr(),
-        stats[0].data_ptr(), stats[1].data_ptr(), ws.data_ptr(), out.data_ptr(), M, d, n, G,
-        float(eps), torch.cuda.current_stream(dev).cuda_stream)
+        stats[0].data_ptr(), stats[1].data_ptr(), ws.data_ptr(), out.data_ptr(), M, d, n,
+        plan["rows_grid"], float(eps), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "ln_matmul_bwd_dx")
     ln_matmul_bwd_dx.launches += 1
     return dx, out[:d], out[d:2 * d], out[2 * d:], stats[0], stats[1]

@@ -7,18 +7,20 @@ count, not profiler-counted device FLOPs). Every model's
 FORWARD-only; the ×3 training multiplier is applied in exactly one
 place, ``obs.goodput.train_mfu``.
 
-The peak is keyed on ``torch.cuda.get_device_name()``. The table holds
-the cards the port has run on, at their published dense bf16 tensor-core
-rate; an unknown card raises rather than get a made-up constant. "cpu"
-is a small constant for the tests only.
+The peak is keyed on the full ``torch.cuda.get_device_name()``, matched
+exactly: the table holds the cards the port has run on, each at its own
+published dense bf16 tensor-core rate. Any other name raises — the H100
+PCIe and H100 NVL too, whose rates differ from the SXM card's — rather
+than get another card's constant. "cpu" is a small constant for the
+tests only.
 """
 
 from __future__ import annotations
 
 #: Peak dense bf16 FLOP/s per card (NVIDIA data sheets, without sparsity),
-#: matched as a prefix of the device name.
+#: keyed by the exact device name.
 PEAK_FLOPS_BY_KIND: dict[str, float] = {
-    "NVIDIA H100": 989e12,
+    "NVIDIA H100 80GB HBM3": 989e12,  # the SXM card
     # tests on the CPU: arbitrary small constant so the MFU math runs
     "cpu": 1e12,
 }
@@ -31,9 +33,8 @@ def peak_flops_per_chip(kind: str | None = None) -> float:
         import torch
 
         kind = torch.cuda.get_device_name(0)
-    for key, val in PEAK_FLOPS_BY_KIND.items():
-        if kind.lower().startswith(key.lower()):
-            return val
+    if kind in PEAK_FLOPS_BY_KIND:
+        return PEAK_FLOPS_BY_KIND[kind]
     raise KeyError(f"no peak FLOP/s for device {kind!r}; add its published dense "
                    f"bf16 rate to PEAK_FLOPS_BY_KIND")
 

@@ -190,3 +190,29 @@ def test_ln_matmul_bwd_wrappers_on_cpu_compute_the_plain_version():
         fln.ln_matmul_bwd_dx(x.to("meta"), g, w, dy)
     with pytest.raises(ValueError, match="cuda or cpu"):
         fln.ln_matmul_bwd_dw(x.to("meta"), g, b, dy, mean, rstd)
+
+
+@pytest.mark.parametrize("M,d,n,sms", [(8192, 768, 3072, 132), (8192, 768, 768, 132),
+                                       (1, 8, 8, 132), (200, 136, 200, 132),
+                                       (129, 264, 40, 4), (16, 1024, 8192, 132)])
+def test_ln_matmul_bwd_dx_launch_plan_covers_ragged_shapes(M, d, n, sms, monkeypatch):
+    """``dx_plan``, the dx wrapper's grids and workspace: the product's
+    tile grid covers dh [M, d] with no tile to spare, the row pass takes
+    at most ``DX_ROW_CTAS_PER_SM`` CTAs per SM and one row tile per CTA at
+    least, and the f32
+    workspace is dh (M*d) plus the dgamma/dbeta partials (G*2d) and one
+    dbias partial per row tile of the product (row tiles * n). No size
+    reads a shared-memory limit: the plan at d=1024, n=8192 (which the
+    whole-row design refused) is the same under any limit."""
+    plan = fln.dx_plan(M, d, n, sms)
+    bm, bn = fln.DH_TILE
+    mtiles, dtiles = plan["dh_grid"]
+    assert (mtiles - 1) * bm < M <= mtiles * bm
+    assert (dtiles - 1) * bn < d <= dtiles * bn
+    G = plan["rows_grid"]
+    assert G == min(fln.DX_ROW_CTAS_PER_SM * sms, -(-M // fln.DX_ROW_TILE)) >= 1
+    assert (plan["dh"], plan["rows_partials"], plan["bias_partials"]) == (
+        M * d, G * 2 * d, mtiles * n)
+    assert plan["ws"] == M * d + G * 2 * d + mtiles * n
+    monkeypatch.setattr(fln, "_SMEM_LIMIT", 1)
+    assert fln.dx_plan(M, d, n, sms) == plan
