@@ -18,7 +18,10 @@ when any phase fails:
    three flash kernels at the training shapes B=8, H=12, S=1024, D=64,
    causal, bf16 and f32, with and without a kv_mask), with the tolerances
    stated in ``TOL``; time kernel, plain version, one library call and the
-   bound with CUDA events and the profiler;
+   bound with CUDA events and the profiler (phase 2b also times the
+   row-tile LN+matmul kernel against the tiled forward at M = 64..8192 and checks
+   by kernel name that ln_matmul keeps the row-tile kernel below
+   ``LN_TILED_MIN_M`` rows and takes the tiled pair from there);
 3. serve 8 requests through ``gpt_small`` at full width (bf16, random
    weights from seed 0, 4 slots, block_size 16, prefill_chunk 64, a
    shared 128-token system prefix on four prompts, max_new 32, greedy)
@@ -42,16 +45,20 @@ when any phase fails:
    tokens/s, step ms, MFU and peak memory, the device idle share of one
    profiled step, and one flash run at global batch 64; then (phase 5b)
    the same training with ``fused_ln_matmul=True`` under
-   ``DTF_FUSED_BWD=pallas`` (the LN+matmul forward, dx and dw kernels, 48
-   launches a step each) and ``xla`` (the forward, 48), held to the
+   ``DTF_FUSED_BWD=pallas`` (the LN+matmul forward — its tiled pair at
+   M=8192 — dx and dw kernels, 48 launches a step each) and ``xla`` (the
+   forward, 48), held to the
    unfused flash pass and to each other (losses, step-1 gradients), one
    profiled fused+pallas step, and one f32 step fused+pallas vs unfused
    gated tightly (``TOL``). (Phase 2e, before serving: the LN+matmul
    forward, dx and dw kernels against their plain versions at M=8192,
    d=768, n=768 and 3072 in bf16, f32 at two smaller shapes (one of them
-   d=1024, n=8192), both w layouts, a bitwise repeat, timed against the
-   bound, the plain version and one library call, dx's time split into
-   its product, row pass and reduction.)
+   d=1024, n=8192), both w layouts, bf16 -> f32 and a ragged M for the
+   forward, a bitwise repeat, timed against the bound, the plain version
+   and one library call, each wrapper's time split by kernel (forward:
+   statistics and product; dx: product, row pass and reduction; dw:
+   product and reduction), and the dw split over M and both tile widths
+   timed beside the plans the wrappers take.)
 6. train ``resnet50_imagenet`` (ResNet-50 at full depth and width,
    ``space_to_depth`` stem, 224x224, 1000 classes, bf16, random weights
    from seed 0, global batch 256, 6 steps of momentum + L2 at a constant
@@ -73,7 +80,9 @@ when any phase fails:
    conv3 and a conv1/projection shape of each stage at batch 256, bf16,
    f32 at two shapes, a bitwise repeat, timed against the bound, the plain
    version and the product alone in ``torch.matmul``.)
-7. print the ``kernels`` JSON line, then the ``ok`` line last.
+7. print the ``kernels`` JSON line (twelve entries: ``ln_matmul`` is the
+   serving forward at M=8, ``ln_matmul_train`` the tiled forward at
+   M=8192), then the ``ok`` line last.
 
 TF32 is off for every f32 product compared here
 (``torch.backends.cuda.matmul.allow_tf32 = False``).
@@ -230,16 +239,36 @@ def nvidia_smi_line() -> str:
 # ---------------------------------------------------------------------------
 
 
-def cuda_ms(torch, fns, iters: int = 50, warmup: int = 5) -> dict:
+def cuda_ms(torch, fns, iters: int = 50, warmup: int = 5, traces: int = 3) -> dict:
     """Time one call, cycling through ``fns`` (closures over independent
     input sets, together larger than L2, so each call finds its inputs
     cold as the serve path does). Returns ``device_ms``: the device time
     of every kernel the calls launched, per call, from ``torch.profiler``
-    (CUPTI; the fullest of three traces) — the kernel's own time, free of
+    (CUPTI; the fullest of ``traces`` traces) — the kernel's own time, free of
     the Python wrapper's host overhead; ``by_name``: that device time
     split by kernel name, from the same trace; and ``call_ms``: CUDA
     events around the back-to-back calls, per call, which includes the
     host time between launches whenever that exceeds the device time."""
+    call_ms = event_ms(torch, fns, iters, warmup)
+    act = torch.profiler.ProfilerActivity
+    taken = []
+    for _ in range(traces):  # CUPTI now and then drops records: keep the fullest trace
+        with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+            for i in range(iters):
+                fns[i % len(fns)]()
+            torch.cuda.synchronize()
+        taken.append({e.key: e.self_device_time_total / 1e3 / iters
+                      for e in device_events(torch, prof)})
+    fullest = max(taken, key=lambda t: sum(t.values()))
+    if sum(fullest.values()) <= 0:
+        raise SmokeFailure(f"torch.profiler recorded no device time in {traces} traces")
+    return {"device_ms": sum(fullest.values()), "by_name": fullest, "call_ms": call_ms}
+
+
+def event_ms(torch, fns, iters: int = 20, warmup: int = 5) -> float:
+    """CUDA events around ``iters`` back-to-back calls cycling through
+    ``fns``, per call (after ``warmup`` calls): device time whenever the
+    calls are device-bound, as every LN+matmul call at M=8192 is."""
     for i in range(warmup):
         fns[i % len(fns)]()
     torch.cuda.synchronize()
@@ -250,20 +279,7 @@ def cuda_ms(torch, fns, iters: int = 50, warmup: int = 5) -> dict:
         fns[i % len(fns)]()
     stop.record()
     stop.synchronize()
-    call_ms = start.elapsed_time(stop) / iters
-    act = torch.profiler.ProfilerActivity
-    traces = []
-    for _ in range(3):  # CUPTI now and then drops records: keep the fullest trace
-        with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
-            for i in range(iters):
-                fns[i % len(fns)]()
-            torch.cuda.synchronize()
-        traces.append({e.key: e.self_device_time_total / 1e3 / iters
-                       for e in device_events(torch, prof)})
-    fullest = max(traces, key=lambda t: sum(t.values()))
-    if sum(fullest.values()) <= 0:
-        raise SmokeFailure("torch.profiler recorded no device time in 3 traces")
-    return {"device_ms": sum(fullest.values()), "by_name": fullest, "call_ms": call_ms}
+    return start.elapsed_time(stop) / iters
 
 
 def device_events(torch, prof):
@@ -497,7 +513,54 @@ def phase_kernels(torch, np, F):
                     f"plain_ms={row['plain_ms']:.5f} library_ms={row['library_ms']:.5f} "
                     f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}); "
                     f"wrapper call_ms={row['call_ms']:.4f}")
+    results["ln_matmul"]["crossover"] = ln_crossover(torch, np, rng)
     return results
+
+
+#: rows at which phase 2b times the row-tile forward against the tiled
+#: pair (n=3072, bf16): the evidence for fwd_plan's LN_TILED_MIN_M
+LN_CROSSOVER_M = (64, 128, 256, 1024, 8192)
+#: the forward's kernels, by the device name the profiler gives each
+LN_FWD_ROWS_KERNEL = "ln_matmul_kernel"
+LN_FWD_PARTS = {"stats": "ln_stats_kernel", "product": "ln_matmul_tiled_kernel"}
+
+
+def ln_crossover(torch, np, rng) -> dict:
+    """At each ``LN_CROSSOVER_M`` (n=3072, bf16, cold inputs) ``ln_matmul``
+    as a caller gets it, its route read from the profiler's kernel names
+    (the row-tile kernel below ``LN_TILED_MIN_M`` rows, the tiled pair from
+    there; also checked one row below the threshold), beside the other
+    route, forced (one trace). Returns M -> device ms of (the row-tile
+    kernel, the tiled pair)."""
+    from distributed_tensorflow_tpu_torch.ops import fused_ln_matmul as fln
+
+    before = (fln.ln_matmul.launches, fln.ln_matmul.tiled_launches)
+    d, n, dt = 768, 3072, torch.bfloat16
+    parts = {"rows": LN_FWD_ROWS_KERNEL, **LN_FWD_PARTS}
+    out = {}
+    for M in (*LN_CROSSOVER_M, fln.LN_TILED_MIN_M - 1):
+        sets = [ln_case(torch, np, rng, M, d, n, dt)
+                for _ in range(copies_for(2 * (M * d + d * n + M * n)))]
+        args = [(s["x"], s["gamma"], s["beta"], s["w"], s["bias"], 1e-6, dt) for s in sets]
+        routed = cuda_ms(torch, [lambda a=a: fln.ln_matmul(*a[:5]) for a in args], iters=20)
+        got = {p for p, ms in kernel_split(routed["by_name"], parts, f"ln_matmul at M={M}").items()
+               if ms > 0}
+        tiled = M >= fln.LN_TILED_MIN_M
+        want = set(LN_FWD_PARTS) if tiled else {"rows"}
+        log(f"  ln_matmul at M={M} launched {sorted(got)}: {sorted(routed['by_name'])}")
+        if got != want:
+            raise SmokeFailure(f"ln_matmul at M={M} launched {sorted(got)}, want {sorted(want)}")
+        if M in LN_CROSSOVER_M:
+            other = fln._launch_fwd_rows if tiled else fln._launch_fwd_tiled
+            forced = cuda_ms(torch, [lambda a=a: other(*a) for a in args], iters=20,
+                             traces=1)["device_ms"]
+            out[M] = (forced, routed["device_ms"]) if tiled else (routed["device_ms"], forced)
+        del sets, args
+    log(f"  crossover, n={n} bf16, the row-tile kernel vs the tiled pair (device ms): "
+        + "; ".join(f"M={M} " + " vs ".join(f"{t:.5f}" for t in ts) for M, ts in out.items())
+        + f"; fwd_plan takes the tiled pair from M={fln.LN_TILED_MIN_M}")
+    fln.ln_matmul.launches, fln.ln_matmul.tiled_launches = before
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -653,9 +716,13 @@ def phase_flash(torch, np, F):
 #: CTA held 32 rows of dh in shared memory)
 LN_TRAIN_SHAPES = [(8192, 768, 768, "bfloat16"), (8192, 768, 3072, "bfloat16"),
                    (1000, 768, 3072, "float32"), (256, 1024, 8192, "float32")]
-#: the dx wrapper's kernels, by the device name the profiler gives each
+#: the dx and dw wrappers' kernels, by the device name the profiler gives
+#: each (the forward's: LN_FWD_PARTS)
 LN_DX_PARTS = {"dh": "ln_bwd_dh_kernel", "rows": "ln_bwd_dx_rows_kernel",
                "reduce": "reduce2_kernel"}
+LN_DW_PARTS = {"product": "ln_bwd_dw_kernel", "reduce": "reduce_kernel"}
+#: the dw split over M timed at each training shape (dw_plan picks one)
+LN_DW_SWEEP_G = (1, 2, 4, 7, 8)
 #: the n of each backward kernel's row in the kernels line
 LN_BWD_MAIN_N = 3072
 
@@ -684,15 +751,16 @@ def ln_bwd_bound_ms(c, kind, dtype_name) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def ln_dx_split(by_name: dict) -> dict:
-    """The dx wrapper's device time per call split into its product, row
-    pass and reductions; fails on a kernel name it does not know, so the
-    split always adds up to the row's time."""
-    split = dict.fromkeys(LN_DX_PARTS, 0.0)
+def kernel_split(by_name: dict, parts: dict, what: str) -> dict:
+    """A wrapper's device time per call split by kernel into ``parts``
+    (part -> kernel name, matched within the profiler's name); fails on a
+    kernel name it does not know, so the split always adds up to the
+    row's time."""
+    split = dict.fromkeys(parts, 0.0)
     for key, ms in by_name.items():
-        part = next((p for p, name in LN_DX_PARTS.items() if name in key), None)
+        part = next((p for p, name in parts.items() if name in key), None)
         if part is None:
-            raise SmokeFailure(f"ln_matmul_bwd_dx launched an unexpected kernel: {key}")
+            raise SmokeFailure(f"{what} launched an unexpected kernel: {key}")
         split[part] += ms
     return split
 
@@ -705,10 +773,11 @@ def phase_ln_train(torch, np, F):
     from distributed_tensorflow_tpu_torch.ops import fused_ln_matmul as fln
 
     rng = np.random.default_rng(5)
-    names = ("ln_matmul_bwd_dx", "ln_matmul_bwd_dw")
+    names = ("ln_matmul/train", "ln_matmul_bwd_dx", "ln_matmul_bwd_dw")
     results = {n: {"err": 0.0, "rows": []} for n in names}
-    results["ln_matmul/train"] = {"err": 0.0, "rows": []}
+    results["sweep"] = {}
     before = {n: k.launches for n, k in fln.KERNELS.items()}
+    tiled_before = fln.ln_matmul.tiled_launches
     log("phase 2e: LN+matmul forward and backward kernels vs plain versions at gpt_small's "
         "training shapes (M = B*S = 8192, d=768; bf16, f32 at two smaller shapes; w as "
         "linear.weight.t() and contiguous) — dx (atol, rtol), sums over M as relative L2 "
@@ -725,6 +794,7 @@ def phase_ln_train(torch, np, F):
             tag = f"{dn} M={M} d={d} n={n} " + ("w=linear.weight.t()" if linear_layout
                                                  else "w contiguous [d,n]")
             args = (c["x"], c["gamma"], c["beta"], c["w"])
+            tiled0 = fln.ln_matmul.tiled_launches
             y = fln.ln_matmul(*args, c["bias"])
             dx, dg, db, dbias, mean, rstd = fln.ln_matmul_bwd_dx(
                 c["x"], c["gamma"], c["w"], c["dy"])
@@ -733,6 +803,16 @@ def phase_ln_train(torch, np, F):
             want_y = fln.ln_matmul_plain(*args, c["bias"])
             want = fln.ln_matmul_bwd_plain(*args, c["dy"])
             err_y = check_close(torch, f"ln_matmul/y {tag}", y, want_y, TOL[f"ln_matmul/{dn}"])
+            if dn == "bfloat16":  # the bf16 -> f32 entry, and a ragged M
+                check_close(torch, f"ln_matmul/y bf16->f32 {tag}",
+                            fln.ln_matmul(*args, c["bias"], out_dtype=torch.float32),
+                            fln.ln_matmul_plain(*args, c["bias"], out_dtype=torch.float32),
+                            TOL["ln_matmul/bfloat16"])
+                rag = (c["x"][:M - 56], *args[1:], c["bias"])
+                check_close(torch, f"ln_matmul/y M={M - 56} {tag}", fln.ln_matmul(*rag),
+                            fln.ln_matmul_plain(*rag), TOL[f"ln_matmul/{dn}"])
+            if fln.ln_matmul.tiled_launches - tiled0 != (3 if dn == "bfloat16" else 1):
+                raise SmokeFailure(f"ln_matmul {tag}: the forward did not take the tiled path")
             err_dx = check_close(torch, f"ln_matmul_bwd_dx/dx {tag}", dx, want[0], tol)
             reds = {"dgamma": rel(dg, want[1]), "dbeta": rel(db, want[2]),
                     "dbias": rel(dbias, want[4]), "dw": rel(dw, want[3])}
@@ -745,13 +825,13 @@ def phase_ln_train(torch, np, F):
             results["ln_matmul_bwd_dx"]["err"] = max(results["ln_matmul_bwd_dx"]["err"], err_dx)
             results["ln_matmul_bwd_dw"]["err"] = max(
                 results["ln_matmul_bwd_dw"]["err"], float((dw.float() - want[3].float()).abs().max()))
-            # bitwise repeat: the sums over M use no float atomics
+            # bitwise repeat: one fixed summation order, no float atomics
             again = fln.ln_matmul_bwd_dx(c["x"], c["gamma"], c["w"], c["dy"])
             if not (all(torch.equal(a, b) for a, b in zip(again, (dx, dg, db, dbias, mean, rstd)))
                     and torch.equal(dw, fln.ln_matmul_bwd_dw(c["x"], c["gamma"], c["beta"],
-                                                             c["dy"], *again[4:]))):
-                raise SmokeFailure(f"ln_matmul backward {tag}: a second call is not bitwise "
-                                   f"equal")
+                                                             c["dy"], *again[4:]))
+                    and torch.equal(y, fln.ln_matmul(*args, c["bias"]))):
+                raise SmokeFailure(f"ln_matmul {tag}: a second call is not bitwise equal")
             if dn != "bfloat16" or not linear_layout:
                 continue
             # timing on cold inputs (the model's layout), as the path calls them
@@ -783,6 +863,8 @@ def phase_ln_train(torch, np, F):
                                         for s in sets],
                    "ln_matmul_bwd_dw": [lambda s=s: torch.mm(s["h"].t(), s["dy"])
                                         for s in sets]}
+            parts = {"ln_matmul/train": LN_FWD_PARTS, "ln_matmul_bwd_dx": LN_DX_PARTS,
+                     "ln_matmul_bwd_dw": LN_DW_PARTS}
             t_plain = {k: cuda_ms(torch, v, iters=10, warmup=2) for k, v in plain.items()}
             for k in kern:
                 tk, tl = cuda_ms(torch, kern[k], iters=20), cuda_ms(torch, lib[k], iters=20)
@@ -793,23 +875,38 @@ def phase_ln_train(torch, np, F):
                 row = dict(M=M, d=d, n=n, ms=tk["device_ms"], call_ms=tk["call_ms"],
                            library_ms=tl["device_ms"],
                            plain_ms=t_plain["fwd" if k == "ln_matmul/train" else "bwd"][
-                               "device_ms"], bound_ms=bound[0], bound_by=bound[1])
-                if k == "ln_matmul_bwd_dx":
-                    row["split"] = ln_dx_split(tk["by_name"])
+                               "device_ms"], bound_ms=bound[0], bound_by=bound[1],
+                           split=kernel_split(tk["by_name"], parts[k], k))
                 results[k]["rows"].append(row)
                 log(f"    {k} M={M} n={n}: kernel_ms={row['ms']:.5f} plain_ms={row['plain_ms']:.5f}"
                     f" library_ms={row['library_ms']:.5f} bound_ms={row['bound_ms']:.5f} "
                     f"({row['bound_by']}) ({row['bound_ms'] / row['ms']:.1%} of bound); "
-                    f"wrapper call_ms={row['call_ms']:.4f}"
-                    + (f"; device ms by kernel {fmt_split(row['split'])}" if "split" in row
-                       else ""))
+                    f"wrapper call_ms={row['call_ms']:.4f}; device ms by kernel "
+                    f"{fmt_split(row['split'])}")
+            results["sweep"][n] = ln_plan_sweep(torch, fln, sets)
             del sets, kern, plain, lib
             torch.cuda.empty_cache()
     for n, k in fln.KERNELS.items():  # comparison launches do not count
         k.launches = before[n]
+    fln.ln_matmul.tiled_launches = tiled_before
     for n in names:
         results[n]["main"] = next(r for r in results[n]["rows"] if r["n"] == LN_BWD_MAIN_N)
     return results
+
+
+def ln_plan_sweep(torch, fln, sets) -> dict:
+    """dw split into each G of ``LN_DW_SWEEP_G``, beside the G that
+    ``dw_plan`` takes, on the same cold inputs (CUDA events, ms a call)."""
+    M, d = sets[0]["x"].shape
+    n = sets[0]["dy"].shape[1]
+    dw = lambda G: [lambda s=s: fln._launch_dw(  # noqa: E731
+        s["x"], s["gamma"], s["beta"], s["dy"], *s["stats"], G) for s in sets]
+    out = {f"dw G={G}": event_ms(torch, dw(G)) for G in LN_DW_SWEEP_G}
+    plan = fln.dw_plan(M, d, n, fln._sms(sets[0]["x"].device))
+    log(f"    dw plans at M={M} n={n} (CUDA events, ms a call; dw_plan takes "
+        f"{plan['tile'][0]}x{plan['tile'][1]} G={plan['G']}): "
+        + ", ".join(f"{k} {v:.5f}" for k, v in out.items()))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1032,6 +1129,7 @@ def train_pass(torch, np, impl, batch=8, steps=6, extra=(), bwd=None):
         torch.cuda.reset_peak_memory_stats()
         for k in counters.values():
             k.launches = 0  # main path starts
+        fln.ln_matmul.tiled_launches = 0
         t0 = time.perf_counter()
         with fused_bwd(bwd):
             res = run_workload("gpt_lm", TRAIN_OVERRIDES + [
@@ -1040,6 +1138,7 @@ def train_pass(torch, np, impl, batch=8, steps=6, extra=(), bwd=None):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {n: k.launches for n, k in counters.items()}  # main path read
+        launches["ln_matmul_train"] = fln.ln_matmul.tiled_launches
     finally:
         topt.Optimizer.update = update
     hist = res.history
@@ -1140,6 +1239,7 @@ def phase_train_fused(torch, np, card, data, flash):
         if not p["losses"][-1] < p["losses"][0]:
             raise SmokeFailure(f"fused + {bwd}: loss did not fall ({p['losses']})")
         want = {**{n: layers * steps for n in FLASH_NAMES}, "ln_matmul": per_step * steps,
+                "ln_matmul_train": per_step * steps,
                 "ln_matmul_bwd_dx": per_step * steps if bwd == "pallas" else 0,
                 "ln_matmul_bwd_dw": per_step * steps if bwd == "pallas" else 0}
         if p["launches"] != want:
@@ -1167,7 +1267,8 @@ def phase_train_fused(torch, np, card, data, flash):
         log(f"  f32 {name}, one step: loss {f32[name]['losses'][0]:.6f}, peak memory "
             f"{f32[name]['peak_gib']:.2f} GiB, launches {f32[name]['launches']}")
         torch.cuda.empty_cache()
-    if f32["fused + pallas"]["launches"]["ln_matmul_bwd_dw"] != per_step:
+    if not (f32["fused + pallas"]["launches"]["ln_matmul_bwd_dw"]
+            == f32["fused + pallas"]["launches"]["ln_matmul_train"] == per_step):
         raise SmokeFailure(f"f32 fused pass: launches {f32['fused + pallas']['launches']}")
     out["compare"]["f32"] = gate_train(
         train_diffs(torch, f32["fused + pallas"], f32["unfused"]),
@@ -1695,6 +1796,7 @@ def phase_serve(torch, np, card):
 
     passes, counts = {}, {}
     paged_flash_attention.launches = ln_matmul.launches = 0  # main path starts
+    ln_matmul.tiled_launches = 0
     for label, c, kw in (("spec_k=0", cfg, {}),
                          ("spec_k=4", cfg, {"spec_k": 4}),
                          ("fused_ln_matmul", dataclasses.replace(cfg, fused_ln_matmul=True), {})):
@@ -1716,6 +1818,8 @@ def phase_serve(torch, np, card):
     if min(launches.values()) < 1 or counts["fused_ln_matmul"][1] < 1 \
             or min(c[0] for c in counts.values()) < 1:
         raise SmokeFailure(f"a kernel of the path never launched: {counts}")
+    if ln_matmul.tiled_launches:  # serving stays on the row-tile forward
+        raise SmokeFailure(f"serving took the tiled forward {ln_matmul.tiled_launches} times")
     if passes["spec_k=0"]["reuse_hits"] < 1 or passes["spec_k=0"]["cow_copies"] < 1:
         raise SmokeFailure("the shared prefix was never reused or never copied on write")
     same = sum(passes["spec_k=4"]["streams"][u] == s
@@ -1795,17 +1899,18 @@ def main() -> int:
         ln_train = phase_ln_train(torch, np, F)
         kern.update({n: {"err": ln_train[n]["err"], "rows": [ln_train[n]["main"]]}
                      for n in ("ln_matmul_bwd_dx", "ln_matmul_bwd_dw")})
-        kern["ln_matmul"]["err"] = max(kern["ln_matmul"]["err"],
-                                       ln_train["ln_matmul/train"]["err"])
+        kern["ln_matmul_train"] = {"err": ln_train["ln_matmul/train"]["err"],
+                                   "rows": [ln_train["ln_matmul/train"]["main"]]}
         conv_bn = phase_conv_bn(torch, np)
         kern.update({n: {"err": r["err"], "rows": [r["main"]]} for n, r in conv_bn.items()})
         launches, counts, steps = phase_serve(torch, np, smi)
         train = phase_train(torch, np, smi)
         launches.update(train["flash_launches"])
-        # the LN+matmul forward runs on two main paths: serving and the fused
-        # training pass with the pallas backward (which also runs dx and dw)
-        launches["ln_matmul"] += train["launches"]["ln_matmul"]
-        launches.update({n: train["launches"][n] for n in ("ln_matmul_bwd_dx",
+        # the LN+matmul forward runs on two main paths: serving (the
+        # row-tile kernel, "ln_matmul") and the fused training pass with the
+        # pallas backward (the tiled pair, "ln_matmul_train"; dx and dw)
+        launches.update({n: train["launches"][n] for n in ("ln_matmul_train",
+                                                            "ln_matmul_bwd_dx",
                                                             "ln_matmul_bwd_dw")})
         resnet = phase_resnet(torch, np, smi)
         launches.update(resnet["launches"])
@@ -1818,9 +1923,10 @@ def main() -> int:
         ("paged_attention", "distributed_tensorflow_tpu_torch/ops/csrc/paged_attention.cu",
          "distributed_tensorflow_tpu/ops/flash_attention.py:373",
          kern["paged_attention"]["rows"][0]),
-        ("ln_matmul", "distributed_tensorflow_tpu_torch/ops/csrc/ln_matmul.cu",
-         "distributed_tensorflow_tpu/ops/fused_ln_matmul.py:53",
-         kern["ln_matmul"]["rows"][3]),
+        *((name, "distributed_tensorflow_tpu_torch/ops/csrc/ln_matmul.cu",
+           "distributed_tensorflow_tpu/ops/fused_ln_matmul.py:53", row)
+          for name, row in (("ln_matmul", kern["ln_matmul"]["rows"][3]),
+                            ("ln_matmul_train", kern["ln_matmul_train"]["rows"][0]))),
         *((name, "distributed_tensorflow_tpu_torch/ops/csrc/ln_matmul_bwd.cu",
            f"distributed_tensorflow_tpu/ops/fused_ln_matmul.py:{line}", kern[name]["rows"][0])
           for name, line in (("ln_matmul_bwd_dx", 87), ("ln_matmul_bwd_dw", 156))),
@@ -1841,6 +1947,7 @@ def main() -> int:
     log(f"card: {smi}")
     log(f"launches by pass (paged_attention, ln_matmul): {counts}; engine steps by pass: "
         f"{steps}; timed shapes: paged_attention decode B=8 S=1, ln_matmul M=8 n=3072, "
+        f"ln_matmul_train M=8192 n=3072, "
         f"flash B=8 H=12 S=1024 D=64 causal bf16 (flash_bwd_dkv library_ms: SDPA's whole "
         f"backward, dq+dk+dv; flash_bwd_dq: null)")
     log(f"gpt_lm training (B=8, S=1024): flash step {train['step_ms']:.2f} ms, "
@@ -1858,12 +1965,18 @@ def main() -> int:
         f"gates {train['compare']}; LN+matmul at M=8192 (bf16, kernel / bound / plain / "
         f"library ms): " + "; ".join(
             f"{k} n={r['n']} {r['ms']:.5f} / {r['bound_ms']:.5f} / {r['plain_ms']:.5f} / "
-            f"{r['library_ms']:.5f}" + (f" (device ms by kernel: {fmt_split(r['split'])})"
-                                        if "split" in r else "")
+            f"{r['library_ms']:.5f} (device ms by kernel: {fmt_split(r['split'])})"
             for k in ("ln_matmul/train", "ln_matmul_bwd_dx", "ln_matmul_bwd_dw")
             for r in ln_train[k]["rows"])
-        + "; kernels line: ln_matmul's row is serving's M=8 n=3072 and its launches serving's "
-        f"plus the fused+pallas training pass's; the backward rows are n={LN_BWD_MAIN_N} "
+        + "; dw plans (event ms): " + "; ".join(
+            f"n={n} " + ", ".join(f"{k} {v:.5f}" for k, v in sw.items())
+            for n, sw in ln_train["sweep"].items())
+        + "; crossover n=3072 (row-tile vs tiled device ms): " + ", ".join(
+            f"M={M} " + " vs ".join(f"{t:.5f}" for t in ts)
+            for M, ts in kern["ln_matmul"]["crossover"].items())
+        + "; kernels line: ln_matmul's row is serving's M=8 n=3072 and its launches serving's; "
+        f"ln_matmul_train's row is M=8192 n={LN_BWD_MAIN_N} and its launches the fused+pallas "
+        f"training pass's forward launches; the backward rows are n={LN_BWD_MAIN_N} "
         f"(library_ms: the product alone, dy@w^T and h^T@dy)")
     log(f"resnet50_imagenet training (B=256, 224x224, bf16): " + "; ".join(
         f"{k} step {v['step_ms']:.2f} ms, {v['img_s']:.1f} images/s, MFU {100 * v['mfu']:.2f}%, "

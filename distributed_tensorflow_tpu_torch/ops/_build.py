@@ -1,16 +1,18 @@
 """Build and load the port's CUDA kernels (nvcc + ctypes).
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
-first use, alone, into ``ops/build/lib<name>-<hash>.so``::
+first use, alone, into ``ops/build/lib<name>-<hash>.so`` (headers it
+includes, ``csrc/*.cuh``, are compiled in with it)::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v -o lib<name>-<hash>.so csrc/<name>.cu
 
-The hash covers the source text and the flags, so an edited source never
-loads a stale library. The directory is listed in ``.gitignore``. Nothing
-here runs at import time: the first wrapper call on a CUDA tensor builds
-and loads its library; ``build_all`` starts one ``nvcc`` per source at
-once (``chip_smoke.py`` builds every kernel in parallel that way).
+The hash covers the source text, every ``csrc/*.cuh`` header and the
+flags, so an edited source or header never loads a stale library. The
+directory is listed in ``.gitignore``. Nothing here runs at import time:
+the first wrapper call on a CUDA tensor builds and loads its library;
+``build_all`` starts one ``nvcc`` per source at once (``chip_smoke.py``
+builds every kernel in parallel that way).
 
 A failed build raises ``KernelBuildError`` with nvcc's output. A kernel
 entry point returns ``cudaGetLastError()`` after its launch, and
@@ -21,6 +23,7 @@ fallback to the plain PyTorch version on a CUDA tensor.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -59,8 +62,11 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
     "ln_matmul": {
         # x, gamma, beta, w, bias, y, M, d, n, w_stride_k, w_stride_n,
         # eps, stream
-        fn: (_c_void_p,) * 6 + (_c_int,) * 5 + (_c_float, _c_void_p)
-        for fn in ("ln_matmul_f32", "ln_matmul_bf16_f32", "ln_matmul_bf16")
+        **{fn: (_c_void_p,) * 6 + (_c_int,) * 5 + (_c_float, _c_void_p)
+           for fn in ("ln_matmul_f32", "ln_matmul_bf16_f32", "ln_matmul_bf16")},
+        # x, gamma, beta, w, bias, y, stats; M, d, n, sk, sn, eps, stream
+        **{f"ln_matmul_tiled_{s}": (_c_void_p,) * 7 + (_c_int,) * 3 + _W_STRIDES
+           + (_c_float, _c_void_p) for s in ("f32", "bf16", "bf16_f32")},
     },
     "ln_matmul_bwd": {
         # x, gamma, w, sk, sn, dy, dx, mean, rstd, ws, out; M, d, n, G, eps,
@@ -129,11 +135,15 @@ def nvcc_path() -> str:
 
 
 def _paths(name: str) -> tuple[str, str, str]:
+    """(source, library, build log) of ``name``; the library's file name
+    holds a hash of the source, every header in ``CSRC`` and the flags."""
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(
-            f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    h = hashlib.sha256()
+    for path in [src] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    so = os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
     return src, so, so[:-3] + ".log"
 
 

@@ -5,31 +5,54 @@
 // y = (LN(x; gamma, beta, eps) cast to x's dtype) @ w + bias, with the row
 // statistics in f32 (mean, then the mean of squared deviations, as in that
 // file's _ln) and the product accumulated in f32, cast to the output dtype.
-//
-// Bound: at decode (M = decode slots) the bytes of w, d*n*sizeof; at
-// prefill (M = one chunk) the bytes of w and x. Design against that bound:
-// each CTA normalises its rows straight into shared memory, so the
-// normalised [M, d] tensor never reaches device memory, and w is streamed
-// once per row tile. Any M: the ragged row edge is masked (the TPU's
-// 8-row block rule does not apply), as is a ragged n edge.
-//
-// Layout: one CTA per (64-column tile, 16-row tile); 128 threads (4 warps).
 // w is [d, n] with element (k, c) at w[k*sk + c*sn]: the contiguous [d, n]
 // array (sn == 1) and the transposed view of an nn.Linear weight [n, d]
-// (sk == 1) both load coalesced. bf16 input: each warp owns one 16x16
-// output fragment and runs WMMA bf16 x bf16 -> f32 on tensor cores; f32
-// input: CUDA-core FMAs, 8 outputs a thread.
+// (sk == 1) both load coalesced. Two designs, chosen by M alone (the
+// wrapper's fwd_plan): serving's few rows and training's many.
 //
-// x rows and w tiles move in 16-byte loads, several in flight per thread;
-// the next w tile is loaded into registers while the current one is
-// multiplied. Simple first: no TMA, no wgmma, no split-K (at decode only
-// n/64 CTAs stream w).
+// ln_matmul_kernel, serving (M below the wrapper's LN_TILED_MIN_M: decode
+// slots, one prefill chunk). Bound: at decode the bytes of w, d*n*sizeof;
+// at prefill the bytes of w and x. Each CTA normalises its rows straight
+// into shared memory, so the normalised [M, d] tensor never reaches device
+// memory, and w is streamed once per row tile. Any M: the ragged row edge
+// is masked (the TPU's 8-row block rule does not apply), as is a ragged n
+// edge. Layout: one CTA per (64-column tile, 16-row tile); 128 threads (4
+// warps). bf16 input: each warp owns one 16x16 output fragment and runs
+// WMMA bf16 x bf16 -> f32 on tensor cores; f32 input: CUDA-core FMAs, 8
+// outputs a thread. x rows and w tiles move in 16-byte loads, several in
+// flight per thread; the next w tile is loaded into registers while the
+// current one is multiplied. Any d that fits 16 normalised rows in shared
+// memory.
+//
+// Training M (M >= LN_TILED_MIN_M; gpt_small: M = 8192, d = 768, n = 768
+// or 3072): bound by the 2*M*d*n operations of the product. 16-row CTAs
+// would stream all of w per 16 rows (2.4 GB from L2 at n = 3072) and
+// normalise each row once per 64-column tile, so the work is split in two:
+//  1. ln_stats_kernel: each row's mean and rstd ([M] f32 each, into a
+//     workspace), two rows a warp side by side, 16-byte loads, the first
+//     768 columns of each row held in registers between the two passes.
+//  2. ln_matmul_tiled_kernel: a 2-D tiled product on tile_mma.cuh, as the
+//     backward's dh and dw: a CTA owns a 128 x 256 output tile (rows of x
+//     x columns of n), 8 warps of mma.sync m16n8k16 over 64 x 64 register
+//     tiles; x's rows (k contiguous), w's tile (either layout) and the
+//     stage's gamma, beta stream through a 3-stage cp.async.cg ring, 128
+//     bytes of d a stage, ragged edges zero-filled. Once a stage lands the
+//     CTA rewrites its x tile in place as h = (x - mean) * rstd * gamma +
+//     beta, rounded to x's dtype, behind one barrier (each thread keeps its
+//     rows' mean and rstd in registers); ldmatrix reads h as it lies and w
+//     with .trans when n is contiguous. Epilogue: + bias in f32, cast,
+//     masked stores. So w is read once per 128 rows and each row is
+//     normalised once per 128-column tile, from L2. f32 inputs take the
+//     same tiling with f32 FMAs on CUDA cores. No limit on d; d and n
+//     multiples of 8, x 16-byte aligned, w as the backward kernels take it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 
 #include <type_traits>
+
+#include "tile_mma.cuh"
 
 namespace {
 
@@ -40,13 +63,8 @@ constexpr int BK = 128;  // depth of one staged w tile
 constexpr int kPad = 8;  // shared-memory row padding, elements (16 bytes of bf16)
 constexpr int kBatch = 4;  // 16-byte x loads a thread keeps in flight
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
+using tile::from_f32;
+using tile::to_f32;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -283,6 +301,244 @@ int launch(const void* x, const void* gamma, const void* beta, const void* w,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// training-size M: a row-statistics pass and a tiled product
+// ---------------------------------------------------------------------------
+
+constexpr int ST_WARPS = 8;
+constexpr int ST_ROWS = 2 * ST_WARPS;  // rows of a statistics CTA: two a warp
+constexpr int ST_CACHE = 3;  // 256-column chunks of a row held in registers
+
+__device__ __forceinline__ void warp_sum2(float (&v)[2]) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    v[0] += __shfl_xor_sync(0xffffffffu, v[0], o);
+    v[1] += __shfl_xor_sync(0xffffffffu, v[1], o);
+  }
+}
+
+// Warp w of CTA b takes the rows r = b*ST_ROWS + w and r + ST_WARPS; lane l
+// the 8-column chunks 8l, 8l + 256, ... of both (the first ST_CACHE loaded
+// once, the rest read again in the second pass): mean, then rstd = rsqrt of
+// the mean of squared deviations plus eps.
+template <typename T>
+__global__ void __launch_bounds__(32 * ST_WARPS)
+ln_stats_kernel(const T* __restrict__ x, float* __restrict__ mean, float* __restrict__ rstd,
+                int M, int d, float eps) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rr[2] = {(int)blockIdx.x * ST_ROWS + warp, (int)blockIdx.x * ST_ROWS + warp + ST_WARPS};
+  const bool ok[2] = {rr[0] < M, rr[1] < M};
+  tile::Raw8<T> xc[2][ST_CACHE];
+#pragma unroll
+  for (int p = 0; p < 2; ++p)
+#pragma unroll
+    for (int i = 0; i < ST_CACHE; ++i) {
+      const int k = 8 * lane + 256 * i;
+      if (ok[p] && k < d) tile::load_raw(x + (size_t)rr[p] * d + k, xc[p][i]);
+    }
+  // f(p, v[8]) over every chunk of both rows
+  auto pass = [&](auto&& f) {
+#pragma unroll
+    for (int i = 0; i < ST_CACHE; ++i)
+#pragma unroll
+      for (int p = 0; p < 2; ++p)
+        if (ok[p] && 8 * lane + 256 * i < d) {
+          float v[8];
+          tile::unpack(xc[p][i], v);
+          f(p, v);
+        }
+    for (int k = 8 * lane + 256 * ST_CACHE; k < d; k += 256)
+#pragma unroll
+      for (int p = 0; p < 2; ++p)
+        if (ok[p]) {
+          float v[8];
+          tile::load8(x + (size_t)rr[p] * d + k, v);
+          f(p, v);
+        }
+  };
+  using F8 = float[8];
+  float s[2] = {0.f, 0.f}, mu[2];
+  pass([&](int p, const F8& v) {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) s[p] += v[q];
+  });
+  warp_sum2(s);
+#pragma unroll
+  for (int p = 0; p < 2; ++p) mu[p] = s[p] / d, s[p] = 0.f;
+  pass([&](int p, const F8& v) {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) s[p] += (v[q] - mu[p]) * (v[q] - mu[p]);
+  });
+  warp_sum2(s);
+#pragma unroll
+  for (int p = 0; p < 2; ++p)
+    if (lane == 0 && ok[p]) mean[rr[p]] = mu[p], rstd[rr[p]] = rsqrtf(s[p] / d + eps);
+}
+
+// The ring of the tiled product, for output tiles of 128 rows x BN = 4 WN
+// columns (WN = 64: 128 x 256 timed faster than 128 x 128 at gpt_small's
+// shapes on an H100, PERF.md). One CTA an SM: the ring takes ~167 KB of
+// shared memory (the wrapper's TILE_CTAS_PER_SM). A stage holds BK columns
+// of d (128 bytes of a row): x's rows [BM][LDA] (rewritten as h in place),
+// w's tile, either Bs[BN][LDK] (d contiguous, sk == 1) or Bs[BK][LDN] (n
+// contiguous), then gamma [BK] and beta [BK] f32.
+template <typename T>
+struct Fw {
+  static constexpr int WN = 64;
+  static constexpr int V = 16 / sizeof(T);
+  static constexpr int BN = 4 * WN;
+  static constexpr int BK = tile::STAGE_BYTES / sizeof(T);
+  static constexpr int NJ = WN / 8;
+  static constexpr int LDA = tile::pad_ld<T>(BK), LDK = tile::pad_ld<T>(BK),
+                       LDN = tile::pad_ld<T>(BN);
+  static constexpr int A_ELEMS = tile::BM * LDA;
+  static constexpr int B_ELEMS = BN * LDK > BK * LDN ? BN * LDK : BK * LDN;
+  static constexpr size_t STAGE = sizeof(T) * (A_ELEMS + B_ELEMS) + sizeof(float) * 2 * BK;
+  static constexpr size_t SMEM = STAGE * tile::STAGES;
+  static_assert(STAGE % 16 == 0, "stages stay 16-byte aligned");
+};
+
+template <typename T>
+__device__ __forceinline__ void fw_load(unsigned char* st, const T* __restrict__ x,
+                                        const float* __restrict__ gamma,
+                                        const float* __restrict__ beta, const T* __restrict__ w,
+                                        long long sk, long long sn, int M, int d, int n, int m0,
+                                        int n0, int k0) {
+  using S = Fw<T>;
+  constexpr int V = S::V, BK = S::BK, BM = tile::BM;
+  T* Xs = reinterpret_cast<T*>(st);
+  T* Bs = Xs + S::A_ELEMS;
+  float* gb = reinterpret_cast<float*>(Bs + S::B_ELEMS);
+  tile::copy_tile<T, BM * BK / V, BK / V>(Xs, S::LDA, x, d, m0, M, k0, d);
+  if (sk == 1)  // w[k, c], k contiguous: Bs[c][k]
+    tile::copy_tile<T, S::BN * BK / V, BK / V>(Bs, S::LDK, w, sn, n0, n, k0, d);
+  else  // w[k, c], c contiguous: Bs[k][c]
+    tile::copy_tile<T, BK * S::BN / V, S::BN / V>(Bs, S::LDN, w, sk, k0, d, n0, n);
+  if (threadIdx.x < 2 * BK) {  // gamma, then beta, one column a thread
+    const int k = threadIdx.x % BK;
+    const bool ok = k0 + k < d;
+    tile::cp_async4(gb + threadIdx.x, (threadIdx.x < BK ? gamma : beta) + (ok ? k0 + k : 0), ok);
+  }
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// grid (M tiles x n tiles), n fastest: CTA (mt, nt) writes y[mt*BM.., nt*BN..]
+// = h @ w + bias over the whole of d, in one fixed order. Thread i rewrites
+// the x chunks i, i + THREADS, ... of each stage: rows row0 + 32u, the same
+// columns, so it keeps those rows' mean and rstd in registers.
+template <typename TIn, typename TOut>
+__global__ void __launch_bounds__(tile::THREADS, 1)
+ln_matmul_tiled_kernel(const TIn* __restrict__ x, const float* __restrict__ gamma,
+                       const float* __restrict__ beta, const TIn* __restrict__ w, long long sk,
+                       long long sn, const float* __restrict__ bias,
+                       const float* __restrict__ mean, const float* __restrict__ rstd,
+                       TOut* __restrict__ y, int M, int d, int n) {
+  using S = Fw<TIn>;
+  constexpr int V = S::V, BK = S::BK, P = BK / V, BM = tile::BM, STAGES = tile::STAGES;
+  constexpr int THREADS = tile::THREADS, ROWS = BM * P / THREADS;
+  static_assert(THREADS % P == 0, "a thread's chunks share their columns");
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ntiles = (n + S::BN - 1) / S::BN;
+  const int m0 = blockIdx.x / ntiles * BM, n0 = blockIdx.x % ntiles * S::BN;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = (warp & 1) * 64, wn = (warp >> 1) * S::WN;
+  const int nk = (d + BK - 1) / BK;
+  const bool b_t = sk != 1;
+  const int col = threadIdx.x % P * V, row0 = threadIdx.x / P;
+  float mu[ROWS], rs[ROWS];
+#pragma unroll
+  for (int u = 0; u < ROWS; ++u) {
+    const int r = m0 + row0 + u * (THREADS / P);
+    mu[u] = r < M ? mean[r] : 0.f;
+    rs[u] = r < M ? rstd[r] : 0.f;
+  }
+  float acc[4][S::NJ][4];
+  tile::zero(acc);
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk)
+      fw_load<TIn>(smem + s * S::STAGE, x, gamma, beta, w, sk, sn, M, d, n, m0, n0, s * BK);
+    tile::cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    tile::cp_async_wait<STAGES - 2>();  // stage kt has landed (this thread's copies)
+    __syncthreads();                    // ... everyone's; stage kt - 1 is consumed
+    const int nx = kt + STAGES - 1;
+    if (nx < nk)
+      fw_load<TIn>(smem + nx % STAGES * S::STAGE, x, gamma, beta, w, sk, sn, M, d, n, m0,
+                       n0, nx * BK);
+    tile::cp_async_commit();
+    TIn* Xs = reinterpret_cast<TIn*>(smem + kt % STAGES * S::STAGE);
+    const TIn* Bs = Xs + S::A_ELEMS;
+    const float* gb = reinterpret_cast<const float*>(Bs + S::B_ELEMS);
+#pragma unroll
+    for (int u = 0; u < ROWS; ++u)
+      tile::ln_chunk(Xs + (row0 + u * (THREADS / P)) * S::LDA + col, mu[u], rs[u], gb + col,
+                     gb + BK + col);
+    __syncthreads();  // h is whole
+    if (b_t)  // one copy of the loop per w layout: constant pitches
+      tile::warp_tile<S::NJ, false, BK>(acc, Xs, S::LDA, Bs, S::LDN, true, wm, wn, lane);
+    else
+      tile::warp_tile<S::NJ, false, BK>(acc, Xs, S::LDA, Bs, S::LDK, false, wm, wn, lane);
+  }
+  tile::cp_async_wait<0>();
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < S::NJ; ++j) {
+    const int c = n0 + wn + 8 * j + 2 * t;
+    if (c >= n) continue;
+    const float b0 = bias[c], b1 = bias[c + 1];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = m0 + wm + 16 * i + g + 8 * h;
+        if (r < M)
+          store2(y + (size_t)r * n + c, acc[i][j][2 * h] + b0, acc[i][j][2 * h + 1] + b1);
+      }
+  }
+}
+
+template <typename TIn, typename TOut>
+int launch_tiles(const void* x, const void* gamma, const void* beta, const void* w,
+                 long long sk, long long sn, const void* bias, const float* mean,
+                 const float* rstd, void* y, int M, int d, int n, cudaStream_t st) {
+  using S = Fw<TIn>;
+  const long long tiles = (long long)((M + tile::BM - 1) / tile::BM) * ((n + S::BN - 1) / S::BN);
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  auto kern = ln_matmul_tiled_kernel<TIn, TOut>;
+  int e = tile::set_smem(kern, S::SMEM);
+  if (e) return e;
+  kern<<<(unsigned)tiles, tile::THREADS, S::SMEM, st>>>(
+      (const TIn*)x, (const float*)gamma, (const float*)beta, (const TIn*)w, sk, sn,
+      (const float*)bias, mean, rstd, (TOut*)y, M, d, n);
+  return (int)cudaGetLastError();
+}
+
+// stats: [2][M] f32 workspace (mean, then rstd)
+template <typename TIn, typename TOut>
+int launch_tiled(const void* x, const void* gamma, const void* beta, const void* w,
+                 const void* bias, void* y, void* stats, int M, int d, int n, long long sk,
+                 long long sn, float eps, void* stream) {
+  if (M < 1 || d < 8 || n < 8 || d % 8 || n % 8 || !tile::w_ok<TIn>(w, sk, sn, d, n) ||
+      !tile::aligned16(x))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  float* mean = (float*)stats;
+  float* rstd = mean + M;
+  ln_stats_kernel<TIn><<<(M + ST_ROWS - 1) / ST_ROWS, 32 * ST_WARPS, 0, st>>>(
+      (const TIn*)x, mean, rstd, M, d, eps);
+  int e = (int)cudaGetLastError();
+  if (e) return e;
+  return launch_tiles<TIn, TOut>(x, gamma, beta, w, sk, sn, bias, mean, rstd, y, M, d, n, st);
+}
+
 }  // namespace
 
 extern "C" {
@@ -305,6 +561,20 @@ int ln_matmul_bf16_f32(const void* x, const void* gamma, const void* beta, const
                        float eps, void* stream) {
   return launch<__nv_bfloat16, float>(x, gamma, beta, w, bias, y, M, d, n, sk, sn, eps,
                                       stream);
+}
+
+#define DTF_TILED_ARGS                                                                   \
+  const void *x, const void *gamma, const void *beta, const void *w, const void *bias,   \
+      void *y, void *stats, int M, int d, int n, long long sk, long long sn, float eps, \
+      void *stream
+#define DTF_TILED_PASS x, gamma, beta, w, bias, y, stats, M, d, n, sk, sn, eps, stream
+
+int ln_matmul_tiled_f32(DTF_TILED_ARGS) { return launch_tiled<float, float>(DTF_TILED_PASS); }
+int ln_matmul_tiled_bf16(DTF_TILED_ARGS) {
+  return launch_tiled<__nv_bfloat16, __nv_bfloat16>(DTF_TILED_PASS);
+}
+int ln_matmul_tiled_bf16_f32(DTF_TILED_ARGS) {
+  return launch_tiled<__nv_bfloat16, float>(DTF_TILED_PASS);
 }
 
 const char* dtf_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

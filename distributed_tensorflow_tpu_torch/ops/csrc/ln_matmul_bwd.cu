@@ -36,9 +36,10 @@
 //     bf16 over a 64 x 32 register tile, fed by ldmatrix.x4: dy's tile as it
 //     lies (n contiguous), w's with .trans when d is contiguous (the model's
 //     linear.weight.t()) and without when n is. Shared rows are padded by 16
-//     bytes, which keeps ldmatrix free of bank conflicts. K runs in one fixed
-//     order. f32 inputs take the same tiling with f32 FMAs on CUDA cores
-//     (exact to f32 rounding; never the timed path). The CTAs of the first
+//     bytes, which keeps ldmatrix free of bank conflicts (tile_mma.cuh). K
+//     runs in one fixed order. f32 inputs take the same tiling with f32 FMAs
+//     on CUDA cores (exact to f32 rounding; never the timed path). The CTAs
+//     of the first
 //     column tile of d also sum each staged dy tile over its rows (dbias)
 //     into a partial [M / 128, n].
 //  2. ln_bwd_dx_rows_kernel: each warp takes two rows side by side (twice the
@@ -54,17 +55,26 @@
 // latency of its row-local reductions. Nothing limits d but the workspace: no
 // whole row sits in shared memory. Later: wgmma and TMA for the product.
 //
-// Reductions over M (dgamma, dbeta, dbias, dw) use no float atomics: the row
-// tiles are dealt to G chunks (chunk c takes tiles c, c+G, ...), each CTA sums
-// its chunk in a fixed order into a workspace, and reduce_kernel (dw) or
-// reduce2_kernel (dx) adds the G partials of each output in a fixed order. G
-// is a function of the shapes and the SM count alone (the wrapper's), so a
-// step is bitwise repeatable run to run on one card.
+// dw is the same tiled product with the contraction over the rows: CTA
+// (tile, c) owns a 128 x 256 tile of dw (columns of d x columns of n) and
+// sums h^T dy over the rows of chunk c. A stage of the ring holds 128 bytes'
+// worth of rows of x (the tile's 128 columns of d), of dy (its columns of n)
+// and the rows' mean and rstd (the dx row pass writes them: a dw CTA sees
+// only a slice of each row, so it cannot take the statistics itself). Once a
+// stage lands, the CTA rewrites its x tile in place as h = (x - mean) * rstd
+// * gamma + beta, rounded to x's dtype (gamma, beta of the thread's columns
+// in registers), behind one barrier; h never reaches device memory. Both
+// operands lie row-index-major, so both reach mma.sync through
+// ldmatrix.x4.trans. What bounds it: 2*M*d*n operations; the tiles are too
+// few to fill the card (36 at gpt_small's n = 768, 144 at 3072, on 132 SMs),
+// hence the split over M.
 //
-// The dx row pass writes each row's mean and rstd ([M] f32) as a by-product and
-// the dw kernel reads them instead of re-reading whole rows of x in every CTA
-// (a dw CTA sees only a 64-column slice of a row). The function computed is
-// unchanged: they are the statistics JAX's dw kernel recomputes from x.
+// Reductions over M (dgamma, dbeta, dbias, dw) use no float atomics: the rows
+// are dealt to G chunks, each CTA sums its chunk in a fixed order into a
+// workspace, and reduce_kernel (dw) or reduce2_kernel (dx) adds the G
+// partials of each output in a fixed order. G is a function of the shapes
+// and the SM count alone (the wrapper's dx_plan, dw_plan), so a step is
+// bitwise repeatable run to run on one card.
 //
 // Layout requirements (the wrapper checks, the launchers re-check): d and n
 // multiples of 8; x, dy, dx contiguous with 16-byte aligned bases; w with a
@@ -75,130 +85,20 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tile_mma.cuh"
+
 namespace {
 
-constexpr int NT = 8;  // m16n8 fragments per warp: 16 x 64 outputs
+using namespace tile;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// row pitch of a row-major shared tile of n columns: 16 bytes of padding
-template <typename T>
-__host__ __device__ constexpr int pad_ld(int n) { return n + 16 / (int)sizeof(T); }
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat16 v) {
-  return (uint32_t)__bfloat16_as_ushort(v);
-}
-
-// two bf16 values at a[0] and a[s] in one register, the lower index in the
-// lower half (the mma fragment order)
-__device__ __forceinline__ uint32_t pair(const __nv_bfloat16* a, int s) {
-  return s == 1 ? *reinterpret_cast<const uint32_t*>(a) : (bits(a[0]) | (bits(a[s]) << 16));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// One warp: acc (16 x 64, m16n8 fragments) += A (16 x K) * B (K x 64), both in
-// shared memory: A(m, k) = a[m*am + k*ak], B(k, n) = b[n*bn + k*bk]; K a
-// multiple of 16. Fragment layout (PTX m16n8k16): g = lane / 4, t = lane % 4;
-// acc[j] holds rows g and g + 8, columns 8j + 2t and 8j + 2t + 1.
-__device__ __forceinline__ void warp_mma(float (&acc)[NT][4], const __nv_bfloat16* a, int am,
-                                         int ak, const __nv_bfloat16* b, int bn, int bk, int K,
-                                         int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  for (int kc = 0; kc < K; kc += 16) {
-    const int k0 = kc + 2 * t;
-    uint32_t af[4];
-    af[0] = pair(a + g * am + k0 * ak, ak);
-    af[1] = pair(a + (g + 8) * am + k0 * ak, ak);
-    af[2] = pair(a + g * am + (k0 + 8) * ak, ak);
-    af[3] = pair(a + (g + 8) * am + (k0 + 8) * ak, ak);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const __nv_bfloat16* bj = b + (8 * j + g) * bn;
-      mma_bf16(acc[j], af, pair(bj + k0 * bk, bk), pair(bj + (k0 + 8) * bk, bk));
-    }
-  }
-}
-
-// The same tile product in f32 on CUDA cores, in the same fragment layout.
-__device__ __forceinline__ void warp_mma(float (&acc)[NT][4], const float* a, int am, int ak,
-                                         const float* b, int bn, int bk, int K, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  for (int k = 0; k < K; ++k) {
-    const float a0 = a[g * am + k * ak], a1 = a[(g + 8) * am + k * ak];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const float b0 = b[(8 * j + 2 * t) * bn + k * bk];
-      const float b1 = b[(8 * j + 2 * t + 1) * bn + k * bk];
-      acc[j][0] = fmaf(a0, b0, acc[j][0]);
-      acc[j][1] = fmaf(a0, b1, acc[j][1]);
-      acc[j][2] = fmaf(a1, b0, acc[j][2]);
-      acc[j][3] = fmaf(a1, b1, acc[j][3]);
-    }
-  }
-}
-
-__device__ __forceinline__ void zero(float (&acc)[NT][4]) {
-#pragma unroll
-  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-}
-
-// ---------------------------------------------------------------------------
-// dx, dgamma, dbeta, dbias
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes global -> shared, asynchronously; zero-filled when !ok (src-size 0
-// reads nothing, but the address must still be a valid one)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// four 8 x 8 b16 matrices; lane l gives the row address of matrix l / 8
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-constexpr int DH_BM = 128;      // rows of dy (and dh) per tile: 2 warps of 64
-constexpr int DH_BN = 128;      // columns of d per tile
-constexpr int DH_WN = 32;       // columns of d per warp
-constexpr int DH_KB = 128;      // bytes of depth (along n) per stage
-constexpr int DH_STAGES = 3;    // depth of the cp.async ring
-constexpr int DH_MIN_CTAS = 2;  // CTAs an SM keeps resident (caps the registers)
-constexpr int DH_WARPS = 2 * DH_BN / DH_WN;
-constexpr int DH_THREADS = 32 * DH_WARPS;
+constexpr int DH_BM = tile::BM;  // rows of dy (and dh) per tile: 2 warps of 64
+constexpr int DH_BN = 128;       // columns of d per tile
+constexpr int DH_WN = 32;        // columns of d per warp
+constexpr int DH_KB = tile::STAGE_BYTES;  // bytes of depth (along n) per stage
+constexpr int DH_STAGES = tile::STAGES;
+constexpr int DH_MIN_CTAS = 2;   // CTAs an SM keeps resident (caps the registers)
+constexpr int DH_WARPS = tile::WARPS;
+constexpr int DH_THREADS = tile::THREADS;
 
 // The shared-memory ring of the dh product. A stage holds the dy tile As
 // [BM][LDA] (n contiguous) and w's tile, either Bs[BN][LDK] (w with n
@@ -218,100 +118,17 @@ struct Dh {
       sizeof(T) * (size_t)STAGE * DH_STAGES + sizeof(float) * 2 * DH_WARPS * BK;
 };
 
-// Stage the depth slice k0.. of the tile (m0.., j0..) with cp.async: C
-// 16-byte chunks, chunk i at (row, col) = (i / P, i % P * V) of a tile with
-// P chunks a row.
-template <typename T, int C, int P>
-__device__ __forceinline__ void dh_copy(T* dst, int ld, const T* __restrict__ src,
-                                        long long sr, int r0, int rows, int c0, int cols) {
-  constexpr int V = 16 / sizeof(T);
-  static_assert(C % DH_THREADS == 0, "every thread copies as many chunks");
-#pragma unroll
-  for (int u = 0; u < C / DH_THREADS; ++u) {
-    const int i = threadIdx.x + u * DH_THREADS;
-    const int r = i / P, c = i % P * V;
-    const bool ok = r0 + r < rows && c0 + c < cols;
-    cp_async16(dst + r * ld + c, ok ? src + (size_t)(r0 + r) * sr + c0 + c : src, ok);
-  }
-}
-
 template <typename T>
 __device__ __forceinline__ void dh_load(T* As, T* Bs, const T* __restrict__ dy,
                                         const T* __restrict__ w, long long sk, long long sn,
                                         int M, int d, int n, int m0, int j0, int k0) {
   using S = Dh<T>;
   constexpr int V = S::V, BK = S::BK;
-  dh_copy<T, DH_BM * BK / V, BK / V>(As, S::LDA, dy, n, m0, M, k0, n);
+  copy_tile<T, DH_BM * BK / V, BK / V>(As, S::LDA, dy, n, m0, M, k0, n);
   if (sn == 1)  // w[j, k], k contiguous: Bs[j][k]
-    dh_copy<T, DH_BN * BK / V, BK / V>(Bs, S::LDK, w, sk, j0, d, k0, n);
+    copy_tile<T, DH_BN * BK / V, BK / V>(Bs, S::LDK, w, sk, j0, d, k0, n);
   else  // w[j, k], j contiguous: Bs[k][j]
-    dh_copy<T, DH_BN * BK / V, DH_BN / V>(Bs, S::LDN, w, sn, k0, n, j0, d);
-}
-
-// One warp's 64 x WN tile += its rows of As times its columns of Bs over
-// one stage, with mma.sync m16n8k16 on ldmatrix fragments. acc[i][j] is the
-// m16n8 fragment (rows wm + 16i.., columns wn + 8j..): lane (g = lane / 4,
-// t = lane % 4) holds rows g, g + 8 and columns 2t, 2t + 1.
-__device__ __forceinline__ void dh_stage(float (&acc)[4][Dh<__nv_bfloat16>::NJ][4],
-                                         const __nv_bfloat16* As, const __nv_bfloat16* Bs,
-                                         bool kmajor, int wm, int wn, int lane) {
-  using S = Dh<__nv_bfloat16>;
-#pragma unroll
-  for (int kk = 0; kk < S::BK; kk += 16) {
-    uint32_t a[4][4];
-    // A: matrices (rows 0-7, k 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      ldsm_x4(a[i], As + (wm + 16 * i + (lane & 15)) * S::LDA + kk + 8 * (lane >> 4));
-    // B, two m16n8 columns at a time: matrices (columns 8j.., k 0-7), (8j.., k
-    // 8-15), (8j+8.., k 0-7), (8j+8.., k 8-15); lane gets B(k = 2t, 2t+1;
-    // column g) from either layout
-#pragma unroll
-    for (int j = 0; j < S::NJ; j += 2) {
-      uint32_t b[4];
-      if (kmajor)
-        ldsm_x4(b, Bs + (wn + 8 * j + (lane & 7) + 8 * (lane >> 4)) * S::LDK + kk +
-                       8 * ((lane >> 3) & 1));
-      else
-        ldsm_x4_trans(b, Bs + (kk + (lane & 7) + 8 * ((lane >> 3) & 1)) * S::LDN + wn +
-                             8 * j + 8 * (lane >> 4));
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        mma_bf16(acc[i][j], a[i], b[0], b[1]);
-        mma_bf16(acc[i][j + 1], a[i], b[2], b[3]);
-      }
-    }
-  }
-}
-
-// The same tile product in f32 on CUDA cores, in the same fragment layout,
-// each output summed over k in order.
-__device__ __forceinline__ void dh_stage(float (&acc)[4][Dh<float>::NJ][4], const float* As,
-                                         const float* Bs, bool kmajor, int wm, int wn,
-                                         int lane) {
-  using S = Dh<float>;
-  const int g = lane >> 2, t = lane & 3;
-  for (int k = 0; k < S::BK; ++k) {
-    float a[4][2];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      a[i][0] = As[(wm + 16 * i + g) * S::LDA + k];
-      a[i][1] = As[(wm + 16 * i + g + 8) * S::LDA + k];
-    }
-#pragma unroll
-    for (int j = 0; j < S::NJ; ++j) {
-      const int c = wn + 8 * j + 2 * t;
-      const float b0 = kmajor ? Bs[c * S::LDK + k] : Bs[k * S::LDN + c];
-      const float b1 = kmajor ? Bs[(c + 1) * S::LDK + k] : Bs[k * S::LDN + c + 1];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        acc[i][j][0] = fmaf(a[i][0], b0, acc[i][j][0]);
-        acc[i][j][1] = fmaf(a[i][0], b1, acc[i][j][1]);
-        acc[i][j][2] = fmaf(a[i][1], b0, acc[i][j][2]);
-        acc[i][j][3] = fmaf(a[i][1], b1, acc[i][j][3]);
-      }
-    }
-  }
+    copy_tile<T, DH_BN * BK / V, DH_BN / V>(Bs, S::LDN, w, sn, k0, n, j0, d);
 }
 
 // dbias of one staged dy tile: warp w sums the rows w, w + WARPS, ... of
@@ -360,10 +177,7 @@ ln_bwd_dh_kernel(const T* __restrict__ dy, const T* __restrict__ w, long long sk
   const bool kmajor = sn == 1, bias = j0 == 0;
   float* bias_row = bias_part + (size_t)mt * n;
   float acc[4][S::NJ][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < S::NJ; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+  zero(acc);
 #pragma unroll
   for (int s = 0; s < DH_STAGES - 1; ++s) {
     if (s < nk)
@@ -386,7 +200,10 @@ ln_bwd_dh_kernel(const T* __restrict__ dy, const T* __restrict__ w, long long sk
       if (warp == 0 && kt > 0)
         dh_bias_out<T>(bias_row, red + ((kt - 1) & 1) * DH_WARPS * BK, (kt - 1) * BK, n, lane);
     }
-    dh_stage(acc, As, As + S::A_ELEMS, kmajor, wm, wn, lane);
+    if (kmajor)  // one copy of the loop per w layout: constant pitches
+      warp_tile<S::NJ, false, BK>(acc, As, S::LDA, As + S::A_ELEMS, S::LDK, false, wm, wn, lane);
+    else
+      warp_tile<S::NJ, false, BK>(acc, As, S::LDA, As + S::A_ELEMS, S::LDN, true, wm, wn, lane);
   }
   cp_async_wait<0>();
   if (bias) {  // the last stage's dbias sums
@@ -415,47 +232,6 @@ constexpr int RW_WARPS = 8;
 constexpr int RW_THREADS = 32 * RW_WARPS;
 constexpr int RW_BM = 2 * RW_WARPS;  // rows of a row-pass tile: 2 a warp
 constexpr int RW_CACHE = 3;  // 256-column chunks of a row summed in registers
-
-// 8 consecutive elements (16-byte aligned): raw, then as f32
-template <typename T>
-struct Raw8 {
-  uint4 u[sizeof(T) / 2];
-};
-template <typename T>
-__device__ __forceinline__ void load_raw(const T* p, Raw8<T>& r) {
-#pragma unroll
-  for (int q = 0; q < (int)sizeof(T) / 2; ++q) r.u[q] = reinterpret_cast<const uint4*>(p)[q];
-}
-__device__ __forceinline__ void unpack(const Raw8<__nv_bfloat16>& r, float (&v)[8]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r.u[0]);
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const float2 f = __bfloat1622float2(h[q]);
-    v[2 * q] = f.x, v[2 * q + 1] = f.y;
-  }
-}
-__device__ __forceinline__ void unpack(const Raw8<float>& r, float (&v)[8]) {
-  const float* f = reinterpret_cast<const float*>(&r.u[0]);
-#pragma unroll
-  for (int q = 0; q < 8; ++q) v[q] = f[q];
-}
-template <typename T>
-__device__ __forceinline__ void load8(const T* p, float (&v)[8]) {
-  Raw8<T> r;
-  load_raw(p, r);
-  unpack(r, v);
-}
-__device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[8]) {
-  uint4 u;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-  for (int q = 0; q < 4; ++q) h[q] = __floats2bfloat162_rn(v[2 * q], v[2 * q + 1]);
-  *reinterpret_cast<uint4*>(p) = u;
-}
-__device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
-  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
-}
 
 __device__ __forceinline__ void warp_sum2(float (&v)[2]) {
 #pragma unroll
@@ -664,131 +440,154 @@ reduce2_kernel(const float* __restrict__ ws0, float* __restrict__ out0, int G0, 
   }
 }
 
+
 // ---------------------------------------------------------------------------
 // dw
 // ---------------------------------------------------------------------------
 
-constexpr int DW_WARPS = 4;
-constexpr int DW_THREADS = 32 * DW_WARPS;
-constexpr int DW_BM = 64;  // rows of d in a dw block (16 per warp)
-constexpr int DW_BN = 64;  // columns of n
-constexpr int DW_BK = 64;  // rows of x / dy per staged chunk
-
-// grid (n tiles, d tiles, G): CTA (j, i, c) accumulates the [64 x 64] block
-// (i, j) of dw over the row chunks c, c+G, ... into ws[c][d][n]. Both
-// operands are staged as the rows lie (h = the normalised x chunk [BK][BM],
-// the dy chunk [BK][BN]) and the fragment loads read them transposed: the row
-// index is the contraction, A(m = d, k = row) = h^T, B(k = row, n) = dy.
+// The ring of the dw product, for output tiles of 128 columns of d x BN = 4
+// WN columns of n (WN = 64: 128 x 256 timed faster than 128 x 128 at
+// gpt_small's shapes on an H100, PERF.md). One CTA an SM: the ring takes
+// ~155 KB of shared memory (the wrapper's TILE_CTAS_PER_SM). A stage holds
+// BK rows (128 bytes of a row of the tile's operands): x's [BK][LDX] (d
+// contiguous; rewritten as h in place), dy's [BK][LDD] (n contiguous), then
+// the rows' mean [BK] and rstd [BK] f32.
 template <typename T>
-__global__ void __launch_bounds__(DW_THREADS)
+struct Dw {
+  static constexpr int WN = 64;
+  static constexpr int V = 16 / sizeof(T);
+  static constexpr int BN = 4 * WN;
+  static constexpr int BK = tile::STAGE_BYTES / sizeof(T);
+  static constexpr int NJ = WN / 8;
+  static constexpr int LDX = pad_ld<T>(BM), LDD = pad_ld<T>(BN);
+  static constexpr int X_ELEMS = BK * LDX, D_ELEMS = BK * LDD;
+  static constexpr size_t STAGE = sizeof(T) * (X_ELEMS + D_ELEMS) + sizeof(float) * 2 * BK;
+  static constexpr size_t SMEM = STAGE * STAGES;
+  static_assert(STAGE % 16 == 0, "stages stay 16-byte aligned");
+};
+
+template <typename T>
+__device__ __forceinline__ void dw_load(unsigned char* st, const T* __restrict__ x,
+                                        const T* __restrict__ dy, const float* __restrict__ mean,
+                                        const float* __restrict__ rstd, int M, int d, int n,
+                                        int r0, int m0, int n0) {
+  using S = Dw<T>;
+  constexpr int V = S::V, BK = S::BK;
+  T* Xs = reinterpret_cast<T*>(st);
+  float* ms = reinterpret_cast<float*>(Xs + S::X_ELEMS + S::D_ELEMS);
+  copy_tile<T, BK * BM / V, BM / V>(Xs, S::LDX, x, d, r0, M, m0, d);
+  copy_tile<T, BK * S::BN / V, S::BN / V>(Xs + S::X_ELEMS, S::LDD, dy, n, r0, M, n0, n);
+  if (threadIdx.x < 2 * BK) {  // mean, then rstd, one row a thread
+    const int r = threadIdx.x % BK;
+    const bool ok = r0 + r < M;
+    cp_async4(ms + threadIdx.x, (threadIdx.x < BK ? mean : rstd) + (ok ? r0 + r : 0), ok);
+  }
+}
+
+// grid (d tiles x n tiles, G), d fastest: CTA (tile, c) sums the tile's
+// block of h^T @ dy over the row blocks of chunk c (BK rows each; chunk c
+// takes blocks [c*nb/G, (c+1)*nb/G) in order) into ws[c][d][n]. Rows past M
+// stage as zeros (h = beta there, dy = 0). Warp w holds rows wm.. of d and
+// columns wn.. of n; thread i rewrites the x chunks i, i + THREADS, ... of
+// each stage, all in the same columns of d, whose gamma and beta it keeps.
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1)
 ln_bwd_dw_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
                  const float* __restrict__ beta, const T* __restrict__ dy,
                  const float* __restrict__ mean, const float* __restrict__ rstd,
                  float* __restrict__ ws, int M, int d, int n, int G) {
-  constexpr int V = 16 / sizeof(T);
-  constexpr int LD = pad_ld<T>(DW_BM);  // DW_BM == DW_BN: one pitch for both tiles
+  using S = Dw<T>;
+  constexpr int V = S::V, BK = S::BK, P = BM / V;
+  static_assert(THREADS % P == 0, "a thread's chunks share their columns");
   extern __shared__ __align__(16) unsigned char smem[];
-  T* Hs = reinterpret_cast<T*>(smem);  // [BK][LD] h rows
-  T* Ds = Hs + DW_BK * LD;             // [BK][LD] dy rows
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int n0 = blockIdx.x * DW_BN, m0 = blockIdx.y * DW_BM;
-  const int rtiles = (M + DW_BK - 1) / DW_BK;
-  float acc[NT][4];
-  zero(acc);
-  for (int rt = blockIdx.z; rt < rtiles; rt += G) {
-    const int r0 = rt * DW_BK;
-    __syncthreads();
-    // h = (x - mean) * rstd * gamma + beta, rounded to T
-    for (int i = tid; i < DW_BK * (DW_BM / V); i += DW_THREADS) {
-      const int r = i / (DW_BM / V), c = (i % (DW_BM / V)) * V;
-      const int gr = r0 + r, gc = m0 + c;
-      uint4 out = make_uint4(0u, 0u, 0u, 0u);
-      if (gr < M && gc < d) {
-        const uint4 v = *reinterpret_cast<const uint4*>(x + (size_t)gr * d + gc);
-        const T* s = reinterpret_cast<const T*>(&v);
-        T* e = reinterpret_cast<T*>(&out);
-        const float mu = mean[gr], rs = rstd[gr];
+  const int dtiles = (d + BM - 1) / BM;
+  const int m0 = blockIdx.x % dtiles * BM, n0 = blockIdx.x / dtiles * S::BN;
+  const int c = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = (warp & 1) * 64, wn = (warp >> 1) * S::WN;
+  const int nb = (M + BK - 1) / BK;
+  const int b0 = (int)((long long)nb * c / G), nk = (int)((long long)nb * (c + 1) / G) - b0;
+  // this thread's chunks: columns col.. of the tile, rows row0 + u * THREADS / P
+  const int col = threadIdx.x % P * V, row0 = threadIdx.x / P;
+  float gm[V], bt[V];
 #pragma unroll
-        for (int q = 0; q < V; ++q)
-          e[q] = from_f32<T>((to_f32(s[q]) - mu) * rs * gamma[gc + q] + beta[gc + q]);
-      }
-      *reinterpret_cast<uint4*>(Hs + r * LD + c) = out;
-    }
-    for (int i = tid; i < DW_BK * (DW_BN / V); i += DW_THREADS) {
-      const int r = i / (DW_BN / V), c = (i % (DW_BN / V)) * V;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (r0 + r < M && n0 + c < n)
-        v = *reinterpret_cast<const uint4*>(dy + (size_t)(r0 + r) * n + n0 + c);
-      *reinterpret_cast<uint4*>(Ds + r * LD + c) = v;
-    }
-    __syncthreads();
-    warp_mma(acc, Hs + warp * 16, 1, LD, Ds, 1, LD, DW_BK, lane);
+  for (int q = 0; q < V; ++q) {
+    const bool ok = m0 + col + q < d;
+    gm[q] = ok ? gamma[m0 + col + q] : 0.f;
+    bt[q] = ok ? beta[m0 + col + q] : 0.f;
   }
-  const int g = lane >> 2, t = lane & 3;
-  float* part = ws + (size_t)blockIdx.z * d * n;
+  float acc[4][S::NJ][4];
+  zero(acc);
 #pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    const int c = n0 + 8 * j + 2 * t;
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk)
+      dw_load<T>(smem + s * S::STAGE, x, dy, mean, rstd, M, d, n, (b0 + s) * BK, m0, n0);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<STAGES - 2>();  // stage kt has landed (this thread's copies)
+    __syncthreads();              // ... everyone's; stage kt - 1 is consumed
+    const int nx = kt + STAGES - 1;
+    if (nx < nk)
+      dw_load<T>(smem + nx % STAGES * S::STAGE, x, dy, mean, rstd, M, d, n,
+                     (b0 + nx) * BK, m0, n0);
+    cp_async_commit();
+    T* Xs = reinterpret_cast<T*>(smem + kt % STAGES * S::STAGE);
+    const float* ms = reinterpret_cast<const float*>(Xs + S::X_ELEMS + S::D_ELEMS);
+#pragma unroll
+    for (int u = 0; u < BK * P / THREADS; ++u) {
+      const int r = row0 + u * (THREADS / P);
+      ln_chunk(Xs + r * S::LDX + col, ms[r], ms[BK + r], gm, bt);
+    }
+    __syncthreads();  // h is whole
+    warp_tile<S::NJ, true, BK>(acc, Xs, S::LDX, Xs + S::X_ELEMS, S::LDD, true, wm, wn, lane);
+  }
+  cp_async_wait<0>();
+  const int g = lane >> 2, t = lane & 3;
+  float* part = ws + (size_t)c * d * n;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int m = m0 + warp * 16 + g + 8 * h;
-      if (m < d && c < n)
-        *reinterpret_cast<float2*>(part + (size_t)m * n + c) =
-            make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
+      const int m = m0 + wm + 16 * i + g + 8 * h;
+      if (m >= d) continue;
+#pragma unroll
+      for (int j = 0; j < S::NJ; ++j) {
+        const int col_n = n0 + wn + 8 * j + 2 * t;
+        if (col_n < n)
+          *reinterpret_cast<float2*>(part + (size_t)m * n + col_n) =
+              make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+      }
     }
-  }
 }
 
-// out[i] = sum over g < G, in order, of ws[g*len + i], cast to TOut
+// out[i] = sum over g < G, in order, of ws[g*len + i], cast to TOut; four
+// outputs a thread (len is a multiple of 4: n is one of 8)
 template <typename TOut>
-__global__ void reduce_kernel(const float* __restrict__ ws, TOut* __restrict__ out, int G,
-                              long long len) {
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < len;
+__global__ void __launch_bounds__(256)
+reduce_kernel(const float4* __restrict__ ws, TOut* __restrict__ out, int G, long long len4) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < len4;
        i += (long long)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int g = 0; g < G; ++g) s += ws[(size_t)g * len + i];
-    out[i] = from_f32<TOut>(s);
+    float4 s = ws[i];
+    for (int g = 1; g < G; ++g) {
+      const float4 v = ws[(size_t)g * len4 + i];
+      s.x += v.x, s.y += v.y, s.z += v.z, s.w += v.w;
+    }
+    out[4 * i] = from_f32<TOut>(s.x), out[4 * i + 1] = from_f32<TOut>(s.y);
+    out[4 * i + 2] = from_f32<TOut>(s.z), out[4 * i + 3] = from_f32<TOut>(s.w);
   }
-}
-
-template <typename TOut>
-int reduce(const float* ws, TOut* out, int G, long long len, cudaStream_t st) {
-  const long long blocks = (len + 255) / 256;
-  reduce_kernel<TOut><<<(int)(blocks < 4096 ? blocks : 4096), 256, 0, st>>>(ws, out, G, len);
-  return (int)cudaGetLastError();
-}
-
-bool aligned(const void* p) { return reinterpret_cast<size_t>(p) % 16 == 0; }
-
-// w [K, N] through strides (sk, sn): one unit stride, the other and the
-// extent along the unit one multiples of the 16-byte vector
-template <typename T>
-bool w_ok(const void* w, long long sk, long long sn, int K, int N) {
-  constexpr int V = 16 / sizeof(T);
-  if (!aligned(w)) return false;
-  if (sk == 1) return sn % V == 0 && K % V == 0;
-  if (sn == 1) return sk % V == 0 && N % V == 0;
-  return false;
 }
 
 bool shapes_ok(int M, int d, int n, int G) {
   return M >= 1 && d >= 8 && n >= 8 && d % 8 == 0 && n % 8 == 0 && G >= 1 && G <= 65535;
 }
 
-template <typename K>
-int set_smem(K kern, size_t smem) {
-  if (smem > 48 * 1024)
-    return (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                     (int)smem);
-  return 0;
-}
-
 template <typename T>
 int launch_dx(const void* x, const void* gamma, const void* w, long long sk, long long sn,
               const void* dy, void* dx, void* mean, void* rstd, void* ws, void* out, int M,
               int d, int n, int G, float eps, void* stream) {
-  if (!shapes_ok(M, d, n, G) || !w_ok<T>(w, sk, sn, d, n) || !aligned(x) || !aligned(dy) ||
-      !aligned(dx))
+  if (!shapes_ok(M, d, n, G) || !w_ok<T>(w, sk, sn, d, n) || !aligned16(x) ||
+      !aligned16(dy) || !aligned16(dx))
     return (int)cudaErrorInvalidValue;
   const long long mtiles = (M + DH_BM - 1) / DH_BM, tiles = mtiles * ((d + DH_BN - 1) / DH_BN);
   if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
@@ -816,21 +615,34 @@ int launch_dx(const void* x, const void* gamma, const void* w, long long sk, lon
 }
 
 template <typename T>
+int launch_dw_tiles(const void* x, const void* gamma, const void* beta, const void* dy,
+                    const void* mean, const void* rstd, void* ws, int M, int d, int n, int G,
+                    cudaStream_t st) {
+  using S = Dw<T>;
+  const long long tiles = (long long)((d + BM - 1) / BM) * ((n + S::BN - 1) / S::BN);
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  auto kern = ln_bwd_dw_kernel<T>;
+  int e = set_smem(kern, S::SMEM);
+  if (e) return e;
+  kern<<<dim3((unsigned)tiles, G), THREADS, S::SMEM, st>>>(
+      (const T*)x, (const float*)gamma, (const float*)beta, (const T*)dy, (const float*)mean,
+      (const float*)rstd, (float*)ws, M, d, n, G);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
 int launch_dw(const void* x, const void* gamma, const void* beta, const void* dy,
               const void* mean, const void* rstd, void* ws, void* dw, int M, int d, int n, int G,
               void* stream) {
-  if (!shapes_ok(M, d, n, G) || !aligned(x) || !aligned(dy)) return (int)cudaErrorInvalidValue;
+  if (!shapes_ok(M, d, n, G) || !aligned16(x) || !aligned16(dy) || !aligned16(ws))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = sizeof(T) * 2 * DW_BK * pad_ld<T>(DW_BM);
-  auto kern = ln_bwd_dw_kernel<T>;
-  int e = set_smem(kern, smem);
+  int e = launch_dw_tiles<T>(x, gamma, beta, dy, mean, rstd, ws, M, d, n, G, st);
   if (e) return e;
-  kern<<<dim3((n + DW_BN - 1) / DW_BN, (d + DW_BM - 1) / DW_BM, G), DW_THREADS, smem, st>>>(
-      (const T*)x, (const float*)gamma, (const float*)beta, (const T*)dy, (const float*)mean,
-      (const float*)rstd, (float*)ws, M, d, n, G);
-  e = (int)cudaGetLastError();
-  if (e) return e;
-  return reduce<T>((const float*)ws, (T*)dw, G, (long long)d * n, st);
+  const long long len4 = (long long)d * n / 4, blocks = (len4 + 255) / 256;
+  reduce_kernel<T><<<(int)(blocks < 4096 ? blocks : 4096), 256, 0, st>>>(
+      (const float4*)ws, (T*)dw, G, len4);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace

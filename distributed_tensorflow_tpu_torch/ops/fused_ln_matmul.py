@@ -1,7 +1,7 @@
 """Fused LayerNorm + matmul (+bias) — the hand-written CUDA kernels
 (``csrc/ln_matmul.cu``: the forward; ``csrc/ln_matmul_bwd.cu``: the dx and
-dw backward), their plain PyTorch versions and the
-``torch.autograd.Function`` that wires them.
+dw backward; both on ``csrc/tile_mma.cuh``), their plain PyTorch versions
+and the ``torch.autograd.Function`` that wires them.
 
 Counterpart of ``distributed_tensorflow_tpu/ops/fused_ln_matmul.py``
 (``_fwd_kernel``, ``_bwd_dx_kernel``, ``_bwd_dw_kernel`` behind
@@ -21,10 +21,14 @@ The kernel wrappers ``ln_matmul`` (forward), ``ln_matmul_bwd_dx`` and
 ``ln_matmul_bwd_dw`` launch their kernels for CUDA tensors (built with
 nvcc on first use) and raise on what they do not take; for CPU tensors —
 and only for those — they compute the plain version. Each counts the calls
-that launch in ``.launches`` (dx: the product dh = dy @ w^T into an f32
-workspace, the row-local LayerNorm pass and the partial sums' reduction,
-counted as one). The backward kernels take x, w and dy in one dtype (f32
-or bf16), d and n multiples of 8.
+that launch in ``.launches``, several kernels behind one call counted as
+one: the forward at ``M >= LN_TILED_MIN_M`` (``fwd_plan``: the rows'
+statistics, then a tiled product; ``ln_matmul.tiled_launches`` counts
+these calls alone), dx (the product dh = dy @ w^T into an f32 workspace,
+the row-local LayerNorm pass and the partial sums' reduction), dw (the
+tiled product split over M into partials, then their reduction;
+``dw_plan``). The backward kernels and the tiled forward take x, w and dy
+in one dtype (f32 or bf16), d and n multiples of 8.
 
 ``ln_matmul`` routes through ``LnMatmul`` whenever autograd records the
 call; its backward follows ``_policy.resolve_bwd_impl``: ``"xla"`` is the
@@ -39,9 +43,9 @@ import torch
 from . import _build
 from ._policy import mm_exact, mm_library, resolve_bwd_impl
 
-#: shared memory a CTA may use (227 KB on Hopper); the forward's needs 16
-#: normalised rows of width d (padded to 128) plus one 128x64 w tile and
-#: the f32 epilogue tile
+#: shared memory a CTA may use (227 KB on Hopper); the serving forward's
+#: needs 16 normalised rows of width d (padded to 128) plus one 128x64 w
+#: tile and the f32 epilogue tile
 _SMEM_LIMIT = 232448
 
 
@@ -70,10 +74,23 @@ DH_TILE = (128, 128)
 DX_ROW_TILE = 16
 #: row-pass CTAs the dx plan aims to keep resident on one SM
 DX_ROW_CTAS_PER_SM = 2
-#: tile edge of the dw kernel (d rows, n columns, rows of x per chunk)
-DW_TILE = 64
-#: dw CTAs the grid aims to keep resident on one SM
-DW_CTAS_PER_SM = 8
+#: the output tile of the dw and training-forward products (``csrc/``
+#: ``ln_matmul.cu`` Fw, ``ln_matmul_bwd.cu`` Dw: 8 warps of 64 x 64 on
+#: ``tile_mma.cuh``; 128 x 256 timed faster than 128 x 128 at gpt_small's
+#: shapes on an H100, PERF.md), and the CTAs an SM holds of either (their
+#: 3-stage rings take 155-167 KB of shared memory)
+TILE_ROWS, TILE_COLS = 128, 256
+TILE_CTAS_PER_SM = 1
+#: dw: rows of x and dy in one bf16 stage (f32 stages hold 32), the
+#: granule of the split over M, and the most partial copies of dw
+DW_STAGE_ROWS = 64
+DW_MAX_G = 8
+#: the forward takes the tiled path (row statistics, then a 2-D tiled
+#: product) from this many rows up, and the row-tile kernel below it:
+#: every serving call (decode slots, one prefill chunk, a verify step). On
+#: an H100 at d=768, n=3072 the tiled pair is slower at M=128 (0.041 vs
+#: 0.023 ms) and faster at M=256 (0.041 vs 0.043; PERF.md)
+LN_TILED_MIN_M = 256
 
 _SMS: dict = {}
 
@@ -81,9 +98,9 @@ _SMS: dict = {}
 def _sms(dev) -> int:
     """The device's SM count, read once per device. The dx row pass takes
     at most ``DX_ROW_CTAS_PER_SM`` CTAs per SM (``dx_plan``) and the dw
-    grid ``DW_CTAS_PER_SM`` per SM; the partial sums' order depends on the
-    card and the shapes alone, so a step stays bitwise repeatable on one
-    card."""
+    split over M fills whole waves of CTA slots (``dw_plan``); the partial
+    sums' order depends on the card and the shapes alone, so a step stays
+    bitwise repeatable on one card."""
     if dev not in _SMS:
         _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
     return _SMS[dev]
@@ -147,12 +164,18 @@ _ENTRY = {
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
+def fwd_plan(M: int) -> str:
+    """The forward kernel for M rows: below ``LN_TILED_MIN_M`` the row-tile
+    ``ln_matmul_kernel``; from there up ``ln_matmul_tiled_kernel`` (after
+    ``ln_stats_kernel`` has written the rows' mean and rstd)."""
+    return "ln_matmul_kernel" if M < LN_TILED_MIN_M else "ln_matmul_tiled_kernel"
+
+
 def _fwd(x, gamma, beta, w, bias, eps, out_dtype):
-    """The forward kernel's launch (CPU tensors: the plain version)."""
+    """The forward kernels' launch (CPU tensors: the plain version)."""
     if not _build.on_cuda(x, "ln_matmul"):
         return ln_matmul_plain(x, gamma, beta, w, bias, eps=eps, out_dtype=out_dtype)
-    entry = _ENTRY.get((x.dtype, out_dtype))
-    if entry is None:
+    if (x.dtype, out_dtype) not in _ENTRY:
         raise TypeError(f"ln_matmul kernel takes (x, out) dtypes "
                         f"{sorted(_ENTRY, key=str)}, got ({x.dtype}, {out_dtype})")
     if x.dim() != 2 or w.dim() != 2 or w.shape[0] != x.shape[1]:
@@ -179,18 +202,53 @@ def _fwd(x, gamma, beta, w, bias, eps, out_dtype):
     if sk != 1 and sn != 1:
         raise ValueError(f"w [d, n] needs a unit stride in one dim, got "
                          f"strides {w.stride()}")
+    if fwd_plan(M) == "ln_matmul_tiled_kernel":
+        return _launch_fwd_tiled(x, gamma, beta, w, bias, eps, out_dtype)
+    return _launch_fwd_rows(x, gamma, beta, w, bias, eps, out_dtype)
+
+
+def _launch_fwd_rows(x, gamma, beta, w, bias, eps, out_dtype):
+    """the row-tile forward on validated CUDA tensors (``bias`` given)."""
+    M, d = x.shape
+    n = w.shape[1]
     smem = x.element_size() * (16 * (-(-d // 128) * 128 + 8) + 128 * 72) + 4 * 16 * 64
     if smem > _SMEM_LIMIT:
         raise ValueError(f"d={d} needs {smem} bytes of shared memory per CTA "
                          f"(limit {_SMEM_LIMIT})")
     y = torch.empty(M, n, dtype=out_dtype, device=x.device)
     lib = _build.load("ln_matmul")
-    rc = getattr(lib, entry)(
+    sk, sn = w.stride()
+    rc = getattr(lib, _ENTRY[(x.dtype, out_dtype)])(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w.data_ptr(),
         bias.data_ptr(), y.data_ptr(), M, d, n, sk, sn, float(eps),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, rc, "ln_matmul")
     ln_matmul.launches += 1
+    return y
+
+
+def _launch_fwd_tiled(x, gamma, beta, w, bias, eps, out_dtype):
+    """The tiled forward (``fwd_plan``'s kernel pair) on validated CUDA
+    tensors (``bias`` given); raises on what it does not take, as the
+    backward does."""
+    M, d = x.shape
+    n = w.shape[1]
+    if d % 8 or n % 8:
+        raise ValueError(f"ln_matmul: from M={LN_TILED_MIN_M} rows the tiled kernels take d, "
+                         f"n multiples of 8, got M={M} d={d} n={n}")
+    _rows("ln_matmul", "x", x, x.dtype, (M, d))
+    _w_layout("ln_matmul", w)
+    sk, sn = w.stride()
+    stats = torch.empty(2 * M, dtype=torch.float32, device=x.device)
+    y = torch.empty(M, n, dtype=out_dtype, device=x.device)
+    lib = _build.load("ln_matmul")
+    rc = getattr(lib, _ENTRY[(x.dtype, out_dtype)].replace("ln_matmul", "ln_matmul_tiled"))(
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w.data_ptr(), bias.data_ptr(),
+        y.data_ptr(), stats.data_ptr(), M, d, n, sk, sn, float(eps),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, rc, "ln_matmul")
+    ln_matmul.launches += 1
+    ln_matmul.tiled_launches += 1
     return y
 
 
@@ -211,12 +269,40 @@ def dx_plan(M: int, d: int, n: int, sms: int) -> dict:
             "ws": sum(sizes.values())}
 
 
+def dw_plan(M: int, d: int, n: int, sms: int) -> dict:
+    """The dw wrapper's launch plan, from the shapes and the SM count alone.
+
+    The product's output ``tile`` is (``TILE_ROWS`` columns of d,
+    ``TILE_COLS`` of n). The rows are dealt to ``G`` chunks, one CTA per
+    (tile, chunk), each writing an f32 partial copy of dw. G fills whole
+    waves of the card's CTA slots: the least ceil(G * tiles / slots) / G
+    (the waves each chunk's share of the rows costs) over G up to
+    ``DW_MAX_G`` and one chunk per ``DW_STAGE_ROWS`` rows, the smaller G on
+    a tie."""
+    tiles = -(-d // TILE_ROWS) * -(-n // TILE_COLS)
+    slots = TILE_CTAS_PER_SM * sms
+    cands = range(1, max(1, min(DW_MAX_G, -(-M // DW_STAGE_ROWS))) + 1)
+    G = min(cands, key=lambda g: (-(-g * tiles // slots) / g, g))
+    return {"tile": (TILE_ROWS, TILE_COLS), "G": G}
+
+
 def _rows(what, name, t, dtype, shape) -> None:
     if t.dtype != dtype or tuple(t.shape) != tuple(shape):
         raise ValueError(f"{what}: {name} must be {dtype} {tuple(shape)}, got {t.dtype} "
                          f"{tuple(t.shape)}")
     if not t.is_contiguous() or t.data_ptr() % 16:
         raise ValueError(f"{what}: {name} must be contiguous with a 16-byte aligned base")
+
+
+def _w_layout(what, w) -> None:
+    """w [d, n] as the tiled kernels stage it: a unit stride in one dim,
+    the other a multiple of the 16-byte vector, a 16-byte aligned base."""
+    sk, sn = w.stride()
+    vec = 16 // w.element_size()
+    if not ((sk == 1 and sn % vec == 0) or (sn == 1 and sk % vec == 0)) or w.data_ptr() % 16:
+        raise ValueError(f"{what}: w [d, n] needs a unit stride in one dim, the other a "
+                         f"multiple of {vec}, and a 16-byte aligned base; got strides "
+                         f"{w.stride()}")
 
 
 def _check_bwd(what, x, dy, w, gamma, beta):
@@ -243,13 +329,7 @@ def _check_bwd(what, x, dy, w, gamma, beta):
         if tuple(w.shape) != (d, n) or w.dtype != x.dtype:
             raise TypeError(f"{what}: w must be {x.dtype} [{d}, {n}], got {w.dtype} "
                             f"{tuple(w.shape)}")
-        sk, sn = w.stride()
-        vec = 16 // x.element_size()
-        if not ((sk == 1 and sn % vec == 0) or (sn == 1 and sk % vec == 0)) \
-                or w.data_ptr() % 16:
-            raise ValueError(f"{what}: w [d, n] needs a unit stride in one dim, the other a "
-                             f"multiple of {vec}, and a 16-byte aligned base; got strides "
-                             f"{w.stride()}")
+        _w_layout(what, w)
     for name, t in (("dy", dy), ("w", w), ("gamma", gamma), ("beta", beta)):
         if t is not None and t.device != x.device:
             raise ValueError(f"{what}: {name} is on {t.device}, x on {x.device}")
@@ -282,31 +362,39 @@ def ln_matmul_bwd_dx(x, gamma, w, dy, *, eps: float = 1e-6):
     return dx, out[:d], out[d:2 * d], out[2 * d:], stats[0], stats[1]
 
 
+def _launch_dw(x, gamma, beta, dy, mean, rstd, G):
+    """The dw product (split over M into G chunks) and its reduction on
+    validated CUDA tensors."""
+    M, d = x.shape
+    n = dy.shape[1]
+    ws = torch.empty(G * d * n, dtype=torch.float32, device=x.device)
+    dw = torch.empty(d, n, dtype=x.dtype, device=x.device)
+    lib = _build.load("ln_matmul_bwd")
+    rc = getattr(lib, f"ln_bwd_dw_{_SUFFIX[x.dtype]}")(
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), dy.data_ptr(), mean.data_ptr(),
+        rstd.data_ptr(), ws.data_ptr(), dw.data_ptr(), M, d, n, G,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, rc, "ln_matmul_bwd_dw")
+    return dw
+
+
 def ln_matmul_bwd_dw(x, gamma, beta, dy, mean, rstd):
     """Backward, part 2: ``dw = h^T @ dy`` [d, n], summed in f32 and cast
     to x's dtype (the kernels' one dtype, w's), with h = (x - mean) * rstd
     * gamma + beta from the rows' ``mean, rstd`` that ``ln_matmul_bwd_dx``
     returns (the statistics JAX's kernel recomputes from x: the same
-    function). CUDA tensors: one launch; CPU tensors: the plain
-    backward's."""
+    function). CUDA tensors: the tiled product split over M into f32
+    partials and their reduction (``dw_plan``), counted as one launch; CPU
+    tensors: the plain backward's."""
     if not _build.on_cuda(x, "ln_matmul_bwd_dw"):
         return _dw_math(x, gamma, beta, dy, mean, rstd, mm_exact).to(x.dtype)
-    M, d, n, sfx = _check_bwd("ln_matmul_bwd_dw", x, dy, None, gamma, beta)
+    M, d, n, _ = _check_bwd("ln_matmul_bwd_dw", x, dy, None, gamma, beta)
     dev = x.device
     for name, t in (("mean", mean), ("rstd", rstd)):
         if t.dtype != torch.float32 or tuple(t.shape) != (M,) or not t.is_contiguous() \
                 or t.device != dev:
             raise ValueError(f"ln_matmul_bwd_dw: {name} must be contiguous f32 [{M}] on {dev}")
-    tiles = -(-d // DW_TILE) * -(-n // DW_TILE)
-    G = max(1, min(-(-M // DW_TILE), -(-DW_CTAS_PER_SM * _sms(dev) // tiles)))
-    ws = torch.empty(G * d * n, dtype=torch.float32, device=dev)
-    dw = torch.empty(d, n, dtype=x.dtype, device=dev)
-    lib = _build.load("ln_matmul_bwd")
-    rc = getattr(lib, f"ln_bwd_dw_{sfx}")(
-        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), dy.data_ptr(), mean.data_ptr(),
-        rstd.data_ptr(), ws.data_ptr(), dw.data_ptr(), M, d, n, G,
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, rc, "ln_matmul_bwd_dw")
+    dw = _launch_dw(x, gamma, beta, dy, mean, rstd, dw_plan(M, d, n, _sms(dev))["G"])
     ln_matmul_bwd_dw.launches += 1
     return dw
 
@@ -353,7 +441,10 @@ def ln_matmul(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     ``out_dtype`` (default x.dtype; bf16 input may also give f32). When
     autograd records the call it runs through ``LnMatmul``, whose backward
     is ``bwd_impl``'s (``_policy.resolve_bwd_impl``); ``ln_matmul.launches``
-    counts forward kernel launches."""
+    counts forward kernel launches (``fwd_plan``: the row-tile kernel
+    below ``LN_TILED_MIN_M`` rows, the tiled pair from there up, which
+    ``ln_matmul.tiled_launches`` counts alone; the tiled pair raises
+    unless d and n are multiples of 8)."""
     out_dtype = out_dtype or x.dtype
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, gamma, beta, w, bias)):
@@ -363,6 +454,7 @@ def ln_matmul(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 
 
 ln_matmul.launches = ln_matmul_bwd_dx.launches = ln_matmul_bwd_dw.launches = 0
+ln_matmul.tiled_launches = 0
 
 #: the three kernel wrappers, by the name chip_smoke.py and PERF.md use
 KERNELS = {"ln_matmul": ln_matmul, "ln_matmul_bwd_dx": ln_matmul_bwd_dx,

@@ -1,0 +1,161 @@
+"""The port's kernel build (ops/_build.py) on the CPU: no nvcc is needed to
+name a library. A library's file name holds a hash of its source, of every
+header in ``csrc/`` and of nvcc's flags, so an edited header never loads a
+library built before the edit. And every source parses as C++ (g++ with a
+shim of the CUDA built-ins), which finds an undefined name before a card
+does."""
+
+import glob
+import os
+import re
+import shutil
+import subprocess
+
+import pytest
+
+from distributed_tensorflow_tpu_torch.ops import _build
+
+
+@pytest.fixture
+def csrc(tmp_path, monkeypatch):
+    src = tmp_path / "csrc"
+    src.mkdir()
+    (src / "a.cu").write_text('#include "tile.cuh"\nint a() { return 1; }\n')
+    (src / "b.cu").write_text("int b() { return 2; }\n")
+    (src / "tile.cuh").write_text("#pragma once\n")
+    monkeypatch.setattr(_build, "CSRC", str(src))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    return src
+
+
+def test_library_path_follows_every_header_and_the_source(csrc):
+    before = _build._paths("a")
+    assert _build._paths("a") == before  # a pure function of the bytes
+    src, so, log = before
+    assert src == os.path.join(str(csrc), "a.cu")
+    assert os.path.basename(so).startswith("liba-") and so.endswith(".so")
+    assert log == so[:-3] + ".log"
+    (csrc / "tile.cuh").write_text("#pragma once\n// edited\n")
+    after = _build._paths("a")
+    assert after[1] != before[1]
+    (csrc / "extra.cuh").write_text("// a new header\n")
+    assert _build._paths("a")[1] != after[1]
+    (csrc / "a.cu").write_text('#include "tile.cuh"\nint a() { return 3; }\n')
+    assert _build._paths("a")[1] not in (before[1], after[1])
+
+
+def test_library_path_follows_the_flags_and_differs_by_source(csrc, monkeypatch):
+    a, b = _build._paths("a")[1], _build._paths("b")[1]
+    assert a != b
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-lineinfo",))
+    assert _build._paths("a")[1] != a
+
+
+def test_the_port_sources_name_their_libraries():
+    """Every library of ``SIGNATURES`` has its source in the real ``csrc``,
+    and the LN+matmul sources share ``tile_mma.cuh``."""
+    for name in _build.SIGNATURES:
+        assert os.path.exists(_build._paths(name)[0]), name
+    for name in ("ln_matmul", "ln_matmul_bwd"):
+        with open(_build._paths(name)[0]) as f:
+            assert '#include "tile_mma.cuh"' in f.read()
+
+
+#: Just enough of CUDA for g++ to parse the port's sources as C++: the
+#: execution-space keywords vanish, built-ins are declarations, inline PTX
+#: stays an asm statement g++ does not assemble under -fsyntax-only.
+_SHIM = r"""
+#pragma once
+#include <cmath>
+#include <cstddef>
+#include <cstdint>
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __shared__
+#define __launch_bounds__(...)
+#define __align__(n)
+struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1)
+    : x(a), y(b), z(c) {} };
+struct uint3_ { unsigned x, y, z; };
+extern uint3_ threadIdx, blockIdx, blockDim, gridDim;
+struct uint4 { unsigned x, y, z, w; };
+inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
+struct float2 { float x, y; };
+struct float4 { float x, y, z, w; };
+inline float2 make_float2(float a, float b) { return {a, b}; }
+inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+struct __nv_bfloat16 { unsigned short v; };
+struct __nv_bfloat162 { __nv_bfloat16 x, y; };
+float __bfloat162float(__nv_bfloat16);
+__nv_bfloat16 __float2bfloat16(float);
+float2 __bfloat1622float2(__nv_bfloat162);
+__nv_bfloat162 __floats2bfloat162_rn(float, float);
+unsigned short __bfloat16_as_ushort(__nv_bfloat16);
+float __shfl_xor_sync(unsigned, float, int);
+float __shfl_sync(unsigned, float, int);
+int __shfl_sync(unsigned, int, int);
+float __shfl_down_sync(unsigned, float, int);
+unsigned __ballot_sync(unsigned, int);
+void __syncthreads();
+void __syncwarp(unsigned m = 0xffffffffu);
+size_t __cvta_generic_to_shared(const void*);
+float rsqrtf(float);
+float __expf(float);
+float exp2f(float);
+float __fdividef(float, float);
+float __int_as_float(int);
+int __float_as_int(float);
+inline int min(int a, int b) { return a < b ? a : b; }
+inline int max(int a, int b) { return a > b ? a : b; }
+inline long long min(long long a, long long b) { return a < b ? a : b; }
+inline long long max(long long a, long long b) { return a > b ? a : b; }
+inline float min(float a, float b) { return a < b ? a : b; }
+inline float max(float a, float b) { return a > b ? a : b; }
+typedef int cudaError_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+typedef struct CUstream_st* cudaStream_t;
+cudaError_t cudaGetLastError();
+const char* cudaGetErrorString(cudaError_t);
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+template <class K> cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int);
+namespace nvcuda { namespace wmma {
+struct accumulator {}; struct matrix_a {}; struct matrix_b {};
+struct row_major {}; struct col_major {};
+enum layout_t { mem_row_major, mem_col_major };
+template <class U, int M, int N, int K, class T, class L = void> struct fragment { T x[8]; };
+template <class F, class T> void fill_fragment(F&, T);
+template <class F, class T> void load_matrix_sync(F&, const T*, unsigned);
+template <class A, class B, class C> void mma_sync(C&, const A&, const B&, const C&);
+template <class F, class T> void store_matrix_sync(T*, const F&, unsigned, layout_t);
+}}
+"""
+
+
+@pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
+def test_sources_parse_as_cpp_with_every_template_instantiated(name, tmp_path):
+    """No nvcc runs here, so an undefined name or a type error in a kernel
+    would first show on the card. g++ parses each source (its kernel
+    launches ``<<<...>>>`` dropped, so the launchers instantiate every
+    kernel template) against a shim of the CUDA built-ins, with the
+    headers of ``csrc`` beside it; every C entry point of ``SIGNATURES``
+    takes as many arguments as its ctypes signature lists."""
+    gxx = shutil.which("g++")
+    assert gxx, "g++ parses the sources here"
+    for h in ("cuda_bf16.h", "cuda_runtime.h", "mma.h"):
+        (tmp_path / h).write_text('#include "cuda_shim.h"\n')
+    (tmp_path / "cuda_shim.h").write_text(_SHIM)
+    for h in glob.glob(os.path.join(_build.CSRC, "*.cuh")):
+        shutil.copy(h, tmp_path)
+    with open(_build._paths(name)[0]) as f:
+        src = re.sub(r"<<<.*?>>>", "", f.read(), flags=re.S)
+    src += "\ntemplate <class R, class... A> constexpr int dtf_arity(R (*)(A...)) " \
+           "{ return sizeof...(A); }\n"
+    src += "".join(f'static_assert(dtf_arity(&{fn}) == {len(args)}, "{fn}");\n'
+                   for fn, args in _build.SIGNATURES[name].items())
+    (tmp_path / f"{name}.cpp").write_text(src)
+    out = subprocess.run([gxx, "-std=c++17", "-fsyntax-only", "-Wno-unknown-pragmas",
+                          "-I", str(tmp_path), "-x", "c++", str(tmp_path / f"{name}.cpp")],
+                         capture_output=True, text=True)
+    assert out.returncode == 0, out.stderr[-4000:]

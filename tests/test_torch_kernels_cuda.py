@@ -17,6 +17,7 @@ import torch
 
 from distributed_tensorflow_tpu_torch.models import transformer as tfm
 from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+from distributed_tensorflow_tpu_torch.ops import fused_ln_matmul as fln
 from distributed_tensorflow_tpu_torch.ops.fused_ln_matmul import ln_matmul, ln_matmul_plain
 from distributed_tensorflow_tpu_torch.ops.paged_attention import (
     paged_attention_plain,
@@ -497,7 +498,8 @@ def test_resnet_run_on_card_is_bitwise_repeatable(card, monkeypatch):
 #: tiles and its 64-byte depth steps, nor of dw's 64 — and gpt_small's two
 #: widths
 LN_BWD_CASES = {torch.float32: [(37, 64, 96), (300, 768, 3072)],
-                torch.bfloat16: [(75, 200, 136), (200, 136, 200), (1000, 768, 768)]}
+                torch.bfloat16: [(75, 200, 136), (200, 136, 200), (1000, 768, 768),
+                                 (4100, 392, 520)]}
 
 
 def _ln_bwd_inputs(rng, card, dtype, M, d, n, linear_layout):
@@ -516,8 +518,6 @@ def test_ln_matmul_bwd_kernels_match_plain_on_card(card, dtype):
     where dw is rounded to bf16 once from sums taken in another order and
     an h on a rounding tie may fall the other way. The dw kernel reads the
     row statistics the dx kernel writes."""
-    from distributed_tensorflow_tpu_torch.ops import fused_ln_matmul as fln
-
     rng = np.random.default_rng(8)
     tol = TOLS[dtype] if dtype == torch.bfloat16 else (1e-4, 1e-4)
     red_tol = 2e-3 if dtype == torch.bfloat16 else 1e-5
@@ -550,8 +550,6 @@ def test_ln_matmul_bwd_kernels_are_deterministic(card):
     """Two calls of each backward kernel on the same bf16 inputs give
     bitwise-equal results: the sums over M are per-chunk partials reduced
     in a fixed order, no float atomics."""
-    from distributed_tensorflow_tpu_torch.ops import fused_ln_matmul as fln
-
     rng = np.random.default_rng(9)
     x, g, b, w, dy = _ln_bwd_inputs(rng, card, torch.bfloat16, 4100, 768, 3072, True)
     runs = []
@@ -564,8 +562,6 @@ def test_ln_matmul_bwd_kernels_are_deterministic(card):
 
 @pytest.mark.cuda
 def test_ln_matmul_bwd_wrappers_raise_on_what_the_kernels_do_not_take(card):
-    from distributed_tensorflow_tpu_torch.ops import fused_ln_matmul as fln
-
     g = torch.ones(64, device=card)
     st = torch.zeros(16, device=card)
     x = torch.zeros(16, 64, device=card, dtype=torch.float16)
@@ -642,3 +638,88 @@ def test_fused_ln_training_steps_on_card_match_the_cpu(card, monkeypatch):
     for (name, p), q in zip(gmodel.named_parameters(), wmodel.parameters()):
         torch.testing.assert_close(p.detach().cpu(), q.detach(), atol=1e-4, rtol=1e-4,
                                    msg=lambda m: f"{name}: {m}")
+
+
+# ---------------------------------------------------------------------------
+# the tiled LN+matmul forward at training M (row 5): statistics + product
+# ---------------------------------------------------------------------------
+
+#: (M, d, n): M at and past the tiled threshold, ragged against its 128-row
+#: tiles; d ragged against 128-byte stages; n against 128-column tiles
+LN_TILED_CASES = [(fln.LN_TILED_MIN_M, 200, 136), (1000, 136, 264), (8192 - 56, 768, 768)]
+#: the forward's three entries: (x dtype, out dtype) -> (atol, rtol). f32 —
+#: the same math in another summation order; bf16 out — both round h and y
+#: to bf16 once (one ulp); bf16 -> f32 — an h on a rounding tie may fall
+#: the other way (the kernel fuses its affine into one FMA), one bf16 ulp
+#: of one term
+LN_TILED_TOLS = {(torch.float32, torch.float32): (1e-4, 1e-4),
+                 (torch.bfloat16, torch.bfloat16): TOLS[torch.bfloat16],
+                 (torch.bfloat16, torch.float32): TOLS[torch.bfloat16]}
+
+
+def _ln_fwd_inputs(rng, card, dtype, M, d, n):
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(card)  # noqa: E731
+    w_nd = (f(n, d) / d ** 0.5).to(dtype)  # nn.Linear weight [n, d]
+    return 2 * f(M, d).to(dtype) + 0.5, 1 + 0.1 * f(d), 0.1 * f(d), w_nd, 0.1 * f(n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtypes", list(LN_TILED_TOLS), ids=["f32", "bf16", "bf16_f32"])
+def test_ln_matmul_tiled_forward_matches_plain_on_card(card, dtypes):
+    """From ``LN_TILED_MIN_M`` rows up ``ln_matmul`` launches the statistics
+    pass and the tiled product (one launch, also counted in
+    ``tiled_launches``) and matches the plain version in both w layouts;
+    one row fewer takes the row-tile kernel."""
+    dtype, out_dtype = dtypes
+    atol, rtol = LN_TILED_TOLS[dtypes]
+    rng = np.random.default_rng(11)
+    for M, d, n in LN_TILED_CASES:
+        x, g, b, w_nd, bias = _ln_fwd_inputs(rng, card, dtype, M, d, n)
+        want = ln_matmul_plain(x, g, b, w_nd.t(), bias, out_dtype=out_dtype)
+        for wv in (w_nd.t(), w_nd.t().contiguous()):  # nn.Linear view and [d, n]
+            before = (ln_matmul.launches, ln_matmul.tiled_launches)
+            got = ln_matmul(x, g, b, wv, bias, out_dtype=out_dtype)
+            torch.cuda.synchronize()
+            assert (ln_matmul.launches, ln_matmul.tiled_launches) == (before[0] + 1,
+                                                                      before[1] + 1)
+            assert got.dtype == out_dtype and got.shape == (M, n)
+            torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol,
+                                       msg=lambda m: f"{(M, d, n, wv.stride())}: {m}")
+    x, g, b, w_nd, bias = _ln_fwd_inputs(rng, card, dtype, fln.LN_TILED_MIN_M - 1, 136, 264)
+    before = ln_matmul.tiled_launches
+    got = ln_matmul(x, g, b, w_nd.t(), bias, out_dtype=out_dtype)
+    assert ln_matmul.tiled_launches == before
+    torch.testing.assert_close(got.float(), ln_matmul_plain(
+        x, g, b, w_nd.t(), bias, out_dtype=out_dtype).float(), atol=max(atol, 1e-4),
+        rtol=max(rtol, 1e-4))
+
+
+@pytest.mark.cuda
+def test_ln_matmul_tiled_forward_is_deterministic(card):
+    """Two calls of the tiled forward on the same bf16 inputs are bitwise
+    equal: every output sums d in one fixed order."""
+    rng = np.random.default_rng(12)
+    x, g, b, w_nd, bias = _ln_fwd_inputs(rng, card, torch.bfloat16, 4100, 768, 3072)
+    a, c = (ln_matmul(x, g, b, w_nd.t(), bias) for _ in range(2))
+    assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_ln_matmul_tiled_forward_raises_on_what_it_does_not_take(card):
+    """The tiled path takes d and n multiples of 8 and raises on anything
+    else — it never hands the call to the row-tile kernel, which takes any d
+    below the threshold."""
+    rng = np.random.default_rng(13)
+    M = fln.LN_TILED_MIN_M
+    x, g, b, w_nd, bias = _ln_fwd_inputs(rng, card, torch.bfloat16, M, 100, 64)
+    before = (ln_matmul.launches, ln_matmul.tiled_launches)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ln_matmul(x, g, b, w_nd.t(), bias)
+    x2, g2, b2, w2, bias2 = _ln_fwd_inputs(rng, card, torch.bfloat16, M, 64, 60)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ln_matmul(x2, g2, b2, w2.t(), bias2)
+    assert (ln_matmul.launches, ln_matmul.tiled_launches) == before
+    got = ln_matmul(x[:M - 1], g, b, w_nd.t(), bias)  # the row-tile kernel takes d = 100
+    torch.testing.assert_close(got.float(), ln_matmul_plain(x[:M - 1], g, b, w_nd.t(),
+                                                            bias).float(),
+                               atol=TOLS[torch.bfloat16][0], rtol=TOLS[torch.bfloat16][1])

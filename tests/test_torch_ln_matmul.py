@@ -63,7 +63,7 @@ def _torch_args(inp, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("M,n", [(8, 96), (40, 128), (64, 32)])
+@pytest.mark.parametrize("M,n", [(8, 96), (40, 128), (64, 32), (200, 96)])
 def test_ln_matmul_plain_matches_jax(dtype, M, n):
     inp = _inputs(M, n)
     jargs = _jax_args(inp, dtype)
@@ -103,20 +103,20 @@ BWD_M, BWD_N = 40, 96
 GRADS = ("dx", "dgamma", "dbeta", "dw", "dbias")
 
 
-def _dy(dtype):
+def _dy(dtype, M=BWD_M):
     rng = np.random.default_rng(7)
-    return rng.standard_normal((BWD_M, BWD_N), dtype=np.float32).astype(
-        jnp.dtype(dtype))
+    return rng.standard_normal((M, BWD_N), dtype=np.float32).astype(jnp.dtype(dtype))
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_grads(dtype, bwd_impl):
+def _jax_grads(dtype, bwd_impl, M=BWD_M):
     """The five cotangents of the JAX op (``jax.vjp`` under ``jax.jit``)
     for the shared inputs and a fixed output gradient, as f32 numpy."""
-    jargs = _jax_args(_inputs(BWD_M, BWD_N, seed=3), dtype)
+    jargs = _jax_args(_inputs(M, BWD_N, seed=3), dtype)
     f = jax.jit(lambda dy, *a: jax.vjp(functools.partial(
         jax_ln_matmul, interpret=True, bwd_impl=bwd_impl), *a)[1](dy))
-    return tuple(np.asarray(g.astype(jnp.float32)) for g in f(jnp.asarray(_dy(dtype)), *jargs))
+    return tuple(np.asarray(g.astype(jnp.float32))
+                 for g in f(jnp.asarray(_dy(dtype, M)), *jargs))
 
 
 def _assert_grads(got, want, dtype, what):
@@ -126,19 +126,32 @@ def _assert_grads(got, want, dtype, what):
                                    rtol=tol, err_msg=f"{what}: {name}")
 
 
+def _check_bwd_plain_and_xla(dtype, bwd_impl, M):
+    want = _jax_grads(dtype, bwd_impl, M)
+    x, g, b, w, _ = _torch_args(_inputs(M, BWD_N, seed=3), dtype)
+    dy = torch.from_numpy(_dy("float32", M)).to(x.dtype)
+    for fn in (fln.ln_matmul_bwd_plain, fln.xla_bwd):
+        got = fn(x, g, b, w, dy)
+        assert [t.dtype for t in got] == [x.dtype, torch.float32, torch.float32, w.dtype,
+                                          torch.float32]
+        _assert_grads(got, want, dtype, f"{fn.__name__} M={M}")
+
+
 @pytest.mark.parametrize("bwd_impl", ["xla", "pallas"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ln_matmul_bwd_plain_and_xla_bwd_match_jax(dtype, bwd_impl):
     """``ln_matmul_bwd_plain`` and ``xla_bwd`` against the JAX op's
     backward under ``bwd_impl``: dx in x's dtype, dw in w's, the rest f32."""
-    want = _jax_grads(dtype, bwd_impl)
-    x, g, b, w, _ = _torch_args(_inputs(BWD_M, BWD_N, seed=3), dtype)
-    dy = torch.from_numpy(_dy("float32")).to(x.dtype)
-    for fn in (fln.ln_matmul_bwd_plain, fln.xla_bwd):
-        got = fn(x, g, b, w, dy)
-        assert [t.dtype for t in got] == [x.dtype, torch.float32, torch.float32, w.dtype,
-                                          torch.float32]
-        _assert_grads(got, want, dtype, fn.__name__)
+    _check_bwd_plain_and_xla(dtype, bwd_impl, BWD_M)
+
+
+@pytest.mark.parametrize("bwd_impl", ["xla", "pallas"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ln_matmul_bwd_plain_and_xla_bwd_match_jax_at_ragged_tile_rows(dtype, bwd_impl):
+    """The same at M = 200, ragged against the 128-row tiles of the tiled
+    forward and the 64-row stages that dw deals to its chunks."""
+    assert 200 % fln.TILE_ROWS and 200 % fln.DW_STAGE_ROWS
+    _check_bwd_plain_and_xla(dtype, bwd_impl, 200)
 
 
 @pytest.mark.parametrize("bwd_impl", ["xla", "pallas"])
@@ -216,3 +229,64 @@ def test_ln_matmul_bwd_dx_launch_plan_covers_ragged_shapes(M, d, n, sms, monkeyp
     assert plan["ws"] == M * d + G * 2 * d + mtiles * n
     monkeypatch.setattr(fln, "_SMEM_LIMIT", 1)
     assert fln.dx_plan(M, d, n, sms) == plan
+
+
+@pytest.mark.parametrize("M,d,n,sms", [(8192, 768, 3072, 132), (8192, 768, 768, 132),
+                                       (8136, 768, 3072, 132), (1, 8, 8, 132),
+                                       (200, 136, 200, 132), (129, 264, 40, 4),
+                                       (100000, 1024, 8192, 132), (16, 1024, 8192, 132)])
+def test_ln_matmul_bwd_dw_launch_plan_covers_ragged_shapes(M, d, n, sms, monkeypatch):
+    """``dw_plan``, the dw wrapper's split over M: at most ``DW_MAX_G``
+    chunks and one per ``DW_STAGE_ROWS`` rows (so no chunk is empty), on the
+    one output tile both tiled products use. G depends on the shapes and
+    the SM count alone: the same arguments give the same plan, under any
+    shared-memory limit and on any device."""
+    plan = fln.dw_plan(M, d, n, sms)
+    assert plan["tile"] == (fln.TILE_ROWS, fln.TILE_COLS)
+    assert 1 <= plan["G"] <= min(fln.DW_MAX_G, -(-M // fln.DW_STAGE_ROWS))
+    monkeypatch.setattr(fln, "_SMEM_LIMIT", 1)
+    monkeypatch.setattr(fln, "_SMS", {})
+    assert fln.dw_plan(M, d, n, sms) == plan
+
+
+@pytest.mark.parametrize("M,d,n,sms,G", [(8192, 768, 768, 132, 7), (8192, 768, 3072, 132, 7),
+                                         (200, 768, 768, 132, 4), (8192, 768, 3072, 4, 1)])
+def test_ln_matmul_bwd_dw_plan_fills_the_card_at_gpt_small(M, d, n, sms, G):
+    """At gpt_small's training shapes on 132 SMs (an H100) the split puts
+    7 chunks on each 128 x 256 tile: 126 CTAs at n=768 (under one wave of
+    132 slots) and 504 at n=3072 (3.8 waves), where G=1 would leave 18
+    and 72. 200 rows make four 64-row stages, hence at most four chunks;
+    on 4 SMs the 72 tiles fill 18 waves already."""
+    assert fln.dw_plan(M, d, n, sms)["G"] == G
+
+
+class _Routed(Exception):
+    pass
+
+
+@pytest.mark.parametrize("M", [1, 8, 40, 64, 65, 128, 200, 255, 256, 257, 1000, 8192, 8136])
+@pytest.mark.parametrize("d,n", [(768, 3072), (768, 768), (136, 200)])
+def test_ln_matmul_forward_plan_picks_the_kernel_by_rows_alone(M, d, n, monkeypatch):
+    """``fwd_plan``: below ``LN_TILED_MIN_M`` rows (every serving call:
+    decode slots, prefill chunks of up to 64 rows, verify) the row-tile
+    kernel, from there up the statistics pass and the tiled product; the
+    forward wrapper launches what it names, whatever d and n (its launch
+    stands in here, as if the tensors lay on a card)."""
+    assert 64 < fln.LN_TILED_MIN_M
+    want = "ln_matmul_kernel" if M < fln.LN_TILED_MIN_M else "ln_matmul_tiled_kernel"
+    assert fln.fwd_plan(M) == want
+
+    def launched(kernel):
+        def launch(*args):
+            raise _Routed(kernel)
+        return launch
+
+    monkeypatch.setattr(fln._build, "on_cuda", lambda t, what: True)
+    monkeypatch.setattr(fln, "_launch_fwd_rows", launched("ln_matmul_kernel"))
+    monkeypatch.setattr(fln, "_launch_fwd_tiled", launched("ln_matmul_tiled_kernel"))
+    x = torch.zeros(M, d, dtype=torch.bfloat16)
+    w = torch.zeros(n, d, dtype=torch.bfloat16).t()
+    g = torch.ones(d)
+    with pytest.raises(_Routed) as got:
+        fln.ln_matmul(x, g, g, w)
+    assert got.value.args == (want,)
