@@ -79,7 +79,9 @@ when any phase fails:
    before serving: the four kernels against their plain versions at a
    conv3 and a conv1/projection shape of each stage at batch 256, bf16,
    f32 at two shapes, a bitwise repeat, timed against the bound, the plain
-   version and the product alone in ``torch.matmul``.)
+   version and the product alone in ``torch.matmul``; dx also with w a
+   contiguous [cin, cout] array and at a ragged M at its main shape, and
+   its time split by kernel: the tiled product and the reduction.)
 7. print the ``kernels`` JSON line (twelve entries: ``ln_matmul`` is the
    serving forward at M=8, ``ln_matmul_train`` the tiled forward at
    M=8192), then the ``ok`` line last.
@@ -176,6 +178,16 @@ TOL = {
     "conv_bn/bfloat16": (1e-2, 2 ** -7),
     "conv_bn/reduction/float32": 1e-5,
     "conv_bn/reduction/bfloat16": 2e-3,
+    # conv+BN dx (both backward kernels' dx) beside its elementwise gate,
+    # relative L2 over the whole output: dy is scaled by 1/sqrt(M), so dx
+    # is small next to that gate's atol and a dx off by a share of every
+    # value (or one missing stage of cout) passes it. On an H100 (PERF.md)
+    # the kernels read at most 7.7e-7 (f32: another summation order) and
+    # 1.04e-4 (bf16: a few roundings flipped near ties); one extra bf16
+    # rounding of dh before the epilogue (the printed control) reads
+    # 2.8e-3, a 30% error 0.3 and a dropped 64-deep stage of cout ~0.35
+    "conv_bn/dx/float32": 1e-5,
+    "conv_bn/dx/bfloat16": 1e-3,
     # resnet50_imagenet training, B=256, every pass from the same weights
     # with non-zero bn3 scales (RESNET_BN3_SCALE). A step-1 gradient of
     # this 50-layer net at init is exponentially sensitive to rounding:
@@ -929,6 +941,11 @@ CONV_BN_MAIN = {"conv_bn_fwd": (802816, 64, 256, True),
                 "conv_bn_bwd_dx": (200704, 128, 512, True),
                 "conv_bn_bwd_dw": (200704, 128, 512, True),
                 "conv_bn_bwd_single": (802816, 64, 256, True)}
+#: the dx wrapper's kernels, by the device name the profiler gives each
+CONV_DX_PARTS = {"product": "conv_bn_dx_kernel", "reduce": "reduce_kernel"}
+#: rows cut from the dx main shape's M for its ragged-M check (the dx tile
+#: is 128 rows)
+CONV_DX_RAGGED = 40
 
 
 def conv_bn_case(torch, np, rng, dtype, M, cin, cout, prologue):
@@ -978,6 +995,16 @@ def phase_conv_bn(torch, np):
     def rel(got, want):
         return float((got.float() - want.float()).norm() / want.float().norm().clamp_min(1e-30))
 
+    def check_dx_l2(name, got, want, dn, control=None):
+        """dx's relative L2 error, beside its elementwise gate; control: the
+        same reading of the plain dx with dh rounded to bf16 before the
+        epilogue (one extra rounding), for the record."""
+        lim, err = TOL[f"conv_bn/dx/{dn}"], rel(got, want)
+        log(f"  {name}: relative L2 {err:.2e} (tol {lim:g})" + (
+            "" if control is None else f"; control, dh rounded to bf16: {control:.2e}"))
+        if err > lim:
+            raise SmokeFailure(f"{name}: dx is off by {err:.3e} relative L2")
+
     def check(c, dtype, tag, timed):
         dn = str(dtype).split(".")[-1]
         tol, rtol = TOL[f"conv_bn/{dn}"], TOL[f"conv_bn/reduction/{dn}"]
@@ -995,12 +1022,20 @@ def phase_conv_bn(torch, np):
         errs = {"conv_bn_fwd": [check_close(torch, f"conv_bn_fwd/y {tag}", y, wy, tol)]}
         reds = {"sum": rel(s, ws), "sumsq": rel(q, wq)}
         errs["conv_bn_bwd_dx"] = [check_close(torch, f"conv_bn_bwd_dx/dx {tag}", dx, ref[0], tol)]
+        control = None
+        if dtype == torch.bfloat16:
+            def mm_rounded(a, b):
+                return fcb.mm_exact(a, b).to(torch.bfloat16).float()
+            control = rel(fcb._bwd_math(*bwd, relu=True, emit_stats=True, mm=mm_rounded)[0],
+                          ref[0])
+        check_dx_l2(f"conv_bn_bwd_dx/dx {tag}", dx, ref[0], dn, control)
         reds["dw"] = rel(dw, ref[1])
         if aff[0] is not None:
             reds.update(dscale=rel(dsc, ref[2]), dshift=rel(dsh, ref[3]))
         if single is not None:
             errs["conv_bn_bwd_single"] = [check_close(
                 torch, f"conv_bn_bwd_single/dx {tag}", single[0], ref[0], tol)]
+            check_dx_l2(f"conv_bn_bwd_single/dx {tag}", single[0], ref[0], dn)
             reds["single/dw"] = rel(single[1], ref[1])
             if aff[0] is not None:
                 reds.update({"single/dscale": rel(single[2], ref[2]),
@@ -1024,10 +1059,30 @@ def phase_conv_bn(torch, np):
             raise SmokeFailure(f"conv_bn {tag}: a second call is not bitwise equal")
         return y
 
+    def check_dx_more(c, y, tag):
+        """dx once more with w a contiguous [cin, cout] array (the model
+        passes the OIHW weight's view) and at a ragged M."""
+        tol, rtol = TOL["conv_bn/bfloat16"], TOL["conv_bn/reduction/bfloat16"]
+        M, rest = c["x"].shape[0] - CONV_DX_RAGGED, (c["scale"], c["shift"], c["dsum"], c["dssq"])
+        for what, bwd in (("w contiguous", (c["x"], y, c["dy"], c["w"].contiguous(), *rest)),
+                          (f"M={M}", (c["x"][:M], y[:M], c["dy"][:M], c["w"], *rest))):
+            dx, dsc, dsh = fcb.conv1x1_bn_bwd_dx(*bwd)
+            torch.cuda.synchronize()
+            ref = fcb.conv1x1_bn_bwd_plain(*bwd)
+            err = check_close(torch, f"conv_bn_bwd_dx/dx {tag} {what}", dx, ref[0], tol)
+            check_dx_l2(f"conv_bn_bwd_dx/dx {tag} {what}", dx, ref[0], "bfloat16")
+            results["conv_bn_bwd_dx"]["err"] = max(results["conv_bn_bwd_dx"]["err"], err)
+            red = max(rel(dsc, ref[2]), rel(dsh, ref[3]))
+            log(f"    {what}: dscale, dshift relative L2 {red:.2e} (tol {rtol:g})")
+            if red > rtol:
+                raise SmokeFailure(f"conv_bn_bwd_dx {tag} {what}: a reduction is off by {red:.3e}")
+
     for M, cin, cout, prologue in CONV_BN_SHAPES:
         c = conv_bn_case(torch, np, rng, torch.bfloat16, M, cin, cout, prologue)
         tag = f"bf16 M={M} {cin}->{cout} {'bn+relu prologue' if prologue else 'no prologue'}"
         y = check(c, torch.bfloat16, tag, timed=True)
+        if (M, cin, cout, prologue) == CONV_BN_MAIN["conv_bn_bwd_dx"]:
+            check_dx_more(c, y, tag)
         aff = (c["scale"], c["shift"])
         bwd = (c["x"], y, c["dy"], c["w"], *aff, c["dsum"], c["dssq"])
         g = (c["dy"].float() + c["dsum"] + 2 * y.float() * c["dssq"]).to(torch.bfloat16)
@@ -1055,11 +1110,16 @@ def phase_conv_bn(torch, np):
                        call_ms=tk["call_ms"], library_ms=tl["device_ms"],
                        plain_ms=plain["fwd" if kind == "fwd" else "bwd"]["device_ms"])
             row["bound_ms"], row["bound_by"] = conv_bn_bound_ms(c, kind, "bfloat16")
+            split = ""
+            if n == "conv_bn_bwd_dx":
+                row["split"] = kernel_split(tk["by_name"], CONV_DX_PARTS, n)
+                split = f"; device ms by kernel {fmt_split(row['split'])}"
             results[n]["rows"].append(row)
             log(f"    {n} M={M} {cin}->{cout}: kernel_ms={row['ms']:.5f} "
                 f"plain_ms={row['plain_ms']:.5f} library_ms={row['library_ms']:.5f} "
                 f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}) "
-                f"({row['bound_ms'] / row['ms']:.1%} of bound); wrapper call_ms={row['call_ms']:.4f}")
+                f"({row['bound_ms'] / row['ms']:.1%} of bound); wrapper call_ms={row['call_ms']:.4f}"
+                f"{split}")
         del c, y, g, h, bwd, kern, lib
         torch.cuda.empty_cache()
     for M, cin, cout in CONV_BN_F32_SHAPES:

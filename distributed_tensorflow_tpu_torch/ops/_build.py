@@ -99,6 +99,8 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
         # x, y, dy, w, sk, sn, scale, shift, dsum, dssq, dx, ws, dscale, dshift
         **{f"conv_bn_bwd_dx_{s}": (_c_void_p,) * 4 + _W_STRIDES + (_c_void_p,) * 8
            + _CONV_TAIL for s in ("f32", "bf16")},
+        # 0, 1, 2 -> the dx tile's rows, columns, CTAs an SM
+        "conv_bn_dx_tile": (_c_int,),
         # x, y, dy, scale, shift, dsum, dssq, ws, dw
         **{f"conv_bn_bwd_dw_{s}": (_c_void_p,) * 9 + _CONV_TAIL for s in ("f32", "bf16")},
         # x, y, dy, w, sk, sn, scale, shift, dsum, dssq, dx, ws, dw, dscale, dshift

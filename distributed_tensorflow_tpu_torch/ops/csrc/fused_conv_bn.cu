@@ -29,8 +29,27 @@
 // written), the statistics are summed from the y tile in shared memory (y is
 // never read back), and the backward recomputes h from x. Products are
 // mma.sync m16n8k16 bf16 tiles (f32 inputs: the same tile loops on CUDA
-// cores, for checks). Simple first: 64x64 tiles, 4 warps, synchronous 16-byte
-// staging, no cp.async/TMA pipelining, no wgmma.
+// cores, for checks). The forward, dw and single-pass kernels are the first,
+// simple design: 64x64 tiles, 4 warps, synchronous 16-byte staging, no
+// cp.async pipelining, no wgmma.
+//
+// The dx kernel is built on tile_mma.cuh (the LN+matmul products'
+// machinery). dh = g @ w^T is a 2-D tiled product: each CTA owns 128 rows of
+// M x 128 columns of cin (8 warps of 64 x 32 mma.sync register tiles) and
+// contracts over cout through a cp.async.cg ring of 128-byte stages
+// (ragged edges zero-filled). w lands as it lies, and its fragments come from
+// ldmatrix.trans for the OIHW view (cin contiguous) and ldmatrix for a
+// contiguous [cin, cout] w: nothing is transposed by scalar stores. With the
+// statistics, the staged dy chunk is rewritten in place as g (y and the
+// stage's dsum/dssq ride in the same stage) behind one barrier; without
+// them y is never read. The epilogue works on the accumulators: the ReLU
+// mask from the x tile (copied in by cp.async with the tile's first stage),
+// dx = dh*scale in two-column stores, and the per-column sums of dh*x and
+// dh kept in registers across the CTA's M tiles. One CTA an SM (~198 KB of
+// shared memory) takes its M tiles in turn as one sequence of stages, so
+// the next tile's first stages load during this tile's epilogue. What bounds
+// it at each shape is in PERF.md: past stage 0 the per-stage loop of one CTA
+// of 8 warps an SM (mma.sync, the g pass and its second barrier), not HBM.
 //
 // Reductions over M (the statistics, dscale/dshift, dw) use no float atomics:
 // the TPU kernels carry them across a sequential grid axis; here the M tiles
@@ -47,6 +66,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tile_mma.cuh"
 
 namespace {
 
@@ -373,48 +394,228 @@ conv_bn_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, long long s
 // backward, two-pass part 1: dh = g @ w^T, dx, dscale, dshift
 // ---------------------------------------------------------------------------
 
-// grid (cin tiles, G): CTA (n, c) computes columns n*BN.. of dx for the M
-// tiles c, c+G, ...; its dscale/dshift partials go to ws[0/1][c][cin].
+// The ring of the dx kernel (tile_mma.cuh's machinery). A CTA owns a
+// tile::BM x BN output tile (rows of M x columns of cin); 8 warps (2 x 4),
+// each a 64 x WN register tile. A stage is STAGE_BYTES deep along cout and
+// holds dy's tile Ds [BM][LDA] (cout contiguous; rewritten in place as g),
+// y's Ys [BM][LDA] (staged only with the statistics), w's tile, either
+// Ws[BN][LDK] (cout contiguous, sn == 1) or Ws[BK][LDN] (cin contiguous,
+// sk == 1: the OIHW weight's view), then dsum [BK] and dssq [BK] f32. After
+// the ring, the x tile Xs [BM][LDX] of the epilogue. bf16: 3 stages, ~198 KB
+// in all (one CTA an SM); f32 (checks only, never timed): 2 stages, as 3
+// and its 4-byte x tile would exceed the 227 KB a CTA may hold.
+// CTAs of the dx kernel an SM: its ring and x tile fill the shared memory
+constexpr int kDxCtasPerSm = 1;
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+struct Dx {
+  static constexpr int V = 16 / sizeof(T);
+  static constexpr int BN = 128;
+  static constexpr int WN = 32;
+  static constexpr int NJ = WN / 8;
+  static constexpr int BK = tile::STAGE_BYTES / sizeof(T);
+  static constexpr int STAGES = sizeof(T) == 2 ? tile::STAGES : 2;
+  static constexpr int LDA = tile::pad_ld<T>(BK), LDK = tile::pad_ld<T>(BK);
+  static constexpr int LDN = tile::pad_ld<T>(BN), LDX = tile::pad_ld<T>(BN);
+  static constexpr int A_ELEMS = tile::BM * LDA;
+  static constexpr int B_ELEMS = BN * LDK > BK * LDN ? BN * LDK : BK * LDN;
+  static constexpr size_t STAGE = sizeof(T) * (2 * A_ELEMS + B_ELEMS) + sizeof(float) * 2 * BK;
+  static constexpr size_t SMEM = STAGE * STAGES + sizeof(T) * tile::BM * LDX;
+  static_assert(STAGE % 16 == 0, "stages stay 16-byte aligned");
+  static_assert(4 * WN == BN && 2 * BK <= tile::THREADS, "8 warps of 64 x WN; one thread a stat");
+};
+
+// Issue the copies of one stage into st: rows m0.. of dy (and of y, with
+// dsum and dssq, with the statistics) at depth k0.. of cout, and w's tile at
+// (k0.., n0..). Past M, cin or cout the copies zero-fill.
+template <typename T>
+__device__ __forceinline__ void dx_load(unsigned char* st, const T* __restrict__ y,
+                                        const T* __restrict__ dy, const T* __restrict__ w,
+                                        long long sk, long long sn, const float* __restrict__ dsum,
+                                        const float* __restrict__ dssq, bool stats, int M, int cin,
+                                        int cout, int m0, int n0, int k0) {
+  using S = Dx<T>;
+  constexpr int V = S::V, BK = S::BK, BM = tile::BM;
+  T* Ds = reinterpret_cast<T*>(st);
+  T* Ws = Ds + 2 * S::A_ELEMS;
+  tile::copy_tile<T, BM * BK / V, BK / V>(Ds, S::LDA, dy, cout, m0, M, k0, cout);
+  if (stats) {
+    float* sq = reinterpret_cast<float*>(Ws + S::B_ELEMS);
+    tile::copy_tile<T, BM * BK / V, BK / V>(Ds + S::A_ELEMS, S::LDA, y, cout, m0, M, k0, cout);
+    if (threadIdx.x < 2 * BK) {  // dsum, then dssq, one column a thread (no 16-byte alignment)
+      const int k = threadIdx.x % BK;
+      const bool ok = k0 + k < cout;
+      tile::cp_async4(sq + threadIdx.x, (threadIdx.x < BK ? dsum : dssq) + (ok ? k0 + k : 0), ok);
+    }
+  }
+  if (sk == 1)  // B(k, n) = w[n + k*sn], n contiguous: Ws[k][n]
+    tile::copy_tile<T, BK * S::BN / V, S::BN / V>(Ws, S::LDN, w, sn, k0, cout, n0, cin);
+  else  // k contiguous: Ws[n][k]
+    tile::copy_tile<T, S::BN * BK / V, BK / V>(Ws, S::LDK, w, sk, n0, cin, k0, cout);
+}
+
+// g = dy + dsum + 2*y*dssq on one staged chunk of V columns, in place in
+// dy's slot, f32 math and one rounding to T (ds, dq: the chunk's dsum, dssq)
+template <typename T>
+__device__ __forceinline__ void g_chunk(T* d, const T* yv, const float* ds, const float* dq) {
+  constexpr int V = 16 / sizeof(T);
+  uint4 a = *reinterpret_cast<const uint4*>(d);
+  const uint4 b = *reinterpret_cast<const uint4*>(yv);
+  T* e = reinterpret_cast<T*>(&a);
+  const T* f = reinterpret_cast<const T*>(&b);
+#pragma unroll
+  for (int q = 0; q < V; ++q) e[q] = from_f32<T>(to_f32(e[q]) + ds[q] + 2.f * to_f32(f[q]) * dq[q]);
+  *reinterpret_cast<uint4*>(d) = a;
+}
+
+__device__ __forceinline__ float2 load2(const float* p) { return *reinterpret_cast<const float2*>(p); }
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// grid (cin tiles, G), cin tiles fastest so the CTAs that read the same dy
+// and y rows run side by side: CTA (n, c) writes columns n*BN.. of dx for
+// the M tiles c, c+G, ... The CTA's stages of all its tiles form one
+// sequence through the ring, so the next tile's first stages load while
+// this tile's epilogue runs. The x tile is issued with a tile's first
+// stage and lands by its last (a wait for everything when cout is shallower
+// than the ring). Each lane keeps scale/shift of its 8 columns and running
+// sums of dh*x and dh over its rows of every tile in registers; at the end
+// they are added over the warp's rows (shuffles), then the two row-warps in
+// order into ws[0/1][c][cin].
+template <typename T>
+__global__ void __launch_bounds__(tile::THREADS, kDxCtasPerSm)
 conv_bn_dx_kernel(const T* __restrict__ x, const T* __restrict__ y, const T* __restrict__ dy,
                   const T* __restrict__ w, long long sk, long long sn, Prologue pro,
                   const float* __restrict__ dsum, const float* __restrict__ dssq, bool stats,
                   T* __restrict__ dx, float* __restrict__ ws, int M, int cin, int cout, int G) {
-  constexpr int LD = pad_ld<T>(BK);
+  using S = Dx<T>;
+  constexpr int V = S::V, BK = S::BK, BM = tile::BM, P = BK / V, NJ = S::NJ;
+  constexpr int STAGES = S::STAGES, THREADS = tile::THREADS;
+  static_assert(THREADS % P == 0, "a thread's g chunks share their columns");
   extern __shared__ __align__(16) unsigned char smem[];
-  float* red = reinterpret_cast<float*>(smem);  // [2][kWarps][BN]
-  T* As = reinterpret_cast<T*>(red + 2 * kWarps * BN);  // [BM][LD] g chunk
-  T* Bs = As + BM * LD;                                 // [BN][LD] B(k = cout, n = cin)
-  T* Xs = Bs + BN * LD;                                 // [BM][LD] x tile (prologue only)
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int n0 = blockIdx.x * BN, mtiles = (M + BM - 1) / BM;
-  const int q = tid / BN, col = tid % BN;
-  float run = 0.f;
-  for (int mt = blockIdx.y; mt < mtiles; mt += G) {
-    const int r0 = mt * BM;
-    float acc[NT][4];
-    zero(acc);
-    for (int k0 = 0; k0 < cout; k0 += BK) {
-      __syncthreads();
-      stage_g<T, false>(As, LD, dy, y, dsum, dssq, stats, M, cout, r0, k0, BM, BK);
-      stage_w<T>(Bs, LD, w, sn, sk, cout, cin, k0, n0, BK, BN);
-      __syncthreads();
-      warp_mma(acc, As + warp * 16 * LD, LD, 1, Bs, LD, 1, min(BK, round_up(cout - k0, 16)),
-               lane);
+  T* Xs = reinterpret_cast<T*>(smem + STAGES * S::STAGE);
+  const int n0 = blockIdx.x * S::BN, c = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int wm = (warp & 1) * 64, wn = (warp >> 1) * S::WN;
+  const int mtiles = (M + BM - 1) / BM, nk = (cout + BK - 1) / BK;
+  const int tiles = c < mtiles ? (mtiles - 1 - c) / G + 1 : 0;
+  const int total = tiles * nk;  // the CTA's stages, all tiles in order
+  const bool kmajor = sk != 1;  // as dx_load: w's tile as it lies
+  float sc[NJ][2], sh[NJ][2], sx[NJ][2], sd[NJ][2];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int gc = n0 + wn + 8 * j + 2 * t + e;
+      sc[j][e] = pro.on && gc < cin ? pro.scale[gc] : 0.f;
+      sh[j][e] = pro.on && gc < cin ? pro.shift[gc] : 0.f;
+      sx[j][e] = sd[j][e] = 0.f;
     }
-    if (pro.on) {
-      stage<T, false>(Xs, LD, x, M, cin, r0, n0, BM, BN, [](float v, int) { return v; });
-      __syncthreads();
-    }
-    dh_epilogue<T>(acc, Xs + warp * 16 * LD, LD, pro, n0, r0 + warp * 16, M, cin, dx, red, warp,
-                   lane);
-    __syncthreads();
-    if (pro.on)
-      run += red[(q * kWarps + 0) * BN + col] + red[(q * kWarps + 1) * BN + col] +
-             red[(q * kWarps + 2) * BN + col] + red[(q * kWarps + 3) * BN + col];
+  auto load = [&](int f) {
+    dx_load<T>(smem + f % STAGES * S::STAGE, y, dy, w, sk, sn, dsum, dssq, stats, M, cin, cout,
+               (c + f / nk * G) * BM, n0, f % nk * BK);
+  };
+  float acc[4][NJ][4];
+  tile::zero(acc);
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < total) load(s);
+    tile::cp_async_commit();
   }
-  if (pro.on && n0 + col < cin) ws[((size_t)q * G + blockIdx.y) * cin + n0 + col] = run;
+  // this thread's g chunks: columns gcol.. of a stage, rows grow0 + u * THREADS / P
+  const int gcol = threadIdx.x % P * V, grow0 = threadIdx.x / P;
+  for (int f = 0; f < total; ++f) {
+    const int kt = f % nk, m0 = (c + f / nk * G) * BM;
+    tile::cp_async_wait<STAGES - 2>();  // stage f has landed (this thread's copies)
+    __syncthreads();                    // ... everyone's; stage f - 1 is consumed
+    if (f + STAGES - 1 < total) load(f + STAGES - 1);
+    if (pro.on && kt == 0)  // the previous tile's epilogue is done with Xs
+      tile::copy_tile<T, BM * S::BN / V, S::BN / V>(Xs, S::LDX, x, cin, m0, M, n0, cin);
+    tile::cp_async_commit();
+    unsigned char* st = smem + f % STAGES * S::STAGE;
+    T* Ds = reinterpret_cast<T*>(st);
+    const T* Ws = Ds + 2 * S::A_ELEMS;
+    if (stats) {
+      const float* sq = reinterpret_cast<const float*>(Ws + S::B_ELEMS);
+      float ds[V], dq[V];
+#pragma unroll
+      for (int q = 0; q < V; ++q) ds[q] = sq[gcol + q], dq[q] = sq[BK + gcol + q];
+#pragma unroll
+      for (int u = 0; u < BM * P / THREADS; ++u) {
+        const int r = grow0 + u * (THREADS / P);
+        if (m0 + r < M)  // rows past M stay zero (g = 0, not dsum)
+          g_chunk(Ds + r * S::LDA + gcol, Ds + S::A_ELEMS + r * S::LDA + gcol, ds, dq);
+      }
+      __syncthreads();  // g is whole
+    }
+    if (kmajor)  // one copy of the loop per w layout: constant pitches
+      tile::warp_tile<NJ, false, BK>(acc, Ds, S::LDA, Ws, S::LDK, false, wm, wn, lane);
+    else
+      tile::warp_tile<NJ, false, BK>(acc, Ds, S::LDA, Ws, S::LDN, true, wm, wn, lane);
+    if (kt != nk - 1) continue;
+    // the epilogue of this tile, from the registers
+    if (pro.on && nk < STAGES) {  // the x tile's copies are younger than the last stage's
+      tile::cp_async_wait<0>();
+      __syncthreads();
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wm + 16 * i + g + 8 * h, row = m0 + r;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const int col = wn + 8 * j + 2 * t;
+          float out[2] = {acc[i][j][2 * h], acc[i][j][2 * h + 1]};
+          if (pro.on) {
+            const float2 xv = load2(Xs + r * S::LDX + col);
+            const float xe[2] = {xv.x, xv.y};
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float d = out[e];
+              if (pro.relu && !(xe[e] * sc[j][e] + sh[j][e] > 0.f)) d = 0.f;
+              out[e] = d * sc[j][e];
+              sx[j][e] += d * xe[e];
+              sd[j][e] += d;
+            }
+          }
+          if (row < M && n0 + col < cin) store2(dx + (size_t)row * cin + n0 + col, out[0], out[1]);
+        }
+      }
+    tile::zero(acc);
+  }
+  tile::cp_async_wait<0>();
+  if (!pro.on) return;
+  // rows past M and columns past cin added zeros: dh is 0 there
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) {
+        sx[j][e] += __shfl_xor_sync(0xffffffffu, sx[j][e], o);
+        sd[j][e] += __shfl_xor_sync(0xffffffffu, sd[j][e], o);
+      }
+  __syncthreads();  // every warp is done with the ring
+  float* red = reinterpret_cast<float*>(smem);  // [2 (dscale, dshift)][2 (row-warps)][BN]
+  if (g == 0) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = wn + 8 * j + 2 * t + e;
+        red[(0 * 2 + (warp & 1)) * S::BN + col] = sx[j][e];
+        red[(1 * 2 + (warp & 1)) * S::BN + col] = sd[j][e];
+      }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < 2 * S::BN; i += THREADS) {
+    const int q = i / S::BN, col = i % S::BN;
+    if (n0 + col < cin)
+      ws[((size_t)q * G + c) * cin + n0 + col] =
+          red[(q * 2 + 0) * S::BN + col] + red[(q * 2 + 1) * S::BN + col];
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -629,11 +830,11 @@ int launch_dx(const void* x, const void* y, const void* dy, const void* w, long 
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const Prologue pro{(const float*)scale, (const float*)shift, prologue != 0, relu != 0};
-  const size_t smem = sizeof(float) * 2 * kWarps * BN + sizeof(T) * 3 * BM * pad_ld<T>(BK);
+  using S = Dx<T>;
   auto kern = conv_bn_dx_kernel<T>;
-  int e = set_smem(kern, smem);
+  int e = set_smem(kern, S::SMEM);
   if (e) return e;
-  kern<<<dim3((cin + BN - 1) / BN, G), kThreads, smem, st>>>(
+  kern<<<dim3((cin + S::BN - 1) / S::BN, G), tile::THREADS, S::SMEM, st>>>(
       (const T*)x, (const T*)y, (const T*)dy, (const T*)w, sk, sn, pro, (const float*)dsum,
       (const float*)dssq, stats != 0, (T*)dx, (float*)ws, M, cin, cout, G);
   e = (int)cudaGetLastError();
@@ -724,6 +925,13 @@ int conv_bn_fwd_bf16(DTF_FWD_ARGS) { return launch_fwd<__nv_bfloat16>(DTF_FWD_PA
 
 int conv_bn_bwd_dx_f32(DTF_DX_ARGS) { return launch_dx<float>(DTF_DX_PASS); }
 int conv_bn_bwd_dx_bf16(DTF_DX_ARGS) { return launch_dx<__nv_bfloat16>(DTF_DX_PASS); }
+
+// The dx kernel's plan inputs for the wrapper's G: 0 -> rows of M a tile,
+// 1 -> columns of cin a tile, 2 -> CTAs an SM (both dtypes take the same)
+int conv_bn_dx_tile(int what) {
+  static_assert(Dx<float>::BN == Dx<__nv_bfloat16>::BN, "one dx tile for both dtypes");
+  return what == 0 ? tile::BM : what == 1 ? Dx<float>::BN : kDxCtasPerSm;
+}
 
 #define DTF_DW_ARGS                                                                           \
   const void *x, const void *y, const void *dy, const void *scale, const void *shift,         \

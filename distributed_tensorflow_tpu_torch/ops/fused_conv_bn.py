@@ -34,14 +34,18 @@ kernel and then the dw kernel.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _build
 from ._policy import mm_exact, mm_library, resolve_bwd_impl
+from .fused_ln_matmul import _sms
 
-#: tile edge of every kernel (rows of an M tile, columns of a channel tile)
+#: tile edge of the forward, dw and single-pass kernels (rows of an M
+#: tile, columns of a channel tile)
 TILE = 64
-#: CTAs the forward, dx and dw grids aim to keep resident (132 SMs x 8)
+#: CTAs the forward and dw grids aim to keep resident (132 SMs x 8)
 RESIDENT_CTAS = 1056
 #: CTAs of the single-pass kernel: one per SM of an H100 (it holds ~150 KB
 #: of shared memory, so one fits an SM)
@@ -77,6 +81,25 @@ def _chunks(M: int, tiles: int) -> int:
     enough CTAs to fill the card, a function of the shapes only, so the
     reduction order — and the result — is the same on every call."""
     return max(1, min(-(-M // TILE), -(-RESIDENT_CTAS // tiles)))
+
+
+def dx_chunks(M: int, cin: int, sms: int, tile: tuple[int, int, int]) -> int:
+    """G of the dx kernel: its grid is (cin tiles, G), and CTA (n, c) takes
+    the M tiles c, c+G, ... ``tile`` is the kernel's ``(rows of M, columns
+    of cin, CTAs an SM)`` (``dx_tile``). As many chunks as one wave of the
+    card's ``sms`` holds beside the cin tiles (at least 1, at most one an M
+    tile): a function of the shapes and the card alone, so the
+    dscale/dshift partials are summed in the same order on every call."""
+    bm, bn, per_sm = tile
+    return max(1, min(-(-M // bm), per_sm * sms // -(-cin // bn)))
+
+
+@functools.cache
+def dx_tile() -> tuple[int, int, int]:
+    """The dx kernel's tile and residency as its source states them
+    (``conv_bn_dx_tile``): rows of M, columns of cin, CTAs an SM."""
+    lib = _build.load("fused_conv_bn")
+    return tuple(lib.conv_bn_dx_tile(i) for i in range(3))
 
 
 # ---------------------------------------------------------------------------
@@ -260,8 +283,9 @@ def conv1x1_bn_fwd(x, w, scale=None, shift=None, *, relu: bool = True,
 def conv1x1_bn_bwd_dx(x, y, dy, w, scale=None, shift=None, dsum=None, dssq=None, *,
                       relu: bool = True, emit_stats: bool = True):
     """Two-pass backward, part 1: ``(dx, dscale, dshift)`` (the last two
-    None without the prologue). CUDA tensors: one launch; CPU tensors: the
-    plain backward's."""
+    None without the prologue). CUDA tensors: one launch of the tiled dx
+    kernel (and, with the prologue, the reduction of its ``dx_chunks``
+    partials); CPU tensors: the plain backward's."""
     if not _build.on_cuda(x, "conv1x1_bn_bwd_dx"):
         dx, _, dscale, dshift = conv1x1_bn_bwd_plain(
             x, y, dy, w, scale, shift, dsum, dssq, relu=relu, emit_stats=emit_stats)
@@ -272,7 +296,7 @@ def conv1x1_bn_bwd_dx(x, y, dy, w, scale=None, shift=None, dsum=None, dssq=None,
     dev = x.device
     dsum, dssq = _stats_args(dsum, dssq, cout, emit_stats, dev)
     prologue = scale is not None
-    G = _chunks(M, -(-cin // TILE))
+    G = dx_chunks(M, cin, _sms(dev), dx_tile())
     dx = torch.empty(M, cin, dtype=x.dtype, device=dev)
     ws = torch.empty(2 * G * cin if prologue else 1, dtype=torch.float32, device=dev)
     dscale = torch.empty(cin, dtype=torch.float32, device=dev) if prologue else None

@@ -53,10 +53,11 @@ def test_library_path_follows_the_flags_and_differs_by_source(csrc, monkeypatch)
 
 def test_the_port_sources_name_their_libraries():
     """Every library of ``SIGNATURES`` has its source in the real ``csrc``,
-    and the LN+matmul sources share ``tile_mma.cuh``."""
+    and the LN+matmul sources and the conv+BN source (its dx kernel)
+    share ``tile_mma.cuh``."""
     for name in _build.SIGNATURES:
         assert os.path.exists(_build._paths(name)[0]), name
-    for name in ("ln_matmul", "ln_matmul_bwd"):
+    for name in ("ln_matmul", "ln_matmul_bwd", "fused_conv_bn"):
         with open(_build._paths(name)[0]) as f:
             assert '#include "tile_mma.cuh"' in f.read()
 

@@ -121,6 +121,29 @@ def test_single_pass_rule_at_resnet50_shapes():
     assert set(single) == {(64, 64), (64, 256), (256, 64)}
 
 
+#: the dx kernel's tile and residency (``conv_bn_dx_tile`` on the card)
+DX_TILE = (128, 128, 1)
+
+
+@pytest.mark.parametrize("M, cin, sms, want", [
+    (200704, 128, 132, 132),  # conv3 of stage 1: one cin tile, one chunk an SM
+    (12544, 2048, 132, 8),    # a stage-3 conv1: 16 cin tiles, 128 CTAs
+    (12544, 512, 132, 33),    # stage-3 conv3: 4 cin tiles, 132 CTAs
+    (300, 200, 132, 3),       # fewer M tiles than the wave holds: one chunk a tile
+    (1000, 17000, 132, 1),    # more cin tiles than a wave: one chunk
+    (200704, 512, 114, 28),   # a card of 114 SMs: 4 cin tiles, 112 CTAs
+])
+def test_dx_chunks_fill_one_wave_from_the_shapes(M, cin, sms, want):
+    """The dx grid (cin tiles, G) fills at most one wave of the card's
+    CTA slots with at most one chunk an M tile, and G depends on the
+    shapes and the card alone."""
+    bm, bn, per_sm = DX_TILE
+    G = tfcb.dx_chunks(M, cin, sms, DX_TILE)
+    assert G == want == tfcb.dx_chunks(M, cin, sms, DX_TILE)
+    assert 1 <= G <= -(-M // bm)
+    assert G == 1 or G * -(-cin // bn) <= per_sm * sms
+
+
 def test_bwd_impl_policy(monkeypatch):
     monkeypatch.delenv("DTF_FUSED_BWD", raising=False)
     assert _policy.resolve_bwd_impl() == "xla"

@@ -267,18 +267,25 @@ def test_training_steps_on_card_match_the_cpu(card):
 # fused 1x1 conv + BatchNorm (rows 8-11 of the kernel table)
 # ---------------------------------------------------------------------------
 
-#: (M, cin, cout): ragged M, channels that are not tile multiples, the
-#: single-pass shapes of ResNet-50's stage 0 and a two-pass shape
-CONV_BN_CASES = [(37, 16, 24), (200, 64, 256), (130, 256, 64), (300, 128, 512), (100, 72, 40)]
+#: (M, cin, cout, w layout): ragged M, channels that are not tile
+#: multiples, the single-pass shapes of ResNet-50's stage 0, a two-pass
+#: shape, one whose M is no multiple of the dx tile's 128 rows and whose cin
+#: spans two 128-wide dx tiles (the second ragged), and the two-pass shape
+#: with w a contiguous [cin, cout] array instead of the OIHW weight's view
+CONV_BN_CASES = [(37, 16, 24, "oihw"), (200, 64, 256, "oihw"), (130, 256, 64, "oihw"),
+                 (300, 128, 512, "oihw"), (100, 72, 40, "oihw"), (333, 200, 136, "oihw"),
+                 (300, 128, 512, "contiguous")]
 #: (prologue, relu, emit_stats)
 CONV_BN_VARIANTS = [(False, False, True), (False, False, False), (True, True, True),
                     (True, False, True), (True, True, False)]
 
 
-def _conv_bn_inputs(rng, card, dtype, M, cin, cout, prologue):
+def _conv_bn_inputs(rng, card, dtype, M, cin, cout, prologue, layout="oihw"):
     f = lambda *s: torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(card)  # noqa: E731
     x = f(M, cin).to(dtype)
     w = (f(cout, cin) / cin ** 0.5).to(dtype).t()  # the OIHW weight's [cin, cout] view
+    if layout == "contiguous":
+        w = w.contiguous()
     scale = 1 + 0.2 * f(cin) if prologue else None
     shift = 0.2 * f(cin) if prologue else None
     return x, w, scale, shift, f(M, cout).to(dtype), 0.1 * f(cout), 0.01 * f(cout)
@@ -302,11 +309,11 @@ def test_conv_bn_kernels_match_plain_on_card(card, dtype):
     rng = np.random.default_rng(5)
     tol = TOLS[dtype] if dtype == torch.bfloat16 else (1e-4, 1e-4)
     red_tol = 2e-3 if dtype == torch.bfloat16 else 1e-5
-    for M, cin, cout in CONV_BN_CASES:
+    for M, cin, cout, layout in CONV_BN_CASES:
         for prologue, relu, stats in CONV_BN_VARIANTS:
             x, w, sc, sh, dy, dsum, dssq = _conv_bn_inputs(rng, card, dtype, M, cin, cout,
-                                                           prologue)
-            case = (M, cin, cout, prologue, relu, stats)
+                                                           prologue, layout)
+            case = (M, cin, cout, layout, prologue, relu, stats)
             kw = dict(relu=relu, emit_stats=stats)
             before = {n: k.launches for n, k in fcb.KERNELS.items()}
             y, s, q = fcb.conv1x1_bn_fwd(x, w, sc, sh, **kw)
@@ -371,7 +378,7 @@ def test_conv_bn_kernels_are_deterministic(card):
     from distributed_tensorflow_tpu_torch.ops import fused_conv_bn as fcb
 
     rng = np.random.default_rng(7)
-    for M, cin, cout in ((5000, 64, 256), (3000, 256, 128)):
+    for M, cin, cout in ((5000, 64, 256), (3000, 256, 128), (2000, 384, 256)):
         x, w, sc, sh, dy, dsum, dssq = _conv_bn_inputs(rng, card, torch.bfloat16, M, cin, cout,
                                                        True)
         runs = []
