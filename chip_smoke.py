@@ -12,7 +12,7 @@ when any phase fails:
 
 1. build every kernel library from ``distributed_tensorflow_tpu_torch/ops/
    csrc`` (one nvcc per source, started together) and print ptxas's
-   report;
+   report: each kernel instantiation's mangled name, registers and spills;
 2. hold each kernel against its plain PyTorch version on the card at its
    path's shapes (serving, gpt_small: H=12, D=64, bs=16; d=768 — and the
    three flash kernels at the training shapes B=8, H=12, S=1024, D=64,
@@ -81,7 +81,10 @@ when any phase fails:
    f32 at two shapes, a bitwise repeat, timed against the bound, the plain
    version and the product alone in ``torch.matmul``; dx also with w a
    contiguous [cin, cout] array and at a ragged M at its main shape, and
-   its time split by kernel: the tiled product and the reduction.)
+   its time split by kernel: the tiled product and the reduction; and the
+   four kernels held to their plain versions and the single-pass kernel
+   timed against the dx + dw pair at ResNet-50's four stage-0
+   configurations, ``CONV_BN_STAGE0``.)
 7. print the ``kernels`` JSON line (twelve entries: ``ln_matmul`` is the
    serving forward at M=8, ``ln_matmul_train`` the tiled forward at
    M=8192), then the ``ok`` line last.
@@ -95,6 +98,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -941,8 +945,17 @@ CONV_BN_MAIN = {"conv_bn_fwd": (802816, 64, 256, True),
                 "conv_bn_bwd_dx": (200704, 128, 512, True),
                 "conv_bn_bwd_dw": (200704, 128, 512, True),
                 "conv_bn_bwd_single": (802816, 64, 256, True)}
-#: the dx wrapper's kernels, by the device name the profiler gives each
-CONV_DX_PARTS = {"product": "conv_bn_dx_kernel", "reduce": "reduce_kernel"}
+#: ResNet-50's four stage-0 single-pass configurations at batch 256 (conv3
+#: with the bn2 + ReLU prologue, the projection, conv1 of blocks 2-3 and of
+#: block 1), each held to the plain version like CONV_BN_SHAPES and timed
+#: against the dx + dw pair on the same inputs
+CONV_BN_STAGE0 = [(802816, 64, 256, True), (802816, 64, 256, False),
+                  (802816, 256, 64, False), (802816, 64, 64, False)]
+#: the dx and single-pass wrappers' kernels, by the device name the
+#: profiler gives each
+CONV_PARTS = {"conv_bn_bwd_dx": {"product": "conv_bn_dx_kernel", "reduce": "reduce_kernel"},
+              "conv_bn_bwd_single": {"sweep": "conv_bn_single_kernel",
+                                     "reduce": "reduce_kernel"}}
 #: rows cut from the dx main shape's M for its ragged-M check (the dx tile
 #: is 128 rows)
 CONV_DX_RAGGED = 40
@@ -1055,7 +1068,9 @@ def phase_conv_bn(torch, np):
                               c["x"], y, c["dy"], *aff, c["dsum"], c["dssq"]))
                           and torch.equal(dx, fcb.conv1x1_bn_bwd_dx(*bwd)[0])
                           and (single is None
-                               or torch.equal(single[1], fcb.conv1x1_bn_bwd_single(*bwd)[1]))):
+                               or all(a is None and b is None or torch.equal(a, b)
+                                      for a, b in zip(single,
+                                                      fcb.conv1x1_bn_bwd_single(*bwd))))):
             raise SmokeFailure(f"conv_bn {tag}: a second call is not bitwise equal")
         return y
 
@@ -1111,8 +1126,8 @@ def phase_conv_bn(torch, np):
                        plain_ms=plain["fwd" if kind == "fwd" else "bwd"]["device_ms"])
             row["bound_ms"], row["bound_by"] = conv_bn_bound_ms(c, kind, "bfloat16")
             split = ""
-            if n == "conv_bn_bwd_dx":
-                row["split"] = kernel_split(tk["by_name"], CONV_DX_PARTS, n)
+            if n in CONV_PARTS:
+                row["split"] = kernel_split(tk["by_name"], CONV_PARTS[n], n)
                 split = f"; device ms by kernel {fmt_split(row['split'])}"
             results[n]["rows"].append(row)
             log(f"    {n} M={M} {cin}->{cout}: kernel_ms={row['ms']:.5f} "
@@ -1125,6 +1140,24 @@ def phase_conv_bn(torch, np):
     for M, cin, cout in CONV_BN_F32_SHAPES:
         c = conv_bn_case(torch, np, rng, torch.float32, M, cin, cout, True)
         check(c, torch.float32, f"f32 M={M} {cin}->{cout} bn+relu prologue", timed=False)
+    log("  stage 0 at batch 256 (bf16): the kernels against their plain versions, then the "
+        "single-pass kernel timed against the dx + dw pair on the same inputs (device ms, "
+        "profiler)")
+    for M, cin, cout, prologue in CONV_BN_STAGE0:
+        c = conv_bn_case(torch, np, rng, torch.bfloat16, M, cin, cout, prologue)
+        aff = (c["scale"], c["shift"])
+        y = check(c, torch.bfloat16, f"bf16 stage 0 M={M} {cin}->{cout} "
+                  f"{'bn+relu prologue' if prologue else 'no prologue'}", timed=False)
+        bwd = (c["x"], y, c["dy"], c["w"], *aff, c["dsum"], c["dssq"])
+        ts = cuda_ms(torch, [lambda: fcb.conv1x1_bn_bwd_single(*bwd)], iters=20)["device_ms"]
+        tp = cuda_ms(torch, [lambda: (fcb.conv1x1_bn_bwd_dx(*bwd), fcb.conv1x1_bn_bwd_dw(
+            c["x"], y, c["dy"], *aff, c["dsum"], c["dssq"]))], iters=20)["device_ms"]
+        bound, by = conv_bn_bound_ms(c, "single", "bfloat16")
+        log(f"    M={M} {cin}->{cout} {'bn+relu prologue' if prologue else 'no prologue'}: "
+            f"single {ts:.5f}, dx + dw {tp:.5f} ({tp / ts:.2f}x the single); bound {bound:.5f} "
+            f"({by}), single at {bound / ts:.1%} of it")
+        del c, y, bwd
+        torch.cuda.empty_cache()
     for n in names:  # comparison launches do not count
         fcb.KERNELS[n].launches = before[n]
     for n in names:
@@ -1568,7 +1601,16 @@ def profile_resnet_step(torch, np, res, path):
         f"{100 - 100 * busy_ms / wall_ms:.1f}%)")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:20]:
         log(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
-    return {"wall_ms": wall_ms, "busy_ms": busy_ms}
+    conv = {}
+    for e in events:
+        # the port's kernels of fused_conv_bn.cu (PyTorch has a reduce_kernel too)
+        m = re.search(r"\(anonymous namespace\)::(conv_bn_\w+_kernel|reduce_kernel)\b", e.key)
+        if m:
+            ms, n = conv.get(m.group(1), (0.0, 0))
+            conv[m.group(1)] = (ms + e.self_device_time_total / 1e3, n + e.count)
+    log("  conv+BN kernels of the profiled step (device ms, launches): " + ", ".join(
+        f"{k} {ms:.3f} ({n}x)" for k, (ms, n) in sorted(conv.items())))
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "conv_bn": conv}
 
 
 def resnet_run_cfg():
@@ -1952,7 +1994,8 @@ def main() -> int:
         log(f"phase 1: built {sorted(reports)} in {time.perf_counter() - t0:.1f}s")
         for name, rep in reports.items():
             for line in rep.splitlines():
-                if "registers" in line or "spill" in line or "error" in line:
+                if any(k in line for k in ("Function properties for", "registers", "spill",
+                                           "error")):
                     log(f"  [{name}] {line.strip()}")
         kern = phase_kernels(torch, np, F)
         kern.update(phase_flash(torch, np, F))

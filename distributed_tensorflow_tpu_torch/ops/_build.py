@@ -106,6 +106,8 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
         # x, y, dy, w, sk, sn, scale, shift, dsum, dssq, dx, ws, dw, dscale, dshift
         **{f"conv_bn_bwd_single_{s}": (_c_void_p,) * 4 + _W_STRIDES + (_c_void_p,) * 9
            + _CONV_TAIL for s in ("f32", "bf16")},
+        # 0, 1 -> the single-pass tile's rows, CTAs an SM
+        "conv_bn_single_tile": (_c_int,),
     },
 }
 

@@ -29,9 +29,9 @@
 // written), the statistics are summed from the y tile in shared memory (y is
 // never read back), and the backward recomputes h from x. Products are
 // mma.sync m16n8k16 bf16 tiles (f32 inputs: the same tile loops on CUDA
-// cores, for checks). The forward, dw and single-pass kernels are the first,
-// simple design: 64x64 tiles, 4 warps, synchronous 16-byte staging, no
-// cp.async pipelining, no wgmma.
+// cores, for checks). The forward and dw kernels are the first, simple
+// design: 64x64 tiles, 4 warps, synchronous 16-byte staging, no cp.async
+// pipelining, no wgmma.
 //
 // The dx kernel is built on tile_mma.cuh (the LN+matmul products'
 // machinery). dh = g @ w^T is a 2-D tiled product: each CTA owns 128 rows of
@@ -51,12 +51,23 @@
 // it at each shape is in PERF.md: past stage 0 the per-stage loop of one CTA
 // of 8 warps an SM (mma.sync, the g pass and its second barrier), not HBM.
 //
+// The single-pass kernel (ResNet-50's stage 0, where the f32 [cin, cout] dw
+// fits one CTA's registers) fuses the two on the same machinery (ldmatrix
+// fragments for both products, the cp.async ring, g formed in place, the
+// epilogue from the registers): one persistent CTA an SM keeps w
+// resident in shared memory and the whole dw accumulator in registers, and
+// streams its 64-row M tiles of dy, y and x through a cp.async ring once,
+// for dx, dscale, dshift and dw. Its bound is HBM (x, y, dy read once, dx
+// written once) as long as the two mma.sync products, the g pass and the
+// ring's barriers of a tile take less than its copies; the design at the
+// kernel.
+//
 // Reductions over M (the statistics, dscale/dshift, dw) use no float atomics:
 // the TPU kernels carry them across a sequential grid axis; here the M tiles
 // are dealt to G chunks (chunk c takes tiles c, c+G, ...), each CTA writes
 // its chunk's partial to a workspace, and reduce_kernel sums the G partials
-// of each output in chunk order. G is a function of the shapes alone (the
-// wrapper's), so a step is bitwise repeatable run to run.
+// of each output in chunk order. G is a function of the shapes and the
+// card's SM count (the wrapper's), so a step is bitwise repeatable run to run.
 //
 // Layout requirements (the wrapper checks, the launchers re-check): cin and
 // cout multiples of 8; x, y, dy, dx contiguous with 16-byte aligned bases; w
@@ -269,58 +280,6 @@ __device__ __forceinline__ void stage_w(T* dst, int ld, const T* __restrict__ w,
       const T* e = reinterpret_cast<const T*>(&v);
 #pragma unroll
       for (int j = 0; j < V; ++j) dst[(n + j) * ld + k] = e[j];
-    }
-  }
-}
-
-// The dgrad epilogue of one warp's 16 x BN fragment dh (rows rw.., columns
-// c0.. of cin): with the prologue, the ReLU mask from x (read from the shared
-// x tile xs, row pitch ldx), dx = dh*scale, and the warp's column sums of
-// dh*x and dh into red[0/1][warp][column]; without it dx = dh. dx is stored
-// straight from the fragments, two columns per store.
-template <typename T>
-__device__ __forceinline__ void dh_epilogue(const float (&acc)[NT][4], const T* xs, int ldx,
-                                            const Prologue& pro, int c0, int rw, int M, int C,
-                                            T* __restrict__ dx, float* red, int warp, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    const int col = 8 * j + 2 * t, gc = c0 + col;
-    float sx[2] = {0.f, 0.f}, sd[2] = {0.f, 0.f};
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = g + 8 * h, row = rw + r;
-      float out[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        float d = acc[j][2 * h + e];
-        out[e] = d;
-        if (pro.on && gc + e < C) {
-          const float xv = row < M ? to_f32(xs[r * ldx + col + e]) : 0.f;
-          if (pro.relu && !(xv * pro.scale[gc + e] + pro.shift[gc + e] > 0.f)) d = 0.f;
-          out[e] = d * pro.scale[gc + e];
-          sx[e] += d * xv;
-          sd[e] += d;
-        }
-      }
-      if (row < M && gc < C) store2(dx + (size_t)row * C + gc, out[0], out[1]);
-    }
-    if (pro.on) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-#pragma unroll
-        for (int o = 4; o < 32; o <<= 1) {
-          sx[e] += __shfl_xor_sync(0xffffffffu, sx[e], o);
-          sd[e] += __shfl_xor_sync(0xffffffffu, sd[e], o);
-        }
-      }
-      if (g == 0) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          red[(0 * kWarps + warp) * BN + col + e] = sx[e];
-          red[(1 * kWarps + warp) * BN + col + e] = sd[e];
-        }
-      }
     }
   }
 }
@@ -574,7 +533,8 @@ conv_bn_dx_kernel(const T* __restrict__ x, const T* __restrict__ y, const T* __r
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
               float d = out[e];
-              if (pro.relu && !(xe[e] * sc[j][e] + sh[j][e] > 0.f)) d = 0.f;
+              // the mask as the plain version rounds it (product, then sum; no fma)
+              if (pro.relu && !(__fadd_rn(__fmul_rn(xe[e], sc[j][e]), sh[j][e]) > 0.f)) d = 0.f;
               out[e] = d * sc[j][e];
               sx[j][e] += d * xe[e];
               sd[j][e] += d;
@@ -661,93 +621,247 @@ conv_bn_dw_kernel(const T* __restrict__ x, const T* __restrict__ y, const T* __r
 // backward, single pass: dx, dscale, dshift and dw in one sweep over x, y, dy
 // ---------------------------------------------------------------------------
 
-// grid (G): CTA c sweeps the M tiles c, c+G, ... with w resident in shared
-// memory and its whole [cin, cout] f32 dw partial accumulated there; the
-// partials go to ws: dw [G][cin][cout], then dscale/dshift [2][G][cin].
-// cinp/coutp are cin/cout rounded up to BN.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// The single-pass kernel on tile_mma.cuh. One persistent CTA an SM (8
+// warps) walks the M tiles c, c+G, ... of kSingleRows rows as one sequence
+// through a cp.async ring; w lies resident in shared memory for the whole
+// sweep. A ring stage holds one M tile: dy [BM][LDG] (cout contiguous;
+// rewritten in place as g with the statistics), y [BM][LDG] (staged only
+// with the statistics) and x [BM][LDX] (rewritten in place as h with the
+// prologue). w lands once, as it lies: Ws[COUTP][LDX] for the OIHW view
+// (cin contiguous, read by ldmatrix.trans) or Ws[CINP][LDG] for a
+// contiguous [cin, cout] w (ldmatrix). CINP/COUTP are cin/cout rounded up
+// to 64; the wrapper's rule (ceil64(cin) * ceil64(cout) <= 16384) leaves
+// eight pairs, each its own instantiation.
+//
+// Shared memory, bf16 (pitches padded by 16 bytes; the budget is the 227 KB
+// a CTA may hold): at 64->256 a stage is 64 * (2 * 264 + 72) * 2 = 76800
+// bytes and w 256 * 72 * 2 = 36864, so two stages fit (190464 bytes) and
+// three do not; at 256->64 a stage is 52224 and w 36864: three stages
+// (193536); 64->64 and 128->64 take four, 128->128 three. f32 (checks
+// only, never timed) takes what fits: one stage at 64->256, 256->64 and
+// 128->128.
+//
+// Per tile: (1) with the statistics, g = dy + dsum + 2*y*dssq in place over
+// the staged dy, rows past M left zero, then one barrier; (2) dh = g w^T,
+// [BM][CINP] over COUTP, RG x CG warps of (16 MI) x (8 NJ) register tiles;
+// (3) the epilogue from the registers: the ReLU mask from the staged x,
+// dx = dh*scale in two-column stores, per-lane sums of dh*x and dh over
+// all of the CTA's tiles, and h = prologue(x), rounded, written over the x
+// it came from (each x element belongs to one lane's dh tile, so no
+// barrier comes between the read and the write), then one barrier; (4) dw
+// += h^T g, [CINP][COUTP] over the BM rows, both operands row-major and
+// read by ldmatrix.trans, RW x CW warps of (16 MW) x (8 NW). The dw
+// accumulator (at most 16384 f32: 64 registers a thread) stays in
+// registers across all of the CTA's tiles and is written once, as the
+// CTA's partial; so are the sums, after one shuffle tree and a fixed-order
+// add over the row-warps.
+constexpr int kSingleRows = 64;       // rows of an M tile
+constexpr int kSingleCtasPerSm = 1;   // the ring and w fill the shared memory
+constexpr size_t kSmemMax = 232448;   // what one CTA may hold (227 KB)
+
+template <typename T, int CINP, int COUTP>
+struct Single {
+  static constexpr int V = 16 / sizeof(T);
+  static constexpr int BM = kSingleRows;
+  static constexpr int LDG = tile::pad_ld<T>(COUTP), LDX = tile::pad_ld<T>(CINP);
+  static constexpr int W_ELEMS = COUTP * LDX > CINP * LDG ? COUTP * LDX : CINP * LDG;
+  static constexpr size_t W_BYTES = sizeof(T) * W_ELEMS;
+  static constexpr size_t STAGE = sizeof(T) * BM * (2 * LDG + LDX);
+  static constexpr int FIT = (int)((kSmemMax - W_BYTES) / STAGE);
+  static constexpr int STAGES = FIT < 4 ? FIT : 4;
+  static constexpr size_t SMEM = W_BYTES + STAGES * STAGE;
+  // dh [BM][CINP]: RG x CG warps of (16 MI) x (8 NJ)
+  static constexpr int MI = CINP == 256 ? 4 : 2, RG = BM / (16 * MI), CG = tile::WARPS / RG;
+  static constexpr int NJ = CINP / (8 * CG);
+  // dw [CINP][COUTP]: RW x CW warps of (16 MW) x (8 NW)
+  static constexpr int NW = COUTP == 192 ? 6 : 4, CW = COUTP / (8 * NW), RW = tile::WARPS / CW;
+  static constexpr int MW = CINP / (16 * RW);
+  // g pass: 16-byte chunks a row, rows a sweep of the CTA's threads
+  static constexpr int P = COUTP / V, RSTEP = tile::THREADS / P;
+  static_assert(STAGES >= 1 && STAGE % 16 == 0 && W_BYTES % 16 == 0, "the ring fits, aligned");
+  static_assert(RG * CG == tile::WARPS && CG * 8 * NJ == CINP && NJ % 2 == 0, "dh warp tiles");
+  static_assert(RW * CW == tile::WARPS && RW * 16 * MW == CINP && CW * 8 * NW == COUTP &&
+                    MW * NW <= 16,
+                "dw warp tiles, at most 64 accumulators a thread");
+  static_assert(RSTEP >= 1 && 2 * RG * CINP * sizeof(float) <= STAGES * STAGE, "scratch");
+};
+
+template <typename T, int CINP, int COUTP>
+__global__ void __launch_bounds__(tile::THREADS, kSingleCtasPerSm)
 conv_bn_single_kernel(const T* __restrict__ x, const T* __restrict__ y, const T* __restrict__ dy,
                       const T* __restrict__ w, long long sk, long long sn, Prologue pro,
                       const float* __restrict__ dsum, const float* __restrict__ dssq, bool stats,
                       T* __restrict__ dx, float* __restrict__ ws, int M, int cin, int cout,
-                      int G, int cinp, int coutp) {
+                      int G) {
+  using S = Single<T, CINP, COUTP>;
+  constexpr int V = S::V, BM = S::BM, STAGES = S::STAGES, THREADS = tile::THREADS;
+  constexpr int MI = S::MI, NJ = S::NJ, MW = S::MW, NW = S::NW, LDG = S::LDG, LDX = S::LDX;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int ldg = pad_ld<T>(coutp), ldx = pad_ld<T>(cinp);
-  float* dws = reinterpret_cast<float*>(smem);  // [cinp][coutp] dw accumulator
-  float* red = dws + cinp * coutp;              // [2][kWarps][BN]
-  float* run = red + 2 * kWarps * BN;           // [2][cinp] dscale, dshift
-  T* Ws = reinterpret_cast<T*>(run + 2 * cinp);  // [cinp][ldg] B(k = cout, n = cin)
-  T* Gs = Ws + cinp * ldg;                       // [BM][ldg] g tile
-  T* Xs = Gs + BM * ldg;                         // [BM][ldx] x tile, then h
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int mtiles = (M + BM - 1) / BM, nb = coutp / BN;
-  for (int i = tid; i < cinp * coutp; i += kThreads) dws[i] = 0.f;
-  for (int i = tid; i < 2 * cinp; i += kThreads) run[i] = 0.f;
-  stage_w<T>(Ws, ldg, w, sn, sk, cout, cin, 0, 0, coutp, cinp);
-  for (int mt = blockIdx.x; mt < mtiles; mt += G) {
-    const int r0 = mt * BM;
-    __syncthreads();
-    stage_g<T, false>(Gs, ldg, dy, y, dsum, dssq, stats, M, cout, r0, 0, BM, coutp);
-    stage<T, false>(Xs, ldx, x, M, cin, r0, 0, BM, cinp, [](float v, int) { return v; });
-    __syncthreads();
-    for (int c0 = 0; c0 < cinp; c0 += BN) {
-      float acc[NT][4];
-      zero(acc);
-      warp_mma(acc, Gs + warp * 16 * ldg, ldg, 1, Ws + c0 * ldg, ldg, 1, coutp, lane);
-      dh_epilogue<T>(acc, Xs + warp * 16 * ldx + c0, ldx, pro, c0, r0 + warp * 16, M, cin, dx,
-                     red, warp, lane);
-      __syncthreads();
-      if (pro.on) {
-        const int q = tid / BN, col = tid % BN;
-        run[q * cinp + c0 + col] += red[(q * kWarps + 0) * BN + col] +
-                                    red[(q * kWarps + 1) * BN + col] +
-                                    red[(q * kWarps + 2) * BN + col] +
-                                    red[(q * kWarps + 3) * BN + col];
-      }
-      __syncthreads();
-    }
-    if (pro.on) {  // h = prologue(x), rounded, in place (padding rows/columns stay 0)
-      for (int i = tid; i < BM * cinp; i += kThreads) {
-        const int r = i / cinp, c = i - r * cinp;
-        if (r0 + r < M && c < cin) Xs[r * ldx + c] = from_f32<T>(pro(to_f32(Xs[r * ldx + c]), c));
-      }
-      __syncthreads();
-    }
-    // dw += h^T g over this tile's rows: A(m = cin, k = row) = Xs[k*ldx + m],
-    // B(k = row, n = cout) = Gs[k*ldg + n]; the accumulator round-trips
-    // through shared memory in the fragment layout
-    for (int b = warp; b < (cinp / 16) * nb; b += kWarps) {
-      const int mb = b / nb, n0 = (b - mb * nb) * BN;
-      float* d0 = dws + (mb * 16 + g) * coutp + n0 + 2 * t;
-      float* d1 = d0 + 8 * coutp;
-      float acc[NT][4];
+  T* Ws = reinterpret_cast<T*>(smem);
+  unsigned char* ring = smem + S::W_BYTES;
+  const int c = blockIdx.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int wm = warp / S::CG * 16 * MI, wn = warp % S::CG * 8 * NJ;  // this warp's dh tile
+  const int dm = warp / S::CW * 16 * MW, dn = warp % S::CW * 8 * NW;  // ... and dw tile
+  const int mtiles = (M + BM - 1) / BM;
+  const int tiles = c < mtiles ? (mtiles - 1 - c) / G + 1 : 0;
+  const bool kmajor = sk != 1;  // w's layout, as dx_load reads it
+  if (kmajor)  // cout contiguous: Ws[n = cin][k = cout]
+    tile::copy_tile<T, CINP * COUTP / V, COUTP / V>(Ws, LDG, w, sk, 0, cin, 0, cout);
+  else  // cin contiguous: Ws[k = cout][n = cin]
+    tile::copy_tile<T, COUTP * CINP / V, CINP / V>(Ws, LDX, w, sn, 0, cout, 0, cin);
+  auto load = [&](int f) {  // M tile f of this CTA into its ring slot; past M zero-filled
+    T* Ds = reinterpret_cast<T*>(ring + f % STAGES * S::STAGE);
+    const int m0 = (c + f * G) * BM;
+    tile::copy_tile<T, BM * COUTP / V, COUTP / V>(Ds, LDG, dy, cout, m0, M, 0, cout);
+    if (stats)
+      tile::copy_tile<T, BM * COUTP / V, COUTP / V>(Ds + BM * LDG, LDG, y, cout, m0, M, 0, cout);
+    tile::copy_tile<T, BM * CINP / V, CINP / V>(Ds + 2 * BM * LDG, LDX, x, cin, m0, M, 0, cin);
+  };
+  // the g pass's columns gcol.. (rows grow, grow + RSTEP, ...) and their dsum, dssq
+  const int gcol = threadIdx.x % S::P * V, grow = threadIdx.x / S::P;
+  float ds[V], dq[V];
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        acc[j][0] = d0[8 * j], acc[j][1] = d0[8 * j + 1];
-        acc[j][2] = d1[8 * j], acc[j][3] = d1[8 * j + 1];
-      }
-      warp_mma(acc, Xs + mb * 16, 1, ldx, Gs + n0, 1, ldg, BM, lane);
+  for (int q = 0; q < V; ++q) {
+    const bool ok = stats && gcol + q < cout;
+    ds[q] = ok ? dsum[gcol + q] : 0.f;
+    dq[q] = ok ? dssq[gcol + q] : 0.f;
+  }
+  // the epilogue's scale, shift and running sums of this lane's dh columns
+  float sc[NJ][2], sh[NJ][2], sx[NJ][2], sd[NJ][2];
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        d0[8 * j] = acc[j][0], d0[8 * j + 1] = acc[j][1];
-        d1[8 * j] = acc[j][2], d1[8 * j + 1] = acc[j][3];
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = wn + 8 * j + 2 * t + e;
+      sc[j][e] = pro.on && col < cin ? pro.scale[col] : 0.f;
+      sh[j][e] = pro.on && col < cin ? pro.shift[col] : 0.f;
+      sx[j][e] = sd[j][e] = 0.f;
+    }
+  float dacc[MW][NW][4];
+  tile::zero(dacc);
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {  // w rides in the first group
+    if (s < tiles) load(s);
+    tile::cp_async_commit();
+  }
+  for (int f = 0; f < tiles; ++f) {
+    if constexpr (STAGES == 1) {  // f32 at the widest pairs: no copy overlaps the compute
+      if (f) __syncthreads();     // tile f - 1 is consumed
+      load(f);
+      tile::cp_async_commit();
+      tile::cp_async_wait<0>();
+    } else {
+      tile::cp_async_wait<STAGES - 2>();  // tile f has landed (this thread's copies)
+    }
+    __syncthreads();  // ... everyone's; tile f - 1 is consumed
+    if constexpr (STAGES > 1) {
+      if (f + STAGES - 1 < tiles) load(f + STAGES - 1);
+      tile::cp_async_commit();
+    }
+    T* Ds = reinterpret_cast<T*>(ring + f % STAGES * S::STAGE);
+    T* Xs = Ds + 2 * BM * LDG;
+    const int m0 = (c + f * G) * BM;
+    if (stats) {
+#pragma unroll
+      for (int u = 0; u < (BM + S::RSTEP - 1) / S::RSTEP; ++u) {
+        const int r = grow + u * S::RSTEP;
+        if (grow < S::RSTEP && r < BM && m0 + r < M)  // rows past M stay zero (g = 0, not dsum)
+          g_chunk(Ds + r * LDG + gcol, Ds + (BM + r) * LDG + gcol, ds, dq);
+      }
+      __syncthreads();  // g is whole
+    }
+    float acc[MI][NJ][4];
+    tile::zero(acc);
+    if (kmajor)  // one copy of the loop per w layout: constant pitches
+      tile::warp_tile_rows<MI, NJ, false, COUTP>(acc, Ds, LDG, Ws, LDG, false, wm, wn, lane);
+    else
+      tile::warp_tile_rows<MI, NJ, false, COUTP>(acc, Ds, LDG, Ws, LDX, true, wm, wn, lane);
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wm + 16 * i + g + 8 * h, row = m0 + r;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const int col = wn + 8 * j + 2 * t;
+          float out[2] = {acc[i][j][2 * h], acc[i][j][2 * h + 1]};
+          if (pro.on) {
+            T* xp = Xs + r * LDX + col;
+            const float2 xv = load2(xp);
+            const float xe[2] = {xv.x, xv.y};
+            float hv[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              // the product rounded, then the sum, as the plain version does: a
+              // contracted fma can put a bf16 x that cancels shift on the other
+              // side of the mask
+              const float a = __fadd_rn(__fmul_rn(xe[e], sc[j][e]), sh[j][e]);
+              float d = out[e];
+              if (pro.relu && !(a > 0.f)) d = 0.f;
+              out[e] = d * sc[j][e];
+              sx[j][e] += d * xe[e];
+              sd[j][e] += d;
+              hv[e] = pro.relu ? fmaxf(a, 0.f) : a;
+            }
+            store2(xp, hv[0], hv[1]);  // h, rounded to T, over the x it came from
+          }
+          if (row < M && col < cin) store2(dx + (size_t)row * cin + col, out[0], out[1]);
+        }
+      }
+    if (pro.on) __syncthreads();  // h is whole
+    tile::warp_tile_rows<MW, NW, true, BM>(dacc, Xs, LDX, Ds, LDG, true, dm, dn, lane);
+  }
+  tile::cp_async_wait<0>();
+  // the CTA's dw partial: ws[c][cin][cout]
+  float* part = ws + (size_t)c * cin * cout;
+#pragma unroll
+  for (int i = 0; i < MW; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = dm + 16 * i + g + 8 * h;
+      if (m >= cin) continue;
+#pragma unroll
+      for (int j = 0; j < NW; ++j) {
+        const int n = dn + 8 * j + 2 * t;
+        if (n < cout) store2(part + (size_t)m * cout + n, dacc[i][j][2 * h], dacc[i][j][2 * h + 1]);
       }
     }
+  if (!pro.on) return;
+  // dscale, dshift: over the warp's rows (shuffles), then the RG row-warps in
+  // order into ws[G * cin * cout + (q * G + c) * cin]; rows past M and
+  // columns past cin added zeros (dh is 0 there)
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) {
+        sx[j][e] += __shfl_xor_sync(0xffffffffu, sx[j][e], o);
+        sd[j][e] += __shfl_xor_sync(0xffffffffu, sd[j][e], o);
+      }
+  __syncthreads();  // every warp is done with the ring
+  float* red = reinterpret_cast<float*>(ring);  // [2 (dscale, dshift)][RG][CINP]
+  if (g == 0) {
+    const int rg = warp / S::CG;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = wn + 8 * j + 2 * t + e;
+        red[(0 * S::RG + rg) * CINP + col] = sx[j][e];
+        red[(1 * S::RG + rg) * CINP + col] = sd[j][e];
+      }
   }
   __syncthreads();
-  float* part = ws + (size_t)blockIdx.x * cin * cout;
-  for (int i = tid; i < cin * cout; i += kThreads) {
-    const int m = i / cout, n = i - m * cout;
-    part[i] = dws[m * coutp + n];
-  }
-  if (pro.on) {
-    float* sp = ws + (size_t)G * cin * cout;
-    for (int i = tid; i < 2 * cin; i += kThreads) {
-      const int q = i / cin, c = i - q * cin;
-      sp[((size_t)q * G + blockIdx.x) * cin + c] = run[q * cinp + c];
-    }
+  float* sp = ws + (size_t)G * cin * cout;
+  for (int i = threadIdx.x; i < 2 * CINP; i += THREADS) {
+    const int q = i / CINP, col = i % CINP;
+    if (col >= cin) continue;
+    float v = red[q * S::RG * CINP + col];
+#pragma unroll
+    for (int rg = 1; rg < S::RG; ++rg) v += red[(q * S::RG + rg) * CINP + col];
+    sp[((size_t)q * G + c) * cin + col] = v;
   }
 }
 
@@ -864,11 +978,18 @@ int launch_dw(const void* x, const void* y, const void* dy, const void* scale, c
   return reduce((const float*)ws, (float*)dw, G, (long long)cin * cout, st);
 }
 
-template <typename T>
-size_t single_smem(int cin, int cout) {
-  const int cinp = round_up(cin, BN), coutp = round_up(cout, BN);
-  return sizeof(float) * ((size_t)cinp * coutp + 2 * kWarps * BN + 2 * cinp) +
-         sizeof(T) * ((size_t)(cinp + BM) * pad_ld<T>(coutp) + (size_t)BM * pad_ld<T>(cinp));
+template <typename T, int CINP, int COUTP>
+int launch_single_tiles(const T* x, const T* y, const T* dy, const T* w, long long sk,
+                        long long sn, const Prologue& pro, const float* dsum, const float* dssq,
+                        bool stats, T* dx, float* ws, int M, int cin, int cout, int G,
+                        cudaStream_t st) {
+  using S = Single<T, CINP, COUTP>;
+  auto kern = conv_bn_single_kernel<T, CINP, COUTP>;
+  int e = set_smem(kern, S::SMEM);
+  if (e) return e;
+  kern<<<G, tile::THREADS, S::SMEM, st>>>(x, y, dy, w, sk, sn, pro, dsum, dssq, stats, dx, ws, M,
+                                          cin, cout, G);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -880,18 +1001,25 @@ int launch_single(const void* x, const void* y, const void* dy, const void* w, l
   if (!shapes_ok<T>(M, cin, cout, G) || !w_ok<T>(w, sk, sn, cin, cout) || !aligned<T>(x) ||
       !aligned<T>(y) || !aligned<T>(dy) || !aligned<T>(dx))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = single_smem<T>(cin, cout);
-  if (smem > 232448) return (int)cudaErrorInvalidValue;  // the wrapper's rule keeps it under
   cudaStream_t st = (cudaStream_t)stream;
   const Prologue pro{(const float*)scale, (const float*)shift, prologue != 0, relu != 0};
-  auto kern = conv_bn_single_kernel<T>;
-  int e = set_smem(kern, smem);
-  if (e) return e;
-  kern<<<G, kThreads, smem, st>>>((const T*)x, (const T*)y, (const T*)dy, (const T*)w, sk, sn,
-                                  pro, (const float*)dsum, (const float*)dssq, stats != 0,
-                                  (T*)dx, (float*)ws, M, cin, cout, G, round_up(cin, BN),
-                                  round_up(cout, BN));
-  e = (int)cudaGetLastError();
+  const int cinp = round_up(cin, 64), coutp = round_up(cout, 64);
+#define DTF_SINGLE_TILES(CI, CO)                                                               \
+  launch_single_tiles<T, CI, CO>((const T*)x, (const T*)y, (const T*)dy, (const T*)w, sk, sn, \
+                                 pro, (const float*)dsum, (const float*)dssq, stats != 0,     \
+                                 (T*)dx, (float*)ws, M, cin, cout, G, st)
+  // the eight (ceil64(cin), ceil64(cout)) pairs of the wrapper's rule
+  int e;
+  if (cinp == 64 && coutp == 64) e = DTF_SINGLE_TILES(64, 64);
+  else if (cinp == 64 && coutp == 128) e = DTF_SINGLE_TILES(64, 128);
+  else if (cinp == 64 && coutp == 192) e = DTF_SINGLE_TILES(64, 192);
+  else if (cinp == 64 && coutp == 256) e = DTF_SINGLE_TILES(64, 256);
+  else if (cinp == 128 && coutp == 64) e = DTF_SINGLE_TILES(128, 64);
+  else if (cinp == 128 && coutp == 128) e = DTF_SINGLE_TILES(128, 128);
+  else if (cinp == 192 && coutp == 64) e = DTF_SINGLE_TILES(192, 64);
+  else if (cinp == 256 && coutp == 64) e = DTF_SINGLE_TILES(256, 64);
+  else return (int)cudaErrorInvalidValue;  // outside the rule: the dx + dw pair's shapes
+#undef DTF_SINGLE_TILES
   if (e) return e;
   e = reduce((const float*)ws, (float*)dw, G, (long long)cin * cout, st);
   if (e || !prologue) return e;
@@ -956,6 +1084,10 @@ int conv_bn_bwd_single_f32(DTF_SINGLE_ARGS) { return launch_single<float>(DTF_SI
 int conv_bn_bwd_single_bf16(DTF_SINGLE_ARGS) {
   return launch_single<__nv_bfloat16>(DTF_SINGLE_PASS);
 }
+
+// The single-pass kernel's plan inputs for the wrapper's G: 0 -> rows of M
+// a tile, 1 -> CTAs an SM (both dtypes and every channel pair take the same)
+int conv_bn_single_tile(int what) { return what == 0 ? kSingleRows : kSingleCtasPerSm; }
 
 const char* dtf_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 

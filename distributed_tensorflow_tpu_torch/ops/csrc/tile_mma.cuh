@@ -4,9 +4,10 @@
 // warp tiles with f32 accumulation; the same warp tile in f32 on CUDA cores.
 //
 // A CTA of 8 warps (2 x 4) owns a 128 x (4 * WN) output tile; each warp a
-// 64 x WN register tile, acc[i][j] the m16n8 fragment at rows wm + 16i..,
-// columns wn + 8j..: lane (g = lane / 4, t = lane % 4) holds rows g and
-// g + 8, columns 2t and 2t + 1 (the PTX fragment layout). Each operand tile
+// 64 x WN register tile (warp_tile_rows: any 16 MI rows), acc[i][j] the
+// m16n8 fragment at rows wm + 16i.., columns wn + 8j..: lane (g = lane / 4,
+// t = lane % 4) holds rows g and g + 8, columns 2t and 2t + 1 (the PTX
+// fragment layout). Each operand tile
 // lies in shared memory either with the contraction index contiguous or
 // with the output index contiguous; ldmatrix reads the first as it lies and
 // the second with .trans, so no operand is ever transposed by scalar loads.
@@ -85,10 +86,10 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <int NJ>
-__device__ __forceinline__ void zero(float (&acc)[4][NJ][4]) {
+template <int MI, int NJ>
+__device__ __forceinline__ void zero(float (&acc)[MI][NJ][4]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < MI; ++i)
 #pragma unroll
     for (int j = 0; j < NJ; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
 }
@@ -111,22 +112,22 @@ __device__ __forceinline__ void copy_tile(T* dst, int ld, const T* __restrict__ 
   }
 }
 
-// One warp's 64 x (8 NJ) tile += A (64 x KB) B (KB x 8 NJ), KB a multiple
-// of 16, both operands in shared memory, with mma.sync on ldmatrix
+// One warp's (16 MI) x (8 NJ) tile += A (16 MI x KB) B (KB x 8 NJ), KB a
+// multiple of 16, both operands in shared memory, with mma.sync on ldmatrix
 // fragments. A_T false: A(m, k) = As[m * lda + k] (k contiguous);
 // true: As[k * lda + m]. b_t false: B(k, c) = Bs[c * ldb + k]; true:
 // Bs[k * ldb + c]. wm, wn: the warp tile's first row and column.
-template <int NJ, bool A_T, int KB>
-__device__ __forceinline__ void warp_tile(float (&acc)[4][NJ][4], const __nv_bfloat16* As,
-                                          int lda, const __nv_bfloat16* Bs, int ldb, bool b_t,
-                                          int wm, int wn, int lane) {
+template <int MI, int NJ, bool A_T, int KB>
+__device__ __forceinline__ void warp_tile_rows(float (&acc)[MI][NJ][4], const __nv_bfloat16* As,
+                                               int lda, const __nv_bfloat16* Bs, int ldb,
+                                               bool b_t, int wm, int wn, int lane) {
   static_assert(NJ % 2 == 0 && KB % 16 == 0, "two n8 columns, 16 of k at a time");
 #pragma unroll
   for (int kk = 0; kk < KB; kk += 16) {
-    uint32_t a[4][4];
+    uint32_t a[MI][4];
     // A: matrices (rows 0-7, k 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < MI; ++i) {
       if (A_T)
         ldsm_x4_trans(a[i], As + (kk + (lane & 7) + 8 * (lane >> 4)) * lda + wm + 16 * i +
                                 8 * ((lane >> 3) & 1));
@@ -146,7 +147,7 @@ __device__ __forceinline__ void warp_tile(float (&acc)[4][NJ][4], const __nv_bfl
         ldsm_x4(b, Bs + (wn + 8 * j + (lane & 7) + 8 * (lane >> 4)) * ldb + kk +
                        8 * ((lane >> 3) & 1));
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < MI; ++i) {
         mma_bf16(acc[i][j], a[i], b[0], b[1]);
         mma_bf16(acc[i][j + 1], a[i], b[2], b[3]);
       }
@@ -156,15 +157,15 @@ __device__ __forceinline__ void warp_tile(float (&acc)[4][NJ][4], const __nv_bfl
 
 // The same warp tile in f32 on CUDA cores, in the same fragment layout,
 // each output summed over k in order (exact to f32 rounding).
-template <int NJ, bool A_T, int KB>
-__device__ __forceinline__ void warp_tile(float (&acc)[4][NJ][4], const float* As, int lda,
-                                          const float* Bs, int ldb, bool b_t, int wm, int wn,
-                                          int lane) {
+template <int MI, int NJ, bool A_T, int KB>
+__device__ __forceinline__ void warp_tile_rows(float (&acc)[MI][NJ][4], const float* As, int lda,
+                                               const float* Bs, int ldb, bool b_t, int wm, int wn,
+                                               int lane) {
   const int g = lane >> 2, t = lane & 3;
   for (int k = 0; k < KB; ++k) {
-    float a[4][2];
+    float a[MI][2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < MI; ++i) {
       const int m = wm + 16 * i + g;
       a[i][0] = A_T ? As[k * lda + m] : As[m * lda + k];
       a[i][1] = A_T ? As[k * lda + m + 8] : As[(m + 8) * lda + k];
@@ -175,7 +176,7 @@ __device__ __forceinline__ void warp_tile(float (&acc)[4][NJ][4], const float* A
       const float b0 = b_t ? Bs[k * ldb + c] : Bs[c * ldb + k];
       const float b1 = b_t ? Bs[k * ldb + c + 1] : Bs[(c + 1) * ldb + k];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < MI; ++i) {
         acc[i][j][0] = fmaf(a[i][0], b0, acc[i][j][0]);
         acc[i][j][1] = fmaf(a[i][0], b1, acc[i][j][1]);
         acc[i][j][2] = fmaf(a[i][1], b0, acc[i][j][2]);
@@ -183,6 +184,14 @@ __device__ __forceinline__ void warp_tile(float (&acc)[4][NJ][4], const float* A
       }
     }
   }
+}
+
+// The 64-row warp tile of the 2 x 4 warp layout (either element type)
+template <int NJ, bool A_T, int KB, typename T>
+__device__ __forceinline__ void warp_tile(float (&acc)[4][NJ][4], const T* As, int lda,
+                                          const T* Bs, int ldb, bool b_t, int wm, int wn,
+                                          int lane) {
+  warp_tile_rows<4, NJ, A_T, KB>(acc, As, lda, Bs, ldb, b_t, wm, wn, lane);
 }
 
 // 8 consecutive elements (16-byte aligned): raw, then as f32

@@ -42,16 +42,13 @@ from . import _build
 from ._policy import mm_exact, mm_library, resolve_bwd_impl
 from .fused_ln_matmul import _sms
 
-#: tile edge of the forward, dw and single-pass kernels (rows of an M
-#: tile, columns of a channel tile)
+#: tile edge of the forward and dw kernels (rows of an M tile, columns of
+#: a channel tile), and the channel granule of the single-pass rule
 TILE = 64
 #: CTAs the forward and dw grids aim to keep resident (132 SMs x 8)
 RESIDENT_CTAS = 1056
-#: CTAs of the single-pass kernel: one per SM of an H100 (it holds ~150 KB
-#: of shared memory, so one fits an SM)
-SINGLE_PASS_CTAS = 132
-#: f32 elements of the largest dw partial one single-pass CTA accumulates
-#: in shared memory (64 KB)
+#: f32 elements of the largest dw partial one single-pass CTA holds in
+#: registers across its sweep (64 a thread of its 256)
 SINGLE_PASS_DW_ELEMS = 16384
 
 
@@ -62,17 +59,18 @@ def _round_up(a: int, m: int) -> int:
 def single_pass(cin: int, cout: int) -> bool:
     """The port's single-pass vs two-pass rule for ``bwd_impl="pallas"``:
     single-pass when one CTA's f32 ``[cin, cout]`` dw partial (each dim
-    rounded up to the 64-wide tile) fits its 64 KB budget in shared
-    memory, i.e. ``ceil64(cin) * ceil64(cout) <= 16384``. At ResNet-50's
-    shapes that is every stage-0 1x1 conv (64→64, 64→256, 256→64: 7 a
-    step) and none after (29 a step run the dx + dw pair).
+    rounded up to 64) fits its registers, 64 a thread of 256, i.e.
+    ``ceil64(cin) * ceil64(cout) <= 16384``. At ResNet-50's shapes that is
+    every stage-0 1x1 conv (64→64, 64→256, 256→64: 7 a step) and none
+    after (29 a step run the dx + dw pair).
 
-    The rule says where the single-pass kernel can run, not where it is
-    faster: today it is not. On an H100 at batch 256 (bf16, PERF.md) it
-    takes 2.725 ms at M=802816 64→256 against 1.771 ms for the dx + dw
-    pair, and 2.142 against 1.407 ms at 256→64 — about 6–9 ms a step. It
-    stays so that the path runs all three backward kernels until the
-    single-pass kernel is made faster than the pair or retired for it."""
+    The rule says where the single-pass kernel can run; it is also where
+    it is faster than the pair. On an NVIDIA H100 80GB HBM3 at 700 W (bf16,
+    batch 256, device time; PERF.md §6) it takes 0.408 ms at M=802816
+    64→256 with the bn+relu prologue against 1.198 ms for the dx + dw pair
+    on the same inputs, 0.369 against 1.069 without the prologue, 0.440
+    against 0.936 at 256→64 and 0.152 against 0.340 at 64→64: 2.7 ms for
+    the step's 7 launches."""
     return _round_up(cin, TILE) * _round_up(cout, TILE) <= SINGLE_PASS_DW_ELEMS
 
 
@@ -100,6 +98,25 @@ def dx_tile() -> tuple[int, int, int]:
     (``conv_bn_dx_tile``): rows of M, columns of cin, CTAs an SM."""
     lib = _build.load("fused_conv_bn")
     return tuple(lib.conv_bn_dx_tile(i) for i in range(3))
+
+
+def single_chunks(M: int, sms: int, tile: tuple[int, int]) -> int:
+    """G of the single-pass kernel: a grid of G persistent CTAs, CTA c
+    taking the M tiles c, c+G, ... ``tile`` is the kernel's ``(rows of M,
+    CTAs an SM)`` (``single_tile``). One wave of the card's ``sms`` (at
+    least 1, at most one an M tile): a function of M and the card alone,
+    so the dw, dscale and dshift partials are summed in the same order on
+    every call."""
+    bm, per_sm = tile
+    return max(1, min(-(-M // bm), per_sm * sms))
+
+
+@functools.cache
+def single_tile() -> tuple[int, int]:
+    """The single-pass kernel's tile and residency as its source states
+    them (``conv_bn_single_tile``): rows of M, CTAs an SM."""
+    lib = _build.load("fused_conv_bn")
+    return tuple(lib.conv_bn_single_tile(i) for i in range(2))
 
 
 # ---------------------------------------------------------------------------
@@ -340,9 +357,10 @@ def conv1x1_bn_bwd_dw(x, y, dy, scale=None, shift=None, dsum=None, dssq=None, *,
 def conv1x1_bn_bwd_single(x, y, dy, w, scale=None, shift=None, dsum=None, dssq=None, *,
                           relu: bool = True, emit_stats: bool = True):
     """Single-pass backward: ``(dx, dw f32, dscale, dshift)`` in one sweep
-    over x, y and dy. CUDA tensors: one launch (raises where
-    ``single_pass(cin, cout)`` does not hold); CPU tensors: the plain
-    backward."""
+    over x, y and dy. CUDA tensors: one launch of the single-pass kernel
+    over ``single_chunks`` persistent CTAs (and the reductions of their
+    partials; raises where ``single_pass(cin, cout)`` does not hold); CPU
+    tensors: the plain backward."""
     if not _build.on_cuda(x, "conv1x1_bn_bwd_single"):
         return conv1x1_bn_bwd_plain(x, y, dy, w, scale, shift, dsum, dssq, relu=relu,
                                     emit_stats=emit_stats)
@@ -355,7 +373,7 @@ def conv1x1_bn_bwd_single(x, y, dy, w, scale=None, shift=None, dsum=None, dssq=N
     dev = x.device
     dsum, dssq = _stats_args(dsum, dssq, cout, emit_stats, dev)
     prologue = scale is not None
-    G = max(1, min(-(-M // TILE), SINGLE_PASS_CTAS))
+    G = single_chunks(M, _sms(dev), single_tile())
     dx = torch.empty(M, cin, dtype=x.dtype, device=dev)
     ws = torch.empty(G * cin * cout + 2 * G * cin, dtype=torch.float32, device=dev)
     dw = torch.empty(cin, cout, dtype=torch.float32, device=dev)

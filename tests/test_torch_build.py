@@ -94,6 +94,8 @@ __nv_bfloat16 __float2bfloat16(float);
 float2 __bfloat1622float2(__nv_bfloat162);
 __nv_bfloat162 __floats2bfloat162_rn(float, float);
 unsigned short __bfloat16_as_ushort(__nv_bfloat16);
+float __fmul_rn(float, float);
+float __fadd_rn(float, float);
 float __shfl_xor_sync(unsigned, float, int);
 float __shfl_sync(unsigned, float, int);
 int __shfl_sync(unsigned, int, int);

@@ -144,6 +144,33 @@ def test_dx_chunks_fill_one_wave_from_the_shapes(M, cin, sms, want):
     assert G == 1 or G * -(-cin // bn) <= per_sm * sms
 
 
+#: the single-pass kernel's tile and residency (``conv_bn_single_tile``)
+SINGLE_TILE = (64, 1)
+
+
+@pytest.mark.parametrize("M, sms, want", [
+    (802816, 132, 132),   # ResNet-50's stage 0 at batch 256 (64->64, 64->256, 256->64)
+    (200704, 132, 132),   # the same convs at batch 64
+    (132 * 64 + 1, 132, 132),  # one row past a whole wave: its tile goes to CTA 0
+    (1000, 132, 16),      # fewer M tiles than the wave holds (the last ragged)
+    (1, 132, 1),          # one row
+    (802816, 114, 114),   # a card of 114 SMs
+    # the card tests' multi-tile shapes: each CTA walks 4-6 tiles, past the depth
+    # of its ring (2 stages at 64->256, 3 at 256->64, 4 at 64->64 in bf16)
+    (3 * 132 * 64 + 37, 132, 132),
+    (4 * 132 * 64 + 37, 132, 132),
+    (5 * 132 * 64 + 37, 132, 132),
+])
+def test_single_chunks_fill_one_wave_from_the_shapes(M, sms, want):
+    """The single-pass grid is one persistent CTA a slot of one wave, at
+    most one an M tile; G depends on M and the card alone, not on the
+    channels."""
+    bm, per_sm = SINGLE_TILE
+    G = tfcb.single_chunks(M, sms, SINGLE_TILE)
+    assert G == want == tfcb.single_chunks(M, sms, SINGLE_TILE)
+    assert 1 <= G <= -(-M // bm) and G <= per_sm * sms
+
+
 def test_bwd_impl_policy(monkeypatch):
     monkeypatch.delenv("DTF_FUSED_BWD", raising=False)
     assert _policy.resolve_bwd_impl() == "xla"

@@ -271,10 +271,16 @@ def test_training_steps_on_card_match_the_cpu(card):
 #: multiples, the single-pass shapes of ResNet-50's stage 0, a two-pass
 #: shape, one whose M is no multiple of the dx tile's 128 rows and whose cin
 #: spans two 128-wide dx tiles (the second ragged), and the two-pass shape
-#: with w a contiguous [cin, cout] array instead of the OIHW weight's view
+#: with w a contiguous [cin, cout] array instead of the OIHW weight's view;
+#: then single-pass cases: M spanning three waves of 132 CTAs of 64-row
+#: tiles and 37 rows more (a ragged last tile), the rule's square corner
+#: 128->128, 64->256 with a contiguous w, and M spanning five and four waves
+#: at 64->64 and 256->64, so each CTA's tiles wrap its 4- and 3-stage ring
 CONV_BN_CASES = [(37, 16, 24, "oihw"), (200, 64, 256, "oihw"), (130, 256, 64, "oihw"),
                  (300, 128, 512, "oihw"), (100, 72, 40, "oihw"), (333, 200, 136, "oihw"),
-                 (300, 128, 512, "contiguous")]
+                 (300, 128, 512, "contiguous"), (3 * 132 * 64 + 37, 64, 256, "oihw"),
+                 (300, 128, 128, "oihw"), (200, 64, 256, "contiguous"),
+                 (5 * 132 * 64 + 37, 64, 64, "oihw"), (4 * 132 * 64 + 37, 256, 64, "oihw")]
 #: (prologue, relu, emit_stats)
 CONV_BN_VARIANTS = [(False, False, True), (False, False, False), (True, True, True),
                     (True, False, True), (True, True, False)]
@@ -331,9 +337,9 @@ def test_conv_bn_kernels_match_plain_on_card(card, dtype):
             if fcb.single_pass(cin, cout):
                 got.append(fcb.conv1x1_bn_bwd_single(*bwd, **kw))
             torch.cuda.synchronize()
-            for g in got:
+            for kernel, g in zip(("dx + dw", "single-pass"), got):
                 torch.testing.assert_close(g[0].float(), ref[0].float(), atol=tol[0],
-                                           rtol=tol[1], msg=lambda m: f"dx {case}: {m}")
+                                           rtol=tol[1], msg=lambda m: f"{kernel} dx {case}: {m}")
                 assert _rel_l2(g[1], ref[1]) < red_tol, ("dw", case, _rel_l2(g[1], ref[1]))
                 if prologue:
                     assert _rel_l2(g[2], ref[2]) < red_tol, ("dscale", case)
@@ -391,6 +397,30 @@ def test_conv_bn_kernels_are_deterministic(card):
             runs.append(out)
         for a, b in zip(*runs):
             assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_conv_bn_single_pass_is_bitwise_repeatable(card):
+    """Two calls of the single-pass kernel on the same bf16 inputs give
+    bitwise-equal dx, dw, dscale and dshift at each of the rule's channel
+    pairs that ResNet-50 runs, with and without the prologue and the
+    statistics: its partials are summed in a fixed order."""
+    from distributed_tensorflow_tpu_torch.ops import fused_conv_bn as fcb
+
+    rng = np.random.default_rng(8)
+    for M, cin, cout in ((9000, 64, 256), (9000, 256, 64), (5000, 64, 64), (4000, 128, 128)):
+        for prologue, stats in ((True, True), (False, True), (True, False)):
+            x, w, sc, sh, dy, dsum, dssq = _conv_bn_inputs(rng, card, torch.bfloat16, M, cin,
+                                                           cout, prologue)
+            y = fcb.conv1x1_bn_fwd(x, w, sc, sh, emit_stats=stats)[0]
+            bwd = (x, y, dy, w, sc, sh, dsum if stats else None, dssq if stats else None)
+            a = fcb.conv1x1_bn_bwd_single(*bwd, emit_stats=stats)
+            b = fcb.conv1x1_bn_bwd_single(*bwd, emit_stats=stats)
+            case = (M, cin, cout, prologue, stats)
+            for name, u, v in zip(("dx", "dw", "dscale", "dshift"), a, b):
+                assert (u is None) == (v is None) == (name in ("dscale", "dshift")
+                                                      and not prologue), (name, case)
+                assert u is None or torch.equal(u, v), (name, case)
 
 
 @pytest.mark.cuda
