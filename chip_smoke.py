@@ -81,10 +81,13 @@ when any phase fails:
    f32 at two shapes, a bitwise repeat, timed against the bound, the plain
    version and the product alone in ``torch.matmul``; dx also with w a
    contiguous [cin, cout] array and at a ragged M at its main shape, and
-   its time split by kernel: the tiled product and the reduction; and the
-   four kernels held to their plain versions and the single-pass kernel
-   timed against the dx + dw pair at ResNet-50's four stage-0
-   configurations, ``CONV_BN_STAGE0``.)
+   its time split by kernel: the tiled product and the reduction (so are
+   dw's and the single-pass kernel's); the four kernels held to their
+   plain versions and the single-pass kernel timed against the dx + dw
+   pair at ResNet-50's four stage-0 configurations, ``CONV_BN_STAGE0``;
+   and the dw kernel held to its plain version and timed at the twelve
+   shapes of a step's 29 two-pass launches, ``CONV_BN_DW_SWEEP``, with
+   the launch-weighted sum.)
 7. print the ``kernels`` JSON line (twelve entries: ``ln_matmul`` is the
    serving forward at M=8, ``ln_matmul_train`` the tiled forward at
    M=8192), then the ``ok`` line last.
@@ -103,6 +106,7 @@ import subprocess
 import sys
 import time
 import traceback
+from unittest import mock
 
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM, NVIDIA data sheet
 PEAK_OPS = {"bfloat16": 989e12,     # dense tensor-core bf16
@@ -255,30 +259,70 @@ def nvidia_smi_line() -> str:
 # ---------------------------------------------------------------------------
 
 
-def cuda_ms(torch, fns, iters: int = 50, warmup: int = 5, traces: int = 3) -> dict:
+#: spin-kernel launches that open each profiler trace of ``cuda_ms``, and
+#: the pad records that traces kept, of those launched
+PAD_LAUNCHES = 4
+PAD_RECORDS = [0, 0]
+
+
+def cuda_ms(torch, fns, iters: int = 50, warmup: int = 5, traces: int = 3,
+            launches: dict | None = None) -> dict:
     """Time one call, cycling through ``fns`` (closures over independent
     input sets, together larger than L2, so each call finds its inputs
     cold as the serve path does). Returns ``device_ms``: the device time
     of every kernel the calls launched, per call, from ``torch.profiler``
-    (CUPTI; the fullest of ``traces`` traces) — the kernel's own time, free of
-    the Python wrapper's host overhead; ``by_name``: that device time
-    split by kernel name, from the same trace; and ``call_ms``: CUDA
-    events around the back-to-back calls, per call, which includes the
-    host time between launches whenever that exceeds the device time."""
+    (CUPTI, ``traces`` traces of ``iters`` calls) — the kernel's own time,
+    free of the Python wrapper's host overhead; ``by_name``: that device
+    time split by kernel name; and ``call_ms``: CUDA events around the
+    back-to-back calls, per call, which includes the host time between
+    launches whenever that exceeds the device time.
+
+    CUPTI drops records: on an H100 a trace loses up to two of its first
+    device records (PERF.md §6), so each trace starts with ``PAD_LAUNCHES``
+    launches of torch's spin kernel, left out of the times and tallied in
+    ``PAD_RECORDS``. A kernel's time a call is its mean record, from the
+    trace that holds the most of its records, times its launches a call.
+    Those launches are ``launches[part]`` for the kernels whose names hold
+    a key ``part`` of ``launches`` (the caller's count), else the most
+    records of any trace over ``iters``, rounded up. Every shortfall is
+    logged, and one of more than a tenth of a kernel's records fails the
+    run."""
     call_ms = event_ms(torch, fns, iters, warmup)
     act = torch.profiler.ProfilerActivity
-    taken = []
-    for _ in range(traces):  # CUPTI now and then drops records: keep the fullest trace
+    most = {}  # kernel name -> (records, ms) of the trace with the most records of it
+    for _ in range(traces):
         with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+            for _ in range(PAD_LAUNCHES):
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
             for i in range(iters):
                 fns[i % len(fns)]()
             torch.cuda.synchronize()
-        taken.append({e.key: e.self_device_time_total / 1e3 / iters
-                      for e in device_events(torch, prof)})
-    fullest = max(taken, key=lambda t: sum(t.values()))
-    if sum(fullest.values()) <= 0:
+        PAD_RECORDS[1] += PAD_LAUNCHES
+        for e in device_events(torch, prof):
+            if "spin_kernel" in e.key:
+                PAD_RECORDS[0] += e.count
+            elif e.count > most.get(e.key, (0, 0.0))[0]:
+                most[e.key] = (e.count, e.self_device_time_total / 1e3)
+    launches = launches or {}
+    for part in launches:
+        if not any(part in k for k in most):
+            raise SmokeFailure(f"torch.profiler recorded no launch of {part} in {traces} traces")
+    by_name, short = {}, []
+    for k, (n, ms) in most.items():
+        each = next((c for part, c in launches.items() if part in k), -(-n // iters))
+        by_name[k] = ms / n * each
+        if n != each * iters:  # more than the caller's count is a shortfall of the count
+            short.append((k[:60], n, each * iters))
+    if short:
+        log(f"    (records in the fullest of {traces} traces: "
+            f"{'; '.join(f'{k} {n} of {want}' for k, n, want in short)})")
+    bad = [k for k, n, want in short if 10 * abs(want - n) > want]
+    if bad:
+        raise SmokeFailure(f"torch.profiler lost more than a tenth of the records of {bad}")
+    if sum(by_name.values()) <= 0:
         raise SmokeFailure(f"torch.profiler recorded no device time in {traces} traces")
-    return {"device_ms": sum(fullest.values()), "by_name": fullest, "call_ms": call_ms}
+    return {"device_ms": sum(by_name.values()), "by_name": by_name, "call_ms": call_ms}
 
 
 def event_ms(torch, fns, iters: int = 20, warmup: int = 5) -> float:
@@ -951,11 +995,31 @@ CONV_BN_MAIN = {"conv_bn_fwd": (802816, 64, 256, True),
 #: against the dx + dw pair on the same inputs
 CONV_BN_STAGE0 = [(802816, 64, 256, True), (802816, 64, 256, False),
                   (802816, 256, 64, False), (802816, 64, 64, False)]
-#: the dx and single-pass wrappers' kernels, by the device name the
-#: profiler gives each
+#: the backward wrappers' kernels, by the device name the profiler gives each
 CONV_PARTS = {"conv_bn_bwd_dx": {"product": "conv_bn_dx_kernel", "reduce": "reduce_kernel"},
+              "conv_bn_bwd_dw": {"product": "conv_bn_dw_kernel", "reduce": "reduce_kernel"},
               "conv_bn_bwd_single": {"sweep": "conv_bn_single_kernel",
                                      "reduce": "reduce_kernel"}}
+
+
+def conv_launches(n: str, prologue: bool) -> dict:
+    """Launches a call of a conv+BN backward wrapper's kernels, for
+    ``cuda_ms``: the product once, and ``reduce_kernel`` once for each sum
+    of G partials (dw; dscale and dshift with the prologue)."""
+    product = next(k for p, k in CONV_PARTS[n].items() if p != "reduce")
+    reduces = {"conv_bn_bwd_dx": 0, "conv_bn_bwd_dw": 1, "conv_bn_bwd_single": 1}[n]
+    reduces += 2 * (prologue and n != "conv_bn_bwd_dw")
+    return {product: 1, "reduce_kernel": reduces} if reduces else {product: 1}
+
+#: (M, cin, cout, prologue, launches a step): the twelve shapes of ResNet-50's
+#: 29 two-pass dw launches at batch 256 (resnet_launch_rule; conv1 runs at
+#: the block input's resolution), each held to the plain dw and timed
+CONV_BN_DW_SWEEP = [
+    (802816, 256, 128, False, 1), (200704, 256, 512, False, 1), (200704, 128, 512, True, 4),
+    (200704, 512, 128, False, 3), (200704, 512, 256, False, 1), (50176, 512, 1024, False, 1),
+    (50176, 256, 1024, True, 6), (50176, 1024, 256, False, 5), (50176, 1024, 512, False, 1),
+    (12544, 1024, 2048, False, 1), (12544, 512, 2048, True, 3), (12544, 2048, 512, False, 2),
+]
 #: rows cut from the dx main shape's M for its ragged-M check (the dx tile
 #: is 128 rows)
 CONV_DX_RAGGED = 40
@@ -980,7 +1044,7 @@ def conv_bn_bound_ms(c, kind, dtype_name) -> tuple[float, str]:
     f32; single: both), and 2*M*cin*cout operations per product (one, one,
     one, two)."""
     M, cin = c["x"].shape
-    cout = c["w"].shape[1]
+    cout = c["dy"].shape[1]
     e = c["x"].element_size()
     aff = 8 * cin if c["scale"] is not None else 0
     mat = {"fwd": (M * cin * e + cin * cout * e + aff, M * cout * e + 8 * cout, 1),
@@ -992,6 +1056,63 @@ def conv_bn_bound_ms(c, kind, dtype_name) -> tuple[float, str]:
     t_bytes = (mat[0] + mat[1]) / HBM_BYTES_PER_S
     t_ops = mat[2] * 2 * M * cin * cout / PEAK_OPS[dtype_name]
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def dw_sweep(torch, fcb) -> dict:
+    """The dw wrapper at each shape of ``CONV_BN_DW_SWEEP`` (bf16, inputs
+    drawn on the card from seed 9), held to the plain dw by relative L2
+    (``TOL["conv_bn/reduction/bfloat16"]``) and timed (device ms,
+    profiler) beside ``h^T@g`` in ``torch.matmul`` and the bound; at the
+    main shape also each tile width of ``dw_plan``. Returns the rows and
+    the launch-weighted sum of a step's dw time."""
+    gen = torch.Generator(device=DEVICE).manual_seed(9)
+    lim = TOL["conv_bn/reduction/bfloat16"]
+    rows, total = [], 0.0
+    for M, cin, cout, prologue, n in CONV_BN_DW_SWEEP:
+        def f(*shape):
+            return torch.randn(*shape, generator=gen, device=DEVICE)
+        c = dict(x=f(M, cin).to(torch.bfloat16), y=f(M, cout).to(torch.bfloat16),
+                 dy=(f(M, cout) / M ** 0.5).to(torch.bfloat16),
+                 scale=1 + 0.2 * f(cin) if prologue else None,
+                 shift=0.2 * f(cin) if prologue else None, dsum=f(cout) / M, dssq=f(cout) / M)
+        args = (c["x"], c["y"], c["dy"], c["scale"], c["shift"], c["dsum"], c["dssq"])
+        dw = fcb.conv1x1_bn_bwd_dw(*args)
+        h = fcb._hq(c["x"], c["scale"], c["shift"], True)
+        g = fcb._gq(c["y"], c["dy"], c["dsum"], c["dssq"], True)
+        ref = fcb.mm_exact(h.t(), g)
+        err = float((dw - ref).norm() / ref.norm())
+        if err > lim:
+            raise SmokeFailure(f"conv_bn_bwd_dw M={M} {cin}->{cout}: relative L2 {err:.3e}")
+        each = conv_launches("conv_bn_bwd_dw", prologue)
+        ms = cuda_ms(torch, [lambda: fcb.conv1x1_bn_bwd_dw(*args)], iters=20,
+                     launches=each)["device_ms"]
+        lib = cuda_ms(torch, [lambda: torch.matmul(h.t(), g)], iters=20)["device_ms"]
+        bound, by = conv_bn_bound_ms(c, "dw", "bfloat16")
+        sms = fcb._sms(c["x"].device)
+        row = dict(M=M, cin=cin, cout=cout, prologue=prologue, launches=n, ms=ms, library_ms=lib,
+                   bound_ms=bound, bound_by=by, rel_l2=err,
+                   plan=fcb.dw_plan(M, cin, cout, sms, fcb.dw_tile()))
+        plan = f", tile {row['plan']['tile'][0]}x{row['plan']['tile'][1]} G={row['plan']['G']}"
+        if (M, cin, cout, prologue) == CONV_BN_MAIN["conv_bn_bwd_dw"]:
+            row["widths"] = {}
+            for w in fcb.DW_WIDTHS:
+                with mock.patch.object(fcb, "DW_WIDTHS", (w,)):
+                    p = fcb.dw_plan(M, cin, cout, sms, fcb.dw_tile())
+                t = cuda_ms(torch, [lambda p=p: fcb._launch_dw(*args, True, True, p)],
+                            iters=20, launches=each)["device_ms"]
+                row["widths"][f"{p['tile'][0]}x{p['tile'][1]} G={p['G']}"] = t
+            plan += "; each width at its plan: " + ", ".join(
+                f"{k} {t:.5f}" for k, t in row["widths"].items())
+        rows.append(row)
+        total += n * ms
+        log(f"    dw M={M} {cin}->{cout} {'bn+relu' if prologue else 'no prologue'} x{n}: "
+            f"kernel_ms={ms:.5f} h^T@g_ms={lib:.5f} bound_ms={bound:.5f} ({by}, "
+            f"{bound / ms:.1%} of it); relative L2 {err:.2e} (tol {lim:g}){plan}")
+        del c, args, dw, h, g, ref
+        torch.cuda.empty_cache()
+    log(f"  dw over a ResNet-50 step's {sum(r['launches'] for r in rows)} two-pass launches "
+        f"(sum of launches x kernel_ms): {total:.4f} ms")
+    return {"rows": rows, "step_ms": total}
 
 
 def phase_conv_bn(torch, np):
@@ -1119,7 +1240,9 @@ def phase_conv_bn(torch, np):
                  "bwd": cuda_ms(torch, [lambda: fcb.conv1x1_bn_bwd_plain(*bwd)], iters=10,
                                 warmup=2)}
         for n, fn in kern.items():
-            tk, tl = cuda_ms(torch, [fn], iters=20), cuda_ms(torch, [lib[n]], iters=20)
+            tk = cuda_ms(torch, [fn], iters=20,
+                         launches=conv_launches(n, prologue) if n in CONV_PARTS else None)
+            tl = cuda_ms(torch, [lib[n]], iters=20)
             kind = n.split("_")[-1]
             row = dict(M=M, cin=cin, cout=cout, prologue=prologue, ms=tk["device_ms"],
                        call_ms=tk["call_ms"], library_ms=tl["device_ms"],
@@ -1149,15 +1272,22 @@ def phase_conv_bn(torch, np):
         y = check(c, torch.bfloat16, f"bf16 stage 0 M={M} {cin}->{cout} "
                   f"{'bn+relu prologue' if prologue else 'no prologue'}", timed=False)
         bwd = (c["x"], y, c["dy"], c["w"], *aff, c["dsum"], c["dssq"])
-        ts = cuda_ms(torch, [lambda: fcb.conv1x1_bn_bwd_single(*bwd)], iters=20)["device_ms"]
+        ts = cuda_ms(torch, [lambda: fcb.conv1x1_bn_bwd_single(*bwd)], iters=20,
+                     launches=conv_launches("conv_bn_bwd_single", prologue))["device_ms"]
+        dx_n, dw_n = (conv_launches(n, prologue) for n in ("conv_bn_bwd_dx", "conv_bn_bwd_dw"))
+        pair_n = {k: dx_n.get(k, 0) + dw_n.get(k, 0) for k in {**dx_n, **dw_n}}
         tp = cuda_ms(torch, [lambda: (fcb.conv1x1_bn_bwd_dx(*bwd), fcb.conv1x1_bn_bwd_dw(
-            c["x"], y, c["dy"], *aff, c["dsum"], c["dssq"]))], iters=20)["device_ms"]
+            c["x"], y, c["dy"], *aff, c["dsum"], c["dssq"]))], iters=20,
+            launches=pair_n)["device_ms"]
         bound, by = conv_bn_bound_ms(c, "single", "bfloat16")
         log(f"    M={M} {cin}->{cout} {'bn+relu prologue' if prologue else 'no prologue'}: "
             f"single {ts:.5f}, dx + dw {tp:.5f} ({tp / ts:.2f}x the single); bound {bound:.5f} "
             f"({by}), single at {bound / ts:.1%} of it")
         del c, y, bwd
         torch.cuda.empty_cache()
+    log("  dw at the twelve shapes of ResNet-50's two-pass launches at batch 256 (bf16; device "
+        "ms, profiler)")
+    results["conv_bn_bwd_dw"]["sweep"] = dw_sweep(torch, fcb)
     for n in names:  # comparison launches do not count
         fcb.KERNELS[n].launches = before[n]
     for n in names:
@@ -2090,7 +2220,10 @@ def main() -> int:
         f"f32 step-1 gradients, fused+pallas vs standard: median "
         f"{resnet['compare']['f32']['median']:.3e}, worst {resnet['compare']['f32']['worst']:.3e}; "
         f"conv_bn timed shapes: {CONV_BN_MAIN} (library_ms: the product alone, x@w, g@w^T, "
-        f"h^T@g, both for single)")
+        f"h^T@g, both for single); dw over the step's two-pass shapes (sum of launches x "
+        f"kernel ms): {conv_bn['conv_bn_bwd_dw']['sweep']['step_ms']:.4f} ms")
+    log(f"cuda_ms traces kept {PAD_RECORDS[0]} of the {PAD_RECORDS[1]} spin-kernel records "
+        f"that opened them")
     log(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s (builds included)")
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

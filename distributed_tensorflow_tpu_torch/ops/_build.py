@@ -101,8 +101,12 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
            + _CONV_TAIL for s in ("f32", "bf16")},
         # 0, 1, 2 -> the dx tile's rows, columns, CTAs an SM
         "conv_bn_dx_tile": (_c_int,),
-        # x, y, dy, scale, shift, dsum, dssq, ws, dw
-        **{f"conv_bn_bwd_dw_{s}": (_c_void_p,) * 9 + _CONV_TAIL for s in ("f32", "bf16")},
+        # x, y, dy, scale, shift, dsum, dssq, ws, dw; M, cin, cout, G, the
+        # tile's columns of cout, prologue, relu, stats; stream
+        **{f"conv_bn_bwd_dw_{s}": (_c_void_p,) * 9 + (_c_int,) + _CONV_TAIL
+           for s in ("f32", "bf16")},
+        # 0, 1, 2 -> the dw tile's rows of cin, rows of M a block, CTAs an SM
+        "conv_bn_dw_tile": (_c_int,),
         # x, y, dy, w, sk, sn, scale, shift, dsum, dssq, dx, ws, dw, dscale, dshift
         **{f"conv_bn_bwd_single_{s}": (_c_void_p,) * 4 + _W_STRIDES + (_c_void_p,) * 9
            + _CONV_TAIL for s in ("f32", "bf16")},

@@ -13,25 +13,41 @@
 // per-cin f32 affine of the previous BatchNorm (the prologue), y is [M, cout].
 //
 // Numerics (as the Pallas kernels): the prologue x*scale+shift (+ReLU) runs in
-// f32 and h is rounded to x's dtype before the product; products accumulate
-// in f32; y is rounded to its dtype and the statistics are taken from the
-// ROUNDED y (what an unfused consumer would read back). In the backward the
-// output gradient g = dy + dsum + 2*y*dssq (the stats outputs' cotangents
-// folded in) is rounded to dy's dtype before both products; the ReLU mask is
-// x*scale+shift > 0 in f32; dx = dh*scale rounded to x's dtype;
+// f32, the product rounded before the add (as the plain version computes it:
+// no fma), and h is rounded to x's dtype before the product; products
+// accumulate in f32; y is rounded to its dtype and the statistics are taken
+// from the ROUNDED y (what an unfused consumer would read back). In the
+// backward the output gradient g = dy + dsum + 2*y*dssq (the stats outputs'
+// cotangents folded in) is rounded to dy's dtype before both products; the
+// ReLU mask is x*scale+shift > 0 in f32; dx = dh*scale rounded to x's dtype;
 // dscale = sum_rows dh*x, dshift = sum_rows dh; dw in f32.
 //
-// What bounds them on this card: at ResNet-50's batch-256 shapes every one is
-// bound by bytes (x, y, dy, dx are up to 802816 rows; w is at most 4 MB), not
-// by operations (the bound per shape is in PERF.md). The design keeps the
-// fused tensors out of device memory, as on the TPU: the prologue runs while a
-// tile of x is staged in shared memory (the normalised tensor is never
-// written), the statistics are summed from the y tile in shared memory (y is
-// never read back), and the backward recomputes h from x. Products are
-// mma.sync m16n8k16 bf16 tiles (f32 inputs: the same tile loops on CUDA
-// cores, for checks). The forward and dw kernels are the first, simple
+// What bounds them on this card: at ResNet-50's batch-256 shapes most are
+// bound by bytes (x, y, dy, dx are up to 802816 rows; w is at most 4 MB), a
+// few at stage 3 by operations (the bound per shape is in PERF.md). The
+// design keeps the fused tensors out of device memory, as on the TPU: the
+// prologue runs while a tile of x is staged in shared memory (the normalised
+// tensor is never written), the statistics are summed from the y tile in
+// shared memory (y is never read back), and the backward recomputes h from
+// x. Products are mma.sync m16n8k16 bf16 tiles (f32 inputs: the same tile
+// loops on CUDA cores, for checks). The forward kernel is the first, simple
 // design: 64x64 tiles, 4 warps, synchronous 16-byte staging, no cp.async
 // pipelining, no wgmma.
+//
+// The dw kernel is built on tile_mma.cuh as LN+matmul's dw is: dw = h^T g
+// is a 2-D tiled product, each CTA a 128 x BN block of dw (rows of cin x
+// columns of cout; BN 128 or 256, the wrapper's launch plan), 8 warps of 64 x
+// BN/4 mma.sync register tiles, contracted over one contiguous range of M
+// rows through a cp.async.cg ring (ragged edges zero-filled). A stage holds
+// 64 rows (bf16) of x, dy and, with the statistics, y, each as it lies
+// (row-index-major), and ldmatrix.trans reads both operands from there:
+// nothing is transposed by scalar stores. h = prologue(x) is written over
+// the staged x and g over the staged dy, behind one barrier; rows past M stay
+// zero in g's slot (g = 0 there, not dsum). Each chunk of rows writes its
+// f32 partial of the tile and reduce_kernel sums them in chunk order. What
+// bounds it (PERF.md): at every ResNet-50 shape the per-stage chain of one
+// CTA of 8 warps an SM (the in-place passes, their barrier, the mma.sync
+// product), at 140-170 TFLOP/s whatever bytes the shape moves, not HBM.
 //
 // The dx kernel is built on tile_mma.cuh (the LN+matmul products'
 // machinery). dh = g @ w^T is a 2-D tiled product: each CTA owns 128 rows of
@@ -64,9 +80,10 @@
 //
 // Reductions over M (the statistics, dscale/dshift, dw) use no float atomics:
 // the TPU kernels carry them across a sequential grid axis; here the M tiles
-// are dealt to G chunks (chunk c takes tiles c, c+G, ...), each CTA writes
-// its chunk's partial to a workspace, and reduce_kernel sums the G partials
-// of each output in chunk order. G is a function of the shapes and the
+// are dealt to G chunks (chunk c takes tiles c, c+G, ...; in the dw kernel a
+// contiguous range of row blocks), each CTA writes its chunk's partial to a
+// workspace, and reduce_kernel sums the G partials of each output in chunk
+// order. G is a function of the shapes and, but for the forward's, the
 // card's SM count (the wrapper's), so a step is bitwise repeatable run to run.
 //
 // Layout requirements (the wrapper checks, the launchers re-check): cin and
@@ -82,13 +99,14 @@
 
 namespace {
 
+// the forward kernel's CTA and tile
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int BM = 16 * kWarps;  // rows of an M tile, 16 per warp
 constexpr int BN = 64;           // columns of a tile: 8 m16n8 fragments per warp
 constexpr int BK = 64;           // depth of one staged chunk
 constexpr int NT = BN / 8;
-constexpr int LDT = BK + 2;      // row pitch of transposed (dw) tiles: even, off the bank stride
+constexpr size_t kSmemMax = 232448;  // the shared memory one CTA may hold (227 KB)
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -175,6 +193,14 @@ __device__ __forceinline__ void zero(float (&acc)[NT][4]) {
   for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 }
 
+// The previous BatchNorm's affine (+ReLU) of one f32 value: the product
+// rounded, then the sum, as the plain version computes it (a contracted fma
+// can put an x that cancels shift on the other side of the ReLU)
+__device__ __forceinline__ float bn_act(float v, float scale, float shift, bool relu) {
+  const float h = __fadd_rn(__fmul_rn(v, scale), shift);
+  return relu ? fmaxf(h, 0.f) : h;
+}
+
 // The previous BatchNorm's affine (+ReLU), applied to one f32 value of
 // column c; the identity when off.
 struct Prologue {
@@ -182,17 +208,15 @@ struct Prologue {
   const float* shift;
   bool on, relu;
   __device__ __forceinline__ float operator()(float v, int c) const {
-    if (!on) return v;
-    const float h = v * scale[c] + shift[c];
-    return relu ? fmaxf(h, 0.f) : h;
+    return on ? bn_act(v, scale[c], shift[c], relu) : v;
   }
 };
 
 // Stage the [rows x cols] window at (r0, c0) of a row-major [R, C] matrix into
-// shared memory as f(value, column), rounded to T: dst[r*ld + c], or
-// dst[c*ld + r] when kTrans. Elements outside [R, C) are zero (f is not
-// applied to them). 16-byte loads: cols and C are multiples of the vector.
-template <typename T, bool kTrans, typename F>
+// shared memory as f(value, column), rounded to T, at dst[r*ld + c].
+// Elements outside [R, C) are zero (f is not applied to them). 16-byte
+// loads: cols and C are multiples of the vector.
+template <typename T, typename F>
 __device__ __forceinline__ void stage(T* dst, int ld, const T* __restrict__ src, int R, int C,
                                       int r0, int c0, int rows, int cols, F f) {
   constexpr int V = 16 / sizeof(T);
@@ -208,48 +232,7 @@ __device__ __forceinline__ void stage(T* dst, int ld, const T* __restrict__ src,
 #pragma unroll
       for (int j = 0; j < V; ++j) e[j] = from_f32<T>(f(to_f32(s[j]), gc + j));
     }
-    if constexpr (kTrans) {
-#pragma unroll
-      for (int j = 0; j < V; ++j) dst[(c + j) * ld + r] = e[j];
-    } else {
-      *reinterpret_cast<uint4*>(dst + r * ld + c) = out;
-    }
-  }
-}
-
-// Stage the output gradient g = dy (+ dsum + 2*y*dssq with the statistics),
-// rounded to T, as ``stage`` does (dy and y row-major [M, C]).
-template <typename T, bool kTrans>
-__device__ __forceinline__ void stage_g(T* dst, int ld, const T* __restrict__ dy,
-                                        const T* __restrict__ y, const float* __restrict__ dsum,
-                                        const float* __restrict__ dssq, bool stats, int M, int C,
-                                        int r0, int c0, int rows, int cols) {
-  constexpr int V = 16 / sizeof(T);
-  const int vpr = cols / V;
-  for (int i = threadIdx.x; i < rows * vpr; i += kThreads) {
-    const int r = i / vpr, c = (i - r * vpr) * V;
-    const int gr = r0 + r, gc = c0 + c;
-    uint4 out = make_uint4(0u, 0u, 0u, 0u);
-    T* e = reinterpret_cast<T*>(&out);
-    if (gr < M && gc < C) {
-      const size_t off = (size_t)gr * C + gc;
-      const uint4 vd = *reinterpret_cast<const uint4*>(dy + off);
-      const uint4 vy = stats ? *reinterpret_cast<const uint4*>(y + off) : make_uint4(0u, 0u, 0u, 0u);
-      const T* d = reinterpret_cast<const T*>(&vd);
-      const T* yy = reinterpret_cast<const T*>(&vy);
-#pragma unroll
-      for (int j = 0; j < V; ++j) {
-        float gv = to_f32(d[j]);
-        if (stats) gv = gv + dsum[gc + j] + 2.f * to_f32(yy[j]) * dssq[gc + j];
-        e[j] = from_f32<T>(gv);
-      }
-    }
-    if constexpr (kTrans) {
-#pragma unroll
-      for (int j = 0; j < V; ++j) dst[(c + j) * ld + r] = e[j];
-    } else {
-      *reinterpret_cast<uint4*>(dst + r * ld + c) = out;
-    }
+    *reinterpret_cast<uint4*>(dst + r * ld + c) = out;
   }
 }
 
@@ -310,8 +293,7 @@ conv_bn_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, long long s
     zero(acc);
     for (int k0 = 0; k0 < K; k0 += BK) {
       __syncthreads();
-      stage<T, false>(As, LD, x, M, K, r0, k0, BM, BK,
-                      [=](float v, int c) { return pro(v, c); });
+      stage<T>(As, LD, x, M, K, r0, k0, BM, BK, [=](float v, int c) { return pro(v, c); });
       stage_w<T>(Bs, LD, w, sk, sn, K, N, k0, n0, BK, BN);
       __syncthreads();
       warp_mma(acc, As + warp * 16 * LD, LD, 1, Bs, LD, 1, min(BK, round_up(K - k0, 16)), lane);
@@ -582,39 +564,144 @@ conv_bn_dx_kernel(const T* __restrict__ x, const T* __restrict__ y, const T* __r
 // backward, two-pass part 2: dw = prologue(x)^T @ g
 // ---------------------------------------------------------------------------
 
-// grid (cout tiles, cin tiles, G): CTA (n, m, c) accumulates the [BM x BN]
-// block (m, n) of dw over the row tiles c, c+G, ... into ws[c][cin][cout].
+// The ring of the dw kernel (tile_mma.cuh's machinery). A CTA owns a
+// tile::BM x BN block of dw (rows of cin x columns of cout; BN 128 or 256,
+// the wrapper's plan); 8 warps (2 x 4), each a 64 x BN/4 register tile. A
+// stage is BK rows of M deep (STAGE_BYTES of a row of the tile's operands)
+// and holds x's [BK][LDX] (cin contiguous; rewritten in place as h with the
+// prologue), dy's [BK][LDG] (cout contiguous; rewritten in place as g with
+// the statistics) and y's [BK][LDG] (staged only with the statistics). As
+// many stages as the 227 KB a CTA may hold take, at most 4: bf16 128 x 256
+// is 84,992 bytes a stage, so 2 (169,984); 128 x 128 is 52,224, so 4
+// (208,896); f32 (checks only, never timed) the same counts at 32 rows a
+// stage. One CTA an SM.
+constexpr int kDwCtasPerSm = 1;
+
+template <typename T, int BN_>
+struct Dw {
+  static constexpr int V = 16 / sizeof(T);
+  static constexpr int BN = BN_;
+  static constexpr int WN = BN / 4;
+  static constexpr int NJ = WN / 8;
+  static constexpr int BK = tile::STAGE_BYTES / sizeof(T);
+  static constexpr int LDX = tile::pad_ld<T>(tile::BM), LDG = tile::pad_ld<T>(BN);
+  static constexpr int X_ELEMS = BK * LDX, G_ELEMS = BK * LDG;
+  static constexpr size_t STAGE = sizeof(T) * (X_ELEMS + 2 * G_ELEMS);
+  static constexpr int FIT = (int)(kSmemMax / STAGE);
+  static constexpr int STAGES = FIT < 4 ? FIT : 4;
+  static constexpr size_t SMEM = STAGE * STAGES;
+  // the in-place passes: 16-byte chunks a row of x's and of dy's slot
+  static constexpr int PX = tile::BM / V, PG = BN / V;
+  static_assert(STAGES >= 2 && STAGE % 16 == 0, "a ring of two stages or more, aligned");
+  static_assert(tile::THREADS % PX == 0 && tile::THREADS % PG == 0 &&
+                    BK * PX % tile::THREADS == 0 && BK * PG % tile::THREADS == 0,
+                "each thread rewrites whole rows' chunks in fixed columns");
+};
+
+// h = [relu](x*scale + shift) on one staged chunk of V columns, in place in
+// x's slot: f32 math and one rounding to T (sc, sh: the chunk's scale, shift)
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void h_chunk(T* p, const float* sc, const float* sh, bool relu) {
+  constexpr int V = 16 / sizeof(T);
+  uint4 a = *reinterpret_cast<const uint4*>(p);
+  T* e = reinterpret_cast<T*>(&a);
+#pragma unroll
+  for (int q = 0; q < V; ++q) e[q] = from_f32<T>(bn_act(to_f32(e[q]), sc[q], sh[q], relu));
+  *reinterpret_cast<uint4*>(p) = a;
+}
+
+// grid (cin tiles x cout tiles, G), cin tiles fastest so that the CTAs that
+// restage the same dy and y rows run side by side and L2 serves the
+// re-reads: CTA (tile, c) sums the tile's block of h^T g over the BK-row
+// blocks [c*nb/G, (c+1)*nb/G) of chunk c, in order, into ws[c][cin][cout].
+// Each thread rewrites the same columns of every stage, so it keeps their
+// scale, shift (x's slot) and dsum, dssq (dy's slot) in registers; rows past
+// M are left as the zero fill (g = 0 there: a zero dy and y would still give
+// g = dsum, and h = relu(shift)).
+template <typename T, int BN>
+__global__ void __launch_bounds__(tile::THREADS, kDwCtasPerSm)
 conv_bn_dw_kernel(const T* __restrict__ x, const T* __restrict__ y, const T* __restrict__ dy,
                   Prologue pro, const float* __restrict__ dsum, const float* __restrict__ dssq,
                   bool stats, float* __restrict__ ws, int M, int cin, int cout, int G) {
+  using S = Dw<T, BN>;
+  constexpr int V = S::V, BK = S::BK, BM = tile::BM, STAGES = S::STAGES;
+  constexpr int THREADS = tile::THREADS, PX = S::PX, PG = S::PG, NJ = S::NJ;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* As = reinterpret_cast<T*>(smem);  // [BM (cin)][LDT]: h^T, A(m, k) at As[m*LDT + k]
-  T* Bs = As + BM * LDT;               // [BN (cout)][LDT]: g^T, B(k, n) at Bs[n*LDT + k]
+  const int mtiles = (cin + BM - 1) / BM;
+  const int m0 = blockIdx.x % mtiles * BM, n0 = blockIdx.x / mtiles * BN, c = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM, rtiles = (M + BK - 1) / BK;
-  float acc[NT][4];
-  zero(acc);
-  for (int rt = blockIdx.z; rt < rtiles; rt += G) {
-    const int r0 = rt * BK;
-    __syncthreads();
-    stage<T, true>(As, LDT, x, M, cin, r0, m0, BK, BM, [=](float v, int c) { return pro(v, c); });
-    stage_g<T, true>(Bs, LDT, dy, y, dsum, dssq, stats, M, cout, r0, n0, BK, BN);
-    __syncthreads();
-    warp_mma(acc, As + warp * 16 * LDT, LDT, 1, Bs, LDT, 1, BK, lane);
-  }
-  const int g = lane >> 2, t = lane & 3;
-  float* part = ws + (size_t)blockIdx.z * cin * cout;
+  const int wm = (warp & 1) * 64, wn = (warp >> 1) * S::WN;
+  const int nb = (M + BK - 1) / BK;
+  const int b0 = (int)((long long)nb * c / G), nk = (int)((long long)nb * (c + 1) / G) - b0;
+  // this thread's chunks: x columns xcol.. (rows xrow + u * THREADS / PX) and
+  // dy columns gcol.. (rows grow + u * THREADS / PG) of every stage
+  const int xcol = threadIdx.x % PX * V, xrow = threadIdx.x / PX;
+  const int gcol = threadIdx.x % PG * V, grow = threadIdx.x / PG;
+  float sc[V], sh[V], ds[V], dq[V];
 #pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    const int n = n0 + 8 * j + 2 * t;
+  for (int q = 0; q < V; ++q) {
+    const bool okx = pro.on && m0 + xcol + q < cin, okg = stats && n0 + gcol + q < cout;
+    sc[q] = okx ? pro.scale[m0 + xcol + q] : 0.f;
+    sh[q] = okx ? pro.shift[m0 + xcol + q] : 0.f;
+    ds[q] = okg ? dsum[n0 + gcol + q] : 0.f;
+    dq[q] = okg ? dssq[n0 + gcol + q] : 0.f;
+  }
+  auto load = [&](int f) {  // block b0 + f of the chunk into its ring slot; past M zero-filled
+    T* Xs = reinterpret_cast<T*>(smem + f % STAGES * S::STAGE);
+    T* Ds = Xs + S::X_ELEMS;
+    const int r0 = (b0 + f) * BK;
+    tile::copy_tile<T, BK * PX, PX>(Xs, S::LDX, x, cin, r0, M, m0, cin);
+    tile::copy_tile<T, BK * PG, PG>(Ds, S::LDG, dy, cout, r0, M, n0, cout);
+    if (stats) tile::copy_tile<T, BK * PG, PG>(Ds + S::G_ELEMS, S::LDG, y, cout, r0, M, n0, cout);
+  };
+  float acc[4][NJ][4];
+  tile::zero(acc);
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) load(s);
+    tile::cp_async_commit();
+  }
+  for (int f = 0; f < nk; ++f) {
+    tile::cp_async_wait<STAGES - 2>();  // stage f has landed (this thread's copies)
+    __syncthreads();                    // ... everyone's; stage f - 1 is consumed
+    if (f + STAGES - 1 < nk) load(f + STAGES - 1);
+    tile::cp_async_commit();
+    T* Xs = reinterpret_cast<T*>(smem + f % STAGES * S::STAGE);
+    T* Ds = Xs + S::X_ELEMS;
+    const int r0 = (b0 + f) * BK;
+    if (pro.on) {
+#pragma unroll
+      for (int u = 0; u < BK * PX / THREADS; ++u) {
+        const int r = xrow + u * (THREADS / PX);
+        if (r0 + r < M) h_chunk(Xs + r * S::LDX + xcol, sc, sh, pro.relu);
+      }
+    }
+    if (stats) {
+#pragma unroll
+      for (int u = 0; u < BK * PG / THREADS; ++u) {
+        const int r = grow + u * (THREADS / PG);
+        if (r0 + r < M)  // rows past M stay zero (g = 0, not dsum)
+          g_chunk(Ds + r * S::LDG + gcol, Ds + S::G_ELEMS + r * S::LDG + gcol, ds, dq);
+      }
+    }
+    if (pro.on || stats) __syncthreads();  // h and g are whole
+    tile::warp_tile<NJ, true, BK>(acc, Xs, S::LDX, Ds, S::LDG, true, wm, wn, lane);
+  }
+  tile::cp_async_wait<0>();
+  const int g = lane >> 2, t = lane & 3;
+  float* part = ws + (size_t)c * cin * cout;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int m = m0 + warp * 16 + g + 8 * h;
-      if (m < cin && n < cout) store2(part + (size_t)m * cout + n, acc[j][2 * h], acc[j][2 * h + 1]);
+      const int m = m0 + wm + 16 * i + g + 8 * h;
+      if (m >= cin) continue;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int n = n0 + wn + 8 * j + 2 * t;
+        if (n < cout) store2(part + (size_t)m * cout + n, acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+      }
     }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -657,7 +744,6 @@ conv_bn_dw_kernel(const T* __restrict__ x, const T* __restrict__ y, const T* __r
 // add over the row-warps.
 constexpr int kSingleRows = 64;       // rows of an M tile
 constexpr int kSingleCtasPerSm = 1;   // the ring and w fill the shared memory
-constexpr size_t kSmemMax = 232448;   // what one CTA may hold (227 KB)
 
 template <typename T, int CINP, int COUTP>
 struct Single {
@@ -958,22 +1044,40 @@ int launch_dx(const void* x, const void* y, const void* dy, const void* w, long 
   return reduce((const float*)ws + (size_t)G * cin, (float*)dshift, G, cin, st);
 }
 
+template <typename T, int BN>
+int launch_dw_tiles(const T* x, const T* y, const T* dy, const Prologue& pro, const float* dsum,
+                    const float* dssq, bool stats, float* ws, int M, int cin, int cout, int G,
+                    cudaStream_t st) {
+  using S = Dw<T, BN>;
+  const long long tiles =
+      (long long)((cin + tile::BM - 1) / tile::BM) * ((cout + BN - 1) / BN);
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  auto kern = conv_bn_dw_kernel<T, BN>;
+  int e = set_smem(kern, S::SMEM);
+  if (e) return e;
+  kern<<<dim3((unsigned)tiles, G), tile::THREADS, S::SMEM, st>>>(x, y, dy, pro, dsum, dssq, stats,
+                                                                  ws, M, cin, cout, G);
+  return (int)cudaGetLastError();
+}
+
+// bn: the tile's columns of cout (the wrapper's plan: 128 or 256)
 template <typename T>
 int launch_dw(const void* x, const void* y, const void* dy, const void* scale, const void* shift,
               const void* dsum, const void* dssq, void* ws, void* dw, int M, int cin, int cout,
-              int G, int prologue, int relu, int stats, void* stream) {
-  if (!shapes_ok<T>(M, cin, cout, G) || !aligned<T>(x) || !aligned<T>(y) || !aligned<T>(dy))
+              int G, int bn, int prologue, int relu, int stats, void* stream) {
+  if (!shapes_ok<T>(M, cin, cout, G) || !aligned<T>(x) || !aligned<T>(y) || !aligned<T>(dy) ||
+      !aligned<T>(ws))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const Prologue pro{(const float*)scale, (const float*)shift, prologue != 0, relu != 0};
-  const size_t smem = sizeof(T) * (BM + BN) * LDT;
-  auto kern = conv_bn_dw_kernel<T>;
-  int e = set_smem(kern, smem);
-  if (e) return e;
-  kern<<<dim3((cout + BN - 1) / BN, (cin + BM - 1) / BM, G), kThreads, smem, st>>>(
-      (const T*)x, (const T*)y, (const T*)dy, pro, (const float*)dsum, (const float*)dssq,
-      stats != 0, (float*)ws, M, cin, cout, G);
-  e = (int)cudaGetLastError();
+#define DTF_DW_TILES(BN)                                                                      \
+  launch_dw_tiles<T, BN>((const T*)x, (const T*)y, (const T*)dy, pro, (const float*)dsum,    \
+                         (const float*)dssq, stats != 0, (float*)ws, M, cin, cout, G, st)
+  int e;
+  if (bn == 128) e = DTF_DW_TILES(128);
+  else if (bn == 256) e = DTF_DW_TILES(256);
+  else return (int)cudaErrorInvalidValue;
+#undef DTF_DW_TILES
   if (e) return e;
   return reduce((const float*)ws, (float*)dw, G, (long long)cin * cout, st);
 }
@@ -1064,12 +1168,19 @@ int conv_bn_dx_tile(int what) {
 #define DTF_DW_ARGS                                                                           \
   const void *x, const void *y, const void *dy, const void *scale, const void *shift,         \
       const void *dsum, const void *dssq, void *ws, void *dw, int M, int cin, int cout, int G, \
-      int prologue, int relu, int stats, void *stream
+      int bn, int prologue, int relu, int stats, void *stream
 #define DTF_DW_PASS \
-  x, y, dy, scale, shift, dsum, dssq, ws, dw, M, cin, cout, G, prologue, relu, stats, stream
+  x, y, dy, scale, shift, dsum, dssq, ws, dw, M, cin, cout, G, bn, prologue, relu, stats, stream
 
 int conv_bn_bwd_dw_f32(DTF_DW_ARGS) { return launch_dw<float>(DTF_DW_PASS); }
 int conv_bn_bwd_dw_bf16(DTF_DW_ARGS) { return launch_dw<__nv_bfloat16>(DTF_DW_PASS); }
+
+// The dw kernel's plan inputs for the wrapper's tile and G: 0 -> rows of cin
+// a tile, 1 -> rows of M a block (a bf16 stage; chunks take whole blocks),
+// 2 -> CTAs an SM (both tile widths and dtypes take the same)
+int conv_bn_dw_tile(int what) {
+  return what == 0 ? tile::BM : what == 1 ? Dw<__nv_bfloat16, 128>::BK : kDwCtasPerSm;
+}
 
 #define DTF_SINGLE_ARGS                                                                    \
   const void *x, const void *y, const void *dy, const void *w, long long sk, long long sn, \

@@ -21,7 +21,9 @@ the ReLU mask ``x*scale + shift > 0`` in f32.
 
 The wrappers ``conv1x1_bn_fwd``, ``conv1x1_bn_bwd_dx``,
 ``conv1x1_bn_bwd_dw`` and ``conv1x1_bn_bwd_single`` launch their kernel
-for CUDA tensors (built with nvcc on first use) and raise on what it does
+for CUDA tensors (built with nvcc on first use; the forward at a grid of
+``RESIDENT_CTAS``, the backward kernels at plans from the card's SM count:
+``dx_chunks``, ``dw_plan``, ``single_chunks``) and raise on what it does
 not take; for CPU tensors — and only for those — they compute the plain
 version. Each counts its launches in ``.launches``. The kernels take
 cin and cout multiples of 8 and x in the output dtype (f32 or bf16).
@@ -42,11 +44,13 @@ from . import _build
 from ._policy import mm_exact, mm_library, resolve_bwd_impl
 from .fused_ln_matmul import _sms
 
-#: tile edge of the forward and dw kernels (rows of an M tile, columns of
-#: a channel tile), and the channel granule of the single-pass rule
+#: tile edge of the forward kernel (rows of an M tile, columns of a cout
+#: tile), and the channel granule of the single-pass rule
 TILE = 64
-#: CTAs the forward and dw grids aim to keep resident (132 SMs x 8)
+#: CTAs the forward's grid aims to keep resident (132 SMs x 8)
 RESIDENT_CTAS = 1056
+#: the dw kernel's tile widths (columns of cout), the launch plan's choice
+DW_WIDTHS = (128, 256)
 #: f32 elements of the largest dw partial one single-pass CTA holds in
 #: registers across its sweep (64 a thread of its 256)
 SINGLE_PASS_DW_ELEMS = 16384
@@ -75,9 +79,9 @@ def single_pass(cin: int, cout: int) -> bool:
 
 
 def _chunks(M: int, tiles: int) -> int:
-    """M tiles are dealt to this many chunks (the kernels' partials):
-    enough CTAs to fill the card, a function of the shapes only, so the
-    reduction order — and the result — is the same on every call."""
+    """The forward's M tiles are dealt to this many chunks (its statistics'
+    partials): enough CTAs to fill the card, a function of the shapes only,
+    so the reduction order — and the result — is the same on every call."""
     return max(1, min(-(-M // TILE), -(-RESIDENT_CTAS // tiles)))
 
 
@@ -109,6 +113,35 @@ def single_chunks(M: int, sms: int, tile: tuple[int, int]) -> int:
     every call."""
     bm, per_sm = tile
     return max(1, min(-(-M // bm), per_sm * sms))
+
+
+def dw_plan(M: int, cin: int, cout: int, sms: int, tile: tuple[int, int, int]) -> dict:
+    """The dw kernel's launch plan from the shapes and the card alone:
+    ``{"tile": (rows of cin, columns of cout), "G": chunks}``. ``tile`` is
+    the kernel's ``(rows of cin a tile, rows of M a block, CTAs an SM)``
+    (``dw_tile``).
+
+    The width is the one of ``DW_WIDTHS`` that pads cout least, the wider on a tie (fewer columns of tiles restage x).
+    The grid is (tiles, G); chunk c takes a contiguous range of the M
+    blocks and writes an f32 partial of dw. G fills one wave of the card's
+    CTA slots beside the tiles, with at least 1 chunk and at most one a
+    block, and no more chunks than keep the partials (``G * cin * cout``
+    floats, written, then read by the reduction) within the bf16 bytes the
+    product reads (x, dy, y). So the sums' order is fixed per card."""
+    rows_cin, rows_m, per_sm = tile
+    bn = min(DW_WIDTHS, key=lambda w: (_round_up(cout, w), -w))
+    tiles = -(-cin // rows_cin) * -(-cout // bn)
+    G = min(-(-M // rows_m), per_sm * sms // tiles, 2 * M * (cin + 2 * cout) // (8 * cin * cout))
+    return {"tile": (rows_cin, bn), "G": max(1, G)}
+
+
+@functools.cache
+def dw_tile() -> tuple[int, int, int]:
+    """The dw kernel's tile and residency as its source states them
+    (``conv_bn_dw_tile``): rows of cin a tile, rows of M a block, CTAs an
+    SM."""
+    lib = _build.load("fused_conv_bn")
+    return tuple(lib.conv_bn_dw_tile(i) for i in range(3))
 
 
 @functools.cache
@@ -329,27 +362,39 @@ def conv1x1_bn_bwd_dx(x, y, dy, w, scale=None, shift=None, dsum=None, dssq=None,
     return dx, dscale, dshift
 
 
-def conv1x1_bn_bwd_dw(x, y, dy, scale=None, shift=None, dsum=None, dssq=None, *,
-                      relu: bool = True, emit_stats: bool = True):
-    """Two-pass backward, part 2: ``dw = prologue(x)^T @ g`` in f32
-    ``[cin, cout]``. CUDA tensors: one launch; CPU tensors: the plain
-    backward's."""
-    if not _build.on_cuda(x, "conv1x1_bn_bwd_dw"):
-        return mm_exact(_hq(x, scale, shift, relu).t(), _gq(y, dy, dsum, dssq, emit_stats))
-    cout = dy.shape[-1]
-    M, cin, _, _, sfx = _check("conv1x1_bn_bwd_dw", x, None, scale, shift, cout, ("y", y),
-                               ("dy", dy))
-    dev = x.device
-    dsum, dssq = _stats_args(dsum, dssq, cout, emit_stats, dev)
-    G = _chunks(M, -(-cout // TILE) * -(-cin // TILE))
+def _launch_dw(x, y, dy, scale, shift, dsum, dssq, relu, emit_stats, plan):
+    """The dw product at ``plan`` (``dw_plan``'s keys) and its reduction on
+    validated CUDA tensors; returns dw f32 [cin, cout]."""
+    M, cin = x.shape
+    cout = dy.shape[1]
+    G, dev = plan["G"], x.device
     ws = torch.empty(G * cin * cout, dtype=torch.float32, device=dev)
     dw = torch.empty(cin, cout, dtype=torch.float32, device=dev)
     lib = _build.load("fused_conv_bn")
-    rc = getattr(lib, f"conv_bn_bwd_dw_{sfx}")(
+    rc = getattr(lib, f"conv_bn_bwd_dw_{_SUFFIX[x.dtype]}")(
         x.data_ptr(), y.data_ptr(), dy.data_ptr(), _ptr(scale), _ptr(shift), _ptr(dsum),
-        _ptr(dssq), ws.data_ptr(), dw.data_ptr(), M, cin, cout, G, int(scale is not None),
-        int(bool(relu)), int(bool(emit_stats)), torch.cuda.current_stream(dev).cuda_stream)
+        _ptr(dssq), ws.data_ptr(), dw.data_ptr(), M, cin, cout, G, plan["tile"][1],
+        int(scale is not None), int(bool(relu)), int(bool(emit_stats)),
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "conv1x1_bn_bwd_dw")
+    return dw
+
+
+def conv1x1_bn_bwd_dw(x, y, dy, scale=None, shift=None, dsum=None, dssq=None, *,
+                      relu: bool = True, emit_stats: bool = True):
+    """Two-pass backward, part 2: ``dw = prologue(x)^T @ g`` in f32
+    ``[cin, cout]``. CUDA tensors: one launch of the tiled dw kernel at
+    ``dw_plan`` (and the reduction of its partials); CPU tensors: the
+    plain backward's."""
+    if not _build.on_cuda(x, "conv1x1_bn_bwd_dw"):
+        return mm_exact(_hq(x, scale, shift, relu).t(), _gq(y, dy, dsum, dssq, emit_stats))
+    cout = dy.shape[-1]
+    M, cin, _, _, _ = _check("conv1x1_bn_bwd_dw", x, None, scale, shift, cout, ("y", y),
+                             ("dy", dy))
+    dev = x.device
+    dsum, dssq = _stats_args(dsum, dssq, cout, emit_stats, dev)
+    dw = _launch_dw(x, y, dy, scale, shift, dsum, dssq, relu, emit_stats,
+                    dw_plan(M, cin, cout, _sms(dev), dw_tile()))
     conv1x1_bn_bwd_dw.launches += 1
     return dw
 

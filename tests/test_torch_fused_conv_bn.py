@@ -171,6 +171,43 @@ def test_single_chunks_fill_one_wave_from_the_shapes(M, sms, want):
     assert 1 <= G <= -(-M // bm) and G <= per_sm * sms
 
 
+#: the dw kernel's tile and residency (``conv_bn_dw_tile``): rows of cin a
+#: tile, rows of M a block, CTAs an SM
+DW_TILE = (128, 64, 1)
+
+
+@pytest.mark.parametrize("M, cin, cout, sms, want", [
+    (200704, 128, 512, 132, ((128, 256), 66)),   # stage 1's conv3 (the main shape): 2 tiles
+    (802816, 256, 128, 132, ((128, 128), 66)),   # stage 0's conv1 of block 2: cout 128
+    (12544, 2048, 512, 132, ((128, 256), 4)),    # stage 3's conv1: 32 tiles, few chunks
+    (12544, 1024, 2048, 132, ((128, 256), 2)),   # stage 3's projection: 64 tiles
+    (300, 8, 16, 132, ((128, 128), 5)),          # fewer blocks than a wave: one a chunk
+    (1000, 128, 512, 132, ((128, 256), 4)),      # a small M: the partials' cap
+    (1, 128, 512, 132, ((128, 256), 1)),         # one row
+    (200704, 128, 512, 114, ((128, 256), 57)),   # a card of 114 SMs
+    (3109, 512, 1024, 132, ((128, 256), 3)),     # the card test's: chunks of 16-17 blocks
+    (12544, 384, 384, 132, ((128, 128), 14)),    # cout 384: the 128 width pads nothing
+    (5000, 4096, 4096, 132, ((128, 256), 1)),    # more tiles than a wave: one chunk
+])
+def test_dw_plan_fills_one_wave_from_the_shapes(M, cin, cout, sms, want):
+    """The dw grid (tiles, G) takes the tile width that pads cout least and
+    fills at most one wave of the card's CTA slots, with at least one
+    chunk, at most one a 64-row block, and f32 partials (written and read
+    back) within the bf16 bytes the product reads; the plan depends on the
+    shapes and the card alone."""
+    rows_cin, rows_m, per_sm = DW_TILE
+    plan = tfcb.dw_plan(M, cin, cout, sms, DW_TILE)
+    assert (plan["tile"], plan["G"]) == want
+    assert plan == tfcb.dw_plan(M, cin, cout, sms, DW_TILE)
+    G, bn = plan["G"], plan["tile"][1]
+    tiles = -(-cin // rows_cin) * -(-cout // bn)
+    assert 1 <= G <= -(-M // rows_m)
+    assert G == 1 or (G * tiles <= per_sm * sms
+                      and 8 * G * cin * cout <= 2 * M * (cin + 2 * cout))
+    assert bn in tfcb.DW_WIDTHS and -(-cout // bn) * bn == min(
+        -(-cout // w) * w for w in tfcb.DW_WIDTHS)
+
+
 def test_bwd_impl_policy(monkeypatch):
     monkeypatch.delenv("DTF_FUSED_BWD", raising=False)
     assert _policy.resolve_bwd_impl() == "xla"

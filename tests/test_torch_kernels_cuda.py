@@ -275,12 +275,17 @@ def test_training_steps_on_card_match_the_cpu(card):
 #: then single-pass cases: M spanning three waves of 132 CTAs of 64-row
 #: tiles and 37 rows more (a ragged last tile), the rule's square corner
 #: 128->128, 64->256 with a contiguous w, and M spanning five and four waves
-#: at 64->64 and 256->64, so each CTA's tiles wrap its 4- and 3-stage ring
+#: at 64->64 and 256->64, so each CTA's tiles wrap its 4- and 3-stage ring;
+#: then two-pass dw cases: cout 128 (the 128-wide dw tile) with cin spanning
+#: two tiles, and 512->1024 (128 x 256 tiles, 16 of them; G = 3 on 132 SMs,
+#: capped by the partials) at M = 3109, so each chunk spans 16-17 blocks of
+#: 64 rows, past the 2-stage ring, the last one ragged
 CONV_BN_CASES = [(37, 16, 24, "oihw"), (200, 64, 256, "oihw"), (130, 256, 64, "oihw"),
                  (300, 128, 512, "oihw"), (100, 72, 40, "oihw"), (333, 200, 136, "oihw"),
                  (300, 128, 512, "contiguous"), (3 * 132 * 64 + 37, 64, 256, "oihw"),
                  (300, 128, 128, "oihw"), (200, 64, 256, "contiguous"),
-                 (5 * 132 * 64 + 37, 64, 64, "oihw"), (4 * 132 * 64 + 37, 256, 64, "oihw")]
+                 (5 * 132 * 64 + 37, 64, 64, "oihw"), (4 * 132 * 64 + 37, 256, 64, "oihw"),
+                 (300, 256, 128, "oihw"), (3109, 512, 1024, "oihw")]
 #: (prologue, relu, emit_stats)
 CONV_BN_VARIANTS = [(False, False, True), (False, False, False), (True, True, True),
                     (True, False, True), (True, True, False)]
@@ -380,11 +385,13 @@ def test_conv_bn_autograd_on_card_matches_cpu(card, bwd_impl):
 def test_conv_bn_kernels_are_deterministic(card):
     """Two calls of every kernel on the same bf16 inputs give bitwise-equal
     results: the reductions over M use per-chunk partials summed in a
-    fixed order, no float atomics."""
+    fixed order, no float atomics. The two-pass shapes take the dw
+    kernel's 128-wide tile (3000, 256->128) and its 256-wide one (2000,
+    384->256; 6000, 128->512)."""
     from distributed_tensorflow_tpu_torch.ops import fused_conv_bn as fcb
 
     rng = np.random.default_rng(7)
-    for M, cin, cout in ((5000, 64, 256), (3000, 256, 128), (2000, 384, 256)):
+    for M, cin, cout in ((5000, 64, 256), (3000, 256, 128), (2000, 384, 256), (6000, 128, 512)):
         x, w, sc, sh, dy, dsum, dssq = _conv_bn_inputs(rng, card, torch.bfloat16, M, cin, cout,
                                                        True)
         runs = []
@@ -397,6 +404,54 @@ def test_conv_bn_kernels_are_deterministic(card):
             runs.append(out)
         for a, b in zip(*runs):
             assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_conv_bn_prologue_rounds_the_product_before_the_shift(card, dtype):
+    """One column of x holds a single value x0, with a scale s0 such that
+    x0*s0 is inexact in f32 and lies above its rounding, and shift =
+    -fl(x0*s0): the plain version's h = relu(fl(x0*s0) + shift) is exactly
+    0 there, where an fma would keep the rounding error. Every other
+    column's shift gives h = 0, and that column's w row is large. So y, its
+    statistics, dx, dscale, dshift and dw (the two-pass pair at 256->128,
+    the single-pass kernel too at 64->64) must equal the plain version's
+    exactly: all zero."""
+    from distributed_tensorflow_tpu_torch.ops import fused_conv_bn as fcb
+
+    rng = np.random.default_rng(9)
+    # x0 exact in bf16, s0 in f32, their exact product (float64 holds it)
+    # above its f32 rounding
+    for _ in range(1000):
+        x0 = float(torch.tensor(rng.uniform(1, 2)).to(torch.bfloat16))
+        s0 = np.float32(rng.uniform(0.5, 2))
+        if x0 * float(s0) > float(np.float32(x0) * s0):
+            break
+    else:
+        raise AssertionError("no inexact x0 * s0 above its rounding")
+    for M, cin, cout, col in ((1000, 256, 128, 133), (1000, 64, 64, 33)):
+        x, w, _, _, dy, dsum, dssq = _conv_bn_inputs(rng, card, dtype, M, cin, cout, False)
+        x[:, col] = x0
+        w = w.contiguous()
+        w[col] = 1e3
+        scale = torch.ones(cin, device=card)
+        scale[col] = float(s0)
+        shift = torch.full((cin,), -100.0, device=card)
+        shift[col] = -float(np.float32(x0) * s0)
+        y, s, q = fcb.conv1x1_bn_fwd(x, w, scale, shift)
+        want = fcb.conv1x1_bn_act_plain(x, w, scale, shift)
+        bwd = (x, y, dy, w, scale, shift, dsum, dssq)
+        dx, dsc, dsh = fcb.conv1x1_bn_bwd_dx(*bwd)
+        dw = fcb.conv1x1_bn_bwd_dw(x, y, dy, scale, shift, dsum, dssq)
+        ref = fcb.conv1x1_bn_bwd_plain(*bwd)
+        got = {"y": y, "sum": s, "sumsq": q, "dx": dx, "dscale": dsc, "dshift": dsh, "dw": dw}
+        if fcb.single_pass(cin, cout):
+            got.update(zip(("single dx", "single dw", "single dscale", "single dshift"),
+                           fcb.conv1x1_bn_bwd_single(*bwd)))
+        torch.cuda.synchronize()
+        assert not want[0].any() and not any(r.any() for r in ref)
+        for name, t in got.items():
+            assert not t.any(), (name, (M, cin, cout), float(t.abs().max()))
 
 
 @pytest.mark.cuda
