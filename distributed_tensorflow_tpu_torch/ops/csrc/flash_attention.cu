@@ -14,15 +14,47 @@
 // mask, never exp(NEG_INF - NEG_INF).
 //
 // What bounds it on this card: at the training shapes (B=8, H=12, S=1024,
-// D=64, causal, bf16) every kernel does 2-3 S*S*D products per (b, h), so it
+// D=64, causal, bf16) every kernel does 2-4 S*S*D products per (b, h), so it
 // is bound by tensor-core operations, not bytes (forward 12.9 GFLOP against
-// 50 MB). The design answers that with bf16 tensor-core tiles: every product
-// is mma.sync m16n8k16 (bf16 in, f32 accumulate), one warp per 16 rows of a
-// 64-row tile, operands staged in shared memory. Simple first: no TMA, no
-// wgmma, no software pipelining of the tile loads, operands fetched from
-// shared memory with plain 16/32-bit loads. For f32 inputs the same tile
-// loops run on CUDA cores (scalar FMAs in the mma's fragment layout), so
-// f32 keeps full f32 products; that path is for checks, not for speed.
+// 50 MB). Every bf16 product is mma.sync m16n8k16 (bf16 in, f32 accumulate).
+//
+// The forward and dQ (and dK/dV for f32 inputs) are the first design: one
+// warp per 16 rows of a 64-row tile, 4 warps, operands staged synchronously
+// in shared memory and fetched with plain 16/32-bit loads, P (dS) rounded
+// into shared memory and read back. For f32 inputs the same tile loops run
+// on CUDA cores (scalar FMAs in the mma's fragment layout), so f32 keeps
+// full f32 products; that path is for checks, not for speed.
+//
+// dK/dV for bf16 inputs (flash_bwd_dkv_kernel, traits Dkv) is built on
+// tile_mma.cuh. Its work is 4 products of 2*D operations per attended
+// (key, row) pair against 5 reads of [B,H,S,D], so what bounds it is how
+// fast a CTA can feed its mma.sync chain. The design keeps that chain fed:
+//  - Keys are the mma rows: each warp owns 16 keys and computes
+//    S^T = K Q^T and dP^T = V dO^T for a q tile. The m16n8 accumulators of
+//    two adjacent n-tiles, packed to bf16 pairs, are the m16k16 A fragment
+//    of P^T dO (dS^T Q), so p and ds go from the softmax arithmetic straight
+//    into the next mma.sync, in registers; nothing round-trips through
+//    shared memory.
+//  - Q and dO are staged as they lie ([row][d]) and read by ldmatrix: as the
+//    B operand of S^T and dP^T with ldsm_x4, as the B operand of dK and dV
+//    with ldsm_x4_trans, from the one staged copy. K and V are read once
+//    into register A fragments (D = 64), or by ldsm_x4 at every use where
+//    registers are short (D = 128).
+//  - Q, dO, O (cp.async, 16 bytes) and the LSE (4 bytes) of q tile i+2 are
+//    copied into a 3-stage ring while tile i computes, one __syncthreads an
+//    iteration; rows past Sq are zero-filled (they add exactly 0: dO = O = 0
+//    there).
+//  - delta = rowsum(dO * O) is computed in f32 from the staged dO and O
+//    tiles with 16-byte shared reads, one tile ahead, together with
+//    LSE * log2(e), so p = exp2(s * scale * log2(e) - LSE * log2(e)).
+//  - The kv_mask is a per-key predicate held in registers; the causal test
+//    runs only where a warp's 16 keys cross the diagonal band of a q
+//    sub-tile; sub-tiles wholly above the band, past Sq, or of a warp whose
+//    keys are all masked skip their products.
+//  A CTA is 4 warps (64 keys) at D = 64, two CTAs an SM, and 8 warps (128
+//  keys) at D = 128, one (Dkv); the grid puts the key tile on its slowest
+//  axis so the heaviest causal tiles (lowest keys) launch first. dK and dV
+//  leave through shared memory in 16-byte rows, each rounded once.
 //
 // Numerics (as the Pallas kernels): f32 logits, f32 softmax statistics and
 // f32 accumulation; delta = rowsum(dO * O) in f32, once per row tile inside
@@ -52,6 +84,10 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "tile_mma.cuh"
 
 namespace {
 
@@ -301,16 +337,18 @@ flash_fwd_kernel(Strided q, Strided k, Strided v, const unsigned char* __restric
 }
 
 // ---------------------------------------------------------------------------
-// dK, dV: one block per (kv tile, h, b), the kv tile resident; q tiles in a
-// loop. Each warp owns 16 keys and works on transposed tiles (keys x rows).
+// dK, dV for f32 inputs (the first design, on CUDA cores): one block per
+// (kv tile, h, b), the kv tile resident; q tiles in a loop. Each warp owns 16
+// keys and works on transposed tiles (keys x rows).
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(Strided q, Strided k, Strided v, Strided o, Strided dout,
-                     const unsigned char* __restrict__ mask, const float* __restrict__ lse,
-                     T* __restrict__ dk, T* __restrict__ dv, int H, int Sq, int Sk,
-                     int causal, int q_offset, float scale) {
+flash_bwd_dkv_f32_kernel(Strided q, Strided k, Strided v, Strided o, Strided dout,
+                         const unsigned char* __restrict__ mask, const float* __restrict__ lse,
+                         float* __restrict__ dk, float* __restrict__ dv, int H, int Sq,
+                         int Sk, int causal, int q_offset, float scale) {
+  using T = float;
   constexpr int LD = padded<T>(D), LDP = padded<T>(kTile);
   constexpr int NS = kTile / 8, NO = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -383,6 +421,271 @@ flash_bwd_dkv_kernel(Strided q, Strided k, Strided v, Strided o, Strided dout,
       vr[8 * j + 2 * t] = from_f32<T>(dva[j][2 * i]);
       vr[8 * j + 2 * t + 1] = from_f32<T>(dva[j][2 * i + 1]);
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dK, dV for bf16 inputs (see the note at the top): one CTA per (b, h, key
+// tile), the key tile resident; q tiles stream through a cp.async ring.
+// ---------------------------------------------------------------------------
+
+// The CTA shape and shared-memory layout of flash_bwd_dkv_kernel<D>. On an
+// H100 (PERF.md): at D = 64, 4 warps (64 keys; 248 registers, 103 KB,
+// two CTAs an SM) beat 8 (128 keys, one CTA) by 6%; at D = 128 the ring
+// takes 193 KB at 4 warps, one CTA of 4 warps an SM, so 8 warps (228 KB),
+// 1.35x faster; 16-row sub-tiles there keep ptxas from spilling.
+template <int D>
+struct Dkv {
+  using bf16 = __nv_bfloat16;
+  static constexpr int WARPS = D <= 64 ? 4 : 8;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int BK = 16 * WARPS;  // keys of a CTA, 16 a warp
+  static constexpr int BQ = 64;          // rows of a staged q tile
+  static constexpr int NQ = D <= 64 ? 64 : 16;  // rows of it in registers at once
+  static constexpr bool KV_REGS = D <= 64;      // K, V A fragments held in registers
+  static constexpr int STAGES = 3;
+  static constexpr int LD = tile::pad_ld<bf16>(D);
+  static constexpr int TILE = BQ * LD;  // elements of one staged [BQ][D] tile
+  static constexpr int TPR = THREADS / BQ;  // threads a row in the delta pass
+  // K, V [BK][LD]; STAGES x {Q, dO, O [BQ][LD], LSE [BQ]}; delta and
+  // LSE * log2(e) of two tiles [2][BQ] each; the key mask [BK]
+  static constexpr size_t KV_BYTES = 2 * sizeof(bf16) * BK * LD;
+  static constexpr size_t STAGE_BYTES = 3 * sizeof(bf16) * TILE + sizeof(float) * BQ;
+  static constexpr size_t SMEM = KV_BYTES + STAGES * STAGE_BYTES + 4 * sizeof(float) * BQ + BK;
+  static_assert(BQ % NQ == 0 && NQ % 16 == 0 && D % 16 == 0, "16-row, 16-deep mma steps");
+  static_assert(THREADS % BQ == 0 && (D / TPR) % 8 == 0 && THREADS >= BQ, "the row pass");
+  static_assert(STAGE_BYTES % 16 == 0 && SMEM <= 232448, "16-byte stages in 227 KB");
+};
+
+// Stage rows [r0, r0 + ROWS) of one (b, h) slice of a [B,H,S,D] bf16 tensor
+// in shared memory (row pitch LD) with cp.async, 16 bytes a copy, shared by
+// THREADS threads; rows >= S are zero-filled.
+template <int ROWS, int D, int LD, int THREADS>
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const Strided& src, int b, int h,
+                                           int r0, int S) {
+  constexpr int P = D / 8, C = ROWS * P;
+  static_assert(C % THREADS == 0, "every thread copies as many chunks");
+  const __nv_bfloat16* base = (const __nv_bfloat16*)src.p + b * src.sb + h * src.sh;
+#pragma unroll
+  for (int u = 0; u < C / THREADS; ++u) {
+    const int i = threadIdx.x + u * THREADS, r = i / P, c = i % P * 8;
+    const bool ok = r0 + r < S;
+    tile::cp_async16(dst + r * LD + c, ok ? base + (r0 + r) * src.ss + c : base, ok);
+  }
+}
+
+// two f32 values rounded to one bf16 pair, lo in the lower half (the mma
+// fragment order)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int D>
+__global__ void __launch_bounds__(Dkv<D>::THREADS, 1)
+flash_bwd_dkv_kernel(Strided q, Strided k, Strided v, Strided o, Strided dout,
+                     const unsigned char* __restrict__ mask, const float* __restrict__ lse,
+                     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int H,
+                     int Sq, int Sk, int causal, int q_offset, float scale) {
+  using S = Dkv<D>;
+  using bf16 = __nv_bfloat16;
+  constexpr int BK = S::BK, BQ = S::BQ, NQ = S::NQ, LD = S::LD, THREADS = S::THREADS;
+  constexpr int NJ = NQ / 8, NO = D / 8, KS = D / 16, P = D / 8;
+  constexpr float kLog2e = 1.4426950408889634f;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Vs = Ks + BK * LD;
+  unsigned char* ring = smem_raw + S::KV_BYTES;
+  float* delta_s = reinterpret_cast<float*>(ring + S::STAGES * S::STAGE_BYTES);  // [2][BQ]
+  float* lse2_s = delta_s + 2 * BQ;                                              // [2][BQ]
+  unsigned char* keep = reinterpret_cast<unsigned char*>(lse2_s + 2 * BQ);
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int c0 = blockIdx.y * BK, kw0 = c0 + 16 * warp;  // the CTA's, the warp's first key
+  const int key[2] = {kw0 + g, kw0 + g + 8};
+  const float sl2 = scale * kLog2e;
+  // rows whose band reaches the tile's first key: r + q_offset >= c0
+  const int r_begin = causal ? max(0, c0 - q_offset) : 0;
+  const int n_tiles = Sq > r_begin ? (Sq - r_begin + BQ - 1) / BQ : 0;
+
+  auto stage = [&](int i) { return reinterpret_cast<bf16*>(ring + i % S::STAGES * S::STAGE_BYTES); };
+  // copy Q, dO, O and the LSE of q tile i into its stage; one commit group
+  // a call (empty past the last tile)
+  auto load_tile_async = [&](int i) {
+    if (i < n_tiles) {
+      const int r0 = r_begin + i * BQ;
+      bf16* st = stage(i);
+      stage_rows<BQ, D, LD, THREADS>(st, q, b, h, r0, Sq);
+      stage_rows<BQ, D, LD, THREADS>(st + S::TILE, dout, b, h, r0, Sq);
+      stage_rows<BQ, D, LD, THREADS>(st + 2 * S::TILE, o, b, h, r0, Sq);
+      const int r = threadIdx.x;
+      if (r < BQ) {
+        const bool ok = r0 + r < Sq;
+        tile::cp_async4(reinterpret_cast<float*>(st + 3 * S::TILE) + r,
+                        lse + (size_t)bh * Sq + (ok ? r0 + r : 0), ok);
+      }
+    }
+    tile::cp_async_commit();
+  };
+  // delta = rowsum(dO * O) in f32 and LSE * log2(e) of q tile i, from its
+  // stage, TPR threads a row
+  auto row_pass = [&](int i) {
+    if (i >= n_tiles) return;
+    constexpr int PER = D / S::TPR;
+    const bf16* st = stage(i);
+    const int r = threadIdx.x / S::TPR, part = threadIdx.x % S::TPR;
+    float acc = 0.f;
+#pragma unroll
+    for (int u = 0; u < PER / 8; ++u) {
+      const int c = part * PER + 8 * u;
+      float d8[8], o8[8];
+      tile::load8(st + S::TILE + r * LD + c, d8);
+      tile::load8(st + 2 * S::TILE + r * LD + c, o8);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc = fmaf(d8[e], o8[e], acc);
+    }
+#pragma unroll
+    for (int m = 1; m < S::TPR; m <<= 1) acc += __shfl_xor_sync(0xffffffffu, acc, m);
+    if (part == 0) {
+      delta_s[(i & 1) * BQ + r] = acc;
+      lse2_s[(i & 1) * BQ + r] = reinterpret_cast<const float*>(st + 3 * S::TILE)[r] * kLog2e;
+    }
+  };
+
+  // K, V and q tile 0 in the first group, q tile 1 in the second
+  stage_rows<BK, D, LD, THREADS>(Ks, k, b, h, c0, Sk);
+  stage_rows<BK, D, LD, THREADS>(Vs, v, b, h, c0, Sk);
+  for (int i = threadIdx.x; i < BK; i += THREADS)
+    keep[i] = c0 + i < Sk && (mask == nullptr || mask[(size_t)b * Sk + c0 + i] != 0);
+  load_tile_async(0);
+  load_tile_async(1);
+  tile::cp_async_wait<1>();
+  __syncthreads();
+  row_pass(0);
+  const bool key_ok[2] = {keep[16 * warp + g] != 0, keep[16 * warp + g + 8] != 0};
+  const bool live = __ballot_sync(0xffffffffu, key_ok[0] || key_ok[1]) != 0;
+  // the A fragments of this warp's 16 keys: (keys, d 16kk..16kk+15)
+  const int a_off = (16 * warp + (lane & 15)) * LD + 8 * (lane >> 4);
+  uint32_t kf[S::KV_REGS ? KS : 1][4], vf[S::KV_REGS ? KS : 1][4];
+  if constexpr (S::KV_REGS) {
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      tile::ldsm_x4(kf[kk], Ks + a_off + 16 * kk);
+      tile::ldsm_x4(vf[kk], Vs + a_off + 16 * kk);
+    }
+  }
+  float dka[NO][4], dva[NO][4];
+  zero(dka);
+  zero(dva);
+
+  for (int i = 0; i < n_tiles; ++i) {
+    tile::cp_async_wait<0>();  // q tile i + 1 has landed (this thread's copies)
+    __syncthreads();  // ... every thread's; tile i - 1 and its stage are done with
+    load_tile_async(i + 2);
+    row_pass(i + 1);
+    const bf16* Qs = stage(i);
+    const bf16* dOs = Qs + S::TILE;
+    const float* l2 = lse2_s + (i & 1) * BQ;
+    const float* dl = delta_s + (i & 1) * BQ;
+    const int r0 = r_begin + i * BQ;
+#pragma unroll
+    for (int qc = 0; qc < BQ; qc += NQ) {
+      const int rq = r0 + qc;  // the sub-tile's rows [rq, rq + NQ)
+      // nothing to add: keys all masked, rows past Sq, or wholly above the band
+      if (!live || rq >= Sq || (causal && rq + NQ - 1 + q_offset < kw0)) continue;
+      const bool diag = causal && rq + q_offset < kw0 + 15;  // some pair above the band
+      // S^T = K Q^T and dP^T = V dO^T over d: B(d, row) = Q[row][d] as it lies
+      float st[NJ][4], dpt[NJ][4];
+      zero(st);
+      zero(dpt);
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t ka[4], va[4];
+        if constexpr (S::KV_REGS) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) ka[e] = kf[kk][e], va[e] = vf[kk][e];
+        } else {
+          tile::ldsm_x4(ka, Ks + a_off + 16 * kk);
+          tile::ldsm_x4(va, Vs + a_off + 16 * kk);
+        }
+#pragma unroll
+        for (int j = 0; j < NJ; j += 2) {
+          const int off = (qc + 8 * j + (lane & 7) + 8 * (lane >> 4)) * LD + 16 * kk +
+                          8 * ((lane >> 3) & 1);
+          uint32_t bq[4], bo[4];
+          tile::ldsm_x4(bq, Qs + off);
+          tile::ldsm_x4(bo, dOs + off);
+          tile::mma_bf16(st[j], ka, bq[0], bq[1]);
+          tile::mma_bf16(st[j + 1], ka, bq[2], bq[3]);
+          tile::mma_bf16(dpt[j], va, bo[0], bo[1]);
+          tile::mma_bf16(dpt[j + 1], va, bo[2], bo[3]);
+        }
+      }
+      // p = exp(s * scale - LSE) (0 under the masks), ds = p (dp - delta)
+      // scale, rounded to bf16 pairs: n-tiles 2kk and 2kk + 1 of the
+      // accumulators are the A fragment kk (keys x rows 16kk..) of P^T, dS^T
+      uint32_t pa[NQ / 16][4], da[NQ / 16][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int col = qc + 8 * j + 2 * t;  // the stage row of elements 0, 2
+        const float2 ls = *reinterpret_cast<const float2*>(l2 + col);
+        const float2 de = *reinterpret_cast<const float2*>(dl + col);
+        float p[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ki = e >> 1;
+          const bool ok =
+              key_ok[ki] && (!diag || key[ki] <= r0 + col + (e & 1) + q_offset);
+          p[e] = ok ? exp2f(fmaf(st[j][e], sl2, -((e & 1) ? ls.y : ls.x))) : 0.f;
+          ds[e] = p[e] * (dpt[j][e] - ((e & 1) ? de.y : de.x)) * scale;
+        }
+        pa[j >> 1][2 * (j & 1)] = pack_bf16(p[0], p[1]);
+        pa[j >> 1][2 * (j & 1) + 1] = pack_bf16(p[2], p[3]);
+        da[j >> 1][2 * (j & 1)] = pack_bf16(ds[0], ds[1]);
+        da[j >> 1][2 * (j & 1) + 1] = pack_bf16(ds[2], ds[3]);
+      }
+      // dV += P^T dO, dK += dS^T Q: B(row, d) = dO[row][d] as it lies, by
+      // ldmatrix.trans
+#pragma unroll
+      for (int kk = 0; kk < NQ / 16; ++kk)
+#pragma unroll
+        for (int j = 0; j < NO; j += 2) {
+          const int off = (qc + 16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1)) * LD + 8 * j +
+                          8 * (lane >> 4);
+          uint32_t bo[4], bq[4];
+          tile::ldsm_x4_trans(bo, dOs + off);
+          tile::ldsm_x4_trans(bq, Qs + off);
+          tile::mma_bf16(dva[j], pa[kk], bo[0], bo[1]);
+          tile::mma_bf16(dva[j + 1], pa[kk], bo[2], bo[3]);
+          tile::mma_bf16(dka[j], da[kk], bq[0], bq[1]);
+          tile::mma_bf16(dka[j + 1], da[kk], bq[2], bq[3]);
+        }
+    }
+  }
+
+  // dK, dV rounded once, through the K, V tiles to 16-byte rows; keys past
+  // Sk are not stored
+  tile::cp_async_wait<0>();
+  __syncthreads();  // every warp is done with K and V
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int at = (16 * warp + g + 8 * i) * LD + 8 * j + 2 * t;
+      *reinterpret_cast<__nv_bfloat162*>(Ks + at) =
+          __floats2bfloat162_rn(dka[j][2 * i], dka[j][2 * i + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(Vs + at) =
+          __floats2bfloat162_rn(dva[j][2 * i], dva[j][2 * i + 1]);
+    }
+  __syncthreads();
+  for (int u = threadIdx.x; u < BK * P; u += THREADS) {
+    const int r = u / P, c = u % P * 8;
+    if (c0 + r >= Sk) continue;
+    const size_t at = ((size_t)bh * Sk + c0 + r) * D + c;
+    *reinterpret_cast<uint4*>(dk + at) = *reinterpret_cast<const uint4*>(Ks + r * LD + c);
+    *reinterpret_cast<uint4*>(dv + at) = *reinterpret_cast<const uint4*>(Vs + r * LD + c);
   }
 }
 
@@ -497,15 +800,27 @@ template <typename T, int D>
 int bwd_dkv(Strided q, Strided k, Strided v, Strided o, Strided dout, const void* mask,
             const void* lse, void* dk, void* dv, int B, int H, int Sq, int Sk, int causal,
             float scale, cudaStream_t st) {
-  constexpr int LD = padded<T>(D), LDP = padded<T>(kTile);
-  const size_t smem =
-      sizeof(T) * (4 * kTile * LD + 2 * kTile * LDP) + 2 * sizeof(float) * kTile + kTile;
-  auto kern = flash_bwd_dkv_kernel<T, D>;
-  cudaError_t e = smem_attr(kern, smem);
-  if (e != cudaSuccess) return (int)e;
-  kern<<<dim3((Sk + kTile - 1) / kTile, H, B), kThreads, smem, st>>>(
-      q, k, v, o, dout, (const unsigned char*)mask, (const float*)lse, (T*)dk, (T*)dv, H, Sq,
-      Sk, causal, Sk - Sq, scale);
+  if constexpr (std::is_same<T, float>::value) {  // f32: the CUDA-core kernel
+    constexpr int LD = padded<T>(D), LDP = padded<T>(kTile);
+    const size_t smem =
+        sizeof(T) * (4 * kTile * LD + 2 * kTile * LDP) + 2 * sizeof(float) * kTile + kTile;
+    auto kern = flash_bwd_dkv_f32_kernel<D>;
+    cudaError_t e = smem_attr(kern, smem);
+    if (e != cudaSuccess) return (int)e;
+    kern<<<dim3((Sk + kTile - 1) / kTile, H, B), kThreads, smem, st>>>(
+        q, k, v, o, dout, (const unsigned char*)mask, (const float*)lse, (T*)dk, (T*)dv, H, Sq,
+        Sk, causal, Sk - Sq, scale);
+  } else {  // bf16: the tile_mma.cuh kernel, key tiles on the slowest grid axis
+    using S = Dkv<D>;
+    if ((long long)B * H > 0x7fffffffLL || (Sk + S::BK - 1) / S::BK > 65535)
+      return (int)cudaErrorInvalidValue;
+    auto kern = flash_bwd_dkv_kernel<D>;
+    const int e = tile::set_smem(kern, S::SMEM);
+    if (e != 0) return e;
+    kern<<<dim3(B * H, (Sk + S::BK - 1) / S::BK), S::THREADS, S::SMEM, st>>>(
+        q, k, v, o, dout, (const unsigned char*)mask, (const float*)lse, (T*)dk, (T*)dv, H, Sq,
+        Sk, causal, Sk - Sq, scale);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -559,7 +874,7 @@ int dkv_entry(const void* q, long long qb, long long qh, long long qs, const voi
   const Strided Q{q, qb, qh, qs}, K{k, kb, kh, ks}, V{v, vb, vh, vs}, O{o, ob, oh, os},
       dO{dout, db, dh, ds};
   if (!shapes_ok(B, H, Sq, Sk) || !aligned<T>(Q) || !aligned<T>(K) || !aligned<T>(V) ||
-      !aligned<T>(dO))
+      !aligned<T>(O) || !aligned<T>(dO))
     return (int)cudaErrorInvalidValue;
   if (B == 0 || H == 0 || Sk == 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;

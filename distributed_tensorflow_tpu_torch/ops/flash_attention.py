@@ -181,14 +181,11 @@ def _bwd_args(q, k, v, kv_mask, out, lse, dout):
         raise ValueError(f"lse must be f32 {tuple(q.shape[:3])}, got {lse.dtype} "
                          f"{tuple(lse.shape)}")
     lse = lse.contiguous()
-    # out is read row by row (no 16-byte loads): any strides with a unit last dim
-    if out.stride(-1) != 1:
-        out = out.contiguous()
-    tensors = [_strided(n, t) for n, t in (("q", q), ("k", k), ("v", v), ("dout", dout))]
-    args = tensors[0][1] + tensors[1][1] + tensors[2][1] + [out.data_ptr(), *out.stride()[:3]]
-    args += tensors[3][1] + [kv_mask.data_ptr() if kv_mask is not None else None,
-                             lse.data_ptr()]
-    keep = [t for t, _ in tensors] + [out, lse, kv_mask]  # alive across the launch
+    tensors = [_strided(n, t) for n, t in
+               (("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout))]
+    args = [a for _, t_args in tensors for a in t_args]
+    args += [kv_mask.data_ptr() if kv_mask is not None else None, lse.data_ptr()]
+    keep = [t for t, _ in tensors] + [lse, kv_mask]  # alive across the launch
     return args, keep
 
 

@@ -53,11 +53,11 @@ def test_library_path_follows_the_flags_and_differs_by_source(csrc, monkeypatch)
 
 def test_the_port_sources_name_their_libraries():
     """Every library of ``SIGNATURES`` has its source in the real ``csrc``,
-    and the LN+matmul sources and the conv+BN source (its dx kernel)
-    share ``tile_mma.cuh``."""
+    and the LN+matmul sources, the conv+BN source and the flash source
+    (its bf16 dK/dV kernel) share ``tile_mma.cuh``."""
     for name in _build.SIGNATURES:
         assert os.path.exists(_build._paths(name)[0]), name
-    for name in ("ln_matmul", "ln_matmul_bwd", "fused_conv_bn"):
+    for name in ("ln_matmul", "ln_matmul_bwd", "fused_conv_bn", "flash_attention"):
         with open(_build._paths(name)[0]) as f:
             assert '#include "tile_mma.cuh"' in f.read()
 
@@ -162,3 +162,22 @@ def test_sources_parse_as_cpp_with_every_template_instantiated(name, tmp_path):
                           "-I", str(tmp_path), "-x", "c++", str(tmp_path / f"{name}.cpp")],
                          capture_output=True, text=True)
     assert out.returncode == 0, out.stderr[-4000:]
+
+
+def test_flash_dkv_turns_substitutions_apply_to_the_source():
+    """``tools/flash_dkv_turns.py`` builds variants of the flash source by
+    text substitution (CTA shape, K/V residency, ablations); each text it
+    replaces is still in the source, so the tool does not fail on the
+    card."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "tools", "flash_dkv_turns.py")
+    spec = importlib.util.spec_from_file_location("flash_dkv_turns", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    with open(_build._paths("flash_attention")[0]) as f:
+        src = f.read()
+    for name, subs in tool.LAYOUTS + tool.ABLATIONS:
+        for old, new in subs:
+            assert old in src and old != new, (name, old)

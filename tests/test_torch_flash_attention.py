@@ -169,3 +169,23 @@ def test_attention_dispatch_matches_jax_reference():
         np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=2e-5, err_msg=impl)
     with pytest.raises(ValueError, match="blockwise"):
         tatt.attention(*args, impl="blockwise")
+
+
+def test_backward_wrappers_pass_out_through_its_strides():
+    """``_bwd_args``, the backward kernels' arguments: q, k, v, out and
+    dout each as (pointer, stride_b, stride_h, stride_s), so the model's
+    ``[B,S,H,D] -> [B,H,S,D]`` view of out goes uncopied; an out whose rows
+    are not 16-byte aligned is refused (the dK/dV kernel stages it with
+    16-byte copies), as q, k, v and dout are."""
+    rng = np.random.default_rng(6)
+    f = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s, dtype=np.float32)).to(torch.bfloat16)
+    q, k, v, out, dout = (f(2, 40, 3, 64).transpose(1, 2) for _ in range(5))
+    lse = torch.zeros(2, 3, 40)
+    args, _alive = tfa._bwd_args(q, k, v, None, out, lse, dout)
+    for i, t in enumerate((q, k, v, out, dout)):
+        assert args[4 * i:4 * i + 4] == [t.data_ptr(), *t.stride()[:3]]
+    assert args[20:] == [None, lse.data_ptr()]
+    buf = torch.zeros(2 * 3 * 40 * 64 + 1, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="out: the flash kernels load rows 16 bytes"):
+        tfa._bwd_args(q, k, v, None, buf[1:].view(2, 3, 40, 64), lse, dout)

@@ -131,7 +131,12 @@ def test_engine_on_card_matches_engine_on_cpu(card):
 
 #: (B, H, Sq, Sk, D, causal, masked): square, ragged (no 64-multiple),
 #: Sq < Sk (causal q_offset > 0), Sq > Sk (causal rows that attend
-#: nothing), and the 128 head dim
+#: nothing), and the 128 head dim; then the edges of the bf16 dK/dV
+#: kernel (64-key CTAs at D=64, 128-key at D=128, 64-row q tiles through a
+#: 3-stage ring): a ring that wraps three times, Sk no multiple of the key
+#: tile (D=64 and D=128), whole key tiles with kv_mask all False
+#: (masked="tiles": keys 128..255), Sq > Sk over several q tiles, and
+#: D=128 over several key and q tiles
 FLASH_CASES = [
     (2, 3, 128, 128, 64, True, False),
     (2, 3, 128, 128, 64, False, True),
@@ -139,12 +144,26 @@ FLASH_CASES = [
     (1, 2, 37, 130, 64, True, False),
     (2, 2, 200, 70, 64, True, True),
     (1, 2, 96, 96, 128, True, True),
+    (1, 2, 640, 640, 64, True, False),
+    (2, 2, 200, 200, 64, False, True),
+    (2, 2, 150, 200, 128, True, True),
+    (2, 2, 320, 320, 64, True, "tiles"),
+    (2, 2, 300, 130, 64, True, False),
+    (2, 3, 384, 384, 128, True, False),
 ]
+
+#: relative L2 error of dq, dk, dv against the plain version, beside the
+#: elementwise gate (whose atol passes a dk 30% off where |dk| is small):
+#: on an H100 the kernels read at most ~1.4e-4 (bf16: p and ds rounded on
+#: either side of a tie) and ~2e-7 (f32: another summation order); a dk
+#: scaled by 1.01 reads 1e-2 (PERF.md)
+FLASH_REL_L2 = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
 
 
 def _flash_inputs(rng, card, dtype, B, H, Sq, Sk, D, masked):
     """q/k/v as the model makes them — [B,S,H,D] viewed as [B,H,S,D] — and
-    a kv_mask whose last batch row attends nothing."""
+    a kv_mask whose last batch row attends nothing (with masked="tiles",
+    keys 128..255 attend in no row either)."""
     f = lambda *s: torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(card)  # noqa: E731
     q, k, v, dout = (t.to(dtype).transpose(1, 2) for t in
                      (f(B, Sq, H, D), f(B, Sk, H, D), f(B, Sk, H, D), f(B, Sq, H, D)))
@@ -152,7 +171,13 @@ def _flash_inputs(rng, card, dtype, B, H, Sq, Sk, D, masked):
     if masked:
         mask = torch.from_numpy(rng.random((B, Sk)) > 0.25).to(card)
         mask[-1] = False
+        if masked == "tiles":
+            mask[:, 128:256] = False
     return q, k, v, mask, dout
+
+
+def _rel_l2(got, want):
+    return float((got.float() - want.float()).norm() / want.float().norm().clamp_min(1e-30))
 
 
 @pytest.mark.cuda
@@ -182,10 +207,14 @@ def test_flash_kernels_match_plain_on_card(card, dtype):
         for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
             torch.testing.assert_close(got.float(), w.float(), atol=atol, rtol=rtol,
                                        msg=lambda m: f"{name} {case}: {m}")
+            assert _rel_l2(got, w) <= FLASH_REL_L2[dtype], (name, case, _rel_l2(got, w))
         if masked:  # the last batch row attends nothing: 0 out, NEG_INF, 0 grads
             assert not out[-1].float().abs().sum() and not dq[-1].float().abs().sum()
             assert not dk[-1].float().abs().sum() and not dv[-1].float().abs().sum()
             assert (lse[-1] == fa.NEG_INF).all()
+        if masked == "tiles":  # keys no row attends get zero gradients
+            assert not dk[:, :, 128:256].float().abs().sum()
+            assert not dv[:, :, 128:256].float().abs().sum()
 
 
 @pytest.mark.cuda
@@ -209,6 +238,20 @@ def test_flash_autograd_on_card_is_deterministic(card):
 
 
 @pytest.mark.cuda
+def test_flash_bwd_dkv_on_card_is_bitwise_repeatable(card):
+    """The dK/dV kernel alone at the training shape (B=8 H=12 S=1024 D=64,
+    causal, bf16): no atomics, so two launches give the same bits."""
+    rng = np.random.default_rng(4)
+    q, k, v, _, dout = _flash_inputs(rng, card, torch.bfloat16, 8, 12, 1024, 1024, 64, False)
+    out, lse = fa.flash_fwd(q, k, v, causal=True)
+    first = fa.flash_bwd_dkv(q, k, v, None, out, lse, dout, causal=True)
+    second = fa.flash_bwd_dkv(q, k, v, None, out, lse, dout, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    assert first[0].abs().sum() and first[1].abs().sum()
+
+
+@pytest.mark.cuda
 def test_flash_wrappers_raise_on_what_the_kernels_do_not_take(card):
     q = torch.zeros(1, 2, 64, 64, device=card, dtype=torch.float16)
     with pytest.raises(TypeError):
@@ -220,6 +263,13 @@ def test_flash_wrappers_raise_on_what_the_kernels_do_not_take(card):
     q = buf[1:].view(1, 2, 64, 64)  # 2 bytes past a 16-byte boundary
     with pytest.raises(ValueError, match="16 bytes"):
         fa.flash_fwd(q, q, q)
+    # the backward kernels stage out with 16-byte copies too
+    q = torch.zeros(1, 2, 64, 64, device=card, dtype=torch.bfloat16)
+    out = buf[1:].view(1, 2, 64, 64)
+    lse = torch.zeros(1, 2, 64, device=card)
+    for bwd in (fa.flash_bwd_dkv, fa.flash_bwd_dq):
+        with pytest.raises(ValueError, match="out: the flash kernels load rows 16 bytes"):
+            bwd(q, q, q, None, out, lse, q)
 
 
 @pytest.mark.cuda

@@ -1,0 +1,233 @@
+#!/usr/bin/env python3
+"""The flash attention kernels of this checkout against another commit's,
+on one CUDA card, in turns — and where the bf16 dK/dV kernel's time goes.
+
+Run from the root of a checkout, with the other commit's kernel sources
+unpacked beside it (any directory holding its ``flash_attention.cu`` and
+the headers that file includes)::
+
+    git archive <commit> distributed_tensorflow_tpu_torch/ops/csrc | tar -x -C other
+    python3 tools/flash_dkv_turns.py other/distributed_tensorflow_tpu_torch/ops/csrc
+
+It builds, one nvcc each, all started together: the other source ("parent"),
+this checkout's ("change", through the port's own build) and copies of
+this checkout's source with one substitution each — the dK/dV CTA shape
+(4 or 8 warps at both head dims), K and V fragments read by ldmatrix at
+every use instead of held in registers, and four ablations that drop one
+part of the dK/dV kernel's work (the exp2 and ds arithmetic, the second
+pair of products, the ring's copies, the delta pass; an ablated copy
+computes garbage and is timed only). Then, at B=8 H=12 S=1024 D=64,
+causal, bf16 (``chip_smoke.flash_case``):
+
+1. ptxas's registers and spills of every dK/dV instantiation built;
+2. dk, dv of "parent", "change" and the layout variants against the plain
+   version, relative L2 error, with and without a kv_mask, and a dk scaled
+   by 1.01 beside them;
+3. the forward, dK/dV and dQ with the parent's library and the change's,
+   in turns (parent, change, change, parent), device ms by torch.profiler
+   on inputs past L2 (``chip_smoke.cuda_ms``), with TFLOP/s and the share of
+   ``chip_smoke.flash_bound_ms``; dK/dV at D=128 (H=6, the same width) the
+   same way;
+4. dK/dV of each variant in turns with the change, CUDA events
+   (``chip_smoke.event_ms``), at D=64 and, for the CTA shapes, at D=128.
+
+The first and the last line name the card (``nvidia-smi``'s name and
+power limit). Exits non-zero without a card or when a build fails.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import re
+import shutil
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_MMA2 = [("tile::mma_bf16(dva[j], pa[kk], bo[0], bo[1]);",
+          "dva[j][0] += __uint_as_float(pa[kk][0] ^ bo[0]);"),
+         ("tile::mma_bf16(dva[j + 1], pa[kk], bo[2], bo[3]);",
+          "dva[j + 1][0] += __uint_as_float(pa[kk][1] ^ bo[2]);"),
+         ("tile::mma_bf16(dka[j], da[kk], bq[0], bq[1]);",
+          "dka[j][0] += __uint_as_float(da[kk][0] ^ bq[0]);"),
+         ("tile::mma_bf16(dka[j + 1], da[kk], bq[2], bq[3]);",
+          "dka[j + 1][0] += __uint_as_float(da[kk][1] ^ bq[2]);")]
+_WARPS = "static constexpr int WARPS = D <= 64 ? 4 : 8;"
+#: (name, [(text in this checkout's flash_attention.cu, its replacement)])
+LAYOUTS = [
+    ("4 warps (64 keys) at both D", [(_WARPS, "static constexpr int WARPS = 4;")]),
+    ("8 warps (128 keys) at both D", [(_WARPS, "static constexpr int WARPS = 8;")]),
+    ("K, V by ldsm_x4 at every use", [("KV_REGS = D <= 64;", "KV_REGS = false;")]),
+]
+ABLATIONS = [
+    ("without the exp2 and ds arithmetic",
+     [("p[e] = ok ? exp2f(fmaf(st[j][e], sl2, -((e & 1) ? ls.y : ls.x))) : 0.f;",
+       "p[e] = ok ? st[j][e] * sl2 : 0.f;")]),
+    ("without the P^T dO and dS^T Q products", _MMA2),
+    ("without the ring's copies (stale stages)",
+     [("    load_tile_async(i + 2);\n", "    tile::cp_async_commit();\n")]),
+    ("without the delta pass (stale delta)", [("    row_pass(i + 1);\n", "")]),
+]
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def main() -> int:
+    if len(sys.argv) != 2 or not os.path.exists(os.path.join(sys.argv[1],
+                                                             "flash_attention.cu")):
+        print(__doc__, file=sys.stderr)
+        return 2
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("flash_dkv_turns: needs a CUDA card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    import chip_smoke as cs
+    from distributed_tensorflow_tpu_torch.ops import _build
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+
+    card = cs.nvidia_smi_line()
+    log(f"card: {card}")
+    with open(os.path.join(_build.CSRC, "flash_attention.cu")) as f:
+        src = f.read()
+    sources = {"parent": os.path.join(os.path.abspath(sys.argv[1]), "flash_attention.cu")}
+    work = os.path.join(_build.BUILD_DIR, "turns")
+    for name, subs in LAYOUTS + ABLATIONS:
+        text = src
+        for old, new in subs:
+            if old not in text:
+                raise SystemExit(f"flash_dkv_turns: {name!r}: the source no longer holds {old!r}")
+            text = text.replace(old, new)
+        d = os.path.join(work, re.sub(r"\W+", "_", name))
+        os.makedirs(d, exist_ok=True)
+        for h in os.listdir(_build.CSRC):
+            if h.endswith(".cuh"):
+                shutil.copy(os.path.join(_build.CSRC, h), d)
+        with open(os.path.join(d, "flash_attention.cu"), "w") as f:
+            f.write(text)
+        sources[name] = os.path.join(d, "flash_attention.cu")
+    t0 = time.perf_counter()
+    os.makedirs(work, exist_ok=True)
+    jobs = {n: subprocess.Popen(
+        [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", os.path.join(work, f"{i}.so"), cu],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for i, (n, cu) in enumerate(sources.items())}
+    libs = {"change": _build.load("flash_attention")}
+    reports = {"change": _build.build_all(("flash_attention",))["flash_attention"]}
+    for i, (n, p) in enumerate(jobs.items()):
+        reports[n], _ = p.communicate()
+        if p.returncode:
+            log(f"build of {n!r} failed:\n{reports[n][-4000:]}")
+            return 1
+        lib = ctypes.CDLL(os.path.join(work, f"{i}.so"))
+        for fn, argtypes in _build.SIGNATURES["flash_attention"].items():
+            getattr(lib, fn).argtypes = list(argtypes)
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.dtf_error_string.argtypes = [ctypes.c_int]
+        lib.dtf_error_string.restype = ctypes.c_char_p
+        libs[n] = lib
+    log(f"built {len(jobs)} libraries in {time.perf_counter() - t0:.1f} s")
+
+    # 1. ptxas: registers and spills of each dK/dV instantiation
+    for n, rep in reports.items():
+        lines = rep.splitlines()
+        for i, line in enumerate(lines):
+            m = re.search(r"Function properties for (\S*flash_bwd_dkv\S*)", line)
+            if m:
+                info = " | ".join(x.strip() for x in lines[i + 1:i + 3])
+                kind = "f32" if "dkv_f32" in m.group(1) or "IfLi" in m.group(1) else "bf16"
+                d = "128" if "Li128E" in m.group(1) else "64"
+                log(f"ptxas {n}: {kind} D={d}: {info}")
+
+    def use(n):
+        _build._libs["flash_attention"] = libs[n]
+
+    rng = np.random.default_rng(11)
+
+    # 2. dk, dv against the plain version
+    for masked in (False, True):
+        c = cs.flash_case(torch, np, rng, torch.bfloat16, masked)
+        args = (c["q"], c["k"], c["v"], c["mask"])
+        use("change")
+        out, lse = fa.flash_fwd(*args, causal=True)
+        want = fa.flash_attention_bwd_plain(*args, out, lse, c["dout"], causal=True)
+        for n in ["parent", "change"] + [name for name, _ in LAYOUTS]:
+            use(n)
+            dk, dv = fa.flash_bwd_dkv(*args, out, lse, c["dout"], causal=True)
+            log(f"relative L2 {n} ({'kv_mask' if masked else 'no mask'}): dk "
+                f"{cs.rel_l2(dk, want[1]):.3e}, dv {cs.rel_l2(dv, want[2]):.3e}; dk x 1.01 "
+                f"{cs.rel_l2(dk.float() * 1.01, want[1]):.3e}")
+
+    def case_sets(**kw):
+        c = cs.flash_case(torch, np, rng, torch.bfloat16, False, **kw)
+        size = c["q"].numel() * c["q"].element_size()
+        sets = [c] + [cs.flash_case(torch, np, rng, torch.bfloat16, False, **kw)
+                      for _ in range(cs.copies_for(5 * size) - 1)]
+        use("change")
+        for st in sets:
+            st["out"], st["lse"] = fa.flash_fwd(st["q"], st["k"], st["v"], None, causal=True)
+        qkv = lambda st: (st["q"], st["k"], st["v"], None)  # noqa: E731
+        bwd = lambda st: (*qkv(st), st["out"], st["lse"], st["dout"])  # noqa: E731
+        fns = {"flash_fwd": [lambda st=st: fa.flash_fwd(*qkv(st), causal=True) for st in sets],
+               "flash_bwd_dkv": [lambda st=st: fa.flash_bwd_dkv(*bwd(st), causal=True)
+                                 for st in sets],
+               "flash_bwd_dq": [lambda st=st: fa.flash_bwd_dq(*bwd(st), causal=True)
+                                for st in sets]}
+        B, H, S, D = c["q"].shape
+        return c, fns, S * (S + 1) // 2 * B * H * 2 * D  # 2 D operations a pair and product
+
+    # 3. parent against change, in turns
+    products = {"flash_fwd": 2, "flash_bwd_dkv": 4, "flash_bwd_dq": 3}
+    kinds = {"flash_fwd": "fwd", "flash_bwd_dkv": "dkv", "flash_bwd_dq": "dq"}
+    c, fns, per_product = case_sets()
+    turns = ("parent", "change", "change", "parent")
+    ms = {(side, k): [] for side in turns for k in fns}
+    for side in turns:
+        use(side)
+        for k, f in fns.items():
+            ms[(side, k)].append(cs.cuda_ms(torch, f, iters=20)["device_ms"])
+    for k in fns:
+        bound = cs.flash_bound_ms(torch, c, kinds[k], "bfloat16")[0]
+        for side in ("parent", "change"):
+            v = ms[(side, k)]
+            mean = sum(v) / len(v)
+            log(f"turns {k} {side}: device ms {', '.join(f'{x:.5f}' for x in v)}, mean "
+                f"{mean:.5f}; {products[k] * per_product / mean / 1e9:.1f} TFLOP/s; "
+                f"{100 * bound / mean:.1f}% of the {bound:.5f} ms bound")
+    c128, fns128, per128 = case_sets(H=6, D=128)
+    ms128 = {"parent": [], "change": []}
+    for side in turns:
+        use(side)
+        ms128[side].append(cs.cuda_ms(torch, fns128["flash_bwd_dkv"], iters=20)["device_ms"])
+    for side, v in ms128.items():
+        mean = sum(v) / len(v)
+        log(f"turns flash_bwd_dkv D=128 H=6 {side}: device ms "
+            f"{', '.join(f'{x:.5f}' for x in v)}, mean {mean:.5f}; "
+            f"{4 * per128 / mean / 1e9:.1f} TFLOP/s")
+
+    # 4. the variants in turns with the change, CUDA events
+    for label, dkv, names in (
+            ("D=64", fns["flash_bwd_dkv"], [n for n, _ in LAYOUTS + ABLATIONS]),
+            ("D=128 H=6", fns128["flash_bwd_dkv"], [n for n, _ in LAYOUTS[:2]])):
+        order = ["change"] + names + names[::-1] + ["change"]
+        ev = {n: [] for n in order}
+        for n in order:
+            use(n)
+            ev[n].append(cs.event_ms(torch, dkv, iters=40))
+        base = sum(ev["change"]) / 2
+        for n, v in ev.items():
+            mean = sum(v) / len(v)
+            log(f"variant {label} {n}: event ms {', '.join(f'{x:.5f}' for x in v)}, mean "
+                f"{mean:.5f} ({100 * (mean - base) / base:+.1f}% against the change)")
+    log(f"card: {card}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
