@@ -12,13 +12,15 @@ when any phase fails:
 
 1. build every kernel library from ``distributed_tensorflow_tpu_torch/ops/
    csrc`` (one nvcc per source, started together) and print ptxas's
-   report: each kernel instantiation's mangled name, registers and spills;
+   report: each kernel instantiation's mangled name, registers and spills
+   (the bf16 flash forward and dK/dV must not spill);
 2. hold each kernel against its plain PyTorch version on the card at its
    path's shapes (serving, gpt_small: H=12, D=64, bs=16; d=768 — and the
    three flash kernels at the training shapes B=8, H=12, S=1024, D=64,
    causal, bf16 and f32, with and without a kv_mask), with the tolerances
-   stated in ``TOL`` (the flash backward's dq, dk, dv also as relative L2
-   error, beside a dk scaled by 1.01 that the gate must fail); time
+   stated in ``TOL`` (the flash forward's out and the backward's dq, dk,
+   dv also as relative L2 error, beside an out and a dk scaled by 1.01
+   that the gates must fail); time
    kernel, plain version, one library call and the bound with CUDA events
    and the profiler (phase 2b also times the
    row-tile LN+matmul kernel against the tiled forward at M = 64..8192 and checks
@@ -148,6 +150,17 @@ TOL = {
     # 1.0e-2
     "flash/bwd/rel_l2/bfloat16": 1e-3,
     "flash/bwd/rel_l2/float32": 1e-5,
+    # the forward's out beside the same elementwise gate, relative L2 over
+    # the whole output: at S=1024 causal a late row averages hundreds of
+    # values of v, so |out| is small next to that gate's atol of 1e-2 and an
+    # out far off could pass it. On an H100 (PERF.md) PR 2's forward and
+    # the redesigned one read alike against the plain version, at most
+    # 1.31e-3 (bf16: out rounded once on either side of a tie, p rounded
+    # against the running max, not the row's final one); f32 (PR 2's kernel
+    # still) at most 1.75e-7; an out scaled by 1.01 (the printed control)
+    # reads 1.01e-2
+    "flash/fwd/rel_l2/bfloat16": 3e-3,
+    "flash/fwd/rel_l2/float32": 1e-5,
     # gpt_lm training, flash pass vs dense pass (bf16 model): the two
     # attention paths round p to bf16 at other points (online vs final
     # max), and the difference runs through 12 layers forward and back.
@@ -704,6 +717,7 @@ def phase_flash(torch, np, F):
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[-1]
         tol, lim = TOL[f"flash/{dn}"], TOL[f"flash/bwd/rel_l2/{dn}"]
+        lim_out = TOL[f"flash/fwd/rel_l2/{dn}"]
         for masked in (False, True):
             c = flash_case(torch, np, rng, dtype, masked)
             args = (c["q"], c["k"], c["v"], c["mask"])
@@ -723,6 +737,17 @@ def phase_flash(torch, np, F):
                                                   want[2], tol)],
                     "flash_bwd_dq": [check_close(torch, f"flash_bwd_dq/dq {tag}", dq,
                                                  want[0], tol)]}
+            l2_out = rel_l2(out, want_out)
+            # the control: the forward's gate must fail an out 1% off
+            control_out = rel_l2(out.float() * 1.01, want_out)
+            log(f"  flash forward {tag}: out relative L2 {l2_out:.2e} (tol {lim_out:g}); "
+                f"control, out x 1.01: {control_out:.2e}")
+            if control_out <= lim_out:
+                raise SmokeFailure(f"flash: the forward's relative-L2 gate {lim_out:g} passes "
+                                   f"out x 1.01")
+            if l2_out > lim_out:
+                raise SmokeFailure(f"flash {tag}: out off by {l2_out:.2e} > {lim_out:g} "
+                                   f"relative L2")
             l2 = {n: rel_l2(got, w) for n, got, w in
                   (("dq", dq, want[0]), ("dk", dk, want[1]), ("dv", dv, want[2]))}
             # the control: the gate must fail a dk 1% off
@@ -1335,8 +1360,14 @@ TRAIN_OVERRIDES = [
 
 
 FLASH_NAMES = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
-#: the device names of their kernels in a bf16 step
+#: the device names of their kernels in a bf16 step, matched by substring:
+#: the bf16 forward and dK/dV kernels on tile_mma.cuh (``flash_fwd_kernel<D>``,
+#: ``flash_bwd_dkv_kernel<D>``; their f32 kernels are ``flash_fwd_f32_kernel``
+#: and ``flash_bwd_dkv_f32_kernel``, which these do not match) and dQ
 FLASH_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")
+#: the bf16 kernels whose every instantiation (D = 64, 128) must build with
+#: no spill (phase 1 fails otherwise)
+NO_SPILL_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkv_kernel")
 LN_NAMES = ("ln_matmul", "ln_matmul_bwd_dx", "ln_matmul_bwd_dw")
 
 
@@ -2127,6 +2158,30 @@ def profile_pass(torch, np, cfg, params, prompts):
         log(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
 
 
+def check_spills(report: str, kernels) -> None:
+    """ptxas's report of one library: each instantiation of ``kernels``
+    (matched by substring of its mangled name) with its registers and
+    spills, logged; fails where one spills or none was reported."""
+    lines = report.splitlines()
+    found = {k: 0 for k in kernels}
+    for i, line in enumerate(lines):
+        m = re.search(r"Function properties for (\S+)", line)
+        k = next((k for k in kernels if m and k in m.group(1)), None)
+        if k is None:
+            continue
+        found[k] += 1
+        after = " ".join(lines[i + 1:i + 3])
+        spills = [int(x) for x in re.findall(r"(\d+) bytes spill", after)]
+        regs = re.search(r"Used (\d+) registers", after)
+        d = re.search(r"ILi(\d+)E", m.group(1))
+        log(f"  ptxas {k}<{d.group(1) if d else '?'}>: {regs.group(1) if regs else '?'} "
+            f"registers, spill stores/loads {spills}")
+        if any(spills):
+            raise SmokeFailure(f"ptxas: {m.group(1)} spills {spills} bytes")
+    if not all(found.values()):
+        raise SmokeFailure(f"ptxas reported no instantiation of {found}")
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -2161,6 +2216,7 @@ def main() -> int:
                 if any(k in line for k in ("Function properties for", "registers", "spill",
                                            "error")):
                     log(f"  [{name}] {line.strip()}")
+        check_spills(reports["flash_attention"], NO_SPILL_KERNELS)
         kern = phase_kernels(torch, np, F)
         kern.update(phase_flash(torch, np, F))
         ln_train = phase_ln_train(torch, np, F)

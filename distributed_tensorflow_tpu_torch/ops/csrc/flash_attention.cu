@@ -18,12 +18,36 @@
 // is bound by tensor-core operations, not bytes (forward 12.9 GFLOP against
 // 50 MB). Every bf16 product is mma.sync m16n8k16 (bf16 in, f32 accumulate).
 //
-// The forward and dQ (and dK/dV for f32 inputs) are the first design: one
+// dQ (and the forward and dK/dV for f32 inputs) are the first design: one
 // warp per 16 rows of a 64-row tile, 4 warps, operands staged synchronously
-// in shared memory and fetched with plain 16/32-bit loads, P (dS) rounded
+// in shared memory and fetched with plain 16/32-bit loads, dS (P) rounded
 // into shared memory and read back. For f32 inputs the same tile loops run
 // on CUDA cores (scalar FMAs in the mma's fragment layout), so f32 keeps
 // full f32 products; that path is for checks, not for speed.
+//
+// The forward for bf16 inputs (flash_fwd_kernel, traits Fwd) is built on
+// tile_mma.cuh. Its work is 2 products of 2*D operations per attended
+// (row, key) pair against 3 reads of [B,H,S,D] and one write, so, as for
+// dK/dV, what bounds it is how fast a CTA feeds its mma.sync chain:
+//  - Queries are the mma rows: each warp owns 16 * MI rows. Q's A fragments
+//    are read once by ldmatrix and stay in registers for the whole key loop.
+//  - K and V stream through a cp.async ring of STAGES [BN keys][D] tiles,
+//    one __syncthreads an iteration, tile i + STAGES - 1 in flight while
+//    tile i computes; keys past Sk are zero-filled.
+//  - S = Q K^T takes K as it lies ([key][d]) by ldsm_x4; P V takes V as it
+//    lies by ldsm_x4_trans.
+//  - Online softmax in the log2 domain: p = exp2(s * scale * log2(e) - m),
+//    one FMA and one exp2 an element; row max and sum over the quad by
+//    shuffles. The m16n8 accumulators of two adjacent key n-tiles, packed to
+//    bf16 pairs, are the m16k16 A fragment of P V: nothing goes through
+//    shared memory.
+//  - The kv_mask is a per-key bit word for the tile (a warp ballot over
+//    mask bytes read one tile ahead); the mask and causal tests run only on
+//    tiles that hold masked or missing keys or cross the diagonal band of
+//    the warp's rows; tiles wholly above the band skip their products.
+//  - The grid is (B * H, q tiles), the heaviest causal q tile first. out
+//    leaves through shared memory in 16-byte rows, scaled by 1 / l and
+//    rounded once; the LSE in natural-log units, (m + log2 l) * ln 2.
 //
 // dK/dV for bf16 inputs (flash_bwd_dkv_kernel, traits Dkv) is built on
 // tile_mma.cuh. Its work is 4 products of 2*D operations per attended
@@ -236,14 +260,16 @@ __device__ __forceinline__ void load_key_mask(unsigned char* dst, const unsigned
 }
 
 // ---------------------------------------------------------------------------
-// Forward: one block per (q tile, h, b); kv tiles in a loop, online softmax.
+// Forward for f32 inputs (the first design, on CUDA cores): one block per
+// (q tile, h, b); kv tiles in a loop, online softmax.
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(Strided q, Strided k, Strided v, const unsigned char* __restrict__ mask,
-                 T* __restrict__ out, float* __restrict__ lse, int H, int Sq, int Sk,
-                 int causal, int q_offset, float scale) {
+flash_fwd_f32_kernel(Strided q, Strided k, Strided v, const unsigned char* __restrict__ mask,
+                     float* __restrict__ out, float* __restrict__ lse, int H, int Sq, int Sk,
+                     int causal, int q_offset, float scale) {
+  using T = float;
   constexpr int LD = padded<T>(D), LDP = padded<T>(kTile);
   constexpr int NS = kTile / 8, NO = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -690,6 +716,267 @@ flash_bwd_dkv_kernel(Strided q, Strided k, Strided v, Strided o, Strided dout,
 }
 
 // ---------------------------------------------------------------------------
+// Forward for bf16 inputs (see the note at the top): one CTA per (b, h, q
+// tile), the q tile's fragments in registers; key tiles stream through a
+// cp.async ring.
+// ---------------------------------------------------------------------------
+
+// The CTA shape and shared-memory layout of flash_fwd_kernel<D>. On an
+// H100 (PERF.md): at D = 64, 128 rows of 4 warps (32 a warp: each K and V
+// fragment feeds two row groups; 247 registers, two CTAs an SM) beat 64 x
+// 4 by 16% and 128 x 8 by 27%; at D = 128, 32 rows a warp spill, and 64 x
+// 4 with 2 stages (two CTAs an SM) beat 128 x 8 by 4% and 3 stages (one
+// CTA) by 36%.
+template <int D>
+struct Fwd {
+  using bf16 = __nv_bfloat16;
+  static constexpr int WARPS = 4;                 // warps of a forward CTA
+  static constexpr int MI = D <= 64 ? 2 : 1;      // 16-row groups of a warp
+  static constexpr int BN = 64;                   // keys of a ring stage
+  static constexpr int STAGES = D <= 64 ? 3 : 2;  // depth of the K, V ring
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int BM = 16 * MI * WARPS;  // query rows of a CTA
+  static constexpr int LD = tile::pad_ld<bf16>(D);
+  // Q (then out) [BM][LD]; STAGES x {K, V [BN][LD]}
+  static constexpr size_t Q_BYTES = sizeof(bf16) * BM * LD;
+  static constexpr size_t STAGE_BYTES = 2 * sizeof(bf16) * BN * LD;
+  static constexpr size_t SMEM = Q_BYTES + STAGES * STAGE_BYTES;
+  static_assert(BN % 32 == 0 && D % 16 == 0, "32-key mask words, 16-deep mma steps");
+  static_assert(STAGES >= 2 && SMEM <= 232448, "a ring of at least 2 stages in 227 KB");
+};
+
+template <int D>
+__global__ void __launch_bounds__(Fwd<D>::THREADS, 1)
+flash_fwd_kernel(Strided q, Strided k, Strided v, const unsigned char* __restrict__ mask,
+                 __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int H, int Sq,
+                 int Sk, int causal, int q_offset, float scale) {
+  using S = Fwd<D>;
+  using bf16 = __nv_bfloat16;
+  constexpr int BM = S::BM, BN = S::BN, MI = S::MI, LD = S::LD, THREADS = S::THREADS;
+  constexpr int KS = D / 16, NB = BN / 8, NO = D / 8, NW = BN / 32, P = D / 8;
+  constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  unsigned char* ring = smem_raw + S::Q_BYTES;
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int n_q = (Sq + BM - 1) / BM;
+  // the last q tiles attend the most keys under the causal mask: first
+  const int q0 = (causal ? n_q - 1 - (int)blockIdx.y : (int)blockIdx.y) * BM;
+  const int rw = q0 + 16 * MI * warp;  // the warp's first row
+  // keys past the diagonal band of the tile's last row are never attended
+  const int kv_end = causal ? min(Sk, q0 + BM + q_offset) : Sk;
+  const int n_tiles = kv_end > 0 ? (kv_end + BN - 1) / BN : 0;
+
+  auto stage = [&](int i) { return reinterpret_cast<bf16*>(ring + i % S::STAGES * S::STAGE_BYTES); };
+  // copy K, V of key tile i into its stage; one commit group a call (empty
+  // past the last tile)
+  auto load_kv_async = [&](int i) {
+    if (i < n_tiles) {
+      bf16* st = stage(i);
+      stage_rows<BN, D, LD, THREADS>(st, k, b, h, i * BN, Sk);
+      stage_rows<BN, D, LD, THREADS>(st + BN * LD, v, b, h, i * BN, Sk);
+    }
+    tile::cp_async_commit();
+  };
+  // the kv_mask bytes of key tile i, key lane + 32 u of the tile in mb[u]:
+  // read a tile ahead of their ballot, so the load is in flight meanwhile
+  unsigned char mb[NW];
+  auto load_mask = [&](int i) {
+#pragma unroll
+    for (int u = 0; u < NW; ++u) {
+      const int c = i * BN + lane + 32 * u;
+      mb[u] = mask != nullptr && c < Sk ? mask[(size_t)b * Sk + c] : 1;
+    }
+  };
+
+  // Q and key tile 0 in the first group, tiles 1.. STAGES - 2 in the next
+  stage_rows<BM, D, LD, THREADS>(Qs, q, b, h, q0, Sq);
+#pragma unroll
+  for (int i = 0; i < S::STAGES - 1; ++i) load_kv_async(i);
+  load_mask(0);
+  tile::cp_async_wait<S::STAGES - 2>();
+  __syncthreads();
+  // the A fragments of the warp's rows: (rows rw + 16 mi.., d 16 kk..); for
+  // a negative scale, -Q (exact in bf16) against a positive one, so that the
+  // row max of the raw products is the max of the scaled logits
+  float sl2 = scale * kLog2e;
+  uint32_t qf[MI][KS][4];
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      tile::ldsm_x4(qf[mi][kk], Qs + (16 * (MI * warp + mi) + (lane & 15)) * LD + 16 * kk +
+                                    8 * (lane >> 4));
+  if (sl2 < 0.f) {
+    sl2 = -sl2;
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qf[mi][kk][e] ^= 0x80008000u;
+  }
+  // running max (log2 units), this thread's share of the row sum, and the
+  // output accumulators of rows g and g + 8 of each 16-row group
+  float m[MI][2], l[MI][2], o[MI][NO][4];
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi) {
+    m[mi][0] = m[mi][1] = kNegInf;
+    l[mi][0] = l[mi][1] = 0.f;
+    zero(o[mi]);
+  }
+
+  for (int i = 0; i < n_tiles; ++i) {
+    tile::cp_async_wait<S::STAGES - 2>();  // key tile i has landed (this thread's copies)
+    __syncthreads();  // ... every thread's; tile i - 1 and its stage are done with
+    load_kv_async(i + S::STAGES - 1);
+    const int c0 = i * BN;
+    // bit c % 32 of kw[c / 32]: key c0 + c exists and attends
+    uint32_t kw[NW];
+#pragma unroll
+    for (int u = 0; u < NW; ++u)
+      kw[u] = __ballot_sync(0xffffffffu, c0 + lane + 32 * u < Sk && mb[u] != 0);
+    if (i + 1 < n_tiles) load_mask(i + 1);
+    // nothing to add: rows all past Sq, or the tile wholly above their band
+    if (rw >= Sq || (causal && c0 > rw + 16 * MI - 1 + q_offset)) continue;
+    const bool diag = causal && c0 + BN - 1 > rw + q_offset;  // some pair above the band
+    const bool masked = diag || mask != nullptr || c0 + BN > Sk;
+    const bf16* Ks = stage(i);
+    const bf16* Vs = Ks + BN * LD;
+
+    // S = Q K^T over d: B(d, key) = K[key][d] as it lies
+    float s[MI][NB][4];
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi) zero(s[mi]);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int j = 0; j < NB; j += 2) {
+        uint32_t kb[4];
+        tile::ldsm_x4(kb, Ks + (8 * j + (lane & 7) + 8 * (lane >> 4)) * LD + 16 * kk +
+                              8 * ((lane >> 3) & 1));
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi) {
+          tile::mma_bf16(s[mi][j], qf[mi][kk], kb[0], kb[1]);
+          tile::mma_bf16(s[mi][j + 1], qf[mi][kk], kb[2], kb[3]);
+        }
+      }
+
+    // online softmax; p = exp2(s * scale * log2(e) - m), 0 under the masks,
+    // rounded to bf16 pairs: n-tiles 2kk and 2kk + 1 of the accumulators are
+    // the A fragment kk (rows x keys 16kk..) of P V
+    uint32_t pa[MI][BN / 16][4];
+    auto softmax = [&](auto masked_tag) {
+      constexpr bool MASKED = decltype(masked_tag)::value;
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) {
+        // element e of n-tile j: key c0 + 8j + 2t + (e & 1), row r = rw +
+        // 16 mi + g + 8 (e >> 1); attended iff its kv bit is set and, on a
+        // diagonal tile, 8j + (e & 1) <= r + q_offset - c0 - 2t
+        int lim[2];
+#pragma unroll
+        for (int r2 = 0; r2 < 2; ++r2)
+          lim[r2] = diag ? rw + 16 * mi + g + 8 * r2 + q_offset - c0 - 2 * t : BN;
+        auto ok = [&](int j, int e) {
+          return ((kw[j >> 2] >> (8 * (j & 3) + 2 * t + (e & 1))) & 1u) &&
+                 8 * j + (e & 1) <= lim[e >> 1];
+        };
+        float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            mx[e >> 1] = fmaxf(mx[e >> 1], !MASKED || ok(j, e) ? s[mi][j][e] : kNegInf);
+        float corr[2];
+#pragma unroll
+        for (int r2 = 0; r2 < 2; ++r2) {
+          mx[r2] = fmaxf(mx[r2], __shfl_xor_sync(0xffffffffu, mx[r2], 1));
+          mx[r2] = fmaxf(mx[r2], __shfl_xor_sync(0xffffffffu, mx[r2], 2));
+          const float m_new = fmaxf(m[mi][r2], mx[r2] * sl2);
+          corr[r2] = exp2f(m[mi][r2] - m_new);
+          m[mi][r2] = m_new;
+          l[mi][r2] *= corr[r2];
+        }
+#pragma unroll
+        for (int j = 0; j < NO; ++j) {
+          o[mi][j][0] *= corr[0];
+          o[mi][j][1] *= corr[0];
+          o[mi][j][2] *= corr[1];
+          o[mi][j][3] *= corr[1];
+        }
+#pragma unroll
+        for (int j = 0; j < NB; ++j) {
+          float p[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            p[e] = exp2f(fmaf(s[mi][j][e], sl2, -m[mi][e >> 1]));
+            if (MASKED && !ok(j, e)) p[e] = 0.f;
+          }
+          l[mi][0] += p[0] + p[1];
+          l[mi][1] += p[2] + p[3];
+          pa[mi][j >> 1][2 * (j & 1)] = pack_bf16(p[0], p[1]);
+          pa[mi][j >> 1][2 * (j & 1) + 1] = pack_bf16(p[2], p[3]);
+        }
+      }
+    };
+    if (masked)
+      softmax(std::true_type{});
+    else
+      softmax(std::false_type{});
+
+    // O += P V: B(key, d) = V[key][d] as it lies, by ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+      for (int j = 0; j < NO; j += 2) {
+        uint32_t vb[4];
+        tile::ldsm_x4_trans(vb, Vs + (16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1)) * LD +
+                                    8 * j + 8 * (lane >> 4));
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi) {
+          tile::mma_bf16(o[mi][j], pa[mi][kk], vb[0], vb[1]);
+          tile::mma_bf16(o[mi][j + 1], pa[mi][kk], vb[2], vb[3]);
+        }
+      }
+  }
+
+  // out = O / l rounded once, through the warp's own rows of the Q tile to
+  // 16-byte rows; LSE = (m + log2 l) ln 2. Rows past Sq are not stored; a
+  // row that attends nothing has l = 0 and O = 0: out 0, LSE NEG_INF.
+  tile::cp_async_wait<0>();
+  bf16* Ow = Qs + 16 * MI * warp * LD;
+  __syncwarp();
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int r2 = 0; r2 < 2; ++r2) {
+      float sum = l[mi][r2];
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      const float inv = 1.f / fmaxf(sum, 1e-30f);
+      const int r = 16 * mi + g + 8 * r2;
+#pragma unroll
+      for (int j = 0; j < NO; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(Ow + r * LD + 8 * j + 2 * t) =
+            __floats2bfloat162_rn(o[mi][j][2 * r2] * inv, o[mi][j][2 * r2 + 1] * inv);
+      if (t == 0 && rw + r < Sq)
+        lse[(size_t)bh * Sq + rw + r] = sum > 0.f ? (m[mi][r2] + log2f(sum)) * kLn2 : kNegInf;
+    }
+  __syncwarp();
+  static_assert(16 * MI * P % 32 == 0, "whole 16-byte chunks a lane");
+#pragma unroll
+  for (int x = 0; x < 16 * MI * P / 32; ++x) {
+    const int u = lane + 32 * x, r = u / P, c = u % P * 8;
+    if (rw + r < Sq)
+      *reinterpret_cast<uint4*>(out + ((size_t)bh * Sq + rw + r) * D + c) =
+          *reinterpret_cast<const uint4*>(Ow + r * LD + c);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // dQ: one block per (q tile, h, b), the q tile resident; kv tiles in a loop.
 // ---------------------------------------------------------------------------
 
@@ -785,14 +1072,26 @@ cudaError_t smem_attr(K kernel, size_t smem) {
 template <typename T, int D>
 int fwd(Strided q, Strided k, Strided v, const void* mask, void* out, void* lse, int B, int H,
         int Sq, int Sk, int causal, float scale, cudaStream_t st) {
-  constexpr int LD = padded<T>(D), LDP = padded<T>(kTile);
-  const size_t smem = sizeof(T) * (3 * kTile * LD + kTile * LDP) + kTile;
-  auto kern = flash_fwd_kernel<T, D>;
-  cudaError_t e = smem_attr(kern, smem);
-  if (e != cudaSuccess) return (int)e;
-  kern<<<dim3((Sq + kTile - 1) / kTile, H, B), kThreads, smem, st>>>(
-      q, k, v, (const unsigned char*)mask, (T*)out, (float*)lse, H, Sq, Sk, causal, Sk - Sq,
-      scale);
+  if constexpr (std::is_same<T, float>::value) {  // f32: the CUDA-core kernel
+    constexpr int LD = padded<T>(D), LDP = padded<T>(kTile);
+    const size_t smem = sizeof(T) * (3 * kTile * LD + kTile * LDP) + kTile;
+    auto kern = flash_fwd_f32_kernel<D>;
+    cudaError_t e = smem_attr(kern, smem);
+    if (e != cudaSuccess) return (int)e;
+    kern<<<dim3((Sq + kTile - 1) / kTile, H, B), kThreads, smem, st>>>(
+        q, k, v, (const unsigned char*)mask, (T*)out, (float*)lse, H, Sq, Sk, causal, Sk - Sq,
+        scale);
+  } else {  // bf16: the tile_mma.cuh kernel, q tiles on the slowest grid axis
+    using S = Fwd<D>;
+    if ((long long)B * H > 0x7fffffffLL || (Sq + S::BM - 1) / S::BM > 65535)
+      return (int)cudaErrorInvalidValue;
+    auto kern = flash_fwd_kernel<D>;
+    const int e = tile::set_smem(kern, S::SMEM);
+    if (e != 0) return e;
+    kern<<<dim3(B * H, (Sq + S::BM - 1) / S::BM), S::THREADS, S::SMEM, st>>>(
+        q, k, v, (const unsigned char*)mask, (T*)out, (float*)lse, H, Sq, Sk, causal, Sk - Sq,
+        scale);
+  }
   return (int)cudaGetLastError();
 }
 

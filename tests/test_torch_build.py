@@ -6,6 +6,7 @@ shim of the CUDA built-ins), which finds an undefined name before a card
 does."""
 
 import glob
+import importlib.util
 import os
 import re
 import shutil
@@ -164,20 +165,67 @@ def test_sources_parse_as_cpp_with_every_template_instantiated(name, tmp_path):
     assert out.returncode == 0, out.stderr[-4000:]
 
 
-def test_flash_dkv_turns_substitutions_apply_to_the_source():
-    """``tools/flash_dkv_turns.py`` builds variants of the flash source by
-    text substitution (CTA shape, K/V residency, ablations); each text it
-    replaces is still in the source, so the tool does not fail on the
-    card."""
-    import importlib.util
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                        "tools", "flash_dkv_turns.py")
-    spec = importlib.util.spec_from_file_location("flash_dkv_turns", path)
-    tool = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(tool)
+
+def _load(name: str, *parts: str):
+    """A script of the repo (not a package module) loaded by its path."""
+    spec = importlib.util.spec_from_file_location(name, os.path.join(REPO, *parts))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+_TURNS = _load("flash_dkv_turns", "tools", "flash_dkv_turns.py")
+
+
+@pytest.mark.parametrize("name,subs", _TURNS.VARIANTS, ids=[n for n, _ in _TURNS.VARIANTS])
+def test_flash_dkv_turns_substitutions_apply_to_the_source(name, subs):
+    """``tools/flash_dkv_turns.py`` builds variants of the flash source by
+    text substitution (the forward's and dK/dV's CTA shapes, K/V
+    residency, ring depth, ablations); each text it replaces occurs
+    exactly once in the source, so a variant changes the one kernel it
+    names and the tool does not refuse it on the card."""
     with open(_build._paths("flash_attention")[0]) as f:
         src = f.read()
-    for name, subs in tool.LAYOUTS + tool.ABLATIONS:
-        for old, new in subs:
-            assert old in src and old != new, (name, old)
+    for old, new in subs:
+        assert src.count(old) == 1 and old != new, (name, old)
+    assert _TURNS.substitute(src, name, subs) != src
+
+
+def test_flash_dkv_turns_refuses_a_text_that_is_not_there_once():
+    """A substitution whose text occurs twice (or not at all) would change
+    both kernels (or none): the tool stops instead."""
+    with pytest.raises(SystemExit, match="2 times"):
+        _TURNS.substitute("a;\na;\n", "twice", [("a;", "b;")])
+    with pytest.raises(SystemExit, match="0 times"):
+        _TURNS.substitute("a;\n", "absent", [("c;", "b;")])
+    assert _TURNS.substitute("a;\nc;\n", "once", [("a;", "b;")]) == "b;\nc;\n"
+
+
+_PTXAS = """ptxas info    : Function properties for _ZN12_GLOBAL__N_116flash_fwd_kernelILi64EEEvNS_7StridedE
+    0 bytes stack frame, {spill} bytes spill stores, {spill} bytes spill loads
+ptxas info    : Used 247 registers, used 1 barriers
+ptxas info    : Function properties for _ZN12_GLOBAL__N_120flash_fwd_f32_kernelILi64EEEvNS_7StridedE
+    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 96 registers, used 1 barriers
+"""
+
+
+@pytest.mark.parametrize("spill,kernels,refused", [
+    (0, ("flash_fwd_kernel",), None),
+    (16, ("flash_fwd_kernel",), "spills"),
+    (0, ("flash_fwd_kernel", "flash_bwd_dkv_kernel"), "no instantiation"),
+], ids=["clean", "spills", "missing"])
+def test_chip_smoke_refuses_a_spilling_or_missing_flash_kernel(spill, kernels, refused):
+    """``chip_smoke.check_spills`` reads ptxas's report: a bf16 flash
+    kernel that spills, or one the report does not name, fails phase 1;
+    the f32 kernel (``flash_fwd_f32_kernel``, spilling here) is not matched
+    by the bf16 kernel's name."""
+    chip_smoke = _load("chip_smoke", "chip_smoke.py")
+    report = _PTXAS.format(spill=spill)
+    if refused is None:
+        chip_smoke.check_spills(report, kernels)
+    else:
+        with pytest.raises(chip_smoke.SmokeFailure, match=refused):
+            chip_smoke.check_spills(report, kernels)

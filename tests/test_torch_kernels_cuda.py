@@ -136,7 +136,12 @@ def test_engine_on_card_matches_engine_on_cpu(card):
 #: 3-stage ring): a ring that wraps three times, Sk no multiple of the key
 #: tile (D=64 and D=128), whole key tiles with kv_mask all False
 #: (masked="tiles": keys 128..255), Sq > Sk over several q tiles, and
-#: D=128 over several key and q tiles
+#: D=128 over several key and q tiles; then the edges of the bf16 forward
+#: (128-row CTAs at D=64, 64-row at D=128, 64-key tiles through a 2- or
+#: 3-stage ring): a non-causal Sk that wraps the ring several times with a
+#: ragged last tile and a kv_mask, the same with no mask (no tile masked),
+#: an Sq smaller than one CTA's rows (causal, q_offset > 0), and D=128 with
+#: Sq no multiple of the row tile
 FLASH_CASES = [
     (2, 3, 128, 128, 64, True, False),
     (2, 3, 128, 128, 64, False, True),
@@ -150,6 +155,10 @@ FLASH_CASES = [
     (2, 2, 320, 320, 64, True, "tiles"),
     (2, 2, 300, 130, 64, True, False),
     (2, 3, 384, 384, 128, True, False),
+    (1, 2, 64, 700, 64, False, True),
+    (1, 2, 96, 512, 64, False, False),
+    (2, 3, 20, 300, 64, True, True),
+    (1, 3, 333, 333, 128, True, True),
 ]
 
 #: relative L2 error of dq, dk, dv against the plain version, beside the
@@ -158,6 +167,12 @@ FLASH_CASES = [
 #: either side of a tie) and ~2e-7 (f32: another summation order); a dk
 #: scaled by 1.01 reads 1e-2 (PERF.md)
 FLASH_REL_L2 = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
+
+#: relative L2 error of the forward's out against the plain version (the
+#: elementwise atol passes an out far off where |out| is small, as in late
+#: causal rows): ``TOL["flash/fwd/rel_l2/*"]`` of chip_smoke.py, with the
+#: readings behind it there
+FLASH_FWD_REL_L2 = {torch.float32: 1e-5, torch.bfloat16: 3e-3}
 
 
 def _flash_inputs(rng, card, dtype, B, H, Sq, Sk, D, masked):
@@ -204,6 +219,8 @@ def test_flash_kernels_match_plain_on_card(card, dtype):
                                    msg=lambda m: f"out {case}: {m}")
         torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5,
                                    msg=lambda m: f"lse {case}: {m}")
+        assert _rel_l2(out, want_out) <= FLASH_FWD_REL_L2[dtype], (
+            "out", case, _rel_l2(out, want_out))
         for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
             torch.testing.assert_close(got.float(), w.float(), atol=atol, rtol=rtol,
                                        msg=lambda m: f"{name} {case}: {m}")
@@ -249,6 +266,37 @@ def test_flash_bwd_dkv_on_card_is_bitwise_repeatable(card):
     torch.cuda.synchronize()
     assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
     assert first[0].abs().sum() and first[1].abs().sum()
+
+
+@pytest.mark.cuda
+def test_flash_fwd_on_card_is_bitwise_repeatable(card):
+    """The forward alone at the training shape (B=8 H=12 S=1024 D=64,
+    causal, bf16): two launches give the same bits, out and LSE."""
+    rng = np.random.default_rng(5)
+    q, k, v, _, _ = _flash_inputs(rng, card, torch.bfloat16, 8, 12, 1024, 1024, 64, False)
+    first = fa.flash_fwd(q, k, v, causal=True)
+    second = fa.flash_fwd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    assert first[0].abs().sum() and torch.isfinite(first[1]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_fwd_on_card_takes_any_scale(card, dtype):
+    """A negative scale (the bf16 kernel negates Q's fragments so that the
+    row max of the raw products stays the max of the logits) and a zero
+    scale (uniform weights) against the plain version."""
+    rng = np.random.default_rng(6)
+    q, k, v, mask, _ = _flash_inputs(rng, card, dtype, 2, 2, 150, 150, 64, True)
+    atol, rtol = (1e-4, 1e-4) if dtype == torch.float32 else TOLS[dtype]
+    for scale in (-0.3, 0.0):
+        out, lse = fa.flash_fwd(q, k, v, mask, causal=True, sm_scale=scale)
+        want_out, want_lse = fa.flash_attention_plain(q, k, v, mask, causal=True,
+                                                      sm_scale=scale)
+        torch.testing.assert_close(out.float(), want_out.float(), atol=atol, rtol=rtol)
+        torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+        assert _rel_l2(out, want_out) <= FLASH_FWD_REL_L2[dtype], (scale, _rel_l2(out, want_out))
 
 
 @pytest.mark.cuda

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """The flash attention kernels of this checkout against another commit's,
-on one CUDA card, in turns — and where the bf16 dK/dV kernel's time goes.
+on one CUDA card, in turns — and where the bf16 forward's and dK/dV
+kernel's time goes.
 
 Run from the root of a checkout, with the other commit's kernel sources
 unpacked beside it (any directory holding its ``flash_attention.cu`` and
@@ -11,25 +12,33 @@ the headers that file includes)::
 
 It builds, one nvcc each, all started together: the other source ("parent"),
 this checkout's ("change", through the port's own build) and copies of
-this checkout's source with one substitution each — the dK/dV CTA shape
-(4 or 8 warps at both head dims), K and V fragments read by ldmatrix at
-every use instead of held in registers, and four ablations that drop one
-part of the dK/dV kernel's work (the exp2 and ds arithmetic, the second
-pair of products, the ring's copies, the delta pass; an ablated copy
-computes garbage and is timed only). Then, at B=8 H=12 S=1024 D=64,
-causal, bf16 (``chip_smoke.flash_case``):
+this checkout's source with substitutions — for dK/dV its CTA shape (4 or
+8 warps at both head dims), K and V fragments read by ldmatrix at every
+use instead of held in registers, and four ablations (the exp2 and ds
+arithmetic, the second pair of products, the ring's copies, the delta
+pass); for the forward its CTA shape (64 rows x 4 warps, 128 x 4 with 32
+rows a warp, 128 x 8), the depth of its K/V ring (2 or 3 stages), 128
+keys a stage, and three ablations (the exp2 arithmetic, the P V product,
+the ring's copies). An ablated copy computes garbage and is timed only.
+Each substituted text must occur exactly once in the source, or the tool
+refuses to run. Then, at B=8 H=12 S=1024 D=64, causal, bf16
+(``chip_smoke.flash_case``), and at D=128 with H=6 (the same width):
 
-1. ptxas's registers and spills of every dK/dV instantiation built;
-2. dk, dv of "parent", "change" and the layout variants against the plain
-   version, relative L2 error, with and without a kv_mask, and a dk scaled
-   by 1.01 beside them;
+1. ptxas's registers and spills of every bf16 forward and dK/dV
+   instantiation built;
+2. dk, dv of "parent", "change" and the dK/dV layouts, and out, lse of
+   "parent", "change" and the forward layouts, against the plain version:
+   relative L2 error (out also at D=128; lse as its largest absolute
+   error), with and without a kv_mask, a dk and an out scaled by 1.01
+   beside them;
 3. the forward, dK/dV and dQ with the parent's library and the change's,
    in turns (parent, change, change, parent), device ms by torch.profiler
    on inputs past L2 (``chip_smoke.cuda_ms``), with TFLOP/s and the share of
-   ``chip_smoke.flash_bound_ms``; dK/dV at D=128 (H=6, the same width) the
-   same way;
-4. dK/dV of each variant in turns with the change, CUDA events
-   (``chip_smoke.event_ms``), at D=64 and, for the CTA shapes, at D=128.
+   ``chip_smoke.flash_bound_ms``; the forward and dK/dV the same at
+   D=128; SDPA's forward on the same inputs beside them (timed only);
+4. each variant in turns with the change, CUDA events
+   (``chip_smoke.event_ms``): dK/dV's at D=64 and its CTA shapes at D=128;
+   the forward's at D=64 and its layouts at D=128.
 
 The first and the last line name the card (``nvidia-smi``'s name and
 power limit). Exits non-zero without a card or when a build fails.
@@ -56,7 +65,8 @@ _MMA2 = [("tile::mma_bf16(dva[j], pa[kk], bo[0], bo[1]);",
          ("tile::mma_bf16(dka[j + 1], da[kk], bq[2], bq[3]);",
           "dka[j + 1][0] += __uint_as_float(da[kk][1] ^ bq[2]);")]
 _WARPS = "static constexpr int WARPS = D <= 64 ? 4 : 8;"
-#: (name, [(text in this checkout's flash_attention.cu, its replacement)])
+#: (name, [(text in this checkout's flash_attention.cu, its replacement)]):
+#: the dK/dV kernel's layouts and ablations
 LAYOUTS = [
     ("4 warps (64 keys) at both D", [(_WARPS, "static constexpr int WARPS = 4;")]),
     ("8 warps (128 keys) at both D", [(_WARPS, "static constexpr int WARPS = 8;")]),
@@ -71,7 +81,47 @@ ABLATIONS = [
      [("    load_tile_async(i + 2);\n", "    tile::cp_async_commit();\n")]),
     ("without the delta pass (stale delta)", [("    row_pass(i + 1);\n", "")]),
 ]
+_FWD_WARPS = "static constexpr int WARPS = 4;                 // warps of a forward CTA"
+_FWD_MI = "static constexpr int MI = D <= 64 ? 2 : 1;      // 16-row groups of a warp"
+_FWD_STAGES = "static constexpr int STAGES = D <= 64 ? 3 : 2;  // depth of the K, V ring"
+_FWD_BN = "static constexpr int BN = 64;                   // keys of a ring stage"
+#: the forward kernel's layouts (timed at both head dims) and ablations
+FWD_LAYOUTS = [
+    ("fwd 64 rows x 4 warps at both D", [(_FWD_WARPS, "static constexpr int WARPS = 4;"),
+                                         (_FWD_MI, "static constexpr int MI = 1;")]),
+    ("fwd 128 rows x 4 warps (32 a warp) at both D",
+     [(_FWD_WARPS, "static constexpr int WARPS = 4;"), (_FWD_MI, "static constexpr int MI = 2;")]),
+    ("fwd 128 rows x 8 warps at both D", [(_FWD_WARPS, "static constexpr int WARPS = 8;"),
+                                          (_FWD_MI, "static constexpr int MI = 1;")]),
+    ("fwd 2 stages at both D", [(_FWD_STAGES, "static constexpr int STAGES = 2;")]),
+    ("fwd 3 stages at both D", [(_FWD_STAGES, "static constexpr int STAGES = 3;")]),
+    ("fwd 128 keys a stage", [(_FWD_BN, "static constexpr int BN = 128;")]),
+]
+FWD_ABLATIONS = [
+    ("fwd without the exp2 arithmetic",
+     [("p[e] = exp2f(fmaf(s[mi][j][e], sl2, -m[mi][e >> 1]));", "p[e] = s[mi][j][e] * sl2;")]),
+    ("fwd without the P V product",
+     [("tile::mma_bf16(o[mi][j], pa[mi][kk], vb[0], vb[1]);",
+       "o[mi][j][0] += __uint_as_float(pa[mi][kk][0] ^ vb[0]);"),
+      ("tile::mma_bf16(o[mi][j + 1], pa[mi][kk], vb[2], vb[3]);",
+       "o[mi][j + 1][0] += __uint_as_float(pa[mi][kk][1] ^ vb[2]);")]),
+    ("fwd without the ring's copies (stale stages)",
+     [("    load_kv_async(i + S::STAGES - 1);\n", "    tile::cp_async_commit();\n")]),
+]
+VARIANTS = LAYOUTS + ABLATIONS + FWD_LAYOUTS + FWD_ABLATIONS
 
+
+def substitute(src: str, name: str, subs) -> str:
+    """``src`` with each (old, new) of ``subs`` applied in turn; refuses a
+    text that does not occur exactly once (a replacement of every
+    occurrence would change lines shared by two kernels)."""
+    for old, new in subs:
+        n = src.count(old)
+        if n != 1:
+            raise SystemExit(f"flash_dkv_turns: {name!r}: the source holds {old!r} {n} times, "
+                             f"not once")
+        src = src.replace(old, new)
+    return src
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -84,6 +134,7 @@ def main() -> int:
         return 2
     import numpy as np
     import torch
+    import torch.nn.functional as F
     if not torch.cuda.is_available():
         print("flash_dkv_turns: needs a CUDA card", file=sys.stderr)
         return 2
@@ -98,12 +149,8 @@ def main() -> int:
         src = f.read()
     sources = {"parent": os.path.join(os.path.abspath(sys.argv[1]), "flash_attention.cu")}
     work = os.path.join(_build.BUILD_DIR, "turns")
-    for name, subs in LAYOUTS + ABLATIONS:
-        text = src
-        for old, new in subs:
-            if old not in text:
-                raise SystemExit(f"flash_dkv_turns: {name!r}: the source no longer holds {old!r}")
-            text = text.replace(old, new)
+    for name, subs in VARIANTS:
+        text = substitute(src, name, subs)
         d = os.path.join(work, re.sub(r"\W+", "_", name))
         os.makedirs(d, exist_ok=True)
         for h in os.listdir(_build.CSRC):
@@ -134,35 +181,48 @@ def main() -> int:
         libs[n] = lib
     log(f"built {len(jobs)} libraries in {time.perf_counter() - t0:.1f} s")
 
-    # 1. ptxas: registers and spills of each dK/dV instantiation
+    # 1. ptxas: registers and spills of each bf16 forward and dK/dV instantiation
     for n, rep in reports.items():
         lines = rep.splitlines()
         for i, line in enumerate(lines):
-            m = re.search(r"Function properties for (\S*flash_bwd_dkv\S*)", line)
+            m = re.search(r"Function properties for (\S*(flash_bwd_dkv|flash_fwd)\S*)", line)
             if m:
                 info = " | ".join(x.strip() for x in lines[i + 1:i + 3])
-                kind = "f32" if "dkv_f32" in m.group(1) or "IfLi" in m.group(1) else "bf16"
+                kind = "f32" if "_f32_" in m.group(1) or "IfLi" in m.group(1) else "bf16"
                 d = "128" if "Li128E" in m.group(1) else "64"
-                log(f"ptxas {n}: {kind} D={d}: {info}")
+                log(f"ptxas {n}: {m.group(2)} {kind} D={d}: {info}")
 
     def use(n):
         _build._libs["flash_attention"] = libs[n]
 
     rng = np.random.default_rng(11)
 
-    # 2. dk, dv against the plain version
+    # 2. dk, dv and out, lse against the plain version
     for masked in (False, True):
         c = cs.flash_case(torch, np, rng, torch.bfloat16, masked)
         args = (c["q"], c["k"], c["v"], c["mask"])
+        tag = "kv_mask" if masked else "no mask"
         use("change")
         out, lse = fa.flash_fwd(*args, causal=True)
         want = fa.flash_attention_bwd_plain(*args, out, lse, c["dout"], causal=True)
         for n in ["parent", "change"] + [name for name, _ in LAYOUTS]:
             use(n)
             dk, dv = fa.flash_bwd_dkv(*args, out, lse, c["dout"], causal=True)
-            log(f"relative L2 {n} ({'kv_mask' if masked else 'no mask'}): dk "
+            log(f"relative L2 {n} ({tag}): dk "
                 f"{cs.rel_l2(dk, want[1]):.3e}, dv {cs.rel_l2(dv, want[2]):.3e}; dk x 1.01 "
                 f"{cs.rel_l2(dk.float() * 1.01, want[1]):.3e}")
+    for H, D in ((12, 64), (6, 128)):
+        for masked in (False, True):
+            c = cs.flash_case(torch, np, rng, torch.bfloat16, masked, H=H, D=D)
+            args = (c["q"], c["k"], c["v"], c["mask"])
+            want_out, want_lse = fa.flash_attention_plain(*args, causal=True)
+            for n in ["parent", "change"] + [name for name, _ in FWD_LAYOUTS]:
+                use(n)
+                out, lse = fa.flash_fwd(*args, causal=True)
+                log(f"forward D={D} {n} ({'kv_mask' if masked else 'no mask'}): out relative L2 "
+                    f"{cs.rel_l2(out, want_out):.3e} (out x 1.01 "
+                    f"{cs.rel_l2(out.float() * 1.01, want_out):.3e}), lse max abs err "
+                    f"{float((lse - want_lse).abs().max()):.3e}")
 
     def case_sets(**kw):
         c = cs.flash_case(torch, np, rng, torch.bfloat16, False, **kw)
@@ -179,47 +239,48 @@ def main() -> int:
                                  for st in sets],
                "flash_bwd_dq": [lambda st=st: fa.flash_bwd_dq(*bwd(st), causal=True)
                                 for st in sets]}
+        sdpa = [lambda st=st: F.scaled_dot_product_attention(st["q"], st["k"], st["v"],
+                                                             is_causal=True) for st in sets]
         B, H, S, D = c["q"].shape
-        return c, fns, S * (S + 1) // 2 * B * H * 2 * D  # 2 D operations a pair and product
+        return c, fns, sdpa, S * (S + 1) // 2 * B * H * 2 * D  # 2 D operations a pair and product
 
-    # 3. parent against change, in turns
+    # 3. parent against change, in turns, at D=64 (all three) and D=128
     products = {"flash_fwd": 2, "flash_bwd_dkv": 4, "flash_bwd_dq": 3}
     kinds = {"flash_fwd": "fwd", "flash_bwd_dkv": "dkv", "flash_bwd_dq": "dq"}
-    c, fns, per_product = case_sets()
     turns = ("parent", "change", "change", "parent")
-    ms = {(side, k): [] for side in turns for k in fns}
-    for side in turns:
-        use(side)
-        for k, f in fns.items():
-            ms[(side, k)].append(cs.cuda_ms(torch, f, iters=20)["device_ms"])
-    for k in fns:
-        bound = cs.flash_bound_ms(torch, c, kinds[k], "bfloat16")[0]
-        for side in ("parent", "change"):
-            v = ms[(side, k)]
-            mean = sum(v) / len(v)
-            log(f"turns {k} {side}: device ms {', '.join(f'{x:.5f}' for x in v)}, mean "
-                f"{mean:.5f}; {products[k] * per_product / mean / 1e9:.1f} TFLOP/s; "
-                f"{100 * bound / mean:.1f}% of the {bound:.5f} ms bound")
-    c128, fns128, per128 = case_sets(H=6, D=128)
-    ms128 = {"parent": [], "change": []}
-    for side in turns:
-        use(side)
-        ms128[side].append(cs.cuda_ms(torch, fns128["flash_bwd_dkv"], iters=20)["device_ms"])
-    for side, v in ms128.items():
-        mean = sum(v) / len(v)
-        log(f"turns flash_bwd_dkv D=128 H=6 {side}: device ms "
-            f"{', '.join(f'{x:.5f}' for x in v)}, mean {mean:.5f}; "
-            f"{4 * per128 / mean / 1e9:.1f} TFLOP/s")
+    fns_at = {}
+    for label, kw, names in (("D=64", {}, list(products)),
+                             ("D=128 H=6", {"H": 6, "D": 128}, ["flash_fwd", "flash_bwd_dkv"])):
+        c, fns, sdpa, per_product = case_sets(**kw)
+        fns_at[label] = fns
+        ms = {(side, k): [] for side in turns for k in names}
+        for side in turns:
+            use(side)
+            for k in names:
+                ms[(side, k)].append(cs.cuda_ms(torch, fns[k], iters=20)["device_ms"])
+        lib = cs.cuda_ms(torch, sdpa, iters=20)["device_ms"]
+        for k in names:
+            bound = cs.flash_bound_ms(torch, c, kinds[k], "bfloat16")[0]
+            for side in ("parent", "change"):
+                v = ms[(side, k)]
+                mean = sum(v) / len(v)
+                log(f"turns {label} {k} {side}: device ms {', '.join(f'{x:.5f}' for x in v)}, "
+                    f"mean {mean:.5f}; {products[k] * per_product / mean / 1e9:.1f} TFLOP/s; "
+                    f"{100 * bound / mean:.1f}% of the {bound:.5f} ms bound")
+        log(f"SDPA forward {label}: device ms {lib:.5f}, "
+            f"{2 * per_product / lib / 1e9:.1f} TFLOP/s")
 
     # 4. the variants in turns with the change, CUDA events
-    for label, dkv, names in (
-            ("D=64", fns["flash_bwd_dkv"], [n for n, _ in LAYOUTS + ABLATIONS]),
-            ("D=128 H=6", fns128["flash_bwd_dkv"], [n for n, _ in LAYOUTS[:2]])):
+    for label, fns, names in (
+            ("dkv D=64", fns_at["D=64"]["flash_bwd_dkv"], [n for n, _ in LAYOUTS + ABLATIONS]),
+            ("dkv D=128 H=6", fns_at["D=128 H=6"]["flash_bwd_dkv"], [n for n, _ in LAYOUTS[:2]]),
+            ("fwd D=64", fns_at["D=64"]["flash_fwd"], [n for n, _ in FWD_LAYOUTS + FWD_ABLATIONS]),
+            ("fwd D=128 H=6", fns_at["D=128 H=6"]["flash_fwd"], [n for n, _ in FWD_LAYOUTS])):
         order = ["change"] + names + names[::-1] + ["change"]
         ev = {n: [] for n in order}
         for n in order:
             use(n)
-            ev[n].append(cs.event_ms(torch, dkv, iters=40))
+            ev[n].append(cs.event_ms(torch, fns, iters=40))
         base = sum(ev["change"]) / 2
         for n, v in ev.items():
             mean = sum(v) / len(v)
