@@ -18,12 +18,11 @@
 // is bound by tensor-core operations, not bytes (forward 12.9 GFLOP against
 // 50 MB). Every bf16 product is mma.sync m16n8k16 (bf16 in, f32 accumulate).
 //
-// dQ (and the forward and dK/dV for f32 inputs) are the first design: one
-// warp per 16 rows of a 64-row tile, 4 warps, operands staged synchronously
-// in shared memory and fetched with plain 16/32-bit loads, dS (P) rounded
-// into shared memory and read back. For f32 inputs the same tile loops run
-// on CUDA cores (scalar FMAs in the mma's fragment layout), so f32 keeps
-// full f32 products; that path is for checks, not for speed.
+// For f32 inputs the forward, dK/dV and dQ are the first design: one warp
+// per 16 rows of a 64-row tile, 4 warps, operands staged synchronously in
+// shared memory, P and dS written to shared memory and read back, the tile
+// loops on CUDA cores (scalar FMAs in the mma's fragment layout), so f32
+// keeps full f32 products; that path is for checks, not for speed.
 //
 // The forward for bf16 inputs (flash_fwd_kernel, traits Fwd) is built on
 // tile_mma.cuh. Its work is 2 products of 2*D operations per attended
@@ -80,6 +79,32 @@
 //  axis so the heaviest causal tiles (lowest keys) launch first. dK and dV
 //  leave through shared memory in 16-byte rows, each rounded once.
 //
+// dQ for bf16 inputs (flash_bwd_dq_kernel, traits Dq) is built on
+// tile_mma.cuh and laid out like the forward. Its work is 3 products of 2*D
+// operations per attended (row, key) pair (S = Q K^T, dP = dO V^T, dQ +=
+// dS K) against 5 reads of [B,H,S,D] and one write, and it has no online
+// max: the LSE is final, so each key tile is independent of the last.
+//  - Queries are the mma rows: each warp owns 16 * MI rows. Q's and dO's A
+//    fragments are read once by ldmatrix and stay in registers for the
+//    whole key loop.
+//  - K and V stream through a cp.async ring of STAGES [BN keys][D] tiles,
+//    one __syncthreads an iteration; keys past Sk are zero-filled. S takes
+//    K as it lies by ldsm_x4, dP takes V as it lies by ldsm_x4, and dS K
+//    takes K by ldsm_x4_trans from the same staged copy.
+//  - p = exp2(s * scale * log2(e) - LSE * log2(e)), one FMA and one exp2
+//    an element; ds = p (dp - delta) scale. The m16n8 accumulators of two
+//    adjacent key n-tiles, packed to bf16 pairs, are the m16k16 A fragment
+//    of dS K: nothing goes through shared memory.
+//  - delta = rowsum(dO * O) in f32 is computed once a CTA, each warp for
+//    its own rows, from the O and dO tiles staged with Q (16-byte shared
+//    reads), together with LSE * log2(e); both reach their lanes by
+//    shuffles.
+//  - The kv_mask bit word and the masked / unmasked instantiations are the
+//    forward's; tiles wholly above the band of a warp's rows skip their
+//    products. The grid is (B * H, q tiles), the heaviest causal q tile
+//    first. dq leaves through the warp's own rows of the O tile in 16-byte
+//    rows, rounded once.
+//
 // Numerics (as the Pallas kernels): f32 logits, f32 softmax statistics and
 // f32 accumulation; delta = rowsum(dO * O) in f32, once per row tile inside
 // each backward kernel (the Pallas kernels recompute it per tile: the same
@@ -126,69 +151,20 @@ struct Strided {
 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 // padded shared-memory row: 16 bytes past the data keeps the rows of one
 // fragment load on different banks
 template <typename T>
 __host__ __device__ constexpr int padded(int n) { return n + 16 / (int)sizeof(T); }
 
-__device__ __forceinline__ uint32_t bits(__nv_bfloat16 v) {
-  return (uint32_t)__bfloat16_as_ushort(v);
-}
-
-// two bf16 values at a[0] and a[stride] packed into one register, the lower
-// index in the lower half (the mma fragment order)
-template <int S>
-__device__ __forceinline__ uint32_t pair(const __nv_bfloat16* a) {
-  if constexpr (S == 1) {
-    return *reinterpret_cast<const uint32_t*>(a);
-  } else {
-    return bits(a[0]) | (bits(a[S]) << 16);
-  }
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// One warp: acc (16 x 8*NT, the m16n8 accumulator fragments) += A (16 x K)
-// times B (K x 8*NT), both read from shared memory:
+// One warp, on CUDA cores (the f32 kernels): acc (16 x 8*NT, in the layout
+// of the m16n8 mma accumulator fragments) += A (16 x K) times B (K x 8*NT),
+// both read from shared memory:
 //   A(m, k) = a[m * AM + k * AK],  B(k, n) = b[n * BN + k * BK].
 // Fragment layout (PTX m16n8k16): g = lane / 4, t = lane % 4; acc[j] holds
 // rows g and g + 8, columns 8j + 2t and 8j + 2t + 1.
-template <int NT, int K, int AM, int AK, int BN, int BK>
-__device__ __forceinline__ void warp_mma(float (&acc)[NT][4], const __nv_bfloat16* a,
-                                         const __nv_bfloat16* b, int lane) {
-  static_assert(K % 16 == 0, "K must be a multiple of 16");
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int kc = 0; kc < K; kc += 16) {
-    const int k0 = kc + 2 * t;
-    uint32_t af[4];
-    af[0] = pair<AK>(a + g * AM + k0 * AK);
-    af[1] = pair<AK>(a + (g + 8) * AM + k0 * AK);
-    af[2] = pair<AK>(a + g * AM + (k0 + 8) * AK);
-    af[3] = pair<AK>(a + (g + 8) * AM + (k0 + 8) * AK);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const __nv_bfloat16* bj = b + (8 * j + g) * BN;
-      mma_bf16(acc[j], af, pair<BK>(bj + k0 * BK), pair<BK>(bj + (k0 + 8) * BK));
-    }
-  }
-}
-
-// The same tile product in f32 on CUDA cores, in the same fragment layout.
 template <int NT, int K, int AM, int AK, int BN, int BK>
 __device__ __forceinline__ void warp_mma(float (&acc)[NT][4], const float* a, const float* b,
                                          int lane) {
@@ -977,15 +953,17 @@ flash_fwd_kernel(Strided q, Strided k, Strided v, const unsigned char* __restric
 }
 
 // ---------------------------------------------------------------------------
-// dQ: one block per (q tile, h, b), the q tile resident; kv tiles in a loop.
+// dQ for f32 inputs (the first design, on CUDA cores): one block per (q
+// tile, h, b), the q tile resident; kv tiles in a loop.
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(Strided q, Strided k, Strided v, Strided o, Strided dout,
-                    const unsigned char* __restrict__ mask, const float* __restrict__ lse,
-                    T* __restrict__ dq, int H, int Sq, int Sk, int causal, int q_offset,
-                    float scale) {
+flash_bwd_dq_f32_kernel(Strided q, Strided k, Strided v, Strided o, Strided dout,
+                        const unsigned char* __restrict__ mask, const float* __restrict__ lse,
+                        float* __restrict__ dq, int H, int Sq, int Sk, int causal, int q_offset,
+                        float scale) {
+  using T = float;
   constexpr int LD = padded<T>(D), LDP = padded<T>(kTile);
   constexpr int NS = kTile / 8, NO = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -1049,6 +1027,270 @@ flash_bwd_dq_kernel(Strided q, Strided k, Strided v, Strided o, Strided dout,
       qr[8 * j + 2 * t] = from_f32<T>(dqa[j][2 * i]);
       qr[8 * j + 2 * t + 1] = from_f32<T>(dqa[j][2 * i + 1]);
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dQ for bf16 inputs (see the note at the top): one CTA per (b, h, q tile),
+// the q tile's fragments in registers; key tiles stream through a cp.async
+// ring.
+// ---------------------------------------------------------------------------
+
+// The CTA shape and shared-memory layout of flash_bwd_dq_kernel<D>: each
+// warp owns 16 * MI query rows; a stage holds BN keys of K and V. On an
+// H100 (PERF.md): at D = 64, 128 rows of 4 warps (32 a warp: each K and V
+// fragment feeds two row groups; 255 registers, two CTAs an SM) with 32
+// keys a stage; 64 x 4 with 64 keys takes 9% longer, 128 x 8 17%. At D =
+// 128, 32 rows a warp spill; 64 x 4 with 32 keys (244 registers, two CTAs
+// an SM); 64 keys a stage (one CTA an SM by shared memory) takes 33% longer.
+template <int D>
+struct Dq {
+  using bf16 = __nv_bfloat16;
+  static constexpr int WARPS = 4;                 // warps of a dQ CTA
+  static constexpr int MI = D <= 64 ? 2 : 1;      // 16-row groups of a dQ warp
+  static constexpr int BN = 32;                   // keys of a dQ ring stage
+  static constexpr int STAGES = D <= 64 ? 3 : 2;  // depth of the dQ K, V ring
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int BM = 16 * MI * WARPS;  // query rows of a CTA
+  static constexpr int TPR = 2 / MI;          // threads a row in the delta pass
+  static constexpr int LD = tile::pad_ld<bf16>(D);
+  // Q, dO, O (then dq) [BM][LD]; STAGES x {K, V [BN][LD]}
+  static constexpr size_t ROW_BYTES = 3 * sizeof(bf16) * BM * LD;
+  static constexpr size_t STAGE_BYTES = 2 * sizeof(bf16) * BN * LD;
+  static constexpr size_t SMEM = ROW_BYTES + STAGES * STAGE_BYTES;
+  static_assert(MI == 1 || MI == 2, "a warp's 16 MI rows, TPR lanes a row in the delta pass");
+  static_assert(BN % 32 == 0 && D % 16 == 0 && (D / TPR) % 8 == 0, "mask words, mma steps");
+  static_assert(STAGES >= 2 && SMEM <= 232448, "a ring of at least 2 stages in 227 KB");
+};
+
+template <int D>
+__global__ void __launch_bounds__(Dq<D>::THREADS, 1)
+flash_bwd_dq_kernel(Strided q, Strided k, Strided v, Strided o, Strided dout,
+                    const unsigned char* __restrict__ mask, const float* __restrict__ lse,
+                    __nv_bfloat16* __restrict__ dq, int H, int Sq, int Sk, int causal,
+                    int q_offset, float scale) {
+  using S = Dq<D>;
+  using bf16 = __nv_bfloat16;
+  constexpr int BM = S::BM, BN = S::BN, MI = S::MI, LD = S::LD, THREADS = S::THREADS;
+  constexpr int TPR = S::TPR, KS = D / 16, NB = BN / 8, NO = D / 8, NW = BN / 32, P = D / 8;
+  constexpr float kLog2e = 1.4426950408889634f;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* dOs = Qs + BM * LD;
+  bf16* Os = dOs + BM * LD;
+  unsigned char* ring = smem_raw + S::ROW_BYTES;
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int n_q = (Sq + BM - 1) / BM;
+  // the last q tiles attend the most keys under the causal mask: first
+  const int q0 = (causal ? n_q - 1 - (int)blockIdx.y : (int)blockIdx.y) * BM;
+  const int rw = q0 + 16 * MI * warp;  // the warp's first row
+  // keys past the diagonal band of the tile's last row are never attended
+  const int kv_end = causal ? min(Sk, q0 + BM + q_offset) : Sk;
+  const int n_tiles = kv_end > 0 ? (kv_end + BN - 1) / BN : 0;
+
+  auto stage = [&](int i) { return reinterpret_cast<bf16*>(ring + i % S::STAGES * S::STAGE_BYTES); };
+  // copy K, V of key tile i into its stage; one commit group a call (empty
+  // past the last tile)
+  auto copy_kv = [&](int i) {
+    if (i < n_tiles) {
+      bf16* st = stage(i);
+      stage_rows<BN, D, LD, THREADS>(st, k, b, h, i * BN, Sk);
+      stage_rows<BN, D, LD, THREADS>(st + BN * LD, v, b, h, i * BN, Sk);
+    }
+    tile::cp_async_commit();
+  };
+  // the kv_mask bytes of key tile i, key lane + 32 u of the tile in mb[u]:
+  // read a tile ahead of their ballot, so the load is in flight meanwhile
+  unsigned char mb[NW];
+  auto load_mask = [&](int i) {
+#pragma unroll
+    for (int u = 0; u < NW; ++u) {
+      const int c = i * BN + lane + 32 * u;
+      mb[u] = mask != nullptr && c < Sk ? mask[(size_t)b * Sk + c] : 1;
+    }
+  };
+  // delta = rowsum(dO * O) in f32 and LSE * log2(e) of the warp's own rows
+  // (TPR lanes a row), from the staged dO and O tiles; rows of elements g
+  // and g + 8 of each 16-row group to dl, l2 by shuffles
+  const int r_own = 16 * MI * warp + lane / TPR;  // this lane's row in the delta pass
+  const float ls = q0 + r_own < Sq ? lse[(size_t)bh * Sq + q0 + r_own] * kLog2e : 0.f;
+  float dl[MI][2], l2[MI][2];
+  auto row_pass = [&] {
+    constexpr int PER = D / TPR;
+    const int r = r_own, part = lane % TPR;
+    float acc = 0.f;
+#pragma unroll
+    for (int u = 0; u < PER / 8; ++u) {
+      const int c = part * PER + 8 * u;
+      float d8[8], o8[8];
+      tile::load8(dOs + r * LD + c, d8);
+      tile::load8(Os + r * LD + c, o8);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc = fmaf(d8[e], o8[e], acc);
+    }
+    if constexpr (TPR == 2) acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int r2 = 0; r2 < 2; ++r2) {
+        const int src = (16 * mi + g + 8 * r2) * TPR;
+        dl[mi][r2] = __shfl_sync(0xffffffffu, acc, src);
+        l2[mi][r2] = __shfl_sync(0xffffffffu, ls, src);
+      }
+  };
+
+  // Q, dO, O and key tile 0 in the first group, tiles 1.. STAGES - 2 in
+  // the next
+  stage_rows<BM, D, LD, THREADS>(Qs, q, b, h, q0, Sq);
+  stage_rows<BM, D, LD, THREADS>(dOs, dout, b, h, q0, Sq);
+  stage_rows<BM, D, LD, THREADS>(Os, o, b, h, q0, Sq);
+#pragma unroll
+  for (int i = 0; i < S::STAGES - 1; ++i) copy_kv(i);
+  load_mask(0);
+  tile::cp_async_wait<S::STAGES - 2>();
+  __syncthreads();
+  row_pass();
+  const float sl2 = scale * kLog2e;
+  // the A fragments of the warp's rows: (rows rw + 16 mi.., d 16 kk..)
+  uint32_t qf[MI][KS][4], of[MI][KS][4];
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const int off = (16 * (MI * warp + mi) + (lane & 15)) * LD + 16 * kk + 8 * (lane >> 4);
+      tile::ldsm_x4(qf[mi][kk], Qs + off);
+      tile::ldsm_x4(of[mi][kk], dOs + off);
+    }
+  float dqa[MI][NO][4];
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi) zero(dqa[mi]);
+
+  for (int i = 0; i < n_tiles; ++i) {
+    tile::cp_async_wait<S::STAGES - 2>();  // key tile i has landed (this thread's copies)
+    __syncthreads();  // ... every thread's; tile i - 1 and its stage are done with
+    copy_kv(i + S::STAGES - 1);
+    const int c0 = i * BN;
+    // bit c % 32 of kw[c / 32]: key c0 + c exists and attends
+    uint32_t kw[NW];
+#pragma unroll
+    for (int u = 0; u < NW; ++u)
+      kw[u] = __ballot_sync(0xffffffffu, c0 + lane + 32 * u < Sk && mb[u] != 0);
+    if (i + 1 < n_tiles) load_mask(i + 1);
+    // nothing to add: rows all past Sq, or the tile wholly above their band
+    if (rw >= Sq || (causal && c0 > rw + 16 * MI - 1 + q_offset)) continue;
+    const bool diag = causal && c0 + BN - 1 > rw + q_offset;  // some pair above the band
+    const bool masked = diag || mask != nullptr || c0 + BN > Sk;
+    const bf16* Ks = stage(i);
+    const bf16* Vs = Ks + BN * LD;
+
+    // S = Q K^T and dP = dO V^T over d: B(d, key) = K[key][d], V[key][d]
+    // as they lie
+    float s[MI][NB][4], dp[MI][NB][4];
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi) {
+      zero(s[mi]);
+      zero(dp[mi]);
+    }
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int j = 0; j < NB; j += 2) {
+        const int off = (8 * j + (lane & 7) + 8 * (lane >> 4)) * LD + 16 * kk +
+                        8 * ((lane >> 3) & 1);
+        uint32_t kb[4], vb[4];
+        tile::ldsm_x4(kb, Ks + off);
+        tile::ldsm_x4(vb, Vs + off);
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi) {
+          tile::mma_bf16(s[mi][j], qf[mi][kk], kb[0], kb[1]);
+          tile::mma_bf16(s[mi][j + 1], qf[mi][kk], kb[2], kb[3]);
+          tile::mma_bf16(dp[mi][j], of[mi][kk], vb[0], vb[1]);
+          tile::mma_bf16(dp[mi][j + 1], of[mi][kk], vb[2], vb[3]);
+        }
+      }
+
+    // p = exp2(s * scale * log2(e) - LSE * log2(e)), 0 under the masks; ds
+    // = p (dp - delta) scale, rounded to bf16 pairs: n-tiles 2kk and 2kk + 1
+    // of the accumulators are the A fragment kk (rows x keys 16kk..) of dS K
+    uint32_t da[MI][BN / 16][4];
+    auto grad = [&](auto masked_tag) {
+      constexpr bool MASKED = decltype(masked_tag)::value;
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) {
+        // element e of n-tile j: key c0 + 8j + 2t + (e & 1), row r = rw +
+        // 16 mi + g + 8 (e >> 1); attended iff its kv bit is set and, on a
+        // diagonal tile, 8j + (e & 1) <= r + q_offset - c0 - 2t
+        int lim[2];
+#pragma unroll
+        for (int r2 = 0; r2 < 2; ++r2)
+          lim[r2] = diag ? rw + 16 * mi + g + 8 * r2 + q_offset - c0 - 2 * t : BN;
+        auto ok = [&](int j, int e) {
+          return ((kw[j >> 2] >> (8 * (j & 3) + 2 * t + (e & 1))) & 1u) &&
+                 8 * j + (e & 1) <= lim[e >> 1];
+        };
+#pragma unroll
+        for (int j = 0; j < NB; ++j) {
+          float ds[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float p = exp2f(fmaf(s[mi][j][e], sl2, -l2[mi][e >> 1]));
+            if (MASKED && !ok(j, e)) p = 0.f;
+            ds[e] = p * (dp[mi][j][e] - dl[mi][e >> 1]) * scale;
+          }
+          da[mi][j >> 1][2 * (j & 1)] = pack_bf16(ds[0], ds[1]);
+          da[mi][j >> 1][2 * (j & 1) + 1] = pack_bf16(ds[2], ds[3]);
+        }
+      }
+    };
+    if (masked)
+      grad(std::true_type{});
+    else
+      grad(std::false_type{});
+
+    // dQ += dS K: B(key, d) = K[key][d] as it lies, by ldmatrix.trans from
+    // the same staged copy
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+      for (int j = 0; j < NO; j += 2) {
+        uint32_t kb[4];
+        tile::ldsm_x4_trans(kb, Ks + (16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1)) * LD +
+                                    8 * j + 8 * (lane >> 4));
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi) {
+          tile::mma_bf16(dqa[mi][j], da[mi][kk], kb[0], kb[1]);
+          tile::mma_bf16(dqa[mi][j + 1], da[mi][kk], kb[2], kb[3]);
+        }
+      }
+  }
+
+  // dq rounded once, through the warp's own rows of the O tile (the delta
+  // pass read no others) to 16-byte rows; rows past Sq are not stored; a
+  // row that attends nothing has p = 0 everywhere: dq 0
+  tile::cp_async_wait<0>();
+  bf16* Dw = Os + 16 * MI * warp * LD;
+  __syncwarp();
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int r2 = 0; r2 < 2; ++r2) {
+      const int r = 16 * mi + g + 8 * r2;
+#pragma unroll
+      for (int j = 0; j < NO; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(Dw + r * LD + 8 * j + 2 * t) =
+            __floats2bfloat162_rn(dqa[mi][j][2 * r2], dqa[mi][j][2 * r2 + 1]);
+    }
+  __syncwarp();
+  static_assert(16 * MI * P % 32 == 0, "whole 16-byte chunks a lane");
+#pragma unroll
+  for (int x = 0; x < 16 * MI * P / 32; ++x) {
+    const int u = lane + 32 * x, r = u / P, c = u % P * 8;
+    if (rw + r < Sq)
+      *reinterpret_cast<uint4*>(dq + ((size_t)bh * Sq + rw + r) * D + c) =
+          *reinterpret_cast<const uint4*>(Dw + r * LD + c);
   }
 }
 
@@ -1127,15 +1369,27 @@ template <typename T, int D>
 int bwd_dq(Strided q, Strided k, Strided v, Strided o, Strided dout, const void* mask,
            const void* lse, void* dq, int B, int H, int Sq, int Sk, int causal, float scale,
            cudaStream_t st) {
-  constexpr int LD = padded<T>(D), LDP = padded<T>(kTile);
-  const size_t smem =
-      sizeof(T) * (4 * kTile * LD + kTile * LDP) + 2 * sizeof(float) * kTile + kTile;
-  auto kern = flash_bwd_dq_kernel<T, D>;
-  cudaError_t e = smem_attr(kern, smem);
-  if (e != cudaSuccess) return (int)e;
-  kern<<<dim3((Sq + kTile - 1) / kTile, H, B), kThreads, smem, st>>>(
-      q, k, v, o, dout, (const unsigned char*)mask, (const float*)lse, (T*)dq, H, Sq, Sk,
-      causal, Sk - Sq, scale);
+  if constexpr (std::is_same<T, float>::value) {  // f32: the CUDA-core kernel
+    constexpr int LD = padded<T>(D), LDP = padded<T>(kTile);
+    const size_t smem =
+        sizeof(T) * (4 * kTile * LD + kTile * LDP) + 2 * sizeof(float) * kTile + kTile;
+    auto kern = flash_bwd_dq_f32_kernel<D>;
+    cudaError_t e = smem_attr(kern, smem);
+    if (e != cudaSuccess) return (int)e;
+    kern<<<dim3((Sq + kTile - 1) / kTile, H, B), kThreads, smem, st>>>(
+        q, k, v, o, dout, (const unsigned char*)mask, (const float*)lse, (T*)dq, H, Sq, Sk,
+        causal, Sk - Sq, scale);
+  } else {  // bf16: the tile_mma.cuh kernel, q tiles on the slowest grid axis
+    using S = Dq<D>;
+    if ((long long)B * H > 0x7fffffffLL || (Sq + S::BM - 1) / S::BM > 65535)
+      return (int)cudaErrorInvalidValue;
+    auto kern = flash_bwd_dq_kernel<D>;
+    const int e = tile::set_smem(kern, S::SMEM);
+    if (e != 0) return e;
+    kern<<<dim3(B * H, (Sq + S::BM - 1) / S::BM), S::THREADS, S::SMEM, st>>>(
+        q, k, v, o, dout, (const unsigned char*)mask, (const float*)lse, (T*)dq, H, Sq, Sk,
+        causal, Sk - Sq, scale);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -1192,7 +1446,7 @@ int dq_entry(const void* q, long long qb, long long qh, long long qs, const void
   const Strided Q{q, qb, qh, qs}, K{k, kb, kh, ks}, V{v, vb, vh, vs}, O{o, ob, oh, os},
       dO{dout, db, dh, ds};
   if (!shapes_ok(B, H, Sq, Sk) || !aligned<T>(Q) || !aligned<T>(K) || !aligned<T>(V) ||
-      !aligned<T>(dO))
+      !aligned<T>(O) || !aligned<T>(dO))
     return (int)cudaErrorInvalidValue;
   if (B == 0 || H == 0 || Sq == 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;

@@ -209,21 +209,31 @@ ptxas info    : Used 247 registers, used 1 barriers
 ptxas info    : Function properties for _ZN12_GLOBAL__N_120flash_fwd_f32_kernelILi64EEEvNS_7StridedE
     0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
 ptxas info    : Used 96 registers, used 1 barriers
+ptxas info    : Function properties for _ZN12_GLOBAL__N_119flash_bwd_dq_kernelILi64EEEvNS_7StridedE
+    0 bytes stack frame, {dq_spill} bytes spill stores, {dq_spill} bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+ptxas info    : Function properties for _ZN12_GLOBAL__N_123flash_bwd_dq_f32_kernelILi64EEEvNS_7StridedE
+    0 bytes stack frame, {dq_f32_spill} bytes spill stores, {dq_f32_spill} bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers
 """
 
 
-@pytest.mark.parametrize("spill,kernels,refused", [
-    (0, ("flash_fwd_kernel",), None),
-    (16, ("flash_fwd_kernel",), "spills"),
-    (0, ("flash_fwd_kernel", "flash_bwd_dkv_kernel"), "no instantiation"),
-], ids=["clean", "spills", "missing"])
-def test_chip_smoke_refuses_a_spilling_or_missing_flash_kernel(spill, kernels, refused):
+@pytest.mark.parametrize("spill,dq_spill,dq_f32_spill,kernels,refused", [
+    (0, 0, 0, ("flash_fwd_kernel",), None),
+    (16, 0, 0, ("flash_fwd_kernel",), "spills"),
+    (0, 0, 0, ("flash_fwd_kernel", "flash_bwd_dkv_kernel"), "no instantiation"),
+    (0, 16, 0, ("flash_fwd_kernel", "flash_bwd_dq_kernel"), "flash_bwd_dq_kernel.*spills"),
+    (0, 0, 24, ("flash_fwd_kernel", "flash_bwd_dq_kernel"), None),
+], ids=["clean", "spills", "missing", "dq-spills", "dq-f32-spills-unmatched"])
+def test_chip_smoke_refuses_a_spilling_or_missing_flash_kernel(spill, dq_spill, dq_f32_spill,
+                                                               kernels, refused):
     """``chip_smoke.check_spills`` reads ptxas's report: a bf16 flash
-    kernel that spills, or one the report does not name, fails phase 1;
-    the f32 kernel (``flash_fwd_f32_kernel``, spilling here) is not matched
-    by the bf16 kernel's name."""
+    kernel that spills (the forward, or dQ), or one the report does not
+    name, fails phase 1; the f32 kernels (``flash_fwd_f32_kernel``,
+    ``flash_bwd_dq_f32_kernel``, spilling here) are not matched by the bf16
+    kernels' names."""
     chip_smoke = _load("chip_smoke", "chip_smoke.py")
-    report = _PTXAS.format(spill=spill)
+    report = _PTXAS.format(spill=spill, dq_spill=dq_spill, dq_f32_spill=dq_f32_spill)
     if refused is None:
         chip_smoke.check_spills(report, kernels)
     else:

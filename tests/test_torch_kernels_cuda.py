@@ -141,7 +141,8 @@ def test_engine_on_card_matches_engine_on_cpu(card):
 #: 3-stage ring): a non-causal Sk that wraps the ring several times with a
 #: ragged last tile and a kv_mask, the same with no mask (no tile masked),
 #: an Sq smaller than one CTA's rows (causal, q_offset > 0), and D=128 with
-#: Sq no multiple of the row tile
+#: Sq no multiple of the row tile; the bf16 dQ kernel (the forward's row
+#: tiles, 32-key tiles through a 3- or 2-stage ring) meets the same edges
 FLASH_CASES = [
     (2, 3, 128, 128, 64, True, False),
     (2, 3, 128, 128, 64, False, True),
@@ -297,6 +298,41 @@ def test_flash_fwd_on_card_takes_any_scale(card, dtype):
         torch.testing.assert_close(out.float(), want_out.float(), atol=atol, rtol=rtol)
         torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
         assert _rel_l2(out, want_out) <= FLASH_FWD_REL_L2[dtype], (scale, _rel_l2(out, want_out))
+
+
+@pytest.mark.cuda
+def test_flash_bwd_dq_on_card_is_bitwise_repeatable(card):
+    """The dQ kernel alone at the training shape (B=8 H=12 S=1024 D=64,
+    causal, bf16): no atomics, so two launches give the same bits."""
+    rng = np.random.default_rng(7)
+    q, k, v, _, dout = _flash_inputs(rng, card, torch.bfloat16, 8, 12, 1024, 1024, 64, False)
+    out, lse = fa.flash_fwd(q, k, v, causal=True)
+    first = fa.flash_bwd_dq(q, k, v, None, out, lse, dout, causal=True)
+    second = fa.flash_bwd_dq(q, k, v, None, out, lse, dout, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert first.abs().sum()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_bwd_on_card_takes_any_scale(card, dtype):
+    """dq, dk and dv at a negative and a zero scale (p from an LSE that is
+    final, so no max to keep) against the plain version, elementwise and
+    by relative L2 error."""
+    rng = np.random.default_rng(8)
+    q, k, v, mask, dout = _flash_inputs(rng, card, dtype, 2, 2, 150, 150, 64, True)
+    atol, rtol = (1e-4, 1e-4) if dtype == torch.float32 else TOLS[dtype]
+    for scale in (-0.3, 0.0):
+        out, lse = fa.flash_fwd(q, k, v, mask, causal=True, sm_scale=scale)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, mask, out, lse, dout, causal=True, sm_scale=scale)
+        dq = fa.flash_bwd_dq(q, k, v, mask, out, lse, dout, causal=True, sm_scale=scale)
+        want = fa.flash_attention_bwd_plain(q, k, v, mask, out, lse, dout, causal=True,
+                                            sm_scale=scale)
+        for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+            torch.testing.assert_close(got.float(), w.float(), atol=atol, rtol=rtol,
+                                       msg=lambda m: f"{name} scale {scale}: {m}")
+            assert _rel_l2(got, w) <= FLASH_REL_L2[dtype], (name, scale, _rel_l2(got, w))
 
 
 @pytest.mark.cuda
