@@ -87,12 +87,17 @@ when any phase fails:
    version and the product alone in ``torch.matmul``; dx also with w a
    contiguous [cin, cout] array and at a ragged M at its main shape, and
    its time split by kernel: the tiled product and the reduction (so are
-   dw's and the single-pass kernel's); the four kernels held to their
-   plain versions and the single-pass kernel timed against the dx + dw
+   the forward's, dw's and the single-pass kernel's); the four kernels
+   held to their plain versions and the single-pass kernel timed against the dx + dw
    pair at ResNet-50's four stage-0 configurations, ``CONV_BN_STAGE0``;
-   and the dw kernel held to its plain version and timed at the twelve
+   the dw kernel held to its plain version and timed at the twelve
    shapes of a step's 29 two-pass launches, ``CONV_BN_DW_SWEEP``, with
-   the launch-weighted sum.)
+   the launch-weighted sum; and the forward held to its plain version (y
+   also as relative L2 error, ``TOL["conv_bn/fwd/rel_l2/*"]``, beside a y
+   scaled by 1.01 that the gate must fail; a second call bitwise equal),
+   its time split into product and reduction, at the sixteen shapes of a
+   step's 36 forward launches, ``CONV_BN_FWD_SWEEP``, each tile width of
+   ``fwd_plan`` at its main shape, and the launch-weighted sum.)
 7. print the ``kernels`` JSON line (twelve entries: ``ln_matmul`` is the
    serving forward at M=8, ``ln_matmul_train`` the tiled forward at
    M=8192), then the ``ok`` line last.
@@ -226,6 +231,16 @@ TOL = {
     # 2.8e-3, a 30% error 0.3 and a dropped 64-deep stage of cout ~0.35
     "conv_bn/dx/float32": 1e-5,
     "conv_bn/dx/bfloat16": 1e-3,
+    # conv+BN forward's y beside its elementwise gate, relative L2 over the
+    # whole output, as for dx: the elementwise atol of 1e-2 lets a y off by
+    # a share of every small value pass. Both versions round h identically
+    # and y once from f32 sums taken in another order, so a y rounded to the
+    # other side of a tie is the whole difference (bf16), or summation order
+    # alone (f32). On an H100 (PERF.md) the redesigned forward read at most
+    # 1.03e-4 (bf16) and 0 (f32); a y scaled by 1.01 (the printed control,
+    # which must fail the gate) reads 1.0e-2
+    "conv_bn/fwd/rel_l2/float32": 1e-5,
+    "conv_bn/fwd/rel_l2/bfloat16": 1e-3,
     # resnet50_imagenet training, B=256, every pass from the same weights
     # with non-zero bn3 scales (RESNET_BN3_SCALE). A step-1 gradient of
     # this 50-layer net at init is exponentially sensitive to rounding:
@@ -625,7 +640,7 @@ def ln_crossover(torch, np, rng) -> dict:
     as a caller gets it, its route read from the profiler's kernel names
     (the row-tile kernel below ``LN_TILED_MIN_M`` rows, the tiled pair from
     there; also checked one row below the threshold), beside the other
-    route, forced (one trace). Returns M -> device ms of (the row-tile
+    route, forced. Returns M -> device ms of (the row-tile
     kernel, the tiled pair)."""
     from distributed_tensorflow_tpu_torch.ops import fused_ln_matmul as fln
 
@@ -647,8 +662,7 @@ def ln_crossover(torch, np, rng) -> dict:
             raise SmokeFailure(f"ln_matmul at M={M} launched {sorted(got)}, want {sorted(want)}")
         if M in LN_CROSSOVER_M:
             other = fln._launch_fwd_rows if tiled else fln._launch_fwd_tiled
-            forced = cuda_ms(torch, [lambda a=a: other(*a) for a in args], iters=20,
-                             traces=1)["device_ms"]
+            forced = cuda_ms(torch, [lambda a=a: other(*a) for a in args], iters=20)["device_ms"]
             out[M] = (forced, routed["device_ms"]) if tiled else (routed["device_ms"], forced)
         del sets, args
     log(f"  crossover, n={n} bf16, the row-tile kernel vs the tiled pair (device ms): "
@@ -1055,20 +1069,23 @@ CONV_BN_MAIN = {"conv_bn_fwd": (802816, 64, 256, True),
 #: against the dx + dw pair on the same inputs
 CONV_BN_STAGE0 = [(802816, 64, 256, True), (802816, 64, 256, False),
                   (802816, 256, 64, False), (802816, 64, 64, False)]
-#: the backward wrappers' kernels, by the device name the profiler gives each
-CONV_PARTS = {"conv_bn_bwd_dx": {"product": "conv_bn_dx_kernel", "reduce": "reduce_kernel"},
+#: the wrappers' kernels, by the device name the profiler gives each
+CONV_PARTS = {"conv_bn_fwd": {"product": "conv_bn_fwd_kernel", "reduce": "reduce_kernel"},
+              "conv_bn_bwd_dx": {"product": "conv_bn_dx_kernel", "reduce": "reduce_kernel"},
               "conv_bn_bwd_dw": {"product": "conv_bn_dw_kernel", "reduce": "reduce_kernel"},
               "conv_bn_bwd_single": {"sweep": "conv_bn_single_kernel",
                                      "reduce": "reduce_kernel"}}
 
 
 def conv_launches(n: str, prologue: bool) -> dict:
-    """Launches a call of a conv+BN backward wrapper's kernels, for
-    ``cuda_ms``: the product once, and ``reduce_kernel`` once for each sum
-    of G partials (dw; dscale and dshift with the prologue)."""
+    """Launches a call of a conv+BN wrapper's kernels, for ``cuda_ms``
+    (every call here emits the statistics): the product once, and
+    ``reduce_kernel`` once for each sum of G partials (the forward's sum and
+    sumsq; dw; dscale and dshift with the prologue)."""
     product = next(k for p, k in CONV_PARTS[n].items() if p != "reduce")
-    reduces = {"conv_bn_bwd_dx": 0, "conv_bn_bwd_dw": 1, "conv_bn_bwd_single": 1}[n]
-    reduces += 2 * (prologue and n != "conv_bn_bwd_dw")
+    reduces = {"conv_bn_fwd": 2, "conv_bn_bwd_dx": 0, "conv_bn_bwd_dw": 1,
+               "conv_bn_bwd_single": 1}[n]
+    reduces += 2 * (prologue and n in ("conv_bn_bwd_dx", "conv_bn_bwd_single"))
     return {product: 1, "reduce_kernel": reduces} if reduces else {product: 1}
 
 #: (M, cin, cout, prologue, launches a step): the twelve shapes of ResNet-50's
@@ -1079,6 +1096,14 @@ CONV_BN_DW_SWEEP = [
     (200704, 512, 128, False, 3), (200704, 512, 256, False, 1), (50176, 512, 1024, False, 1),
     (50176, 256, 1024, True, 6), (50176, 1024, 256, False, 5), (50176, 1024, 512, False, 1),
     (12544, 1024, 2048, False, 1), (12544, 512, 2048, True, 3), (12544, 2048, 512, False, 2),
+]
+#: (M, cin, cout, prologue, launches a step): the sixteen shapes of
+#: ResNet-50's 36 forward launches at batch 256 (resnet_launch_rule): the
+#: four stage-0 convs of the single-pass backward, then the convs of the
+#: two-pass dw sweep, each held to the plain forward and timed
+CONV_BN_FWD_SWEEP = [
+    (802816, 64, 64, False, 1), (802816, 64, 256, True, 3), (802816, 64, 256, False, 1),
+    (802816, 256, 64, False, 2), *CONV_BN_DW_SWEEP,
 ]
 #: rows cut from the dx main shape's M for its ragged-M check (the dx tile
 #: is 128 rows)
@@ -1104,7 +1129,7 @@ def conv_bn_bound_ms(c, kind, dtype_name) -> tuple[float, str]:
     f32; single: both), and 2*M*cin*cout operations per product (one, one,
     one, two)."""
     M, cin = c["x"].shape
-    cout = c["dy"].shape[1]
+    cout = c["dy"].shape[1] if "dy" in c else c["w"].shape[1]
     e = c["x"].element_size()
     aff = 8 * cin if c["scale"] is not None else 0
     mat = {"fwd": (M * cin * e + cin * cout * e + aff, M * cout * e + 8 * cout, 1),
@@ -1116,6 +1141,85 @@ def conv_bn_bound_ms(c, kind, dtype_name) -> tuple[float, str]:
     t_bytes = (mat[0] + mat[1]) / HBM_BYTES_PER_S
     t_ops = mat[2] * 2 * M * cin * cout / PEAK_OPS[dtype_name]
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def check_fwd_y(torch, name, got, want, dn) -> float:
+    """The forward's y against the plain version's: elementwise within
+    ``TOL["conv_bn/<dn>"]`` and relative L2 within
+    ``TOL["conv_bn/fwd/rel_l2/<dn>"]``, beside a y scaled by 1.01 that the
+    relative-L2 gate must fail. Returns the largest absolute error."""
+    err = check_close(torch, name, got, want, TOL[f"conv_bn/{dn}"])
+    lim, l2 = TOL[f"conv_bn/fwd/rel_l2/{dn}"], rel_l2(got, want)
+    control = rel_l2(got.float() * 1.01, want)
+    log(f"  {name}: relative L2 {l2:.2e} (tol {lim:g}); control, y x 1.01: {control:.2e}")
+    if l2 > lim:
+        raise SmokeFailure(f"{name}: y is off by {l2:.3e} relative L2")
+    if control <= lim:
+        raise SmokeFailure(f"{name}: the relative-L2 gate passes y x 1.01")
+    return err
+
+
+def fwd_sweep(torch, fcb) -> dict:
+    """The forward wrapper at each shape of ``CONV_BN_FWD_SWEEP`` (bf16,
+    inputs drawn on the card from seed 10), held to the plain forward (y by
+    ``check_fwd_y``, the statistics by relative L2 within
+    ``TOL["conv_bn/reduction/bfloat16"]``, a second call bitwise equal) and
+    timed (device ms, profiler, split by kernel) beside ``x@w`` in
+    ``torch.matmul`` and the bound; at the main shape also each tile width
+    of ``fwd_plan``. Returns the rows, the launch-weighted sum of a step's
+    forward time and the largest absolute error of y."""
+    gen = torch.Generator(device=DEVICE).manual_seed(10)
+    lim = TOL["conv_bn/reduction/bfloat16"]
+    rows, total, err = [], 0.0, 0.0
+    for M, cin, cout, prologue, n in CONV_BN_FWD_SWEEP:
+        def f(*shape):
+            return torch.randn(*shape, generator=gen, device=DEVICE)
+        c = dict(x=f(M, cin).to(torch.bfloat16),
+                 w=(f(cout, cin) / cin ** 0.5).to(torch.bfloat16).t(),  # the OIHW view
+                 scale=1 + 0.2 * f(cin) if prologue else None,
+                 shift=0.2 * f(cin) if prologue else None)
+        args = (c["x"], c["w"], c["scale"], c["shift"])
+        tag = f"M={M} {cin}->{cout} {'bn+relu' if prologue else 'no prologue'}"
+        y, s, q = fcb.conv1x1_bn_fwd(*args)
+        wy, wsum, wsq = fcb.conv1x1_bn_act_plain(*args)
+        err = max(err, check_fwd_y(torch, f"conv_bn_fwd/y {tag}", y, wy, "bfloat16"))
+        red = max(rel_l2(s, wsum), rel_l2(q, wsq))
+        if red > lim:
+            raise SmokeFailure(f"conv_bn_fwd {tag}: the statistics are off by {red:.3e}")
+        if not all(torch.equal(a, b) for a, b in zip((y, s, q), fcb.conv1x1_bn_fwd(*args))):
+            raise SmokeFailure(f"conv_bn_fwd {tag}: a second call is not bitwise equal")
+        each = conv_launches("conv_bn_fwd", prologue)
+        tk = cuda_ms(torch, [lambda: fcb.conv1x1_bn_fwd(*args)], iters=20, launches=each)
+        lib = cuda_ms(torch, [lambda: torch.matmul(c["x"], c["w"])], iters=20)["device_ms"]
+        bound, by = conv_bn_bound_ms(c, "fwd", "bfloat16")
+        sms = fcb._sms(c["x"].device)
+        row = dict(M=M, cin=cin, cout=cout, prologue=prologue, launches=n, ms=tk["device_ms"],
+                   split=kernel_split(tk["by_name"], CONV_PARTS["conv_bn_fwd"], "conv_bn_fwd"),
+                   library_ms=lib, bound_ms=bound, bound_by=by, rel_l2=rel_l2(y, wy),
+                   stats_rel_l2=red, plan=fcb.fwd_plan(M, cin, cout, sms, fcb.fwd_tile()))
+        plan = f", tile {row['plan']['tile'][0]}x{row['plan']['tile'][1]} G={row['plan']['G']}"
+        if (M, cin, cout, prologue) == CONV_BN_MAIN["conv_bn_fwd"]:
+            row["widths"] = {}
+            for wd in fcb.FWD_WIDTHS:
+                with mock.patch.object(fcb, "FWD_WIDTHS", (wd,)):
+                    p = fcb.fwd_plan(M, cin, cout, sms, fcb.fwd_tile())
+                t = cuda_ms(torch, [lambda p=p: fcb._launch_fwd(*args, True, True, p)],
+                            iters=20, launches=each)["device_ms"]
+                row["widths"][f"{p['tile'][0]}x{p['tile'][1]} G={p['G']}"] = t
+            plan += "; each width at its plan: " + ", ".join(
+                f"{k} {t:.5f}" for k, t in row["widths"].items())
+        rows.append(row)
+        total += n * row["ms"]
+        ms = row["ms"]
+        log(f"    fwd {tag} x{n}: kernel_ms={ms:.5f} (device ms by kernel "
+            f"{fmt_split(row['split'])}) x@w_ms={lib:.5f} bound_ms={bound:.5f} ({by}, "
+            f"{bound / ms:.1%} of it; {2 * M * cin * cout / ms / 1e9:.1f} TFLOP/s); statistics "
+            f"relative L2 {red:.2e} (tol {lim:g}){plan}")
+        del c, args, y, s, q, wy, wsum, wsq
+        torch.cuda.empty_cache()
+    log(f"  forward over a ResNet-50 step's {sum(r['launches'] for r in rows)} launches (sum "
+        f"of launches x kernel_ms): {total:.4f} ms")
+    return {"rows": rows, "step_ms": total, "err": err}
 
 
 def dw_sweep(torch, fcb) -> dict:
@@ -1210,7 +1314,7 @@ def phase_conv_bn(torch, np):
         torch.cuda.synchronize()
         wy, ws, wq = fcb.conv1x1_bn_act_plain(c["x"], c["w"], *aff)
         ref = fcb.conv1x1_bn_bwd_plain(*bwd)
-        errs = {"conv_bn_fwd": [check_close(torch, f"conv_bn_fwd/y {tag}", y, wy, tol)]}
+        errs = {"conv_bn_fwd": [check_fwd_y(torch, f"conv_bn_fwd/y {tag}", y, wy, dn)]}
         reds = {"sum": rel_l2(s, ws), "sumsq": rel_l2(q, wq)}
         errs["conv_bn_bwd_dx"] = [check_close(torch, f"conv_bn_bwd_dx/dx {tag}", dx, ref[0], tol)]
         control = None
@@ -1241,8 +1345,10 @@ def phase_conv_bn(torch, np):
         for n, e in errs.items():
             results[n]["err"] = max(results[n]["err"], *e)
         # bitwise repeat: the reductions use no float atomics
-        if timed and not (torch.equal(y, fcb.conv1x1_bn_fwd(c["x"], c["w"], *aff)[0])
-                          and torch.equal(dw, fcb.conv1x1_bn_bwd_dw(
+        if not all(torch.equal(a, b) for a, b in zip((y, s, q), fcb.conv1x1_bn_fwd(
+                c["x"], c["w"], *aff))):
+            raise SmokeFailure(f"conv_bn_fwd {tag}: a second call is not bitwise equal")
+        if timed and not (torch.equal(dw, fcb.conv1x1_bn_bwd_dw(
                               c["x"], y, c["dy"], *aff, c["dsum"], c["dssq"]))
                           and torch.equal(dx, fcb.conv1x1_bn_bwd_dx(*bwd)[0])
                           and (single is None
@@ -1297,18 +1403,15 @@ def phase_conv_bn(torch, np):
                  "bwd": cuda_ms(torch, [lambda: fcb.conv1x1_bn_bwd_plain(*bwd)], iters=10,
                                 warmup=2)}
         for n, fn in kern.items():
-            tk = cuda_ms(torch, [fn], iters=20,
-                         launches=conv_launches(n, prologue) if n in CONV_PARTS else None)
+            tk = cuda_ms(torch, [fn], iters=20, launches=conv_launches(n, prologue))
             tl = cuda_ms(torch, [lib[n]], iters=20)
             kind = n.split("_")[-1]
             row = dict(M=M, cin=cin, cout=cout, prologue=prologue, ms=tk["device_ms"],
                        call_ms=tk["call_ms"], library_ms=tl["device_ms"],
                        plain_ms=plain["fwd" if kind == "fwd" else "bwd"]["device_ms"])
             row["bound_ms"], row["bound_by"] = conv_bn_bound_ms(c, kind, "bfloat16")
-            split = ""
-            if n in CONV_PARTS:
-                row["split"] = kernel_split(tk["by_name"], CONV_PARTS[n], n)
-                split = f"; device ms by kernel {fmt_split(row['split'])}"
+            row["split"] = kernel_split(tk["by_name"], CONV_PARTS[n], n)
+            split = f"; device ms by kernel {fmt_split(row['split'])}"
             results[n]["rows"].append(row)
             log(f"    {n} M={M} {cin}->{cout}: kernel_ms={row['ms']:.5f} "
                 f"plain_ms={row['plain_ms']:.5f} library_ms={row['library_ms']:.5f} "
@@ -1345,6 +1448,10 @@ def phase_conv_bn(torch, np):
     log("  dw at the twelve shapes of ResNet-50's two-pass launches at batch 256 (bf16; device "
         "ms, profiler)")
     results["conv_bn_bwd_dw"]["sweep"] = dw_sweep(torch, fcb)
+    log("  the forward at the sixteen shapes of ResNet-50's 36 forward launches at batch 256 "
+        "(bf16; device ms, profiler)")
+    sweep = results["conv_bn_fwd"]["sweep"] = fwd_sweep(torch, fcb)
+    results["conv_bn_fwd"]["err"] = max(results["conv_bn_fwd"]["err"], sweep["err"])
     for n in names:  # comparison launches do not count
         fcb.KERNELS[n].launches = before[n]
     for n in names:
@@ -2315,7 +2422,8 @@ def main() -> int:
         f"{resnet['compare']['f32']['median']:.3e}, worst {resnet['compare']['f32']['worst']:.3e}; "
         f"conv_bn timed shapes: {CONV_BN_MAIN} (library_ms: the product alone, x@w, g@w^T, "
         f"h^T@g, both for single); dw over the step's two-pass shapes (sum of launches x "
-        f"kernel ms): {conv_bn['conv_bn_bwd_dw']['sweep']['step_ms']:.4f} ms")
+        f"kernel ms): {conv_bn['conv_bn_bwd_dw']['sweep']['step_ms']:.4f} ms; the forward over "
+        f"the step's 36 launches: {conv_bn['conv_bn_fwd']['sweep']['step_ms']:.4f} ms")
     log(f"cuda_ms traces kept {PAD_RECORDS[0]} of the {PAD_RECORDS[1]} spin-kernel records "
         f"that opened them")
     log(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s (builds included)")

@@ -93,9 +93,12 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
     # w as (pointer, stride_k, stride_n); M, cin, cout, G (partial chunks),
     # prologue, relu, stats; stream
     "fused_conv_bn": {
-        # x, w, sk, sn, scale, shift, y, ws, sum, ssq
-        **{f"conv_bn_fwd_{s}": (_c_void_p,) * 2 + _W_STRIDES + (_c_void_p,) * 6 + _CONV_TAIL
-           for s in ("f32", "bf16")},
+        # x, w, sk, sn, scale, shift, y, ws, sum, ssq; M, cin, cout, G, the
+        # tile's columns of cout, prologue, relu, stats; stream
+        **{f"conv_bn_fwd_{s}": (_c_void_p,) * 2 + _W_STRIDES + (_c_void_p,) * 6 + (_c_int,)
+           + _CONV_TAIL for s in ("f32", "bf16")},
+        # 0, 1 -> the forward tile's rows of M, CTAs an SM
+        "conv_bn_fwd_tile": (_c_int,),
         # x, y, dy, w, sk, sn, scale, shift, dsum, dssq, dx, ws, dscale, dshift
         **{f"conv_bn_bwd_dx_{s}": (_c_void_p,) * 4 + _W_STRIDES + (_c_void_p,) * 8
            + _CONV_TAIL for s in ("f32", "bf16")},

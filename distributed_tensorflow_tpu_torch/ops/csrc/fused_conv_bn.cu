@@ -30,9 +30,24 @@
 // tensor is never written), the statistics are summed from the y tile in
 // shared memory (y is never read back), and the backward recomputes h from
 // x. Products are mma.sync m16n8k16 bf16 tiles (f32 inputs: the same tile
-// loops on CUDA cores, for checks). The forward kernel is the first, simple
-// design: 64x64 tiles, 4 warps, synchronous 16-byte staging, no cp.async
-// pipelining, no wgmma.
+// loops on CUDA cores, for checks). All four kernels are built on
+// tile_mma.cuh (the cp.async ring, ldmatrix, the mma.sync warp tile).
+//
+// The forward kernel: y = h w is a 2-D tiled product, each CTA 128 rows of
+// M x BN columns of cout (BN 64, 128 or 256: the wrapper's plan takes the
+// width that pads cout least), 8 warps of 64 x BN/4 register tiles,
+// contracted over cin through a cp.async.cg ring of 128-byte stages (ragged
+// edges zero-filled). w lands as it lies (ldmatrix for the OIHW view,
+// ldmatrix.trans for a contiguous [cin, cout] w), once for the CTA's sweep
+// when cin fits one stage; h = prologue(x) is written over the staged x
+// behind one barrier, rows past M left zero. One persistent CTA an SM
+// takes its M tiles in turn as one sequence of stages, so the next tile's
+// stages load during this tile's epilogue; the epilogue rounds the
+// accumulators, passes each warp's rows of y through a shared buffer for
+// 16-byte stores and keeps the column sums of the rounded y and of its
+// squares in registers across the CTA's tiles. What bounds it at each
+// shape is in PERF.md: at stage 0 HBM (68-76% of the byte bound), past it
+// the per-stage chain of one CTA of 8 warps an SM (150-270 TFLOP/s).
 //
 // The dw kernel is built on tile_mma.cuh as LN+matmul's dw is: dw = h^T g
 // is a 2-D tiled product, each CTA a 128 x BN block of dw (rows of cin x
@@ -83,8 +98,8 @@
 // are dealt to G chunks (chunk c takes tiles c, c+G, ...; in the dw kernel a
 // contiguous range of row blocks), each CTA writes its chunk's partial to a
 // workspace, and reduce_kernel sums the G partials of each output in chunk
-// order. G is a function of the shapes and, but for the forward's, the
-// card's SM count (the wrapper's), so a step is bitwise repeatable run to run.
+// order. G is a function of the shapes and the card's SM count (the
+// wrapper's), so a step is bitwise repeatable run to run.
 //
 // Layout requirements (the wrapper checks, the launchers re-check): cin and
 // cout multiples of 8; x, y, dy, dx contiguous with 16-byte aligned bases; w
@@ -99,13 +114,6 @@
 
 namespace {
 
-// the forward kernel's CTA and tile
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int BM = 16 * kWarps;  // rows of an M tile, 16 per warp
-constexpr int BN = 64;           // columns of a tile: 8 m16n8 fragments per warp
-constexpr int BK = 64;           // depth of one staged chunk
-constexpr int NT = BN / 8;
 constexpr size_t kSmemMax = 232448;  // the shared memory one CTA may hold (227 KB)
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -123,75 +131,7 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-// row pitch of a row-major shared tile of n columns: 16 bytes of padding
-template <typename T>
-__host__ __device__ constexpr int pad_ld(int n) { return n + 16 / (int)sizeof(T); }
 __host__ __device__ constexpr int round_up(int a, int m) { return (a + m - 1) / m * m; }
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat16 v) {
-  return (uint32_t)__bfloat16_as_ushort(v);
-}
-
-// two bf16 values at a[0] and a[s] in one register, the lower index in the
-// lower half (the mma fragment order)
-__device__ __forceinline__ uint32_t pair(const __nv_bfloat16* a, int s) {
-  return s == 1 ? *reinterpret_cast<const uint32_t*>(a) : (bits(a[0]) | (bits(a[s]) << 16));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// One warp: acc (16 x BN, m16n8 fragments) += A (16 x K) * B (K x BN), both in
-// shared memory: A(m, k) = a[m*am + k*ak], B(k, n) = b[n*bn + k*bk]; K a
-// multiple of 16. Fragment layout (PTX m16n8k16): g = lane / 4, t = lane % 4;
-// acc[j] holds rows g and g + 8, columns 8j + 2t and 8j + 2t + 1.
-__device__ __forceinline__ void warp_mma(float (&acc)[NT][4], const __nv_bfloat16* a, int am,
-                                         int ak, const __nv_bfloat16* b, int bn, int bk, int K,
-                                         int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  for (int kc = 0; kc < K; kc += 16) {
-    const int k0 = kc + 2 * t;
-    uint32_t af[4];
-    af[0] = pair(a + g * am + k0 * ak, ak);
-    af[1] = pair(a + (g + 8) * am + k0 * ak, ak);
-    af[2] = pair(a + g * am + (k0 + 8) * ak, ak);
-    af[3] = pair(a + (g + 8) * am + (k0 + 8) * ak, ak);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const __nv_bfloat16* bj = b + (8 * j + g) * bn;
-      mma_bf16(acc[j], af, pair(bj + k0 * bk, bk), pair(bj + (k0 + 8) * bk, bk));
-    }
-  }
-}
-
-// The same tile product in f32 on CUDA cores, in the same fragment layout.
-__device__ __forceinline__ void warp_mma(float (&acc)[NT][4], const float* a, int am, int ak,
-                                         const float* b, int bn, int bk, int K, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  for (int k = 0; k < K; ++k) {
-    const float a0 = a[g * am + k * ak], a1 = a[(g + 8) * am + k * ak];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const float b0 = b[(8 * j + 2 * t) * bn + k * bk];
-      const float b1 = b[(8 * j + 2 * t + 1) * bn + k * bk];
-      acc[j][0] = fmaf(a0, b0, acc[j][0]);
-      acc[j][1] = fmaf(a0, b1, acc[j][1]);
-      acc[j][2] = fmaf(a1, b0, acc[j][2]);
-      acc[j][3] = fmaf(a1, b1, acc[j][3]);
-    }
-  }
-}
-
-__device__ __forceinline__ void zero(float (&acc)[NT][4]) {
-#pragma unroll
-  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-}
 
 // The previous BatchNorm's affine (+ReLU) of one f32 value: the product
 // rounded, then the sum, as the plain version computes it (a contracted fma
@@ -201,134 +141,248 @@ __device__ __forceinline__ float bn_act(float v, float scale, float shift, bool 
   return relu ? fmaxf(h, 0.f) : h;
 }
 
-// The previous BatchNorm's affine (+ReLU), applied to one f32 value of
-// column c; the identity when off.
+// The previous BatchNorm's per-cin affine (+ReLU); off: the identity.
 struct Prologue {
   const float* scale;
   const float* shift;
   bool on, relu;
-  __device__ __forceinline__ float operator()(float v, int c) const {
-    return on ? bn_act(v, scale[c], shift[c], relu) : v;
-  }
 };
 
-// Stage the [rows x cols] window at (r0, c0) of a row-major [R, C] matrix into
-// shared memory as f(value, column), rounded to T, at dst[r*ld + c].
-// Elements outside [R, C) are zero (f is not applied to them). 16-byte
-// loads: cols and C are multiples of the vector.
-template <typename T, typename F>
-__device__ __forceinline__ void stage(T* dst, int ld, const T* __restrict__ src, int R, int C,
-                                      int r0, int c0, int rows, int cols, F f) {
-  constexpr int V = 16 / sizeof(T);
-  const int vpr = cols / V;
-  for (int i = threadIdx.x; i < rows * vpr; i += kThreads) {
-    const int r = i / vpr, c = (i - r * vpr) * V;
-    const int gr = r0 + r, gc = c0 + c;
-    uint4 out = make_uint4(0u, 0u, 0u, 0u);
-    T* e = reinterpret_cast<T*>(&out);
-    if (gr < R && gc < C) {
-      const uint4 v = *reinterpret_cast<const uint4*>(src + (size_t)gr * C + gc);
-      const T* s = reinterpret_cast<const T*>(&v);
-#pragma unroll
-      for (int j = 0; j < V; ++j) e[j] = from_f32<T>(f(to_f32(s[j]), gc + j));
-    }
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = out;
-  }
-}
-
-// Stage B(k, n) = w[k*sk + n*sn] for k in [k0, k0+nk), n in [n0, n0+nn) as
-// dst[n*ld + (k - k0)] (k contiguous: the fragment loads read it 32 bits at
-// a time); zero outside [K, N). 16-byte loads along w's unit-stride dim.
+// h = [relu](x*scale + shift) on one staged chunk of V columns, in place in
+// x's slot: f32 math and one rounding to T (sc, sh: the chunk's scale, shift)
 template <typename T>
-__device__ __forceinline__ void stage_w(T* dst, int ld, const T* __restrict__ w, long long sk,
-                                        long long sn, int K, int N, int k0, int n0, int nk,
-                                        int nn) {
+__device__ __forceinline__ void h_chunk(T* p, const float* sc, const float* sh, bool relu) {
   constexpr int V = 16 / sizeof(T);
-  if (sk == 1) {
-    const int vpr = nk / V;
-    for (int i = threadIdx.x; i < nn * vpr; i += kThreads) {
-      const int n = i / vpr, k = (i - n * vpr) * V;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (n0 + n < N && k0 + k < K)
-        v = *reinterpret_cast<const uint4*>(w + (size_t)(n0 + n) * sn + k0 + k);
-      *reinterpret_cast<uint4*>(dst + n * ld + k) = v;
-    }
-  } else {
-    const int vpr = nn / V;
-    for (int i = threadIdx.x; i < nk * vpr; i += kThreads) {
-      const int k = i / vpr, n = (i - k * vpr) * V;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (k0 + k < K && n0 + n < N)
-        v = *reinterpret_cast<const uint4*>(w + (size_t)(k0 + k) * sk + n0 + n);
-      const T* e = reinterpret_cast<const T*>(&v);
+  uint4 a = *reinterpret_cast<const uint4*>(p);
+  T* e = reinterpret_cast<T*>(&a);
 #pragma unroll
-      for (int j = 0; j < V; ++j) dst[(n + j) * ld + k] = e[j];
-    }
-  }
+  for (int q = 0; q < V; ++q) e[q] = from_f32<T>(bn_act(to_f32(e[q]), sc[q], sh[q], relu));
+  *reinterpret_cast<uint4*>(p) = a;
 }
 
 // ---------------------------------------------------------------------------
 // forward: y = prologue(x) @ w, statistics of the rounded y
 // ---------------------------------------------------------------------------
 
-// grid (cout tiles, G). CTA (n, c) computes columns n*BN.. of y for the M
-// tiles c, c+G, ...; its running column sums go to ws[0/1][c][cout].
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// The ring of the forward kernel (tile_mma.cuh's machinery). A CTA owns a
+// tile::BM x BN output tile (rows of M x columns of cout; BN 64, 128 or
+// 256, the wrapper's plan); 8 warps (2 x 4), each a 64 x BN/4 register
+// tile. A stage is STAGE_BYTES deep along cin and holds x's tile As
+// [BM][LDA] (cin contiguous; rewritten in place as h with the prologue),
+// w's tile as it lies: Ws[BN][LDK] for the OIHW view (cin contiguous, sk
+// == 1; ldmatrix) or Ws[BK][LDN] for a contiguous [cin, cout] w (sn == 1;
+// ldmatrix.trans), then the stage's scale [BK] and shift [BK] f32 (copied
+// only with the prologue). After the ring lie w's resident tile and the
+// warps' y buffers [16][LDY].
+//
+// Two levers, each measured on an H100 (PERF.md; tools/conv_fwd_turns.py
+// flips them): Y_VIA_SMEM passes each warp's rounded 16-row slice of y
+// through its buffer for 16-byte stores of whole rows (two-column stores
+// from the registers took 2.08x the time at 64->256, where y is 80% of the
+// bytes); W_RESIDENT keeps w's tile in shared memory for the CTA's whole
+// sweep when cin fits one stage, so the ring carries x alone (6.7% faster
+// at 64->256, a wash elsewhere). As many bf16 stages as the 227 KB a CTA
+// may hold take beside them, at most 4: 128 x 256 is 55,808 bytes a stage,
+// so 3; 128 x 128 (37,376) and 128 x 64 (28,160) take 4. f32 (checks
+// only, never timed): 2 stages of 32 of cin. One CTA an SM.
+constexpr int kFwdCtasPerSm = 1;
+
+template <typename T, int BN_>
+struct Fwd {
+  static constexpr bool W_RESIDENT = true;
+  static constexpr bool Y_VIA_SMEM = true;
+  static constexpr int V = 16 / sizeof(T);
+  static constexpr int BN = BN_;
+  static constexpr int WN = BN / 4;
+  static constexpr int NJ = WN / 8;
+  static constexpr int BK = tile::STAGE_BYTES / sizeof(T);
+  static constexpr int LDA = tile::pad_ld<T>(BK), LDK = tile::pad_ld<T>(BK);
+  static constexpr int LDN = tile::pad_ld<T>(BN), LDY = tile::pad_ld<T>(WN);
+  static constexpr int A_ELEMS = tile::BM * LDA;
+  static constexpr int B_ELEMS = BN * LDK > BK * LDN ? BN * LDK : BK * LDN;
+  static constexpr size_t STAGE = sizeof(T) * (A_ELEMS + B_ELEMS) + sizeof(float) * 2 * BK;
+  // after the ring: w's resident tile, then the warps' y buffers
+  static constexpr size_t W_BYTES = W_RESIDENT ? sizeof(T) * B_ELEMS : 0;
+  static constexpr size_t Y_BYTES = Y_VIA_SMEM ? sizeof(T) * tile::WARPS * 16 * LDY : 0;
+  static constexpr int FIT = (int)((kSmemMax - W_BYTES - Y_BYTES) / STAGE);
+  static constexpr int STAGES = sizeof(T) == 2 ? (FIT < 4 ? FIT : 4) : 2;
+  static constexpr size_t SMEM = STAGE * STAGES + W_BYTES + Y_BYTES;
+  // the prologue pass: 16-byte chunks a row of x's slot
+  static constexpr int P = BK / V;
+  static_assert(STAGES >= 2 && STAGES <= FIT && STAGE % 16 == 0, "a ring of two stages or more");
+  static_assert(4 * WN == BN && NJ % 2 == 0, "8 warps of 64 x WN");
+  static_assert(tile::THREADS % P == 0 && tile::BM * P % tile::THREADS == 0 &&
+                    2 * BK / 4 <= tile::THREADS,
+                "each thread rewrites whole rows' chunks in fixed columns; one copies scale");
+  static_assert(4 * BN * sizeof(float) <= STAGE * STAGES, "the statistics' scratch");
+};
+
+// a, b rounded to T in place and, if store, written to p as a two-column pair
+__device__ __forceinline__ void round_store2(float* p, float& a, float& b, bool store) {
+  if (store) store2(p, a, b);
+}
+__device__ __forceinline__ void round_store2(__nv_bfloat16* p, float& a, float& b, bool store) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  if (store) *reinterpret_cast<__nv_bfloat162*>(p) = h;
+  const float2 r = __bfloat1622float2(h);
+  a = r.x, b = r.y;
+}
+
+// grid (cout tiles, G), cout tiles fastest so the CTAs that read the same x
+// rows run side by side: CTA (n, c) writes columns n*BN.. of y for the M
+// tiles c, c+G, ... The CTA's stages of all its tiles form one sequence
+// through the ring, so the next tile's stages load while this tile's
+// epilogue runs (at cin <= 64, a tile is one stage, and w's tile is
+// resident). Each thread rewrites the same columns of every stage as h,
+// behind one barrier, with the stage's scale and shift. Rows past M and
+// columns past cin stay the zero fill (relu(shift) != 0 would put those
+// rows into the statistics). The epilogue works on the accumulators: each
+// pair is rounded to T, written to the warp's y buffer (16 rows at a time,
+// then copied out in 16-byte chunks of whole rows) and summed (and
+// squared) into the lane's running sums of its columns over every tile; at
+// the end those are added over the warp's rows (shuffles), then the two
+// row-warps in order into ws[0/1][c][cout].
+template <typename T, int BN>
+__global__ void __launch_bounds__(tile::THREADS, kFwdCtasPerSm)
 conv_bn_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, long long sk, long long sn,
-                   Prologue pro, T* __restrict__ y, float* __restrict__ ws, int M, int K, int N,
-                   int G, bool stats) {
-  constexpr int LD = pad_ld<T>(BK);  // BK == BN: one pitch for the A, B and y tiles
+                   Prologue pro, T* __restrict__ y, float* __restrict__ ws, int M, int cin,
+                   int cout, int G, bool stats) {
+  using S = Fwd<T, BN>;
+  constexpr int V = S::V, BK = S::BK, BM = tile::BM, P = S::P, NJ = S::NJ, WN = S::WN;
+  constexpr int STAGES = S::STAGES, THREADS = tile::THREADS;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* As = reinterpret_cast<T*>(smem);  // [BM][LD] prologue(x) chunk, then the rounded y tile
-  T* Bs = As + BM * LD;                // [BN][LD] w chunk, B(k, n) at Bs[n*LD + k]
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int n0 = blockIdx.x * BN, mtiles = (M + BM - 1) / BM;
-  const int q = tid / BN, col = tid % BN;  // this thread's running sum (q 0) or sum of squares (q 1)
-  constexpr int V = 16 / sizeof(T);
-  float run = 0.f;
-  for (int mt = blockIdx.y; mt < mtiles; mt += G) {
-    const int r0 = mt * BM;
-    float acc[NT][4];
-    zero(acc);
-    for (int k0 = 0; k0 < K; k0 += BK) {
-      __syncthreads();
-      stage<T>(As, LD, x, M, K, r0, k0, BM, BK, [=](float v, int c) { return pro(v, c); });
-      stage_w<T>(Bs, LD, w, sk, sn, K, N, k0, n0, BK, BN);
-      __syncthreads();
-      warp_mma(acc, As + warp * 16 * LD, LD, 1, Bs, LD, 1, min(BK, round_up(K - k0, 16)), lane);
+  T* Wr = reinterpret_cast<T*>(smem + STAGES * S::STAGE);  // w's resident tile
+  const int n0 = blockIdx.x * BN, c = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int wm = (warp & 1) * 64, wn = (warp >> 1) * WN;
+  const int mtiles = (M + BM - 1) / BM, nk = (cin + BK - 1) / BK;
+  const int tiles = c < mtiles ? (mtiles - 1 - c) / G + 1 : 0;
+  const int total = tiles * nk;  // the CTA's stages, all tiles in order
+  const bool kmajor = sk == 1;   // w's tile as it lies: Ws[BN][LDK], else Ws[BK][LDN]
+  const bool resident = S::W_RESIDENT && nk == 1;
+  auto load_w = [&](T* Ws, int k0) {
+    if (kmajor)
+      tile::copy_tile<T, BN * BK / V, BK / V>(Ws, S::LDK, w, sn, n0, cout, k0, cin);
+    else
+      tile::copy_tile<T, BK * BN / V, BN / V>(Ws, S::LDN, w, sk, k0, cin, n0, cout);
+  };
+  auto load = [&](int f) {  // stage f into its ring slot; past M, cin, cout zero-filled
+    T* As = reinterpret_cast<T*>(smem + f % STAGES * S::STAGE);
+    const int k0 = f % nk * BK;
+    tile::copy_tile<T, BM * BK / V, BK / V>(As, S::LDA, x, cin, (c + f / nk * G) * BM, M, k0, cin);
+    if (!resident) load_w(As + S::A_ELEMS, k0);
+    if (pro.on && threadIdx.x < 2 * BK / 4) {  // scale, then shift, 4 columns a thread
+      const int k = threadIdx.x % (BK / 4) * 4;
+      const bool ok = k0 + k < cin;  // cin is a multiple of 8: whole chunks
+      float* ss = reinterpret_cast<float*>(As + S::A_ELEMS + S::B_ELEMS);
+      tile::cp_async16(ss + threadIdx.x * 4,
+                       (threadIdx.x < BK / 4 ? pro.scale : pro.shift) + (ok ? k0 + k : 0), ok);
     }
-    __syncthreads();
-    {
-      const int g = lane >> 2, t = lane & 3;
-      T* cs = As + warp * 16 * LD;
+  };
+  if (resident) load_w(Wr, 0);  // rides in the first group
+  float acc[4][NJ][4], su[NJ][2], sq[NJ][2];
+  tile::zero(acc);
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int c = 8 * j + 2 * t;
-        cs[g * LD + c] = from_f32<T>(acc[j][0]);
-        cs[g * LD + c + 1] = from_f32<T>(acc[j][1]);
-        cs[(g + 8) * LD + c] = from_f32<T>(acc[j][2]);
-        cs[(g + 8) * LD + c + 1] = from_f32<T>(acc[j][3]);
-      }
-    }
-    __syncthreads();
-    const int rows = min(BM, M - r0);
-    for (int i = tid; i < rows * (BN / V); i += kThreads) {
-      const int r = i / (BN / V), c = (i % (BN / V)) * V;
-      if (n0 + c < N)
-        *reinterpret_cast<uint4*>(y + (size_t)(r0 + r) * N + n0 + c) =
-            *reinterpret_cast<const uint4*>(As + r * LD + c);
-    }
-    if (stats && n0 + col < N) {
-      float s = 0.f;
-      for (int r = 0; r < rows; ++r) {
-        const float v = to_f32(As[r * LD + col]);
-        s += q ? v * v : v;
-      }
-      run += s;
-    }
+  for (int j = 0; j < NJ; ++j) su[j][0] = su[j][1] = sq[j][0] = sq[j][1] = 0.f;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < total) load(s);
+    tile::cp_async_commit();
   }
-  if (stats && n0 + col < N) ws[((size_t)q * G + blockIdx.y) * N + n0 + col] = run;
+  // this thread's prologue chunks: columns hcol.. of a stage, rows hrow + u * THREADS / P
+  const int hcol = threadIdx.x % P * V, hrow = threadIdx.x / P;
+  for (int f = 0; f < total; ++f) {
+    const int kt = f % nk, m0 = (c + f / nk * G) * BM;
+    tile::cp_async_wait<STAGES - 2>();  // stage f has landed (this thread's copies)
+    __syncthreads();                    // ... everyone's; stage f - 1 is consumed
+    if (f + STAGES - 1 < total) load(f + STAGES - 1);
+    tile::cp_async_commit();
+    T* As = reinterpret_cast<T*>(smem + f % STAGES * S::STAGE);
+    const T* Ws = resident ? Wr : As + S::A_ELEMS;
+    if (pro.on) {
+      const float* ss = reinterpret_cast<const float*>(As + S::A_ELEMS + S::B_ELEMS);
+      float sc[V], sh[V];
+#pragma unroll
+      for (int q = 0; q < V; ++q) sc[q] = ss[hcol + q], sh[q] = ss[BK + hcol + q];
+#pragma unroll
+      for (int u = 0; u < BM * P / THREADS; ++u) {
+        const int r = hrow + u * (THREADS / P);
+        if (m0 + r < M) h_chunk(As + r * S::LDA + hcol, sc, sh, pro.relu);
+      }
+      __syncthreads();  // h is whole
+    }
+    if (kmajor)  // one copy of the loop per w layout: constant pitches
+      tile::warp_tile<NJ, false, BK>(acc, As, S::LDA, Ws, S::LDK, false, wm, wn, lane);
+    else
+      tile::warp_tile<NJ, false, BK>(acc, As, S::LDA, Ws, S::LDN, true, wm, wn, lane);
+    if (kt != nk - 1) continue;
+    // the epilogue of this tile, from the registers
+    T* Yw = reinterpret_cast<T*>(smem + STAGES * S::STAGE + S::W_BYTES) + warp * 16 * S::LDY;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wm + 16 * i + g + 8 * h, row = m0 + r;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const int col = wn + 8 * j + 2 * t;
+          float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
+          T* dst = S::Y_VIA_SMEM ? Yw + (g + 8 * h) * S::LDY + 8 * j + 2 * t
+                                 : y + (size_t)row * cout + n0 + col;
+          round_store2(dst, v0, v1, S::Y_VIA_SMEM || (row < M && n0 + col < cout));
+          if (stats) {
+            su[j][0] += v0, su[j][1] += v1;
+            sq[j][0] += v0 * v0, sq[j][1] += v1 * v1;
+          }
+        }
+      }
+      if (S::Y_VIA_SMEM) {  // the warp's 16 rows, whole 16-byte chunks of each
+        constexpr int CPR = WN / V;
+        __syncwarp();
+#pragma unroll
+        for (int e = lane; e < 16 * CPR; e += 32) {
+          const int rr = e / CPR, cc = e % CPR * V;
+          const int row = m0 + wm + 16 * i + rr, col = n0 + wn + cc;
+          if (row < M && col < cout)
+            *reinterpret_cast<uint4*>(y + (size_t)row * cout + col) =
+                *reinterpret_cast<const uint4*>(Yw + rr * S::LDY + cc);
+        }
+        __syncwarp();
+      }
+    }
+    tile::zero(acc);
+  }
+  tile::cp_async_wait<0>();
+  if (!stats) return;
+  // rows past M and columns past cout added zeros (h and w are 0 there)
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) {
+        su[j][e] += __shfl_xor_sync(0xffffffffu, su[j][e], o);
+        sq[j][e] += __shfl_xor_sync(0xffffffffu, sq[j][e], o);
+      }
+  __syncthreads();  // every warp is done with the ring
+  float* red = reinterpret_cast<float*>(smem);  // [2 (sum, sumsq)][2 (row-warps)][BN]
+  if (g == 0) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = wn + 8 * j + 2 * t + e;
+        red[(0 * 2 + (warp & 1)) * BN + col] = su[j][e];
+        red[(1 * 2 + (warp & 1)) * BN + col] = sq[j][e];
+      }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < 2 * BN; i += THREADS) {
+    const int q = i / BN, col = i % BN;
+    if (n0 + col < cout)
+      ws[((size_t)q * G + c) * cout + n0 + col] =
+          red[(q * 2 + 0) * BN + col] + red[(q * 2 + 1) * BN + col];
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -597,18 +651,6 @@ struct Dw {
                     BK * PX % tile::THREADS == 0 && BK * PG % tile::THREADS == 0,
                 "each thread rewrites whole rows' chunks in fixed columns");
 };
-
-// h = [relu](x*scale + shift) on one staged chunk of V columns, in place in
-// x's slot: f32 math and one rounding to T (sc, sh: the chunk's scale, shift)
-template <typename T>
-__device__ __forceinline__ void h_chunk(T* p, const float* sc, const float* sh, bool relu) {
-  constexpr int V = 16 / sizeof(T);
-  uint4 a = *reinterpret_cast<const uint4*>(p);
-  T* e = reinterpret_cast<T*>(&a);
-#pragma unroll
-  for (int q = 0; q < V; ++q) e[q] = from_f32<T>(bn_act(to_f32(e[q]), sc[q], sh[q], relu));
-  *reinterpret_cast<uint4*>(p) = a;
-}
 
 // grid (cin tiles x cout tiles, G), cin tiles fastest so that the CTAs that
 // restage the same dy and y rows run side by side and L2 serves the
@@ -998,22 +1040,38 @@ int set_smem(K kern, size_t smem) {
   return 0;
 }
 
+template <typename T, int BN>
+int launch_fwd_tiles(const T* x, const T* w, long long sk, long long sn, const Prologue& pro,
+                     T* y, float* ws, int M, int cin, int cout, int G, bool stats,
+                     cudaStream_t st) {
+  using S = Fwd<T, BN>;
+  auto kern = conv_bn_fwd_kernel<T, BN>;
+  int e = set_smem(kern, S::SMEM);
+  if (e) return e;
+  kern<<<dim3((cout + BN - 1) / BN, G), tile::THREADS, S::SMEM, st>>>(x, w, sk, sn, pro, y, ws, M,
+                                                                     cin, cout, G, stats);
+  return (int)cudaGetLastError();
+}
+
+// bn: the tile's columns of cout (the wrapper's plan: 64, 128 or 256)
 template <typename T>
 int launch_fwd(const void* x, const void* w, long long sk, long long sn, const void* scale,
                const void* shift, void* y, void* ws, void* sum, void* ssq, int M, int cin,
-               int cout, int G, int prologue, int relu, int stats, void* stream) {
+               int cout, int G, int bn, int prologue, int relu, int stats, void* stream) {
   if (!shapes_ok<T>(M, cin, cout, G) || !w_ok<T>(w, sk, sn, cin, cout) || !aligned<T>(x) ||
       !aligned<T>(y))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const Prologue pro{(const float*)scale, (const float*)shift, prologue != 0, relu != 0};
-  const size_t smem = sizeof(T) * 2 * BM * pad_ld<T>(BK);
-  auto kern = conv_bn_fwd_kernel<T>;
-  int e = set_smem(kern, smem);
-  if (e) return e;
-  kern<<<dim3((cout + BN - 1) / BN, G), kThreads, smem, st>>>(
-      (const T*)x, (const T*)w, sk, sn, pro, (T*)y, (float*)ws, M, cin, cout, G, stats != 0);
-  e = (int)cudaGetLastError();
+#define DTF_FWD_TILES(BN)                                                                  \
+  launch_fwd_tiles<T, BN>((const T*)x, (const T*)w, sk, sn, pro, (T*)y, (float*)ws, M, cin, \
+                          cout, G, stats != 0, st)
+  int e;
+  if (bn == 64) e = DTF_FWD_TILES(64);
+  else if (bn == 128) e = DTF_FWD_TILES(128);
+  else if (bn == 256) e = DTF_FWD_TILES(256);
+  else return (int)cudaErrorInvalidValue;
+#undef DTF_FWD_TILES
   if (e || !stats) return e;
   e = reduce((const float*)ws, (float*)sum, G, cout, st);
   if (e) return e;
@@ -1140,11 +1198,16 @@ extern "C" {
 #define DTF_FWD_ARGS                                                                      \
   const void *x, const void *w, long long sk, long long sn, const void *scale,            \
       const void *shift, void *y, void *ws, void *sum, void *ssq, int M, int cin, int cout, \
-      int G, int prologue, int relu, int stats, void *stream
-#define DTF_FWD_PASS x, w, sk, sn, scale, shift, y, ws, sum, ssq, M, cin, cout, G, prologue, relu, stats, stream
+      int G, int bn, int prologue, int relu, int stats, void *stream
+#define DTF_FWD_PASS \
+  x, w, sk, sn, scale, shift, y, ws, sum, ssq, M, cin, cout, G, bn, prologue, relu, stats, stream
 
 int conv_bn_fwd_f32(DTF_FWD_ARGS) { return launch_fwd<float>(DTF_FWD_PASS); }
 int conv_bn_fwd_bf16(DTF_FWD_ARGS) { return launch_fwd<__nv_bfloat16>(DTF_FWD_PASS); }
+
+// The forward kernel's plan inputs for the wrapper's G: 0 -> rows of M a
+// tile, 1 -> CTAs an SM (every tile width and both dtypes take the same)
+int conv_bn_fwd_tile(int what) { return what == 0 ? tile::BM : kFwdCtasPerSm; }
 
 #define DTF_DX_ARGS                                                                        \
   const void *x, const void *y, const void *dy, const void *w, long long sk, long long sn, \

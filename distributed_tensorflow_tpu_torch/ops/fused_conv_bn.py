@@ -21,11 +21,11 @@ the ReLU mask ``x*scale + shift > 0`` in f32.
 
 The wrappers ``conv1x1_bn_fwd``, ``conv1x1_bn_bwd_dx``,
 ``conv1x1_bn_bwd_dw`` and ``conv1x1_bn_bwd_single`` launch their kernel
-for CUDA tensors (built with nvcc on first use; the forward at a grid of
-``RESIDENT_CTAS``, the backward kernels at plans from the card's SM count:
-``dx_chunks``, ``dw_plan``, ``single_chunks``) and raise on what it does
-not take; for CPU tensors — and only for those — they compute the plain
-version. Each counts its launches in ``.launches``. The kernels take
+for CUDA tensors (built with nvcc on first use, at launch plans from the
+shapes and the card's SM count: ``fwd_plan``, ``dx_chunks``, ``dw_plan``,
+``single_chunks``) and raise on what it does not take; for CPU tensors —
+and only for those — they compute the plain version. Each counts its
+launches in ``.launches``. The kernels take
 cin and cout multiples of 8 and x in the output dtype (f32 or bf16).
 
 The backward follows ``_policy.resolve_bwd_impl``: ``"xla"`` is the plain
@@ -44,11 +44,10 @@ from . import _build
 from ._policy import mm_exact, mm_library, resolve_bwd_impl
 from .fused_ln_matmul import _sms
 
-#: tile edge of the forward kernel (rows of an M tile, columns of a cout
-#: tile), and the channel granule of the single-pass rule
+#: the channel granule of the single-pass rule
 TILE = 64
-#: CTAs the forward's grid aims to keep resident (132 SMs x 8)
-RESIDENT_CTAS = 1056
+#: the forward kernel's tile widths (columns of cout), the launch plan's choice
+FWD_WIDTHS = (64, 128, 256)
 #: the dw kernel's tile widths (columns of cout), the launch plan's choice
 DW_WIDTHS = (128, 256)
 #: f32 elements of the largest dw partial one single-pass CTA holds in
@@ -78,11 +77,35 @@ def single_pass(cin: int, cout: int) -> bool:
     return _round_up(cin, TILE) * _round_up(cout, TILE) <= SINGLE_PASS_DW_ELEMS
 
 
-def _chunks(M: int, tiles: int) -> int:
-    """The forward's M tiles are dealt to this many chunks (its statistics'
-    partials): enough CTAs to fill the card, a function of the shapes only,
-    so the reduction order — and the result — is the same on every call."""
-    return max(1, min(-(-M // TILE), -(-RESIDENT_CTAS // tiles)))
+def _width(cout: int, widths) -> int:
+    """The tile width of ``widths`` that pads cout least, the wider on a tie
+    (fewer columns of tiles re-read their rows)."""
+    return min(widths, key=lambda w: (_round_up(cout, w), -w))
+
+
+def fwd_plan(M: int, cin: int, cout: int, sms: int, tile: tuple[int, int]) -> dict:
+    """The forward kernel's launch plan from the shapes and the card alone:
+    ``{"tile": (rows of M, columns of cout), "G": chunks}``. ``tile`` is
+    the kernel's ``(rows of M a tile, CTAs an SM)`` (``fwd_tile``).
+
+    The width is the one of ``FWD_WIDTHS`` that pads cout least, the wider
+    on a tie. The grid is (cout tiles, G), and CTA (n, c) takes the M tiles
+    c, c+G, ...: G fills one wave of the card's CTA slots beside the cout
+    tiles, with at least 1 chunk and at most one an M tile. cin does not
+    change the plan: the contraction runs inside each CTA. So the
+    statistics' partials are summed in the same order on every call."""
+    rows_m, per_sm = tile
+    bn = _width(cout, FWD_WIDTHS)
+    G = min(-(-M // rows_m), per_sm * sms // -(-cout // bn))
+    return {"tile": (rows_m, bn), "G": max(1, G)}
+
+
+@functools.cache
+def fwd_tile() -> tuple[int, int]:
+    """The forward kernel's tile and residency as its source states them
+    (``conv_bn_fwd_tile``): rows of M a tile, CTAs an SM."""
+    lib = _build.load("fused_conv_bn")
+    return tuple(lib.conv_bn_fwd_tile(i) for i in range(2))
 
 
 def dx_chunks(M: int, cin: int, sms: int, tile: tuple[int, int, int]) -> int:
@@ -121,7 +144,8 @@ def dw_plan(M: int, cin: int, cout: int, sms: int, tile: tuple[int, int, int]) -
     the kernel's ``(rows of cin a tile, rows of M a block, CTAs an SM)``
     (``dw_tile``).
 
-    The width is the one of ``DW_WIDTHS`` that pads cout least, the wider on a tie (fewer columns of tiles restage x).
+    The width is the one of ``DW_WIDTHS`` that pads cout least, the wider
+    on a tie (fewer columns of tiles restage x).
     The grid is (tiles, G); chunk c takes a contiguous range of the M
     blocks and writes an f32 partial of dw. G fills one wave of the card's
     CTA slots beside the tiles, with at least 1 chunk and at most one a
@@ -129,7 +153,7 @@ def dw_plan(M: int, cin: int, cout: int, sms: int, tile: tuple[int, int, int]) -
     floats, written, then read by the reduction) within the bf16 bytes the
     product reads (x, dy, y). So the sums' order is fixed per card."""
     rows_cin, rows_m, per_sm = tile
-    bn = min(DW_WIDTHS, key=lambda w: (_round_up(cout, w), -w))
+    bn = _width(cout, DW_WIDTHS)
     tiles = -(-cin // rows_cin) * -(-cout // bn)
     G = min(-(-M // rows_m), per_sm * sms // tiles, 2 * M * (cin + 2 * cout) // (8 * cin * cout))
     return {"tile": (rows_cin, bn), "G": max(1, G)}
@@ -300,11 +324,34 @@ def _stats_args(dsum, dssq, cout, emit_stats, device):
     return out
 
 
+def _launch_fwd(x, w, scale, shift, relu, emit_stats, plan):
+    """The forward product at ``plan`` (``fwd_plan``'s keys) and, with the
+    statistics, the reductions of its partials, on validated CUDA tensors;
+    returns ``(y, col_sum, col_sumsq)``, the sums None without them."""
+    M, cin = x.shape
+    cout = w.shape[1]
+    sk, sn = w.stride()
+    G, dev = plan["G"], x.device
+    y = torch.empty(M, cout, dtype=x.dtype, device=dev)
+    ws = torch.empty(2 * G * cout if emit_stats else 1, dtype=torch.float32, device=dev)
+    s = torch.empty(cout, dtype=torch.float32, device=dev) if emit_stats else None
+    ssq = torch.empty(cout, dtype=torch.float32, device=dev) if emit_stats else None
+    lib = _build.load("fused_conv_bn")
+    rc = getattr(lib, f"conv_bn_fwd_{_SUFFIX[x.dtype]}")(
+        x.data_ptr(), w.data_ptr(), sk, sn, _ptr(scale), _ptr(shift), y.data_ptr(),
+        ws.data_ptr(), _ptr(s), _ptr(ssq), M, cin, cout, G, plan["tile"][1],
+        int(scale is not None), int(bool(relu)), int(bool(emit_stats)),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, "conv1x1_bn_fwd")
+    return y, s, ssq
+
+
 def conv1x1_bn_fwd(x, w, scale=None, shift=None, *, relu: bool = True,
                    emit_stats: bool = True, out_dtype=None):
     """Forward: ``(y, col_sum, col_sumsq)`` (the sums None without
-    ``emit_stats``). CUDA tensors: one launch of the forward kernel (and
-    its partial-sum reduction); CPU tensors: ``conv1x1_bn_act_plain``."""
+    ``emit_stats``). CUDA tensors: one launch of the tiled forward kernel
+    at ``fwd_plan`` (and, with the statistics, the reductions of its
+    partials); CPU tensors: ``conv1x1_bn_act_plain``."""
     if not _build.on_cuda(x, "conv1x1_bn_fwd"):
         out = conv1x1_bn_act_plain(x, w, scale, shift, relu=relu, emit_stats=emit_stats,
                                    out_dtype=out_dtype)
@@ -313,21 +360,11 @@ def conv1x1_bn_fwd(x, w, scale=None, shift=None, *, relu: bool = True,
         raise TypeError(f"conv1x1_bn_fwd kernel: out_dtype {out_dtype} must be x's dtype "
                         f"{x.dtype}")
     cout = w.shape[-1]
-    M, cin, sk, sn, sfx = _check("conv1x1_bn_fwd", x, w, scale, shift, cout)
-    dev = x.device
-    G = _chunks(M, -(-cout // TILE))
-    y = torch.empty(M, cout, dtype=x.dtype, device=dev)
-    ws = torch.empty(2 * G * cout if emit_stats else 1, dtype=torch.float32, device=dev)
-    s = torch.empty(cout, dtype=torch.float32, device=dev) if emit_stats else None
-    ssq = torch.empty(cout, dtype=torch.float32, device=dev) if emit_stats else None
-    lib = _build.load("fused_conv_bn")
-    rc = getattr(lib, f"conv_bn_fwd_{sfx}")(
-        x.data_ptr(), w.data_ptr(), sk, sn, _ptr(scale), _ptr(shift), y.data_ptr(),
-        ws.data_ptr(), _ptr(s), _ptr(ssq), M, cin, cout, G, int(scale is not None),
-        int(bool(relu)), int(bool(emit_stats)), torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, rc, "conv1x1_bn_fwd")
+    M, cin, _, _, _ = _check("conv1x1_bn_fwd", x, w, scale, shift, cout)
+    out = _launch_fwd(x, w, scale, shift, relu, emit_stats,
+                      fwd_plan(M, cin, cout, _sms(x.device), fwd_tile()))
     conv1x1_bn_fwd.launches += 1
-    return y, s, ssq
+    return out
 
 
 def conv1x1_bn_bwd_dx(x, y, dy, w, scale=None, shift=None, dsum=None, dssq=None, *,

@@ -5,6 +5,7 @@ library built before the edit. And every source parses as C++ (g++ with a
 shim of the CUDA built-ins), which finds an undefined name before a card
 does."""
 
+import ctypes
 import glob
 import importlib.util
 import os
@@ -61,6 +62,26 @@ def test_the_port_sources_name_their_libraries():
     for name in ("ln_matmul", "ln_matmul_bwd", "fused_conv_bn", "flash_attention"):
         with open(_build._paths(name)[0]) as f:
             assert '#include "tile_mma.cuh"' in f.read()
+
+
+def test_conv_bn_forward_entries_take_the_plan_width():
+    """The conv+BN forward's C entries take the launch plan's tile width
+    after G, as dw's do (the parse test below holds the source's
+    definitions to these arities), and ``conv_bn_fwd_tile`` states the
+    forward tile's rows of M and CTAs an SM for ``fwd_plan``."""
+    sig = _build.SIGNATURES["fused_conv_bn"]
+    assert sig["conv_bn_fwd_tile"] == (ctypes.c_int,)
+    for s in ("f32", "bf16"):
+        args = sig[f"conv_bn_fwd_{s}"]
+        # x, w; sk, sn; scale, shift, y, ws, sum, ssq; M, cin, cout, G, bn,
+        # prologue, relu, stats; stream
+        assert len(args) == 19 and args[2:4] == (ctypes.c_longlong,) * 2
+        assert args[10:18] == (ctypes.c_int,) * 8 and args[18] == ctypes.c_void_p
+    with open(_build._paths("fused_conv_bn")[0]) as f:
+        src = f.read()
+    assert "int conv_bn_fwd_tile(int what)" in src
+    assert re.search(r"int G, int bn, int prologue, int relu, int stats, void \*stream\n"
+                     r"#define DTF_FWD_PASS", src)
 
 
 #: Just enough of CUDA for g++ to parse the port's sources as C++: the
@@ -201,6 +222,24 @@ def test_flash_dkv_turns_refuses_a_text_that_is_not_there_once():
     with pytest.raises(SystemExit, match="0 times"):
         _TURNS.substitute("a;\n", "absent", [("c;", "b;")])
     assert _TURNS.substitute("a;\nc;\n", "once", [("a;", "b;")]) == "b;\nc;\n"
+
+
+_CONV_TURNS = _load("conv_fwd_turns", "tools", "conv_fwd_turns.py")
+
+
+@pytest.mark.parametrize("name,subs", _CONV_TURNS.VARIANTS,
+                         ids=[n for n, _ in _CONV_TURNS.VARIANTS])
+def test_conv_fwd_turns_substitutions_apply_to_the_source(name, subs):
+    """``tools/conv_fwd_turns.py`` builds variants of the conv+BN source by
+    text substitution (the forward's levers, ring depths and ablations);
+    each text it replaces occurs exactly once in the source, so a variant
+    changes the forward kernel alone and the tool does not refuse it on the
+    card."""
+    with open(_build._paths("fused_conv_bn")[0]) as f:
+        src = f.read()
+    for old, new in subs:
+        assert src.count(old) == 1 and old != new, (name, old)
+    assert _CONV_TURNS.substitute(src, name, subs) != src
 
 
 _PTXAS = """ptxas info    : Function properties for _ZN12_GLOBAL__N_116flash_fwd_kernelILi64EEEvNS_7StridedE

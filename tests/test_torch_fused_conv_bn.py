@@ -171,6 +171,55 @@ def test_single_chunks_fill_one_wave_from_the_shapes(M, sms, want):
     assert 1 <= G <= -(-M // bm) and G <= per_sm * sms
 
 
+#: the forward kernel's tile and residency (``conv_bn_fwd_tile``): rows of M
+#: a tile, CTAs an SM
+FWD_TILE = (128, 1)
+
+
+@pytest.mark.parametrize("M, cin, cout, sms, want", [
+    # stage 0 at batch 256: one cout tile, so one chunk an SM
+    (802816, 64, 64, 132, ((128, 64), 132)),
+    (802816, 64, 256, 132, ((128, 256), 132)),    # conv3 (the main shape) and projection
+    (802816, 256, 64, 132, ((128, 64), 132)),
+    # the twelve shapes of the two-pass convs (CONV_BN_DW_SWEEP)
+    (802816, 256, 128, 132, ((128, 128), 132)),
+    (200704, 256, 512, 132, ((128, 256), 66)),    # two cout tiles
+    (200704, 128, 512, 132, ((128, 256), 66)),
+    (200704, 512, 128, 132, ((128, 128), 132)),
+    (200704, 512, 256, 132, ((128, 256), 132)),
+    (50176, 512, 1024, 132, ((128, 256), 33)),    # four cout tiles
+    (50176, 256, 1024, 132, ((128, 256), 33)),
+    (50176, 1024, 256, 132, ((128, 256), 132)),
+    (50176, 1024, 512, 132, ((128, 256), 66)),
+    (12544, 1024, 2048, 132, ((128, 256), 16)),   # eight cout tiles, 98 M tiles
+    (12544, 512, 2048, 132, ((128, 256), 16)),
+    (12544, 2048, 512, 132, ((128, 256), 66)),
+    # widths away from the step's shapes
+    (100, 72, 40, 132, ((128, 64), 1)),           # cout 40: the 64 width, one M tile
+    (333, 200, 136, 132, ((128, 64), 3)),         # cout 136: 64 pads 56, 128 and 256 pad 120
+    (12544, 384, 384, 132, ((128, 128), 44)),     # cout 384: 64 and 128 tie, the wider wins
+    (1, 64, 256, 132, ((128, 256), 1)),           # one row
+    (802816, 64, 256, 1, ((128, 256), 1)),        # a card of one SM
+    (200704, 128, 512, 1, ((128, 256), 1)),       # fewer slots than cout tiles: one chunk
+    (200704, 128, 512, 114, ((128, 256), 57)),    # a card of 114 SMs
+])
+def test_fwd_plan_fills_one_wave_from_the_shapes(M, cin, cout, sms, want):
+    """The forward grid (cout tiles, G) takes the tile width that pads cout
+    least (the wider on a tie) and fills at most one wave of the card's CTA
+    slots beside the cout tiles, with at least one chunk and at most one an
+    M tile; the plan depends on the shapes and the card alone."""
+    rows_m, per_sm = FWD_TILE
+    plan = tfcb.fwd_plan(M, cin, cout, sms, FWD_TILE)
+    assert (plan["tile"], plan["G"]) == want
+    assert plan == tfcb.fwd_plan(M, cin, cout, sms, FWD_TILE)
+    G, bn = plan["G"], plan["tile"][1]
+    tiles = -(-cout // bn)
+    assert 1 <= G <= -(-M // rows_m)
+    assert G == 1 or G * tiles <= per_sm * sms
+    assert bn in tfcb.FWD_WIDTHS and -(-cout // bn) * bn == min(
+        -(-cout // w) * w for w in tfcb.FWD_WIDTHS)
+
+
 #: the dw kernel's tile and residency (``conv_bn_dw_tile``): rows of cin a
 #: tile, rows of M a block, CTAs an SM
 DW_TILE = (128, 64, 1)

@@ -413,13 +413,24 @@ def test_training_steps_on_card_match_the_cpu(card):
 #: then two-pass dw cases: cout 128 (the 128-wide dw tile) with cin spanning
 #: two tiles, and 512->1024 (128 x 256 tiles, 16 of them; G = 3 on 132 SMs,
 #: capped by the partials) at M = 3109, so each chunk spans 16-17 blocks of
-#: 64 rows, past the 2-stage ring, the last one ragged
+#: 64 rows, past the 2-stage ring, the last one ragged; then forward cases:
+#: cin 1000 (sixteen 64-deep stages, the last ragged) into cout 136 (the
+#: 64-wide tile, the third of them ragged) in both w layouts, and M spanning
+#: three and two waves of 132 CTAs of 128-row tiles and 37 rows more (a
+#: ragged last tile, each CTA's tiles wrapping the ring) at the 256-wide tile
+#: with a contiguous w and at the 128-wide one (cin four stages deep) in both
+#: layouts. Over all cases the forward takes each width: 64 (cout 24, 40, 64,
+#: 136), 128 (cout 128) and 256 (cout 256 and up)
 CONV_BN_CASES = [(37, 16, 24, "oihw"), (200, 64, 256, "oihw"), (130, 256, 64, "oihw"),
                  (300, 128, 512, "oihw"), (100, 72, 40, "oihw"), (333, 200, 136, "oihw"),
                  (300, 128, 512, "contiguous"), (3 * 132 * 64 + 37, 64, 256, "oihw"),
                  (300, 128, 128, "oihw"), (200, 64, 256, "contiguous"),
                  (5 * 132 * 64 + 37, 64, 64, "oihw"), (4 * 132 * 64 + 37, 256, 64, "oihw"),
-                 (300, 256, 128, "oihw"), (3109, 512, 1024, "oihw")]
+                 (300, 256, 128, "oihw"), (3109, 512, 1024, "oihw"),
+                 (333, 1000, 136, "oihw"), (333, 1000, 136, "contiguous"),
+                 (3 * 132 * 128 + 37, 64, 256, "contiguous"),
+                 (2 * 132 * 128 + 37, 256, 128, "oihw"),
+                 (2 * 132 * 128 + 37, 256, 128, "contiguous")]
 #: (prologue, relu, emit_stats)
 CONV_BN_VARIANTS = [(False, False, True), (False, False, False), (True, True, True),
                     (True, False, True), (True, True, False)]
@@ -538,6 +549,30 @@ def test_conv_bn_kernels_are_deterministic(card):
             runs.append(out)
         for a, b in zip(*runs):
             assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["oihw", "contiguous"])
+def test_conv_bn_fwd_is_bitwise_repeatable_at_each_width(card, layout):
+    """Two calls of the forward kernel on the same bf16 inputs give
+    bitwise-equal y and statistics at each tile width of ``fwd_plan`` (64,
+    128, 256), with and without the prologue, with M over a wave of CTAs so
+    each CTA sums several tiles: the statistics' partials are summed in a
+    fixed order, no float atomics."""
+    from distributed_tensorflow_tpu_torch.ops import fused_conv_bn as fcb
+
+    rng = np.random.default_rng(10)
+    M = 2 * 132 * 128 + 37
+    for cin, cout, bn in ((64, 64, 64), (256, 128, 128), (200, 512, 256)):
+        plan = fcb.fwd_plan(M, cin, cout, fcb._sms(card), fcb.fwd_tile())
+        assert plan["tile"][1] == bn, plan
+        for prologue in (True, False):
+            x, w, sc, sh, _, _, _ = _conv_bn_inputs(rng, card, torch.bfloat16, M, cin, cout,
+                                                    prologue, layout)
+            a = fcb.conv1x1_bn_fwd(x, w, sc, sh)
+            b = fcb.conv1x1_bn_fwd(x, w, sc, sh)
+            for name, u, v in zip(("y", "sum", "sumsq"), a, b):
+                assert torch.equal(u, v), (name, cin, cout, prologue)
 
 
 @pytest.mark.cuda
