@@ -14,10 +14,12 @@ the first wrapper call on a CUDA tensor builds and loads its library;
 ``build_all`` starts one ``nvcc`` per source at once (``chip_smoke.py``
 builds every kernel in parallel that way).
 
-A failed build raises ``KernelBuildError`` with nvcc's output. A kernel
-entry point returns ``cudaGetLastError()`` after its launch, and
-``check`` raises ``KernelLaunchError`` when that is not 0 — there is no
-fallback to the plain PyTorch version on a CUDA tensor.
+A failed build raises ``KernelBuildError`` with nvcc's output. Every
+launch goes through ``launch``, which runs the C entry on its tensors'
+device and stream. A kernel entry point returns ``cudaGetLastError()``
+after its launch, and ``check`` raises ``KernelLaunchError`` when that is
+not 0 — there is no fallback to the plain PyTorch version on a CUDA
+tensor.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -60,9 +63,9 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
         "paged_attention_splits": (_c_int,) * 4,
     },
     "ln_matmul": {
-        # x, gamma, beta, w, bias, y, M, d, n, w_stride_k, w_stride_n,
-        # eps, stream
-        **{fn: (_c_void_p,) * 6 + (_c_int,) * 5 + (_c_float, _c_void_p)
+        # x, gamma, beta, w, bias, y, M, d, n, w_stride_k, w_stride_n, the
+        # plan's split (rows_plan), eps, stream
+        **{fn: (_c_void_p,) * 6 + (_c_int,) * 6 + (_c_float, _c_void_p)
            for fn in ("ln_matmul_f32", "ln_matmul_bf16_f32", "ln_matmul_bf16")},
         # x, gamma, beta, w, bias, y, stats; M, d, n, sk, sn, eps, stream
         **{f"ln_matmul_tiled_{s}": (_c_void_p,) * 7 + (_c_int,) * 3 + _W_STRIDES
@@ -119,6 +122,13 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
 }
 
 
+#: entries that report a constant of their source and launch nothing (no
+#: stream argument); every other entry of ``SIGNATURES`` launches kernels
+#: and is called through ``launch`` alone
+QUERIES = frozenset({"paged_attention_splits", "conv_bn_fwd_tile", "conv_bn_dx_tile",
+                     "conv_bn_dw_tile", "conv_bn_single_tile"})
+
+
 class KernelBuildError(RuntimeError):
     """nvcc failed (or is missing) for one of the port's sources."""
 
@@ -156,6 +166,15 @@ def _paths(name: str) -> tuple[str, str, str]:
     h.update(" ".join(NVCC_FLAGS).encode())
     so = os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
     return src, so, so[:-3] + ".log"
+
+
+def constants(name: str) -> dict[str, int]:
+    """The ``constexpr int NAME = value;`` lines of source ``name``: the
+    constants a wrapper's launch plan shares with its kernel, stated once
+    in the kernel's source."""
+    with open(os.path.join(CSRC, f"{name}.cu")) as f:
+        return {k: int(v) for k, v in re.findall(r"^constexpr int (\w+) = (\d+);", f.read(),
+                                                  re.MULTILINE)}
 
 
 def _start(name: str) -> tuple[subprocess.Popen, str, str] | None:
@@ -239,6 +258,22 @@ def refuse_grad(what: str, tensors, hint: str) -> None:
             f"{what} has no backward kernel and an input requires grad; "
             f"{hint} (or run it under torch.no_grad() / with frozen "
             f"parameters, as serving does)")
+
+
+def launch(lib: ctypes.CDLL, entry: str, what: str, device: torch.device, *args) -> None:
+    """Call the C entry ``entry`` of ``lib`` with ``args`` and the current
+    stream of ``device`` (the device of the tensors whose pointers ``args``
+    hold), then ``check`` its return code. A C entry launches on the
+    current device, so when ``device`` is not the current one the call runs
+    inside ``torch.cuda.device(device)``; the index is compared first, so
+    the common call on the current device enters no guard."""
+    fn = getattr(lib, entry)
+    if device.index is not None and device.index != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    else:
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    check(lib, rc, what)
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

@@ -11,18 +11,45 @@
 // wrapper's fwd_plan): serving's few rows and training's many.
 //
 // ln_matmul_kernel, serving (M below the wrapper's LN_TILED_MIN_M: decode
-// slots, one prefill chunk). Bound: at decode the bytes of w, d*n*sizeof;
-// at prefill the bytes of w and x. Each CTA normalises its rows straight
-// into shared memory, so the normalised [M, d] tensor never reaches device
-// memory, and w is streamed once per row tile. Any M: the ragged row edge
-// is masked (the TPU's 8-row block rule does not apply), as is a ragged n
-// edge. Layout: one CTA per (64-column tile, 16-row tile); 128 threads (4
-// warps). bf16 input: each warp owns one 16x16 output fragment and runs
-// WMMA bf16 x bf16 -> f32 on tensor cores; f32 input: CUDA-core FMAs, 8
-// outputs a thread. x rows and w tiles move in 16-byte loads, several in
-// flight per thread; the next w tile is loaded into registers while the
-// current one is multiplied. Any d that fits 16 normalised rows in shared
-// memory.
+// slots, one prefill chunk). Bound: the bytes of w, d*n*sizeof, read once
+// per row tile. At decode all of w is 1.2 MB (n = 768) or 4.7 MB (n =
+// 3072): one wave of CTAs that each issue their whole share of w at once
+// moves it in about one DRAM round trip, where CTAs that walk d in
+// dependent tiles pay one round trip a tile. So the work is spread over
+// the card three ways: row tiles (16 rows of M), column tiles (64 columns
+// of n) and a split of d over the `split` CTAs (ranks) of a thread-block
+// cluster (split <= 8, the portable size); the wrapper's rows_plan picks
+// the split from the shapes and the SM count.
+// Rank r of a cluster owns the d-slice [r*dS, (r+1)*dS), dS a multiple of
+// 16, none empty. Each CTA (128 threads, 4 warps):
+//  1. issues, before any dependent work, the loads of the rows whose
+//     statistics it computes (the first 768 elements of each, 8 a lane,
+//     into registers), then its x rows' slice, gamma's and beta's slice
+//     and its column tile's bias (one cp.async group) and its whole w
+//     slice, dS x 64 (a second group); ragged edges of M, d and n are
+//     zero-filled. So every DRAM round trip of the CTA overlaps the others;
+//  2. computes the statistics of its share of the rows (row r on rank r %
+//     split) over the whole row from those registers while the copies fly,
+//     and writes them into every rank's shared memory; after one cluster
+//     barrier each rank normalises its slice of every row in place, rounded
+//     to x's dtype. So each row is read once per column tile, not once per
+//     rank, and only the rows' slice sits in shared memory (d is bounded by
+//     the slice alone);
+//  3. multiplies with w as the A operand ("swap AB"): mma.sync m16n8k16
+//     (tile_mma.cuh) puts 16 columns of n on the fragment's rows and the
+//     16 token rows on two 8-wide sides, so each warp loads one fragment
+//     of w and two of h a step; each warp owns 16 columns. f32 inputs take
+//     the same tiles with f32 FMAs on CUDA cores;
+//  4. writes each f32 partial into the shared memory of the rank that owns
+//     its chunk (8 columns of one row; rank r owns the chunks r, r +
+//     split, ...) through distributed shared memory; after one cluster
+//     barrier rank r sums its chunks over every rank's partials in rank
+//     order from its own shared memory,
+//     adds the bias in f32, casts and stores them in 16-byte stores where
+//     the row allows. No rank reads another's memory after the barrier, so
+//     none waits to leave. No float atomics, no second launch: for one plan
+//     the sums run in one order, so a call repeats bit for bit.
+// With split = 1 the same kernel runs on a cluster of one.
 //
 // Training M (M >= LN_TILED_MIN_M; gpt_small: M = 8192, d = 768, n = 768
 // or 3072): bound by the 2*M*d*n operations of the product. 16-row CTAs
@@ -46,22 +73,15 @@
 //     same tiling with f32 FMAs on CUDA cores. No limit on d; d and n
 //     multiples of 8, x 16-byte aligned, w as the backward kernels take it.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
-
-#include <type_traits>
 
 #include "tile_mma.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int BM = 16;   // rows per CTA
-constexpr int BN = 64;   // columns per CTA (4 warps x 16)
-constexpr int BK = 128;  // depth of one staged w tile
-constexpr int kPad = 8;  // shared-memory row padding, elements (16 bytes of bf16)
-constexpr int kBatch = 4;  // 16-byte x loads a thread keeps in flight
+namespace cg = cooperative_groups;
 
 using tile::from_f32;
 using tile::to_f32;
@@ -74,230 +94,350 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 __host__ __device__ constexpr int round_up(int a, int m) { return (a + m - 1) / m * m; }
 
-// One BK x BN tile of w as 16-byte vectors running along w's unit-stride
-// dim (n when sn == 1, else k), kN per thread, all loads in flight before
-// any is used. ``vec``: every vector that starts in range lies wholly in
-// range and is 16-byte aligned (checked by the host); otherwise each
-// element is loaded alone with its own bounds check.
-template <typename T, int kN>
-__device__ __forceinline__ void load_w(uint4 (&reg)[kN], const T* __restrict__ w, long long sk,
-                                       long long sn, int d, int n, int k0, int n0, bool vec) {
-  constexpr int kVec = 16 / sizeof(T);
+// ---------------------------------------------------------------------------
+// serving M: the row-tile kernel, d split over a cluster
+// ---------------------------------------------------------------------------
+
+constexpr int RW_THREADS = 128;  // 4 warps
+constexpr int RW_WARPS = RW_THREADS / 32;
+constexpr int RW_ROWS = 16;      // rows of M a CTA: the n8 side of two mma tiles
+constexpr int RW_COLS = 64;      // columns of n a CTA: 16 a warp
+constexpr int RW_KSTEP = 16;     // the mma's depth: a d-slice is whole steps of it
+constexpr int RW_MAX_SPLIT = 8;  // the portable cluster size
+constexpr int RW_CHUNK = 8;      // columns of y a thread sums and stores at once
+constexpr int RW_CACHE = 3;      // 8-element chunks of a row a lane keeps in registers
+// What the kernel does by default; tools/ln_fwd_turns.py times it with one
+// of these switched off (an ablated kernel computes garbage).
+constexpr bool RW_LN_PASS = true;      // the statistics and the in-place normalisation
+constexpr bool RW_CLUSTER_SUM = true;  // the sum over the ranks' partials
+
+// The shared-memory carve-up of one CTA (bytes; every part 16-byte
+// aligned), the same on the host (the launch's size) and the device. The
+// wrapper's rows_smem states the same sum.
+struct RowsLayout {
+  int dS;   // depth of a rank's d-slice
+  int ldx;  // pitch of Xs [RW_ROWS][ldx]: the x rows' slice, then h
+  int ldw;  // pitch of Ws: [dS][ldw] when n is contiguous, else [RW_COLS][ldw]
+  int nch;  // chunks of y a rank owns: Ps [split][nch][RW_CHUNK], f32 partials
+  int w_off, gb_off, p_off, st_off, bytes;
+};
+
+template <typename T>
+__host__ __device__ inline RowsLayout rows_layout(int split, int d, bool n_contig) {
+  constexpr int P = 16 / sizeof(T);  // elements of a 16-byte chunk
+  RowsLayout L;
+  L.dS = round_up((d + split - 1) / split, RW_KSTEP);
+  L.ldx = L.dS + P;
+  L.ldw = n_contig ? RW_COLS + P : L.dS + P;
+  L.nch = (RW_ROWS * RW_COLS / RW_CHUNK + split - 1) / split;
+  L.w_off = RW_ROWS * L.ldx * (int)sizeof(T);
+  L.gb_off = L.w_off + (n_contig ? L.dS : RW_COLS) * L.ldw * (int)sizeof(T);
+  L.p_off = L.gb_off + (2 * L.dS + RW_COLS) * 4;  // gamma's, beta's slice; the tile's bias
+  L.st_off = L.p_off + split * L.nch * RW_CHUNK * 4;
+  L.bytes = L.st_off + 2 * RW_ROWS * 4;  // [2][RW_ROWS]: mean, rstd
+  return L;
+}
+
+// w's rows [k0, k0 + depth) of the column tile at n0 into Ws, in 16-byte
+// cp.async copies along w's unit-stride dim when ``vec`` (every vector
+// that starts in range lies wholly in range and is 16-byte aligned,
+// checked by the host), else element by element; zeros past d and n.
+template <typename T>
+__device__ __forceinline__ void rows_load_w(T* Ws, int ldw, const T* __restrict__ w,
+                                            long long sk, long long sn, int d, int n, int k0,
+                                            int n0, int depth, bool vec) {
+  constexpr int P = 16 / sizeof(T);
+  if (sn == 1) {  // Ws[k][c]: chunks along n
+    constexpr int per = RW_COLS / P;
+    for (int i = threadIdx.x; i < depth * per; i += RW_THREADS) {
+      const int k = i / per, c = i % per * P, gk = k0 + k, gc = n0 + c;
+      if (vec) {
+        const bool ok = gk < d && gc < n;
+        tile::cp_async16(Ws + k * ldw + c, ok ? w + gk * sk + gc : w, ok);
+      } else {
 #pragma unroll
-  for (int u = 0; u < kN; ++u) {
-    const int q = threadIdx.x + u * kThreads;
-    int kk, c;
-    if (sn == 1) {
-      kk = q / (BN / kVec);
-      c = (q % (BN / kVec)) * kVec;
-    } else {
-      c = q / (BK / kVec);
-      kk = (q % (BK / kVec)) * kVec;
+        for (int j = 0; j < P; ++j)
+          Ws[k * ldw + c + j] = gk < d && gc + j < n ? w[gk * sk + gc + j] : from_f32<T>(0.f);
+      }
     }
-    const int k = k0 + kk, col = n0 + c;
-    if (vec && k < d && col < n) {
-      reg[u] = *reinterpret_cast<const uint4*>(w + k * sk + col * sn);
-    } else {
-      T* e = reinterpret_cast<T*>(&reg[u]);
+  } else {  // Ws[c][k]: chunks along d
+    const int per = depth / P;
+    for (int i = threadIdx.x; i < RW_COLS * per; i += RW_THREADS) {
+      const int c = i / per, k = i % per * P, gk = k0 + k, gc = n0 + c;
+      if (vec) {
+        const bool ok = gk < d && gc < n;
+        tile::cp_async16(Ws + c * ldw + k, ok ? w + gk + gc * sn : w, ok);
+      } else {
 #pragma unroll
-      for (int j = 0; j < kVec; ++j) {
-        const int kj = sn == 1 ? k : k + j, cj = sn == 1 ? col + j : col;
-        e[j] = (kj < d && cj < n) ? w[kj * sk + cj * sn] : from_f32<T>(0.f);
+        for (int j = 0; j < P; ++j)
+          Ws[c * ldw + k + j] =
+              gk + j < d && gc < n ? w[(gk + j) * sk + gc * sn] : from_f32<T>(0.f);
       }
     }
   }
 }
 
-// Park the registers in shared memory, B-operand layout: row-major
-// [BK][BN + kPad] when w runs along n (sn == 1), column-major
-// [BN][BK + kPad] when it runs along k — either way one 16-byte store per
-// vector, no transpose through shared memory.
-template <typename T, int kN>
-__device__ __forceinline__ void store_w(T* ws, const uint4 (&reg)[kN], long long sn) {
-  constexpr int kVec = 16 / sizeof(T);
-#pragma unroll
-  for (int u = 0; u < kN; ++u) {
-    const int q = threadIdx.x + u * kThreads;
-    if (sn == 1) {
-      const int kk = q / (BN / kVec), c = (q % (BN / kVec)) * kVec;
-      *reinterpret_cast<uint4*>(ws + kk * (BN + kPad) + c) = reg[u];
-    } else {
-      const int c = q / (BK / kVec), kk = (q % (BK / kVec)) * kVec;
-      *reinterpret_cast<uint4*>(ws + c * (BK + kPad) + kk) = reg[u];
-    }
-  }
-}
-
+// grid (column tiles x split, row tiles), cluster (split, 1, 1): CTA
+// (b, mt) is rank b % split of column tile b / split.
 template <typename TIn, typename TOut>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(RW_THREADS)
 ln_matmul_kernel(const TIn* __restrict__ x, const float* __restrict__ gamma,
                  const float* __restrict__ beta, const TIn* __restrict__ w,
                  const float* __restrict__ bias, TOut* __restrict__ y, int M, int d, int n,
-                 long long sk, long long sn, float eps, bool vec_x, bool vec_w) {
-  constexpr bool kTensorCores = std::is_same<TIn, __nv_bfloat16>::value;
-  constexpr int kVec = 16 / sizeof(TIn);
-  constexpr int kN = BK * BN / kVec / kThreads;  // w vectors per thread per tile
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int kdim = round_up(d, BK);
-  const int ldh = kdim + kPad;
-  const bool w_rows = sn == 1;  // w tile row-major [BK][ldw], else col-major [BN][ldk]
-  const int ldw = BN + kPad, ldk = BK + kPad;
-  TIn* hs = reinterpret_cast<TIn*>(smem_raw);  // [BM][ldh] x rows, then LN(x)
-  TIn* ws = hs + BM * ldh;                     // one w tile
-  float* cs = reinterpret_cast<float*>(ws + BK * ldw);  // [BM][BN] epilogue staging
+                 long long sk, long long sn, int split, float eps, bool vec_x, bool vec_w,
+                 bool vec_y) {
+  constexpr int P = 16 / sizeof(TIn), ROWS = RW_ROWS, WARPS = RW_WARPS, COLS = RW_COLS;
+  constexpr int NJ = ROWS / 8, RPW = ROWS / WARPS;
+  static_assert(COLS == 16 * WARPS, "a warp owns 16 columns");
+  extern __shared__ __align__(16) unsigned char smem[];
+  // arrive now, wait before the first write into another rank's shared
+  // memory: every rank of the cluster has started by then
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  cg::cluster_group cluster = cg::this_cluster();
+  const bool n_contig = sn == 1;
+  const RowsLayout L = rows_layout<TIn>(split, d, n_contig);
+  TIn* Xs = reinterpret_cast<TIn*>(smem);
+  TIn* Ws = reinterpret_cast<TIn*>(smem + L.w_off);
+  float* gs = reinterpret_cast<float*>(smem + L.gb_off);
+  float* Ps = reinterpret_cast<float*>(smem + L.p_off);
+  float* st = reinterpret_cast<float*>(smem + L.st_off);
+  const int rank = blockIdx.x % split;
+  const int n0 = blockIdx.x / split * COLS, m0 = blockIdx.y * ROWS, k0 = rank * L.dS;
+  const int kn = min(L.dS, d - k0);  // columns of d this rank holds (> 0)
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-
-  uint4 wr[kN];
-  load_w<TIn, kN>(wr, w, sk, sn, d, n, 0, n0, vec_w);  // in flight during the prologue
-
-  // prologue 1: this CTA's rows of x into shared memory (zeros past M, d)
+  // 1. Loads, before any dependent work. First the rows whose statistics
+  //    this rank computes (row r on rank r % split; warp w takes the rank's
+  //    rows j = w, w + 4, ..., lane l the 8-element chunks 8l, 8l + 256,
+  //    ...): the first RW_CACHE chunks of each into registers, ahead of the
+  //    copies in the memory queues. Then x's rows' slice, gamma's and
+  //    beta's slice and the column tile's bias (one cp.async group) and the
+  //    whole w slice (a second).
+  auto row = [&](int u) { return rank + split * (warp + WARPS * u); };
+  auto live = [&](int u) { return row(u) < ROWS && m0 + row(u) < M; };
+  auto xrow = [&](int u) { return x + (size_t)(m0 + row(u)) * d; };
+  const bool vec8 = d % 8 == 0 && reinterpret_cast<size_t>(x) % 16 == 0;
+  tile::Raw8<TIn> xc[RPW][RW_CACHE];
+  if (RW_LN_PASS && vec8) {
+#pragma unroll
+    for (int u = 0; u < RPW; ++u)
+#pragma unroll
+      for (int i = 0; i < RW_CACHE; ++i)
+        if (live(u) && 8 * lane + 256 * i < d) tile::load_raw(xrow(u) + 8 * lane + 256 * i, xc[u][i]);
+  }
   if (vec_x) {
-    const int vpr = d / kVec;
-    for (int base = tid; base < BM * vpr; base += kBatch * kThreads) {
-      uint4 r[kBatch];
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int i = base + u * kThreads, row = i / vpr;
-        r[u] = make_uint4(0u, 0u, 0u, 0u);
-        if (i < BM * vpr && m0 + row < M)
-          r[u] = *reinterpret_cast<const uint4*>(x + (size_t)(m0 + row) * d + (i % vpr) * kVec);
-      }
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int i = base + u * kThreads, row = i / vpr;
-        if (i < BM * vpr) {
-          const TIn* e = reinterpret_cast<const TIn*>(&r[u]);
-#pragma unroll
-          for (int j = 0; j < kVec; ++j) hs[row * ldh + (i % vpr) * kVec + j] = e[j];
-        }
-      }
+    const int per = L.dS / P;
+    for (int i = tid; i < ROWS * per; i += RW_THREADS) {
+      const int r = i / per, c = i % per * P;
+      const bool ok = m0 + r < M && c < kn;
+      tile::cp_async16(Xs + r * L.ldx + c, ok ? x + (size_t)(m0 + r) * d + k0 + c : x, ok);
     }
   } else {
-    for (int i = tid; i < BM * d; i += kThreads) {
-      const int row = i / d, k = i - row * d;
-      hs[row * ldh + k] = m0 + row < M ? x[(size_t)(m0 + row) * d + k] : from_f32<TIn>(0.f);
+    for (int i = tid; i < ROWS * L.dS; i += RW_THREADS) {
+      const int r = i / L.dS, c = i % L.dS;
+      Xs[r * L.ldx + c] =
+          m0 + r < M && c < kn ? x[(size_t)(m0 + r) * d + k0 + c] : from_f32<TIn>(0.f);
     }
   }
-  for (int i = tid; i < BM * (kdim - d); i += kThreads) {
-    const int row = i / (kdim - d);
-    hs[row * ldh + d + i - row * (kdim - d)] = from_f32<TIn>(0.f);
+  for (int i = tid; i < 2 * L.dS; i += RW_THREADS) {
+    const int c = i % L.dS;
+    tile::cp_async4(gs + i, (i < L.dS ? gamma : beta) + (c < kn ? k0 + c : 0), c < kn);
   }
-  __syncthreads();
-  // prologue 2: LayerNorm in place, one warp per row, f32 statistics
-  for (int r = warp; r < BM; r += kThreads / 32) {
-    if (m0 + r >= M) continue;  // padding rows stay zero
-    TIn* hr = hs + r * ldh;
-    float s = 0.f;
-    for (int k = lane; k < d; k += 32) s += to_f32(hr[k]);
-    const float mu = warp_sum(s) / d;
-    float v = 0.f;
-    for (int k = lane; k < d; k += 32) {
-      const float t = to_f32(hr[k]) - mu;
-      v += t * t;
-    }
-    const float inv = rsqrtf(warp_sum(v) / d + eps);
-    for (int k = lane; k < d; k += 32) {
-      const float xhat = (to_f32(hr[k]) - mu) * inv;
-      hr[k] = from_f32<TIn>(xhat * gamma[k] + beta[k]);
-    }
-  }
+  for (int i = tid; i < COLS; i += RW_THREADS)  // the bias, needed only at the end
+    tile::cp_async4(gs + 2 * L.dS + i, bias + (n0 + i < n ? n0 + i : 0), n0 + i < n);
+  tile::cp_async_commit();
+  rows_load_w<TIn>(Ws, L.ldw, w, sk, sn, d, n, k0, n0, L.dS, vec_w);
+  tile::cp_async_commit();
 
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> cfrag;
-  float acc[BM * BN / kThreads];
-  if constexpr (kTensorCores) {
-    nvcuda::wmma::fill_fragment(cfrag, 0.f);
-  } else {
+  // 2. The statistics while the copies fly: the mean, then the mean of
+  //    squared deviations, both passes over the registers (a row longer
+  //    than the cache reads the rest again); each rank writes its rows'
+  //    mean and rstd into every rank's shared memory, one cluster barrier
+  //    makes them whole, and each rank normalises its slice of every row in
+  //    place, rounded to x's dtype.
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");  // every rank has started
+  if constexpr (RW_LN_PASS) {
+    float s[RPW], mu[RPW];
 #pragma unroll
-    for (int i = 0; i < BM * BN / kThreads; ++i) acc[i] = 0.f;
-  }
-  const int fc = tid % BN;                           // f32 path: this thread's column
-  const int fr = (tid / BN) * (BM * BN / kThreads);  // and its first row
-
-  for (int k0 = 0; k0 < kdim; k0 += BK) {
-    __syncthreads();  // LN(x) written (first pass) / previous tile consumed
-    store_w<TIn, kN>(ws, wr, sn);
-    __syncthreads();
-    if (k0 + BK < kdim)  // the next tile's loads fly during this tile's products
-      load_w<TIn, kN>(wr, w, sk, sn, d, n, k0 + BK, n0, vec_w);
-    if constexpr (kTensorCores) {
-      nvcuda::wmma::fragment<nvcuda::wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                             nvcuda::wmma::row_major> afrag;
-      if (w_rows) {
-        nvcuda::wmma::fragment<nvcuda::wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                               nvcuda::wmma::row_major> bfrag;
+    for (int u = 0; u < RPW; ++u) s[u] = 0.f;
+    if (vec8) {
+      auto pass = [&](auto&& f) {
 #pragma unroll
-        for (int kk = 0; kk < BK; kk += 16) {
-          nvcuda::wmma::load_matrix_sync(afrag, hs + k0 + kk, ldh);
-          nvcuda::wmma::load_matrix_sync(bfrag, ws + kk * ldw + warp * 16, ldw);
-          nvcuda::wmma::mma_sync(cfrag, afrag, bfrag, cfrag);
+        for (int u = 0; u < RPW; ++u) {
+          if (!live(u)) continue;
+          float v[8];
+#pragma unroll
+          for (int i = 0; i < RW_CACHE; ++i)
+            if (8 * lane + 256 * i < d) {
+              tile::unpack(xc[u][i], v);
+              f(u, v);
+            }
+          for (int k = 8 * lane + 256 * RW_CACHE; k < d; k += 256) {
+            tile::load8(xrow(u) + k, v);
+            f(u, v);
+          }
         }
-      } else {
-        nvcuda::wmma::fragment<nvcuda::wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                               nvcuda::wmma::col_major> bfrag;
+      };
+      using F8 = float[8];
+      pass([&](int u, const F8& v) {
 #pragma unroll
-        for (int kk = 0; kk < BK; kk += 16) {
-          nvcuda::wmma::load_matrix_sync(afrag, hs + k0 + kk, ldh);
-          nvcuda::wmma::load_matrix_sync(bfrag, ws + warp * 16 * ldk + kk, ldk);
-          nvcuda::wmma::mma_sync(cfrag, afrag, bfrag, cfrag);
-        }
+        for (int q = 0; q < 8; ++q) s[u] += v[q];
+      });
+#pragma unroll
+      for (int u = 0; u < RPW; ++u) mu[u] = warp_sum(s[u]) / d, s[u] = 0.f;
+      pass([&](int u, const F8& v) {
+#pragma unroll
+        for (int q = 0; q < 8; ++q) s[u] += (v[q] - mu[u]) * (v[q] - mu[u]);
+      });
+    } else {
+#pragma unroll
+      for (int u = 0; u < RPW; ++u)
+        if (live(u))
+          for (int k = lane; k < d; k += 32) s[u] += to_f32(xrow(u)[k]);
+#pragma unroll
+      for (int u = 0; u < RPW; ++u) mu[u] = warp_sum(s[u]) / d, s[u] = 0.f;
+#pragma unroll
+      for (int u = 0; u < RPW; ++u)
+        if (live(u))
+          for (int k = lane; k < d; k += 32) {
+            const float v = to_f32(xrow(u)[k]) - mu[u];
+            s[u] += v * v;
+          }
+    }
+#pragma unroll
+    for (int u = 0; u < RPW; ++u) {
+      const float rs = rsqrtf(warp_sum(s[u]) / d + eps);
+      if (live(u) && lane < split) {  // lane q writes rank q's copy
+        float* dst = cluster.map_shared_rank(st, lane);
+        dst[row(u)] = mu[u];
+        dst[ROWS + row(u)] = rs;
+      }
+    }
+    tile::cp_async_wait<1>();  // this thread's x, gamma, beta copies have landed
+    cluster.sync();            // ... everyone's, and every row's statistics
+    // h = (x - mean) * rstd * gamma + beta over this rank's slice, in place
+    if (d % P == 0) {
+      const int per = L.dS / P;
+      for (int i = tid; i < ROWS * per; i += RW_THREADS) {
+        const int r = i / per, c = i % per * P;
+        if (m0 + r < M && c < kn)
+          tile::ln_chunk(Xs + r * L.ldx + c, st[r], st[ROWS + r], gs + c, gs + L.dS + c);
       }
     } else {
-      for (int kk = 0; kk < BK; ++kk) {
-        const float wv = to_f32(w_rows ? ws[kk * ldw + fc] : ws[fc * ldk + kk]);
-#pragma unroll
-        for (int i = 0; i < BM * BN / kThreads; ++i)
-          acc[i] = fmaf(to_f32(hs[(fr + i) * ldh + k0 + kk]), wv, acc[i]);
+      for (int i = tid; i < ROWS * L.dS; i += RW_THREADS) {
+        const int r = i / L.dS, c = i % L.dS;
+        if (m0 + r < M && c < kn) {
+          TIn* p = Xs + r * L.ldx + c;
+          *p = from_f32<TIn>((to_f32(*p) - st[r]) * st[ROWS + r] * gs[c] + gs[L.dS + c]);
+        }
       }
     }
   }
 
-  // epilogue: + bias in f32, cast, masked store
-  if constexpr (kTensorCores) {
-    nvcuda::wmma::store_matrix_sync(cs + warp * 16, cfrag, BN, nvcuda::wmma::mem_row_major);
-    __syncthreads();
-    for (int i = tid; i < BM * BN; i += kThreads) {
-      const int r = i / BN, c = i - r * BN;
-      const int m = m0 + r, col = n0 + c;
-      if (m < M && col < n) y[(size_t)m * n + col] = from_f32<TOut>(cs[i] + bias[col]);
+  // 3. The product, w as the A operand: acc[0][j] holds columns wm.. of n
+  //    by token rows 8j.. .
+  float acc[1][NJ][4];
+  tile::zero(acc);
+  const int wm = warp * 16;
+  auto product = [&](int ka, int kb) {
+    for (int kk = ka; kk < kb; kk += RW_KSTEP) {
+      if (n_contig)
+        tile::warp_tile_rows<1, NJ, true, RW_KSTEP>(acc, Ws + kk * L.ldw, L.ldw, Xs + kk,
+                                                    L.ldx, false, wm, 0, lane);
+      else
+        tile::warp_tile_rows<1, NJ, false, RW_KSTEP>(acc, Ws + kk, L.ldw, Xs + kk, L.ldx,
+                                                     false, wm, 0, lane);
     }
-  } else {
-    const int col = n0 + fc;
+  };
+  tile::cp_async_wait<0>();
+  __syncthreads();  // the w slice and h are whole
+  product(0, L.dS);
+
+  // 4. Each partial into the shared memory of the rank that owns its chunk
+  //    (chunk i: 8 columns of one row, the (i / split)-th of rank i %
+  //    split), at [this rank]; one barrier; then each
+  //    rank sums its chunks over the ranks in order, from its own shared
+  //    memory alone, so no rank reads another's after the barrier and none
+  //    waits to leave.
+  constexpr int CPR = COLS / RW_CHUNK;
+  {
+    const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-    for (int i = 0; i < BM * BN / kThreads; ++i) {
-      const int m = m0 + fr + i;
-      if (m < M && col < n) y[(size_t)m * n + col] = from_f32<TOut>(acc[i] + bias[col]);
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = 8 * j + 2 * t + (e & 1), c = wm + g + 8 * (e >> 1);
+        if (m0 + r < M && n0 + c < n) {
+          const int i = r * CPR + c / RW_CHUNK;
+          const int owner = RW_CLUSTER_SUM ? i % split : rank;
+          cluster.map_shared_rank(Ps, owner)[(rank * L.nch + i / split) * RW_CHUNK +
+                                             c % RW_CHUNK] = acc[0][j][e];
+        }
+      }
+  }
+  cluster.sync();  // every partial has reached its owner
+  for (int i = rank + split * tid; i < ROWS * CPR; i += split * RW_THREADS) {
+    const int r = i / CPR, c = i % CPR * RW_CHUNK;
+    const int m = m0 + r, col = n0 + c;
+    if (m >= M || col >= n) continue;
+    float v[RW_CHUNK] = {};
+    for (int q = 0; q < (RW_CLUSTER_SUM ? split : 1); ++q) {
+      const int from = RW_CLUSTER_SUM ? q : rank;
+      const float4* p =
+          reinterpret_cast<const float4*>(Ps + (from * L.nch + i / split) * RW_CHUNK);
+      const float4 a = p[0], b = p[1];
+      v[0] += a.x, v[1] += a.y, v[2] += a.z, v[3] += a.w;
+      v[4] += b.x, v[5] += b.y, v[6] += b.z, v[7] += b.w;
+    }
+#pragma unroll
+    for (int e = 0; e < RW_CHUNK; ++e) v[e] += gs[2 * L.dS + c + e];
+    TOut* out = y + (size_t)m * n + col;
+    if (vec_y && col + RW_CHUNK <= n) {
+      tile::store8(out, v);
+    } else {
+      for (int e = 0; e < RW_CHUNK && col + e < n; ++e) out[e] = from_f32<TOut>(v[e]);
     }
   }
 }
 
+// split (1..8, no empty d-slice): the wrapper's rows_plan
 template <typename TIn, typename TOut>
 int launch(const void* x, const void* gamma, const void* beta, const void* w,
-           const void* bias, void* y, int M, int d, int n, int sk, int sn, float eps,
+           const void* bias, void* y, int M, int d, int n, int sk, int sn, int split, float eps,
            void* stream) {
-  if (d < 1 || n < 1 || (sk != 1 && sn != 1)) return (int)cudaErrorInvalidValue;
+  if (d < 1 || n < 1 || M < 0 || (sk != 1 && sn != 1) || split < 1 || split > RW_MAX_SPLIT)
+    return (int)cudaErrorInvalidValue;
+  const RowsLayout L = rows_layout<TIn>(split, d, sn == 1);
+  if ((split - 1) * L.dS >= d || L.bytes > 232448 || (M + RW_ROWS - 1) / RW_ROWS > 65535)
+    return (int)cudaErrorInvalidValue;
   if (M == 0) return (int)cudaSuccess;
-  constexpr int kVec = 16 / sizeof(TIn);
-  const bool vec_x = d % kVec == 0 && reinterpret_cast<size_t>(x) % 16 == 0;
+  constexpr int P = 16 / sizeof(TIn);
+  const bool vec_x = d % P == 0 && tile::aligned16(x);
   // vectors run along the unit-stride dim: its extent and the other
   // stride must keep every vector whole and 16-byte aligned
-  const bool vec_w = reinterpret_cast<size_t>(w) % 16 == 0 &&
-                     (sn == 1 ? n % kVec == 0 && sk % kVec == 0
-                              : d % kVec == 0 && sn % kVec == 0);
-  const size_t smem = sizeof(TIn) * ((size_t)BM * (round_up(d, BK) + kPad) +
-                                     (size_t)BK * (BN + kPad)) +
-                      sizeof(float) * BM * BN;
+  const bool vec_w = tile::aligned16(w) && (sn == 1 ? n % P == 0 && sk % P == 0
+                                                    : d % P == 0 && sn % P == 0);
+  const bool vec_y = n % RW_CHUNK == 0 && tile::aligned16(y);
   auto kern = ln_matmul_kernel<TIn, TOut>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  dim3 grid((n + BN - 1) / BN, (M + BM - 1) / BM);
-  kern<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const TIn*)x, (const float*)gamma, (const float*)beta, (const TIn*)w,
-      (const float*)bias, (TOut*)y, M, d, n, (long long)sk, (long long)sn, eps, vec_x, vec_w);
+  int e = tile::set_smem(kern, L.bytes);
+  if (e) return e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((n + RW_COLS - 1) / RW_COLS * split, (M + RW_ROWS - 1) / RW_ROWS);
+  cfg.blockDim = dim3(RW_THREADS);
+  cfg.dynamicSmemBytes = L.bytes;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = (int)cudaLaunchKernelEx(&cfg, kern, (const TIn*)x, (const float*)gamma,
+                              (const float*)beta, (const TIn*)w, (const float*)bias, (TOut*)y,
+                              M, d, n, (long long)sk, (long long)sn, split, eps, vec_x, vec_w,
+                              vec_y);
+  if (e) return e;
   return (int)cudaGetLastError();
 }
 
@@ -543,25 +683,17 @@ int launch_tiled(const void* x, const void* gamma, const void* beta, const void*
 
 extern "C" {
 
-int ln_matmul_f32(const void* x, const void* gamma, const void* beta, const void* w,
-                  const void* bias, void* y, int M, int d, int n, int sk, int sn, float eps,
-                  void* stream) {
-  return launch<float, float>(x, gamma, beta, w, bias, y, M, d, n, sk, sn, eps, stream);
-}
+#define DTF_ROWS_ARGS                                                                  \
+  const void *x, const void *gamma, const void *beta, const void *w, const void *bias, \
+      void *y, int M, int d, int n, int sk, int sn, int split, float eps, void *stream
+#define DTF_ROWS_PASS x, gamma, beta, w, bias, y, M, d, n, sk, sn, split, eps, stream
 
-int ln_matmul_bf16(const void* x, const void* gamma, const void* beta, const void* w,
-                   const void* bias, void* y, int M, int d, int n, int sk, int sn, float eps,
-                   void* stream) {
-  return launch<__nv_bfloat16, __nv_bfloat16>(x, gamma, beta, w, bias, y, M, d, n, sk, sn,
-                                              eps, stream);
+int ln_matmul_f32(DTF_ROWS_ARGS) { return launch<float, float>(DTF_ROWS_PASS); }
+int ln_matmul_bf16(DTF_ROWS_ARGS) {
+  return launch<__nv_bfloat16, __nv_bfloat16>(DTF_ROWS_PASS);
 }
+int ln_matmul_bf16_f32(DTF_ROWS_ARGS) { return launch<__nv_bfloat16, float>(DTF_ROWS_PASS); }
 
-int ln_matmul_bf16_f32(const void* x, const void* gamma, const void* beta, const void* w,
-                       const void* bias, void* y, int M, int d, int n, int sk, int sn,
-                       float eps, void* stream) {
-  return launch<__nv_bfloat16, float>(x, gamma, beta, w, bias, y, M, d, n, sk, sn, eps,
-                                      stream);
-}
 
 #define DTF_TILED_ARGS                                                                   \
   const void *x, const void *gamma, const void *beta, const void *w, const void *bias,   \

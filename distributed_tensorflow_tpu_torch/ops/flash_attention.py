@@ -149,8 +149,7 @@ def _check(q, k, v, kv_mask, *extra):
 
 def _common_tail(q, k, causal, scale):
     B, H, Sq, D = q.shape
-    return [B, H, Sq, k.shape[2], D, int(bool(causal)), float(scale),
-            torch.cuda.current_stream(q.device).cuda_stream]
+    return [B, H, Sq, k.shape[2], D, int(bool(causal)), float(scale)]
 
 
 def flash_fwd(q, k, v, kv_mask=None, *, causal: bool = False, sm_scale: float | None = None):
@@ -163,11 +162,9 @@ def flash_fwd(q, k, v, kv_mask=None, *, causal: bool = False, sm_scale: float | 
     B, H, Sq, D = q.shape
     out = torch.empty(B, H, Sq, D, dtype=q.dtype, device=q.device)
     lse = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
-    lib = _build.load("flash_attention")
-    rc = getattr(lib, f"flash_fwd_{_SUFFIX[q.dtype]}")(
-        *qa, *ka, *va, kv_mask.data_ptr() if kv_mask is not None else None,
-        out.data_ptr(), lse.data_ptr(), *_common_tail(q, k, causal, _scale(q, sm_scale)))
-    _build.check(lib, rc, "flash_fwd")
+    _build.launch(_build.load("flash_attention"), f"flash_fwd_{_SUFFIX[q.dtype]}", "flash_fwd",
+                  q.device, *qa, *ka, *va, kv_mask.data_ptr() if kv_mask is not None else None,
+                  out.data_ptr(), lse.data_ptr(), *_common_tail(q, k, causal, _scale(q, sm_scale)))
     flash_fwd.launches += 1
     return out, lse
 
@@ -200,10 +197,9 @@ def flash_bwd_dkv(q, k, v, kv_mask, out, lse, dout, *, causal: bool = False,
     args, _alive = _bwd_args(q, k, v, kv_mask, out, lse, dout)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    lib = _build.load("flash_attention")
-    rc = getattr(lib, f"flash_bwd_dkv_{_SUFFIX[q.dtype]}")(
-        *args, dk.data_ptr(), dv.data_ptr(), *_common_tail(q, k, causal, _scale(q, sm_scale)))
-    _build.check(lib, rc, "flash_bwd_dkv")
+    _build.launch(_build.load("flash_attention"), f"flash_bwd_dkv_{_SUFFIX[q.dtype]}",
+                  "flash_bwd_dkv", q.device, *args, dk.data_ptr(), dv.data_ptr(),
+                  *_common_tail(q, k, causal, _scale(q, sm_scale)))
     flash_bwd_dkv.launches += 1
     return dk, dv
 
@@ -217,10 +213,9 @@ def flash_bwd_dq(q, k, v, kv_mask, out, lse, dout, *, causal: bool = False,
                                          causal=causal, sm_scale=sm_scale)[0]
     args, _alive = _bwd_args(q, k, v, kv_mask, out, lse, dout)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    lib = _build.load("flash_attention")
-    rc = getattr(lib, f"flash_bwd_dq_{_SUFFIX[q.dtype]}")(
-        *args, dq.data_ptr(), *_common_tail(q, k, causal, _scale(q, sm_scale)))
-    _build.check(lib, rc, "flash_bwd_dq")
+    _build.launch(_build.load("flash_attention"), f"flash_bwd_dq_{_SUFFIX[q.dtype]}",
+                  "flash_bwd_dq", q.device, *args, dq.data_ptr(),
+                  *_common_tail(q, k, causal, _scale(q, sm_scale)))
     flash_bwd_dq.launches += 1
     return dq
 

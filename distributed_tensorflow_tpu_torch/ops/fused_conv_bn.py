@@ -336,13 +336,11 @@ def _launch_fwd(x, w, scale, shift, relu, emit_stats, plan):
     ws = torch.empty(2 * G * cout if emit_stats else 1, dtype=torch.float32, device=dev)
     s = torch.empty(cout, dtype=torch.float32, device=dev) if emit_stats else None
     ssq = torch.empty(cout, dtype=torch.float32, device=dev) if emit_stats else None
-    lib = _build.load("fused_conv_bn")
-    rc = getattr(lib, f"conv_bn_fwd_{_SUFFIX[x.dtype]}")(
-        x.data_ptr(), w.data_ptr(), sk, sn, _ptr(scale), _ptr(shift), y.data_ptr(),
-        ws.data_ptr(), _ptr(s), _ptr(ssq), M, cin, cout, G, plan["tile"][1],
-        int(scale is not None), int(bool(relu)), int(bool(emit_stats)),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, rc, "conv1x1_bn_fwd")
+    _build.launch(_build.load("fused_conv_bn"), f"conv_bn_fwd_{_SUFFIX[x.dtype]}",
+                  "conv1x1_bn_fwd", dev, x.data_ptr(), w.data_ptr(), sk, sn, _ptr(scale),
+                  _ptr(shift), y.data_ptr(), ws.data_ptr(), _ptr(s), _ptr(ssq), M, cin, cout,
+                  G, plan["tile"][1], int(scale is not None), int(bool(relu)),
+                  int(bool(emit_stats)))
     return y, s, ssq
 
 
@@ -388,13 +386,11 @@ def conv1x1_bn_bwd_dx(x, y, dy, w, scale=None, shift=None, dsum=None, dssq=None,
     ws = torch.empty(2 * G * cin if prologue else 1, dtype=torch.float32, device=dev)
     dscale = torch.empty(cin, dtype=torch.float32, device=dev) if prologue else None
     dshift = torch.empty(cin, dtype=torch.float32, device=dev) if prologue else None
-    lib = _build.load("fused_conv_bn")
-    rc = getattr(lib, f"conv_bn_bwd_dx_{sfx}")(
-        x.data_ptr(), y.data_ptr(), dy.data_ptr(), w.data_ptr(), sk, sn, _ptr(scale),
-        _ptr(shift), _ptr(dsum), _ptr(dssq), dx.data_ptr(), ws.data_ptr(), _ptr(dscale),
-        _ptr(dshift), M, cin, cout, G, int(prologue), int(bool(relu)), int(bool(emit_stats)),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, rc, "conv1x1_bn_bwd_dx")
+    _build.launch(_build.load("fused_conv_bn"), f"conv_bn_bwd_dx_{sfx}", "conv1x1_bn_bwd_dx",
+                  dev, x.data_ptr(), y.data_ptr(), dy.data_ptr(), w.data_ptr(), sk, sn,
+                  _ptr(scale), _ptr(shift), _ptr(dsum), _ptr(dssq), dx.data_ptr(),
+                  ws.data_ptr(), _ptr(dscale), _ptr(dshift), M, cin, cout, G, int(prologue),
+                  int(bool(relu)), int(bool(emit_stats)))
     conv1x1_bn_bwd_dx.launches += 1
     return dx, dscale, dshift
 
@@ -407,13 +403,11 @@ def _launch_dw(x, y, dy, scale, shift, dsum, dssq, relu, emit_stats, plan):
     G, dev = plan["G"], x.device
     ws = torch.empty(G * cin * cout, dtype=torch.float32, device=dev)
     dw = torch.empty(cin, cout, dtype=torch.float32, device=dev)
-    lib = _build.load("fused_conv_bn")
-    rc = getattr(lib, f"conv_bn_bwd_dw_{_SUFFIX[x.dtype]}")(
-        x.data_ptr(), y.data_ptr(), dy.data_ptr(), _ptr(scale), _ptr(shift), _ptr(dsum),
-        _ptr(dssq), ws.data_ptr(), dw.data_ptr(), M, cin, cout, G, plan["tile"][1],
-        int(scale is not None), int(bool(relu)), int(bool(emit_stats)),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, rc, "conv1x1_bn_bwd_dw")
+    _build.launch(_build.load("fused_conv_bn"), f"conv_bn_bwd_dw_{_SUFFIX[x.dtype]}",
+                  "conv1x1_bn_bwd_dw", dev, x.data_ptr(), y.data_ptr(), dy.data_ptr(),
+                  _ptr(scale), _ptr(shift), _ptr(dsum), _ptr(dssq), ws.data_ptr(),
+                  dw.data_ptr(), M, cin, cout, G, plan["tile"][1], int(scale is not None),
+                  int(bool(relu)), int(bool(emit_stats)))
     return dw
 
 
@@ -461,13 +455,11 @@ def conv1x1_bn_bwd_single(x, y, dy, w, scale=None, shift=None, dsum=None, dssq=N
     dw = torch.empty(cin, cout, dtype=torch.float32, device=dev)
     dscale = torch.empty(cin, dtype=torch.float32, device=dev) if prologue else None
     dshift = torch.empty(cin, dtype=torch.float32, device=dev) if prologue else None
-    lib = _build.load("fused_conv_bn")
-    rc = getattr(lib, f"conv_bn_bwd_single_{sfx}")(
-        x.data_ptr(), y.data_ptr(), dy.data_ptr(), w.data_ptr(), sk, sn, _ptr(scale),
-        _ptr(shift), _ptr(dsum), _ptr(dssq), dx.data_ptr(), ws.data_ptr(), dw.data_ptr(),
-        _ptr(dscale), _ptr(dshift), M, cin, cout, G, int(prologue), int(bool(relu)),
-        int(bool(emit_stats)), torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, rc, "conv1x1_bn_bwd_single")
+    _build.launch(_build.load("fused_conv_bn"), f"conv_bn_bwd_single_{sfx}",
+                  "conv1x1_bn_bwd_single", dev, x.data_ptr(), y.data_ptr(), dy.data_ptr(),
+                  w.data_ptr(), sk, sn, _ptr(scale), _ptr(shift), _ptr(dsum), _ptr(dssq),
+                  dx.data_ptr(), ws.data_ptr(), dw.data_ptr(), _ptr(dscale), _ptr(dshift), M,
+                  cin, cout, G, int(prologue), int(bool(relu)), int(bool(emit_stats)))
     conv1x1_bn_bwd_single.launches += 1
     return dx, dw, dscale, dshift
 

@@ -38,14 +38,17 @@ dx kernels and then the dw kernel.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from . import _build
 from ._policy import mm_exact, mm_library, resolve_bwd_impl
 
 #: shared memory a CTA may use (227 KB on Hopper); the serving forward's
-#: needs 16 normalised rows of width d (padded to 128) plus one 128x64 w
-#: tile and the f32 epilogue tile
+#: needs its rows' d-slice, its whole w slice and its f32 partial tile
+#: (``rows_smem``)
 _SMEM_LIMIT = 232448
 
 
@@ -86,10 +89,13 @@ TILE_CTAS_PER_SM = 1
 DW_STAGE_ROWS = 64
 DW_MAX_G = 8
 #: the forward takes the tiled path (row statistics, then a 2-D tiled
-#: product) from this many rows up, and the row-tile kernel below it:
+#: product) from this many rows up, and the serving kernel below it:
 #: every serving call (decode slots, one prefill chunk, a verify step). On
-#: an H100 at d=768, n=3072 the tiled pair is slower at M=128 (0.041 vs
-#: 0.023 ms) and faster at M=256 (0.041 vs 0.043; PERF.md)
+#: an H100 at d=768, n=3072 the tiled pair is slower at M=128 (0.0411 vs
+#: 0.0288 ms), and faster from M=192 (0.0406 vs 0.0422) by 4-7% (PERF.md);
+#: the threshold stays above that, since the tiled pair takes only d and n
+#: multiples of 8 with 16-byte aligned bases and the serving kernel any
+#: shape
 LN_TILED_MIN_M = 256
 
 _SMS: dict = {}
@@ -164,6 +170,72 @@ _ENTRY = {
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
+#: the serving forward (``ln_matmul_kernel``), as its source states them:
+#: rows of M and columns of n a CTA, the depth of the mma's step (a rank's
+#: d-slice is whole steps of it) and the most ranks of a cluster that split
+#: d (the portable cluster size)
+_RW = _build.constants("ln_matmul")
+ROWS_TILE, ROWS_COLS, ROWS_KSTEP = _RW["RW_ROWS"], _RW["RW_COLS"], _RW["RW_KSTEP"]
+ROWS_SPLITS = tuple(1 << i for i in range(_RW["RW_MAX_SPLIT"].bit_length()))
+#: a rank's d-slice is no deeper than this where a split allows it (the
+#: CTA holds its whole w slice at once: 512 deep keeps an f32 CTA within
+#: shared memory)
+ROWS_MAX_SLICE = 512
+#: serving-forward CTAs an SM holds at gpt_small's shapes (about 40 KB of
+#: shared memory each): the plan keeps its grid within one such wave
+ROWS_CTAS_PER_SM = 4
+
+
+class RowsPlan(NamedTuple):
+    """``rows_plan``'s launch: ``split`` ranks of a cluster split d, each
+    owning a ``slice`` of it; ``grid``: (column tiles x split, row tiles)."""
+    split: int
+    slice: int
+    grid: tuple[int, int]
+
+
+def _slice(d: int, split: int) -> int:
+    """The depth of a rank's d-slice when ``split`` ranks share d."""
+    return -(-(-(-d // split)) // ROWS_KSTEP) * ROWS_KSTEP
+
+
+@functools.lru_cache(maxsize=None)
+def rows_plan(M: int, d: int, n: int, sms: int) -> RowsPlan:
+    """The serving forward's launch plan, from the shapes and the SM count
+    alone (so the partial sums' order is fixed per card model; a pure
+    function, so each shape's plan is computed once).
+
+    The splits considered are ``ROWS_SPLITS`` with no empty slice (each a
+    multiple of ``ROWS_KSTEP``), of those the ones whose slice is at most
+    ``ROWS_MAX_SLICE`` deep (else the deepest split alone). The plan takes
+    the largest whose grid of ``ROWS_TILE`` x ``ROWS_COLS`` tiles fits one
+    wave of ``ROWS_CTAS_PER_SM`` CTAs an SM (each CTA streams its whole w
+    slice at once, and a second wave waits for the first), else the
+    smallest."""
+    ctiles, mtiles = -(-n // ROWS_COLS), -(-M // ROWS_TILE)
+    splits = [S for S in ROWS_SPLITS if (S - 1) * _slice(d, S) < d]
+    shallow = [S for S in splits if _slice(d, S) <= ROWS_MAX_SLICE] or splits[-1:]
+    fits = [S for S in shallow if ctiles * S * mtiles <= ROWS_CTAS_PER_SM * sms]
+    split = fits[-1] if fits else shallow[0]
+    return RowsPlan(split, _slice(d, split), (ctiles * split, mtiles))
+
+
+@functools.lru_cache(maxsize=None)
+def rows_smem(plan: RowsPlan, esz: int, n_contig: bool) -> int:
+    """Shared memory of one serving-forward CTA at ``plan`` (bytes; the
+    kernel's ``rows_layout``): x's rows' d-slice padded by 16 bytes a row,
+    the w slice (``[slice][ROWS_COLS]`` when n is contiguous, else
+    ``[ROWS_COLS][slice]``, padded likewise), gamma's and beta's slice and
+    the column tile's bias (f32), the f32 partials that reach the CTA: of
+    its share of the tile's 8-column chunks, from every rank, and the rows'
+    mean and rstd."""
+    p, dS = 16 // esz, plan.slice
+    w = dS * (ROWS_COLS + p) if n_contig else ROWS_COLS * (dS + p)
+    owned = -(-(ROWS_TILE * ROWS_COLS // 8) // plan.split)
+    return (esz * (ROWS_TILE * (dS + p) + w) + 4 * (2 * dS + ROWS_COLS)
+            + 32 * plan.split * owned + 8 * ROWS_TILE)
+
+
 def fwd_plan(M: int) -> str:
     """The forward kernel for M rows: below ``LN_TILED_MIN_M`` the row-tile
     ``ln_matmul_kernel``; from there up ``ln_matmul_tiled_kernel`` (after
@@ -208,21 +280,21 @@ def _fwd(x, gamma, beta, w, bias, eps, out_dtype):
 
 
 def _launch_fwd_rows(x, gamma, beta, w, bias, eps, out_dtype):
-    """the row-tile forward on validated CUDA tensors (``bias`` given)."""
+    """The serving forward on validated CUDA tensors (``bias`` given), at
+    ``rows_plan``'s plan; raises where a CTA would need more shared memory
+    than ``_SMEM_LIMIT``."""
     M, d = x.shape
     n = w.shape[1]
-    smem = x.element_size() * (16 * (-(-d // 128) * 128 + 8) + 128 * 72) + 4 * 16 * 64
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"d={d} needs {smem} bytes of shared memory per CTA "
-                         f"(limit {_SMEM_LIMIT})")
-    y = torch.empty(M, n, dtype=out_dtype, device=x.device)
-    lib = _build.load("ln_matmul")
     sk, sn = w.stride()
-    rc = getattr(lib, _ENTRY[(x.dtype, out_dtype)])(
-        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w.data_ptr(),
-        bias.data_ptr(), y.data_ptr(), M, d, n, sk, sn, float(eps),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, rc, "ln_matmul")
+    plan = rows_plan(M, d, n, _sms(x.device))
+    smem = rows_smem(plan, x.element_size(), sn == 1)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"ln_matmul: d={d} needs {smem} bytes of shared memory per CTA "
+                         f"at {plan} (limit {_SMEM_LIMIT})")
+    y = torch.empty(M, n, dtype=out_dtype, device=x.device)
+    _build.launch(_build.load("ln_matmul"), _ENTRY[(x.dtype, out_dtype)], "ln_matmul",
+                  x.device, x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w.data_ptr(),
+                  bias.data_ptr(), y.data_ptr(), M, d, n, sk, sn, plan.split, float(eps))
     ln_matmul.launches += 1
     return y
 
@@ -241,12 +313,11 @@ def _launch_fwd_tiled(x, gamma, beta, w, bias, eps, out_dtype):
     sk, sn = w.stride()
     stats = torch.empty(2 * M, dtype=torch.float32, device=x.device)
     y = torch.empty(M, n, dtype=out_dtype, device=x.device)
-    lib = _build.load("ln_matmul")
-    rc = getattr(lib, _ENTRY[(x.dtype, out_dtype)].replace("ln_matmul", "ln_matmul_tiled"))(
-        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w.data_ptr(), bias.data_ptr(),
-        y.data_ptr(), stats.data_ptr(), M, d, n, sk, sn, float(eps),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, rc, "ln_matmul")
+    _build.launch(_build.load("ln_matmul"),
+                  _ENTRY[(x.dtype, out_dtype)].replace("ln_matmul", "ln_matmul_tiled"),
+                  "ln_matmul", x.device, x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                  w.data_ptr(), bias.data_ptr(), y.data_ptr(), stats.data_ptr(), M, d, n, sk,
+                  sn, float(eps))
     ln_matmul.launches += 1
     ln_matmul.tiled_launches += 1
     return y
@@ -352,12 +423,10 @@ def ln_matmul_bwd_dx(x, gamma, w, dy, *, eps: float = 1e-6):
     ws = torch.empty(plan["ws"], dtype=torch.float32, device=dev)
     out = torch.empty(2 * d + n, dtype=torch.float32, device=dev)
     sk, sn = w.stride()
-    lib = _build.load("ln_matmul_bwd")
-    rc = getattr(lib, f"ln_bwd_dx_{sfx}")(
-        x.data_ptr(), gamma.data_ptr(), w.data_ptr(), sk, sn, dy.data_ptr(), dx.data_ptr(),
-        stats[0].data_ptr(), stats[1].data_ptr(), ws.data_ptr(), out.data_ptr(), M, d, n,
-        plan["rows_grid"], float(eps), torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, rc, "ln_matmul_bwd_dx")
+    _build.launch(_build.load("ln_matmul_bwd"), f"ln_bwd_dx_{sfx}", "ln_matmul_bwd_dx", dev,
+                  x.data_ptr(), gamma.data_ptr(), w.data_ptr(), sk, sn, dy.data_ptr(),
+                  dx.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(), ws.data_ptr(),
+                  out.data_ptr(), M, d, n, plan["rows_grid"], float(eps))
     ln_matmul_bwd_dx.launches += 1
     return dx, out[:d], out[d:2 * d], out[2 * d:], stats[0], stats[1]
 
@@ -369,12 +438,10 @@ def _launch_dw(x, gamma, beta, dy, mean, rstd, G):
     n = dy.shape[1]
     ws = torch.empty(G * d * n, dtype=torch.float32, device=x.device)
     dw = torch.empty(d, n, dtype=x.dtype, device=x.device)
-    lib = _build.load("ln_matmul_bwd")
-    rc = getattr(lib, f"ln_bwd_dw_{_SUFFIX[x.dtype]}")(
-        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), dy.data_ptr(), mean.data_ptr(),
-        rstd.data_ptr(), ws.data_ptr(), dw.data_ptr(), M, d, n, G,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, rc, "ln_matmul_bwd_dw")
+    _build.launch(_build.load("ln_matmul_bwd"), f"ln_bwd_dw_{_SUFFIX[x.dtype]}",
+                  "ln_matmul_bwd_dw", x.device, x.data_ptr(), gamma.data_ptr(),
+                  beta.data_ptr(), dy.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+                  ws.data_ptr(), dw.data_ptr(), M, d, n, G)
     return dw
 
 

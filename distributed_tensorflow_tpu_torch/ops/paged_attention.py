@@ -136,14 +136,11 @@ def paged_flash_attention(
     # per-split partial results the kernel's second pass merges
     part_acc = torch.empty(B * H * splits * S * D, dtype=torch.float32, device=q.device)
     part_ml = torch.empty(B * H * splits * S * 2, dtype=torch.float32, device=q.device)
-    fn = (lib.paged_attention_bf16 if q.dtype == torch.bfloat16
-          else lib.paged_attention_f32)
-    rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            block_table.data_ptr(), q_pos.data_ptr(), out.data_ptr(),
-            part_acc.data_ptr(), part_ml.data_ptr(),
-            B, H, S, D, NB, bs, MB, float(scale),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, rc, "paged_attention")
+    entry = "paged_attention_bf16" if q.dtype == torch.bfloat16 else "paged_attention_f32"
+    _build.launch(lib, entry, "paged_attention", q.device, q.data_ptr(), k_pool.data_ptr(),
+                  v_pool.data_ptr(), block_table.data_ptr(), q_pos.data_ptr(),
+                  out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
+                  B, H, S, D, NB, bs, MB, float(scale))
     paged_flash_attention.launches += 1
     return out
 

@@ -5,6 +5,7 @@ library built before the edit. And every source parses as C++ (g++ with a
 shim of the CUDA built-ins), which finds an undefined name before a card
 does."""
 
+import ast
 import ctypes
 import glob
 import importlib.util
@@ -145,17 +146,52 @@ cudaError_t cudaGetLastError();
 const char* cudaGetErrorString(cudaError_t);
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 template <class K> cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int);
-namespace nvcuda { namespace wmma {
-struct accumulator {}; struct matrix_a {}; struct matrix_b {};
-struct row_major {}; struct col_major {};
-enum layout_t { mem_row_major, mem_col_major };
-template <class U, int M, int N, int K, class T, class L = void> struct fragment { T x[8]; };
-template <class F, class T> void fill_fragment(F&, T);
-template <class F, class T> void load_matrix_sync(F&, const T*, unsigned);
-template <class A, class B, class C> void mma_sync(C&, const A&, const B&, const C&);
-template <class F, class T> void store_matrix_sync(T*, const F&, unsigned, layout_t);
-}}
+namespace cooperative_groups {
+struct cluster_group {
+  void sync() const;
+  unsigned block_rank() const;
+  unsigned num_blocks() const;
+  template <class T> T* map_shared_rank(T* p, unsigned rank) const;
+};
+cluster_group this_cluster();
+}
+enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension };
+struct cudaLaunchAttributeValue { struct { unsigned x, y, z; } clusterDim; };
+struct cudaLaunchAttribute { cudaLaunchAttributeID id; cudaLaunchAttributeValue val; };
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim; size_t dynamicSmemBytes; cudaStream_t stream;
+  cudaLaunchAttribute* attrs; unsigned numAttrs;
+};
+// as CUDA's template: the arguments convert to the kernel's parameters
+template <class... E, class... A>
+cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t*, void (*k)(E...), A&&... a) {
+  k(static_cast<E>(a)...);
+  return cudaSuccess;
+}
 """
+
+
+def _parse(name: str, src: str, tmp_path):
+    """g++ -fsyntax-only on the source text ``src`` of library ``name``
+    (its kernel launches ``<<<...>>>`` dropped) against the CUDA shim, with
+    the headers of ``csrc`` beside it, each C entry point of
+    ``SIGNATURES`` held to its arity: the finished process."""
+    gxx = shutil.which("g++")
+    assert gxx, "g++ parses the sources here"
+    for h in ("cuda_bf16.h", "cuda_runtime.h", "cooperative_groups.h"):
+        (tmp_path / h).write_text('#include "cuda_shim.h"\n')
+    (tmp_path / "cuda_shim.h").write_text(_SHIM)
+    for h in glob.glob(os.path.join(_build.CSRC, "*.cuh")):
+        shutil.copy(h, tmp_path)
+    src = re.sub(r"<<<.*?>>>", "", src, flags=re.S)
+    src += "\ntemplate <class R, class... A> constexpr int dtf_arity(R (*)(A...)) " \
+           "{ return sizeof...(A); }\n"
+    src += "".join(f'static_assert(dtf_arity(&{fn}) == {len(args)}, "{fn}");\n'
+                   for fn, args in _build.SIGNATURES[name].items())
+    (tmp_path / f"{name}.cpp").write_text(src)
+    return subprocess.run([gxx, "-std=c++17", "-fsyntax-only", "-Wno-unknown-pragmas",
+                           "-I", str(tmp_path), "-x", "c++", str(tmp_path / f"{name}.cpp")],
+                          capture_output=True, text=True)
 
 
 @pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
@@ -166,23 +202,8 @@ def test_sources_parse_as_cpp_with_every_template_instantiated(name, tmp_path):
     kernel template) against a shim of the CUDA built-ins, with the
     headers of ``csrc`` beside it; every C entry point of ``SIGNATURES``
     takes as many arguments as its ctypes signature lists."""
-    gxx = shutil.which("g++")
-    assert gxx, "g++ parses the sources here"
-    for h in ("cuda_bf16.h", "cuda_runtime.h", "mma.h"):
-        (tmp_path / h).write_text('#include "cuda_shim.h"\n')
-    (tmp_path / "cuda_shim.h").write_text(_SHIM)
-    for h in glob.glob(os.path.join(_build.CSRC, "*.cuh")):
-        shutil.copy(h, tmp_path)
     with open(_build._paths(name)[0]) as f:
-        src = re.sub(r"<<<.*?>>>", "", f.read(), flags=re.S)
-    src += "\ntemplate <class R, class... A> constexpr int dtf_arity(R (*)(A...)) " \
-           "{ return sizeof...(A); }\n"
-    src += "".join(f'static_assert(dtf_arity(&{fn}) == {len(args)}, "{fn}");\n'
-                   for fn, args in _build.SIGNATURES[name].items())
-    (tmp_path / f"{name}.cpp").write_text(src)
-    out = subprocess.run([gxx, "-std=c++17", "-fsyntax-only", "-Wno-unknown-pragmas",
-                          "-I", str(tmp_path), "-x", "c++", str(tmp_path / f"{name}.cpp")],
-                         capture_output=True, text=True)
+        out = _parse(name, f.read(), tmp_path)
     assert out.returncode == 0, out.stderr[-4000:]
 
 
@@ -278,3 +299,115 @@ def test_chip_smoke_refuses_a_spilling_or_missing_flash_kernel(spill, dq_spill, 
     else:
         with pytest.raises(chip_smoke.SmokeFailure, match=refused):
             chip_smoke.check_spills(report, kernels)
+
+
+_LN_TURNS = _load("ln_fwd_turns", "tools", "ln_fwd_turns.py")
+
+
+@pytest.mark.parametrize("name,subs", _LN_TURNS.VARIANTS, ids=[n for n, _ in _LN_TURNS.VARIANTS])
+def test_ln_fwd_turns_substitutions_apply_to_the_source(name, subs, tmp_path):
+    """``tools/ln_fwd_turns.py`` builds variants of the LN+matmul forward
+    source by text substitution (its ablations and levers); each text it
+    replaces occurs exactly once in the source, so a variant changes the
+    serving kernel alone and the tool does not refuse it on the card, and
+    each variant still parses (its switched-off branches included)."""
+    with open(_build._paths("ln_matmul")[0]) as f:
+        src = f.read()
+    for old, new in subs:
+        assert src.count(old) == 1 and old != new, (name, old)
+    text = _LN_TURNS.substitute(src, name, subs)
+    assert text != src
+    out = _parse("ln_matmul", text, tmp_path)
+    assert out.returncode == 0, out.stderr[-4000:]
+
+
+# ---------------------------------------------------------------------------
+# the launch device
+# ---------------------------------------------------------------------------
+
+OPS = os.path.join(REPO, "distributed_tensorflow_tpu_torch", "ops")
+
+
+def test_every_launch_goes_through_the_device_helper():
+    """A C entry launches on the current device, so every launch of the
+    port goes through ``_build.launch``, which enters the tensors' device:
+    in ``ops/*.py`` no attribute names an entry of ``SIGNATURES`` that
+    launches (``QUERIES`` report constants and launch nothing), no
+    ``getattr`` result is called, and no stream is read
+    (``.cuda_stream``) outside ``_build.launch`` itself."""
+    launching = {fn for entries in _build.SIGNATURES.values() for fn in entries} - _build.QUERIES
+    assert _build.QUERIES <= {fn for entries in _build.SIGNATURES.values() for fn in entries}
+    found = []
+    for path in sorted(glob.glob(os.path.join(OPS, "*.py"))):
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        helper = set()
+        for node in ast.walk(tree):
+            if (os.path.basename(path) == "_build.py" and isinstance(node, ast.FunctionDef)
+                    and node.name == "launch"):
+                helper = {id(n) for n in ast.walk(node)}
+        for node in ast.walk(tree):
+            where = f"{os.path.basename(path)}:{getattr(node, 'lineno', '?')}"
+            if id(node) in helper:
+                continue
+            if isinstance(node, ast.Attribute) and node.attr in launching | {"cuda_stream"}:
+                found.append(f"{where} .{node.attr}")
+            if (isinstance(node, ast.Call) and isinstance(node.func, ast.Call)
+                    and isinstance(node.func.func, ast.Name) and node.func.func.id == "getattr"):
+                found.append(f"{where} getattr(...)(...)")
+    assert found == []
+    with open(os.path.join(OPS, "_build.py")) as f:
+        assert "cuda_stream" in f.read()
+
+
+class _Lib:
+    """A stand-in library: ``entry`` records its arguments and the device
+    that was current when it was called."""
+
+    def __init__(self, current, rc=0):
+        self.calls, self.current, self.rc = [], current, rc
+
+    def entry(self, *args):
+        self.calls.append((args, self.current[0]))
+        return self.rc
+
+    def dtf_error_string(self, rc):
+        return b"invalid argument"
+
+
+def test_launch_enters_the_tensors_device_only_when_it_is_not_current(monkeypatch):
+    """``_build.launch`` calls the entry with its arguments and the current
+    stream of the tensors' device last; when that device is the current
+    one it enters no guard, else it calls the entry inside
+    ``torch.cuda.device`` of that device (and leaves the current device as
+    it was). A non-zero return raises ``KernelLaunchError``."""
+    import contextlib
+
+    import torch
+
+    current = [0]
+    entered = []
+
+    @contextlib.contextmanager
+    def device(dev):
+        entered.append(dev.index)
+        before, current[0] = current[0], dev.index
+        try:
+            yield
+        finally:
+            current[0] = before
+
+    class _Stream:
+        def __init__(self, dev):
+            self.cuda_stream = 1000 + torch.device(dev).index
+
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: current[0])
+    monkeypatch.setattr(torch.cuda, "device", device)
+    monkeypatch.setattr(torch.cuda, "current_stream", _Stream)
+    lib = _Lib(current)
+    _build.launch(lib, "entry", "test", torch.device("cuda:0"), 1, 2)
+    assert lib.calls == [((1, 2, 1000), 0)] and entered == []
+    _build.launch(lib, "entry", "test", torch.device("cuda:1"), 3)
+    assert lib.calls[1] == ((3, 1001), 1) and entered == [1] and current == [0]
+    with pytest.raises(_build.KernelLaunchError, match="test: CUDA error 1"):
+        _build.launch(_Lib(current, rc=1), "entry", "test", torch.device("cuda:0"))

@@ -70,20 +70,68 @@ def test_paged_kernel_matches_plain_on_card(card, dtype):
             assert not got[0, :, -1].float().abs().sum()
 
 
+#: (M, d, n) of the serving forward (``ln_matmul_kernel``, below
+#: ``LN_TILED_MIN_M`` rows): ragged d and n (no multiple of the 16-byte
+#: vector, so the element-wise loads; d = 100 splits into a short last
+#: slice; at M = 200 too, a shape the tiled pair does not take), then the
+#: decode and prefill rows of gpt_small's q/k/v (n=768), fused qkv (2304)
+#: and mlp_in (3072) widths — M = 1 and 4 under one 16-row tile, 20 over
+#: it, 255 over several
+LN_ROWS_CASES = [(5, 64, 96), (40, 768, 128), (64, 100, 200), (200, 100, 200)] + [
+    (M, 768, n) for M in (1, 4, 20, 255) for n in (768, 2304, 3072)]
+#: the serving forward's three entries, (x dtype, out dtype), and their
+#: tolerances: f32 — the same math in another summation order (the ranks'
+#: partials of d summed in rank order); bf16 out — both round h and y to
+#: bf16 once (one ulp); bf16 -> f32 — an h on a rounding tie may fall the
+#: other way, one bf16 ulp of one term
+LN_ROWS_TOLS = {(torch.float32, torch.float32): (1e-4, 1e-4),
+                (torch.bfloat16, torch.bfloat16): TOLS[torch.bfloat16],
+                (torch.bfloat16, torch.float32): TOLS[torch.bfloat16]}
+
+
+def _ln_rows(x, g, b, w, bias, out_dtype):
+    """The serving forward as ``ln_matmul`` routes it below
+    ``LN_TILED_MIN_M`` rows, and directly from there up, so every case
+    holds the serving kernel whatever the threshold."""
+    if x.shape[0] < fln.LN_TILED_MIN_M:
+        return ln_matmul(x, g, b, w, bias, out_dtype=out_dtype)
+    return fln._launch_fwd_rows(x, g, b, w, bias, 1e-6, out_dtype)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_ln_matmul_kernel_matches_plain_on_card(card, dtype):
+@pytest.mark.parametrize("dtypes", list(LN_ROWS_TOLS), ids=["f32", "bf16", "bf16_f32"])
+def test_ln_matmul_kernel_matches_plain_on_card(card, dtypes):
+    """The serving forward against the plain version in both w layouts
+    and all three entries, one launch a call, no tiled launch."""
+    dtype, out_dtype = dtypes
+    atol, rtol = LN_ROWS_TOLS[dtypes]
     rng = np.random.default_rng(1)
     f = lambda *s: torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(card)  # noqa: E731
-    for M, d, n in ((5, 64, 96), (40, 768, 128), (64, 100, 200)):
+    for M, d, n in LN_ROWS_CASES:
         x, g, b = f(M, d).to(dtype), 1 + 0.1 * f(d), 0.1 * f(d)
         w, bias = (f(n, d) / d ** 0.5).to(dtype), 0.1 * f(n)
-        want = ln_matmul_plain(x, g, b, w.t(), bias)
+        want = ln_matmul_plain(x, g, b, w.t(), bias, out_dtype=out_dtype)
         for wv in (w.t(), w.t().contiguous()):  # nn.Linear view and [d, n]
-            got = ln_matmul(x, g, b, wv, bias)
-            atol, rtol = TOLS[dtype]
-            torch.testing.assert_close(got.float(), want.float(),
-                                       atol=max(atol, 1e-4), rtol=max(rtol, 1e-4))
+            before = (ln_matmul.launches, ln_matmul.tiled_launches)
+            got = _ln_rows(x, g, b, wv, bias, out_dtype)
+            torch.cuda.synchronize()
+            assert (ln_matmul.launches, ln_matmul.tiled_launches) == (before[0] + 1, before[1])
+            assert got.dtype == out_dtype and got.shape == (M, n)
+            torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol,
+                                       msg=lambda m: f"{(M, d, n, wv.stride())}: {m}")
+
+
+@pytest.mark.cuda
+def test_ln_matmul_serving_fwd_is_bitwise_repeatable(card):
+    """Two calls of the serving forward on the same bf16 inputs are bitwise
+    equal at decode (M=4) and prefill (M=64) rows, n=3072, both layouts:
+    the ranks' partials of d are summed in one order, no float atomics."""
+    rng = np.random.default_rng(14)
+    for M in (4, 64):
+        x, g, b, w_nd, bias = _ln_fwd_inputs(rng, card, torch.bfloat16, M, 768, 3072)
+        for wv in (w_nd.t(), w_nd.t().contiguous()):
+            a, c = (_ln_rows(x, g, b, wv, bias, torch.bfloat16) for _ in range(2))
+            assert torch.equal(a, c), (M, wv.stride())
 
 
 @pytest.mark.cuda
@@ -984,3 +1032,70 @@ def test_ln_matmul_tiled_forward_raises_on_what_it_does_not_take(card):
     torch.testing.assert_close(got.float(), ln_matmul_plain(x[:M - 1], g, b, w_nd.t(),
                                                             bias).float(),
                                atol=TOLS[torch.bfloat16][0], rtol=TOLS[torch.bfloat16][1])
+
+
+# ---------------------------------------------------------------------------
+# the launch device: every kernel family on a card that is not the current
+# one
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_every_kernel_family_launches_on_its_tensors_device(card):
+    """With ``cuda:0`` current, each kernel family launched on tensors that
+    lie on ``cuda:1`` runs there (``_build.launch`` enters the tensors'
+    device; a C entry launches on the current one): paged attention, the
+    LN+matmul forward (serving and tiled) and its dx and dw kernels, the
+    three flash kernels and the four conv+BN kernels, f32, each within
+    relative L2 1e-5 of its plain version on that card (the same math in
+    another summation order), each counted once, and ``cuda:0`` is still
+    current after. Skips on a machine with one card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards (launches on a card that is not the current one)")
+    from distributed_tensorflow_tpu_torch.ops import fused_conv_bn as fcb
+
+    dev, f32 = torch.device("cuda:1"), torch.float32
+    rng = np.random.default_rng(15)
+    checks = []
+    with torch.cuda.device(0):
+        counts = [paged_flash_attention.launches, ln_matmul.launches,
+                  ln_matmul.tiled_launches, fa.flash_fwd.launches, fcb.conv1x1_bn_fwd.launches]
+        q, k, v, table, q_pos = (torch.from_numpy(a).to(dev) for a in _paged_inputs(rng, 5))
+        checks.append(("paged attention", paged_flash_attention(q, k, v, table, q_pos=q_pos),
+                       paged_attention_plain(q, k, v, table, q_pos=q_pos)))
+        for M in (8, fln.LN_TILED_MIN_M):
+            x, g, b, w_nd, bias = _ln_fwd_inputs(rng, dev, f32, M, 768, 256)
+            checks.append((f"ln_matmul M={M}", ln_matmul(x, g, b, w_nd.t(), bias),
+                           ln_matmul_plain(x, g, b, w_nd.t(), bias)))
+        x, g, b, w, dy = _ln_bwd_inputs(rng, dev, f32, 300, 256, 128, True)
+        dx, dg, db, dbias, mean, rstd = fln.ln_matmul_bwd_dx(x, g, w, dy)
+        want = fln.ln_matmul_bwd_plain(x, g, b, w, dy)
+        checks += [("ln_matmul_bwd_dx", dx, want[0]),
+                   ("ln_matmul_bwd_dw", fln.ln_matmul_bwd_dw(x, g, b, dy, mean, rstd), want[3])]
+        q, k, v, _, dout = _flash_inputs(rng, dev, f32, 1, 2, 128, 128, 64, False)
+        out, lse = fa.flash_fwd(q, k, v, None, causal=True)
+        ref = fa.flash_attention_bwd_plain(q, k, v, None, out, lse, dout, causal=True)
+        checks += [("flash_fwd", out, fa.flash_attention_plain(q, k, v, None, causal=True)[0]),
+                   ("flash_bwd_dkv", fa.flash_bwd_dkv(q, k, v, None, out, lse, dout,
+                                                      causal=True)[0], ref[1]),
+                   ("flash_bwd_dq", fa.flash_bwd_dq(q, k, v, None, out, lse, dout, causal=True),
+                    ref[0])]
+        x, w, sc, sh, dy, dsum, dssq = _conv_bn_inputs(rng, dev, f32, 150, 64, 128, True)
+        y, _, _ = fcb.conv1x1_bn_fwd(x, w, sc, sh)
+        ref = fcb.conv1x1_bn_bwd_plain(x, y, dy, w, sc, sh, dsum, dssq)
+        assert fcb.single_pass(64, 128)
+        checks += [("conv1x1_bn_fwd", y, fcb.conv1x1_bn_act_plain(x, w, sc, sh)[0]),
+                   ("conv1x1_bn_bwd_dx", fcb.conv1x1_bn_bwd_dx(x, y, dy, w, sc, sh, dsum,
+                                                               dssq)[0], ref[0]),
+                   ("conv1x1_bn_bwd_dw", fcb.conv1x1_bn_bwd_dw(x, y, dy, sc, sh, dsum, dssq),
+                    ref[1]),
+                   ("conv1x1_bn_bwd_single", fcb.conv1x1_bn_bwd_single(
+                       x, y, dy, w, sc, sh, dsum, dssq)[1], ref[1])]
+        torch.cuda.synchronize(dev)
+        assert torch.cuda.current_device() == 0
+        assert [paged_flash_attention.launches, ln_matmul.launches, ln_matmul.tiled_launches,
+                fa.flash_fwd.launches, fcb.conv1x1_bn_fwd.launches] == [
+                    counts[0] + 1, counts[1] + 2, counts[2] + 1, counts[3] + 1, counts[4] + 1]
+    for name, got, want in checks:
+        assert got.device == dev, name
+        assert _rel_l2(got, want) < 1e-5, (name, _rel_l2(got, want))

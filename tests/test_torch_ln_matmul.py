@@ -290,3 +290,112 @@ def test_ln_matmul_forward_plan_picks_the_kernel_by_rows_alone(M, d, n, monkeypa
     with pytest.raises(_Routed) as got:
         fln.ln_matmul(x, g, g, w)
     assert got.value.args == (want,)
+
+
+# ---------------------------------------------------------------------------
+# the serving forward's launch plan and shared memory
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("d", [768, 100, 136])
+@pytest.mark.parametrize("M", [1, 4, 8, 20, 40, 64, 255])
+def test_rows_plan_covers_y_with_no_tile_to_spare(M, d, monkeypatch):
+    """``rows_plan``, the serving forward's grid: its 64-column tiles cover
+    n and its 16-row tiles M with no tile to spare, at most 8 ranks (the
+    portable cluster size) split d into slices of whole 16-deep steps that
+    cover d with none empty, and the grid fits one wave of
+    ``ROWS_CTAS_PER_SM`` CTAs an SM whenever a split allows it. The plan
+    depends on the shapes and the SM count alone: the same arguments give
+    the same plan, computed afresh, under any shared-memory limit and with
+    the SM counts read from no device. The tile sizes and the largest
+    split are the kernel source's own."""
+    assert (fln.ROWS_TILE, fln.ROWS_COLS, fln.ROWS_KSTEP, fln.ROWS_SPLITS) == (
+        16, 64, 16, (1, 2, 4, 8))
+    rows, cols = fln.ROWS_TILE, fln.ROWS_COLS
+    for n in (768, 3072, 200, 2304):
+        for sms in (132, 114, 4):
+            plan = fln.rows_plan(M, d, n, sms)
+            S, dS = plan.split, plan.slice
+            gx, gy = plan.grid
+            case = (M, d, n, sms, plan)
+            assert S in (1, 2, 4, 8) and gx % S == 0, case
+            assert (gx // S - 1) * cols < n <= gx // S * cols, case
+            assert (gy - 1) * rows < M <= gy * rows, case
+            assert dS % fln.ROWS_KSTEP == 0 and (S - 1) * dS < d <= S * dS, case
+            assert dS == fln._slice(d, S), case
+            if any(fln._slice(d, s) <= fln.ROWS_MAX_SLICE and (s - 1) * fln._slice(d, s) < d
+                   and gx // S * s * gy <= fln.ROWS_CTAS_PER_SM * sms for s in (1, 2, 4, 8)):
+                assert gx * gy <= fln.ROWS_CTAS_PER_SM * sms, case
+            monkeypatch.setattr(fln, "_SMEM_LIMIT", 1)
+            monkeypatch.setattr(fln, "_SMS", {})
+            assert fln.rows_plan.__wrapped__(M, d, n, sms) == plan, case
+            monkeypatch.undo()
+
+
+def _first_design_smem(d: int, esz: int) -> int:
+    """Shared memory of the first serving design's CTA (16 rows of width d
+    padded to 128, one 128 x 64 w tile, the f32 epilogue tile): every d
+    whose CTA fit it took."""
+    return esz * (16 * (-(-d // 128) * 128 + 8) + 128 * 72) + 4 * 16 * 64
+
+
+def test_rows_smem_states_the_kernel_layout_and_takes_every_d_the_first_design_took():
+    """``rows_smem`` sums the kernel's ``rows_layout``: at d=768, n=3072,
+    M=8 on 132 SMs (64 columns, split 8, a 96-deep slice) a bf16 CTA holds
+    16 x (96 + 8) of x, 96 x (64 + 8) of w (n contiguous) or 64 x (96 + 8)
+    (the nn.Linear view), 2 x 96 f32 of gamma and beta and 64 of the bias,
+    the f32 partials
+    of its 16 owned 8-column chunks from 8 ranks and 16 rows' mean and
+    rstd. No d that the first design's CTA took (``_SMEM_LIMIT``) is
+    refused, at any serving M, either layout and either dtype."""
+    plan = fln.rows_plan(8, 768, 3072, 132)
+    assert (plan.split, plan.slice) == (8, 96)
+    tail = 4 * (2 * 96 + 64) + 4 * 8 * 16 * 8 + 8 * 16
+    assert fln.rows_smem(plan, 2, True) == 2 * (16 * 104 + 96 * 72) + tail
+    assert fln.rows_smem(plan, 2, False) == 2 * (16 * 104 + 64 * 104) + tail
+    assert fln.rows_smem(plan, 4, True) == 4 * (16 * 100 + 96 * 68) + tail
+    for esz in (2, 4):
+        for d in range(1, 8193, 1 if esz == 2 else 3):
+            if _first_design_smem(d, esz) > fln._SMEM_LIMIT:
+                continue
+            for M in (1, 16, 17, 255):
+                for n in (8, 3072):
+                    p = fln.rows_plan(M, d, n, 132)
+                    for n_contig in (True, False):
+                        assert fln.rows_smem(p, esz, n_contig) <= fln._SMEM_LIMIT, (
+                            esz, d, M, n, n_contig)
+
+
+class _Launched(Exception):
+    pass
+
+
+def test_serving_forward_refuses_a_cta_past_the_limit_and_passes_its_plan(monkeypatch):
+    """The serving wrapper refuses, before any build, a d whose CTA would
+    need more shared memory than ``_SMEM_LIMIT`` (f32, d=8192: a 1024-deep
+    slice), and otherwise hands its C entry the plan's split after w's
+    strides, with as many arguments as ``_build.SIGNATURES``
+    lists (the stream last, added by ``_build.launch``)."""
+    monkeypatch.setattr(fln._build, "on_cuda", lambda t, what: True)
+    monkeypatch.setattr(fln, "_sms", lambda dev: 132)
+    monkeypatch.setattr(fln._build, "load", lambda name: name)
+    calls = []
+
+    def launch(lib, entry, what, device, *args):
+        calls.append((lib, entry, args))
+        raise _Launched
+
+    monkeypatch.setattr(fln._build, "launch", launch)
+    g = torch.ones(8192)
+    with pytest.raises(ValueError, match="shared memory"):
+        fln.ln_matmul(torch.zeros(4, 8192), g, g, torch.zeros(8192, 64))
+    assert calls == []
+    x, g = torch.zeros(8, 768, dtype=torch.bfloat16), torch.ones(768)
+    w = torch.zeros(3072, 768, dtype=torch.bfloat16).t()
+    with pytest.raises(_Launched):
+        fln.ln_matmul(x, g, g, w, torch.zeros(3072), out_dtype=torch.float32)
+    (lib, entry, args), = calls
+    assert (lib, entry) == ("ln_matmul", "ln_matmul_bf16_f32")
+    assert len(args) + 1 == len(fln._build.SIGNATURES["ln_matmul"][entry])
+    plan = fln.rows_plan(8, 768, 3072, 132)
+    assert args[6:] == (8, 768, 3072, 1, 768, plan.split, 1e-6)
