@@ -55,12 +55,11 @@ _CONV_TAIL = (_c_int,) * 7 + (_c_void_p,)
 #: c_void_p so ctypes never truncates them to 32 bits.
 SIGNATURES: dict[str, dict[str, tuple]] = {
     "paged_attention": {
-        # q, k_pool, v_pool, table, q_pos, out, part_acc, part_ml, B, H, S,
-        # D, NB, bs, MB, scale, stream
-        **{fn: (_c_void_p,) * 8 + (_c_int,) * 7 + (_c_float, _c_void_p)
+        # q, k_pool, v_pool, table, q_pos, out, B, H, S, D, NB, bs, MB, the
+        # plan's ranks, chunk keys and chunks a rank (paged_plan), scale,
+        # stream
+        **{fn: (_c_void_p,) * 6 + (_c_int,) * 10 + (_c_float, _c_void_p)
            for fn in ("paged_attention_f32", "paged_attention_bf16")},
-        # D, bs, MB, elem_size -> splits (sizes the scratch)
-        "paged_attention_splits": (_c_int,) * 4,
     },
     "ln_matmul": {
         # x, gamma, beta, w, bias, y, M, d, n, w_stride_k, w_stride_n, the
@@ -125,8 +124,8 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
 #: entries that report a constant of their source and launch nothing (no
 #: stream argument); every other entry of ``SIGNATURES`` launches kernels
 #: and is called through ``launch`` alone
-QUERIES = frozenset({"paged_attention_splits", "conv_bn_fwd_tile", "conv_bn_dx_tile",
-                     "conv_bn_dw_tile", "conv_bn_single_tile"})
+QUERIES = frozenset({"conv_bn_fwd_tile", "conv_bn_dx_tile", "conv_bn_dw_tile",
+                     "conv_bn_single_tile"})
 
 
 class KernelBuildError(RuntimeError):

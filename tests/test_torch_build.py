@@ -124,6 +124,7 @@ float __shfl_sync(unsigned, float, int);
 int __shfl_sync(unsigned, int, int);
 float __shfl_down_sync(unsigned, float, int);
 unsigned __ballot_sync(unsigned, int);
+int __reduce_max_sync(unsigned, int);
 void __syncthreads();
 void __syncwarp(unsigned m = 0xffffffffu);
 size_t __cvta_generic_to_shared(const void*);
@@ -146,6 +147,7 @@ cudaError_t cudaGetLastError();
 const char* cudaGetErrorString(cudaError_t);
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 template <class K> cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int);
+template <class T> cudaError_t cudaMemcpyFromSymbol(void*, const T&, size_t);
 namespace cooperative_groups {
 struct cluster_group {
   void sync() const;
@@ -318,6 +320,57 @@ def test_ln_fwd_turns_substitutions_apply_to_the_source(name, subs, tmp_path):
     text = _LN_TURNS.substitute(src, name, subs)
     assert text != src
     out = _parse("ln_matmul", text, tmp_path)
+    assert out.returncode == 0, out.stderr[-4000:]
+
+
+_PAGED_TURNS = _load("paged_turns", "tools", "paged_turns.py")
+
+
+@pytest.mark.parametrize("name,subs", _PAGED_TURNS.VARIANTS + [_PAGED_TURNS.TIMELINE],
+                         ids=[n for n, _ in _PAGED_TURNS.VARIANTS + [_PAGED_TURNS.TIMELINE]])
+def test_paged_turns_substitutions_apply_to_the_source(name, subs, tmp_path):
+    """``tools/paged_turns.py`` builds variants of the paged attention
+    source by text substitution (its ablations, levers and the timeline
+    built on the source's phase marks); each text it
+    replaces occurs exactly once in the source, and each variant still
+    parses (its switched-off branches included)."""
+    with open(_build._paths("paged_attention")[0]) as f:
+        src = f.read()
+    for old, new in subs:
+        assert src.count(old) == 1 and old != new, (name, old)
+    text = _PAGED_TURNS.substitute(src, name, subs)
+    assert text != src
+    out = _parse("paged_attention", text, tmp_path)
+    assert out.returncode == 0, out.stderr[-4000:]
+
+
+def test_paged_smem_is_the_kernel_layout(tmp_path):
+    """The wrapper's ``paged_smem`` (which ``paged_plan`` fits to the SM)
+    and the kernel's ``layout`` (the launch's shared-memory size) state one
+    sum twice: g++ evaluates ``layout<T, DK, WARPS>`` as a constant
+    expression for every plan ``paged_plan`` makes over both dtypes, every
+    head dim, S from decode to two 64-row tiles, 1 to 128 blocks of 8 to
+    32 keys and 1 or 8 batch rows, and each must equal ``paged_smem``."""
+    from distributed_tensorflow_tpu_torch.ops import paged_attention as pa
+
+    cases = set()
+    for esz, t in ((2, "__nv_bfloat16"), (4, "float")):
+        for D in pa.HEAD_DIMS:
+            for S in (1, 5, 32, 64, 128):
+                for MB in (1, 3, 20, 64, 128):
+                    for bs in (8, 16, 32):
+                        for B in (1, 8):
+                            plan = pa.paged_plan(B, 12, S, MB, bs, D, esz, 132)
+                            warps = 4 if S <= 32 else 8
+                            cases.add((t, max(D, 16), warps, S, D, plan.chunk, plan.ranks,
+                                       plan.cpr, pa.paged_smem(plan, S, D, esz)))
+    with open(_build._paths("paged_attention")[0]) as f:
+        src = f.read()
+    src += "".join(f"static_assert(layout<{t}, {dk}, {w}>({S}, {D}, {kc}, {r}, {c}).bytes == "
+                   f'{n}, "S={S} D={D} chunk={kc} ranks={r} cpr={c} {t}");\n'
+                   for t, dk, w, S, D, kc, r, c, n in sorted(cases))
+    assert len(cases) > 100
+    out = _parse("paged_attention", src, tmp_path)
     assert out.returncode == 0, out.stderr[-4000:]
 
 

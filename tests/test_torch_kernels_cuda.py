@@ -35,16 +35,17 @@ def card():
     return torch.device("cuda")
 
 
-def _paged_inputs(rng, S, B=3, H=2, D=64, bs=16, NB=48, MB=20):
-    """Row 0 spans 17 non-contiguous blocks (several splits of the
-    kernel's key axis, the last one ragged), row 1 one block, row 2 is
-    idle (all-sentinel table, past-the-table q_pos)."""
+def _paged_inputs(rng, S, B=3, H=2, D=64, bs=16, NB=48, MB=20, n0=17, pos0=250):
+    """Row 0 spans ``n0`` non-contiguous blocks (several chunks of the
+    kernel's key axis, the last one ragged) at positions ``pos0``..,
+    row 1 one block, row 2 is idle (all-sentinel table, past-the-table
+    q_pos); at S > 1 row 0's last row is padded (q_pos = -1)."""
     oob = MB * bs
     table = np.full((B, MB), NB, np.int32)
-    table[0, :17] = rng.permutation(np.arange(1, NB))[:17]
+    table[0, :n0] = rng.permutation(np.arange(1, NB))[:n0]
     table[1, :1] = [0]
     q_pos = np.empty((B, S), np.int32)
-    q_pos[0] = 250 + np.arange(S)
+    q_pos[0] = pos0 + np.arange(S)
     q_pos[1] = np.arange(S)
     q_pos[2] = oob  # idle row
     if S > 1:
@@ -53,21 +54,53 @@ def _paged_inputs(rng, S, B=3, H=2, D=64, bs=16, NB=48, MB=20):
     return f(B, H, S, D), f(NB, H, bs, D), f(NB, H, bs, D), table, q_pos
 
 
+#: the paged kernel's card cases (``_paged_inputs`` keywords): decode,
+#: verify and a 32-row chunk; a 64-row prefill chunk (one tile of 4 row
+#: groups); 96- and 128-row chunks (two tiles, each its own cluster; the
+#: second of the 96 half empty); head dims 32 and 128, and 8 and 16 (one
+#: 16-column mma tile, D=8 zero-padded); blocks of 8 and 32 keys; a
+#: 2048-key context (MB=128 at bs=16: 32 chunks, more than the 8 ranks)
+PAGED_CASES = [dict(S=1), dict(S=5), dict(S=32), dict(S=64, n0=20),
+               dict(S=96, n0=22, MB=22), dict(S=128, n0=24, MB=24),
+               dict(S=5, D=32), dict(S=64, D=128, n0=20),
+               dict(S=1, D=8), dict(S=5, D=8), dict(S=1, D=16), dict(S=5, D=16),
+               dict(S=5, bs=8, NB=96, MB=48, n0=36), dict(S=32, bs=32, NB=24, MB=12, n0=9),
+               dict(S=5, NB=160, MB=128, n0=128, pos0=2040)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_paged_kernel_matches_plain_on_card(card, dtype):
     rng = np.random.default_rng(0)
-    for S in (1, 5, 32):
-        q, k, v, table, q_pos = (torch.from_numpy(a).to(card) for a in _paged_inputs(rng, S))
+    for case in PAGED_CASES:
+        q, k, v, table, q_pos = (torch.from_numpy(a).to(card)
+                                 for a in _paged_inputs(rng, **case))
         q, k, v = (t.to(dtype) for t in (q, k, v))
         before = paged_flash_attention.launches
         got = paged_flash_attention(q, k, v, table, q_pos=q_pos)
         assert paged_flash_attention.launches == before + 1
         want = paged_attention_plain(q, k, v, table, q_pos=q_pos)
         atol, rtol = TOLS[dtype]
-        torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
-        if S > 1:
-            assert not got[0, :, -1].float().abs().sum()
+        torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol,
+                                   msg=lambda m, case=case: f"{case}: {m}")
+        if case["S"] > 1:
+            assert not got[0, :, -1].float().abs().sum(), case
+
+
+@pytest.mark.cuda
+def test_paged_attention_is_bitwise_repeatable(card):
+    """Two calls on the same inputs are bitwise equal at decode (S=1) and at
+    64- and 128-row prefill chunks, both dtypes: the ranks' partials are
+    merged in rank order inside the launch, no float atomics."""
+    rng = np.random.default_rng(17)
+    for case in (dict(S=1, NB=160, MB=128, n0=128, pos0=2000), dict(S=64, n0=20),
+                 dict(S=128, n0=24, MB=24)):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, table, q_pos = (torch.from_numpy(a).to(card)
+                                     for a in _paged_inputs(rng, **case))
+            q, k, v = (t.to(dtype) for t in (q, k, v))
+            a, b = (paged_flash_attention(q, k, v, table, q_pos=q_pos) for _ in range(2))
+            assert torch.equal(a, b), (case, dtype)
 
 
 #: (M, d, n) of the serving forward (``ln_matmul_kernel``, below

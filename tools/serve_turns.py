@@ -22,7 +22,14 @@ runs one timed pass (tok/s, TTFT p50, TPOT
 p50 on the host clock, ending in a device sync) and one pass under
 torch.profiler, whose device time it splits into the serving LN+matmul
 kernel (names holding ``ln_matmul_kernel``: its launches, its ms a pass and
-a step) and the rest, beside the pass's device-busy share. The pass is
+a step), paged attention (names holding ``paged_attention``: each kernel
+by its full name with its records and ms, and their ms a pass and a step)
+and the rest, beside the pass's device-busy share. A wrapper call
+launches each ``__global__`` function of the tree's
+``paged_attention.cu`` once (``paged_kernels``), so paged attention's
+records must add up to the wrapper's calls in the profiled pass times
+those kernels, both in the profiler's table and among the trace's device
+records; the tool logs every shortfall and then exits non-zero. The pass is
 host-bound (PERF.md §5), so tok/s and TPOT move with the host more than
 with any kernel. The first and the last line name the card (``nvidia-smi``'s
 name and power limit). Exits non-zero without a card or when a turn fails.
@@ -32,6 +39,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -67,15 +75,26 @@ prompts = cs.make_prompts(np, cfg.vocab_size)
 cs.serve_pass(torch, np, cfg, params, prompts, "warm-up")
 p = cs.serve_pass(torch, np, cfg, params, prompts, "timed")
 act = torch.profiler.ProfilerActivity
+calls0 = paged_flash_attention.launches
 with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
     q = cs.serve_pass(torch, np, cfg, params, prompts, "profiled")
 events = cs.device_events(torch, prof)
 ln = [e for e in events if "ln_matmul_kernel" in e.key]
 busy = sum(e.self_device_time_total for e in events) / 1e3
-ln_ms = sum(e.self_device_time_total for e in ln) / 1e3
+# each paged kernel by its full name: (records, device ms) in the profiler's
+# table and, beside it, straight from the trace's device records
+pa = {e.key: (e.count, e.self_device_time_total / 1e3)
+      for e in events if "paged_attention" in e.key}
+raw = {}
+for k in prof.profiler.kineto_results.events():
+    if k.device_type() == torch.autograd.DeviceType.CUDA and "paged_attention" in k.name():
+        n, ms = raw.get(k.name(), (0, 0.0))
+        raw[k.name()] = (n + 1, ms + (k.end_ns() - k.start_ns()) / 1e6)
 print(json.dumps({"tok_s": p["tok_s"], "ttft_p50_ms": p["ttft_p50_ms"],
                   "tpot_p50_ms": p["tpot_p50_ms"], "steps": q["steps"],
-                  "ln_launches": sum(e.count for e in ln), "ln_ms": ln_ms,
+                  "ln_launches": sum(e.count for e in ln),
+                  "ln_ms": sum(e.self_device_time_total for e in ln) / 1e3,
+                  "pa_calls": paged_flash_attention.launches - calls0, "pa": pa, "pa_raw": raw,
                   "busy_ms": busy, "wall_ms": 1e3 * q["wall_s"], "call_ms": call_ms}))
 """
 
@@ -98,6 +117,7 @@ def main() -> int:
     card = cs.nvidia_smi_line()
     log(f"card: {card}")
     trees = {"other": os.path.abspath(sys.argv[1]), "this": REPO}
+    short = []
     for side in ("other", "this", "this", "other"):
         out = subprocess.run([sys.executable, "-c", CHILD], cwd=trees[side],
                              capture_output=True, text=True)
@@ -105,15 +125,42 @@ def main() -> int:
             log(f"turn {side} failed:\n{out.stderr[-4000:]}")
             return 1
         r = json.loads(out.stdout.strip().splitlines()[-1])
+        pa_ms = sum(ms for _, ms in r["pa"].values())
         log(f"serve {side}: {r['tok_s']:.1f} tok/s, TTFT p50 {r['ttft_p50_ms']:.2f} ms, TPOT p50 "
             f"{r['tpot_p50_ms']:.3f} ms; profiled pass: {r['steps']} steps, ln_matmul_kernel "
             f"{r['ln_launches']} launches, {r['ln_ms']:.4f} device ms "
             f"({r['ln_ms'] / r['steps']:.4f} a step, {1e3 * r['ln_ms'] / r['ln_launches']:.3f} us "
-            f"a launch), device busy {r['busy_ms']:.1f} of {r['wall_ms']:.1f} ms "
+            f"a launch), paged attention {pa_ms:.4f} device ms ({pa_ms / r['steps']:.4f} a "
+            f"step), device busy {r['busy_ms']:.1f} of {r['wall_ms']:.1f} ms "
             f"({100 - 100 * r['busy_ms'] / r['wall_ms']:.1f}% idle); wrapper call_ms: "
             + ", ".join(f"{k} {v:.5f}" for k, v in r["call_ms"].items()))
+        kernels = paged_kernels(trees[side])
+        want = r["pa_calls"] * len(kernels)
+        log(f"  paged attention {side}: {r['pa_calls']} wrapper calls x {len(kernels)} kernels "
+            f"a call ({', '.join(kernels)}) = {want} launches")
+        for k, (n, ms) in sorted(r["pa"].items()):
+            log(f"    {n} records, {ms:.4f} device ms ({ms / r['steps']:.4f} a step): {k}")
+        for what, table in (("the profiler's table", r["pa"]), ("the trace", r["pa_raw"])):
+            got = sum(n for n, _ in table.values())
+            if got != want:
+                short.append(f"{side}: {what} holds {got} paged attention records of {want}")
+                log(f"  {short[-1]}; by name: {table}")
     log(f"card: {card}")
+    if short:
+        log("paged attention's records do not add up to its launches: " + "; ".join(short))
+        return 1
     return 0
+
+
+def paged_kernels(tree: str) -> list[str]:
+    """The ``__global__`` functions of a tree's ``paged_attention.cu``: a
+    wrapper call launches each once (the first design a split and a combine
+    kernel, the redesign one)."""
+    with open(os.path.join(tree, "distributed_tensorflow_tpu_torch", "ops", "csrc",
+                           "paged_attention.cu")) as f:
+        src = f.read()
+    return sorted(set(re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(", src)))
 
 
 if __name__ == "__main__":
