@@ -105,7 +105,24 @@ when any phase fails:
    its time split into product and reduction, at the sixteen shapes of a
    step's 36 forward launches, ``CONV_BN_FWD_SWEEP``, each tile width of
    ``fwd_plan`` at its main shape, and the launch-weighted sum.)
-7. print the ``kernels`` JSON line (twelve entries: ``ln_matmul`` is the
+7. (a) run ``distributed_tensorflow_tpu_torch.bench`` in this process,
+   in a process group of one over NCCL: ResNet-50 with the fused blocks
+   and the pallas backward, 256 images, 224x224, a resident-batch and a
+   pipeline-fed window (``BENCH_ENV``); print its JSON line, images/s,
+   MFU and pipeline efficiency beside the card's name and power limit,
+   and check that each conv+BN kernel launched the rule's count every
+   step; (b) start two processes on this one card over gloo
+   (``tests/torch_dp_worker.py``; NCCL refuses two ranks on one GPU) that
+   take one data-parallel step of ResNet-50 at full width on their halves
+   of a global batch of 64 (``DP_PASSES``: fused + pallas in bf16 and in
+   f32, sync BN), and hold rank 0's loss, running statistics and updated
+   parameters against one process on the same 64 images (``TOL["dp/*"]``;
+   in f32 also against a control, one process on rank 0's 32 images
+   alone, which must read far off), both ranks bitwise alike, each
+   having launched every conv+BN kernel; (c) hold the first batches out
+   of the Prefetcher's side-stream copies bitwise to their host batches,
+   and check that the bench's fed window's loss is finite and falls;
+8. print the ``kernels`` JSON line (twelve entries: ``ln_matmul`` is the
    serving forward at M=8, ``ln_matmul_train`` the tiled forward at
    M=8192), then the ``ok`` line last.
 
@@ -302,6 +319,31 @@ TOL = {
     #   against the plain math alone, worst and median
     "resnet/grad_rel_l2/bwd": 6e-2,           # 1.89e-2
     "resnet/grad_rel_l2/bwd/median": 3e-2,    # 8.6e-3
+    # phase 7b: rank 0 of one data-parallel step (two processes, 32 images
+    # each, BN statistics and gradients all-reduced) against one process on
+    # the same 64 images, from the same weights: the loss, the running
+    # statistics' update (relative L2, the worst buffer) and the
+    # parameters' updates (relative L2 per parameter: the worst and the
+    # median). The ranks sum their BN columns and gradients in another
+    # order, and cuDNN may pick other algorithms at 32 images than at 64.
+    # f32: the loss and the BN update as phase 6's f32 gates; the updates
+    # as phase 6's f32 step-1 gradients ("resnet/f32/grad_rel_l2"): f32
+    # rounding moves a ResNet-50 step-1 gradient by ~1e-2 relative (a ReLU
+    # input within rounding of 0 falls on the other side; BN over few rows
+    # amplifies it). The control — the same step on rank 0's half alone —
+    # must read 10x past the BN limit
+    "dp/f32/loss": 1e-4,                      # measured 0
+    "dp/f32/bn": 1e-3,                        # 1.42e-5
+    "dp/f32/worst": 4e-2,                     # 8.93e-3
+    "dp/f32/median": 2.5e-2,                  # 6.33e-3
+    # bf16: the loss and the BN update as phase 6's bf16 gates
+    # ("resnet/loss", "resnet/bn_update"); the parameters' updates, whose
+    # step-1 gradients bf16 rounding dominates (phase 6), held to the f32
+    # one-process step's no further than the one-process bf16 step's
+    # ("resnet/grad_vs_f32")
+    "dp/bf16/loss": 5e-3,                     # 5.89e-4
+    "dp/bf16/bn": 1e-2,                       # 4.28e-3
+    "dp/bf16/vs_f32": 1.2,                    # 0.99 (0.459 vs 0.463)
 }
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -2143,6 +2185,248 @@ def phase_resnet(torch, np, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the bench, data-parallel ResNet-50 on the card, the fed path
+# ---------------------------------------------------------------------------
+
+#: phase 7a: ``distributed_tensorflow_tpu_torch.bench`` in this process, in
+#: a process group of one over NCCL: ResNet-50 with the fused blocks and the
+#: pallas backward, 256 images, 224x224, BENCH_STEPS measured steps a window
+BENCH_ENV = {"BENCH_BLOCK_IMPL": "fused", "BENCH_BATCH": "256", "BENCH_STEPS": "6"}
+#: the bench's steps: 3 warmup + BENCH_STEPS resident, 2 warmup + BENCH_STEPS fed
+BENCH_STEPS_RUN = 3 + 6 + 2 + 6
+#: phase 7b: two processes on the one card over gloo (NCCL refuses two
+#: ranks on one GPU), ResNet-50 at full width from phase 6's weights (the
+#: bn3 scales drawn non-zero), one step on a global batch of DP_GLOBAL
+#: (half a rank), fused + pallas in bf16 and in f32, held against one
+#: process on the same global batch
+DP_GLOBAL = 64
+DP_PASSES = (("fused", "pallas", "bfloat16"), ("fused", "pallas", "float32"))
+#: phase 7c: host batches of the bench's shape through Prefetcher +
+#: DevicePut (a 2-slot pinned ring, so every slot is refilled)
+FED_CHECK_BATCHES = 6
+
+
+def load_dp_worker():
+    """``tests/torch_dp_worker.py`` (the ranks' script and the one-process
+    reference's ``train_steps``)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_dp_worker", os.path.join(REPO, "tests", "torch_dp_worker.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def bench_world1(torch, np, card):
+    """Phase 7a: the bench's two windows in this process at world 1 over
+    NCCL, the conv+BN launch counts set to 0 just before and read just
+    after; fails unless every kernel launched the rule's count a step."""
+    from distributed_tensorflow_tpu_torch import bench
+    from distributed_tensorflow_tpu_torch.ops import fused_conv_bn as fcb
+    from distributed_tensorflow_tpu_torch.parallel import cluster
+
+    worker = load_dp_worker()
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",
+           "MASTER_PORT": str(worker.free_port())}
+    for k in fcb.KERNELS.values():
+        k.launches = 0  # main path starts
+    t0 = time.perf_counter()
+    try:
+        with mock.patch.dict(os.environ, env), fused_bwd("pallas"):
+            row = bench.run(DEVICE, env=BENCH_ENV)
+            backend = row["provenance"]["backend"]
+    finally:
+        cluster.shutdown()
+    launches = {n: k.launches for n, k in fcb.KERNELS.items()}  # main path read
+    wall = time.perf_counter() - t0
+    rule = resnet_launch_rule(resnet_run_cfg().model)
+    want = {n: c * BENCH_STEPS_RUN for n, c in rule.items()}
+    prov = row["provenance"]
+    log(f"  7a bench (world 1, {backend}, fused + pallas, batch {row['global_batch']}, "
+        f"{row['image_size']}x{row['image_size']}, {BENCH_ENV['BENCH_STEPS']} measured steps a "
+        f"window): {row['value']} images/s per card, MFU {row['mfu']}, fed "
+        f"{row['pipeline_fed_images_per_sec_per_chip']} images/s, pipeline_efficiency "
+        f"{row['pipeline_efficiency']}; {prov['device_kind']}, {prov['power_limit']}; "
+        f"wall {wall:.1f} s; launches {launches}")
+    log(f"  7a bench line: {json.dumps(row)}")
+    if backend != ("nccl" if DEVICE == "cuda" else "gloo"):
+        raise SmokeFailure(f"phase 7a: the bench ran over {backend!r}")
+    if launches != want:
+        raise SmokeFailure(f"phase 7a: launches {launches}, the rule predicts {want} "
+                           f"({rule} a step x {BENCH_STEPS_RUN} steps)")
+    # the measured fed steps take host batches 2, 3, 0, 1, 2, 3 (the warmup 0, 1)
+    fed_losses = row["fed_losses"]
+    first, last = np.mean(fed_losses[:2]), np.mean(fed_losses[-2:])
+    log(f"  7c fed window losses {[round(x, 5) for x in fed_losses]}: batches 2 and 3 at "
+        f"their first visit {first:.5f}, at their second {last:.5f}")
+    if len(fed_losses) < 6 or not np.isfinite(fed_losses).all() or not last < first:
+        raise SmokeFailure(f"phase 7c: the fed window's loss is not finite and falling "
+                           f"({fed_losses})")
+    return {"row": row, "launches": launches, "fed_losses": fed_losses, "wall_s": wall}
+
+
+def fed_bitwise(torch, np):
+    """Phase 7c: the first FED_CHECK_BATCHES batches out of the Prefetcher's
+    side-stream copies equal their host batches bit for bit."""
+    from distributed_tensorflow_tpu_torch.data.pipeline import DevicePut, Prefetcher
+
+    data = resnet_run_cfg().data  # the bench's batch and image size
+    b, size = data.global_batch_size, data.image_size
+    gen = torch.Generator().manual_seed(7)
+    host = [{"image": torch.randn(b, size, size, 3, generator=gen).to(torch.bfloat16),
+             "label": torch.randint(0, 1000, (b,), generator=gen, dtype=torch.int32)}
+            for _ in range(FED_CHECK_BATCHES)]
+    put = DevicePut(DEVICE)
+    for i, staged in enumerate(Prefetcher(host, depth=2, transform=put)):
+        got = staged.wait()
+        for k, v in got.items():
+            if v.device != put.device or not torch.equal(v.cpu(), host[i][k]):
+                raise SmokeFailure(f"phase 7c: batch {i}'s {k} after the side-stream copy "
+                                   f"differs from its host batch")
+    log(f"  7c {FED_CHECK_BATCHES} batches ({b}x{size}x{size}x3 bf16 + labels) through Prefetcher "
+        f"+ DevicePut ({put.SLOTS} pinned slots): bitwise equal to their host batches")
+    return FED_CHECK_BATCHES
+
+
+def dp_diff(np, got: dict, ref: dict, init: dict) -> dict:
+    """One step (``{"losses": ..., <state dict>}``) against a reference step
+    from the same ``init`` state dict: |loss diff|, the worst relative L2
+    error of a BN running
+    statistic's update, and the parameters' updates' relative L2 errors
+    (worst, median)."""
+    def rel(a, b):
+        return float(np.linalg.norm(a - b)) / max(float(np.linalg.norm(b)), 1e-30)
+
+    bn, upd = [], []
+    for name, want in ref.items():
+        if name == "losses":
+            continue
+        r = rel(got[name] - init[name], want - init[name])
+        (bn if "running_" in name else upd).append((r, name))
+    upd.sort(reverse=True)
+    return {"loss": abs(float(got["losses"][0]) - float(ref["losses"][0])), "bn": max(bn),
+            "worst": upd[0], "median": upd[len(upd) // 2][0]}
+
+
+def dp_one_card(torch, np):
+    """Phase 7b: the dp2 job on the one card over gloo, against one-process
+    steps on the global batch run here meanwhile (and phase 7c's bitwise
+    check), with the f32 pass also against a one-process step on rank
+    0's half alone (the control: it must be far off)."""
+    import dataclasses
+    import tempfile
+
+    from distributed_tensorflow_tpu_torch.models import resnet
+
+    worker = load_dp_worker()
+    cfg, size = resnet_run_cfg().model, resnet_run_cfg().data.image_size
+    sd = resnet.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(5)
+    for name in sorted(sd):
+        if name.endswith("bn3.weight"):
+            sd[name] = torch.from_numpy(rng.normal(*RESNET_BN3_SCALE, sd[name].shape)
+                                        .astype(np.float32))
+    sd = {k: v.numpy() for k, v in sd.items()}
+    rng = np.random.default_rng(70)
+    batch = {"image": rng.standard_normal((DP_GLOBAL, size, size, 3)).astype(np.float32),
+             "label": rng.integers(0, cfg.num_classes, DP_GLOBAL).astype(np.int32)}
+    cfg_dict = dataclasses.asdict(cfg)
+    with tempfile.TemporaryDirectory() as out:
+        inputs = os.path.join(out, "inputs.npz")
+        np.savez(inputs, **{f"sd/{k}": v for k, v in sd.items()},
+                 **{f"{k}0": v for k, v in batch.items()})
+        t0 = time.perf_counter()
+        procs = worker.launch({"job": "resnet", "device": DEVICE, "backend": "gloo",
+                               "out": out, "inputs": inputs,
+                               "cfg": cfg_dict, "impls": [list(p) for p in DP_PASSES]})
+        refs = {}
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            n_fed = fed_bitwise(torch, np)
+            for impl, bwd, dtype in DP_PASSES:
+                c = dataclasses.replace(cfg, block_impl=impl, dtype=dtype)
+                refs[f"{impl}/{bwd}/{dtype}"] = worker.train_steps(c, sd, [batch], DEVICE, bwd=bwd)
+                torch.cuda.empty_cache()
+            half = {k: v[:DP_GLOBAL // 2] for k, v in batch.items()}
+            control = worker.train_steps(dataclasses.replace(cfg, dtype="float32"), sd, [half],
+                                         DEVICE, bwd="pallas")
+        except BaseException:
+            worker.stop(procs)
+            raise
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        ranks = worker.wait(procs, out, timeout=600)
+        wall = time.perf_counter() - t0
+    rule = resnet_launch_rule(cfg)
+    out = {"passes": {}, "wall_s": wall, "fed_bitwise": n_fed}
+    flat = lambda res: {"losses": res["losses"], **res["state"]}  # noqa: E731
+    f32_ref = flat(refs["fused/pallas/float32"])
+    for impl, bwd, dtype in DP_PASSES:
+        tag = f"{impl}/{bwd}/{dtype}"
+        got = [{"losses": r[f"{tag}/losses"], **{k[len(tag) + 7:]: v for k, v in r.items()
+                                                 if k.startswith(f"{tag}/state/")}}
+               for r in ranks]
+        for i, r in enumerate(ranks):
+            launches = {n: int(r[f"{tag}/launches/{n}"]) for n in rule}
+            if launches != rule:
+                raise SmokeFailure(f"phase 7b {tag}: rank {i} launched {launches}, the rule "
+                                   f"predicts {rule}")
+        if not all(np.array_equal(got[0][k], got[1][k]) for k in got[0]):
+            raise SmokeFailure(f"phase 7b {tag}: the two ranks' weights or losses differ")
+        d = dp_diff(np, got[0], flat(refs[tag]), sd)
+        got_n = {"loss": d["loss"], "bn": d["bn"][0], "worst": d["worst"][0],
+                 "median": d["median"]}
+        key = "f32" if dtype == "float32" else "bf16"
+        lim = {k: TOL[f"dp/{key}/{k}"] for k in got_n if f"dp/{key}/{k}" in TOL}
+        note = ""
+        if dtype != "float32":
+            # bf16: a step-1 gradient is rounding-dominated (phase 6), so the
+            # updates are held to the f32 one-process step no further than
+            # the bf16 one-process step is
+            floor = dp_diff(np, flat(refs[tag]), f32_ref, sd)["median"]
+            vs = dp_diff(np, got[0], f32_ref, sd)["median"]
+            got_n["vs_f32"], lim["vs_f32"] = vs, TOL["dp/bf16/vs_f32"] * floor
+            note = (f"; updates vs the f32 one-process step: median {vs:.3e} (limit "
+                    f"{lim['vs_f32']:.3e}: {TOL['dp/bf16/vs_f32']} x the one-process bf16 "
+                    f"step's {floor:.3e})")
+        log(f"  7b {tag}: rank losses {[float(g['losses'][0]) for g in got]}, one process "
+            f"{float(refs[tag]['losses'][0]):.6f}; |loss diff| {d['loss']:.3e}; BN update "
+            f"worst relative L2 {d['bn'][0]:.3e} ({d['bn'][1]}); parameter updates relative "
+            f"L2 worst {d['worst'][0]:.3e} ({d['worst'][1]}), median {d['median']:.3e}{note}; "
+            f"limits {lim}; ranks bitwise alike; launches a rank {rule}")
+        bad = {k: got_n[k] for k in lim if not got_n[k] <= lim[k]}
+        if bad:
+            raise SmokeFailure(f"phase 7b {tag}: outside tolerance: {bad}")
+        out["passes"][tag] = got_n
+        if dtype == "float32":
+            ctl = dp_diff(np, got[0], flat(control), sd)
+            log(f"  7b control, {tag} against one process on rank 0's half alone: BN update "
+                f"worst relative L2 {ctl['bn'][0]:.3e} ({ctl['bn'][1]}), parameter updates "
+                f"median {ctl['median']:.3e}")
+            if not ctl["bn"][0] > 10 * lim["bn"]:
+                raise SmokeFailure(f"phase 7b: the half-batch control is within 10x the BN "
+                                   f"limit ({ctl['bn'][0]:.3e}): the gate cannot tell sync BN")
+            out["control_bn"] = ctl["bn"][0]
+    return out
+
+
+def phase_dp(torch, np, card):
+    log(f"phase 7: the bench at world 1 over NCCL (ResNet-50 fused + pallas, 256 images, "
+        f"224x224), ResNet-50 data-parallel in two processes on this card over gloo (global "
+        f"batch {DP_GLOBAL}, one step, bf16 and f32) against one process, and the fed path; "
+        f"on {card}")
+    t0 = time.perf_counter()
+    out = {"bench": bench_world1(torch, np, card)}
+    torch.cuda.empty_cache()
+    out["dp"] = dp_one_card(torch, np)
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"  phase 7 wall {out['wall_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phases 3-4: serve gpt_small at full width
 # ---------------------------------------------------------------------------
 
@@ -2433,6 +2717,7 @@ def main() -> int:
                                                             "ln_matmul_bwd_dw")})
         resnet = phase_resnet(torch, np, smi)
         launches.update(resnet["launches"])
+        dp = phase_dp(torch, np, smi)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -2510,6 +2795,14 @@ def main() -> int:
         f"h^T@g, both for single); dw over the step's two-pass shapes (sum of launches x "
         f"kernel ms): {conv_bn['conv_bn_bwd_dw']['sweep']['step_ms']:.4f} ms; the forward over "
         f"the step's 36 launches: {conv_bn['conv_bn_fwd']['sweep']['step_ms']:.4f} ms")
+    bench = dp["bench"]["row"]
+    log(f"phase 7 ({dp['wall_s']:.1f} s): bench ResNet-50 fused+pallas batch "
+        f"{bench['global_batch']} at world 1: {bench['value']} images/s per card, MFU "
+        f"{bench['mfu']}, pipeline-fed {bench['pipeline_fed_images_per_sec_per_chip']} images/s, "
+        f"pipeline_efficiency {bench['pipeline_efficiency']} ({bench['provenance']['device_kind']}"
+        f", {bench['provenance']['power_limit']}); bench launches {dp['bench']['launches']}; "
+        f"dp2 on one card (gloo) vs one process: {dp['dp']['passes']} (half-batch control BN "
+        f"{dp['dp']['control_bn']:.3e}); fed path bitwise over {dp['dp']['fed_bitwise']} batches")
     log(f"cuda_ms traces kept {PAD_RECORDS[0]} of the {PAD_RECORDS[1]} spin-kernel records "
         f"that opened them")
     log(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s (builds included)")

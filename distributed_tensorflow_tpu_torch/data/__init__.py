@@ -3,7 +3,10 @@ classification subsets of ``distributed_tensorflow_tpu/data``)."""
 
 from .pipeline import (  # noqa: F401
     DataConfig,
+    DevicePut,
     NpzDataset,
+    Prefetcher,
+    StagedBatch,
     SyntheticClassification,
     batch_rng,
     local_batch_size,

@@ -4,8 +4,7 @@ corpus and the token-file reader.
 The LM subset of ``distributed_tensorflow_tpu/data/text.py`` with the
 seeding of ``data/pipeline.py`` (``batch_rng``, ``local_batch_size``,
 imported from the port's ``data/pipeline.py``), numpy only. A batch is bit-identical to the JAX package's for the same
-``(seed, index)``: the process index and count come from
-``torch.distributed`` when a process group is initialised, else 0 and 1
+``(seed, index)``: the process index and count are ``parallel.cluster``'s
 (the JAX package reads them from ``jax.process_index/count``). The MLM
 streams come with the ``bert_pretrain`` slice (ROADMAP Queue A).
 """
@@ -17,7 +16,8 @@ from typing import Iterator
 
 import numpy as np
 
-from .pipeline import batch_rng, local_batch_size, process_index_count
+from ..parallel.cluster import process_count, process_index
+from .pipeline import batch_rng, local_batch_size
 
 IGNORE_INDEX = -100
 
@@ -88,7 +88,7 @@ class TokenFileLM:
         every process draws the same global start list (seed+index, no
         process fold) and takes its disjoint stride slice."""
         cfg = self.cfg
-        rank, world = process_index_count()
+        rank, world = process_index(), process_count()
         rng = np.random.RandomState((cfg.seed + index) & 0x7FFFFFFF)
         n_windows = (len(self.tokens) - 1) // cfg.seq_len
         starts = rng.randint(0, n_windows, self.local_bs * world)

@@ -1,5 +1,5 @@
 """ResNet-50 (v1.5) — the port's counterpart of ``distributed_tensorflow_tpu/
-models/resnet.py`` on one device.
+models/resnet.py``.
 
 Same config, same math, same parameter tree (``weights.resnet_from_jax``
 converts the flax one): bf16 convolutions and matmuls with f32 parameters
@@ -24,6 +24,15 @@ stem (2, 3), the 4x4/1 stem (1, 2); max-pool pads with -inf).
   bn2 + ReLU in its prologue — 36 forward launches a ResNet-50 step; the
   backward follows ``DTF_FUSED_BWD`` (``ops/_policy.py``).
 
+With a mesh (``ResNet(cfg, mesh=...)``, as JAX's ``ResNet50(cfg, mesh)``)
+whose ``BATCH_AXES`` span more than one rank, every BatchNorm of both
+implementations normalises with the statistics of the global batch (sync
+BN): each rank's f32 column sums and sums of squares are all-reduced
+over the batch axes in one differentiable collective a layer, so the
+backward hands the fused kernels all-reduced ``dsum``/``dssq``
+cotangents, and the running statistics are updated from the global
+moments, equal on every rank.
+
 Both share one state dict (``stageS_blockB.conv1.weight``,
 ``...bn1.{weight,bias,running_mean,running_var}``, ...). Conv weights are
 OIHW, the head is ``[num_classes, features]`` (``nn.Linear``).
@@ -37,6 +46,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.collectives import all_reduce
+from ..parallel.mesh import BATCH_AXES, mesh_axis_size
 from ..utils.device import resolve_device
 from .transformer import torch_dtype
 
@@ -93,6 +104,21 @@ def max_pool_same(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
     return F.max_pool2d(x.permute(0, 3, 1, 2), k, s).permute(0, 2, 3, 1)
 
 
+def global_moments(col_sum: torch.Tensor, col_sumsq: torch.Tensor, rows: int, mesh=None):
+    """(mean, biased variance) of the global batch from this rank's f32
+    column sums and sums of squares over ``rows`` rows: the two all-reduced
+    over ``BATCH_AXES`` in one collective (differentiable), the count
+    ``rows`` times the number of batch shards (the shards are equal)."""
+    from ..ops.fused_conv_bn import moments_from_sums
+
+    shards = 1 if mesh is None else mesh_axis_size(mesh, BATCH_AXES)
+    if shards > 1:
+        c = col_sum.shape[0]
+        both = all_reduce(torch.cat([col_sum, col_sumsq]), BATCH_AXES, mesh)
+        col_sum, col_sumsq = both[:c], both[c:]
+    return moments_from_sums(col_sum, col_sumsq, rows * shards)
+
+
 class ConvKernel(nn.Module):
     """A bias-free convolution's OIHW weight (f32 master)."""
 
@@ -104,11 +130,13 @@ class ConvKernel(nn.Module):
 class BatchNorm(nn.Module):
     """flax ``nn.BatchNorm`` state: ``weight`` (flax ``scale``), ``bias``,
     and the ``running_mean``/``running_var`` buffers (flax ``batch_stats``
-    ``mean``/``var``)."""
+    ``mean``/``var``). ``mesh``: the batch statistics are the global
+    batch's (``global_moments``)."""
 
-    def __init__(self, features: int, zero_scale: bool = False, device=None):
+    def __init__(self, features: int, zero_scale: bool = False, device=None, mesh=None):
         super().__init__()
         self.zero_scale = zero_scale
+        self.mesh = mesh
         self.weight = nn.Parameter(torch.empty(features, device=device))
         self.bias = nn.Parameter(torch.empty(features, device=device))
         self.register_buffer("running_mean", torch.empty(features, device=device))
@@ -127,8 +155,8 @@ class BatchNorm(nn.Module):
         x32 = x.float()
         if train:
             axes = tuple(range(x.dim() - 1))
-            mean = x32.mean(axes)
-            var = torch.clamp((x32 * x32).mean(axes) - mean * mean, min=0.0)
+            mean, var = global_moments(x32.sum(axes), (x32 * x32).sum(axes),
+                                       x32.numel() // x32.shape[-1], self.mesh)
             self.update(mean.detach(), var.detach(), cfg.bn_momentum)
         else:
             mean, var = self.running_mean, self.running_var
@@ -142,20 +170,21 @@ def _dtypes(cfg: ResNetConfig):
 class _Bottleneck(nn.Module):
     """The parameters both block implementations share."""
 
-    def __init__(self, cin: int, filters: int, strides: int, cfg: ResNetConfig, device=None):
+    def __init__(self, cin: int, filters: int, strides: int, cfg: ResNetConfig, device=None,
+                 mesh=None):
         super().__init__()
         self.cfg, self.cin, self.filters, self.strides = cfg, cin, filters, strides
         f = filters
         self.conv1 = ConvKernel(f, cin, 1, device)
-        self.bn1 = BatchNorm(f, device=device)
+        self.bn1 = BatchNorm(f, device=device, mesh=mesh)
         self.conv2 = ConvKernel(f, f, 3, device)
-        self.bn2 = BatchNorm(f, device=device)
+        self.bn2 = BatchNorm(f, device=device, mesh=mesh)
         self.conv3 = ConvKernel(4 * f, f, 1, device)
-        self.bn3 = BatchNorm(4 * f, zero_scale=True, device=device)
+        self.bn3 = BatchNorm(4 * f, zero_scale=True, device=device, mesh=mesh)
         self.need_proj = cin != 4 * f or strides != 1
         if self.need_proj:
             self.proj_conv = ConvKernel(4 * f, cin, 1, device)
-            self.proj_bn = BatchNorm(4 * f, device=device)
+            self.proj_bn = BatchNorm(4 * f, device=device, mesh=mesh)
 
 
 class BottleneckBlock(_Bottleneck):
@@ -175,12 +204,14 @@ class BottleneckBlock(_Bottleneck):
 
 
 class FusedBottleneckBlock(_Bottleneck):
-    """The flax ``FusedBottleneckBlock`` on one device (no mesh, no psum):
-    the three 1x1 convs through ``conv1x1_bn_act`` in train mode; eval
-    with the running statistics in plain PyTorch."""
+    """The flax ``FusedBottleneckBlock``: the three 1x1 convs through
+    ``conv1x1_bn_act`` in train mode, the column sums their kernels emit
+    (and conv2's) reduced over the global batch by ``global_moments``, as
+    JAX psums them inside its shard_map; eval with the running statistics
+    in plain PyTorch."""
 
     def forward(self, x: torch.Tensor, *, train: bool) -> torch.Tensor:
-        from ..ops.fused_conv_bn import bn_scale_shift, conv1x1_bn_act, moments_from_sums
+        from ..ops.fused_conv_bn import bn_scale_shift, conv1x1_bn_act
 
         cfg = self.cfg
         dtype, nd = _dtypes(cfg)
@@ -207,7 +238,7 @@ class FusedBottleneckBlock(_Bottleneck):
             return torch.relu(y3 + res).to(nd).reshape(B, Ho, Wo, 4 * f)
 
         def bn_affine(bn, col_sum, col_sumsq, count):
-            mu, var = moments_from_sums(col_sum, col_sumsq, count)
+            mu, var = global_moments(col_sum, col_sumsq, count, bn.mesh)
             bn.update(mu.detach(), var.detach(), mom)
             return bn_scale_shift(mu, var, bn.weight, bn.bias, eps)
 
@@ -224,7 +255,9 @@ class FusedBottleneckBlock(_Bottleneck):
         sc3, sh3 = bn_affine(self.bn3, s3, q3, y2.shape[0])
         out = y3.float() * sc3 + sh3
         if self.need_proj:
-            xs = x[:, ::s, ::s, :].reshape(-1, cin).to(dtype)  # a copy at stride 2
+            # a copy at stride 2 (a view where the strided rows stay regular,
+            # as at 1x1 outputs: the kernels take contiguous rows)
+            xs = x[:, ::s, ::s, :].reshape(-1, cin).to(dtype).contiguous()
             yp, sp, qp = conv1x1_bn_act(xs, w2d(self.proj_conv), emit_stats=True, out_dtype=nd)
             scp, shp = bn_affine(self.proj_bn, sp, qp, y2.shape[0])
             res = yp.float() * scp + shp
@@ -237,9 +270,10 @@ BLOCKS = {"standard": BottleneckBlock, "fused": FusedBottleneckBlock}
 
 
 class ResNet(nn.Module):
-    """The flax ``ResNet``: NHWC images in, f32 logits out."""
+    """The flax ``ResNet``: NHWC images in, f32 logits out; ``mesh``: sync
+    BN over its batch axes."""
 
-    def __init__(self, cfg: ResNetConfig, device=None):
+    def __init__(self, cfg: ResNetConfig, device=None, mesh=None):
         super().__init__()
         if cfg.block_impl not in BLOCKS:
             raise ValueError(f"Unknown block_impl {cfg.block_impl!r}")
@@ -250,7 +284,7 @@ class ResNet(nn.Module):
             self.stem_conv = ConvKernel(cfg.width, 3, 7, device)
         else:
             raise ValueError(f"Unknown stem {cfg.stem!r}")
-        self.stem_bn = BatchNorm(cfg.width, device=device)
+        self.stem_bn = BatchNorm(cfg.width, device=device, mesh=mesh)
         self.block_names = []
         cin = cfg.width
         for stage, blocks in enumerate(cfg.stage_sizes):
@@ -258,7 +292,8 @@ class ResNet(nn.Module):
                 name = f"stage{stage}_block{block}"
                 strides = 2 if stage > 0 and block == 0 else 1
                 filters = cfg.width * 2 ** stage
-                self.add_module(name, BLOCKS[cfg.block_impl](cin, filters, strides, cfg, device))
+                self.add_module(name, BLOCKS[cfg.block_impl](cin, filters, strides, cfg, device,
+                                                             mesh))
                 self.block_names.append(name)
                 cin = 4 * filters
         self.head = nn.Linear(cin, cfg.num_classes, device=device)
@@ -280,8 +315,8 @@ class ResNet(nn.Module):
         return F.linear(x.float(), self.head.weight, self.head.bias)
 
 
-def ResNet50(cfg: ResNetConfig | None = None, device=None) -> ResNet:
-    return ResNet(cfg or ResNetConfig(), device)
+def ResNet50(cfg: ResNetConfig | None = None, device=None, mesh=None) -> ResNet:
+    return ResNet(cfg or ResNetConfig(), device, mesh)
 
 
 def _variance_scaling_(t: torch.Tensor, scale: float, fan_in: int, gen) -> torch.Tensor:
@@ -321,13 +356,13 @@ def init_params(cfg: ResNetConfig, seed: int = 0, device="cuda") -> dict[str, to
     return out
 
 
-def build(cfg: ResNetConfig, params, device) -> ResNet:
-    """``ResNet(cfg)`` on ``device`` holding a copy of ``params`` (a state
-    dict or another ``ResNet``'s weights) as f32 masters that require
-    grad."""
+def build(cfg: ResNetConfig, params, device, mesh=None) -> ResNet:
+    """``ResNet(cfg, mesh=mesh)`` on ``device`` holding a copy of ``params``
+    (a state dict or another ``ResNet``'s weights) as f32 masters that
+    require grad."""
     if isinstance(params, nn.Module):
         params = params.state_dict()
-    model = ResNet(cfg, device="meta")
+    model = ResNet(cfg, device="meta", mesh=mesh)
     want = model.state_dict()
     missing, extra = set(want) - set(params), set(params) - set(want)
     if missing or extra:

@@ -74,15 +74,19 @@ def goodput_fraction(registry: Registry | None = None) -> float:
     return productive / total if total > 0 else float("nan")
 
 
-def train_mfu(fwd_flops_per_step: float, steps_per_sec: float, n_chips: int = 1,
+def train_mfu(fwd_flops_per_step: float, steps_per_sec: float, n_chips: int | None = None,
               peak_per_chip: float | None = None,
               registry: Registry | None = None) -> float:
     """Training MFU from a FORWARD FLOP count — the single place the
-    fwd+bwd multiplier is applied. ``peak_per_chip`` defaults to the
-    card's entry in ``utils.flops.PEAK_FLOPS_BY_KIND``. With ``registry``
-    the value is also published as the ``mfu`` gauge."""
+    fwd+bwd multiplier is applied. ``n_chips`` defaults to the number of
+    processes (one card each), ``peak_per_chip`` to the card's entry in
+    ``utils.flops.PEAK_FLOPS_BY_KIND``. With ``registry`` the value is also
+    published as the ``mfu`` gauge."""
+    from ..parallel.cluster import process_count
     from ..utils import flops as flops_lib
 
+    if n_chips is None:
+        n_chips = process_count()
     if peak_per_chip is None:
         peak_per_chip = flops_lib.peak_flops_per_chip()
     value = flops_lib.mfu(

@@ -19,7 +19,10 @@ Usage:
         --optimizer.warmup_steps=0 --optimizer.schedule=constant
 
 Runs on the GPU unless ``--device cpu`` is given; with no CUDA present
-the GPU default raises. Every ``--section.key=value`` override is the
+the GPU default raises. Data-parallel on N cards: ``torchrun
+--nproc_per_node=N -m distributed_tensorflow_tpu_torch.train
+resnet50_imagenet --mesh.data=N ...`` (one process a card; process 0
+prints). Every ``--section.key=value`` override is the
 JAX package's. ``--model.fused_ln_matmul=true`` runs ln1->q/k/v and
 ln2->mlp_in through the fused LN+matmul kernels; ``DTF_FUSED_BWD=pallas``
 (default ``xla``) picks their backward kernels, as it does for
@@ -31,6 +34,7 @@ from __future__ import annotations
 import argparse
 import logging
 
+from ..parallel import cluster
 from ..workloads import available, run_workload
 
 
@@ -44,10 +48,15 @@ def main(argv=None):
     if bad:
         ap.error(f"overrides must be --section.key=value, got {bad}")
     logging.basicConfig(level=logging.INFO, format="%(message)s")
-    result = run_workload(args.workload, overrides, device=args.device)
-    for row in result.history:
-        print(" ".join(f"{k}={v:.6g}" for k, v in row.items()))
-    print(f"trained {result.state.step} steps on {result.device}")
+    try:
+        result = run_workload(args.workload, overrides, device=args.device)
+        if cluster.is_chief():
+            for row in result.history:
+                print(" ".join(f"{k}={v:.6g}" for k, v in row.items()))
+            print(f"trained {result.state.step} steps on {result.device} (mesh "
+                  f"{dict(result.mesh.shape)})")
+    finally:
+        cluster.shutdown()
 
 
 if __name__ == "__main__":

@@ -14,6 +14,7 @@ from typing import Any
 
 from ..obs import goodput
 from ..obs.registry import Registry
+from ..parallel.cluster import is_chief
 from .step import step_nonfinite
 
 logger = logging.getLogger(__name__)
@@ -38,6 +39,8 @@ class StopAtStep(Callback):
 
 class MetricsLogger(Callback):
     """Steps/sec, examples/sec, MFU and the metric dict, every N steps.
+    Every process fetches (keeping the processes in step); only the chief
+    logs.
 
     ``model_flops_per_step`` is FORWARD FLOPs per step; ``obs.goodput.
     train_mfu`` applies the ×3. Rates are taken between two fetches, so
@@ -87,8 +90,9 @@ class MetricsLogger(Callback):
         self.last, self.last_step = fetched, step
         if self.history is not None:
             self.history.append({"step": step, **fetched})
-        logger.info("step %d: %s", step,
-                    " ".join(f"{k}={v:.6g}" for k, v in sorted(fetched.items())))
+        if is_chief():
+            logger.info("step %d: %s", step,
+                        " ".join(f"{k}={v:.6g}" for k, v in sorted(fetched.items())))
 
 
 class NaNGuard(Callback):

@@ -1,11 +1,14 @@
 """Host run loop — the port's counterpart of ``distributed_tensorflow_tpu/
-train/loop.py`` on one device: plain Python driving the step, callbacks
-over its metrics, and the loop's causal events in the flight recorder
+train/loop.py``: plain Python driving the step, callbacks over its
+metrics, and the loop's causal events in the flight recorder
 (``train_start``, ``step_start``, ``step_end``, ``train_stop``,
 ``train_exception``). PyTorch queues work on the card and returns, so the
-host prepares step N+1 while N runs; only cadence'd callbacks wait. No
-mesh, no donation, no checkpoint (ROADMAP Queue A item 2): an unhandled
-exception dumps the flight recorder as a postmortem and re-raises."""
+host prepares step N+1 while N runs; only cadence'd callbacks wait. Each
+process feeds its own rows (a data-parallel step averages over the mesh,
+``train/step.py``); a ``Prefetcher`` with ``DevicePut`` hands the loop
+batches already on the card. No donation, no checkpoint (ROADMAP Queue A
+item 2.3): an unhandled exception dumps the flight recorder as a
+postmortem and re-raises."""
 
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ from typing import Any, Callable, Iterable, Sequence
 import numpy as np
 import torch
 
+from ..data.pipeline import StagedBatch
 from ..obs import flightrec as flightrec_lib
 from . import step as step_lib
 from .callbacks import Callback
@@ -52,16 +56,21 @@ class Trainer:
         return self._stop_reason
 
     # -- data -------------------------------------------------------------
-    def put_batch(self, batch: dict[str, Any]) -> dict[str, torch.Tensor]:
-        """Host numpy batch -> tensors on the state's device."""
-        return {k: torch.as_tensor(np.asarray(v)).to(self.device, non_blocking=True)
-                for k, v in batch.items()}
+    def put_batch(self, batch) -> dict[str, torch.Tensor]:
+        """A batch on the state's device: a ``StagedBatch`` (``DevicePut``)
+        once its copy is waited for, tensors already there as they are,
+        a host batch copied from pageable memory (an unprefetched stream)."""
+        if isinstance(batch, StagedBatch):
+            return batch.wait()
+        return {k: (v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v)))
+                .to(self.device, non_blocking=True) for k, v in batch.items()}
 
     # -- loop -------------------------------------------------------------
     def fit(self, data: Iterable[Any], num_steps: int | None = None) -> step_lib.TrainState:
         step_now = self.state.step
         rec = self.flightrec
         rec.emit("train_start", step=step_now)
+        data_iter = None
         try:
             for cb in self.callbacks:
                 cb.on_train_start(self)
@@ -94,6 +103,9 @@ class Trainer:
                                           reason=f"train_exception:{type(e).__name__}")
             raise
         finally:
+            close = getattr(data_iter, "close", None)
+            if close is not None:  # a Prefetcher's worker stops and drains
+                close()
             for cb in self.callbacks:
                 cb.on_train_end(self)
         rec.emit("train_stop", step=step_now, reason=self._stop_reason or "")

@@ -1,6 +1,16 @@
 """The train step — the port's counterpart of ``distributed_tensorflow_tpu/
-train/step.py`` on one device: no jit, no mesh, no donation. The state's
-parameters live in its model and are updated in place by its optimizer.
+train/step.py``: no jit, no donation. The state's parameters live in its
+model and are updated in place by its optimizer.
+
+- **Data parallelism**: with a mesh whose ``BATCH_AXES`` span more than
+  one rank, each rank steps on its rows of the global batch and, after
+  the backward pass (and the accumulation), the gradients are averaged
+  over the batch axes in one all-reduce of one flat f32 buffer — before
+  the global norm and the clipping, as JAX's gradients are global before
+  ``clip_grad_norm`` — with the loss and aux metrics at its end, so that
+  every rank updates, decides and logs alike. The mean of the ranks'
+  gradients of their local mean losses is the gradient of the global
+  mean loss (BatchNorm statistics are global, ``models/resnet.py``).
 
 - **Gradient accumulation**: ``grad_accum_steps`` microbatches, the
   gradient the mean of the microbatch gradients (summed in f32), the
@@ -16,7 +26,8 @@ parameters live in its model and are updated in place by its optimizer.
   leaves the parameters, the buffers, the optimizer state AND the step
   counter unchanged and reports ``nonfinite = 1``; the JAX step selects
   the old state on the device, the port decides on the host (one scalar
-  read) and copies the buffers back from a snapshot taken before the
+  read, of the all-reduced loss and gradients, so every rank decides
+  alike) and copies the buffers back from a snapshot taken before the
   forward.
 """
 
@@ -27,6 +38,8 @@ from typing import Any, Callable
 
 import torch
 
+from ..parallel.collectives import all_reduce_mean
+from ..parallel.mesh import BATCH_AXES, mesh_axis_size
 from .optimizers import Optimizer, global_norm
 
 #: loss_fn(batch, generator) -> (loss, aux metrics)
@@ -66,16 +79,28 @@ class StepOptions:
     skip_nonfinite: bool = False
 
 
-def make_train_step(loss_fn: LossFn, options: StepOptions = StepOptions()
+def mean_over_batch_axes(tensors: list[torch.Tensor], mesh) -> list[torch.Tensor]:
+    """``tensors`` averaged over ``mesh``'s batch axes in one all-reduce
+    of one flat f32 buffer, each returned in its own shape and dtype."""
+    flat = all_reduce_mean(torch.cat([t.reshape(-1).float() for t in tensors]), BATCH_AXES,
+                           mesh)
+    return [f.view(t.shape).to(t.dtype)
+            for f, t in zip(flat.split([t.numel() for t in tensors]), tensors)]
+
+
+def make_train_step(loss_fn: LossFn, options: StepOptions = StepOptions(), mesh=None
                     ) -> Callable[[TrainState, Any], tuple[TrainState, dict]]:
     """``train_step(state, batch) -> (state, metrics)``: forward, backward
     and one optimizer update (the state is updated in place and
     returned). ``metrics`` holds device scalars: ``loss``, the loss
     function's aux metrics, and per the options ``grad_norm``,
-    ``grads_finite`` and ``nonfinite``."""
+    ``grads_finite`` and ``nonfinite``. ``mesh``: ``batch`` is this rank's
+    rows, and the gradients and metrics are averaged over the batch axes
+    (module docstring)."""
     accum = options.grad_accum_steps
     if accum < 1:
         raise ValueError(f"grad_accum_steps must be >= 1, got {accum}")
+    data_parallel = mesh is not None and mesh_axis_size(mesh, BATCH_AXES) > 1
 
     def train_step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         params = state.optimizer.params
@@ -105,6 +130,11 @@ def make_train_step(loss_fn: LossFn, options: StepOptions = StepOptions()
             aux = {k: torch.stack([a[k] for a in auxes]).mean(0) for k in auxes[0]}
 
         metrics = {"loss": loss.float(), **aux}
+        if data_parallel:  # one all-reduce: the gradients, then the metrics
+            names = sorted(metrics)
+            both = mean_over_batch_axes([*grads, *(metrics[k] for k in names)], mesh)
+            grads, metrics = both[:len(grads)], dict(zip(names, both[len(grads):]))
+            loss = metrics["loss"]
         if options.compute_grad_norm or options.clip_grad_norm:
             gnorm = global_norm(grads)
             metrics["grad_norm"] = gnorm

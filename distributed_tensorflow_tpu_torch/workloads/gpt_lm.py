@@ -35,7 +35,11 @@ def default_config() -> RunConfig:
     )
 
 
-def build(cfg: RunConfig, device: torch.device) -> WorkloadParts:
+def build(cfg: RunConfig, device: torch.device, mesh=None) -> WorkloadParts:
+    if mesh is not None and mesh.size > 1:
+        raise NotImplementedError(
+            f"gpt_lm over {mesh.size} processes: data-parallel gpt_lm is not held against "
+            f"the JAX package yet (ROADMAP Queue A item 2.7)")
     if not cfg.model.causal:
         raise ValueError("gpt_lm is a causal workload; set model.causal=True")
     return transformer_parts(cfg, device, mlm=False)

@@ -1,12 +1,13 @@
 """ResNet-50 / ImageNet — the port's counterpart of ``distributed_tensorflow_tpu/
 workloads/resnet50_imagenet.py`` (the framework's primary metric,
-images/sec/chip): the same preset on one device. ``space_to_depth`` stem,
+images/sec/chip): the same preset, data-parallel over the processes of the
+mesh (one per card, sync BN over the global batch). ``space_to_depth`` stem,
 bf16 compute with f32 parameters and BatchNorm statistics, 224x224,
 1000 classes; momentum 0.9 at lr 0.4 (0.1 x 1024/256) with a 5-epoch
 warmup and cosine decay over 90 epochs at global batch 1024; coupled L2
 1e-4 on the kernels in the optimizer; label smoothing 0.1. The stream is
 ``SyntheticClassification`` by default or an ``npz:`` file; real ImageNet
-(``records:``/``jpeg:``) is ROADMAP Queue A item 3, as is the mesh. The
+(``records:``/``jpeg:``) is ROADMAP Queue A item 3.2. The
 ``block_impl`` override picks the plain model (``standard``) or the fused
 conv+BN kernels (``fused``)."""
 
@@ -17,7 +18,8 @@ import torch
 from ..data.pipeline import DataConfig, make_dataset
 from ..models import common, resnet
 from ..train.optimizers import OptimizerConfig
-from .runner import MeshSpec, RunConfig, TrainSection, WorkloadParts
+from ..parallel.mesh import MeshSpec
+from .runner import RunConfig, TrainSection, WorkloadParts
 
 
 def default_config() -> RunConfig:
@@ -38,10 +40,11 @@ def default_config() -> RunConfig:
     )
 
 
-def build(cfg: RunConfig, device: torch.device) -> WorkloadParts:
+def build(cfg: RunConfig, device: torch.device, mesh=None) -> WorkloadParts:
     """A trainable ResNet with random weights from ``cfg.train.seed`` on
-    ``device``, the label-smoothed classification loss, the image stream
-    and the forward FLOPs per step. Evaluation comes with
+    ``device`` (sync BN over ``mesh``'s batch axes), the label-smoothed
+    classification loss, this process's image stream (its rows of each
+    global batch) and the forward FLOPs per global step. Evaluation comes with
     ``train/evaluation.py`` (ROADMAP Queue A item 2)."""
     mcfg: resnet.ResNetConfig = cfg.model
     data: DataConfig = cfg.data
@@ -58,7 +61,7 @@ def build(cfg: RunConfig, device: torch.device) -> WorkloadParts:
         raise ValueError(f"data.num_classes={data.num_classes} exceeds "
                          f"model.num_classes={mcfg.num_classes}")
     model = resnet.build(mcfg, resnet.init_params(mcfg, seed=cfg.train.seed, device=device),
-                         device)
+                         device, mesh)
     return WorkloadParts(
         model=model,
         loss_fn=common.classification_loss_fn(model, label_smoothing=0.1),

@@ -1,13 +1,17 @@
-"""Workload runner — the one-device subset of ``distributed_tensorflow_tpu/
-workloads/runner.py``: config → model on the device → optimizer → step
-→ callback loop. Each workload module contributes a preset config and a
-builder; everything else is shared.
+"""Workload runner — the data-parallel subset of ``distributed_tensorflow_tpu/
+workloads/runner.py``: cluster → mesh → config → model on this process's
+card → optimizer → step → prefetched feed → callback loop. Each workload
+module contributes a preset config and a builder; everything else is
+shared. One process per card: under ``torchrun --nproc_per_node=N`` (or
+with ``cluster.coordinator_address`` set) the processes join one process
+group, the ``data`` axis absorbs them, each steps on its rows of the
+global batch, and only the chief logs.
 
 The config tree keeps the JAX package's section names, so the same
 ``--section.key=value`` overrides parse; a config that asks for what the
 port does not have yet raises with the ROADMAP item named: a checkpoint
-directory, a mesh of more than one device, a pipeline, a fleet, the
-anomaly defense, sequence parallelism, MoE.
+directory, a mesh axis other than ``data`` above 1, a pipeline, a fleet,
+the anomaly defense, sequence parallelism, MoE.
 """
 
 from __future__ import annotations
@@ -18,7 +22,12 @@ from typing import Any, Callable, Iterable
 
 import torch
 
+from ..data.pipeline import DevicePut, Prefetcher
 from ..data.text import TextDataConfig
+from ..parallel import cluster
+from ..parallel.cluster import ClusterConfig
+from ..parallel.mesh import MeshSpec, build_mesh, describe
+from ..parallel.sharding import replicate
 from ..train import (
     OptimizerConfig,
     StepOptions,
@@ -29,7 +38,6 @@ from ..train import (
     make_train_step,
 )
 from ..utils import config as config_lib
-from ..utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -51,19 +59,6 @@ class TrainSection:
 
 
 @dataclasses.dataclass(frozen=True)
-class MeshSpec:
-    """The JAX package's axis names; the port runs on one device, so
-    every axis must be 1 (``data=-1`` absorbs the one device)."""
-
-    pipe: int = 1
-    data: int = -1
-    fsdp: int = 1
-    seq: int = 1
-    expert: int = 1
-    model: int = 1
-
-
-@dataclasses.dataclass(frozen=True)
 class CheckpointConfig:
     directory: str = ""  # non-empty: not ported yet (ROADMAP Queue A item 2)
 
@@ -77,6 +72,7 @@ class FleetSection:
 class RunConfig:
     workload: str = "gpt_lm"
     model: Any = None  # workload-specific config dataclass, set by preset
+    cluster: ClusterConfig = ClusterConfig()
     mesh: MeshSpec = MeshSpec()
     data: Any = TextDataConfig()  # the workload's: TextDataConfig or data.pipeline.DataConfig
     optimizer: OptimizerConfig = OptimizerConfig()
@@ -89,7 +85,7 @@ class RunConfig:
 class WorkloadParts:
     """What a workload module's build() returns."""
 
-    model: torch.nn.Module  # trainable, on the run's device
+    model: torch.nn.Module  # trainable, on the run's device, sync BN over the mesh
     loss_fn: Callable  # loss_fn(batch, generator) -> (loss, aux)
     # start_step -> host-batch iterable
     dataset_fn: Callable[[int], Iterable]
@@ -102,6 +98,7 @@ class RunResult:
     state: Any
     history: list[dict]
     device: torch.device
+    mesh: Any = None
 
 
 def check_supported(cfg: RunConfig) -> None:
@@ -112,11 +109,12 @@ def check_supported(cfg: RunConfig) -> None:
     if cfg.mesh.pipe > 1:
         raise ValueError(f"mesh.pipe={cfg.mesh.pipe}: pipeline parallelism is not ported "
                          f"yet (ROADMAP Queue A item 6, parallel/pipeline.py)")
-    axes = dataclasses.asdict(cfg.mesh)
-    big = {k: v for k, v in axes.items() if v not in (1, -1) or (k != "data" and v != 1)}
+    axes = cfg.mesh.sizes()
+    big = {k: v for k, v in axes.items() if k != "data" and v != 1}
     if big:
-        raise ValueError(f"mesh {big}: the port trains on one device; meshes of more "
-                         f"than one are ROADMAP Queue A item 3 (parallel/mesh.py)")
+        raise ValueError(f"mesh {big}: no axis but data may span more than one process in "
+                         f"the port so far (fsdp and model: ROADMAP Queue A item 3.1's "
+                         f"sharding rule tables; seq, expert: item 6)")
     if cfg.fleet.dir:
         raise ValueError("fleet.dir: the fleet control plane is not ported yet "
                          "(ROADMAP Queue A item 6, resilience/)")
@@ -125,19 +123,34 @@ def check_supported(cfg: RunConfig) -> None:
                          "resilience/anomaly.py; it also needs checkpoints, item 2)")
 
 
-def run(cfg: RunConfig, build: Callable[[RunConfig, torch.device], WorkloadParts],
+def run(cfg: RunConfig, build: Callable[[RunConfig, torch.device, Any], WorkloadParts],
         extra_callbacks: Iterable[cb.Callback] = (), device="cuda") -> RunResult:
-    """``build(cfg, device) -> WorkloadParts``, then train
-    ``cfg.train.num_steps`` steps on ``device`` (the card by default; no
-    CPU fallback — pass ``device="cpu"`` for the plain versions). The
-    steps run with ``torch.backends.cudnn.deterministic`` on, restored
-    after: a step is bitwise repeatable, as the JAX package's is on a TPU
-    (same-seed recovery relies on it), and with cuDNN's default convolution
-    algorithms the card's ResNet steps were not."""
+    """``cluster.initialize(cfg.cluster)``, ``build_mesh(cfg.mesh)``,
+    ``build(cfg, device, mesh) -> WorkloadParts`` (the model's weights
+    then broadcast from process 0), then train ``cfg.train.num_steps``
+    steps on this process's card (``device``: the card by default; no CPU
+    fallback — pass ``device="cpu"`` for the plain versions, gloo between
+    processes), each process fed its rows by a ``Prefetcher`` of depth 2
+    through ``DevicePut``. The steps run with
+    ``torch.backends.cudnn.deterministic`` on, restored after: a step is
+    bitwise repeatable, as the JAX package's is on a TPU (same-seed
+    recovery relies on it), and with cuDNN's default convolution
+    algorithms the card's ResNet steps were not. The process group, when
+    this call started one, is left up for the caller (``cluster.
+    shutdown``)."""
     check_supported(cfg)
-    dev = resolve_device(device)
-    logger.info("config:\n%s", config_lib.to_json(cfg))
-    parts = build(cfg, dev)
+    dev = cluster.initialize(cfg.cluster, device)
+    if cfg.mesh.data > 1 and cluster.process_count() == 1:
+        raise ValueError(
+            f"mesh.data={cfg.mesh.data} spans more than one process, but this one runs "
+            f"alone: launch it under torchrun --nproc_per_node={cfg.mesh.data} (or set "
+            f"cluster.coordinator_address, cluster.num_processes and cluster.process_id)")
+    mesh = build_mesh(cfg.mesh, dev)
+    if cluster.is_chief():
+        logger.info("mesh: %s", describe(mesh))
+        logger.info("config:\n%s", config_lib.to_json(cfg))
+    parts = build(cfg, dev, mesh)
+    replicate(parts.model, mesh)
     optimizer = make_optimizer(cfg.optimizer, parts.model.parameters())
     state = init_train_state(parts.model, optimizer, seed=cfg.train.seed)
     metrics_logger = cb.MetricsLogger(
@@ -150,12 +163,13 @@ def run(cfg: RunConfig, build: Callable[[RunConfig, torch.device], WorkloadParts
         grad_accum_steps=cfg.train.grad_accum_steps,
         compute_grad_norm=cfg.train.debug_metrics,
         check_grads_finite=cfg.train.debug_metrics,
-        clip_grad_norm=cfg.train.clip_grad_norm or None))
+        clip_grad_norm=cfg.train.clip_grad_norm or None), mesh=mesh)
     trainer = Trainer(step_fn, state, callbacks=callbacks)
+    data = Prefetcher(parts.dataset_fn(state.step), depth=2, transform=DevicePut(dev))
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
-        state = trainer.fit(parts.dataset_fn(state.step), num_steps=cfg.train.num_steps)
+        state = trainer.fit(data, num_steps=cfg.train.num_steps)
     finally:
         torch.backends.cudnn.deterministic = deterministic
-    return RunResult(state, metrics_logger.history, dev)
+    return RunResult(state, metrics_logger.history, dev, mesh)

@@ -1132,3 +1132,117 @@ def test_every_kernel_family_launches_on_its_tensors_device(card):
     for name, got, want in checks:
         assert got.device == dev, name
         assert _rel_l2(got, want) < 1e-5, (name, _rel_l2(got, want))
+
+
+@pytest.mark.cuda
+def test_prefetcher_side_stream_copies_are_bitwise_the_host_batches(card):
+    """50 host batches through ``Prefetcher(depth=2)`` and ``DevicePut`` (a
+    ring of 2 pinned slots, each refilled 25 times): the consumer's stream
+    sleeps, then snapshots each device batch and drops it, so a slot
+    refilled before its copy completed, or device memory handed back to
+    the side stream before the consumer read it, would show in the
+    snapshots; every one equals its host batch bit for bit."""
+    from distributed_tensorflow_tpu_torch.data.pipeline import DevicePut, Prefetcher
+
+    gen = torch.Generator().manual_seed(0)
+    host = [{"image": torch.randn(16, 64, 64, 3, generator=gen).to(torch.bfloat16),
+             "label": torch.randint(0, 1000, (16,), generator=gen, dtype=torch.int32)}
+            for _ in range(50)]
+    put = DevicePut(card)
+    snaps = []
+    for staged in Prefetcher(host, depth=2, transform=put):
+        got = staged.wait()
+        torch.cuda._sleep(2_000_000)  # the consumer stream busy while copies proceed
+        snaps.append({k: v.clone() for k, v in got.items()})
+        del got, staged
+    torch.cuda.synchronize()
+    assert len(snaps) == 50 and put.stream is not None
+    for want, got in zip(host, snaps):
+        assert got["image"].device.type == "cuda"
+        assert torch.equal(got["image"].cpu(), want["image"])
+        assert torch.equal(got["label"].cpu(), want["label"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,cards,world", [("gloo", 1, 2), ("nccl", 2, 2),
+                                                 ("nccl", 4, 4)])
+def test_dp_resnet_steps_on_card_equal_one_process(card, tmp_path, backend, cards, world):
+    """Two (or four) processes (``tests/torch_dp_worker.py``) step a small
+    ResNet (one block a stage, width 16, 32x32, f32, fused with the pallas
+    backward and standard) twice on their shares of two global batches of
+    16: over gloo two on card 0, over NCCL one card each. Against the
+    one-process steps on the global batch: the losses within 1e-4 (f32,
+    summation order), the change of each parameter and running statistic
+    over the two steps within 1e-1 relative L2 (worst) and 2.5e-2
+    (median; ``chip_smoke.py``'s f32 step gate). In f32 a ReLU input
+    within rounding of 0 may fall on the other side in one run and not in
+    the other, and BatchNorm over the 8-16 rows of stage 3 amplifies it:
+    on an H100 the worst tensor, ``stage1_block0.bn1.bias`` (32
+    elements), read 4.87e-2 at world 2. The control: one process stepped
+    on rank 0's rows alone must fall outside the same parameter limits
+    (on the CPU it reads median 1.29 at world 2 and 2.58 at world 4, and
+    the ranks with the BN all-reduce removed read median 0.74 and 1.38).
+    Both ranks bitwise alike; every rank launched the conv+BN kernels the
+    one process launched."""
+    import os
+    import sys
+
+    if torch.cuda.device_count() < cards:
+        pytest.skip(f"needs {cards} cards")
+    sys.path.insert(0, os.path.dirname(__file__))
+    import torch_dp_worker as worker
+
+    from distributed_tensorflow_tpu_torch.models import resnet
+
+    cfg = dict(stage_sizes=(1, 1, 1, 1), width=16, num_classes=10, dtype="float32",
+               stem="space_to_depth")
+    sd = resnet.init_params(resnet.ResNetConfig(**cfg), seed=0, device="cpu")
+    sd = {k: (v + 0.25 if k.endswith("bn3.weight") else v).numpy() for k, v in sd.items()}
+    rng = np.random.default_rng(1)
+    batches = [{"image": rng.standard_normal((16, 32, 32, 3)).astype(np.float32),
+                "label": rng.integers(0, 10, 16).astype(np.int32)} for _ in range(2)]
+    inputs = str(tmp_path / "inputs.npz")
+    np.savez(inputs, **{f"sd/{k}": v for k, v in sd.items()},
+             **{f"{k}{i}": b[k] for i, b in enumerate(batches) for k in b})
+    impls = [["fused", "pallas"], ["standard", "xla"]]
+    procs = worker.launch({"job": "resnet", "device": "cuda", "out": str(tmp_path),
+                           "inputs": inputs, "cfg": cfg, "impls": impls,
+                           "backend": backend}, world=world)
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32 = True, False
+    rank0 = [{k: v[:16 // world] for k, v in b.items()} for b in batches]
+    try:
+        one = {"/".join(e): worker.train_steps(resnet.ResNetConfig(**cfg, block_impl=e[0]),
+                                               sd, batches, card, bwd=e[1]) for e in impls}
+        control = {"/".join(e): worker.train_steps(resnet.ResNetConfig(**cfg, block_impl=e[0]),
+                                                   sd, rank0, card, bwd=e[1]) for e in impls}
+    except BaseException:
+        worker.stop(procs)
+        raise
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32 = flags
+    ranks = worker.wait(procs, str(tmp_path), timeout=300)
+
+    def update_rels(state, ref):
+        """(worst, median) relative L2 of each tensor's change, and the
+        five worst with their names."""
+        rels = sorted(((float(np.linalg.norm(state[name] - want)
+                              / max(np.linalg.norm(want - sd[name]), 1e-30)), name)
+                       for name, want in ref.items()), reverse=True)
+        return rels[0][0], rels[len(rels) // 2][0], rels[:5]
+
+    for tag, ref in one.items():
+        worst, median, top = update_rels(control[tag]["state"], ref["state"])
+        assert worst > 1e-1 or median > 2.5e-2, ("control within the limits", tag, top, median)
+        for rank in ranks:
+            np.testing.assert_allclose(rank[f"{tag}/losses"], ref["losses"], rtol=1e-4,
+                                       atol=1e-4)
+            worst, median, top = update_rels(
+                {name: rank[f"{tag}/state/{name}"] for name in ref["state"]}, ref["state"])
+            assert worst <= 1e-1 and median <= 2.5e-2, (tag, top, median)
+            for name, n in ref["launches"].items():
+                assert int(rank[f"{tag}/launches/{name}"]) == n, (tag, name)
+        for rank in ranks[1:]:
+            for key in ranks[0]:
+                np.testing.assert_array_equal(ranks[0][key], rank[key], err_msg=key)
+    assert one["fused/pallas"]["launches"]["conv_bn_fwd"] == 2 * 12
