@@ -17,10 +17,13 @@ when any phase fails:
 2. hold each kernel against its plain PyTorch version on the card at its
    path's shapes (serving, gpt_small: H=12, D=64, bs=16; d=768 — and the
    three flash kernels at the training shapes B=8, H=12, S=1024, D=64,
-   causal, bf16 and f32, with and without a kv_mask), with the tolerances
+   causal, bf16 and f32, with and without a kv_mask, and at BERT's,
+   ``FLASH_BERT``: B=32, H=12, S=512, D=64, non-causal, bf16, with no mask
+   and with a padded kv_mask whose last row attends nothing, each timed
+   beside SDPA on the same inputs with its backend named), with the tolerances
    stated in ``TOL`` (the flash forward's out and the backward's dq, dk,
-   dv also as relative L2 error, beside an out, a dk and a dq scaled by
-   1.01 that the gates must fail); time
+   dv — and lse over the rows that attend — also as relative L2 error,
+   beside an out, a dk and a dq scaled by 1.01 that the gates must fail); time
    kernel, plain version, one library call and the bound with CUDA events
    and the profiler (phase 2a holds paged attention at ``PAGED_KINDS``,
    also as relative L2 error, ``TOL["paged_attention/rel_l2/*"]``, beside
@@ -122,7 +125,20 @@ when any phase fails:
    having launched every conv+BN kernel; (c) hold the first batches out
    of the Prefetcher's side-stream copies bitwise to their host batches,
    and check that the bench's fed window's loss is finite and falls;
-8. print the ``kernels`` JSON line (twelve entries: ``ln_matmul`` is the
+8. train ``bert_pretrain`` (bert_base at full width and depth: 12 layers,
+   d_model 768, S=512, the gathered MLM head, K=77; bf16, dropout 0.1,
+   random weights from seed 0, global batch 32, 6 steps of adamw at a
+   constant lr 1e-4 with no warmup — a smoke setting — on a fixed corpus
+   of 32 random sequences, then a final eval of 4 batches) through
+   ``run_workload`` with the flash kernels (non-causal) and with dense
+   attention; hold the losses and step-1 gradients of the two to phase
+   5's gates, the eval loss and accuracy to ``TOL["bert/eval/*"]``, check
+   that the loss falls, that each flash kernel launched 12 times a step and
+   ``flash_fwd`` 12 times an eval batch; then one step of each on a padded
+   batch (valid lengths 384-512, one row with none, kept out of the loss)
+   and one f32 step of each, within the bf16 and f32 gates; print step ms,
+   tokens/s, MFU, peak memory and the eval metrics;
+9. print the ``kernels`` JSON line (twelve entries: ``ln_matmul`` is the
    serving forward at M=8, ``ln_matmul_train`` the tiled forward at
    M=8192), then the ``ok`` line last.
 
@@ -169,6 +185,10 @@ TOL = {
     "flash/float32": (1e-4, 1e-4),
     "flash/bfloat16": (1e-2, 2 ** -7),
     "flash/lse": (1e-4, 1e-5),
+    # lse beside that gate, relative L2 over the rows that attend a key
+    # (a row that attends nothing holds NEG_INF on both sides): f32 on both
+    # sides, the kernel's exp2 against the plain version's exp
+    "flash/lse/rel_l2": 1e-5,
     # the backward kernels' dq, dk, dv beside that elementwise gate,
     # relative L2 over the whole output: at S=1024 causal the median |dk|
     # and |dv| are ~0.03 and a quarter of them lie under its atol, so a dk
@@ -236,6 +256,19 @@ TOL = {
     # layers, where a kernel fault would show: ~10x what was measured
     "train/f32/loss": 1e-5,                   # 9.5e-7
     "train/f32/grad_rel_l2": 3e-5,            # 3.27e-6
+    # bert_pretrain's eval, flash vs dense on the same random weights in
+    # f32 (phase 8, bert_eval_same_weights), per eval batch of 32 x 77
+    # predictions: the relative difference of the evaluator's loss_sum,
+    # and the relative L2 of the eval forward's gathered logits. In bf16
+    # the two paths' rounding alone moves the logits by 1.21e-2 relative
+    # L2 and the loss_sum by up to 1.18e-5, more than the x1.01 control
+    # (1.47e-2 and 6.9e-6..1.8e-5 with that rounding in): no limit there
+    # can fail a wrong forward (PERF.md). In f32, measured on an H100:
+    # loss_sum 0 or 7.6e-8 (one f32 ulp of a sum near 25800), logits
+    # 1.58e-6; the control 4.2e-6..8.6e-6 and 5.24e-3. The limits, about
+    # 13x the readings, must be exceeded by the control
+    "bert/eval/loss_sum": 1e-6,
+    "bert/eval/logits": 2e-5,
     # f32 logits of the bf16 model, kernel path vs the gather path with no
     # kernel: one-ulp bf16 differences in attention / LN+matmul outputs,
     # carried through 12 residual layers (logits of random weights have
@@ -804,14 +837,26 @@ def ln_crossover(torch, np, rng) -> dict:
 # ---------------------------------------------------------------------------
 
 
+#: BERT's attention shape (phase 2c's second shape, phase 8's path):
+#: bert_base at phase 8's batch, S=512, non-causal
+FLASH_BERT = dict(B=32, H=12, S=512, D=64)
+#: the valid lengths of a padded BERT batch: each row's drawn from this
+#: range (inclusive), the last row none
+BERT_PAD_LENGTHS = (384, 512)
+
+
 def flash_case(torch, np, rng, dtype, masked, B=8, H=12, S=1024, D=64):
     """q/k/v/dout as the model makes them ([B,S,H,D] viewed as
     [B,H,S,D]); with ``masked`` a kv_mask of ~75% keys whose last batch
-    row attends nothing."""
+    row attends nothing; with ``masked="padded"`` the mask of a padded
+    batch, each row's keys a valid prefix of a length drawn from
+    ``BERT_PAD_LENGTHS``, the last row none."""
     mk = lambda: torch.from_numpy(  # noqa: E731
         rng.standard_normal((B, S, H, D), dtype=np.float32)).to(DEVICE, dtype).transpose(1, 2)
     c = dict(q=mk(), k=mk(), v=mk(), dout=mk(), mask=None)
-    if masked:
+    if masked == "padded":
+        c["mask"] = torch.from_numpy(padded_mask(np, rng, B, S)).to(DEVICE)
+    elif masked:
         m = rng.random((B, S)) > 0.25
         m[:, 0] = True
         m[-1] = False
@@ -819,19 +864,30 @@ def flash_case(torch, np, rng, dtype, masked, B=8, H=12, S=1024, D=64):
     return c
 
 
-def flash_bound_ms(torch, c, kind, dtype_name) -> tuple[float, str]:
+def padded_mask(np, rng, B, S):
+    """[B, S] bool: row b attends its first lens[b] keys, lens drawn from
+    ``BERT_PAD_LENGTHS`` (clipped to S), the last row none."""
+    lo, hi = (min(x, S) for x in BERT_PAD_LENGTHS)
+    lens = rng.integers(lo, hi + 1, B)
+    lens[-1] = 0
+    return np.arange(S)[None, :] < lens[:, None]
+
+
+def flash_bound_ms(torch, c, kind, dtype_name, causal=True) -> tuple[float, str]:
     """Least time for the work these inputs need: each input read once and
     each output written once (forward: q, k, v -> out, lse; dK/dV: q, k,
     v, out, dout, lse -> dk, dv; dQ: the same inputs -> dq), and 2*D
     operations per attended (query, key) pair for each of the kernel's
     products (forward 2: QK^T, PV; dK/dV 4: QK^T, dO V^T, P^T dO, dS^T Q;
-    dQ 3: QK^T, dO V^T, dS K)."""
+    dQ 3: QK^T, dO V^T, dS K); a pair is attended where the kv_mask (if
+    any) and, when ``causal``, the causal order allow it."""
     q = c["q"]
     B, H, S, D = q.shape
     tensor = q.numel() * q.element_size()
     lse = B * H * S * 4
     rows = torch.arange(S, device=q.device)
-    keys = (rows[None, :] <= rows[:, None])                        # causal [S, S]
+    keys = ((rows[None, :] <= rows[:, None]) if causal             # [S, S]
+            else torch.ones(S, S, dtype=torch.bool, device=q.device))
     if c["mask"] is not None:
         pairs = int((keys[None] & c["mask"][:, None, :]).sum()) * H
     else:
@@ -847,124 +903,176 @@ def flash_bound_ms(torch, c, kind, dtype_name) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def check_flash(torch, fa, c, causal, tag, dn) -> dict[str, list[float]]:
+    """The three kernels on case ``c`` against their plain versions: the
+    elementwise gates (``TOL["flash/<dtype>"]``, lse ``TOL["flash/lse"]``),
+    relative L2 on out, lse (attended rows), dq, dk and dv beside the
+    controls (out x 1.01; with no mask also dk and dq x 1.01) the gates
+    must fail, and zeros / NEG_INF on a row that attends nothing. Returns
+    each kernel's max abs errors."""
+    tol, lim = TOL[f"flash/{dn}"], TOL[f"flash/bwd/rel_l2/{dn}"]
+    lim_out, lim_lse = TOL[f"flash/fwd/rel_l2/{dn}"], TOL["flash/lse/rel_l2"]
+    masked = c["mask"] is not None
+    args = (c["q"], c["k"], c["v"], c["mask"])
+    out, lse = fa.flash_fwd(*args, causal=causal)
+    dk, dv = fa.flash_bwd_dkv(*args, out, lse, c["dout"], causal=causal)
+    dq = fa.flash_bwd_dq(*args, out, lse, c["dout"], causal=causal)
+    torch.cuda.synchronize()
+    want_out, want_lse = fa.flash_attention_plain(*args, causal=causal)
+    want = fa.flash_attention_bwd_plain(*args, out, lse, c["dout"], causal=causal)
+    errs = {"flash_fwd": [check_close(torch, f"flash_fwd/out {tag}", out, want_out, tol),
+                          check_close(torch, f"flash_fwd/lse {tag}", lse, want_lse,
+                                      TOL["flash/lse"])],
+            "flash_bwd_dkv": [check_close(torch, f"flash_bwd_dkv/dk {tag}", dk, want[1], tol),
+                              check_close(torch, f"flash_bwd_dkv/dv {tag}", dv, want[2], tol)],
+            "flash_bwd_dq": [check_close(torch, f"flash_bwd_dq/dq {tag}", dq, want[0], tol)]}
+    l2_out = rel_l2(out, want_out)
+    attended = want_lse > fa.NEG_INF / 2
+    l2_lse = rel_l2(lse[attended], want_lse[attended])
+    # the control: the forward's gate must fail an out 1% off
+    control_out = rel_l2(out.float() * 1.01, want_out)
+    log(f"  flash forward {tag}: out relative L2 {l2_out:.2e} (tol {lim_out:g}); "
+        f"control, out x 1.01: {control_out:.2e}; lse relative L2 over attended rows "
+        f"{l2_lse:.2e} (tol {lim_lse:g})")
+    if control_out <= lim_out:
+        raise SmokeFailure(f"flash: the forward's relative-L2 gate {lim_out:g} passes "
+                           f"out x 1.01")
+    if l2_out > lim_out or l2_lse > lim_lse:
+        raise SmokeFailure(f"flash {tag}: out off by {l2_out:.2e} > {lim_out:g} or lse by "
+                           f"{l2_lse:.2e} > {lim_lse:g} relative L2")
+    l2 = {n: rel_l2(got, w) for n, got, w in
+          (("dq", dq, want[0]), ("dk", dk, want[1]), ("dv", dv, want[2]))}
+    # the controls: the gate must fail a dk and a dq 1% off
+    controls = {} if masked else {n: rel_l2(got.float() * 1.01, w) for n, got, w in
+                                  (("dk", dk, want[1]), ("dq", dq, want[0]))}
+    log(f"  flash backward {tag}: relative L2 " + ", ".join(
+        f"{n} {e:.2e}" for n, e in l2.items()) + f" (tol {lim:g})" + "".join(
+        f"; control, {n} x 1.01: {e:.2e}" for n, e in controls.items()))
+    passed = [n for n, e in controls.items() if e <= lim]
+    if passed:
+        raise SmokeFailure(f"flash: the relative-L2 gate {lim:g} passes "
+                           f"{', '.join(n + ' x 1.01' for n in passed)}")
+    bad = [n for n, e in l2.items() if e > lim]
+    if bad:
+        raise SmokeFailure(f"flash {tag}: {bad} off by more than {lim:g} relative L2")
+    if masked and (out[-1].float().abs().sum() or dq[-1].float().abs().sum()
+                   or dk[-1].float().abs().sum() or dv[-1].float().abs().sum()
+                   or (lse[-1] != fa.NEG_INF).any()):
+        raise SmokeFailure("flash: a row that attends nothing is not 0 / NEG_INF")
+    return errs
+
+
+def sdpa_backend(by_name: dict) -> str:
+    """The backend SDPA picked, from the names of the kernels it launched."""
+    names = " ".join(by_name).lower()
+    for key, backend in (("cudnn", "cudnn"), ("flash", "flash"), ("fmha", "efficient"),
+                         ("efficient", "efficient")):
+        if key in names:
+            return backend
+    return "math"
+
+
+def time_flash(torch, np, F, fa, rng, c, causal, dn, shape) -> dict[str, dict]:
+    """Each kernel, the plain versions and SDPA (forward; its whole
+    backward through autograd) on cold copies of case ``c``'s inputs, three
+    traces deep (``cuda_ms``), beside the bound of this case's attended
+    pairs. SDPA takes ``is_causal`` or, with a kv_mask, the boolean
+    ``attn_mask``; its backend is read from its kernels' names."""
+    fa_args = lambda st: (st["q"], st["k"], st["v"], st["mask"])  # noqa: E731
+    tensor = c["q"].numel() * c["q"].element_size()
+    masked = c["mask"] is not None
+    sets = [c] + [flash_case(torch, np, rng, c["q"].dtype, "padded" if masked else False,
+                             **shape) for _ in range(copies_for(5 * tensor) - 1)]
+    for st in sets:
+        st["out"], st["lse"] = fa.flash_fwd(*fa_args(st), causal=causal)
+    bwd_in = lambda st: (*fa_args(st), st["out"], st["lse"], st["dout"])  # noqa: E731
+    kern = {
+        "flash_fwd": [lambda st=st: fa.flash_fwd(*fa_args(st), causal=causal) for st in sets],
+        "flash_bwd_dkv": [lambda st=st: fa.flash_bwd_dkv(*bwd_in(st), causal=causal)
+                          for st in sets],
+        "flash_bwd_dq": [lambda st=st: fa.flash_bwd_dq(*bwd_in(st), causal=causal)
+                         for st in sets],
+    }
+    plain_fwd = [lambda st=st: fa.flash_attention_plain(*fa_args(st), causal=causal)
+                 for st in sets]
+    plain_bwd = [lambda st=st: fa.flash_attention_bwd_plain(*bwd_in(st), causal=causal)
+                 for st in sets]
+
+    def sdpa(st, q, k, v):  # library yardstick, timed only
+        if st["mask"] is None:
+            return F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=st["mask"][:, None, None, :])
+
+    lib_fwd = [lambda st=st: sdpa(st, st["q"], st["k"], st["v"]) for st in sets]
+    lib_graphs = []
+    for st in sets:
+        leaves = [t.detach().requires_grad_() for t in (st["q"], st["k"], st["v"])]
+        lib_graphs.append((sdpa(st, *leaves), leaves, st["dout"]))
+    lib_bwd = [lambda g=g: torch.autograd.grad(g[0], g[1], g[2], retain_graph=True)
+               for g in lib_graphs]
+    t_plain_fwd, t_plain_bwd = cuda_ms(torch, plain_fwd), cuda_ms(torch, plain_bwd)
+    t_lib_fwd, t_lib_bwd = cuda_ms(torch, lib_fwd), cuda_ms(torch, lib_bwd)
+    backend = sdpa_backend(t_lib_fwd["by_name"])
+    rows = {}
+    for n in kern:
+        tk = cuda_ms(torch, kern[n])
+        fwd = n == "flash_fwd"
+        row = dict(ms=tk["device_ms"], call_ms=tk["call_ms"],
+                   plain_ms=(t_plain_fwd if fwd else t_plain_bwd)["device_ms"],
+                   library_ms=(t_lib_fwd["device_ms"] if fwd else
+                               t_lib_bwd["device_ms"] if n == "flash_bwd_dkv" else None),
+                   sdpa_backend=backend)
+        row["bound_ms"], row["bound_by"] = flash_bound_ms(
+            torch, c, {"flash_fwd": "fwd", "flash_bwd_dkv": "dkv", "flash_bwd_dq": "dq"}[n],
+            dn, causal=causal)
+        rows[n] = row
+        lib = f"{row['library_ms']:.5f}" if row["library_ms"] is not None else "null"
+        log(f"    {n} {dn}: kernel_ms={row['ms']:.5f} plain_ms={row['plain_ms']:.5f} "
+            f"library_ms={lib} bound_ms={row['bound_ms']:.5f} ({row['bound_by']}); "
+            f"wrapper call_ms={row['call_ms']:.4f}")
+    log(f"    SDPA ({backend}; kernels {sorted(k[:60] for k in t_lib_fwd['by_name'])}) backward "
+        f"(dq, dk, dv in one call) {t_lib_bwd['device_ms']:.5f} ms vs dK/dV + dQ kernels "
+        f"{rows['flash_bwd_dkv']['ms'] + rows['flash_bwd_dq']['ms']:.5f} ms; plain backward "
+        f"(all three) {t_plain_bwd['device_ms']:.5f} ms")
+    return rows
+
+
 def phase_flash(torch, np, F):
     from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
 
     rng = np.random.default_rng(1)
     names = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
-    results = {n: {"err": 0.0, "rows": []} for n in names}
+    results = {n: {"err": 0.0, "rows": [], "bert": {}} for n in names}
     log("phase 2c: flash attention kernels vs plain versions (B=8 H=12 S=1024 D=64, "
         "causal; kv_mask cases hold a batch row that attends nothing)")
     before = {n: getattr(fa, n).launches for n in names}
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[-1]
-        tol, lim = TOL[f"flash/{dn}"], TOL[f"flash/bwd/rel_l2/{dn}"]
-        lim_out = TOL[f"flash/fwd/rel_l2/{dn}"]
         for masked in (False, True):
             c = flash_case(torch, np, rng, dtype, masked)
-            args = (c["q"], c["k"], c["v"], c["mask"])
-            out, lse = fa.flash_fwd(*args, causal=True)
-            dk, dv = fa.flash_bwd_dkv(*args, out, lse, c["dout"], causal=True)
-            dq = fa.flash_bwd_dq(*args, out, lse, c["dout"], causal=True)
-            torch.cuda.synchronize()
-            want_out, want_lse = fa.flash_attention_plain(*args, causal=True)
-            want = fa.flash_attention_bwd_plain(*args, out, lse, c["dout"], causal=True)
             tag = f"{dn} {'kv_mask' if masked else 'no mask'}"
-            errs = {"flash_fwd": [check_close(torch, f"flash_fwd/out {tag}", out, want_out, tol),
-                                  check_close(torch, f"flash_fwd/lse {tag}", lse, want_lse,
-                                              TOL["flash/lse"])],
-                    "flash_bwd_dkv": [check_close(torch, f"flash_bwd_dkv/dk {tag}", dk,
-                                                  want[1], tol),
-                                      check_close(torch, f"flash_bwd_dkv/dv {tag}", dv,
-                                                  want[2], tol)],
-                    "flash_bwd_dq": [check_close(torch, f"flash_bwd_dq/dq {tag}", dq,
-                                                 want[0], tol)]}
-            l2_out = rel_l2(out, want_out)
-            # the control: the forward's gate must fail an out 1% off
-            control_out = rel_l2(out.float() * 1.01, want_out)
-            log(f"  flash forward {tag}: out relative L2 {l2_out:.2e} (tol {lim_out:g}); "
-                f"control, out x 1.01: {control_out:.2e}")
-            if control_out <= lim_out:
-                raise SmokeFailure(f"flash: the forward's relative-L2 gate {lim_out:g} passes "
-                                   f"out x 1.01")
-            if l2_out > lim_out:
-                raise SmokeFailure(f"flash {tag}: out off by {l2_out:.2e} > {lim_out:g} "
-                                   f"relative L2")
-            l2 = {n: rel_l2(got, w) for n, got, w in
-                  (("dq", dq, want[0]), ("dk", dk, want[1]), ("dv", dv, want[2]))}
-            # the controls: the gate must fail a dk and a dq 1% off
-            controls = {} if masked else {n: rel_l2(got.float() * 1.01, w) for n, got, w in
-                                          (("dk", dk, want[1]), ("dq", dq, want[0]))}
-            log(f"  flash backward {tag}: relative L2 " + ", ".join(
-                f"{n} {e:.2e}" for n, e in l2.items()) + f" (tol {lim:g})" + "".join(
-                f"; control, {n} x 1.01: {e:.2e}" for n, e in controls.items()))
-            passed = [n for n, e in controls.items() if e <= lim]
-            if passed:
-                raise SmokeFailure(f"flash: the relative-L2 gate {lim:g} passes "
-                                   f"{', '.join(n + ' x 1.01' for n in passed)}")
-            bad = [n for n, e in l2.items() if e > lim]
-            if bad:
-                raise SmokeFailure(f"flash {tag}: {bad} off by more than {lim:g} relative L2")
-            if masked and (out[-1].float().abs().sum() or dq[-1].float().abs().sum()
-                           or dk[-1].float().abs().sum() or dv[-1].float().abs().sum()
-                           or (lse[-1] != fa.NEG_INF).any()):
-                raise SmokeFailure("flash: a row that attends nothing is not 0 / NEG_INF")
+            errs = check_flash(torch, fa, c, True, tag, dn)
             for n in names:
                 results[n]["err"] = max(results[n]["err"], *errs[n])
             if dtype != torch.bfloat16 or masked:
                 continue
-            # timing on cold inputs: independent copies past the L2
-            tensor = c["q"].numel() * c["q"].element_size()
-            sets = [c] + [flash_case(torch, np, rng, dtype, False)
-                          for _ in range(copies_for(5 * tensor) - 1)]
-            for st in sets:
-                st["out"], st["lse"] = fa.flash_fwd(st["q"], st["k"], st["v"], None,
-                                                    causal=True)
-            qkv = lambda st: (st["q"], st["k"], st["v"], None)  # noqa: E731
-            bwd_in = lambda st: (*qkv(st), st["out"], st["lse"], st["dout"])  # noqa: E731
-            kern = {
-                "flash_fwd": [lambda st=st: fa.flash_fwd(*qkv(st), causal=True) for st in sets],
-                "flash_bwd_dkv": [lambda st=st: fa.flash_bwd_dkv(*bwd_in(st), causal=True)
-                                  for st in sets],
-                "flash_bwd_dq": [lambda st=st: fa.flash_bwd_dq(*bwd_in(st), causal=True)
-                                 for st in sets],
-            }
-            plain_fwd = [lambda st=st: fa.flash_attention_plain(*qkv(st), causal=True)
-                         for st in sets]
-            plain_bwd = [lambda st=st: fa.flash_attention_bwd_plain(*bwd_in(st), causal=True)
-                         for st in sets]
-            # library yardstick, timed only: SDPA forward; SDPA backward
-            # through autograd, which computes dq, dk and dv in one call
-            lib_fwd = [lambda st=st: F.scaled_dot_product_attention(
-                st["q"], st["k"], st["v"], is_causal=True) for st in sets]
-            lib_graphs = []
-            for st in sets:
-                leaves = [t.detach().requires_grad_() for t in (st["q"], st["k"], st["v"])]
-                lib_graphs.append((F.scaled_dot_product_attention(*leaves, is_causal=True),
-                                   leaves, st["dout"]))
-            lib_bwd = [lambda g=g: torch.autograd.grad(g[0], g[1], g[2], retain_graph=True)
-                       for g in lib_graphs]
-            t_plain_fwd, t_plain_bwd = cuda_ms(torch, plain_fwd), cuda_ms(torch, plain_bwd)
-            t_lib_fwd, t_lib_bwd = cuda_ms(torch, lib_fwd), cuda_ms(torch, lib_bwd)
+            rows = time_flash(torch, np, F, fa, rng, c, True, dn, {})
             for n in names:
-                tk = cuda_ms(torch, kern[n])
-                fwd = n == "flash_fwd"
-                row = dict(ms=tk["device_ms"], call_ms=tk["call_ms"],
-                           plain_ms=(t_plain_fwd if fwd else t_plain_bwd)["device_ms"],
-                           library_ms=(t_lib_fwd["device_ms"] if fwd else
-                                       t_lib_bwd["device_ms"] if n == "flash_bwd_dkv"
-                                       else None))
-                row["bound_ms"], row["bound_by"] = flash_bound_ms(
-                    torch, c, {"flash_fwd": "fwd", "flash_bwd_dkv": "dkv", "flash_bwd_dq": "dq"}[n],
-                    dn)
-                results[n]["rows"].append(row)
-                lib = f"{row['library_ms']:.5f}" if row["library_ms"] is not None else "null"
-                log(f"    {n} bf16: kernel_ms={row['ms']:.5f} plain_ms={row['plain_ms']:.5f} "
-                    f"library_ms={lib} bound_ms={row['bound_ms']:.5f} ({row['bound_by']}); "
-                    f"wrapper call_ms={row['call_ms']:.4f}")
-            log(f"    SDPA backward (dq, dk, dv in one call) {t_lib_bwd['device_ms']:.5f} ms vs "
-                f"dK/dV + dQ kernels {sum(results[n]['rows'][-1]['ms'] for n in names[1:]):.5f}"
-                f" ms; plain backward (all three) {t_plain_bwd['device_ms']:.5f} ms")
+                results[n]["rows"].append(rows[n])
+    shape = FLASH_BERT
+    log(f"phase 2c, BERT's shape: B={shape['B']} H={shape['H']} S={shape['S']} D={shape['D']}, "
+        f"non-causal, bf16, with no mask and with a padded kv_mask (each row's valid length "
+        f"drawn from {BERT_PAD_LENGTHS[0]}-{BERT_PAD_LENGTHS[1]}, the last row none)")
+    for masked in (False, "padded"):
+        c = flash_case(torch, np, rng, torch.bfloat16, masked, **shape)
+        tag = f"bfloat16 BERT {'padded kv_mask' if masked else 'no mask'}"
+        errs = check_flash(torch, fa, c, False, tag, "bfloat16")
+        rows = time_flash(torch, np, F, fa, rng, c, False, "bfloat16", shape)
+        for n in names:
+            results[n]["err"] = max(results[n]["err"], *errs[n])
+            results[n]["bert"]["padded" if masked else "no mask"] = rows[n]
+        del c
+    torch.cuda.empty_cache()
     for n in names:  # comparison launches do not count
         getattr(fa, n).launches = before[n]
     return results
@@ -1594,6 +1702,7 @@ def phase_conv_bn(torch, np):
 TRAIN_OVERRIDES = [
     "--train.log_every=1", "--optimizer.warmup_steps=0", "--optimizer.schedule=constant",
     "--optimizer.learning_rate=3e-4",
+    "--train.eval_batches=0",  # no eval pass: phase 8 drives the evaluator
 ]
 
 
@@ -1625,14 +1734,17 @@ def fused_bwd(bwd):
             os.environ["DTF_FUSED_BWD"] = old
 
 
-def train_pass(torch, np, impl, batch=8, steps=6, extra=(), bwd=None):
-    """One ``run_workload("gpt_lm", ...)`` on the card (global batch
+def train_pass(torch, np, impl, batch=8, steps=6, extra=(), bwd=None, workload="gpt_lm",
+               overrides=TRAIN_OVERRIDES):
+    """One ``run_workload(workload, ...)`` on the card (global batch
     ``batch``, ``steps`` steps; ``DTF_FUSED_BWD=bwd`` when given) with the
     launch counts of the flash and LN+matmul kernels set to 0 just before
-    it and read just after, and the step-1 gradient captured where the
-    step hands it to the optimizer."""
+    it, read when the steps end (``launches``) and again after the run's
+    final eval (the difference: ``eval_launches``), and the step-1
+    gradient captured where the step hands it to the optimizer."""
     from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
     from distributed_tensorflow_tpu_torch.ops import fused_ln_matmul as fln
+    from distributed_tensorflow_tpu_torch.train import callbacks as tcb
     from distributed_tensorflow_tpu_torch.train import optimizers as topt
     from distributed_tensorflow_tpu_torch.workloads import run_workload
 
@@ -1645,6 +1757,16 @@ def train_pass(torch, np, impl, batch=8, steps=6, extra=(), bwd=None):
         return update(self, grads)
 
     counters = {**{n: getattr(fa, n) for n in FLASH_NAMES}, **fln.KERNELS}
+
+    def read():
+        out = {n: k.launches for n, k in counters.items()}
+        out["ln_matmul_train"] = fln.ln_matmul.tiled_launches
+        return out
+
+    class StepsEnd(tcb.Callback):  # the launches of the steps, before any eval
+        def on_train_end(self, trainer):
+            captured["launches"] = read()
+
     topt.Optimizer.update = spy
     try:
         torch.cuda.synchronize()
@@ -1654,13 +1776,14 @@ def train_pass(torch, np, impl, batch=8, steps=6, extra=(), bwd=None):
         fln.ln_matmul.tiled_launches = 0
         t0 = time.perf_counter()
         with fused_bwd(bwd):
-            res = run_workload("gpt_lm", TRAIN_OVERRIDES + [
+            res = run_workload(workload, overrides + [
                 f"--model.attention_impl={impl}", f"--data.global_batch_size={batch}",
-                f"--train.num_steps={steps}", *extra], device=DEVICE)
+                f"--train.num_steps={steps}", *extra], device=DEVICE,
+                extra_callbacks=[StepsEnd()])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {n: k.launches for n, k in counters.items()}  # main path read
-        launches["ln_matmul_train"] = fln.ln_matmul.tiled_launches
+        launches = captured["launches"]  # main path read
+        total = read()
     finally:
         topt.Optimizer.update = update
     hist = res.history
@@ -1674,6 +1797,8 @@ def train_pass(torch, np, impl, batch=8, steps=6, extra=(), bwd=None):
                 else np.nan,
                 peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                 grads=captured.get("grads"), launches=launches,
+                eval_launches={n: total[n] - launches[n] for n in total},
+                eval_metrics=res.eval_metrics,
                 names=[n for n, _ in res.state.model.named_parameters()])
 
 
@@ -1900,6 +2025,7 @@ def phase_5(torch, np, flash, dense):
 RESNET_OVERRIDES = [
     "--train.log_every=1", "--optimizer.warmup_steps=0", "--optimizer.schedule=constant",
     "--optimizer.learning_rate=0.1", "--data.global_batch_size=256", "--train.num_steps=6",
+    "--train.eval_batches=0",  # no eval pass: phase 8 drives the evaluator
 ]
 #: parameters listed with their gradient errors, worst first
 RESNET_SHOW = 5
@@ -2427,6 +2553,265 @@ def phase_dp(torch, np, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: train bert_pretrain at full width, flash kernels (non-causal) vs no kernel
+# ---------------------------------------------------------------------------
+
+#: bert_base (12 layers, d_model 768, 12 heads, d_ff 3072, vocab 30528,
+#: S=512, the gathered MLM head: K=77), bf16, dropout 0.1, at global batch
+#: 32 (a memory choice for one card without remat, not the preset's 256):
+#: adamw at a constant lr 1e-4 with no warmup (the preset's 1000-step
+#: warmup would leave the loss where it starts in 6 steps) — a smoke
+#: setting, not a recipe; the final eval of 4 batches
+BERT_OVERRIDES = [
+    "--train.log_every=1", "--optimizer.warmup_steps=0", "--optimizer.schedule=constant",
+    "--optimizer.learning_rate=1e-4", "--train.eval_batches=4",
+]
+BERT_BATCH, BERT_STEPS = 32, 6
+
+
+def bert_cfg(extra=()):
+    from distributed_tensorflow_tpu_torch.utils.config import apply_overrides
+    from distributed_tensorflow_tpu_torch.workloads import bert_pretrain
+
+    return apply_overrides(bert_pretrain.default_config(), BERT_OVERRIDES + [
+        f"--data.global_batch_size={BERT_BATCH}", *extra])
+
+
+def bert_step(torch, np, impl, batch, extra=()):
+    """One step of ``bert_pretrain``'s model, loss and optimizer (the
+    workload's ``build``, random weights from its seed) on the host
+    ``batch``, with ``attention_impl=impl``: the loss, the step-1
+    gradients and the flash launches of the step."""
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+    from distributed_tensorflow_tpu_torch.train import (
+        init_train_state, make_optimizer, make_train_step, optimizers as topt)
+    from distributed_tensorflow_tpu_torch.workloads import bert_pretrain
+
+    cfg = bert_cfg([f"--model.attention_impl={impl}", *extra])
+    parts = bert_pretrain.build(cfg, torch.device(DEVICE))
+    opt = make_optimizer(cfg.optimizer, parts.model.parameters())
+    state = init_train_state(parts.model, opt, seed=cfg.train.seed)
+    step = make_train_step(parts.loss_fn)
+    captured, update = {}, topt.Optimizer.update
+
+    def spy(self, grads):
+        captured["grads"] = [g.detach().float().clone() for g in grads]
+        return update(self, grads)
+
+    dev = {k: torch.from_numpy(v).to(DEVICE) for k, v in batch.items()}
+    topt.Optimizer.update = spy
+    try:
+        for n in FLASH_NAMES:
+            getattr(fa, n).launches = 0  # main path starts
+        state, m = step(state, dev)
+        losses = [float(m["loss"])]
+        launches = {n: getattr(fa, n).launches for n in FLASH_NAMES}  # main path read
+    finally:
+        topt.Optimizer.update = update
+    names = [n for n, _ in parts.model.named_parameters()]
+    del parts, state, opt, step
+    torch.cuda.empty_cache()
+    return dict(losses=losses, grads=captured["grads"], names=names, launches=launches)
+
+
+def padded_bert_batch(np, batch, rng):
+    """``batch`` with an attention_mask of ``padded_mask``'s lengths, each
+    row's gathered positions redrawn in its valid prefix, and the row that
+    attends nothing kept out of the loss (its labels IGNORE_INDEX, as the
+    JAX streams' padding is)."""
+    from distributed_tensorflow_tpu_torch.data.text import IGNORE_INDEX
+
+    B, S = batch["input_ids"].shape
+    K = batch["masked_positions"].shape[1]
+    mask = padded_mask(np, rng, B, S)
+    lens = mask.sum(1)
+    out = dict(batch, attention_mask=mask.astype(np.int32))
+    out["masked_positions"] = np.stack(
+        [np.sort(rng.choice(n, K, replace=False)) if n else np.arange(K)
+         for n in lens]).astype(np.int32)
+    out["masked_labels"] = np.where(lens[:, None] > 0, batch["masked_labels"],
+                                    IGNORE_INDEX).astype(np.int32)
+    return out
+
+
+def bert_eval_same_weights(torch, extra=()) -> dict:
+    """Phase 8's eval gate: ``bert_pretrain``'s eval (``mlm_eval_fn``
+    through a ``ShardedEvaluator``) with flash and with dense attention on
+    the same random weights (the workload's seed) in f32, before any step
+    moves them apart, over the workload's held-out eval batches. Per batch: the
+    relative difference of ``loss_sum`` and the relative L2 of the eval
+    forward's gathered logits, flash against dense, beside a control
+    (dense with its attention output x1.01) that each limit must fail.
+    (The trained passes' eval metrics are printed, not gated: six steps
+    on two paths diverge, and the accuracy of random weights reads 0.)"""
+    from distributed_tensorflow_tpu_torch.models import transformer as tfm
+    from distributed_tensorflow_tpu_torch.obs.registry import Registry
+    from distributed_tensorflow_tpu_torch.parallel.sharding import put_host_batch
+    from distributed_tensorflow_tpu_torch.train.evaluation import ShardedEvaluator
+    from distributed_tensorflow_tpu_torch.train.step import TrainState
+    from distributed_tensorflow_tpu_torch.workloads import bert_pretrain
+
+    cfg = bert_cfg(extra)
+    parts = {impl: bert_pretrain.build(bert_cfg([*extra, "--model.dtype=float32",
+                                                 f"--model.attention_impl={impl}"]),
+                                       torch.device(DEVICE)) for impl in ("flash", "dense")}
+    batches = list(parts["dense"].eval_dataset_fn(cfg.train.eval_batches))
+    attention = tfm.attention
+
+    def scaled(*a, **k):
+        return attention(*a, **k) * 1.01
+
+    ref_logits: list = []
+    readings = {}
+    for name, impl in (("dense", "dense"), ("flash", "flash"), ("control", "dense")):
+        p = parts[impl]
+        evaluator = ShardedEvaluator(p.eval_fn, registry=Registry())
+        state = TrainState(step=0, model=p.model, optimizer=None, generator=None)
+        tfm.attention = scaled if name == "control" else attention
+        sums, correct, l2 = [], [], []
+        try:
+            for i, b in enumerate(batches):
+                totals = evaluator.run(state, [b])
+                sums.append(float(totals["loss_sum"]))
+                correct.append(float(totals["correct"]))
+                dev = put_host_batch(b, DEVICE)
+                p.model.eval()
+                with torch.no_grad():
+                    logits = p.model(dev["input_ids"], dev.get("attention_mask"),
+                                     positions=dev["masked_positions"])
+                p.model.train()
+                if name == "dense":
+                    ref_logits.append(logits)
+                else:
+                    l2.append(rel_l2(logits, ref_logits[i]))
+        finally:
+            tfm.attention = attention
+        readings[name] = dict(loss_sum=sums, correct=correct, logits_rel_l2=l2)
+    ref = readings["dense"]["loss_sum"]
+    for name in ("flash", "control"):
+        r = readings[name]
+        r["loss_sum_rel"] = [abs(a - b) / abs(b) for a, b in zip(r["loss_sum"], ref)]
+    log(f"  f32 eval on the same random weights ({len(batches)} held-out batches of "
+        f"{BERT_BATCH} x {batches[0]['masked_positions'].shape[1]} predictions), per batch vs "
+        f"dense: " + "; ".join(
+            f"{name}: loss_sum relative diff {[f'{x:.3e}' for x in readings[name]['loss_sum_rel']]}"
+            f", logits relative L2 {[f'{x:.3e}' for x in readings[name]['logits_rel_l2']]}, "
+            f"correct {readings[name]['correct']}" for name in ("flash", "control"))
+        + f"; dense loss_sum {[f'{x:.4f}' for x in ref]}, correct {readings['dense']['correct']}"
+        f"; limits: loss_sum {TOL['bert/eval/loss_sum']}, logits {TOL['bert/eval/logits']}")
+    for key, tol in (("loss_sum_rel", TOL["bert/eval/loss_sum"]),
+                     ("logits_rel_l2", TOL["bert/eval/logits"])):
+        if max(readings["flash"][key]) > tol:
+            raise SmokeFailure(f"bert eval, flash vs dense: {key} {readings['flash'][key]} > "
+                               f"{tol}")
+        if not max(readings["control"][key]) > tol:
+            raise SmokeFailure(f"bert eval control (attention x1.01) passes the {key} limit "
+                               f"{tol}: {readings['control'][key]}")
+    del parts, ref_logits
+    torch.cuda.empty_cache()
+    return {name: {k: readings[name][k] for k in ("loss_sum_rel", "logits_rel_l2")}
+            for name in ("flash", "control")}
+
+
+def phase_bert(torch, np, card):
+    """Phase 8: ``bert_pretrain`` through ``run_workload`` with the flash
+    kernels (non-causal) and with dense attention, held to each other;
+    one padded step and one f32 step of each; the final eval of both."""
+    import tempfile
+
+    from distributed_tensorflow_tpu_torch.data.text import (
+        make_text_dataset, resolved_max_predictions)
+
+    t_phase = time.perf_counter()
+    cfg = bert_cfg()
+    m, K = cfg.model, resolved_max_predictions(cfg.data)
+    log(f"phase 8: train bert_pretrain (bert_base: {m.num_layers} layers, d_model {m.d_model}, "
+        f"{m.num_heads} heads, d_ff {m.d_ff}, vocab {m.vocab_size}, S={cfg.data.seq_len}, "
+        f"gathered head K={K}; bf16, dropout {m.dropout}, random weights from seed "
+        f"{cfg.train.seed}) at global batch {BERT_BATCH}, {BERT_STEPS} steps of adamw at a "
+        f"constant lr 1e-4 with no warmup (so the loss can move in {BERT_STEPS} steps: a "
+        f"smoke setting), then eval of {cfg.train.eval_batches} batches; flash kernels "
+        f"(non-causal) vs dense attention through run_workload; on {card}")
+    # As in phase 5, a fresh synthetic stream brings new tokens every step,
+    # so the MLM loss would not move in 6 steps: the steps revisit a fixed
+    # corpus of 32 random sequences (a token file, tokens_mlm:), fresh
+    # masks every batch
+    tmp = tempfile.TemporaryDirectory()
+    path = os.path.join(tmp.name, "corpus.npy")
+    np.save(path, np.random.default_rng(0).integers(
+        0, m.vocab_size, BERT_BATCH * cfg.data.seq_len + 1).astype(np.int32))
+    data = [f"--data.dataset=tokens_mlm:{path}"]
+    log(f"  corpus: {BERT_BATCH} x {cfg.data.seq_len} random tokens as tokens_mlm:{path}")
+    layers = m.num_layers
+    with tmp:
+        passes = {impl: train_pass(torch, np, impl, batch=BERT_BATCH, steps=BERT_STEPS,
+                                   extra=data, workload="bert_pretrain",
+                                   overrides=BERT_OVERRIDES) for impl in ("flash", "dense")}
+        for p in passes.values():
+            p["res"] = None
+            ev = p["eval_metrics"]
+            log(f"  {p['impl']}: losses {[round(x, 5) for x in p['losses']]}; step "
+                f"{p['step_ms']:.2f} ms (median of steps 2-{BERT_STEPS}), {p['tok_s']:.0f} "
+                f"tokens/s, MFU {100 * p['mfu']:.2f}% (flops_per_example with n_predictions={K}, "
+                f"x3 over 989e12), peak memory {p['peak_gib']:.2f} GiB, run wall "
+                f"{p['wall_s']:.1f} s; launches: steps {p['launches']}, eval "
+                f"{p['eval_launches']}; eval loss {ev['loss']:.5f}, accuracy "
+                f"{ev['accuracy']:.5f} over {ev['count']:.0f} predictions")
+            if not np.isfinite(p["losses"]).all():
+                raise SmokeFailure(f"bert {p['impl']}: non-finite loss")
+            if not p["losses"][-1] < p["losses"][0]:
+                raise SmokeFailure(f"bert {p['impl']}: loss did not fall ({p['losses']})")
+        flash, dense = passes["flash"], passes["dense"]
+        want = {n: layers * BERT_STEPS for n in FLASH_NAMES}
+        want_eval = {"flash_fwd": layers * cfg.train.eval_batches, "flash_bwd_dkv": 0,
+                     "flash_bwd_dq": 0}
+        got = {n: flash["launches"][n] for n in FLASH_NAMES}
+        got_eval = {n: flash["eval_launches"][n] for n in FLASH_NAMES}
+        if got != want or got_eval != want_eval or any(
+                flash["launches"][n] or flash["eval_launches"][n] for n in LN_NAMES):
+            raise SmokeFailure(f"bert flash pass: want {want} in the steps and {want_eval} in "
+                               f"the eval, got {got} and {got_eval}")
+        if any(dense["launches"].values()) or any(dense["eval_launches"].values()):
+            raise SmokeFailure(f"bert dense pass launched a kernel: {dense['launches']}, "
+                               f"{dense['eval_launches']}")
+        out = {"compare": {"flash vs dense": gate_train(
+            train_diffs(torch, flash, dense), "bert flash vs dense (bf16, 6 steps)",
+            TOL["train/loss"], TOL["train/grad_rel_l2"])}}
+        out["eval"] = bert_eval_same_weights(torch, data)
+        out["passes"] = {k: {f: p[f] for f in ("losses", "step_ms", "tok_s", "mfu", "peak_gib",
+                                               "eval_metrics")} for k, p in passes.items()}
+        out["launches"] = {"steps": got, "eval": got_eval}
+        del passes, flash, dense
+        torch.cuda.empty_cache()
+        batch = make_text_dataset(bert_cfg(data).data).batch(0)
+    padded = padded_bert_batch(np, batch, np.random.default_rng(3))
+    lens = padded["attention_mask"].sum(1)
+    steps = {impl: bert_step(torch, np, impl, padded) for impl in ("flash", "dense")}
+    log(f"  padded step (valid lengths {int(lens[:-1].min())}-{int(lens.max())}, the last row "
+        f"none and out of the loss): loss flash {steps['flash']['losses'][0]:.6f}, dense "
+        f"{steps['dense']['losses'][0]:.6f}; flash launches {steps['flash']['launches']}")
+    if steps["flash"]["launches"] != {n: layers for n in FLASH_NAMES} \
+            or any(steps["dense"]["launches"].values()):
+        raise SmokeFailure(f"bert padded step launches: {steps['flash']['launches']}, "
+                           f"{steps['dense']['launches']}")
+    out["compare"]["padded"] = gate_train(
+        train_diffs(torch, steps["flash"], steps["dense"]), "bert padded step, flash vs dense "
+        "(bf16)", TOL["train/loss"], TOL["train/grad_rel_l2"])
+    f32 = {impl: bert_step(torch, np, impl, batch, ["--model.dtype=float32"])
+           for impl in ("flash", "dense")}
+    log(f"  f32 step: loss flash {f32['flash']['losses'][0]:.7f}, dense "
+        f"{f32['dense']['losses'][0]:.7f}; flash launches {f32['flash']['launches']}")
+    if f32["flash"]["launches"] != {n: layers for n in FLASH_NAMES}:
+        raise SmokeFailure(f"bert f32 step launches: {f32['flash']['launches']}")
+    out["compare"]["f32"] = gate_train(
+        train_diffs(torch, f32["flash"], f32["dense"]), "bert f32 step, flash vs dense",
+        TOL["train/f32/loss"], TOL["train/f32/grad_rel_l2"])
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"  phase 8 wall {out['wall_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phases 3-4: serve gpt_small at full width
 # ---------------------------------------------------------------------------
 
@@ -2718,6 +3103,7 @@ def main() -> int:
         resnet = phase_resnet(torch, np, smi)
         launches.update(resnet["launches"])
         dp = phase_dp(torch, np, smi)
+        bert = phase_bert(torch, np, smi)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -2803,6 +3189,21 @@ def main() -> int:
         f", {bench['provenance']['power_limit']}); bench launches {dp['bench']['launches']}; "
         f"dp2 on one card (gloo) vs one process: {dp['dp']['passes']} (half-batch control BN "
         f"{dp['dp']['control_bn']:.3e}); fed path bitwise over {dp['dp']['fed_bitwise']} batches")
+    log(f"bert_pretrain training (phase 8, {bert['wall_s']:.1f} s; bert_base, B={BERT_BATCH}, "
+        f"S=512, K=77, bf16): " + "; ".join(
+            f"{k} step {v['step_ms']:.2f} ms, {v['tok_s']:.0f} tokens/s, MFU "
+            f"{100 * v['mfu']:.2f}%, peak {v['peak_gib']:.2f} GiB, eval loss "
+            f"{v['eval_metrics']['loss']:.5f} accuracy {v['eval_metrics']['accuracy']:.5f}"
+            for k, v in bert["passes"].items())
+        + f"; flash launches {bert['launches']}; gates {bert['compare']}; f32 eval on the same "
+        f"weights, flash and control vs dense, per batch: {bert['eval']}; flash kernels at "
+        f"BERT's shape (B=32 H=12 S=512 D=64 non-causal bf16; kernel / bound / plain / SDPA "
+        f"ms): " + "; ".join(
+            f"{n} {case} {r['ms']:.5f} / {r['bound_ms']:.5f} ({r['bound_by']}) / "
+            f"{r['plain_ms']:.5f} / "
+            + (f"{r['library_ms']:.5f} ({r['sdpa_backend']})" if r["library_ms"] is not None
+               else "null")
+            for n in FLASH_NAMES for case, r in kern[n]["bert"].items()))
     log(f"cuda_ms traces kept {PAD_RECORDS[0]} of the {PAD_RECORDS[1]} spin-kernel records "
         f"that opened them")
     log(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s (builds included)")

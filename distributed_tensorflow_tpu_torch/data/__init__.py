@@ -1,4 +1,4 @@
-"""Input streams of the ported training paths (the causal-LM and image
+"""Input streams of the ported training paths (the LM, MLM and image
 classification subsets of ``distributed_tensorflow_tpu/data``)."""
 
 from .pipeline import (  # noqa: F401
@@ -15,7 +15,11 @@ from .pipeline import (  # noqa: F401
 from .text import (  # noqa: F401
     IGNORE_INDEX,
     SyntheticLM,
+    SyntheticMLM,
     TextDataConfig,
     TokenFileLM,
+    TokenFileMLM,
     make_text_dataset,
+    mlm_mask_batch,
+    resolved_max_predictions,
 )

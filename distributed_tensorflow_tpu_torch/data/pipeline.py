@@ -145,9 +145,10 @@ class NpzDataset:
 
 
 def make_dataset(cfg: DataConfig, num_batches: int | None = None,
-                 index_offset: int = 0) -> Iterable:
-    """The stream ``cfg.dataset`` names (training order)."""
-    if cfg.augment != "none":
+                 index_offset: int = 0, train: bool = True) -> Iterable:
+    """The stream ``cfg.dataset`` names. ``train=False`` (the workloads'
+    eval streams) turns stochastic augmentation off."""
+    if train and cfg.augment != "none":
         raise NotImplementedError(
             f"data.augment={cfg.augment!r}: data/augment.py is not ported yet "
             f"(ROADMAP Queue A item 3)")

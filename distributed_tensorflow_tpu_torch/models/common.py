@@ -41,5 +41,27 @@ def classification_loss_fn(model: torch.nn.Module, *, label_smoothing: float = 0
     return loss_fn
 
 
+def classification_eval_fn(model: torch.nn.Module) -> Callable:
+    """``eval_fn(batch) -> {"loss_sum", "correct", "top5_correct",
+    "count"}``: SUMMED statistics (shards and batches add exactly) of
+    ``model(x, train=False)`` — BatchNorm on its running statistics, so no
+    all-reduce — with no gradient. Top-5 clamps k to the class count."""
+
+    @torch.no_grad()
+    def eval_fn(batch):
+        x = batch["image"] if "image" in batch else batch["x"]
+        labels = batch["label"].long()
+        logits = model(x, train=False).float()
+        loss = -F.log_softmax(logits, dim=-1).gather(-1, labels[:, None]).sum()
+        correct = (logits.argmax(-1) == labels).float().sum()
+        topk = logits.topk(min(5, logits.shape[-1]), dim=-1).indices
+        top5 = (topk == labels[:, None]).any(-1).float().sum()
+        count = torch.tensor(float(labels.shape[0]), device=logits.device)
+        return {"loss_sum": loss, "correct": correct, "top5_correct": top5,
+                "count": count}
+
+    return eval_fn
+
+
 def param_count(model: torch.nn.Module) -> int:
     return sum(p.numel() for p in model.parameters())

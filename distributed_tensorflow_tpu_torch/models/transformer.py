@@ -1,14 +1,18 @@
-"""Causal pre-LN Transformer decoder — the serve and training subsets of
-``distributed_tensorflow_tpu/models/transformer.py`` in PyTorch.
+"""The Transformer — the serve and training subsets of
+``distributed_tensorflow_tpu/models/transformer.py`` in PyTorch: the
+causal pre-LN decoder (``gpt_small``) and the post-LN encoder with its
+MLM head (``bert_base``).
 
-What is here: ``TransformerConfig``, ``gpt_small()`` and ``Transformer``
-with its two forwards — the paged decode path (``kv_cache`` block pool +
-``block_table`` + ``decode_pos``: a prefill chunk, a decode step and a
-speculative verify step are all this one call) and the uncached
-training path (``train=``, dropout from an explicit
-``torch.Generator``, ``return_hidden`` for the chunked loss) — plus the
-losses (dense and chunked next-token cross-entropy), the eval statistics
-and the FLOPs count. The cast points mirror the flax model exactly:
+What is here: ``TransformerConfig``, ``gpt_small()``, ``bert_base()`` and
+``Transformer`` with its two forwards — the paged decode path (causal
+only: ``kv_cache`` block pool + ``block_table`` + ``decode_pos``: a
+prefill chunk, a decode step and a speculative verify step are all this
+one call) and the uncached training path (``train=``, dropout from an
+explicit ``torch.Generator`` or a data-parallel step's ``RowGenerator``,
+``return_hidden`` for the chunked loss, ``positions`` for the gathered
+MLM head) — plus the losses (dense and
+chunked next-token cross-entropy, masked-LM), the eval statistics and the
+parameter and FLOPs counts. The cast points mirror the flax model exactly:
 
 - token embedding (f32) + position embedding (f32), added in f32, then
   cast to ``cfg.dtype``;
@@ -16,6 +20,13 @@ and the FLOPs count. The cast points mirror the flax model exactly:
   output cast to ``cfg.dtype``;
 - Dense matmuls in ``cfg.dtype`` (weight and bias cast to it);
 - GELU with the tanh approximation (flax ``nn.gelu``'s default);
+- post-LN (``pre_ln=False``): ``x = LN1(x + attn(x))``, ``x = LN2(x +
+  mlp(x))``, the residual added in ``cfg.dtype``, the LayerNorm in f32,
+  the result cast back; ``embed_ln`` after the embeddings and no
+  ``final_ln``;
+- the MLM head of a non-causal model: the ``positions`` [B,K] gathered
+  first (when given), then ``mlm_transform`` (Dense d→d in
+  ``cfg.dtype``), GELU and ``mlm_ln`` in f32, cast to ``cfg.dtype``;
 - dropout at flax's three sites (embeddings, attention output, MLP
   output): keep with probability ``1 - rate``, scale the kept by
   ``1 / (1 - rate)``;
@@ -33,9 +44,9 @@ one). Biases, LayerNorm parameters and embeddings are f32. Dense weights
 are stored ``[out, in]`` (``nn.Linear`` layout): in ``cfg.dtype`` for
 serving, and as f32 masters cast to ``cfg.dtype`` at each use for
 training (``trainable=True``) — flax's ``nn.Dense(dtype=bf16)`` keeps
-``param_dtype=f32`` the same way. Later slices bring post-LN/BERT,
-remat, MoE, TP, ``fused_qkv``, sequence parallelism and pipelining; a
-config that asks for one of them is refused.
+``param_dtype=f32`` the same way. Later slices bring remat, MoE, TP,
+``fused_qkv``, sequence parallelism and pipelining; a config that asks
+for one of them is refused.
 """
 
 from __future__ import annotations
@@ -50,10 +61,13 @@ from torch.utils.checkpoint import checkpoint
 from ..data.text import IGNORE_INDEX
 from ..ops.attention import attention, paged_append_kv, paged_attention
 from ..ops.fused_ln_matmul import ln_matmul
+from ..parallel.sharding import RowGenerator, rand_rows
 from ..utils import flops as flops_lib
 from ..utils.device import resolve_device
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default
+#: the module names of the model's LayerNorms (scale ones, bias zeros)
+LN_NAMES = ("ln1", "ln2", "final_ln", "embed_ln", "mlm_ln")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,6 +113,11 @@ class TransformerConfig:
         return self.d_model // self.num_heads
 
 
+def bert_base() -> TransformerConfig:
+    """BERT-base/uncased shape (BASELINE.json:10): post-LN, bidirectional."""
+    return TransformerConfig()
+
+
 def gpt_small(causal_len: int = 1024) -> TransformerConfig:
     """Decoder-only LM, GPT-2-small shape — pre-LN, causal."""
     return TransformerConfig(
@@ -122,15 +141,17 @@ def _param(*shape, dtype=torch.float32, device=None) -> nn.Parameter:
 
 
 def dropout(x: torch.Tensor, rate: float, train: bool,
-            generator: torch.Generator | None) -> torch.Tensor:
+            generator: torch.Generator | RowGenerator | None) -> torch.Tensor:
     """flax ``nn.Dropout``: identity unless ``train`` and ``rate > 0``;
     else keep each element with probability ``1 - rate`` (uniform draws
-    from ``generator``) and scale the kept by ``1 / (1 - rate)``."""
+    from ``generator``; a data-parallel step's ``RowGenerator`` gives this
+    rank's rows of the global batch's draw) and scale the kept by
+    ``1 / (1 - rate)``."""
     if not train or rate == 0.0:
         return x
     if generator is None:
         raise ValueError("train=True with dropout > 0 needs a torch.Generator")
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    keep = rand_rows(x.shape, generator, x.device) >= rate
     return torch.where(keep, x / (1.0 - rate), x.new_zeros(()))
 
 
@@ -253,6 +274,9 @@ class Block(nn.Module):
     def forward(self, x, k_pool, v_pool, block_table, pos):
         """Paged decode (see ``SelfAttention.forward``)."""
         dt = x.dtype
+        if not self.cfg.pre_ln:
+            x = self.ln1(x + self.attn(x, k_pool, v_pool, block_table, pos)).to(dt)
+            return self.ln2(x + self._mlp_tail(self.mlp_in(x))).to(dt)
         if self.cfg.fused_ln_matmul:
             x = x + self.attn(x, k_pool, v_pool, block_table, pos, ln=self.ln1)
             return x + self._mlp_tail(self._fused_mlp_in(x))
@@ -265,6 +289,10 @@ class Block(nn.Module):
 
     def forward_uncached(self, x, mask, *, train: bool, generator=None):
         dt = x.dtype
+        if not self.cfg.pre_ln:  # post-LN (BERT): the residual add in cfg.dtype
+            x = self.ln1(x + self.attn.forward_uncached(
+                x, mask, train=train, generator=generator)).to(dt)
+            return self.ln2(x + self._mlp_tail(self.mlp_in(x), train, generator)).to(dt)
         if self.cfg.fused_ln_matmul:
             x = x + self.attn.forward_uncached(x, mask, train=train, generator=generator,
                                                ln=self.ln1)
@@ -275,30 +303,33 @@ class Block(nn.Module):
 
 
 def check_supported(cfg: TransformerConfig) -> None:
-    """Refuse what the port does not have yet, naming the ROADMAP item."""
-    if not (cfg.causal and cfg.pre_ln):
-        raise ValueError(
-            "the port has the causal pre-LN decoder only (post-LN/BERT is "
-            "ROADMAP Queue A item 2, after slice 3)")
+    """Refuse what the model cannot run (as the JAX model does) or the
+    port does not have yet (naming the ROADMAP item)."""
+    if cfg.fused_ln_matmul and not cfg.pre_ln:
+        raise ValueError("fused_ln_matmul requires pre_ln=True (a post-LN LayerNorm "
+                         "output is the residual stream itself and must materialize)")
     for name, default, item in (
             ("seq_impl", None, "item 6, parallel/ring_attention.py"),
             ("num_experts", 0, "item 6, ops/moe.py"),
-            ("remat", False, "item 2"), ("fused_qkv", False, "item 2")):
+            ("remat", False, "item 2.5"), ("fused_qkv", False, "item 2.5")):
         if getattr(cfg, name) != default:
             raise ValueError(f"model.{name}={getattr(cfg, name)!r} is not ported yet "
                              f"(ROADMAP Queue A {item})")
 
 
 class Transformer(nn.Module):
-    """Token-in, logits-out causal decoder.
+    """Token-in, logits-out transformer.
 
     Uncached (training, eval): ``forward(input_ids [B,S], attention_mask
-    [B,S] or None, *, train, generator, return_hidden)`` -> logits
-    ``[B,S,vocab]`` f32, or the final hidden states ``[B,S,d]`` in
-    ``cfg.dtype`` with ``return_hidden``.
+    [B,S] or None, *, train, generator, positions, return_hidden)`` ->
+    logits ``[B,S,vocab]`` f32, or ``[B,K,vocab]`` with ``positions``
+    [B,K] (MLM models only: the K positions are gathered before the MLM
+    head), or the final hidden states ``[B,S,d]`` in ``cfg.dtype`` with
+    ``return_hidden``.
 
-    Paged: ``forward(input_ids [B,S], kv_cache=, decode_pos=[B,S],
-    block_table=[B,MB] int32)`` -> ``(logits [B,S,vocab] f32, kv_cache)``.
+    Paged (causal models): ``forward(input_ids [B,S], kv_cache=,
+    decode_pos=[B,S], block_table=[B,MB] int32)`` -> ``(logits
+    [B,S,vocab] f32, kv_cache)``.
     The S tokens sit at the absolute positions ``decode_pos``; their K/V
     are written into the pool IN PLACE (the JAX version donates the pool
     and returns a new one — here the returned cache is the same object)
@@ -318,39 +349,64 @@ class Transformer(nn.Module):
                                       dtype=torch.float32)
         self.tok_embed.weight.requires_grad_(False)
         self.pos_embed = _param(cfg.max_len, cfg.d_model, device=device)
+        if not cfg.pre_ln:
+            self.embed_ln = LayerNorm(cfg.d_model, device)
         self.layers = nn.ModuleList(Block(cfg, device, pdt) for _ in range(cfg.num_layers))
-        self.final_ln = LayerNorm(cfg.d_model, device)
+        if cfg.pre_ln:
+            self.final_ln = LayerNorm(cfg.d_model, device)
+        if not cfg.causal:
+            self.mlm_transform = Dense(cfg.d_model, cfg.d_model, torch_dtype(cfg.dtype),
+                                       device, pdt)
+            self.mlm_ln = LayerNorm(cfg.d_model, device)
         self.mlm_bias = _param(cfg.vocab_size, device=device)
 
     def forward(self, input_ids, attention_mask=None, *, train: bool = False,
-                generator: torch.Generator | None = None, return_hidden: bool = False,
-                kv_cache=None, decode_pos=None, block_table=None):
+                generator: torch.Generator | None = None, positions=None,
+                return_hidden: bool = False, kv_cache=None, decode_pos=None,
+                block_table=None):
         cfg = self.cfg
         dt = torch_dtype(cfg.dtype)
         if kv_cache is not None:
-            if attention_mask is not None or train or return_hidden:
+            if not cfg.causal:
+                raise ValueError("KV-cached decode requires causal=True")
+            if attention_mask is not None or train or return_hidden or positions is not None:
                 raise ValueError("the paged KV-cache path is inference-only and takes "
-                                 "no attention_mask or return_hidden")
+                                 "no attention_mask, positions or return_hidden")
             pos = decode_pos.long().clamp(0, cfg.max_len - 1)
             x = (self.tok_embed(input_ids) + self.pos_embed[pos]).to(dt)
+            if not cfg.pre_ln:
+                x = self.embed_ln(x).to(dt)
             for i, block in enumerate(self.layers):
                 x = block(x, kv_cache.k_buf[i], kv_cache.v_buf[i], block_table,
                           decode_pos)
-            x = self.final_ln(x).to(dt)
+            if cfg.pre_ln:
+                x = self.final_ln(x).to(dt)
             return head_projection(x, self.tok_embed.weight, cfg.head_dtype) \
                 + self.mlm_bias, kv_cache
         S = input_ids.shape[1]
         if S > cfg.max_len:
             raise ValueError(f"sequence length {S} exceeds max_len={cfg.max_len}")
         x = (self.tok_embed(input_ids) + self.pos_embed[None, :S]).to(dt)
+        if not cfg.pre_ln:
+            x = self.embed_ln(x).to(dt)
         x = dropout(x, cfg.dropout, train, generator)
         mask = attention_mask.to(torch.bool) if attention_mask is not None else None
         for block in self.layers:
             x = block.forward_uncached(x, mask, train=train, generator=generator)
-        x = self.final_ln(x).to(dt)
+        if cfg.pre_ln:
+            x = self.final_ln(x).to(dt)
         if return_hidden:
             # the chunked loss applies the same tied projection per chunk
             return x
+        if positions is not None:
+            if cfg.causal:
+                raise ValueError("positions gather is the MLM head path; causal LMs "
+                                 "predict every position")
+            idx = positions.long()[..., None].expand(-1, -1, x.shape[-1])
+            x = torch.gather(x, 1, idx)  # [B, K, d]
+        if not cfg.causal:
+            x = F.gelu(self.mlm_transform(x), approximate="tanh")
+            x = self.mlm_ln(x).to(dt)
         return head_projection(x, self.tok_embed.weight, cfg.head_dtype) + self.mlm_bias
 
 
@@ -367,8 +423,8 @@ def init_params(cfg: TransformerConfig, seed: int = 0, device="cuda",
                 trainable: bool = False) -> dict[str, torch.Tensor]:
     """Random weights as flax initialises them: normal(0.02) for Dense
     kernels and both embeddings, zeros for biases and ``mlm_bias``,
-    ones/zeros for LayerNorm — drawn in f32 from a ``torch.Generator``
-    on ``device`` (the card by default; raises without one unless
+    ones/zeros for every LayerNorm (``LN_NAMES``) — drawn in f32 from a
+    ``torch.Generator`` on ``device`` (the card by default; raises without one unless
     ``device="cpu"``) seeded with ``seed``, then cast to each parameter's
     dtype (Dense weights stay f32 with ``trainable``). Returns a state
     dict for ``Transformer(cfg)``. The numbers differ from
@@ -380,7 +436,7 @@ def init_params(cfg: TransformerConfig, seed: int = 0, device="cuda",
     for name, p in model.state_dict().items():
         parts = name.split(".")
         leaf = parts[-1]
-        is_ln = len(parts) > 1 and parts[-2] in ("ln1", "ln2", "final_ln")
+        is_ln = len(parts) > 1 and parts[-2] in LN_NAMES
         if is_ln and leaf == "weight":
             t = torch.ones(p.shape, device=device)
         elif leaf == "bias" or name == "mlm_bias":
@@ -487,6 +543,31 @@ def _chunked_xent_stats(h, labels, emb, bias, chunk_size: int,
     return {"loss_sum": loss_sum, "correct": correct, "count": count}
 
 
+def _mlm_targets(batch):
+    """(positions, labels) for the MLM head: the gathered-head format
+    ``masked_positions`` / ``masked_labels`` [B,K] when the stream gives
+    it (``TextDataConfig.max_predictions != 0``), else (None, the dense
+    [B,S] labels with IGNORE_INDEX on unmasked positions)."""
+    if "masked_positions" in batch:
+        return batch["masked_positions"], batch["masked_labels"]
+    return None, batch["labels"]
+
+
+def mlm_loss_fn(model: Transformer):
+    """Masked-LM loss. Batch: {"input_ids" [B,S], "masked_positions" and
+    "masked_labels" [B,K] or "labels" [B,S] with IGNORE_INDEX on
+    unmasked positions, optional "attention_mask" [B,S]}."""
+
+    def loss_fn(batch, generator=None):
+        positions, labels = _mlm_targets(batch)
+        logits = model(batch["input_ids"], batch.get("attention_mask"), train=True,
+                       generator=generator, positions=positions)
+        loss, acc = _masked_xent(logits, labels)
+        return loss, {"accuracy": acc}
+
+    return loss_fn
+
+
 def lm_loss_fn(model: Transformer):
     """Next-token loss for causal models. Batch: {"input_ids" [B,S],
     optional "attention_mask" [B,S]}; position t predicts token t+1."""
@@ -527,37 +608,67 @@ def causal_lm_loss(model: Transformer, xent_chunk: int = 0):
             else lm_loss_fn(model))
 
 
+def transformer_eval_fn(model: Transformer, *, mlm: bool):
+    """``eval_fn(batch) -> {"loss_sum", "correct", "count"}``: summed
+    masked-LM (``mlm``) or next-token statistics, no dropout, no
+    gradient."""
+
+    @torch.no_grad()
+    def eval_fn(batch):
+        ids = batch["input_ids"]
+        positions, labels = (
+            _mlm_targets(batch) if mlm
+            else (None, _shifted_lm_labels(ids, batch.get("attention_mask"))))
+        logits = model(ids, batch.get("attention_mask"), train=False, positions=positions)
+        return _xent_eval_stats(logits, labels)
+
+    return eval_fn
+
+
+def mlm_eval_fn(model: Transformer):
+    return transformer_eval_fn(model, mlm=True)
+
+
 def lm_eval_fn(model: Transformer, xent_chunk: int = 0):
-    """``eval_fn(batch) -> {"loss_sum", "correct", "count"}`` (summed,
-    no dropout, no gradient); per chunk when ``xent_chunk > 0``."""
+    """Next-token ``transformer_eval_fn``; with ``xent_chunk > 0`` the
+    statistics are summed per sequence chunk from the hidden states (the
+    chunking of ``chunked_lm_loss_fn``)."""
+    if xent_chunk <= 0:
+        return transformer_eval_fn(model, mlm=False)
 
     @torch.no_grad()
     def eval_fn(batch):
         ids = batch["input_ids"]
         labels = _shifted_lm_labels(ids, batch.get("attention_mask"))
-        out = model(ids, batch.get("attention_mask"), train=False,
-                    return_hidden=xent_chunk > 0)
-        if xent_chunk > 0:
-            return _chunked_xent_stats(out, labels, model.tok_embed.weight,
-                                       model.mlm_bias, xent_chunk, model.cfg.head_dtype)
-        return _xent_eval_stats(out, labels)
+        h = model(ids, batch.get("attention_mask"), train=False, return_hidden=True)
+        return _chunked_xent_stats(h, labels, model.tok_embed.weight, model.mlm_bias,
+                                   xent_chunk, model.cfg.head_dtype)
 
     return eval_fn
 
 
 def param_count(cfg: TransformerConfig) -> int:
-    """Analytic parameter count (embeddings + blocks + final LN + bias) of
-    the causal pre-LN decoder."""
+    """Analytic parameter count (embeddings + blocks + heads + bias)."""
     d, L = cfg.d_model, cfg.num_layers
-    embed = cfg.vocab_size * d + cfg.max_len * d + 2 * d  # + final_ln
+    embed = cfg.vocab_size * d + cfg.max_len * d
+    embed += 2 * d  # embed_ln (post-LN) or final_ln (pre-LN)
     attn = 4 * d * d + 4 * d
     ln = 4 * d
     ffn = 2 * d * cfg.d_ff + cfg.d_ff + d
-    return embed + L * (attn + ln + ffn) + cfg.vocab_size
+    head = 0 if cfg.causal else d * d + 3 * d  # mlm_transform + mlm_ln
+    return embed + L * (attn + ln + ffn) + head + cfg.vocab_size
 
 
-def flops_per_example(cfg: TransformerConfig, seq_len: int) -> float:
+def flops_per_example(cfg: TransformerConfig, seq_len: int,
+                      n_predictions: int | None = None) -> float:
     """Forward FLOPs per example at ``seq_len`` (×3 for training, applied
-    once in ``obs.goodput.train_mfu``)."""
-    return seq_len * flops_lib.transformer_flops_per_token(
+    once in ``obs.goodput.train_mfu``). ``n_predictions``: the gathered
+    MLM head runs on that many positions, not ``seq_len``; the skipped
+    positions' head FLOPs (``mlm_transform`` and the tied projection) are
+    taken off."""
+    base = seq_len * flops_lib.transformer_flops_per_token(
         param_count(cfg), seq_len, cfg.num_layers, cfg.d_model)
+    if n_predictions is not None and not cfg.causal:
+        per_pos_head = 2.0 * (cfg.vocab_size * cfg.d_model + cfg.d_model * cfg.d_model)
+        base -= (seq_len - n_predictions) * per_pos_head
+    return base

@@ -73,7 +73,7 @@ def attention(
     - ``"auto"`` — ``"flash"`` for a CUDA tensor, ``"dense"`` on the CPU
       (the JAX model's "flash on the accelerator" rule).
 
-    ``"blockwise"`` is not ported yet (ROADMAP Queue A item 2)."""
+    ``"blockwise"`` is not ported yet (ROADMAP Queue A item 2.5)."""
     if impl == "auto":
         impl = "flash" if q.is_cuda else "dense"
     if impl == "flash":
@@ -84,7 +84,7 @@ def attention(
         return attention_reference(q, k, v, causal=causal, kv_mask=kv_mask,
                                    sm_scale=sm_scale)
     raise ValueError(f"attention impl must be one of {IMPLS} (blockwise is not ported "
-                     f"yet: ROADMAP Queue A item 2), got {impl!r}")
+                     f"yet: ROADMAP Queue A item 2.5), got {impl!r}")
 
 
 def paged_append_kv(

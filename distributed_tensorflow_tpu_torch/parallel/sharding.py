@@ -12,6 +12,7 @@ The partition-rule tables (``partition_rules``, ``auto_fsdp_specs``,
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Mapping
 
 import numpy as np
@@ -42,6 +43,33 @@ def put_host_batch(batch: Mapping[str, Any], device) -> dict[str, torch.Tensor]:
     DevicePut`` stages it through pinned buffers on a side stream."""
     return {k: torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor) else v)
             .to(device, non_blocking=True) for k, v in batch.items()}
+
+
+@dataclasses.dataclass(frozen=True)
+class RowGenerator:
+    """A ``torch.Generator`` seeded alike on the ``shards`` ranks of a
+    data-parallel step, of which this one is ``index``: ``rand_rows``
+    draws the global batch's noise and keeps this rank's rows, so every
+    row of the global batch gets its own noise, the same that one process
+    stepping on the whole global batch draws for it (the one draw over the
+    global batch of the JAX step). The cost is the global draw on every
+    rank."""
+
+    generator: torch.Generator
+    shards: int
+    index: int
+
+
+def rand_rows(shape, generator: torch.Generator | RowGenerator, device) -> torch.Tensor:
+    """``torch.rand(shape)`` from ``generator``; from a ``RowGenerator``,
+    this rank's rows (dim 0 of ``shape``) of the draw of the global
+    shape."""
+    if not isinstance(generator, RowGenerator):
+        return torch.rand(shape, generator=generator, device=device)
+    b = shape[0]
+    full = torch.rand((b * generator.shards, *shape[1:]), generator=generator.generator,
+                      device=device)
+    return full[generator.index * b:(generator.index + 1) * b]
 
 
 @torch.no_grad()

@@ -1,7 +1,8 @@
 """The ported training engine: optimizers and schedules, the step, the
-callbacks and the loop (one device)."""
+callbacks, the loop and the distributed evaluator."""
 
 from . import callbacks  # noqa: F401
+from .evaluation import ShardedEvaluator, derive_metrics  # noqa: F401
 from .loop import Trainer  # noqa: F401
 from .optimizers import (  # noqa: F401
     Optimizer,

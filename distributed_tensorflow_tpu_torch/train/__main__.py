@@ -17,12 +17,25 @@ Usage:
         --model.dtype=float32 --data.image_size=16 --data.num_classes=10 \
         --data.global_batch_size=8 --train.num_steps=3 --train.log_every=1 \
         --optimizer.warmup_steps=0 --optimizer.schedule=constant
+    python -m distributed_tensorflow_tpu_torch.train bert_pretrain \
+        --data.global_batch_size=32 --train.num_steps=20 --train.eval_every=10 \
+        --train.eval_batches=4 --optimizer.warmup_steps=0
+    python -m distributed_tensorflow_tpu_torch.train bert_pretrain --device cpu \
+        --model.num_layers=2 --model.d_model=32 --model.num_heads=4 \
+        --model.d_ff=64 --model.vocab_size=48 --data.vocab_size=48 \
+        --data.mask_token=0 --model.max_len=16 --data.seq_len=16 \
+        --model.dtype=float32 --data.global_batch_size=64 --train.num_steps=10 \
+        --train.log_every=1 --train.eval_batches=2 --optimizer.warmup_steps=0 \
+        --optimizer.learning_rate=3e-3
 
 Runs on the GPU unless ``--device cpu`` is given; with no CUDA present
 the GPU default raises. Data-parallel on N cards: ``torchrun
 --nproc_per_node=N -m distributed_tensorflow_tpu_torch.train
 resnet50_imagenet --mesh.data=N ...`` (one process a card; process 0
-prints). Every ``--section.key=value`` override is the
+prints; ``bert_pretrain`` alike). A workload with an eval surface
+evaluates every ``--train.eval_every`` steps and once at the end
+(``--train.eval_batches``, 0 for none), and the final metrics are
+printed. Every ``--section.key=value`` override is the
 JAX package's. ``--model.fused_ln_matmul=true`` runs ln1->q/k/v and
 ln2->mlp_in through the fused LN+matmul kernels; ``DTF_FUSED_BWD=pallas``
 (default ``xla``) picks their backward kernels, as it does for
@@ -55,6 +68,9 @@ def main(argv=None):
                 print(" ".join(f"{k}={v:.6g}" for k, v in row.items()))
             print(f"trained {result.state.step} steps on {result.device} (mesh "
                   f"{dict(result.mesh.shape)})")
+            if result.eval_metrics is not None:
+                print("eval " + " ".join(f"{k}={v:.6g}"
+                                         for k, v in sorted(result.eval_metrics.items())))
     finally:
         cluster.shutdown()
 

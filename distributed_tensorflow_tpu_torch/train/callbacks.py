@@ -4,7 +4,7 @@ callbacks.py`` the ported loop uses: ``Callback``, ``StopAtStep``,
 reading one waits for the step, so the callbacks that read values do it
 on a cadence (``every_n``). The summary writer, telemetry, watchdog,
 profiler, checkpoint, heartbeat and elastic callbacks come later
-(ROADMAP Queue A items 2 and 6)."""
+(ROADMAP Queue A items 2.6 and 6)."""
 
 from __future__ import annotations
 
@@ -67,6 +67,13 @@ class MetricsLogger(Callback):
     def on_train_start(self, trainer):
         self._t0, self._t_start = None, self.clock()
         self.last, self.last_step = {}, None
+
+    def note_pause(self, seconds: float) -> None:
+        """Wall time spent off the train path between two steps (a
+        mid-train eval): the rate baseline moves forward by it, so
+        steps/s, examples/s and MFU do not absorb it."""
+        if self._t0 is not None:
+            self._t0 += max(float(seconds), 0.0)
 
     def on_step_end(self, trainer, step, metrics):
         if step % self.every_n != 0:

@@ -16,7 +16,7 @@
 
 ``adagrad``, ``ftrl``, ``rmsprop``, ``lamb``, ``adafactor`` and the
 per-group ``make_multi_optimizer`` are not ported yet (ROADMAP Queue A
-item 2) and raise ``NotImplementedError``.
+item 2.6) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -150,7 +150,7 @@ class Optimizer:
                                          eps=cfg.eps, weight_decay=cfg.weight_decay)
         elif name in ("adagrad", "ftrl", "rmsprop", "lamb", "adafactor"):
             raise NotImplementedError(
-                f"optimizer {cfg.name!r} is not ported yet (ROADMAP Queue A item 2)")
+                f"optimizer {cfg.name!r} is not ported yet (ROADMAP Queue A item 2.6)")
         else:
             raise ValueError(f"Unknown optimizer '{cfg.name}'")
 

@@ -17,7 +17,10 @@ model and are updated in place by its optimizer.
   loss the mean of the microbatch means.
 - **RNG**: the state holds a seed and one ``torch.Generator``; each step
   reseeds it from ``(seed, step)``, so a step's dropout draws are a pure
-  function of the two (a resumed run redraws the same masks).
+  function of the two (a resumed run redraws the same masks). Under data
+  parallelism the loss gets it as a ``parallel.sharding.RowGenerator``:
+  each rank draws the global batch's masks and keeps its rows, so a row's
+  mask is the one a single process on the global batch draws for it.
 - **Model state**: buffers a model updates in its train forward
   (BatchNorm running statistics) are the JAX step's ``model_state``;
   under gradient accumulation each microbatch's forward sees the buffers
@@ -39,7 +42,9 @@ from typing import Any, Callable
 import torch
 
 from ..parallel.collectives import all_reduce_mean
+from ..parallel.collectives import axis_index
 from ..parallel.mesh import BATCH_AXES, mesh_axis_size
+from ..parallel.sharding import RowGenerator
 from .optimizers import Optimizer, global_norm
 
 #: loss_fn(batch, generator) -> (loss, aux metrics)
@@ -100,14 +105,17 @@ def make_train_step(loss_fn: LossFn, options: StepOptions = StepOptions(), mesh=
     accum = options.grad_accum_steps
     if accum < 1:
         raise ValueError(f"grad_accum_steps must be >= 1, got {accum}")
-    data_parallel = mesh is not None and mesh_axis_size(mesh, BATCH_AXES) > 1
+    shards = 1 if mesh is None else mesh_axis_size(mesh, BATCH_AXES)
+    data_parallel = shards > 1
+    shard = axis_index(BATCH_AXES, mesh) if data_parallel else 0
 
     def train_step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         params = state.optimizer.params
-        gen = state.generator
+        state.generator.manual_seed(step_seed(state.seed, state.step))
+        gen = (RowGenerator(state.generator, shards, shard) if data_parallel
+               else state.generator)
         buffers = list(state.model.buffers()) if options.skip_nonfinite else []
         saved = [b.detach().clone() for b in buffers]
-        gen.manual_seed(step_seed(state.seed, state.step))
         if accum == 1:
             loss, aux = loss_fn(batch, gen)
             grads = torch.autograd.grad(loss, params)

@@ -1,10 +1,11 @@
 """Convert the JAX package's flax parameter trees into the port's models.
 
 ``from_jax_params(params_np, cfg)`` takes the tree of a
-``distributed_tensorflow_tpu.models.transformer.Transformer`` (causal,
-pre-LN; split q/k/v; as nested dicts of numpy arrays — ``jax.device_get``
-of the params gives one) and returns a ``models.transformer.Transformer``
-holding the same numbers. Layout: a flax Dense ``kernel`` is ``[in,
+``distributed_tensorflow_tpu.models.transformer.Transformer`` (pre-LN
+with ``final_ln``, or post-LN with ``embed_ln``; a non-causal model's
+``mlm_transform`` and ``mlm_ln``; split q/k/v; as nested dicts of numpy
+arrays — ``jax.device_get`` of the params gives one) and returns a
+``models.transformer.Transformer`` holding the same numbers. Layout: a flax Dense ``kernel`` is ``[in,
 out]``, the port's ``Dense.weight`` is ``[out, in]`` (``nn.Linear``).
 The same tree serves ``fused_ln_matmul=True``: both flax paths own the
 same parameters.
@@ -42,10 +43,16 @@ def _state_dict_from_jax(params_np: Mapping, cfg: TransformerConfig
     sd = {
         "tok_embed.weight": _t(params_np["tok_embed"]["embedding"]),
         "pos_embed": _t(params_np["pos_embed"]),
-        "final_ln.weight": _t(params_np["final_ln"]["scale"]),
-        "final_ln.bias": _t(params_np["final_ln"]["bias"]),
         "mlm_bias": _t(params_np["mlm_bias"]),
     }
+    for ln in ("final_ln",) if cfg.pre_ln else ("embed_ln",):
+        sd[ln + ".weight"] = _t(params_np[ln]["scale"])
+        sd[ln + ".bias"] = _t(params_np[ln]["bias"])
+    if not cfg.causal:
+        sd["mlm_transform.weight"] = _t(params_np["mlm_transform"]["kernel"]).t().contiguous()
+        sd["mlm_transform.bias"] = _t(params_np["mlm_transform"]["bias"])
+        sd["mlm_ln.weight"] = _t(params_np["mlm_ln"]["scale"])
+        sd["mlm_ln.bias"] = _t(params_np["mlm_ln"]["bias"])
     for i in range(cfg.num_layers):
         layer = params_np[f"layer_{i}"]
         pre = f"layers.{i}."

@@ -1,14 +1,23 @@
-"""Workload registry of the port: ``gpt_lm`` and ``resnet50_imagenet`` so
-far (the other presets of the JAX package come with their slices, ROADMAP
-Queue A)."""
+"""Workload registry of the port: ``bert_pretrain``, ``gpt_lm`` and
+``resnet50_imagenet`` so far (the other presets of the JAX package come
+with their slices, ROADMAP Queue A)."""
 
 from __future__ import annotations
 
 import importlib
 
-from .runner import RunConfig, RunResult, TrainSection, WorkloadParts, run  # noqa: F401
+from .runner import (  # noqa: F401
+    RunConfig,
+    RunResult,
+    TrainSection,
+    WorkloadParts,
+    evaluate,
+    evaluate_from_checkpoint,
+    run,
+)
 
 _REGISTRY: dict[str, str] = {
+    "bert_pretrain": ".bert_pretrain",
     "gpt_lm": ".gpt_lm",
     "resnet50_imagenet": ".resnet50_imagenet",
 }

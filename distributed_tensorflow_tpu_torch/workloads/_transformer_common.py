@@ -1,26 +1,24 @@
-"""Shared build logic for the transformer workloads — the non-pipelined
-branch of ``distributed_tensorflow_tpu/workloads/_transformer_common.py``
-(causal LM only; the MLM branch comes with ``bert_pretrain``, the
-pipelined one with ROADMAP Queue A item 6)."""
+"""Shared build logic for the transformer workloads (bert_pretrain,
+gpt_lm) — the non-pipelined branch of ``distributed_tensorflow_tpu/
+workloads/_transformer_common.py`` (the pipelined one is ROADMAP Queue A
+item 6)."""
 
 from __future__ import annotations
 
 import torch
 
-from ..data.text import make_text_dataset
+from ..data.text import make_text_dataset, resolved_max_predictions
 from ..models import transformer as tfm
 from .runner import RunConfig, WorkloadParts
 
 
 def transformer_parts(cfg: RunConfig, device: torch.device, *, mlm: bool) -> WorkloadParts:
     """WorkloadParts for a Transformer workload: a trainable model with
-    random weights from ``cfg.train.seed`` on ``device``, the causal-LM
-    loss (chunked when ``model.xent_chunk > 0``), the text stream and the
-    forward FLOPs per step. Evaluation comes with ``train/evaluation.py``
-    (ROADMAP Queue A item 2)."""
-    if mlm:
-        raise NotImplementedError("the masked-LM workload (bert_pretrain) is not ported "
-                                  "yet (ROADMAP Queue A item 2)")
+    random weights from ``cfg.train.seed`` on ``device``; the masked-LM
+    loss and eval (``mlm``, the encoder) or the next-token ones (the
+    causal decoder, chunked when ``model.xent_chunk > 0``); the text
+    stream, a held-out eval stream at a disjoint index range, and the
+    forward FLOPs per step (the gathered MLM head's positions only)."""
     mcfg: tfm.TransformerConfig = cfg.model
     if cfg.data.seq_len > mcfg.max_len:
         raise ValueError(f"data.seq_len={cfg.data.seq_len} exceeds "
@@ -29,13 +27,22 @@ def transformer_parts(cfg: RunConfig, device: torch.device, *, mlm: bool) -> Wor
         raise ValueError(f"data.vocab_size={cfg.data.vocab_size} != "
                          f"model.vocab_size={mcfg.vocab_size}")
     tfm.check_supported(mcfg)
+    n_pred = resolved_max_predictions(cfg.data) if mlm else 0
     params = tfm.init_params(mcfg, seed=cfg.train.seed, device=device, trainable=True)
     model = tfm.build(mcfg, params, device, trainable=True)
     return WorkloadParts(
         model=model,
-        loss_fn=tfm.causal_lm_loss(model, mcfg.xent_chunk),
+        loss_fn=(tfm.mlm_loss_fn(model) if mlm
+                 else tfm.causal_lm_loss(model, mcfg.xent_chunk)),
+        eval_fn=(tfm.mlm_eval_fn(model) if mlm
+                 else tfm.lm_eval_fn(model, mcfg.xent_chunk)),
         dataset_fn=lambda start: make_text_dataset(cfg.data, index_offset=start),
-        flops_per_step=tfm.flops_per_example(mcfg, cfg.data.seq_len)
+        # held out for the synthetic streams (generated by index); for a
+        # token file, other windows of the same corpus
+        eval_dataset_fn=lambda n: make_text_dataset(cfg.data, num_batches=n,
+                                                    index_offset=10**6),
+        flops_per_step=tfm.flops_per_example(mcfg, cfg.data.seq_len,
+                                             n_predictions=n_pred or None)
         * cfg.data.global_batch_size,
         batch_size=cfg.data.global_batch_size,
     )

@@ -1,7 +1,7 @@
 """Decoder-only causal LM at GPT-2-small shape — the port's counterpart of
 ``distributed_tensorflow_tpu/workloads/gpt_lm.py`` (the default preset,
 same values; ``long_context`` needs ring attention and remat, ROADMAP
-Queue A items 2 and 6)."""
+Queue A items 2.5 and 6)."""
 
 from __future__ import annotations
 

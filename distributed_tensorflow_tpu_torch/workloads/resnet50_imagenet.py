@@ -9,7 +9,10 @@ warmup and cosine decay over 90 epochs at global batch 1024; coupled L2
 ``SyntheticClassification`` by default or an ``npz:`` file; real ImageNet
 (``records:``/``jpeg:``) is ROADMAP Queue A item 3.2. The
 ``block_impl`` override picks the plain model (``standard``) or the fused
-conv+BN kernels (``fused``)."""
+conv+BN kernels (``fused``). Evaluation (top-1, top-5, loss; BatchNorm on
+its running statistics) runs on the same stream at a disjoint index
+range; an explicit ``data.eval_dataset`` is refused, as in the JAX
+package."""
 
 from __future__ import annotations
 
@@ -43,9 +46,9 @@ def default_config() -> RunConfig:
 def build(cfg: RunConfig, device: torch.device, mesh=None) -> WorkloadParts:
     """A trainable ResNet with random weights from ``cfg.train.seed`` on
     ``device`` (sync BN over ``mesh``'s batch axes), the label-smoothed
-    classification loss, this process's image stream (its rows of each
-    global batch) and the forward FLOPs per global step. Evaluation comes with
-    ``train/evaluation.py`` (ROADMAP Queue A item 2)."""
+    classification loss and eval statistics, this process's image stream
+    (its rows of each global batch), its eval stream and the forward FLOPs
+    per global step."""
     mcfg: resnet.ResNetConfig = cfg.model
     data: DataConfig = cfg.data
     if not isinstance(data, DataConfig):
@@ -54,9 +57,6 @@ def build(cfg: RunConfig, device: torch.device, mesh=None) -> WorkloadParts:
         raise ValueError(f"the ResNet stem takes NHWC images of 3 channels and an even size, "
                          f"got flat={data.flat} channels={data.channels} "
                          f"image_size={data.image_size}")
-    if data.eval_dataset:
-        raise NotImplementedError("data.eval_dataset: evaluation is not ported yet (ROADMAP "
-                                  "Queue A item 2.4, train/evaluation.py)")
     if data.num_classes > mcfg.num_classes:
         raise ValueError(f"data.num_classes={data.num_classes} exceeds "
                          f"model.num_classes={mcfg.num_classes}")
@@ -65,7 +65,9 @@ def build(cfg: RunConfig, device: torch.device, mesh=None) -> WorkloadParts:
     return WorkloadParts(
         model=model,
         loss_fn=common.classification_loss_fn(model, label_smoothing=0.1),
+        eval_fn=common.classification_eval_fn(model),
         dataset_fn=lambda start: make_dataset(data, index_offset=start),
+        eval_dataset_fn=lambda n: make_dataset(data, n, index_offset=10**6, train=False),
         flops_per_step=resnet.flops_per_example(mcfg, data.image_size) * data.global_batch_size,
         batch_size=data.global_batch_size,
     )

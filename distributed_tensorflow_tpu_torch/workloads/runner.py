@@ -1,11 +1,13 @@
 """Workload runner — the data-parallel subset of ``distributed_tensorflow_tpu/
 workloads/runner.py``: cluster → mesh → config → model on this process's
-card → optimizer → step → prefetched feed → callback loop. Each workload
-module contributes a preset config and a builder; everything else is
-shared. One process per card: under ``torchrun --nproc_per_node=N`` (or
-with ``cluster.coordinator_address`` set) the processes join one process
-group, the ``data`` axis absorbs them, each steps on its rows of the
-global batch, and only the chief logs.
+card → optimizer → step → prefetched feed → callback loop → distributed
+eval (``train.eval_every`` mid-train passes and a final one, through
+``train/evaluation.py``'s ``ShardedEvaluator``). Each workload module
+contributes a preset config and a builder; everything else is shared.
+One process per card: under ``torchrun --nproc_per_node=N`` (or with
+``cluster.coordinator_address`` set) the processes join one process
+group, the ``data`` axis absorbs them, each steps and evaluates on its
+rows of the global batch, and only the chief logs.
 
 The config tree keeps the JAX package's section names, so the same
 ``--section.key=value`` overrides parse; a config that asks for what the
@@ -18,6 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import time
 from typing import Any, Callable, Iterable
 
 import torch
@@ -30,10 +33,12 @@ from ..parallel.mesh import MeshSpec, build_mesh, describe
 from ..parallel.sharding import replicate
 from ..train import (
     OptimizerConfig,
+    ShardedEvaluator,
     StepOptions,
     Trainer,
     callbacks as cb,
     init_train_state,
+    derive_metrics,
     make_optimizer,
     make_train_step,
 )
@@ -48,6 +53,8 @@ class TrainSection:
     log_every: int = 100
     grad_accum_steps: int = 1
     seed: int = 0
+    eval_every: int = 0  # 0 = no mid-train eval
+    eval_batches: int = 16  # a pass's batches; 0 = no eval at all
     # Adds grad_norm + grads_finite to the step metrics (an extra pass
     # over every gradient per step)
     debug_metrics: bool = False
@@ -60,7 +67,7 @@ class TrainSection:
 
 @dataclasses.dataclass(frozen=True)
 class CheckpointConfig:
-    directory: str = ""  # non-empty: not ported yet (ROADMAP Queue A item 2)
+    directory: str = ""  # non-empty: not ported yet (ROADMAP Queue A item 2.3)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,6 +98,10 @@ class WorkloadParts:
     dataset_fn: Callable[[int], Iterable]
     flops_per_step: float | None = None  # analytic FORWARD flops, for MFU
     batch_size: int | None = None  # examples/step for throughput logs
+    # eval_fn(batch) -> summed statistics (train/evaluation.py)
+    eval_fn: Callable | None = None
+    # num_batches -> host-batch iterable of the held-out stream
+    eval_dataset_fn: Callable[[int], Iterable] | None = None
 
 
 @dataclasses.dataclass
@@ -99,13 +110,14 @@ class RunResult:
     history: list[dict]
     device: torch.device
     mesh: Any = None
+    eval_metrics: dict | None = None  # the final eval's, when the workload has one
 
 
 def check_supported(cfg: RunConfig) -> None:
     """Refuse what this slice does not have, naming the ROADMAP item."""
     if cfg.checkpoint.directory:
         raise ValueError("checkpoint.directory: train/checkpoint.py is not ported yet "
-                         "(ROADMAP Queue A item 2)")
+                         "(ROADMAP Queue A item 2.3)")
     if cfg.mesh.pipe > 1:
         raise ValueError(f"mesh.pipe={cfg.mesh.pipe}: pipeline parallelism is not ported "
                          f"yet (ROADMAP Queue A item 6, parallel/pipeline.py)")
@@ -120,7 +132,13 @@ def check_supported(cfg: RunConfig) -> None:
                          "(ROADMAP Queue A item 6, resilience/)")
     if cfg.train.anomaly_defense:
         raise ValueError("train.anomaly_defense is not ported yet (ROADMAP Queue A item 6, "
-                         "resilience/anomaly.py; it also needs checkpoints, item 2)")
+                         "resilience/anomaly.py; it also needs checkpoints, item 2.3)")
+    ev = getattr(cfg.data, "eval_dataset", "")
+    if ev:
+        raise ValueError(
+            f"workload {cfg.workload!r} does not support data.eval_dataset (got {ev!r}); "
+            "its eval stream is workload-defined — drop the flag (wide_deep, which honors "
+            "it, is ROADMAP Queue A item 5)")
 
 
 def run(cfg: RunConfig, build: Callable[[RunConfig, torch.device, Any], WorkloadParts],
@@ -131,7 +149,10 @@ def run(cfg: RunConfig, build: Callable[[RunConfig, torch.device, Any], Workload
     steps on this process's card (``device``: the card by default; no CPU
     fallback — pass ``device="cpu"`` for the plain versions, gloo between
     processes), each process fed its rows by a ``Prefetcher`` of depth 2
-    through ``DevicePut``. The steps run with
+    through ``DevicePut``, with an eval pass every ``train.eval_every``
+    steps and a final one of ``train.eval_batches`` batches when the
+    workload has an eval surface (``RunResult.eval_metrics``). The steps
+    and the eval passes run with
     ``torch.backends.cudnn.deterministic`` on, restored after: a step is
     bitwise repeatable, as the JAX package's is on a TPU (same-seed
     recovery relies on it), and with cuDNN's default convolution
@@ -159,6 +180,12 @@ def run(cfg: RunConfig, build: Callable[[RunConfig, torch.device, Any], Workload
         model_flops_per_step=parts.flops_per_step if dev.type == "cuda" else None,
         history=True)
     callbacks: list[cb.Callback] = [metrics_logger, cb.NaNGuard(), *extra_callbacks]
+    evaluator = None
+    if (parts.eval_fn is not None and parts.eval_dataset_fn is not None
+            and cfg.train.eval_batches > 0):
+        evaluator = ShardedEvaluator(parts.eval_fn, mesh)
+        if cfg.train.eval_every > 0:
+            callbacks.append(_EvalCallback(cfg, parts, evaluator))
     step_fn = make_train_step(parts.loss_fn, StepOptions(
         grad_accum_steps=cfg.train.grad_accum_steps,
         compute_grad_norm=cfg.train.debug_metrics,
@@ -168,8 +195,54 @@ def run(cfg: RunConfig, build: Callable[[RunConfig, torch.device, Any], Workload
     data = Prefetcher(parts.dataset_fn(state.step), depth=2, transform=DevicePut(dev))
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
+    eval_metrics = None
     try:
         state = trainer.fit(data, num_steps=cfg.train.num_steps)
+        if evaluator is not None:
+            eval_metrics = evaluate(evaluator, trainer.state, parts, cfg.train.eval_batches)
+            if cluster.is_chief():
+                logger.info("final eval: %s", eval_metrics)
     finally:
         torch.backends.cudnn.deterministic = deterministic
-    return RunResult(state, metrics_logger.history, dev, mesh)
+    return RunResult(state, metrics_logger.history, dev, mesh, eval_metrics)
+
+
+def evaluate(evaluator: ShardedEvaluator, state, parts: WorkloadParts,
+             num_batches: int) -> dict:
+    """Distributed eval of ``state`` over the evaluator's mesh:
+    ``num_batches`` of the workload's eval stream, every summed statistic
+    reduced bit-exactly (``train/evaluation.py``), ratios derived by
+    ``derive_metrics``."""
+    totals = evaluator.run(state, parts.eval_dataset_fn(num_batches), num_batches,
+                           step=int(state.step))
+    return derive_metrics(totals)
+
+
+def evaluate_from_checkpoint(cfg: RunConfig, build, num_batches: int | None = None) -> dict:
+    """Eval of a restored checkpoint: needs ``train/checkpoint.py``."""
+    raise NotImplementedError("evaluate_from_checkpoint: train/checkpoint.py is not ported "
+                              "yet (ROADMAP Queue A item 2.3)")
+
+
+class _EvalCallback(cb.Callback):
+    """A distributed eval every ``train.eval_every`` steps. Its wall time
+    goes to every ``note_pause``-aware callback, so the cadence meters
+    (steps/s, examples/s, MFU) measure the train loop, not the pauses."""
+
+    def __init__(self, cfg: RunConfig, parts: WorkloadParts, evaluator: ShardedEvaluator,
+                 clock=time.perf_counter):
+        self.cfg, self.parts, self.evaluator = cfg, parts, evaluator
+        self.clock = clock
+
+    def on_step_end(self, trainer, step, metrics):
+        if step % self.cfg.train.eval_every == 0:
+            t0 = self.clock()
+            m = evaluate(self.evaluator, trainer.state, self.parts,
+                         self.cfg.train.eval_batches)
+            pause = self.clock() - t0
+            for other in trainer.callbacks:
+                note = getattr(other, "note_pause", None)
+                if note is not None:
+                    note(pause)
+            if cluster.is_chief():
+                logger.info("eval @ step %d: %s", step, m)

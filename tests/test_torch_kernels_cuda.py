@@ -223,7 +223,9 @@ def test_engine_on_card_matches_engine_on_cpu(card):
 #: ragged last tile and a kv_mask, the same with no mask (no tile masked),
 #: an Sq smaller than one CTA's rows (causal, q_offset > 0), and D=128 with
 #: Sq no multiple of the row tile; the bf16 dQ kernel (the forward's row
-#: tiles, 32-key tiles through a 3- or 2-stage ring) meets the same edges
+#: tiles, 32-key tiles through a 3- or 2-stage ring) meets the same edges;
+#: last, BERT's attention: S=512, non-causal, the kv_mask of a padded batch
+#: (each row a valid prefix of 384-512 keys, the last row none)
 FLASH_CASES = [
     (2, 3, 128, 128, 64, True, False),
     (2, 3, 128, 128, 64, False, True),
@@ -241,6 +243,7 @@ FLASH_CASES = [
     (1, 2, 96, 512, 64, False, False),
     (2, 3, 20, 300, 64, True, True),
     (1, 3, 333, 333, 128, True, True),
+    (2, 2, 512, 512, 64, False, "padded"),
 ]
 
 #: relative L2 error of dq, dk, dv against the plain version, beside the
@@ -260,12 +263,17 @@ FLASH_FWD_REL_L2 = {torch.float32: 1e-5, torch.bfloat16: 3e-3}
 def _flash_inputs(rng, card, dtype, B, H, Sq, Sk, D, masked):
     """q/k/v as the model makes them — [B,S,H,D] viewed as [B,H,S,D] — and
     a kv_mask whose last batch row attends nothing (with masked="tiles",
-    keys 128..255 attend in no row either)."""
+    keys 128..255 attend in no row either; with masked="padded", each
+    other row attends a valid prefix of 384-512 keys)."""
     f = lambda *s: torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(card)  # noqa: E731
     q, k, v, dout = (t.to(dtype).transpose(1, 2) for t in
                      (f(B, Sq, H, D), f(B, Sk, H, D), f(B, Sk, H, D), f(B, Sq, H, D)))
     mask = None
-    if masked:
+    if masked == "padded":
+        lens = rng.integers(min(384, Sk), Sk + 1, B)
+        lens[-1] = 0
+        mask = torch.from_numpy(np.arange(Sk)[None, :] < lens[:, None]).to(card)
+    elif masked:
         mask = torch.from_numpy(rng.random((B, Sk)) > 0.25).to(card)
         mask[-1] = False
         if masked == "tiles":
@@ -475,6 +483,51 @@ def test_training_steps_on_card_match_the_cpu(card):
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
     for (name, p), q in zip(gmodel.named_parameters(), wmodel.parameters()):
         torch.testing.assert_close(p.detach().cpu(), q.detach(), atol=1e-4, rtol=1e-4,
+                                   msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.cuda
+def test_bert_step_on_card_flash_matches_dense(card):
+    """One adamw step of a tiny f32 post-LN BERT (head_dim 64, the gathered
+    MLM head) on a padded batch — each row a valid prefix of 40-96 tokens,
+    the last row none and its labels out of the loss — with the flash
+    kernels (non-causal, with the kv_mask) and with dense attention, from
+    the same weights: the same loss and parameters (f32, other summation
+    order: 1e-4); the flash step launched each kernel once a layer."""
+    from distributed_tensorflow_tpu_torch.data.text import (
+        IGNORE_INDEX, SyntheticMLM, TextDataConfig)
+    from distributed_tensorflow_tpu_torch.train import (
+        OptimizerConfig, init_train_state, make_optimizer, make_train_step)
+
+    base = dict(vocab_size=256, max_len=96, num_layers=2, d_model=128, num_heads=2,
+                d_ff=256, dropout=0.0, dtype="float32", causal=False, pre_ln=False)
+    params = tfm.init_params(tfm.TransformerConfig(**base), seed=0, device="cpu",
+                             trainable=True)
+    batch = SyntheticMLM(TextDataConfig(global_batch_size=4, seq_len=96, vocab_size=256,
+                                        max_predictions=8)).batch(0)
+    rng = np.random.default_rng(0)
+    lens = np.array([96, 40, 71, 0])
+    batch["attention_mask"] = (np.arange(96)[None] < lens[:, None]).astype(np.int32)
+    batch["masked_positions"] = np.stack([np.sort(rng.choice(max(n, 8), 8, replace=False))
+                                          for n in lens]).astype(np.int32)
+    batch["masked_labels"][-1] = IGNORE_INDEX
+    runs = []
+    for impl in ("flash", "dense"):
+        cfg = tfm.TransformerConfig(**base, attention_impl=impl)
+        model = tfm.build(cfg, params, card, trainable=True)
+        state = init_train_state(model, make_optimizer(
+            OptimizerConfig(name="adamw", learning_rate=1e-3, weight_decay=0.01),
+            model.parameters()))
+        step = make_train_step(tfm.mlm_loss_fn(model))
+        before = fa.flash_fwd.launches, fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches
+        state, metrics = step(state, {k: torch.from_numpy(v).to(card) for k, v in batch.items()})
+        after = fa.flash_fwd.launches, fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches
+        runs.append((float(metrics["loss"]), model, [a - b for a, b in zip(after, before)]))
+    (got, gmodel, glaunch), (want, wmodel, wlaunch) = runs
+    assert glaunch == [2, 2, 2] and wlaunch == [0, 0, 0]
+    assert np.isfinite(got) and abs(got - want) <= 1e-4
+    for (name, p), q in zip(gmodel.named_parameters(), wmodel.parameters()):
+        torch.testing.assert_close(p.detach(), q.detach(), atol=1e-4, rtol=1e-4,
                                    msg=lambda m: f"{name}: {m}")
 
 
@@ -1183,7 +1236,9 @@ def test_dp_resnet_steps_on_card_equal_one_process(card, tmp_path, backend, card
     (on the CPU it reads median 1.29 at world 2 and 2.58 at world 4, and
     the ranks with the BN all-reduce removed read median 0.74 and 1.38).
     Both ranks bitwise alike; every rank launched the conv+BN kernels the
-    one process launched."""
+    one process launched. The ranks' ``ShardedEvaluator`` (the gather of
+    host partials: gloo with two ranks on one card, NCCL) is bitwise one
+    process evaluating every rank's rows in rank order."""
     import os
     import sys
 
@@ -1207,7 +1262,7 @@ def test_dp_resnet_steps_on_card_equal_one_process(card, tmp_path, backend, card
     impls = [["fused", "pallas"], ["standard", "xla"]]
     procs = worker.launch({"job": "resnet", "device": "cuda", "out": str(tmp_path),
                            "inputs": inputs, "cfg": cfg, "impls": impls,
-                           "backend": backend}, world=world)
+                           "backend": backend, "eval": True}, world=world)
     flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32 = True, False
     rank0 = [{k: v[:16 // world] for k, v in b.items()} for b in batches]
@@ -1246,3 +1301,12 @@ def test_dp_resnet_steps_on_card_equal_one_process(card, tmp_path, backend, card
             for key in ranks[0]:
                 np.testing.assert_array_equal(ranks[0][key], rank[key], err_msg=key)
     assert one["fused/pallas"]["launches"]["conv_bn_fwd"] == 2 * 12
+    # the sharded evaluator on the ranks (the fused model from the initial
+    # weights, the two global batches) is bitwise one process evaluating
+    # every rank's rows in rank order
+    for rank in ranks:
+        keys = [k[len("eval/serial/"):] for k in rank if k.startswith("eval/serial/")]
+        assert sorted(keys) == ["correct", "count", "loss_sum", "top5_correct"]
+        for k in keys:
+            assert rank[f"eval/sharded/{k}"].tobytes() == rank[f"eval/serial/{k}"].tobytes(), k
+        assert float(rank["eval/sharded/count"]) == 2 * 16

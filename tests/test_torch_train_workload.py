@@ -200,7 +200,7 @@ def test_run_workload_steps_with_deterministic_cudnn_and_restores_it(monkeypatch
     ("--data.dataset=records:/tmp/r", "records"),
     ("--data.dataset=jpeg:/tmp/j", "jpeg"),
     ("--data.augment=crop_flip", "augment"),
-    ("--data.eval_dataset=synthetic", "evaluation"),
+    ("--data.eval_dataset=synthetic", "does not support data.eval_dataset"),
     ("--data.channels=1", "3 channels"),
     ("--model.block_impl=pallas", "block_impl"),
     ("--mesh.fsdp=2", "more than one"),

@@ -4,8 +4,9 @@ weights: two prefill chunks, a second sequence's chunk, decode steps
 with an idle slot, and a speculative-verify-shaped step, through the
 paged pool at trimmed and full table widths. Logits of every row and
 the whole pool after every step agree in f32 to atol 1e-4 (same math,
-other summation order), for ``fused_ln_matmul`` False and True, and for
-each of the port's attention paths."""
+other summation order), for ``fused_ln_matmul`` False and True, for a
+causal post-LN model (``embed_ln``, the post-LN blocks, no ``final_ln``),
+and for each of the port's attention paths."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -53,9 +54,12 @@ def _steps():
     ]
 
 
-@pytest.fixture(scope="module", params=[False, True], ids=["plain_ln", "fused_ln"])
+@pytest.fixture(scope="module", params=[dict(fused_ln_matmul=False),
+                                        dict(fused_ln_matmul=True),
+                                        dict(pre_ln=False)],
+                ids=["plain_ln", "fused_ln", "post_ln"])
 def jax_run(request):
-    jcfg = H.jax_cfg(paged_attention_impl="gather", fused_ln_matmul=request.param)
+    jcfg = H.jax_cfg(paged_attention_impl="gather", **request.param)
     params = H.params_np(jcfg)
     model = jtfm.Transformer(jcfg)
     apply = jax_apply(model)
@@ -100,8 +104,8 @@ def test_paged_forward_matches_jax(jax_run, impl):
 
 def test_port_config_and_weights_contract():
     """gpt_small has the published shape; the converter transposes flax
-    [in, out] kernels into [out, in] weights; only the causal pre-LN
-    decoder is ported."""
+    [in, out] kernels into [out, in] weights; a post-LN model has an
+    embed_ln and no final_ln, and the fused LN+matmul refuses it."""
     from distributed_tensorflow_tpu_torch.models import transformer as ttfm
 
     g = ttfm.gpt_small()
@@ -113,5 +117,7 @@ def test_port_config_and_weights_contract():
     model = from_jax_params(params, H.port_cfg(jcfg), device="cpu")
     np.testing.assert_array_equal(model.layers[1].mlp_in.weight.numpy(),
                                   params["layer_1"]["mlp_in"]["kernel"].T)
-    with pytest.raises(ValueError, match="pre-LN"):
-        ttfm.Transformer(H.port_cfg(H.jax_cfg(pre_ln=False)))
+    post = ttfm.Transformer(H.port_cfg(H.jax_cfg(pre_ln=False)), device="meta")
+    assert hasattr(post, "embed_ln") and not hasattr(post, "final_ln")
+    with pytest.raises(ValueError, match="pre_ln=True"):
+        ttfm.Transformer(H.port_cfg(H.jax_cfg(pre_ln=False, fused_ln_matmul=True)))

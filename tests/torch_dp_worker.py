@@ -17,12 +17,22 @@ exits non-zero on any failure. The spec's ``job``:
   launches of its steps. With ``runner``: also ``run_workload(
   "resnet50_imagenet", runner)`` (the runner's cluster, mesh, Prefetcher
   and replicated weights) and the check that every rank ends with the same
-  weights.
+  weights. With ``eval``: the ``ShardedEvaluator`` on the first impl's
+  model from ``sd`` over the global batches, and one process evaluating
+  every rank's rows in rank order (``eval_both``).
+- ``"bert"``: a Transformer of ``cfg`` (the port's config fields) built
+  from ``sd`` in ``inputs``, stepped with adamw (``optimizer``) on this
+  rank's rows of each global batch ``train<i>/<key>`` (``bert_steps``); it
+  saves the losses and the parameters after the steps, then evaluates the
+  global batches ``eval<i>/<key>`` with ``mlm_eval_fn`` both ways
+  (``eval_both``). With ``dropout``: the same steps again from ``sd`` at
+  that dropout rate (``dropout/losses``, ``dropout/state/<name>``).
 - ``"parallel"``: the collectives, the differentiable all-reduce, the
   divergence check, ``broadcast_from_chief``, ``replicate`` and the
   mesh's refusals, each result saved for the test to hold against numpy.
 
-``train_steps`` is also what the one-process reference runs (no mesh);
+``train_steps`` and ``bert_steps`` are also what the one-process
+references run (no mesh);
 ``launch`` starts the ranks of a spec, ``wait`` collects them and
 ``stop`` kills them.
 """
@@ -123,7 +133,86 @@ def job_resnet(spec: dict, dev, mesh) -> dict:
             "weights after run_workload")
         out["runner/losses"] = np.asarray([r["loss"] for r in res.history])
         out["runner/mesh_data"] = np.asarray(res.mesh.shape["data"])
+    if spec.get("eval"):
+        impl, _, *dtype = spec["impls"][0]
+        run_cfg = dataclasses.replace(cfg, block_impl=impl,
+                                      dtype=dtype[0] if dtype else cfg.dtype)
+        model = resnet.build(run_cfg, {k: torch.as_tensor(v) for k, v in sd.items()}, dev, mesh)
+        out.update(eval_both(model, common.classification_eval_fn(model), batches, dev, mesh))
     return out
+
+
+def eval_both(model, eval_fn, batches: list[dict], device, mesh) -> dict:
+    """``ShardedEvaluator`` totals over this rank's rows of each global
+    batch (``eval/sharded/<key>``), and one process evaluating every rank's
+    rows of each batch in rank order with the float64 host sums of the
+    serial evaluator (``eval/serial/<key>``)."""
+    from distributed_tensorflow_tpu_torch.obs.registry import Registry
+    from distributed_tensorflow_tpu_torch.parallel.sharding import put_host_batch
+    from distributed_tensorflow_tpu_torch.train.evaluation import ShardedEvaluator
+
+    state = tstep.TrainState(step=0, model=model, optimizer=None, generator=None)
+    evaluator = ShardedEvaluator(eval_fn, mesh, registry=Registry())
+    sharded = evaluator.run(state, [shard_host_batch(b, mesh) for b in batches])
+    world = evaluator.shards
+    serial: dict = {}
+    model.eval()
+    for b in batches:
+        per = len(next(iter(b.values()))) // world
+        for r in range(world):
+            chunk = put_host_batch({k: v[r * per:(r + 1) * per] for k, v in b.items()}, device)
+            with torch.no_grad():
+                for k, v in eval_fn(chunk).items():
+                    serial[k] = serial.get(k, 0.0) + np.asarray(v.cpu().numpy(), np.float64)
+    return {**{f"eval/sharded/{k}": np.asarray(v) for k, v in sharded.items()},
+            **{f"eval/serial/{k}": np.asarray(v) for k, v in serial.items()}}
+
+
+def job_bert(spec: dict, dev, mesh) -> dict:
+    from distributed_tensorflow_tpu_torch.models import transformer as ttfm
+
+    data = np.load(spec["inputs"])
+    sd = {k[3:]: torch.as_tensor(data[k]) for k in data.files if k.startswith("sd/")}
+
+    def batches(prefix):
+        n = len({k.split("/")[0] for k in data.files if k.startswith(prefix)})
+        return [{k.split("/")[1]: data[k] for k in data.files if k.startswith(f"{prefix}{i}/")}
+                for i in range(n)]
+
+    cfg = ttfm.TransformerConfig(**spec["cfg"])
+    res = bert_steps(cfg, sd, batches("train"), spec["optimizer"], dev, mesh)
+    out = {"losses": res["losses"], **{f"state/{k}": v for k, v in res["state"].items()}}
+    out.update(eval_both(res["model"], ttfm.mlm_eval_fn(res["model"]), batches("eval"), dev,
+                         mesh))
+    if spec.get("dropout"):
+        res = bert_steps(dataclasses.replace(cfg, dropout=spec["dropout"]), sd,
+                         batches("train"), spec["optimizer"], dev, mesh)
+        out["dropout/losses"] = res["losses"]
+        out.update({f"dropout/state/{k}": v for k, v in res["state"].items()})
+    return out
+
+
+def bert_steps(cfg, sd: dict, batches: list[dict], optimizer: dict, device, mesh=None) -> dict:
+    """``len(batches)`` steps of a Transformer of ``cfg`` from state dict
+    ``sd`` with ``optimizer`` and ``mlm_loss_fn`` on ``device``: with
+    ``mesh``, each batch is the global batch and this rank steps on its
+    rows. Returns the losses, the state dict after the steps (numpy) and
+    the model."""
+    from distributed_tensorflow_tpu_torch.models import transformer as ttfm
+
+    model = ttfm.build(cfg, {k: torch.as_tensor(v) for k, v in sd.items()}, device,
+                       trainable=True)
+    opt = topt.make_optimizer(topt.OptimizerConfig(**optimizer), model.parameters())
+    state = tstep.init_train_state(model, opt)
+    step = tstep.make_train_step(ttfm.mlm_loss_fn(model), mesh=mesh)
+    losses = []
+    for b in batches:
+        rows = shard_host_batch(b, mesh) if mesh is not None else b
+        state, m = step(state, {k: torch.as_tensor(v).to(device) for k, v in rows.items()})
+        losses.append(float(m["loss"]))
+    return {"losses": np.asarray(losses), "model": model,
+            "state": {k: v.detach().float().cpu().numpy()
+                      for k, v in model.state_dict().items()}}
 
 
 def job_parallel(spec: dict, dev, mesh) -> dict:
@@ -269,8 +358,8 @@ def main(spec_path: str) -> int:
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cudnn.deterministic = True
         mesh = build_mesh(MeshSpec(data=-1), dev)
-        out = {"job_resnet": job_resnet, "job_parallel": job_parallel}[f"job_{spec['job']}"](
-            spec, dev, mesh)
+        jobs = {"job_resnet": job_resnet, "job_bert": job_bert, "job_parallel": job_parallel}
+        out = jobs[f"job_{spec['job']}"](spec, dev, mesh)
         np.savez(os.path.join(spec["out"], f"rank{cluster.process_index()}.npz"), **out)
     finally:
         cluster.shutdown()
