@@ -138,7 +138,28 @@ when any phase fails:
    batch (valid lengths 384-512, one row with none, kept out of the loss)
    and one f32 step of each, within the bf16 and f32 gates; print step ms,
    tokens/s, MFU, peak memory and the eval metrics;
-9. print the ``kernels`` JSON line (twelve entries: ``ln_matmul`` is the
+9. checkpoint-restart (``CKPT_*``): (a) ``gpt_lm`` at phase 5b's setting
+   (fused_ln_matmul, the pallas backward, flash; the fixed corpus) with
+   ``--checkpoint.directory``, async saves every 2 steps, 2 kept: a
+   straight run of 6 steps with a final eval of 2 batches; a child
+   process on this card (``tests/torch_dp_worker.py``'s ``ckpt`` job)
+   killed by an ``AsyncCommitKill`` inside step 4's commit (it must die by
+   SIGKILL, leave ``.pending/4`` and step 2 the newest); a resume here from
+   step 2 with a ``Sigterm`` after step 3 (a clean stop on a save at 3),
+   and a second resume to 6: the losses of steps 3-6 and every parameter
+   and Adam moment bitwise the straight run's, each attempt launching
+   phase 5b's count a step; ``evaluate_from_checkpoint`` of the straight
+   run's step 6 bitwise its final eval; a ``truncate_shard`` of step 6 and
+   ``restore(fallback=True)`` quarantining it and restoring step 4
+   bitwise the straight run's; bytes a step dir, the snapshot stall, the
+   async commit latency, a timed sync save and restore (the write rate is
+   the host disk's); (b) ``resnet50_imagenet`` fused + pallas at batch 256
+   on one SyntheticClassification batch: 4 straight steps against 2, a
+   save, a restore in a fresh ``run_workload`` and 2 more — parameters,
+   BN running statistics and the momentum trace bitwise, the conv+BN
+   launches the rule's a step. It fails unless the checkpoint IO runs
+   through the native library;
+10. print the ``kernels`` JSON line (twelve entries: ``ln_matmul`` is the
    serving forward at M=8, ``ln_matmul_train`` the tiled forward at
    M=8192), then the ``ok`` line last.
 
@@ -1929,30 +1950,34 @@ def phase_train_fused(torch, np, card, data, flash):
     return out
 
 
-def phase_train(torch, np, card):
-    log(f"phase 5: train gpt_lm (gpt_small, S=1024, bf16, random weights from seed 0, "
-        f"SyntheticLM tokens, adamw at constant lr 3e-4, dropout 0.1 — a smoke setting) "
-        f"through run_workload, flash kernels vs no kernel; on {card}")
+def lm_corpus(np, path: str) -> str:
+    """Phase 5's fixed corpus, written to ``path`` as a token file: on the
+    SyntheticLM stream every step brings 8k fresh next-token pairs of a
+    50k-entry map, so 6 steps do not lower the loss (on an H100 it stayed
+    within +-0.01 of 10.97 at lr 3e-4; PERF.md). The smoke therefore
+    trains on SyntheticLM's first 8 sequences: the steps revisit their
+    pairs, and the loss falls if the backward is right."""
     import dataclasses
-    import tempfile
 
     from distributed_tensorflow_tpu_torch.data.text import SyntheticLM
     from distributed_tensorflow_tpu_torch.utils.config import apply_overrides
     from distributed_tensorflow_tpu_torch.workloads import gpt_lm
 
-    # On the SyntheticLM stream every step brings 8k fresh next-token pairs
-    # of a 50k-entry map, so 6 steps do not lower the loss (on an H100 it
-    # stayed within +-0.01 of 10.97 at lr 3e-4; PERF.md). The smoke
-    # therefore trains on a fixed corpus of SyntheticLM's first 8
-    # sequences, written as a token file: the steps revisit its pairs, and
-    # the loss falls if the backward is right.
     data_cfg = apply_overrides(gpt_lm.default_config(), TRAIN_OVERRIDES).data
     corpus = SyntheticLM(dataclasses.replace(data_cfg, global_batch_size=8)).batch(0)
-    tmp = tempfile.TemporaryDirectory()
-    path = os.path.join(tmp.name, "corpus.npy")
     np.save(path, np.append(corpus["input_ids"].reshape(-1), 0).astype(np.int32))
     log(f"  corpus: SyntheticLM batch 0 ({corpus['input_ids'].shape} tokens) as tokens:{path}")
-    data = [f"--data.dataset=tokens:{path}"]
+    return path
+
+
+def phase_train(torch, np, card):
+    log(f"phase 5: train gpt_lm (gpt_small, S=1024, bf16, random weights from seed 0, "
+        f"SyntheticLM tokens, adamw at constant lr 3e-4, dropout 0.1 — a smoke setting) "
+        f"through run_workload, flash kernels vs no kernel; on {card}")
+    import tempfile
+
+    tmp = tempfile.TemporaryDirectory()
+    data = [f"--data.dataset=tokens:{lm_corpus(np, os.path.join(tmp.name, 'corpus.npy'))}"]
     with tmp:
         passes = {impl: train_pass(torch, np, impl, extra=data) for impl in ("flash", "dense")}
         flash, dense = passes["flash"], passes["dense"]
@@ -2812,6 +2837,325 @@ def phase_bert(torch, np, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: checkpoint-restart on the card
+# ---------------------------------------------------------------------------
+
+#: phase 9a: phase 5b's gpt_lm setting (gpt_small, S=1024, bf16, the fixed
+#: corpus, global batch 8, adamw at a constant lr, fused_ln_matmul with the
+#: pallas backward, flash), checkpoints every 2 steps, the newest 2 kept
+CKPT_STEPS = 6
+CKPT_OVERRIDES = ["--model.attention_impl=flash", "--data.global_batch_size=8",
+                  "--model.fused_ln_matmul=true", "--checkpoint.save_interval_steps=2",
+                  "--checkpoint.max_to_keep=2", f"--train.num_steps={CKPT_STEPS}"]
+#: the straight run's final eval, held bitwise to evaluate_from_checkpoint
+CKPT_EVAL_BATCHES = 2
+#: the AsyncCommitKill child (tests/torch_dp_worker.py's "ckpt" job) dies in
+#: this step's commit; the resumed run gets a SIGTERM after CKPT_SIGTERM_AT
+CKPT_KILL_AT, CKPT_SIGTERM_AT = 4, 3
+CKPT_CHILD_TIMEOUT_S = 300
+#: phase 9b: phase 6's ResNet-50 setting (fused + pallas, batch 256), one
+#: SyntheticClassification batch as an npz: straight steps against half of
+#: them, a save, a restore in a fresh run_workload and the other half
+CKPT_RESNET_STEPS = 4
+
+
+def lm_launch_rule(cfg) -> dict[str, int]:
+    """Launches a step of phase 5b's fused + pallas pass (and of phase 9a):
+    each flash kernel once a layer, the LN+matmul forward, dx and dw at q,
+    k, v and mlp_in of every layer."""
+    return {**{n: cfg.num_layers for n in FLASH_NAMES},
+            **{n: 4 * cfg.num_layers for n in LN_NAMES}}
+
+
+def ckpt_pass(torch, workload, overrides, counters, extra_callbacks=()):
+    """One ``run_workload`` with ``counters``' launch counts set to 0 just
+    before it and read when its steps end (before any eval)."""
+    from distributed_tensorflow_tpu_torch.train import callbacks as tcb
+    from distributed_tensorflow_tpu_torch.workloads import run_workload
+
+    seen = {}
+
+    class StepsEnd(tcb.Callback):
+        def on_train_end(self, trainer):
+            seen.update({n: k.launches for n, k in counters.items()})
+
+    torch.cuda.synchronize()
+    for k in counters.values():
+        k.launches = 0  # main path starts
+    t0 = time.perf_counter()
+    res = run_workload(workload, overrides, device=DEVICE,
+                       extra_callbacks=[StepsEnd(), *extra_callbacks])
+    torch.cuda.synchronize()
+    return res, seen, time.perf_counter() - t0  # main path read: seen
+
+
+def state_diff(torch, a, b) -> list[str]:
+    """The checkpoint leaves (``train/step.state_leaves``) in which states
+    ``a`` and ``b`` differ, bit for bit."""
+    from distributed_tensorflow_tpu_torch.train.step import state_leaves
+
+    la, lb = dict(state_leaves(a)), dict(state_leaves(b))
+    if la.keys() != lb.keys():
+        return sorted(set(la) ^ set(lb))
+    return [n for n in la if la[n].dtype != lb[n].dtype or not torch.equal(la[n], lb[n])]
+
+
+def steps_on_disk(d) -> list[int]:
+    return sorted(int(n) for n in os.listdir(d) if n.isdigit())
+
+
+def hist_read(name):
+    """(count, sum) of a histogram of the process registry."""
+    from distributed_tensorflow_tpu_torch.obs.registry import default_registry
+
+    h = default_registry().histogram(name)
+    return h.count, h.sum
+
+
+def gate_resume(torch, tag, straight, parts, resumed, rule):
+    """``resumed`` (the last attempt, after ``parts``) against the straight
+    run: per-step losses and every state leaf bit for bit, and each
+    attempt's launches ``rule`` a step."""
+    hist = [h for p in parts for h in p[0].history]
+    got = {h["step"]: h["loss"] for h in hist}
+    want = {h["step"]: h["loss"] for h in straight.history}
+    if [h["step"] for h in hist] != sorted(got) or any(got[k] != want[k] for k in got):
+        raise SmokeFailure(f"phase 9 {tag}: resumed losses {got} differ from the straight run's "
+                           f"{want}")
+    diff = state_diff(torch, resumed.state, straight.state)
+    if diff:
+        raise SmokeFailure(f"phase 9 {tag}: the resumed state differs from the straight run's "
+                           f"in {len(diff)} leaves: {diff[:6]}")
+    for p in parts:
+        steps = len(p[0].history)
+        if p[1] != {n: c * steps for n, c in rule.items()}:
+            raise SmokeFailure(f"phase 9 {tag}: an attempt of {steps} steps launched {p[1]}, "
+                               f"the rule is {rule} a step")
+    return {"steps": sorted(got), "losses": [got[k] for k in sorted(got)]}
+
+
+def ckpt_gpt(torch, np, root):
+    """Phase 9a: gpt_lm straight against killed + preempted + resumed."""
+    import signal
+
+    from distributed_tensorflow_tpu_torch import resilience as rz
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+    from distributed_tensorflow_tpu_torch.ops import fused_ln_matmul as fln
+    from distributed_tensorflow_tpu_torch.train import checkpoint as tck
+    from distributed_tensorflow_tpu_torch.utils.config import apply_overrides
+    from distributed_tensorflow_tpu_torch.workloads import gpt_lm, runner
+
+    counters = {**{n: getattr(fa, n) for n in FLASH_NAMES}, **fln.KERNELS}
+    corpus = lm_corpus(np, os.path.join(root, "corpus.npy"))
+    base = TRAIN_OVERRIDES + CKPT_OVERRIDES + [f"--data.dataset=tokens:{corpus}"]
+    dir_a, dir_b = os.path.join(root, "straight"), os.path.join(root, "resumed")
+    cfg_a = apply_overrides(gpt_lm.default_config(), base + [
+        f"--checkpoint.directory={dir_a}", f"--train.eval_batches={CKPT_EVAL_BATCHES}"])
+    rule = lm_launch_rule(cfg_a.model)
+    resumed_args = base + [f"--checkpoint.directory={dir_b}"]
+    out, copies = {}, []
+    snapshot = tck._snapshot
+
+    def timed_snapshot(*args):  # each save's host copy, in order
+        t0 = time.perf_counter()
+        snap = snapshot(*args)
+        copies.append(1e3 * (time.perf_counter() - t0))
+        return snap
+
+    with fused_bwd("pallas"):
+        snap0, commit0 = hist_read(tck.CKPT_SNAPSHOT_SECONDS), hist_read(
+            tck.CKPT_ASYNC_COMMIT_SECONDS)
+        with mock.patch.object(tck, "_snapshot", timed_snapshot):
+            a, a_launch, a_wall = ckpt_pass(torch, "gpt_lm", base + [
+                f"--checkpoint.directory={dir_a}", f"--train.eval_batches={CKPT_EVAL_BATCHES}"],
+                counters)
+        snap, commit = hist_read(tck.CKPT_SNAPSHOT_SECONDS), hist_read(
+            tck.CKPT_ASYNC_COMMIT_SECONDS)
+        n_async = snap[0] - snap0[0]
+        out.update(snapshot_ms=1e3 * (snap[1] - snap0[1]) / max(n_async, 1),
+                   host_copy_ms=copies,
+                   commit_s=(commit[1] - commit0[1]) / max(commit[0] - commit0[0], 1),
+                   async_saves=n_async, straight_wall_s=a_wall)
+        log(f"  9a straight: {CKPT_STEPS} steps, losses {[round(h['loss'], 5) for h in a.history]}"
+            f", {n_async} async saves, steps on disk {steps_on_disk(dir_a)}, launches {a_launch}, "
+            f"eval {a.eval_metrics}, wall {a_wall:.1f} s")
+        if a_launch != {n: c * CKPT_STEPS for n, c in rule.items()}:
+            raise SmokeFailure(f"phase 9a straight run: launches {a_launch}, rule {rule} a step")
+
+        # a child on this card dies by SIGKILL inside step 4's commit
+        worker = load_dp_worker()
+        child = os.path.join(root, "child")
+        os.makedirs(child)
+        t0 = time.perf_counter()
+        (proc, child_log), = worker.launch(
+            {"job": "ckpt", "device": DEVICE, "out": child, "workload": "gpt_lm",
+             "overrides": resumed_args + ["--train.eval_batches=0"],
+             "runs": [{"num_steps": CKPT_STEPS, "kill_at": CKPT_KILL_AT}]}, world=1)
+        try:
+            code = proc.wait(CKPT_CHILD_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            code = None
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            child_log.close()
+        tail = open(os.path.join(child, "rank0.log")).read()[-3000:]
+        if code != -signal.SIGKILL:
+            raise SmokeFailure(f"phase 9a: the AsyncCommitKill child exited {code}, not by "
+                               f"SIGKILL:\n{tail}")
+        pending = sorted(os.listdir(os.path.join(dir_b, tck.PENDING_DIRNAME)))
+        on_disk = steps_on_disk(dir_b)
+        log(f"  9a child killed by SIGKILL in step {CKPT_KILL_AT}'s commit after "
+            f"{time.perf_counter() - t0:.1f} s: .pending {pending}, steps on disk {on_disk}")
+        if pending != [str(CKPT_KILL_AT)] or on_disk[-1] != 2:
+            raise SmokeFailure(f"phase 9a: after the kill .pending holds {pending} and the "
+                               f"newest step is {on_disk}, want [{CKPT_KILL_AT!r}] and 2")
+
+        # resume from 2 here; a SIGTERM after step 3 stops it on a save
+        b1, b1_launch, b1_wall = ckpt_pass(
+            torch, "gpt_lm", resumed_args + ["--train.eval_batches=0"], counters,
+            [rz.FaultPlan((rz.Sigterm(CKPT_SIGTERM_AT),)).callback()])
+        on_disk = steps_on_disk(dir_b)
+        log(f"  9a resume 1 (SIGTERM after step {CKPT_SIGTERM_AT}): steps "
+            f"{[h['step'] for h in b1.history]}, preempted {b1.preempted}, steps on disk "
+            f"{on_disk}, launches {b1_launch}, wall {b1_wall:.1f} s")
+        if not b1.preempted or on_disk[-1] != CKPT_SIGTERM_AT:
+            raise SmokeFailure(f"phase 9a: resume 1 did not stop on a save at step "
+                               f"{CKPT_SIGTERM_AT} (preempted {b1.preempted}, {on_disk})")
+        b2, b2_launch, b2_wall = ckpt_pass(
+            torch, "gpt_lm", resumed_args + ["--train.eval_batches=0"], counters)
+        log(f"  9a resume 2: steps {[h['step'] for h in b2.history]}, launches {b2_launch}, "
+            f"wall {b2_wall:.1f} s")
+        out["gate"] = gate_resume(torch, "9a", a, [(b1, b1_launch), (b2, b2_launch)], b2, rule)
+        del b1
+        log(f"  9a the resumed losses (steps 3-6), parameters and Adam moments are bitwise the "
+            f"straight run's; each attempt launched {rule} a step")
+
+        # evaluate_from_checkpoint on the straight run's newest step
+        ev = runner.evaluate_from_checkpoint(cfg_a, gpt_lm.build, num_batches=CKPT_EVAL_BATCHES,
+                                             device=DEVICE)
+        if ev.pop("step") != CKPT_STEPS or ev != a.eval_metrics:
+            raise SmokeFailure(f"phase 9a: evaluate_from_checkpoint {ev} differs from the "
+                               f"run's own final eval {a.eval_metrics}")
+        log(f"  9a evaluate_from_checkpoint(step {CKPT_STEPS}) == the run's final eval: {ev}")
+
+        # a synchronous save and restore of the step-6 state, timed
+        sync_dir = os.path.join(root, "sync")
+        ck = tck.Checkpointer(tck.CheckpointConfig(directory=sync_dir, async_save=False,
+                                                   save_on_preemption=False))
+        try:
+            t0 = time.perf_counter()
+            ck.save(CKPT_STEPS, a.state, force=True, trigger="final")
+            out["sync_save_s"] = time.perf_counter() - t0
+            d = tck.step_dir(sync_dir, CKPT_STEPS)
+            out["step_bytes"] = sum(os.path.getsize(os.path.join(d, n)) for n in os.listdir(d))
+            out["files"] = len(os.listdir(d))
+            t0 = time.perf_counter()
+            ck.restore(a.state)
+            torch.cuda.synchronize()
+            out["restore_s"] = time.perf_counter() - t0
+        finally:
+            ck.close()
+        out["write_gb_s"] = out["step_bytes"] / out["sync_save_s"] / 1e9
+
+        # a torn newest step: the fallback quarantines 6 and restores 4
+        rz.truncate_shard(dir_b, CKPT_STEPS)
+        cfg_b = apply_overrides(gpt_lm.default_config(), resumed_args +
+                                ["--checkpoint.save_on_preemption=false"])
+        ck_b, ck_a = (tck.Checkpointer(c.checkpoint) for c in (
+            cfg_b, apply_overrides(cfg_a, ["--checkpoint.save_on_preemption=false"])))
+        try:
+            t0 = time.perf_counter()
+            ck_b.restore(b2.state, fallback=True)
+            out["fallback_restore_s"] = time.perf_counter() - t0
+            corrupt = os.listdir(os.path.join(dir_b, tck.CORRUPT_DIRNAME))
+            ck_a.restore(a.state, step=4)
+        finally:
+            ck_b.close()
+            ck_a.close()
+        diff = state_diff(torch, b2.state, a.state)
+        log(f"  9a truncate_shard(step {CKPT_STEPS}) + restore(fallback=True): restored step "
+            f"{b2.state.step}, .corrupt {corrupt}, bitwise the straight run's step 4: "
+            f"{not diff}")
+        if b2.state.step != 4 or corrupt != [str(CKPT_STEPS)] or diff:
+            raise SmokeFailure(f"phase 9a: fallback restored step {b2.state.step}, .corrupt "
+                               f"{corrupt}, differing leaves {diff[:6]}")
+    del a, b2
+    torch.cuda.empty_cache()
+    return out
+
+
+def ckpt_resnet(torch, np, root):
+    """Phase 9b: ResNet-50 fused + pallas, straight against save + restore
+    in a fresh run_workload: parameters, BN running statistics and the
+    momentum trace bitwise."""
+    from distributed_tensorflow_tpu_torch.data.pipeline import SyntheticClassification
+    from distributed_tensorflow_tpu_torch.ops import fused_conv_bn as fcb
+
+    path = os.path.join(root, "images.npz")
+    batch = SyntheticClassification(resnet_run_cfg().data).batch(0)
+    np.savez(path, **batch)
+    base = RESNET_OVERRIDES + ["--model.block_impl=fused", f"--data.dataset=npz:{path}"]
+    ck = [f"--checkpoint.directory={os.path.join(root, 'resnet')}",
+          "--checkpoint.save_interval_steps=2"]
+    half = CKPT_RESNET_STEPS // 2
+    rule = resnet_launch_rule(resnet_run_cfg().model)
+    with fused_bwd("pallas"):
+        s, s_launch, s_wall = ckpt_pass(torch, "resnet50_imagenet", base + [
+            f"--train.num_steps={CKPT_RESNET_STEPS}"], fcb.KERNELS)
+        r1 = ckpt_pass(torch, "resnet50_imagenet", base + ck + [f"--train.num_steps={half}"],
+                       fcb.KERNELS)
+        r2 = ckpt_pass(torch, "resnet50_imagenet", base + ck + [
+            f"--train.num_steps={CKPT_RESNET_STEPS}"], fcb.KERNELS)
+    if s_launch != {n: c * CKPT_RESNET_STEPS for n, c in rule.items()}:
+        raise SmokeFailure(f"phase 9b straight run: launches {s_launch}, rule {rule} a step")
+    gate = gate_resume(torch, "9b", s, [r1, r2], r2[0], rule)
+    log(f"  9b resnet50_imagenet (fused + pallas, batch 256): {CKPT_RESNET_STEPS} straight steps "
+        f"({s_wall:.1f} s) against {half} + save + restore + {CKPT_RESNET_STEPS - half} "
+        f"({r1[2]:.1f} + {r2[2]:.1f} s): losses {gate['losses']}, parameters, BN running "
+        f"statistics and momentum bitwise; each attempt launched {rule} a step")
+    del s, r1, r2
+    torch.cuda.empty_cache()
+    return gate
+
+
+def phase_ckpt(torch, np, card):
+    """Phase 9: checkpoint-restart on the card (module docstring)."""
+    import shutil
+    import tempfile
+
+    from distributed_tensorflow_tpu_torch.runtime import native
+
+    t_phase = time.perf_counter()
+    log(f"phase 9: checkpoint-restart through run_workload: gpt_lm at phase 5b's setting "
+        f"(fused_ln_matmul, pallas backward, flash; saves every 2 steps, 2 kept) killed in a "
+        f"commit, preempted and resumed against a straight run; resnet50_imagenet fused + "
+        f"pallas saved and resumed; on {card}")
+    if not native.available():
+        raise SmokeFailure(f"phase 9: the native IO library is not in use ({native.failure})")
+    log(f"  native IO: {native.library_path()}")
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        out = ckpt_gpt(torch, np, root)
+        out["resnet"] = ckpt_resnet(torch, np, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"  9a checkpoint IO ({card}; write rate of the card machine's host disk, not the "
+        f"card): {out['step_bytes']} bytes a step dir ({out['files']} files), step-boundary "
+        f"snapshot stall {out['snapshot_ms']:.1f} ms (mean of {out['async_saves']} async "
+        f"saves; the host copy of each, in order: "
+        f"{[round(ms, 1) for ms in out['host_copy_ms']]} ms, the first two allocate the "
+        f"pinned buffers), async commit {out['commit_s']:.3f} s (mean "
+        f"ckpt_async_commit_seconds, enqueue to publish, queue wait included), "
+        f"sync save {out['sync_save_s']:.3f} s = {out['write_gb_s']:.3f} GB/s, restore "
+        f"{out['restore_s']:.3f} s, fallback restore {out['fallback_restore_s']:.3f} s; "
+        f"phase 9 wall {out['wall_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phases 3-4: serve gpt_small at full width
 # ---------------------------------------------------------------------------
 
@@ -3104,6 +3448,7 @@ def main() -> int:
         launches.update(resnet["launches"])
         dp = phase_dp(torch, np, smi)
         bert = phase_bert(torch, np, smi)
+        ckpt = phase_ckpt(torch, np, smi)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -3204,6 +3549,13 @@ def main() -> int:
             + (f"{r['library_ms']:.5f} ({r['sdpa_backend']})" if r["library_ms"] is not None
                else "null")
             for n in FLASH_NAMES for case, r in kern[n]["bert"].items()))
+    log(f"checkpoint-restart (phase 9, {ckpt['wall_s']:.1f} s; {smi}): gpt_lm fused + pallas "
+        f"killed in step {CKPT_KILL_AT}'s commit, preempted after step {CKPT_SIGTERM_AT}, "
+        f"resumed: steps {ckpt['gate']['steps']} bitwise the straight run's; resnet50_imagenet "
+        f"steps {ckpt['resnet']['steps']} bitwise; {ckpt['step_bytes']} bytes a gpt_lm step dir, "
+        f"snapshot stall {ckpt['snapshot_ms']:.1f} ms, async commit {ckpt['commit_s']:.3f} s, "
+        f"sync save {ckpt['sync_save_s']:.3f} s ({ckpt['write_gb_s']:.3f} GB/s to the host "
+        f"disk), restore {ckpt['restore_s']:.3f} s")
     log(f"cuda_ms traces kept {PAD_RECORDS[0]} of the {PAD_RECORDS[1]} spin-kernel records "
         f"that opened them")
     log(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s (builds included)")

@@ -6,6 +6,7 @@ from .pipeline import (  # noqa: F401
     DevicePut,
     NpzDataset,
     Prefetcher,
+    RetryingIterator,
     StagedBatch,
     SyntheticClassification,
     batch_rng,

@@ -17,7 +17,8 @@ Queue A item 3.2.
 thread, as the JAX package's does; its transform for the card,
 ``DevicePut``, copies each host batch into a ring of pinned buffers and
 from there to the card on a side stream, so the step's stream only waits
-for the copy's event (``StagedBatch.wait``).
+for the copy's event (``StagedBatch.wait``). ``RetryingIterator`` absorbs
+a transient fault of the source by re-seeking it at the failed index.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from __future__ import annotations
 import dataclasses
 import queue
 import threading
+import time
 from typing import Any, Callable, Iterable, Iterator
 
 import numpy as np
@@ -162,6 +164,52 @@ def make_dataset(cfg: DataConfig, num_batches: int | None = None,
             f"dataset {cfg.dataset.split(':')[0]}: (data/records.py, "
             f"data/jpeg_records.py) is not ported yet (ROADMAP Queue A item 3.2)")
     raise ValueError(f"Unknown dataset '{cfg.dataset}'")
+
+
+class RetryingIterator:
+    """A batch stream that absorbs transient IOError-class faults by
+    RE-SEEKING the source at the failed index (the JAX package's
+    ``RetryingIterator``). Every stream here is a pure function of
+    ``(seed, index)``, so the rebuilt source hands the consumer exactly
+    the batch it was owed: a recovered stream is bitwise the unfaulted one.
+
+    ``make_source(start_index)`` returns an iterable whose first batch is
+    the stream's ``start_index``-th (0-based), e.g. ``lambda i:
+    make_dataset(cfg, index_offset=i)``. Retries per fetch are bounded by
+    ``policy`` (``resilience/retry.py``; counters ``retry_attempts_total{
+    site}`` / ``retry_exhausted_total{site}``); a permanent failure
+    surfaces as ``RetryExhausted`` with the IOError chained.
+    """
+
+    def __init__(self, make_source: Callable[[int], Iterable], policy=None, *,
+                 start_index: int = 0, site: str = "data", registry=None,
+                 clock: Callable[[], float] = time.monotonic,
+                 sleep: Callable[[float], None] = time.sleep):
+        from ..resilience import retry as retry_lib
+
+        self._retry = retry_lib
+        self.policy = policy if policy is not None else retry_lib.RetryPolicy()
+        self.make_source = make_source
+        self.site = site
+        self.registry = registry
+        self.clock = clock
+        self.sleep = sleep
+        #: batches delivered so far (== the next index to fetch)
+        self.index = start_index
+        self._it = iter(make_source(start_index))
+
+    def __iter__(self) -> "RetryingIterator":
+        return self
+
+    def _reseek(self, failures: int, exc: BaseException) -> None:
+        self._it = iter(self.make_source(self.index))
+
+    def __next__(self):
+        batch = self._retry.retry_call(
+            lambda: next(self._it), policy=self.policy, site=self.site,
+            registry=self.registry, clock=self.clock, sleep=self.sleep, on_retry=self._reseek)
+        self.index += 1
+        return batch
 
 
 class Prefetcher:

@@ -6,8 +6,11 @@ obs/goodput.py`` the train loop needs, over the port's own registry:
 - ``note_productive`` / ``note_wasted`` / ``goodput_fraction``: wall
   seconds of steps that advanced training against seconds lost, by
   cause. The port's loop has one cause so far, ``compile_warmup`` (the
-  first steps: kernel builds, library handles); retries, restarts and
-  resizes come with the resilience layer (ROADMAP Queue A).
+  first steps: kernel builds, library handles), ``retry_backoff``
+  (``resilience/retry.py``'s sleeps), ``restart_recovery`` (the
+  ``Supervisor``'s rebuilds and backoffs) and ``async_checkpoint`` (the
+  step-boundary snapshot of an async save); elastic resizes come with the
+  fleet (ROADMAP Queue A item 6).
 
 Exported names (as in the JAX package): ``goodput_productive_seconds_total``
 (counter), ``wasted_seconds_total{cause=...}`` (counter family),
@@ -24,7 +27,11 @@ GOODPUT_FRACTION = "goodput_fraction"
 MFU = "mfu"
 
 WASTE_COMPILE_WARMUP = "compile_warmup"
-WASTE_CAUSES = (WASTE_COMPILE_WARMUP,)
+WASTE_RETRY_BACKOFF = "retry_backoff"
+WASTE_RESTART_RECOVERY = "restart_recovery"
+WASTE_ASYNC_CKPT = "async_checkpoint"
+WASTE_CAUSES = (WASTE_COMPILE_WARMUP, WASTE_RETRY_BACKOFF, WASTE_RESTART_RECOVERY,
+                WASTE_ASYNC_CKPT)
 
 
 def _productive(reg: Registry):

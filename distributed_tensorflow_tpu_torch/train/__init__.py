@@ -1,7 +1,13 @@
 """The ported training engine: optimizers and schedules, the step, the
-callbacks, the loop and the distributed evaluator."""
+callbacks, the loop, checkpointing and the distributed evaluator."""
 
-from . import callbacks  # noqa: F401
+from . import callbacks, checkpoint  # noqa: F401
+from .checkpoint import (  # noqa: F401
+    CheckpointConfig,
+    Checkpointer,
+    PreemptionSaved,
+    init_or_restore,
+)
 from .evaluation import ShardedEvaluator, derive_metrics  # noqa: F401
 from .loop import Trainer  # noqa: F401
 from .optimizers import (  # noqa: F401

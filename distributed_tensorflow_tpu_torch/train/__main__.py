@@ -28,6 +28,12 @@ Usage:
         --train.log_every=1 --train.eval_batches=2 --optimizer.warmup_steps=0 \
         --optimizer.learning_rate=3e-3
 
+Checkpoint and resume: with ``--checkpoint.directory=DIR`` (and e.g.
+``--checkpoint.save_interval_steps=50``) the run saves on that cadence,
+on SIGTERM (a clean stop) and at the end; the same command run again
+restores the newest step in DIR and goes on from there (kill it at any
+point: a step is either whole on disk or not there).
+
 Runs on the GPU unless ``--device cpu`` is given; with no CUDA present
 the GPU default raises. Data-parallel on N cards: ``torchrun
 --nproc_per_node=N -m distributed_tensorflow_tpu_torch.train

@@ -1,9 +1,9 @@
 """Host-loop callbacks — the subset of ``distributed_tensorflow_tpu/train/
 callbacks.py`` the ported loop uses: ``Callback``, ``StopAtStep``,
-``MetricsLogger`` and ``NaNGuard``. Metrics are device scalars and
-reading one waits for the step, so the callbacks that read values do it
-on a cadence (``every_n``). The summary writer, telemetry, watchdog,
-profiler, checkpoint, heartbeat and elastic callbacks come later
+``MetricsLogger``, ``NaNGuard`` and ``CheckpointCallback``. Metrics are
+device scalars and reading one waits for the step, so the callbacks that
+read values do it on a cadence (``every_n``). The summary writer,
+telemetry, watchdog, profiler, heartbeat and elastic callbacks come later
 (ROADMAP Queue A items 2.6 and 6)."""
 
 from __future__ import annotations
@@ -132,3 +132,32 @@ class NaNGuard(Callback):
         if self.fail_fast:
             raise FloatingPointError(msg)
         trainer.request_stop(msg)
+
+
+class CheckpointCallback(Callback):
+    """The CheckpointSaverHook: cadence and retention are the manager's
+    (``train/checkpoint.Checkpointer``); it also saves when training ends
+    cleanly, and on an agreed preemption (``maybe_save`` raises
+    ``PreemptionSaved`` for the loop)."""
+
+    def __init__(self, manager):
+        self.manager = manager
+
+    def on_step_end(self, trainer, step, metrics):
+        self.manager.maybe_save(step, trainer.state)
+
+    def on_train_end(self, trainer):
+        if trainer.failed:
+            # the state may be poisoned or torn: never the latest
+            # checkpoint. The writer is still drained, and its own error
+            # logged, not raised over the failure that ended the run.
+            logger.warning("skipping final checkpoint: training failed")
+            try:
+                self.manager.wait()
+            except Exception:
+                logger.exception("async checkpoint writer also failed during the aborted run")
+            return
+        # the final save commits on this thread; wait() then drains a
+        # cadence commit still in flight and re-raises its stored error
+        self.manager.save(int(trainer.state.step), trainer.state, force=True, trigger="final")
+        self.manager.wait()

@@ -154,6 +154,13 @@ class Optimizer:
         else:
             raise ValueError(f"Unknown optimizer '{cfg.name}'")
 
+    def state_keys(self) -> tuple[str, ...]:
+        """The keys of the torch optimizer's state a parameter holds after
+        the first update (``train/step.py``'s checkpoint leaves)."""
+        if isinstance(self.opt, torch.optim.SGD):
+            return ("momentum_buffer",) if self.cfg.name.lower() == "momentum" else ()
+        return ("exp_avg", "exp_avg_sq", "step")
+
     @torch.no_grad()
     def update(self, grads: Sequence[torch.Tensor]) -> None:
         grads = list(grads)

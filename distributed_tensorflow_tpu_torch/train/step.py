@@ -32,6 +32,20 @@ model and are updated in place by its optimizer.
   read, of the all-reduced loss and gradients, so every rank decides
   alike) and copies the buffers back from a snapshot taken before the
   forward.
+- **The update span**: PyTorch updates in place, so a step that raises
+  partway can leave a torn state (some parameters updated, or BatchNorm
+  buffers moved by a forward whose update never came). ``TrainState.
+  updating`` is True from the step's first in-place write (the forward
+  when the model has buffers, else the optimizer update) until the step
+  is counted; the loop's emergency save refuses a state caught inside it.
+- **Checkpoint leaves**: ``state_leaves`` flattens the state into a fixed
+  order of named tensors — ``step``, ``seed``, ``optimizer/count``, every
+  ``model/<name>`` of ``model.state_dict()`` (parameters and buffers:
+  BatchNorm running statistics), then the optimizer's state
+  ``optimizer/<param index>/<key>`` (Adam's moments and step, the
+  momentum trace) — and ``load_state_leaves`` is its inverse, copying
+  into the state's tensors where they live. The generator needs no leaf:
+  dropout is reseeded from ``step_seed(seed, step)`` every step.
 """
 
 from __future__ import annotations
@@ -60,6 +74,8 @@ class TrainState:
     optimizer: Optimizer
     generator: torch.Generator
     seed: int = 0
+    #: True inside the update span (module docstring): the state is torn
+    updating: bool = False
 
 
 def init_train_state(model: torch.nn.Module, optimizer: Optimizer, seed: int = 0) -> TrainState:
@@ -116,6 +132,8 @@ def make_train_step(loss_fn: LossFn, options: StepOptions = StepOptions(), mesh=
                else state.generator)
         buffers = list(state.model.buffers()) if options.skip_nonfinite else []
         saved = [b.detach().clone() for b in buffers]
+        # a model with buffers writes them in its train forward
+        state.updating = any(True for _ in state.model.buffers())
         if accum == 1:
             loss, aux = loss_fn(batch, gen)
             grads = torch.autograd.grad(loss, params)
@@ -163,9 +181,12 @@ def make_train_step(loss_fn: LossFn, options: StepOptions = StepOptions(), mesh=
                 with torch.no_grad():
                     for b, old in zip(buffers, saved):
                         b.copy_(old)
+                state.updating = False
                 return state, metrics  # nothing updated, step not counted
+        state.updating = True
         state.optimizer.update(grads)
         state.step += 1
+        state.updating = False
         return state, metrics
 
     return train_step
@@ -175,3 +196,69 @@ def step_nonfinite(metrics) -> bool:
     """Host read of the per-step ``nonfinite`` flag (False when absent)."""
     flag = metrics.get("nonfinite")
     return flag is not None and float(flag) != 0.0
+
+
+#: the leaves ahead of the model's, in this order
+HEADER_LEAVES = ("step", "seed", "optimizer/count")
+
+
+def state_leaves(state: TrainState) -> list[tuple[str, torch.Tensor]]:
+    """The state as a fixed order of named tensors (module docstring):
+    the live tensors themselves, not copies."""
+    out = [("step", torch.tensor(state.step, dtype=torch.int64)),
+           ("seed", torch.tensor(state.seed, dtype=torch.int64)),
+           ("optimizer/count", torch.tensor(state.optimizer.count, dtype=torch.int64))]
+    out += [(f"model/{k}", v) for k, v in state.model.state_dict().items()]
+    opt_state = state.optimizer.opt.state_dict()["state"]
+    for i in sorted(opt_state):
+        for k in sorted(opt_state[i]):
+            v = opt_state[i][k]
+            if v is not None:
+                out.append((f"optimizer/{i}/{k}",
+                            v if isinstance(v, torch.Tensor) else torch.tensor(v)))
+    return out
+
+
+def leaf_names(state: TrainState, count: int) -> list[str]:
+    """The names ``state_leaves`` gives for this state's model and
+    optimizer after ``count`` updates (the optimizer holds no state before
+    its first)."""
+    names = [*HEADER_LEAVES, *(f"model/{k}" for k in state.model.state_dict())]
+    if count > 0:
+        keys = state.optimizer.state_keys()
+        names += [f"optimizer/{i}/{k}" for i in range(len(state.optimizer.params))
+                  for k in sorted(keys)]
+    return names
+
+
+def load_state_leaves(state: TrainState, leaves: dict[str, torch.Tensor]) -> TrainState:
+    """Inverse of ``state_leaves``: ``leaves`` (name -> host tensor, every
+    name of ``leaf_names``) copied into ``state`` in place — the model's
+    tensors stay where they live (the card), the fused modules stay the
+    model's, and the optimizer's state goes where its parameters are."""
+    count = int(leaves["optimizer/count"])
+    want = leaf_names(state, count)
+    if sorted(leaves) != sorted(want):
+        raise ValueError(f"checkpoint leaves {sorted(set(leaves) ^ set(want))[:8]} do not "
+                         f"match the state's")
+    with torch.no_grad():
+        model_sd = {k[len("model/"):]: v for k, v in leaves.items() if k.startswith("model/")}
+        state.model.load_state_dict(model_sd, strict=True)
+        opt = state.optimizer.opt
+        sd = opt.state_dict()
+        sd["state"] = {}
+        for name, v in leaves.items():
+            parts = name.split("/")
+            if len(parts) == 3 and parts[0] == "optimizer":
+                i, key = int(parts[1]), parts[2]
+                p = state.optimizer.params[i]
+                # a tensor the optimizer keeps: on its parameter's device, or
+                # (on the CPU, and Adam's step) a copy the optimizer may write
+                sd["state"].setdefault(i, {})[key] = (
+                    v.to(p.device) if p.device.type != "cpu" and key != "step" else v.clone())
+        opt.load_state_dict(sd)
+    state.step = int(leaves["step"])
+    state.seed = int(leaves["seed"])
+    state.optimizer.count = count
+    state.updating = False
+    return state

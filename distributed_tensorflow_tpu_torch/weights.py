@@ -18,11 +18,17 @@ standard or fused: one tree): every conv ``kernel`` HWIO -> OIHW
 ``[in, out]`` -> ``[out, in]``, BatchNorm ``scale``/``bias`` -> ``weight``/
 ``bias`` and ``batch_stats`` ``mean``/``var`` -> ``running_mean``/
 ``running_var``. Nothing here imports jax.
+
+``optimizer_state_from_jax(opt_state_np, optimizer, cfg)`` carries an
+optax state across: adam/adamw's ``mu`` / ``nu`` / ``count`` (and
+momentum's ``trace``) become the port ``Optimizer``'s moments (each tree
+converted like the parameters), its update count and Adam's step, so a
+JAX ``TrainState`` taken at step k continues in the port as in JAX.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Any, Mapping
 
 import numpy as np
 import torch
@@ -113,3 +119,61 @@ def resnet_from_jax(params_np: Mapping, batch_stats_np: Mapping, cfg: resnet.Res
     batch_stats, as f32 masters that require grad."""
     device = resolve_device(device)
     return resnet.build(cfg, resnet_state_dict_from_jax(params_np, cfg, batch_stats_np), device)
+
+
+def _optax_leaves(opt_state: Any) -> dict[str, Any]:
+    """The fields of an optax state (nested tuples and namedtuples of numpy
+    arrays, as ``jax.device_get`` gives them) this port reads: ``mu``,
+    ``nu``, ``trace`` and the first ``count``."""
+    found: dict[str, Any] = {}
+
+    def walk(node):
+        fields = getattr(node, "_fields", None)
+        if fields is not None:
+            for f in fields:
+                v = getattr(node, f)
+                if f in ("mu", "nu", "trace") and f not in found:
+                    found[f] = v
+                elif f == "count" and "count" not in found:
+                    found["count"] = v
+                else:
+                    walk(v)
+        elif isinstance(node, (tuple, list)):
+            for v in node:
+                walk(v)
+
+    walk(opt_state)
+    return found
+
+
+def optimizer_state_from_jax(opt_state_np: Any, model: torch.nn.Module, optimizer) -> None:
+    """Load ``opt_state_np`` (an optax state of the JAX package's
+    ``make_optimizer``, as numpy) into ``optimizer`` (the port's
+    ``train.optimizers.Optimizer`` over ``model``, a ``Transformer`` or a
+    ``resnet.ResNet``), in place: Adam's ``exp_avg`` / ``exp_avg_sq`` /
+    ``step`` from ``mu`` / ``nu`` / ``count``, momentum's
+    ``momentum_buffer`` from ``trace``, and the update count (the
+    schedule's) from ``count``; each moment on its parameter's device."""
+    leaves = _optax_leaves(opt_state_np)
+    if "count" not in leaves:
+        raise ValueError("optax state has no count")
+    keys = optimizer.state_keys()
+    source = {"exp_avg": "mu", "exp_avg_sq": "nu", "momentum_buffer": "trace"}
+    missing = [source[k] for k in keys if k != "step" and source[k] not in leaves]
+    if missing:
+        raise ValueError(f"optax state has no {missing} for optimizer {optimizer.cfg.name!r}")
+    cfg = model.cfg
+    to_sd = ((lambda tree: resnet_state_dict_from_jax(tree, cfg))
+             if isinstance(cfg, resnet.ResNetConfig)
+             else (lambda tree: _state_dict_from_jax(tree, cfg)))
+    trees = {k: to_sd(leaves[source[k]]) for k in keys if k != "step"}
+    names = {id(p): n for n, p in model.named_parameters()}
+    count = int(np.asarray(leaves["count"]))
+    sd = optimizer.opt.state_dict()
+    sd["state"] = {}
+    for i, p in enumerate(optimizer.params if count > 0 else ()):
+        sd["state"][i] = {k: (torch.tensor(float(count)) if k == "step" else
+                              trees[k][names[id(p)]].to(device=p.device, dtype=p.dtype))
+                          for k in keys}
+    optimizer.opt.load_state_dict(sd)
+    optimizer.count = count

@@ -1,7 +1,8 @@
 """Workload runner — the data-parallel subset of ``distributed_tensorflow_tpu/
 workloads/runner.py``: cluster → mesh → config → model on this process's
-card → optimizer → step → prefetched feed → callback loop → distributed
-eval (``train.eval_every`` mid-train passes and a final one, through
+card → optimizer → step → init-or-restore (``checkpoint.directory``) →
+prefetched feed from the restored step → callback loop → distributed eval
+(``train.eval_every`` mid-train passes and a final one, through
 ``train/evaluation.py``'s ``ShardedEvaluator``). Each workload module
 contributes a preset config and a builder; everything else is shared.
 One process per card: under ``torchrun --nproc_per_node=N`` (or with
@@ -11,9 +12,9 @@ rows of the global batch, and only the chief logs.
 
 The config tree keeps the JAX package's section names, so the same
 ``--section.key=value`` overrides parse; a config that asks for what the
-port does not have yet raises with the ROADMAP item named: a checkpoint
-directory, a mesh axis other than ``data`` above 1, a pipeline, a fleet,
-the anomaly defense, sequence parallelism, MoE.
+port does not have yet raises with the ROADMAP item named: a mesh axis
+other than ``data`` above 1, a pipeline, a fleet, the anomaly defense,
+sequence parallelism, MoE.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from ..train import (
     StepOptions,
     Trainer,
     callbacks as cb,
+    checkpoint as ckpt_lib,
     init_train_state,
     derive_metrics,
     make_optimizer,
@@ -60,14 +62,8 @@ class TrainSection:
     debug_metrics: bool = False
     # > 0: clip gradients to this global norm before the optimizer
     clip_grad_norm: float = 0.0
-    # the numeric-anomaly defense needs checkpoints and quarantine
-    # (not ported: ROADMAP Queue A item 6)
+    # the numeric-anomaly defense (not ported: ROADMAP Queue A item 6)
     anomaly_defense: bool = False
-
-
-@dataclasses.dataclass(frozen=True)
-class CheckpointConfig:
-    directory: str = ""  # non-empty: not ported yet (ROADMAP Queue A item 2.3)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,7 +80,7 @@ class RunConfig:
     data: Any = TextDataConfig()  # the workload's: TextDataConfig or data.pipeline.DataConfig
     optimizer: OptimizerConfig = OptimizerConfig()
     train: TrainSection = TrainSection()
-    checkpoint: CheckpointConfig = CheckpointConfig()
+    checkpoint: ckpt_lib.CheckpointConfig = ckpt_lib.CheckpointConfig()
     fleet: FleetSection = FleetSection()
 
 
@@ -111,13 +107,11 @@ class RunResult:
     device: torch.device
     mesh: Any = None
     eval_metrics: dict | None = None  # the final eval's, when the workload has one
+    preempted: bool = False  # the run stopped on a preemption save
 
 
 def check_supported(cfg: RunConfig) -> None:
     """Refuse what this slice does not have, naming the ROADMAP item."""
-    if cfg.checkpoint.directory:
-        raise ValueError("checkpoint.directory: train/checkpoint.py is not ported yet "
-                         "(ROADMAP Queue A item 2.3)")
     if cfg.mesh.pipe > 1:
         raise ValueError(f"mesh.pipe={cfg.mesh.pipe}: pipeline parallelism is not ported "
                          f"yet (ROADMAP Queue A item 6, parallel/pipeline.py)")
@@ -132,7 +126,7 @@ def check_supported(cfg: RunConfig) -> None:
                          "(ROADMAP Queue A item 6, resilience/)")
     if cfg.train.anomaly_defense:
         raise ValueError("train.anomaly_defense is not ported yet (ROADMAP Queue A item 6, "
-                         "resilience/anomaly.py; it also needs checkpoints, item 2.3)")
+                         "resilience/anomaly.py)")
     ev = getattr(cfg.data, "eval_dataset", "")
     if ev:
         raise ValueError(
@@ -145,13 +139,20 @@ def run(cfg: RunConfig, build: Callable[[RunConfig, torch.device, Any], Workload
         extra_callbacks: Iterable[cb.Callback] = (), device="cuda") -> RunResult:
     """``cluster.initialize(cfg.cluster)``, ``build_mesh(cfg.mesh)``,
     ``build(cfg, device, mesh) -> WorkloadParts`` (the model's weights
-    then broadcast from process 0), then train ``cfg.train.num_steps``
-    steps on this process's card (``device``: the card by default; no CPU
+    then broadcast from process 0), with ``checkpoint.directory`` the
+    newest checkpoint restored into that state (``init_or_restore``: the
+    model's tensors overwritten where they live, the optimizer's state,
+    the step) and the stream started at the restored step, then train up to
+    ``cfg.train.num_steps`` steps on this process's card (``device``: the card by default; no CPU
     fallback — pass ``device="cpu"`` for the plain versions, gloo between
     processes), each process fed its rows by a ``Prefetcher`` of depth 2
     through ``DevicePut``, with an eval pass every ``train.eval_every``
     steps and a final one of ``train.eval_batches`` batches when the
-    workload has an eval surface (``RunResult.eval_metrics``). The steps
+    workload has an eval surface (``RunResult.eval_metrics``). With a
+    directory a ``CheckpointCallback`` saves on the cadence, on an agreed
+    SIGTERM (the run then stops cleanly, ``RunResult.preempted``) and at
+    the end; it runs after every other callback, so a step's save sees
+    what they did at that step. The steps
     and the eval passes run with
     ``torch.backends.cudnn.deterministic`` on, restored after: a step is
     bitwise repeatable, as the JAX package's is on a TPU (same-seed
@@ -174,6 +175,17 @@ def run(cfg: RunConfig, build: Callable[[RunConfig, torch.device, Any], Workload
     replicate(parts.model, mesh)
     optimizer = make_optimizer(cfg.optimizer, parts.model.parameters())
     state = init_train_state(parts.model, optimizer, seed=cfg.train.seed)
+    ckpt = None
+    if cfg.checkpoint.directory:
+        ckpt = ckpt_lib.Checkpointer(cfg.checkpoint)
+        try:
+            state, restored = ckpt_lib.init_or_restore(ckpt, state)
+            ckpt.save_config(cfg)
+        except BaseException:
+            ckpt.close()
+            raise
+        if restored and cluster.is_chief():
+            logger.info("resuming from checkpoint step %d", state.step)
     metrics_logger = cb.MetricsLogger(
         every_n=cfg.train.log_every,
         batch_size=parts.batch_size or cfg.data.global_batch_size,
@@ -186,6 +198,8 @@ def run(cfg: RunConfig, build: Callable[[RunConfig, torch.device, Any], Workload
         evaluator = ShardedEvaluator(parts.eval_fn, mesh)
         if cfg.train.eval_every > 0:
             callbacks.append(_EvalCallback(cfg, parts, evaluator))
+    if ckpt is not None:
+        callbacks.append(cb.CheckpointCallback(ckpt))
     step_fn = make_train_step(parts.loss_fn, StepOptions(
         grad_accum_steps=cfg.train.grad_accum_steps,
         compute_grad_norm=cfg.train.debug_metrics,
@@ -196,15 +210,31 @@ def run(cfg: RunConfig, build: Callable[[RunConfig, torch.device, Any], Workload
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     eval_metrics = None
+    ok = False
     try:
         state = trainer.fit(data, num_steps=cfg.train.num_steps)
         if evaluator is not None:
             eval_metrics = evaluate(evaluator, trainer.state, parts, cfg.train.eval_batches)
             if cluster.is_chief():
                 logger.info("final eval: %s", eval_metrics)
+        ok = True
     finally:
         torch.backends.cudnn.deterministic = deterministic
-    return RunResult(state, metrics_logger.history, dev, mesh, eval_metrics)
+        if ckpt is not None:
+            _close(ckpt, raise_errors=ok)
+    return RunResult(state, metrics_logger.history, dev, mesh, eval_metrics, trainer.preempted)
+
+
+def _close(ckpt: ckpt_lib.Checkpointer, raise_errors: bool) -> None:
+    """Drain and close ``ckpt``; on a failed run its own error is logged,
+    not raised over the failure."""
+    if raise_errors:
+        ckpt.close()
+        return
+    try:
+        ckpt.close()
+    except Exception:
+        logger.exception("closing the checkpointer after a failed run")
 
 
 def evaluate(evaluator: ShardedEvaluator, state, parts: WorkloadParts,
@@ -218,10 +248,42 @@ def evaluate(evaluator: ShardedEvaluator, state, parts: WorkloadParts,
     return derive_metrics(totals)
 
 
-def evaluate_from_checkpoint(cfg: RunConfig, build, num_batches: int | None = None) -> dict:
-    """Eval of a restored checkpoint: needs ``train/checkpoint.py``."""
-    raise NotImplementedError("evaluate_from_checkpoint: train/checkpoint.py is not ported "
-                              "yet (ROADMAP Queue A item 2.3)")
+def evaluate_from_checkpoint(cfg: RunConfig, build, num_batches: int | None = None,
+                             step: int | None = None, device="cuda") -> dict:
+    """Eval of a checkpoint, no Trainer (the reference evaluated from
+    ``latest_checkpoint``): the workload built on ``device`` (the card by
+    default), the newest step of ``cfg.checkpoint.directory`` (or
+    ``step``) restored into it, and ``num_batches`` (default
+    ``train.eval_batches``) of its eval stream through the
+    ``ShardedEvaluator`` with deterministic cuDNN, as the runner's own
+    eval. Returns the metrics with the restored ``step``."""
+    if not cfg.checkpoint.directory:
+        raise ValueError("evaluate_from_checkpoint needs checkpoint.directory")
+    check_supported(cfg)
+    dev = cluster.initialize(cfg.cluster, device)
+    mesh = build_mesh(cfg.mesh, dev)
+    parts = build(cfg, dev, mesh)
+    if parts.eval_fn is None or parts.eval_dataset_fn is None:
+        raise ValueError(f"workload {cfg.workload!r} has no eval surface")
+    state = init_train_state(parts.model, make_optimizer(cfg.optimizer,
+                                                         parts.model.parameters()),
+                             seed=cfg.train.seed)
+    ckpt = ckpt_lib.Checkpointer(dataclasses.replace(cfg.checkpoint, save_on_preemption=False))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        state, restored = ckpt_lib.init_or_restore(ckpt, state, step=step)
+        if not restored:
+            raise FileNotFoundError(f"no checkpoint found in {cfg.checkpoint.directory}")
+        n = num_batches if num_batches is not None else cfg.train.eval_batches
+        metrics = evaluate(ShardedEvaluator(parts.eval_fn, mesh), state, parts, n)
+        metrics["step"] = int(state.step)
+        if cluster.is_chief():
+            logger.info("eval from checkpoint @ step %d: %s", state.step, metrics)
+        return metrics
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        ckpt.close()
 
 
 class _EvalCallback(cb.Callback):

@@ -16,8 +16,8 @@
   evaluating the same chunks in rank order;
 - the runner: a mid-train eval's wall time stays out of ``MetricsLogger``'s
   steps/s (``note_pause``), ``gpt_lm`` and ``resnet50_imagenet`` return
-  ``eval_metrics``, and ``evaluate_from_checkpoint`` is refused naming
-  ROADMAP item 2.3.
+  ``eval_metrics``, and ``evaluate_from_checkpoint`` restores a saved
+  step and reports the runner's own final eval of it, bit for bit.
 """
 
 import os
@@ -317,8 +317,27 @@ def test_resnet50_imagenet_returns_eval_metrics():
     assert np.isfinite(m["loss"])
 
 
-def test_evaluate_from_checkpoint_is_refused_naming_the_roadmap_item():
+def test_evaluate_from_checkpoint_is_refused_naming_the_roadmap_item(tmp_path):
+    """``evaluate_from_checkpoint`` on a tiny ``bert_pretrain`` run's
+    directory: the newest step restored gives the run's final eval bitwise;
+    ``step=1`` restores the first save (other numbers); a directory with no
+    step raises."""
+    from test_torch_bert import TINY
+
+    from distributed_tensorflow_tpu_torch.utils.config import apply_overrides
     from distributed_tensorflow_tpu_torch.workloads import bert_pretrain
 
-    with pytest.raises(NotImplementedError, match="item 2.3"):
-        runner.evaluate_from_checkpoint(bert_pretrain.default_config(), bert_pretrain.build)
+    overrides = TINY + [f"--checkpoint.directory={tmp_path / 'run'}",
+                        "--checkpoint.save_interval_steps=2", "--train.eval_batches=2",
+                        "--checkpoint.save_on_preemption=false", "--train.num_steps=3"]
+    live = run_workload("bert_pretrain", overrides, device="cpu").eval_metrics
+    cfg = apply_overrides(bert_pretrain.default_config(), overrides)
+    got = runner.evaluate_from_checkpoint(cfg, bert_pretrain.build, device="cpu")
+    assert got.pop("step") == 3
+    assert got == live
+    first = runner.evaluate_from_checkpoint(cfg, bert_pretrain.build, num_batches=2, step=1,
+                                            device="cpu")
+    assert first.pop("step") == 1 and first["loss"] != live["loss"]
+    empty = apply_overrides(cfg, [f"--checkpoint.directory={tmp_path / 'none'}"])
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
+        runner.evaluate_from_checkpoint(empty, bert_pretrain.build, device="cpu")

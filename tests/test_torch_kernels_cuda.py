@@ -1310,3 +1310,119 @@ def test_dp_resnet_steps_on_card_equal_one_process(card, tmp_path, backend, card
         for k in keys:
             assert rank[f"eval/sharded/{k}"].tobytes() == rank[f"eval/serial/{k}"].tobytes(), k
         assert float(rank["eval/sharded/count"]) == 2 * 16
+
+
+# ---------------------------------------------------------------------------
+# checkpoint-restart on the card (train/checkpoint.py)
+# ---------------------------------------------------------------------------
+
+#: a tiny gpt_lm that runs the flash kernels (D=64) and, with the pallas
+#: backward, the LN+matmul forward, dx and dw kernels
+CKPT_GPT = ["--model.num_layers=2", "--model.d_model=128", "--model.num_heads=2",
+            "--model.d_ff=256", "--model.vocab_size=256", "--data.vocab_size=256",
+            "--model.max_len=128", "--data.seq_len=128", "--model.xent_chunk=64",
+            "--model.dtype=float32", "--model.attention_impl=flash",
+            "--model.fused_ln_matmul=true", "--data.global_batch_size=4",
+            "--optimizer.warmup_steps=0", "--optimizer.schedule=constant",
+            "--optimizer.learning_rate=1e-3", "--train.log_every=1", "--train.eval_batches=0",
+            "--checkpoint.save_interval_steps=2", "--checkpoint.save_on_preemption=false"]
+
+
+def _leaves_differ(a, b) -> list[str]:
+    from distributed_tensorflow_tpu_torch.train.step import state_leaves
+
+    la, lb = dict(state_leaves(a)), dict(state_leaves(b))
+    return sorted(set(la) ^ set(lb)) or [n for n in la if not torch.equal(la[n], lb[n])]
+
+
+@pytest.mark.cuda
+def test_gpt_lm_kill_and_resume_on_card_is_bitwise(card, tmp_path, monkeypatch):
+    """A child process on the card (``tests/torch_dp_worker.py``'s ``ckpt``
+    job) dies by SIGKILL inside step 4's async commit; this process resumes
+    from step 2 and runs to 4: losses, parameters and Adam moments bitwise
+    a straight 4-step run's, and the flash and LN+matmul kernels launched
+    as many times a step as in the straight run."""
+    import os
+    import signal
+    import sys
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    import torch_dp_worker as worker
+
+    from distributed_tensorflow_tpu_torch.ops import fused_ln_matmul as fln
+    from distributed_tensorflow_tpu_torch.workloads import run_workload
+
+    monkeypatch.setenv("DTF_FUSED_BWD", "pallas")
+    counters = {n: getattr(fa, n) for n in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")}
+    counters.update(fln.KERNELS)
+
+    def run(extra):
+        for k in counters.values():
+            k.launches = 0
+        res = run_workload("gpt_lm", CKPT_GPT + extra, device=card)
+        return res, {n: k.launches // len(res.history) for n, k in counters.items()}
+
+    ckpt = [f"--checkpoint.directory={tmp_path / 'ck'}"]
+    (proc, log), = worker.launch({"job": "ckpt", "device": card.type, "out": str(tmp_path),
+                                  "workload": "gpt_lm", "overrides": CKPT_GPT + ckpt,
+                                  "runs": [{"num_steps": 4, "kill_at": 4}]}, world=1)
+    try:
+        code = proc.wait(240)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+    assert code == -signal.SIGKILL, open(tmp_path / "rank0.log").read()[-3000:]
+    assert os.listdir(tmp_path / "ck" / ".pending") == ["4"]
+    straight, per_step = run(["--train.num_steps=4"])
+    resumed, resumed_per_step = run(ckpt + ["--train.num_steps=4"])
+    assert [h["step"] for h in resumed.history] == [3, 4]
+    assert [h["loss"] for h in resumed.history] == [h["loss"] for h in straight.history][2:]
+    assert not _leaves_differ(resumed.state, straight.state)
+    assert resumed_per_step == per_step and per_step["flash_fwd"] == 2
+    assert per_step["ln_matmul_bwd_dw"] == 8
+
+
+@pytest.mark.cuda
+def test_checkpoint_restores_onto_the_card_in_place(card, tmp_path):
+    """A checkpoint of a card state restores into another card state: the
+    model's tensors stay the same card tensors (no CPU copy of the model
+    is made and kept), the Adam moments land on the card, every leaf
+    bitwise the saved state's."""
+    from distributed_tensorflow_tpu_torch.train import checkpoint as tck
+    from distributed_tensorflow_tpu_torch.train import (
+        OptimizerConfig, init_train_state, make_optimizer, make_train_step)
+
+    cfg = tfm.TransformerConfig(vocab_size=64, max_len=32, num_layers=1, d_model=64,
+                                num_heads=1, d_ff=128, dropout=0.0, dtype="bfloat16",
+                                causal=True, pre_ln=True)
+
+    def state(seed):
+        model = tfm.build(cfg, tfm.init_params(cfg, seed=seed, device=card, trainable=True),
+                          card, trainable=True)
+        return init_train_state(model, make_optimizer(
+            OptimizerConfig(name="adamw", learning_rate=1e-3), model.parameters()))
+
+    src = state(0)
+    step = make_train_step(tfm.causal_lm_loss(src.model, 0))
+    gen = torch.Generator(device=card).manual_seed(1)
+    for _ in range(2):
+        src, _ = step(src, {"input_ids": torch.randint(0, 64, (2, 32), device=card,
+                                                       generator=gen, dtype=torch.int32)})
+    ckpt = tck.Checkpointer(tck.CheckpointConfig(directory=str(tmp_path), async_save=True,
+                                                 save_on_preemption=False))
+    try:
+        assert ckpt.save(2, src, force=True)
+        ckpt.wait()
+        dst = state(5)
+        ptrs = {n: (t.device, t.data_ptr()) for n, t in dst.model.state_dict().items()}
+        assert ckpt.restore(dst) is dst
+    finally:
+        ckpt.close()
+    assert {n: (t.device, t.data_ptr()) for n, t in dst.model.state_dict().items()} == ptrs
+    for p in dst.optimizer.params:
+        st = dst.optimizer.opt.state[p]
+        assert p.device.type == "cuda"
+        assert st["exp_avg"].device == st["exp_avg_sq"].device == p.device
+    assert dst.step == 2 and not _leaves_differ(dst, src)

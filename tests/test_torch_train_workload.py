@@ -3,8 +3,12 @@ streams are bit-identical for the same (seed, index), every LR schedule
 kind gives JAX's values, the config overrides parse to the same tree, and
 ``run_workload`` trains tiny ``gpt_lm`` and ``resnet50_imagenet`` configs
 on the CPU with a finite, falling loss (``gpt_lm`` also with
-``fused_ln_matmul`` under both backward impls); what the port does not
-have yet is refused with the ROADMAP item named."""
+``fused_ln_matmul`` under both backward impls); with
+``--checkpoint.directory`` each workload resumes bitwise where a straight
+run would be; what the port does not have yet is refused with the
+ROADMAP item named."""
+
+import os
 
 import numpy as np
 import pytest
@@ -108,7 +112,6 @@ def test_run_workload_trains_gpt_lm_fused_ln_on_cpu(bwd, monkeypatch):
 
 
 @pytest.mark.parametrize("override,match", [
-    ("--checkpoint.directory=/tmp/ckpt", "checkpoint.py"),
     ("--mesh.data=2", "more than one"),
     ("--mesh.pipe=2", "pipeline"),
     ("--fleet.dir=/tmp/fleet", "fleet"),
@@ -121,6 +124,49 @@ def test_unsupported_configs_raise_naming_the_roadmap_item(override, match):
     with pytest.raises((ValueError, NotImplementedError), match=match):
         run_workload("gpt_lm", TINY + ["--train.num_steps=1", override], device="cpu")
 
+
+
+@pytest.mark.parametrize("workload", ["gpt_lm", "bert_pretrain", "resnet50_imagenet"])
+def test_run_workload_resumes_from_checkpoint_directory(workload, tmp_path):
+    """``--checkpoint.directory`` on every workload: 2 steps, then a new
+    run that restores step 2 and goes on to 4, is bitwise the straight
+    4-step run (losses, parameters, buffers, optimizer state), the stream
+    resumed at the restored step; the run config lies beside the steps."""
+    from test_torch_bert import TINY as BERT_TINY
+    from test_torch_checkpoint import leaves_np
+
+    tiny = {"gpt_lm": TINY, "bert_pretrain": BERT_TINY, "resnet50_imagenet": RESNET_TINY}
+    base = tiny[workload] + ["--train.eval_batches=0", "--checkpoint.save_on_preemption=false"]
+    ckpt = [f"--checkpoint.directory={tmp_path}", "--checkpoint.save_interval_steps=2"]
+    straight = run_workload(workload, base + ["--train.num_steps=4"], device="cpu")
+    first = run_workload(workload, base + ckpt + ["--train.num_steps=2"], device="cpu")
+    resumed = run_workload(workload, base + ckpt + ["--train.num_steps=4"], device="cpu")
+    assert [h["step"] for h in first.history + resumed.history] == [1, 2, 3, 4]
+    assert [h["loss"] for h in first.history + resumed.history] == [
+        h["loss"] for h in straight.history]
+    got, want = leaves_np(resumed.state), leaves_np(straight.state)
+    assert got.keys() == want.keys()
+    assert all(np.array_equal(got[k], want[k]) for k in want)
+    assert (tmp_path / "config.json").exists() and not resumed.preempted
+    assert sorted(int(n) for n in os.listdir(tmp_path) if n.isdigit()) == [1, 2, 4]
+
+
+def test_train_entry_point_passes_checkpoint_flags_to_the_runner(tmp_path, capsys):
+    """``python -m distributed_tensorflow_tpu_torch.train`` hands
+    ``--checkpoint.directory`` / ``--checkpoint.save_interval_steps`` to the
+    runner: the cadence's step dirs appear, and a second call resumes."""
+    from distributed_tensorflow_tpu_torch.train.__main__ import main
+
+    args = ["gpt_lm", "--device", "cpu", *TINY, "--train.eval_batches=0",
+            f"--checkpoint.directory={tmp_path}", "--checkpoint.save_interval_steps=3",
+            "--checkpoint.save_on_preemption=false"]
+    main(args + ["--train.num_steps=3"])
+    assert sorted(int(n) for n in os.listdir(tmp_path) if n.isdigit()) == [1, 3]
+    capsys.readouterr()
+    main(args + ["--train.num_steps=4"])
+    rows = [line for line in capsys.readouterr().out.splitlines() if line.startswith("step=")]
+    assert len(rows) == 1 and rows[0].startswith("step=4 ")
+    assert sorted(int(n) for n in os.listdir(tmp_path) if n.isdigit()) == [1, 3, 4]
 
 
 RESNET_TINY = ["--model.stage_sizes=[1,1]", "--model.width=8", "--model.num_classes=10",

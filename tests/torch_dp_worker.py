@@ -30,6 +30,16 @@ exits non-zero on any failure. The spec's ``job``:
 - ``"parallel"``: the collectives, the differentiable all-reduce, the
   divergence check, ``broadcast_from_chief``, ``replicate`` and the
   mesh's refusals, each result saved for the test to hold against numpy.
+- ``"ckpt"``: ``run_workload(workload, overrides)`` (its
+  ``--checkpoint.directory`` among them) once per entry of ``runs``, each
+  ``{"num_steps", "sigterm": {rank: step}, "kill_at": step}``: a
+  ``Sigterm`` fault on the ranks named, and an ``AsyncCommitKill`` in the
+  checkpoint writer (the process dies by SIGKILL, shards written,
+  nothing published). Each run saves its history's steps and losses,
+  whether it stopped on a preemption save, the state it started from
+  (after the restore), the state it ended with, and how many checkpoint
+  commits this process made (``ckpt_save`` events: only the chief
+  writes).
 
 ``train_steps`` and ``bert_steps`` are also what the one-process
 references run (no mesh);
@@ -281,6 +291,50 @@ def job_parallel(spec: dict, dev, mesh) -> dict:
     return out
 
 
+def job_ckpt(spec: dict, dev, mesh) -> dict:
+    from distributed_tensorflow_tpu_torch import resilience as rz
+    from distributed_tensorflow_tpu_torch.obs import flightrec
+    from distributed_tensorflow_tpu_torch.train import callbacks as tcb
+    from distributed_tensorflow_tpu_torch.train import step as tstep
+    from distributed_tensorflow_tpu_torch.workloads import run_workload
+
+    rank = cluster.process_index()
+
+    def flat(state) -> dict:
+        return {name: t.detach().float().cpu().clone().numpy()
+                for name, t in tstep.state_leaves(state)}
+
+    class Record(tcb.Callback):
+        """The state the run starts from, and the kill hook in the writer."""
+
+        def __init__(self, tag, kill_at):
+            self.tag, self.kill_at = tag, kill_at
+
+        def on_train_start(self, trainer):
+            out.update({f"{self.tag}/start/{k}": v for k, v in flat(trainer.state).items()})
+            if self.kill_at is not None:
+                trainer.emergency_checkpoint.save_hooks.append(
+                    rz.FaultPlan((rz.AsyncCommitKill(self.kill_at),)).save_hook())
+
+    out = {}
+    for r, run in enumerate(spec["runs"]):
+        tag = f"run{r}"
+        before = sum(e["kind"] == "ckpt_save" for e in flightrec.default_recorder().events())
+        extra = [Record(tag, run.get("kill_at"))]
+        at = run.get("sigterm", {}).get(str(rank))
+        if at is not None:
+            extra.append(rz.FaultPlan((rz.Sigterm(at),)).callback())
+        res = run_workload(spec["workload"], spec["overrides"] + [
+            f"--train.num_steps={run['num_steps']}"], device=dev, extra_callbacks=extra)
+        out[f"{tag}/steps"] = np.asarray([h["step"] for h in res.history])
+        out[f"{tag}/losses"] = np.asarray([h["loss"] for h in res.history])
+        out[f"{tag}/preempted"] = np.asarray(res.preempted)
+        out[f"{tag}/commits"] = np.asarray(sum(
+            e["kind"] == "ckpt_save" for e in flightrec.default_recorder().events()) - before)
+        out.update({f"{tag}/end/{k}": v for k, v in flat(res.state).items()})
+    return out
+
+
 def free_port() -> int:
     import socket
 
@@ -358,7 +412,8 @@ def main(spec_path: str) -> int:
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cudnn.deterministic = True
         mesh = build_mesh(MeshSpec(data=-1), dev)
-        jobs = {"job_resnet": job_resnet, "job_bert": job_bert, "job_parallel": job_parallel}
+        jobs = {"job_resnet": job_resnet, "job_bert": job_bert, "job_parallel": job_parallel,
+                "job_ckpt": job_ckpt}
         out = jobs[f"job_{spec['job']}"](spec, dev, mesh)
         np.savez(os.path.join(spec["out"], f"rank{cluster.process_index()}.npz"), **out)
     finally:
