@@ -159,7 +159,19 @@ when any phase fails:
    BN running statistics and the momentum trace bitwise, the conv+BN
    launches the rule's a step. It fails unless the checkpoint IO runs
    through the native library;
-10. print the ``kernels`` JSON line (twelve entries: ``ln_matmul`` is the
+10. the real-data intake (``INTAKE_*``): 512 flat records of 224x224x3
+   written here; the native record loader's stream bitwise its Python
+   path's (two shards of two, from batch 0 and resumed at 3);
+   ``RecordClassificationDataset(augment="crop_flip")`` batch 3 equal to a
+   fresh dataset at ``index_offset=3`` (and not to one at 2); then
+   ``resnet50_imagenet`` fused + pallas at batch 256 trained 6 steps from
+   ``records:`` with crop_flip through ``run_workload``: the losses bitwise
+   those of the same steps fed the same dataset's batches by hand, a
+   control with one image of batch 1 flipped differing, the conv+BN
+   launches the rule's a step; the records-fed step time beside phase 6's.
+   The card's machine has no libjpeg headers, so the JPEG decoder is not
+   built or run here (ROADMAP);
+11. print the ``kernels`` JSON line (twelve entries: ``ln_matmul`` is the
    serving forward at M=8, ``ln_matmul_train`` the tiled forward at
    M=8192), then the ``ok`` line last.
 
@@ -432,6 +444,9 @@ def nvidia_smi_line() -> str:
 #: the pad records that traces kept, of those launched
 PAD_LAUNCHES = 4
 PAD_RECORDS = [0, 0]
+#: traces ``cuda_ms`` may take beyond its ``traces`` while the fullest trace
+#: of a kernel still lacks more than a tenth of its records
+EXTRA_TRACES = 3
 
 
 def cuda_ms(torch, fns, iters: int = 50, warmup: int = 5, traces: int = 3,
@@ -454,12 +469,25 @@ def cuda_ms(torch, fns, iters: int = 50, warmup: int = 5, traces: int = 3,
     Those launches are ``launches[part]`` for the kernels whose names hold
     a key ``part`` of ``launches`` (the caller's count), else the most
     records of any trace over ``iters``, rounded up. Every shortfall is
-    logged, and one of more than a tenth of a kernel's records fails the
-    run."""
+    logged; while one is of more than a tenth of a kernel's records, up to
+    ``EXTRA_TRACES`` more traces are taken, and one left after them fails
+    the run."""
     call_ms = event_ms(torch, fns, iters, warmup)
     act = torch.profiler.ProfilerActivity
+    launches = launches or {}
     most = {}  # kernel name -> (records, ms) of the trace with the most records of it
-    for _ in range(traces):
+
+    def shortfalls():
+        by_name, short = {}, []
+        for k, (n, ms) in most.items():
+            each = next((c for part, c in launches.items() if part in k), -(-n // iters))
+            by_name[k] = ms / n * each
+            if n != each * iters:  # more than the caller's count is a shortfall of the count
+                short.append((k[:60], n, each * iters))
+        return by_name, short, [k for k, n, want in short if 10 * abs(want - n) > want]
+
+    taken = 0
+    while taken < traces or (taken < traces + EXTRA_TRACES and shortfalls()[2]):
         with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
             for _ in range(PAD_LAUNCHES):
                 torch.cuda._sleep(1)
@@ -467,30 +495,24 @@ def cuda_ms(torch, fns, iters: int = 50, warmup: int = 5, traces: int = 3,
             for i in range(iters):
                 fns[i % len(fns)]()
             torch.cuda.synchronize()
+        taken += 1
         PAD_RECORDS[1] += PAD_LAUNCHES
         for e in device_events(torch, prof):
             if "spin_kernel" in e.key:
                 PAD_RECORDS[0] += e.count
             elif e.count > most.get(e.key, (0, 0.0))[0]:
                 most[e.key] = (e.count, e.self_device_time_total / 1e3)
-    launches = launches or {}
     for part in launches:
         if not any(part in k for k in most):
-            raise SmokeFailure(f"torch.profiler recorded no launch of {part} in {traces} traces")
-    by_name, short = {}, []
-    for k, (n, ms) in most.items():
-        each = next((c for part, c in launches.items() if part in k), -(-n // iters))
-        by_name[k] = ms / n * each
-        if n != each * iters:  # more than the caller's count is a shortfall of the count
-            short.append((k[:60], n, each * iters))
+            raise SmokeFailure(f"torch.profiler recorded no launch of {part} in {taken} traces")
+    by_name, short, bad = shortfalls()
     if short:
-        log(f"    (records in the fullest of {traces} traces: "
+        log(f"    (records in the fullest of {taken} traces: "
             f"{'; '.join(f'{k} {n} of {want}' for k, n, want in short)})")
-    bad = [k for k, n, want in short if 10 * abs(want - n) > want]
     if bad:
         raise SmokeFailure(f"torch.profiler lost more than a tenth of the records of {bad}")
     if sum(by_name.values()) <= 0:
-        raise SmokeFailure(f"torch.profiler recorded no device time in {traces} traces")
+        raise SmokeFailure(f"torch.profiler recorded no device time in {taken} traces")
     return {"device_ms": sum(by_name.values()), "by_name": by_name, "call_ms": call_ms}
 
 
@@ -3156,6 +3178,187 @@ def phase_ckpt(torch, np, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the real-data intake, ResNet-50 fed from flat records
+# ---------------------------------------------------------------------------
+
+#: the records phase 10 writes: 224x224x3 uint8 images (77 MB) and labels
+#: below 1000, from numpy's default_rng(INTAKE_SEED); at least 2 x 256, so
+#: every batch of 256 is whole
+INTAKE_RECORDS, INTAKE_SEED = 512, 10
+#: the images' side and the global batch: the preset's 224 and phase 6's 256
+INTAKE_IMAGE, INTAKE_BATCH = 224, 256
+#: the loader gate: two shards of two, 64 records a batch (4 batches an
+#: epoch a shard), INTAKE_LOADER_BATCHES from batch 0 and from each start
+INTAKE_LOADER_BATCH, INTAKE_LOADER_BATCHES, INTAKE_LOADER_STARTS = 64, 6, (0, 3)
+#: ResNet-50 fused + pallas at batch 256 from records: with crop_flip, as many
+#: steps as phase 6 (its step time is the median of steps 2-6 there too)
+INTAKE_STEPS = 6
+#: then a timing run of as many steps: its second half, after the batches
+#: the Prefetcher staged during the model's build are used up, is the
+#: steady state of a records-fed run
+INTAKE_TIMED_STEPS = 24
+INTAKE_OVERRIDES = ["--model.block_impl=fused", "--data.augment=crop_flip",
+                    f"--train.num_steps={INTAKE_STEPS}"]
+
+
+def intake_loader_gate(np, path, record_bytes) -> int:
+    """The native loader's stream bitwise the Python path's, for both
+    shards of two, from batch 0 and resumed at each start; a resumed
+    stream is the full one's tail. Returns the batches compared."""
+    from distributed_tensorflow_tpu_torch.runtime.loader import RecordFileLoader
+
+    compared = 0
+    for shard in (0, 1):
+        full = None
+        for start in INTAKE_LOADER_STARTS:
+            kw = dict(seed=1, shard=shard, n_shards=2, start_batch=start,
+                      num_batches=INTAKE_LOADER_BATCHES - start)
+            fast, slow = (list(RecordFileLoader(path, record_bytes, INTAKE_LOADER_BATCH,
+                                                use_native=n, **kw)) for n in (True, False))
+            if len(fast) != len(slow) or not all(np.array_equal(a, b)
+                                                 for a, b in zip(fast, slow)):
+                raise SmokeFailure(f"phase 10: shard {shard} from batch {start}: the native "
+                                   f"loader's stream differs from the Python path's")
+            full = fast if full is None else full
+            if not all(np.array_equal(a, b) for a, b in zip(fast, full[start:])):
+                raise SmokeFailure(f"phase 10: shard {shard} resumed at {start} is not the "
+                                   f"stream's tail")
+            compared += len(fast)
+    return compared
+
+
+def intake_resume_gate(np, path, out) -> None:
+    """``RecordClassificationDataset(augment="crop_flip")``: a fresh
+    dataset at ``index_offset=3`` gives the stream's batch 3, one at 2 does
+    not (the control); the stream's host rate (loader + crop_flip + cast)."""
+    from distributed_tensorflow_tpu_torch.data.records import RecordClassificationDataset
+
+    def ds(**kw):
+        return RecordClassificationDataset(path, (INTAKE_IMAGE, INTAKE_IMAGE, 3), INTAKE_BATCH,
+                                           augment="crop_flip", **kw)
+
+    t0 = time.perf_counter()
+    stream = list(ds(num_batches=4))
+    out["host_images_s"] = 4 * INTAKE_BATCH / (time.perf_counter() - t0)
+    resumed, control = (next(iter(ds(index_offset=i))) for i in (3, 2))
+    if not all(np.array_equal(resumed[k], stream[3][k]) for k in resumed):
+        raise SmokeFailure("phase 10: crop_flip batch 3 of a dataset started at "
+                           "index_offset=3 differs from the stream's batch 3")
+    if np.array_equal(control["image"], stream[3]["image"]):
+        raise SmokeFailure("phase 10: the control (index_offset=2) equals batch 3")
+
+
+def phase_intake(torch, np, card, resnet_step_ms):
+    """Phase 10: flat records written here, the loader and crop_flip
+    gates, and ResNet-50 fused + pallas at batch 256 trained from
+    ``records:`` through ``run_workload`` against the same steps fed by
+    hand (``tests/torch_dp_worker.train_steps``), with a control."""
+    import itertools
+    import shutil
+    import tempfile
+
+    from distributed_tensorflow_tpu_torch.data import native_jpeg
+    from distributed_tensorflow_tpu_torch.data.pipeline import make_dataset
+    from distributed_tensorflow_tpu_torch.data.records import make_record_file
+    from distributed_tensorflow_tpu_torch.models import resnet
+    from distributed_tensorflow_tpu_torch.ops import fused_conv_bn as fcb
+    from distributed_tensorflow_tpu_torch.runtime import native
+    from distributed_tensorflow_tpu_torch.utils.config import apply_overrides
+    from distributed_tensorflow_tpu_torch.workloads import resnet50_imagenet
+
+    t_phase = time.perf_counter()
+    log(f"phase 10: the real-data intake: {INTAKE_RECORDS} flat records of {INTAKE_IMAGE}x"
+        f"{INTAKE_IMAGE}x3 through the native loader, crop_flip, and resnet50_imagenet (fused + "
+        f"pallas, batch {INTAKE_BATCH}, {INTAKE_STEPS} steps) from records: through run_workload "
+        f"against the same steps fed by hand; on {card}")
+    jpeg_ok = native_jpeg.available()
+    log(f"  native loader in use: {native.available()}; native libjpeg decoder: {jpeg_ok}"
+        + ("" if jpeg_ok else " (" + next((line for line in native_jpeg.failure.splitlines()
+                                            if "error" in line), native_jpeg.failure)[:160] + ")")
+        + f"; jpeg: decoder='auto' would use {'native' if jpeg_ok else 'pil'}; os.cpu_count() "
+        f"{os.cpu_count()}")
+    if not native.available():
+        raise SmokeFailure(f"phase 10: the native loader is not in use ({native.failure})")
+    root = tempfile.mkdtemp(prefix="chip_smoke_intake_")
+    out = {}
+    try:
+        path = os.path.join(root, "train.rec")
+        rng = np.random.default_rng(INTAKE_SEED)
+        record_bytes = make_record_file(
+            path, rng.integers(0, 256, (INTAKE_RECORDS, INTAKE_IMAGE, INTAKE_IMAGE, 3),
+                               dtype=np.uint8),
+            rng.integers(0, 1000, INTAKE_RECORDS).astype(np.int32))
+        out["compared"] = intake_loader_gate(np, path, record_bytes)
+        log(f"  loader: native == Python for shards 0 and 1 of 2 from batches "
+            f"{INTAKE_LOADER_STARTS} ({out['compared']} batches of {INTAKE_LOADER_BATCH})")
+        intake_resume_gate(np, path, out)
+        log(f"  crop_flip: index_offset=3 == the stream's batch 3, index_offset=2 differs; host "
+            f"stream (native loader + crop_flip + f32) {out['host_images_s']:.1f} images/s on "
+            f"{os.cpu_count()} cores")
+
+        overrides = RESNET_OVERRIDES + INTAKE_OVERRIDES + [f"--data.dataset=records:{path}"]
+        cfg = apply_overrides(resnet50_imagenet.default_config(), overrides)
+        rule = resnet_launch_rule(cfg.model)
+        with fused_bwd("pallas"):
+            res, launches, wall = ckpt_pass(torch, "resnet50_imagenet", overrides, fcb.KERNELS)
+            losses = [h["loss"] for h in res.history]
+            steady = [h["steps_per_sec"] for h in res.history if "steps_per_sec" in h]
+            out.update(losses=losses, launches=launches, wall_s=wall,
+                       step_ms=1e3 / float(np.median(steady)))
+            del res
+            torch.cuda.empty_cache()
+            batches = list(itertools.islice(make_dataset(cfg.data), INTAKE_STEPS))
+            sd = resnet.init_params(cfg.model, seed=cfg.train.seed, device=DEVICE)
+            worker = load_dp_worker()
+            deterministic = torch.backends.cudnn.deterministic
+            torch.backends.cudnn.deterministic = True
+            try:
+                hand = worker.train_steps(cfg.model, sd, batches, DEVICE, bwd="pallas")
+                batches[1]["image"][0] = batches[1]["image"][0, :, ::-1].copy()
+                control = worker.train_steps(cfg.model, sd, batches, DEVICE, bwd="pallas")
+            finally:
+                torch.backends.cudnn.deterministic = deterministic
+        log(f"  records-fed run: losses {losses}, launches {launches}, step "
+            f"{out['step_ms']:.2f} ms (median of steps 2-{INTAKE_STEPS}; phase 6's fused + "
+            f"pallas step from an npz: {resnet_step_ms:.2f} ms, ratio "
+            f"{out['step_ms'] / resnet_step_ms:.4f}), run wall {wall:.1f} s")
+        log(f"  hand-fed: losses {list(map(float, hand['losses']))}; control (batch 1's image 0 "
+            f"flipped): {list(map(float, control['losses']))}")
+        want = {n: c * INTAKE_STEPS for n, c in rule.items()}
+        if launches != want or hand["launches"] != want:
+            raise SmokeFailure(f"phase 10: launches {launches} (hand-fed {hand['launches']}), "
+                               f"the rule predicts {want}")
+        if losses != list(map(float, hand["losses"])):
+            raise SmokeFailure(f"phase 10: the records-fed losses {losses} differ from the "
+                               f"hand-fed {list(hand['losses'])}")
+        if list(map(float, control["losses"])) == losses:
+            raise SmokeFailure("phase 10: the control (an image flipped) gave the same losses")
+        if not np.isfinite(losses).all():
+            raise SmokeFailure(f"phase 10: non-finite loss {losses}")
+        log(f"  the records-fed losses are bitwise the hand-fed steps'; the control differs; "
+            f"launches {rule} a step")
+        with fused_bwd("pallas"):
+            timed, timed_launches, timed_wall = ckpt_pass(
+                torch, "resnet50_imagenet",
+                overrides + [f"--train.num_steps={INTAKE_TIMED_STEPS}"], fcb.KERNELS)
+        rates = [h["steps_per_sec"] for h in timed.history if "steps_per_sec" in h]
+        out["steady_ms"] = 1e3 / float(np.median(rates[len(rates) // 2:]))
+        del timed
+        if timed_launches != {n: c * INTAKE_TIMED_STEPS for n, c in rule.items()}:
+            raise SmokeFailure(f"phase 10: the timing run launched {timed_launches}, the rule "
+                               f"is {rule} a step")
+        log(f"  records-fed timing run, {INTAKE_TIMED_STEPS} steps: step {out['steady_ms']:.2f} "
+            f"ms = {INTAKE_BATCH * 1e3 / out['steady_ms']:.1f} images/s (median of steps "
+            f"{INTAKE_TIMED_STEPS // 2 + 1}-{INTAKE_TIMED_STEPS}), run wall {timed_wall:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"  phase 10 wall {out['wall_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phases 3-4: serve gpt_small at full width
 # ---------------------------------------------------------------------------
 
@@ -3449,6 +3652,7 @@ def main() -> int:
         dp = phase_dp(torch, np, smi)
         bert = phase_bert(torch, np, smi)
         ckpt = phase_ckpt(torch, np, smi)
+        intake = phase_intake(torch, np, smi, resnet["passes"]["fused/pallas"]["step_ms"])
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -3556,6 +3760,13 @@ def main() -> int:
         f"snapshot stall {ckpt['snapshot_ms']:.1f} ms, async commit {ckpt['commit_s']:.3f} s, "
         f"sync save {ckpt['sync_save_s']:.3f} s ({ckpt['write_gb_s']:.3f} GB/s to the host "
         f"disk), restore {ckpt['restore_s']:.3f} s")
+    log(f"real-data intake (phase 10, {intake['wall_s']:.1f} s; {smi}; {os.cpu_count()} host "
+        f"cores): resnet50_imagenet fused + pallas from records: (crop_flip), batch 256: step "
+        f"{intake['step_ms']:.2f} ms (steps 2-{INTAKE_STEPS}), {intake['steady_ms']:.2f} ms = "
+        f"{INTAKE_BATCH * 1e3 / intake['steady_ms']:.1f} images/s in the steady state; losses "
+        f"{intake['losses']} bitwise the hand-fed steps', launches {intake['launches']}; host "
+        f"records stream {intake['host_images_s']:.1f} images/s; loader native == Python over "
+        f"{intake['compared']} batches")
     log(f"cuda_ms traces kept {PAD_RECORDS[0]} of the {PAD_RECORDS[1]} spin-kernel records "
         f"that opened them")
     log(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s (builds included)")

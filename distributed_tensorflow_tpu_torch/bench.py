@@ -13,17 +13,25 @@ window, ``mfu`` and ``vs_baseline`` (MFU over the 0.50 north star), the
 pipeline-fed window's rate and its share of the resident one
 (``pipeline_efficiency``), the configuration (``n_chips``,
 ``global_batch``, ``image_size``, ``stem``, ``norm_dtype``,
-``block_impl``, ``fed_data``) and the provenance block (card name and
+``block_impl``, ``fed_data``: ``synthetic`` or ``jpeg/<decoder>``), with
+JPEG feeding the host's decode rate (``host_decode_images_per_sec``, one
+process's, with ``host_cores``), and the provenance block (card name and
 power limit included). Diagnostics go to stderr.
 
 Two windows, as the JAX bench: every process steps on its rows
 (``BENCH_BATCH`` a card) of a synthetic global batch, data-parallel over
 the mesh (gradients and BatchNorm statistics all-reduced); the resident
 window repeats one batch already on the card, the pipeline-fed window
-feeds four pre-staged bf16 host batches through the ``Prefetcher`` with
-``DevicePut`` (pinned ring, side-stream copy). The optimizer is the
-``resnet50_imagenet`` workload's (momentum 0.9, coupled L2 1e-4) at lr
-0.1.
+feeds host batches through the ``Prefetcher`` with ``DevicePut`` (pinned
+ring, side-stream copy): four pre-staged bf16 batches, or with
+``BENCH_DATA=jpeg`` every batch decoded inside the window from a JPEG
+record pair written at set-up (``max(512, 2 x global batch)`` records of
+8x block-upsampled random content at ``image + 32`` px, quality 90)
+through ``JpegClassificationDataset(train=True)``: random-resized-crop
+and flip to ``image`` px on ``min(16, cpu_count)`` threads, by the native
+libjpeg decoder where it builds, else PIL (``DTF_JPEG_DECODER``
+overrides). The optimizer is the ``resnet50_imagenet`` workload's
+(momentum 0.9, coupled L2 1e-4) at lr 0.1.
 
 Runs on the card unless ``--device cpu`` is given, and then at the JAX
 bench's CPU size (ResNet with one block a stage, width 16, 100 classes,
@@ -33,9 +41,9 @@ f32, 64x64, 8 images a process). Knobs (environment): ``BENCH_BATCH``,
 in the step), ``BENCH_BLOCK_IMPL`` (``fused`` | ``standard``; unset on
 the card, or with ``BENCH_FORCE_AB=1``: both are timed and the faster is
 reported, a variant that fails fails the run), ``BENCH_PUT_SYNC=1`` (each
-copy completes on the prefetch thread), ``BENCH_DATA`` (``synthetic``;
-``jpeg`` is ROADMAP Queue A item 3.2) and ``DTF_FUSED_BWD`` (the fused
-blocks' backward). There is no fallback: a failure exits non-zero.
+copy completes on the prefetch thread), ``BENCH_DATA`` (``synthetic`` |
+``jpeg``) and ``DTF_FUSED_BWD`` (the fused blocks' backward). There is no
+fallback: a failure exits non-zero.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ import argparse
 import json
 import os
 import sys
+import tempfile
 from typing import Mapping
 
 import torch
@@ -74,12 +83,8 @@ def run(device="cuda", env: Mapping[str, str] = os.environ) -> dict:
     from .utils import flops as flops_lib
 
     fed_data = env.get("BENCH_DATA", "synthetic")
-    if fed_data == "jpeg":
-        raise NotImplementedError("BENCH_DATA=jpeg: the JPEG record intake (data/records.py, "
-                                  "data/jpeg_records.py) is not ported yet (ROADMAP Queue A "
-                                  "item 3.2)")
-    if fed_data != "synthetic":
-        raise ValueError(f"BENCH_DATA={fed_data!r}: only 'synthetic' is supported")
+    if fed_data not in ("synthetic", "jpeg"):
+        raise ValueError(f"BENCH_DATA={fed_data!r}: 'synthetic' or 'jpeg'")
     dev = cluster.initialize(cluster.ClusterConfig(), device)
     mesh = build_mesh(MeshSpec(data=-1), dev)
     kind, n_chips, platform = bm.describe_devices(dev)
@@ -147,15 +152,29 @@ def run(device="cuda", env: Mapping[str, str] = os.environ) -> dict:
         cfg, state, step, steps_per_sec = measure_resident(winner)
     images_per_sec_per_chip = steps_per_sec * global_batch / n_chips
 
-    # pipeline-fed window: four pre-staged host batches through the
-    # Prefetcher, each copied to the card on DevicePut's side stream
-    host_batches = [host_batch(cfg.num_classes) for _ in range(4)]
+    # pipeline-fed window: host batches through the Prefetcher, each
+    # copied to the card on DevicePut's side stream
+    tmp = None
+    if fed_data == "jpeg":
+        tmp = tempfile.TemporaryDirectory(prefix="bench_jpeg_")
+        ds, decode_rate = jpeg_dataset(tmp.name, image, global_batch, cfg.num_classes)
+        fed_data = f"jpeg/{ds.decoder}"
 
-    def host_stream():
-        i = 0
-        while True:
-            yield host_batches[i % len(host_batches)]
-            i += 1
+        def host_stream():
+            i = 0
+            while True:
+                b = ds.batch(i)
+                yield {"image": torch.from_numpy(b["image"]).to(img_dtype),
+                       "label": torch.from_numpy(b["label"])}
+                i += 1
+    else:
+        host_batches = [host_batch(cfg.num_classes) for _ in range(4)]
+
+        def host_stream():
+            i = 0
+            while True:
+                yield host_batches[i % len(host_batches)]
+                i += 1
 
     put = DevicePut(dev)
     if env.get("BENCH_PUT_SYNC") == "1":
@@ -172,6 +191,8 @@ def run(device="cuda", env: Mapping[str, str] = os.environ) -> dict:
             step, state, lambda: next(fed).wait(), warmup=2, measured=measured, log=log)
     finally:
         fed.close()
+        if tmp is not None:
+            tmp.cleanup()
     fed_images_per_sec_per_chip = fed_steps_per_sec * global_batch / n_chips
     pipeline_efficiency = fed_steps_per_sec / steps_per_sec
     log(f"pipeline-fed: steps/s {fed_steps_per_sec:.4f} ({pipeline_efficiency:.1%} of the "
@@ -202,8 +223,45 @@ def run(device="cuda", env: Mapping[str, str] = os.environ) -> dict:
         **({"alt_block_impl": alt[0],
             "alt_images_per_sec_per_chip": round(alt[1] * global_batch / n_chips, 2)}
            if alt else {}),
+        **({"host_decode_images_per_sec": round(decode_rate, 1), "host_cores": os.cpu_count()}
+           if tmp is not None else {}),
     }, mesh)
     return payload
+
+
+#: JPEG batches timed for ``host_decode_images_per_sec``, after one warm-up
+DECODE_TIMED_BATCHES = 2
+
+
+def jpeg_dataset(root: str, image: int, global_batch: int, num_classes: int):
+    """The fed window's ``JpegClassificationDataset(train=True)`` over a
+    record pair written under ``root`` (the JAX bench's recipe: ``max(512,
+    2 x global_batch)`` images of 8x block-upsampled random content from
+    ``np.random.RandomState(0)`` at ``image + 32`` px), and this process's
+    host decode rate in images/s."""
+    import time
+
+    import numpy as np
+
+    from .data.jpeg_records import JpegClassificationDataset, make_jpeg_record_file
+
+    n_src, src_size = max(512, 2 * global_batch), image + 32
+    rng = np.random.RandomState(0)
+    # blocks decode between noise and a photo in cost; noise would be slower
+    small = rng.randint(0, 255, (n_src, src_size // 8, src_size // 8, 3))
+    src = np.kron(small, np.ones((1, 8, 8, 1), np.uint8)).astype(np.uint8)
+    path = os.path.join(root, "rec")
+    make_jpeg_record_file(path, src[:, :src_size, :src_size], rng.randint(0, num_classes, n_src))
+    ds = JpegClassificationDataset(path, image, global_batch, train=True)
+    ds.batch(0)  # warm the pool and the library
+    t0 = time.perf_counter()
+    for i in range(1, 1 + DECODE_TIMED_BATCHES):
+        ds.batch(i)
+    rate = DECODE_TIMED_BATCHES * ds.local_bs / (time.perf_counter() - t0)
+    log(f"jpeg-fed: {n_src} records at {src_size} px, decode + augment to {image} px inside "
+        f"the fed window (decoder {ds.decoder}, {ds._n_threads} threads): host decode "
+        f"{rate:.1f} images/s per process on {os.cpu_count()} cores")
+    return ds, rate
 
 
 def main(argv=None) -> None:

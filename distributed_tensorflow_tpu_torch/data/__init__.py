@@ -1,6 +1,8 @@
 """Input streams of the ported training paths (the LM, MLM and image
-classification subsets of ``distributed_tensorflow_tpu/data``)."""
+classification subsets of ``distributed_tensorflow_tpu/data``: synthetic
+streams, npz, flat records, JPEG records and the tf.data adapter)."""
 
+from . import tfdata  # noqa: F401  (TensorFlow imported inside host_stream)
 from .pipeline import (  # noqa: F401
     DataConfig,
     DevicePut,

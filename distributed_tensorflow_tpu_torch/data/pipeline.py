@@ -9,9 +9,11 @@ arrays) give batches bit-identical to the JAX package's for the same
 ``(seed, index)``: the process index and count are
 ``parallel.cluster``'s (the JAX package reads
 ``jax.process_index/count``). ``make_dataset`` takes
-``synthetic`` and ``npz:<path>``; ``records:`` and ``jpeg:`` (and the
-``augment`` option they use) come with the real-ImageNet intake, ROADMAP
-Queue A item 3.2.
+``synthetic``, ``npz:<path>``, ``records:<path>`` (flat records through
+the native loader, ``data/records.py``, with ``augment="crop_flip"`` in
+training) and ``jpeg:<path>`` (a JPEG record pair decoded and augmented
+on the host, ``data/jpeg_records.py``); it refuses an ``augment`` for the
+first two, which the JAX package ignores there.
 
 ``Prefetcher`` keeps up to ``depth`` batches ready on a background
 thread, as the JAX package's does; its transform for the card,
@@ -32,13 +34,13 @@ from typing import Any, Callable, Iterable, Iterator
 import numpy as np
 import torch
 
-from ..parallel.cluster import process_count, process_index
+from ..parallel import cluster
 from ..utils.device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
-    # synthetic | npz:<path> (records:<path> | jpeg:<path>: not ported)
+    # synthetic | npz:<path> | records:<path> | jpeg:<path>
     dataset: str = "synthetic"
     eval_dataset: str = ""
     global_batch_size: int = 128
@@ -47,7 +49,10 @@ class DataConfig:
     num_classes: int = 10
     seed: int = 0
     flat: bool = False  # emit (N, H*W*C) instead of (N, H, W, C)
-    augment: str = "none"  # "crop_flip" comes with data/augment.py (not ported)
+    # train-time host augmentation of records: (data/augment.py): "none" |
+    # "crop_flip" (pad-4 random crop + hflip); jpeg: always runs the
+    # ImageNet random-resized-crop recipe instead
+    augment: str = "none"
 
 
 def batch_rng(seed: int, index: int) -> np.random.RandomState:
@@ -55,12 +60,12 @@ def batch_rng(seed: int, index: int) -> np.random.RandomState:
     and disjoint across processes (the process index folded in) — the
     JAX package's stream-seeding scheme, shared by every synthetic
     stream."""
-    s = (seed * 1_000_003 + index) * 97 + process_index()
+    s = (seed * 1_000_003 + index) * 97 + cluster.process_index()
     return np.random.RandomState(s & 0x7FFFFFFF)
 
 
 def local_batch_size(global_batch_size: int) -> int:
-    n = process_count()
+    n = cluster.process_count()
     if global_batch_size % n != 0:
         raise ValueError(
             f"global_batch_size={global_batch_size} not divisible by "
@@ -126,7 +131,7 @@ class NpzDataset:
         self.local_bs = local_batch_size(cfg.global_batch_size)
 
     def _batches_per_epoch(self) -> int:
-        n = len(self.images) // process_count()
+        n = len(self.images) // cluster.process_count()
         return max(n // self.local_bs, 1)
 
     def batch(self, index: int) -> dict[str, np.ndarray]:
@@ -134,7 +139,7 @@ class NpzDataset:
         order = np.arange(len(self.images))
         if self.shuffle:
             np.random.RandomState(self.cfg.seed + epoch).shuffle(order)
-        rank, world = process_index(), process_count()
+        rank, world = cluster.process_index(), cluster.process_count()
         order = order[rank::world]
         idx = order[pos * self.local_bs: (pos + 1) * self.local_bs]
         return {"image": self.images[idx], "label": self.labels[idx]}
@@ -149,20 +154,31 @@ class NpzDataset:
 def make_dataset(cfg: DataConfig, num_batches: int | None = None,
                  index_offset: int = 0, train: bool = True) -> Iterable:
     """The stream ``cfg.dataset`` names. ``train=False`` (the workloads'
-    eval streams) turns stochastic augmentation off."""
-    if train and cfg.augment != "none":
-        raise NotImplementedError(
-            f"data.augment={cfg.augment!r}: data/augment.py is not ported yet "
-            f"(ROADMAP Queue A item 3)")
-    if cfg.dataset == "synthetic":
-        return SyntheticClassification(cfg, num_batches, index_offset)
-    if cfg.dataset.startswith("npz:"):
+    eval streams) turns stochastic augmentation off: ``records:`` without
+    its ``augment``, ``jpeg:`` in file order with the resize + centre-crop
+    decode."""
+    if cfg.dataset == "synthetic" or cfg.dataset.startswith("npz:"):
+        if train and cfg.augment != "none":
+            raise ValueError(f"data.augment={cfg.augment!r} applies to records: only "
+                             f"(dataset {cfg.dataset.split(':')[0]!r})")
+        if cfg.dataset == "synthetic":
+            return SyntheticClassification(cfg, num_batches, index_offset)
         return NpzDataset(cfg.dataset[4:], cfg, num_batches=num_batches,
                           index_offset=index_offset)
-    if cfg.dataset.startswith(("records:", "jpeg:")):
-        raise NotImplementedError(
-            f"dataset {cfg.dataset.split(':')[0]}: (data/records.py, "
-            f"data/jpeg_records.py) is not ported yet (ROADMAP Queue A item 3.2)")
+    if cfg.dataset.startswith("records:"):
+        from .records import RecordClassificationDataset
+
+        return RecordClassificationDataset(
+            cfg.dataset[len("records:"):], (cfg.image_size, cfg.image_size, cfg.channels),
+            cfg.global_batch_size, seed=cfg.seed, num_batches=num_batches,
+            index_offset=index_offset, flat=cfg.flat,
+            augment=cfg.augment if train else "none")
+    if cfg.dataset.startswith("jpeg:"):
+        from .jpeg_records import JpegClassificationDataset
+
+        return JpegClassificationDataset(
+            cfg.dataset[len("jpeg:"):], cfg.image_size, cfg.global_batch_size, seed=cfg.seed,
+            train=train, num_batches=num_batches, index_offset=index_offset)
     raise ValueError(f"Unknown dataset '{cfg.dataset}'")
 
 

@@ -545,8 +545,11 @@ class Checkpointer:
         first (never past ``step``), quarantining each that fails its
         manifest or its read into ``.corrupt/<step>``, and restores the
         newest that verifies. The chief chooses; the other processes
-        restore its choice."""
+        restore its choice and drop the steps it quarantined from the
+        steps they know, so every process makes the same save decisions
+        after a fallback."""
         chosen, leaves, error = None, None, None
+        known = set(self._known)
         if self.chief:
             try:
                 chosen, leaves = self._choose(state, step, fallback)
@@ -554,10 +557,12 @@ class Checkpointer:
                 error = e
         from ..utils.multihost import broadcast_from_chief
 
-        agreed = broadcast_from_chief((chosen, None if error is None else _error_text(error)))
+        agreed = broadcast_from_chief((chosen, None if error is None else _error_text(error),
+                                       sorted(known - self._known)))
         if error is not None:
             raise error
-        chosen, message = agreed
+        chosen, message, quarantined = agreed
+        self._known.difference_update(quarantined)
         if message is not None:
             raise OSError(f"checkpoint restore failed on the chief: {message}")
         if chosen is None:

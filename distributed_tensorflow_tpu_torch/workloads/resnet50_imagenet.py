@@ -6,13 +6,16 @@ bf16 compute with f32 parameters and BatchNorm statistics, 224x224,
 1000 classes; momentum 0.9 at lr 0.4 (0.1 x 1024/256) with a 5-epoch
 warmup and cosine decay over 90 epochs at global batch 1024; coupled L2
 1e-4 on the kernels in the optimizer; label smoothing 0.1. The stream is
-``SyntheticClassification`` by default or an ``npz:`` file; real ImageNet
-(``records:``/``jpeg:``) is ROADMAP Queue A item 3.2. The
-``block_impl`` override picks the plain model (``standard``) or the fused
-conv+BN kernels (``fused``). Evaluation (top-1, top-5, loss; BatchNorm on
-its running statistics) runs on the same stream at a disjoint index
-range; an explicit ``data.eval_dataset`` is refused, as in the JAX
-package."""
+``SyntheticClassification`` by default, or what ``data.dataset`` names
+through ``make_dataset``: an ``npz:`` file, ``records:`` (flat records
+through the native loader, ``data.augment=crop_flip`` in training) or
+``jpeg:`` (a JPEG record pair, random-resized-crop + flip in training).
+The ``block_impl`` override picks the plain model (``standard``) or the
+fused conv+BN kernels (``fused``). Evaluation (top-1, top-5, loss;
+BatchNorm on its running statistics) runs on the same source at a
+disjoint index range with augmentation off (``jpeg:``: the resize +
+centre-crop decode); an explicit ``data.eval_dataset`` is refused, as in
+the JAX package."""
 
 from __future__ import annotations
 

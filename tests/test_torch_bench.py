@@ -2,8 +2,10 @@
 bench``) and its shared pieces (``utils/benchmarking.py``,
 ``obs/scaling.py``) on the CPU: ``--device cpu`` prints exactly one JSON
 line with the JAX ``bench.py``'s fields and a provenance block that says
-CPU; a non-finite loss refuses a rate; ``BENCH_DATA=jpeg`` raises naming
-its ROADMAP item; without ``--device cpu`` it runs on the card or raises.
+CPU; a non-finite loss refuses a rate; ``BENCH_DATA=jpeg`` decodes every
+fed batch from a JPEG record pair (the native decoder here) and reports
+the host's decode rate; without ``--device cpu`` it runs on the card or
+raises.
 """
 
 import json
@@ -66,9 +68,12 @@ def test_a_non_finite_loss_refuses_a_rate():
     assert bm.timed_steps(step, 0, lambda: None, warmup=0, measured=2)[2] == [1.0, 1.0]
 
 
-def test_jpeg_data_raises_naming_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 3.2"):
-        bench.run("cpu", env={"BENCH_DATA": "jpeg"})
+def test_jpeg_fed_window_decodes_inside_the_window():
+    p = bench.run("cpu", env={"BENCH_DATA": "jpeg", "BENCH_STEPS": "2"})
+    assert p["fed_data"] == "jpeg/native" and p["host_cores"] == os.cpu_count()
+    assert p["host_decode_images_per_sec"] > 0 and p["pipeline_efficiency"] > 0
+    assert len(p["fed_losses"]) == 2 and np.isfinite(p["fed_losses"]).all()
+    assert p["image_size"] == 64 and p["global_batch"] == 8
     with pytest.raises(ValueError, match="synthetic"):
         bench.run("cpu", env={"BENCH_DATA": "tfrecord"})
 

@@ -884,6 +884,55 @@ def test_resnet_run_on_card_is_bitwise_repeatable(card, monkeypatch):
     assert [k for k in a if not torch.equal(a[k], b[k])] == []
 
 
+@pytest.mark.cuda
+def test_resnet_records_fed_run_on_card_is_bitwise_and_equals_hand_fed(card, tmp_path,
+                                                                      monkeypatch):
+    """A small fused ResNet (backward kernels) trained 3 steps through
+    ``run_workload`` from ``records:`` with crop_flip: two runs end in
+    bitwise equal losses, parameters and buffers, and the losses are those
+    of the same steps fed the same dataset's batches by hand
+    (``tests/torch_dp_worker.train_steps``, deterministic cuDNN); the
+    hand-fed steps with one image of batch 1 flipped differ (the control)."""
+    import itertools
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    import torch_dp_worker as worker
+
+    from distributed_tensorflow_tpu_torch.data.pipeline import make_dataset
+    from distributed_tensorflow_tpu_torch.data.records import make_record_file
+    from distributed_tensorflow_tpu_torch.models import resnet
+    from distributed_tensorflow_tpu_torch.utils.config import apply_overrides
+    from distributed_tensorflow_tpu_torch.workloads import resnet50_imagenet, run_workload
+
+    monkeypatch.setenv("DTF_FUSED_BWD", "pallas")
+    rng = np.random.default_rng(3)
+    path = str(tmp_path / "train.rec")
+    make_record_file(path, rng.integers(0, 256, (96, 64, 64, 3), dtype=np.uint8),
+                     rng.integers(0, 10, 96).astype(np.int32))
+    overrides = ["--model.stage_sizes=[1,1]", "--model.width=64", "--model.num_classes=10",
+                 "--data.image_size=64", "--data.num_classes=10", "--data.global_batch_size=32",
+                 "--model.block_impl=fused", "--train.num_steps=3", "--train.log_every=1",
+                 "--optimizer.warmup_steps=0", "--optimizer.schedule=constant",
+                 "--optimizer.learning_rate=0.1", "--train.eval_batches=0",
+                 f"--data.dataset=records:{path}", "--data.augment=crop_flip"]
+    runs = [run_workload("resnet50_imagenet", overrides, device=card) for _ in range(2)]
+    losses = [[h["loss"] for h in r.history] for r in runs]
+    a, b = (r.state.model.state_dict() for r in runs)
+    assert losses[0] == losses[1] and [k for k in a if not torch.equal(a[k], b[k])] == []
+    cfg = apply_overrides(resnet50_imagenet.default_config(), overrides)
+    batches = list(itertools.islice(make_dataset(cfg.data), 3))
+    sd = resnet.init_params(cfg.model, seed=cfg.train.seed, device=card)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    hand = worker.train_steps(cfg.model, sd, batches, card, bwd="pallas")
+    assert list(map(float, hand["losses"])) == losses[0]
+    batches[1]["image"][0] = batches[1]["image"][0, :, ::-1].copy()
+    control = worker.train_steps(cfg.model, sd, batches, card, bwd="pallas")
+    assert float(control["losses"][0]) == losses[0][0]
+    assert float(control["losses"][1]) != losses[0][1]
+
+
 # ---------------------------------------------------------------------------
 # fused LayerNorm + matmul backward (rows 6-7 of the kernel table)
 # ---------------------------------------------------------------------------

@@ -19,6 +19,10 @@ the JAX package and against the port's own straight runs.
   stop cleanly, only the chief writes, both restore the same state and
   resume; one rank with an ``AsyncCommitKill`` dies by SIGKILL leaving
   ``.pending/<step>`` and the older ``latest_step``.
+- Processes (the ``ckpt_fallback`` job): two gloo ranks restore with
+  ``fallback=True`` past a torn newest step that the chief quarantines;
+  both then return the same from a forced save of that step, which
+  completes on both.
 
 No signal is sent to the pytest process.
 """
@@ -350,3 +354,21 @@ def test_async_commit_kill_leaves_the_step_pending_and_latest_unchanged():
             assert not os.path.exists(f"{d}/ck/.pending/4")  # a new writer drops it
         finally:
             ckpt.close()
+
+
+def test_two_ranks_agree_after_a_fallback_restore_quarantines_a_torn_step():
+    with tempfile.TemporaryDirectory() as d:
+        spec = {"job": "ckpt_fallback", "device": "cpu", "out": d, "dir": f"{d}/ck",
+                "cfg": dict(stage_sizes=(1, 1), width=8, num_classes=10, dtype="float32")}
+        procs = W.launch(spec, 2)
+        try:
+            r0, r1 = W.wait(procs, d, timeout=90)
+        except BaseException:
+            W.stop(procs)
+            raise
+        corrupt = os.listdir(f"{d}/ck/.corrupt")
+    assert corrupt == ["4"]
+    for r in (r0, r1):
+        assert bool(r["restored"]) and int(r["restored_step"]) == 2
+        assert bool(r["saved"]) and bool(r["verified"])
+        assert list(r["known"]) == [2, 4]

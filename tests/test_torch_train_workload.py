@@ -243,8 +243,8 @@ def test_run_workload_steps_with_deterministic_cudnn_and_restores_it(monkeypatch
 
 
 @pytest.mark.parametrize("override,match", [
-    ("--data.dataset=records:/tmp/r", "records"),
-    ("--data.dataset=jpeg:/tmp/j", "jpeg"),
+    ("--data.dataset=tfrecord:/tmp/r", "Unknown dataset"),
+    ("--data.image_size=15", "even size"),
     ("--data.augment=crop_flip", "augment"),
     ("--data.eval_dataset=synthetic", "does not support data.eval_dataset"),
     ("--data.channels=1", "3 channels"),

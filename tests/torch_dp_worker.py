@@ -40,6 +40,12 @@ exits non-zero on any failure. The spec's ``job``:
   (after the restore), the state it ended with, and how many checkpoint
   commits this process made (``ckpt_save`` events: only the chief
   writes).
+- ``"ckpt_fallback"``: a tiny ResNet of ``cfg`` saved at steps 2 and 4
+  into ``dir``, step 4's ``shard-00000.dtf`` truncated by the chief, then
+  a fresh ``Checkpointer``'s ``init_or_restore(fallback=True)`` and a
+  forced ``save(4, trigger="final")``; it saves the restored step, what
+  the save returned, the steps the checkpointer knows and whether step
+  4's manifest verifies after a barrier.
 
 ``train_steps`` and ``bert_steps`` are also what the one-process
 references run (no mesh);
@@ -335,6 +341,42 @@ def job_ckpt(spec: dict, dev, mesh) -> dict:
     return out
 
 
+def job_ckpt_fallback(spec: dict, dev, mesh) -> dict:
+    from distributed_tensorflow_tpu_torch.train import checkpoint as tck
+
+    cfg = resnet.ResNetConfig(**spec["cfg"])
+    model = resnet.build(cfg, resnet.init_params(cfg, seed=0, device=dev), dev, mesh)
+    state = tstep.init_train_state(model, topt.make_optimizer(
+        topt.OptimizerConfig(**OPTIMIZER), model.parameters()))
+    ccfg = tck.CheckpointConfig(directory=spec["dir"], async_save=False,
+                                save_on_preemption=False)
+    ck = tck.Checkpointer(ccfg)
+    try:
+        for step in (2, 4):
+            state.step = step
+            ck.save(step, state, force=True)
+    finally:
+        ck.close()
+    if cluster.is_chief():
+        shard = os.path.join(tck.step_dir(spec["dir"], 4), tck._shard_name(0))
+        with open(shard, "r+b") as f:
+            f.truncate(os.path.getsize(shard) - 1)
+    cluster.sync_hosts("torn")
+    ck = tck.Checkpointer(ccfg)
+    try:
+        state, restored = tck.init_or_restore(ck, state, fallback=True)
+        restored_step = int(state.step)
+        saved = ck.save(4, state, force=True, trigger="final")
+        cluster.sync_hosts("final_saved")
+        verified = ck.verify_manifest(4)
+        known = sorted(ck._known)
+    finally:
+        ck.close()
+    return {"restored": np.asarray(restored), "restored_step": np.asarray(restored_step),
+            "saved": np.asarray(saved), "known": np.asarray(known),
+            "verified": np.asarray(bool(verified))}
+
+
 def free_port() -> int:
     import socket
 
@@ -413,7 +455,7 @@ def main(spec_path: str) -> int:
             torch.backends.cudnn.deterministic = True
         mesh = build_mesh(MeshSpec(data=-1), dev)
         jobs = {"job_resnet": job_resnet, "job_bert": job_bert, "job_parallel": job_parallel,
-                "job_ckpt": job_ckpt}
+                "job_ckpt": job_ckpt, "job_ckpt_fallback": job_ckpt_fallback}
         out = jobs[f"job_{spec['job']}"](spec, dev, mesh)
         np.savez(os.path.join(spec["out"], f"rank{cluster.process_index()}.npz"), **out)
     finally:
