@@ -171,7 +171,29 @@ when any phase fails:
    launches the rule's a step; the records-fed step time beside phase 6's.
    The card's machine has no libjpeg headers, so the JPEG decoder is not
    built or run here (ROADMAP);
-11. print the ``kernels`` JSON line (twelve entries: ``ln_matmul`` is the
+11. Wide&Deep CTR (``WD_*``, no kernel of its own: the lookups are
+   gathers and their backward PyTorch's sort-based embedding backward):
+   (a) one card, ``model=1``, the accelerator shape of
+   ``tools/bench_wide_deep.py`` (26 tables of 100000 x 64 in f32, 13
+   dense features, hidden 1024-512-256, bf16, 16384 rows, the ``auto``
+   optimizer at lr 0.05): 12 steps through ``run_workload("wide_deep")``
+   fed by the Prefetcher from ``SyntheticCTR``, a final eval of 4 batches
+   (loss, accuracy, AUC); the median step ms of steps 3-12, examples/s,
+   the embedding traffic in GB/s (``3·F·(D+1)·4`` bytes an example), peak
+   memory and the idle share of one profiled step; the loss must fall;
+   two same-seed runs of 3 steps bitwise equal (losses and every
+   parameter) and a seed + 1 control that differs; one f32 step on the
+   card against the same step on the CPU (same weights, a batch of
+   ``WD_F32_BATCH``) within ``TOL["wd/f32/*"]``, beside an update x 1.01
+   control the gate must fail; (b) two processes on this card over gloo
+   (``tests/torch_dp_worker.py``'s ``wide_deep`` job) at ``data=1,
+   model=2``: 3 f32 steps of a global batch of ``WD_DP_GLOBAL`` through
+   ``run_workload`` with the tables range-sharded over ``model`` (the
+   exchange: all-reduces only, as gloo has no CUDA all-gather), held
+   against one process at ``model=1`` on the same rows (losses and every
+   parameter, the tables reassembled from the shards, ``TOL["wd/dp/*"]``;
+   whether they are bitwise is printed);
+12. print the ``kernels`` JSON line (twelve entries: ``ln_matmul`` is the
    serving forward at M=8, ``ln_matmul_train`` the tiled forward at
    M=8192), then the ``ok`` line last.
 
@@ -182,6 +204,7 @@ TF32 is off for every f32 product compared here
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import re
@@ -410,6 +433,22 @@ TOL = {
     "dp/bf16/loss": 5e-3,                     # 5.89e-4
     "dp/bf16/bn": 1e-2,                       # 4.28e-3
     "dp/bf16/vs_f32": 1.2,                    # 0.99 (0.459 vs 0.463)
+    # phase 11a: one f32 wide_deep step on the card vs the same step on the
+    # CPU (same weights, same batch): other summation orders in the MLP
+    # products and the embedding backward; the loss as a relative
+    # difference, each parameter's update as relative L2 error. A table's
+    # update is led by its hottest rows (a Zipf head id and the clipped
+    # tail, hundreds of rows each at batch 2048), whose gradient is a sum
+    # of hundreds of terms that largely cancel, so the order shows at
+    # ~1e-4 there. The update x 1.01 control reads 1e-2 and must fail
+    "wd/f32/loss": 1e-5,                      # 6.45e-8 measured on an H100 at 700 W
+    "wd/f32/update": 1e-3,                    # 8.58e-5 (table_2)
+    # phase 11b: two ranks at model=2 vs one process at model=1, f32: the
+    # only difference allowed is the order in which a table shard's
+    # embedding backward sums duplicate ids (a shard also sums the zero
+    # rows of the ids it does not own), so the same bounds
+    "wd/dp/loss": 1e-5,                       # 0 measured: bitwise
+    "wd/dp/update": 1e-3,                     # 0
 }
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -3359,6 +3398,250 @@ def phase_intake(torch, np, card, resnet_step_ms):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: Wide&Deep CTR, tables sharded over the model axis
+# ---------------------------------------------------------------------------
+
+#: tools/bench_wide_deep.py's accelerator shape: 26 tables of 100000 x 64
+#: (f32), 13 dense features, hidden 1024-512-256, bf16, 16384 rows a card,
+#: the auto optimizer (FTRL wide, AdaGrad deep) at lr 0.05
+WD_FEATURES, WD_VOCAB, WD_EMBED, WD_BATCH = 26, 100000, 64, 16384
+WD_OVERRIDES = [f"--model.vocab_sizes=[{','.join([str(WD_VOCAB)] * WD_FEATURES)}]",
+                f"--model.embed_dim={WD_EMBED}", "--model.dense_features=13",
+                "--model.hidden_sizes=[1024,512,256]", "--model.dtype=bfloat16",
+                f"--data.global_batch_size={WD_BATCH}", "--optimizer.learning_rate=0.05",
+                "--train.log_every=1", "--mesh.model=1"]
+WD_STEPS = 12
+WD_EVAL_BATCHES = 4
+WD_REPEAT_STEPS = 3
+#: rows of the f32 card-vs-CPU step (the CPU's share of the phase's time)
+WD_F32_BATCH = 2048
+#: phase 11b: two ranks on the card, data=1 x model=2, f32
+WD_DP_GLOBAL = 2048
+WD_DP_STEPS = 3
+
+
+def wd_bytes_per_example() -> int:
+    """The JAX bench's embedding traffic an example: the forward gather and
+    the backward scatter-add's read-modify-write of the f32 rows, deep
+    (D) and wide (1) columns of every feature."""
+    return 3 * WD_FEATURES * (WD_EMBED + 1) * 4
+
+
+def wd_state(torch, model) -> dict:
+    return {k: v.detach().float().cpu() for k, v in model.state_dict().items()}
+
+
+def wd_update_errs(torch, got: dict, want: dict, init: dict) -> tuple[float, str]:
+    """The worst relative L2 error of a parameter's update, and its name."""
+    return max((rel_l2(got[k] - init[k], want[k] - init[k]), k) for k in want)
+
+
+def wd_f32_step(torch, np):
+    """One f32 step of the auto optimizer on the card and on the CPU from
+    the same whole weights and batch: the loss's relative difference and
+    the worst relative L2 error of a parameter's update, beside an update
+    x 1.01 control."""
+    from distributed_tensorflow_tpu_torch.data.recsys import RecsysConfig, SyntheticCTR
+    from distributed_tensorflow_tpu_torch.models import wide_deep as wd
+    from distributed_tensorflow_tpu_torch.train import init_train_state, make_train_step
+    from distributed_tensorflow_tpu_torch.utils.config import apply_overrides
+    from distributed_tensorflow_tpu_torch.workloads import wide_deep as wl
+
+    cfg = apply_overrides(wl.default_config(), WD_OVERRIDES + ["--model.dtype=float32"])
+    sd = wd.init_params(cfg.model, seed=0, device="cpu")
+    data = SyntheticCTR(RecsysConfig(vocab_sizes=cfg.model.vocab_sizes, dense_features=13,
+                                     global_batch_size=WD_F32_BATCH, seed=3))
+    host = data.batch(0)
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        model = wd.build(cfg.model, sd, dev)
+        state = init_train_state(model, wl._canonical_tx(cfg)(model))
+        step = make_train_step(wd.ctr_loss_fn(model))
+        state, m = step(state, {k: torch.from_numpy(v).to(dev) for k, v in host.items()})
+        out[dev] = (float(m["loss"]), wd_state(torch, model))
+        del model, state
+    (loss_c, card), (loss_h, cpu) = out[DEVICE], out["cpu"]
+    loss_err = abs(loss_c - loss_h) / abs(loss_h)
+    worst = wd_update_errs(torch, card, cpu, sd)
+    ctl = wd_update_errs(torch, {k: sd[k] + 1.01 * (v - sd[k]) for k, v in card.items()}, cpu,
+                         sd)
+    log(f"  11a f32 step, card vs CPU (batch {WD_F32_BATCH}): loss {loss_c:.8f} vs "
+        f"{loss_h:.8f} (relative {loss_err:.3e}, limit {TOL['wd/f32/loss']}); updates worst "
+        f"relative L2 {worst[0]:.3e} ({worst[1]}, limit {TOL['wd/f32/update']}); control "
+        f"(card update x 1.01) {ctl[0]:.3e}")
+    if not (loss_err <= TOL["wd/f32/loss"] and worst[0] <= TOL["wd/f32/update"]):
+        raise SmokeFailure(f"phase 11a: the f32 card step is off the CPU step: loss "
+                           f"{loss_err:.3e}, update {worst}")
+    if ctl[0] <= TOL["wd/f32/update"]:
+        raise SmokeFailure(f"phase 11a: the x1.01 control passes the update gate ({ctl[0]:.3e})")
+    return {"loss": loss_err, "update": worst[0], "control": ctl[0]}
+
+
+def wd_profile_step(torch, res) -> dict:
+    """One more step of the trained state under torch.profiler, its batch
+    resident: wall, device busy time and the top kernels."""
+    from distributed_tensorflow_tpu_torch.data.recsys import RecsysConfig, SyntheticCTR
+    from distributed_tensorflow_tpu_torch.models import wide_deep as wd
+    from distributed_tensorflow_tpu_torch.train import make_train_step
+
+    model = res.state.model
+    data = SyntheticCTR(RecsysConfig(vocab_sizes=model.cfg.vocab_sizes, dense_features=13,
+                                     global_batch_size=WD_BATCH, seed=11))
+    dev = {k: torch.from_numpy(v).to(DEVICE) for k, v in data.batch(0).items()}
+    step = make_train_step(wd.ctr_loss_fn(model))
+    state, m = step(res.state, dev)
+    float(m["loss"])
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, dev)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = [e for e in device_events(torch, prof) if e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    log(f"  11a profiled step (B={WD_BATCH}, batch resident, profiler on): wall {wall_ms:.2f} "
+        f"ms, device busy {busy_ms:.2f} ms = {100 * busy_ms / wall_ms:.1f}% (idle "
+        f"{100 - 100 * busy_ms / wall_ms:.1f}%), {sum(e.count for e in events)} device records")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms}
+
+
+def wd_one_card(torch, np, card) -> dict:
+    """Phase 11a (module docstring)."""
+    from distributed_tensorflow_tpu_torch.workloads import run_workload
+
+    out = {}
+    # the run's own peak: what earlier phases still hold is counted apart
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["held_gib"] = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = run_workload("wide_deep", WD_OVERRIDES + [
+        f"--train.num_steps={WD_STEPS}", f"--train.eval_batches={WD_EVAL_BATCHES}"],
+        device=DEVICE)
+    wall = time.perf_counter() - t0
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30 - out["held_gib"]
+    losses = [h["loss"] for h in res.history]
+    rates = [h["steps_per_sec"] for h in res.history if "steps_per_sec" in h and h["step"] >= 3]
+    out["step_ms"] = 1e3 / float(np.median(rates))
+    out["ex_s"] = WD_BATCH * 1e3 / out["step_ms"]
+    out["embed_gbps"] = out["ex_s"] * wd_bytes_per_example() / 1e9
+    out["eval"] = res.eval_metrics
+    out["losses"] = losses
+    log(f"  11a run_workload('wide_deep'), {WD_STEPS} steps + an eval of {WD_EVAL_BATCHES} "
+        f"batches (run wall {wall:.1f} s, the SyntheticCTR teacher and init included): losses "
+        f"{[round(x, 5) for x in losses]}; step {out['step_ms']:.3f} ms (median of steps "
+        f"3-{WD_STEPS}, each timed by MetricsLogger's read of its loss) = {out['ex_s']:.0f} "
+        f"examples/s, embed traffic {out['embed_gbps']:.2f} GB/s ({wd_bytes_per_example()} "
+        f"bytes an example); peak memory {out['peak_gib']:.3f} GiB above the "
+        f"{out['held_gib']:.3f} GiB held before the run; eval {res.eval_metrics}; "
+        f"{card}")
+    if not (np.isfinite(losses).all() and np.mean(losses[-3:]) < np.mean(losses[:3])):
+        raise SmokeFailure(f"phase 11a: the loss does not fall ({losses})")
+    if not (res.eval_metrics and np.isfinite(res.eval_metrics.get("auc", np.nan))):
+        raise SmokeFailure(f"phase 11a: the eval has no finite auc ({res.eval_metrics})")
+    out["profile"] = wd_profile_step(torch, res)
+    del res
+    torch.cuda.empty_cache()
+    runs = []
+    for seed in (0, 0, 1):
+        r = run_workload("wide_deep", WD_OVERRIDES + [
+            f"--train.num_steps={WD_REPEAT_STEPS}", "--train.eval_batches=0",
+            f"--train.seed={seed}"], device=DEVICE)
+        runs.append(([h["loss"] for h in r.history], wd_state(torch, r.state.model)))
+        del r
+    (la, a), (lb, b), (lc, c) = runs
+    same = la == lb and all(torch.equal(a[k], b[k]) for k in a)
+    differs = la != lc and not all(torch.equal(a[k], c[k]) for k in a)
+    log(f"  11a repeat: two seed-0 runs of {WD_REPEAT_STEPS} steps: losses {la} and {lb}, "
+        f"bitwise equal (losses and every parameter): {same}; seed-1 control {lc}, differs: "
+        f"{differs}")
+    if not same:
+        raise SmokeFailure("phase 11a: two same-seed runs differ")
+    if not differs:
+        raise SmokeFailure("phase 11a: the seed + 1 control equals the seed-0 run")
+    del runs, a, b, c
+    torch.cuda.empty_cache()
+    out["f32"] = wd_f32_step(torch, np)
+    return out
+
+
+def wd_two_ranks(torch, np) -> dict:
+    """Phase 11b (module docstring)."""
+    import tempfile
+
+    from distributed_tensorflow_tpu_torch.models import wide_deep as wd
+    from distributed_tensorflow_tpu_torch.utils.config import apply_overrides
+    from distributed_tensorflow_tpu_torch.workloads import run_workload
+    from distributed_tensorflow_tpu_torch.workloads import wide_deep as wl
+
+    worker = load_dp_worker()
+    over = WD_OVERRIDES + ["--model.dtype=float32", f"--data.global_batch_size={WD_DP_GLOBAL}",
+                           f"--train.num_steps={WD_DP_STEPS}", "--train.eval_batches=0"]
+    sharded = over + ["--mesh.data=1", "--mesh.model=2"]
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        procs = worker.launch({"job": "wide_deep", "device": DEVICE, "backend": "gloo",
+                               "out": d, "runner": sharded})
+        try:
+            ref = run_workload("wide_deep", over, device=DEVICE)
+            ref_losses = [h["loss"] for h in ref.history]
+            ref_sd = wd_state(torch, ref.state.model)
+            del ref
+            cfg = apply_overrides(wl.default_config(), over).model
+            init = {k: v.cpu() for k, v in wd.init_params(cfg, seed=0, device=DEVICE).items()}
+        except BaseException:
+            worker.stop(procs)
+            raise
+        ranks = worker.wait(procs, d, timeout=600)
+        wall = time.perf_counter() - t0
+    shards = [{k[len("runner/state/"):]: torch.from_numpy(v) for k, v in r.items()
+               if k.startswith("runner/state/")} for r in ranks]
+    # the tables reassembled from the ranks' range shards (no padding at
+    # 100000 rows over 2), the replicated parameters rank 0's
+    whole = {k: torch.cat([sh[k] for sh in shards])[:cfg.vocab_sizes[0]]
+             if "table_" in k else shards[0][k] for k in ref_sd}
+    want = ref_sd
+    losses = [list(map(float, r["runner/losses"])) for r in ranks]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses[0], ref_losses))
+    worst = wd_update_errs(torch, whole, want, init)
+    bitwise = losses[0] == ref_losses and all(torch.equal(whole[k], want[k]) for k in want)
+    models = [int(r["runner/mesh_model"]) for r in ranks]
+    log(f"  11b two ranks on this card over gloo, data=1 x model=2 (tables range-sharded, "
+        f"{WD_VOCAB // 2} rows a rank), {WD_DP_STEPS} f32 steps of {WD_DP_GLOBAL} rows through "
+        f"run_workload (wall {wall:.1f} s): rank losses {losses}, one process at model=1 "
+        f"{ref_losses}; worst loss relative difference {loss_err:.3e} (limit "
+        f"{TOL['wd/dp/loss']}); updates worst relative L2 {worst[0]:.3e} ({worst[1]}, limit "
+        f"{TOL['wd/dp/update']}); bitwise: {bitwise}; mesh model axis on the ranks {models}")
+    replicated = [k for k in ref_sd if "table_" not in k]
+    if models != [2, 2] or losses[0] != losses[1] or not all(
+            torch.equal(shards[0][k], shards[1][k]) for k in replicated):
+        raise SmokeFailure(f"phase 11b: the ranks ran model={models}, or disagree on the loss "
+                           f"or on a replicated parameter")
+    if not (loss_err <= TOL["wd/dp/loss"] and worst[0] <= TOL["wd/dp/update"]):
+        raise SmokeFailure(f"phase 11b: model=2 is off the one-process run: loss {loss_err:.3e}, "
+                           f"update {worst}")
+    return {"loss": loss_err, "update": worst[0], "bitwise": bitwise, "wall_s": wall}
+
+
+def phase_wide_deep(torch, np, card) -> dict:
+    log(f"phase 11: Wide&Deep CTR (tables {WD_FEATURES} x {WD_VOCAB} x {WD_EMBED} f32, hidden "
+        f"1024-512-256, bf16, {WD_BATCH} rows, the auto optimizer): one card at model=1, then "
+        f"two ranks on this card at model=2; on {card}")
+    t0 = time.perf_counter()
+    out = wd_one_card(torch, np, card)
+    torch.cuda.empty_cache()
+    out["dp"] = wd_two_ranks(torch, np)
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"  phase 11 wall {out['wall_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phases 3-4: serve gpt_small at full width
 # ---------------------------------------------------------------------------
 
@@ -3653,6 +3936,7 @@ def main() -> int:
         bert = phase_bert(torch, np, smi)
         ckpt = phase_ckpt(torch, np, smi)
         intake = phase_intake(torch, np, smi, resnet["passes"]["fused/pallas"]["step_ms"])
+        wide = phase_wide_deep(torch, np, smi)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -3767,6 +4051,16 @@ def main() -> int:
         f"{intake['losses']} bitwise the hand-fed steps', launches {intake['launches']}; host "
         f"records stream {intake['host_images_s']:.1f} images/s; loader native == Python over "
         f"{intake['compared']} batches")
+    log(f"wide_deep (phase 11, {wide['wall_s']:.1f} s; {smi}): 11a model=1, {WD_FEATURES} "
+        f"tables of {WD_VOCAB} x {WD_EMBED}, bf16, batch {WD_BATCH}: step "
+        f"{wide['step_ms']:.3f} ms, {wide['ex_s']:.0f} examples/s, embed traffic "
+        f"{wide['embed_gbps']:.2f} GB/s, peak {wide['peak_gib']:.3f} GiB (above "
+        f"{wide['held_gib']:.3f} held before), profiled step idle "
+        f"{100 - 100 * wide['profile']['busy_ms'] / wide['profile']['wall_ms']:.1f}%; eval "
+        f"loss {wide['eval']['loss']:.5f} accuracy {wide['eval']['accuracy']:.5f} auc "
+        f"{wide['eval']['auc']:.5f}; f32 card vs CPU {wide['f32']}; 11b model=2 on two ranks vs "
+        f"model=1: loss {wide['dp']['loss']:.3e}, updates {wide['dp']['update']:.3e}, bitwise "
+        f"{wide['dp']['bitwise']}")
     log(f"cuda_ms traces kept {PAD_RECORDS[0]} of the {PAD_RECORDS[1]} spin-kernel records "
         f"that opened them")
     log(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s (builds included)")

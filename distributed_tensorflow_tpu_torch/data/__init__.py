@@ -1,6 +1,7 @@
-"""Input streams of the ported training paths (the LM, MLM and image
-classification subsets of ``distributed_tensorflow_tpu/data``: synthetic
-streams, npz, flat records, JPEG records and the tf.data adapter)."""
+"""Input streams of the ported training paths (the LM, MLM, image
+classification and CTR subsets of ``distributed_tensorflow_tpu/data``:
+synthetic streams, npz, flat records, JPEG records, CTR records and the
+tf.data adapter)."""
 
 from . import tfdata  # noqa: F401  (TensorFlow imported inside host_stream)
 from .pipeline import (  # noqa: F401
@@ -14,6 +15,13 @@ from .pipeline import (  # noqa: F401
     batch_rng,
     local_batch_size,
     make_dataset,
+)
+from .recsys import (  # noqa: F401
+    CTRRecordDataset,
+    RecsysConfig,
+    SyntheticCTR,
+    ctr_record_dtype,
+    make_ctr_record_file,
 )
 from .text import (  # noqa: F401
     IGNORE_INDEX,

@@ -55,21 +55,26 @@ class DataConfig:
     augment: str = "none"
 
 
-def batch_rng(seed: int, index: int) -> np.random.RandomState:
-    """Per-batch, per-process RandomState: deterministic in (seed, index)
-    and disjoint across processes (the process index folded in) — the
-    JAX package's stream-seeding scheme, shared by every synthetic
-    stream."""
-    s = (seed * 1_000_003 + index) * 97 + cluster.process_index()
+def batch_rng(seed: int, index: int, shard: int | None = None) -> np.random.RandomState:
+    """Per-batch, per-shard RandomState: deterministic in (seed, index)
+    and disjoint across shards (the shard index folded in) — the JAX
+    package's stream-seeding scheme, shared by every synthetic stream.
+    ``shard`` defaults to the process index, as there; a stream whose
+    ranks do not all take different rows (a ``model`` axis above 1)
+    passes its data shard."""
+    s = (seed * 1_000_003 + index) * 97 + (cluster.process_index() if shard is None
+                                           else shard)
     return np.random.RandomState(s & 0x7FFFFFFF)
 
 
-def local_batch_size(global_batch_size: int) -> int:
-    n = cluster.process_count()
+def local_batch_size(global_batch_size: int, shards: int | None = None) -> int:
+    """Rows a shard takes of each global batch; ``shards`` defaults to the
+    process count."""
+    n = cluster.process_count() if shards is None else shards
     if global_batch_size % n != 0:
         raise ValueError(
             f"global_batch_size={global_batch_size} not divisible by "
-            f"process_count={n}"
+            f"{'process_count' if shards is None else 'batch shards'}={n}"
         )
     return global_batch_size // n
 

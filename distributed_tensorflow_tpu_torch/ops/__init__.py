@@ -1,6 +1,7 @@
 """Ops of the ported serve and training paths. The CUDA kernels
 (``csrc/``) are built on their first launch, never at import
-(``_build.py``). The dispatch ``attention.attention`` and the
+(``_build.py``); ``embedding`` (Wide&Deep's sharded lookups) launches
+none of its own. The dispatch ``attention.attention`` and the
 differentiable ``flash_attention.flash_attention`` are not re-exported
 here: their names are their modules'."""
 

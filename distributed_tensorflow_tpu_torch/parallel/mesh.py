@@ -11,9 +11,11 @@ over that dimension's process group (``parallel/collectives.py``).
 
 With one process and no process group the mesh is the one device, and
 every collective over it is the identity, as JAX's ``psum`` over a size-1
-axis is. In this slice only ``data`` may exceed 1 (synchronous
-data parallelism: the batch split over ``BATCH_AXES``, the gradients and
-the BatchNorm statistics all-reduced over them); any other axis above 1,
+axis is. ``data`` may exceed 1 (synchronous data parallelism: the batch split
+over ``BATCH_AXES``, the gradients and the BatchNorm statistics
+all-reduced over them), and so may ``model``, over which a rule table
+may range-shard embedding tables (``parallel/sharding.py``; the runner
+refuses a workload that places nothing there); any other axis above 1,
 and the DCN factors of a multislice mesh, raise with their ROADMAP item.
 ``PodTopology`` and ``factor_mesh_axis`` are not ported (ROADMAP Queue A
 item 6).
@@ -44,7 +46,6 @@ _NOT_PORTED = {
     FSDP: "parameter sharding, item 3.1's rule tables (parallel/sharding.py)",
     SEQ: "sequence parallelism, item 6 (parallel/ring_attention.py)",
     EXPERT: "expert parallelism, item 6 (ops/moe.py)",
-    MODEL: "tensor parallelism, item 3.1's rule tables (parallel/sharding.py)",
 }
 
 
@@ -126,7 +127,11 @@ class Mesh:
     def group(self, axes: str | Sequence[str]):
         """The process group of ``axes`` (a name or a tuple of names), or
         None where their product is 1 (a collective over them is then the
-        identity)."""
+        identity). Several axes above 1 together must be every axis of the
+        mesh above 1: their group is then the default one, whose ranks
+        are numbered as the axes flatten in ``AXIS_NAMES`` order."""
+        import torch.distributed as dist
+
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
         unknown = [a for a in axes if a not in self.shape]
         if unknown:
@@ -134,8 +139,11 @@ class Mesh:
         big = [a for a in axes if self.shape[a] > 1]
         if not big:
             return None
-        if len(big) > 1:  # build_mesh lets only data past 1
-            raise NotImplementedError(f"a collective over the axes {big} together")
+        if len(big) > 1:
+            if set(big) != {a for a, v in self.shape.items() if v > 1}:
+                raise NotImplementedError(f"a collective over the axes {big} together, "
+                                          f"a part of the mesh's {dict(self.shape)}")
+            return dist.group.WORLD
         return self.device_mesh.get_group(big[0])
 
 
@@ -153,10 +161,10 @@ def build_mesh(spec: MeshSpec | Mapping[str, int] | None = None, device="cuda") 
         raise NotImplementedError(
             f"dcn_data={spec.dcn_data} dcn_pipe={spec.dcn_pipe}: multislice meshes are not "
             f"ported yet (ROADMAP Queue A item 6)")
-    big = {a: v for a, v in spec.sizes().items() if v > 1 and a != DATA}
+    big = {a: v for a, v in spec.sizes().items() if v > 1 and a not in (DATA, MODEL)}
     if big:
         raise NotImplementedError(
-            f"mesh {big}: only the data axis may exceed 1 in the port so far; "
+            f"mesh {big}: only the data and model axes may exceed 1 in the port so far; "
             + "; ".join(f"{a}: {_NOT_PORTED[a]}" for a in big) + " (ROADMAP Queue A)")
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:

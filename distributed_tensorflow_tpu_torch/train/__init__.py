@@ -11,8 +11,10 @@ from .checkpoint import (  # noqa: F401
 from .evaluation import ShardedEvaluator, derive_metrics  # noqa: F401
 from .loop import Trainer  # noqa: F401
 from .optimizers import (  # noqa: F401
+    MultiOptimizer,
     Optimizer,
     OptimizerConfig,
+    make_multi_optimizer,
     make_optimizer,
     make_schedule,
 )

@@ -27,6 +27,15 @@ Usage:
         --model.dtype=float32 --data.global_batch_size=64 --train.num_steps=10 \
         --train.log_every=1 --train.eval_batches=2 --optimizer.warmup_steps=0 \
         --optimizer.learning_rate=3e-3
+    python -m distributed_tensorflow_tpu_torch.train --workload=wide_deep \\
+        --train.num_steps=200
+    python -m distributed_tensorflow_tpu_torch.train wide_deep --device cpu \\
+        --model.vocab_sizes=[64,32,16] --model.embed_dim=8 \\
+        --model.dense_features=4 --model.hidden_sizes=[32,16] \\
+        --model.dtype=float32 --data.global_batch_size=64 --train.num_steps=60 \\
+        --train.log_every=20 --optimizer.learning_rate=0.01 --train.eval_batches=4
+    torchrun --nproc_per_node=2 -m distributed_tensorflow_tpu_torch.train wide_deep \\
+        --device cpu --mesh.model=2 ...  (and the same tiny overrides)
 
 Checkpoint and resume: with ``--checkpoint.directory=DIR`` (and e.g.
 ``--checkpoint.save_interval_steps=50``) the run saves on that cadence,
@@ -38,7 +47,9 @@ Runs on the GPU unless ``--device cpu`` is given; with no CUDA present
 the GPU default raises. Data-parallel on N cards: ``torchrun
 --nproc_per_node=N -m distributed_tensorflow_tpu_torch.train
 resnet50_imagenet --mesh.data=N ...`` (one process a card; process 0
-prints; ``bert_pretrain`` alike). A workload with an eval surface
+prints; ``bert_pretrain`` alike); ``wide_deep`` also shards its tables
+over ``--mesh.model`` (2 by default under torchrun with an even process
+count; 1 in one process). A workload with an eval surface
 evaluates every ``--train.eval_every`` steps and once at the end
 (``--train.eval_batches``, 0 for none), and the final metrics are
 printed. Every ``--section.key=value`` override is the
@@ -59,16 +70,22 @@ from ..workloads import available, run_workload
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("workload", choices=available())
+    ap.add_argument("workload", nargs="?", choices=available())
+    ap.add_argument("--workload", dest="workload_flag", choices=available(),
+                    help="the workload, as a flag (or give it first)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; cuda by default, raises without CUDA")
     args, overrides = ap.parse_known_args(argv)
+    workload = args.workload or args.workload_flag
+    if workload is None or (args.workload and args.workload_flag
+                            and args.workload != args.workload_flag):
+        ap.error("name one workload, first or as --workload")
     bad = [o for o in overrides if not (o.startswith("--") and "=" in o)]
     if bad:
         ap.error(f"overrides must be --section.key=value, got {bad}")
     logging.basicConfig(level=logging.INFO, format="%(message)s")
     try:
-        result = run_workload(args.workload, overrides, device=args.device)
+        result = run_workload(workload, overrides, device=args.device)
         if cluster.is_chief():
             for row in result.history:
                 print(" ".join(f"{k}={v:.6g}" for k, v in row.items()))

@@ -48,6 +48,7 @@ from ..obs import flightrec as flightrec_lib
 from ..obs.registry import Registry, default_registry
 from ..parallel.mesh import BATCH_AXES, mesh_axis_size
 from ..parallel.sharding import put_host_batch
+from ..utils import metrics as metrics_lib
 
 __all__ = ["EVAL_STEPS", "ShardedEvaluator", "batch_shards", "derive_metrics"]
 
@@ -126,14 +127,18 @@ class ShardedEvaluator:
         return totals
 
 
-def derive_metrics(totals: dict[str, Any]) -> dict:
-    """Scalar metric dict from summed totals: keeps the scalars and derives
-    accuracy / top5_accuracy / loss ratios over ``count``. (JAX's also
-    folds AUC histograms into an ``auc``: no eval_fn of the port emits
-    them yet; they come with wide_deep, ROADMAP Queue A item 5.)"""
+def derive_metrics(totals: dict[str, Any], auc_prefix: str = "") -> dict:
+    """Scalar metric dict from summed totals: keeps the scalars, derives
+    accuracy / top5_accuracy / loss ratios over ``count``, and folds the
+    AUC histograms (``utils/metrics.py``) into ``<auc_prefix>auc``
+    (omitted when undefined: a one-class stream makes AUC NaN)."""
     result = {k: float(v) for k, v in totals.items() if np.ndim(v) == 0}
     for summed, ratio in (("correct", "accuracy"), ("top5_correct", "top5_accuracy"),
                           ("loss_sum", "loss")):
         if summed in result and result.get("count"):
             result[ratio] = result[summed] / result["count"]
+    if "auc_pos_hist" in totals and "auc_neg_hist" in totals:
+        auc = metrics_lib.auc_from_histograms(totals["auc_pos_hist"], totals["auc_neg_hist"])
+        if np.isfinite(auc):
+            result[auc_prefix + "auc"] = auc
     return result

@@ -7,10 +7,12 @@ model and are updated in place by its optimizer.
   the backward pass (and the accumulation), the gradients are averaged
   over the batch axes in one all-reduce of one flat f32 buffer — before
   the global norm and the clipping, as JAX's gradients are global before
-  ``clip_grad_norm`` — with the loss and aux metrics at its end, so that
-  every rank updates, decides and logs alike. The mean of the ranks'
-  gradients of their local mean losses is the gradient of the global
-  mean loss (BatchNorm statistics are global, ``models/resnet.py``).
+  ``clip_grad_norm`` (the norm is the optimizer's ``grad_norm``: with
+  tables sharded over ``model``, the whole tree's) — with the loss and
+  aux metrics at its end, so that every rank updates, decides and logs
+  alike. The mean of the ranks' gradients of their local mean losses is
+  the gradient of the global mean loss (BatchNorm statistics are
+  global, ``models/resnet.py``).
 
 - **Gradient accumulation**: ``grad_accum_steps`` microbatches, the
   gradient the mean of the microbatch gradients (summed in f32), the
@@ -43,8 +45,10 @@ model and are updated in place by its optimizer.
   ``model/<name>`` of ``model.state_dict()`` (parameters and buffers:
   BatchNorm running statistics), then the optimizer's state
   ``optimizer/<param index>/<key>`` (Adam's moments and step, the
-  momentum trace) — and ``load_state_leaves`` is its inverse, copying
-  into the state's tensors where they live. The generator needs no leaf:
+  momentum trace, AdaGrad's ``sum``, FTRL's ``n`` and ``z``; a
+  ``MultiOptimizer`` gives each parameter its group's keys) — and
+  ``load_state_leaves`` is its inverse, copying into the state's tensors
+  where they live. The generator needs no leaf:
   dropout is reseeded from ``step_seed(seed, step)`` every step.
 """
 
@@ -57,9 +61,9 @@ import torch
 
 from ..parallel.collectives import all_reduce_mean
 from ..parallel.collectives import axis_index
-from ..parallel.mesh import BATCH_AXES, mesh_axis_size
+from ..parallel.mesh import BATCH_AXES, MODEL, mesh_axis_size
 from ..parallel.sharding import RowGenerator
-from .optimizers import Optimizer, global_norm
+from .optimizers import Optimizer
 
 #: loss_fn(batch, generator) -> (loss, aux metrics)
 LossFn = Callable[[dict, torch.Generator], tuple[torch.Tensor, dict]]
@@ -124,9 +128,14 @@ def make_train_step(loss_fn: LossFn, options: StepOptions = StepOptions(), mesh=
     shards = 1 if mesh is None else mesh_axis_size(mesh, BATCH_AXES)
     data_parallel = shards > 1
     shard = axis_index(BATCH_AXES, mesh) if data_parallel else 0
+    model_sharded = mesh is not None and mesh.shape[MODEL] > 1
 
     def train_step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         params = state.optimizer.params
+        if model_sharded and state.optimizer.mesh is not mesh:
+            raise ValueError("the mesh's model axis exceeds 1 but the optimizer was not "
+                             "placed on it (Optimizer.place): its global norms would miss "
+                             "the other ranks' table shards")
         state.generator.manual_seed(step_seed(state.seed, state.step))
         gen = (RowGenerator(state.generator, shards, shard) if data_parallel
                else state.generator)
@@ -162,7 +171,7 @@ def make_train_step(loss_fn: LossFn, options: StepOptions = StepOptions(), mesh=
             grads, metrics = both[:len(grads)], dict(zip(names, both[len(grads):]))
             loss = metrics["loss"]
         if options.compute_grad_norm or options.clip_grad_norm:
-            gnorm = global_norm(grads)
+            gnorm = state.optimizer.grad_norm(grads)
             metrics["grad_norm"] = gnorm
         if options.clip_grad_norm:
             scale = torch.clamp(options.clip_grad_norm / (gnorm + 1e-9), max=1.0)
@@ -225,8 +234,8 @@ def leaf_names(state: TrainState, count: int) -> list[str]:
     its first)."""
     names = [*HEADER_LEAVES, *(f"model/{k}" for k in state.model.state_dict())]
     if count > 0:
-        keys = state.optimizer.state_keys()
-        names += [f"optimizer/{i}/{k}" for i in range(len(state.optimizer.params))
+        names += [f"optimizer/{i}/{k}"
+                  for i, keys in enumerate(state.optimizer.param_state_keys())
                   for k in sorted(keys)]
     return names
 

@@ -19,11 +19,19 @@ standard or fused: one tree): every conv ``kernel`` HWIO -> OIHW
 ``bias`` and ``batch_stats`` ``mean``/``var`` -> ``running_mean``/
 ``running_var``. Nothing here imports jax.
 
+``wide_deep_from_jax(params_np, cfg, mesh)`` does it for a
+``distributed_tensorflow_tpu.models.wide_deep.WideDeep``: the tables as
+they are, cut to this rank's range shard over ``mesh``'s ``model`` axis,
+and each Dense ``[in, out]`` -> ``[out, in]``; ``wide_deep_to_jax`` is its
+inverse over the ranks' state dicts (the tables reassembled).
+
 ``optimizer_state_from_jax(opt_state_np, optimizer, cfg)`` carries an
 optax state across: adam/adamw's ``mu`` / ``nu`` / ``count`` (and
-momentum's ``trace``) become the port ``Optimizer``'s moments (each tree
+momentum's ``trace``, adagrad's ``sum_of_squares``, the JAX package's
+ftrl ``z`` / ``n``) become the port ``Optimizer``'s state (each tree
 converted like the parameters), its update count and Adam's step, so a
-JAX ``TrainState`` taken at step k continues in the port as in JAX.
+JAX ``TrainState`` taken at step k continues in the port as in JAX; a
+``multi_transform`` state goes group by group into a ``MultiOptimizer``.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ import numpy as np
 import torch
 
 from .models import resnet
+from .models import wide_deep as wd
 from .models.transformer import Transformer, TransformerConfig, build
 from .utils.device import resolve_device
 
@@ -121,10 +130,69 @@ def resnet_from_jax(params_np: Mapping, batch_stats_np: Mapping, cfg: resnet.Res
     return resnet.build(cfg, resnet_state_dict_from_jax(params_np, cfg, batch_stats_np), device)
 
 
+def wide_deep_state_dict_from_jax(params_np: Mapping, cfg: wd.WideDeepConfig,
+                                  shard: tuple[int, int] = (0, 1)) -> dict[str, torch.Tensor]:
+    """The flax Wide&Deep tree (or an optimizer's tree over it) as a
+    state dict of ``WideDeep(cfg)``, each table cut to range shard
+    ``shard = (index, count)`` (``ops/embedding.range_shard``). Entries
+    that are not arrays (optax's ``MaskedNode`` of a group the parameter is
+    not in) are left out."""
+    from .ops.embedding import range_shard
+
+    sd = {}
+    for name, _ in wd.WideDeep(cfg, device="meta").named_parameters():
+        owner, _, leaf = name.partition(".")
+        node = params_np.get(owner) if isinstance(params_np, Mapping) else None
+        if leaf:
+            node = node.get("kernel" if leaf == "weight" else "bias") \
+                if isinstance(node, Mapping) else None
+        if not isinstance(node, np.ndarray) and not hasattr(node, "__array__"):
+            continue
+        t = _t(node)
+        if leaf == "weight":
+            t = t.t().contiguous()
+        elif not leaf:  # a table
+            t = range_shard(t, *shard)
+        sd[name] = t
+    return sd
+
+
+def wide_deep_from_jax(params_np: Mapping, cfg: wd.WideDeepConfig, mesh=None,
+                       device="cuda") -> wd.WideDeep:
+    """``WideDeep(cfg, mesh)`` on ``device`` (the card by default; raises
+    without one unless ``device="cpu"``) holding the flax tree's weights,
+    each table this rank's range shard over ``mesh``'s ``model`` axis;
+    f32 masters that require grad."""
+    sd = wide_deep_state_dict_from_jax(params_np, cfg)
+    return wd.build(cfg, sd, resolve_device(device), mesh)
+
+
+def wide_deep_to_jax(state_dicts: list[Mapping], cfg: wd.WideDeepConfig) -> dict:
+    """The flax tree (numpy) of the model whose ``model``-axis ranks hold
+    ``state_dicts`` (in rank order; one for an unsharded model): the table
+    shards concatenated and the padding cut, each Dense ``[out, in]`` ->
+    ``[in, out]``."""
+    arr = lambda v: np.asarray(v.detach().cpu() if isinstance(v, torch.Tensor) else v)  # noqa: E731
+    tree: dict = {}
+    for name in state_dicts[0]:
+        owner, _, leaf = name.partition(".")
+        if not leaf:
+            i = int(owner.rsplit("_", 1)[1])
+            tree[owner] = np.concatenate([arr(sd[name]) for sd in state_dicts])[
+                :cfg.vocab_sizes[i]]
+        else:
+            v = arr(state_dicts[0][name])
+            tree.setdefault(owner, {})["kernel" if leaf == "weight" else "bias"] = (
+                v.T if leaf == "weight" else v)
+    return tree
+
+
 def _optax_leaves(opt_state: Any) -> dict[str, Any]:
     """The fields of an optax state (nested tuples and namedtuples of numpy
     arrays, as ``jax.device_get`` gives them) this port reads: ``mu``,
-    ``nu``, ``trace`` and the first ``count``."""
+    ``nu``, ``trace``, ``sum_of_squares``, ``inner_states`` (a
+    ``multi_transform``'s), the ftrl dict's ``z`` / ``n`` and the first
+    ``count``."""
     found: dict[str, Any] = {}
 
     def walk(node):
@@ -132,12 +200,16 @@ def _optax_leaves(opt_state: Any) -> dict[str, Any]:
         if fields is not None:
             for f in fields:
                 v = getattr(node, f)
-                if f in ("mu", "nu", "trace") and f not in found:
+                if f in ("mu", "nu", "trace", "sum_of_squares", "inner_states") \
+                        and f not in found:
                     found[f] = v
                 elif f == "count" and "count" not in found:
                     found["count"] = v
                 else:
                     walk(v)
+        elif isinstance(node, Mapping) and set(node) == {"z", "n", "count"}:
+            for f in ("z", "n", "count"):
+                found.setdefault(f, node[f])
         elif isinstance(node, (tuple, list)):
             for v in node:
                 walk(v)
@@ -148,24 +220,42 @@ def _optax_leaves(opt_state: Any) -> dict[str, Any]:
 
 def optimizer_state_from_jax(opt_state_np: Any, model: torch.nn.Module, optimizer) -> None:
     """Load ``opt_state_np`` (an optax state of the JAX package's
-    ``make_optimizer``, as numpy) into ``optimizer`` (the port's
-    ``train.optimizers.Optimizer`` over ``model``, a ``Transformer`` or a
-    ``resnet.ResNet``), in place: Adam's ``exp_avg`` / ``exp_avg_sq`` /
-    ``step`` from ``mu`` / ``nu`` / ``count``, momentum's
-    ``momentum_buffer`` from ``trace``, and the update count (the
-    schedule's) from ``count``; each moment on its parameter's device."""
+    ``make_optimizer`` or ``make_multi_optimizer``, as numpy) into
+    ``optimizer`` (the port's ``train.optimizers.Optimizer`` or
+    ``MultiOptimizer`` over ``model``, a ``Transformer``, a
+    ``resnet.ResNet`` or a ``WideDeep``), in place: Adam's ``exp_avg`` /
+    ``exp_avg_sq`` / ``step`` from ``mu`` / ``nu`` / ``count``, momentum's
+    ``momentum_buffer`` from ``trace``, AdaGrad's ``sum`` from
+    ``sum_of_squares``, FTRL's ``z`` / ``n``, and the update count (the
+    schedule's) from ``count``; each on its parameter's device (a table's
+    cut to the parameter's shard). A ``multi_transform`` state's groups
+    go to the ``MultiOptimizer``'s groups of the same labels."""
+    from .train.optimizers import MultiOptimizer
+
+    if isinstance(optimizer, MultiOptimizer):
+        inner = _optax_leaves(opt_state_np).get("inner_states")
+        if inner is None:
+            raise ValueError("a MultiOptimizer takes a multi_transform state")
+        for label, sub in optimizer.groups.items():
+            optimizer_state_from_jax(inner[label], model, sub)
+        return
     leaves = _optax_leaves(opt_state_np)
     if "count" not in leaves:
         raise ValueError("optax state has no count")
     keys = optimizer.state_keys()
-    source = {"exp_avg": "mu", "exp_avg_sq": "nu", "momentum_buffer": "trace"}
+    source = {"exp_avg": "mu", "exp_avg_sq": "nu", "momentum_buffer": "trace",
+              "sum": "sum_of_squares", "z": "z", "n": "n"}
     missing = [source[k] for k in keys if k != "step" and source[k] not in leaves]
     if missing:
         raise ValueError(f"optax state has no {missing} for optimizer {optimizer.cfg.name!r}")
     cfg = model.cfg
-    to_sd = ((lambda tree: resnet_state_dict_from_jax(tree, cfg))
-             if isinstance(cfg, resnet.ResNetConfig)
-             else (lambda tree: _state_dict_from_jax(tree, cfg)))
+    if isinstance(cfg, resnet.ResNetConfig):
+        to_sd = lambda tree: resnet_state_dict_from_jax(tree, cfg)  # noqa: E731
+    elif isinstance(cfg, wd.WideDeepConfig):
+        shard = wd.model_shards(model.mesh)
+        to_sd = lambda tree: wide_deep_state_dict_from_jax(tree, cfg, shard)  # noqa: E731
+    else:
+        to_sd = lambda tree: _state_dict_from_jax(tree, cfg)  # noqa: E731
     trees = {k: to_sd(leaves[source[k]]) for k in keys if k != "step"}
     names = {id(p): n for n, p in model.named_parameters()}
     count = int(np.asarray(leaves["count"]))

@@ -1,6 +1,8 @@
-"""Workload registry of the port: ``bert_pretrain``, ``gpt_lm`` and
-``resnet50_imagenet`` so far (the other presets of the JAX package come
-with their slices, ROADMAP Queue A)."""
+"""Workload registry of the port: ``bert_pretrain``, ``gpt_lm``,
+``resnet50_imagenet`` and ``wide_deep`` so far (the JAX package's MNIST
+MLP and CIFAR-10 CNN presets are ROADMAP Queue A item 4; the optimizers
+they name that are still missing, rmsprop, lamb and adafactor, item
+2.6)."""
 
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ _REGISTRY: dict[str, str] = {
     "bert_pretrain": ".bert_pretrain",
     "gpt_lm": ".gpt_lm",
     "resnet50_imagenet": ".resnet50_imagenet",
+    "wide_deep": ".wide_deep",
 }
 
 

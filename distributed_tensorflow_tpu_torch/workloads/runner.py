@@ -10,17 +10,35 @@ One process per card: under ``torchrun --nproc_per_node=N`` (or with
 group, the ``data`` axis absorbs them, each steps and evaluates on its
 rows of the global batch, and only the chief logs.
 
+A workload whose rule table (``WorkloadParts.param_rules``) shards
+parameters over the ``model`` axis may run with
+``mesh.model`` above 1 (Wide&Deep: tables range-sharded over ``model``,
+``parallel/sharding.py``): each rank builds its shard, the replicated
+weights are set to rank 0's over every axis and each table shard to the
+value of batch index 0 over the batch axes (``sharding.place``), and
+the gradients stay averaged over the batch axes only (``train/
+step.py``), which is right for both kinds — a table shard's gradient is
+its own rows' once (``ops/embedding.py``), and a replicated parameter's
+is the same on every rank of one data shard. The optimizer learns which
+parameters are shards (``Optimizer.place``), so that a global norm —
+``train.clip_grad_norm``, ``optimizer.clip_grad_norm``,
+``train.debug_metrics`` — is the whole tree's on every rank.
+
 The config tree keeps the JAX package's section names, so the same
 ``--section.key=value`` overrides parse; a config that asks for what the
 port does not have yet raises with the ROADMAP item named: a mesh axis
-other than ``data`` above 1, a pipeline, a fleet, the anomaly defense,
-sequence parallelism, MoE.
+other than ``data`` above 1 (``model`` but for a workload that shards its
+tables over it), a checkpoint directory at ``model`` above 1 (the sharded
+save), a pipeline, a fleet, the anomaly defense, sequence parallelism,
+MoE. An explicit ``data.eval_dataset`` a workload does not consume raises
+too.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import math
 import time
 from typing import Any, Callable, Iterable
 
@@ -30,8 +48,8 @@ from ..data.pipeline import DevicePut, Prefetcher
 from ..data.text import TextDataConfig
 from ..parallel import cluster
 from ..parallel.cluster import ClusterConfig
-from ..parallel.mesh import MeshSpec, build_mesh, describe
-from ..parallel.sharding import replicate
+from ..parallel.mesh import MODEL, MeshSpec, build_mesh, describe
+from ..parallel import sharding
 from ..train import (
     OptimizerConfig,
     ShardedEvaluator,
@@ -98,6 +116,17 @@ class WorkloadParts:
     eval_fn: Callable | None = None
     # num_batches -> host-batch iterable of the held-out stream
     eval_dataset_fn: Callable[[int], Iterable] | None = None
+    # the placement table of the model's parameters (None: all replicated)
+    param_rules: sharding.PartitionRules | None = None
+    # model -> optimizer, when the workload builds its own (None: the
+    # runner's make_optimizer(cfg.optimizer))
+    optimizer_fn: Callable | None = None
+    # prefix of the eval AUC key ("train_" when the eval stream draws from
+    # the training file)
+    eval_metric_prefix: str = ""
+    # did build() read cfg.data.eval_dataset? (an explicit one that it did
+    # not read is refused)
+    consumed_eval_dataset: bool = False
 
 
 @dataclasses.dataclass
@@ -116,23 +145,73 @@ def check_supported(cfg: RunConfig) -> None:
         raise ValueError(f"mesh.pipe={cfg.mesh.pipe}: pipeline parallelism is not ported "
                          f"yet (ROADMAP Queue A item 6, parallel/pipeline.py)")
     axes = cfg.mesh.sizes()
-    big = {k: v for k, v in axes.items() if k != "data" and v != 1}
+    big = {k: v for k, v in axes.items() if k not in ("data", MODEL) and v != 1}
     if big:
-        raise ValueError(f"mesh {big}: no axis but data may span more than one process in "
-                         f"the port so far (fsdp and model: ROADMAP Queue A item 3.1's "
-                         f"sharding rule tables; seq, expert: item 6)")
+        raise ValueError(f"mesh {big}: no axis but data (and model, for wide_deep's tables) "
+                         f"may span more than one process in the port so far (fsdp: ROADMAP "
+                         f"Queue A item 3.1's sharding rule tables; seq, expert: item 6)")
+    if axes[MODEL] != 1 and cfg.checkpoint.directory:
+        raise ValueError(
+            f"checkpoint.directory with mesh.model={axes[MODEL]}: the port's checkpoints "
+            f"are written by the chief alone and would drop the other model ranks' table "
+            f"shards (the sharded save: ROADMAP Queue A item 3.1)")
     if cfg.fleet.dir:
         raise ValueError("fleet.dir: the fleet control plane is not ported yet "
                          "(ROADMAP Queue A item 6, resilience/)")
     if cfg.train.anomaly_defense:
         raise ValueError("train.anomaly_defense is not ported yet (ROADMAP Queue A item 6, "
                          "resilience/anomaly.py)")
+
+
+def _check_eval_dataset_consumed(cfg: RunConfig, parts: WorkloadParts) -> None:
+    """An explicit ``data.eval_dataset`` the workload does not read is
+    refused, not silently replaced by its default stream."""
     ev = getattr(cfg.data, "eval_dataset", "")
-    if ev:
+    if ev and not parts.consumed_eval_dataset:
         raise ValueError(
-            f"workload {cfg.workload!r} does not support data.eval_dataset (got {ev!r}); "
-            "its eval stream is workload-defined — drop the flag (wide_deep, which honors "
-            "it, is ROADMAP Queue A item 5)")
+            f"workload {cfg.workload!r} does not support data.eval_dataset (got {ev!r}); its "
+            f"eval stream is workload-defined — drop the flag or use a workload that honors "
+            f"it (wide_deep)")
+
+
+def setup(cfg: RunConfig, build, device="cuda"):
+    """``check_supported``, the cluster, the mesh, ``build`` and
+    ``prepare``: ``(device, mesh, parts, optimizer)`` — what ``run``
+    trains, and what a benchmark of a workload starts from."""
+    check_supported(cfg)
+    dev = cluster.initialize(cfg.cluster, device)
+    spans = {a: v for a, v in cfg.mesh.sizes().items() if v > 1}
+    if spans and cluster.process_count() == 1:
+        raise ValueError(
+            f"mesh {spans} spans more than one process, but this one runs alone: launch it "
+            f"under torchrun --nproc_per_node={math.prod(spans.values())} (or set "
+            f"cluster.coordinator_address, cluster.num_processes and cluster.process_id)")
+    mesh = build_mesh(cfg.mesh, dev)
+    if cluster.is_chief():
+        logger.info("mesh: %s", describe(mesh))
+        logger.info("config:\n%s", config_lib.to_json(cfg))
+    parts = build(cfg, dev, mesh)
+    return dev, mesh, parts, prepare(cfg, parts, mesh)
+
+
+def prepare(cfg: RunConfig, parts: WorkloadParts, mesh):
+    """``parts`` on ``mesh``: the workload's rule table matched on its
+    model (a ``model`` axis above 1 that it places nothing on is refused),
+    the weights placed (module docstring) and the optimizer built and
+    placed alike. Returns the optimizer."""
+    _check_eval_dataset_consumed(cfg, parts)
+    specs = ({} if parts.param_rules is None
+             else sharding.match_partition_rules(parts.param_rules, parts.model))
+    if mesh.shape[MODEL] > 1 and MODEL not in sharding.sharded_axes(specs):
+        raise ValueError(f"mesh.model={mesh.shape[MODEL]}: workload {cfg.workload!r} places "
+                         f"nothing on the model axis, so it may not span more than one "
+                         f"process (tensor parallelism: ROADMAP Queue A item 3.1's rule "
+                         f"tables)")
+    sharding.place(parts.model, mesh, specs)
+    optimizer = (parts.optimizer_fn(parts.model) if parts.optimizer_fn is not None
+                 else make_optimizer(cfg.optimizer, parts.model.parameters()))
+    optimizer.place(mesh, specs, parts.model)
+    return optimizer
 
 
 def run(cfg: RunConfig, build: Callable[[RunConfig, torch.device, Any], WorkloadParts],
@@ -160,20 +239,7 @@ def run(cfg: RunConfig, build: Callable[[RunConfig, torch.device, Any], Workload
     algorithms the card's ResNet steps were not. The process group, when
     this call started one, is left up for the caller (``cluster.
     shutdown``)."""
-    check_supported(cfg)
-    dev = cluster.initialize(cfg.cluster, device)
-    if cfg.mesh.data > 1 and cluster.process_count() == 1:
-        raise ValueError(
-            f"mesh.data={cfg.mesh.data} spans more than one process, but this one runs "
-            f"alone: launch it under torchrun --nproc_per_node={cfg.mesh.data} (or set "
-            f"cluster.coordinator_address, cluster.num_processes and cluster.process_id)")
-    mesh = build_mesh(cfg.mesh, dev)
-    if cluster.is_chief():
-        logger.info("mesh: %s", describe(mesh))
-        logger.info("config:\n%s", config_lib.to_json(cfg))
-    parts = build(cfg, dev, mesh)
-    replicate(parts.model, mesh)
-    optimizer = make_optimizer(cfg.optimizer, parts.model.parameters())
+    dev, mesh, parts, optimizer = setup(cfg, build, device)
     state = init_train_state(parts.model, optimizer, seed=cfg.train.seed)
     ckpt = None
     if cfg.checkpoint.directory:
@@ -245,7 +311,7 @@ def evaluate(evaluator: ShardedEvaluator, state, parts: WorkloadParts,
     ``derive_metrics``."""
     totals = evaluator.run(state, parts.eval_dataset_fn(num_batches), num_batches,
                            step=int(state.step))
-    return derive_metrics(totals)
+    return derive_metrics(totals, parts.eval_metric_prefix)
 
 
 def evaluate_from_checkpoint(cfg: RunConfig, build, num_batches: int | None = None,
@@ -259,15 +325,10 @@ def evaluate_from_checkpoint(cfg: RunConfig, build, num_batches: int | None = No
     eval. Returns the metrics with the restored ``step``."""
     if not cfg.checkpoint.directory:
         raise ValueError("evaluate_from_checkpoint needs checkpoint.directory")
-    check_supported(cfg)
-    dev = cluster.initialize(cfg.cluster, device)
-    mesh = build_mesh(cfg.mesh, dev)
-    parts = build(cfg, dev, mesh)
+    _, mesh, parts, optimizer = setup(cfg, build, device)
     if parts.eval_fn is None or parts.eval_dataset_fn is None:
         raise ValueError(f"workload {cfg.workload!r} has no eval surface")
-    state = init_train_state(parts.model, make_optimizer(cfg.optimizer,
-                                                         parts.model.parameters()),
-                             seed=cfg.train.seed)
+    state = init_train_state(parts.model, optimizer, seed=cfg.train.seed)
     ckpt = ckpt_lib.Checkpointer(dataclasses.replace(cfg.checkpoint, save_on_preemption=False))
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True

@@ -10,7 +10,8 @@ collective the identity. In one job of two processes over gloo
 ``tests/test_collectives.py``), the gradient of the differentiable
 all-reduce and of reduce-scatter, the divergence check catching a rank
 that differs, ``broadcast_from_chief``, ``replicate``, the batch rows of
-each rank, the DeviceMesh's six axis names and the mesh's refusals.
+each rank, the DeviceMesh's six axis names and the refusals of what is
+not ported (a tensor-parallel spec, an fsdp mesh, the collectives').
 Everything here is exact (small integers in f32).
 """
 

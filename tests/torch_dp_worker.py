@@ -29,7 +29,8 @@ exits non-zero on any failure. The spec's ``job``:
   that dropout rate (``dropout/losses``, ``dropout/state/<name>``).
 - ``"parallel"``: the collectives, the differentiable all-reduce, the
   divergence check, ``broadcast_from_chief``, ``replicate`` and the
-  mesh's refusals, each result saved for the test to hold against numpy.
+  refusals (a tensor-parallel spec, the mesh's, the collectives'), each
+  result saved for the test to hold against numpy.
 - ``"ckpt"``: ``run_workload(workload, overrides)`` (its
   ``--checkpoint.directory`` among them) once per entry of ``runs``, each
   ``{"num_steps", "sigterm": {rank: step}, "kill_at": step}``: a
@@ -47,8 +48,24 @@ exits non-zero on any failure. The spec's ``job``:
   the save returned, the steps the checkpointer knows and whether step
   4's manifest verifies after a barrier.
 
-``train_steps`` and ``bert_steps`` are also what the one-process
-references run (no mesh);
+- ``"wide_deep"``: on the mesh of ``mesh`` (e.g. ``{"data": 2,
+  "model": 2}``, the tables range-sharded over ``model``): with
+  ``lookups``, the npz's ``ids``/``table``/``cot`` through
+  ``mod_sharded_lookup``, ``range_sharded_lookup`` (ids: this rank's
+  data shard's rows) and ``batch_sharded_lookup`` (ids: this rank's rows
+  over data x model), each rank's output and its table shard's gradient of
+  ``sum(out * cot)`` summed over ``data``; with ``inputs``
+  (``sd/<name>`` a whole state dict, ``train<i>/<key>`` and
+  ``eval<i>/<key>`` global batches), ``wide_deep_steps`` of ``cfg`` with
+  the ``auto`` optimizer at ``optimizer`` and the ``ShardedEvaluator``'s
+  totals over the eval batches, and with ``clip`` (``optimizer`` and
+  step ``options``) the same steps clipped, with their ``grad_norm``s;
+  with ``runner``, ``run_workload("wide_deep", runner)``'s losses, this
+  rank's parameters and its eval; with ``refuse`` (workload -> overrides),
+  the message each such ``run_workload`` raises.
+
+``train_steps``, ``bert_steps`` and ``wide_deep_steps`` are also what the
+one-process references run (no mesh);
 ``launch`` starts the ranks of a spec, ``wait`` collects them and
 ``stop`` kills them.
 """
@@ -71,7 +88,11 @@ from distributed_tensorflow_tpu_torch.models import common, resnet  # noqa: E402
 from distributed_tensorflow_tpu_torch.ops import fused_conv_bn as fcb  # noqa: E402
 from distributed_tensorflow_tpu_torch.parallel import cluster  # noqa: E402
 from distributed_tensorflow_tpu_torch.parallel.mesh import MeshSpec, build_mesh  # noqa: E402
-from distributed_tensorflow_tpu_torch.parallel.sharding import shard_host_batch  # noqa: E402
+from distributed_tensorflow_tpu_torch.parallel.sharding import (  # noqa: E402
+    check_spec,
+    match_partition_rules,
+    shard_host_batch,
+)
 from distributed_tensorflow_tpu_torch.train import optimizers as topt  # noqa: E402
 from distributed_tensorflow_tpu_torch.train import step as tstep  # noqa: E402
 
@@ -282,7 +303,7 @@ def job_parallel(spec: dict, dev, mesh) -> dict:
     replicate(lin, mesh)
     out["replicated"] = torch.cat([lin.weight.flatten(), lin.bias]).detach().numpy()
     refusals = []
-    for call in (lambda: build_mesh(MeshSpec(data=1, model=2), dev),
+    for call in (lambda: check_spec((None, "model"), "kernel"),
                  lambda: build_mesh(MeshSpec(data=1, fsdp=2), dev),
                  lambda: col.all_reduce(x, "data", mesh, groups=[[0, 1]]),
                  lambda: col.all_to_all(x, "data", mesh, split_axis=0, concat_axis=1),
@@ -377,6 +398,121 @@ def job_ckpt_fallback(spec: dict, dev, mesh) -> dict:
             "verified": np.asarray(bool(verified))}
 
 
+def wide_deep_steps(cfg, sd: dict, batches: list[dict], optimizer: dict, device,
+                    mesh=None, options: dict | None = None) -> dict:
+    """``len(batches)`` steps of a Wide&Deep model of ``cfg`` built from the
+    whole state dict ``sd`` (this rank's table shards over ``mesh``'s
+    ``model`` axis), the workload's ``auto`` optimizer (FTRL + AdaGrad) at
+    ``optimizer`` and the step's ``StepOptions(**options)``: each batch is
+    the global batch and this rank steps on its data shard's rows. Returns
+    the losses, the ``grad_norm``s when the options compute them, this
+    rank's parameters after the steps (numpy) and the model."""
+    from distributed_tensorflow_tpu_torch.models import wide_deep as wd
+    from distributed_tensorflow_tpu_torch.workloads.runner import RunConfig
+    from distributed_tensorflow_tpu_torch.workloads.wide_deep import _canonical_tx
+
+    model = wd.build(cfg, {k: torch.as_tensor(v) for k, v in sd.items()}, device, mesh)
+    opt = _canonical_tx(RunConfig(model=cfg, optimizer=topt.OptimizerConfig(**optimizer)))(model)
+    if mesh is not None:
+        opt.place(mesh, match_partition_rules(wd.WIDE_DEEP_RULES, model), model)
+    state = tstep.init_train_state(model, opt)
+    step = tstep.make_train_step(wd.ctr_loss_fn(model), tstep.StepOptions(**(options or {})),
+                                 mesh=mesh)
+    losses, norms = [], []
+    for b in batches:
+        rows = shard_host_batch(b, mesh) if mesh is not None else b
+        state, m = step(state, {k: torch.as_tensor(v).to(device) for k, v in rows.items()})
+        losses.append(float(m["loss"]))
+        norms.append(float(m.get("grad_norm", np.nan)))
+    out = {k: v.detach().float().cpu().numpy() for k, v in model.state_dict().items()}
+    return {"losses": np.asarray(losses), "grad_norms": np.asarray(norms), "state": out,
+            "model": model}
+
+
+def wide_deep_lookups(data, mesh) -> dict:
+    """The three sharded lookups of ``ops/embedding.py`` on ``data``'s ids,
+    table and cotangent: each output and the table shard's gradient of
+    ``sum(out * cot)`` summed over ``data`` (module docstring)."""
+    from distributed_tensorflow_tpu_torch.ops import embedding as emb
+    from distributed_tensorflow_tpu_torch.parallel import collectives as col
+    from distributed_tensorflow_tpu_torch.parallel.mesh import BATCH_AXES
+
+    ids, table, cot = (torch.as_tensor(data[k]) for k in ("ids", "table", "cot"))
+    data_rows = shard_host_batch({"i": ids, "c": cot}, mesh)
+    n_model, m = mesh.shape["model"], col.axis_index("model", mesh)
+    rank = col.axis_index(BATCH_AXES, mesh) * n_model + m
+    per = len(ids) // (col.axis_size(BATCH_AXES, mesh) * n_model)
+    rank_rows = slice(rank * per, (rank + 1) * per)
+    cases = {
+        "mod": (emb.mod_sharded_lookup, emb.to_mod_sharded(table, mesh), data_rows["i"],
+                data_rows["c"]),
+        "range": (emb.range_sharded_lookup, emb.range_shard(table, m, n_model), data_rows["i"],
+                  data_rows["c"]),
+        "batch": (emb.batch_sharded_lookup, emb.to_mod_sharded(table, mesh), ids[rank_rows],
+                  cot[rank_rows]),
+    }
+    out = {}
+    for name, (fn, shard, i, c) in cases.items():
+        t = shard.clone().requires_grad_(True)
+        y = fn(i, t, mesh)
+        (y * c).sum().backward()
+        out[f"lookup/{name}/out"] = y.detach().numpy()
+        out[f"lookup/{name}/grad"] = col.all_reduce(t.grad, "data", mesh).numpy()
+    return out
+
+
+def job_wide_deep(spec: dict, dev, mesh) -> dict:
+    from distributed_tensorflow_tpu_torch.models import wide_deep as wd
+    from distributed_tensorflow_tpu_torch.obs.registry import Registry
+    from distributed_tensorflow_tpu_torch.train.evaluation import ShardedEvaluator
+    from distributed_tensorflow_tpu_torch.workloads import run_workload
+
+    out = {}
+    if spec.get("lookups") or spec.get("inputs"):
+        mesh = build_mesh(MeshSpec(**spec["mesh"]), dev)
+    if spec.get("lookups"):
+        out.update(wide_deep_lookups(np.load(spec["lookups"]), mesh))
+    if spec.get("inputs"):
+        data = np.load(spec["inputs"])
+        sd = {k[3:]: data[k] for k in data.files if k.startswith("sd/")}
+
+        def batches(prefix):
+            n = len({k.split("/")[0] for k in data.files if k.startswith(prefix)})
+            return [{k.split("/")[1]: data[k] for k in data.files
+                     if k.startswith(f"{prefix}{i}/")} for i in range(n)]
+
+        cfg = wd.WideDeepConfig(**{k: tuple(v) if isinstance(v, list) else v
+                                   for k, v in spec["cfg"].items()})
+        res = wide_deep_steps(cfg, sd, batches("train"), spec["optimizer"], dev, mesh)
+        out["losses"] = res["losses"]
+        out.update({f"state/{k}": v for k, v in res["state"].items()})
+        state = tstep.TrainState(step=0, model=res["model"], optimizer=None, generator=None)
+        totals = ShardedEvaluator(wd.ctr_eval_fn(res["model"]), mesh, registry=Registry()).run(
+            state, [shard_host_batch(b, mesh) for b in batches("eval")])
+        out.update({f"eval/{k}": np.asarray(v) for k, v in totals.items()})
+        if spec.get("clip"):  # the same steps, both clips binding
+            clip = spec["clip"]
+            res = wide_deep_steps(cfg, sd, batches("train"), clip["optimizer"], dev, mesh,
+                                  clip["options"])
+            out["clip/losses"], out["clip/grad_norms"] = res["losses"], res["grad_norms"]
+            out.update({f"clip/state/{k}": v for k, v in res["state"].items()})
+    if spec.get("runner"):
+        res = run_workload("wide_deep", spec["runner"], device=str(dev))
+        out["runner/losses"] = np.asarray([r["loss"] for r in res.history])
+        out["runner/mesh_model"] = np.asarray(res.mesh.shape["model"])
+        out.update({f"runner/state/{k}": v.detach().float().cpu().numpy()
+                    for k, v in res.state.model.state_dict().items()})
+        out.update({f"runner/eval/{k}": np.asarray(v)
+                    for k, v in (res.eval_metrics or {}).items()})
+    for name, over in spec.get("refuse", {}).items():  # workloads that shard nothing
+        try:
+            run_workload(name, over, device=str(dev))
+            out[f"refused/{name}"] = np.asarray("no error")
+        except ValueError as e:
+            out[f"refused/{name}"] = np.asarray(str(e))
+    return out
+
+
 def free_port() -> int:
     import socket
 
@@ -455,7 +591,8 @@ def main(spec_path: str) -> int:
             torch.backends.cudnn.deterministic = True
         mesh = build_mesh(MeshSpec(data=-1), dev)
         jobs = {"job_resnet": job_resnet, "job_bert": job_bert, "job_parallel": job_parallel,
-                "job_ckpt": job_ckpt, "job_ckpt_fallback": job_ckpt_fallback}
+                "job_ckpt": job_ckpt, "job_ckpt_fallback": job_ckpt_fallback,
+                "job_wide_deep": job_wide_deep}
         out = jobs[f"job_{spec['job']}"](spec, dev, mesh)
         np.savez(os.path.join(spec["out"], f"rank{cluster.process_index()}.npz"), **out)
     finally:
