@@ -193,9 +193,35 @@ when any phase fails:
    against one process at ``model=1`` on the same rows (losses and every
    parameter, the tables reassembled from the shards, ``TOL["wd/dp/*"]``;
    whether they are bitwise is printed);
-12. print the ``kernels`` JSON line (twelve entries: ``ln_matmul`` is the
+12. the slice of the MNIST MLP and the CIFAR-10 CNN (``SMALL_*``, no
+   kernel of their own: the products are ``F.linear`` and the
+   convolutions cuDNN's): (a) ``mnist_mlp`` and ``cifar10_cnn`` at their
+   presets' widths and batches with ``--mesh.data=-1``, 20 steps each
+   through ``run_workload`` and a final eval of 4 batches: the loss must
+   fall and the eval be finite; step ms and examples/s; two same-seed runs
+   of 3 steps bitwise equal (losses, parameters, BatchNorm buffers) and a
+   seed + 1 control that differs; one f32 step on the card against the
+   same step on the CPU within ``TOL["small/f32/*"]``, beside an update x
+   1.01 control the gate must fail; and the MLP trained by the JAX
+   package's convergence test's recipe (``MLP_CONVERGE``) beating its
+   thresholds (accuracy > 0.3, top-5 > 0.7); (b) the convergence demos
+   (``DEMOS``), each a process of its own with its default steps and gate
+   — CTR (Wide&Deep from converted Criteo-format TSV, AUC >= 0.75), MLM and
+   LM (the repo's design documents, a pinned corpus, held-out accuracy
+   >= 0.35, through the flash kernels at head_dim 32: the wrappers' counts
+   by head dim must show all three every step, at 32 alone) and the
+   digits demo where scikit-learn imports (it is not installed on the
+   card's machine: the log says so) — each printing its JSON line and
+   seconds. (Phase 2c also holds the three flash kernels at head_dim 32,
+   ``FLASH_D32``: B=64, H=4, S=64 — the MLM/LM demos' attention — bf16 and
+   f32, causal and not, with no mask and a padded kv_mask, with their
+   relative-L2 gates and x1.01 controls, timed beside SDPA non-causal and
+   causal in bf16; ptxas's report of every bf16 D=32 instantiation must
+   show no spill, as D=64's and D=128's);
+13. print the ``kernels`` JSON line (fifteen entries: ``ln_matmul`` is the
    serving forward at M=8, ``ln_matmul_train`` the tiled forward at
-   M=8192), then the ``ok`` line last.
+   M=8192; ``flash_*_d32`` the flash kernels' head_dim-32 instantiation),
+   then the ``ok`` line last.
 
 TF32 is off for every f32 product compared here
 (``torch.backends.cuda.matmul.allow_tf32 = False``).
@@ -204,6 +230,7 @@ TF32 is off for every f32 product compared here
 from __future__ import annotations
 
 import contextlib
+import copy
 import gc
 import json
 import os
@@ -449,6 +476,18 @@ TOL = {
     # rows of the ids it does not own), so the same bounds
     "wd/dp/loss": 1e-5,                       # 0 measured: bitwise
     "wd/dp/update": 1e-3,                     # 0
+    # phase 12a: one f32 step of mnist_mlp / cifar10_cnn on the card vs the
+    # same step on the CPU (same weights, same batch of 64, TF32 off,
+    # deterministic cuDNN): the products and convolutions summed in another
+    # order; the loss as a relative difference, each parameter's and
+    # BatchNorm buffer's update as relative L2 error. The update x 1.01
+    # control reads 1e-2 and must fail
+    "small/f32/loss": 1e-5,                   # measured 9.7e-8 on an H100 at 700 W
+    "small/f32/update": 1e-3,                 # 1.6e-6 (mnist_mlp dense_1.weight)
+    # ... except a convolution bias under BatchNorm, whose gradient is zero
+    # in exact arithmetic: its update (lr x rounding noise) is held
+    # absolutely; the weights' updates are ~1e-2 in size
+    "small/f32/zero_grad": 1e-6,
 }
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -591,6 +630,16 @@ def copies_for(nbytes: int) -> int:
 def rel_l2(got, want) -> float:
     """||got - want|| / ||want|| over the whole tensor, in f32."""
     return float((got.float() - want.float()).norm() / want.float().norm().clamp_min(1e-30))
+
+
+def state_of(torch, model) -> dict:
+    """The model's parameters and buffers, f32 on the host."""
+    return {k: v.detach().float().cpu() for k, v in model.state_dict().items()}
+
+
+def update_errs(torch, got: dict, want: dict, init: dict) -> tuple[float, str]:
+    """The worst relative L2 error of a parameter's update, and its name."""
+    return max((rel_l2(got[k] - init[k], want[k] - init[k]), k) for k in want)
 
 
 def check_close(torch, name, got, want, tol) -> float:
@@ -925,19 +974,25 @@ FLASH_BERT = dict(B=32, H=12, S=512, D=64)
 #: the valid lengths of a padded BERT batch: each row's drawn from this
 #: range (inclusive), the last row none
 BERT_PAD_LENGTHS = (384, 512)
+#: head_dim 32 (phase 2c's third shape): the MLM and LM convergence demos'
+#: attention (d_model 128 over 4 heads, S=64, batch 64), timed non-causal
+#: (the MLM demo) and causal (the LM demo), bf16; a padded kv_mask's rows
+#: attend a prefix of ``FLASH_D32_PAD`` keys
+FLASH_D32 = dict(B=64, H=4, S=64, D=32)
+FLASH_D32_PAD = (16, 64)
 
 
-def flash_case(torch, np, rng, dtype, masked, B=8, H=12, S=1024, D=64):
+def flash_case(torch, np, rng, dtype, masked, B=8, H=12, S=1024, D=64, pad_lengths=None):
     """q/k/v/dout as the model makes them ([B,S,H,D] viewed as
     [B,H,S,D]); with ``masked`` a kv_mask of ~75% keys whose last batch
     row attends nothing; with ``masked="padded"`` the mask of a padded
     batch, each row's keys a valid prefix of a length drawn from
-    ``BERT_PAD_LENGTHS``, the last row none."""
+    ``pad_lengths`` (default ``BERT_PAD_LENGTHS``), the last row none."""
     mk = lambda: torch.from_numpy(  # noqa: E731
         rng.standard_normal((B, S, H, D), dtype=np.float32)).to(DEVICE, dtype).transpose(1, 2)
     c = dict(q=mk(), k=mk(), v=mk(), dout=mk(), mask=None)
     if masked == "padded":
-        c["mask"] = torch.from_numpy(padded_mask(np, rng, B, S)).to(DEVICE)
+        c["mask"] = torch.from_numpy(padded_mask(np, rng, B, S, pad_lengths)).to(DEVICE)
     elif masked:
         m = rng.random((B, S)) > 0.25
         m[:, 0] = True
@@ -946,10 +1001,11 @@ def flash_case(torch, np, rng, dtype, masked, B=8, H=12, S=1024, D=64):
     return c
 
 
-def padded_mask(np, rng, B, S):
+def padded_mask(np, rng, B, S, lengths=None):
     """[B, S] bool: row b attends its first lens[b] keys, lens drawn from
-    ``BERT_PAD_LENGTHS`` (clipped to S), the last row none."""
-    lo, hi = (min(x, S) for x in BERT_PAD_LENGTHS)
+    ``lengths`` (default ``BERT_PAD_LENGTHS``; clipped to S), the last row
+    none."""
+    lo, hi = (min(x, S) for x in lengths or BERT_PAD_LENGTHS)
     lens = rng.integers(lo, hi + 1, B)
     lens[-1] = 0
     return np.arange(S)[None, :] < lens[:, None]
@@ -1154,6 +1210,31 @@ def phase_flash(torch, np, F):
             results[n]["err"] = max(results[n]["err"], *errs[n])
             results[n]["bert"]["padded" if masked else "no mask"] = rows[n]
         del c
+    shape = FLASH_D32
+    log(f"phase 2c, head_dim 32 (the MLM/LM demos' shape): B={shape['B']} H={shape['H']} "
+        f"S={shape['S']} D={shape['D']}, bf16 and f32, causal and not, with no mask and with a "
+        f"padded kv_mask (each row's valid length drawn from {FLASH_D32_PAD[0]}-"
+        f"{FLASH_D32_PAD[1]}, the last row none)")
+    for n in names:
+        results[f"{n}_d32"] = {"err": 0.0, "rows": [], "timed": {}}
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[-1]
+        for causal in (False, True):
+            for masked in (False, "padded"):
+                c = flash_case(torch, np, rng, dtype, masked, pad_lengths=FLASH_D32_PAD,
+                               **shape)
+                tag = (f"{dn} D=32 {'causal' if causal else 'non-causal'} "
+                       f"{'padded kv_mask' if masked else 'no mask'}")
+                errs = check_flash(torch, fa, c, causal, tag, dn)
+                for n in names:
+                    results[f"{n}_d32"]["err"] = max(results[f"{n}_d32"]["err"], *errs[n])
+                if dtype != torch.bfloat16 or masked:
+                    continue
+                rows = time_flash(torch, np, F, fa, rng, c, causal, dn, shape)
+                for n in names:
+                    results[f"{n}_d32"]["timed"]["causal" if causal else "non-causal"] = rows[n]
+    for n in names:  # the kernels line's row: the MLM demo's (non-causal)
+        results[f"{n}_d32"]["rows"].append(results[f"{n}_d32"]["timed"]["non-causal"])
     torch.cuda.empty_cache()
     for n in names:  # comparison launches do not count
         getattr(fa, n).launches = before[n]
@@ -3427,15 +3508,6 @@ def wd_bytes_per_example() -> int:
     return 3 * WD_FEATURES * (WD_EMBED + 1) * 4
 
 
-def wd_state(torch, model) -> dict:
-    return {k: v.detach().float().cpu() for k, v in model.state_dict().items()}
-
-
-def wd_update_errs(torch, got: dict, want: dict, init: dict) -> tuple[float, str]:
-    """The worst relative L2 error of a parameter's update, and its name."""
-    return max((rel_l2(got[k] - init[k], want[k] - init[k]), k) for k in want)
-
-
 def wd_f32_step(torch, np):
     """One f32 step of the auto optimizer on the card and on the CPU from
     the same whole weights and batch: the loss's relative difference and
@@ -3458,13 +3530,13 @@ def wd_f32_step(torch, np):
         state = init_train_state(model, wl._canonical_tx(cfg)(model))
         step = make_train_step(wd.ctr_loss_fn(model))
         state, m = step(state, {k: torch.from_numpy(v).to(dev) for k, v in host.items()})
-        out[dev] = (float(m["loss"]), wd_state(torch, model))
+        out[dev] = (float(m["loss"]), state_of(torch, model))
         del model, state
     (loss_c, card), (loss_h, cpu) = out[DEVICE], out["cpu"]
     loss_err = abs(loss_c - loss_h) / abs(loss_h)
-    worst = wd_update_errs(torch, card, cpu, sd)
-    ctl = wd_update_errs(torch, {k: sd[k] + 1.01 * (v - sd[k]) for k, v in card.items()}, cpu,
-                         sd)
+    worst = update_errs(torch, card, cpu, sd)
+    ctl = update_errs(torch, {k: sd[k] + 1.01 * (v - sd[k]) for k, v in card.items()}, cpu,
+                      sd)
     log(f"  11a f32 step, card vs CPU (batch {WD_F32_BATCH}): loss {loss_c:.8f} vs "
         f"{loss_h:.8f} (relative {loss_err:.3e}, limit {TOL['wd/f32/loss']}); updates worst "
         f"relative L2 {worst[0]:.3e} ({worst[1]}, limit {TOL['wd/f32/update']}); control "
@@ -3487,9 +3559,15 @@ def wd_profile_step(torch, res) -> dict:
     model = res.state.model
     data = SyntheticCTR(RecsysConfig(vocab_sizes=model.cfg.vocab_sizes, dense_features=13,
                                      global_batch_size=WD_BATCH, seed=11))
-    dev = {k: torch.from_numpy(v).to(DEVICE) for k, v in data.batch(0).items()}
-    step = make_train_step(wd.ctr_loss_fn(model))
-    state, m = step(res.state, dev)
+    return profiled_step(torch, make_train_step(wd.ctr_loss_fn(model)), res.state,
+                         data.batch(0), f"11a profiled step (B={WD_BATCH}")
+
+
+def profiled_step(torch, step, state, host_batch, label: str, top: int = 12) -> dict:
+    """One warm-up step, then one more under torch.profiler with the batch
+    resident on the card: wall, device busy time and the top kernels."""
+    dev = {k: torch.from_numpy(v).to(DEVICE) for k, v in host_batch.items()}
+    state, m = step(state, dev)
     float(m["loss"])
     act = torch.profiler.ProfilerActivity
     with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
@@ -3500,10 +3578,10 @@ def wd_profile_step(torch, res) -> dict:
         wall_ms = 1e3 * (time.perf_counter() - t0)
     events = [e for e in device_events(torch, prof) if e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    log(f"  11a profiled step (B={WD_BATCH}, batch resident, profiler on): wall {wall_ms:.2f} "
-        f"ms, device busy {busy_ms:.2f} ms = {100 * busy_ms / wall_ms:.1f}% (idle "
+    log(f"  {label}, batch resident, profiler on): wall {wall_ms:.2f} ms, device busy "
+        f"{busy_ms:.2f} ms = {100 * busy_ms / wall_ms:.1f}% (idle "
         f"{100 - 100 * busy_ms / wall_ms:.1f}%), {sum(e.count for e in events)} device records")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
     return {"wall_ms": wall_ms, "busy_ms": busy_ms}
 
@@ -3551,7 +3629,7 @@ def wd_one_card(torch, np, card) -> dict:
         r = run_workload("wide_deep", WD_OVERRIDES + [
             f"--train.num_steps={WD_REPEAT_STEPS}", "--train.eval_batches=0",
             f"--train.seed={seed}"], device=DEVICE)
-        runs.append(([h["loss"] for h in r.history], wd_state(torch, r.state.model)))
+        runs.append(([h["loss"] for h in r.history], state_of(torch, r.state.model)))
         del r
     (la, a), (lb, b), (lc, c) = runs
     same = la == lb and all(torch.equal(a[k], b[k]) for k in a)
@@ -3589,7 +3667,7 @@ def wd_two_ranks(torch, np) -> dict:
         try:
             ref = run_workload("wide_deep", over, device=DEVICE)
             ref_losses = [h["loss"] for h in ref.history]
-            ref_sd = wd_state(torch, ref.state.model)
+            ref_sd = state_of(torch, ref.state.model)
             del ref
             cfg = apply_overrides(wl.default_config(), over).model
             init = {k: v.cpu() for k, v in wd.init_params(cfg, seed=0, device=DEVICE).items()}
@@ -3607,7 +3685,7 @@ def wd_two_ranks(torch, np) -> dict:
     want = ref_sd
     losses = [list(map(float, r["runner/losses"])) for r in ranks]
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses[0], ref_losses))
-    worst = wd_update_errs(torch, whole, want, init)
+    worst = update_errs(torch, whole, want, init)
     bitwise = losses[0] == ref_losses and all(torch.equal(whole[k], want[k]) for k in want)
     models = [int(r["runner/mesh_model"]) for r in ranks]
     log(f"  11b two ranks on this card over gloo, data=1 x model=2 (tables range-sharded, "
@@ -3638,6 +3716,238 @@ def phase_wide_deep(torch, np, card) -> dict:
     torch.cuda.empty_cache()
     out["wall_s"] = time.perf_counter() - t0
     log(f"  phase 11 wall {out['wall_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the MNIST MLP and CIFAR-10 CNN workloads, the convergence demos
+# ---------------------------------------------------------------------------
+
+#: the two small workloads at their presets' widths and batches (mnist_mlp:
+#: 784-512-512-10, batch 128, sgd 0.1; cifar10_cnn: channels 32-64-128,
+#: dense 256, batch 256, momentum 0.9 at 0.05, cosine over 2000), one
+#: process: the data axis takes it (--mesh.data=-1)
+SMALL_WORKLOADS = ("mnist_mlp", "cifar10_cnn")
+SMALL_COMMON = ["--mesh.data=-1", "--train.log_every=1"]
+SMALL_STEPS = 20
+SMALL_EVAL_BATCHES = 4
+SMALL_REPEAT_STEPS = 3
+#: rows of the f32 card-vs-CPU step
+SMALL_F32_BATCH = 64
+#: the JAX package's test_mnist_mlp_converges recipe (60 steps, batch 256,
+#: lr 0.3), whose thresholds the MLP's eval must beat: accuracy > 0.3,
+#: top-5 > 0.7 (at the preset's batch and lr, 20 steps read 0.127 top-1 on
+#: an H100: too few for those thresholds)
+MLP_CONVERGE = ["--train.num_steps=60", "--data.global_batch_size=256",
+                "--optimizer.learning_rate=0.3", "--train.eval_batches=4"]
+#: phase 12b: the convergence demos, each a process of its own with its
+#: default steps and gate; "digits" needs scikit-learn's bundled scans
+DEMOS = (("ctr", "convergence_demo_ctr_torch.py", ()),
+         ("mlm", "convergence_demo_mlm_torch.py", ("--objective", "mlm")),
+         ("lm", "convergence_demo_mlm_torch.py", ("--objective", "lm")),
+         ("digits", "convergence_demo_torch.py", ()))
+DEMO_TIMEOUT_S = 300
+
+
+def small_f32_step(torch, np, name) -> dict:
+    """One f32 step of the preset's optimizer on the card and on the CPU
+    from the same weights and batch (cuDNN deterministic, TF32 off): the
+    loss's relative difference and the worst relative L2 error of a
+    parameter's or BatchNorm buffer's update, beside an update x 1.01
+    control that the gate must fail."""
+    from distributed_tensorflow_tpu_torch.data.pipeline import SyntheticClassification
+    from distributed_tensorflow_tpu_torch.models import common
+    from distributed_tensorflow_tpu_torch.train import (
+        init_train_state, make_optimizer, make_train_step)
+    from distributed_tensorflow_tpu_torch.utils.config import apply_overrides
+    from distributed_tensorflow_tpu_torch.workloads import get
+
+    cfg = apply_overrides(get(name).default_config(),
+                          [f"--data.global_batch_size={SMALL_F32_BATCH}"])
+    host = SyntheticClassification(cfg.data).batch(0)
+    # weights drawn on the CPU (the workload's build, seed 0) and copied to
+    # the card, so both sides start alike
+    base = get(name).build(cfg, torch.device("cpu")).model
+    init = state_of(torch, base)
+    out = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for dev in (DEVICE, "cpu"):
+            model = copy.deepcopy(base).to(dev)
+            state = init_train_state(model, make_optimizer(cfg.optimizer, model.parameters()))
+            step = make_train_step(common.classification_loss_fn(model))
+            state, m = step(state, {k: torch.from_numpy(v).to(dev) for k, v in host.items()})
+            out[dev] = (float(m["loss"]), state_of(torch, model))
+            del model, state
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (loss_c, card), (loss_h, cpu) = out[DEVICE], out["cpu"]
+    loss_err = abs(loss_c - loss_h) / abs(loss_h)
+    # a convolution's bias under BatchNorm has a zero gradient in exact
+    # arithmetic (the mean it adds is subtracted), so its update is
+    # rounding noise on both sides: held absolutely, not relatively
+    zero = {f"conv_{i}.bias" for i in range(len(getattr(cfg.model, "channels", ())))
+            if cfg.model.use_batchnorm}
+    rest = {k: v for k, v in cpu.items() if k not in zero}
+    worst = update_errs(torch, card, rest, init)
+    ctl = update_errs(torch, {k: init[k] + 1.01 * (v - init[k]) for k, v in card.items()},
+                      rest, init)
+    noise = max([float((d[k] - init[k]).abs().max()) for k in zero for d in (card, cpu)],
+                default=0.0)
+    log(f"  12a {name} f32 step, card vs CPU (batch {SMALL_F32_BATCH}): loss {loss_c:.8f} vs "
+        f"{loss_h:.8f} (relative {loss_err:.3e}, limit {TOL['small/f32/loss']}); updates worst "
+        f"relative L2 {worst[0]:.3e} ({worst[1]}, limit {TOL['small/f32/update']}); control "
+        f"(card update x 1.01) {ctl[0]:.3e}"
+        + (f"; the conv biases under BatchNorm (zero gradient): largest |update| on either "
+           f"side {noise:.3e} (limit {TOL['small/f32/zero_grad']})" if zero else ""))
+    if not (loss_err <= TOL["small/f32/loss"] and worst[0] <= TOL["small/f32/update"]
+            and noise <= TOL["small/f32/zero_grad"]):
+        raise SmokeFailure(f"phase 12a: {name}'s f32 card step is off the CPU step: loss "
+                           f"{loss_err:.3e}, update {worst}, zero-gradient update {noise:.3e}")
+    if ctl[0] <= TOL["small/f32/update"]:
+        raise SmokeFailure(f"phase 12a: the x1.01 control passes the update gate ({ctl[0]:.3e})")
+    return {"loss": loss_err, "update": worst[0], "control": ctl[0], "zero_grad": noise}
+
+
+def small_one(torch, np, name, card) -> dict:
+    """Phase 12a for one workload (module docstring)."""
+    from distributed_tensorflow_tpu_torch.workloads import run_workload
+
+    t0 = time.perf_counter()
+    res = run_workload(name, SMALL_COMMON + [
+        f"--train.num_steps={SMALL_STEPS}", f"--train.eval_batches={SMALL_EVAL_BATCHES}"],
+        device=DEVICE)
+    wall = time.perf_counter() - t0
+    batch = get_batch(name)
+    losses = [h["loss"] for h in res.history]
+    rates = [h["steps_per_sec"] for h in res.history if "steps_per_sec" in h and h["step"] >= 3]
+    out = {"step_ms": 1e3 / float(np.median(rates)), "losses": losses, "eval": res.eval_metrics}
+    out["ex_s"] = batch * 1e3 / out["step_ms"]
+    log(f"  12a run_workload({name!r}) at the preset's widths, batch {batch}, {SMALL_STEPS} "
+        f"steps + an eval of {SMALL_EVAL_BATCHES} batches (run wall {wall:.1f} s, init "
+        f"included): losses {[round(x, 5) for x in losses]}; step {out['step_ms']:.3f} ms "
+        f"(median of steps 3-{SMALL_STEPS}, each timed by MetricsLogger's read of its loss) = "
+        f"{out['ex_s']:.0f} examples/s; eval {res.eval_metrics}; {card}")
+    if not (np.isfinite(losses).all() and np.mean(losses[-3:]) < np.mean(losses[:3])):
+        raise SmokeFailure(f"phase 12a: {name}'s loss does not fall ({losses})")
+    if not (res.eval_metrics and np.isfinite(res.eval_metrics["loss"])):
+        raise SmokeFailure(f"phase 12a: {name}'s eval is not finite ({res.eval_metrics})")
+    out["profile"] = small_profile(torch, res, name)
+    del res
+    runs = []
+    for seed in (0, 0, 1):
+        r = run_workload(name, SMALL_COMMON + [
+            f"--train.num_steps={SMALL_REPEAT_STEPS}", "--train.eval_batches=0",
+            f"--train.seed={seed}"], device=DEVICE)
+        runs.append(([h["loss"] for h in r.history], state_of(torch, r.state.model)))
+        del r
+    (la, a), (lb, b), (lc, c) = runs
+    same = la == lb and all(torch.equal(a[k], b[k]) for k in a)
+    differs = la != lc and not all(torch.equal(a[k], c[k]) for k in a)
+    log(f"  12a {name} repeat: two seed-0 runs of {SMALL_REPEAT_STEPS} steps: losses {la} and "
+        f"{lb}, bitwise equal (losses, parameters, buffers): {same}; seed-1 control {lc}, "
+        f"differs: {differs}")
+    if not same:
+        raise SmokeFailure(f"phase 12a: two same-seed {name} runs differ")
+    if not differs:
+        raise SmokeFailure(f"phase 12a: the seed + 1 {name} control equals the seed-0 run")
+    out["f32"] = small_f32_step(torch, np, name)
+    torch.cuda.empty_cache()
+    return out
+
+
+def small_profile(torch, res, name) -> dict:
+    """One more step of the trained state under the profiler, a batch of
+    the workload's synthetic stream resident on the card."""
+    from distributed_tensorflow_tpu_torch.data.pipeline import SyntheticClassification
+    from distributed_tensorflow_tpu_torch.models import common
+    from distributed_tensorflow_tpu_torch.train import make_train_step
+    from distributed_tensorflow_tpu_torch.workloads import get
+
+    data = SyntheticClassification(get(name).default_config().data)
+    step = make_train_step(common.classification_loss_fn(res.state.model))
+    return profiled_step(torch, step, res.state, data.batch(7),
+                         f"12a {name} profiled step (B={get_batch(name)}", top=8)
+
+
+def get_batch(name: str) -> int:
+    from distributed_tensorflow_tpu_torch.workloads import get
+
+    return get(name).default_config().data.global_batch_size
+
+
+def mlp_converges(np, card) -> dict:
+    """The MLP trained by the JAX package's convergence test's recipe
+    (``MLP_CONVERGE``): the loss falls and the eval beats its thresholds."""
+    from distributed_tensorflow_tpu_torch.workloads import run_workload
+
+    res = run_workload("mnist_mlp", SMALL_COMMON + MLP_CONVERGE, device=DEVICE)
+    losses = [h["loss"] for h in res.history]
+    ev = res.eval_metrics
+    log(f"  12a mnist_mlp by the JAX test's recipe ({' '.join(MLP_CONVERGE)}): loss "
+        f"{losses[0]:.5f} -> {losses[-1]:.5f}; eval accuracy {ev['accuracy']:.5f} (must be > "
+        f"0.3), top-5 {ev['top5_accuracy']:.5f} (> 0.7); {card}")
+    if not (losses[-1] < losses[0] and ev["accuracy"] > 0.3 and ev["top5_accuracy"] > 0.7
+            and ev["top5_accuracy"] >= ev["accuracy"]):
+        raise SmokeFailure(f"phase 12a: mnist_mlp misses the JAX test's thresholds ({ev})")
+    return ev
+
+
+def run_demo(name: str, script: str, args) -> dict:
+    """One convergence demo as a process of its own (its default steps and
+    gate): its JSON line and its wall seconds; a non-zero exit fails."""
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([sys.executable, os.path.join(REPO, "tools", script), *args],
+                              cwd=REPO, capture_output=True, text=True, timeout=DEMO_TIMEOUT_S)
+    except subprocess.TimeoutExpired as e:
+        raise SmokeFailure(f"phase 12b: the {name} demo ran past {DEMO_TIMEOUT_S} s") from e
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    if proc.returncode != 0 or not lines:
+        raise SmokeFailure(f"phase 12b: the {name} demo exited {proc.returncode}:\n"
+                           f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    out = json.loads(lines[-1])
+    out["process_s"] = wall
+    log(f"  12b {name} demo ({script} {' '.join(args)}; {wall:.1f} s as a process): {lines[-1]}")
+    return out
+
+
+def phase_small(torch, np, card) -> dict:
+    """Phase 12 (module docstring)."""
+    import importlib.util
+
+    log(f"phase 12: the MNIST MLP and CIFAR-10 CNN workloads at their presets' widths, then "
+        f"the convergence demos; on {card}")
+    t0 = time.perf_counter()
+    out = {n: small_one(torch, np, n, card) for n in SMALL_WORKLOADS}
+    out["mlp_converge"] = mlp_converges(np, card)
+    torch.cuda.empty_cache()
+    out["demos"] = {}
+    # one at a time: two processes on one card take turns on it (a demo
+    # beside another ran at half speed, PERF.md)
+    for name, script, args in DEMOS:
+        if name == "digits" and importlib.util.find_spec("sklearn") is None:
+            log("  12b digits demo: not run — scikit-learn, whose bundled digit scans it "
+                "trains on, is not installed on this machine (ROADMAP)")
+            continue
+        out["demos"][name] = run_demo(name, script, args)
+    for name in ("mlm", "lm"):
+        # the wrappers' own counts by head dim: every launch at 32, each
+        # kernel at least once a step
+        d = out["demos"][name]
+        by_d, steps = d["flash_launches_by_head_dim"], d["steps"]
+        if (d["head_dim"] != 32 or set(by_d) != {"32"}
+                or not all(c >= steps > 0 for c in by_d["32"].values())):
+            raise SmokeFailure(f"phase 12b: the {name} demo did not run every flash kernel at "
+                               f"head_dim 32 each step (model head_dim {d['head_dim']}, "
+                               f"{steps} steps, launches by head dim {by_d})")
+    out["flash_d32_launches"] = {
+        n: sum(out["demos"][d]["flash_launches_by_head_dim"]["32"][n] for d in ("mlm", "lm"))
+        for n in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")}
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"  phase 12 wall {out['wall_s']:.1f} s")
     return out
 
 
@@ -3853,12 +4163,14 @@ def profile_pass(torch, np, cfg, params, prompts):
         log(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
 
 
-def check_spills(report: str, kernels) -> None:
+def check_spills(report: str, kernels, head_dims=()) -> None:
     """ptxas's report of one library: each instantiation of ``kernels``
     (matched by substring of its mangled name) with its registers and
-    spills, logged; fails where one spills or none was reported."""
+    spills, logged; fails where one spills, where none was reported, or
+    where a kernel has no instantiation at one of ``head_dims``."""
     lines = report.splitlines()
     found = {k: 0 for k in kernels}
+    dims = {k: set() for k in kernels}
     for i, line in enumerate(lines):
         m = re.search(r"Function properties for (\S+)", line)
         k = next((k for k in kernels if m and k in m.group(1)), None)
@@ -3869,12 +4181,26 @@ def check_spills(report: str, kernels) -> None:
         spills = [int(x) for x in re.findall(r"(\d+) bytes spill", after)]
         regs = re.search(r"Used (\d+) registers", after)
         d = re.search(r"ILi(\d+)E", m.group(1))
+        if d:
+            dims[k].add(int(d.group(1)))
         log(f"  ptxas {k}<{d.group(1) if d else '?'}>: {regs.group(1) if regs else '?'} "
             f"registers, spill stores/loads {spills}")
         if any(spills):
             raise SmokeFailure(f"ptxas: {m.group(1)} spills {spills} bytes")
     if not all(found.values()):
         raise SmokeFailure(f"ptxas reported no instantiation of {found}")
+    missing = {k: sorted(set(head_dims) - d) for k, d in dims.items() if set(head_dims) - d}
+    if missing:
+        raise SmokeFailure(f"ptxas reported no instantiation at head dims {missing}")
+
+
+def timed(walls: dict, name: str, phase, *args):
+    """``phase(*args)``, its wall seconds kept in ``walls[name]``."""
+    t0 = time.perf_counter()
+    try:
+        return phase(*args)
+    finally:
+        walls[name] = time.perf_counter() - t0
 
 
 def main() -> int:
@@ -3898,6 +4224,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    walls: dict[str, float] = {}
     try:
         smi = nvidia_smi_line()
         log(f"card: {smi}")
@@ -3911,18 +4238,21 @@ def main() -> int:
                 if any(k in line for k in ("Function properties for", "registers", "spill",
                                            "error")):
                     log(f"  [{name}] {line.strip()}")
-        check_spills(reports["flash_attention"], FLASH_KERNELS)
-        kern = phase_kernels(torch, np, F)
-        kern.update(phase_flash(torch, np, F))
-        ln_train = phase_ln_train(torch, np, F)
+        from distributed_tensorflow_tpu_torch.ops.flash_attention import HEAD_DIMS
+
+        check_spills(reports["flash_attention"], FLASH_KERNELS, HEAD_DIMS)
+        walls["1"] = time.perf_counter() - t0
+        kern = timed(walls, "2a-2b", phase_kernels, torch, np, F)
+        kern.update(timed(walls, "2c", phase_flash, torch, np, F))
+        ln_train = timed(walls, "2e", phase_ln_train, torch, np, F)
         kern.update({n: {"err": ln_train[n]["err"], "rows": [ln_train[n]["main"]]}
                      for n in ("ln_matmul_bwd_dx", "ln_matmul_bwd_dw")})
         kern["ln_matmul_train"] = {"err": ln_train["ln_matmul/train"]["err"],
                                    "rows": [ln_train["ln_matmul/train"]["main"]]}
-        conv_bn = phase_conv_bn(torch, np)
+        conv_bn = timed(walls, "2d", phase_conv_bn, torch, np)
         kern.update({n: {"err": r["err"], "rows": [r["main"]]} for n, r in conv_bn.items()})
-        launches, counts, steps = phase_serve(torch, np, smi)
-        train = phase_train(torch, np, smi)
+        launches, counts, steps = timed(walls, "3-4", phase_serve, torch, np, smi)
+        train = timed(walls, "5", phase_train, torch, np, smi)
         launches.update(train["flash_launches"])
         # the LN+matmul forward runs on two main paths: serving (the
         # row-tile kernel, "ln_matmul") and the fused training pass with the
@@ -3930,13 +4260,19 @@ def main() -> int:
         launches.update({n: train["launches"][n] for n in ("ln_matmul_train",
                                                             "ln_matmul_bwd_dx",
                                                             "ln_matmul_bwd_dw")})
-        resnet = phase_resnet(torch, np, smi)
+        resnet = timed(walls, "6", phase_resnet, torch, np, smi)
         launches.update(resnet["launches"])
-        dp = phase_dp(torch, np, smi)
-        bert = phase_bert(torch, np, smi)
-        ckpt = phase_ckpt(torch, np, smi)
-        intake = phase_intake(torch, np, smi, resnet["passes"]["fused/pallas"]["step_ms"])
-        wide = phase_wide_deep(torch, np, smi)
+        dp = timed(walls, "7", phase_dp, torch, np, smi)
+        bert = timed(walls, "8", phase_bert, torch, np, smi)
+        ckpt = timed(walls, "9", phase_ckpt, torch, np, smi)
+        intake = timed(walls, "10", phase_intake, torch, np, smi,
+                       resnet["passes"]["fused/pallas"]["step_ms"])
+        wide = timed(walls, "11", phase_wide_deep, torch, np, smi)
+        # the slice's path: the two small workloads, then the demos; the
+        # head_dim-32 flash launches are the MLM and LM demos' (each demo
+        # zeroes the counts before its training run and reads them after)
+        small = timed(walls, "12", phase_small, torch, np, smi)
+        launches.update({f"{n}_d32": c for n, c in small["flash_d32_launches"].items()})
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -3956,7 +4292,9 @@ def main() -> int:
           for name, line in (("ln_matmul_bwd_dx", 87), ("ln_matmul_bwd_dw", 156))),
         *((name, "distributed_tensorflow_tpu_torch/ops/csrc/flash_attention.cu",
            f"distributed_tensorflow_tpu/ops/flash_attention.py:{line}", kern[name]["rows"][0])
-          for name, line in (("flash_fwd", 75), ("flash_bwd_dkv", 205), ("flash_bwd_dq", 241))),
+          for name, line in (("flash_fwd", 75), ("flash_bwd_dkv", 205), ("flash_bwd_dq", 241),
+                             ("flash_fwd_d32", 75), ("flash_bwd_dkv_d32", 205),
+                             ("flash_bwd_dq_d32", 241))),
         *((name, "distributed_tensorflow_tpu_torch/ops/csrc/fused_conv_bn.cu",
            f"distributed_tensorflow_tpu/ops/fused_conv_bn.py:{line}", kern[name]["rows"][0])
           for name, line in (("conv_bn_fwd", 60), ("conv_bn_bwd_dx", 121), ("conv_bn_bwd_dw", 201),
@@ -3973,7 +4311,9 @@ def main() -> int:
         f"{steps}; timed shapes: paged_attention decode B=8 S=1, ln_matmul M=8 n=3072, "
         f"ln_matmul_train M=8192 n=3072, "
         f"flash B=8 H=12 S=1024 D=64 causal bf16 (flash_bwd_dkv library_ms: SDPA's whole "
-        f"backward, dq+dk+dv; flash_bwd_dq: null)")
+        f"backward, dq+dk+dv; flash_bwd_dq: null); the *_d32 rows: the head_dim-32 "
+        f"instantiation at B=64 H=4 S=64 D=32 non-causal bf16 (the MLM demo's shape), their "
+        f"launches the MLM and LM demos' training runs' (phase 12b)")
     log(f"gpt_lm training (B=8, S=1024): flash step {train['step_ms']:.2f} ms, "
         f"{train['tok_s']:.0f} tokens/s, MFU {100 * train['mfu']:.2f}%, dense step "
         f"{train['dense_step_ms']:.2f} ms; profiled step idle "
@@ -4061,8 +4401,31 @@ def main() -> int:
         f"{wide['eval']['auc']:.5f}; f32 card vs CPU {wide['f32']}; 11b model=2 on two ranks vs "
         f"model=1: loss {wide['dp']['loss']:.3e}, updates {wide['dp']['update']:.3e}, bitwise "
         f"{wide['dp']['bitwise']}")
+    log(f"small workloads and demos (phase 12, {small['wall_s']:.1f} s; {smi}): " + "; ".join(
+        f"{n} (batch {get_batch(n)}) step {small[n]['step_ms']:.3f} ms, "
+        f"{small[n]['ex_s']:.0f} examples/s, profiled step idle "
+        f"{100 - 100 * small[n]['profile']['busy_ms'] / small[n]['profile']['wall_ms']:.1f}%, "
+        f"eval accuracy {small[n]['eval']['accuracy']:.5f}, f32 card vs CPU update "
+        f"{small[n]['f32']['update']:.3e}" for n in SMALL_WORKLOADS)
+        + f"; mnist_mlp by the JAX test's recipe: accuracy "
+        f"{small['mlp_converge']['accuracy']:.5f}, top-5 "
+        f"{small['mlp_converge']['top5_accuracy']:.5f}; demos: " + "; ".join(
+            f"{n} " + ", ".join(f"{k} {v}" for k, v in d.items()
+                                if k.startswith("eval_") or k in ("steps", "wall_s",
+                                                                  "process_s"))
+            for n, d in small["demos"].items())
+        + "; flash kernels at head_dim 32 (B=64 H=4 S=64, bf16; kernel / bound / plain / SDPA "
+        "ms): " + "; ".join(
+            f"{n} {case} {r['ms']:.5f} / {r['bound_ms']:.5f} ({r['bound_by']}) / "
+            f"{r['plain_ms']:.5f} / "
+            + (f"{r['library_ms']:.5f} ({r['sdpa_backend']})" if r["library_ms"] is not None
+               else "null")
+            for n in FLASH_NAMES for case, r in kern[f"{n}_d32"]["timed"].items())
+        + f"; head_dim-32 launches (the MLM + LM demos' training runs): "
+        f"{small['flash_d32_launches']}")
     log(f"cuda_ms traces kept {PAD_RECORDS[0]} of the {PAD_RECORDS[1]} spin-kernel records "
         f"that opened them")
+    log("phase walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
     log(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s (builds included)")
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -20,14 +20,16 @@ def classification_loss_fn(model: torch.nn.Module, *, label_smoothing: float = 0
     "label": int}``: softmax cross-entropy of the f32 logits of
     ``model(x, train=True)``, the mean over the batch; with
     ``label_smoothing`` the targets are ``(1 - a) * onehot + a / K``
-    (optax.smooth_labels). Aux: ``accuracy``. (The JAX version's
+    (optax.smooth_labels). Aux: ``accuracy``. The model's forward gets the
+    step's ``generator`` (the MLP's and the CNN's dropout draw from it;
+    ResNet takes it and draws nothing). (The JAX version's
     ``weight_decay`` in the loss is not ported: the workloads put their L2
     in the optimizer.)"""
 
     def loss_fn(batch, generator=None):
         x = batch["image"] if "image" in batch else batch["x"]
         labels = batch["label"].long()
-        logits = model(x, train=True)
+        logits = model(x, train=True, generator=generator)
         logp = F.log_softmax(logits.float(), dim=-1)
         if label_smoothing > 0:
             k = logits.shape[-1]

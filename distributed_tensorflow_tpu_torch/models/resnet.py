@@ -298,7 +298,11 @@ class ResNet(nn.Module):
                 cin = 4 * filters
         self.head = nn.Linear(cin, cfg.num_classes, device=device)
 
-    def forward(self, x: torch.Tensor, *, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, *, train: bool = False,
+                generator=None) -> torch.Tensor:
+        """Logits of NHWC ``x``. ``generator`` is unused (no dropout): every
+        classification model takes the step's, so one loss adapter calls
+        them all alike."""
         cfg = self.cfg
         dtype, nd = _dtypes(cfg)
         x = x.to(dtype)

@@ -61,7 +61,7 @@
 //  - Q and dO are staged as they lie ([row][d]) and read by ldmatrix: as the
 //    B operand of S^T and dP^T with ldsm_x4, as the B operand of dK and dV
 //    with ldsm_x4_trans, from the one staged copy. K and V are read once
-//    into register A fragments (D = 64), or by ldsm_x4 at every use where
+//    into register A fragments (D <= 64), or by ldsm_x4 at every use where
 //    registers are short (D = 128).
 //  - Q, dO, O (cp.async, 16 bytes) and the LSE (4 bytes) of q tile i+2 are
 //    copied into a 3-stage ring while tile i computes, one __syncthreads an
@@ -74,7 +74,7 @@
 //    runs only where a warp's 16 keys cross the diagonal band of a q
 //    sub-tile; sub-tiles wholly above the band, past Sq, or of a warp whose
 //    keys are all masked skip their products.
-//  A CTA is 4 warps (64 keys) at D = 64, two CTAs an SM, and 8 warps (128
+//  A CTA is 4 warps (64 keys) at D <= 64, two CTAs an SM, and 8 warps (128
 //  keys) at D = 128, one (Dkv); the grid puts the key tile on its slowest
 //  axis so the heaviest causal tiles (lowest keys) launch first. dK and dV
 //  leave through shared memory in 16-byte rows, each rounded once.
@@ -435,7 +435,10 @@ flash_bwd_dkv_f32_kernel(Strided q, Strided k, Strided v, Strided o, Strided dou
 // H100 (PERF.md): at D = 64, 4 warps (64 keys; 248 registers, 103 KB,
 // two CTAs an SM) beat 8 (128 keys, one CTA) by 6%; at D = 128 the ring
 // takes 193 KB at 4 warps, one CTA of 4 warps an SM, so 8 warps (228 KB),
-// 1.35x faster; 16-row sub-tiles there keep ptxas from spilling.
+// 1.35x faster; 16-row sub-tiles there keep ptxas from spilling. D = 32
+// takes D = 64's shape: its fragments and accumulators are half as many,
+// so the same 64 keys of 4 warps hold without a spill, in 57 KB of shared
+// memory.
 template <int D>
 struct Dkv {
   using bf16 = __nv_bfloat16;
@@ -702,7 +705,10 @@ flash_bwd_dkv_kernel(Strided q, Strided k, Strided v, Strided o, Strided dout,
 // fragment feeds two row groups; 247 registers, two CTAs an SM) beat 64 x
 // 4 by 16% and 128 x 8 by 27%; at D = 128, 32 rows a warp spill, and 64 x
 // 4 with 2 stages (two CTAs an SM) beat 128 x 8 by 4% and 3 stages (one
-// CTA) by 36%.
+// CTA) by 36%. D = 32 takes D = 64's shape (32 rows a warp, a 3-stage ring
+// of 64-key stages): a 16-deep mma step covers the head in two k-steps, the
+// Q fragments and the output accumulators are half D = 64's, so it cannot
+// spill where D = 64 does not.
 template <int D>
 struct Fwd {
   using bf16 = __nv_bfloat16;
@@ -1043,6 +1049,7 @@ flash_bwd_dq_f32_kernel(Strided q, Strided k, Strided v, Strided o, Strided dout
 // keys a stage; 64 x 4 with 64 keys takes 9% longer, 128 x 8 17%. At D =
 // 128, 32 rows a warp spill; 64 x 4 with 32 keys (244 registers, two CTAs
 // an SM); 64 keys a stage (one CTA an SM by shared memory) takes 33% longer.
+// D = 32 takes D = 64's shape, with half its Q, dO and dQ registers.
 template <int D>
 struct Dq {
   using bf16 = __nv_bfloat16;
@@ -1399,6 +1406,7 @@ bool shapes_ok(int B, int H, int Sq, int Sk) {
 
 #define DTF_DISPATCH_D(T, D, CALL)                           \
   switch (D) {                                               \
+    case 32: { constexpr int kD = 32; return CALL; }         \
     case 64: { constexpr int kD = 64; return CALL; }         \
     case 128: { constexpr int kD = 128; return CALL; }       \
     default: return (int)cudaErrorInvalidValue;              \

@@ -18,7 +18,8 @@ tile resident, so no float atomics and a deterministic backward.
 The wrappers ``flash_fwd``, ``flash_bwd_dkv`` and ``flash_bwd_dq`` launch
 their kernel for CUDA tensors (built with nvcc on first use) and raise
 on what it does not take; for CPU tensors — and only for those — they
-compute the plain version. Each counts its launches in ``.launches``.
+compute the plain version. Each counts its launches in ``.launches``,
+and by head dim in ``.launches_by_d``.
 Inputs are read through their strides with the head dimension
 contiguous (the model's ``[B,S,H,D] -> [B,H,S,D]`` views need no copy);
 a tensor whose last dimension is strided is made contiguous first.
@@ -32,7 +33,7 @@ from . import _build
 from .attention import NEG_INF
 
 #: head dims the kernels are instantiated for
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (32, 64, 128)
 
 
 def _scale(q: torch.Tensor, sm_scale: float | None) -> float:
@@ -134,7 +135,8 @@ def _check(q, k, v, kv_mask, *extra):
     if k.shape[0] != B or k.shape[1] != H or k.shape[3] != D:
         raise ValueError(f"k/v {tuple(k.shape)} do not match q {tuple(q.shape)}")
     if D not in HEAD_DIMS:
-        raise ValueError(f"head_dim {D}: the flash kernels are built for {HEAD_DIMS} "
+        raise ValueError(f"head_dim {D}: the flash kernels are built for {HEAD_DIMS}; "
+                         f"other head dims are open in ROADMAP Queue C "
                          f"(attention_impl='dense' takes any head_dim)")
     for name, t in (("q", q), ("k", k), ("v", v)) + extra:
         if t.device != q.device:
@@ -145,6 +147,12 @@ def _check(q, k, v, kv_mask, *extra):
                              f"{tuple(kv_mask.shape)} on {kv_mask.device}")
         kv_mask = kv_mask.to(torch.bool).contiguous()
     return kv_mask
+
+
+def _count(wrapper, D: int) -> None:
+    """One launch of ``wrapper``'s kernel at head dim ``D``."""
+    wrapper.launches += 1
+    wrapper.launches_by_d[D] = wrapper.launches_by_d.get(D, 0) + 1
 
 
 def _common_tail(q, k, causal, scale):
@@ -165,7 +173,7 @@ def flash_fwd(q, k, v, kv_mask=None, *, causal: bool = False, sm_scale: float | 
     _build.launch(_build.load("flash_attention"), f"flash_fwd_{_SUFFIX[q.dtype]}", "flash_fwd",
                   q.device, *qa, *ka, *va, kv_mask.data_ptr() if kv_mask is not None else None,
                   out.data_ptr(), lse.data_ptr(), *_common_tail(q, k, causal, _scale(q, sm_scale)))
-    flash_fwd.launches += 1
+    _count(flash_fwd, q.shape[-1])
     return out, lse
 
 
@@ -200,7 +208,7 @@ def flash_bwd_dkv(q, k, v, kv_mask, out, lse, dout, *, causal: bool = False,
     _build.launch(_build.load("flash_attention"), f"flash_bwd_dkv_{_SUFFIX[q.dtype]}",
                   "flash_bwd_dkv", q.device, *args, dk.data_ptr(), dv.data_ptr(),
                   *_common_tail(q, k, causal, _scale(q, sm_scale)))
-    flash_bwd_dkv.launches += 1
+    _count(flash_bwd_dkv, q.shape[-1])
     return dk, dv
 
 
@@ -216,11 +224,12 @@ def flash_bwd_dq(q, k, v, kv_mask, out, lse, dout, *, causal: bool = False,
     _build.launch(_build.load("flash_attention"), f"flash_bwd_dq_{_SUFFIX[q.dtype]}",
                   "flash_bwd_dq", q.device, *args, dq.data_ptr(),
                   *_common_tail(q, k, causal, _scale(q, sm_scale)))
-    flash_bwd_dq.launches += 1
+    _count(flash_bwd_dq, q.shape[-1])
     return dq
 
 
 flash_fwd.launches = flash_bwd_dkv.launches = flash_bwd_dq.launches = 0
+flash_fwd.launches_by_d, flash_bwd_dkv.launches_by_d, flash_bwd_dq.launches_by_d = {}, {}, {}
 
 
 class FlashAttention(torch.autograd.Function):

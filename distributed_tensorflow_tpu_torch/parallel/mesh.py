@@ -90,7 +90,8 @@ class MeshSpec:
             sizes[wild[0]] = n_devices // fixed
         elif fixed != n_devices:
             raise ValueError(f"Mesh {sizes} needs {fixed} devices but {n_devices} are "
-                             f"available")
+                             f"available (an axis at -1 takes what there is, e.g. "
+                             f"--mesh.data=-1)")
         out = MeshSpec(**sizes, dcn_data=self.dcn_data, dcn_pipe=self.dcn_pipe)
         for name, dcn in out.dcn_sizes().items():
             if dcn > 1 and out.sizes()[name] % dcn != 0:

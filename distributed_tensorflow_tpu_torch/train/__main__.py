@@ -36,6 +36,15 @@ Usage:
         --train.log_every=20 --optimizer.learning_rate=0.01 --train.eval_batches=4
     torchrun --nproc_per_node=2 -m distributed_tensorflow_tpu_torch.train wide_deep \\
         --device cpu --mesh.model=2 ...  (and the same tiny overrides)
+    python -m distributed_tensorflow_tpu_torch.train mnist_mlp --device cpu \\
+        --train.num_steps=60 --checkpoint.directory=/tmp/ck_mlp
+    torchrun --nproc_per_node=8 -m distributed_tensorflow_tpu_torch.train cifar10_cnn
+    python -m distributed_tensorflow_tpu_torch.train cifar10_cnn --mesh.data=-1 \\
+        --train.num_steps=200   (one process: the data axis takes it)
+
+``python -m distributed_tensorflow_tpu_torch.evaluate <workload>
+--checkpoint.directory=DIR`` evaluates a run's newest checkpoint without
+training.
 
 Checkpoint and resume: with ``--checkpoint.directory=DIR`` (and e.g.
 ``--checkpoint.save_interval_steps=50``) the run saves on that cadence,

@@ -25,6 +25,13 @@ they are, cut to this rank's range shard over ``mesh``'s ``model`` axis,
 and each Dense ``[in, out]`` -> ``[out, in]``; ``wide_deep_to_jax`` is its
 inverse over the ranks' state dicts (the tables reassembled).
 
+``mlp_from_jax(params_np, cfg)`` and ``cnn_from_jax(params_np,
+batch_stats_np, cfg)`` do it for the MNIST MLP and the CIFAR-10 CNN: each
+Dense ``[in, out]`` -> ``[out, in]`` (the CNN's ``dense`` rows stay in
+flax's (h, w, c) order: the port flattens its NHWC map the same way),
+each conv ``kernel`` HWIO -> OIHW, BatchNorm as the ResNet's;
+``cnn_to_jax`` is the CNN's inverse (params and batch_stats).
+
 ``optimizer_state_from_jax(opt_state_np, optimizer, cfg)`` carries an
 optax state across: adam/adamw's ``mu`` / ``nu`` / ``count`` (and
 momentum's ``trace``, adagrad's ``sum_of_squares``, the JAX package's
@@ -41,7 +48,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from .models import resnet
+from .models import cnn, mlp, resnet
 from .models import wide_deep as wd
 from .models.transformer import Transformer, TransformerConfig, build
 from .utils.device import resolve_device
@@ -128,6 +135,72 @@ def resnet_from_jax(params_np: Mapping, batch_stats_np: Mapping, cfg: resnet.Res
     batch_stats, as f32 masters that require grad."""
     device = resolve_device(device)
     return resnet.build(cfg, resnet_state_dict_from_jax(params_np, cfg, batch_stats_np), device)
+
+
+def mlp_state_dict_from_jax(params_np: Mapping, cfg: mlp.MLPConfig) -> dict[str, torch.Tensor]:
+    """The flax MLP tree (or a gradient tree over it) as a state dict of
+    ``mlp.MLP(cfg)`` (f32)."""
+    names = [f"dense_{i}" for i in range(len(cfg.hidden_sizes))] + ["head"]
+    sd = {}
+    for name in names:
+        sd[name + ".weight"] = _t(params_np[name]["kernel"]).t().contiguous()
+        sd[name + ".bias"] = _t(params_np[name]["bias"])
+    return sd
+
+
+def mlp_from_jax(params_np: Mapping, cfg: mlp.MLPConfig, device="cuda") -> mlp.MLP:
+    """``mlp.MLP(cfg)`` on ``device`` (the card by default; raises without
+    one unless ``device="cpu"``) holding the flax tree's weights, as f32
+    masters that require grad."""
+    return mlp.build(cfg, mlp_state_dict_from_jax(params_np, cfg), resolve_device(device))
+
+
+def cnn_state_dict_from_jax(params_np: Mapping, cfg: cnn.CNNConfig,
+                            batch_stats_np: Mapping | None = None) -> dict[str, torch.Tensor]:
+    """The flax CNN tree as a state dict of ``cnn.CNN(cfg)`` (f32); without
+    ``batch_stats_np`` the running statistics are left out (a gradient
+    tree converts this way)."""
+    sd = {}
+    for i in range(len(cfg.channels)):
+        conv = params_np[f"conv_{i}"]
+        sd[f"conv_{i}.weight"] = _t(conv["kernel"]).permute(3, 2, 0, 1).contiguous()
+        sd[f"conv_{i}.bias"] = _t(conv["bias"])
+        if cfg.use_batchnorm:
+            sd[f"bn_{i}.weight"] = _t(params_np[f"bn_{i}"]["scale"])
+            sd[f"bn_{i}.bias"] = _t(params_np[f"bn_{i}"]["bias"])
+            if batch_stats_np is not None:
+                sd[f"bn_{i}.running_mean"] = _t(batch_stats_np[f"bn_{i}"]["mean"])
+                sd[f"bn_{i}.running_var"] = _t(batch_stats_np[f"bn_{i}"]["var"])
+    for name in ("dense", "head"):
+        sd[name + ".weight"] = _t(params_np[name]["kernel"]).t().contiguous()
+        sd[name + ".bias"] = _t(params_np[name]["bias"])
+    return sd
+
+
+def cnn_from_jax(params_np: Mapping, batch_stats_np: Mapping, cfg: cnn.CNNConfig,
+                 device="cuda", input_shape=(32, 32, 3)) -> cnn.CNN:
+    """``cnn.CNN(cfg, input_shape)`` on ``device`` (the card by default;
+    raises without one unless ``device="cpu"``) holding the flax tree's
+    params and batch_stats, as f32 masters that require grad."""
+    return cnn.build(cfg, cnn_state_dict_from_jax(params_np, cfg, batch_stats_np),
+                     resolve_device(device), input_shape)
+
+
+def cnn_to_jax(state_dict: Mapping, cfg: cnn.CNNConfig) -> tuple[dict, dict]:
+    """``(params, batch_stats)``, the flax trees (numpy) of a CNN whose
+    state dict (parameters and buffers) is ``state_dict``."""
+    arr = lambda n: np.asarray(torch.as_tensor(state_dict[n]).detach().float().cpu())  # noqa: E731
+    params, stats = {}, {}
+    for i in range(len(cfg.channels)):
+        params[f"conv_{i}"] = {"kernel": arr(f"conv_{i}.weight").transpose(2, 3, 1, 0),
+                               "bias": arr(f"conv_{i}.bias")}
+        if cfg.use_batchnorm:
+            params[f"bn_{i}"] = {"scale": arr(f"bn_{i}.weight"), "bias": arr(f"bn_{i}.bias")}
+            stats[f"bn_{i}"] = {"mean": arr(f"bn_{i}.running_mean"),
+                                "var": arr(f"bn_{i}.running_var")}
+    for name in ("dense", "head"):
+        params[name] = {"kernel": arr(name + ".weight").T, "bias": arr(name + ".bias")}
+    return params, stats
 
 
 def wide_deep_state_dict_from_jax(params_np: Mapping, cfg: wd.WideDeepConfig,

@@ -185,7 +185,9 @@ def setup(cfg: RunConfig, build, device="cuda"):
         raise ValueError(
             f"mesh {spans} spans more than one process, but this one runs alone: launch it "
             f"under torchrun --nproc_per_node={math.prod(spans.values())} (or set "
-            f"cluster.coordinator_address, cluster.num_processes and cluster.process_id)")
+            f"cluster.coordinator_address, cluster.num_processes and cluster.process_id)"
+            + ("; or pass --mesh.data=-1 to let the data axis take the processes there are"
+               if "data" in spans else ""))
     mesh = build_mesh(cfg.mesh, dev)
     if cluster.is_chief():
         logger.info("mesh: %s", describe(mesh))

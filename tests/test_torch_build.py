@@ -209,6 +209,22 @@ def test_sources_parse_as_cpp_with_every_template_instantiated(name, tmp_path):
     assert out.returncode == 0, out.stderr[-4000:]
 
 
+def test_flash_dispatch_cases_are_the_head_dims():
+    """The C dispatch switch of the three flash kernels has one case for
+    each of the wrapper's ``HEAD_DIMS`` and no other, so a head dim the
+    wrapper lets through is one the library was built for (the parse
+    above instantiates every case, D = 32 included, with its traits'
+    static_asserts)."""
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+
+    with open(_build._paths("flash_attention")[0]) as f:
+        src = f.read()
+    switch = src[src.index("#define DTF_DISPATCH_D"):]
+    switch = switch[:switch.index("default:")]
+    cases = tuple(int(d) for d in re.findall(r"case (\d+): \{ constexpr int kD = \1;", switch))
+    assert cases == fa.HEAD_DIMS == (32, 64, 128)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -464,3 +480,17 @@ def test_launch_enters_the_tensors_device_only_when_it_is_not_current(monkeypatc
     assert lib.calls[1] == ((3, 1001), 1) and entered == [1] and current == [0]
     with pytest.raises(_build.KernelLaunchError, match="test: CUDA error 1"):
         _build.launch(_Lib(current, rc=1), "entry", "test", torch.device("cuda:0"))
+
+
+def test_chip_smoke_refuses_a_flash_kernel_missing_a_head_dim():
+    """Phase 1 asks ptxas's report for every instantiation of the flash
+    kernels at each of ``HEAD_DIMS``: a report with D = 64 alone fails
+    when 32 is asked for, so a D = 32 instantiation that did not build (or
+    was not checked for spills) cannot go unseen."""
+    chip_smoke = _load("chip_smoke", "chip_smoke.py")
+    report = _PTXAS.format(spill=0, dq_spill=0, dq_f32_spill=0)
+    chip_smoke.check_spills(report, ("flash_fwd_kernel",), (64,))
+    with pytest.raises(chip_smoke.SmokeFailure, match=r"head dims .*flash_fwd_kernel.*\[32\]"):
+        chip_smoke.check_spills(report, ("flash_fwd_kernel",), (32, 64))
+    d32 = report.replace("ILi64E", "ILi32E") + report
+    chip_smoke.check_spills(d32, ("flash_fwd_kernel", "flash_bwd_dq_kernel"), (32, 64))

@@ -189,3 +189,18 @@ def test_backward_wrappers_pass_out_through_its_strides():
     buf = torch.zeros(2 * 3 * 40 * 64 + 1, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="out: the flash kernels load rows 16 bytes"):
         tfa._bwd_args(q, k, v, None, buf[1:].view(2, 3, 40, 64), lse, dout)
+
+
+def test_kernels_take_head_dims_32_64_128_and_name_queue_c_for_others():
+    """The wrappers' argument check lets D in ``HEAD_DIMS`` (32 — the
+    MLM/LM demos' d_model 128 over 4 heads — 64 and 128) through and
+    refuses 8 and 16, naming ROADMAP Queue C, rather than falling back to
+    dense; ``auto`` stays dense only on the CPU."""
+    assert tfa.HEAD_DIMS == (32, 64, 128)
+    for d in tfa.HEAD_DIMS:
+        q = torch.zeros(1, 2, 8, d)
+        assert tfa._check(q, q, q, None) is None
+    for d in (8, 16):
+        q = torch.zeros(1, 2, 8, d)
+        with pytest.raises(ValueError, match=f"head_dim {d}.*ROADMAP Queue C"):
+            tfa._check(q, q, q, None)

@@ -3,8 +3,9 @@
 - Importing every module of ``distributed_tensorflow_tpu_torch`` (in a
   fresh interpreter) loads no jax, no flax, nothing of the JAX package
   and no triton, and builds no kernel.
-- No module of the port, and not ``chip_smoke.py``, imports any of them
-  (AST scan — catches imports inside functions too). Note the name trap:
+- No module of the port, not ``chip_smoke.py`` and no ``tools/*_torch.py``
+  script (the port's converters, benchmarks and convergence demos) imports
+  any of them (AST scan — catches imports inside functions too). Note the name trap:
   ``"distributed_tensorflow_tpu_torch".startswith(
   "distributed_tensorflow_tpu")``, so the JAX package is matched as the
   exact name or the name followed by a dot.
@@ -90,7 +91,10 @@ def _imports(path: pathlib.Path):
 
 
 def test_no_module_of_the_port_imports_jax_or_the_jax_package():
-    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    tools = sorted((REPO / "tools").glob("*_torch.py"))
+    assert {"convergence_demo_torch.py", "convergence_demo_ctr_torch.py",
+            "convergence_demo_mlm_torch.py"} <= {t.name for t in tools}
+    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"] + tools
     assert len(files) >= 15
     bad = [(str(f.relative_to(REPO)), name) for f in files for name in _imports(f)
            if name and (_forbidden(name) or name.startswith("<"))]
@@ -123,8 +127,9 @@ def test_helpers_and_training_entry_points_raise_without_cuda(monkeypatch):
     from distributed_tensorflow_tpu_torch.models import transformer as tfm
     from distributed_tensorflow_tpu_torch.serve.kv_cache import init_paged_cache
     from distributed_tensorflow_tpu_torch.train.__main__ import main as train_main
+    from distributed_tensorflow_tpu_torch.models import cnn, mlp
     from distributed_tensorflow_tpu_torch.weights import from_jax_params, resnet_from_jax
-    from distributed_tensorflow_tpu_torch.workloads import run_workload
+    from distributed_tensorflow_tpu_torch.workloads import eval_workload, run_workload
 
     cfg = tfm.TransformerConfig(vocab_size=64, max_len=16, num_layers=1, d_model=16,
                                 num_heads=2, d_ff=32, dtype="float32", causal=True,
@@ -138,7 +143,11 @@ def test_helpers_and_training_entry_points_raise_without_cuda(monkeypatch):
                  lambda: resnet.init_params(resnet.ResNetConfig()),
                  lambda: resnet_from_jax({}, {}, resnet.ResNetConfig()),
                  lambda: run_workload("resnet50_imagenet", ["--train.num_steps=1"]),
-                 lambda: train_main(["resnet50_imagenet", "--train.num_steps=1"])):
+                 lambda: train_main(["resnet50_imagenet", "--train.num_steps=1"]),
+                 lambda: mlp.init_params(mlp.MLPConfig(), 784),
+                 lambda: cnn.init_params(cnn.CNNConfig()),
+                 lambda: run_workload("mnist_mlp", ["--train.num_steps=1"]),
+                 lambda: eval_workload("mnist_mlp", ["--checkpoint.directory=unused"])):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
     # explicit CPU is allowed

@@ -295,13 +295,15 @@ def test_flash_kernels_match_plain_on_card(card, dtype):
     atol, rtol = (1e-4, 1e-4) if dtype == torch.float32 else TOLS[dtype]
     for B, H, Sq, Sk, D, causal, masked in FLASH_CASES:
         q, k, v, mask, dout = _flash_inputs(rng, card, dtype, B, H, Sq, Sk, D, masked)
-        counts = (fa.flash_fwd.launches, fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches)
+        wrappers = (fa.flash_fwd, fa.flash_bwd_dkv, fa.flash_bwd_dq)
+        counts = [(w.launches, w.launches_by_d.get(D, 0)) for w in wrappers]
         out, lse = fa.flash_fwd(q, k, v, mask, causal=causal)
         dk, dv = fa.flash_bwd_dkv(q, k, v, mask, out, lse, dout, causal=causal)
         dq = fa.flash_bwd_dq(q, k, v, mask, out, lse, dout, causal=causal)
         torch.cuda.synchronize()
-        assert (fa.flash_fwd.launches, fa.flash_bwd_dkv.launches,
-                fa.flash_bwd_dq.launches) == tuple(c + 1 for c in counts)
+        # one launch each, booked at the case's head dim
+        assert [(w.launches, w.launches_by_d.get(D, 0)) for w in wrappers] == [
+            (a + 1, b + 1) for a, b in counts]
         want_out, want_lse = fa.flash_attention_plain(q, k, v, mask, causal=causal)
         want = fa.flash_attention_bwd_plain(q, k, v, mask, out, lse, dout, causal=causal)
         case = (B, H, Sq, Sk, D, causal, masked)
@@ -322,6 +324,56 @@ def test_flash_kernels_match_plain_on_card(card, dtype):
         if masked == "tiles":  # keys no row attends get zero gradients
             assert not dk[:, :, 128:256].float().abs().sum()
             assert not dv[:, :, 128:256].float().abs().sum()
+
+
+#: head_dim 32 (the MLM/LM convergence demos: d_model 128 over 4 heads, S=64,
+#: batch 64), causal and not, with and without a kv_mask; ragged edges
+FLASH_D32_CASES = [
+    (64, 4, 64, 64, 32, False, False),
+    (64, 4, 64, 64, 32, False, "padded32"),
+    (64, 4, 64, 64, 32, True, False),
+    (2, 3, 200, 200, 32, True, True),
+    (2, 2, 37, 130, 32, True, False),
+    (1, 2, 300, 300, 32, False, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_kernels_at_head_dim_32_match_plain_on_card(card, dtype):
+    """The D = 32 instantiation of the three kernels against the plain
+    versions, at the gates of ``test_flash_kernels_match_plain_on_card``
+    (elementwise and relative L2)."""
+    rng = np.random.default_rng(32)
+    atol, rtol = (1e-4, 1e-4) if dtype == torch.float32 else TOLS[dtype]
+    for B, H, Sq, Sk, D, causal, masked in FLASH_D32_CASES:
+        q, k, v, mask, dout = _flash_inputs(rng, card, dtype, B, H, Sq, Sk, D,
+                                            masked and masked != "padded32")
+        if masked == "padded32":  # each row a valid prefix of 16-64 keys
+            lens = torch.from_numpy(rng.integers(16, Sk + 1, B)).to(card)
+            mask = torch.arange(Sk, device=card)[None, :] < lens[:, None]
+        wrappers = (fa.flash_fwd, fa.flash_bwd_dkv, fa.flash_bwd_dq)
+        counts = [(w.launches, w.launches_by_d.get(D, 0)) for w in wrappers]
+        out, lse = fa.flash_fwd(q, k, v, mask, causal=causal)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, mask, out, lse, dout, causal=causal)
+        dq = fa.flash_bwd_dq(q, k, v, mask, out, lse, dout, causal=causal)
+        torch.cuda.synchronize()
+        # one launch each, booked at the case's head dim
+        assert [(w.launches, w.launches_by_d.get(D, 0)) for w in wrappers] == [
+            (a + 1, b + 1) for a, b in counts]
+        want_out, want_lse = fa.flash_attention_plain(q, k, v, mask, causal=causal)
+        want = fa.flash_attention_bwd_plain(q, k, v, mask, out, lse, dout, causal=causal)
+        case = (B, H, Sq, Sk, D, causal, masked)
+        torch.testing.assert_close(out.float(), want_out.float(), atol=atol, rtol=rtol,
+                                   msg=lambda m: f"out {case}: {m}")
+        torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5,
+                                   msg=lambda m: f"lse {case}: {m}")
+        assert _rel_l2(out, want_out) <= FLASH_FWD_REL_L2[dtype], (
+            "out", case, _rel_l2(out, want_out))
+        for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+            torch.testing.assert_close(got.float(), w.float(), atol=atol, rtol=rtol,
+                                       msg=lambda m: f"{name} {case}: {m}")
+            assert _rel_l2(got, w) <= FLASH_REL_L2[dtype], (name, case, _rel_l2(got, w))
 
 
 @pytest.mark.cuda
@@ -429,8 +481,8 @@ def test_flash_wrappers_raise_on_what_the_kernels_do_not_take(card):
     q = torch.zeros(1, 2, 64, 64, device=card, dtype=torch.float16)
     with pytest.raises(TypeError):
         fa.flash_fwd(q, q, q)
-    q = torch.zeros(1, 2, 64, 32, device=card)
-    with pytest.raises(ValueError, match="head_dim"):
+    q = torch.zeros(1, 2, 64, 16, device=card)
+    with pytest.raises(ValueError, match="head_dim 16.*ROADMAP Queue C"):
         fa.flash_fwd(q, q, q)
     buf = torch.zeros(1 * 2 * 64 * 64 + 1, device=card, dtype=torch.bfloat16)
     q = buf[1:].view(1, 2, 64, 64)  # 2 bytes past a 16-byte boundary
@@ -862,6 +914,41 @@ def test_resnet_fused_steps_on_card_match_the_cpu(card, monkeypatch):
            zip(gmodel.state_dict().items(), wmodel.state_dict().values())
            if not torch.allclose(a.cpu(), b, atol=2e-4, rtol=1e-4)}
     assert bad == {}
+
+
+@pytest.mark.cuda
+def test_cifar10_cnn_step_on_card_matches_the_cpu(card, monkeypatch):
+    """One f32 momentum step of the CIFAR-10 CNN at the preset's widths
+    (channels 32-64-128, dense 256; batch 16 of 32x32x3) on the card
+    against the same step on the CPU, from the same weights: the loss
+    within 1e-5, every parameter and BatchNorm buffer within atol 1e-5,
+    rtol 1e-4 (f32 convolutions with TF32 off, another summation order)."""
+    from distributed_tensorflow_tpu_torch.data.pipeline import DataConfig, SyntheticClassification
+    from distributed_tensorflow_tpu_torch.models import cnn, common
+    from distributed_tensorflow_tpu_torch.train import (
+        OptimizerConfig, init_train_state, make_optimizer, make_train_step)
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    cfg = cnn.CNNConfig()
+    params = cnn.init_params(cfg, seed=0, device="cpu")
+    batch = SyntheticClassification(DataConfig(global_batch_size=16, image_size=32, channels=3,
+                                                num_classes=10)).batch(0)
+    runs = []
+    for device in (card, torch.device("cpu")):
+        model = cnn.build(cfg, params, device)
+        state = init_train_state(model, make_optimizer(
+            OptimizerConfig(name="momentum", learning_rate=0.05, momentum=0.9),
+            model.parameters()))
+        step = make_train_step(common.classification_loss_fn(model))
+        state, metrics = step(state, {k: torch.from_numpy(v).to(device) for k, v in batch.items()})
+        runs.append((float(metrics["loss"]), model.state_dict()))
+    (got, gsd), (want, wsd) = runs
+    assert abs(got - want) <= 1e-5
+    bad = {n: float((gsd[n].cpu() - wsd[n]).abs().max()) for n in wsd
+           if not torch.allclose(gsd[n].cpu(), wsd[n], atol=1e-5, rtol=1e-4)}
+    assert bad == {}
+    assert any(not torch.equal(wsd[n], params[n]) for n in params)
 
 
 @pytest.mark.cuda

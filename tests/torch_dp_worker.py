@@ -64,8 +64,16 @@ exits non-zero on any failure. The spec's ``job``:
   rank's parameters and its eval; with ``refuse`` (workload -> overrides),
   the message each such ``run_workload`` raises.
 
-``train_steps``, ``bert_steps`` and ``wide_deep_steps`` are also what the
-one-process references run (no mesh);
+- ``"cnn"``: a CIFAR-10 CNN of ``cfg`` over ``input_shape`` images built
+  from ``sd`` in ``inputs``, stepped with momentum 0.9 at 0.05 and a
+  cosine decay over the batches (``cnn_steps``) on this rank's rows of
+  each global batch ``image<i>``/``label<i>`` (sync BatchNorm over the
+  mesh); it saves the losses and the state dict after the steps. With
+  ``runner``: also ``run_workload("cifar10_cnn", runner)``'s losses and
+  mesh, and the check that every rank ends with the same weights.
+
+``train_steps``, ``bert_steps``, ``wide_deep_steps`` and ``cnn_steps`` are
+also what the one-process references run (no mesh);
 ``launch`` starts the ranks of a spec, ``wait`` collects them and
 ``stop`` kills them.
 """
@@ -513,6 +521,54 @@ def job_wide_deep(spec: dict, dev, mesh) -> dict:
     return out
 
 
+#: the CNN passes' optimizer: cifar10_cnn's (momentum, cosine over the steps)
+CNN_OPTIMIZER = dict(name="momentum", learning_rate=0.05, momentum=0.9, schedule="cosine")
+
+
+def cnn_steps(cfg, sd: dict, batches: list[dict], device, mesh=None,
+              input_shape=(32, 32, 3)) -> dict:
+    """``len(batches)`` momentum steps of a CNN of ``cfg`` from state dict
+    ``sd`` on ``device``, the cosine decay over those steps: with ``mesh``,
+    each batch is the global batch and this rank steps on its rows.
+    Returns the losses and the state dict after the steps (numpy)."""
+    from distributed_tensorflow_tpu_torch.models import cnn
+
+    model = cnn.build(cfg, {k: torch.as_tensor(v) for k, v in sd.items()}, device,
+                      tuple(input_shape), mesh)
+    opt = topt.make_optimizer(topt.OptimizerConfig(**CNN_OPTIMIZER, total_steps=len(batches)),
+                              model.parameters())
+    state = tstep.init_train_state(model, opt)
+    step = tstep.make_train_step(common.classification_loss_fn(model), mesh=mesh)
+    losses = []
+    for b in batches:
+        rows = shard_host_batch(b, mesh) if mesh is not None else b
+        state, m = step(state, {k: torch.as_tensor(v).to(device) for k, v in rows.items()})
+        losses.append(float(m["loss"]))
+    out = {k: v.detach().float().cpu().numpy() for k, v in model.state_dict().items()}
+    return {"losses": np.asarray(losses), "state": out}
+
+
+def job_cnn(spec: dict, dev, mesh) -> dict:
+    from distributed_tensorflow_tpu_torch.models import cnn
+    from distributed_tensorflow_tpu_torch.utils.multihost import assert_same_across_hosts
+
+    cfg = cnn.CNNConfig(**{k: tuple(v) if isinstance(v, list) else v
+                           for k, v in spec["cfg"].items()})
+    sd, batches = load_inputs(spec["inputs"])
+    res = cnn_steps(cfg, sd, batches, dev, mesh, spec["input_shape"])
+    out = {"losses": res["losses"], **{f"state/{k}": v for k, v in res["state"].items()}}
+    if spec.get("runner"):
+        from distributed_tensorflow_tpu_torch.workloads import run_workload
+
+        run = run_workload("cifar10_cnn", spec["runner"], device=dev.type)
+        assert_same_across_hosts(
+            {k: v.detach().cpu() for k, v in run.state.model.state_dict().items()},
+            "weights after run_workload")
+        out["runner/losses"] = np.asarray([r["loss"] for r in run.history])
+        out["runner/mesh_data"] = np.asarray(run.mesh.shape["data"])
+    return out
+
+
 def free_port() -> int:
     import socket
 
@@ -592,7 +648,7 @@ def main(spec_path: str) -> int:
         mesh = build_mesh(MeshSpec(data=-1), dev)
         jobs = {"job_resnet": job_resnet, "job_bert": job_bert, "job_parallel": job_parallel,
                 "job_ckpt": job_ckpt, "job_ckpt_fallback": job_ckpt_fallback,
-                "job_wide_deep": job_wide_deep}
+                "job_wide_deep": job_wide_deep, "job_cnn": job_cnn}
         out = jobs[f"job_{spec['job']}"](spec, dev, mesh)
         np.savez(os.path.join(spec["out"], f"rank{cluster.process_index()}.npz"), **out)
     finally:
