@@ -218,7 +218,34 @@ when any phase fails:
    relative-L2 gates and x1.01 controls, timed beside SDPA non-causal and
    causal in bf16; ptxas's report of every bf16 D=32 instantiation must
    show no spill, as D=64's and D=128's);
-13. print the ``kernels`` JSON line (fifteen entries: ``ln_matmul`` is the
+13. the transformer training options (``T13_*``): (a) ``gpt_lm`` at
+   phase 5's setting (gpt_small, S=1024, B=8, bf16, dropout 0.1, the
+   fixed corpus), 4 steps through ``run_workload`` each: plain, with
+   ``remat`` (losses and step-1 gradients bitwise the plain run's; a
+   control with the dropout generator's replay removed must differ; 24
+   flash forwards a step, 12 dK/dV and dQ; peak memory below the plain
+   run's), fused QKV with remat from the split weights fused (within
+   phase 5's limits), remat with ``fused_ln_matmul`` and the pallas
+   backward (the LN+matmul forward twice a step); (b) ``attention_impl=
+   "blockwise"`` (two key blocks) against dense, 3 steps; (c) rmsprop,
+   lamb and adafactor 3 steps each at full size (the loss must fall), and
+   2 f32 updates of each at 2 layers on the card against the CPU within
+   ``TOL["opt/f32/*"]`` beside an update x 1.01 control; (d) data-parallel
+   gpt_lm (``tests/torch_dp_worker.py``'s ``gpt`` job) on two gloo ranks
+   on this card, 2 layers of gpt_small's widths in f32, plain and at
+   dropout 0.1 with remat, against one process within phase 7b's f32
+   limits; (e) a run with ``Profiler`` (its trace names the flash
+   kernels), ``--train.summary_dir`` (the event file read back, every CRC
+   checked), ``TelemetryCallback`` (``train_steps_total`` 6) and a
+   ``Watchdog``, then a run whose step stalls past an ``abort_on_stall``
+   watchdog's budget (``StalledError``, classified ``stalled``); (f)
+   ``tools/bench_bert_torch.py`` at bert_base (B=32, S=512: flash, flash +
+   remat, flash + fused QKV, blockwise) and gpt B=64 S=1024 with remat,
+   5 timed steps each, each line printed. (Phase 2c also holds ``flash_attention`` at head
+   dims 8 and 16, zero-padded to 32, against the plain versions at that
+   head dim, with its gates and controls and the launches counted at 32
+   and at the caller's head dim, and times it beside SDPA.)
+14. print the ``kernels`` JSON line (fifteen entries: ``ln_matmul`` is the
    serving forward at M=8, ``ln_matmul_train`` the tiled forward at
    M=8192; ``flash_*_d32`` the flash kernels' head_dim-32 instantiation),
    then the ``ok`` line last.
@@ -525,6 +552,11 @@ PAD_RECORDS = [0, 0]
 #: traces ``cuda_ms`` may take beyond its ``traces`` while the fullest trace
 #: of a kernel still lacks more than a tenth of its records
 EXTRA_TRACES = 3
+#: traces ``cuda_ms`` may retake, a pause apart, when one recorded no device
+#: record but its spin pads (CUPTI delivered nothing), and the count of
+#: such traces over the run
+BLANK_RETAKES, BLANK_PAUSE_S = 4, 0.1
+BLANK_TRACES = [0]
 
 
 def cuda_ms(torch, fns, iters: int = 50, warmup: int = 5, traces: int = 3,
@@ -533,8 +565,10 @@ def cuda_ms(torch, fns, iters: int = 50, warmup: int = 5, traces: int = 3,
     input sets, together larger than L2, so each call finds its inputs
     cold as the serve path does). Returns ``device_ms``: the device time
     of every kernel the calls launched, per call, from ``torch.profiler``
-    (CUPTI, ``traces`` traces of ``iters`` calls) — the kernel's own time,
-    free of the Python wrapper's host overhead; ``by_name``: that device
+    (CUPTI, ``traces`` traces of ``iters`` calls, the device activity
+    alone: the host's operators are not recorded, which halves the
+    trace's processing) — the kernel's own time, free of the Python
+    wrapper's host overhead; ``by_name``: that device
     time split by kernel name; and ``call_ms``: CUDA events around the
     back-to-back calls, per call, which includes the host time between
     launches whenever that exceeds the device time.
@@ -549,7 +583,13 @@ def cuda_ms(torch, fns, iters: int = 50, warmup: int = 5, traces: int = 3,
     records of any trace over ``iters``, rounded up. Every shortfall is
     logged; while one is of more than a tenth of a kernel's records, up to
     ``EXTRA_TRACES`` more traces are taken, and one left after them fails
-    the run."""
+    the run. A trace that holds no device record but its pads is blank:
+    CUPTI now and then delivers nothing for a whole trace, so a blank
+    trace is retaken (up to ``BLANK_RETAKES`` times, tallied in
+    ``BLANK_TRACES``) and counts for nothing. If every trace was blank,
+    a call timed for its total alone (no ``launches``) takes ``call_ms``,
+    the CUDA events' time, as its device time, logged so, with an empty
+    ``by_name``; one timed for its kernels fails the run."""
     call_ms = event_ms(torch, fns, iters, warmup)
     act = torch.profiler.ProfilerActivity
     launches = launches or {}
@@ -564,22 +604,39 @@ def cuda_ms(torch, fns, iters: int = 50, warmup: int = 5, traces: int = 3,
                 short.append((k[:60], n, each * iters))
         return by_name, short, [k for k, n, want in short if 10 * abs(want - n) > want]
 
-    taken = 0
-    while taken < traces or (taken < traces + EXTRA_TRACES and shortfalls()[2]):
-        with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+    def missing():
+        return [part for part in launches if not any(part in k for k in most)]
+
+    taken = blank = 0
+    while taken < traces or (taken < traces + EXTRA_TRACES and (shortfalls()[2] or missing())):
+        with torch.profiler.profile(activities=[act.CUDA]) as prof:
             for _ in range(PAD_LAUNCHES):
                 torch.cuda._sleep(1)
             torch.cuda.synchronize()
             for i in range(iters):
                 fns[i % len(fns)]()
             torch.cuda.synchronize()
-        taken += 1
         PAD_RECORDS[1] += PAD_LAUNCHES
-        for e in device_events(torch, prof):
-            if "spin_kernel" in e.key:
-                PAD_RECORDS[0] += e.count
-            elif e.count > most.get(e.key, (0, 0.0))[0]:
+        events = device_events(torch, prof)
+        PAD_RECORDS[0] += sum(e.count for e in events if "spin_kernel" in e.key)
+        events = [e for e in events if "spin_kernel" not in e.key]
+        if not events:
+            blank += 1
+            BLANK_TRACES[0] += 1
+            if blank > BLANK_RETAKES:
+                break
+            time.sleep(BLANK_PAUSE_S)
+            continue
+        taken += 1
+        for e in events:
+            if e.count > most.get(e.key, (0, 0.0))[0]:
                 most[e.key] = (e.count, e.self_device_time_total / 1e3)
+    if blank:
+        log(f"    ({blank} blank profiler traces; {taken} traces hold device records)")
+    if not most and not launches:
+        log(f"    (torch.profiler recorded no device time in {blank} traces: device time from "
+            f"CUDA events, {call_ms:.5f} ms a call)")
+        return {"device_ms": call_ms, "by_name": {}, "call_ms": call_ms}
     for part in launches:
         if not any(part in k for k in most):
             raise SmokeFailure(f"torch.profiler recorded no launch of {part} in {taken} traces")
@@ -1102,6 +1159,8 @@ def check_flash(torch, fa, c, causal, tag, dn) -> dict[str, list[float]]:
 
 def sdpa_backend(by_name: dict) -> str:
     """The backend SDPA picked, from the names of the kernels it launched."""
+    if not by_name:
+        return "not recorded"
     names = " ".join(by_name).lower()
     for key, backend in (("cudnn", "cudnn"), ("flash", "flash"), ("fmha", "efficient"),
                          ("efficient", "efficient")):
@@ -1235,10 +1294,163 @@ def phase_flash(torch, np, F):
                     results[f"{n}_d32"]["timed"]["causal" if causal else "non-causal"] = rows[n]
     for n in names:  # the kernels line's row: the MLM demo's (non-causal)
         results[f"{n}_d32"]["rows"].append(results[f"{n}_d32"]["timed"]["non-causal"])
+    results["padded"] = flash_padded(torch, np, F, fa, rng)
     torch.cuda.empty_cache()
     for n in names:  # comparison launches do not count
         getattr(fa, n).launches = before[n]
     return results
+
+
+def check_padded_flash(torch, fa, c, causal, tag, dn) -> dict:
+    """``flash_attention`` at a head dim the kernels are not built for
+    (zero-padded to ``padded_head_dim``, sliced back) against the plain
+    versions at that head dim: out and, through autograd, dq, dk, dv,
+    elementwise (``TOL["flash/<dtype>"]``) and as relative L2 beside the
+    out, dk and dq x 1.01 controls; each wrapper must count one launch at
+    the padded head dim and one for the caller's. Returns the max abs
+    errors."""
+    D = c["q"].shape[-1]
+    Dp = fa.padded_head_dim(D)
+    wrappers = [getattr(fa, n) for n in FLASH_NAMES]
+    before = [(w.launches_by_d.get(Dp, 0), w.launches_by_asked_d.get(D, 0)) for w in wrappers]
+    leaves = [c[n].detach().requires_grad_() for n in ("q", "k", "v")]
+    out = fa.flash_attention(*leaves, causal=causal, kv_mask=c["mask"])
+    dq, dk, dv = torch.autograd.grad(out, leaves, c["dout"])
+    torch.cuda.synchronize()
+    counted = [(w.launches_by_d.get(Dp, 0) - b[0], w.launches_by_asked_d.get(D, 0) - b[1])
+               for w, b in zip(wrappers, before)]
+    if counted != [(1, 1)] * 3:
+        raise SmokeFailure(f"flash {tag}: launches at D={Dp} / asked D={D}: {counted}, want "
+                           f"one each of every kernel")
+    args = (c["q"], c["k"], c["v"], c["mask"])
+    want_out, want_lse = fa.flash_attention_plain(*args, causal=causal)
+    want = fa.flash_attention_bwd_plain(*args, want_out, want_lse, c["dout"], causal=causal)
+    tol = TOL[f"flash/{dn}"]
+    errs = {"flash_fwd": [check_close(torch, f"flash_fwd/out {tag}", out, want_out, tol)],
+            "flash_bwd_dkv": [check_close(torch, f"flash_bwd_dkv/dk {tag}", dk, want[1], tol),
+                              check_close(torch, f"flash_bwd_dkv/dv {tag}", dv, want[2], tol)],
+            "flash_bwd_dq": [check_close(torch, f"flash_bwd_dq/dq {tag}", dq, want[0], tol)]}
+    lim_out, lim = TOL[f"flash/fwd/rel_l2/{dn}"], TOL[f"flash/bwd/rel_l2/{dn}"]
+    l2 = {"out": (rel_l2(out, want_out), lim_out), "dq": (rel_l2(dq, want[0]), lim),
+          "dk": (rel_l2(dk, want[1]), lim), "dv": (rel_l2(dv, want[2]), lim)}
+    controls = {"out": (rel_l2(out.float() * 1.01, want_out), lim_out)}
+    if c["mask"] is None:
+        controls.update(dk=(rel_l2(dk.float() * 1.01, want[1]), lim),
+                        dq=(rel_l2(dq.float() * 1.01, want[0]), lim))
+    log(f"  flash {tag} (padded to D={Dp}): relative L2 " + ", ".join(
+        f"{n} {e:.2e} (tol {t:g})" for n, (e, t) in l2.items()) + "; controls x 1.01: "
+        + ", ".join(f"{n} {e:.2e}" for n, (e, _) in controls.items()))
+    passed = [n for n, (e, t) in controls.items() if e <= t]
+    if passed:
+        raise SmokeFailure(f"flash {tag}: the relative-L2 gate passes {passed} x 1.01")
+    bad = [n for n, (e, t) in l2.items() if e > t]
+    if bad:
+        raise SmokeFailure(f"flash {tag}: {bad} outside the relative-L2 gate")
+    return errs
+
+
+def time_padded_flash(torch, np, F, fa, rng, c, causal, dn, shape) -> dict[str, dict]:
+    """The padded call's forward (the pads, the forward kernel at the
+    padded head dim, the slice) and its backward through autograd (the
+    dout pad, dK/dV, dQ, the slices), each kernel's device time by name,
+    beside the plain versions and SDPA at the caller's head dim, and the
+    bound of the work that head dim asks (``flash_bound_ms``)."""
+    tensor = c["q"].numel() * c["q"].element_size()
+    masked = c["mask"] is not None
+    sets = [c] + [flash_case(torch, np, rng, c["q"].dtype, "padded" if masked else False,
+                             **shape) for _ in range(copies_for(5 * tensor) - 1)]
+    graphs = []
+    for st in sets:
+        leaves = [st[n].detach().requires_grad_() for n in ("q", "k", "v")]
+        graphs.append((fa.flash_attention(*leaves, causal=causal, kv_mask=st["mask"]), leaves,
+                       st["dout"]))
+    fwd = [lambda st=st: fa.flash_attention(st["q"], st["k"], st["v"], causal=causal,
+                                            kv_mask=st["mask"]) for st in sets]
+    bwd = [lambda g=g: torch.autograd.grad(g[0], g[1], g[2], retain_graph=True)
+           for g in graphs]
+    fa_args = lambda st: (st["q"], st["k"], st["v"], st["mask"])  # noqa: E731
+    for st in sets:
+        st["out"], st["lse"] = fa.flash_attention_plain(*fa_args(st), causal=causal)
+    plain_fwd = [lambda st=st: fa.flash_attention_plain(*fa_args(st), causal=causal)
+                 for st in sets]
+    plain_bwd = [lambda st=st: fa.flash_attention_bwd_plain(
+        *fa_args(st), st["out"], st["lse"], st["dout"], causal=causal) for st in sets]
+
+    def sdpa(st, q, k, v):
+        if st["mask"] is None:
+            return F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=st["mask"][:, None, None, :])
+
+    lib_fwd = [lambda st=st: sdpa(st, st["q"], st["k"], st["v"]) for st in sets]
+    lib_graphs = []
+    for st in sets:
+        leaves = [st[n].detach().requires_grad_() for n in ("q", "k", "v")]
+        lib_graphs.append((sdpa(st, *leaves), leaves, st["dout"]))
+    lib_bwd = [lambda g=g: torch.autograd.grad(g[0], g[1], g[2], retain_graph=True)
+               for g in lib_graphs]
+    with torch.no_grad():
+        t_fwd = cuda_ms(torch, fwd)
+    t_bwd = cuda_ms(torch, bwd)
+    t_plain_fwd, t_plain_bwd = cuda_ms(torch, plain_fwd), cuda_ms(torch, plain_bwd)
+    t_lib_fwd, t_lib_bwd = cuda_ms(torch, lib_fwd), cuda_ms(torch, lib_bwd)
+    rows = {}
+    for n, kernel, t, kind in (("flash_fwd", "flash_fwd_", t_fwd, "fwd"),
+                               ("flash_bwd_dkv", "flash_bwd_dkv_", t_bwd, "dkv"),
+                               ("flash_bwd_dq", "flash_bwd_dq_", t_bwd, "dq")):
+        own = sum(ms for k, ms in t["by_name"].items() if kernel in k)
+        if own <= 0:
+            raise SmokeFailure(f"padded flash: the profiler recorded no {kernel} kernel in "
+                               f"{sorted(t['by_name'])}")
+        row = dict(ms=own, call_ms=t["device_ms"],
+                   plain_ms=(t_plain_fwd if kind == "fwd" else t_plain_bwd)["device_ms"],
+                   library_ms=(t_lib_fwd["device_ms"] if kind == "fwd" else
+                               t_lib_bwd["device_ms"] if kind == "dkv" else None),
+                   sdpa_backend=sdpa_backend(t_lib_fwd["by_name"]))
+        row["bound_ms"], row["bound_by"] = flash_bound_ms(torch, c, kind, dn, causal=causal)
+        rows[n] = row
+    log(f"    padded D={c['q'].shape[-1]} {dn} {'causal' if causal else 'non-causal'}: "
+        + "; ".join(f"{n} kernel {r['ms']:.5f} ms (the whole padded "
+                    f"{'forward' if n == 'flash_fwd' else 'backward'} {r['call_ms']:.5f}) / "
+                    f"bound {r['bound_ms']:.5f} ({r['bound_by']}) / plain {r['plain_ms']:.5f}"
+                    f" / SDPA " + (f"{r['library_ms']:.5f} ({r['sdpa_backend']})"
+                                    if r["library_ms"] is not None else "null")
+                    for n, r in rows.items()))
+    return rows
+
+
+#: head dims below the instantiated ones (the JAX package's tools' d_model
+#: 64 over 4 heads and over 8), zero-padded to 32 by ``flash_attention``;
+#: at the head_dim-32 shape's B, H and S
+FLASH_PADDED_DIMS = (8, 16)
+
+
+def flash_padded(torch, np, F, fa, rng) -> dict:
+    """Phase 2c's padded head dims (``FLASH_PADDED_DIMS``): bf16 and f32,
+    causal and not, with no mask and a padded kv_mask, checked; bf16 with
+    no mask timed causal and not."""
+    shape0 = dict(FLASH_D32)
+    log(f"phase 2c, padded head dims {FLASH_PADDED_DIMS} (zero-padded to "
+        f"{fa.padded_head_dim(FLASH_PADDED_DIMS[0])} inside flash_attention): B={shape0['B']} "
+        f"H={shape0['H']} S={shape0['S']}, bf16 and f32, causal and not, no mask and a padded "
+        f"kv_mask ({FLASH_D32_PAD[0]}-{FLASH_D32_PAD[1]} keys, the last row none)")
+    out = {"err": {n: 0.0 for n in FLASH_NAMES}, "timed": {}}
+    for D in FLASH_PADDED_DIMS:
+        shape = dict(shape0, D=D)
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[-1]
+            for causal in (False, True):
+                for masked in (False, "padded"):
+                    c = flash_case(torch, np, rng, dtype, masked, pad_lengths=FLASH_D32_PAD,
+                                   **shape)
+                    tag = (f"{dn} D={D} {'causal' if causal else 'non-causal'} "
+                           f"{'padded kv_mask' if masked else 'no mask'}")
+                    errs = check_padded_flash(torch, fa, c, causal, tag, dn)
+                    for n in FLASH_NAMES:
+                        out["err"][n] = max(out["err"][n], *errs[n])
+                    if dtype == torch.bfloat16 and not masked:
+                        out["timed"][f"D={D} {'causal' if causal else 'non-causal'}"] = \
+                            time_padded_flash(torch, np, F, fa, rng, c, causal, dn, shape)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1933,6 +2145,7 @@ def train_pass(torch, np, impl, batch=8, steps=6, extra=(), bwd=None, workload="
     topt.Optimizer.update = spy
     try:
         torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() / 2 ** 30
         torch.cuda.reset_peak_memory_stats()
         for k in counters.values():
             k.launches = 0  # main path starts
@@ -1958,7 +2171,7 @@ def train_pass(torch, np, impl, batch=8, steps=6, extra=(), bwd=None, workload="
                 tok_s=batch * res.state.model.cfg.max_len * 1e3 / step_ms,
                 mfu=float(np.median([r.get("mfu", np.nan) for r in steady])) if steady
                 else np.nan,
-                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30, held_gib=held,
                 grads=captured.get("grads"), launches=launches,
                 eval_launches={n: total[n] - launches[n] for n in total},
                 eval_metrics=res.eval_metrics,
@@ -3952,6 +4165,533 @@ def phase_small(torch, np, card) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 13: transformer training options — remat, fused QKV, blockwise
+# attention, rmsprop/lamb/adafactor, data-parallel gpt_lm, the callbacks,
+# the BERT bench
+# ---------------------------------------------------------------------------
+
+#: phase 13a/13b: steps of each gpt_lm pass (phase 5's setting otherwise)
+T13_STEPS, T13_BLOCKWISE_STEPS = 4, 3
+#: phase 13c: each optimizer's constant lr on phase 5's corpus (dropout
+#: off, so that 3 steps show the loss fall): rmsprop's first updates are
+#: ~3.2 lr an element, lamb's and adafactor's lr x the parameter's norm or
+#: RMS — each a smoke setting, not a recipe
+T13_OPTIMIZERS = (("rmsprop", 1e-4), ("lamb", 1e-2), ("adafactor", 1e-2))
+T13_OPT_STEPS = 3
+#: the f32 card-vs-CPU check of the optimizers: gpt_small's widths at 2
+#: layers, a batch of 2 x 64 tokens, 2 updates
+T13_F32 = dict(layers=2, batch=2, seq=64, steps=2)
+#: phase 13d: data-parallel gpt_lm, two gloo ranks on this card, f32
+T13_DP = dict(layers=2, global_batch=8, steps=3, chunk=256)
+#: phase 13e: the callbacks' run (gpt_lm, 2 layers)
+T13_CB_LAYERS, T13_CB_STEPS = 2, 6
+#: phase 13f: tools/bench_bert_torch.py's runs: (label, environment)
+T13_BENCH_STEPS = "5"
+T13_BENCH = (
+    ("bert flash", {"BENCH_MODEL": "bert", "BENCH_BATCH": "32", "BENCH_ATTN": "flash"}),
+    ("bert flash + remat", {"BENCH_MODEL": "bert", "BENCH_BATCH": "32", "BENCH_ATTN": "flash",
+                            "BENCH_REMAT": "1"}),
+    ("bert flash + fused QKV", {"BENCH_MODEL": "bert", "BENCH_BATCH": "32",
+                                "BENCH_ATTN": "flash", "BENCH_FUSED_QKV": "1"}),
+    ("bert blockwise", {"BENCH_MODEL": "bert", "BENCH_BATCH": "32", "BENCH_ATTN": "blockwise"}),
+    ("gpt B=64 flash + remat", {"BENCH_MODEL": "gpt", "BENCH_BATCH": "64", "BENCH_SEQ": "1024",
+                                "BENCH_ATTN": "flash", "BENCH_REMAT": "1",
+                                "BENCH_XENT_CHUNK": "256"}),
+)
+
+TOL.update({
+    # phase 13a: fused QKV (one [3d, d] GEMM, q/k/v copied out) vs split
+    # (three GEMMs), both with remat, bf16: the products summed in another
+    # tiling — phase 5's flash-vs-dense kind of difference, so its limits
+    "train/fused_qkv/loss": TOL["train/loss"],
+    "train/fused_qkv/grad_rel_l2": TOL["train/grad_rel_l2"],
+    # phase 13c: f32 optimizer updates, card vs CPU, each from the CPU's
+    # state before it (weights, optimizer state; TF32 off). Given the CPU's
+    # gradients, the card's update is the same elementwise f32 arithmetic
+    # and the same whole-parameter sums in another order: each parameter's
+    # update within 1e-5 relative L2 (the x1.01 control reads 1e-2; lamb's
+    # first reading, 4.6e-3 on tok_embed.weight, was the CPU's
+    # torch.linalg.vector_norm, off by 2.2e-3 over that 38.6M-element
+    # table: Lamb now sums the squares). With its own gradients (its
+    # forward and backward: the products and flash's sums in another
+    # order) the loss within 1e-5 and the median parameter within 1e-5; the
+    # worst is printed, not gated: attn.key.bias has an exact gradient of
+    # 0, which rmsprop and lamb normalise from rounding noise on each side
+    # (its relative L2 read 0.9-2.6), and the LayerNorm scales' gradients
+    # sum every token's products in another order (up to 2.0e-5 for
+    # final_ln.weight; H100, 700 W)
+    "opt/f32/update": 1e-5,
+    "opt/f32/step/median": 1e-5,
+    "opt/f32/loss": 1e-5,
+})
+
+
+def phase13_corpus(np, tmp) -> list:
+    return [f"--data.dataset=tokens:{lm_corpus(np, os.path.join(tmp, 'corpus13.npy'))}"]
+
+
+@contextlib.contextmanager
+def fused_qkv_weights(torch):
+    """While open, ``init_params`` of a ``fused_qkv`` config gives the
+    split config's weights of the same seed, fused (``weights.fuse_qkv``):
+    the fused run starts from the split run's function."""
+    import dataclasses
+
+    from distributed_tensorflow_tpu_torch import weights
+    from distributed_tensorflow_tpu_torch.models import transformer as tfm
+
+    init = tfm.init_params
+
+    def fused_init(cfg, seed=0, device="cuda", trainable=False):
+        if not cfg.fused_qkv:
+            return init(cfg, seed=seed, device=device, trainable=trainable)
+        split = dataclasses.replace(cfg, fused_qkv=False)
+        return weights.fuse_qkv(init(split, seed=seed, device=device, trainable=trainable),
+                                split)
+
+    with mock.patch.object(tfm, "init_params", fused_init):
+        yield
+
+
+def remat_phase(torch, np, card, data) -> dict:
+    """Phase 13a (module docstring)."""
+    from distributed_tensorflow_tpu_torch import weights
+    from distributed_tensorflow_tpu_torch.models import transformer as tfm
+
+    steps = T13_STEPS
+    passes = {}
+
+    def run(tag, extra, bwd=None):
+        p = passes[tag] = train_pass(torch, np, "flash", steps=steps, extra=[*data, *extra],
+                                     bwd=bwd)
+        p["cfg"], p["res"] = p["res"].state.model.cfg, None  # the next pass starts clean
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    run("split", [])
+    run("remat", ["--model.remat=true"])
+    with mock.patch.object(tfm, "_generator_snapshot", lambda generator: None):
+        run("control", ["--model.remat=true"])
+    with fused_qkv_weights(torch):
+        run("fused_qkv", ["--model.remat=true", "--model.fused_qkv=true"])
+    run("fused_ln", ["--model.remat=true", "--model.fused_ln_matmul=true"], bwd="pallas")
+    layers = passes["split"]["cfg"].num_layers
+    for tag, p in passes.items():
+        log(f"  13a {tag}: losses {p['losses']}; step {p['step_ms']:.2f} ms (median of steps "
+            f"2-{steps}), {p['tok_s']:.0f} tokens/s, MFU {100 * p['mfu']:.2f}%, peak "
+            f"{p['peak_gib']:.3f} GiB ({p['peak_gib'] - p['held_gib']:.3f} above the "
+            f"{p['held_gib']:.3f} held before), launches {p['launches']}")
+        if not np.isfinite(p["losses"]).all() or not p["losses"][-1] < p["losses"][0]:
+            raise SmokeFailure(f"13a {tag}: the loss is not finite or did not fall")
+    if passes["remat"]["losses"] != passes["split"]["losses"]:
+        raise SmokeFailure(f"13a: remat's losses {passes['remat']['losses']} are not bitwise "
+                           f"the plain run's {passes['split']['losses']}")
+    if passes["control"]["losses"] == passes["split"]["losses"]:
+        raise SmokeFailure("13a: the control (remat without the generator replay) passes the "
+                           "bitwise gate: the gate cannot see the dropout masks")
+    same_grads = all(torch.equal(a, b) for a, b in zip(passes["remat"]["grads"],
+                                                       passes["split"]["grads"]))
+    if not same_grads:
+        raise SmokeFailure("13a: remat's step-1 gradients are not bitwise the plain run's")
+    per = {"split": (1, 1), "remat": (2, 1), "control": (2, 1), "fused_qkv": (2, 1),
+           "fused_ln": (2, 1)}
+    for tag, (fwd, bwd) in per.items():
+        want = {"flash_fwd": fwd * layers * steps, "flash_bwd_dkv": bwd * layers * steps,
+                "flash_bwd_dq": bwd * layers * steps}
+        got = {n: passes[tag]["launches"][n] for n in FLASH_NAMES}
+        if got != want:
+            raise SmokeFailure(f"13a {tag}: flash launches {got}, want {want}")
+    ln = passes["fused_ln"]["launches"]
+    want_ln = {"ln_matmul_train": 2 * 4 * layers * steps, "ln_matmul_bwd_dx": 4 * layers * steps,
+               "ln_matmul_bwd_dw": 4 * layers * steps}
+    if {n: ln[n] for n in want_ln} != want_ln:
+        raise SmokeFailure(f"13a fused_ln: LN+matmul launches {ln}, want {want_ln}")
+    above = {tag: p["peak_gib"] - p["held_gib"] for tag, p in passes.items()}
+    if not above["remat"] < above["split"]:
+        raise SmokeFailure(f"13a: remat's peak {above['remat']:.3f} GiB (above what was held "
+                           f"before its run) is not below the plain run's {above['split']:.3f}")
+    # fused QKV: its gradients in the split pass's names
+    cfg = passes["fused_qkv"]["cfg"]
+    fq = passes["fused_qkv"]
+    fused = weights.split_qkv(dict(zip(fq["names"], fq["grads"])), cfg)
+    fq_split = dict(fq, names=passes["remat"]["names"],
+                    grads=[fused[n] for n in passes["remat"]["names"]])
+    out = {"compare": {
+        "fused_qkv vs split (remat both)": gate_train(
+            train_diffs(torch, fq_split, passes["remat"]), "13a fused QKV vs split (remat, bf16)",
+            TOL["train/fused_qkv/loss"], TOL["train/fused_qkv/grad_rel_l2"]),
+        "remat + fused_ln vs plain": gate_train(
+            train_diffs(torch, passes["fused_ln"], passes["split"]),
+            "13a remat + fused_ln_matmul (pallas) vs plain unfused", TOL["train/fused/loss"],
+            TOL["train/fused/grad_rel_l2"])}}
+    diverge = next(i for i, (a, b) in enumerate(zip(passes["control"]["losses"],
+                                                    passes["split"]["losses"])) if a != b)
+    log(f"  13a remat: losses and step-1 gradients bitwise the plain run's; control (no "
+        f"replay): first differing loss at step {diverge + 1}; peak above held "
+        f"{above['remat']:.3f} GiB vs {above['split']:.3f} GiB; step "
+        f"{passes['remat']['step_ms']:.2f} ms vs {passes['split']['step_ms']:.2f} ms")
+    out["passes"] = {tag: {**{k: p[k] for k in ("losses", "step_ms", "tok_s", "mfu", "launches")},
+                           "peak_gib": above[tag]} for tag, p in passes.items()}
+    out["control_diverges_at"] = diverge + 1
+    del passes, fq, fq_split, fused
+    torch.cuda.empty_cache()
+    return out
+
+
+def blockwise_phase(torch, np, data) -> dict:
+    """Phase 13b: blockwise attention (two key blocks at S=1024) vs dense."""
+    passes = {impl: train_pass(torch, np, impl, steps=T13_BLOCKWISE_STEPS, extra=data)
+              for impl in ("blockwise", "dense")}
+    for impl, p in passes.items():
+        log(f"  13b {impl}: losses {p['losses']}; step {p['step_ms']:.2f} ms, peak "
+            f"{p['peak_gib']:.3f} GiB, flash launches {[p['launches'][n] for n in FLASH_NAMES]}")
+        if any(p["launches"][n] for n in FLASH_NAMES):
+            raise SmokeFailure(f"13b {impl}: launched a flash kernel")
+    d = train_diffs(torch, passes["blockwise"], passes["dense"])
+    out = {"compare": gate_train(d, "13b blockwise vs dense (bf16)", TOL["train/loss"],
+                                 TOL["train/grad_rel_l2"])}
+    out["passes"] = {impl: {k: p[k] for k in ("losses", "step_ms", "peak_gib")}
+                     for impl, p in passes.items()}
+    del passes
+    torch.cuda.empty_cache()
+    return out
+
+
+def optimizer_f32(torch, np, name, lr) -> dict:
+    """``T13_F32`` f32 updates of optimizer ``name`` on the CPU; each again
+    on the card from the CPU's state before it (``state_leaves`` /
+    ``load_state_leaves``), once given the CPU's gradients (every
+    parameter's update within ``TOL["opt/f32/update"]``, beside a card
+    update x 1.01 control) and once as a whole step with the card's own
+    gradients (the loss and the median parameter's update; the worst is
+    printed)."""
+    import dataclasses
+
+    from distributed_tensorflow_tpu_torch.models import transformer as tfm
+    from distributed_tensorflow_tpu_torch.train import (
+        OptimizerConfig, init_train_state, make_optimizer, make_train_step)
+    from distributed_tensorflow_tpu_torch.train import step as step_lib
+
+    f = T13_F32
+    cfg = dataclasses.replace(tfm.gpt_small(causal_len=f["seq"]), num_layers=f["layers"],
+                              dtype="float32", dropout=0.0)
+    params = tfm.init_params(cfg, seed=0, device="cpu", trainable=True)
+    ids = torch.from_numpy(np.random.default_rng(13).integers(
+        0, cfg.vocab_size, (f["batch"], f["seq"])).astype(np.int64))
+
+    def make(dev):
+        model = tfm.build(cfg, params, dev, trainable=True)
+        state = init_train_state(model, make_optimizer(
+            OptimizerConfig(name=name, learning_rate=lr, weight_decay=0.01),
+            model.parameters()))
+        return state, make_train_step(tfm.lm_loss_fn(model))
+
+    def leaves(state):
+        return {n: v.detach().cpu().clone() for n, v in step_lib.state_leaves(state)
+                if n.startswith("model/")}
+
+    def rel(got, want, start):
+        return [(rel_l2(got[k] - start[k], want[k] - start[k]), k[6:]) for k in want]
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        (cpu, cpu_step), (card, card_step) = make("cpu"), make(DEVICE)
+        grads = []
+        update = cpu.optimizer.update
+        cpu.optimizer.update = lambda g: (grads.append([t.clone() for t in g]), update(g))
+        same, own, ctl, losses = [], [], 0.0, []
+        for i in range(f["steps"]):
+            start = {n: v.detach().clone() for n, v in step_lib.state_leaves(cpu)}
+            cpu, m = cpu_step(cpu, {"input_ids": ids})
+            want = leaves(cpu)
+            step_lib.load_state_leaves(card, start)
+            card.optimizer.update([g.to(DEVICE) for g in grads[-1]])
+            got = leaves(card)
+            model0 = {k: v for k, v in start.items() if k.startswith("model/")}
+            same += [(e, f"{n} update {i + 1}") for e, n in rel(got, want, model0)]
+            ctl = max(ctl, max(rel_l2(1.01 * (got[k] - model0[k]), want[k] - model0[k])
+                               for k in want))
+            step_lib.load_state_leaves(card, start)
+            card, mc = card_step(card, {"input_ids": ids.to(DEVICE)})
+            own += [(e, f"{n} update {i + 1}") for e, n in rel(leaves(card), want, model0)]
+            losses.append((float(mc["loss"]), float(m["loss"])))
+        del cpu, card
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    same.sort(reverse=True)
+    own.sort(reverse=True)
+    median = own[len(own) // 2][0]
+    loss_err = max(abs(a - b) / abs(b) for a, b in losses)
+    log(f"  13c {name} f32 card vs CPU ({f['layers']} layers of gpt_small's widths, "
+        f"{f['batch']}x{f['seq']} tokens, {f['steps']} updates at lr {lr}, each from the CPU's "
+        f"state before it): given the CPU's gradients, updates relative L2 worst "
+        f"{same[0][0]:.3e} ({same[0][1]}; limit {TOL['opt/f32/update']}), control (card update "
+        f"x 1.01) {ctl:.3e}; the card's own step: losses {losses} (relative {loss_err:.3e}, limit "
+        f"{TOL['opt/f32/loss']}), updates median {median:.3e} (limit "
+        f"{TOL['opt/f32/step/median']}) over {len(own)}, worst {own[0][0]:.3e} ({own[0][1]}), "
+        f"above 1e-5: {[f'{n} {e:.2e}' for e, n in own if e > 1e-5][:8]}")
+    if not (same[0][0] <= TOL["opt/f32/update"] and loss_err <= TOL["opt/f32/loss"]
+            and median <= TOL["opt/f32/step/median"]):
+        raise SmokeFailure(f"13c {name}: the f32 card update is off the CPU's: given the same "
+                           f"gradients {same[0]}; own step: loss {loss_err:.3e}, median "
+                           f"{median:.3e}")
+    if ctl <= TOL["opt/f32/update"]:
+        raise SmokeFailure(f"13c {name}: the x1.01 control passes the update gate ({ctl:.3e})")
+    return {"update": same[0][0], "control": ctl, "loss": loss_err, "step_median": median,
+            "step_worst": own[0][0], "step_worst_name": own[0][1]}
+
+
+def optimizers_phase(torch, np, data) -> dict:
+    """Phase 13c: rmsprop, lamb and adafactor through run_workload at
+    gpt_small's full size (the loss must fall), then f32 card vs CPU."""
+    out = {}
+    for name, lr in T13_OPTIMIZERS:
+        p = train_pass(torch, np, "flash", steps=T13_OPT_STEPS, extra=[
+            *data, f"--optimizer.name={name}", f"--optimizer.learning_rate={lr}",
+            "--model.dropout=0.0"])
+        opt = p["res"].state.optimizer
+        kinds = sorted({k for keys in opt.param_state_keys() for k in keys})
+        factored = sum(1 for keys in opt.param_state_keys() if "v_row" in keys)
+        log(f"  13c {name} (lr {lr}): losses {p['losses']}; step {p['step_ms']:.2f} ms, peak "
+            f"{p['peak_gib']:.3f} GiB; state {kinds}"
+            + (f", {factored} of {len(opt.params)} parameters factored" if factored else ""))
+        if not np.isfinite(p["losses"]).all() or not p["losses"][-1] < p["losses"][0]:
+            raise SmokeFailure(f"13c {name}: the loss did not fall ({p['losses']})")
+        if name == "adafactor" and not factored:
+            raise SmokeFailure("13c adafactor: no parameter is factored at d_model 768")
+        out[name] = {"losses": p["losses"], "step_ms": p["step_ms"], "peak_gib": p["peak_gib"]}
+        del p, opt
+        torch.cuda.empty_cache()
+        out[name]["f32"] = optimizer_f32(torch, np, name, lr)
+        torch.cuda.empty_cache()
+    return out
+
+
+def dp_phase(torch, np) -> dict:
+    """Phase 13d: the ``gpt`` job of ``tests/torch_dp_worker.py`` on two
+    gloo ranks on this card — gpt_small's widths (vocab 50304, S 1024) at
+    ``T13_DP``'s depth, f32, the chunked loss, adamw, plain and at dropout
+    0.1 with remat — against one process on the global batches run here
+    meanwhile, with phase 7b's f32 limits."""
+    import dataclasses
+    import tempfile
+
+    from distributed_tensorflow_tpu_torch.models import transformer as tfm
+
+    worker = load_dp_worker()
+    d = T13_DP
+    cfg = dataclasses.replace(tfm.gpt_small(), num_layers=d["layers"], dtype="float32",
+                              dropout=0.0)
+    sd = {k: v.numpy() for k, v in tfm.init_params(cfg, seed=0, device="cpu",
+                                                   trainable=True).items()}
+    rng = np.random.default_rng(130)
+    batches = [{"input_ids": rng.integers(0, cfg.vocab_size, (d["global_batch"], cfg.max_len))
+                .astype(np.int32)} for _ in range(d["steps"])]
+    opt = dict(name="adamw", learning_rate=1e-4, weight_decay=0.01)
+    passes = (("plain", {}), ("dropout", {"dropout": 0.1, "remat": True}))
+    with tempfile.TemporaryDirectory() as out:
+        inputs = os.path.join(out, "inputs.npz")
+        np.savez(inputs, **{f"sd/{k}": v for k, v in sd.items()},
+                 **{f"train{i}/input_ids": b["input_ids"] for i, b in enumerate(batches)})
+        t0 = time.perf_counter()
+        procs = worker.launch({"job": "gpt", "device": DEVICE, "backend": "gloo", "out": out,
+                               "inputs": inputs, "cfg": dataclasses.asdict(cfg),
+                               "optimizer": opt, "dropout": 0.1, "chunk": d["chunk"]})
+        refs = {}
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            for tag, kw in passes:
+                refs[tag] = worker.bert_steps(dataclasses.replace(cfg, **kw), sd, batches, opt,
+                                              DEVICE, lm_chunk=d["chunk"])
+                refs[tag].pop("model")
+                torch.cuda.empty_cache()
+        except BaseException:
+            worker.stop(procs)
+            raise
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        ranks = worker.wait(procs, out, timeout=600)
+        wall = time.perf_counter() - t0
+    res = {"wall_s": wall}
+    for tag, _ in passes:
+        got = [{"losses": r[f"{tag}/losses"], **{k[len(tag) + 7:]: v for k, v in r.items()
+                                                 if k.startswith(f"{tag}/state/")}}
+               for r in ranks]
+        if not all(np.array_equal(got[0][k], got[1][k]) for k in got[0]):
+            raise SmokeFailure(f"13d {tag}: the two ranks' weights or losses differ")
+        ref = refs[tag]
+        loss = float(np.abs(np.asarray(got[0]["losses"]) - ref["losses"]).max())
+        upd = sorted(((float(np.linalg.norm((got[0][k] - sd[k]) - (v - sd[k])))
+                       / max(float(np.linalg.norm(v - sd[k])), 1e-30), k)
+                      for k, v in ref["state"].items() if not k.endswith("attn.key.bias")),
+                     reverse=True)
+        got_n = {"loss": loss, "worst": upd[0][0], "median": upd[len(upd) // 2][0]}
+        lim = {k: TOL[f"dp/f32/{k}"] for k in got_n}
+        log(f"  13d {tag}: rank losses {[float(x) for x in got[0]['losses']]}, one process "
+            f"{[float(x) for x in ref['losses']]}; |loss diff| max {loss:.3e}; updates over "
+            f"{d['steps']} steps "
+            f"relative L2 worst {upd[0][0]:.3e} ({upd[0][1]}), median {got_n['median']:.3e}; "
+            f"limits {lim}; ranks bitwise alike")
+        bad = {k: v for k, v in got_n.items() if not v <= lim[k]}
+        if bad:
+            raise SmokeFailure(f"13d {tag}: outside phase 7b's f32 limits: {bad}")
+        res[tag] = got_n
+    log(f"  13d wall {wall:.1f} s (two processes started, {d['steps']} steps x 2 passes each)")
+    return res
+
+
+class _Stall:
+    """A callback that, after step ``at``, moves the watchdog's clock past
+    its budget and then waits (the hung step) until the abort arrives."""
+
+    def __init__(self, clock, at: int, wait_s: float = 60.0):
+        self.clock, self.at, self.wait_s = clock, at, wait_s
+
+    def on_train_start(self, trainer):
+        pass
+
+    def on_train_end(self, trainer):
+        pass
+
+    def on_step_end(self, trainer, step, metrics):
+        if step == self.at:
+            self.clock.t += 1e4
+            deadline = time.monotonic() + self.wait_s
+            while time.monotonic() < deadline:
+                time.sleep(0.001)
+            raise SmokeFailure("13e: the watchdog never aborted the stalled step")
+
+
+class _ManualClock:
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+
+def callbacks_phase(torch, np, data) -> dict:
+    """Phase 13e: a gpt_lm run with the four callbacks, then a stalled one."""
+    import tempfile
+
+    from distributed_tensorflow_tpu_torch.obs import flightrec
+    from distributed_tensorflow_tpu_torch.obs.registry import Registry
+    from distributed_tensorflow_tpu_torch.resilience.supervisor import STALLED, classify_failure
+    from distributed_tensorflow_tpu_torch.train import callbacks as tcb
+    from distributed_tensorflow_tpu_torch.workloads import run_workload
+
+    small = [*TRAIN_OVERRIDES, *data, f"--model.num_layers={T13_CB_LAYERS}",
+             "--model.attention_impl=flash", "--data.global_batch_size=8"]
+    rec = flightrec.FlightRecorder()
+    # a trace with no device kernel record at all is blank (cuda_ms): the
+    # run is made again, from new callbacks
+    for _ in range(1 + BLANK_RETAKES):
+        reg = Registry()
+        with tempfile.TemporaryDirectory() as tmp:
+            prof = tcb.Profiler(os.path.join(tmp, "prof"), start_step=2, num_steps=2)
+            tel = tcb.TelemetryCallback(registry=reg, every_n=1)
+            wd = tcb.Watchdog(budget_s=600.0, registry=reg, flightrec=rec)
+            res = run_workload("gpt_lm", small + [f"--train.num_steps={T13_CB_STEPS}",
+                                                  f"--train.summary_dir={tmp}/tb"],
+                               device=DEVICE, extra_callbacks=[prof, tel, wd])
+            trace = open(prof.path).read()
+            named = {k: trace.count(k) for k in FLASH_KERNELS}
+            (event_file,) = os.listdir(os.path.join(tmp, "tb"))
+            records = tcb.read_records(os.path.join(tmp, "tb", event_file))  # checks every CRC
+        if re.search(r'"cat":\s*"kernel"', trace):
+            break
+        BLANK_TRACES[0] += 1
+        log("  13e: the profiler's trace holds no device kernel record; the run is made again")
+    scalars = len(res.history[-1]) - 1  # every metric of a logged step but "step"
+    steps_total = reg.get("train_steps_total").value
+    log(f"  13e callbacks ({T13_CB_LAYERS} layers, {T13_CB_STEPS} steps): profiler trace of "
+        f"steps 2-4 names the flash kernels {named}; event file {event_file}: {len(records)} "
+        f"records, every CRC checked; telemetry train_steps_total {steps_total}, "
+        f"train_step_seconds count {reg.get('train_step_seconds').count}; watchdog stalls "
+        f"{reg.get('train_watchdog_stalls_total').value}")
+    if not all(named.values()):
+        raise SmokeFailure(f"13e: the profiler's trace lacks a flash kernel: {named}")
+    if steps_total != T13_CB_STEPS:
+        raise SmokeFailure(f"13e: train_steps_total {steps_total}, want {T13_CB_STEPS}")
+    if len(records) < 1 + T13_CB_STEPS * 2:
+        raise SmokeFailure(f"13e: {len(records)} event records for {T13_CB_STEPS} steps of "
+                           f"{scalars} scalars")
+    clock = _ManualClock()
+    stall_wd = tcb.Watchdog(budget_s=5.0, registry=Registry(), poll_s=0.01, clock=clock,
+                            flightrec=rec, abort_on_stall=True)
+    t0 = time.perf_counter()
+    try:
+        run_workload("gpt_lm", small + ["--train.num_steps=4"], device=DEVICE,
+                     extra_callbacks=[stall_wd, _Stall(clock, at=2)])
+        raise SmokeFailure("13e: the stalled run finished")
+    except tcb.StalledError as e:
+        cls = classify_failure(e)
+    stall_s = time.perf_counter() - t0
+    log(f"  13e stall: StalledError after step 2 ({stall_s:.1f} s run), classified {cls!r}; "
+        f"flight recorder: {[ev['kind'] for ev in rec.events() if ev['kind'] == 'watchdog_stall']}")
+    if cls != STALLED:
+        raise SmokeFailure(f"13e: StalledError classified {cls!r}, want {STALLED!r}")
+    torch.cuda.empty_cache()
+    return {"flash_in_trace": named, "records": len(records), "steps_total": steps_total,
+            "stall_class": cls}
+
+
+def bench_phase(torch, np) -> dict:
+    """Phase 13f: ``tools/bench_bert_torch.py`` in this process, each
+    ``T13_BENCH`` configuration ``T13_BENCH_STEPS`` timed steps."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "bench_bert_torch", os.path.join(REPO, "tools", "bench_bert_torch.py"))
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    out = {}
+    for label, env in T13_BENCH:
+        row = bench.run(DEVICE, {**env, "BENCH_STEPS": T13_BENCH_STEPS})
+        log(f"  13f {label}: " + json.dumps(row))
+        if not (row["value"] > 0 and np.isfinite(row["final_loss"])):
+            raise SmokeFailure(f"13f {label}: no rate or a non-finite loss")
+        flash = row["flash_launches_per_step"]
+        layers = row["num_layers"]
+        if env["BENCH_ATTN"] == "flash":
+            want = {"flash_fwd": layers * (2 if env.get("BENCH_REMAT") else 1),
+                    "flash_bwd_dkv": layers, "flash_bwd_dq": layers}
+        else:
+            want = {n: 0 for n in FLASH_NAMES}
+        if flash != want:
+            raise SmokeFailure(f"13f {label}: flash launches a step {flash}, want {want}")
+        out[label] = {k: row[k] for k in ("value", "step_ms", "mfu", "peak_memory_gib",
+                                          "flash_launches_per_step", "global_batch")}
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_transformer(torch, np, card) -> dict:
+    """Phase 13 (module docstring)."""
+    import tempfile
+
+    log(f"phase 13: transformer training options on gpt_lm at full width (gpt_small, S=1024, "
+        f"B=8, bf16, phase 5's corpus and setting) — remat, fused QKV, blockwise attention, "
+        f"rmsprop/lamb/adafactor — data-parallel gpt_lm on two ranks, the callbacks, and "
+        f"tools/bench_bert_torch.py; on {card}")
+    walls, out = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = phase13_corpus(np, tmp)
+        for key, fn, args in (("13a", remat_phase, (torch, np, card, data)),
+                              ("13b", blockwise_phase, (torch, np, data)),
+                              ("13c", optimizers_phase, (torch, np, data)),
+                              ("13d", dp_phase, (torch, np)),
+                              ("13e", callbacks_phase, (torch, np, data)),
+                              ("13f", bench_phase, (torch, np))):
+            out[key] = timed(walls, key, fn, *args)
+    out["walls"] = walls
+    log("  phase 13 walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phases 3-4: serve gpt_small at full width
 # ---------------------------------------------------------------------------
 
@@ -4273,6 +5013,7 @@ def main() -> int:
         # zeroes the counts before its training run and reads them after)
         small = timed(walls, "12", phase_small, torch, np, smi)
         launches.update({f"{n}_d32": c for n, c in small["flash_d32_launches"].items()})
+        t13 = timed(walls, "13", phase_transformer, torch, np, smi)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -4423,8 +5164,35 @@ def main() -> int:
             for n in FLASH_NAMES for case, r in kern[f"{n}_d32"]["timed"].items())
         + f"; head_dim-32 launches (the MLM + LM demos' training runs): "
         f"{small['flash_d32_launches']}")
+    padded = kern["padded"]
+    log(f"flash at padded head dims (phase 2c; {smi}; B={FLASH_D32['B']} H={FLASH_D32['H']} "
+        f"S={FLASH_D32['S']}, bf16, zero-padded to D=32; kernel / bound at the caller's D / "
+        f"plain / SDPA ms; the whole padded call's device ms in brackets): " + "; ".join(
+            f"{case} {n} {r['ms']:.5f} [{r['call_ms']:.5f}] / {r['bound_ms']:.5f} "
+            f"({r['bound_by']}) / {r['plain_ms']:.5f} / "
+            + (f"{r['library_ms']:.5f} ({r['sdpa_backend']})" if r["library_ms"] is not None
+               else "null")
+            for case, rows in padded["timed"].items() for n, r in rows.items())
+        + f"; max abs errors {padded['err']}")
+    a, b = t13["13a"], t13["13b"]
+    log(f"transformer training options (phase 13, {walls['13']:.1f} s; {smi}): 13a gpt_lm "
+        f"B=8 S=1024 bf16 dropout 0.1: " + "; ".join(
+            f"{k} step {v['step_ms']:.2f} ms, {v['tok_s']:.0f} tokens/s, MFU "
+            f"{100 * v['mfu']:.2f}%, peak {v['peak_gib']:.3f} GiB, flash launches "
+            f"{[v['launches'][n] for n in FLASH_NAMES]}" for k, v in a["passes"].items())
+        + f"; remat bitwise the plain run (control diverges at step "
+        f"{a['control_diverges_at']}); gates {a['compare']}; 13b blockwise vs dense "
+        f"{b['compare']}, blockwise step {b['passes']['blockwise']['step_ms']:.2f} ms peak "
+        f"{b['passes']['blockwise']['peak_gib']:.3f} GiB, dense step "
+        f"{b['passes']['dense']['step_ms']:.2f} ms peak {b['passes']['dense']['peak_gib']:.3f} "
+        f"GiB; 13c " + "; ".join(
+            f"{n} losses {[round(x, 5) for x in v['losses']]} step {v['step_ms']:.2f} ms, f32 "
+            f"card vs CPU {v['f32']}" for n, v in t13["13c"].items())
+        + f"; 13d dp2 on one card {t13['13d']}; 13e {t13['13e']}; 13f bench_bert_torch: "
+        + "; ".join(f"{k} {v['value']} tokens/s/card, step {v['step_ms']} ms, MFU {v['mfu']}, "
+                    f"peak {v['peak_memory_gib']} GiB" for k, v in t13["13f"].items()))
     log(f"cuda_ms traces kept {PAD_RECORDS[0]} of the {PAD_RECORDS[1]} spin-kernel records "
-        f"that opened them")
+        f"that opened them; {BLANK_TRACES[0]} blank traces retaken")
     log("phase walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
     log(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s (builds included)")
     log(json.dumps({"kernels": entries}))

@@ -44,9 +44,20 @@ one). Biases, LayerNorm parameters and embeddings are f32. Dense weights
 are stored ``[out, in]`` (``nn.Linear`` layout): in ``cfg.dtype`` for
 serving, and as f32 masters cast to ``cfg.dtype`` at each use for
 training (``trainable=True``) — flax's ``nn.Dense(dtype=bf16)`` keeps
-``param_dtype=f32`` the same way. Later slices bring remat, MoE, TP,
-``fused_qkv``, sequence parallelism and pipelining; a config that asks
-for one of them is refused.
+``param_dtype=f32`` the same way.
+
+``remat=True`` runs each Block of the uncached path under
+``torch.utils.checkpoint`` (the JAX model's ``nn.remat``): its
+activations are recomputed in the backward instead of kept. Dropout
+draws from an explicit generator, whose state ``checkpoint`` does not
+save, so each Block's generator state is snapshotted before its forward
+and replayed in the recompute (``_remat_block``): the recompute draws the
+same masks, and the caller's generator is left where a forward without
+remat leaves it. ``fused_qkv=True`` projects q/k/v with one ``qkv`` Dense
+``[3·H·D, d]`` whose rows are HEAD-major (``[H, 3, D]``), as the JAX
+model's; refused with ``fused_ln_matmul``. MoE, TP, sequence parallelism
+and pipelining come in later slices; a config that asks for one of them
+is refused.
 """
 
 from __future__ import annotations
@@ -84,7 +95,7 @@ class TransformerConfig:
     dtype: str = "bfloat16"
     # training attention dispatch (ops.attention.attention impl=):
     # "auto" = the flash kernels on a CUDA tensor, "dense" on the CPU;
-    # "dense" | "flash" force one
+    # "dense" | "flash" | "blockwise" force one
     attention_impl: str = "auto"
     # paged attention dispatch (ops.attention.paged_attention impl=):
     # "auto" = the CUDA kernel on a CUDA tensor, "fused" on the CPU;
@@ -94,7 +105,10 @@ class TransformerConfig:
     # is refused when the model is built
     seq_impl: str | None = None
     num_experts: int = 0
+    # each Block recomputed in the backward (torch.utils.checkpoint): one
+    # extra forward for O(1)-block activation memory
     remat: bool = False
+    # q/k/v from one [3·d, d] Dense "qkv", rows head-major [H, 3, D]
     fused_qkv: bool = False
     # ln1->q/k/v and ln2->mlp_in through the fused LN+matmul kernels
     # (same parameter tree as the unfused path)
@@ -202,18 +216,27 @@ class SelfAttention(nn.Module):
         super().__init__()
         self.cfg = cfg
         dt, d = torch_dtype(cfg.dtype), cfg.d_model
-        self.query = Dense(d, d, dt, device, param_dtype)
-        self.key = Dense(d, d, dt, device, param_dtype)
-        self.value = Dense(d, d, dt, device, param_dtype)
+        if cfg.fused_qkv:
+            # rows head-major, [H, 3, D]: each head's q, k, v side by side
+            self.qkv = Dense(d, 3 * d, dt, device, param_dtype)
+        else:
+            self.query = Dense(d, d, dt, device, param_dtype)
+            self.key = Dense(d, d, dt, device, param_dtype)
+            self.value = Dense(d, d, dt, device, param_dtype)
         self.attn_out = Dense(d, d, dt, device, param_dtype)
 
     def _qkv(self, x, ln=None):
         """q, k, v as [B,H,S,D] views of the [B,S,H*D] projections; with
         ``ln`` the raw residual ``x`` is normalised inside the fused
-        kernel."""
+        kernel. With ``fused_qkv`` one ``[B,S,H,3,D]`` projection, each of
+        q, k, v copied out contiguous (the kernels read no strided head
+        dim)."""
         cfg = self.cfg
         B, S, d = x.shape
         H, D = cfg.num_heads, cfg.head_dim
+        if cfg.fused_qkv:
+            qkv = self.qkv(x).reshape(B, S, H, 3, D)
+            return tuple(qkv[..., i, :].transpose(1, 2).contiguous() for i in range(3))
         if ln is not None:
             x2 = x.reshape(B * S, d)
 
@@ -308,10 +331,12 @@ def check_supported(cfg: TransformerConfig) -> None:
     if cfg.fused_ln_matmul and not cfg.pre_ln:
         raise ValueError("fused_ln_matmul requires pre_ln=True (a post-LN LayerNorm "
                          "output is the residual stream itself and must materialize)")
+    if cfg.fused_qkv and cfg.fused_ln_matmul:
+        raise ValueError("fused_qkv and fused_ln_matmul are mutually exclusive (the "
+                         "LN+matmul kernel owns its own per-projection path)")
     for name, default, item in (
             ("seq_impl", None, "item 6, parallel/ring_attention.py"),
-            ("num_experts", 0, "item 6, ops/moe.py"),
-            ("remat", False, "item 2.5"), ("fused_qkv", False, "item 2.5")):
+            ("num_experts", 0, "item 6, ops/moe.py")):
         if getattr(cfg, name) != default:
             raise ValueError(f"model.{name}={getattr(cfg, name)!r} is not ported yet "
                              f"(ROADMAP Queue A {item})")
@@ -392,7 +417,10 @@ class Transformer(nn.Module):
         x = dropout(x, cfg.dropout, train, generator)
         mask = attention_mask.to(torch.bool) if attention_mask is not None else None
         for block in self.layers:
-            x = block.forward_uncached(x, mask, train=train, generator=generator)
+            if cfg.remat:
+                x = _remat_block(block, x, mask, train, generator)
+            else:
+                x = block.forward_uncached(x, mask, train=train, generator=generator)
         if cfg.pre_ln:
             x = self.final_ln(x).to(dt)
         if return_hidden:
@@ -408,6 +436,41 @@ class Transformer(nn.Module):
             x = F.gelu(self.mlm_transform(x), approximate="tanh")
             x = self.mlm_ln(x).to(dt)
         return head_projection(x, self.tok_embed.weight, cfg.head_dtype) + self.mlm_bias
+
+
+def _generator_snapshot(generator):
+    """``(generator, state)`` of the explicit generator a Block draws its
+    dropout from (a ``RowGenerator``'s underlying one), or None when it
+    draws nothing."""
+    if generator is None:
+        return None
+    gen = generator.generator if isinstance(generator, RowGenerator) else generator
+    return gen, gen.get_state()
+
+
+def _remat_block(block: Block, x, mask, train: bool, generator):
+    """``block.forward_uncached`` under ``torch.utils.checkpoint``, with the
+    dropout generator's state replayed in the recompute (module
+    docstring): the forward starts from the snapshot and leaves the
+    generator advanced, as without remat; each recompute sets the snapshot,
+    draws the same masks and puts back the state it found."""
+    snap = _generator_snapshot(generator) if train and block.cfg.dropout > 0 else None
+    recompute = [False]
+
+    def run(x, mask):
+        if snap is None:
+            return block.forward_uncached(x, mask, train=train, generator=generator)
+        gen, state = snap
+        found = gen.get_state()
+        gen.set_state(state)
+        try:
+            return block.forward_uncached(x, mask, train=train, generator=generator)
+        finally:
+            if recompute[0]:
+                gen.set_state(found)
+            recompute[0] = True
+
+    return checkpoint(run, x, mask, use_reentrant=False, preserve_rng_state=False)
 
 
 def head_projection(x: torch.Tensor, embedding: torch.Tensor,
@@ -652,7 +715,7 @@ def param_count(cfg: TransformerConfig) -> int:
     d, L = cfg.d_model, cfg.num_layers
     embed = cfg.vocab_size * d + cfg.max_len * d
     embed += 2 * d  # embed_ln (post-LN) or final_ln (pre-LN)
-    attn = 4 * d * d + 4 * d
+    attn = 4 * d * d + 4 * d  # fused_qkv: the same, one [3d, d] Dense for three
     ln = 4 * d
     ffn = 2 * d * cfg.d_ff + cfg.d_ff + d
     head = 0 if cfg.causal else d * d + 3 * d  # mlm_transform + mlm_ln

@@ -1,10 +1,11 @@
-"""Attention: the dense reference and the training dispatch
-(``attention``), and over the paged KV pool the K/V scatter, the gather
-view, masked cached attention and the ``paged_attention`` dispatch.
+"""Attention: the dense reference, blockwise (online-softmax) attention
+and the training dispatch (``attention``), and over the paged KV pool
+the K/V scatter, the gather view, masked cached attention and the
+``paged_attention`` dispatch.
 
 Counterpart of ``distributed_tensorflow_tpu/ops/attention.py``
-(``attention_reference`` and the paged half), with its layouts:
-attention tensors ``[B,H,S,D]``, the per-layer pool ``[NB,H,bs,D]``,
+(``attention_reference``, ``blockwise_attention`` and the paged half),
+with its layouts: attention tensors ``[B,H,S,D]``, the per-layer pool ``[NB,H,bs,D]``,
 block tables int32 ``[B,MB]``. One difference is deliberate: JAX scatters with ``mode="drop"`` so padded
 rows and idle slots write nothing, while an out-of-range index on a
 CUDA tensor is a device-side assert. The port's per-layer pool therefore
@@ -16,11 +17,15 @@ the device, with no host sync; attention only ever reads ``pool[:NB]``.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 NEG_INF = -1e30  # large-negative instead of -inf: keeps masked softmax NaN-free
 
 PAGED_IMPLS = ("auto", "gather", "fused", "cuda")
-IMPLS = ("auto", "dense", "flash")
+IMPLS = ("auto", "dense", "flash", "blockwise")
+#: key block of ``blockwise_attention`` (the JAX version's default)
+BLOCK_K = 512
 
 
 def _scale(q: torch.Tensor, sm_scale: float | None) -> float:
@@ -70,10 +75,10 @@ def attention(
     - ``"flash"`` — the hand-written kernels
       (``ops.flash_attention.flash_attention``: forward, dK/dV, dQ); on
       CPU tensors their plain versions;
+    - ``"blockwise"`` — ``blockwise_attention``: online softmax over key
+      blocks in plain ops, O(Sq·block_k) activation memory;
     - ``"auto"`` — ``"flash"`` for a CUDA tensor, ``"dense"`` on the CPU
-      (the JAX model's "flash on the accelerator" rule).
-
-    ``"blockwise"`` is not ported yet (ROADMAP Queue A item 2.5)."""
+      (the JAX model's "flash on the accelerator" rule)."""
     if impl == "auto":
         impl = "flash" if q.is_cuda else "dense"
     if impl == "flash":
@@ -83,8 +88,78 @@ def attention(
     if impl == "dense":
         return attention_reference(q, k, v, causal=causal, kv_mask=kv_mask,
                                    sm_scale=sm_scale)
-    raise ValueError(f"attention impl must be one of {IMPLS} (blockwise is not ported "
-                     f"yet: ROADMAP Queue A item 2.5), got {impl!r}")
+    if impl == "blockwise":
+        return blockwise_attention(q, k, v, causal=causal, kv_mask=kv_mask,
+                                   sm_scale=sm_scale)
+    raise ValueError(f"attention impl must be one of {IMPLS}, got {impl!r}")
+
+
+def _online_block(acc, m, l, q32, k_j, v_j, valid, scale: float):
+    """One key block of the online softmax: the running max ``m``,
+    denominator ``l`` and accumulator ``acc`` (f32) after the block's keys
+    ``k_j``/``v_j``, ``valid`` the block's attend mask (broadcastable to
+    the logits, or None)."""
+    logits = torch.matmul(q32, k_j.float().transpose(-1, -2)) * scale  # [B,H,Sq,bk]
+    if valid is not None:
+        logits = torch.where(valid, logits, NEG_INF)
+    m_new = torch.maximum(m, logits.amax(-1))
+    p = torch.exp(logits - m_new[..., None])
+    if valid is not None:
+        # explicit zero under the mask: on a row with every key masked so
+        # far m stays NEG_INF and exp(NEG_INF - NEG_INF) would be 1
+        p = torch.where(valid, p, 0.0)
+    correction = torch.exp(m - m_new)
+    l_new = l * correction + p.sum(-1)
+    acc_new = acc * correction[..., None] + torch.matmul(p, v_j.float())
+    return acc_new, m_new, l_new
+
+
+def blockwise_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    kv_mask: torch.Tensor | None = None,
+    sm_scale: float | None = None,
+    block_k: int = BLOCK_K,
+) -> torch.Tensor:
+    """Online-softmax attention over key blocks of ``block_k`` — the JAX
+    version's ``lax.scan`` as a loop: f32 logits, running max, denominator
+    and rescaled accumulator; keys padded to a block multiple with the
+    padding masked; causal aligned by the ORIGINAL ``Sk - Sq``; a row that
+    attends nothing gives zeros; output in q's dtype. Each block runs
+    under ``torch.utils.checkpoint``, so the backward keeps the carries
+    (O(Sq·D) a block) and recomputes the block's O(Sq·block_k) logits
+    instead of holding them, as the scan does in JAX."""
+    B, H, Sq, D = q.shape
+    orig_sk = k.shape[2]
+    scale = _scale(q, sm_scale)
+    block_k = min(block_k, orig_sk)
+    pad = (-orig_sk) % block_k
+    if kv_mask is not None:
+        kv_mask = kv_mask.to(torch.bool)
+    if pad:
+        k = F.pad(k, (0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, pad))
+        base = torch.arange(orig_sk + pad, device=q.device) < orig_sk
+        kv_mask = (F.pad(kv_mask, (0, pad)) & base[None]
+                   if kv_mask is not None else base[None].expand(B, -1))
+    q32 = q.float()
+    qpos = torch.arange(Sq, device=q.device)[:, None] + (orig_sk - Sq)
+    acc = q32.new_zeros(B, H, Sq, D)
+    m = q32.new_full((B, H, Sq), NEG_INF)
+    l = q32.new_zeros(B, H, Sq)
+    for j in range(k.shape[2] // block_k):
+        sl = slice(j * block_k, (j + 1) * block_k)
+        valid = kv_mask[:, None, None, sl] if kv_mask is not None else None
+        if causal:
+            kpos = torch.arange(sl.start, sl.stop, device=q.device)[None, :]
+            tri = (kpos <= qpos)[None, None]
+            valid = tri if valid is None else valid & tri
+        acc, m, l = checkpoint(_online_block, acc, m, l, q32, k[:, :, sl], v[:, :, sl],
+                               valid, scale, use_reentrant=False, preserve_rng_state=False)
+    return (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
 
 
 def paged_append_kv(

@@ -19,7 +19,17 @@ The wrappers ``flash_fwd``, ``flash_bwd_dkv`` and ``flash_bwd_dq`` launch
 their kernel for CUDA tensors (built with nvcc on first use) and raise
 on what it does not take; for CPU tensors — and only for those — they
 compute the plain version. Each counts its launches in ``.launches``,
-and by head dim in ``.launches_by_d``.
+by the head dim it launched at in ``.launches_by_d``, and by the head
+dim its caller asked for in ``.launches_by_asked_d``.
+
+The kernels are instantiated at ``HEAD_DIMS``; ``flash_attention`` takes
+any head dim up to 128: one below 128 that is not instantiated (8 and 16,
+the JAX package's tools' shapes) is zero-padded to the next one
+(``padded_head_dim``) with the softmax scale of the original, and the
+output sliced back. That is exact: the pad columns add 0 to QKᵀ, come out
+0 in O, dQ, dK and dV, and add nothing to the backward's rowsum(dO∘O).
+The CPU's plain path pads alike. A head dim above 128 is refused (ROADMAP
+Queue C).
 Inputs are read through their strides with the head dimension
 contiguous (the model's ``[B,S,H,D] -> [B,H,S,D]`` views need no copy);
 a tensor whose last dimension is strided is made contiguous first.
@@ -28,12 +38,28 @@ a tensor whose last dimension is strided is made contiguous first.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 from .attention import NEG_INF
 
 #: head dims the kernels are instantiated for
 HEAD_DIMS = (32, 64, 128)
+
+
+def padded_head_dim(D: int) -> int:
+    """The instantiated head dim a call at ``D`` launches at: ``D`` itself
+    when instantiated, else the next one up (``flash_attention`` pads
+    with zeros); above ``max(HEAD_DIMS)`` raises."""
+    if D in HEAD_DIMS:
+        return D
+    up = [h for h in HEAD_DIMS if h > D]
+    if D < 1 or not up:
+        raise ValueError(f"head_dim {D}: the flash kernels take head dims up to "
+                         f"{max(HEAD_DIMS)} (instantiated at {HEAD_DIMS}, smaller ones "
+                         f"zero-padded); larger ones are open in ROADMAP Queue C "
+                         f"(attention_impl='dense' or 'blockwise' takes any head_dim)")
+    return up[0]
 
 
 def _scale(q: torch.Tensor, sm_scale: float | None) -> float:
@@ -136,8 +162,8 @@ def _check(q, k, v, kv_mask, *extra):
         raise ValueError(f"k/v {tuple(k.shape)} do not match q {tuple(q.shape)}")
     if D not in HEAD_DIMS:
         raise ValueError(f"head_dim {D}: the flash kernels are built for {HEAD_DIMS}; "
-                         f"other head dims are open in ROADMAP Queue C "
-                         f"(attention_impl='dense' takes any head_dim)")
+                         f"flash_attention zero-pads a smaller one to the next of them, "
+                         f"and larger ones are open in ROADMAP Queue C")
     for name, t in (("q", q), ("k", k), ("v", v)) + extra:
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
@@ -149,10 +175,13 @@ def _check(q, k, v, kv_mask, *extra):
     return kv_mask
 
 
-def _count(wrapper, D: int) -> None:
-    """One launch of ``wrapper``'s kernel at head dim ``D``."""
+def _count(wrapper, D: int, asked: int | None) -> None:
+    """One launch of ``wrapper``'s kernel at head dim ``D``, for a caller
+    at head dim ``asked`` (``D`` when None)."""
     wrapper.launches += 1
     wrapper.launches_by_d[D] = wrapper.launches_by_d.get(D, 0) + 1
+    asked = D if asked is None else asked
+    wrapper.launches_by_asked_d[asked] = wrapper.launches_by_asked_d.get(asked, 0) + 1
 
 
 def _common_tail(q, k, causal, scale):
@@ -160,9 +189,12 @@ def _common_tail(q, k, causal, scale):
     return [B, H, Sq, k.shape[2], D, int(bool(causal)), float(scale)]
 
 
-def flash_fwd(q, k, v, kv_mask=None, *, causal: bool = False, sm_scale: float | None = None):
+def flash_fwd(q, k, v, kv_mask=None, *, causal: bool = False, sm_scale: float | None = None,
+              head_dim: int | None = None):
     """Forward: ``(out, lse)``. CUDA tensors: one launch of the forward
-    kernel on the current stream; CPU tensors: ``flash_attention_plain``."""
+    kernel on the current stream; CPU tensors: ``flash_attention_plain``.
+    ``head_dim``: the caller's, when q/k/v were zero-padded (counted in
+    ``launches_by_asked_d``)."""
     if not _build.on_cuda(q, "flash_fwd"):
         return flash_attention_plain(q, k, v, kv_mask, causal=causal, sm_scale=sm_scale)
     kv_mask = _check(q, k, v, kv_mask)
@@ -173,7 +205,7 @@ def flash_fwd(q, k, v, kv_mask=None, *, causal: bool = False, sm_scale: float | 
     _build.launch(_build.load("flash_attention"), f"flash_fwd_{_SUFFIX[q.dtype]}", "flash_fwd",
                   q.device, *qa, *ka, *va, kv_mask.data_ptr() if kv_mask is not None else None,
                   out.data_ptr(), lse.data_ptr(), *_common_tail(q, k, causal, _scale(q, sm_scale)))
-    _count(flash_fwd, q.shape[-1])
+    _count(flash_fwd, q.shape[-1], head_dim)
     return out, lse
 
 
@@ -195,7 +227,7 @@ def _bwd_args(q, k, v, kv_mask, out, lse, dout):
 
 
 def flash_bwd_dkv(q, k, v, kv_mask, out, lse, dout, *, causal: bool = False,
-                  sm_scale: float | None = None):
+                  sm_scale: float | None = None, head_dim: int | None = None):
     """dK, dV with the kv tile resident. CUDA tensors: one launch;
     CPU tensors: the plain backward's dk, dv."""
     if not _build.on_cuda(q, "flash_bwd_dkv"):
@@ -208,12 +240,12 @@ def flash_bwd_dkv(q, k, v, kv_mask, out, lse, dout, *, causal: bool = False,
     _build.launch(_build.load("flash_attention"), f"flash_bwd_dkv_{_SUFFIX[q.dtype]}",
                   "flash_bwd_dkv", q.device, *args, dk.data_ptr(), dv.data_ptr(),
                   *_common_tail(q, k, causal, _scale(q, sm_scale)))
-    _count(flash_bwd_dkv, q.shape[-1])
+    _count(flash_bwd_dkv, q.shape[-1], head_dim)
     return dk, dv
 
 
 def flash_bwd_dq(q, k, v, kv_mask, out, lse, dout, *, causal: bool = False,
-                 sm_scale: float | None = None):
+                 sm_scale: float | None = None, head_dim: int | None = None):
     """dQ with the q tile resident. CUDA tensors: one launch; CPU
     tensors: the plain backward's dq."""
     if not _build.on_cuda(q, "flash_bwd_dq"):
@@ -224,12 +256,14 @@ def flash_bwd_dq(q, k, v, kv_mask, out, lse, dout, *, causal: bool = False,
     _build.launch(_build.load("flash_attention"), f"flash_bwd_dq_{_SUFFIX[q.dtype]}",
                   "flash_bwd_dq", q.device, *args, dq.data_ptr(),
                   *_common_tail(q, k, causal, _scale(q, sm_scale)))
-    _count(flash_bwd_dq, q.shape[-1])
+    _count(flash_bwd_dq, q.shape[-1], head_dim)
     return dq
 
 
 flash_fwd.launches = flash_bwd_dkv.launches = flash_bwd_dq.launches = 0
-flash_fwd.launches_by_d, flash_bwd_dkv.launches_by_d, flash_bwd_dq.launches_by_d = {}, {}, {}
+for _w in (flash_fwd, flash_bwd_dkv, flash_bwd_dq):
+    _w.launches_by_d, _w.launches_by_asked_d = {}, {}
+del _w
 
 
 class FlashAttention(torch.autograd.Function):
@@ -238,10 +272,11 @@ class FlashAttention(torch.autograd.Function):
     tensors the backward is the plain version, computed once."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kv_mask, causal, sm_scale):
-        out, lse = flash_fwd(q, k, v, kv_mask, causal=causal, sm_scale=sm_scale)
+    def forward(ctx, q, k, v, kv_mask, causal, sm_scale, head_dim=None):
+        out, lse = flash_fwd(q, k, v, kv_mask, causal=causal, sm_scale=sm_scale,
+                             head_dim=head_dim)
         ctx.save_for_backward(q, k, v, kv_mask, out, lse)
-        ctx.causal, ctx.sm_scale = causal, sm_scale
+        ctx.causal, ctx.sm_scale, ctx.head_dim = causal, sm_scale, head_dim
         return out
 
     @staticmethod
@@ -251,15 +286,23 @@ class FlashAttention(torch.autograd.Function):
         if q.device.type == "cpu":
             dq, dk, dv = flash_attention_bwd_plain(q, k, v, kv_mask, out, lse, dout, **kw)
         else:
-            dk, dv = flash_bwd_dkv(q, k, v, kv_mask, out, lse, dout, **kw)
-            dq = flash_bwd_dq(q, k, v, kv_mask, out, lse, dout, **kw)
-        return dq, dk, dv, None, None, None
+            dk, dv = flash_bwd_dkv(q, k, v, kv_mask, out, lse, dout, **kw,
+                                   head_dim=ctx.head_dim)
+            dq = flash_bwd_dq(q, k, v, kv_mask, out, lse, dout, **kw, head_dim=ctx.head_dim)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = False, kv_mask=None,
                     sm_scale: float | None = None) -> torch.Tensor:
     """Differentiable FlashAttention (see module docstring): q [B,H,Sq,D],
     k/v [B,H,Sk,D], kv_mask [B,Sk] bool or None; returns [B,H,Sq,D] in
-    q's dtype."""
-    return FlashAttention.apply(q, k, v, kv_mask, causal, _scale(q, sm_scale))
+    q's dtype. A head dim the kernels are not instantiated at is
+    zero-padded to ``padded_head_dim(D)`` and the output sliced back."""
+    scale = _scale(q, sm_scale)
+    D = q.shape[-1]
+    Dp = padded_head_dim(D)
+    if Dp == D:
+        return FlashAttention.apply(q, k, v, kv_mask, causal, scale)
+    q, k, v = (F.pad(t, (0, Dp - D)) for t in (q, k, v))
+    return FlashAttention.apply(q, k, v, kv_mask, causal, scale, D)[..., :D]
 

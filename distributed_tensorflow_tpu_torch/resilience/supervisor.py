@@ -56,6 +56,10 @@ RESTARTS_TOTAL = "supervisor_restarts_total"
 
 def classify_failure(exc: BaseException) -> str:
     """Map an exception out of ``Trainer.fit`` to a failure class."""
+    from ..train.callbacks import StalledError
+
+    if isinstance(exc, StalledError):
+        return STALLED
     if isinstance(exc, RetryExhausted):
         # see through to what the retries were absorbing
         under = exc.__cause__

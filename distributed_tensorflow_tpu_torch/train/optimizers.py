@@ -29,8 +29,22 @@
   coupled L2), as ``optax.multi_transform`` does: a clip norm is a
   group's.
 
-``rmsprop``, ``lamb`` and ``adafactor`` are not ported yet (ROADMAP Queue
-A item 2.6) and raise ``NotImplementedError``.
+- ``rmsprop`` is ``optax.rmsprop(lr, momentum=cfg.momentum, eps=cfg.eps)``
+  (``RMSprop``): ``nu`` from 0 at decay 0.9, ``g * rsqrt(nu + eps)`` (eps
+  inside the root, not ``torch.optim.RMSprop``'s ``sqrt(nu) + eps``),
+  times ``-lr``, then a momentum trace of those updates; coupled L2;
+- ``lamb`` is ``optax.lamb`` (``Lamb``): Adam's moments with
+  ``eps_root=0``, the decoupled decay on EVERY parameter, the trust ratio
+  ‖p‖/‖u‖ per parameter (1 where either is 0), then ``-lr``; no coupled
+  L2;
+- ``adafactor`` is ``optax.adafactor(lr)`` with its defaults
+  (``Adafactor``): factored second moments for a parameter whose two
+  largest dims are both at least 128, a full one otherwise, decay
+  ``1 - (t+1)^-0.8``, the update clipped to block RMS 1, times ``lr`` and
+  the parameter's RMS (at least 1e-3), then negated; coupled L2.
+  ``lamb`` and ``adafactor`` take norms and RMS over a whole parameter, so
+  a parameter sharded over the ``model`` axis is refused for them
+  (``place``; ROADMAP item 3.1).
 """
 
 from __future__ import annotations
@@ -50,7 +64,7 @@ Schedule = Callable[[int], float]
 
 @dataclasses.dataclass(frozen=True)
 class OptimizerConfig:
-    name: str = "sgd"  # sgd|momentum|adam|adamw (others: not ported yet)
+    name: str = "sgd"  # sgd|momentum|adam|adamw|adagrad|ftrl|rmsprop|lamb|adafactor
     learning_rate: float = 0.01
     # schedule: constant|cosine|warmup_cosine|exponential|linear
     schedule: str = "constant"
@@ -245,6 +259,154 @@ class Ftrl(torch.optim.Optimizer):
         return st
 
 
+class RMSprop(torch.optim.Optimizer):
+    """``optax.rmsprop(lr, decay, eps, momentum=momentum)`` (not centred,
+    ``initial_scale`` 0, eps inside the root): ``nu = (1 - decay)·g² +
+    decay·nu``, ``u = -lr · g · rsqrt(nu + eps)``, ``trace = u +
+    momentum·trace``, ``p += trace``; f32. State: ``square_avg`` (optax's
+    ``nu``) and ``momentum_buffer`` (its ``trace``)."""
+
+    def __init__(self, params, lr: float = 0.0, decay: float = 0.9, eps: float = 1e-8,
+                 momentum: float = 0.9):
+        super().__init__(params, dict(lr=lr, decay=decay, eps=eps, momentum=momentum))
+
+    @torch.no_grad()
+    def step(self):
+        for group in self.param_groups:
+            lr, decay, eps, mom = group["lr"], group["decay"], group["eps"], group["momentum"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                st = self.state[p]
+                if not st:
+                    st["square_avg"] = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                    st["momentum_buffer"] = torch.zeros(p.shape, dtype=torch.float32,
+                                                        device=p.device)
+                g = p.grad.float()
+                nu, trace = st["square_avg"], st["momentum_buffer"]
+                nu.copy_((1 - decay) * (g * g) + decay * nu)
+                trace.copy_(g * torch.rsqrt(nu + eps) * -lr + mom * trace)
+                p.add_(trace.to(p.dtype))
+
+
+class Lamb(torch.optim.Optimizer):
+    """``optax.lamb(lr, b1, b2, eps, weight_decay)``: Adam's bias-corrected
+    ``m / (sqrt(v) + eps)`` (``eps_root`` 0), plus ``weight_decay · p`` on
+    every parameter, scaled by the trust ratio ``‖p‖ / ‖u‖`` (1 where either
+    norm is 0), times ``-lr``; f32. State: ``exp_avg``, ``exp_avg_sq``
+    (optax's ``mu``, ``nu``) and ``step`` (its count)."""
+
+    def __init__(self, params, lr: float = 0.0, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-6, weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self):
+        for group in self.param_groups:
+            lr, b1, b2 = group["lr"], group["b1"], group["b2"]
+            eps, wd = group["eps"], group["weight_decay"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                st = self.state[p]
+                if not st:
+                    st["exp_avg"] = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                    st["exp_avg_sq"] = torch.zeros(p.shape, dtype=torch.float32,
+                                                   device=p.device)
+                    st["step"] = torch.tensor(0.0)
+                g, w = p.grad.float(), p.float()
+                mu, nu = st["exp_avg"], st["exp_avg_sq"]
+                mu.copy_((1 - b1) * g + b1 * mu)
+                nu.copy_((1 - b2) * (g * g) + b2 * nu)
+                st["step"] += 1
+                t = float(st["step"])
+                u = (mu / (1 - b1 ** t)) / (torch.sqrt(nu / (1 - b2 ** t)) + eps)
+                if wd:
+                    u = u + wd * w
+                # sqrt of a summed square: torch.linalg.vector_norm on the CPU is
+                # off by ~2e-3 over gpt_small's 38.6M-element token table
+                p_norm, u_norm = torch.sqrt((w * w).sum()), torch.sqrt((u * u).sum())
+                ratio = torch.where((p_norm == 0) | (u_norm == 0), 1.0, p_norm / u_norm)
+                p.add_((u * ratio * -lr).to(p.dtype))
+
+
+#: optax.adafactor's defaults as the JAX package calls it
+ADAFACTOR_MIN_DIM = 128
+ADAFACTOR_DECAY = 0.8
+ADAFACTOR_EPS = 1e-30
+ADAFACTOR_CLIP = 1.0
+ADAFACTOR_MIN_SCALE = 1e-3
+
+
+def factored_dims(shape) -> tuple[int, int] | None:
+    """optax's ``_factored_dims`` at ``min_dim_size_to_factor=128``: the
+    axes ``(d1, d0)`` of the second-largest and the largest dim when the
+    second-largest is at least 128, else None (ties broken as
+    ``np.argsort`` breaks them)."""
+    import numpy as np
+
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < ADAFACTOR_MIN_DIM:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+
+def adafactor_state_keys(shape) -> tuple[str, ...]:
+    """The state a parameter of ``shape`` holds under ``Adafactor``."""
+    return ("v_col", "v_row") if factored_dims(shape) is not None else ("v",)
+
+
+class Adafactor(torch.optim.Optimizer):
+    """``optax.adafactor(lr)`` with its defaults (module docstring), f32.
+    A parameter with ``factored_dims`` (d1, d0) keeps ``v_row`` (the mean
+    of g² + 1e-30 over d0) and ``v_col`` (over d1), otherwise a full
+    ``v``; each decays at ``1 - (t+1)^-0.8`` for the update count ``t``
+    (the group's ``count``, set by ``Optimizer.update``). The update
+    ``g · (v_row/mean v_row)^-½ · v_col^-½`` (or ``g · v^-½``) is divided
+    by ``max(1, rms(u))``, times ``lr`` and ``max(rms(p), 1e-3)``, and
+    subtracted."""
+
+    def __init__(self, params, lr: float = 0.0):
+        super().__init__(params, dict(lr=lr, count=0))
+
+    @torch.no_grad()
+    def step(self):
+        for group in self.param_groups:
+            lr = group["lr"]
+            rate = 1.0 - (group["count"] + 1.0) ** -ADAFACTOR_DECAY
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g, w = p.grad.float(), p.float()
+                st = self.state[p]
+                dims = factored_dims(tuple(p.shape))
+                sq = g * g + ADAFACTOR_EPS
+                if dims is not None:
+                    d1, d0 = dims
+                    if not st:
+                        st["v_row"] = torch.zeros(sq.mean(d0).shape, device=p.device)
+                        st["v_col"] = torch.zeros(sq.mean(d1).shape, device=p.device)
+                    vr, vc = st["v_row"], st["v_col"]
+                    vr.copy_(rate * vr + (1.0 - rate) * sq.mean(d0))
+                    vc.copy_(rate * vc + (1.0 - rate) * sq.mean(d1))
+                    reduced_d1 = d1 - 1 if d1 > d0 else d1
+                    row = (vr / vr.mean(reduced_d1, keepdim=True)) ** -0.5
+                    u = g * row.unsqueeze(d0) * (vc ** -0.5).unsqueeze(d1)
+                else:
+                    if not st:
+                        st["v"] = torch.zeros(p.shape, device=p.device)
+                    v = st["v"]
+                    v.copy_(rate * v + (1.0 - rate) * sq)
+                    u = g * v ** -0.5
+                u = u / torch.clamp(torch.sqrt((u * u).mean()) / ADAFACTOR_CLIP, min=1.0)
+                rms = torch.sqrt((w * w).mean())
+                scale = torch.where(rms <= ADAFACTOR_MIN_SCALE, ADAFACTOR_MIN_SCALE, rms)
+                p.add_((u * lr * scale * -1.0).to(p.dtype))
+
+
 class Optimizer:
     """One optimizer over ``params`` with optax's update semantics (see
     module docstring). ``update(grads)`` applies one update in place and
@@ -257,7 +419,7 @@ class Optimizer:
         self.params = [p for p in params if p.requires_grad]
         self.mesh, self.sharded = None, []  # see place
         name = cfg.name.lower()
-        self.coupled_l2 = cfg.weight_decay > 0 and name not in ("adamw", "ftrl")
+        self.coupled_l2 = cfg.weight_decay > 0 and name not in ("adamw", "lamb", "ftrl")
         if name == "sgd":
             self.opt = torch.optim.SGD(self.params, lr=0.0)
         elif name == "momentum":
@@ -273,10 +435,13 @@ class Optimizer:
             self.opt = Adagrad(self.params, eps=cfg.eps)
         elif name == "ftrl":
             self.opt = Ftrl(self.params, lr_power=cfg.lr_power, l1=cfg.l1, l2=cfg.l2)
-        elif name in ("rmsprop", "lamb", "adafactor"):
-            raise NotImplementedError(
-                f"optimizer {cfg.name!r} is not ported yet (ROADMAP Queue A item 2.6: "
-                f"rmsprop, lamb, adafactor)")
+        elif name == "rmsprop":
+            self.opt = RMSprop(self.params, eps=cfg.eps, momentum=cfg.momentum)
+        elif name == "lamb":
+            self.opt = Lamb(self.params, b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
+                            weight_decay=cfg.weight_decay)
+        elif name == "adafactor":
+            self.opt = Adafactor(self.params)
         else:
             raise ValueError(f"Unknown optimizer '{cfg.name}'")
 
@@ -289,17 +454,31 @@ class Optimizer:
             return ("sum",)
         if isinstance(self.opt, Ftrl):
             return ("n", "z")
+        if isinstance(self.opt, RMSprop):
+            return ("momentum_buffer", "square_avg")
+        if isinstance(self.opt, Adafactor):
+            raise ValueError("adafactor's state keys differ by parameter: param_state_keys")
         return ("exp_avg", "exp_avg_sq", "step")
 
     def param_state_keys(self) -> list[tuple[str, ...]]:
-        """``state_keys()`` for each parameter, in ``params`` order."""
+        """The state keys of each parameter, in ``params`` order
+        (``state_keys()``, but adafactor's by the parameter's shape)."""
+        if isinstance(self.opt, Adafactor):
+            return [adafactor_state_keys(tuple(p.shape)) for p in self.params]
         return [self.state_keys()] * len(self.params)
 
     def place(self, mesh, specs, model) -> None:
         """Which of ``params`` are shards over ``mesh``'s ``model`` axis
         (``specs``: ``model``'s parameter names to their placement, as
-        ``runner.prepare`` matched them): what ``grad_norm`` sums over it."""
+        ``runner.prepare`` matched them): what ``grad_norm`` sums over it.
+        lamb and adafactor refuse a shard (module docstring)."""
         self.mesh, self.sharded = mesh, _shard_mask(self.params, specs, model)
+        name = self.cfg.name.lower()
+        if name in ("lamb", "adafactor") and any(self.sharded) and mesh.shape[MODEL] > 1:
+            raise NotImplementedError(
+                f"optimizer {name!r} takes norms over whole parameters, and some are sharded "
+                f"over mesh.model={mesh.shape[MODEL]}: its per-shard reductions are ROADMAP "
+                f"Queue A item 3.1")
 
     def grad_norm(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
         """The global norm of ``grads`` (one a parameter, in ``params``
@@ -320,6 +499,8 @@ class Optimizer:
         lr = float(self.schedule(self.count))
         for group in self.opt.param_groups:
             group["lr"] = lr
+            if "count" in group:
+                group["count"] = self.count
         for p, g in zip(self.params, grads):
             p.grad = g.to(p.dtype)
         self.opt.step()
@@ -388,7 +569,11 @@ class MultiOptimizer:
             sub.count = value
 
     def param_state_keys(self) -> list[tuple[str, ...]]:
-        return [self.groups[lab].state_keys() for lab in self.labels]
+        keys: list[tuple[str, ...]] = [()] * len(self.params)
+        for k, sub in self.groups.items():
+            for i, ks in zip(self.index[k], sub.param_state_keys()):
+                keys[i] = ks
+        return keys
 
     def place(self, mesh, specs, model) -> None:
         """``Optimizer.place`` for the whole list and each group (a

@@ -3,12 +3,15 @@
 ``from_jax_params(params_np, cfg)`` takes the tree of a
 ``distributed_tensorflow_tpu.models.transformer.Transformer`` (pre-LN
 with ``final_ln``, or post-LN with ``embed_ln``; a non-causal model's
-``mlm_transform`` and ``mlm_ln``; split q/k/v; as nested dicts of numpy
-arrays — ``jax.device_get`` of the params gives one) and returns a
-``models.transformer.Transformer`` holding the same numbers. Layout: a flax Dense ``kernel`` is ``[in,
-out]``, the port's ``Dense.weight`` is ``[out, in]`` (``nn.Linear``).
-The same tree serves ``fused_ln_matmul=True``: both flax paths own the
-same parameters.
+``mlm_transform`` and ``mlm_ln``; split q/k/v, or with ``fused_qkv`` one
+``qkv`` Dense whose columns are head-major ``[H, 3, D]``; as nested
+dicts of numpy arrays — ``jax.device_get`` of the params gives one) and
+returns a ``models.transformer.Transformer`` holding the same numbers.
+Layout: a flax Dense ``kernel`` is ``[in, out]``, the port's
+``Dense.weight`` is ``[out, in]`` (``nn.Linear``). The same tree serves
+``fused_ln_matmul=True``: both flax paths own the same parameters.
+``transformer_to_jax`` is the inverse; ``fuse_qkv`` / ``split_qkv`` turn
+a split state dict into the fused one of the same function and back.
 
 ``resnet_from_jax(params_np, batch_stats_np, cfg)`` does the same for a
 ``distributed_tensorflow_tpu.models.resnet.ResNet`` (``block_impl``
@@ -33,10 +36,12 @@ each conv ``kernel`` HWIO -> OIHW, BatchNorm as the ResNet's;
 ``cnn_to_jax`` is the CNN's inverse (params and batch_stats).
 
 ``optimizer_state_from_jax(opt_state_np, optimizer, cfg)`` carries an
-optax state across: adam/adamw's ``mu`` / ``nu`` / ``count`` (and
-momentum's ``trace``, adagrad's ``sum_of_squares``, the JAX package's
-ftrl ``z`` / ``n``) become the port ``Optimizer``'s state (each tree
-converted like the parameters), its update count and Adam's step, so a
+optax state across: adam/adamw/lamb's ``mu`` / ``nu`` / ``count`` (and
+momentum's ``trace``, rmsprop's ``nu`` / ``trace``, adagrad's
+``sum_of_squares``, adafactor's factored ``v_row`` / ``v_col`` or full
+``v``, the JAX package's ftrl ``z`` / ``n``) become the port
+``Optimizer``'s state (each tree converted like the parameters), its
+update count and Adam's step, so a
 JAX ``TrainState`` taken at step k continues in the port as in JAX; a
 ``multi_transform`` state goes group by group into a ``MultiOptimizer``.
 """
@@ -56,6 +61,10 @@ from .utils.device import resolve_device
 
 def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
+
+
+#: the attention projections' names, split or fused (``cfg.fused_qkv``)
+_QKV_NAMES = {False: ("query", "key", "value"), True: ("qkv",)}
 
 
 def _state_dict_from_jax(params_np: Mapping, cfg: TransformerConfig
@@ -82,12 +91,77 @@ def _state_dict_from_jax(params_np: Mapping, cfg: TransformerConfig
             sd[pre + ln + ".weight"] = _t(layer[ln]["scale"])
             sd[pre + ln + ".bias"] = _t(layer[ln]["bias"])
         dense = {f"attn.{n}": layer["attn"][n]
-                 for n in ("query", "key", "value", "attn_out")}
+                 for n in (_QKV_NAMES[cfg.fused_qkv] + ("attn_out",))}
         dense.update(mlp_in=layer["mlp_in"], mlp_out=layer["mlp_out"])
         for name, p in dense.items():
             sd[pre + name + ".weight"] = _t(p["kernel"]).t().contiguous()
             sd[pre + name + ".bias"] = _t(p["bias"])
     return sd
+
+
+def transformer_to_jax(state_dict: Mapping, cfg: TransformerConfig) -> dict:
+    """Inverse of ``_state_dict_from_jax``: a ``Transformer(cfg)`` state
+    dict (any dtype, any device) as the flax tree of numpy f32 arrays, each
+    Dense ``[out, in]`` back to ``[in, out]`` (a fused ``qkv`` keeps its
+    head-major columns)."""
+    a = lambda t: np.asarray(torch.as_tensor(t).detach().float().cpu().numpy())  # noqa: E731
+    tree: dict = {"tok_embed": {"embedding": a(state_dict["tok_embed.weight"])},
+                  "pos_embed": a(state_dict["pos_embed"]),
+                  "mlm_bias": a(state_dict["mlm_bias"])}
+
+    def ln(name, prefix=""):
+        return {"scale": a(state_dict[f"{prefix}{name}.weight"]),
+                "bias": a(state_dict[f"{prefix}{name}.bias"])}
+
+    def dense(name):
+        return {"kernel": a(state_dict[f"{name}.weight"]).T.copy(),
+                "bias": a(state_dict[f"{name}.bias"])}
+
+    for name in ("final_ln",) if cfg.pre_ln else ("embed_ln",):
+        tree[name] = ln(name)
+    if not cfg.causal:
+        tree["mlm_transform"] = dense("mlm_transform")
+        tree["mlm_ln"] = ln("mlm_ln")
+    for i in range(cfg.num_layers):
+        pre = f"layers.{i}."
+        tree[f"layer_{i}"] = {
+            "ln1": ln("ln1", pre), "ln2": ln("ln2", pre),
+            "attn": {n: dense(f"{pre}attn.{n}")
+                     for n in _QKV_NAMES[cfg.fused_qkv] + ("attn_out",)},
+            "mlp_in": dense(pre + "mlp_in"), "mlp_out": dense(pre + "mlp_out")}
+    return tree
+
+
+def fuse_qkv(state_dict: Mapping, cfg: TransformerConfig) -> dict[str, torch.Tensor]:
+    """A split-q/k/v ``Transformer(cfg)`` state dict as the one of
+    ``fused_qkv=True`` holding the same function: each layer's query, key
+    and value rows interleaved head-major into ``attn.qkv`` (row
+    ``h·3D + i·D + j`` is projection ``i``'s row ``h·D + j``)."""
+    H, D = cfg.num_heads, cfg.head_dim
+    out = dict(state_dict)
+    for i in range(cfg.num_layers):
+        pre = f"layers.{i}.attn."
+        for leaf in ("weight", "bias"):
+            parts = [out.pop(f"{pre}{n}.{leaf}") for n in _QKV_NAMES[False]]
+            rest = parts[0].shape[1:]
+            out[f"{pre}qkv.{leaf}"] = torch.stack(
+                [t.reshape(H, D, *rest) for t in parts], 1).reshape(3 * H * D, *rest)
+    return out
+
+
+def split_qkv(state_dict: Mapping, cfg: TransformerConfig) -> dict[str, torch.Tensor]:
+    """Inverse of ``fuse_qkv``."""
+    H, D = cfg.num_heads, cfg.head_dim
+    out = dict(state_dict)
+    for i in range(cfg.num_layers):
+        pre = f"layers.{i}.attn."
+        for leaf in ("weight", "bias"):
+            t = out.pop(f"{pre}qkv.{leaf}")
+            rest = t.shape[1:]
+            t = t.reshape(H, 3, D, *rest)
+            for j, n in enumerate(_QKV_NAMES[False]):
+                out[f"{pre}{n}.{leaf}"] = t[:, j].reshape(H * D, *rest).contiguous()
+    return out
 
 
 def from_jax_params(params_np: Mapping, cfg: TransformerConfig,
@@ -263,9 +337,9 @@ def wide_deep_to_jax(state_dicts: list[Mapping], cfg: wd.WideDeepConfig) -> dict
 def _optax_leaves(opt_state: Any) -> dict[str, Any]:
     """The fields of an optax state (nested tuples and namedtuples of numpy
     arrays, as ``jax.device_get`` gives them) this port reads: ``mu``,
-    ``nu``, ``trace``, ``sum_of_squares``, ``inner_states`` (a
-    ``multi_transform``'s), the ftrl dict's ``z`` / ``n`` and the first
-    ``count``."""
+    ``nu``, ``trace``, ``sum_of_squares``, adafactor's ``v_row`` /
+    ``v_col`` / ``v``, ``inner_states`` (a ``multi_transform``'s), the ftrl
+    dict's ``z`` / ``n`` and the first ``count``."""
     found: dict[str, Any] = {}
 
     def walk(node):
@@ -273,8 +347,8 @@ def _optax_leaves(opt_state: Any) -> dict[str, Any]:
         if fields is not None:
             for f in fields:
                 v = getattr(node, f)
-                if f in ("mu", "nu", "trace", "sum_of_squares", "inner_states") \
-                        and f not in found:
+                if f in ("mu", "nu", "trace", "sum_of_squares", "inner_states",
+                         "v_row", "v_col", "v") and f not in found:
                     found[f] = v
                 elif f == "count" and "count" not in found:
                     found["count"] = v
@@ -291,18 +365,81 @@ def _optax_leaves(opt_state: Any) -> dict[str, Any]:
     return found
 
 
+def _zip_trees(fn, *trees):
+    """``fn`` over the leaves of nested dicts of one structure."""
+    if isinstance(trees[0], Mapping):
+        return {k: _zip_trees(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def _adafactor_stats(leaves: dict, to_sd) -> dict[str, dict[str, torch.Tensor]]:
+    """optax adafactor's ``v`` / ``v_row`` / ``v_col`` trees as the port's
+    state per parameter name: ``{"v"}`` for an unfactored parameter,
+    ``{"v_row", "v_col"}`` for a factored one. optax's ``v_row`` is the mean
+    over the larger axis, indexed by the other (for a square one: the mean
+    over axis 1), as the port's of its own shape is; so only a square
+    parameter the layout conversion transposes (a Dense kernel) swaps the
+    two. Which parameter is which, and which square one is transposed,
+    comes from converting probes of the JAX shapes with ``to_sd``."""
+    ids: list = []
+
+    def jax_shape(v, vr, vc):
+        if np.size(v) > 1 or np.size(vr) == np.size(vc) == 1:
+            return np.shape(v)
+        if np.ndim(vr) != 1:
+            raise NotImplementedError(
+                "adafactor state of a factored parameter above 2-D cannot be carried across "
+                "(its layout change is not a transpose)")
+        return (np.size(vr), np.size(vc))
+
+    def tag(v, vr, vc):  # every element of a leaf holds its index
+        ids.append((v, vr, vc))
+        return np.full(jax_shape(v, vr, vc), len(ids) - 1, np.float32)
+
+    def probe(v, vr, vc):  # a factored leaf's row index, an unfactored one's v
+        shape = jax_shape(v, vr, vc)
+        if np.size(v) > 1 or len(shape) < 2:
+            return v
+        return np.broadcast_to(np.arange(shape[0], dtype=np.float32)[:, None], shape)
+
+    trees = (leaves["v"], leaves["v_row"], leaves["v_col"])
+    which = to_sd(_zip_trees(tag, *trees))
+    probed = to_sd(_zip_trees(probe, *trees))
+    out = {}
+    for name, t in which.items():
+        v, vr, vc = ids[int(t.reshape(-1)[0])]
+        if np.size(v) > 1 or t.dim() < 2:
+            out[name] = {"v": probed[name]}
+            continue
+        rows, cols = _t(vr).reshape(-1), _t(vc).reshape(-1)
+        p = probed[name]
+        transposed = p.shape[0] == p.shape[1] and not bool(
+            (p[:, 0] == torch.arange(p.shape[0], dtype=p.dtype)).all())
+        out[name] = {"v_row": cols, "v_col": rows} if transposed else \
+            {"v_row": rows, "v_col": cols}
+    return out
+
+
+#: the port's optimizer state keys -> the optax state fields they come from
+_OPTAX_SOURCE = {"exp_avg": "mu", "exp_avg_sq": "nu", "momentum_buffer": "trace",
+                 "square_avg": "nu", "sum": "sum_of_squares", "z": "z", "n": "n",
+                 "v_row": "v_row", "v_col": "v_col", "v": "v"}
+
+
 def optimizer_state_from_jax(opt_state_np: Any, model: torch.nn.Module, optimizer) -> None:
     """Load ``opt_state_np`` (an optax state of the JAX package's
     ``make_optimizer`` or ``make_multi_optimizer``, as numpy) into
     ``optimizer`` (the port's ``train.optimizers.Optimizer`` or
     ``MultiOptimizer`` over ``model``, a ``Transformer``, a
-    ``resnet.ResNet`` or a ``WideDeep``), in place: Adam's ``exp_avg`` /
-    ``exp_avg_sq`` / ``step`` from ``mu`` / ``nu`` / ``count``, momentum's
-    ``momentum_buffer`` from ``trace``, AdaGrad's ``sum`` from
-    ``sum_of_squares``, FTRL's ``z`` / ``n``, and the update count (the
-    schedule's) from ``count``; each on its parameter's device (a table's
-    cut to the parameter's shard). A ``multi_transform`` state's groups
-    go to the ``MultiOptimizer``'s groups of the same labels."""
+    ``resnet.ResNet`` or a ``WideDeep``), in place: Adam's and lamb's
+    ``exp_avg`` / ``exp_avg_sq`` / ``step`` from ``mu`` / ``nu`` /
+    ``count``, momentum's ``momentum_buffer`` from ``trace``, rmsprop's
+    ``square_avg`` / ``momentum_buffer`` from ``nu`` / ``trace``, AdaGrad's
+    ``sum`` from ``sum_of_squares``, FTRL's ``z`` / ``n``, adafactor's
+    ``v_row`` / ``v_col`` or ``v`` (``_adafactor_stats``), and the update
+    count (the schedule's) from ``count``; each on its parameter's device
+    (a table's cut to the parameter's shard). A ``multi_transform`` state's
+    groups go to the ``MultiOptimizer``'s groups of the same labels."""
     from .train.optimizers import MultiOptimizer
 
     if isinstance(optimizer, MultiOptimizer):
@@ -315,10 +452,9 @@ def optimizer_state_from_jax(opt_state_np: Any, model: torch.nn.Module, optimize
     leaves = _optax_leaves(opt_state_np)
     if "count" not in leaves:
         raise ValueError("optax state has no count")
-    keys = optimizer.state_keys()
-    source = {"exp_avg": "mu", "exp_avg_sq": "nu", "momentum_buffer": "trace",
-              "sum": "sum_of_squares", "z": "z", "n": "n"}
-    missing = [source[k] for k in keys if k != "step" and source[k] not in leaves]
+    per_param = optimizer.param_state_keys()
+    needed = sorted({_OPTAX_SOURCE[k] for keys in per_param for k in keys if k != "step"})
+    missing = [f for f in needed if f not in leaves]
     if missing:
         raise ValueError(f"optax state has no {missing} for optimizer {optimizer.cfg.name!r}")
     cfg = model.cfg
@@ -329,14 +465,20 @@ def optimizer_state_from_jax(opt_state_np: Any, model: torch.nn.Module, optimize
         to_sd = lambda tree: wide_deep_state_dict_from_jax(tree, cfg, shard)  # noqa: E731
     else:
         to_sd = lambda tree: _state_dict_from_jax(tree, cfg)  # noqa: E731
-    trees = {k: to_sd(leaves[source[k]]) for k in keys if k != "step"}
+    if "v" in needed:
+        stats = _adafactor_stats(leaves, to_sd)
+        trees = {k: {n: st[k] for n, st in stats.items() if k in st}
+                 for k in ("v", "v_row", "v_col")}
+    else:
+        trees = {f: to_sd(leaves[f]) for f in needed}
     names = {id(p): n for n, p in model.named_parameters()}
     count = int(np.asarray(leaves["count"]))
     sd = optimizer.opt.state_dict()
     sd["state"] = {}
     for i, p in enumerate(optimizer.params if count > 0 else ()):
         sd["state"][i] = {k: (torch.tensor(float(count)) if k == "step" else
-                              trees[k][names[id(p)]].to(device=p.device, dtype=p.dtype))
-                          for k in keys}
+                              trees[_OPTAX_SOURCE[k]][names[id(p)]].to(device=p.device,
+                                                                        dtype=p.dtype))
+                          for k in per_param[i]}
     optimizer.opt.load_state_dict(sd)
     optimizer.count = count

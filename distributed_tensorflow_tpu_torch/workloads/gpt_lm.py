@@ -1,7 +1,7 @@
 """Decoder-only causal LM at GPT-2-small shape — the port's counterpart of
 ``distributed_tensorflow_tpu/workloads/gpt_lm.py`` (the default preset,
-same values; ``long_context`` needs ring attention and remat, ROADMAP
-Queue A items 2.5 and 6)."""
+same values, data-parallel over the processes there are; the
+``long_context`` preset needs ring attention, ROADMAP Queue A item 6)."""
 
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ import torch
 
 from ..data.text import TextDataConfig
 from ..models import transformer as tfm
+from ..parallel.mesh import MeshSpec
 from ..train.optimizers import OptimizerConfig
 from ._transformer_common import transformer_parts
 from .runner import RunConfig, TrainSection, WorkloadParts
@@ -23,6 +24,7 @@ def default_config() -> RunConfig:
     return RunConfig(
         workload="gpt_lm",
         model=model,
+        mesh=MeshSpec(data=-1),
         data=TextDataConfig(
             dataset="synthetic_lm", global_batch_size=64,
             seq_len=model.max_len, vocab_size=model.vocab_size,
@@ -36,10 +38,26 @@ def default_config() -> RunConfig:
 
 
 def build(cfg: RunConfig, device: torch.device, mesh=None) -> WorkloadParts:
-    if mesh is not None and mesh.size > 1:
-        raise NotImplementedError(
-            f"gpt_lm over {mesh.size} processes: data-parallel gpt_lm is not held against "
-            f"the JAX package yet (ROADMAP Queue A item 2.7)")
     if not cfg.model.causal:
         raise ValueError("gpt_lm is a causal workload; set model.causal=True")
-    return transformer_parts(cfg, device, mlm=False)
+    parts = transformer_parts(cfg, device, mlm=False)
+    if mesh is None or mesh.size == 1:
+        return parts
+    # Data-parallel: the step averages each rank's loss, a mean over its own
+    # tokens (the chunked loss included). That is the mean over the global
+    # batch only because every rank scores the same count, rows x (S - 1):
+    # the LM streams never pad (no attention_mask), and the rows split
+    # evenly. A padded batch would weight the ranks unequally.
+    if not (cfg.data.dataset == "synthetic_lm" or cfg.data.dataset.startswith("tokens:")):
+        raise ValueError(f"data-parallel gpt_lm takes an unpadded LM stream (synthetic_lm, "
+                         f"tokens:), got {cfg.data.dataset!r}")
+    loss_fn = parts.loss_fn
+
+    def equal_count_loss(batch, generator=None):
+        if "attention_mask" in batch:
+            raise ValueError("data-parallel gpt_lm: a padded batch gives the ranks unequal "
+                             "token counts, and the mean of their means is not the global one")
+        return loss_fn(batch, generator)
+
+    parts.loss_fn = equal_count_loss
+    return parts

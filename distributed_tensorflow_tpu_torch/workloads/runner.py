@@ -1,7 +1,9 @@
 """Workload runner — the data-parallel subset of ``distributed_tensorflow_tpu/
 workloads/runner.py``: cluster → mesh → config → model on this process's
 card → optimizer → step → init-or-restore (``checkpoint.directory``) →
-prefetched feed from the restored step → callback loop → distributed eval
+prefetched feed from the restored step → callback loop (with
+``train.summary_dir`` TensorBoard scalars, with ``train.profile`` a
+profiler trace) → distributed eval
 (``train.eval_every`` mid-train passes and a final one, through
 ``train/evaluation.py``'s ``ShardedEvaluator``). Each workload module
 contributes a preset config and a builder; everything else is shared.
@@ -82,6 +84,13 @@ class TrainSection:
     clip_grad_norm: float = 0.0
     # the numeric-anomaly defense (not ported: ROADMAP Queue A item 6)
     anomaly_defense: bool = False
+    # a torch.profiler Chrome trace of steps 10-15 into profile_dir (the
+    # JAX config's default directory, so one override list parses alike)
+    profile: bool = False
+    profile_dir: str = "/tmp/dtf_tpu_profile"
+    # non-empty: TensorBoard scalar event files there (chief only, at
+    # log_every)
+    summary_dir: str = ""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -259,7 +268,14 @@ def run(cfg: RunConfig, build: Callable[[RunConfig, torch.device, Any], Workload
         batch_size=parts.batch_size or cfg.data.global_batch_size,
         model_flops_per_step=parts.flops_per_step if dev.type == "cuda" else None,
         history=True)
-    callbacks: list[cb.Callback] = [metrics_logger, cb.NaNGuard(), *extra_callbacks]
+    callbacks: list[cb.Callback] = [metrics_logger, cb.NaNGuard()]
+    if cfg.train.summary_dir:
+        # after metrics_logger, so its fetch of this step is fresh
+        callbacks.append(cb.SummaryWriter(cfg.train.summary_dir, every_n=cfg.train.log_every,
+                                          metrics_logger=metrics_logger))
+    if cfg.train.profile:
+        callbacks.append(cb.Profiler(cfg.train.profile_dir))
+    callbacks.extend(extra_callbacks)
     evaluator = None
     if (parts.eval_fn is not None and parts.eval_dataset_fn is not None
             and cfg.train.eval_batches > 0):

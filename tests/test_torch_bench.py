@@ -92,3 +92,36 @@ def test_describe_devices_sync_by_value_and_provenance_on_the_cpu():
     assert prov["platform"] == "cpu" and prov["power_limit"] is None
     assert prov["pid"] == os.getpid() and "mesh" not in prov
     assert isinstance(prov["git_sha"], str) and np.isfinite(row["value"])
+
+
+@pytest.mark.parametrize("model,knobs", [
+    ("bert", {}),
+    ("gpt", {"BENCH_REMAT": "1", "BENCH_FUSED_QKV": "1", "BENCH_ATTN": "blockwise"}),
+], ids=["bert", "gpt_remat_fused_qkv_blockwise"])
+def test_bench_bert_torch_prints_one_json_line_on_the_cpu(model, knobs, monkeypatch, capsys):
+    """``tools/bench_bert_torch.py --device cpu``: the tiny model, one
+    JSON line on stdout with the knobs it ran, a CPU provenance block, no
+    MFU (no device peak) and no flash launches (the CPU launches none)."""
+    sys.path.insert(0, str(REPO / "tools"))
+    import bench_bert_torch
+
+    for var in ("RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    env = {"BENCH_MODEL": model, "BENCH_SEQ": "128", "BENCH_STEPS": "2", "BENCH_BATCH": "2",
+           **knobs}
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    bench_bert_torch.main(["--device", "cpu"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1
+    row = json.loads(lines[0])
+    assert row["metric"] == f"{model}_tokens_per_sec_per_chip" and row["value"] > 0
+    assert row["global_batch"] == 2 and row["seq_len"] == 128 and row["measured_steps"] == 2
+    assert row["remat"] == (model == "gpt") and row["fused_qkv"] == (model == "gpt")
+    assert row["attention_impl"] == ("blockwise" if model == "gpt" else "auto")
+    # the workload's K at S=128
+    assert row["mlm_predictions"] == (19 if model == "bert" else None)
+    assert row["mfu"] is None and row["provenance"]["platform"] == "cpu"
+    assert row["flash_launches_per_step"] == {"flash_fwd": 0.0, "flash_bwd_dkv": 0.0,
+                                              "flash_bwd_dq": 0.0}
+    assert math.isfinite(row["final_loss"]) and not row["full_size_model"]

@@ -156,7 +156,8 @@ def test_autograd_function_on_cpu_gives_the_plain_grads():
 def test_attention_dispatch_matches_jax_reference():
     """``ops.attention.attention``: "dense" is the JAX
     ``attention_reference``; "auto" is dense on the CPU; "flash" the
-    plain flash math; "blockwise" is refused (not ported yet)."""
+    plain flash math; "blockwise" the online softmax over key blocks; an
+    unknown impl is refused."""
     jref = importlib.import_module("distributed_tensorflow_tpu.ops.attention").attention_reference
 
     q, k, v, mask = _inputs(6)
@@ -164,11 +165,11 @@ def test_attention_dispatch_matches_jax_reference():
                            kv_mask=jnp.asarray(mask)))
     args = _t(q, k, v)
     tm = torch.from_numpy(mask)
-    for impl in ("dense", "auto", "flash"):
+    for impl in ("dense", "auto", "flash", "blockwise"):
         got = tatt.attention(*args, causal=True, kv_mask=tm, impl=impl)
         np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=2e-5, err_msg=impl)
     with pytest.raises(ValueError, match="blockwise"):
-        tatt.attention(*args, impl="blockwise")
+        tatt.attention(*args, impl="ring")
 
 
 def test_backward_wrappers_pass_out_through_its_strides():
@@ -192,15 +193,56 @@ def test_backward_wrappers_pass_out_through_its_strides():
 
 
 def test_kernels_take_head_dims_32_64_128_and_name_queue_c_for_others():
-    """The wrappers' argument check lets D in ``HEAD_DIMS`` (32 — the
-    MLM/LM demos' d_model 128 over 4 heads — 64 and 128) through and
-    refuses 8 and 16, naming ROADMAP Queue C, rather than falling back to
-    dense; ``auto`` stays dense only on the CPU."""
+    """The kernels are instantiated at ``HEAD_DIMS`` (32 — the MLM/LM
+    demos' d_model 128 over 4 heads — 64 and 128), and the wrappers'
+    argument check lets only those through. ``flash_attention`` takes any
+    head dim up to 128: 8 and 16 (the JAX package's tools' shapes) are
+    zero-padded to 32, 48 to 64; above 128 it refuses, naming ROADMAP Queue
+    C, rather than falling back to dense."""
     assert tfa.HEAD_DIMS == (32, 64, 128)
     for d in tfa.HEAD_DIMS:
         q = torch.zeros(1, 2, 8, d)
         assert tfa._check(q, q, q, None) is None
+        assert tfa.padded_head_dim(d) == d
+    assert [tfa.padded_head_dim(d) for d in (8, 16, 24, 48, 100)] == [32, 32, 32, 64, 128]
     for d in (8, 16):
         q = torch.zeros(1, 2, 8, d)
-        with pytest.raises(ValueError, match=f"head_dim {d}.*ROADMAP Queue C"):
+        with pytest.raises(ValueError, match=f"head_dim {d}.*zero-pads"):
             tfa._check(q, q, q, None)
+        assert tfa.flash_attention(q, q, q).shape == (1, 2, 8, d)
+    for d in (192, 256):
+        q = torch.zeros(1, 2, 8, d)
+        with pytest.raises(ValueError, match=f"head_dim {d}.*ROADMAP Queue C"):
+            tfa.flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("d", [8, 16])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_padded_head_dims_match_jax_flash(d, causal):
+    """Head dims 8 and 16 through ``flash_attention`` (zero-padded to 32,
+    the softmax scale of the original D, the output sliced back) against
+    JAX's flash in interpret mode at that D: the output and the gradients
+    of (out*out).sum() with a kv_mask, f32 (forward 2e-5, gradients 1e-4,
+    the tolerances above). The launches would be counted at D=32 for a
+    caller asking D=d (none on the CPU)."""
+    rng = np.random.default_rng(10 + d)
+    q, k, v = (rng.standard_normal((B, H, 64, d), dtype=np.float32) for _ in range(3))
+    mask = rng.random((B, 64)) > 0.3
+    mask[:, 0] = True
+
+    def loss(q, k, v):
+        o = jfa.flash_attention(q, k, v, causal=causal, kv_mask=jnp.asarray(mask),
+                                block_q=BLOCK, block_k=BLOCK, interpret=True)
+        return (o * o).sum(), o
+
+    (_, want_out), want = jax.value_and_grad(loss, argnums=(0, 1, 2), has_aux=True)(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    leaves = [t.requires_grad_() for t in _t(q, k, v)]
+    out = tfa.flash_attention(*leaves, causal=causal, kv_mask=torch.from_numpy(mask))
+    assert out.shape == (B, H, 64, d)
+    (out * out).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want_out), atol=2e-5, rtol=2e-5)
+    for name, t, w in zip(("dq", "dk", "dv"), leaves, want):
+        assert t.grad.shape == (B, H, 64, d)
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), atol=1e-4, rtol=1e-4,
+                                   err_msg=name)

@@ -11,6 +11,8 @@ f32 kernel vs plain version — same math, other summation order; bf16 —
 both round one f32 result to bf16, so one ulp (atol 1e-2, rtol 2^-7).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -374,6 +376,111 @@ def test_flash_kernels_at_head_dim_32_match_plain_on_card(card, dtype):
             torch.testing.assert_close(got.float(), w.float(), atol=atol, rtol=rtol,
                                        msg=lambda m: f"{name} {case}: {m}")
             assert _rel_l2(got, w) <= FLASH_REL_L2[dtype], (name, case, _rel_l2(got, w))
+
+
+#: head dims the kernels are not built for, zero-padded to 32 by
+#: ``flash_attention`` (the JAX package's tools' d_model 64 over 8 and 4
+#: heads), causal and not, with and without a kv_mask; a ragged edge
+FLASH_PADDED_CASES = [
+    (64, 4, 64, 64, 8, False, False),
+    (64, 4, 64, 64, 16, True, False),
+    (2, 3, 200, 200, 16, True, True),
+    (2, 2, 37, 130, 8, True, False),
+    (1, 2, 300, 300, 16, False, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_padded_head_dims_match_plain_on_card(card, dtype):
+    """``flash_attention`` at head dims 8 and 16 runs the D=32 kernels on
+    zero-padded q/k/v: out and, through autograd, dq, dk, dv against the
+    plain versions at the caller's head dim, at the gates above (the
+    backward's plain version, as in the tests above, on the forward
+    kernel's out and LSE); each kernel counts one launch at D=32 and one
+    for the caller's D."""
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(16)
+    atol, rtol = (1e-4, 1e-4) if dtype == torch.float32 else TOLS[dtype]
+    wrappers = (fa.flash_fwd, fa.flash_bwd_dkv, fa.flash_bwd_dq)
+    for B, H, Sq, Sk, D, causal, masked in FLASH_PADDED_CASES:
+        q, k, v, mask, dout = _flash_inputs(rng, card, dtype, B, H, Sq, Sk, D, masked)
+        # the forward kernel's LSE on the padded inputs (out is the call's)
+        _, lse = fa.flash_fwd(*(F.pad(t, (0, 32 - D)) for t in (q, k, v)), mask,
+                              causal=causal, sm_scale=D ** -0.5)
+        counts = [(w.launches_by_d.get(32, 0), w.launches_by_asked_d.get(D, 0))
+                  for w in wrappers]
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = fa.flash_attention(*leaves, causal=causal, kv_mask=mask)
+        dq, dk, dv = torch.autograd.grad(out, leaves, dout)
+        torch.cuda.synchronize()
+        assert [(w.launches_by_d.get(32, 0), w.launches_by_asked_d.get(D, 0))
+                for w in wrappers] == [(a + 1, b + 1) for a, b in counts]
+        want_out, want_lse = fa.flash_attention_plain(q, k, v, mask, causal=causal)
+        want = fa.flash_attention_bwd_plain(q, k, v, mask, out.detach(), lse, dout,
+                                            causal=causal)
+        case = (B, H, Sq, Sk, D, causal, masked)
+        torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5,
+                                   msg=lambda m: f"lse {case}: {m}")
+        assert out.shape == q.shape and dq.shape == q.shape and dk.shape == k.shape
+        torch.testing.assert_close(out.float(), want_out.float(), atol=atol, rtol=rtol,
+                                   msg=lambda m: f"out {case}: {m}")
+        assert _rel_l2(out, want_out) <= FLASH_FWD_REL_L2[dtype], (
+            "out", case, _rel_l2(out, want_out))
+        for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+            torch.testing.assert_close(got.float(), w.float(), atol=atol, rtol=rtol,
+                                       msg=lambda m: f"{name} {case}: {m}")
+            assert _rel_l2(got, w) <= FLASH_REL_L2[dtype], (name, case, _rel_l2(got, w))
+
+
+@pytest.mark.cuda
+def test_remat_steps_on_card_are_bitwise_the_plain_steps(card, monkeypatch):
+    """Three adamw steps of a small bf16 causal LM with dropout 0.1 on the
+    card (the flash kernels at every layer, the LN+matmul kernels in the
+    second case): with remat, the losses and every parameter equal the
+    run without remat bit for bit, with twice the flash forward launches;
+    with the dropout generator's replay removed they differ."""
+    from distributed_tensorflow_tpu_torch.data.text import SyntheticLM, TextDataConfig
+    from distributed_tensorflow_tpu_torch.train import (
+        OptimizerConfig, init_train_state, make_optimizer, make_train_step)
+
+    base = tfm.TransformerConfig(vocab_size=512, max_len=256, num_layers=2, d_model=256,
+                                 num_heads=4, d_ff=512, dropout=0.1, dtype="bfloat16",
+                                 causal=True, pre_ln=True, attention_impl="flash")
+    data = SyntheticLM(TextDataConfig(dataset="synthetic_lm", global_batch_size=4,
+                                      seq_len=256, vocab_size=512))
+    batches = [{k: torch.from_numpy(v).to(card) for k, v in data.batch(i).items()}
+               for i in range(3)]
+
+    def run(cfg):
+        model = tfm.build(cfg, tfm.init_params(cfg, seed=0, device=card, trainable=True),
+                          card, trainable=True)
+        state = init_train_state(model, make_optimizer(
+            OptimizerConfig(name="adamw", learning_rate=1e-3), model.parameters()), seed=5)
+        step = make_train_step(tfm.causal_lm_loss(model, 64))
+        before = fa.flash_fwd.launches
+        losses = [float(step(state, b)[1]["loss"]) for b in batches]
+        return losses, model.state_dict(), fa.flash_fwd.launches - before
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for fused_ln in (False, True):
+            cfg = dataclasses.replace(base, fused_ln_matmul=fused_ln)
+            plain = run(cfg)
+            remat = run(dataclasses.replace(cfg, remat=True))
+            assert plain[2] == 2 * 3 and remat[2] == 2 * 2 * 3
+            assert remat[0] == plain[0]
+            for k, v in plain[1].items():
+                assert torch.equal(remat[1][k], v), (fused_ln, k)
+        with monkeypatch.context() as mp:
+            mp.setattr(tfm, "_generator_snapshot", lambda generator: None)
+            control = run(dataclasses.replace(base, remat=True))
+        plain = run(base)
+        assert control[0][0] == plain[0][0] and control[0][1:] != plain[0][1:]
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
 
 
 @pytest.mark.cuda

@@ -106,12 +106,27 @@ def test_entry_points_run_on_the_card_by_default(monkeypatch):
         tmesh.build_mesh()
 
 
-def test_gpt_lm_refuses_more_than_one_process():
-    from distributed_tensorflow_tpu_torch.workloads import gpt_lm
+def test_data_parallel_gpt_lm_needs_equal_token_counts():
+    """Over a data axis of 2 the step averages the ranks' mean losses,
+    the global mean only when every rank scores the same token count: a
+    stream that may pad is refused, and so is a batch with an
+    attention_mask (the data-parallel parity is tests/test_torch_dp_gpt.py)."""
+    import dataclasses
 
+    from distributed_tensorflow_tpu_torch.workloads import gpt_lm
+    from distributed_tensorflow_tpu_torch.utils import config as tconfig
+    from test_torch_train_workload import TINY
+
+    cfg = tconfig.apply_overrides(gpt_lm.default_config(), TINY)
     mesh = tmesh.Mesh(dict(tmesh.MeshSpec(data=2).sizes()), torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="item 2.7"):
-        gpt_lm.build(gpt_lm.default_config(), torch.device("cpu"), mesh)
+    parts = gpt_lm.build(cfg, torch.device("cpu"), mesh)
+    ids = torch.zeros(2, 32, dtype=torch.long)
+    with pytest.raises(ValueError, match="unequal token counts"):
+        parts.loss_fn({"input_ids": ids, "attention_mask": torch.ones_like(ids)})
+    assert torch.isfinite(parts.loss_fn({"input_ids": ids})[0])
+    bad = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, dataset="synthetic_mlm"))
+    with pytest.raises(ValueError, match="unpadded LM stream"):
+        gpt_lm.build(bad, torch.device("cpu"), mesh)
 
 
 def test_explicit_coordinator_needs_the_process_count_and_id():

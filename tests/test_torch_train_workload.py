@@ -118,7 +118,7 @@ def test_run_workload_trains_gpt_lm_fused_ln_on_cpu(bwd, monkeypatch):
     ("--train.anomaly_defense=true", "anomaly"),
     ("--model.seq_impl=ring", "ring_attention"),
     ("--model.num_experts=4", "moe"),
-    ("--optimizer.name=lamb", "not ported"),
+    ("--mesh.seq=2", "item 6"),
 ])
 def test_unsupported_configs_raise_naming_the_roadmap_item(override, match):
     with pytest.raises((ValueError, NotImplementedError), match=match):

@@ -562,7 +562,7 @@ def test_run_workload_trains_wide_deep_on_the_cpu():
     ("--mesh.expert=2", "item 6"),
     ("--mesh.pipe=2", "item 6"),
     ("--data.eval_dataset=npz:/nonexistent.npz", "eval_dataset"),
-    ("--optimizer.name=rmsprop", "item 2.6"),
+    ("--fleet.dir=/tmp/fleet", "item 6"),
 ])
 def test_wide_deep_refusals_name_their_roadmap_item(override, match):
     model2 = [] if override.startswith("--mesh") else ["--mesh.model=2"]

@@ -64,6 +64,14 @@ exits non-zero on any failure. The spec's ``job``:
   rank's parameters and its eval; with ``refuse`` (workload -> overrides),
   the message each such ``run_workload`` raises.
 
+- ``"gpt"``: a causal Transformer of ``cfg`` built from ``sd`` in
+  ``inputs``, stepped with ``optimizer`` and the chunked LM loss
+  (``chunk``) on this rank's rows of each global batch
+  ``train<i>/input_ids`` (``bert_steps``), at dropout 0 (``plain/``) and
+  at ``dropout`` with remat (``dropout/``): the losses and the state dict
+  after the steps. With ``runner``: also ``run_workload("gpt_lm",
+  runner)``'s losses, data axis and final weights.
+
 - ``"cnn"``: a CIFAR-10 CNN of ``cfg`` over ``input_shape`` images built
   from ``sd`` in ``inputs``, stepped with momentum 0.9 at 0.05 and a
   cosine decay over the batches (``cnn_steps``) on this rank's rows of
@@ -237,9 +245,11 @@ def job_bert(spec: dict, dev, mesh) -> dict:
     return out
 
 
-def bert_steps(cfg, sd: dict, batches: list[dict], optimizer: dict, device, mesh=None) -> dict:
+def bert_steps(cfg, sd: dict, batches: list[dict], optimizer: dict, device, mesh=None,
+               lm_chunk: int | None = None) -> dict:
     """``len(batches)`` steps of a Transformer of ``cfg`` from state dict
-    ``sd`` with ``optimizer`` and ``mlm_loss_fn`` on ``device``: with
+    ``sd`` with ``optimizer`` and ``mlm_loss_fn`` (with ``lm_chunk``: the
+    causal LM loss, chunked at that size when above 0) on ``device``: with
     ``mesh``, each batch is the global batch and this rank steps on its
     rows. Returns the losses, the state dict after the steps (numpy) and
     the model."""
@@ -249,7 +259,9 @@ def bert_steps(cfg, sd: dict, batches: list[dict], optimizer: dict, device, mesh
                        trainable=True)
     opt = topt.make_optimizer(topt.OptimizerConfig(**optimizer), model.parameters())
     state = tstep.init_train_state(model, opt)
-    step = tstep.make_train_step(ttfm.mlm_loss_fn(model), mesh=mesh)
+    loss_fn = (ttfm.mlm_loss_fn(model) if lm_chunk is None
+               else ttfm.causal_lm_loss(model, lm_chunk))
+    step = tstep.make_train_step(loss_fn, mesh=mesh)
     losses = []
     for b in batches:
         rows = shard_host_batch(b, mesh) if mesh is not None else b
@@ -569,6 +581,36 @@ def job_cnn(spec: dict, dev, mesh) -> dict:
     return out
 
 
+def job_gpt(spec: dict, dev, mesh) -> dict:
+    """A causal Transformer of ``cfg`` from ``sd`` stepped data-parallel
+    with the chunked LM loss (``chunk``) on this rank's rows of each
+    global batch ``train<i>/input_ids``: plain (``dropout 0``), with
+    ``dropout`` and ``remat``, and ``run_workload("gpt_lm", runner)``'s
+    losses and final weights."""
+    from distributed_tensorflow_tpu_torch.models import transformer as ttfm
+
+    data = np.load(spec["inputs"])
+    sd = {k[3:]: torch.as_tensor(data[k]) for k in data.files if k.startswith("sd/")}
+    n = len({k for k in data.files if k.startswith("train")})
+    batches = [{"input_ids": data[f"train{i}/input_ids"]} for i in range(n)]
+    cfg = ttfm.TransformerConfig(**spec["cfg"])
+    out = {}
+    for tag, kw in (("plain", {}), ("dropout", {"dropout": spec["dropout"], "remat": True})):
+        res = bert_steps(dataclasses.replace(cfg, **kw), sd, batches, spec["optimizer"], dev,
+                         mesh, lm_chunk=spec["chunk"])
+        out[f"{tag}/losses"] = res["losses"]
+        out.update({f"{tag}/state/{k}": v for k, v in res["state"].items()})
+    if spec.get("runner"):
+        from distributed_tensorflow_tpu_torch.workloads import run_workload
+
+        res = run_workload("gpt_lm", spec["runner"], device=dev)
+        out["runner/losses"] = np.asarray([h["loss"] for h in res.history])
+        out["runner/data_axis"] = np.asarray(res.mesh.shape["data"])
+        out.update({f"runner/state/{k}": v.detach().float().cpu().numpy()
+                    for k, v in res.state.model.state_dict().items()})
+    return out
+
+
 def free_port() -> int:
     import socket
 
@@ -648,7 +690,7 @@ def main(spec_path: str) -> int:
         mesh = build_mesh(MeshSpec(data=-1), dev)
         jobs = {"job_resnet": job_resnet, "job_bert": job_bert, "job_parallel": job_parallel,
                 "job_ckpt": job_ckpt, "job_ckpt_fallback": job_ckpt_fallback,
-                "job_wide_deep": job_wide_deep, "job_cnn": job_cnn}
+                "job_wide_deep": job_wide_deep, "job_cnn": job_cnn, "job_gpt": job_gpt}
         out = jobs[f"job_{spec['job']}"](spec, dev, mesh)
         np.savez(os.path.join(spec["out"], f"rank{cluster.process_index()}.npz"), **out)
     finally:
