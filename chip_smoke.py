@@ -245,10 +245,32 @@ when any phase fails:
    dims 8 and 16, zero-padded to 32, against the plain versions at that
    head dim, with its gates and controls and the launches counted at 32
    and at the caller's head dim, and times it beside SDPA.)
-14. print the ``kernels`` JSON line (fifteen entries: ``ln_matmul`` is the
+14. tensor and fully-sharded data parallelism (``T14_*``, ``phase_tp``):
+   (a) ``gpt_lm`` at gpt_small (S=1024, B=8, bf16, flash, fused LN+matmul
+   with the pallas backward, the chunked loss at 256, adamw, dropout 0)
+   at data=1 x model=2 in two gloo processes on this card
+   (``tests/torch_dp_worker.py``'s ``tp`` job), 3 steps from the weights
+   of one seed, against the same steps in one process
+   (``TOL["tp/bf16/*"]``: the losses with an x 1.01 control, each
+   parameter's update with a half-batch control; the ranks bitwise alike,
+   no replicated parameter drifting between them); every flash and
+   LN+matmul kernel launched on every rank; (b) ``bert_pretrain`` at
+   bert_base (S=512, B=32, the gathered MLM head, a padded kv_mask,
+   dropout 0.1) at fsdp=2 x model=2 in four processes, 2 steps, the same
+   gates, then its step dir (gathered whole by the chief) restored in one
+   process at model=1 — every leaf's SHA-256 the ranks' gathered one's —
+   and by each rank at its mesh bitwise; each rank's step ms printed as
+   gloo-on-one-card numbers, not tensor-parallel throughput; (c)
+   ``gpt_lm`` at head dim 256 (d_model 1024 over 4 heads) through
+   ``run_workload``: the D=256 kernels' launches. (Phase 2c also holds the
+   three kernels at D=256, ``FLASH_D256``, bf16, causal and not, with no
+   mask and a padded kv_mask, with their gates and controls, timed beside
+   SDPA; ``flash_attention`` at D=192 padded to 256 likewise; and the f32
+   wrappers' refusal at 256.)
+15. print the ``kernels`` JSON line (eighteen entries: ``ln_matmul`` is the
    serving forward at M=8, ``ln_matmul_train`` the tiled forward at
-   M=8192; ``flash_*_d32`` the flash kernels' head_dim-32 instantiation),
-   then the ``ok`` line last.
+   M=8192; ``flash_*_d32`` and ``flash_*_d256`` the flash kernels'
+   head_dim-32 and -256 instantiations), then the ``ok`` line last.
 
 TF32 is off for every f32 product compared here
 (``torch.backends.cuda.matmul.allow_tf32 = False``).
@@ -475,6 +497,19 @@ TOL = {
     # input within rounding of 0 falls on the other side; BN over few rows
     # amplifies it). The control — the same step on rank 0's half alone —
     # must read 10x past the BN limit
+    # phase 14: tensor / fully-sharded data parallelism, gloo ranks on this
+    # card against one process on the global batches, bf16, from the same
+    # weights: the losses as a relative difference (control: the ranks'
+    # losses x 1.01 must fail), each parameter's update over the steps as
+    # relative L2 (the worst and the median; the attention's key bias left
+    # out: its gradient is 0 in exact arithmetic, so each run moves it by
+    # normalised rounding alone). The ranks' row-parallel products are
+    # rounded to bf16 before their sum, one process's after it. Control:
+    # the one-process steps on the first half of each global batch must
+    # fail the median
+    "tp/bf16/loss": 2e-3,
+    "tp/bf16/worst": 1.0,
+    "tp/bf16/median": 0.2,
     "dp/f32/loss": 1e-4,                      # measured 0
     "dp/f32/bn": 1e-3,                        # 1.42e-5
     "dp/f32/worst": 4e-2,                     # 8.93e-3
@@ -1037,6 +1072,12 @@ BERT_PAD_LENGTHS = (384, 512)
 #: attend a prefix of ``FLASH_D32_PAD`` keys
 FLASH_D32 = dict(B=64, H=4, S=64, D=32)
 FLASH_D32_PAD = (16, 64)
+#: head_dim 256 (phase 2c's D=256 shape: Gemma's head dim, 8 heads at
+#: S=1024), bf16 only (the f32 check kernels stop at 128); D=192 runs
+#: zero-padded to 256 at the same shape; a padded kv_mask's rows attend a
+#: prefix of ``FLASH_D256_PAD`` keys
+FLASH_D256 = dict(B=4, H=8, S=1024, D=256)
+FLASH_D256_PAD = (512, 1024)
 
 
 def flash_case(torch, np, rng, dtype, masked, B=8, H=12, S=1024, D=64, pad_lengths=None):
@@ -1294,11 +1335,68 @@ def phase_flash(torch, np, F):
                     results[f"{n}_d32"]["timed"]["causal" if causal else "non-causal"] = rows[n]
     for n in names:  # the kernels line's row: the MLM demo's (non-causal)
         results[f"{n}_d32"]["rows"].append(results[f"{n}_d32"]["timed"]["non-causal"])
+    results.update(flash_d256(torch, np, F, fa, rng))
     results["padded"] = flash_padded(torch, np, F, fa, rng)
     torch.cuda.empty_cache()
     for n in names:  # comparison launches do not count
         getattr(fa, n).launches = before[n]
     return results
+
+
+def flash_d256(torch, np, F, fa, rng) -> dict:
+    """Phase 2c's D=256 part: the three kernels at ``FLASH_D256`` (bf16,
+    causal and not, no mask and a padded kv_mask) against their plain
+    versions with the gates and controls of ``check_flash``, timed with no
+    mask; ``flash_attention`` at D=192 zero-padded to 256 likewise
+    (``check_padded_flash``), timed causal; the f32 wrappers' refusal at
+    256 (their check kernels stop at 128)."""
+    shape = FLASH_D256
+    log(f"phase 2c, head_dim 256: B={shape['B']} H={shape['H']} S={shape['S']} D=256, bf16, "
+        f"causal and not, no mask and a padded kv_mask ({FLASH_D256_PAD[0]}-"
+        f"{FLASH_D256_PAD[1]} keys, the last row none); D=192 zero-padded to 256")
+    out = {f"{n}_d256": {"err": 0.0, "rows": [], "timed": {}} for n in FLASH_NAMES}
+    for causal in (True, False):
+        for masked in (False, "padded"):
+            c = flash_case(torch, np, rng, torch.bfloat16, masked, pad_lengths=FLASH_D256_PAD,
+                           **shape)
+            tag = (f"bfloat16 D=256 {'causal' if causal else 'non-causal'} "
+                   f"{'padded kv_mask' if masked else 'no mask'}")
+            errs = check_flash(torch, fa, c, causal, tag, "bfloat16")
+            for n in FLASH_NAMES:
+                out[f"{n}_d256"]["err"] = max(out[f"{n}_d256"]["err"], *errs[n])
+            if not masked:
+                rows = time_flash(torch, np, F, fa, rng, c, causal, "bfloat16", shape)
+                for n in FLASH_NAMES:
+                    out[f"{n}_d256"]["timed"]["causal" if causal else "non-causal"] = rows[n]
+            del c
+    for n in FLASH_NAMES:  # the kernels line's row: causal (a decoder's)
+        out[f"{n}_d256"]["rows"].append(out[f"{n}_d256"]["timed"]["causal"])
+    shape192 = dict(shape, D=192)
+    out["padded192"] = {"err": {n: 0.0 for n in FLASH_NAMES}, "timed": {}}
+    for causal in (True, False):
+        for masked in (False, "padded"):
+            c = flash_case(torch, np, rng, torch.bfloat16, masked, pad_lengths=FLASH_D256_PAD,
+                           **shape192)
+            tag = (f"bfloat16 D=192 {'causal' if causal else 'non-causal'} "
+                   f"{'padded kv_mask' if masked else 'no mask'}")
+            errs = check_padded_flash(torch, fa, c, causal, tag, "bfloat16")
+            for n in FLASH_NAMES:
+                out["padded192"]["err"][n] = max(out["padded192"]["err"][n], *errs[n])
+            if causal and not masked:
+                out["padded192"]["timed"]["D=192 causal"] = time_padded_flash(
+                    torch, np, F, fa, rng, c, causal, "bfloat16", shape192)
+            del c
+    q = torch.zeros(1, 2, 64, 256, device=DEVICE)
+    try:
+        fa.flash_fwd(q, q, q)
+    except ValueError as e:
+        if "head_dim 256 in f32" not in str(e):
+            raise
+        log(f"  f32 at D=256 refused: {e}")
+    else:
+        raise SmokeFailure("flash: the f32 forward took head_dim 256")
+    torch.cuda.empty_cache()
+    return out
 
 
 def check_padded_flash(torch, fa, c, causal, tag, dn) -> dict:
@@ -1309,6 +1407,8 @@ def check_padded_flash(torch, fa, c, causal, tag, dn) -> dict:
     out, dk and dq x 1.01 controls; each wrapper must count one launch at
     the padded head dim and one for the caller's. Returns the max abs
     errors."""
+    import torch.nn.functional as F
+
     D = c["q"].shape[-1]
     Dp = fa.padded_head_dim(D)
     wrappers = [getattr(fa, n) for n in FLASH_NAMES]
@@ -1316,6 +1416,7 @@ def check_padded_flash(torch, fa, c, causal, tag, dn) -> dict:
     leaves = [c[n].detach().requires_grad_() for n in ("q", "k", "v")]
     out = fa.flash_attention(*leaves, causal=causal, kv_mask=c["mask"])
     dq, dk, dv = torch.autograd.grad(out, leaves, c["dout"])
+    out = out.detach()
     torch.cuda.synchronize()
     counted = [(w.launches_by_d.get(Dp, 0) - b[0], w.launches_by_asked_d.get(D, 0) - b[1])
                for w, b in zip(wrappers, before)]
@@ -1323,8 +1424,14 @@ def check_padded_flash(torch, fa, c, causal, tag, dn) -> dict:
         raise SmokeFailure(f"flash {tag}: launches at D={Dp} / asked D={D}: {counted}, want "
                            f"one each of every kernel")
     args = (c["q"], c["k"], c["v"], c["mask"])
-    want_out, want_lse = fa.flash_attention_plain(*args, causal=causal)
-    want = fa.flash_attention_bwd_plain(*args, want_out, want_lse, c["dout"], causal=causal)
+    want_out, _ = fa.flash_attention_plain(*args, causal=causal)
+    # the backward's plain version on the forward kernel's out and LSE (as
+    # check_flash's), so the backward gate reads the backward kernels alone:
+    # at D=192 and S=1024 the bf16 outs of the two forwards differ by 1.5e-3
+    # relative L2, which moves dq and dk through rowsum(dO * O) by as much
+    _, lse = fa.flash_fwd(*(F.pad(t, (0, Dp - D)) for t in args[:3]), c["mask"],
+                          causal=causal, sm_scale=D ** -0.5)
+    want = fa.flash_attention_bwd_plain(*args, out.detach(), lse, c["dout"], causal=causal)
     tol = TOL[f"flash/{dn}"]
     errs = {"flash_fwd": [check_close(torch, f"flash_fwd/out {tag}", out, want_out, tol)],
             "flash_bwd_dkv": [check_close(torch, f"flash_bwd_dkv/dk {tag}", dk, want[1], tol),
@@ -4934,6 +5041,237 @@ def check_spills(report: str, kernels, head_dims=()) -> None:
         raise SmokeFailure(f"ptxas reported no instantiation at head dims {missing}")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: tensor and fully-sharded data parallelism
+# ---------------------------------------------------------------------------
+
+#: 14a: gpt_lm at gpt_small's full width, data=1 x model=2, two gloo ranks
+#: on this card; 14b: bert_pretrain at bert_base's, fsdp=2 x model=2, four
+#: ranks; 14c: a head dim of 256 through run_workload (gpt_lm at d_model
+#: 1024 over 4 heads)
+T14_GPT = dict(global_batch=8, steps=3, chunk=256, mesh={"model": 2})
+T14_BERT = dict(global_batch=32, steps=2, mesh={"fsdp": 2, "model": 2}, pad=(384, 512))
+T14_D256 = ["--model.num_layers=2", "--model.d_model=1024", "--model.num_heads=4",
+            "--model.d_ff=4096", "--data.global_batch_size=4", "--train.num_steps=2",
+            "--train.eval_batches=0", "--train.log_every=1", "--model.xent_chunk=256"]
+#: the LN+matmul backward of the fused passes (so dx and dw launch too)
+T14_ENV = {"DTF_FUSED_BWD": "pallas"}
+
+
+def tp_gates(np, tag, ranks, ref, ctl, init) -> dict:
+    """Phase 14's gates (``TOL["tp/bf16/*"]``): every rank bitwise alike
+    (the SHA-256 of every gathered leaf, and no drift of a replicated
+    parameter across the ranks after any step); the losses and each
+    parameter's update against one process on the global batches, with
+    their controls (the losses x 1.01; one process on the first half of
+    each batch). ``init``: the whole initial parameters by name."""
+    digests = [{k: str(v) for k, v in r.items() if k.startswith(f"{tag}/digest/")}
+               for r in ranks]
+    if any(d != digests[0] for d in digests[1:]) or not digests[0]:
+        raise SmokeFailure(f"14 {tag}: the ranks' gathered states differ")
+    if any(np.asarray(r[f"{tag}/drift"]).any() for r in ranks):
+        raise SmokeFailure(f"14 {tag}: a replicated parameter differs across the ranks")
+    got = {k[len(f"{tag}/whole/model/"):]: v for k, v in ranks[0].items()
+           if k.startswith(f"{tag}/whole/model/")}
+
+    def updates(state):
+        rels = sorted(((float(np.linalg.norm((state[k] - init[k]) - (v - init[k]))
+                              / max(float(np.linalg.norm(v - init[k])), 1e-30)), k)
+                       for k, v in ((k[len("whole/model/"):], v) for k, v in ref.items()
+                                    if k.startswith("whole/model/"))
+                       if not k.endswith("attn.key.bias")), reverse=True)
+        return rels[0], rels[len(rels) // 2][0]
+
+    losses = np.asarray(ranks[0][f"{tag}/losses"])
+    rel = lambda a: float(np.abs(a - ref["losses"]).max() / np.abs(ref["losses"]).max())  # noqa
+    loss, loss_ctl = rel(losses), rel(losses * 1.01)
+    (worst, worst_name), median = updates(got)
+    ctl_state = {k[len("whole/model/"):]: v for k, v in ctl.items()
+                 if k.startswith("whole/model/")}
+    _, median_ctl = updates(ctl_state)
+    lim = {k: TOL[f"tp/bf16/{k}"] for k in ("loss", "worst", "median")}
+    log(f"  14 {tag}: rank losses {[float(x) for x in losses]}, one process "
+        f"{[float(x) for x in ref['losses']]}; loss relative {loss:.3e} (control x 1.01: "
+        f"{loss_ctl:.3e}); updates relative L2 worst {worst:.3e} ({worst_name}), median "
+        f"{median:.3e} (control, half batch: {median_ctl:.3e}); limits {lim}; ranks bitwise "
+        f"alike over {len(digests[0])} gathered leaves")
+    if loss_ctl <= lim["loss"] or median_ctl <= lim["median"]:
+        raise SmokeFailure(f"14 {tag}: a control passes its gate")
+    bad = {k: v for k, v in (("loss", loss), ("worst", worst), ("median", median))
+           if not v <= lim[k]}
+    if bad:
+        raise SmokeFailure(f"14 {tag}: outside the limits: {bad}")
+    return {"loss": loss, "worst": worst, "median": median, "control_median": median_ctl}
+
+
+def tp_case(worker, torch, np, tag, cfg, mesh, batches, opt, world, out, smi, **extra):
+    """One phase-14 case: the ranks' ``tp`` job (``tests/torch_dp_worker.py``)
+    run to its end first, so that their step times are theirs alone, then
+    the one-process reference and the half-batch control on this card.
+    Returns (ranks, reference, control)."""
+    import dataclasses
+
+    case = dict(tag=tag, seed=0, cfg=dataclasses.asdict(cfg), mesh=mesh, optimizer=opt,
+                options={}, whole="params", env=T14_ENV, mlm=not cfg.causal, **extra)
+    inputs = os.path.join(out, f"{tag}.npz")
+    np.savez(inputs, **{f"{tag}/train{i}/{k}": v for i, b in enumerate(batches)
+                        for k, v in b.items()})
+    procs = worker.launch({"job": "tp", "device": DEVICE, "backend": "gloo", "out": out,
+                           "inputs": inputs, "cases": [case]}, world=world)
+    ranks = worker.wait(procs, out, timeout=900)
+    for r, rank in enumerate(ranks):
+        log(f"  14 {tag} rank {r}: step ms {[round(float(x), 2) for x in rank[tag + '/step_ms']]}"
+            f" (gloo, {world} ranks on one card: not tensor-parallel throughput; {smi}); "
+            f"launches over the steps " + ", ".join(
+                f"{k[len(tag) + 10:]} {int(v)}" for k, v in rank.items()
+                if k.startswith(f"{tag}/launches/")))
+    half = [{k: v[:len(v) // 2] for k, v in b.items()} for b in batches]
+    old = {k: os.environ.get(k) for k in T14_ENV}
+    os.environ.update(T14_ENV)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        one = dict(case, save=False)
+        ref = worker.tp_steps(one, None, batches, [], DEVICE)
+        ref.pop("model")
+        torch.cuda.empty_cache()
+        ctl = worker.tp_steps(one, None, half, [], DEVICE)
+        ctl.pop("model")
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return ranks, ref, ctl
+
+
+def phase_tp(torch, np, smi) -> dict:
+    """Phase 14: 14a gpt_lm (gpt_small, S=1024, B=8, bf16, flash, fused
+    LN+matmul with the pallas backward, the chunked loss at 256, adamw,
+    dropout 0, f32 head) at data=1 x model=2 in two gloo processes on this
+    card, 3 steps from the weights of one seed, against the same steps in
+    one process (``tp_gates``), the flash and LN+matmul kernels launched on
+    every rank at its local shapes (6 heads, 1152 q/k/v columns, 1536
+    mlp_in columns); 14b bert_pretrain (bert_base, S=512, B=32, the
+    gathered MLM head, a padded kv_mask, dropout 0.1) at fsdp=2 x model=2 in
+    four processes, 2 steps, against one process, then its step dir
+    (written gathered by the chief) restored in one process at model=1,
+    every leaf bitwise the ranks' gathered one (SHA-256); 14c the D=256
+    flash kernels' launches through ``run_workload`` (gpt_lm at d_model
+    1024 over 4 heads)."""
+    import dataclasses
+    import tempfile
+
+    from distributed_tensorflow_tpu_torch.data import text
+    from distributed_tensorflow_tpu_torch.models import transformer as tfm
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+    from distributed_tensorflow_tpu_torch.train import checkpoint as ck_lib
+    from distributed_tensorflow_tpu_torch.train import optimizers as topt
+    from distributed_tensorflow_tpu_torch.train import step as tstep
+
+    worker = load_dp_worker()
+    res = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        # 14a
+        g = T14_GPT
+        cfg = dataclasses.replace(tfm.gpt_small(), fused_ln_matmul=True, dropout=0.0,
+                                  xent_chunk=g["chunk"])
+        rng = np.random.default_rng(140)
+        batches = [{"input_ids": rng.integers(0, cfg.vocab_size, (g["global_batch"],
+                                                                 cfg.max_len)).astype(np.int32)}
+                   for _ in range(g["steps"])]
+        log(f"phase 14a: gpt_lm gpt_small B={g['global_batch']} S={cfg.max_len} bf16 at "
+            f"{g['mesh']}, fused LN+matmul (pallas backward), flash, xent_chunk {g['chunk']}")
+        ranks, ref, ctl = tp_case(worker, torch, np, "gpt", cfg, g["mesh"], batches,
+                                  dict(name="adamw", learning_rate=1e-4, weight_decay=0.1), 2,
+                                  out, smi, chunk=g["chunk"], save=False)
+        init = {k: v.float().cpu().numpy() for k, v in tfm.init_params(
+            cfg, seed=0, device=DEVICE, trainable=True).items()}
+        res["14a"] = tp_gates(np, "gpt", ranks, ref, ctl, init)
+        need = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "ln_matmul", "ln_matmul_bwd_dx",
+                "ln_matmul_bwd_dw")
+        launches = [{n: int(r[f"gpt/launches/{n}"]) for n in need} for r in ranks]
+        if any(v <= 0 for per in launches for v in per.values()):
+            raise SmokeFailure(f"14a: a kernel was not launched on a rank: {launches}")
+        res["14a"]["launches_per_step"] = {n: launches[0][n] / g["steps"] for n in need}
+        res["14a"]["step_ms"] = [[float(x) for x in r["gpt/step_ms"]] for r in ranks]
+        del init, ref, ctl, ranks
+        torch.cuda.empty_cache()
+        # 14b
+        b = T14_BERT
+        cfg = tfm.bert_base()
+        dcfg = text.TextDataConfig(dataset="synthetic_mlm", global_batch_size=b["global_batch"],
+                                   seq_len=cfg.max_len, vocab_size=cfg.vocab_size,
+                                   max_predictions=-1)
+        stream = text.make_text_dataset(dcfg, shard=(0, 1))
+        batches = []
+        for i in range(b["steps"]):
+            bt = dict(stream.batch(i))
+            lens = rng.integers(b["pad"][0], b["pad"][1] + 1, b["global_batch"])
+            bt["attention_mask"] = (np.arange(cfg.max_len)[None] < lens[:, None]).astype(np.int32)
+            batches.append(bt)
+        log(f"phase 14b: bert_pretrain bert_base B={b['global_batch']} S={cfg.max_len} bf16, "
+            f"gathered MLM head (K={batches[0]['masked_positions'].shape[1]}), padded kv_mask "
+            f"({b['pad'][0]}-{b['pad'][1]} keys), dropout {cfg.dropout}, at {b['mesh']}")
+        opt = dict(name="adamw", learning_rate=1e-4, weight_decay=0.01)
+        ranks, ref, ctl = tp_case(worker, torch, np, "bert", cfg, b["mesh"], batches, opt, 4,
+                                  out, smi)
+        init = {k: v.float().cpu().numpy() for k, v in tfm.init_params(
+            cfg, seed=0, device=DEVICE, trainable=True).items()}
+        res["14b"] = tp_gates(np, "bert", ranks, ref, ctl, init)
+        res["14b"]["step_ms"] = [[float(x) for x in r["bert/step_ms"]] for r in ranks]
+        del init, ref, ctl
+        if not all(bool(r["bert/restored_equal"]) for r in ranks):
+            raise SmokeFailure("14b: a rank's restore at the mesh differs from its saved state")
+        model = tfm.build(cfg, tfm.init_params(cfg, seed=0, device=DEVICE, trainable=True),
+                          DEVICE, trainable=True)
+        state = tstep.init_train_state(model, topt.make_optimizer(topt.OptimizerConfig(**opt),
+                                                                  model.parameters()))
+        ck = ck_lib.Checkpointer(ck_lib.CheckpointConfig(directory=os.path.join(out, "ck_bert"),
+                                                         async_save=False))
+        try:
+            ck.restore(state)
+        finally:
+            ck.close()
+        import hashlib
+
+        mine = {k: hashlib.sha256(v.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
+                for k, v in tstep.state_leaves(state)}
+        theirs = {k[len("bert/digest/"):]: str(v) for k, v in ranks[0].items()
+                  if k.startswith("bert/digest/")}
+        if mine != theirs or state.step != b["steps"]:
+            diff = sorted(k for k in theirs if mine.get(k) != theirs[k])[:5]
+            raise SmokeFailure(f"14b: the one-process restore at model=1 differs from the "
+                               f"ranks' gathered state: {diff}")
+        log(f"  14b: step dir of step {state.step} restored in one process at model=1: "
+            f"{len(mine)} leaves bitwise the ranks' gathered ones; at the mesh: every rank "
+            f"bitwise its saved shards")
+        res["14b"]["restore"] = len(mine)
+        del model, state, ranks
+        torch.cuda.empty_cache()
+    # 14c
+    from distributed_tensorflow_tpu_torch.workloads import run_workload
+
+    for n in FLASH_NAMES:
+        getattr(fa, n).launches_by_d.clear()
+    out = run_workload("gpt_lm", T14_D256, device=DEVICE)
+    res["14c"] = {n: getattr(fa, n).launches_by_d.get(256, 0) for n in FLASH_NAMES}
+    res["14c_losses"] = [float(h["loss"]) for h in out.history]
+    if not all(res["14c"].values()) or not np.isfinite(res["14c_losses"]).all():
+        raise SmokeFailure(f"14c: head_dim 256 launches {res['14c']}, losses "
+                           f"{res['14c_losses']}")
+    log(f"  14c: gpt_lm at head_dim 256 (d_model 1024, 4 heads, 2 layers, B=4, S=1024): "
+        f"losses {res['14c_losses']}, D=256 launches {res['14c']}")
+    del out
+    torch.cuda.empty_cache()
+    res["wall_s"] = time.perf_counter() - t0
+    return res
+
+
 def timed(walls: dict, name: str, phase, *args):
     """``phase(*args)``, its wall seconds kept in ``walls[name]``."""
     t0 = time.perf_counter()
@@ -5014,6 +5352,8 @@ def main() -> int:
         small = timed(walls, "12", phase_small, torch, np, smi)
         launches.update({f"{n}_d32": c for n, c in small["flash_d32_launches"].items()})
         t13 = timed(walls, "13", phase_transformer, torch, np, smi)
+        tp = timed(walls, "14", phase_tp, torch, np, smi)
+        launches.update({f"{n}_d256": c for n, c in tp["14c"].items()})
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -5035,7 +5375,8 @@ def main() -> int:
            f"distributed_tensorflow_tpu/ops/flash_attention.py:{line}", kern[name]["rows"][0])
           for name, line in (("flash_fwd", 75), ("flash_bwd_dkv", 205), ("flash_bwd_dq", 241),
                              ("flash_fwd_d32", 75), ("flash_bwd_dkv_d32", 205),
-                             ("flash_bwd_dq_d32", 241))),
+                             ("flash_bwd_dq_d32", 241), ("flash_fwd_d256", 75),
+                             ("flash_bwd_dkv_d256", 205), ("flash_bwd_dq_d256", 241))),
         *((name, "distributed_tensorflow_tpu_torch/ops/csrc/fused_conv_bn.cu",
            f"distributed_tensorflow_tpu/ops/fused_conv_bn.py:{line}", kern[name]["rows"][0])
           for name, line in (("conv_bn_fwd", 60), ("conv_bn_bwd_dx", 121), ("conv_bn_bwd_dw", 201),
@@ -5191,6 +5532,24 @@ def main() -> int:
         + f"; 13d dp2 on one card {t13['13d']}; 13e {t13['13e']}; 13f bench_bert_torch: "
         + "; ".join(f"{k} {v['value']} tokens/s/card, step {v['step_ms']} ms, MFU {v['mfu']}, "
                     f"peak {v['peak_memory_gib']} GiB" for k, v in t13["13f"].items()))
+    log(f"flash at head_dim 256 (phase 2c; {smi}; B={FLASH_D256['B']} H={FLASH_D256['H']} "
+        f"S={FLASH_D256['S']}, bf16; kernel / bound / plain / SDPA ms): " + "; ".join(
+            f"{n} {case} {r['ms']:.5f} / {r['bound_ms']:.5f} ({r['bound_by']}) / "
+            f"{r['plain_ms']:.5f} / "
+            + (f"{r['library_ms']:.5f} ({r['sdpa_backend']})" if r["library_ms"] is not None
+               else "null")
+            for n in FLASH_NAMES for case, r in kern[f"{n}_d256"]["timed"].items())
+        + f"; D=192 padded to 256, causal: " + "; ".join(
+            f"{n} {r['ms']:.5f} [{r['call_ms']:.5f}] / {r['bound_ms']:.5f} / {r['plain_ms']:.5f}"
+            for case, rows in kern["padded192"]["timed"].items() for n, r in rows.items())
+        + f"; max abs errors D=256 {[kern[n + '_d256']['err'] for n in FLASH_NAMES]}, D=192 "
+        f"{kern['padded192']['err']}; D=256 launches (14c's run_workload) {tp['14c']}")
+    log(f"tensor and fully-sharded data parallelism (phase 14, {walls['14']:.1f} s; {smi}): "
+        f"14a gpt_lm gpt_small data=1 x model=2 (2 gloo ranks on one card) vs one process "
+        f"{ {k: v for k, v in tp['14a'].items() if k != 'step_ms'} }, rank step ms "
+        f"{tp['14a']['step_ms']}; 14b bert_pretrain bert_base fsdp=2 x model=2 (4 gloo ranks on "
+        f"one card) vs one process {tp['14b']}; step ms are gloo-on-one-card numbers, not "
+        f"tensor-parallel throughput")
     log(f"cuda_ms traces kept {PAD_RECORDS[0]} of the {PAD_RECORDS[1]} spin-kernel records "
         f"that opened them; {BLANK_TRACES[0]} blank traces retaken")
     log("phase walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))

@@ -6,7 +6,9 @@ corpora and the token-file readers.
 the port's ``data/pipeline.py``), numpy only. A batch is bit-identical to
 the JAX package's for the same ``(seed, index)``: the process index and
 count are ``parallel.cluster``'s (the JAX package reads them from
-``jax.process_index/count``).
+``jax.process_index/count``). A stream given ``shard=(index, count)``
+takes that data shard's rows instead (every ``model`` rank of one data
+shard reads the same rows; at ``model=1`` the shard is the process).
 """
 
 from __future__ import annotations
@@ -93,11 +95,12 @@ class SyntheticMLM:
     about 1."""
 
     def __init__(self, cfg: TextDataConfig, num_batches: int | None = None,
-                 index_offset: int = 0):
+                 index_offset: int = 0, shard: tuple[int, int] | None = None):
         self.cfg = cfg
         self.num_batches = num_batches
         self.index_offset = index_offset
-        self.local_bs = local_batch_size(cfg.global_batch_size)
+        self.shard = shard
+        self.local_bs = local_batch_size(cfg.global_batch_size, shard and shard[1])
         rng = np.random.RandomState(cfg.seed)
         self.perm = rng.permutation(cfg.vocab_size)
 
@@ -112,7 +115,7 @@ class SyntheticMLM:
 
     def batch(self, index: int) -> dict[str, np.ndarray]:
         index += self.index_offset
-        rng = batch_rng(self.cfg.seed, index)
+        rng = batch_rng(self.cfg.seed, index, self.shard and self.shard[0])
         return mlm_mask_batch(self._tokens(rng), self.cfg, rng)
 
     def __iter__(self) -> Iterator[dict[str, np.ndarray]]:
@@ -128,19 +131,21 @@ class SyntheticLM:
     next-token accuracy converges toward 1-noise."""
 
     def __init__(self, cfg: TextDataConfig, num_batches: int | None = None,
-                 index_offset: int = 0, noise: float = 0.05):
+                 index_offset: int = 0, noise: float = 0.05,
+                 shard: tuple[int, int] | None = None):
         self.cfg = cfg
         self.num_batches = num_batches
         self.index_offset = index_offset
         self.noise = noise
-        self.local_bs = local_batch_size(cfg.global_batch_size)
+        self.shard = shard
+        self.local_bs = local_batch_size(cfg.global_batch_size, shard and shard[1])
         rng = np.random.RandomState(cfg.seed)
         self.perm = rng.permutation(cfg.vocab_size)
 
     def batch(self, index: int) -> dict[str, np.ndarray]:
         cfg = self.cfg
         index += self.index_offset
-        rng = batch_rng(cfg.seed, index)
+        rng = batch_rng(cfg.seed, index, self.shard and self.shard[0])
         seq = np.empty((self.local_bs, cfg.seq_len), np.int64)
         seq[:, 0] = rng.randint(0, cfg.vocab_size, self.local_bs)
         for i in range(1, cfg.seq_len):
@@ -164,19 +169,21 @@ class TokenFileLM:
     windows; index_offset resumes the stream."""
 
     def __init__(self, path: str, cfg: TextDataConfig,
-                 num_batches: int | None = None, index_offset: int = 0):
+                 num_batches: int | None = None, index_offset: int = 0,
+                 shard: tuple[int, int] | None = None):
         self.tokens = np.load(path, mmap_mode="r")
         self.cfg = cfg
         self.num_batches = num_batches
         self.index_offset = index_offset
-        self.local_bs = local_batch_size(cfg.global_batch_size)
+        self.shard = shard
+        self.local_bs = local_batch_size(cfg.global_batch_size, shard and shard[1])
 
     def _windows(self, index: int) -> np.ndarray:
         """[local_bs, seq_len] token windows for global batch ``index``:
         every process draws the same global start list (seed+index, no
         process fold) and takes its disjoint stride slice."""
         cfg = self.cfg
-        rank, world = process_index(), process_count()
+        rank, world = self.shard or (process_index(), process_count())
         rng = np.random.RandomState((cfg.seed + index) & 0x7FFFFFFF)
         n_windows = (len(self.tokens) - 1) // cfg.seq_len
         starts = rng.randint(0, n_windows, self.local_bs * world)
@@ -203,18 +210,20 @@ class TokenFileMLM(TokenFileLM):
         index += self.index_offset
         tokens = self._windows(index).astype(np.int64)
         return mlm_mask_batch(tokens, self.cfg,
-                              batch_rng(self.cfg.seed, index))
+                              batch_rng(self.cfg.seed, index, self.shard and self.shard[0]))
 
 
 def make_text_dataset(cfg: TextDataConfig, num_batches: int | None = None,
-                      index_offset: int = 0):
+                      index_offset: int = 0, shard: tuple[int, int] | None = None):
+    """The stream of ``cfg.dataset``; ``shard``: ``(index, count)`` of
+    this rank's data shard (default: the process's)."""
     if cfg.dataset == "synthetic_mlm":
-        return SyntheticMLM(cfg, num_batches, index_offset)
+        return SyntheticMLM(cfg, num_batches, index_offset, shard=shard)
     if cfg.dataset == "synthetic_lm":
-        return SyntheticLM(cfg, num_batches, index_offset)
+        return SyntheticLM(cfg, num_batches, index_offset, shard=shard)
     if cfg.dataset.startswith("tokens:"):
-        return TokenFileLM(cfg.dataset[7:], cfg, num_batches, index_offset)
+        return TokenFileLM(cfg.dataset[7:], cfg, num_batches, index_offset, shard=shard)
     if cfg.dataset.startswith("tokens_mlm:"):
         return TokenFileMLM(cfg.dataset[11:], cfg, num_batches,
-                            index_offset)
+                            index_offset, shard=shard)
     raise ValueError(f"Unknown text dataset '{cfg.dataset}'")

@@ -55,9 +55,34 @@ and replayed in the recompute (``_remat_block``): the recompute draws the
 same masks, and the caller's generator is left where a forward without
 remat leaves it. ``fused_qkv=True`` projects q/k/v with one ``qkv`` Dense
 ``[3·H·D, d]`` whose rows are HEAD-major (``[H, 3, D]``), as the JAX
-model's; refused with ``fused_ln_matmul``. MoE, TP, sequence parallelism
-and pipelining come in later slices; a config that asks for one of them
-is refused.
+model's; refused with ``fused_ln_matmul``. MoE, sequence parallelism and
+pipelining come in later slices; a config that asks for one of them is
+refused.
+
+**Tensor and fully-sharded data parallelism** (``mesh=``, ``specs=``): the
+layout GSPMD gives the JAX model under ``transformer_rules`` written out
+(``TRANSFORMER_RULES`` is the JAX table, its regexes read through
+``jax_view``). Over ``model`` (n ranks): q, k, v (or the head-major
+``qkv``, whose contiguous shard is whole heads) and ``mlp_in`` are
+column-parallel, ``attn_out`` and ``mlp_out`` row-parallel — each rank's
+partial product summed by ``reduce_from_model``, the bias added once
+after the sum; attention runs on the rank's H/n heads; ``copy_to_model``
+opens each parallel region on the replicated stream (the q/k/v and
+``mlp_in`` inputs, and the tied head's), so the stream's gradient is
+summed over ``model``. In the fused LN+matmul path the raw stream and
+the LayerNorm's γ and β enter through ``copy_to_model``: the kernel's
+backward gives this rank's columns' share of dx, dγ and dβ, which the
+copy sums. The token table and ``mlm_bias`` are range-sharded over the
+vocabulary (padded as ``ops/embedding.shard_vocab`` pads): the lookup is
+``range_sharded_lookup``, the head gives this rank's vocab columns, and
+the losses and statistics are vocab-parallel (``VocabShard``: the row max
+all-reduced by MAX, the sum of exponentials and the target logit by a
+sum, the arg-max by value then the lowest global index; padded columns
+masked to -inf). Over ``fsdp``: a parameter that ``auto_fsdp_specs``
+shards (gpt_small's ``pos_embed``, BERT's and its ``mlm_transform``
+kernel) is all-gathered at each use by ``gather_fsdp``, whose backward
+reduce-scatters its gradient. ``model=1`` and ``fsdp=1`` run the code
+path of one process.
 """
 
 from __future__ import annotations
@@ -71,7 +96,18 @@ from torch.utils.checkpoint import checkpoint
 
 from ..data.text import IGNORE_INDEX
 from ..ops.attention import attention, paged_append_kv, paged_attention
+from ..ops.embedding import range_sharded_lookup
 from ..ops.fused_ln_matmul import ln_matmul
+from ..parallel import sharding as sh
+from ..parallel.collectives import (
+    all_reduce_max,
+    all_reduce_min,
+    axis_index,
+    copy_to_model,
+    gather_fsdp,
+    sum_over_axis,
+)
+from ..parallel.mesh import EXPERT, FSDP, MODEL, Mesh
 from ..parallel.sharding import RowGenerator, rand_rows
 from ..utils import flops as flops_lib
 from ..utils.device import resolve_device
@@ -140,6 +176,84 @@ def gpt_small(causal_len: int = 1024) -> TransformerConfig:
     )
 
 
+#: The JAX package's static path fixture of ``TRANSFORMER_RULES``: the
+#: union of the BERT encoder, the fused-QKV causal decoder and the MoE
+#: interleave at num_layers=2 (``jax_view`` paths)
+_TRANSFORMER_COVERAGE = (
+    "embed_ln/bias", "embed_ln/scale", "final_ln/bias", "final_ln/scale",
+    "layer_0/attn/attn_out/bias", "layer_0/attn/attn_out/kernel",
+    "layer_0/attn/key/bias", "layer_0/attn/key/kernel",
+    "layer_0/attn/qkv/bias", "layer_0/attn/qkv/kernel",
+    "layer_0/attn/query/bias", "layer_0/attn/query/kernel",
+    "layer_0/attn/value/bias", "layer_0/attn/value/kernel",
+    "layer_0/ln1/bias", "layer_0/ln1/scale", "layer_0/ln2/bias",
+    "layer_0/ln2/scale", "layer_0/mlp_in/bias", "layer_0/mlp_in/kernel",
+    "layer_0/mlp_out/bias", "layer_0/mlp_out/kernel",
+    "layer_1/attn/attn_out/bias", "layer_1/attn/attn_out/kernel",
+    "layer_1/attn/key/bias", "layer_1/attn/key/kernel",
+    "layer_1/attn/qkv/bias", "layer_1/attn/qkv/kernel",
+    "layer_1/attn/query/bias", "layer_1/attn/query/kernel",
+    "layer_1/attn/value/bias", "layer_1/attn/value/kernel",
+    "layer_1/ln1/bias", "layer_1/ln1/scale", "layer_1/ln2/bias",
+    "layer_1/ln2/scale", "layer_1/mlp_in/bias", "layer_1/mlp_in/kernel",
+    "layer_1/mlp_out/bias", "layer_1/mlp_out/kernel", "layer_1/moe/b_in",
+    "layer_1/moe/b_out", "layer_1/moe/router/bias",
+    "layer_1/moe/router/kernel", "layer_1/moe/w_in", "layer_1/moe/w_out",
+    "mlm_bias", "mlm_ln/bias", "mlm_ln/scale", "mlm_transform/bias",
+    "mlm_transform/kernel", "pos_embed", "tok_embed/embedding",
+)
+
+#: The JAX package's Transformer partition-rules table, row for row (specs
+#: in the flax layout: a Dense kernel is [in, out]): column-parallel in
+#: (output dim over ``model``), row-parallel out (input dim over
+#: ``model``), the vocabulary over ``model``; variant rows tagged. The MoE
+#: rows stay in the table and are never selected (``num_experts`` is
+#: refused, ROADMAP item 6).
+TRANSFORMER_RULES = sh.partition_rules(
+    "transformer",
+    (
+        (r"(^|/)w_in$", (EXPERT, None, MODEL), "moe"),
+        (r"(^|/)b_in$", (EXPERT, MODEL), "moe"),
+        (r"(^|/)w_out$", (EXPERT, MODEL, None), "moe"),
+        (r"(^|/)b_out$", (EXPERT, None), "moe"),
+        (r"(query|key|value)/kernel", (None, MODEL), "split_qkv"),
+        (r"(query|key|value)/bias", (MODEL,), "split_qkv"),
+        (r"qkv/kernel", (None, MODEL), "fused_qkv"),
+        (r"qkv/bias", (MODEL,), "fused_qkv"),
+        (r"attn_out/kernel", (MODEL, None)),
+        (r"mlp_in/kernel", (None, MODEL), "dense_mlp"),
+        (r"mlp_in/bias", (MODEL,), "dense_mlp"),
+        (r"mlp_out/kernel", (MODEL, None), "dense_mlp"),
+        (r"tok_embed/embedding", (MODEL, None)),  # vocab-sharded
+        (r"mlm_bias", (MODEL,)),
+        (sh.CATCH_ALL, sh.REPLICATED),
+    ),
+    coverage=_TRANSFORMER_COVERAGE,
+)
+
+
+def transformer_rules(cfg: "TransformerConfig") -> sh.PartitionRules:
+    """The exact table for ``cfg``'s parameter tree (split or fused QKV,
+    the dense MLP), so that the strict match holds."""
+    check_supported(cfg)  # num_experts: the MoE rows wait for item 6
+    return TRANSFORMER_RULES.select("fused_qkv" if cfg.fused_qkv else "split_qkv",
+                                    "dense_mlp")
+
+
+def tp_rules():
+    """The soft form of ``TRANSFORMER_RULES``: every row as ``(pattern,
+    spec)``."""
+    return TRANSFORMER_RULES.as_path_rules()
+
+
+def transformer_specs(cfg: "TransformerConfig", mesh: Mesh) -> dict[str, sh.Spec]:
+    """Each parameter of ``Transformer(cfg)`` to its spec in the port's
+    layout on ``mesh``: the rules, then ``auto_fsdp_specs`` merged, as the
+    JAX workloads' ``init_train_state`` computes them (``fsdp=True``)."""
+    return sh.param_specs(Transformer(cfg, device="meta", trainable=True),
+                          transformer_rules(cfg), mesh)
+
+
 def torch_dtype(name: str) -> torch.dtype:
     """``"bfloat16"`` -> ``torch.bfloat16`` (config dtypes are strings,
     as in the JAX config)."""
@@ -169,6 +283,14 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
     return torch.where(keep, x / (1.0 - rate), x.new_zeros(()))
 
 
+def _full(module: nn.Module, name: str) -> torch.Tensor:
+    """``module``'s parameter ``name``, all-gathered over ``fsdp`` when it
+    is an ``fsdp`` shard (``Transformer._shard``)."""
+    t = getattr(module, name)
+    dims = getattr(module, "fsdp_dims", None)
+    return t if not dims or name not in dims else gather_fsdp(t, dims[name], module.fsdp_mesh)
+
+
 class LayerNorm(nn.Module):
     """flax ``nn.LayerNorm(dtype=float32)``: f32 statistics with the fast
     variance, ``(x - mean) * (rsqrt(var + eps) * scale) + bias``."""
@@ -182,7 +304,8 @@ class LayerNorm(nn.Module):
         x = x.float()
         mean = x.mean(-1, keepdim=True)
         var = ((x * x).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
-        return (x - mean) * (torch.rsqrt(var + LN_EPS) * self.weight) + self.bias
+        return (x - mean) * (torch.rsqrt(var + LN_EPS) * _full(self, "weight")) \
+            + _full(self, "bias")
 
 
 class Dense(nn.Module):
@@ -198,23 +321,39 @@ class Dense(nn.Module):
         self.weight = _param(out_features, in_features, dtype=param_dtype or dtype,
                              device=device)
         self.bias = _param(out_features, device=device)
+        # a row-parallel Dense's mesh: the partial products summed over
+        # model, then the bias added once (module docstring)
+        self.row_parallel = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight.to(self.dtype), self.bias.to(self.dtype))
+        w, b = _full(self, "weight").to(self.dtype), _full(self, "bias").to(self.dtype)
+        if self.row_parallel is None:
+            return F.linear(x, w, b)
+        return sum_over_axis(F.linear(x, w), MODEL, self.row_parallel) + b
 
 
-def _ln_dense(x2: torch.Tensor, ln: "LayerNorm", dense: Dense, dt) -> torch.Tensor:
+def _ln_dense(x2: torch.Tensor, ln: tuple, dense: Dense, dt) -> torch.Tensor:
     """``dense(ln(x2))`` through the fused LN+matmul op: x2 [M, d] is the raw
-    residual stream; the weight is cast to the compute dtype at use (a no-op
-    for serving weights) and passed as its ``[in, out]`` view."""
-    return ln_matmul(x2, ln.weight, ln.bias, dense.weight.to(dt).t(), dense.bias,
+    residual stream, ``ln`` the LayerNorm's ``(gamma, beta)``; the weight is
+    cast to the compute dtype at use (a no-op for serving weights) and
+    passed as its ``[in, out]`` view."""
+    return ln_matmul(x2, *ln, _full(dense, "weight").to(dt).t(), _full(dense, "bias"),
                      eps=LN_EPS, out_dtype=dt)
+
+
+def _enter(x2: torch.Tensor, ln: LayerNorm, mesh) -> tuple[torch.Tensor, tuple]:
+    """The raw stream and the LayerNorm's ``(gamma, beta)`` entering the
+    fused LN+matmul's parallel region (module docstring)."""
+    return copy_to_model(x2, mesh), tuple(copy_to_model(_full(ln, n), mesh)
+                                          for n in ("weight", "bias"))
 
 
 class SelfAttention(nn.Module):
     def __init__(self, cfg: TransformerConfig, device=None, param_dtype=None):
         super().__init__()
         self.cfg = cfg
+        # this rank's heads and the mesh of its parallel region
+        self.heads, self.mesh = cfg.num_heads, None
         dt, d = torch_dtype(cfg.dtype), cfg.d_model
         if cfg.fused_qkv:
             # rows head-major, [H, 3, D]: each head's q, k, v side by side
@@ -233,18 +372,21 @@ class SelfAttention(nn.Module):
         dim)."""
         cfg = self.cfg
         B, S, d = x.shape
-        H, D = cfg.num_heads, cfg.head_dim
-        if cfg.fused_qkv:
-            qkv = self.qkv(x).reshape(B, S, H, 3, D)
-            return tuple(qkv[..., i, :].transpose(1, 2).contiguous() for i in range(3))
+        H, D = self.heads, cfg.head_dim
         if ln is not None:
-            x2 = x.reshape(B * S, d)
+            x2, gb = _enter(x.reshape(B * S, d), ln, self.mesh)
 
             def proj(dense):
-                return _ln_dense(x2, ln, dense, x.dtype)
+                return _ln_dense(x2, gb, dense, x.dtype)
         else:
+            x = copy_to_model(x, self.mesh)
+
             def proj(dense):
                 return dense(x)
+
+        if cfg.fused_qkv:
+            qkv = proj(self.qkv).reshape(B, S, H, 3, D)
+            return tuple(qkv[..., i, :].transpose(1, 2).contiguous() for i in range(3))
 
         # [B,S,H*D] -> [B,H,S,D] (the ops layout)
         return tuple(proj(p).reshape(B, S, H, D).transpose(1, 2)
@@ -282,6 +424,7 @@ class Block(nn.Module):
     def __init__(self, cfg: TransformerConfig, device=None, param_dtype=None):
         super().__init__()
         self.cfg = cfg
+        self.mesh = None  # the mesh of the MLP's parallel region
         dt = torch_dtype(cfg.dtype)
         self.ln1 = LayerNorm(cfg.d_model, device)
         self.attn = SelfAttention(cfg, device, param_dtype)
@@ -294,35 +437,41 @@ class Block(nn.Module):
         h = self.mlp_out(F.gelu(h, approximate="tanh"))
         return dropout(h, self.cfg.dropout, train, generator)
 
+    def _mlp_in(self, x):
+        """``mlp_in`` of the (normalised) stream, entering the MLP's
+        parallel region."""
+        return self.mlp_in(copy_to_model(x, self.mesh))
+
     def forward(self, x, k_pool, v_pool, block_table, pos):
         """Paged decode (see ``SelfAttention.forward``)."""
         dt = x.dtype
         if not self.cfg.pre_ln:
             x = self.ln1(x + self.attn(x, k_pool, v_pool, block_table, pos)).to(dt)
-            return self.ln2(x + self._mlp_tail(self.mlp_in(x))).to(dt)
+            return self.ln2(x + self._mlp_tail(self._mlp_in(x))).to(dt)
         if self.cfg.fused_ln_matmul:
             x = x + self.attn(x, k_pool, v_pool, block_table, pos, ln=self.ln1)
             return x + self._mlp_tail(self._fused_mlp_in(x))
         x = x + self.attn(self.ln1(x).to(dt), k_pool, v_pool, block_table, pos)
-        return x + self._mlp_tail(self.mlp_in(self.ln2(x).to(dt)))
+        return x + self._mlp_tail(self._mlp_in(self.ln2(x).to(dt)))
 
     def _fused_mlp_in(self, x):
         B, S, d = x.shape
-        return _ln_dense(x.reshape(B * S, d), self.ln2, self.mlp_in, x.dtype).reshape(B, S, -1)
+        x2, gb = _enter(x.reshape(B * S, d), self.ln2, self.mesh)
+        return _ln_dense(x2, gb, self.mlp_in, x.dtype).reshape(B, S, -1)
 
     def forward_uncached(self, x, mask, *, train: bool, generator=None):
         dt = x.dtype
         if not self.cfg.pre_ln:  # post-LN (BERT): the residual add in cfg.dtype
             x = self.ln1(x + self.attn.forward_uncached(
                 x, mask, train=train, generator=generator)).to(dt)
-            return self.ln2(x + self._mlp_tail(self.mlp_in(x), train, generator)).to(dt)
+            return self.ln2(x + self._mlp_tail(self._mlp_in(x), train, generator)).to(dt)
         if self.cfg.fused_ln_matmul:
             x = x + self.attn.forward_uncached(x, mask, train=train, generator=generator,
                                                ln=self.ln1)
             return x + self._mlp_tail(self._fused_mlp_in(x), train, generator)
         x = x + self.attn.forward_uncached(self.ln1(x).to(dt), mask, train=train,
                                            generator=generator)
-        return x + self._mlp_tail(self.mlp_in(self.ln2(x).to(dt)), train, generator)
+        return x + self._mlp_tail(self._mlp_in(self.ln2(x).to(dt)), train, generator)
 
 
 def check_supported(cfg: TransformerConfig) -> None:
@@ -363,12 +512,17 @@ class Transformer(nn.Module):
     ``[L, NB+1, H, bs, D]``).
 
     ``trainable=True`` stores Dense weights as f32 masters (see module
-    docstring)."""
+    docstring). ``mesh`` and ``specs`` (``transformer_specs``): this rank's
+    shards of the parameters, the tensor- and fully-sharded-parallel
+    forward (module docstring); the logits are then this rank's vocab
+    columns (``vocab_shard``)."""
 
-    def __init__(self, cfg: TransformerConfig, device=None, trainable: bool = False):
+    def __init__(self, cfg: TransformerConfig, device=None, trainable: bool = False,
+                 mesh: Mesh | None = None, specs: dict | None = None):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
+        self.mesh, self.specs = mesh, dict(specs or {})
         pdt = torch.float32 if trainable else None
         self.tok_embed = nn.Embedding(cfg.vocab_size, cfg.d_model, device=device,
                                       dtype=torch.float32)
@@ -384,6 +538,85 @@ class Transformer(nn.Module):
                                        device, pdt)
             self.mlm_ln = LayerNorm(cfg.d_model, device)
         self.mlm_bias = _param(cfg.vocab_size, device=device)
+        #: the whole (unsharded) shape of every parameter
+        self.global_shapes = {n: tuple(p.shape) for n, p in self.named_parameters()}
+        if any(self.specs.values()):
+            self._shard(mesh)
+
+    def _shard(self, mesh: Mesh) -> None:
+        """Each parameter with a sharding spec replaced by this rank's
+        (empty) shard; the row-parallel Denses, the attention's heads and
+        the parallel regions told the mesh; ``fsdp`` shards noted for
+        ``_full``."""
+        cfg, n = self.cfg, mesh.shape[MODEL]
+        for what, size in (("num_heads", cfg.num_heads), ("d_ff", cfg.d_ff)):
+            if size % n:
+                raise ValueError(f"model.{what}={size} does not divide over mesh.model={n}")
+        for name, p in list(self.named_parameters()):
+            spec = sh.check_spec(self.specs.get(name, sh.REPLICATED), name)
+            owner, leaf = self._owner(name)
+            shape = sh.local_shape(p.shape, spec, mesh)
+            if shape != tuple(p.shape):
+                setattr(owner, leaf, _param(*shape, dtype=p.dtype, device=p.device))
+            for d, a in sh._dims(spec):
+                if a == FSDP and mesh.shape[FSDP] > 1:
+                    if not hasattr(owner, "fsdp_dims"):
+                        owner.fsdp_dims, owner.fsdp_mesh = {}, mesh
+                    owner.fsdp_dims[leaf] = d
+        if n > 1:
+            self.tp_mesh = mesh
+            for block in self.layers:
+                block.mesh = block.attn.mesh = mesh
+                block.attn.heads = cfg.num_heads // n
+                block.attn.attn_out.row_parallel = block.mlp_out.row_parallel = mesh
+
+    def _owner(self, name: str) -> tuple[nn.Module, str]:
+        mod, _, leaf = name.rpartition(".")
+        return (self.get_submodule(mod) if mod else self), leaf
+
+    #: the mesh of the tensor-parallel forward (None: one rank's vocab)
+    tp_mesh = None
+
+    @property
+    def vocab_shard(self) -> "VocabShard | None":
+        """This rank's columns of the logits under tensor parallelism."""
+        if self.tp_mesh is None:
+            return None
+        rows = self.tok_embed.weight.shape[0]
+        return VocabShard(axis_index(MODEL, self.tp_mesh) * rows, self.cfg.vocab_size,
+                          self.tp_mesh)
+
+    def jax_view(self, name: str) -> tuple[str, tuple, bool]:
+        """The flax tree's ``(path, shape, transposed)`` of parameter
+        ``name`` (``parallel/sharding.param_specs``): ``layers.i`` is
+        ``layer_i``, a LayerNorm's weight its ``scale``, a Dense weight
+        its ``kernel`` ``[in, out]``, the token table ``tok_embed/
+        embedding``."""
+        shape = self.global_shapes[name]
+        if name == "tok_embed.weight":
+            return "tok_embed/embedding", shape, False
+        parts = name.split(".")
+        if parts[0] == "layers":
+            parts = [f"layer_{parts[1]}", *parts[2:]]
+        if len(parts) > 1 and parts[-2] in LN_NAMES:
+            return "/".join(parts[:-1] + ["scale" if parts[-1] == "weight" else "bias"]), \
+                shape, False
+        if parts[-1] == "weight":
+            return "/".join(parts[:-1] + ["kernel"]), shape[::-1], True
+        return "/".join(parts), shape, False
+
+    def embed(self, input_ids) -> torch.Tensor:
+        """The token embeddings (f32), over the vocab shards when sharded."""
+        if self.tp_mesh is not None:
+            return range_sharded_lookup(input_ids, self.tok_embed.weight, self.tp_mesh)
+        return F.embedding(input_ids, _full(self.tok_embed, "weight"))
+
+    def head(self, x) -> torch.Tensor:
+        """The tied head: f32 logits of this rank's vocab columns (all of
+        them on one rank), plus ``mlm_bias``."""
+        x = copy_to_model(x, self.tp_mesh)
+        return head_projection(x, _full(self.tok_embed, "weight"), self.cfg.head_dtype) \
+            + _full(self, "mlm_bias")
 
     def forward(self, input_ids, attention_mask=None, *, train: bool = False,
                 generator: torch.Generator | None = None, positions=None,
@@ -397,8 +630,11 @@ class Transformer(nn.Module):
             if attention_mask is not None or train or return_hidden or positions is not None:
                 raise ValueError("the paged KV-cache path is inference-only and takes "
                                  "no attention_mask, positions or return_hidden")
+            if any(self.specs.values()):
+                raise NotImplementedError("the paged path of a sharded model: serving's "
+                                          "cache sharding is ROADMAP Queue A item 1")
             pos = decode_pos.long().clamp(0, cfg.max_len - 1)
-            x = (self.tok_embed(input_ids) + self.pos_embed[pos]).to(dt)
+            x = (self.embed(input_ids) + self.pos_embed[pos]).to(dt)
             if not cfg.pre_ln:
                 x = self.embed_ln(x).to(dt)
             for i, block in enumerate(self.layers):
@@ -406,12 +642,11 @@ class Transformer(nn.Module):
                           decode_pos)
             if cfg.pre_ln:
                 x = self.final_ln(x).to(dt)
-            return head_projection(x, self.tok_embed.weight, cfg.head_dtype) \
-                + self.mlm_bias, kv_cache
+            return self.head(x), kv_cache
         S = input_ids.shape[1]
         if S > cfg.max_len:
             raise ValueError(f"sequence length {S} exceeds max_len={cfg.max_len}")
-        x = (self.tok_embed(input_ids) + self.pos_embed[None, :S]).to(dt)
+        x = (self.embed(input_ids) + _full(self, "pos_embed")[None, :S]).to(dt)
         if not cfg.pre_ln:
             x = self.embed_ln(x).to(dt)
         x = dropout(x, cfg.dropout, train, generator)
@@ -435,7 +670,7 @@ class Transformer(nn.Module):
         if not cfg.causal:
             x = F.gelu(self.mlm_transform(x), approximate="tanh")
             x = self.mlm_ln(x).to(dt)
-        return head_projection(x, self.tok_embed.weight, cfg.head_dtype) + self.mlm_bias
+        return self.head(x)
 
 
 def _generator_snapshot(generator):
@@ -511,9 +746,12 @@ def init_params(cfg: TransformerConfig, seed: int = 0, device="cuda",
     return out
 
 
-def build(cfg: TransformerConfig, params, device, trainable: bool = False) -> Transformer:
+def build(cfg: TransformerConfig, params, device, trainable: bool = False,
+          mesh: Mesh | None = None, specs: dict | None = None) -> Transformer:
     """``Transformer(cfg)`` on ``device`` holding ``params`` (a state dict
-    or another ``Transformer``'s weights).
+    or another ``Transformer``'s weights); with ``mesh`` and ``specs``
+    (``transformer_specs``), this rank's shard of each of the whole
+    tensors of ``params`` (``sharding.shard_tensor``).
 
     Serving (``trainable=False``): tensors already on ``device`` in the
     right dtype are shared, not copied — so engines built with different
@@ -523,15 +761,16 @@ def build(cfg: TransformerConfig, params, device, trainable: bool = False) -> Tr
     grad."""
     if isinstance(params, nn.Module):
         params = params.state_dict()
-    model = Transformer(cfg, device="meta", trainable=trainable)
+    model = Transformer(cfg, device="meta", trainable=trainable, mesh=mesh, specs=specs)
     want = model.state_dict()
     missing = set(want) - set(params)
     extra = set(params) - set(want)
     if missing or extra:
         raise KeyError(f"state dict mismatch: missing {sorted(missing)}, "
                        f"unexpected {sorted(extra)}")
-    state = {k: params[k].to(device=device, dtype=v.dtype, copy=trainable)
-             for k, v in want.items()}
+    specs = model.specs
+    state = {k: (sh.shard_tensor(params[k], specs[k], mesh) if specs.get(k) else params[k])
+             .to(device=device, dtype=v.dtype, copy=trainable) for k, v in want.items()}
     model.load_state_dict(state, assign=True)
     for p in model.parameters():
         p.requires_grad_(trainable)
@@ -544,18 +783,56 @@ def build(cfg: TransformerConfig, params, device, trainable: bool = False) -> Tr
 # ---------------------------------------------------------------------------
 
 
-def _xent_eval_stats(logits, labels) -> dict[str, torch.Tensor]:
+@dataclasses.dataclass(frozen=True)
+class VocabShard:
+    """This rank's vocab columns of tensor-parallel logits: they start at
+    global id ``offset`` of a vocabulary of ``size`` ids (columns past it
+    are padding), the shards spread over ``mesh``'s ``model`` axis."""
+
+    offset: int
+    size: int
+    mesh: Mesh
+
+
+def _xent_eval_stats(logits, labels, vs: VocabShard | None = None
+                     ) -> dict[str, torch.Tensor]:
     """SUMMED per-token statistics over valid (non-IGNORE) positions:
-    ``loss_sum``, ``correct``, ``count`` (f32 scalars)."""
+    ``loss_sum``, ``correct``, ``count`` (f32 scalars). With ``vs`` the
+    logits are this rank's vocab columns (``_vocab_parallel_xent``)."""
     valid = labels != IGNORE_INDEX
     safe = torch.where(valid, labels, 0).long()
-    xent = -F.log_softmax(logits.float(), dim=-1)
-    per_tok = torch.gather(xent, -1, safe[..., None])[..., 0]
+    if vs is None:
+        xent = -F.log_softmax(logits.float(), dim=-1)
+        per_tok = torch.gather(xent, -1, safe[..., None])[..., 0]
+        pred = logits.argmax(-1)
+    else:
+        per_tok, pred = _vocab_parallel_xent(logits, safe, vs)
     return {
         "loss_sum": torch.where(valid, per_tok, 0.0).sum(),
-        "correct": (valid & (logits.argmax(-1) == safe)).sum().float(),
+        "correct": (valid & (pred == safe)).sum().float(),
         "count": valid.sum().float(),
     }
+
+
+def _vocab_parallel_xent(logits, safe, vs: VocabShard):
+    """Per-token cross-entropy and the arg-max over the vocab shards:
+    padded columns at -inf; the row max all-reduced by MAX (detached); the
+    sum of exponentials and the target logit (its owner's) summed over
+    ``model``, their gradients each rank's own; the arg-max the lowest
+    global id holding the global max."""
+    mesh = vs.mesh
+    lg = logits.float()
+    cols = vs.offset + torch.arange(lg.shape[-1], device=lg.device)
+    lg = torch.where(cols < vs.size, lg, float("-inf"))
+    m = all_reduce_max(lg.detach().amax(-1), MODEL, mesh)
+    sumexp = sum_over_axis(torch.exp(lg - m[..., None]).sum(-1), MODEL, mesh)
+    local = safe - vs.offset
+    own = (local >= 0) & (local < lg.shape[-1])
+    tgt = torch.gather(lg, -1, local.clamp(0, lg.shape[-1] - 1)[..., None])[..., 0]
+    tgt = sum_over_axis(torch.where(own, tgt, 0.0), MODEL, mesh)
+    lmax, larg = lg.detach().max(-1)
+    cand = torch.where(lmax == m, larg + vs.offset, torch.iinfo(torch.int64).max)
+    return torch.log(sumexp) + m - tgt, all_reduce_min(cand, MODEL, mesh)
 
 
 def _shifted_lm_labels(ids, attention_mask=None):
@@ -570,26 +847,27 @@ def _shifted_lm_labels(ids, attention_mask=None):
     return labels
 
 
-def _masked_xent(logits, labels):
+def _masked_xent(logits, labels, vs: VocabShard | None = None):
     """Mean cross-entropy and accuracy over positions whose label is not
     IGNORE_INDEX (the ratio form of ``_xent_eval_stats``)."""
-    s = _xent_eval_stats(logits, labels)
+    s = _xent_eval_stats(logits, labels, vs)
     count = s["count"].clamp_min(1.0)
     return s["loss_sum"] / count, s["correct"] / count
 
 
-def _chunk_stats(hc, lc, emb, bias, head_dtype):
-    s = _xent_eval_stats(head_projection(hc, emb, head_dtype) + bias, lc)
+def _chunk_stats(hc, lc, head, vs):
+    s = _xent_eval_stats(head(hc), lc, vs)
     return s["loss_sum"], s["correct"], s["count"]
 
 
-def _chunked_xent_stats(h, labels, emb, bias, chunk_size: int,
-                        head_dtype: str = "float32") -> dict[str, torch.Tensor]:
+def _chunked_xent_stats(h, labels, head, chunk_size: int,
+                        vs: VocabShard | None = None) -> dict[str, torch.Tensor]:
     """Summed xent stats from hidden states ``h`` [B,S,d], the tied head
-    applied per sequence chunk of ``chunk_size``. Each chunk runs under
-    ``torch.utils.checkpoint`` (the JAX version's per-chunk
-    ``jax.checkpoint``): its ``[B, chunk, vocab]`` logits are recomputed
-    in the backward, so the whole ``[B, S, vocab]`` never exists."""
+    (``head``: ``Transformer.head``) applied per sequence chunk of
+    ``chunk_size``. Each chunk runs under ``torch.utils.checkpoint`` (the
+    JAX version's per-chunk ``jax.checkpoint``): its ``[B, chunk, vocab]``
+    logits are recomputed in the backward, so the whole ``[B, S, vocab]``
+    never exists."""
     B, S, _ = h.shape
     C = min(chunk_size, S)
     if S % C:
@@ -600,8 +878,8 @@ def _chunked_xent_stats(h, labels, emb, bias, chunk_size: int,
     loss_sum = correct = count = h.new_zeros((), dtype=torch.float32)
     for i in range(S // C):
         sl = slice(i * C, (i + 1) * C)
-        ls, cr, ct = checkpoint(_chunk_stats, h[:, sl], labels[:, sl], emb, bias,
-                                head_dtype, use_reentrant=False)
+        ls, cr, ct = checkpoint(_chunk_stats, h[:, sl], labels[:, sl], head, vs,
+                                use_reentrant=False)
         loss_sum, correct, count = loss_sum + ls, correct + cr, count + ct
     return {"loss_sum": loss_sum, "correct": correct, "count": count}
 
@@ -625,7 +903,7 @@ def mlm_loss_fn(model: Transformer):
         positions, labels = _mlm_targets(batch)
         logits = model(batch["input_ids"], batch.get("attention_mask"), train=True,
                        generator=generator, positions=positions)
-        loss, acc = _masked_xent(logits, labels)
+        loss, acc = _masked_xent(logits, labels, model.vocab_shard)
         return loss, {"accuracy": acc}
 
     return loss_fn
@@ -639,7 +917,7 @@ def lm_loss_fn(model: Transformer):
         ids = batch["input_ids"]
         logits = model(ids, batch.get("attention_mask"), train=True, generator=generator)
         labels = _shifted_lm_labels(ids, batch.get("attention_mask"))
-        loss, acc = _masked_xent(logits, labels)
+        loss, acc = _masked_xent(logits, labels, model.vocab_shard)
         return loss, {"accuracy": acc}
 
     return loss_fn
@@ -656,8 +934,7 @@ def chunked_lm_loss_fn(model: Transformer, chunk_size: int):
         h = model(ids, batch.get("attention_mask"), train=True, generator=generator,
                   return_hidden=True)
         labels = _shifted_lm_labels(ids, batch.get("attention_mask"))
-        s = _chunked_xent_stats(h, labels, model.tok_embed.weight, model.mlm_bias,
-                                chunk_size, model.cfg.head_dtype)
+        s = _chunked_xent_stats(h, labels, model.head, chunk_size, model.vocab_shard)
         count = s["count"].clamp_min(1.0)
         return s["loss_sum"] / count, {"accuracy": s["correct"] / count}
 
@@ -683,7 +960,7 @@ def transformer_eval_fn(model: Transformer, *, mlm: bool):
             _mlm_targets(batch) if mlm
             else (None, _shifted_lm_labels(ids, batch.get("attention_mask"))))
         logits = model(ids, batch.get("attention_mask"), train=False, positions=positions)
-        return _xent_eval_stats(logits, labels)
+        return _xent_eval_stats(logits, labels, model.vocab_shard)
 
     return eval_fn
 
@@ -704,8 +981,7 @@ def lm_eval_fn(model: Transformer, xent_chunk: int = 0):
         ids = batch["input_ids"]
         labels = _shifted_lm_labels(ids, batch.get("attention_mask"))
         h = model(ids, batch.get("attention_mask"), train=False, return_hidden=True)
-        return _chunked_xent_stats(h, labels, model.tok_embed.weight, model.mlm_bias,
-                                   xent_chunk, model.cfg.head_dtype)
+        return _chunked_xent_stats(h, labels, model.head, xent_chunk, model.vocab_shard)
 
     return eval_fn
 

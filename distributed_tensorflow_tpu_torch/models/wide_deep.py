@@ -139,6 +139,10 @@ class WideDeep(nn.Module):
             setattr(self, f"deep_{j}", Dense(prev, width, self.dtype, device))
             prev = width
         self.deep_out = Dense(prev, 1, torch.float32, device)
+        #: the whole (unpadded) shape of every parameter
+        self.global_shapes = {
+            n: (cfg.vocab_sizes[int(n.rsplit("_", 1)[1])], p.shape[1]) if "table_" in n
+            else tuple(p.shape) for n, p in self.named_parameters()}
 
     def lookup(self, ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
         if self.mesh is None:

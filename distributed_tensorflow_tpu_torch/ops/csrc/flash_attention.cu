@@ -438,14 +438,21 @@ flash_bwd_dkv_f32_kernel(Strided q, Strided k, Strided v, Strided o, Strided dou
 // 1.35x faster; 16-row sub-tiles there keep ptxas from spilling. D = 32
 // takes D = 64's shape: its fragments and accumulators are half as many,
 // so the same 64 keys of 4 warps hold without a spill, in 57 KB of shared
-// memory.
+// memory. D = 256: a warp's dK and dV accumulators over the whole head
+// would take 256 registers, so the 8 warps pair up: both warps of a pair
+// compute S^T and dP^T for the pair's 16 keys over all of D (the products
+// twice), and each accumulates dK and dV for its half of D's columns (128
+// registers, D = 128's). 64 keys a CTA and 32-row q tiles keep the 3-stage
+// ring in 216 KB.
 template <int D>
 struct Dkv {
   using bf16 = __nv_bfloat16;
   static constexpr int WARPS = D <= 64 ? 4 : 8;
   static constexpr int THREADS = 32 * WARPS;
-  static constexpr int BK = 16 * WARPS;  // keys of a CTA, 16 a warp
-  static constexpr int BQ = 64;          // rows of a staged q tile
+  static constexpr int SPLIT = D <= 128 ? 1 : 2;  // warps sharing 16 keys, a column part each
+  static constexpr int DC = D / SPLIT;            // dK, dV columns a warp accumulates
+  static constexpr int BK = 16 * WARPS / SPLIT;   // keys of a CTA, 16 a warp pair
+  static constexpr int BQ = D <= 128 ? 64 : 32;   // rows of a staged q tile
   static constexpr int NQ = D <= 64 ? 64 : 16;  // rows of it in registers at once
   static constexpr bool KV_REGS = D <= 64;      // K, V A fragments held in registers
   static constexpr int STAGES = 3;
@@ -495,7 +502,7 @@ flash_bwd_dkv_kernel(Strided q, Strided k, Strided v, Strided o, Strided dout,
   using S = Dkv<D>;
   using bf16 = __nv_bfloat16;
   constexpr int BK = S::BK, BQ = S::BQ, NQ = S::NQ, LD = S::LD, THREADS = S::THREADS;
-  constexpr int NJ = NQ / 8, NO = D / 8, KS = D / 16, P = D / 8;
+  constexpr int NJ = NQ / 8, NO = S::DC / 8, KS = D / 16, P = D / 8;
   constexpr float kLog2e = 1.4426950408889634f;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
@@ -506,9 +513,11 @@ flash_bwd_dkv_kernel(Strided q, Strided k, Strided v, Strided o, Strided dout,
   unsigned char* keep = reinterpret_cast<unsigned char*>(lse2_s + 2 * BQ);
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // the warp's 16 keys (group kg) and its columns [cb, cb + DC) of dK, dV
+  const int kg = warp / S::SPLIT, cb = warp % S::SPLIT * S::DC;
   const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int c0 = blockIdx.y * BK, kw0 = c0 + 16 * warp;  // the CTA's, the warp's first key
+  const int c0 = blockIdx.y * BK, kw0 = c0 + 16 * kg;  // the CTA's, the warp's first key
   const int key[2] = {kw0 + g, kw0 + g + 8};
   const float sl2 = scale * kLog2e;
   // rows whose band reaches the tile's first key: r + q_offset >= c0
@@ -569,10 +578,10 @@ flash_bwd_dkv_kernel(Strided q, Strided k, Strided v, Strided o, Strided dout,
   tile::cp_async_wait<1>();
   __syncthreads();
   row_pass(0);
-  const bool key_ok[2] = {keep[16 * warp + g] != 0, keep[16 * warp + g + 8] != 0};
+  const bool key_ok[2] = {keep[16 * kg + g] != 0, keep[16 * kg + g + 8] != 0};
   const bool live = __ballot_sync(0xffffffffu, key_ok[0] || key_ok[1]) != 0;
   // the A fragments of this warp's 16 keys: (keys, d 16kk..16kk+15)
-  const int a_off = (16 * warp + (lane & 15)) * LD + 8 * (lane >> 4);
+  const int a_off = (16 * kg + (lane & 15)) * LD + 8 * (lane >> 4);
   uint32_t kf[S::KV_REGS ? KS : 1][4], vf[S::KV_REGS ? KS : 1][4];
   if constexpr (S::KV_REGS) {
 #pragma unroll
@@ -657,8 +666,8 @@ flash_bwd_dkv_kernel(Strided q, Strided k, Strided v, Strided o, Strided dout,
       for (int kk = 0; kk < NQ / 16; ++kk)
 #pragma unroll
         for (int j = 0; j < NO; j += 2) {
-          const int off = (qc + 16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1)) * LD + 8 * j +
-                          8 * (lane >> 4);
+          const int off = (qc + 16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1)) * LD + cb +
+                          8 * j + 8 * (lane >> 4);
           uint32_t bo[4], bq[4];
           tile::ldsm_x4_trans(bo, dOs + off);
           tile::ldsm_x4_trans(bq, Qs + off);
@@ -678,7 +687,7 @@ flash_bwd_dkv_kernel(Strided q, Strided k, Strided v, Strided o, Strided dout,
   for (int j = 0; j < NO; ++j)
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const int at = (16 * warp + g + 8 * i) * LD + 8 * j + 2 * t;
+      const int at = (16 * kg + g + 8 * i) * LD + cb + 8 * j + 2 * t;
       *reinterpret_cast<__nv_bfloat162*>(Ks + at) =
           __floats2bfloat162_rn(dka[j][2 * i], dka[j][2 * i + 1]);
       *reinterpret_cast<__nv_bfloat162*>(Vs + at) =
@@ -708,14 +717,19 @@ flash_bwd_dkv_kernel(Strided q, Strided k, Strided v, Strided o, Strided dout,
 // CTA) by 36%. D = 32 takes D = 64's shape (32 rows a warp, a 3-stage ring
 // of 64-key stages): a 16-deep mma step covers the head in two k-steps, the
 // Q fragments and the output accumulators are half D = 64's, so it cannot
-// spill where D = 64 does not.
+// spill where D = 64 does not. D = 256 takes D = 128's shape, but its
+// output accumulators alone take 128 registers, so the Q fragments are read
+// from the staged Q tile at each 16-deep step instead of held, and a stage
+// holds 32 keys (S and P in half the registers; 96 bytes spilled at 64) in
+// a 3-stage ring.
 template <int D>
 struct Fwd {
   using bf16 = __nv_bfloat16;
   static constexpr int WARPS = 4;                 // warps of a forward CTA
   static constexpr int MI = D <= 64 ? 2 : 1;      // 16-row groups of a warp
-  static constexpr int BN = 64;                   // keys of a ring stage
-  static constexpr int STAGES = D <= 64 ? 3 : 2;  // depth of the K, V ring
+  static constexpr int BN = D <= 128 ? 64 : 32;   // keys of a ring stage
+  static constexpr int STAGES = D == 128 ? 2 : 3;  // depth of the K, V ring
+  static constexpr bool Q_REGS = D <= 128;        // Q's A fragments held in registers
   static constexpr int THREADS = 32 * WARPS;
   static constexpr int BM = 16 * MI * WARPS;  // query rows of a CTA
   static constexpr int LD = tile::pad_ld<bf16>(D);
@@ -785,21 +799,21 @@ flash_fwd_kernel(Strided q, Strided k, Strided v, const unsigned char* __restric
   // a negative scale, -Q (exact in bf16) against a positive one, so that the
   // row max of the raw products is the max of the scaled logits
   float sl2 = scale * kLog2e;
-  uint32_t qf[MI][KS][4];
+  const uint32_t neg = sl2 < 0.f ? 0x80008000u : 0u;
+  sl2 = fabsf(sl2);
+  // fragment (mi, kk), from the staged tile with its sign applied
+  auto q_frag = [&](uint32_t (&f)[4], int mi, int kk) {
+    tile::ldsm_x4(f, Qs + (16 * (MI * warp + mi) + (lane & 15)) * LD + 16 * kk +
+                         8 * (lane >> 4));
 #pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk)
-      tile::ldsm_x4(qf[mi][kk], Qs + (16 * (MI * warp + mi) + (lane & 15)) * LD + 16 * kk +
-                                    8 * (lane >> 4));
-  if (sl2 < 0.f) {
-    sl2 = -sl2;
+    for (int e = 0; e < 4; ++e) f[e] ^= neg;
+  };
+  uint32_t qf[MI][S::Q_REGS ? KS : 1][4];
+  if constexpr (S::Q_REGS) {
 #pragma unroll
     for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) qf[mi][kk][e] ^= 0x80008000u;
+      for (int kk = 0; kk < KS; ++kk) q_frag(qf[mi][kk], mi, kk);
   }
   // running max (log2 units), this thread's share of the row sum, and the
   // output accumulators of rows g and g + 8 of each 16-row group
@@ -834,7 +848,17 @@ flash_fwd_kernel(Strided q, Strided k, Strided v, const unsigned char* __restric
 #pragma unroll
     for (int mi = 0; mi < MI; ++mi) zero(s[mi]);
 #pragma unroll
-    for (int kk = 0; kk < KS; ++kk)
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t qa[MI][4];
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) {
+        if constexpr (S::Q_REGS) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) qa[mi][e] = qf[mi][kk][e];
+        } else {
+          q_frag(qa[mi], mi, kk);
+        }
+      }
 #pragma unroll
       for (int j = 0; j < NB; j += 2) {
         uint32_t kb[4];
@@ -842,10 +866,11 @@ flash_fwd_kernel(Strided q, Strided k, Strided v, const unsigned char* __restric
                               8 * ((lane >> 3) & 1));
 #pragma unroll
         for (int mi = 0; mi < MI; ++mi) {
-          tile::mma_bf16(s[mi][j], qf[mi][kk], kb[0], kb[1]);
-          tile::mma_bf16(s[mi][j + 1], qf[mi][kk], kb[2], kb[3]);
+          tile::mma_bf16(s[mi][j], qa[mi], kb[0], kb[1]);
+          tile::mma_bf16(s[mi][j + 1], qa[mi], kb[2], kb[3]);
         }
       }
+    }
 
     // online softmax; p = exp2(s * scale * log2(e) - m), 0 under the masks,
     // rounded to bf16 pairs: n-tiles 2kk and 2kk + 1 of the accumulators are
@@ -1049,7 +1074,10 @@ flash_bwd_dq_f32_kernel(Strided q, Strided k, Strided v, Strided o, Strided dout
 // keys a stage; 64 x 4 with 64 keys takes 9% longer, 128 x 8 17%. At D =
 // 128, 32 rows a warp spill; 64 x 4 with 32 keys (244 registers, two CTAs
 // an SM); 64 keys a stage (one CTA an SM by shared memory) takes 33% longer.
-// D = 32 takes D = 64's shape, with half its Q, dO and dQ registers.
+// D = 32 takes D = 64's shape, with half its Q, dO and dQ registers. D =
+// 256 takes D = 128's, but its dQ accumulators alone take 128 registers, so
+// the Q and dO fragments are read from their staged tiles at each 16-deep
+// step instead of held.
 template <int D>
 struct Dq {
   using bf16 = __nv_bfloat16;
@@ -1057,6 +1085,7 @@ struct Dq {
   static constexpr int MI = D <= 64 ? 2 : 1;      // 16-row groups of a dQ warp
   static constexpr int BN = 32;                   // keys of a dQ ring stage
   static constexpr int STAGES = D <= 64 ? 3 : 2;  // depth of the dQ K, V ring
+  static constexpr bool FRAG_REGS = D <= 128;     // Q's, dO's A fragments held in registers
   static constexpr int THREADS = 32 * WARPS;
   static constexpr int BM = 16 * MI * WARPS;  // query rows of a CTA
   static constexpr int TPR = 2 / MI;          // threads a row in the delta pass
@@ -1162,15 +1191,20 @@ flash_bwd_dq_kernel(Strided q, Strided k, Strided v, Strided o, Strided dout,
   row_pass();
   const float sl2 = scale * kLog2e;
   // the A fragments of the warp's rows: (rows rw + 16 mi.., d 16 kk..)
-  uint32_t qf[MI][KS][4], of[MI][KS][4];
+  auto frag_off = [&](int mi, int kk) {
+    return (16 * (MI * warp + mi) + (lane & 15)) * LD + 16 * kk + 8 * (lane >> 4);
+  };
+  constexpr int KF = S::FRAG_REGS ? KS : 1;
+  uint32_t qf[MI][KF][4], of[MI][KF][4];
+  if constexpr (S::FRAG_REGS) {
 #pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
+    for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      const int off = (16 * (MI * warp + mi) + (lane & 15)) * LD + 16 * kk + 8 * (lane >> 4);
-      tile::ldsm_x4(qf[mi][kk], Qs + off);
-      tile::ldsm_x4(of[mi][kk], dOs + off);
-    }
+      for (int kk = 0; kk < KS; ++kk) {
+        tile::ldsm_x4(qf[mi][kk], Qs + frag_off(mi, kk));
+        tile::ldsm_x4(of[mi][kk], dOs + frag_off(mi, kk));
+      }
+  }
   float dqa[MI][NO][4];
 #pragma unroll
   for (int mi = 0; mi < MI; ++mi) zero(dqa[mi]);
@@ -1202,7 +1236,18 @@ flash_bwd_dq_kernel(Strided q, Strided k, Strided v, Strided o, Strided dout,
       zero(dp[mi]);
     }
 #pragma unroll
-    for (int kk = 0; kk < KS; ++kk)
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t qa[MI][4], oa[MI][4];
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) {
+        if constexpr (S::FRAG_REGS) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) qa[mi][e] = qf[mi][kk][e], oa[mi][e] = of[mi][kk][e];
+        } else {
+          tile::ldsm_x4(qa[mi], Qs + frag_off(mi, kk));
+          tile::ldsm_x4(oa[mi], dOs + frag_off(mi, kk));
+        }
+      }
 #pragma unroll
       for (int j = 0; j < NB; j += 2) {
         const int off = (8 * j + (lane & 7) + 8 * (lane >> 4)) * LD + 16 * kk +
@@ -1212,12 +1257,13 @@ flash_bwd_dq_kernel(Strided q, Strided k, Strided v, Strided o, Strided dout,
         tile::ldsm_x4(vb, Vs + off);
 #pragma unroll
         for (int mi = 0; mi < MI; ++mi) {
-          tile::mma_bf16(s[mi][j], qf[mi][kk], kb[0], kb[1]);
-          tile::mma_bf16(s[mi][j + 1], qf[mi][kk], kb[2], kb[3]);
-          tile::mma_bf16(dp[mi][j], of[mi][kk], vb[0], vb[1]);
-          tile::mma_bf16(dp[mi][j + 1], of[mi][kk], vb[2], vb[3]);
+          tile::mma_bf16(s[mi][j], qa[mi], kb[0], kb[1]);
+          tile::mma_bf16(s[mi][j + 1], qa[mi], kb[2], kb[3]);
+          tile::mma_bf16(dp[mi][j], oa[mi], vb[0], vb[1]);
+          tile::mma_bf16(dp[mi][j + 1], oa[mi], vb[2], vb[3]);
         }
       }
+    }
 
     // p = exp2(s * scale * log2(e) - LSE * log2(e)), 0 under the masks; ds
     // = p (dp - delta) scale, rounded to bf16 pairs: n-tiles 2kk and 2kk + 1
@@ -1321,7 +1367,10 @@ cudaError_t smem_attr(K kernel, size_t smem) {
 template <typename T, int D>
 int fwd(Strided q, Strided k, Strided v, const void* mask, void* out, void* lse, int B, int H,
         int Sq, int Sk, int causal, float scale, cudaStream_t st) {
-  if constexpr (std::is_same<T, float>::value) {  // f32: the CUDA-core kernel
+  if constexpr (std::is_same<T, float>::value && D > 128) {
+    // the f32 kernels' 64-row tiles of a 256-wide head exceed shared memory
+    return (int)cudaErrorInvalidValue;
+  } else if constexpr (std::is_same<T, float>::value) {  // f32: the CUDA-core kernel
     constexpr int LD = padded<T>(D), LDP = padded<T>(kTile);
     const size_t smem = sizeof(T) * (3 * kTile * LD + kTile * LDP) + kTile;
     auto kern = flash_fwd_f32_kernel<D>;
@@ -1348,7 +1397,10 @@ template <typename T, int D>
 int bwd_dkv(Strided q, Strided k, Strided v, Strided o, Strided dout, const void* mask,
             const void* lse, void* dk, void* dv, int B, int H, int Sq, int Sk, int causal,
             float scale, cudaStream_t st) {
-  if constexpr (std::is_same<T, float>::value) {  // f32: the CUDA-core kernel
+  if constexpr (std::is_same<T, float>::value && D > 128) {
+    // the f32 kernels' 64-row tiles of a 256-wide head exceed shared memory
+    return (int)cudaErrorInvalidValue;
+  } else if constexpr (std::is_same<T, float>::value) {  // f32: the CUDA-core kernel
     constexpr int LD = padded<T>(D), LDP = padded<T>(kTile);
     const size_t smem =
         sizeof(T) * (4 * kTile * LD + 2 * kTile * LDP) + 2 * sizeof(float) * kTile + kTile;
@@ -1376,7 +1428,10 @@ template <typename T, int D>
 int bwd_dq(Strided q, Strided k, Strided v, Strided o, Strided dout, const void* mask,
            const void* lse, void* dq, int B, int H, int Sq, int Sk, int causal, float scale,
            cudaStream_t st) {
-  if constexpr (std::is_same<T, float>::value) {  // f32: the CUDA-core kernel
+  if constexpr (std::is_same<T, float>::value && D > 128) {
+    // the f32 kernels' 64-row tiles of a 256-wide head exceed shared memory
+    return (int)cudaErrorInvalidValue;
+  } else if constexpr (std::is_same<T, float>::value) {  // f32: the CUDA-core kernel
     constexpr int LD = padded<T>(D), LDP = padded<T>(kTile);
     const size_t smem =
         sizeof(T) * (4 * kTile * LD + kTile * LDP) + 2 * sizeof(float) * kTile + kTile;
@@ -1409,6 +1464,7 @@ bool shapes_ok(int B, int H, int Sq, int Sk) {
     case 32: { constexpr int kD = 32; return CALL; }         \
     case 64: { constexpr int kD = 64; return CALL; }         \
     case 128: { constexpr int kD = 128; return CALL; }       \
+    case 256: { constexpr int kD = 256; return CALL; }       \
     default: return (int)cudaErrorInvalidValue;              \
   }
 

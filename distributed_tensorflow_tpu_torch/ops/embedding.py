@@ -20,7 +20,8 @@ cotangent of the summed embeddings (the loss downstream is replicated over
 ``model``), and each rank's table shard must get the gradient of its own
 rows once. ``_SumOverAxis``'s backward is therefore the identity (an
 all-reduce of the cotangent there would give ``model`` times the
-gradient). The reduce-scatter's backward is the all-gather of the
+gradient): ``parallel/collectives.sum_over_axis``, the megatron
+``reduce_from_model`` over any axis. The reduce-scatter's backward is the all-gather of the
 cotangent, as ``psum_scatter``'s transpose is.
 
 At an axis of size 1 (one process, or ``model=1``) each lookup is a plain
@@ -39,7 +40,13 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..parallel.collectives import all_gather, axis_index, axis_size, reduce_scatter
+from ..parallel.collectives import (
+    all_gather,
+    axis_index,
+    axis_size,
+    reduce_scatter,
+    sum_over_axis,
+)
 from ..parallel.mesh import MODEL, Mesh
 
 
@@ -65,29 +72,6 @@ def range_shard(table: torch.Tensor, shard: int, n_shards: int) -> torch.Tensor:
     lo, hi = min(shard * rows, v), min((shard + 1) * rows, v)
     out[:hi - lo] = table[lo:hi]
     return out
-
-
-class _SumOverAxis(torch.autograd.Function):
-    """All-reduce SUM over a process group whose backward is the identity
-    (module docstring)."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        import torch.distributed as dist
-
-        y = x.clone()
-        dist.all_reduce(y, group=group)
-        return y
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
-
-
-def sum_over_axis(x: torch.Tensor, axis: str, mesh: Mesh) -> torch.Tensor:
-    """``x`` summed over ``axis``; the gradient passes through unchanged."""
-    group = mesh.group(axis)
-    return x if group is None else _SumOverAxis.apply(x, group)
 
 
 def _owned_lookup(ids: torch.Tensor, local_table: torch.Tensor, shard: int, n: int):

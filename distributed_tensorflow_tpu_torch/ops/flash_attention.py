@@ -23,13 +23,15 @@ by the head dim it launched at in ``.launches_by_d``, and by the head
 dim its caller asked for in ``.launches_by_asked_d``.
 
 The kernels are instantiated at ``HEAD_DIMS``; ``flash_attention`` takes
-any head dim up to 128: one below 128 that is not instantiated (8 and 16,
-the JAX package's tools' shapes) is zero-padded to the next one
+any head dim up to 256: one that is not instantiated (8 and 16, the JAX
+package's tools' shapes; 192) is zero-padded to the next one
 (``padded_head_dim``) with the softmax scale of the original, and the
 output sliced back. That is exact: the pad columns add 0 to QKᵀ, come out
 0 in O, dQ, dK and dV, and add nothing to the backward's rowsum(dO∘O).
-The CPU's plain path pads alike. A head dim above 128 is refused (ROADMAP
-Queue C).
+The CPU's plain path pads alike. A head dim above 256 is refused (ROADMAP
+Queue C; no public configuration reaches it). The f32 kernels (checks,
+not speed) stop at 128 (``F32_HEAD_DIMS``): their 64-row tiles of a
+256-wide head exceed shared memory.
 Inputs are read through their strides with the head dimension
 contiguous (the model's ``[B,S,H,D] -> [B,H,S,D]`` views need no copy);
 a tensor whose last dimension is strided is made contiguous first.
@@ -44,7 +46,9 @@ from . import _build
 from .attention import NEG_INF
 
 #: head dims the kernels are instantiated for
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
+#: the ones the f32 kernels take (the bf16 ones take every ``HEAD_DIMS``)
+F32_HEAD_DIMS = (32, 64, 128)
 
 
 def padded_head_dim(D: int) -> int:
@@ -56,9 +60,10 @@ def padded_head_dim(D: int) -> int:
     up = [h for h in HEAD_DIMS if h > D]
     if D < 1 or not up:
         raise ValueError(f"head_dim {D}: the flash kernels take head dims up to "
-                         f"{max(HEAD_DIMS)} (instantiated at {HEAD_DIMS}, smaller ones "
-                         f"zero-padded); larger ones are open in ROADMAP Queue C "
-                         f"(attention_impl='dense' or 'blockwise' takes any head_dim)")
+                         f"{max(HEAD_DIMS)} (instantiated at {HEAD_DIMS}, others "
+                         f"zero-padded); larger ones are open in ROADMAP Queue C, and no "
+                         f"public configuration reaches them (attention_impl='dense' or "
+                         f"'blockwise' takes any head_dim)")
     return up[0]
 
 
@@ -164,6 +169,10 @@ def _check(q, k, v, kv_mask, *extra):
         raise ValueError(f"head_dim {D}: the flash kernels are built for {HEAD_DIMS}; "
                          f"flash_attention zero-pads a smaller one to the next of them, "
                          f"and larger ones are open in ROADMAP Queue C")
+    if q.dtype == torch.float32 and D not in F32_HEAD_DIMS:
+        raise ValueError(f"head_dim {D} in f32: the f32 flash kernels take {F32_HEAD_DIMS} "
+                         f"(their 64-row tiles of a {D}-wide head exceed shared memory; "
+                         f"ROADMAP Queue C); bf16 takes {HEAD_DIMS}")
     for name, t in (("q", q), ("k", k), ("v", v)) + extra:
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")

@@ -1,7 +1,7 @@
-"""Data parallelism over ``torch.distributed`` — the mesh, cluster,
-collectives and batch-placement subset of ``distributed_tensorflow_tpu/
-parallel`` (pipeline, ring attention, sharding rule tables: ROADMAP
-Queue A items 3.1 and 6)."""
+"""Data, fully-sharded and tensor parallelism over ``torch.distributed``
+— the mesh, cluster, collectives, placement and spec-engine subset of
+``distributed_tensorflow_tpu/parallel`` (the pipeline, ring attention
+and the stacked stage specs: ROADMAP Queue A item 6)."""
 
 from . import cluster, collectives, sharding  # noqa: F401
 from .mesh import (  # noqa: F401

@@ -12,7 +12,25 @@ all-reduces the cotangent (``_AllReduceSum``), so a loss that depends on
 an all-reduced sum (the global BatchNorm statistics) hands every rank
 the summed cotangent. ``reduce_scatter`` is the all-reduce and this
 rank's slice (twice the wire traffic of a native reduce-scatter, which
-gloo does not have; it is on no main path yet).
+gloo does not have).
+
+The megatron pair over the ``model`` axis (GSPMD's layout written out,
+``models/transformer.py``): ``copy_to_model`` is the identity forward and
+an all-reduce of the cotangent backward (it opens a parallel region on
+the replicated stream: each rank's part of the stream's gradient is
+summed); ``reduce_from_model`` is an all-reduce forward and the identity
+backward (it closes one: the row-parallel partial products summed, every
+rank holding the same cotangent of the sum, which each rank's partial
+product gets once). ``sum_over_axis`` is ``reduce_from_model`` over any
+axis (the sharded embedding lookups'). ``gather_fsdp`` all-gathers an
+``fsdp`` shard along a dim forward and reduce-scatters the cotangent
+backward (ZeRO's parameter gather: each rank's gradient of the gathered
+parameter summed over ``fsdp``, this rank's slice kept).
+
+``all_gather`` under NCCL is ``all_gather_into_tensor``; under gloo,
+which has no all-gather of CUDA tensors, it is an all-reduce of a
+zero-filled full buffer into which each rank wrote its slice (exact: a
+value plus zeros).
 
 ``groups=`` (the emulated subgroups), ``all_to_all`` and ``ring_permute``
 are not ported (ROADMAP Queue A item 6: MoE dispatch, ring attention).
@@ -24,7 +42,7 @@ from typing import Sequence
 
 import torch
 
-from .mesh import Mesh
+from .mesh import FSDP, MODEL, Mesh
 
 AxisNames = str | tuple[str, ...]
 Groups = Sequence[Sequence[int]] | None
@@ -34,6 +52,48 @@ def _no_groups(groups, verb: str) -> None:
     if groups is not None:
         raise NotImplementedError(f"{verb}(groups=...): subgroup collectives are not ported "
                                   f"yet (ROADMAP Queue A item 6)")
+
+
+def _nccl(group) -> bool:
+    import torch.distributed as dist
+
+    return dist.get_backend(group) == "nccl"
+
+
+def _gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The group's ``x`` concatenated along ``dim`` in rank order (not
+    differentiable; module docstring)."""
+    import torch.distributed as dist
+
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    if _nccl(group):
+        y = x.movedim(dim, 0).contiguous()
+        out = y.new_empty((n * y.shape[0], *y.shape[1:]))
+        dist.all_gather_into_tensor(out, y, group=group)
+        return out.movedim(0, dim).contiguous()
+    shape = list(x.shape)
+    shape[dim] *= n
+    out = x.new_zeros(shape)
+    out.narrow(dim, r * x.shape[dim], x.shape[dim]).copy_(x)
+    dist.all_reduce(out, group=group)
+    return out
+
+
+def _scatter_sum(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The group's ``x`` summed, this rank's slice of ``dim`` kept (not
+    differentiable)."""
+    import torch.distributed as dist
+
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    chunk = x.shape[dim] // n
+    if _nccl(group):
+        y = x.movedim(dim, 0).contiguous()
+        out = y.new_empty((chunk, *y.shape[1:]))
+        dist.reduce_scatter_tensor(out, y, group=group)
+        return out.movedim(0, dim).contiguous()
+    y = x.contiguous().clone()
+    dist.all_reduce(y, group=group)
+    return y.narrow(dim, r * chunk, chunk).clone()
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -65,6 +125,97 @@ def all_reduce(x: torch.Tensor, axis: AxisNames, mesh: Mesh, groups: Groups = No
     return x if group is None else _AllReduceSum.apply(x, group)
 
 
+class _SumOverAxis(torch.autograd.Function):
+    """All-reduce SUM forward, identity backward (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyToAxis(torch.autograd.Function):
+    """Identity forward, all-reduce SUM of the cotangent backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def sum_over_axis(x: torch.Tensor, axis: AxisNames, mesh: Mesh) -> torch.Tensor:
+    """``x`` summed over ``axis``; the gradient passes through unchanged."""
+    group = mesh.group(axis)
+    return x if group is None else _SumOverAxis.apply(x, group)
+
+
+def copy_to_model(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
+    """``x`` (replicated over ``model``) entering a parallel region: the
+    identity, whose backward sums the cotangent over ``model``."""
+    group = None if mesh is None else mesh.group(MODEL)
+    return x if group is None else _CopyToAxis.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
+    """The partial results of a parallel region summed over ``model``;
+    the gradient passes through unchanged."""
+    return x if mesh is None else sum_over_axis(x, MODEL, mesh)
+
+
+class _GatherFsdp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter_sum(g, ctx.group, ctx.dim), None, None
+
+
+def gather_fsdp(x: torch.Tensor, dim: int, mesh: Mesh | None) -> torch.Tensor:
+    """The whole tensor of which ``x`` is this rank's ``fsdp`` shard along
+    ``dim``; the backward reduce-scatters the cotangent over ``fsdp``."""
+    group = None if mesh is None else mesh.group(FSDP)
+    return x if group is None else _GatherFsdp.apply(x, group, dim)
+
+
+def _reduce_op(x: torch.Tensor, axis: AxisNames, mesh: Mesh, op) -> torch.Tensor:
+    import torch.distributed as dist
+
+    group = mesh.group(axis)
+    if group is None:
+        return x
+    y = x.detach().clone()
+    dist.all_reduce(y, op=getattr(dist.ReduceOp, op), group=group)
+    return y
+
+
+def all_reduce_max(x: torch.Tensor, axis: AxisNames, mesh: Mesh) -> torch.Tensor:
+    """Elementwise max across the axis (not differentiable)."""
+    return _reduce_op(x, axis, mesh, "MAX")
+
+
+def all_reduce_min(x: torch.Tensor, axis: AxisNames, mesh: Mesh) -> torch.Tensor:
+    """Elementwise min across the axis (not differentiable)."""
+    return _reduce_op(x, axis, mesh, "MIN")
+
+
 def all_reduce_mean(x: torch.Tensor, axis: AxisNames, mesh: Mesh, groups: Groups = None):
     """Mean across the axis: gradient aggregation."""
     _no_groups(groups, "all_reduce_mean")
@@ -74,16 +225,11 @@ def all_reduce_mean(x: torch.Tensor, axis: AxisNames, mesh: Mesh, groups: Groups
 
 def all_gather(x: torch.Tensor, axis: AxisNames, mesh: Mesh, *, tiled_axis: int = 0,
                groups: Groups = None):
-    """Concatenate the ranks' ``x`` along ``tiled_axis``, in rank order."""
-    import torch.distributed as dist
-
+    """Concatenate the ranks' ``x`` along ``tiled_axis``, in rank order
+    (not differentiable; module docstring)."""
     _no_groups(groups, "all_gather")
     group = mesh.group(axis)
-    if group is None:
-        return x
-    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, x.contiguous(), group=group)
-    return torch.cat(parts, dim=tiled_axis)
+    return x if group is None else _gather(x, group, tiled_axis)
 
 
 def reduce_scatter(x: torch.Tensor, axis: AxisNames, mesh: Mesh, *, scatter_axis: int = 0,

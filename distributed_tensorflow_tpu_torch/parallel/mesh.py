@@ -11,12 +11,16 @@ over that dimension's process group (``parallel/collectives.py``).
 
 With one process and no process group the mesh is the one device, and
 every collective over it is the identity, as JAX's ``psum`` over a size-1
-axis is. ``data`` may exceed 1 (synchronous data parallelism: the batch split
-over ``BATCH_AXES``, the gradients and the BatchNorm statistics
-all-reduced over them), and so may ``model``, over which a rule table
-may range-shard embedding tables (``parallel/sharding.py``; the runner
-refuses a workload that places nothing there); any other axis above 1,
-and the DCN factors of a multislice mesh, raise with their ROADMAP item.
+axis is. ``data`` and ``fsdp`` may exceed 1 (the batch split over
+``BATCH_AXES``, the gradients and the BatchNorm statistics all-reduced
+over them; a rule table may shard parameters over ``fsdp``), and so may
+``model``, over which a rule table shards parameters (embedding tables,
+megatron tensor parallelism: ``parallel/sharding.py``; the runner
+refuses a workload that places nothing there); ``pipe``, ``seq`` and
+``expert`` above 1, and the DCN factors of a multislice mesh, raise with
+their ROADMAP item. A collective over several axes of the mesh together
+(``BATCH_AXES`` on a data x fsdp x model mesh) runs over a process group
+of those axes' ranks, made when the mesh is built.
 ``PodTopology`` and ``factor_mesh_axis`` are not ported (ROADMAP Queue A
 item 6).
 """
@@ -43,7 +47,6 @@ BATCH_AXES: tuple[str, ...] = (DATA, FSDP)
 #: what brings each axis but ``data`` past 1 (ROADMAP Queue A)
 _NOT_PORTED = {
     PIPE: "pipeline parallelism, item 6 (parallel/pipeline.py)",
-    FSDP: "parameter sharding, item 3.1's rule tables (parallel/sharding.py)",
     SEQ: "sequence parallelism, item 6 (parallel/ring_attention.py)",
     EXPERT: "expert parallelism, item 6 (ops/moe.py)",
 }
@@ -118,6 +121,9 @@ class Mesh:
     shape: Mapping[str, int]
     device: torch.device
     device_mesh: object = None  # torch.distributed.device_mesh.DeviceMesh
+    #: the process groups of sets of two or more axes above 1 that are not
+    #: all of them, keyed by the axes in ``AXIS_NAMES`` order
+    subgroups: Mapping = dataclasses.field(default_factory=dict)
 
     axis_names = AXIS_NAMES
 
@@ -128,9 +134,10 @@ class Mesh:
     def group(self, axes: str | Sequence[str]):
         """The process group of ``axes`` (a name or a tuple of names), or
         None where their product is 1 (a collective over them is then the
-        identity). Several axes above 1 together must be every axis of the
-        mesh above 1: their group is then the default one, whose ranks
-        are numbered as the axes flatten in ``AXIS_NAMES`` order."""
+        identity). Several axes above 1 together: every axis of the mesh
+        above 1 is the default group, a part of them the subgroup made for
+        them (``build_mesh``); either way the ranks are numbered as the
+        axes flatten in ``AXIS_NAMES`` order."""
         import torch.distributed as dist
 
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
@@ -141,10 +148,9 @@ class Mesh:
         if not big:
             return None
         if len(big) > 1:
-            if set(big) != {a for a, v in self.shape.items() if v > 1}:
-                raise NotImplementedError(f"a collective over the axes {big} together, "
-                                          f"a part of the mesh's {dict(self.shape)}")
-            return dist.group.WORLD
+            if set(big) == {a for a, v in self.shape.items() if v > 1}:
+                return dist.group.WORLD
+            return self.subgroups[tuple(a for a in AXIS_NAMES if a in big)]
         return self.device_mesh.get_group(big[0])
 
 
@@ -162,21 +168,47 @@ def build_mesh(spec: MeshSpec | Mapping[str, int] | None = None, device="cuda") 
         raise NotImplementedError(
             f"dcn_data={spec.dcn_data} dcn_pipe={spec.dcn_pipe}: multislice meshes are not "
             f"ported yet (ROADMAP Queue A item 6)")
-    big = {a: v for a, v in spec.sizes().items() if v > 1 and a not in (DATA, MODEL)}
+    big = {a: v for a, v in spec.sizes().items() if v > 1 and a in _NOT_PORTED}
     if big:
         raise NotImplementedError(
-            f"mesh {big}: only the data and model axes may exceed 1 in the port so far; "
-            + "; ".join(f"{a}: {_NOT_PORTED[a]}" for a in big) + " (ROADMAP Queue A)")
+            f"mesh {big}: only the data, fsdp and model axes may exceed 1 in the port so "
+            f"far; " + "; ".join(f"{a}: {_NOT_PORTED[a]}" for a in big) + " (ROADMAP Queue A)")
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    device_mesh = None
+    device_mesh, subgroups = None, {}
     if grouped:
         from torch.distributed.device_mesh import init_device_mesh
 
         device_mesh = init_device_mesh(dev.type, tuple(spec.sizes().values()),
                                        mesh_dim_names=AXIS_NAMES)
-    return Mesh(spec.sizes(), dev, device_mesh)
+        subgroups = _subgroups(spec.sizes())
+    return Mesh(spec.sizes(), dev, device_mesh, subgroups)
+
+
+def _subgroups(sizes: Mapping[str, int]) -> dict:
+    """A process group for each set of two or more axes above 1 that is not
+    all of them: this rank's, of the ranks that share its index on every
+    other axis. Every rank makes every group, in one order (``new_group``
+    is collective)."""
+    import itertools
+
+    import numpy as np
+    import torch.distributed as dist
+
+    big = [a for a in AXIS_NAMES if sizes[a] > 1]
+    ranks = np.arange(math.prod(sizes.values())).reshape([sizes[a] for a in AXIS_NAMES])
+    me, out = dist.get_rank(), {}
+    for n in range(2, len(big)):
+        for axes in itertools.combinations(big, n):
+            keep = [AXIS_NAMES.index(a) for a in axes]
+            blocks = np.moveaxis(ranks, keep, list(range(len(AXIS_NAMES) - len(keep),
+                                                         len(AXIS_NAMES))))
+            for block in blocks.reshape(-1, math.prod(sizes[a] for a in axes)):
+                group = dist.new_group([int(r) for r in block])
+                if me in block:
+                    out[axes] = group
+    return out
 
 
 def mesh_axis_size(mesh: Mesh, axes: str | Sequence[str]) -> int:

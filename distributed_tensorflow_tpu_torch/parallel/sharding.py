@@ -16,15 +16,31 @@ attribution listing. A path is the port's parameter name with ``/`` for
 read the port's names). A spec is a tuple of mesh axis names (or None),
 one entry a leading dim: ``()`` is replicated.
 
-**Placement** (``place``): the port honours two specs. ``()``: the
-tensor is whole on every rank, set to rank 0's value over every axis.
-``("model", None)``: a table whose rows are range-sharded over the
-``model`` axis — rank r holds rows ``[r·rows, (r+1)·rows)`` of the table
-padded to ``n·shard_vocab(V, n)`` (``ops/embedding.py``), the layout
-GSPMD gives ``P("model", None)`` — set to the value of the rank with the
-same ``model`` index and batch index 0. Any other spec raises: fsdp and
-tensor parallelism, ``auto_fsdp_specs``, ``opt_state_specs`` and the
-stacked stage specs are ROADMAP Queue A item 3.1.
+**Placement** (``check_spec``, ``shard_tensor``, ``place``,
+``gather_tensor``): a spec gives each dim of a tensor at most one of the
+axes ``fsdp`` and ``model`` (or None), and no axis twice. Along a dim
+sharded over an axis of n ranks, rank r holds rows ``[r·rows,
+(r+1)·rows)`` of the dim padded with zeros to ``n·rows`` (``rows =
+shard_vocab(size, n)``, ``ops/embedding.py``): the contiguous slice GSPMD
+gives, the vocabulary's range shards padded as ``shard_vocab`` pads. ``()``
+is whole on every rank. ``place`` sets each tensor to the value of the
+rank that holds the same shard at index 0 of every other axis;
+``gather_tensor`` reassembles a whole tensor from the shards. A spec
+naming ``pipe``, ``seq`` or ``expert`` (the stacked stage specs, ring
+attention, MoE) is ROADMAP Queue A item 6; ``data`` never shards a
+parameter.
+
+**The spec engine** (JAX ``init_train_state``'s order): the table's specs
+(``specs_from_rules``), then, with ``fsdp``, ``auto_fsdp_specs`` merged in
+by ``merge_specs`` (an explicit spec wins unless it is ``()``; a leaf with
+a ``model`` spec keeps it even at ``model=1``, so pure FSDP shards only
+the leaves the table replicates). These take the JAX package's paths and
+shapes (``jax_view``: a model may map its names onto the flax tree's,
+``Dense`` weights transposed), so that the same leaves shard along the
+same dims; ``param_specs`` then gives each port parameter its spec in
+its own layout. JAX's ``opt_state_specs`` rule — an optimizer's state
+shards with its parameter — is ``train/optimizers.state_layout``, where
+the port's optimizer keeps its state.
 """
 
 from __future__ import annotations
@@ -36,8 +52,8 @@ from typing import Any, Iterable, Mapping, Sequence
 import numpy as np
 import torch
 
-from .collectives import axis_index, axis_size, broadcast
-from .mesh import AXIS_NAMES, BATCH_AXES, MODEL, Mesh
+from .collectives import all_gather, axis_index, axis_size, broadcast
+from .mesh import AXIS_NAMES, BATCH_AXES, DATA, FSDP, MODEL, Mesh
 
 #: a spec: one entry a leading dim, each a mesh axis name, a tuple of
 #: names or None
@@ -46,8 +62,10 @@ Spec = tuple
 REPLICATED: Spec = ()
 #: the conventional last row of a total table: the rest is replicated
 CATCH_ALL = r".*"
-#: the one sharded placement the port honours (module docstring)
+#: a table range-sharded over ``model`` (module docstring)
 MODEL_ROWS: Spec = (MODEL, None)
+#: the axes a parameter may be sharded over
+PARAM_AXES: tuple[str, ...] = (FSDP, MODEL)
 
 
 def local_rows(global_rows: int, mesh: Mesh) -> slice:
@@ -108,31 +126,182 @@ def replicate(module: torch.nn.Module, mesh: Mesh) -> torch.nn.Module:
     return place(module, mesh)
 
 
+def spec_axes(spec: Spec) -> tuple[str, ...]:
+    """The mesh axes ``spec`` names, in dim order."""
+    out: list[str] = []
+    for e in spec:
+        out.extend((e,) if isinstance(e, str) else (e or ()))
+    return tuple(out)
+
+
 def check_spec(spec: Spec, name: str = "") -> Spec:
-    """``spec`` if the port can place it (module docstring), else raise
-    naming ROADMAP item 3.1."""
+    """``spec`` if the port can place it (module docstring), else raise:
+    ``pipe``, ``seq`` and ``expert`` naming ROADMAP item 6."""
     spec = tuple(spec)
-    if spec not in (REPLICATED, MODEL_ROWS):
+    what = name or "a tensor"
+    axes = spec_axes(spec)
+    later = [a for a in axes if a not in PARAM_AXES and a != DATA]
+    if later:
         raise NotImplementedError(
-            f"{name or 'a tensor'}: spec {spec} is not placeable in the port; it honours "
-            f"{REPLICATED} (replicated) and {MODEL_ROWS} (tables range-sharded over model) — "
-            f"fsdp and tensor parallelism are ROADMAP Queue A item 3.1")
+            f"{what}: spec {spec} shards over {later}: the pipeline's stacked stage specs, "
+            f"ring attention and MoE are ROADMAP Queue A item 6")
+    if DATA in axes:
+        raise ValueError(f"{what}: spec {spec}: no parameter is sharded over the batch "
+                         f"axis {DATA!r}")
+    if len(set(axes)) != len(axes) or any(isinstance(e, tuple) and len(e) > 1 for e in spec):
+        raise NotImplementedError(f"{what}: spec {spec}: the port shards a dim over at most "
+                                  f"one of {PARAM_AXES}, and each axis over one dim")
     return spec
+
+
+def _dims(spec: Spec) -> list[tuple[int, str]]:
+    """``(dim, axis)`` of each sharded dim."""
+    out = []
+    for d, e in enumerate(spec):
+        e = e[0] if isinstance(e, tuple) and e else e
+        if isinstance(e, str):
+            out.append((d, e))
+    return out
+
+
+def local_shape(shape, spec: Spec, mesh: Mesh) -> tuple[int, ...]:
+    """This rank's shard's shape of a tensor of ``shape`` (padded rows
+    included)."""
+    from ..ops.embedding import shard_vocab
+
+    out = list(shape)
+    for d, a in _dims(check_spec(spec)):
+        out[d] = shard_vocab(shape[d], mesh.shape[a])
+    return tuple(out)
+
+
+def shard_tensor(full: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
+    """This rank's shard of the whole tensor ``full`` (module docstring):
+    a copy, zero-padded where a dim does not divide."""
+    from ..ops.embedding import shard_vocab
+
+    t = full
+    for d, a in _dims(check_spec(spec)):
+        n, r = mesh.shape[a], axis_index(a, mesh)
+        rows = shard_vocab(full.shape[d], n)
+        lo, hi = min(r * rows, full.shape[d]), min((r + 1) * rows, full.shape[d])
+        part = t.narrow(d, lo, hi - lo)
+        if hi - lo < rows:
+            pad = list(part.shape)
+            pad[d] = rows - (hi - lo)
+            part = torch.cat([part, part.new_zeros(pad)], d)
+        t = part
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+@torch.no_grad()
+def gather_tensor(local: torch.Tensor, spec: Spec, mesh: Mesh, shape) -> torch.Tensor:
+    """The whole tensor of ``shape`` reassembled from the ranks' shards
+    (every rank of each sharding axis takes part; the padding dropped)."""
+    t = local
+    for d, a in _dims(check_spec(spec)):
+        t = all_gather(t, a, mesh, tiled_axis=d).narrow(d, 0, shape[d])
+    return t.contiguous()
+
+
+def assemble(shards: Sequence[torch.Tensor], spec: Spec, sizes: Mapping[str, int],
+             shape) -> torch.Tensor:
+    """The whole tensor of ``shape`` from every rank's shard (``shards`` in
+    rank order over a mesh of axis ``sizes``; no process group): the
+    shards along each sharded dim concatenated, the padding cut."""
+    ranks = np.arange(len(shards)).reshape([sizes[a] for a in AXIS_NAMES])
+
+    def rec(fixed: dict, dims: list) -> torch.Tensor:
+        if not dims:
+            at = tuple(fixed.get(a, 0) for a in AXIS_NAMES)
+            return shards[int(ranks[at])]
+        (d, a), rest = dims[0], dims[1:]
+        parts = [rec({**fixed, a: j}, rest) for j in range(sizes[a])]
+        return torch.cat(parts, d).narrow(d, 0, shape[d])
+
+    return rec({}, [(d, a) for d, a in _dims(check_spec(spec)) if sizes[a] > 1]).clone()
 
 
 @torch.no_grad()
 def place(module: torch.nn.Module, mesh: Mesh,
           specs: Mapping[str, Spec] | None = None) -> torch.nn.Module:
     """Every parameter and buffer of ``module`` (which holds this rank's
-    shard of each sharded tensor) set to its source rank's value: the
-    replicated ones (not in ``specs``, or ``()``) to rank 0's over every
-    axis, the ``("model", None)`` ones to batch index 0's over the batch
-    axes (module docstring). Returns ``module``."""
+    shard of each sharded tensor) set to the value of the rank that holds
+    the same shard at index 0 of every other axis (module docstring); not
+    in ``specs``: replicated. Returns ``module``."""
     specs = specs or {}
     for name, t in [*module.named_parameters(), *module.named_buffers()]:
         spec = check_spec(specs.get(name, REPLICATED), name)
-        t.copy_(broadcast(t, AXIS_NAMES if spec == REPLICATED else BATCH_AXES, mesh, src=0))
+        # the ranks that hold this shard: every axis it is not sharded over
+        t.copy_(broadcast(t, tuple(a for a in AXIS_NAMES if a not in spec_axes(spec)), mesh,
+                          src=0))
     return module
+
+
+# -- the spec engine (JAX train/step.py init_train_state) -------------------
+
+
+def replicated_specs(tree) -> dict[str, Spec]:
+    """``()`` for every name of ``tree`` (a module, a mapping or names)."""
+    return {n: REPLICATED for n in _names(tree)}
+
+
+def merge_specs(explicit: Mapping[str, Spec], auto: Mapping[str, Spec]) -> dict[str, Spec]:
+    """Per leaf: the explicit spec unless it is replicated, where ``auto``
+    fills in (JAX's ``merge_specs``)."""
+    return {n: auto[n] if tuple(e) == REPLICATED else tuple(e) for n, e in explicit.items()}
+
+
+def auto_fsdp_specs(shapes: Mapping[str, tuple], mesh: Mesh, *,
+                    min_size: int = 2**14) -> dict[str, Spec]:
+    """ZeRO-style automatic sharding (JAX's ``auto_fsdp_specs``): each
+    leaf of at least ``min_size`` elements sharded over ``fsdp`` along its
+    largest dim that the ``fsdp`` size divides (the first such, on a tie);
+    the rest replicated. ``shapes``: name -> shape (the JAX layout's, for
+    the JAX package's choice of dim)."""
+    n = mesh.shape[FSDP]
+    out: dict[str, Spec] = {}
+    for name, shape in shapes.items():
+        size = int(np.prod(shape)) if len(shape) else 1
+        fit = [d for d in range(len(shape)) if shape[d] % n == 0]
+        if n == 1 or size < min_size or not fit:
+            out[name] = REPLICATED
+            continue
+        best = max(fit, key=lambda d: shape[d])
+        spec = [None] * len(shape)
+        spec[best] = FSDP
+        out[name] = tuple(spec)
+    return out
+
+
+def specs_from_rules(tree, rules: "PartitionRules") -> dict[str, Spec]:
+    """The table's spec of every parameter of ``tree`` under the strict
+    contract (``match_partition_rules``)."""
+    return match_partition_rules(rules, tree)
+
+
+def param_specs(model: torch.nn.Module, rules: "PartitionRules", mesh: Mesh
+                ) -> dict[str, Spec]:
+    """Each parameter of ``model`` (its whole shapes: a model on ``meta``
+    will do) to its spec in the port's layout, as JAX's
+    ``init_train_state`` computes them with ``fsdp=True``: the rules, then
+    ``auto_fsdp_specs`` merged. A model with ``jax_view(name) -> (path,
+    jax_shape, transposed)`` is matched and auto-sharded on the JAX tree's
+    paths and shapes, and a transposed leaf's spec reversed into the port's
+    layout."""
+    params = dict(model.named_parameters())
+    view = getattr(model, "jax_view", None) or (
+        lambda n: (param_path(n), tuple(params[n].shape), False))
+    jax = {n: view(n) for n in params}
+    specs = merge_specs(specs_from_rules(model, rules),
+                        auto_fsdp_specs({n: jax[n][1] for n in params}, mesh))
+    out = {}
+    for n in params:
+        spec = tuple(specs[n])
+        if jax[n][2] and spec:
+            spec = tuple(reversed(spec + (None,) * (len(jax[n][1]) - len(spec))))
+        out[n] = check_spec(spec, n)
+    return out
 
 
 def param_path(name: str) -> str:
@@ -293,9 +462,18 @@ def match_partition_rules(table: PartitionRules, tree) -> dict[str, Spec]:
     """``{name: spec}`` for every parameter of ``tree`` (a module, a
     mapping by name or names), with the hard contract: every parameter
     matches a row and every row a parameter, else
-    ``PartitionCoverageError`` with the full attribution listing."""
+    ``PartitionCoverageError`` with the full attribution listing. A
+    module's ``jax_view`` names its parameters' paths (``param_specs``);
+    the specs are the table's, in the JAX layout."""
     names = _names(tree)
-    matches, unmatched, dead = _coverage_violations(table, [param_path(n) for n in names])
+    view = getattr(tree, "jax_view", None)
+    return _match(table, names, {n: view(n)[0] if view is not None else param_path(n)
+                                 for n in names})
+
+
+def _match(table: PartitionRules, names: Sequence[str], paths: Mapping[str, str]
+           ) -> dict[str, Spec]:
+    matches, unmatched, dead = _coverage_violations(table, [paths[n] for n in names])
     if unmatched or dead:
         raise PartitionCoverageError(
             f"partition rules table {table.name!r} does not cover this param tree: "

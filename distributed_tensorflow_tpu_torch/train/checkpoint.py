@@ -32,7 +32,11 @@ A restore reads the shards with the same threads.
 
 **Processes.** The state is replicated over ``data`` (the reference's
 chief Saver): only process 0 writes, every process restores, and a
-barrier follows each synchronous commit. The chief walks the steps and
+barrier follows each synchronous commit. A state sharded over ``model``
+or ``fsdp`` is gathered whole to every rank first (``step.whole_leaves``,
+collective), so the chief writes the layout one process writes and a
+step dir restores at any mesh, as the JAX package's orbax checkpoints
+do; on restore each rank keeps its shard of every leaf. The chief walks the steps and
 picks the one to restore; the others take its choice. The SIGTERM flag is
 agreed by an all-reduce MAX over the process group every
 ``preemption_check_every`` steps (gloo on the CPU, NCCL on the card).
@@ -306,11 +310,12 @@ class Checkpointer:
         dist.all_reduce(flag, op=dist.ReduceOp.MAX)
         return bool(flag.item())
 
-    def _state_finite(self, state: step_lib.TrainState) -> bool:
-        """One device reduce over every float leaf: parameters, buffers and
-        the optimizer state. Identical on every process."""
+    @staticmethod
+    def _state_finite(leaves) -> bool:
+        """One device reduce over every float leaf (whole): parameters,
+        buffers and the optimizer state. Identical on every process."""
         by_device: dict[torch.device, list[torch.Tensor]] = {}
-        for _, t in step_lib.state_leaves(state):
+        for _, t in leaves:
             if t.is_floating_point():
                 by_device.setdefault(t.device, []).append(torch.isfinite(t).all())
         return all(bool(torch.stack(flags).all()) for flags in by_device.values())
@@ -332,14 +337,15 @@ class Checkpointer:
             if last is not None and (last >= step
                                      or step % max(self.cfg.save_interval_steps, 1) != 0):
                 return False
-        if self.cfg.validate_before_save and not self._state_finite(state):
+        leaves = step_lib.whole_leaves(state)
+        if self.cfg.validate_before_save and not self._state_finite(leaves):
             logger.error("refusing to checkpoint at step %d: non-finite state", step)
             return False
         self._known.add(step)
         if native_async:
-            return self._save_async(step, state, trigger)
+            return self._save_async(step, leaves, trigger)
         if self.chief:
-            snap = _snapshot(step_lib.state_leaves(state), self._take_buffer)
+            snap = _snapshot(leaves, self._take_buffer)
             try:
                 retry_call(lambda: self._commit(step, snap, trigger, time.perf_counter(),
                                                 hooks=False),
@@ -351,7 +357,7 @@ class Checkpointer:
             cluster.sync_hosts(f"ckpt_save_{step}")
         return True
 
-    def _save_async(self, step: int, state: step_lib.TrainState, trigger: str) -> bool:
+    def _save_async(self, step: int, leaves, trigger: str) -> bool:
         """The host copy on this thread (the only part that stalls
         training, booked as ``async_checkpoint`` waste), then the commit
         handed to the background writer. Only the chief copies and
@@ -359,7 +365,7 @@ class Checkpointer:
         if not self.chief:
             return True
         t0 = time.perf_counter()
-        snap = _snapshot(step_lib.state_leaves(state), self._take_buffer)
+        snap = _snapshot(leaves, self._take_buffer)
         with self._async_cv:
             self._async_steps.add(step)
         self._ensure_writer()
@@ -639,19 +645,20 @@ class Checkpointer:
         if table is not None and [e["name"] for e in table] != names:
             raise OSError(f"checkpoint step {step}: its leaves do not match the state's "
                           f"({len(table)} saved, {len(names)} wanted)")
-        targets = dict(step_lib.state_leaves(state))
+        targets = {k: (step_lib.whole_shape(state, k, v.shape), v.dtype)
+                   for k, v in step_lib.state_leaves(state)}
         params = dict(enumerate(state.optimizer.params))
         with concurrent.futures.ThreadPoolExecutor(IO_THREADS) as pool:
             arrays = list(pool.map(load, range(len(names))))
         out = {}
         for i, (name, arr) in enumerate(zip(names, arrays)):
             if name in targets:
-                shape, dtype = tuple(targets[name].shape), targets[name].dtype
+                shape, dtype = targets[name]
             elif name.endswith("/step"):  # an optimizer leaf the state has no tensor of yet
                 shape, dtype = (), torch.float32
             else:
                 p = params[int(name.split("/")[1])]
-                shape, dtype = tuple(p.shape), p.dtype
+                shape, dtype = step_lib.opt_leaf_shape(state, name), p.dtype
             if dtype == torch.bfloat16 and arr.dtype == np.uint16:
                 t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
             else:

@@ -13,10 +13,12 @@
   outermost);
 - ``clip_grad_norm`` is optax's ``clip_by_global_norm``
   (``g * max / norm`` when ``norm >= max``), applied before the update;
-  the norm is the whole tree's: after ``place`` tells the optimizer which
-  parameters are table shards over the mesh's ``model`` axis, their
-  squares are summed over that axis and the replicated ones' counted
-  once (``global_norm``), as JAX's norm is over its sharded arrays;
+  the norm is the whole tree's: after ``place`` tells the optimizer each
+  parameter's spec (``parallel/sharding.py``), the squares of the shards
+  over ``model`` or ``fsdp`` are summed over those axes and the
+  replicated ones' counted once (``global_norm``), as JAX's norm is over
+  its sharded arrays. The optimizer's state lives in its parameter's
+  shard (``state_layout``);
 - ``adagrad`` is ``optax.adagrad``, written out (``Adagrad``): the
   accumulator starts at 0.1 and the update is ``g * rsqrt(sum + eps)``
   (``torch.optim.Adagrad`` starts at 0 and divides by ``sqrt(sum) +
@@ -42,9 +44,10 @@
   largest dims are both at least 128, a full one otherwise, decay
   ``1 - (t+1)^-0.8``, the update clipped to block RMS 1, times ``lr`` and
   the parameter's RMS (at least 1e-3), then negated; coupled L2.
-  ``lamb`` and ``adafactor`` take norms and RMS over a whole parameter, so
-  a parameter sharded over the ``model`` axis is refused for them
-  (``place``; ROADMAP item 3.1).
+  ``lamb``'s trust ratio and ``adafactor``'s statistics are over a whole
+  parameter: on a shard (``place``), each sum of squares, and each of
+  adafactor's row and column means, is summed over the axes that shard
+  the dims it reduces (``Layout``), padded rows left out.
 """
 
 from __future__ import annotations
@@ -57,7 +60,7 @@ from typing import Callable, Iterable, Sequence
 import torch
 
 from ..parallel.collectives import all_reduce
-from ..parallel.mesh import MODEL
+from ..parallel.mesh import AXIS_NAMES
 
 Schedule = Callable[[int], float]
 
@@ -152,29 +155,136 @@ def make_schedule(cfg: OptimizerConfig) -> Schedule:
     return base
 
 
-def global_norm(tensors: Iterable[torch.Tensor], sharded: Sequence[bool] = (),
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """How a tensor is split over a mesh: ``dims[i]`` is ``(global size,
+    axis)`` of its dim i (axis None: whole). A shard's rows past the global
+    size are padding (``sharding.shard_tensor``)."""
+
+    dims: tuple
+    mesh: object
+
+    @classmethod
+    def of(cls, spec, shape, mesh) -> "Layout":
+        spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+        return cls(tuple((n, e if isinstance(e, str) and mesh.shape[e] > 1 else None)
+                         for n, e in zip(shape, spec)), mesh)
+
+    @property
+    def spec(self) -> tuple:
+        return tuple(a for _, a in self.dims)
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        return tuple(n for n, _ in self.dims)
+
+    def gather(self, shard: torch.Tensor) -> torch.Tensor:
+        """The whole tensor (every rank of its axes takes part)."""
+        from ..parallel.sharding import gather_tensor
+
+        return gather_tensor(shard, self.spec, self.mesh, self.shape)
+
+    def shard(self, whole: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of the whole tensor."""
+        from ..parallel.sharding import shard_tensor
+
+        return shard_tensor(whole, self.spec, self.mesh)
+
+    @property
+    def axes(self) -> tuple[str, ...]:
+        """The axes that shard it, in mesh order."""
+        return tuple(a for a in AXIS_NAMES if a in {ax for _, ax in self.dims})
+
+    @property
+    def numel(self) -> int:
+        return math.prod(n for n, _ in self.dims)
+
+    def drop(self, dim: int) -> "Layout":
+        return Layout(self.dims[:dim] + self.dims[dim + 1:], self.mesh)
+
+    def mask(self, t: torch.Tensor) -> torch.Tensor | None:
+        """True on the shard's real (unpadded) entries; None when none is
+        padding."""
+        from ..parallel.collectives import axis_index
+
+        out = None
+        for d, (n, a) in enumerate(self.dims):
+            if a is None or t.shape[d] * self.mesh.shape[a] == n:
+                continue
+            idx = axis_index(a, self.mesh) * t.shape[d] + torch.arange(t.shape[d],
+                                                                      device=t.device)
+            m = (idx < n).reshape([-1 if i == d else 1 for i in range(t.dim())])
+            out = m if out is None else out & m
+        return out
+
+    def sum(self, t: torch.Tensor, dims=None, keepdim: bool = False) -> torch.Tensor:
+        """``t`` summed over ``dims`` (all when None) of the whole tensor:
+        the shard's sum, summed over the axes that shard those dims."""
+        dims = list(range(t.dim())) if dims is None else list(dims)
+        axes = tuple(a for a in AXIS_NAMES
+                     if a in {self.dims[d][1] for d in dims} - {None})
+        out = t.sum(dims, keepdim=keepdim)
+        return all_reduce(out, axes, self.mesh) if axes else out
+
+
+def state_layout(lay: "Layout", key: str) -> "Layout | None":
+    """The ``Layout`` of the optimizer state leaf ``key`` of a parameter
+    shard laid out as ``lay`` (JAX's ``opt_state_specs``: the state shards
+    with its parameter, a count is whole): adafactor's ``v_row`` drops the
+    dim it averages over (the largest, ``factored_dims``' d0), ``v_col``
+    the second-largest; ``step`` is None (whole)."""
+    if key == "step":
+        return None
+    if key in ("v_row", "v_col"):
+        d1, d0 = factored_dims(lay.shape)
+        return lay.drop(d0 if key == "v_row" else d1)
+    return lay
+
+
+def global_norm(tensors: Iterable[torch.Tensor], layouts: Sequence["Layout | None"] = (),
                 mesh=None) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in f32 (optax.global_norm).
-    Where ``sharded[i]``, ``tensors[i]`` is this rank's shard of a tensor
-    split over ``mesh``'s ``model`` axis: the shards' squares are summed
-    over that axis and the others' counted once, so every rank gets the
-    norm of the whole tree."""
+    Where ``layouts[i]`` shards ``tensors[i]`` (``Layout.axes``), it is this
+    rank's shard: the squares of the shards over each set of axes are
+    summed over those axes and the others' counted once, so every rank gets
+    the norm of the whole tree."""
     tensors = list(tensors)
-    if not any(sharded) or mesh is None or mesh.shape[MODEL] == 1:
+    axes = [() if lay is None else lay.axes for lay in layouts] or [()] * len(tensors)
+    if not any(axes) or mesh is None:
         return torch.sqrt(sum(t.float().pow(2).sum() for t in tensors))
     squares = [t.float().pow(2).sum() for t in tensors]
-    total = all_reduce(torch.stack([q for q, sh in zip(squares, sharded) if sh]).sum(),
-                       MODEL, mesh)
-    rest = [q for q, sh in zip(squares, sharded) if not sh]
+    total = None
+    for group in dict.fromkeys(a for a in axes if a):
+        part = all_reduce(torch.stack([q for q, a in zip(squares, axes) if a == group]).sum(),
+                          group, mesh)
+        total = part if total is None else total + part
+    rest = [q for q, a in zip(squares, axes) if not a]
     return torch.sqrt(total + torch.stack(rest).sum() if rest else total)
 
 
-def _shard_mask(params: Sequence[torch.nn.Parameter], specs, model) -> list[bool]:
-    """For each of ``params``: is it a shard? (``specs``: ``model``'s
-    parameter names to their placement, ``parallel/sharding.py``; a
-    non-empty spec shards.)"""
+def _layouts(params: Sequence[torch.nn.Parameter], specs, model, mesh
+             ) -> list["Layout | None"]:
+    """For each of ``params``: its ``Layout`` over ``mesh`` when a shard
+    (``specs``: ``model``'s parameter names to their placement,
+    ``parallel/sharding.py``; the whole shapes are the model's
+    ``global_shapes`` where it has them, else the shard's times the axis
+    sizes), else None."""
+    from ..parallel.sharding import spec_axes
+
     names = {id(p): n for n, p in model.named_parameters()}
-    return [bool(specs.get(names.get(id(p)), ())) for p in params]
+    shapes = getattr(model, "global_shapes", {})
+    out = []
+    for p in params:
+        name = names.get(id(p))
+        spec = tuple(specs.get(name, ()))
+        if not any(mesh.shape[a] > 1 for a in spec_axes(spec)):
+            out.append(None)
+            continue
+        shape = shapes.get(name) or tuple(
+            n * (mesh.shape[e] if isinstance(e, str) else 1)
+            for n, e in zip(p.shape, spec + (None,) * (p.dim() - len(spec))))
+        out.append(Layout.of(spec, shape, mesh))
+    return out
 
 
 class Adagrad(torch.optim.Optimizer):
@@ -299,6 +409,7 @@ class Lamb(torch.optim.Optimizer):
     def __init__(self, params, lr: float = 0.0, b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-6, weight_decay: float = 0.0):
         super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay))
+        self.layouts: dict = {}  # parameter -> Layout of a shard (Optimizer.place)
 
     @torch.no_grad()
     def step(self):
@@ -324,8 +435,14 @@ class Lamb(torch.optim.Optimizer):
                 if wd:
                     u = u + wd * w
                 # sqrt of a summed square: torch.linalg.vector_norm on the CPU is
-                # off by ~2e-3 over gpt_small's 38.6M-element token table
-                p_norm, u_norm = torch.sqrt((w * w).sum()), torch.sqrt((u * u).sum())
+                # off by ~2e-3 over gpt_small's 38.6M-element token table; a
+                # shard's sums are summed over its axes (padding is 0 in both)
+                lay = self.layouts.get(p)
+                if lay is None:
+                    p_norm, u_norm = torch.sqrt((w * w).sum()), torch.sqrt((u * u).sum())
+                else:
+                    p_norm = torch.sqrt(lay.sum(w * w))
+                    u_norm = torch.sqrt(lay.sum(u * u))
                 ratio = torch.where((p_norm == 0) | (u_norm == 0), 1.0, p_norm / u_norm)
                 p.add_((u * ratio * -lr).to(p.dtype))
 
@@ -371,6 +488,7 @@ class Adafactor(torch.optim.Optimizer):
 
     def __init__(self, params, lr: float = 0.0):
         super().__init__(params, dict(lr=lr, count=0))
+        self.layouts: dict = {}  # parameter -> Layout of a shard (Optimizer.place)
 
     @torch.no_grad()
     def step(self):
@@ -382,6 +500,9 @@ class Adafactor(torch.optim.Optimizer):
                     continue
                 g, w = p.grad.float(), p.float()
                 st = self.state[p]
+                if p in self.layouts:
+                    self._sharded_step(p, g, w, st, self.layouts[p], lr, rate)
+                    continue
                 dims = factored_dims(tuple(p.shape))
                 sq = g * g + ADAFACTOR_EPS
                 if dims is not None:
@@ -406,6 +527,43 @@ class Adafactor(torch.optim.Optimizer):
                 scale = torch.where(rms <= ADAFACTOR_MIN_SCALE, ADAFACTOR_MIN_SCALE, rms)
                 p.add_((u * lr * scale * -1.0).to(p.dtype))
 
+    @staticmethod
+    def _sharded_step(p, g, w, st, lay: "Layout", lr: float, rate: float) -> None:
+        """The step on a shard: the factoring by the whole shape, each mean
+        a ``Layout.sum`` over the whole dims divided by their size, the
+        padding masked out of every statistic and update."""
+        shape = tuple(n for n, _ in lay.dims)
+        mask = lay.mask(g)
+
+        def real(t, m=mask):
+            return t if m is None else torch.where(m, t, 0.0)
+
+        dims = factored_dims(shape)
+        sq = real(g * g + ADAFACTOR_EPS)
+        if dims is not None:
+            d1, d0 = dims
+            if not st:
+                st["v_row"] = torch.zeros(sq.sum(d0).shape, device=p.device)
+                st["v_col"] = torch.zeros(sq.sum(d1).shape, device=p.device)
+            vr, vc = st["v_row"], st["v_col"]
+            vr.copy_(rate * vr + (1.0 - rate) * lay.sum(sq, [d0]) / shape[d0])
+            vc.copy_(rate * vc + (1.0 - rate) * lay.sum(sq, [d1]) / shape[d1])
+            reduced_d1 = d1 - 1 if d1 > d0 else d1
+            rows = lay.drop(d0)
+            vr_mean = rows.sum(real(vr, rows.mask(vr)), [reduced_d1], keepdim=True) / shape[d1]
+            u = g * (vr / vr_mean).pow(-0.5).unsqueeze(d0) * vc.pow(-0.5).unsqueeze(d1)
+        else:
+            if not st:
+                st["v"] = torch.zeros(p.shape, device=p.device)
+            v = st["v"]
+            v.copy_(rate * v + (1.0 - rate) * sq)
+            u = g * v.pow(-0.5)
+        u = real(u)
+        u = u / torch.clamp(torch.sqrt(lay.sum(u * u) / lay.numel) / ADAFACTOR_CLIP, min=1.0)
+        rms = torch.sqrt(lay.sum(w * w) / lay.numel)
+        scale = torch.where(rms <= ADAFACTOR_MIN_SCALE, ADAFACTOR_MIN_SCALE, rms)
+        p.add_((u * lr * scale * -1.0).to(p.dtype))
+
 
 class Optimizer:
     """One optimizer over ``params`` with optax's update semantics (see
@@ -417,7 +575,7 @@ class Optimizer:
         self.schedule = make_schedule(cfg)
         self.count = 0
         self.params = [p for p in params if p.requires_grad]
-        self.mesh, self.sharded = None, []  # see place
+        self.mesh, self.layouts = None, []  # see place
         name = cfg.name.lower()
         self.coupled_l2 = cfg.weight_decay > 0 and name not in ("adamw", "lamb", "ftrl")
         if name == "sgd":
@@ -463,27 +621,26 @@ class Optimizer:
     def param_state_keys(self) -> list[tuple[str, ...]]:
         """The state keys of each parameter, in ``params`` order
         (``state_keys()``, but adafactor's by the parameter's shape)."""
-        if isinstance(self.opt, Adafactor):
-            return [adafactor_state_keys(tuple(p.shape)) for p in self.params]
+        if isinstance(self.opt, Adafactor):  # factored by the whole shape
+            lays = self.layouts or [None] * len(self.params)
+            return [adafactor_state_keys(lay.shape if lay is not None else tuple(p.shape))
+                    for p, lay in zip(self.params, lays)]
         return [self.state_keys()] * len(self.params)
 
     def place(self, mesh, specs, model) -> None:
-        """Which of ``params`` are shards over ``mesh``'s ``model`` axis
+        """Each of ``params``' ``Layout`` over ``mesh`` when a shard
         (``specs``: ``model``'s parameter names to their placement, as
-        ``runner.prepare`` matched them): what ``grad_norm`` sums over it.
-        lamb and adafactor refuse a shard (module docstring)."""
-        self.mesh, self.sharded = mesh, _shard_mask(self.params, specs, model)
-        name = self.cfg.name.lower()
-        if name in ("lamb", "adafactor") and any(self.sharded) and mesh.shape[MODEL] > 1:
-            raise NotImplementedError(
-                f"optimizer {name!r} takes norms over whole parameters, and some are sharded "
-                f"over mesh.model={mesh.shape[MODEL]}: its per-shard reductions are ROADMAP "
-                f"Queue A item 3.1")
+        ``runner.prepare`` computed them): what ``grad_norm`` sums over, and
+        lamb's and adafactor's per-parameter reductions (module docstring)."""
+        self.mesh, self.layouts = mesh, _layouts(self.params, specs, model, mesh)
+        if hasattr(self.opt, "layouts"):
+            self.opt.layouts = {p: lay for p, lay in zip(self.params, self.layouts)
+                                if lay is not None}
 
     def grad_norm(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
         """The global norm of ``grads`` (one a parameter, in ``params``
         order) over the whole tree, the shards' included (``place``)."""
-        return global_norm(grads, self.sharded, self.mesh)
+        return global_norm(grads, self.layouts, self.mesh)
 
     @torch.no_grad()
     def update(self, grads: Sequence[torch.Tensor]) -> None:
@@ -555,7 +712,7 @@ class MultiOptimizer:
         self.labels = labels
         self.params = params
         self.cfg = None
-        self.mesh, self.sharded = None, []  # see place
+        self.mesh, self.layouts = None, []  # see place
         self.index = {k: [i for i, lab in enumerate(labels) if lab == k] for k in groups}
         self.opt = _GroupedState([(groups[k], self.index[k]) for k in groups])
 
@@ -578,12 +735,12 @@ class MultiOptimizer:
     def place(self, mesh, specs, model) -> None:
         """``Optimizer.place`` for the whole list and each group (a
         group's clip norm is its own parameters' global norm)."""
-        self.mesh, self.sharded = mesh, _shard_mask(self.params, specs, model)
+        self.mesh, self.layouts = mesh, _layouts(self.params, specs, model, mesh)
         for sub in self.groups.values():
             sub.place(mesh, specs, model)
 
     def grad_norm(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
-        return global_norm(grads, self.sharded, self.mesh)
+        return global_norm(grads, self.layouts, self.mesh)
 
     @torch.no_grad()
     def update(self, grads: Sequence[torch.Tensor]) -> None:

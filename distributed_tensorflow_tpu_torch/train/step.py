@@ -12,7 +12,11 @@ model and are updated in place by its optimizer.
   aux metrics at its end, so that every rank updates, decides and logs
   alike. The mean of the ranks' gradients of their local mean losses is
   the gradient of the global mean loss (BatchNorm statistics are
-  global, ``models/resnet.py``).
+  global, ``models/resnet.py``). The gradients are reduced by their
+  parameter's spec (the optimizer's ``layouts``, ``Optimizer.place``):
+  a replicated or ``model``-sharded parameter's over the batch axes, an
+  ``fsdp`` shard's — already summed over ``fsdp`` by ``gather_fsdp``'s
+  reduce-scatter — over ``data`` alone, both divided by the batch shards.
 
 - **Gradient accumulation**: ``grad_accum_steps`` microbatches, the
   gradient the mean of the microbatch gradients (summed in f32), the
@@ -49,7 +53,12 @@ model and are updated in place by its optimizer.
   ``MultiOptimizer`` gives each parameter its group's keys) — and
   ``load_state_leaves`` is its inverse, copying into the state's tensors
   where they live. The generator needs no leaf:
-  dropout is reseeded from ``step_seed(seed, step)`` every step.
+  dropout is reseeded from ``step_seed(seed, step)`` every step. On a
+  sharded state (the optimizer placed with shards, ``Optimizer.place``)
+  ``whole_leaves`` gives the same names with each shard gathered whole
+  (collective: every rank calls it), what a checkpoint writes, so a step
+  dir restores at any mesh; ``load_state_leaves`` takes whole leaves and
+  keeps this rank's shard of each.
 """
 
 from __future__ import annotations
@@ -59,11 +68,11 @@ from typing import Any, Callable
 
 import torch
 
-from ..parallel.collectives import all_reduce_mean
+from ..parallel.collectives import all_reduce, all_reduce_mean
 from ..parallel.collectives import axis_index
-from ..parallel.mesh import BATCH_AXES, MODEL, mesh_axis_size
+from ..parallel.mesh import BATCH_AXES, DATA, FSDP, MODEL, mesh_axis_size
 from ..parallel.sharding import RowGenerator
-from .optimizers import Optimizer
+from .optimizers import Layout, Optimizer, state_layout
 
 #: loss_fn(batch, generator) -> (loss, aux metrics)
 LossFn = Callable[[dict, torch.Generator], tuple[torch.Tensor, dict]]
@@ -104,11 +113,15 @@ class StepOptions:
     skip_nonfinite: bool = False
 
 
-def mean_over_batch_axes(tensors: list[torch.Tensor], mesh) -> list[torch.Tensor]:
+def mean_over_batch_axes(tensors: list[torch.Tensor], mesh, axes=BATCH_AXES
+                         ) -> list[torch.Tensor]:
     """``tensors`` averaged over ``mesh``'s batch axes in one all-reduce
-    of one flat f32 buffer, each returned in its own shape and dtype."""
-    flat = all_reduce_mean(torch.cat([t.reshape(-1).float() for t in tensors]), BATCH_AXES,
-                           mesh)
+    of one flat f32 buffer, each returned in its own shape and dtype.
+    ``axes``: the part of the batch axes to sum over (the rest summed
+    already), the divisor still every batch shard."""
+    flat = torch.cat([t.reshape(-1).float() for t in tensors])
+    flat = (all_reduce_mean(flat, BATCH_AXES, mesh) if tuple(axes) == BATCH_AXES
+            else all_reduce(flat, axes, mesh) / mesh_axis_size(mesh, BATCH_AXES))
     return [f.view(t.shape).to(t.dtype)
             for f, t in zip(flat.split([t.numel() for t in tensors]), tensors)]
 
@@ -128,14 +141,14 @@ def make_train_step(loss_fn: LossFn, options: StepOptions = StepOptions(), mesh=
     shards = 1 if mesh is None else mesh_axis_size(mesh, BATCH_AXES)
     data_parallel = shards > 1
     shard = axis_index(BATCH_AXES, mesh) if data_parallel else 0
-    model_sharded = mesh is not None and mesh.shape[MODEL] > 1
+    model_sharded = mesh is not None and (mesh.shape[MODEL] > 1 or mesh.shape[FSDP] > 1)
 
     def train_step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         params = state.optimizer.params
         if model_sharded and state.optimizer.mesh is not mesh:
-            raise ValueError("the mesh's model axis exceeds 1 but the optimizer was not "
-                             "placed on it (Optimizer.place): its global norms would miss "
-                             "the other ranks' table shards")
+            raise ValueError("the mesh's model or fsdp axis exceeds 1 but the optimizer was "
+                             "not placed on it (Optimizer.place): its gradient reduction and "
+                             "global norms would miss the other ranks' shards")
         state.generator.manual_seed(step_seed(state.seed, state.step))
         gen = (RowGenerator(state.generator, shards, shard) if data_parallel
                else state.generator)
@@ -167,8 +180,14 @@ def make_train_step(loss_fn: LossFn, options: StepOptions = StepOptions(), mesh=
         metrics = {"loss": loss.float(), **aux}
         if data_parallel:  # one all-reduce: the gradients, then the metrics
             names = sorted(metrics)
-            both = mean_over_batch_axes([*grads, *(metrics[k] for k in names)], mesh)
-            grads, metrics = both[:len(grads)], dict(zip(names, both[len(grads):]))
+            is_fsdp = [lay is not None and FSDP in lay.axes
+                       for lay in (state.optimizer.layouts or [None] * len(grads))]
+            rest = [g for g, f in zip(grads, is_fsdp) if not f]
+            both = iter(mean_over_batch_axes([*rest, *(metrics[k] for k in names)], mesh))
+            fsdp = iter(mean_over_batch_axes([g for g, f in zip(grads, is_fsdp) if f], mesh,
+                                             (DATA,)) if any(is_fsdp) else ())
+            grads = [next(fsdp) if f else next(both) for f in is_fsdp]
+            metrics = dict(zip(names, both))
             loss = metrics["loss"]
         if options.compute_grad_norm or options.clip_grad_norm:
             gnorm = state.optimizer.grad_norm(grads)
@@ -228,6 +247,45 @@ def state_leaves(state: TrainState) -> list[tuple[str, torch.Tensor]]:
     return out
 
 
+def leaf_layouts(state: TrainState) -> dict[str, Layout]:
+    """The ``Layout`` of every leaf of ``state_leaves`` that is a shard
+    (the optimizer's ``layouts``; an optimizer leaf's by ``state_layout``)."""
+    opt = state.optimizer
+    lays = list(getattr(opt, "layouts", None) or [])
+    if not any(lay is not None for lay in lays):
+        return {}
+    by_id = {id(p): lay for p, lay in zip(opt.params, lays) if lay is not None}
+    out = {f"model/{n}": by_id[id(p)] for n, p in state.model.named_parameters()
+           if id(p) in by_id}
+    for i, (lay, keys) in enumerate(zip(lays, opt.param_state_keys())):
+        for key in keys if lay is not None else ():
+            if state_layout(lay, key) is not None:
+                out[f"optimizer/{i}/{key}"] = state_layout(lay, key)
+    return out
+
+
+def whole_leaves(state: TrainState) -> list[tuple[str, torch.Tensor]]:
+    """``state_leaves`` with each shard gathered whole (module docstring);
+    the live tensors themselves where nothing is sharded."""
+    lays = leaf_layouts(state)
+    return [(k, lays[k].gather(v) if k in lays else v) for k, v in state_leaves(state)]
+
+
+def whole_shape(state: TrainState, name: str, local) -> tuple[int, ...]:
+    """The whole shape of leaf ``name`` whose shard here is ``local``."""
+    lay = leaf_layouts(state).get(name)
+    return tuple(local) if lay is None else lay.shape
+
+
+def opt_leaf_shape(state: TrainState, name: str) -> tuple[int, ...]:
+    """The whole shape of optimizer leaf ``name`` (``optimizer/<i>/<key>``,
+    not a ``step``) before the optimizer holds it (``state_layout``)."""
+    _, i, key = name.split("/")
+    p = state.optimizer.params[int(i)]
+    lay = (state.optimizer.layouts or [None] * (int(i) + 1))[int(i)]
+    return state_layout(lay or Layout.of((), tuple(p.shape), None), key).shape
+
+
 def leaf_names(state: TrainState, count: int) -> list[str]:
     """The names ``state_leaves`` gives for this state's model and
     optimizer after ``count`` updates (the optimizer holds no state before
@@ -241,8 +299,9 @@ def leaf_names(state: TrainState, count: int) -> list[str]:
 
 
 def load_state_leaves(state: TrainState, leaves: dict[str, torch.Tensor]) -> TrainState:
-    """Inverse of ``state_leaves``: ``leaves`` (name -> host tensor, every
-    name of ``leaf_names``) copied into ``state`` in place — the model's
+    """Inverse of ``whole_leaves``: ``leaves`` (name -> whole host tensor,
+    every name of ``leaf_names``; this rank's shard kept of each) copied
+    into ``state`` in place — the model's
     tensors stay where they live (the card), the fused modules stay the
     model's, and the optimizer's state goes where its parameters are."""
     count = int(leaves["optimizer/count"])
@@ -250,6 +309,8 @@ def load_state_leaves(state: TrainState, leaves: dict[str, torch.Tensor]) -> Tra
     if sorted(leaves) != sorted(want):
         raise ValueError(f"checkpoint leaves {sorted(set(leaves) ^ set(want))[:8]} do not "
                          f"match the state's")
+    lays = leaf_layouts(state)
+    leaves = {k: lays[k].shard(v) if k in lays else v for k, v in leaves.items()}
     with torch.no_grad():
         model_sd = {k[len("model/"):]: v for k, v in leaves.items() if k.startswith("model/")}
         state.model.load_state_dict(model_sd, strict=True)

@@ -12,6 +12,12 @@ Layout: a flax Dense ``kernel`` is ``[in, out]``, the port's
 ``fused_ln_matmul=True``: both flax paths own the same parameters.
 ``transformer_to_jax`` is the inverse; ``fuse_qkv`` / ``split_qkv`` turn
 a split state dict into the fused one of the same function and back.
+With ``mesh=`` (tensor and fully-sharded data parallelism,
+``models/transformer.py``) each rank gets its shard of the tree
+(``sharding.shard_tensor`` of the whole tensors, by
+``transformer_specs``); ``transformer_to_jax`` takes the ranks' state
+dicts (``mesh_shape=``) and reassembles each sharded tensor
+(``sharding.assemble``).
 
 ``resnet_from_jax(params_np, batch_stats_np, cfg)`` does the same for a
 ``distributed_tensorflow_tpu.models.resnet.ResNet`` (``block_impl``
@@ -99,11 +105,25 @@ def _state_dict_from_jax(params_np: Mapping, cfg: TransformerConfig
     return sd
 
 
-def transformer_to_jax(state_dict: Mapping, cfg: TransformerConfig) -> dict:
+def transformer_to_jax(state_dict, cfg: TransformerConfig, mesh_shape=None,
+                       specs=None) -> dict:
     """Inverse of ``_state_dict_from_jax``: a ``Transformer(cfg)`` state
     dict (any dtype, any device) as the flax tree of numpy f32 arrays, each
     Dense ``[out, in]`` back to ``[in, out]`` (a fused ``qkv`` keeps its
-    head-major columns)."""
+    head-major columns). Sharded: ``state_dict`` is the list of every
+    rank's, in rank order over ``mesh_shape`` (axis -> size), each tensor
+    reassembled by its spec (``specs``, default ``transformer_specs``)."""
+    if not isinstance(state_dict, Mapping):
+        from .models.transformer import transformer_specs
+        from .parallel.mesh import Mesh
+        from .parallel.sharding import assemble
+
+        sizes = {a: int(mesh_shape.get(a, 1)) for a in Mesh.axis_names}
+        specs = specs or transformer_specs(cfg, Mesh(sizes, torch.device("cpu")))
+        shapes = Transformer(cfg, device="meta").global_shapes
+        state_dict = {k: assemble([torch.as_tensor(sd[k]) for sd in state_dict],
+                                  specs.get(k, ()), sizes, shapes[k])
+                      for k in state_dict[0]}
     a = lambda t: np.asarray(torch.as_tensor(t).detach().float().cpu().numpy())  # noqa: E731
     tree: dict = {"tok_embed": {"embedding": a(state_dict["tok_embed.weight"])},
                   "pos_embed": a(state_dict["pos_embed"]),
@@ -165,13 +185,20 @@ def split_qkv(state_dict: Mapping, cfg: TransformerConfig) -> dict[str, torch.Te
 
 
 def from_jax_params(params_np: Mapping, cfg: TransformerConfig,
-                    device="cuda", trainable: bool = False) -> Transformer:
+                    device="cuda", trainable: bool = False, mesh=None,
+                    specs=None) -> Transformer:
     """``Transformer(cfg)`` on ``device`` with the flax tree's weights —
     the card by default (raises without one unless ``device="cpu"``).
     ``trainable=True`` gives f32 masters with gradients on (a model to
-    train); otherwise a frozen serving model."""
+    train); otherwise a frozen serving model. ``mesh``: this rank's shard
+    of each tensor by ``specs`` (default ``transformer_specs``)."""
     device = resolve_device(device)
-    return build(cfg, _state_dict_from_jax(params_np, cfg), device, trainable=trainable)
+    if mesh is not None and specs is None:
+        from .models.transformer import transformer_specs
+
+        specs = transformer_specs(cfg, mesh)
+    return build(cfg, _state_dict_from_jax(params_np, cfg), device, trainable=trainable,
+                 mesh=mesh, specs=specs)
 
 
 def resnet_state_dict_from_jax(params_np: Mapping, cfg: resnet.ResNetConfig,
@@ -473,12 +500,33 @@ def optimizer_state_from_jax(opt_state_np: Any, model: torch.nn.Module, optimize
         trees = {f: to_sd(leaves[f]) for f in needed}
     names = {id(p): n for n, p in model.named_parameters()}
     count = int(np.asarray(leaves["count"]))
+    # a sharded Transformer's moments: the whole ones cut to the shard, as
+    # its parameters are (a table's of Wide&Deep are cut by to_sd)
+    lays = ({} if isinstance(cfg, (resnet.ResNetConfig, wd.WideDeepConfig)) else
+            _opt_layouts(optimizer))
     sd = optimizer.opt.state_dict()
     sd["state"] = {}
     for i, p in enumerate(optimizer.params if count > 0 else ()):
-        sd["state"][i] = {k: (torch.tensor(float(count)) if k == "step" else
-                              trees[_OPTAX_SOURCE[k]][names[id(p)]].to(device=p.device,
-                                                                        dtype=p.dtype))
-                          for k in per_param[i]}
+        st = {}
+        for k in per_param[i]:
+            if k == "step":
+                st[k] = torch.tensor(float(count))
+                continue
+            v = trees[_OPTAX_SOURCE[k]][names[id(p)]]
+            if (i, k) in lays:
+                v = lays[i, k].shard(v)
+            st[k] = v.to(device=p.device, dtype=p.dtype)
+        sd["state"][i] = st
     optimizer.opt.load_state_dict(sd)
     optimizer.count = count
+
+
+def _opt_layouts(optimizer) -> dict:
+    """``(param index, state key) -> Layout`` of each sharded state leaf
+    (``train/optimizers.state_layout``)."""
+    from .train.optimizers import state_layout
+
+    return {(i, k): state_layout(lay, k)
+            for i, (lay, keys) in enumerate(zip(getattr(optimizer, "layouts", None) or [],
+                                                optimizer.param_state_keys()))
+            if lay is not None for k in keys if state_layout(lay, k) is not None}

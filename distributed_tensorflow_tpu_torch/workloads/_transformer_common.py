@@ -1,7 +1,9 @@
 """Shared build logic for the transformer workloads (bert_pretrain,
 gpt_lm) — the non-pipelined branch of ``distributed_tensorflow_tpu/
 workloads/_transformer_common.py`` (the pipelined one is ROADMAP Queue A
-item 6)."""
+item 6): the rule table ``transformer_rules`` and ``fsdp=True``, as
+there, so the model's parameters are sharded over the mesh's ``model``
+(megatron) and ``fsdp`` axes by ``transformer_specs``."""
 
 from __future__ import annotations
 
@@ -9,12 +11,18 @@ import torch
 
 from ..data.text import make_text_dataset, resolved_max_predictions
 from ..models import transformer as tfm
+from ..parallel.collectives import axis_index, axis_size
+from ..parallel.mesh import BATCH_AXES, MODEL
 from .runner import RunConfig, WorkloadParts
 
 
-def transformer_parts(cfg: RunConfig, device: torch.device, *, mlm: bool) -> WorkloadParts:
+def transformer_parts(cfg: RunConfig, device: torch.device, *, mlm: bool,
+                      mesh=None) -> WorkloadParts:
     """WorkloadParts for a Transformer workload: a trainable model with
-    random weights from ``cfg.train.seed`` on ``device``; the masked-LM
+    random weights from ``cfg.train.seed`` on ``device`` (this rank's
+    shards on ``mesh``, by the specs ``init_train_state`` computes: the
+    rules, then ``auto_fsdp_specs``; every rank of one data shard reads
+    that shard's rows of each batch); the masked-LM
     loss and eval (``mlm``, the encoder) or the next-token ones (the
     causal decoder, chunked when ``model.xent_chunk > 0``); the text
     stream, a held-out eval stream at a disjoint index range, and the
@@ -28,21 +36,29 @@ def transformer_parts(cfg: RunConfig, device: torch.device, *, mlm: bool) -> Wor
                          f"model.vocab_size={mcfg.vocab_size}")
     tfm.check_supported(mcfg)
     n_pred = resolved_max_predictions(cfg.data) if mlm else 0
+    specs = {} if mesh is None else tfm.transformer_specs(mcfg, mesh)
+    # every model rank of a data shard reads its rows (at model=1 the
+    # process's rows are the data shard's)
+    shard = None if mesh is None or mesh.shape[MODEL] == 1 else (
+        axis_index(BATCH_AXES, mesh), axis_size(BATCH_AXES, mesh))
     params = tfm.init_params(mcfg, seed=cfg.train.seed, device=device, trainable=True)
-    model = tfm.build(mcfg, params, device, trainable=True)
+    model = tfm.build(mcfg, params, device, trainable=True, mesh=mesh, specs=specs)
     return WorkloadParts(
         model=model,
         loss_fn=(tfm.mlm_loss_fn(model) if mlm
                  else tfm.causal_lm_loss(model, mcfg.xent_chunk)),
         eval_fn=(tfm.mlm_eval_fn(model) if mlm
                  else tfm.lm_eval_fn(model, mcfg.xent_chunk)),
-        dataset_fn=lambda start: make_text_dataset(cfg.data, index_offset=start),
+        dataset_fn=lambda start: make_text_dataset(cfg.data, index_offset=start, shard=shard),
         # held out for the synthetic streams (generated by index); for a
         # token file, other windows of the same corpus
         eval_dataset_fn=lambda n: make_text_dataset(cfg.data, num_batches=n,
-                                                    index_offset=10**6),
+                                                    index_offset=10**6, shard=shard),
         flops_per_step=tfm.flops_per_example(mcfg, cfg.data.seq_len,
                                              n_predictions=n_pred or None)
         * cfg.data.global_batch_size,
         batch_size=cfg.data.global_batch_size,
+        param_rules=tfm.transformer_rules(mcfg),
+        param_specs=specs,
+        fsdp=True,
     )

@@ -42,4 +42,4 @@ def default_config() -> RunConfig:
 
 
 def build(cfg: RunConfig, device: torch.device, mesh=None) -> WorkloadParts:
-    return transformer_parts(cfg, device, mlm=True)
+    return transformer_parts(cfg, device, mlm=True, mesh=mesh)

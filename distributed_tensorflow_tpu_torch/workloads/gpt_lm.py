@@ -40,7 +40,7 @@ def default_config() -> RunConfig:
 def build(cfg: RunConfig, device: torch.device, mesh=None) -> WorkloadParts:
     if not cfg.model.causal:
         raise ValueError("gpt_lm is a causal workload; set model.causal=True")
-    parts = transformer_parts(cfg, device, mlm=False)
+    parts = transformer_parts(cfg, device, mlm=False, mesh=mesh)
     if mesh is None or mesh.size == 1:
         return parts
     # Data-parallel: the step averages each rank's loss, a mean over its own

@@ -12,28 +12,30 @@ One process per card: under ``torchrun --nproc_per_node=N`` (or with
 group, the ``data`` axis absorbs them, each steps and evaluates on its
 rows of the global batch, and only the chief logs.
 
-A workload whose rule table (``WorkloadParts.param_rules``) shards
-parameters over the ``model`` axis may run with
-``mesh.model`` above 1 (Wide&Deep: tables range-sharded over ``model``,
-``parallel/sharding.py``): each rank builds its shard, the replicated
-weights are set to rank 0's over every axis and each table shard to the
-value of batch index 0 over the batch axes (``sharding.place``), and
-the gradients stay averaged over the batch axes only (``train/
-step.py``), which is right for both kinds — a table shard's gradient is
-its own rows' once (``ops/embedding.py``), and a replicated parameter's
-is the same on every rank of one data shard. The optimizer learns which
-parameters are shards (``Optimizer.place``), so that a global norm —
-``train.clip_grad_norm``, ``optimizer.clip_grad_norm``,
-``train.debug_metrics`` — is the whole tree's on every rank.
+A workload whose parameter specs (``WorkloadParts.param_specs``, or the
+matched ``param_rules``) shard parameters over the ``model`` axis may run
+with ``mesh.model`` above 1 (Wide&Deep: tables range-sharded over
+``model``; the transformers: megatron tensor parallelism and the
+vocab-parallel head, ``models/transformer.py``), and one whose parts set
+``fsdp`` (the transformers, as the JAX package's ``_transformer_common``)
+with ``mesh.fsdp`` above 1 (``auto_fsdp_specs``; the batch split over
+``data`` x ``fsdp``): each rank builds its shards, every tensor is set to
+the value of the rank holding the same shard at index 0 of the other
+axes (``sharding.place``), and the gradients are reduced by their spec
+(``train/step.py``). The optimizer learns each parameter's spec
+(``Optimizer.place``), so that a global norm — ``train.clip_grad_norm``,
+``optimizer.clip_grad_norm``, ``train.debug_metrics`` — is the whole
+tree's on every rank, and lamb's and adafactor's per-parameter sums are
+the whole parameter's. A checkpoint gathers each shard whole
+(``train/checkpoint.py``): a step dir restores at any mesh.
 
 The config tree keeps the JAX package's section names, so the same
 ``--section.key=value`` overrides parse; a config that asks for what the
-port does not have yet raises with the ROADMAP item named: a mesh axis
-other than ``data`` above 1 (``model`` but for a workload that shards its
-tables over it), a checkpoint directory at ``model`` above 1 (the sharded
-save), a pipeline, a fleet, the anomaly defense, sequence parallelism,
-MoE. An explicit ``data.eval_dataset`` a workload does not consume raises
-too.
+port does not have yet raises with the ROADMAP item named: ``seq``,
+``expert`` or ``pipe`` above 1 (item 6), ``model`` above 1 for a workload
+that shards nothing over it, ``fsdp`` above 1 for one whose parts do not
+ask for it, a fleet, the anomaly defense, MoE. An explicit
+``data.eval_dataset`` a workload does not consume raises too.
 """
 
 from __future__ import annotations
@@ -50,7 +52,7 @@ from ..data.pipeline import DevicePut, Prefetcher
 from ..data.text import TextDataConfig
 from ..parallel import cluster
 from ..parallel.cluster import ClusterConfig
-from ..parallel.mesh import MODEL, MeshSpec, build_mesh, describe
+from ..parallel.mesh import FSDP, MODEL, MeshSpec, build_mesh, describe
 from ..parallel import sharding
 from ..train import (
     OptimizerConfig,
@@ -127,6 +129,11 @@ class WorkloadParts:
     eval_dataset_fn: Callable[[int], Iterable] | None = None
     # the placement table of the model's parameters (None: all replicated)
     param_rules: sharding.PartitionRules | None = None
+    # each parameter's spec as the model was built with it (the rules,
+    # then auto_fsdp_specs); None: the rules matched on the model
+    param_specs: dict | None = None
+    # shard what the rules replicate over fsdp (JAX's fsdp=True)
+    fsdp: bool = False
     # model -> optimizer, when the workload builds its own (None: the
     # runner's make_optimizer(cfg.optimizer))
     optimizer_fn: Callable | None = None
@@ -154,16 +161,11 @@ def check_supported(cfg: RunConfig) -> None:
         raise ValueError(f"mesh.pipe={cfg.mesh.pipe}: pipeline parallelism is not ported "
                          f"yet (ROADMAP Queue A item 6, parallel/pipeline.py)")
     axes = cfg.mesh.sizes()
-    big = {k: v for k, v in axes.items() if k not in ("data", MODEL) and v != 1}
+    big = {k: v for k, v in axes.items() if k not in ("data", FSDP, MODEL) and v != 1}
     if big:
-        raise ValueError(f"mesh {big}: no axis but data (and model, for wide_deep's tables) "
-                         f"may span more than one process in the port so far (fsdp: ROADMAP "
-                         f"Queue A item 3.1's sharding rule tables; seq, expert: item 6)")
-    if axes[MODEL] != 1 and cfg.checkpoint.directory:
-        raise ValueError(
-            f"checkpoint.directory with mesh.model={axes[MODEL]}: the port's checkpoints "
-            f"are written by the chief alone and would drop the other model ranks' table "
-            f"shards (the sharded save: ROADMAP Queue A item 3.1)")
+        raise ValueError(f"mesh {big}: no axis but data, fsdp and model may span more than "
+                         f"one process in the port so far (seq: ring attention, expert: MoE, "
+                         f"ROADMAP Queue A item 6)")
     if cfg.fleet.dir:
         raise ValueError("fleet.dir: the fleet control plane is not ported yet "
                          "(ROADMAP Queue A item 6, resilience/)")
@@ -205,19 +207,31 @@ def setup(cfg: RunConfig, build, device="cuda"):
     return dev, mesh, parts, prepare(cfg, parts, mesh)
 
 
-def prepare(cfg: RunConfig, parts: WorkloadParts, mesh):
-    """``parts`` on ``mesh``: the workload's rule table matched on its
-    model (a ``model`` axis above 1 that it places nothing on is refused),
-    the weights placed (module docstring) and the optimizer built and
-    placed alike. Returns the optimizer."""
-    _check_eval_dataset_consumed(cfg, parts)
-    specs = ({} if parts.param_rules is None
-             else sharding.match_partition_rules(parts.param_rules, parts.model))
+def param_specs(cfg: RunConfig, parts: WorkloadParts, mesh) -> dict:
+    """The specs of ``parts.model``'s parameters on ``mesh``: the ones it
+    was built with, else its rule table matched; refused where the mesh
+    spans an axis the workload places nothing on (``model``) or does not
+    shard over (``fsdp`` without ``parts.fsdp``)."""
+    specs = (parts.param_specs if parts.param_specs is not None
+             else sharding.replicated_specs(parts.model) if parts.param_rules is None
+             else sharding.specs_from_rules(parts.model, parts.param_rules))
     if mesh.shape[MODEL] > 1 and MODEL not in sharding.sharded_axes(specs):
         raise ValueError(f"mesh.model={mesh.shape[MODEL]}: workload {cfg.workload!r} places "
-                         f"nothing on the model axis, so it may not span more than one "
-                         f"process (tensor parallelism: ROADMAP Queue A item 3.1's rule "
-                         f"tables)")
+                         f"nothing on the model axis (its parts give no rule table over "
+                         f"it), so it may not span more than one process there")
+    if mesh.shape[FSDP] > 1 and not parts.fsdp:
+        raise ValueError(f"mesh.fsdp={mesh.shape[FSDP]}: workload {cfg.workload!r} does not "
+                         f"shard its parameters over fsdp (its parts set fsdp=False, as the "
+                         f"JAX package's); spread its batch over mesh.data")
+    return specs
+
+
+def prepare(cfg: RunConfig, parts: WorkloadParts, mesh):
+    """``parts`` on ``mesh``: the parameters' specs (``param_specs``), the
+    weights placed (module docstring) and the optimizer built and placed
+    alike. Returns the optimizer."""
+    _check_eval_dataset_consumed(cfg, parts)
+    specs = param_specs(cfg, parts, mesh)
     sharding.place(parts.model, mesh, specs)
     optimizer = (parts.optimizer_fn(parts.model) if parts.optimizer_fn is not None
                  else make_optimizer(cfg.optimizer, parts.model.parameters()))

@@ -222,7 +222,7 @@ def test_flash_dispatch_cases_are_the_head_dims():
     switch = src[src.index("#define DTF_DISPATCH_D"):]
     switch = switch[:switch.index("default:")]
     cases = tuple(int(d) for d in re.findall(r"case (\d+): \{ constexpr int kD = \1;", switch))
-    assert cases == fa.HEAD_DIMS == (32, 64, 128)
+    assert cases == fa.HEAD_DIMS == (32, 64, 128, 256)
 
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

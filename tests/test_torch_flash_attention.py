@@ -194,33 +194,42 @@ def test_backward_wrappers_pass_out_through_its_strides():
 
 def test_kernels_take_head_dims_32_64_128_and_name_queue_c_for_others():
     """The kernels are instantiated at ``HEAD_DIMS`` (32 — the MLM/LM
-    demos' d_model 128 over 4 heads — 64 and 128), and the wrappers'
-    argument check lets only those through. ``flash_attention`` takes any
-    head dim up to 128: 8 and 16 (the JAX package's tools' shapes) are
-    zero-padded to 32, 48 to 64; above 128 it refuses, naming ROADMAP Queue
-    C, rather than falling back to dense."""
-    assert tfa.HEAD_DIMS == (32, 64, 128)
+    demos' d_model 128 over 4 heads — 64, 128 and 256, Gemma's), and the
+    wrappers' argument check lets only those through (f32 only up to 128:
+    its check kernels' tiles of a 256-wide head exceed shared memory).
+    ``flash_attention`` takes any head dim up to 256: 8 and 16 (the JAX
+    package's tools' shapes) are zero-padded to 32, 48 to 64, 192 to 256;
+    above 256 it refuses, naming ROADMAP Queue C, rather than falling back
+    to dense."""
+    assert tfa.HEAD_DIMS == (32, 64, 128, 256)
+    assert tfa.F32_HEAD_DIMS == (32, 64, 128)
     for d in tfa.HEAD_DIMS:
-        q = torch.zeros(1, 2, 8, d)
+        q = torch.zeros(1, 2, 8, d, dtype=torch.bfloat16)
         assert tfa._check(q, q, q, None) is None
         assert tfa.padded_head_dim(d) == d
-    assert [tfa.padded_head_dim(d) for d in (8, 16, 24, 48, 100)] == [32, 32, 32, 64, 128]
+    assert [tfa.padded_head_dim(d) for d in (8, 16, 24, 48, 100, 129, 192, 255)] == [
+        32, 32, 32, 64, 128, 256, 256, 256]
     for d in (8, 16):
         q = torch.zeros(1, 2, 8, d)
         with pytest.raises(ValueError, match=f"head_dim {d}.*zero-pads"):
             tfa._check(q, q, q, None)
         assert tfa.flash_attention(q, q, q).shape == (1, 2, 8, d)
-    for d in (192, 256):
+    q = torch.zeros(1, 2, 8, 256)
+    with pytest.raises(ValueError, match="head_dim 256 in f32.*ROADMAP Queue C"):
+        tfa._check(q, q, q, None)
+    assert tfa.flash_attention(q, q, q).shape == (1, 2, 8, 256)  # the CPU's plain path
+    for d in (257, 320):
         q = torch.zeros(1, 2, 8, d)
-        with pytest.raises(ValueError, match=f"head_dim {d}.*ROADMAP Queue C"):
+        with pytest.raises(ValueError, match=f"head_dim {d}.*ROADMAP Queue C.*no public"):
             tfa.flash_attention(q, q, q)
 
 
-@pytest.mark.parametrize("d", [8, 16])
+@pytest.mark.parametrize("d", [8, 16, 192, 256])
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
 def test_padded_head_dims_match_jax_flash(d, causal):
     """Head dims 8 and 16 through ``flash_attention`` (zero-padded to 32,
-    the softmax scale of the original D, the output sliced back) against
+    192 to 256, 256 as it is; the softmax scale of the original D, the
+    output sliced back) against
     JAX's flash in interpret mode at that D: the output and the gradients
     of (out*out).sum() with a kv_mask, f32 (forward 2e-5, gradients 1e-4,
     the tolerances above). The launches would be counted at D=32 for a

@@ -378,6 +378,68 @@ def test_flash_kernels_at_head_dim_32_match_plain_on_card(card, dtype):
             assert _rel_l2(got, w) <= FLASH_REL_L2[dtype], (name, case, _rel_l2(got, w))
 
 
+#: (B, H, Sq, Sk, D, causal, masked): the D = 256 instantiation (bf16: the
+#: f32 check kernels stop at 128) — causal, with the tiles' and a padded
+#: mask, ragged edges — and D = 192 through ``flash_attention`` (padded to
+#: 256)
+FLASH_D256_CASES = [
+    (2, 4, 300, 300, 256, True, True),
+    (1, 2, 1024, 1024, 256, True, False),
+    (2, 2, 512, 512, 256, False, "padded"),
+    (2, 2, 150, 200, 256, True, "tiles"),
+    (2, 3, 257, 257, 192, True, True),
+    (1, 2, 130, 300, 192, False, False),
+]
+
+
+@pytest.mark.cuda
+def test_flash_kernels_at_head_dims_192_and_256_match_plain_on_card(card):
+    """The D = 256 kernels against the plain versions at the gates of
+    ``test_flash_kernels_match_plain_on_card`` (bf16, elementwise and
+    relative L2), each launch booked at 256; D = 192 through
+    ``flash_attention`` (zero-padded to 256, sliced back) against the plain
+    versions at 192, through autograd, booked at 256 for a caller at 192."""
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(256)
+    dtype = torch.bfloat16
+    atol, rtol = TOLS[dtype]
+    wrappers = (fa.flash_fwd, fa.flash_bwd_dkv, fa.flash_bwd_dq)
+    for B, H, Sq, Sk, D, causal, masked in FLASH_D256_CASES:
+        q, k, v, mask, dout = _flash_inputs(rng, card, dtype, B, H, Sq, Sk, D, masked)
+        case = (B, H, Sq, Sk, D, causal, masked)
+        counts = [(w.launches_by_d.get(256, 0), w.launches_by_asked_d.get(D, 0))
+                  for w in wrappers]
+        if D == 256:
+            out, lse = fa.flash_fwd(q, k, v, mask, causal=causal)
+            dk, dv = fa.flash_bwd_dkv(q, k, v, mask, out, lse, dout, causal=causal)
+            dq = fa.flash_bwd_dq(q, k, v, mask, out, lse, dout, causal=causal)
+            want = fa.flash_attention_bwd_plain(q, k, v, mask, out, lse, dout, causal=causal)
+        else:
+            _, lse = fa.flash_fwd(*(F.pad(t, (0, 256 - D)) for t in (q, k, v)), mask,
+                                  causal=causal, sm_scale=D ** -0.5)
+            counts = [(a + (w is fa.flash_fwd), b) for (a, b), w in zip(counts, wrappers)]
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = fa.flash_attention(*leaves, causal=causal, kv_mask=mask)
+            dq, dk, dv = torch.autograd.grad(out, leaves, dout)
+            want = fa.flash_attention_bwd_plain(q, k, v, mask, out.detach(), lse, dout,
+                                                causal=causal)
+        torch.cuda.synchronize()
+        assert [(w.launches_by_d.get(256, 0), w.launches_by_asked_d.get(D, 0))
+                for w in wrappers] == [(a + 1, b + 1) for a, b in counts], case
+        want_out, want_lse = fa.flash_attention_plain(q, k, v, mask, causal=causal)
+        torch.testing.assert_close(out.float(), want_out.float(), atol=atol, rtol=rtol,
+                                   msg=lambda m: f"out {case}: {m}")
+        torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5,
+                                   msg=lambda m: f"lse {case}: {m}")
+        assert _rel_l2(out, want_out) <= FLASH_FWD_REL_L2[dtype], (
+            "out", case, _rel_l2(out, want_out))
+        for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+            torch.testing.assert_close(got.float(), w.float(), atol=atol, rtol=rtol,
+                                       msg=lambda m: f"{name} {case}: {m}")
+            assert _rel_l2(got, w) <= FLASH_REL_L2[dtype], (name, case, _rel_l2(got, w))
+
+
 #: head dims the kernels are not built for, zero-padded to 32 by
 #: ``flash_attention`` (the JAX package's tools' d_model 64 over 8 and 4
 #: heads), causal and not, with and without a kv_mask; a ragged edge
@@ -589,8 +651,16 @@ def test_flash_wrappers_raise_on_what_the_kernels_do_not_take(card):
     with pytest.raises(TypeError):
         fa.flash_fwd(q, q, q)
     q = torch.zeros(1, 2, 64, 16, device=card)
-    with pytest.raises(ValueError, match="head_dim 16.*ROADMAP Queue C"):
+    with pytest.raises(ValueError, match="head_dim 16.*flash_attention zero-pads"):
         fa.flash_fwd(q, q, q)
+    # head dims up to 256 are taken (bf16; f32 up to 128), larger ones not
+    q = torch.zeros(1, 2, 64, 256, device=card, dtype=torch.bfloat16)
+    assert fa.flash_fwd(q, q, q)[0].shape == q.shape
+    with pytest.raises(ValueError, match="head_dim 256 in f32.*ROADMAP Queue C"):
+        fa.flash_fwd(q.float(), q.float(), q.float())
+    q = torch.zeros(1, 2, 64, 320, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim 320.*ROADMAP Queue C"):
+        fa.flash_attention(q, q, q)
     buf = torch.zeros(1 * 2 * 64 * 64 + 1, device=card, dtype=torch.bfloat16)
     q = buf[1:].view(1, 2, 64, 64)  # 2 bytes past a 16-byte boundary
     with pytest.raises(ValueError, match="16 bytes"):
@@ -1695,3 +1765,66 @@ def test_wide_deep_steps_on_card_are_bitwise_repeatable(card):
     assert la == lb and np.isfinite(la).all()
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert la != lc and not all(torch.equal(a[k], c[k]) for k in a)
+
+
+@pytest.mark.cuda
+def test_tp_gpt_steps_on_card_equal_one_process(card, tmp_path):
+    """Two gloo processes on card 0 (``tests/torch_dp_worker.py``'s ``tp``
+    job) step a causal Transformer (d_model 256 over 4 heads, so each rank
+    runs 2 heads of 64 through the flash kernels; the fused LN+matmul path
+    with the pallas backward on its column shards; the chunked loss over a
+    vocab of 1001, which 2 does not divide) at model=2, f32, three adamw
+    steps, against one process on the card: the losses within rtol 1e-4,
+    each parameter's update within relative L2 1e-3 (f32, other summation
+    orders; the key bias, whose gradient is 0 in exact arithmetic, left
+    out), both ranks bitwise alike; every rank launched the flash and
+    LN+matmul kernels."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    import torch_dp_worker as worker
+
+    cfg = dataclasses.replace(tfm.gpt_small(causal_len=128), num_layers=2, d_model=256,
+                              num_heads=4, d_ff=512, vocab_size=1001, dtype="float32",
+                              dropout=0.0, fused_ln_matmul=True, xent_chunk=64)
+    rng = np.random.default_rng(14)
+    batches = [{"input_ids": rng.integers(0, 1001, (4, 128)).astype(np.int32)}
+               for _ in range(3)]
+    env = {"DTF_FUSED_BWD": "pallas"}
+    case = dict(tag="tp", seed=3, cfg=dataclasses.asdict(cfg), mesh={"model": 2},
+                optimizer=dict(name="adamw", learning_rate=1e-3, weight_decay=0.01),
+                options={}, chunk=64, save=False, env=env)
+    inputs = str(tmp_path / "inputs.npz")
+    np.savez(inputs, **{f"tp/train{i}/input_ids": b["input_ids"] for i, b in enumerate(batches)})
+    procs = worker.launch({"job": "tp", "device": "cuda", "backend": "gloo",
+                           "out": str(tmp_path), "inputs": inputs, "cases": [case]})
+    old = os.environ.get("DTF_FUSED_BWD")
+    os.environ.update(env)
+    try:
+        one = worker.tp_steps(dict(case), None, batches, [], card)
+    except BaseException:
+        worker.stop(procs)
+        raise
+    finally:
+        if old is None:
+            os.environ.pop("DTF_FUSED_BWD")
+        else:
+            os.environ["DTF_FUSED_BWD"] = old
+    ranks = worker.wait(procs, str(tmp_path), timeout=300)
+    init = {k: v.float().cpu().numpy() for k, v in
+            tfm.init_params(cfg, seed=3, device=card, trainable=True).items()}
+    for rank in ranks:
+        np.testing.assert_allclose(rank["tp/losses"], one["losses"], rtol=1e-4)
+        assert not rank["tp/drift"].any()
+        for n in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "ln_matmul",
+                  "ln_matmul_bwd_dx", "ln_matmul_bwd_dw"):
+            assert int(rank[f"tp/launches/{n}"]) > 0, n
+    for k in (k for k in ranks[0] if k.startswith("tp/whole/")):
+        np.testing.assert_array_equal(ranks[1][k], ranks[0][k], err_msg=k)
+    for k, v in one.items():
+        if not k.startswith("whole/model/") or k.endswith("attn.key.bias"):
+            continue
+        name = k[len("whole/model/"):]
+        du, dw = ranks[0]["tp/" + k] - init[name], v - init[name]
+        assert np.linalg.norm(du - dw) / max(np.linalg.norm(dw), 1e-30) <= 1e-3, name

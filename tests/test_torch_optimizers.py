@@ -148,12 +148,21 @@ def test_adafactor_state_round_trips_through_the_checkpoint_leaves():
 
 @pytest.mark.parametrize("name", ["lamb", "adafactor"])
 def test_whole_leaf_norms_refuse_a_model_shard(name):
+    """lamb and adafactor take a shard now: ``place`` gives the sharded
+    leaf its ``Layout`` (the whole shape, the axis of each dim), which
+    their per-parameter sums read; a replicated leaf keeps the one-process
+    path (no layout). The sums over the ranks are the four-rank job's
+    (``tests/test_torch_tensor_parallel.py``)."""
     model = torch.nn.Linear(4, 4)
     opt = topt.make_optimizer(topt.OptimizerConfig(name=name), model.parameters())
     mesh = tmesh.Mesh(dict(tmesh.MeshSpec(data=1, model=2).sizes()), torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="item 3.1"):
-        opt.place(mesh, {"weight": ("model", None)}, model)
-    opt.place(mesh, {}, model)  # nothing sharded: fine
+    opt.place(mesh, {"weight": ("model", None)}, model)
+    lay = opt.layouts[0]
+    assert lay.dims == ((8, "model"), (4, None)) and lay.axes == ("model",)
+    assert lay.numel == 32 and opt.layouts[1] is None
+    assert list(opt.opt.layouts) == [model.weight]
+    opt.place(mesh, {}, model)  # nothing sharded
+    assert opt.layouts == [None, None] and opt.opt.layouts == {}
 
 
 def test_lamb_trust_ratio_is_exact_on_a_large_leaf():

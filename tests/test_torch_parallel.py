@@ -205,7 +205,43 @@ def test_divergence_check_broadcast_from_chief_and_replicate(ranks):
 
 
 def test_mesh_refuses_other_axes_and_collectives_not_ported(ranks):
-    want = ["item 3.1", "item 3.1", "item 6", "item 6", "item 6"]
+    """fsdp and tensor-parallel specs and an fsdp mesh are admitted now:
+    a pipeline stage spec and a seq axis name item 6, as the subgroup and
+    MoE / ring collectives do."""
+    want = ["item 6", "item 6", "item 6", "item 6", "item 6"]
     for r in ranks:
         for msg, item in zip(r["refusals"].tolist(), want):
             assert item in msg and "ROADMAP" in msg, msg
+
+
+def test_reduce_from_model_sums_forward_and_passes_the_gradient(ranks):
+    """``reduce_from_model``: the all-reduce forward, each rank's own
+    cotangent backward (its partial product's gradient once)."""
+    xs = _xs(ranks)
+    for r in ranks:
+        np.testing.assert_array_equal(r["reduce_from_model"], xs[0] + xs[1])
+        np.testing.assert_array_equal(r["reduce_from_model_grad"], r["c"])
+
+
+def test_copy_to_model_is_the_identity_with_a_summed_gradient(ranks):
+    c = sum(r["c"] for r in ranks)
+    for r in ranks:
+        np.testing.assert_array_equal(r["copy_to_model_grad"], c)
+
+
+def test_all_reduce_max_and_min_over_model(ranks):
+    xs = _xs(ranks)
+    for r in ranks:
+        np.testing.assert_array_equal(r["max"], np.maximum(*xs))
+        np.testing.assert_array_equal(r["min"], np.minimum(*xs))
+
+
+def test_gather_fsdp_gathers_forward_and_reduce_scatters_backward(ranks):
+    """``gather_fsdp`` along dim 1 (the gloo all-gather: an all-reduce of
+    a zero-filled buffer): the ranks' shards side by side; the backward
+    the cotangent summed over the two ranks, each rank its columns."""
+    xs = _xs(ranks)
+    cot = np.arange(16.0, dtype=np.float32).reshape(2, 8)
+    for i, r in enumerate(ranks):
+        np.testing.assert_array_equal(r["gather_fsdp"], np.concatenate(xs, 1))
+        np.testing.assert_array_equal(r["gather_fsdp_grad"], 2 * cot[:, 4 * i:4 * (i + 1)])

@@ -249,7 +249,7 @@ def test_run_workload_steps_with_deterministic_cudnn_and_restores_it(monkeypatch
     ("--data.eval_dataset=synthetic", "does not support data.eval_dataset"),
     ("--data.channels=1", "3 channels"),
     ("--model.block_impl=pallas", "block_impl"),
-    ("--mesh.fsdp=2", "more than one"),
+    ("--mesh.fsdp=2", "spans more than one process.*torchrun"),
 ])
 def test_resnet_unsupported_configs_raise(override, match):
     with pytest.raises((ValueError, NotImplementedError), match=match):

@@ -305,11 +305,22 @@ def test_coverage_and_dead_rule_errors_are_raised_alike():
 
 
 def test_placement_refuses_what_the_port_cannot_place():
-    with pytest.raises(NotImplementedError, match="item 3.1"):
-        tsh.check_spec(("fsdp", None), "w")
-    with pytest.raises(NotImplementedError, match="item 3.1"):
-        tsh.check_spec((None, "model"), "w")
+    """fsdp and tensor-parallel specs are placeable now (a dim over one of
+    fsdp and model); the stacked stage, ring and MoE axes name item 6, and
+    the batch axis, two axes on one dim or one axis on two dims raise."""
     assert tsh.check_spec(["model", None]) == ("model", None)
+    assert tsh.check_spec(("fsdp", None), "w") == ("fsdp", None)
+    assert tsh.check_spec((None, "model"), "w") == (None, "model")
+    assert tsh.check_spec(("fsdp", "model"), "w") == ("fsdp", "model")
+    for axis in ("pipe", "seq", "expert"):
+        with pytest.raises(NotImplementedError, match="item 6"):
+            tsh.check_spec((axis, None), "w")
+    with pytest.raises(ValueError, match="batch axis"):
+        tsh.check_spec(("data", None), "w")
+    with pytest.raises(NotImplementedError, match="at most one"):
+        tsh.check_spec((("fsdp", "model"), None), "w")
+    with pytest.raises(NotImplementedError, match="at most one"):
+        tsh.check_spec(("model", "model"), "w")
 
 
 # -- optimizers ------------------------------------------------------------------
@@ -556,8 +567,11 @@ def test_run_workload_trains_wide_deep_on_the_cpu():
 
 
 @pytest.mark.parametrize("override,match", [
-    ("--checkpoint.directory=/tmp/never", "item 3.1"),
-    ("--mesh.fsdp=2", "item 3.1"),
+    # admitted now (the sharded save; fsdp for the workloads that ask for
+    # it): one process is sent to torchrun, and wide_deep's fsdp=2 is
+    # refused by its parts on four ranks (the dp22 job)
+    ("--checkpoint.directory=/tmp/never", "spans more than one process.*torchrun"),
+    ("--mesh.fsdp=2", "spans more than one process.*torchrun"),
     ("--mesh.seq=2", "item 6"),
     ("--mesh.expert=2", "item 6"),
     ("--mesh.pipe=2", "item 6"),
@@ -575,16 +589,29 @@ def test_wide_deep_refusals_name_their_roadmap_item(override, match):
 
 @pytest.mark.parametrize("workload", ["gpt_lm", "resnet50_imagenet"])
 def test_other_workloads_refuse_the_model_axis(workload):
-    """Their parts place nothing on ``model``: the runner's placement
-    refuses a model axis of 2 (here on a mesh of that shape, before any
-    collective; the four-rank job below refuses it end to end), and one
-    process is sent to torchrun first."""
+    """resnet's parts place nothing on ``model`` and do not ask for
+    ``fsdp``: the runner's spec step refuses a model axis of 2 and an fsdp
+    axis of 2 (here on meshes of that shape, before any collective; the
+    four-rank job below refuses them end to end). gpt_lm shards over both
+    now (megatron, ``auto_fsdp_specs``): its specs pass. One process is
+    sent to torchrun first either way."""
     mod = get_workload(workload)
     cfg = tconfig.apply_overrides(mod.default_config(), OTHER_TINY[workload])
     parts = mod.build(cfg, torch.device("cpu"), tmesh.build_mesh(device="cpu"))
-    shape = dict(tmesh.MeshSpec(data=1, model=2).sizes())
-    with pytest.raises(ValueError, match="item 3.1"):
-        trunner.prepare(cfg, parts, tmesh.Mesh(shape, torch.device("cpu")))
+    cpu = torch.device("cpu")
+    model2 = tmesh.Mesh(dict(tmesh.MeshSpec(data=1, model=2).sizes()), cpu)
+    fsdp2 = tmesh.Mesh(dict(tmesh.MeshSpec(data=1, fsdp=2).sizes()), cpu)
+    if workload == "gpt_lm":
+        specs = trunner.param_specs(cfg, parts, model2)
+        assert specs["layers.0.mlp_in.weight"] == ("model", None)
+        assert specs["layers.0.mlp_out.weight"] == (None, "model")
+        assert specs["tok_embed.weight"] == ("model", None)
+        assert trunner.param_specs(cfg, parts, fsdp2) is specs
+    else:
+        with pytest.raises(ValueError, match="places nothing on the model axis"):
+            trunner.prepare(cfg, parts, model2)
+        with pytest.raises(ValueError, match="fsdp=False"):
+            trunner.prepare(cfg, parts, fsdp2)
     with pytest.raises(ValueError, match="torchrun"):
         run_workload(workload, ["--mesh.model=2"], device="cpu")
 
@@ -646,8 +673,10 @@ def dp22(tmp_path_factory, devices):
     np.savez(inputs, **{f"sd/{k}": v for k, v in sd.items()},
              **{f"train{i}/{k}": v for i, b in enumerate(train) for k, v in b.items()},
              **{f"eval{i}/{k}": v for i, b in enumerate(evals) for k, v in b.items()})
+    ckpt = os.path.join(out, "ck")
     runner = TINY[:-1] + ["--mesh.model=2", "--mesh.data=2", "--train.num_steps=3",
-                          "--train.eval_batches=1", "--optimizer.learning_rate=0.05"]
+                          "--train.eval_batches=1", "--optimizer.learning_rate=0.05",
+                          f"--checkpoint.directory={ckpt}"]
     procs = worker.launch({"job": "wide_deep", "device": "cpu", "out": out,
                            "mesh": {"data": 2, "model": 2},
                            "lookups": os.path.join(out, "look.npz"), "inputs": inputs,
@@ -659,7 +688,10 @@ def dp22(tmp_path_factory, devices):
                            "runner": runner,
                            "refuse": {"resnet50_imagenet": OTHER_TINY["resnet50_imagenet"]
                                       + ["--mesh.model=2", "--mesh.data=2",
-                                         "--train.num_steps=1"]}}, world=4)
+                                         "--train.num_steps=1"],
+                                      "wide_deep": TINY + ["--mesh.fsdp=2", "--mesh.data=2",
+                                                           "--train.num_steps=1"]}},
+                          world=4)
     try:
         jlook = _jax_lookups(look["ids"], look["table"], look["cot"], mesh)
         _, jlosses, jstates, jmodel = _jax_train_from(params, jcfg, train, mesh)
@@ -676,6 +708,7 @@ def dp22(tmp_path_factory, devices):
         worker.stop(procs)
         raise
     return {"ranks": worker.wait(procs, out, timeout=300), "look": look, "jlook": jlook,
+            "ckpt": ckpt,
             "jlosses": jlosses, "jparams": jstates[-1], "jtot": jtot, "tcfg": tcfg,
             "init": params, "jclip": jclip}
 
@@ -805,4 +838,40 @@ def test_dp22_clipped_steps_match_the_jax_2x2_mesh(dp22):
 def test_dp22_resnet_refuses_the_model_axis_on_four_ranks(dp22):
     for rank in dp22["ranks"]:
         msg = str(rank["refused/resnet50_imagenet"])
-        assert "places nothing on the model axis" in msg and "item 3.1" in msg, msg
+        assert "places nothing on the model axis" in msg and "no rule table" in msg, msg
+
+
+def test_dp22_wide_deep_refuses_fsdp_on_four_ranks(dp22):
+    """wide_deep's parts do not ask for fsdp (the JAX package's do not):
+    fsdp=2 over four ranks is refused by the runner's spec step."""
+    for rank in dp22["ranks"]:
+        msg = str(rank["refused/wide_deep"])
+        assert "does not shard its parameters over fsdp" in msg, msg
+
+
+def test_dp22_sharded_save_restores_bitwise_in_one_process_and_at_the_mesh(dp22, tmp_path):
+    """The runner at data=2 x model=2 saved its final step with the tables
+    gathered whole by the chief: one process restores it (model=1) with
+    every parameter bitwise the ranks' reassembled ones and the optimizer
+    state whole, and the four ranks resuming from it at their mesh hold
+    their shards bitwise (``runner/resumed/``)."""
+    ranks, tcfg = dp22["ranks"], dp22["tcfg"]
+    over = TINY[:-1] + ["--mesh.model=1", "--train.num_steps=3", "--train.eval_batches=0",
+                        "--optimizer.learning_rate=0.05",
+                        f"--checkpoint.directory={dp22['ckpt']}"]
+    res = run_workload("wide_deep", over, device="cpu")
+    assert res.state.step == 3 and res.history == []
+    sds = [{k[len("runner/state/"):]: torch.as_tensor(v) for k, v in r.items()
+            if k.startswith("runner/state/")} for r in ranks[:2]]
+    got = wide_deep_to_jax(sds, tcfg)
+    want = wide_deep_to_jax([res.state.model.state_dict()], tcfg)
+    for k in want:
+        jax.tree.map(lambda a, b: np.testing.assert_array_equal(a, b, err_msg=k), got[k],
+                     want[k])
+    leaves = dict(tstep.state_leaves(res.state))
+    assert leaves["optimizer/0/sum"].shape == (64, 8)  # table_0, whole
+    for r in ranks:
+        assert int(r["runner/resumed/step"]) == 3
+        for k in (k for k in r if k.startswith("runner/state/")):
+            np.testing.assert_array_equal(r["runner/resumed/" + k[len("runner/"):]], r[k],
+                                          err_msg=k)

@@ -28,9 +28,10 @@ exits non-zero on any failure. The spec's ``job``:
   (``eval_both``). With ``dropout``: the same steps again from ``sd`` at
   that dropout rate (``dropout/losses``, ``dropout/state/<name>``).
 - ``"parallel"``: the collectives, the differentiable all-reduce, the
-  divergence check, ``broadcast_from_chief``, ``replicate`` and the
-  refusals (a tensor-parallel spec, the mesh's, the collectives'), each
-  result saved for the test to hold against numpy.
+  megatron pair and ``gather_fsdp`` (on a model=2 and an fsdp=2 mesh of
+  the two ranks), the divergence check, ``broadcast_from_chief``,
+  ``replicate`` and the refusals (a stage spec, the mesh's, the
+  collectives'), each result saved for the test to hold against numpy.
 - ``"ckpt"``: ``run_workload(workload, overrides)`` (its
   ``--checkpoint.directory`` among them) once per entry of ``runs``, each
   ``{"num_steps", "sigterm": {rank: step}, "kill_at": step}``: a
@@ -61,8 +62,10 @@ exits non-zero on any failure. The spec's ``job``:
   totals over the eval batches, and with ``clip`` (``optimizer`` and
   step ``options``) the same steps clipped, with their ``grad_norm``s;
   with ``runner``, ``run_workload("wide_deep", runner)``'s losses, this
-  rank's parameters and its eval; with ``refuse`` (workload -> overrides),
-  the message each such ``run_workload`` raises.
+  rank's parameters and its eval (with a ``--checkpoint.directory`` among
+  them, the same run again, resumed from its save: ``runner/resumed/``);
+  with ``refuse`` (workload -> overrides), the message each such
+  ``run_workload`` raises.
 
 - ``"gpt"``: a causal Transformer of ``cfg`` built from ``sd`` in
   ``inputs``, stepped with ``optimizer`` and the chunked LM loss
@@ -80,8 +83,16 @@ exits non-zero on any failure. The spec's ``job``:
   ``runner``: also ``run_workload("cifar10_cnn", runner)``'s losses and
   mesh, and the check that every rank ends with the same weights.
 
-``train_steps``, ``bert_steps``, ``wide_deep_steps`` and ``cnn_steps`` are
-also what the one-process references run (no mesh);
+- ``"tp"``: tensor and fully-sharded data parallelism: each of ``cases``
+  (a Transformer config, a mesh such as ``{"fsdp": 2, "model": 2}``, an
+  optimizer, step options, the chunked LM or the MLM loss) stepped on
+  its global batches (``tp_steps``: losses, norms, the replicated
+  parameters' drift across ranks after each step, the state gathered
+  whole, the evaluator's totals, a save and its restore at the mesh),
+  and with ``runner`` each workload's ``run_workload`` at its mesh.
+
+``train_steps``, ``bert_steps``, ``wide_deep_steps``, ``cnn_steps`` and
+``tp_steps`` are also what the one-process references run (no mesh);
 ``launch`` starts the ranks of a spec, ``wait`` collects them and
 ``stop`` kills them.
 """
@@ -92,6 +103,7 @@ import dataclasses
 import json
 import os
 import sys
+import time
 
 import numpy as np
 import torch
@@ -322,9 +334,28 @@ def job_parallel(spec: dict, dev, mesh) -> dict:
         lin.bias.fill_(float(-r))
     replicate(lin, mesh)
     out["replicated"] = torch.cat([lin.weight.flatten(), lin.bias]).detach().numpy()
+    # the megatron pair and the fsdp gather, on a model=2 and an fsdp=2 mesh
+    # of the same two ranks
+    for axis in ("model", "fsdp"):
+        m2 = build_mesh(MeshSpec(data=1, **{axis: 2}), dev)
+        xg = x.clone().requires_grad_(True)
+        if axis == "model":
+            y = col.reduce_from_model(xg, m2)
+            (y * c).sum().backward()
+            out["reduce_from_model"], out["reduce_from_model_grad"] = y.detach().numpy(), \
+                xg.grad.numpy()
+            xg = x.clone().requires_grad_(True)
+            (col.copy_to_model(xg, m2) * c).sum().backward()
+            out["copy_to_model_grad"] = xg.grad.numpy()
+            out["max"] = col.all_reduce_max(x, "model", m2).numpy()
+            out["min"] = col.all_reduce_min(x, "model", m2).numpy()
+        else:
+            y = col.gather_fsdp(xg, 1, m2)
+            (y * torch.arange(16.0).reshape(2, 8)).sum().backward()
+            out["gather_fsdp"], out["gather_fsdp_grad"] = y.detach().numpy(), xg.grad.numpy()
     refusals = []
-    for call in (lambda: check_spec((None, "model"), "kernel"),
-                 lambda: build_mesh(MeshSpec(data=1, fsdp=2), dev),
+    for call in (lambda: check_spec(("pipe", None), "kernel"),
+                 lambda: build_mesh(MeshSpec(data=1, seq=2), dev),
                  lambda: col.all_reduce(x, "data", mesh, groups=[[0, 1]]),
                  lambda: col.all_to_all(x, "data", mesh, split_axis=0, concat_axis=1),
                  lambda: col.ring_permute(x, "data", mesh)):
@@ -524,6 +555,12 @@ def job_wide_deep(spec: dict, dev, mesh) -> dict:
                     for k, v in res.state.model.state_dict().items()})
         out.update({f"runner/eval/{k}": np.asarray(v)
                     for k, v in (res.eval_metrics or {}).items()})
+        if any(a.startswith("--checkpoint.directory") for a in spec["runner"]):
+            # the same run again: it resumes at its last step from the save
+            res = run_workload("wide_deep", spec["runner"], device=str(dev))
+            out["runner/resumed/step"] = np.asarray(res.state.step)
+            out.update({f"runner/resumed/state/{k}": v.detach().float().cpu().numpy()
+                        for k, v in res.state.model.state_dict().items()})
     for name, over in spec.get("refuse", {}).items():  # workloads that shard nothing
         try:
             run_workload(name, over, device=str(dev))
@@ -611,6 +648,159 @@ def job_gpt(spec: dict, dev, mesh) -> dict:
     return out
 
 
+def tp_steps(case: dict, sd: dict, batches: list[dict], evals: list[dict], device, mesh=None,
+             ckpt_dir: str | None = None) -> dict:
+    """``len(batches)`` steps of a Transformer of ``case["cfg"]`` from the
+    whole state dict ``sd`` (this rank's shards over ``mesh``: its
+    ``transformer_specs``), ``case["optimizer"]`` placed on the mesh and
+    the step's ``StepOptions(**case["options"])``, each batch the global
+    one and this rank stepping on its data shard's rows; the causal LM
+    loss chunked at ``case["chunk"]`` or the MLM loss (``case["mlm"]``).
+    After each step, the largest difference of a replicated parameter
+    across the ranks (0: bitwise equal). Then the state gathered whole
+    (``whole/``), the ``ShardedEvaluator``'s totals over ``evals``, and with
+    ``ckpt_dir`` a save there and a restore of it into a fresh state at the
+    same mesh, held bitwise against the saved one (``restored_equal``).
+    Without a mesh: one process on the global batches. Also each flash
+    and LN+matmul wrapper's launches during the steps (``launches/``) and
+    each step's wall ms. ``case["whole"]``: ``"params"`` keeps only the
+    gathered parameters, on rank 0 alone, and every rank a SHA-256 of each
+    gathered leaf's bytes (``digest/``), for states too large to save
+    whole on every rank."""
+    from distributed_tensorflow_tpu_torch.models import transformer as ttfm
+    from distributed_tensorflow_tpu_torch.obs.registry import Registry
+    from distributed_tensorflow_tpu_torch.parallel import collectives as col
+    from distributed_tensorflow_tpu_torch.train import checkpoint as tck
+    from distributed_tensorflow_tpu_torch.train.evaluation import ShardedEvaluator
+
+    device = torch.device(device)
+    cfg = ttfm.TransformerConfig(**case["cfg"])
+    specs = {} if mesh is None else ttfm.transformer_specs(cfg, mesh)
+    if sd is None:  # random weights from the case's seed, made on the device
+        sd = ttfm.init_params(cfg, seed=case["seed"], device=device, trainable=True)
+
+    def fresh():
+        model = ttfm.build(cfg, {k: torch.as_tensor(v) for k, v in sd.items()}, device,
+                           trainable=True, mesh=mesh, specs=specs)
+        opt = topt.make_optimizer(topt.OptimizerConfig(**case["optimizer"]),
+                                  model.parameters())
+        if mesh is not None:
+            opt.place(mesh, specs, model)
+        return tstep.init_train_state(model, opt)
+
+    state = fresh()
+    model = state.model
+    loss_fn = (ttfm.mlm_loss_fn(model) if case.get("mlm")
+               else ttfm.causal_lm_loss(model, case.get("chunk", 0)))
+    step = tstep.make_train_step(loss_fn, tstep.StepOptions(**case.get("options", {})),
+                                 mesh=mesh)
+    replicated = [n for n, _ in model.named_parameters() if not any(specs.get(n, ()))]
+    from distributed_tensorflow_tpu_torch.ops import fused_ln_matmul as lnm
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+
+    counters = {"flash_fwd": fa.flash_fwd, "flash_bwd_dkv": fa.flash_bwd_dkv,
+                "flash_bwd_dq": fa.flash_bwd_dq, "ln_matmul": lnm.ln_matmul,
+                "ln_matmul_bwd_dx": lnm.ln_matmul_bwd_dx, "ln_matmul_bwd_dw": lnm.ln_matmul_bwd_dw}
+    before = {n: w.launches for n, w in counters.items()}
+    losses, norms, drift, step_ms = [], [], [], []
+    for b in batches:
+        rows = shard_host_batch(b, mesh) if mesh is not None else b
+        rows = {k: torch.as_tensor(v).to(device) for k, v in rows.items()}
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        state, m = step(state, rows)
+        losses.append(float(m["loss"]))
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        norms.append(float(m.get("grad_norm", np.nan)))
+        if mesh is not None:
+            flat = torch.cat([model.get_parameter(n).detach().reshape(-1) for n in replicated])
+            lo = col.all_reduce_min(flat, ("data", "fsdp", "model"), mesh)
+            hi = col.all_reduce_max(flat, ("data", "fsdp", "model"), mesh)
+            drift.append(float((hi - lo).abs().max()))
+    out = {"losses": np.asarray(losses), "grad_norms": np.asarray(norms),
+           "drift": np.asarray(drift), "step_ms": np.asarray(step_ms)}
+    out.update({f"launches/{n}": np.asarray(w.launches - before[n])
+                for n, w in counters.items()})
+    whole = tstep.whole_leaves(state)
+    if case.get("whole") == "params":
+        import hashlib
+
+        out.update({f"digest/{k}": np.asarray(hashlib.sha256(
+            v.detach().contiguous().cpu().numpy().tobytes()).hexdigest()) for k, v in whole})
+        if mesh is None or cluster.process_index() == 0:
+            out.update({f"whole/{k}": v.detach().float().cpu().numpy() for k, v in whole
+                        if k.startswith("model/")})
+    else:
+        out.update({f"whole/{k}": v.detach().float().cpu().numpy() for k, v in whole})
+    del whole
+    eval_fn = (ttfm.mlm_eval_fn(model) if case.get("mlm")
+               else ttfm.lm_eval_fn(model, case.get("chunk", 0)))
+    totals = ShardedEvaluator(eval_fn, mesh, registry=Registry()).run(
+        state, [shard_host_batch(b, mesh) if mesh is not None else b for b in evals])
+    out.update({f"eval/{k}": np.asarray(v) for k, v in totals.items()})
+    if ckpt_dir is not None:
+        ck = tck.Checkpointer(tck.CheckpointConfig(directory=ckpt_dir, async_save=False))
+        try:
+            ck.save(state.step, state, force=True, trigger="final")
+        finally:
+            ck.close()
+        other = fresh()
+        ck = tck.Checkpointer(tck.CheckpointConfig(directory=ckpt_dir, async_save=False))
+        try:
+            ck.restore(other)
+        finally:
+            ck.close()
+        out["restored_equal"] = np.asarray(all(
+            torch.equal(a, b) for (_, a), (_, b) in zip(tstep.state_leaves(state),
+                                                        tstep.state_leaves(other))))
+    out["model"] = model
+    return out
+
+
+def job_tp(spec: dict, dev, mesh) -> dict:
+    """Each of ``cases`` (``tp_steps``) on its ``mesh`` from the ``sd/``,
+    ``<tag>/train<i>/<key>`` and ``<tag>/eval<i>/<key>`` arrays of
+    ``inputs``, saved under its tag; with ``runner`` (workload ->
+    overrides) also ``run_workload``'s losses, mesh and gathered weights
+    (``runner/<workload>/``)."""
+    data = np.load(spec["inputs"])
+    out = {}
+    for case in spec["cases"]:
+        tag = case["tag"]
+        src = case.get("sd", "sd")
+        sd = ({k[len(src) + 1:]: data[k] for k in data.files if k.startswith(src + "/")}
+              if "seed" not in case else None)
+
+        def batches(prefix):
+            keys = [k for k in data.files if k.startswith(f"{tag}/{prefix}")]
+            n = len({k.split("/")[1] for k in keys})
+            return [{k.split("/")[2]: data[k] for k in keys
+                     if k.startswith(f"{tag}/{prefix}{i}/")} for i in range(n)]
+
+        cmesh = build_mesh(MeshSpec(**case["mesh"]), dev)
+        if case.get("env"):
+            os.environ.update(case["env"])
+        res = tp_steps(case, sd, batches("train"), batches("eval"), dev, cmesh,
+                       os.path.join(spec["out"], f"ck_{tag}") if case.get("save", True)
+                       else None)
+        res.pop("model")
+        out.update({f"{tag}/{k}": v for k, v in res.items()})
+    for workload, over in spec.get("runner", {}).items():
+        from distributed_tensorflow_tpu_torch.train import step as tstep_
+        from distributed_tensorflow_tpu_torch.workloads import run_workload
+
+        res = run_workload(workload, over, device=str(dev))
+        out[f"runner/{workload}/losses"] = np.asarray([h["loss"] for h in res.history])
+        out[f"runner/{workload}/mesh"] = np.asarray([res.mesh.shape[a] for a in
+                                                     ("data", "fsdp", "model")])
+        out.update({f"runner/{workload}/whole/{k}": v.detach().float().cpu().numpy()
+                    for k, v in tstep_.whole_leaves(res.state) if k.startswith("model/")})
+    return out
+
+
 def free_port() -> int:
     import socket
 
@@ -690,7 +880,8 @@ def main(spec_path: str) -> int:
         mesh = build_mesh(MeshSpec(data=-1), dev)
         jobs = {"job_resnet": job_resnet, "job_bert": job_bert, "job_parallel": job_parallel,
                 "job_ckpt": job_ckpt, "job_ckpt_fallback": job_ckpt_fallback,
-                "job_wide_deep": job_wide_deep, "job_cnn": job_cnn, "job_gpt": job_gpt}
+                "job_wide_deep": job_wide_deep, "job_cnn": job_cnn, "job_gpt": job_gpt,
+                "job_tp": job_tp}
         out = jobs[f"job_{spec['job']}"](spec, dev, mesh)
         np.savez(os.path.join(spec["out"], f"rank{cluster.process_index()}.npz"), **out)
     finally:

@@ -91,8 +91,8 @@ ABLATIONS = [
 ]
 _FWD_WARPS = "static constexpr int WARPS = 4;                 // warps of a forward CTA"
 _FWD_MI = "static constexpr int MI = D <= 64 ? 2 : 1;      // 16-row groups of a warp"
-_FWD_STAGES = "static constexpr int STAGES = D <= 64 ? 3 : 2;  // depth of the K, V ring"
-_FWD_BN = "static constexpr int BN = 64;                   // keys of a ring stage"
+_FWD_STAGES = "static constexpr int STAGES = D == 128 ? 2 : 3;  // depth of the K, V ring"
+_FWD_BN = "static constexpr int BN = D <= 128 ? 64 : 32;   // keys of a ring stage"
 #: the forward kernel's layouts (timed at both head dims) and ablations
 FWD_LAYOUTS = [
     ("fwd 64 rows x 4 warps at both D", [(_FWD_WARPS, "static constexpr int WARPS = 4;"),
