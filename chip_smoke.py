@@ -266,8 +266,23 @@ when any phase fails:
    three kernels at D=256, ``FLASH_D256``, bf16, causal and not, with no
    mask and a padded kv_mask, with their gates and controls, timed beside
    SDPA; ``flash_attention`` at D=192 padded to 256 likewise; and the f32
-   wrappers' refusal at 256.)
-15. print the ``kernels`` JSON line (eighteen entries: ``ln_matmul`` is the
+   check kernels at 256, timed beside bf16.)
+15. sequence parallelism (``T15_*``, ``phase_sp``): (a)
+   ``sequence_parallel_attention`` of the ring, Ulysses and the all-gather
+   at seq=2 in two gloo processes on this card (the permute emulated by
+   an all-reduce), gpt_small's heads, S=2048, B=2,
+   bf16 and f32, causal and non-causal with a padded kv_mask, against the
+   same call in one process (``TOL["sp/attn/*"]``, x 1.01 controls) with
+   each call's flash launches counted (``T15_LAUNCHES``); (b) ``gpt_lm``'s
+   ``long_context`` at gpt_small's width (S=8192, remat, bf16) at seq=2,
+   the ring and Ulysses, 2 steps at a global batch of 2 (the preset's 8
+   cut), against one process (the ring against dense attention, Ulysses
+   against flash) with phase 14's gates (``TOL["sp/bf16/*"]``), each
+   rank's step ms and peak memory printed. (Phase 2c also holds and times
+   the flash kernels at the schedules' shapes, ``FLASH_SP``: all-gather's
+   Sq=1024 against Sk=2048, non-causal and padded; Ulysses' S=8192
+   causal.)
+16. print the ``kernels`` JSON line (eighteen entries: ``ln_matmul`` is the
    serving forward at M=8, ``ln_matmul_train`` the tiled forward at
    M=8192; ``flash_*_d32`` and ``flash_*_d256`` the flash kernels'
    head_dim-32 and -256 instantiations), then the ``ok`` line last.
@@ -510,6 +525,25 @@ TOL = {
     "tp/bf16/loss": 2e-3,
     "tp/bf16/worst": 1.0,
     "tp/bf16/median": 0.2,
+    # phase 15a: sequence_parallel_attention on two gloo ranks at seq=2
+    # against the same call in one process, relative L2 over the whole
+    # tensor. The ring folds two key chunks with the online-softmax merge
+    # where one process folds one (f32 either way); the all-gather's dK and
+    # dV are each rank's partial sums, rounded to the dtype before the
+    # reduce-scatter adds them (one process rounds once); Ulysses runs the
+    # same kernel on the same (b, h) slices. bf16: one ulp of a term in a
+    # sum of two; the x 1.01 controls read 1e-2 and must fail
+    "sp/attn/fwd/bfloat16": 3e-3,
+    "sp/attn/bwd/bfloat16": 5e-3,
+    "sp/attn/fwd/float32": 1e-5,
+    "sp/attn/bwd/float32": 1e-5,
+    # phase 15b: the long_context steps on two ranks against one process, as
+    # phase 14's (the ring's f32 fold against the dense reference, whose
+    # probabilities are rounded to bf16 before the value product; Ulysses
+    # against the same flash kernels): the same limits and controls
+    "sp/bf16/loss": 2e-3,
+    "sp/bf16/worst": 1.0,
+    "sp/bf16/median": 0.2,
     "dp/f32/loss": 1e-4,                      # measured 0
     "dp/f32/bn": 1e-3,                        # 1.42e-5
     "dp/f32/worst": 4e-2,                     # 8.93e-3
@@ -1080,19 +1114,22 @@ FLASH_D256 = dict(B=4, H=8, S=1024, D=256)
 FLASH_D256_PAD = (512, 1024)
 
 
-def flash_case(torch, np, rng, dtype, masked, B=8, H=12, S=1024, D=64, pad_lengths=None):
+def flash_case(torch, np, rng, dtype, masked, B=8, H=12, S=1024, D=64, pad_lengths=None,
+               Sk=None):
     """q/k/v/dout as the model makes them ([B,S,H,D] viewed as
-    [B,H,S,D]); with ``masked`` a kv_mask of ~75% keys whose last batch
-    row attends nothing; with ``masked="padded"`` the mask of a padded
-    batch, each row's keys a valid prefix of a length drawn from
-    ``pad_lengths`` (default ``BERT_PAD_LENGTHS``), the last row none."""
-    mk = lambda: torch.from_numpy(  # noqa: E731
-        rng.standard_normal((B, S, H, D), dtype=np.float32)).to(DEVICE, dtype).transpose(1, 2)
-    c = dict(q=mk(), k=mk(), v=mk(), dout=mk(), mask=None)
+    [B,H,S,D]; k and v of ``Sk`` keys when given, else S); with ``masked``
+    a kv_mask of ~75% keys whose last batch row attends nothing; with
+    ``masked="padded"`` the mask of a padded batch, each row's keys a
+    valid prefix of a length drawn from ``pad_lengths`` (default
+    ``BERT_PAD_LENGTHS``), the last row none."""
+    Sk = Sk or S
+    mk = lambda n: torch.from_numpy(  # noqa: E731
+        rng.standard_normal((B, n, H, D), dtype=np.float32)).to(DEVICE, dtype).transpose(1, 2)
+    c = dict(q=mk(S), k=mk(Sk), v=mk(Sk), dout=mk(S), mask=None)
     if masked == "padded":
-        c["mask"] = torch.from_numpy(padded_mask(np, rng, B, S, pad_lengths)).to(DEVICE)
+        c["mask"] = torch.from_numpy(padded_mask(np, rng, B, Sk, pad_lengths)).to(DEVICE)
     elif masked:
-        m = rng.random((B, S)) > 0.25
+        m = rng.random((B, Sk)) > 0.25
         m[:, 0] = True
         m[-1] = False
         c["mask"] = torch.from_numpy(m).to(DEVICE)
@@ -1116,23 +1153,26 @@ def flash_bound_ms(torch, c, kind, dtype_name, causal=True) -> tuple[float, str]
     operations per attended (query, key) pair for each of the kernel's
     products (forward 2: QK^T, PV; dK/dV 4: QK^T, dO V^T, P^T dO, dS^T Q;
     dQ 3: QK^T, dO V^T, dS K); a pair is attended where the kv_mask (if
-    any) and, when ``causal``, the causal order allow it."""
+    any) and, when ``causal``, the causal order (aligned at Sk - Sq)
+    allow it."""
     q = c["q"]
     B, H, S, D = q.shape
-    tensor = q.numel() * q.element_size()
+    Sk = c["k"].shape[2]
+    tq, tk = q.numel() * q.element_size(), c["k"].numel() * c["k"].element_size()
     lse = B * H * S * 4
-    rows = torch.arange(S, device=q.device)
-    keys = ((rows[None, :] <= rows[:, None]) if causal             # [S, S]
-            else torch.ones(S, S, dtype=torch.bool, device=q.device))
+    rows = torch.arange(S, device=q.device) + (Sk - S)
+    cols = torch.arange(Sk, device=q.device)
+    keys = ((cols[None, :] <= rows[:, None]) if causal            # [S, Sk]
+            else torch.ones(S, Sk, dtype=torch.bool, device=q.device))
     if c["mask"] is not None:
         pairs = int((keys[None] & c["mask"][:, None, :]).sum()) * H
     else:
         pairs = int(keys.sum()) * B * H
     mask_bytes = c["mask"].numel() if c["mask"] is not None else 0
-    nbytes, products = {
-        "fwd": (3 * tensor + mask_bytes + tensor + lse, 2),
-        "dkv": (5 * tensor + lse + mask_bytes + 2 * tensor, 4),
-        "dq": (5 * tensor + lse + mask_bytes + tensor, 3),
+    nbytes, products = {  # q, out, dout, dq: tq each; k, v, dk, dv: tk each
+        "fwd": (tq + 2 * tk + mask_bytes + tq + lse, 2),
+        "dkv": (3 * tq + 2 * tk + lse + mask_bytes + 2 * tk, 4),
+        "dq": (3 * tq + 2 * tk + lse + mask_bytes + tq, 3),
     }[kind]
     ops = products * 2 * D * pairs
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dtype_name]
@@ -1210,12 +1250,14 @@ def sdpa_backend(by_name: dict) -> str:
     return "math"
 
 
-def time_flash(torch, np, F, fa, rng, c, causal, dn, shape) -> dict[str, dict]:
+def time_flash(torch, np, F, fa, rng, c, causal, dn, shape, iters=50) -> dict[str, dict]:
     """Each kernel, the plain versions and SDPA (forward; its whole
     backward through autograd) on cold copies of case ``c``'s inputs, three
-    traces deep (``cuda_ms``), beside the bound of this case's attended
-    pairs. SDPA takes ``is_causal`` or, with a kv_mask, the boolean
-    ``attn_mask``; its backend is read from its kernels' names."""
+    traces of ``iters`` calls deep (``cuda_ms``), beside the bound of this
+    case's attended pairs. SDPA takes ``is_causal`` or, with a kv_mask, the
+    boolean ``attn_mask``; its backend is read from its kernels' names.
+    With Sq != Sk a causal SDPA call would align at 0, not at Sk - Sq:
+    such a case is timed non-causal only."""
     fa_args = lambda st: (st["q"], st["k"], st["v"], st["mask"])  # noqa: E731
     tensor = c["q"].numel() * c["q"].element_size()
     masked = c["mask"] is not None
@@ -1248,12 +1290,13 @@ def time_flash(torch, np, F, fa, rng, c, causal, dn, shape) -> dict[str, dict]:
         lib_graphs.append((sdpa(st, *leaves), leaves, st["dout"]))
     lib_bwd = [lambda g=g: torch.autograd.grad(g[0], g[1], g[2], retain_graph=True)
                for g in lib_graphs]
-    t_plain_fwd, t_plain_bwd = cuda_ms(torch, plain_fwd), cuda_ms(torch, plain_bwd)
-    t_lib_fwd, t_lib_bwd = cuda_ms(torch, lib_fwd), cuda_ms(torch, lib_bwd)
+    t_plain_fwd, t_plain_bwd = (cuda_ms(torch, plain_fwd, iters),
+                                cuda_ms(torch, plain_bwd, iters))
+    t_lib_fwd, t_lib_bwd = cuda_ms(torch, lib_fwd, iters), cuda_ms(torch, lib_bwd, iters)
     backend = sdpa_backend(t_lib_fwd["by_name"])
     rows = {}
     for n in kern:
-        tk = cuda_ms(torch, kern[n])
+        tk = cuda_ms(torch, kern[n], iters)
         fwd = n == "flash_fwd"
         row = dict(ms=tk["device_ms"], call_ms=tk["call_ms"],
                    plain_ms=(t_plain_fwd if fwd else t_plain_bwd)["device_ms"],
@@ -1337,6 +1380,7 @@ def phase_flash(torch, np, F):
         results[f"{n}_d32"]["rows"].append(results[f"{n}_d32"]["timed"]["non-causal"])
     results.update(flash_d256(torch, np, F, fa, rng))
     results["padded"] = flash_padded(torch, np, F, fa, rng)
+    results["sp"] = flash_sp(torch, np, F, fa, rng)
     torch.cuda.empty_cache()
     for n in names:  # comparison launches do not count
         getattr(fa, n).launches = before[n]
@@ -1348,8 +1392,9 @@ def flash_d256(torch, np, F, fa, rng) -> dict:
     causal and not, no mask and a padded kv_mask) against their plain
     versions with the gates and controls of ``check_flash``, timed with no
     mask; ``flash_attention`` at D=192 zero-padded to 256 likewise
-    (``check_padded_flash``), timed causal; the f32 wrappers' refusal at
-    256 (their check kernels stop at 128)."""
+    (``check_padded_flash``), timed causal; the f32 check kernels at 256
+    (32-row tiles), causal with no mask and non-causal padded, timed
+    causal."""
     shape = FLASH_D256
     log(f"phase 2c, head_dim 256: B={shape['B']} H={shape['H']} S={shape['S']} D=256, bf16, "
         f"causal and not, no mask and a padded kv_mask ({FLASH_D256_PAD[0]}-"
@@ -1386,16 +1431,56 @@ def flash_d256(torch, np, F, fa, rng) -> dict:
                 out["padded192"]["timed"]["D=192 causal"] = time_padded_flash(
                     torch, np, F, fa, rng, c, causal, "bfloat16", shape192)
             del c
-    q = torch.zeros(1, 2, 64, 256, device=DEVICE)
-    try:
-        fa.flash_fwd(q, q, q)
-    except ValueError as e:
-        if "head_dim 256 in f32" not in str(e):
-            raise
-        log(f"  f32 at D=256 refused: {e}")
-    else:
-        raise SmokeFailure("flash: the f32 forward took head_dim 256")
+    # the f32 check kernels at D=256 (32-row tiles): checked causal with no
+    # mask and non-causal with a padded one, timed causal beside bf16
+    out["f32_d256"] = {"err": {n: 0.0 for n in FLASH_NAMES}, "timed": {}}
+    for causal, masked in ((True, False), (False, "padded")):
+        c = flash_case(torch, np, rng, torch.float32, masked, pad_lengths=FLASH_D256_PAD,
+                       **shape)
+        tag = (f"float32 D=256 {'causal' if causal else 'non-causal'} "
+               f"{'padded kv_mask' if masked else 'no mask'}")
+        errs = check_flash(torch, fa, c, causal, tag, "float32")
+        for n in FLASH_NAMES:
+            out["f32_d256"]["err"][n] = max(out["f32_d256"]["err"][n], *errs[n])
+        if causal:
+            out["f32_d256"]["timed"]["causal"] = time_flash(torch, np, F, fa, rng, c, True,
+                                                            "float32", shape, iters=10)
+        del c
     torch.cuda.empty_cache()
+    return out
+
+
+#: phase 2c's sequence-parallel shapes (phase 15's): the all-gather
+#: schedule's local queries against the whole sequence (gpt_small's heads,
+#: S=2048 over seq=2), non-causal with a padded kv_mask; Ulysses at
+#: long_context's S=8192 over seq=2 (6 of the 12 heads a rank), causal
+FLASH_SP = {"allgather": dict(B=2, H=12, S=1024, Sk=2048, D=64),
+            "ulysses": dict(B=2, H=6, S=8192, D=64)}
+FLASH_SP_PAD = (1536, 2048)
+
+
+def flash_sp(torch, np, F, fa, rng) -> dict:
+    """Phase 2c's sequence-parallel part: the three kernels at
+    ``FLASH_SP`` (bf16) against their plain versions with the gates and
+    controls of ``check_flash``, each timed beside SDPA and its bound:
+    all-gather's Sq = S/seq != Sk = S, non-causal with a padded kv_mask;
+    Ulysses' S=8192 causal (64 q tiles on the grid)."""
+    out = {}
+    for name, causal, masked in (("allgather", False, "padded"), ("ulysses", True, False)):
+        shape = FLASH_SP[name]
+        mask_note = ("padded kv_mask (%d-%d keys, the last row none)" % FLASH_SP_PAD
+                     if masked else "no mask")
+        log(f"phase 2c, {name}'s shape: {shape}, bf16, "
+            f"{'causal' if causal else 'non-causal'}, {mask_note}")
+        c = flash_case(torch, np, rng, torch.bfloat16, masked, pad_lengths=FLASH_SP_PAD,
+                       **shape)
+        errs = check_flash(torch, fa, c, causal, f"bfloat16 {name}", "bfloat16")
+        rows = time_flash(torch, np, F, fa, rng, c, causal, "bfloat16", shape,
+                          iters=10 if shape["S"] <= 2048 else 5)
+        out[name] = {"err": {n: max(errs[n]) for n in FLASH_NAMES}, "timed": rows,
+                     "shape": shape, "causal": causal, "masked": bool(masked)}
+        del c
+        torch.cuda.empty_cache()
     return out
 
 
@@ -5058,19 +5143,20 @@ T14_D256 = ["--model.num_layers=2", "--model.d_model=1024", "--model.num_heads=4
 T14_ENV = {"DTF_FUSED_BWD": "pallas"}
 
 
-def tp_gates(np, tag, ranks, ref, ctl, init) -> dict:
-    """Phase 14's gates (``TOL["tp/bf16/*"]``): every rank bitwise alike
-    (the SHA-256 of every gathered leaf, and no drift of a replicated
-    parameter across the ranks after any step); the losses and each
-    parameter's update against one process on the global batches, with
-    their controls (the losses x 1.01; one process on the first half of
-    each batch). ``init``: the whole initial parameters by name."""
+def tp_gates(np, tag, ranks, ref, ctl, init, phase="14", tol="tp/bf16") -> dict:
+    """Phase 14's gates (``TOL["tp/bf16/*"]``; phase 15b's ``sp/bf16``):
+    every rank bitwise alike (the SHA-256 of every gathered leaf, and no
+    drift of a replicated parameter across the ranks after any step); the
+    losses and each parameter's update against one process on the global
+    batches, with their controls (the losses x 1.01; one process on the
+    first half of each batch). ``init``: the whole initial parameters by
+    name."""
     digests = [{k: str(v) for k, v in r.items() if k.startswith(f"{tag}/digest/")}
                for r in ranks]
     if any(d != digests[0] for d in digests[1:]) or not digests[0]:
-        raise SmokeFailure(f"14 {tag}: the ranks' gathered states differ")
+        raise SmokeFailure(f"{phase} {tag}: the ranks' gathered states differ")
     if any(np.asarray(r[f"{tag}/drift"]).any() for r in ranks):
-        raise SmokeFailure(f"14 {tag}: a replicated parameter differs across the ranks")
+        raise SmokeFailure(f"{phase} {tag}: a replicated parameter differs across the ranks")
     got = {k[len(f"{tag}/whole/model/"):]: v for k, v in ranks[0].items()
            if k.startswith(f"{tag}/whole/model/")}
 
@@ -5089,18 +5175,18 @@ def tp_gates(np, tag, ranks, ref, ctl, init) -> dict:
     ctl_state = {k[len("whole/model/"):]: v for k, v in ctl.items()
                  if k.startswith("whole/model/")}
     _, median_ctl = updates(ctl_state)
-    lim = {k: TOL[f"tp/bf16/{k}"] for k in ("loss", "worst", "median")}
-    log(f"  14 {tag}: rank losses {[float(x) for x in losses]}, one process "
+    lim = {k: TOL[f"{tol}/{k}"] for k in ("loss", "worst", "median")}
+    log(f"  {phase} {tag}: rank losses {[float(x) for x in losses]}, one process "
         f"{[float(x) for x in ref['losses']]}; loss relative {loss:.3e} (control x 1.01: "
         f"{loss_ctl:.3e}); updates relative L2 worst {worst:.3e} ({worst_name}), median "
         f"{median:.3e} (control, half batch: {median_ctl:.3e}); limits {lim}; ranks bitwise "
         f"alike over {len(digests[0])} gathered leaves")
     if loss_ctl <= lim["loss"] or median_ctl <= lim["median"]:
-        raise SmokeFailure(f"14 {tag}: a control passes its gate")
+        raise SmokeFailure(f"{phase} {tag}: a control passes its gate")
     bad = {k: v for k, v in (("loss", loss), ("worst", worst), ("median", median))
            if not v <= lim[k]}
     if bad:
-        raise SmokeFailure(f"14 {tag}: outside the limits: {bad}")
+        raise SmokeFailure(f"{phase} {tag}: outside the limits: {bad}")
     return {"loss": loss, "worst": worst, "median": median, "control_median": median_ctl}
 
 
@@ -5272,6 +5358,214 @@ def phase_tp(torch, np, smi) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 15: sequence parallelism
+# ---------------------------------------------------------------------------
+
+#: 15a: the three schedules at gpt_small's heads over seq=2 (two gloo ranks
+#: on this card), causal with no mask and non-causal with a padded kv_mask
+T15_ATTN = dict(B=2, H=12, S=2048, D=64, pad=(1536, 2048))
+#: 15b: gpt_lm's long_context preset at gpt_small's full width (remat,
+#: bf16, dropout 0) at seq=2, the ring and Ulysses; the preset's global
+#: batch of 8 cut to 2 and its S=8192 to 4096 (K and V cross the host under
+#: gloo; at 8192 the whole smoke ran 1032 s on a slow host's NVIDIA H100 80GB
+#: HBM3 at 700 W, past its 1000 s aim) — the flash kernels' S=8192 shape is
+#: phase 2c's (``FLASH_SP``)
+T15_LC = dict(global_batch=2, steps=2, mesh={"seq": 2}, seq_len=4096)
+#: flash launches of one sequence_parallel_attention call on a rank
+#: (forward, dK/dV, dQ): the ring runs none, Ulysses and the non-causal
+#: all-gather one forward and the two backward kernels, the causal
+#: all-gather none (dense, as JAX's)
+T15_LAUNCHES = {("ring", 1, 0): [0, 0, 0], ("ring", 0, 1): [0, 0, 0],
+                ("ulysses", 1, 0): [1, 1, 1], ("ulysses", 0, 1): [1, 1, 1],
+                ("allgather", 1, 0): [0, 0, 0], ("allgather", 0, 1): [1, 1, 1]}
+
+
+#: 15a's dtypes: tag -> torch dtype name
+T15_DTYPES = {"bf16": "bfloat16", "f32": "float32"}
+
+
+def sp_attention_inputs(np) -> dict:
+    """15a's global q, k, v, cotangent and padded kv_mask (numpy, f32)."""
+    a = T15_ATTN
+    rng = np.random.default_rng(150)
+    arrays = {n: rng.standard_normal((a["B"], a["H"], a["S"], a["D"])).astype(np.float32)
+              for n in ("q", "k", "v", "cot")}
+    arrays["mask"] = padded_mask(np, rng, a["B"], a["S"], a["pad"])
+    arrays["mask"][-1, : a["S"] // 2] = True  # the last row attends its first half
+    return arrays
+
+
+def sp_attention(torch, np, ranks, arrays) -> dict:
+    """15a: ``sequence_parallel_attention`` of each schedule on two gloo
+    ranks at seq=2 (``tests/torch_dp_worker.py``'s ``seq`` job, the
+    permute emulated by an all-reduce under gloo on the card), bf16 and
+    f32, against the same call in one process (the flash
+    kernels for Ulysses and the non-causal all-gather, the dense f32 fold
+    for the ring and the causal all-gather): out, dq, dk, dv as relative
+    L2 (``TOL["sp/attn/*"]``) beside an out and a dq x 1.01 that must
+    fail; each call's flash launches on each rank (``T15_LAUNCHES``)."""
+    from distributed_tensorflow_tpu_torch.parallel.mesh import AXIS_NAMES, Mesh
+    from distributed_tensorflow_tpu_torch.parallel.ring_attention import (
+        sequence_parallel_attention)
+
+    dtypes, runs = T15_DTYPES, [list(r) for r in T15_LAUNCHES]
+    one = Mesh({n: 1 for n in AXIS_NAMES}, torch.device(DEVICE))
+    res = {}
+    for t, dname in dtypes.items():
+        dtype = getattr(torch, dname)
+        lim = {k: TOL[f"sp/attn/{k}/{dname}"] for k in ("fwd", "bwd")}
+        for impl, causal, masked in runs:
+            leaves = [torch.from_numpy(arrays[n]).to(DEVICE, dtype).requires_grad_()
+                      for n in ("q", "k", "v")]
+            mask = torch.from_numpy(arrays["mask"]).to(DEVICE) if masked else None
+            o = sequence_parallel_attention(*leaves, one, impl=impl, causal=bool(causal),
+                                            kv_mask=mask)
+            (o * torch.from_numpy(arrays["cot"]).to(DEVICE, dtype)).sum().backward()
+            want = {"out": o.detach(), **{f"d{n}": x.grad for n, x in zip("qkv", leaves)}}
+            key = f"{t}/{impl}/{causal}{masked}"
+            errs, ctl = {}, {}
+            for r, rank in enumerate(ranks):
+                for n, w in want.items():
+                    got = torch.from_numpy(rank[f"{key}/{n}"]).to(DEVICE)
+                    errs[n] = max(errs.get(n, 0.0), rel_l2(got, w))
+                    if n in ("out", "dq"):
+                        ctl[n] = rel_l2(got * 1.01, w)
+                launches = rank[f"{key}/launches"].astype(int).tolist()
+                if launches != T15_LAUNCHES[(impl, causal, masked)]:
+                    raise SmokeFailure(f"15a {key} rank {r}: flash launches {launches}, want "
+                                       f"{T15_LAUNCHES[(impl, causal, masked)]}")
+            log(f"  15a {key}: relative L2 vs one process " + ", ".join(
+                f"{n} {e:.2e}" for n, e in errs.items()) + f" (limits {lim}); controls x 1.01 "
+                + ", ".join(f"{n} {e:.2e}" for n, e in ctl.items())
+                + f"; flash launches a rank {T15_LAUNCHES[(impl, causal, masked)]}")
+            if ctl["out"] <= lim["fwd"] or ctl["dq"] <= lim["bwd"]:
+                raise SmokeFailure(f"15a {key}: a x 1.01 control passes its gate")
+            bad = {n: e for n, e in errs.items() if e > lim["fwd" if n == "out" else "bwd"]}
+            if bad:
+                raise SmokeFailure(f"15a {key}: outside the limits: {bad}")
+            res[key] = errs
+            del leaves, o, want
+    torch.cuda.empty_cache()
+    return res
+
+
+def sp_long_cases(np):
+    """15b's configurations (the rank's and the one-process reference's
+    of each schedule), batches and ``tp_steps`` cases."""
+    import dataclasses
+
+    from distributed_tensorflow_tpu_torch.workloads import gpt_lm
+
+    g = T15_LC
+    base = dataclasses.replace(gpt_lm.long_context(g["seq_len"]).model, dropout=0.0)
+    cfgs = {"ring": (base, dataclasses.replace(base, seq_impl=None, attention_impl="dense")),
+            "ulysses": (dataclasses.replace(base, seq_impl="ulysses"),
+                        dataclasses.replace(base, seq_impl=None, attention_impl="flash"))}
+    rng = np.random.default_rng(151)
+    batches = [{"input_ids": rng.integers(0, base.vocab_size, (g["global_batch"],
+                                                              base.max_len)).astype(np.int32)}
+               for _ in range(g["steps"])]
+    opt = dict(name="adamw", learning_rate=1e-4, weight_decay=0.1)
+    cases = [dict(tag=t, seed=0, cfg=dataclasses.asdict(c), mesh=g["mesh"], optimizer=opt,
+                  options={}, whole="params", chunk=base.xent_chunk, save=False)
+             for t, (c, _) in cfgs.items()]
+    return base, cfgs, batches, cases
+
+
+def sp_long(torch, np, worker, ranks, smi) -> dict:
+    """15b: ``gpt_lm``'s ``long_context`` at gpt_small's width (12 layers,
+    d 768, 12 heads of 64, S=``T15_LC["seq_len"]``, remat, bf16, dropout 0,
+    the chunked loss at 256, adamw) at seq=2 on two gloo ranks of this card,
+    the ring and Ulysses (``tests/torch_dp_worker.py``'s ``seq`` job runs
+    them as ``tp_steps`` cases after 15a's calls), ``T15_LC["steps"]`` steps
+    from the weights of one seed, against one process at the same batch
+    (the ring against ``attention_impl="dense"``, Ulysses against the flash
+    kernels) with phase 14's gates (``TOL["sp/bf16/*"]``); each rank's step
+    ms and peak memory; the ring launches no flash kernel, Ulysses every
+    one."""
+    import dataclasses
+
+    from distributed_tensorflow_tpu_torch.models import transformer as tfm
+
+    base, cfgs, batches, cases = sp_long_cases(np)
+    init = {k: v.float().cpu().numpy() for k, v in tfm.init_params(
+        base, seed=0, device=DEVICE, trainable=True).items()}
+    half = [{k: v[:len(v) // 2] for k, v in b.items()} for b in batches]
+    res = {}
+    for case, (t, (_, ref_cfg)) in zip(cases, cfgs.items()):
+        for r, rank in enumerate(ranks):
+            steps = [round(float(x), 2) for x in rank[f"{t}/step_ms"]]
+            log(f"  15b {t} rank {r}: step ms {steps}, peak "
+                f"{float(rank.get(f'{t}/peak_gib', np.nan)):.3f} GiB (gloo, 2 ranks on one "
+                f"card: not sequence-parallel throughput; {smi}); flash launches over the "
+                f"steps " + ", ".join(f"{n} {int(rank[f'{t}/launches/{n}'])}"
+                                      for n in FLASH_NAMES))
+        one = dict(case, cfg=dataclasses.asdict(ref_cfg))
+        ref = worker.tp_steps(one, None, batches, [], DEVICE)
+        ref.pop("model")
+        torch.cuda.empty_cache()
+        ctl = worker.tp_steps(one, None, half, [], DEVICE)
+        ctl.pop("model")
+        torch.cuda.empty_cache()
+        res[t] = tp_gates(np, t, ranks, ref, ctl, init, phase="15b", tol="sp/bf16")
+        launches = [[int(rk[f"{t}/launches/{n}"]) for n in FLASH_NAMES] for rk in ranks]
+        if any((sum(x) > 0) != (t == "ulysses") or (t == "ulysses" and min(x) <= 0)
+               for x in launches):
+            raise SmokeFailure(f"15b {t}: flash launches {launches} (the ring launches none, "
+                               f"Ulysses every kernel)")
+        res[t].update(step_ms=[[float(x) for x in rk[f"{t}/step_ms"]] for rk in ranks],
+                      peak_gib=[float(rk.get(f"{t}/peak_gib", np.nan)) for rk in ranks],
+                      ref_step_ms=[float(x) for x in ref["step_ms"]],
+                      ref_peak_gib=float(ref.get("peak_gib", np.nan)), launches=launches[0])
+        log(f"  15b {t}: one process ({ref_cfg.attention_impl}) step ms "
+            f"{[round(float(x), 2) for x in ref['step_ms']]}, peak "
+            f"{res[t]['ref_peak_gib']:.3f} GiB")
+        del ref, ctl
+    return res
+
+
+def phase_sp(torch, np, smi) -> dict:
+    """Phase 15: sequence parallelism — one launch of two gloo ranks on this
+    card (``tests/torch_dp_worker.py``'s ``seq`` job: 15a's calls, then
+    15b's steps), then the one-process references and the gates
+    (``sp_attention``, ``sp_long``)."""
+    import tempfile
+
+    worker = load_dp_worker()
+    t0 = time.perf_counter()
+    a, g = T15_ATTN, T15_LC
+    arrays = sp_attention_inputs(np)
+    base, _, batches, cases = sp_long_cases(np)
+    runs = [list(r) for r in T15_LAUNCHES]
+    log(f"phase 15a: sequence_parallel_attention at seq=2, two gloo ranks on this card, "
+        f"B={a['B']} H={a['H']} S={a['S']} D={a['D']}, bf16 and f32; causal with no mask, "
+        f"non-causal with a padded kv_mask ({a['pad'][0]}-{a['pad'][1]} keys)")
+    log(f"phase 15b: gpt_lm long_context, gpt_small width, B={g['global_batch']} (the "
+        f"preset's 8 cut to {g['global_batch']}) S={base.max_len} (the preset's 8192 cut to "
+        f"{base.max_len}) bf16, remat, at {g['mesh']} on the same two ranks: the ring and "
+        f"Ulysses, {g['steps']} steps each")
+    with tempfile.TemporaryDirectory() as out:
+        inputs = os.path.join(out, "sp.npz")
+        np.savez(inputs, **{f"{t}/{n}": v for t in T15_DTYPES for n, v in arrays.items()},
+                 **{f"{c['tag']}/train{i}/{k}": v for c in cases
+                    for i, b in enumerate(batches) for k, v in b.items()})
+        procs = worker.launch({"job": "seq", "device": DEVICE, "backend": "gloo", "out": out,
+                               "inputs": inputs, "cases": cases,
+                               "attention": [dict(tag=t, mesh={"seq": 2}, dtype=d, runs=runs)
+                                             for t, d in T15_DTYPES.items()]}, world=2)
+        ranks = worker.wait(procs, out, timeout=900)
+    t1 = time.perf_counter()
+    res = {"ranks_s": t1 - t0, "15a": sp_attention(torch, np, ranks, arrays)}
+    t2 = time.perf_counter()
+    res["15b"] = sp_long(torch, np, worker, ranks, smi)
+    res.update(gates_15a_s=t2 - t1, gates_15b_s=time.perf_counter() - t2,
+               wall_s=time.perf_counter() - t0)
+    log(f"  phase 15 wall {res['wall_s']:.1f} s: the ranks {res['ranks_s']:.1f}, 15a's "
+        f"references and gates {res['gates_15a_s']:.1f}, 15b's {res['gates_15b_s']:.1f}")
+    return res
+
+
 def timed(walls: dict, name: str, phase, *args):
     """``phase(*args)``, its wall seconds kept in ``walls[name]``."""
     t0 = time.perf_counter()
@@ -5354,6 +5648,7 @@ def main() -> int:
         t13 = timed(walls, "13", phase_transformer, torch, np, smi)
         tp = timed(walls, "14", phase_tp, torch, np, smi)
         launches.update({f"{n}_d256": c for n, c in tp["14c"].items()})
+        sp = timed(walls, "15", phase_sp, torch, np, smi)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -5550,6 +5845,24 @@ def main() -> int:
         f"{tp['14a']['step_ms']}; 14b bert_pretrain bert_base fsdp=2 x model=2 (4 gloo ranks on "
         f"one card) vs one process {tp['14b']}; step ms are gloo-on-one-card numbers, not "
         f"tensor-parallel throughput")
+    log(f"sequence parallelism (phase 15, {walls['15']:.1f} s; {smi}): 15a the three "
+        f"schedules at seq=2 (2 gloo ranks on one card) vs one process, relative L2 {sp['15a']}; "
+        f"15b gpt_lm long_context S=8192 B={T15_LC['global_batch']} at seq=2 vs one process: "
+        f"{sp['15b']}; step ms are gloo-on-one-card numbers, not sequence-parallel throughput")
+    log(f"flash at the sequence-parallel shapes and f32 D=256 (phase 2c; {smi}; kernel / bound "
+        f"/ plain / SDPA ms): " + "; ".join(
+            f"{name} {r['shape']} {'causal' if r['causal'] else 'non-causal'}"
+            f"{' padded' if r['masked'] else ''}: " + ", ".join(
+                f"{n} {x['ms']:.5f} / {x['bound_ms']:.5f} ({x['bound_by']}) / "
+                f"{x['plain_ms']:.5f} / "
+                + (f"{x['library_ms']:.5f} ({x['sdpa_backend']})" if x["library_ms"] is not None
+                   else "null") for n, x in r["timed"].items())
+            + f", max abs errors {r['err']}" for name, r in kern["sp"].items())
+        + "; f32 D=256 causal: " + ", ".join(
+            f"{n} {x['ms']:.5f} / {x['bound_ms']:.5f} ({x['bound_by']}) / {x['plain_ms']:.5f} / "
+            + (f"{x['library_ms']:.5f} ({x['sdpa_backend']})" if x["library_ms"] is not None
+               else "null") for n, x in kern["f32_d256"]["timed"]["causal"].items())
+        + f", max abs errors {kern['f32_d256']['err']}")
     log(f"cuda_ms traces kept {PAD_RECORDS[0]} of the {PAD_RECORDS[1]} spin-kernel records "
         f"that opened them; {BLANK_TRACES[0]} blank traces retaken")
     log("phase walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))

@@ -55,9 +55,18 @@ and replayed in the recompute (``_remat_block``): the recompute draws the
 same masks, and the caller's generator is left where a forward without
 remat leaves it. ``fused_qkv=True`` projects q/k/v with one ``qkv`` Dense
 ``[3·H·D, d]`` whose rows are HEAD-major (``[H, 3, D]``), as the JAX
-model's; refused with ``fused_ln_matmul``. MoE, sequence parallelism and
-pipelining come in later slices; a config that asks for one of them is
-refused.
+model's; refused with ``fused_ln_matmul``. MoE and pipelining come in
+later slices; a config that asks for one of them is refused.
+
+**Sequence parallelism** (``seq_impl`` = ``"ring"``, ``"ulysses"`` or
+``"allgather"``, on a ``mesh`` whose ``seq`` axis exceeds 1): the
+uncached attention runs ``parallel.ring_attention.
+sequence_parallel_attention`` on this rank's rows and heads over the
+whole sequence, as the JAX model's does at ``seq_shards > 1``; the rest
+of the model, the cached and paged paths and the parameters are those of
+one rank (no parameter is split over ``seq``: JAX initialises through a
+dense twin). It composes with the megatron heads over ``model`` and with
+``remat``. With ``seq`` at 1 the attention is ``attention_impl``'s.
 
 **Tensor and fully-sharded data parallelism** (``mesh=``, ``specs=``): the
 layout GSPMD gives the JAX model under ``transformer_rules`` written out
@@ -107,7 +116,9 @@ from ..parallel.collectives import (
     gather_fsdp,
     sum_over_axis,
 )
-from ..parallel.mesh import EXPERT, FSDP, MODEL, Mesh
+from ..parallel.mesh import EXPERT, FSDP, MODEL, SEQ, Mesh
+from ..parallel.ring_attention import IMPLS as SEQ_IMPLS
+from ..parallel.ring_attention import sequence_parallel_attention
 from ..parallel.sharding import RowGenerator, rand_rows
 from ..utils import flops as flops_lib
 from ..utils.device import resolve_device
@@ -137,9 +148,11 @@ class TransformerConfig:
     # "auto" = the CUDA kernel on a CUDA tensor, "fused" on the CPU;
     # "gather" | "fused" | "cuda" force one
     paged_attention_impl: str = "auto"
-    # not ported yet (ROADMAP Queue A): a value other than the default
-    # is refused when the model is built
+    # sequence parallelism over the mesh's seq axis: None | "ring" |
+    # "ulysses" | "allgather" (parallel/ring_attention.py)
     seq_impl: str | None = None
+    # not ported yet (ROADMAP Queue A item 6): above 0 is refused when the
+    # model is built
     num_experts: int = 0
     # each Block recomputed in the backward (torch.utils.checkpoint): one
     # extra forward for O(1)-block activation memory
@@ -352,8 +365,9 @@ class SelfAttention(nn.Module):
     def __init__(self, cfg: TransformerConfig, device=None, param_dtype=None):
         super().__init__()
         self.cfg = cfg
-        # this rank's heads and the mesh of its parallel region
-        self.heads, self.mesh = cfg.num_heads, None
+        # this rank's heads and the mesh of its parallel region; the mesh
+        # of the sequence-parallel attention (its seq axis above 1)
+        self.heads, self.mesh, self.seq_mesh = cfg.num_heads, None, None
         dt, d = torch_dtype(cfg.dtype), cfg.d_model
         if cfg.fused_qkv:
             # rows head-major, [H, 3, D]: each head's q, k, v side by side
@@ -415,8 +429,12 @@ class SelfAttention(nn.Module):
         ``forward``."""
         cfg = self.cfg
         q, k, v = self._qkv(x, ln)
-        out = attention(q, k, v, causal=cfg.causal, kv_mask=mask,
-                        impl=cfg.attention_impl)
+        if self.seq_mesh is not None:
+            out = sequence_parallel_attention(q, k, v, self.seq_mesh, impl=cfg.seq_impl,
+                                              causal=cfg.causal, kv_mask=mask)
+        else:
+            out = attention(q, k, v, causal=cfg.causal, kv_mask=mask,
+                            impl=cfg.attention_impl)
         return dropout(self._out(out), cfg.dropout, train, generator)
 
 
@@ -483,12 +501,12 @@ def check_supported(cfg: TransformerConfig) -> None:
     if cfg.fused_qkv and cfg.fused_ln_matmul:
         raise ValueError("fused_qkv and fused_ln_matmul are mutually exclusive (the "
                          "LN+matmul kernel owns its own per-projection path)")
-    for name, default, item in (
-            ("seq_impl", None, "item 6, parallel/ring_attention.py"),
-            ("num_experts", 0, "item 6, ops/moe.py")):
-        if getattr(cfg, name) != default:
-            raise ValueError(f"model.{name}={getattr(cfg, name)!r} is not ported yet "
-                             f"(ROADMAP Queue A {item})")
+    if cfg.seq_impl not in (None, *SEQ_IMPLS):
+        raise ValueError(f"model.seq_impl must be None or one of {SEQ_IMPLS}, got "
+                         f"{cfg.seq_impl!r}")
+    if cfg.num_experts != 0:
+        raise ValueError(f"model.num_experts={cfg.num_experts!r} is not ported yet "
+                         f"(ROADMAP Queue A item 6, ops/moe.py)")
 
 
 class Transformer(nn.Module):
@@ -542,6 +560,9 @@ class Transformer(nn.Module):
         self.global_shapes = {n: tuple(p.shape) for n, p in self.named_parameters()}
         if any(self.specs.values()):
             self._shard(mesh)
+        if cfg.seq_impl is not None and mesh is not None and mesh.shape[SEQ] > 1:
+            for block in self.layers:
+                block.attn.seq_mesh = mesh
 
     def _shard(self, mesh: Mesh) -> None:
         """Each parameter with a sharding spec replaced by this rank's

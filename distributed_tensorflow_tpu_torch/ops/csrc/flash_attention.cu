@@ -22,7 +22,10 @@
 // per 16 rows of a 64-row tile, 4 warps, operands staged synchronously in
 // shared memory, P and dS written to shared memory and read back, the tile
 // loops on CUDA cores (scalar FMAs in the mma's fragment layout), so f32
-// keeps full f32 products; that path is for checks, not for speed.
+// keeps full f32 products; that path is for checks, not for speed. At
+// D = 256 the tiles are 32 rows of 2 warps (F32Cta): four 64-row f32 tiles
+// of a 256-wide head would take 266 KB of shared memory, four 32-row ones
+// take 133 KB (dK/dV's accumulators, 256 floats a thread, spill).
 //
 // The forward for bf16 inputs (flash_fwd_kernel, traits Fwd) is built on
 // tile_mma.cuh. Its work is 2 products of 2*D operations per attended
@@ -140,10 +143,17 @@
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kTile = 16 * kWarps;  // rows of a q tile and of a kv tile
 constexpr float kNegInf = -1e30f;
+
+// The f32 kernels' CTA: W warps of 16 rows, a q tile and a kv tile of 16 W
+// rows. 4 warps up to D = 128; at D = 256 their four [64][D] f32 tiles
+// (dK/dV, dQ) exceed shared memory, so 2 warps and 32-row tiles.
+template <int D>
+struct F32Cta {
+  static constexpr int WARPS = D > 128 ? 2 : 4;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int TILE = 16 * WARPS;
+};
 
 struct Strided {
   const void* p;
@@ -190,15 +200,15 @@ __device__ __forceinline__ void zero(float (&acc)[NT][4]) {
   for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 }
 
-// Stage rows [r0, r0 + kTile) of one (b, h) slice of a [B,H,S,D] tensor in
+// Stage rows [r0, r0 + TILE) of one (b, h) slice of a [B,H,S,D] tensor in
 // shared memory (row pitch LD), 16 bytes per load; rows >= S are zeroed.
-template <typename T, int D, int LD>
+template <typename T, int D, int LD, int TILE, int THREADS>
 __device__ __forceinline__ void load_tile(T* dst, const Strided& src, int b, int h, int r0,
                                           int S) {
   constexpr int kVec = 16 / sizeof(T);
   constexpr int kChunks = D / kVec;
   const T* base = (const T*)src.p + b * src.sb + h * src.sh;
-  for (int i = threadIdx.x; i < kTile * kChunks; i += kThreads) {
+  for (int i = threadIdx.x; i < TILE * kChunks; i += THREADS) {
     const int r = i / kChunks, c = (i % kChunks) * kVec;
     uint4 v = make_uint4(0, 0, 0, 0);
     if (r0 + r < S) v = *reinterpret_cast<const uint4*>(base + (r0 + r) * src.ss + c);
@@ -206,8 +216,9 @@ __device__ __forceinline__ void load_tile(T* dst, const Strided& src, int b, int
   }
 }
 
-// The row stats of a tile: for row r of [r0, r0 + kTile), delta = sum_d
-// dO * O in f32 (two threads a row), and the row's LSE.
+// The row stats of a tile: for row r of [r0, r0 + TILE), delta = sum_d
+// dO * O in f32 (two threads a row: a tile has THREADS / 2 rows), and the
+// row's LSE.
 template <typename T, int D>
 __device__ __forceinline__ void row_stats(float* delta_s, float* lse_s, const Strided& o,
                                           const Strided& dout, const float* lse, int b, int h,
@@ -226,10 +237,11 @@ __device__ __forceinline__ void row_stats(float* delta_s, float* lse_s, const St
   }
 }
 
-// kv_mask slice of keys [c0, c0 + kTile): 1 where the key exists and attends
+// kv_mask slice of keys [c0, c0 + TILE): 1 where the key exists and attends
+template <int TILE, int THREADS>
 __device__ __forceinline__ void load_key_mask(unsigned char* dst, const unsigned char* mask,
                                               int b, int c0, int Sk) {
-  for (int i = threadIdx.x; i < kTile; i += kThreads) {
+  for (int i = threadIdx.x; i < TILE; i += THREADS) {
     const int c = c0 + i;
     dst[i] = c < Sk && (mask == nullptr || mask[(size_t)b * Sk + c] != 0);
   }
@@ -241,11 +253,12 @@ __device__ __forceinline__ void load_key_mask(unsigned char* dst, const unsigned
 // ---------------------------------------------------------------------------
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(F32Cta<D>::THREADS)
 flash_fwd_f32_kernel(Strided q, Strided k, Strided v, const unsigned char* __restrict__ mask,
                      float* __restrict__ out, float* __restrict__ lse, int H, int Sq, int Sk,
                      int causal, int q_offset, float scale) {
   using T = float;
+  constexpr int kTile = F32Cta<D>::TILE, kThreads = F32Cta<D>::THREADS;
   constexpr int LD = padded<T>(D), LDP = padded<T>(kTile);
   constexpr int NS = kTile / 8, NO = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -261,7 +274,7 @@ flash_fwd_f32_kernel(Strided q, Strided k, Strided v, const unsigned char* __res
   const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
   T* Pw = Ps + warp * 16 * LDP;
 
-  load_tile<T, D, LD>(Qs, q, b, h, q0, Sq);
+  load_tile<T, D, LD, kTile, kThreads>(Qs, q, b, h, q0, Sq);
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   float o[NO][4];
   zero(o);
@@ -269,9 +282,9 @@ flash_fwd_f32_kernel(Strided q, Strided k, Strided v, const unsigned char* __res
   const int kv_end = causal ? min(Sk, q0 + kTile + q_offset) : Sk;
   for (int c0 = 0; c0 < kv_end; c0 += kTile) {
     __syncthreads();  // the previous tile's readers are done
-    load_tile<T, D, LD>(Ks, k, b, h, c0, Sk);
-    load_tile<T, D, LD>(Vs, v, b, h, c0, Sk);
-    load_key_mask(keep, mask, b, c0, Sk);
+    load_tile<T, D, LD, kTile, kThreads>(Ks, k, b, h, c0, Sk);
+    load_tile<T, D, LD, kTile, kThreads>(Vs, v, b, h, c0, Sk);
+    load_key_mask<kTile, kThreads>(keep, mask, b, c0, Sk);
     __syncthreads();
     float s[NS][4];
     zero(s);
@@ -345,12 +358,13 @@ flash_fwd_f32_kernel(Strided q, Strided k, Strided v, const unsigned char* __res
 // ---------------------------------------------------------------------------
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(F32Cta<D>::THREADS)
 flash_bwd_dkv_f32_kernel(Strided q, Strided k, Strided v, Strided o, Strided dout,
                          const unsigned char* __restrict__ mask, const float* __restrict__ lse,
                          float* __restrict__ dk, float* __restrict__ dv, int H, int Sq,
                          int Sk, int causal, int q_offset, float scale) {
   using T = float;
+  constexpr int kTile = F32Cta<D>::TILE, kThreads = F32Cta<D>::THREADS;
   constexpr int LD = padded<T>(D), LDP = padded<T>(kTile);
   constexpr int NS = kTile / 8, NO = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -371,9 +385,9 @@ flash_bwd_dkv_f32_kernel(Strided q, Strided k, Strided v, Strided o, Strided dou
   T* Pw = Ps + warp * 16 * LDP;
   T* dSw = dSs + warp * 16 * LDP;
 
-  load_tile<T, D, LD>(Ks, k, b, h, c0, Sk);
-  load_tile<T, D, LD>(Vs, v, b, h, c0, Sk);
-  load_key_mask(keep, mask, b, c0, Sk);
+  load_tile<T, D, LD, kTile, kThreads>(Ks, k, b, h, c0, Sk);
+  load_tile<T, D, LD, kTile, kThreads>(Vs, v, b, h, c0, Sk);
+  load_key_mask<kTile, kThreads>(keep, mask, b, c0, Sk);
   __syncthreads();
   const bool key_ok[2] = {keep[warp * 16 + g] != 0, keep[warp * 16 + g + 8] != 0};
   float dka[NO][4], dva[NO][4];
@@ -383,8 +397,8 @@ flash_bwd_dkv_f32_kernel(Strided q, Strided k, Strided v, Strided o, Strided dou
   const int r_begin = causal ? max(0, c0 - q_offset) / kTile * kTile : 0;
   for (int r0 = r_begin; r0 < Sq; r0 += kTile) {
     __syncthreads();
-    load_tile<T, D, LD>(Qs, q, b, h, r0, Sq);
-    load_tile<T, D, LD>(dOs, dout, b, h, r0, Sq);
+    load_tile<T, D, LD, kTile, kThreads>(Qs, q, b, h, r0, Sq);
+    load_tile<T, D, LD, kTile, kThreads>(dOs, dout, b, h, r0, Sq);
     row_stats<T, D>(delta_s, lse_s, o, dout, lse, b, h, H, r0, Sq);
     __syncthreads();
     // S^T = K Q^T and dP^T = V dO^T, 16 keys x kTile rows per warp
@@ -989,12 +1003,13 @@ flash_fwd_kernel(Strided q, Strided k, Strided v, const unsigned char* __restric
 // ---------------------------------------------------------------------------
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(F32Cta<D>::THREADS)
 flash_bwd_dq_f32_kernel(Strided q, Strided k, Strided v, Strided o, Strided dout,
                         const unsigned char* __restrict__ mask, const float* __restrict__ lse,
                         float* __restrict__ dq, int H, int Sq, int Sk, int causal, int q_offset,
                         float scale) {
   using T = float;
+  constexpr int kTile = F32Cta<D>::TILE, kThreads = F32Cta<D>::THREADS;
   constexpr int LD = padded<T>(D), LDP = padded<T>(kTile);
   constexpr int NS = kTile / 8, NO = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -1013,8 +1028,8 @@ flash_bwd_dq_f32_kernel(Strided q, Strided k, Strided v, Strided o, Strided dout
   const int lrow[2] = {warp * 16 + g, warp * 16 + g + 8};  // rows within the tile
   T* dSw = dSs + warp * 16 * LDP;
 
-  load_tile<T, D, LD>(Qs, q, b, h, q0, Sq);
-  load_tile<T, D, LD>(dOs, dout, b, h, q0, Sq);
+  load_tile<T, D, LD, kTile, kThreads>(Qs, q, b, h, q0, Sq);
+  load_tile<T, D, LD, kTile, kThreads>(dOs, dout, b, h, q0, Sq);
   row_stats<T, D>(delta_s, lse_s, o, dout, lse, b, h, H, q0, Sq);
   __syncthreads();
   const float row_lse[2] = {lse_s[lrow[0]], lse_s[lrow[1]]};
@@ -1024,9 +1039,9 @@ flash_bwd_dq_f32_kernel(Strided q, Strided k, Strided v, Strided o, Strided dout
   const int kv_end = causal ? min(Sk, q0 + kTile + q_offset) : Sk;
   for (int c0 = 0; c0 < kv_end; c0 += kTile) {
     __syncthreads();
-    load_tile<T, D, LD>(Ks, k, b, h, c0, Sk);
-    load_tile<T, D, LD>(Vs, v, b, h, c0, Sk);
-    load_key_mask(keep, mask, b, c0, Sk);
+    load_tile<T, D, LD, kTile, kThreads>(Ks, k, b, h, c0, Sk);
+    load_tile<T, D, LD, kTile, kThreads>(Vs, v, b, h, c0, Sk);
+    load_key_mask<kTile, kThreads>(keep, mask, b, c0, Sk);
     __syncthreads();
     float s[NS][4], dp[NS][4];
     zero(s);
@@ -1367,10 +1382,8 @@ cudaError_t smem_attr(K kernel, size_t smem) {
 template <typename T, int D>
 int fwd(Strided q, Strided k, Strided v, const void* mask, void* out, void* lse, int B, int H,
         int Sq, int Sk, int causal, float scale, cudaStream_t st) {
-  if constexpr (std::is_same<T, float>::value && D > 128) {
-    // the f32 kernels' 64-row tiles of a 256-wide head exceed shared memory
-    return (int)cudaErrorInvalidValue;
-  } else if constexpr (std::is_same<T, float>::value) {  // f32: the CUDA-core kernel
+  if constexpr (std::is_same<T, float>::value) {  // f32: the CUDA-core kernel
+    constexpr int kTile = F32Cta<D>::TILE, kThreads = F32Cta<D>::THREADS;
     constexpr int LD = padded<T>(D), LDP = padded<T>(kTile);
     const size_t smem = sizeof(T) * (3 * kTile * LD + kTile * LDP) + kTile;
     auto kern = flash_fwd_f32_kernel<D>;
@@ -1397,10 +1410,8 @@ template <typename T, int D>
 int bwd_dkv(Strided q, Strided k, Strided v, Strided o, Strided dout, const void* mask,
             const void* lse, void* dk, void* dv, int B, int H, int Sq, int Sk, int causal,
             float scale, cudaStream_t st) {
-  if constexpr (std::is_same<T, float>::value && D > 128) {
-    // the f32 kernels' 64-row tiles of a 256-wide head exceed shared memory
-    return (int)cudaErrorInvalidValue;
-  } else if constexpr (std::is_same<T, float>::value) {  // f32: the CUDA-core kernel
+  if constexpr (std::is_same<T, float>::value) {  // f32: the CUDA-core kernel
+    constexpr int kTile = F32Cta<D>::TILE, kThreads = F32Cta<D>::THREADS;
     constexpr int LD = padded<T>(D), LDP = padded<T>(kTile);
     const size_t smem =
         sizeof(T) * (4 * kTile * LD + 2 * kTile * LDP) + 2 * sizeof(float) * kTile + kTile;
@@ -1428,10 +1439,8 @@ template <typename T, int D>
 int bwd_dq(Strided q, Strided k, Strided v, Strided o, Strided dout, const void* mask,
            const void* lse, void* dq, int B, int H, int Sq, int Sk, int causal, float scale,
            cudaStream_t st) {
-  if constexpr (std::is_same<T, float>::value && D > 128) {
-    // the f32 kernels' 64-row tiles of a 256-wide head exceed shared memory
-    return (int)cudaErrorInvalidValue;
-  } else if constexpr (std::is_same<T, float>::value) {  // f32: the CUDA-core kernel
+  if constexpr (std::is_same<T, float>::value) {  // f32: the CUDA-core kernel
+    constexpr int kTile = F32Cta<D>::TILE, kThreads = F32Cta<D>::THREADS;
     constexpr int LD = padded<T>(D), LDP = padded<T>(kTile);
     const size_t smem =
         sizeof(T) * (4 * kTile * LD + kTile * LDP) + 2 * sizeof(float) * kTile + kTile;

@@ -30,8 +30,8 @@ output sliced back. That is exact: the pad columns add 0 to QKᵀ, come out
 0 in O, dQ, dK and dV, and add nothing to the backward's rowsum(dO∘O).
 The CPU's plain path pads alike. A head dim above 256 is refused (ROADMAP
 Queue C; no public configuration reaches it). The f32 kernels (checks,
-not speed) stop at 128 (``F32_HEAD_DIMS``): their 64-row tiles of a
-256-wide head exceed shared memory.
+not speed) take the same head dims: 64-row tiles up to 128, 32-row
+tiles at 256, where four 64-row f32 tiles would exceed shared memory.
 Inputs are read through their strides with the head dimension
 contiguous (the model's ``[B,S,H,D] -> [B,H,S,D]`` views need no copy);
 a tensor whose last dimension is strided is made contiguous first.
@@ -47,8 +47,8 @@ from .attention import NEG_INF
 
 #: head dims the kernels are instantiated for
 HEAD_DIMS = (32, 64, 128, 256)
-#: the ones the f32 kernels take (the bf16 ones take every ``HEAD_DIMS``)
-F32_HEAD_DIMS = (32, 64, 128)
+#: the ones the f32 kernels take (at 256 on 32-row tiles)
+F32_HEAD_DIMS = HEAD_DIMS
 
 
 def padded_head_dim(D: int) -> int:
@@ -169,10 +169,6 @@ def _check(q, k, v, kv_mask, *extra):
         raise ValueError(f"head_dim {D}: the flash kernels are built for {HEAD_DIMS}; "
                          f"flash_attention zero-pads a smaller one to the next of them, "
                          f"and larger ones are open in ROADMAP Queue C")
-    if q.dtype == torch.float32 and D not in F32_HEAD_DIMS:
-        raise ValueError(f"head_dim {D} in f32: the f32 flash kernels take {F32_HEAD_DIMS} "
-                         f"(their 64-row tiles of a {D}-wide head exceed shared memory; "
-                         f"ROADMAP Queue C); bf16 takes {HEAD_DIMS}")
     for name, t in (("q", q), ("k", k), ("v", v)) + extra:
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")

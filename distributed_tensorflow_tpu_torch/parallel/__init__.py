@@ -1,7 +1,8 @@
-"""Data, fully-sharded and tensor parallelism over ``torch.distributed``
-— the mesh, cluster, collectives, placement and spec-engine subset of
-``distributed_tensorflow_tpu/parallel`` (the pipeline, ring attention
-and the stacked stage specs: ROADMAP Queue A item 6)."""
+"""Data, fully-sharded, tensor and sequence parallelism over
+``torch.distributed`` — the mesh, cluster, collectives, placement,
+spec-engine and ring-attention subset of ``distributed_tensorflow_tpu/
+parallel`` (the pipeline and the stacked stage specs: ROADMAP Queue A
+item 6)."""
 
 from . import cluster, collectives, sharding  # noqa: F401
 from .mesh import (  # noqa: F401

@@ -30,10 +30,29 @@ parameter summed over ``fsdp``, this rank's slice kept).
 ``all_gather`` under NCCL is ``all_gather_into_tensor``; under gloo,
 which has no all-gather of CUDA tensors, it is an all-reduce of a
 zero-filled full buffer into which each rank wrote its slice (exact: a
-value plus zeros).
+value plus zeros). It is differentiable as JAX's is: its backward
+reduce-scatters the cotangent.
 
-``groups=`` (the emulated subgroups), ``all_to_all`` and ``ring_permute``
-are not ported (ROADMAP Queue A item 6: MoE dispatch, ring attention).
+Sequence parallelism's verbs (``parallel/ring_attention.py``), each
+differentiable with JAX's transpose: ``ring_permute`` sends this rank's
+tensor ``shift`` ranks on around the axis (``jax.lax.ppermute`` over the
+ring; the backward is the permute by ``-shift``); ``all_to_all`` is
+``jax.lax.all_to_all(..., tiled=True)`` (the backward the inverse
+all-to-all); ``scatter_to_axis`` keeps this rank's chunk of a tensor
+replicated over the axis (the backward all-gathers the chunks'
+cotangents) and ``gather_from_axis`` all-gathers the chunks back (the
+backward keeps this rank's chunk of a cotangent replicated over the
+axis): the two bound a ``shard_map`` island over ``seq``. The all-to-all
+is ``all_to_all_single`` under every backend (gloo takes CUDA tensors
+there). The permute is ``batch_isend_irecv`` under NCCL and under gloo on
+CPU tensors; gloo's point-to-point sends of CUDA tensors fail on an H100
+(a ``writev`` of a device address), so under gloo on CUDA tensors
+(several ranks sharing one card) the permute is emulated exactly as
+``all_gather`` is: each rank writes its tensor into a zero-filled buffer
+of every rank's, one all-reduce sums them, and each keeps its sender's.
+
+``groups=`` (the emulated subgroups) is not ported (ROADMAP Queue A item
+6).
 """
 
 from __future__ import annotations
@@ -177,7 +196,10 @@ def reduce_from_model(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
     return x if mesh is None else sum_over_axis(x, MODEL, mesh)
 
 
-class _GatherFsdp(torch.autograd.Function):
+class _Gather(torch.autograd.Function):
+    """All-gather along ``dim`` forward, reduce-scatter backward (JAX's
+    transpose of ``all_gather``)."""
+
     @staticmethod
     def forward(ctx, x, group, dim):
         ctx.group, ctx.dim = group, dim
@@ -192,7 +214,130 @@ def gather_fsdp(x: torch.Tensor, dim: int, mesh: Mesh | None) -> torch.Tensor:
     """The whole tensor of which ``x`` is this rank's ``fsdp`` shard along
     ``dim``; the backward reduce-scatters the cotangent over ``fsdp``."""
     group = None if mesh is None else mesh.group(FSDP)
-    return x if group is None else _GatherFsdp.apply(x, group, dim)
+    return x if group is None else _Gather.apply(x, group, dim)
+
+
+def _chunk(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    import torch.distributed as dist
+
+    n = dist.get_world_size(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of size {x.shape[dim]} does not divide by {n} ranks")
+    size = x.shape[dim] // n
+    return x.narrow(dim, dist.get_rank(group) * size, size).contiguous()
+
+
+class _ScatterToAxis(torch.autograd.Function):
+    """This rank's chunk forward, the all-gather of the chunks' cotangents
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _chunk(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g.contiguous(), ctx.group, ctx.dim), None, None
+
+
+class _GatherFromAxis(torch.autograd.Function):
+    """All-gather forward, this rank's chunk of the (replicated) cotangent
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _gather(x.contiguous(), group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _chunk(g, ctx.group, ctx.dim), None, None
+
+
+def scatter_to_axis(x: torch.Tensor, dim: int, axis: str, mesh: Mesh) -> torch.Tensor:
+    """This rank's chunk along ``dim`` of ``x``, which every rank of
+    ``axis`` holds whole (the entry of a ``shard_map`` island whose input
+    is split over ``axis``); the backward all-gathers the chunks'
+    cotangents, so every rank ends with the whole tensor's gradient."""
+    group = mesh.group(axis)
+    return x if group is None else _ScatterToAxis.apply(x, group, dim)
+
+
+def gather_from_axis(x: torch.Tensor, dim: int, axis: str, mesh: Mesh) -> torch.Tensor:
+    """The ranks' chunks along ``dim`` concatenated in rank order (the
+    exit of the island); the backward keeps this rank's chunk of the
+    cotangent, which every rank of ``axis`` holds whole."""
+    group = mesh.group(axis)
+    return x if group is None else _GatherFromAxis.apply(x, group, dim)
+
+
+def _native_p2p(group, x: torch.Tensor) -> bool:
+    """Whether the backend sends ``x`` point to point itself (NCCL; gloo
+    on CPU tensors); the permute of gloo on CUDA tensors is emulated
+    (module docstring)."""
+    return _nccl(group) or x.device.type == "cpu"
+
+
+def _permute(x: torch.Tensor, group, shift: int) -> torch.Tensor:
+    """What rank ``r - shift`` of the group holds (this rank's ``x`` goes
+    to rank ``r + shift``), ranks counted modulo the group's size."""
+    import torch.distributed as dist
+
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    x = x.contiguous()
+    if shift % n == 0:
+        return x.clone()
+    if not _native_p2p(group, x):
+        buf = x.new_zeros((n, *x.shape))
+        buf[r].copy_(x)
+        dist.all_reduce(buf, group=group)
+        return buf[(r - shift) % n].clone()
+    out = torch.empty_like(x)
+    ops = [dist.P2POp(dist.isend, x, dist.get_global_rank(group, (r + shift) % n), group),
+           dist.P2POp(dist.irecv, out, dist.get_global_rank(group, (r - shift) % n), group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return out
+
+
+def _all_to_all(x: torch.Tensor, group, split_axis: int, concat_axis: int) -> torch.Tensor:
+    """The tiled all-to-all: chunk j of ``x`` along ``split_axis`` goes to
+    rank j, the chunks received concatenated along ``concat_axis`` in rank
+    order."""
+    import torch.distributed as dist
+
+    n = dist.get_world_size(group)
+    if x.shape[split_axis] % n:
+        raise ValueError(f"all_to_all: dim {split_axis} of size {x.shape[split_axis]} does "
+                         f"not divide by {n} ranks")
+    parts = torch.stack(x.chunk(n, split_axis))  # [n, ...]: part j for rank j
+    got = torch.empty_like(parts)
+    dist.all_to_all_single(got, parts, group=group)
+    return torch.cat(got.unbind(0), concat_axis)
+
+
+class _RingPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, shift):
+        ctx.group, ctx.shift = group, shift
+        return _permute(x, group, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _permute(g, ctx.group, -ctx.shift), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_axis, concat_axis):
+        ctx.group, ctx.axes = group, (split_axis, concat_axis)
+        return _all_to_all(x, group, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_axis, concat_axis = ctx.axes
+        return _all_to_all(g, ctx.group, concat_axis, split_axis), None, None, None
 
 
 def _reduce_op(x: torch.Tensor, axis: AxisNames, mesh: Mesh, op) -> torch.Tensor:
@@ -225,11 +370,11 @@ def all_reduce_mean(x: torch.Tensor, axis: AxisNames, mesh: Mesh, groups: Groups
 
 def all_gather(x: torch.Tensor, axis: AxisNames, mesh: Mesh, *, tiled_axis: int = 0,
                groups: Groups = None):
-    """Concatenate the ranks' ``x`` along ``tiled_axis``, in rank order
-    (not differentiable; module docstring)."""
+    """Concatenate the ranks' ``x`` along ``tiled_axis``, in rank order;
+    the backward reduce-scatters the cotangent (module docstring)."""
     _no_groups(groups, "all_gather")
     group = mesh.group(axis)
-    return x if group is None else _gather(x, group, tiled_axis)
+    return x if group is None else _Gather.apply(x, group, tiled_axis)
 
 
 def reduce_scatter(x: torch.Tensor, axis: AxisNames, mesh: Mesh, *, scatter_axis: int = 0,
@@ -272,13 +417,23 @@ def barrier(axis: AxisNames, mesh: Mesh) -> int:
 
 def all_to_all(x, axis: AxisNames, mesh: Mesh, *, split_axis: int, concat_axis: int,
                groups: Groups = None):
-    raise NotImplementedError("all_to_all (Ulysses sequence parallelism, MoE dispatch) is not "
-                              "ported yet (ROADMAP Queue A item 6)")
+    """``jax.lax.all_to_all(x, axis, split_axis, concat_axis, tiled=True)``:
+    chunk j of ``x`` along ``split_axis`` goes to rank j of the axis, and
+    the chunks this rank receives are concatenated along ``concat_axis``
+    in rank order. Differentiable: the backward is the inverse
+    all-to-all."""
+    _no_groups(groups, "all_to_all")
+    group = mesh.group(axis)
+    return x if group is None else _AllToAll.apply(x, group, split_axis, concat_axis)
 
 
 def ring_permute(x, axis: str, mesh: Mesh, *, shift: int = 1):
-    raise NotImplementedError("ring_permute (ring attention) is not ported yet (ROADMAP Queue "
-                              "A item 6, parallel/ring_attention.py)")
+    """``jax.lax.ppermute`` over the ring of ``axis``: this rank's ``x``
+    goes to rank ``i + shift`` (mod the axis size), and it returns what
+    rank ``i - shift`` sent. Differentiable: the backward is the permute
+    by ``-shift``."""
+    group = mesh.group(axis)
+    return x if group is None else _RingPermute.apply(x, group, shift)
 
 
 def axis_index(axis: AxisNames, mesh: Mesh) -> int:

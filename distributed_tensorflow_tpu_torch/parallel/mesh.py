@@ -16,9 +16,12 @@ axis is. ``data`` and ``fsdp`` may exceed 1 (the batch split over
 over them; a rule table may shard parameters over ``fsdp``), and so may
 ``model``, over which a rule table shards parameters (embedding tables,
 megatron tensor parallelism: ``parallel/sharding.py``; the runner
-refuses a workload that places nothing there); ``pipe``, ``seq`` and
-``expert`` above 1, and the DCN factors of a multislice mesh, raise with
-their ROADMAP item. A collective over several axes of the mesh together
+refuses a workload that places nothing there), and ``seq``, over which
+attention splits the sequence (``parallel/ring_attention.py``; no
+parameter is sharded over it, and the runner refuses it for a model
+without ``seq_impl``); ``pipe`` and ``expert`` above 1, and the DCN
+factors of a multislice mesh, raise with their ROADMAP item. A
+collective over several axes of the mesh together
 (``BATCH_AXES`` on a data x fsdp x model mesh) runs over a process group
 of those axes' ranks, made when the mesh is built.
 ``PodTopology`` and ``factor_mesh_axis`` are not ported (ROADMAP Queue A
@@ -44,10 +47,9 @@ PIPE, DATA, FSDP, SEQ, EXPERT, MODEL = AXIS_NAMES
 #: are summed over them
 BATCH_AXES: tuple[str, ...] = (DATA, FSDP)
 
-#: what brings each axis but ``data`` past 1 (ROADMAP Queue A)
+#: what brings each of the axes not ported yet past 1 (ROADMAP Queue A)
 _NOT_PORTED = {
     PIPE: "pipeline parallelism, item 6 (parallel/pipeline.py)",
-    SEQ: "sequence parallelism, item 6 (parallel/ring_attention.py)",
     EXPERT: "expert parallelism, item 6 (ops/moe.py)",
 }
 
@@ -171,7 +173,7 @@ def build_mesh(spec: MeshSpec | Mapping[str, int] | None = None, device="cuda") 
     big = {a: v for a, v in spec.sizes().items() if v > 1 and a in _NOT_PORTED}
     if big:
         raise NotImplementedError(
-            f"mesh {big}: only the data, fsdp and model axes may exceed 1 in the port so "
+            f"mesh {big}: only the data, fsdp, seq and model axes may exceed 1 in the port so "
             f"far; " + "; ".join(f"{a}: {_NOT_PORTED[a]}" for a in big) + " (ROADMAP Queue A)")
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:

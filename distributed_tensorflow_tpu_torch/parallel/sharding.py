@@ -26,9 +26,9 @@ gives, the vocabulary's range shards padded as ``shard_vocab`` pads. ``()``
 is whole on every rank. ``place`` sets each tensor to the value of the
 rank that holds the same shard at index 0 of every other axis;
 ``gather_tensor`` reassembles a whole tensor from the shards. A spec
-naming ``pipe``, ``seq`` or ``expert`` (the stacked stage specs, ring
-attention, MoE) is ROADMAP Queue A item 6; ``data`` never shards a
-parameter.
+naming ``pipe`` or ``expert`` (the stacked stage specs, MoE) is ROADMAP
+Queue A item 6; ``data`` and ``seq`` never shard a parameter (the JAX
+package puts none on them: ``seq`` splits attention's sequence).
 
 **The spec engine** (JAX ``init_train_state``'s order): the table's specs
 (``specs_from_rules``), then, with ``fsdp``, ``auto_fsdp_specs`` merged in
@@ -53,7 +53,7 @@ import numpy as np
 import torch
 
 from .collectives import all_gather, axis_index, axis_size, broadcast
-from .mesh import AXIS_NAMES, BATCH_AXES, DATA, FSDP, MODEL, Mesh
+from .mesh import AXIS_NAMES, BATCH_AXES, DATA, FSDP, MODEL, SEQ, Mesh
 
 #: a spec: one entry a leading dim, each a mesh axis name, a tuple of
 #: names or None
@@ -136,18 +136,23 @@ def spec_axes(spec: Spec) -> tuple[str, ...]:
 
 def check_spec(spec: Spec, name: str = "") -> Spec:
     """``spec`` if the port can place it (module docstring), else raise:
-    ``pipe``, ``seq`` and ``expert`` naming ROADMAP item 6."""
+    ``pipe`` and ``expert`` naming ROADMAP item 6, ``data`` and ``seq``
+    because no parameter is sharded over them."""
     spec = tuple(spec)
     what = name or "a tensor"
     axes = spec_axes(spec)
-    later = [a for a in axes if a not in PARAM_AXES and a != DATA]
+    later = [a for a in axes if a not in PARAM_AXES and a not in (DATA, SEQ)]
     if later:
         raise NotImplementedError(
-            f"{what}: spec {spec} shards over {later}: the pipeline's stacked stage specs, "
-            f"ring attention and MoE are ROADMAP Queue A item 6")
+            f"{what}: spec {spec} shards over {later}: the pipeline's stacked stage specs "
+            f"and MoE are ROADMAP Queue A item 6")
     if DATA in axes:
         raise ValueError(f"{what}: spec {spec}: no parameter is sharded over the batch "
                          f"axis {DATA!r}")
+    if SEQ in axes:
+        raise ValueError(f"{what}: spec {spec}: no parameter is sharded over {SEQ!r}, "
+                         f"which splits the sequence of attention alone (every {SEQ} rank "
+                         f"holds every parameter, as in the JAX package)")
     if len(set(axes)) != len(axes) or any(isinstance(e, tuple) and len(e) > 1 for e in spec):
         raise NotImplementedError(f"{what}: spec {spec}: the port shards a dim over at most "
                                   f"one of {PARAM_AXES}, and each axis over one dim")

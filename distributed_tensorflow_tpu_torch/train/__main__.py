@@ -38,6 +38,8 @@ Usage:
         --device cpu --mesh.model=2 ...  (and the same tiny overrides)
     python -m distributed_tensorflow_tpu_torch.train mnist_mlp --device cpu \\
         --train.num_steps=60 --checkpoint.directory=/tmp/ck_mlp
+    torchrun --nproc_per_node=4 -m distributed_tensorflow_tpu_torch.train gpt_lm \\
+        --preset=long_context   (S=8192, ring attention over --mesh.seq=4, remat)
     torchrun --nproc_per_node=8 -m distributed_tensorflow_tpu_torch.train cifar10_cnn
     python -m distributed_tensorflow_tpu_torch.train cifar10_cnn --mesh.data=-1 \\
         --train.num_steps=200   (one process: the data axis takes it)
@@ -84,6 +86,8 @@ def main(argv=None):
                     help="the workload, as a flag (or give it first)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; cuda by default, raises without CUDA")
+    ap.add_argument("--preset", default=None,
+                    help="one of the workload's other presets (gpt_lm: long_context)")
     args, overrides = ap.parse_known_args(argv)
     workload = args.workload or args.workload_flag
     if workload is None or (args.workload and args.workload_flag
@@ -94,7 +98,7 @@ def main(argv=None):
         ap.error(f"overrides must be --section.key=value, got {bad}")
     logging.basicConfig(level=logging.INFO, format="%(message)s")
     try:
-        result = run_workload(workload, overrides, device=args.device)
+        result = run_workload(workload, overrides, device=args.device, preset=args.preset)
         if cluster.is_chief():
             for row in result.history:
                 print(" ".join(f"{k}={v:.6g}" for k, v in row.items()))

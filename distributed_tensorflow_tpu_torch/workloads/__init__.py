@@ -1,12 +1,11 @@
 """Workload registry of the port: the five BASELINE.json configs as presets
 (``mnist_mlp``, ``cifar10_cnn``, ``resnet50_imagenet``, ``bert_pretrain``,
-``wide_deep``) and ``gpt_lm`` (causal LM, beyond the reference set), each
-the JAX package's preset (the optimizers the JAX presets name that are
-still missing, rmsprop, lamb and adafactor, are ROADMAP Queue A item
-2.6).
+``wide_deep``) and ``gpt_lm`` (causal LM, beyond the reference set, with
+its ``long_context`` preset), each the JAX package's preset.
 
 Each workload module exposes ``default_config() -> RunConfig`` and
-``build(cfg, device, mesh) -> WorkloadParts``; the shared runner
+``build(cfg, device, mesh) -> WorkloadParts`` (and may name other presets
+in ``PRESETS``, picked by ``preset=``); the shared runner
 (``runner.py``) does the rest: ``run_workload`` trains,
 ``eval_workload`` evaluates the newest checkpoint without training.
 Imported lazily, so importing the registry pulls no model."""
@@ -48,22 +47,30 @@ def get(name: str):
     return importlib.import_module(_REGISTRY[name], __package__)
 
 
-def _config(name: str, overrides: list[str] | None):
+def presets(name: str) -> list[str]:
+    """The presets workload ``name`` offers besides its default."""
+    return sorted(getattr(get(name), "PRESETS", {}))
+
+
+def _config(name: str, overrides: list[str] | None, preset: str | None = None):
     from ..utils import config as config_lib
 
     mod = get(name)
-    cfg = mod.default_config()
+    if preset is not None and preset not in presets(name):
+        raise ValueError(f"workload {name!r} has no preset {preset!r}; it has "
+                         f"{presets(name) or 'only its default'}")
+    cfg = mod.PRESETS[preset]() if preset is not None else mod.default_config()
     if overrides:
         cfg = config_lib.apply_overrides(cfg, overrides)
     return mod, cfg
 
 
 def run_workload(name: str, overrides: list[str] | None = None, device="cuda",
-                 **run_kwargs) -> RunResult:
-    """Train workload ``name`` with ``--section.key=value`` overrides on
-    ``device`` (the card by default; raises without one unless
-    ``device="cpu"``)."""
-    mod, cfg = _config(name, overrides)
+                 preset: str | None = None, **run_kwargs) -> RunResult:
+    """Train workload ``name`` (its ``preset``, else its default config)
+    with ``--section.key=value`` overrides on ``device`` (the card by
+    default; raises without one unless ``device="cpu"``)."""
+    mod, cfg = _config(name, overrides, preset)
     return run(cfg, mod.build, device=device, **run_kwargs)
 
 

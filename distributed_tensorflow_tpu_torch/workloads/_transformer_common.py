@@ -12,7 +12,7 @@ import torch
 from ..data.text import make_text_dataset, resolved_max_predictions
 from ..models import transformer as tfm
 from ..parallel.collectives import axis_index, axis_size
-from ..parallel.mesh import BATCH_AXES, MODEL
+from ..parallel.mesh import BATCH_AXES, MODEL, SEQ
 from .runner import RunConfig, WorkloadParts
 
 
@@ -21,9 +21,9 @@ def transformer_parts(cfg: RunConfig, device: torch.device, *, mlm: bool,
     """WorkloadParts for a Transformer workload: a trainable model with
     random weights from ``cfg.train.seed`` on ``device`` (this rank's
     shards on ``mesh``, by the specs ``init_train_state`` computes: the
-    rules, then ``auto_fsdp_specs``; every rank of one data shard reads
-    that shard's rows of each batch); the masked-LM
-    loss and eval (``mlm``, the encoder) or the next-token ones (the
+    rules, then ``auto_fsdp_specs``; every rank of one data shard — its
+    ``model`` and ``seq`` ranks — reads that shard's rows of each batch);
+    the masked-LM loss and eval (``mlm``, the encoder) or the next-token ones (the
     causal decoder, chunked when ``model.xent_chunk > 0``); the text
     stream, a held-out eval stream at a disjoint index range, and the
     forward FLOPs per step (the gathered MLM head's positions only)."""
@@ -37,9 +37,9 @@ def transformer_parts(cfg: RunConfig, device: torch.device, *, mlm: bool,
     tfm.check_supported(mcfg)
     n_pred = resolved_max_predictions(cfg.data) if mlm else 0
     specs = {} if mesh is None else tfm.transformer_specs(mcfg, mesh)
-    # every model rank of a data shard reads its rows (at model=1 the
-    # process's rows are the data shard's)
-    shard = None if mesh is None or mesh.shape[MODEL] == 1 else (
+    # every model and seq rank of a data shard reads its rows (where both
+    # are 1 the process's rows are the data shard's)
+    shard = None if mesh is None or mesh.shape[MODEL] == mesh.shape[SEQ] == 1 else (
         axis_index(BATCH_AXES, mesh), axis_size(BATCH_AXES, mesh))
     params = tfm.init_params(mcfg, seed=cfg.train.seed, device=device, trainable=True)
     model = tfm.build(mcfg, params, device, trainable=True, mesh=mesh, specs=specs)

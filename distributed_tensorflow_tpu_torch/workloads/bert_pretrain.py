@@ -5,8 +5,9 @@ head, K = round(0.15 · 512) = 77, global batch 256, adamw at 1e-4 with a
 linear warmup), data-parallel over the processes of the mesh (one per
 card; the step's gradient all-reduce is generic). Attention runs through
 the flash kernels, non-causal, with a ``kv_mask`` when a batch carries an
-``attention_mask``. Sequence parallelism and the pipelined family are
-ROADMAP Queue A item 6."""
+``attention_mask``; with ``model.seq_impl`` and ``mesh.seq`` above 1,
+through ``parallel/ring_attention.py``. The pipelined family is ROADMAP
+Queue A item 6."""
 
 from __future__ import annotations
 

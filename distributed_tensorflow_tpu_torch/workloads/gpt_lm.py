@@ -1,7 +1,9 @@
 """Decoder-only causal LM at GPT-2-small shape — the port's counterpart of
-``distributed_tensorflow_tpu/workloads/gpt_lm.py`` (the default preset,
-same values, data-parallel over the processes there are; the
-``long_context`` preset needs ring attention, ROADMAP Queue A item 6)."""
+``distributed_tensorflow_tpu/workloads/gpt_lm.py``: the default preset
+(data-parallel over the processes there are) and ``long_context`` (ring
+attention over the ``seq`` axis with remat at S=8192), same values.
+``python -m distributed_tensorflow_tpu_torch.train gpt_lm
+--preset=long_context`` picks the second (``PRESETS``)."""
 
 from __future__ import annotations
 
@@ -35,6 +37,21 @@ def default_config() -> RunConfig:
         ),
         train=TrainSection(num_steps=100000, log_every=100),
     )
+
+
+def long_context(seq_len: int = 8192) -> RunConfig:
+    """Ring attention + remat: run with ``--mesh.seq=K`` (K divides
+    ``seq_len``; the preset's ``seq=-1`` takes every process) so the K/V
+    chunks rotate around the ``seq`` axis (``parallel/ring_attention.py``);
+    data stays at 1 unless overridden."""
+    cfg = default_config()
+    model = dataclasses.replace(cfg.model, max_len=seq_len, seq_impl="ring", remat=True)
+    data = dataclasses.replace(cfg.data, seq_len=seq_len, global_batch_size=8)
+    return dataclasses.replace(cfg, model=model, data=data, mesh=MeshSpec(data=1, seq=-1))
+
+
+#: the presets by name (``default_config`` is the workload's default)
+PRESETS = {"long_context": long_context}
 
 
 def build(cfg: RunConfig, device: torch.device, mesh=None) -> WorkloadParts:

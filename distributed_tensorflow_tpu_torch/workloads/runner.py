@@ -29,13 +29,23 @@ tree's on every rank, and lamb's and adafactor's per-parameter sums are
 the whole parameter's. A checkpoint gathers each shard whole
 (``train/checkpoint.py``): a step dir restores at any mesh.
 
+A workload whose parts do not ask for ``fsdp`` (Wide&Deep, ResNet-50,
+the MLP and the CNN, as in the JAX package) still runs with ``mesh.fsdp``
+above 1: its parameters stay as their rules place them, and the batch is
+split over ``data`` x ``fsdp`` as JAX's ``batch_spec`` splits it. A
+transformer whose ``model.seq_impl`` is set runs with ``mesh.seq`` above
+1 (``parallel/ring_attention.py``): every ``seq`` rank of a data shard
+reads that shard's rows and ends each step with the same gradients.
+
 The config tree keeps the JAX package's section names, so the same
 ``--section.key=value`` overrides parse; a config that asks for what the
-port does not have yet raises with the ROADMAP item named: ``seq``,
-``expert`` or ``pipe`` above 1 (item 6), ``model`` above 1 for a workload
-that shards nothing over it, ``fsdp`` above 1 for one whose parts do not
-ask for it, a fleet, the anomaly defense, MoE. An explicit
-``data.eval_dataset`` a workload does not consume raises too.
+port does not have yet raises with the ROADMAP item named: ``expert`` or
+``pipe`` above 1 (item 6), a fleet, the anomaly defense, MoE. Refused
+too, because the ranks would only repeat each other's work (JAX runs
+them): ``model`` above 1 for a workload that shards nothing over it, and
+``seq`` above 1 for a model without ``seq_impl`` or a workload without
+attention. An explicit ``data.eval_dataset`` a workload does not consume
+raises too.
 """
 
 from __future__ import annotations
@@ -52,7 +62,7 @@ from ..data.pipeline import DevicePut, Prefetcher
 from ..data.text import TextDataConfig
 from ..parallel import cluster
 from ..parallel.cluster import ClusterConfig
-from ..parallel.mesh import FSDP, MODEL, MeshSpec, build_mesh, describe
+from ..parallel.mesh import FSDP, MODEL, SEQ, MeshSpec, build_mesh, describe
 from ..parallel import sharding
 from ..train import (
     OptimizerConfig,
@@ -161,11 +171,20 @@ def check_supported(cfg: RunConfig) -> None:
         raise ValueError(f"mesh.pipe={cfg.mesh.pipe}: pipeline parallelism is not ported "
                          f"yet (ROADMAP Queue A item 6, parallel/pipeline.py)")
     axes = cfg.mesh.sizes()
-    big = {k: v for k, v in axes.items() if k not in ("data", FSDP, MODEL) and v != 1}
+    big = {k: v for k, v in axes.items() if k not in ("data", FSDP, SEQ, MODEL) and v != 1}
     if big:
-        raise ValueError(f"mesh {big}: no axis but data, fsdp and model may span more than "
-                         f"one process in the port so far (seq: ring attention, expert: MoE, "
-                         f"ROADMAP Queue A item 6)")
+        raise ValueError(f"mesh {big}: no axis but data, fsdp, seq and model may span more "
+                         f"than one process in the port so far (expert: MoE, ROADMAP Queue A "
+                         f"item 6)")
+    if cfg.mesh.seq != 1:
+        if not hasattr(cfg.model, "seq_impl"):
+            raise ValueError(f"mesh.seq={cfg.mesh.seq}: workload {cfg.workload!r} has no "
+                             f"attention to split over seq, so its seq ranks would only repeat "
+                             f"each other's work; spread its batch over mesh.data")
+        if cfg.model.seq_impl is None:
+            raise ValueError(f"mesh.seq={cfg.mesh.seq}: model.seq_impl is unset, so the seq "
+                             f"ranks would only repeat each other's work; set model.seq_impl "
+                             f"to ring, ulysses or allgather")
     if cfg.fleet.dir:
         raise ValueError("fleet.dir: the fleet control plane is not ported yet "
                          "(ROADMAP Queue A item 6, resilience/)")
@@ -210,8 +229,9 @@ def setup(cfg: RunConfig, build, device="cuda"):
 def param_specs(cfg: RunConfig, parts: WorkloadParts, mesh) -> dict:
     """The specs of ``parts.model``'s parameters on ``mesh``: the ones it
     was built with, else its rule table matched; refused where the mesh
-    spans an axis the workload places nothing on (``model``) or does not
-    shard over (``fsdp`` without ``parts.fsdp``)."""
+    spans ``model`` and the workload places nothing there. With ``fsdp``
+    above 1 and ``parts.fsdp`` unset, the parameters keep their rules'
+    specs and ``fsdp`` only splits the batch (module docstring)."""
     specs = (parts.param_specs if parts.param_specs is not None
              else sharding.replicated_specs(parts.model) if parts.param_rules is None
              else sharding.specs_from_rules(parts.model, parts.param_rules))
@@ -219,10 +239,6 @@ def param_specs(cfg: RunConfig, parts: WorkloadParts, mesh) -> dict:
         raise ValueError(f"mesh.model={mesh.shape[MODEL]}: workload {cfg.workload!r} places "
                          f"nothing on the model axis (its parts give no rule table over "
                          f"it), so it may not span more than one process there")
-    if mesh.shape[FSDP] > 1 and not parts.fsdp:
-        raise ValueError(f"mesh.fsdp={mesh.shape[FSDP]}: workload {cfg.workload!r} does not "
-                         f"shard its parameters over fsdp (its parts set fsdp=False, as the "
-                         f"JAX package's); spread its batch over mesh.data")
     return specs
 
 

@@ -19,6 +19,7 @@ import json
 import os
 import sys
 
+import numpy as np
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -95,7 +96,47 @@ def test_mlm_demo_corpus_is_pinned_to_files_the_port_never_edits():
 
 
 def test_mlm_demo_long_is_refused_naming_the_roadmap_items():
+    """``--long`` runs ring attention over a seq=4 mesh (ROADMAP item 6a,
+    ported): one process is told to launch it under torchrun with four,
+    and an MLM objective is refused as the reference refuses it."""
     demo = _load("convergence_demo_mlm_torch")
-    with pytest.raises(SystemExit, match=r"item 2\.5.*item 6") as e:
+    with pytest.raises(SystemExit, match=r"torchrun --nproc_per_node=4") as e:
         demo.main(["--device", "cpu", "--long"])
     assert e.value.code != 0
+    with pytest.raises(SystemExit) as e:
+        demo.main(["--device", "cpu", "--long", "--objective", "mlm"])
+    assert e.value.code != 0
+
+
+@pytest.mark.slow
+def test_mlm_demo_long_ring_machinery_on_four_gloo_ranks(tmp_path):
+    """JAX's slow ``test_convergence_demo_long_ring_machinery``: 12 steps of
+    ``--long`` (the causal LM at seq 256 through ring attention on seq=4,
+    with remat) under four gloo ranks, one thread each as torchrun sets
+    them; the chief prints the line, finite loss, the seq=4 mesh."""
+    import subprocess
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    import torch_dp_worker as worker
+
+    port, procs = worker.free_port(), []
+    for r in range(4):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE="4", LOCAL_RANK=str(r),
+                   MASTER_ADDR="localhost", MASTER_PORT=str(port), OMP_NUM_THREADS="1")
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.join(REPO, "tools", "convergence_demo_mlm_torch.py"),
+             "--device", "cpu", "--long", "--steps", "12", "--min-acc", "0"],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    outs = []
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=900)[0])
+        finally:
+            p.kill()
+    assert [p.returncode for p in procs] == [0] * 4, outs
+    lines = [json.loads(ln) for ln in outs[0].splitlines() if ln.startswith("{")]
+    assert len(lines) == 1 and not any(ln.startswith("{") for o in outs[1:]
+                                       for ln in o.splitlines())
+    out = lines[0]
+    assert out["long"] and out["mesh"]["seq"] == 4 and out["steps"] == 12
+    assert np.isfinite(out["train_loss"]) and 0.0 <= out["eval_next_byte_acc"] <= 1.0

@@ -194,18 +194,19 @@ def test_backward_wrappers_pass_out_through_its_strides():
 
 def test_kernels_take_head_dims_32_64_128_and_name_queue_c_for_others():
     """The kernels are instantiated at ``HEAD_DIMS`` (32 — the MLM/LM
-    demos' d_model 128 over 4 heads — 64, 128 and 256, Gemma's), and the
-    wrappers' argument check lets only those through (f32 only up to 128:
-    its check kernels' tiles of a 256-wide head exceed shared memory).
+    demos' d_model 128 over 4 heads — 64, 128 and 256, Gemma's), in bf16
+    and in f32 (the f32 check kernels at 256 on 32-row tiles), and the
+    wrappers' argument check lets only those through.
     ``flash_attention`` takes any head dim up to 256: 8 and 16 (the JAX
     package's tools' shapes) are zero-padded to 32, 48 to 64, 192 to 256;
     above 256 it refuses, naming ROADMAP Queue C, rather than falling back
     to dense."""
     assert tfa.HEAD_DIMS == (32, 64, 128, 256)
-    assert tfa.F32_HEAD_DIMS == (32, 64, 128)
+    assert tfa.F32_HEAD_DIMS == tfa.HEAD_DIMS
     for d in tfa.HEAD_DIMS:
-        q = torch.zeros(1, 2, 8, d, dtype=torch.bfloat16)
-        assert tfa._check(q, q, q, None) is None
+        for dt in (torch.bfloat16, torch.float32):
+            q = torch.zeros(1, 2, 8, d, dtype=dt)
+            assert tfa._check(q, q, q, None) is None
         assert tfa.padded_head_dim(d) == d
     assert [tfa.padded_head_dim(d) for d in (8, 16, 24, 48, 100, 129, 192, 255)] == [
         32, 32, 32, 64, 128, 256, 256, 256]
@@ -214,9 +215,10 @@ def test_kernels_take_head_dims_32_64_128_and_name_queue_c_for_others():
         with pytest.raises(ValueError, match=f"head_dim {d}.*zero-pads"):
             tfa._check(q, q, q, None)
         assert tfa.flash_attention(q, q, q).shape == (1, 2, 8, d)
-    q = torch.zeros(1, 2, 8, 256)
-    with pytest.raises(ValueError, match="head_dim 256 in f32.*ROADMAP Queue C"):
+    q = torch.zeros(1, 2, 8, 257)
+    with pytest.raises(ValueError, match="head_dim 257.*ROADMAP Queue C"):
         tfa._check(q, q, q, None)
+    q = torch.zeros(1, 2, 8, 256)
     assert tfa.flash_attention(q, q, q).shape == (1, 2, 8, 256)  # the CPU's plain path
     for d in (257, 320):
         q = torch.zeros(1, 2, 8, d)

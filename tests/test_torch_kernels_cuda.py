@@ -399,11 +399,21 @@ def test_flash_kernels_at_head_dims_192_and_256_match_plain_on_card(card):
     relative L2), each launch booked at 256; D = 192 through
     ``flash_attention`` (zero-padded to 256, sliced back) against the plain
     versions at 192, through autograd, booked at 256 for a caller at 192."""
+    _flash_d256_cases(card, torch.bfloat16, *TOLS[torch.bfloat16])
+
+
+@pytest.mark.cuda
+def test_f32_flash_kernels_at_head_dims_192_and_256_match_plain_on_card(card):
+    """The f32 check kernels at D = 256 (32-row tiles) and 192 (padded to
+    256), the cases above at the f32 gates of
+    ``test_flash_kernels_match_plain_on_card``: same math, other order."""
+    _flash_d256_cases(card, torch.float32, 1e-4, 1e-4)
+
+
+def _flash_d256_cases(card, dtype, atol, rtol):
     import torch.nn.functional as F
 
     rng = np.random.default_rng(256)
-    dtype = torch.bfloat16
-    atol, rtol = TOLS[dtype]
     wrappers = (fa.flash_fwd, fa.flash_bwd_dkv, fa.flash_bwd_dq)
     for B, H, Sq, Sk, D, causal, masked in FLASH_D256_CASES:
         q, k, v, mask, dout = _flash_inputs(rng, card, dtype, B, H, Sq, Sk, D, masked)
@@ -645,6 +655,47 @@ def test_flash_bwd_on_card_takes_any_scale(card, dtype):
             assert _rel_l2(got, w) <= FLASH_REL_L2[dtype], (name, scale, _rel_l2(got, w))
 
 
+#: the shapes sequence parallelism gives the flash kernels: all-gather's
+#: local queries against the whole sequence (Sq = S/seq, Sk = S), non-causal
+#: with a padded kv_mask; Ulysses at S = 8192, causal, a few local heads
+FLASH_SP_CASES = [
+    (2, 3, 256, 1024, 64, False, "padded"),
+    (2, 2, 512, 2048, 64, False, "padded"),
+    (1, 2, 8192, 8192, 64, True, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_kernels_at_sequence_parallel_shapes_match_plain_on_card(card, dtype):
+    """The three kernels at ``FLASH_SP_CASES`` against the plain versions
+    (out, LSE, dq, dk, dv at the gates of
+    ``test_flash_kernels_match_plain_on_card``): Sq != Sk non-causal with a
+    padded kv_mask (the all-gather schedule), and causal at S = 8192 (the
+    Ulysses schedule of ``long_context``; 64 q tiles on the grid)."""
+    rng = np.random.default_rng(8192)
+    atol, rtol = (1e-4, 1e-4) if dtype == torch.float32 else TOLS[dtype]
+    for B, H, Sq, Sk, D, causal, masked in FLASH_SP_CASES:
+        q, k, v, mask, dout = _flash_inputs(rng, card, dtype, B, H, Sq, Sk, D, masked)
+        case = (B, H, Sq, Sk, D, causal, masked)
+        out, lse = fa.flash_fwd(q, k, v, mask, causal=causal)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, mask, out, lse, dout, causal=causal)
+        dq = fa.flash_bwd_dq(q, k, v, mask, out, lse, dout, causal=causal)
+        want_out, want_lse = fa.flash_attention_plain(q, k, v, mask, causal=causal)
+        want = fa.flash_attention_bwd_plain(q, k, v, mask, out, lse, dout, causal=causal)
+        torch.testing.assert_close(out.float(), want_out.float(), atol=atol, rtol=rtol,
+                                   msg=lambda m: f"out {case}: {m}")
+        torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5,
+                                   msg=lambda m: f"lse {case}: {m}")
+        assert _rel_l2(out, want_out) <= FLASH_FWD_REL_L2[dtype], (
+            "out", case, _rel_l2(out, want_out))
+        for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+            torch.testing.assert_close(got.float(), w.float(), atol=atol, rtol=rtol,
+                                       msg=lambda m: f"{name} {case}: {m}")
+            assert _rel_l2(got, w) <= FLASH_REL_L2[dtype], (name, case, _rel_l2(got, w))
+        del want, want_out
+
+
 @pytest.mark.cuda
 def test_flash_wrappers_raise_on_what_the_kernels_do_not_take(card):
     q = torch.zeros(1, 2, 64, 64, device=card, dtype=torch.float16)
@@ -653,11 +704,13 @@ def test_flash_wrappers_raise_on_what_the_kernels_do_not_take(card):
     q = torch.zeros(1, 2, 64, 16, device=card)
     with pytest.raises(ValueError, match="head_dim 16.*flash_attention zero-pads"):
         fa.flash_fwd(q, q, q)
-    # head dims up to 256 are taken (bf16; f32 up to 128), larger ones not
+    # head dims up to 256 are taken (bf16 and f32), larger ones not
     q = torch.zeros(1, 2, 64, 256, device=card, dtype=torch.bfloat16)
     assert fa.flash_fwd(q, q, q)[0].shape == q.shape
-    with pytest.raises(ValueError, match="head_dim 256 in f32.*ROADMAP Queue C"):
-        fa.flash_fwd(q.float(), q.float(), q.float())
+    assert fa.flash_fwd(q.float(), q.float(), q.float())[0].shape == q.shape
+    q = torch.zeros(1, 2, 64, 257, device=card)
+    with pytest.raises(ValueError, match="head_dim 257.*ROADMAP Queue C"):
+        fa.flash_fwd(q, q, q)
     q = torch.zeros(1, 2, 64, 320, device=card, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim 320.*ROADMAP Queue C"):
         fa.flash_attention(q, q, q)

@@ -205,13 +205,57 @@ def test_divergence_check_broadcast_from_chief_and_replicate(ranks):
 
 
 def test_mesh_refuses_other_axes_and_collectives_not_ported(ranks):
-    """fsdp and tensor-parallel specs and an fsdp mesh are admitted now:
-    a pipeline stage spec and a seq axis name item 6, as the subgroup and
-    MoE / ring collectives do."""
+    """fsdp and tensor-parallel specs, an fsdp mesh and a seq mesh with its
+    verbs are admitted now: a pipeline stage spec, an expert or pipe axis
+    and the subgroup collectives (the all-reduce's, the all-to-all's)
+    name item 6."""
     want = ["item 6", "item 6", "item 6", "item 6", "item 6"]
     for r in ranks:
         for msg, item in zip(r["refusals"].tolist(), want):
             assert item in msg and "ROADMAP" in msg, msg
+
+
+def _sp_want(xs, r):
+    """Each sequence-parallel verb's output and gradient on rank r of two,
+    from the ranks' inputs ``xs`` (numpy; the cotangent of an output y is
+    arange(y.size) * (rank + 1))."""
+    cot = lambda shape, rank: np.arange(np.prod(shape), dtype=np.float32).reshape(  # noqa
+        shape) * (rank + 1)
+    o = 1 - r
+    a2a = lambda rank: np.concatenate([xs[i][:, 2 * rank:2 * rank + 2] for i in (0, 1)])  # noqa
+    grad_a2a = np.zeros((2, 4), np.float32)
+    for j in (0, 1):  # rank r's chunk j went to rank j, rows 2r..2r+1 of its output
+        grad_a2a[:, 2 * j:2 * j + 2] = cot((4, 2), j)[2 * r:2 * r + 2]
+    scat_grad = np.concatenate([cot((2, 2), 0), cot((2, 2), 1)], 1)
+    return {
+        "permute": (xs[o], cot((2, 4), o)),
+        "permute_back": (xs[o], cot((2, 4), o)),
+        "a2a": (a2a(r), grad_a2a),
+        "scatter": (xs[r][:, 2 * r:2 * r + 2], scat_grad),
+        "gather": (np.concatenate(xs), cot((4, 4), r)[2 * r:2 * r + 2]),
+        "all_gather": (np.concatenate(xs, 1), cot((2, 8), 0)[:, 4 * r:4 * r + 4]
+                       + cot((2, 8), 1)[:, 4 * r:4 * r + 4]),
+    }
+
+
+@pytest.mark.parametrize("verb", ["permute", "permute_back", "a2a", "scatter", "gather",
+                                  "all_gather"])
+def test_sequence_parallel_verbs_and_their_transposes(ranks, verb):
+    """On a seq=2 mesh of the two ranks: ``ring_permute`` (either way round:
+    the ring of two), the tiled ``all_to_all`` (dim 1 split, dim 0
+    gathered; the backward the inverse all-to-all), ``scatter_to_axis``
+    (its backward all-gathers the chunks' cotangents),
+    ``gather_from_axis`` (its backward keeps this rank's chunk) and
+    ``all_gather`` (its backward reduce-scatters), each against numpy,
+    and again with the permute emulated (gloo's path on CUDA tensors)."""
+    xs = _xs(ranks)
+    for r, rank in enumerate(ranks):
+        want = _sp_want(xs, r)
+        y, g = want[verb]
+        np.testing.assert_array_equal(rank[f"sp/{verb}"], y)
+        np.testing.assert_array_equal(rank[f"sp/{verb}_grad"], g)
+        np.testing.assert_array_equal(rank[f"sp/emulated/{verb}"], y)
+        np.testing.assert_array_equal(rank[f"sp/emulated/{verb}_grad"], g)
 
 
 def test_reduce_from_model_sums_forward_and_passes_the_gradient(ranks):

@@ -333,16 +333,25 @@ def test_mnist_mlp_converges_and_eval_workload_reproduces_the_final_eval(tmp_pat
 # -- data parallelism ----------------------------------------------------------
 
 
-def test_cifar10_cnn_two_gloo_ranks_equal_one_process_on_the_global_batch(tmp_path):
-    """Two ranks (one spawn of ``torch_dp_worker.py``'s ``cnn`` job,
-    ``data=2``) each step the tiny CNN on its half of three global batches
-    of 8 (momentum, cosine): the losses, every parameter and the running
-    statistics equal one process stepping on the whole batches within
-    ``TOL`` — the BatchNorm statistics are the global batch's (a mutation
-    check, each rank normalising with its own half's: the losses 5.7e-2 and
-    the state 3.6e-2 off, and the runner's ranks diverge) — and both ranks
-    end alike. The same job runs ``run_workload("cifar10_cnn")`` at
-    ``mesh.data=2``."""
+#: one step each of the workloads whose parts do not ask for fsdp, at
+#: data=2 and at fsdp=2 (the cnn job's ``fsdp_runs``)
+FSDP_RUNS = {
+    "mnist_mlp": ["--model.hidden_sizes=[32,16]", "--data.global_batch_size=16",
+                  "--train.num_steps=1", "--train.eval_batches=0"],
+    "resnet50_imagenet": ["--model.stage_sizes=[1,1]", "--model.width=8",
+                          "--model.num_classes=10", "--model.dtype=float32",
+                          "--data.image_size=16", "--data.num_classes=10",
+                          "--data.global_batch_size=8", "--train.num_steps=1",
+                          "--train.eval_batches=0"],
+}
+
+
+@pytest.fixture(scope="module")
+def cnn_ranks(tmp_path_factory):
+    """One spawn of two gloo ranks of ``torch_dp_worker.py``'s ``cnn`` job
+    (the CNN passes, its runner and ``FSDP_RUNS``) and what one process
+    computes on the global batches."""
+    tmp_path = tmp_path_factory.mktemp("cnn")
     params, stats = _cnn_vars(seed=6)
     sd = {k: v.numpy() for k, v in cnn_state_dict_from_jax(
         params, tcnn.CNNConfig(**CNN_KW), stats).items()}
@@ -354,10 +363,29 @@ def test_cifar10_cnn_two_gloo_ranks_equal_one_process_on_the_global_batch(tmp_pa
             "runner": ["--model.channels=[4,8]", "--model.dense_size=16",
                        "--data.image_size=8", "--data.global_batch_size=8",
                        "--train.num_steps=2", "--train.log_every=1", "--train.eval_batches=1",
-                       "--mesh.data=2"]}
-    ranks = worker.wait(worker.launch(spec), str(tmp_path), timeout=240)
-    ref = worker.cnn_steps(tcnn.CNNConfig(**CNN_KW), sd, batches, torch.device("cpu"),
-                           input_shape=(8, 8, 3))
+                       "--mesh.data=2"],
+            "fsdp_runs": FSDP_RUNS}
+    procs = worker.launch(spec)
+    try:
+        ref = worker.cnn_steps(tcnn.CNNConfig(**CNN_KW), sd, batches, torch.device("cpu"),
+                               input_shape=(8, 8, 3))
+    except BaseException:
+        worker.stop(procs)
+        raise
+    return worker.wait(procs, str(tmp_path), timeout=240), ref
+
+
+def test_cifar10_cnn_two_gloo_ranks_equal_one_process_on_the_global_batch(cnn_ranks):
+    """Two ranks (one spawn of ``torch_dp_worker.py``'s ``cnn`` job,
+    ``data=2``) each step the tiny CNN on its half of three global batches
+    of 8 (momentum, cosine): the losses, every parameter and the running
+    statistics equal one process stepping on the whole batches within
+    ``TOL`` — the BatchNorm statistics are the global batch's (a mutation
+    check, each rank normalising with its own half's: the losses 5.7e-2 and
+    the state 3.6e-2 off, and the runner's ranks diverge) — and both ranks
+    end alike. The same job runs ``run_workload("cifar10_cnn")`` at
+    ``mesh.data=2``."""
+    ranks, ref = cnn_ranks
     for r in ranks:
         np.testing.assert_allclose(r["losses"], ref["losses"], **TOL)
         for k, v in ref["state"].items():
@@ -365,3 +393,23 @@ def test_cifar10_cnn_two_gloo_ranks_equal_one_process_on_the_global_batch(tmp_pa
     for k in ranks[0]:
         assert np.array_equal(ranks[0][k], ranks[1][k]), k
     assert int(ranks[0]["runner/mesh_data"]) == 2 and np.isfinite(ranks[0]["runner/losses"]).all()
+
+
+@pytest.mark.parametrize("workload", list(FSDP_RUNS))
+def test_fsdp2_is_a_batch_axis_equal_to_data2(cnn_ranks, workload):
+    """``mnist_mlp`` and ``resnet50_imagenet`` do not shard their
+    parameters over fsdp (neither do the JAX package's); at data=1 x
+    fsdp=2 the batch rides fsdp as JAX's ``batch_spec`` splits it: the
+    same rows on the same ranks, the gradients and BatchNorm statistics
+    summed over the same two ranks, so a step equals data=2 bitwise."""
+    ranks, _ = cnn_ranks
+    for r in ranks:
+        assert r[f"{workload}/data2/mesh"].tolist() == [2, 1]
+        assert r[f"{workload}/fsdp2/mesh"].tolist() == [1, 2]
+        keys = [k[len(f"{workload}/data2/"):] for k in r if k.startswith(f"{workload}/data2/")
+                and not k.endswith("/mesh")]
+        assert any(k.startswith("state/") for k in keys) and "losses" in keys
+        for k in keys:
+            np.testing.assert_array_equal(r[f"{workload}/fsdp2/{k}"], r[f"{workload}/data2/{k}"],
+                                          err_msg=k)
+        assert np.isfinite(r[f"{workload}/fsdp2/losses"]).all()

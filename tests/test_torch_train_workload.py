@@ -116,9 +116,9 @@ def test_run_workload_trains_gpt_lm_fused_ln_on_cpu(bwd, monkeypatch):
     ("--mesh.pipe=2", "pipeline"),
     ("--fleet.dir=/tmp/fleet", "fleet"),
     ("--train.anomaly_defense=true", "anomaly"),
-    ("--model.seq_impl=ring", "ring_attention"),
+    ("--model.seq_impl=striped", "seq_impl must be None or one of"),
     ("--model.num_experts=4", "moe"),
-    ("--mesh.seq=2", "item 6"),
+    ("--mesh.seq=2", "seq_impl is unset.*repeat"),
 ])
 def test_unsupported_configs_raise_naming_the_roadmap_item(override, match):
     with pytest.raises((ValueError, NotImplementedError), match=match):

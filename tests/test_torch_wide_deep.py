@@ -109,6 +109,8 @@ OTHER_TINY = {
                           "--data.image_size=16", "--data.num_classes=10",
                           "--data.global_batch_size=8"],
 }
+#: the dp22 job's mesh with the batch over fsdp (Queue C's repaired case)
+FSDP_MESH = {"data": 1, "fsdp": 2, "model": 2}
 TINY = ["--model.vocab_sizes=[64,32,16]", "--model.embed_dim=8", "--model.dense_features=4",
         "--model.hidden_sizes=[32,16]", "--model.dtype=float32",
         "--data.global_batch_size=32", "--train.log_every=1", "--mesh.model=1"]
@@ -306,15 +308,18 @@ def test_coverage_and_dead_rule_errors_are_raised_alike():
 
 def test_placement_refuses_what_the_port_cannot_place():
     """fsdp and tensor-parallel specs are placeable now (a dim over one of
-    fsdp and model); the stacked stage, ring and MoE axes name item 6, and
-    the batch axis, two axes on one dim or one axis on two dims raise."""
+    fsdp and model); the stacked stage and MoE axes name item 6, and the
+    batch axis, the seq axis (no parameter lives on it), two axes on one
+    dim or one axis on two dims raise."""
     assert tsh.check_spec(["model", None]) == ("model", None)
     assert tsh.check_spec(("fsdp", None), "w") == ("fsdp", None)
     assert tsh.check_spec((None, "model"), "w") == (None, "model")
     assert tsh.check_spec(("fsdp", "model"), "w") == ("fsdp", "model")
-    for axis in ("pipe", "seq", "expert"):
+    for axis in ("pipe", "expert"):
         with pytest.raises(NotImplementedError, match="item 6"):
             tsh.check_spec((axis, None), "w")
+    with pytest.raises(ValueError, match="no parameter is sharded over 'seq'"):
+        tsh.check_spec(("seq", None), "w")
     with pytest.raises(ValueError, match="batch axis"):
         tsh.check_spec(("data", None), "w")
     with pytest.raises(NotImplementedError, match="at most one"):
@@ -567,12 +572,11 @@ def test_run_workload_trains_wide_deep_on_the_cpu():
 
 
 @pytest.mark.parametrize("override,match", [
-    # admitted now (the sharded save; fsdp for the workloads that ask for
-    # it): one process is sent to torchrun, and wide_deep's fsdp=2 is
-    # refused by its parts on four ranks (the dp22 job)
+    # admitted now (the sharded save; fsdp as a batch axis, the dp22 job):
+    # one process is sent to torchrun; a seq axis would only repeat work
     ("--checkpoint.directory=/tmp/never", "spans more than one process.*torchrun"),
     ("--mesh.fsdp=2", "spans more than one process.*torchrun"),
-    ("--mesh.seq=2", "item 6"),
+    ("--mesh.seq=2", "no attention.*repeat"),
     ("--mesh.expert=2", "item 6"),
     ("--mesh.pipe=2", "item 6"),
     ("--data.eval_dataset=npz:/nonexistent.npz", "eval_dataset"),
@@ -590,11 +594,12 @@ def test_wide_deep_refusals_name_their_roadmap_item(override, match):
 @pytest.mark.parametrize("workload", ["gpt_lm", "resnet50_imagenet"])
 def test_other_workloads_refuse_the_model_axis(workload):
     """resnet's parts place nothing on ``model`` and do not ask for
-    ``fsdp``: the runner's spec step refuses a model axis of 2 and an fsdp
-    axis of 2 (here on meshes of that shape, before any collective; the
-    four-rank job below refuses them end to end). gpt_lm shards over both
-    now (megatron, ``auto_fsdp_specs``): its specs pass. One process is
-    sent to torchrun first either way."""
+    ``fsdp``: the runner's spec step refuses a model axis of 2 (here on a
+    mesh of that shape, before any collective; the four-rank job below
+    refuses it end to end) and keeps every parameter replicated at an fsdp
+    axis of 2, which splits only its batch. gpt_lm shards over both now
+    (megatron, ``auto_fsdp_specs``): its specs pass. One process is sent
+    to torchrun first either way."""
     mod = get_workload(workload)
     cfg = tconfig.apply_overrides(mod.default_config(), OTHER_TINY[workload])
     parts = mod.build(cfg, torch.device("cpu"), tmesh.build_mesh(device="cpu"))
@@ -610,8 +615,8 @@ def test_other_workloads_refuse_the_model_axis(workload):
     else:
         with pytest.raises(ValueError, match="places nothing on the model axis"):
             trunner.prepare(cfg, parts, model2)
-        with pytest.raises(ValueError, match="fsdp=False"):
-            trunner.prepare(cfg, parts, fsdp2)
+        specs = trunner.param_specs(cfg, parts, fsdp2)
+        assert specs and all(s == () for s in specs.values())
     with pytest.raises(ValueError, match="torchrun"):
         run_workload(workload, ["--mesh.model=2"], device="cpu")
 
@@ -686,15 +691,16 @@ def dp22(tmp_path_factory, devices):
                                     "optimizer": dict(name="auto", learning_rate=LR,
                                                       clip_grad_norm=CLIP_GROUP)},
                            "runner": runner,
+                           "fsdp_mesh": FSDP_MESH,
                            "refuse": {"resnet50_imagenet": OTHER_TINY["resnet50_imagenet"]
                                       + ["--mesh.model=2", "--mesh.data=2",
-                                         "--train.num_steps=1"],
-                                      "wide_deep": TINY + ["--mesh.fsdp=2", "--mesh.data=2",
-                                                           "--train.num_steps=1"]}},
+                                         "--train.num_steps=1"]}},
                           world=4)
     try:
         jlook = _jax_lookups(look["ids"], look["table"], look["cot"], mesh)
         _, jlosses, jstates, jmodel = _jax_train_from(params, jcfg, train, mesh)
+        fmesh = jbuild_mesh(JMeshSpec(**FSDP_MESH), devices[:4])
+        _, jflosses, jfstates, _ = _jax_train_from(params, jcfg, train, fmesh)
         jclip = _jax_train_from(params, jcfg, train, mesh, CLIP_OPTIONS,
                                 clip_grad_norm=CLIP_GROUP)
         jfn = jax.jit(jwd.ctr_eval_fn(jmodel))
@@ -710,6 +716,7 @@ def dp22(tmp_path_factory, devices):
     return {"ranks": worker.wait(procs, out, timeout=300), "look": look, "jlook": jlook,
             "ckpt": ckpt,
             "jlosses": jlosses, "jparams": jstates[-1], "jtot": jtot, "tcfg": tcfg,
+            "jfsdp": (jflosses, jfstates[-1]),
             "init": params, "jclip": jclip}
 
 
@@ -842,11 +849,28 @@ def test_dp22_resnet_refuses_the_model_axis_on_four_ranks(dp22):
 
 
 def test_dp22_wide_deep_refuses_fsdp_on_four_ranks(dp22):
-    """wide_deep's parts do not ask for fsdp (the JAX package's do not):
-    fsdp=2 over four ranks is refused by the runner's spec step."""
-    for rank in dp22["ranks"]:
-        msg = str(rank["refused/wide_deep"])
-        assert "does not shard its parameters over fsdp" in msg, msg
+    """wide_deep's parts do not ask for fsdp (the JAX package's do not),
+    which only keeps its parameters off fsdp: at data=1 x fsdp=2 x model=2
+    the batch rides fsdp and the tables model, and three steps match JAX's
+    ``init_train_state`` and steps on the same mesh (the tolerance of
+    ``test_dp22_three_steps_match_the_jax_2x2_mesh``). No rank refuses it."""
+    ranks, tcfg = dp22["ranks"], dp22["tcfg"]
+    jlosses, jparams = dp22["jfsdp"]
+    assert all("refused/wide_deep" not in r for r in ranks)
+    for rank in ranks:
+        np.testing.assert_allclose(rank["fsdp/losses"], jlosses, **DP_TOL)
+    sds = [{k[len("fsdp/state/"):]: v for k, v in r.items() if k.startswith("fsdp/state/")}
+           for r in ranks]
+    for k in sds[0]:  # the fsdp ranks' copies agree, and the replicated weights
+        np.testing.assert_array_equal(sds[0][k], sds[2][k], err_msg=k)
+        if "table_" not in k:
+            np.testing.assert_array_equal(sds[0][k], sds[1][k], err_msg=k)
+    got = wide_deep_to_jax(sds[:2], tcfg)
+    for k, want in jparams.items():
+        jax.tree.map(lambda a, b: np.testing.assert_allclose(a, b, **DP_TOL, err_msg=k),
+                     got[k], want)
+    # the same global batches as the data=2 x model=2 steps: the same steps
+    np.testing.assert_allclose(jlosses, dp22["jlosses"], **DP_TOL)
 
 
 def test_dp22_sharded_save_restores_bitwise_in_one_process_and_at_the_mesh(dp22, tmp_path):

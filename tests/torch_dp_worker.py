@@ -29,7 +29,8 @@ exits non-zero on any failure. The spec's ``job``:
   that dropout rate (``dropout/losses``, ``dropout/state/<name>``).
 - ``"parallel"``: the collectives, the differentiable all-reduce, the
   megatron pair and ``gather_fsdp`` (on a model=2 and an fsdp=2 mesh of
-  the two ranks), the divergence check, ``broadcast_from_chief``,
+  the two ranks), sequence parallelism's verbs (on a seq=2 mesh, native
+  and emulated), the divergence check, ``broadcast_from_chief``,
   ``replicate`` and the refusals (a stage spec, the mesh's, the
   collectives'), each result saved for the test to hold against numpy.
 - ``"ckpt"``: ``run_workload(workload, overrides)`` (its
@@ -64,8 +65,10 @@ exits non-zero on any failure. The spec's ``job``:
   with ``runner``, ``run_workload("wide_deep", runner)``'s losses, this
   rank's parameters and its eval (with a ``--checkpoint.directory`` among
   them, the same run again, resumed from its save: ``runner/resumed/``);
-  with ``refuse`` (workload -> overrides), the message each such
-  ``run_workload`` raises.
+  with ``fsdp_mesh`` (e.g. ``{"data": 1, "fsdp": 2, "model": 2}``), the
+  same steps on that mesh (``fsdp/``: the batch split over fsdp, the
+  tables over model); with ``refuse`` (workload -> overrides), the message
+  each such ``run_workload`` raises.
 
 - ``"gpt"``: a causal Transformer of ``cfg`` built from ``sd`` in
   ``inputs``, stepped with ``optimizer`` and the chunked LM loss
@@ -81,7 +84,10 @@ exits non-zero on any failure. The spec's ``job``:
   each global batch ``image<i>``/``label<i>`` (sync BatchNorm over the
   mesh); it saves the losses and the state dict after the steps. With
   ``runner``: also ``run_workload("cifar10_cnn", runner)``'s losses and
-  mesh, and the check that every rank ends with the same weights.
+  mesh, and the check that every rank ends with the same weights. With
+  ``fsdp_runs`` (workload -> overrides): each ``run_workload`` at
+  ``mesh.data=2`` and again at ``data=1, fsdp=2`` (``<workload>/data2/``,
+  ``<workload>/fsdp2/``: losses, mesh, state dict).
 
 - ``"tp"``: tensor and fully-sharded data parallelism: each of ``cases``
   (a Transformer config, a mesh such as ``{"fsdp": 2, "model": 2}``, an
@@ -90,6 +96,17 @@ exits non-zero on any failure. The spec's ``job``:
   parameters' drift across ranks after each step, the state gathered
   whole, the evaluator's totals, a save and its restore at the mesh),
   and with ``runner`` each workload's ``run_workload`` at its mesh.
+
+- ``"seq"``: sequence parallelism: for each of ``attention`` (a tag and a
+  mesh such as ``{"seq": 2, "model": 2}``), ``sequence_parallel_attention``
+  of every schedule, causal or not, with the npz's ``<tag>/mask`` or none
+  (or the ``runs`` given, ``[impl, causal, masked]``, in ``dtype``), on
+  this rank's batch rows and heads of ``<tag>/q``, ``k``, ``v`` (the whole
+  sequence): the output, the gradients of ``sum(out * cot)`` and the
+  flash launches of the call (forward, dK/dV, dQ);
+  with ``emulated``, the ring again, causal and masked and neither, with
+  the permute emulated by all-reduces (as under gloo on CUDA tensors). Then
+  ``cases`` and ``runner`` as the ``tp`` job runs them.
 
 ``train_steps``, ``bert_steps``, ``wide_deep_steps``, ``cnn_steps`` and
 ``tp_steps`` are also what the one-process references run (no mesh);
@@ -353,12 +370,37 @@ def job_parallel(spec: dict, dev, mesh) -> dict:
             y = col.gather_fsdp(xg, 1, m2)
             (y * torch.arange(16.0).reshape(2, 8)).sum().backward()
             out["gather_fsdp"], out["gather_fsdp_grad"] = y.detach().numpy(), xg.grad.numpy()
+    # sequence parallelism's verbs on a seq=2 mesh of the two ranks, each
+    # with the gradient of sum(y * cot); then with the permute emulated by
+    # all-reduces (gloo's path on CUDA tensors)
+    s2 = build_mesh(MeshSpec(data=1, seq=2), dev)
+    verbs = {"permute": lambda t: col.ring_permute(t, "seq", s2),
+             "permute_back": lambda t: col.ring_permute(t, "seq", s2, shift=-1),
+             "a2a": lambda t: col.all_to_all(t, "seq", s2, split_axis=1, concat_axis=0),
+             "scatter": lambda t: col.scatter_to_axis(t, 1, "seq", s2),
+             "gather": lambda t: col.gather_from_axis(t, 0, "seq", s2),
+             "all_gather": lambda t: col.all_gather(t, "seq", s2, tiled_axis=1)}
+    for emulated in (False, True):
+        native = col._native_p2p
+        if emulated:
+            col._native_p2p = lambda group, t: False
+        try:
+            for name, verb in verbs.items():
+                xg = x.clone().requires_grad_(True)
+                y = verb(xg)
+                cot = torch.arange(y.numel(), dtype=torch.float32).reshape(y.shape) * (r + 1)
+                (y * cot).sum().backward()
+                tag = f"sp/{'emulated/' if emulated else ''}{name}"
+                out[tag], out[f"{tag}_grad"] = y.detach().numpy(), xg.grad.numpy()
+        finally:
+            col._native_p2p = native
     refusals = []
     for call in (lambda: check_spec(("pipe", None), "kernel"),
-                 lambda: build_mesh(MeshSpec(data=1, seq=2), dev),
+                 lambda: build_mesh(MeshSpec(data=1, expert=2), dev),
                  lambda: col.all_reduce(x, "data", mesh, groups=[[0, 1]]),
-                 lambda: col.all_to_all(x, "data", mesh, split_axis=0, concat_axis=1),
-                 lambda: col.ring_permute(x, "data", mesh)):
+                 lambda: col.all_to_all(x, "data", mesh, split_axis=0, concat_axis=1,
+                                        groups=[[0, 1]]),
+                 lambda: build_mesh(MeshSpec(data=1, pipe=2), dev)):
         try:
             call()
             refusals.append("no error")
@@ -541,6 +583,11 @@ def job_wide_deep(spec: dict, dev, mesh) -> dict:
         totals = ShardedEvaluator(wd.ctr_eval_fn(res["model"]), mesh, registry=Registry()).run(
             state, [shard_host_batch(b, mesh) for b in batches("eval")])
         out.update({f"eval/{k}": np.asarray(v) for k, v in totals.items()})
+        if spec.get("fsdp_mesh"):  # the same steps with the batch over fsdp
+            fmesh = build_mesh(MeshSpec(**spec["fsdp_mesh"]), dev)
+            res = wide_deep_steps(cfg, sd, batches("train"), spec["optimizer"], dev, fmesh)
+            out["fsdp/losses"] = res["losses"]
+            out.update({f"fsdp/state/{k}": v for k, v in res["state"].items()})
         if spec.get("clip"):  # the same steps, both clips binding
             clip = spec["clip"]
             res = wide_deep_steps(cfg, sd, batches("train"), clip["optimizer"], dev, mesh,
@@ -615,6 +662,16 @@ def job_cnn(spec: dict, dev, mesh) -> dict:
             "weights after run_workload")
         out["runner/losses"] = np.asarray([r["loss"] for r in run.history])
         out["runner/mesh_data"] = np.asarray(run.mesh.shape["data"])
+    for name, over in spec.get("fsdp_runs", {}).items():  # fsdp as a batch axis
+        from distributed_tensorflow_tpu_torch.workloads import run_workload
+
+        for tag, mesh_over in (("data2", ["--mesh.data=2"]),
+                               ("fsdp2", ["--mesh.data=1", "--mesh.fsdp=2"])):
+            run = run_workload(name, over + mesh_over, device=dev.type)
+            out[f"{name}/{tag}/losses"] = np.asarray([r["loss"] for r in run.history])
+            out[f"{name}/{tag}/mesh"] = np.asarray([run.mesh.shape[a] for a in ("data", "fsdp")])
+            out.update({f"{name}/{tag}/state/{k}": v.detach().float().cpu().numpy()
+                        for k, v in run.state.model.state_dict().items()})
     return out
 
 
@@ -663,10 +720,11 @@ def tp_steps(case: dict, sd: dict, batches: list[dict], evals: list[dict], devic
     same mesh, held bitwise against the saved one (``restored_equal``).
     Without a mesh: one process on the global batches. Also each flash
     and LN+matmul wrapper's launches during the steps (``launches/``) and
-    each step's wall ms. ``case["whole"]``: ``"params"`` keeps only the
+    each step's wall ms (and on the card the peak memory of the steps,
+    ``peak_gib``). ``case["whole"]``: ``"params"`` keeps only the
     gathered parameters, on rank 0 alone, and every rank a SHA-256 of each
-    gathered leaf's bytes (``digest/``), for states too large to save
-    whole on every rank."""
+    gathered leaf's bytes (``digest/``; none in one process), for states
+    too large to save whole on every rank."""
     from distributed_tensorflow_tpu_torch.models import transformer as ttfm
     from distributed_tensorflow_tpu_torch.obs.registry import Registry
     from distributed_tensorflow_tpu_torch.parallel import collectives as col
@@ -703,6 +761,8 @@ def tp_steps(case: dict, sd: dict, batches: list[dict], evals: list[dict], devic
                 "ln_matmul_bwd_dx": lnm.ln_matmul_bwd_dx, "ln_matmul_bwd_dw": lnm.ln_matmul_bwd_dw}
     before = {n: w.launches for n, w in counters.items()}
     losses, norms, drift, step_ms = [], [], [], []
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     for b in batches:
         rows = shard_host_batch(b, mesh) if mesh is not None else b
         rows = {k: torch.as_tensor(v).to(device) for k, v in rows.items()}
@@ -717,19 +777,22 @@ def tp_steps(case: dict, sd: dict, batches: list[dict], evals: list[dict], devic
         norms.append(float(m.get("grad_norm", np.nan)))
         if mesh is not None:
             flat = torch.cat([model.get_parameter(n).detach().reshape(-1) for n in replicated])
-            lo = col.all_reduce_min(flat, ("data", "fsdp", "model"), mesh)
-            hi = col.all_reduce_max(flat, ("data", "fsdp", "model"), mesh)
+            lo = col.all_reduce_min(flat, ("data", "fsdp", "seq", "model"), mesh)
+            hi = col.all_reduce_max(flat, ("data", "fsdp", "seq", "model"), mesh)
             drift.append(float((hi - lo).abs().max()))
     out = {"losses": np.asarray(losses), "grad_norms": np.asarray(norms),
            "drift": np.asarray(drift), "step_ms": np.asarray(step_ms)}
+    if device.type == "cuda":
+        out["peak_gib"] = np.asarray(torch.cuda.max_memory_allocated(device) / 2 ** 30)
     out.update({f"launches/{n}": np.asarray(w.launches - before[n])
                 for n, w in counters.items()})
     whole = tstep.whole_leaves(state)
     if case.get("whole") == "params":
         import hashlib
 
-        out.update({f"digest/{k}": np.asarray(hashlib.sha256(
-            v.detach().contiguous().cpu().numpy().tobytes()).hexdigest()) for k, v in whole})
+        if mesh is not None:  # the ranks' states compared by digest
+            out.update({f"digest/{k}": np.asarray(hashlib.sha256(
+                v.detach().contiguous().cpu().numpy().tobytes()).hexdigest()) for k, v in whole})
         if mesh is None or cluster.process_index() == 0:
             out.update({f"whole/{k}": v.detach().float().cpu().numpy() for k, v in whole
                         if k.startswith("model/")})
@@ -796,8 +859,63 @@ def job_tp(spec: dict, dev, mesh) -> dict:
         out[f"runner/{workload}/losses"] = np.asarray([h["loss"] for h in res.history])
         out[f"runner/{workload}/mesh"] = np.asarray([res.mesh.shape[a] for a in
                                                      ("data", "fsdp", "model")])
+        out[f"runner/{workload}/seq"] = np.asarray(res.mesh.shape["seq"])
         out.update({f"runner/{workload}/whole/{k}": v.detach().float().cpu().numpy()
                     for k, v in tstep_.whole_leaves(res.state) if k.startswith("model/")})
+    return out
+
+
+def job_seq(spec: dict, dev, mesh) -> dict:
+    """Each of ``attention`` through every schedule of
+    ``sequence_parallel_attention`` (module docstring), then ``job_tp``'s
+    ``cases`` and ``runner``."""
+    from distributed_tensorflow_tpu_torch.parallel import collectives as col
+    from distributed_tensorflow_tpu_torch.parallel.ring_attention import (
+        IMPLS, sequence_parallel_attention)
+    from distributed_tensorflow_tpu_torch.parallel.sharding import local_rows
+
+    torch.set_num_threads(1)  # four ranks of tiny tensors: threads only contend
+    data = np.load(spec["inputs"])
+    out = {}
+
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+
+    kernels = (fa.flash_fwd, fa.flash_bwd_dkv, fa.flash_bwd_dq)
+
+    def attend(tag, amesh, impl, causal, masked, dtype=torch.float32):
+        q, k, v, cot = (torch.as_tensor(data[f"{tag}/{n}"]) for n in ("q", "k", "v", "cot"))
+        rows = local_rows(q.shape[0], amesh)
+        n, m = amesh.shape["model"], col.axis_index("model", amesh)
+        heads = slice(m * q.shape[1] // n, (m + 1) * q.shape[1] // n)
+        leaves = [t[rows, heads].to(dev, dtype).requires_grad_() for t in (q, k, v)]
+        mask = torch.as_tensor(data[f"{tag}/mask"])[rows].to(dev) if masked else None
+        before = [w.launches for w in kernels]
+        o = sequence_parallel_attention(*leaves, amesh, impl=impl, causal=causal,
+                                        kv_mask=mask)
+        (o * cot[rows, heads].to(dev, dtype)).sum().backward()
+        launches = torch.tensor([w.launches - b for w, b in zip(kernels, before)])
+        return {"out": o, **{f"d{n_}": t.grad for n_, t in zip("qkv", leaves)},
+                "launches": launches}
+
+    for a in spec["attention"]:
+        tag, amesh = a["tag"], build_mesh(MeshSpec(**a["mesh"]), dev)
+        dtype = getattr(torch, a.get("dtype", "float32"))
+        runs = a.get("runs") or [(impl, causal, masked) for impl in IMPLS
+                                 for causal in (False, True) for masked in (False, True)]
+        for impl, causal, masked in runs:
+            res = attend(tag, amesh, impl, bool(causal), bool(masked), dtype)
+            out.update({f"{tag}/{impl}/{int(causal)}{int(masked)}/{k}":
+                        v.detach().float().cpu().numpy() for k, v in res.items()})
+        if a.get("emulated"):
+            native, col._native_p2p = col._native_p2p, lambda group, x: False
+            try:
+                for causal, masked in ((True, True), (False, False)):
+                    res = attend(tag, amesh, "ring", causal, masked)
+                    out.update({f"{tag}/emulated/{int(causal)}{int(masked)}/{k}":
+                                v.detach().float().cpu().numpy() for k, v in res.items()})
+            finally:
+                col._native_p2p = native
+    out.update(job_tp(dict(spec, cases=spec.get("cases", [])), dev, mesh))
     return out
 
 
@@ -881,7 +999,7 @@ def main(spec_path: str) -> int:
         jobs = {"job_resnet": job_resnet, "job_bert": job_bert, "job_parallel": job_parallel,
                 "job_ckpt": job_ckpt, "job_ckpt_fallback": job_ckpt_fallback,
                 "job_wide_deep": job_wide_deep, "job_cnn": job_cnn, "job_gpt": job_gpt,
-                "job_tp": job_tp}
+                "job_tp": job_tp, "job_seq": job_seq}
         out = jobs[f"job_{spec['job']}"](spec, dev, mesh)
         np.savez(os.path.join(spec["out"], f"rank{cluster.process_index()}.npz"), **out)
     finally:

@@ -28,12 +28,19 @@ trained model's head dim; on the CPU through dense attention. Unigram guessing t
 masking stream, gathered head or checkpoint restore drops the score back
 toward it.
 
-``--long`` (the reference's causal LM at seq 256 through ring attention
-over a ``seq`` mesh axis, with remat) is not ported: it exits non-zero
-naming ROADMAP items 2.5 and 6.
+``--long`` is the reference's long-context variant at demo scale: the
+causal LM at seq 256, global batch 16, trained through ring attention over
+a ``seq=4`` mesh axis with remat (the ``long_context`` preset's
+configuration; gate 0.25 by default, the reference's). It runs as four
+processes — ``torchrun --nproc_per_node=4 tools/convergence_demo_mlm_torch.py
+--long`` (gloo with ``--device cpu``, NCCL on four cards) — whose chief
+makes the token files and prints the line; one process alone is told how
+to launch it.
 
 Usage: python tools/convergence_demo_mlm_torch.py [--objective mlm|lm]
            [--steps 1600] [--min-acc 0.35] [--device cuda|cpu]
+       torchrun --nproc_per_node=4 tools/convergence_demo_mlm_torch.py --long
+           [--steps 1600] [--min-acc 0.25] [--device cuda|cpu]
 Prints one JSON line: {"objective":..,"train_loss":..,"eval_masked_acc"
 (or "eval_next_byte_acc"):..,"steps":..,"head_dim":..,
 "flash_launches_by_head_dim":..,...}.
@@ -53,6 +60,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 VOCAB, MASK = 261, 260  # byte tokenizer: 256 bytes + 5 specials
+# --long: the seq axis and the schedule (the reference's, defined once)
+LONG_MESH_SEQ, LONG_SEQ_IMPL = 4, "ring"
 
 
 #: the corpus: the repo's design documents, which the port never edits
@@ -76,41 +85,82 @@ def corpus_split() -> tuple[list[str], list[str]]:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=1600)
-    ap.add_argument("--objective", choices=("mlm", "lm"), default="mlm")
-    ap.add_argument("--min-acc", type=float, default=0.35,
-                    help="held-out accuracy gate (unigram floor ~0.13)")
+    ap.add_argument("--objective", choices=("mlm", "lm"), default=None)
+    ap.add_argument("--min-acc", type=float, default=None,
+                    help="held-out accuracy gate (unigram floor ~0.13); default 0.35, or "
+                         "0.25 for --long")
     ap.add_argument("--device", default="cuda",
                     help="torch device; cuda by default, raises without CUDA")
     ap.add_argument("--long", action="store_true",
-                    help="the long-context variant: not ported (exits non-zero)")
+                    help="the causal LM at seq 256 through ring attention on a seq=4 mesh "
+                         "with remat, under torchrun --nproc_per_node=4")
     args = ap.parse_args(argv)
-    if args.long:
+    if args.long and args.objective == "mlm":
+        ap.error("--long is a causal-LM variant; drop --objective=mlm")
+    if args.objective is None:
+        args.objective = "lm" if args.long else "mlm"
+    if args.min_acc is None:
+        args.min_acc = 0.25 if args.long else 0.35
+    if not args.long:
+        with tempfile.TemporaryDirectory(prefix="dtf_mlm_demo_") as work:
+            run(args, work)
+        return
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world % LONG_MESH_SEQ:
         raise SystemExit(
-            "convergence_demo_mlm_torch: --long trains a causal LM at seq 256 through ring "
-            "attention over a seq mesh axis with remat, which the port does not have yet: "
-            "remat is ROADMAP Queue A item 2.5, ring attention and the seq axis item 6")
-    with tempfile.TemporaryDirectory(prefix="dtf_mlm_demo_") as work:
-        run(args, work)
+            f"convergence_demo_mlm_torch: --long splits the sequence over {LONG_MESH_SEQ} "
+            f"processes (mesh.seq={LONG_MESH_SEQ}), and {world} process(es) run here: launch "
+            f"it as torchrun --nproc_per_node={LONG_MESH_SEQ} "
+            f"tools/convergence_demo_mlm_torch.py --long [--device cpu]")
+    run_long(args)
+
+
+def run_long(args) -> None:
+    """``run`` on every rank, in one directory the chief makes (its path
+    broadcast; the checkpoint the chief writes is what every rank's eval
+    restores), removed by the chief when every rank is done."""
+    import shutil
+
+    from distributed_tensorflow_tpu_torch.parallel import cluster
+    from distributed_tensorflow_tpu_torch.utils.multihost import broadcast_from_chief
+
+    cluster.initialize(cluster.ClusterConfig(), args.device)
+    try:
+        work = tempfile.mkdtemp(prefix="dtf_mlm_demo_") if cluster.is_chief() else None
+        work = broadcast_from_chief({"work": work})["work"]
+        try:
+            run(args, work)
+        finally:
+            cluster.sync_hosts("mlm_demo_done")
+            if cluster.is_chief():
+                shutil.rmtree(work, ignore_errors=True)
+    finally:
+        cluster.shutdown()
 
 
 def run(args, work: str) -> None:
     from distributed_tensorflow_tpu_torch import workloads
     from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
 
+    from distributed_tensorflow_tpu_torch.parallel import cluster
+
     t0 = time.perf_counter()
     train_files, eval_files = corpus_split()
-    for out, files in (("train.npy", train_files), ("eval.npy", eval_files)):
-        subprocess.run([sys.executable, os.path.join(REPO, "tools/make_token_file.py"),
-                        os.path.join(work, out), *files], check=True, capture_output=True)
+    if cluster.is_chief():
+        for out, files in (("train.npy", train_files), ("eval.npy", eval_files)):
+            subprocess.run([sys.executable, os.path.join(REPO, "tools/make_token_file.py"),
+                            os.path.join(work, out), *files], check=True, capture_output=True)
+    if args.long:
+        cluster.sync_hosts("mlm_demo_tokens")
 
     mlm = args.objective == "mlm"
     workload = "bert_pretrain" if mlm else "gpt_lm"
     prefix = "tokens_mlm" if mlm else "tokens"
-    seq = 64
+    seq = 256 if args.long else 64
     common = [
         f"--data.vocab_size={VOCAB}",
         f"--data.seq_len={seq}",
-        "--data.global_batch_size=64",
+        f"--data.global_batch_size={16 if args.long else 64}",
         *([f"--data.mask_token={MASK}", "--data.max_predictions=10"] if mlm else []),
         f"--model.vocab_size={VOCAB}",
         "--model.num_layers=3",
@@ -119,6 +169,10 @@ def run(args, work: str) -> None:
         "--model.d_ff=256",
         f"--model.max_len={seq}",
         "--mesh.model=1",
+        # --long: ring attention over a seq axis + remat, the long_context
+        # preset's configuration at demo scale; data=-1 takes the rest
+        *([f"--mesh.seq={LONG_MESH_SEQ}", f"--model.seq_impl={LONG_SEQ_IMPL}",
+           "--model.remat=true"] if args.long else []),
         "--mesh.data=-1",
     ]
     ckdir = os.path.join(work, "ck")
@@ -151,8 +205,12 @@ def run(args, work: str) -> None:
         *common,
     ], device=args.device)
     acc = float(eval_metrics.get("accuracy", 0.0))
+    if not cluster.is_chief():
+        return
     print(json.dumps({
         "objective": args.objective,
+        "long": bool(args.long),
+        "mesh": dict(result.mesh.shape),
         "train_loss": float(result.history[-1]["loss"]),
         "eval_masked_acc" if mlm else "eval_next_byte_acc": acc,
         "steps": steps,
