@@ -269,8 +269,9 @@ when any phase fails:
    check kernels at 256, timed beside bf16.)
 15. sequence parallelism (``T15_*``, ``phase_sp``): (a)
    ``sequence_parallel_attention`` of the ring, Ulysses and the all-gather
-   at seq=2 in two gloo processes on this card (the permute emulated by
-   an all-reduce), gpt_small's heads, S=2048, B=2,
+   at seq=2 in two gloo processes on this card (phase 14a's: its launch
+   runs 15a's calls before its case and 15b's steps after it; the permute
+   emulated by an all-reduce), gpt_small's heads, S=2048, B=2,
    bf16 and f32, causal and non-causal with a padded kv_mask, against the
    same call in one process (``TOL["sp/attn/*"]``, x 1.01 controls) with
    each call's flash launches counted (``T15_LAUNCHES``); (b) ``gpt_lm``'s
@@ -282,10 +283,29 @@ when any phase fails:
    the flash kernels at the schedules' shapes, ``FLASH_SP``: all-gather's
    Sq=1024 against Sk=2048, non-causal and padded; Ulysses' S=8192
    causal.)
-16. print the ``kernels`` JSON line (eighteen entries: ``ln_matmul`` is the
-   serving forward at M=8, ``ln_matmul_train`` the tiled forward at
+16. pipeline parallelism (``T16_*``, ``phase_pp``): (a) ``gpt_lm`` at
+   gpt_small (S=1024, B=8, bf16, flash, fused LN+matmul with the pallas
+   backward, adamw, dropout 0) at pipe=2 in two gloo processes on this
+   card (phase 14a's, after its case: one launch of two ranks and one of
+   four serve both phases), M=4 microbatches, one chunk a stage, 3 steps from the weights of
+   one seed, against the dense model's same steps in one process with
+   phase 14's gates and controls; (b) the same with two virtual chunks a
+   stage (the interleaved schedule); (c) unfused at pipe=2 x model=2 in
+   four processes; (d) one ``bert_pretrain`` step at bert_base (S=512,
+   B=16, padded keys, the gathered MLM head, dropout 0) at data=2 x pipe=2
+   on the same four; each rank's flash (and in a/b LN+matmul) launches
+   equal to ``T16_LAUNCHES``, its step ms and peak GiB printed as
+   gloo-on-one-card numbers; then the flash kernels at the microbatch
+   shape (``T16_FLASH``) and the LN+matmul pair at its rows (``T16_LN``)
+   against their plain versions and timed, the ``*_pipe`` rows below, and
+   untimed at the path's other shapes (``T16_FLASH_CHECKS``: 16c's six
+   local heads, 16d's padded BERT microbatch; ``T16_LN_CHECKS``: q, k and
+   v's n=768).
+17. print the ``kernels`` JSON line (twenty-four entries: ``ln_matmul`` is
+   the serving forward at M=8, ``ln_matmul_train`` the tiled forward at
    M=8192; ``flash_*_d32`` and ``flash_*_d256`` the flash kernels'
-   head_dim-32 and -256 instantiations), then the ``ok`` line last.
+   head_dim-32 and -256 instantiations; the ``*_pipe`` rows phase 16's
+   shapes and launches), then the ``ok`` line last.
 
 TF32 is off for every f32 product compared here
 (``torch.backends.cuda.matmul.allow_tf32 = False``).
@@ -596,7 +616,16 @@ class SmokeFailure(RuntimeError):
     pass
 
 
+#: (seconds since the line before, that line) for every line ``log``
+#: printed: where the run's time went, in its summary
+LOG_GAPS: list[tuple[float, str]] = []
+_LAST_LOG = [time.perf_counter(), "(start)"]
+
+
 def log(msg: str = "") -> None:
+    now = time.perf_counter()
+    LOG_GAPS.append((now - _LAST_LOG[0], _LAST_LOG[1]))
+    _LAST_LOG[:] = [now, msg]
     print(msg, flush=True)
 
 
@@ -735,6 +764,21 @@ def event_ms(torch, fns, iters: int = 20, warmup: int = 5) -> float:
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+#: calls over which ``plain_time`` times a plain version
+PLAIN_ITERS = 10
+
+
+def plain_time(torch, fns) -> dict:
+    """A plain PyTorch version's time a call (``device_ms``), by CUDA
+    events over ``PLAIN_ITERS`` calls (``event_ms``): the plain versions
+    are device-bound yardsticks at 10–100x their kernels' time. Profiled,
+    50 calls in three traces of flash's plain forward took 1.7 s of a 7.4
+    s ``time_flash`` at gpt_small's shape, and over 10 calls CUPTI's lost
+    records could pass a tenth of a kernel's, which fails ``cuda_ms``
+    (NVIDIA H100 80GB HBM3, 700 W)."""
+    return {"device_ms": event_ms(torch, fns, PLAIN_ITERS, warmup=2)}
 
 
 def device_events(torch, prof):
@@ -1251,10 +1295,10 @@ def sdpa_backend(by_name: dict) -> str:
 
 
 def time_flash(torch, np, F, fa, rng, c, causal, dn, shape, iters=50) -> dict[str, dict]:
-    """Each kernel, the plain versions and SDPA (forward; its whole
-    backward through autograd) on cold copies of case ``c``'s inputs, three
-    traces of ``iters`` calls deep (``cuda_ms``), beside the bound of this
-    case's attended pairs. SDPA takes ``is_causal`` or, with a kv_mask, the
+    """Each kernel and SDPA (forward; its whole backward through autograd)
+    on cold copies of case ``c``'s inputs, three traces of ``iters`` calls
+    deep (``cuda_ms``), the plain versions by ``plain_time``, beside the
+    bound of this case's attended pairs. SDPA takes ``is_causal`` or, with a kv_mask, the
     boolean ``attn_mask``; its backend is read from its kernels' names.
     With Sq != Sk a causal SDPA call would align at 0, not at Sk - Sq:
     such a case is timed non-causal only."""
@@ -1290,8 +1334,7 @@ def time_flash(torch, np, F, fa, rng, c, causal, dn, shape, iters=50) -> dict[st
         lib_graphs.append((sdpa(st, *leaves), leaves, st["dout"]))
     lib_bwd = [lambda g=g: torch.autograd.grad(g[0], g[1], g[2], retain_graph=True)
                for g in lib_graphs]
-    t_plain_fwd, t_plain_bwd = (cuda_ms(torch, plain_fwd, iters),
-                                cuda_ms(torch, plain_bwd, iters))
+    t_plain_fwd, t_plain_bwd = plain_time(torch, plain_fwd), plain_time(torch, plain_bwd)
     t_lib_fwd, t_lib_bwd = cuda_ms(torch, lib_fwd, iters), cuda_ms(torch, lib_bwd, iters)
     backend = sdpa_backend(t_lib_fwd["by_name"])
     rows = {}
@@ -1801,7 +1844,7 @@ def phase_ln_train(torch, np, F):
                                         for s in sets]}
             parts = {"ln_matmul/train": LN_FWD_PARTS, "ln_matmul_bwd_dx": LN_DX_PARTS,
                      "ln_matmul_bwd_dw": LN_DW_PARTS}
-            t_plain = {k: cuda_ms(torch, v, iters=10, warmup=2) for k, v in plain.items()}
+            t_plain = {k: plain_time(torch, v) for k, v in plain.items()}
             for k in kern:
                 tk, tl = cuda_ms(torch, kern[k], iters=20), cuda_ms(torch, lib[k], iters=20)
                 if k == "ln_matmul/train":
@@ -2200,10 +2243,9 @@ def phase_conv_bn(torch, np):
                "conv_bn_bwd_dw": lambda: torch.matmul(h.t(), g),
                "conv_bn_bwd_single": lambda: (torch.matmul(g, c["w"].t()),
                                               torch.matmul(h.t(), g))}
-        plain = {"fwd": cuda_ms(torch, [lambda: fcb.conv1x1_bn_act_plain(c["x"], c["w"], *aff)],
-                                iters=10, warmup=2),
-                 "bwd": cuda_ms(torch, [lambda: fcb.conv1x1_bn_bwd_plain(*bwd)], iters=10,
-                                warmup=2)}
+        plain = {"fwd": plain_time(torch, [lambda: fcb.conv1x1_bn_act_plain(c["x"], c["w"],
+                                                                           *aff)]),
+                 "bwd": plain_time(torch, [lambda: fcb.conv1x1_bn_bwd_plain(*bwd)])}
         for n, fn in kern.items():
             tk = cuda_ms(torch, [fn], iters=20, launches=conv_launches(n, prologue))
             tl = cuda_ms(torch, [lib[n]], iters=20)
@@ -5081,9 +5123,12 @@ def profile_pass(torch, np, cfg, params, prompts):
     """Where the time goes: one more pass (both kernels on the path)
     under torch.profiler — device time by kernel, and the device's busy
     share of the pass's wall time (the rest is the host: Python, eager
-    dispatch, host<->device copies of tokens and tables)."""
+    dispatch, host<->device copies of tokens and tables). The device
+    activity alone is recorded: with the host's operators too, the trace
+    of the pass's 89 steps took over a minute to process (NVIDIA H100
+    80GB HBM3, 700 W), and their recording lengthened the wall."""
     act = torch.profiler.ProfilerActivity
-    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+    with torch.profiler.profile(activities=[act.CUDA]) as prof:
         p = serve_pass(torch, np, cfg, params, prompts, "profiled fused_ln_matmul")
     events = [e for e in device_events(torch, prof) if e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
@@ -5190,20 +5235,30 @@ def tp_gates(np, tag, ranks, ref, ctl, init, phase="14", tol="tp/bf16") -> dict:
     return {"loss": loss, "worst": worst, "median": median, "control_median": median_ctl}
 
 
-def tp_case(worker, torch, np, tag, cfg, mesh, batches, opt, world, out, smi, **extra):
+def tp_case(worker, torch, np, tag, cfg, mesh, batches, opt, world, out, smi, more=None,
+            **extra):
     """One phase-14 case: the ranks' ``tp`` job (``tests/torch_dp_worker.py``)
     run to its end first, so that their step times are theirs alone, then
     the one-process reference and the half-batch control on this card.
-    Returns (ranks, reference, control)."""
+    ``more``: other phases' work for the same ranks (``shared_launches``):
+    ``cases``, (case, batches) run after this one, and ``attention``, the
+    ``seq`` job's calls on ``arrays``, run before it (the results under
+    their tags in the ranks'). Returns (ranks, reference, control)."""
     import dataclasses
 
+    more = more or {}
     case = dict(tag=tag, seed=0, cfg=dataclasses.asdict(cfg), mesh=mesh, optimizer=opt,
                 options={}, whole="params", env=T14_ENV, mlm=not cfg.causal, **extra)
+    cases = [(case, batches), *more.get("cases", ())]
     inputs = os.path.join(out, f"{tag}.npz")
-    np.savez(inputs, **{f"{tag}/train{i}/{k}": v for i, b in enumerate(batches)
-                        for k, v in b.items()})
-    procs = worker.launch({"job": "tp", "device": DEVICE, "backend": "gloo", "out": out,
-                           "inputs": inputs, "cases": [case]}, world=world)
+    np.savez(inputs, **more.get("arrays", {}),
+             **{f"{c['tag']}/train{i}/{k}": v for c, bs in cases
+                for i, b in enumerate(bs) for k, v in b.items()})
+    spec = {"job": "tp", "device": DEVICE, "backend": "gloo", "out": out, "inputs": inputs,
+            "cases": [c for c, _ in cases]}
+    if more.get("attention"):
+        spec.update(job="seq", attention=more["attention"])
+    procs = worker.launch(spec, world=world)
     ranks = worker.wait(procs, out, timeout=900)
     for r, rank in enumerate(ranks):
         log(f"  14 {tag} rank {r}: step ms {[round(float(x), 2) for x in rank[tag + '/step_ms']]}"
@@ -5234,7 +5289,7 @@ def tp_case(worker, torch, np, tag, cfg, mesh, batches, opt, world, out, smi, **
     return ranks, ref, ctl
 
 
-def phase_tp(torch, np, smi) -> dict:
+def phase_tp(torch, np, smi, more=None) -> dict:
     """Phase 14: 14a gpt_lm (gpt_small, S=1024, B=8, bf16, flash, fused
     LN+matmul with the pallas backward, the chunked loss at 256, adamw,
     dropout 0, f32 head) at data=1 x model=2 in two gloo processes on this
@@ -5247,7 +5302,9 @@ def phase_tp(torch, np, smi) -> dict:
     (written gathered by the chief) restored in one process at model=1,
     every leaf bitwise the ranks' gathered one (SHA-256); 14c the D=256
     flash kernels' launches through ``run_workload`` (gpt_lm at d_model
-    1024 over 4 heads)."""
+    1024 over 4 heads). ``more``: world size -> phases 15's and 16's work
+    for the same two and four ranks (``shared_launches``; a launch each
+    saved); the ranks' results by those phases' tags in ``res["more"]``."""
     import dataclasses
     import tempfile
 
@@ -5272,9 +5329,11 @@ def phase_tp(torch, np, smi) -> dict:
                    for _ in range(g["steps"])]
         log(f"phase 14a: gpt_lm gpt_small B={g['global_batch']} S={cfg.max_len} bf16 at "
             f"{g['mesh']}, fused LN+matmul (pallas backward), flash, xent_chunk {g['chunk']}")
+        more = more or {}
         ranks, ref, ctl = tp_case(worker, torch, np, "gpt", cfg, g["mesh"], batches,
                                   dict(name="adamw", learning_rate=1e-4, weight_decay=0.1), 2,
-                                  out, smi, chunk=g["chunk"], save=False)
+                                  out, smi, more=more.get(2), chunk=g["chunk"], save=False)
+        res["more"] = {t: ranks for t in more.get(2, {}).get("tags", ())}
         init = {k: v.float().cpu().numpy() for k, v in tfm.init_params(
             cfg, seed=0, device=DEVICE, trainable=True).items()}
         res["14a"] = tp_gates(np, "gpt", ranks, ref, ctl, init)
@@ -5305,7 +5364,8 @@ def phase_tp(torch, np, smi) -> dict:
             f"({b['pad'][0]}-{b['pad'][1]} keys), dropout {cfg.dropout}, at {b['mesh']}")
         opt = dict(name="adamw", learning_rate=1e-4, weight_decay=0.01)
         ranks, ref, ctl = tp_case(worker, torch, np, "bert", cfg, b["mesh"], batches, opt, 4,
-                                  out, smi)
+                                  out, smi, more=more.get(4))
+        res["more"].update({t: ranks for t in more.get(4, {}).get("tags", ())})
         init = {k: v.float().cpu().numpy() for k, v in tfm.init_params(
             cfg, seed=0, device=DEVICE, trainable=True).items()}
         res["14b"] = tp_gates(np, "bert", ranks, ref, ctl, init)
@@ -5525,44 +5585,345 @@ def sp_long(torch, np, worker, ranks, smi) -> dict:
     return res
 
 
-def phase_sp(torch, np, smi) -> dict:
-    """Phase 15: sequence parallelism — one launch of two gloo ranks on this
-    card (``tests/torch_dp_worker.py``'s ``seq`` job: 15a's calls, then
-    15b's steps), then the one-process references and the gates
-    (``sp_attention``, ``sp_long``)."""
-    import tempfile
-
-    worker = load_dp_worker()
-    t0 = time.perf_counter()
-    a, g = T15_ATTN, T15_LC
+def sp_setup(np) -> dict:
+    """Phase 15's inputs: 15a's arrays and ``seq``-job calls, 15b's
+    configurations, batches and ``tp`` cases (``shared_launches`` hands
+    them to phase 14's launch of two ranks)."""
     arrays = sp_attention_inputs(np)
     base, _, batches, cases = sp_long_cases(np)
     runs = [list(r) for r in T15_LAUNCHES]
-    log(f"phase 15a: sequence_parallel_attention at seq=2, two gloo ranks on this card, "
-        f"B={a['B']} H={a['H']} S={a['S']} D={a['D']}, bf16 and f32; causal with no mask, "
-        f"non-causal with a padded kv_mask ({a['pad'][0]}-{a['pad'][1]} keys)")
+    return dict(arrays=arrays, base=base,
+                inputs={f"{t}/{n}": v for t in T15_DTYPES for n, v in arrays.items()},
+                attention=[dict(tag=t, mesh={"seq": 2}, dtype=d, runs=runs)
+                           for t, d in T15_DTYPES.items()],
+                cases=[(c, batches) for c in cases])
+
+
+def shared_launches(pp, sp) -> dict:
+    """What phase 14's launches of two and four gloo ranks run for phases
+    15 and 16 (``phase_tp``'s ``more``): by world size, the ``cases`` run
+    after phase 14's own (16a, 16b, then 15b's; 16c, 16d), 15a's
+    ``attention`` calls on its ``arrays`` run before them, and the
+    ``tags`` under which ``res["more"]`` keeps the ranks' results ("15a":
+    the attention's)."""
+    return {2: dict(cases=[*pp["more"][2], *sp["cases"]], arrays=sp["inputs"],
+                    attention=sp["attention"],
+                    tags=["15a", *(c["tag"] for c, _ in [*pp["more"][2], *sp["cases"]])]),
+            4: dict(cases=pp["more"][4], tags=[c["tag"] for c, _ in pp["more"][4]])}
+
+
+def phase_sp(torch, np, smi, setup, ranks) -> dict:
+    """Phase 15: sequence parallelism — 15a's calls and 15b's steps run by
+    phase 14a's two gloo ranks on this card (``tests/torch_dp_worker.py``'s
+    ``seq`` job: 15a's calls before 14a's case, 15b's steps after it), then
+    the one-process references and the gates (``sp_attention``,
+    ``sp_long``)."""
+    worker = load_dp_worker()
+    t1 = time.perf_counter()
+    a, g, base = T15_ATTN, T15_LC, setup["base"]
+    log(f"phase 15a: sequence_parallel_attention at seq=2, two gloo ranks on this card (phase "
+        f"14a's), B={a['B']} H={a['H']} S={a['S']} D={a['D']}, bf16 and f32; causal with no "
+        f"mask, non-causal with a padded kv_mask ({a['pad'][0]}-{a['pad'][1]} keys)")
     log(f"phase 15b: gpt_lm long_context, gpt_small width, B={g['global_batch']} (the "
         f"preset's 8 cut to {g['global_batch']}) S={base.max_len} (the preset's 8192 cut to "
         f"{base.max_len}) bf16, remat, at {g['mesh']} on the same two ranks: the ring and "
         f"Ulysses, {g['steps']} steps each")
-    with tempfile.TemporaryDirectory() as out:
-        inputs = os.path.join(out, "sp.npz")
-        np.savez(inputs, **{f"{t}/{n}": v for t in T15_DTYPES for n, v in arrays.items()},
-                 **{f"{c['tag']}/train{i}/{k}": v for c in cases
-                    for i, b in enumerate(batches) for k, v in b.items()})
-        procs = worker.launch({"job": "seq", "device": DEVICE, "backend": "gloo", "out": out,
-                               "inputs": inputs, "cases": cases,
-                               "attention": [dict(tag=t, mesh={"seq": 2}, dtype=d, runs=runs)
-                                             for t, d in T15_DTYPES.items()]}, world=2)
-        ranks = worker.wait(procs, out, timeout=900)
-    t1 = time.perf_counter()
-    res = {"ranks_s": t1 - t0, "15a": sp_attention(torch, np, ranks, arrays)}
+    ranks_s = max(float(r["attention/wall_s"]) for r in ranks) + sum(
+        max(float(r[f"{c['tag']}/wall_s"]) for r in ranks) for c, _ in setup["cases"])
+    res = {"ranks_s": ranks_s, "15a": sp_attention(torch, np, ranks, setup["arrays"])}
     t2 = time.perf_counter()
     res["15b"] = sp_long(torch, np, worker, ranks, smi)
-    res.update(gates_15a_s=t2 - t1, gates_15b_s=time.perf_counter() - t2,
-               wall_s=time.perf_counter() - t0)
-    log(f"  phase 15 wall {res['wall_s']:.1f} s: the ranks {res['ranks_s']:.1f}, 15a's "
-        f"references and gates {res['gates_15a_s']:.1f}, 15b's {res['gates_15b_s']:.1f}")
+    res.update(gates_15a_s=t2 - t1, gates_15b_s=time.perf_counter() - t2)
+    res["wall_s"] = ranks_s + time.perf_counter() - t1
+    log(f"  phase 15 wall {res['wall_s']:.1f} s: its calls and cases in phase 14a's ranks "
+        f"{res['ranks_s']:.1f} (the slowest rank's), 15a's references and gates "
+        f"{res['gates_15a_s']:.1f}, 15b's {res['gates_15b_s']:.1f}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 16: pipeline parallelism
+# ---------------------------------------------------------------------------
+
+#: 16a/16b: gpt_small at pipe=2 on two gloo ranks of this card, the global
+#: batch of 8 in 4 microbatches, one and two virtual chunks a stage; 16c the
+#: same at pipe=2 x model=2 on four ranks; 16d one bert_base step at data=2
+#: x pipe=2 on the same four ranks (a global batch of 16 in 4 microbatches of
+#: each rank's 8 rows, padded keys)
+T16_GPT = dict(global_batch=8, steps=3, microbatches=4, chunk=256)
+T16_BERT = dict(global_batch=16, steps=1, microbatches=4, pad=(384, 512))
+#: case -> (model, mesh, virtual chunks)
+T16_CASES = {"16a": ("gpt_fused", {"pipe": 2}, 1), "16b": ("gpt_fused", {"pipe": 2}, 2),
+             "16c": ("gpt", {"pipe": 2, "model": 2}, 1),
+             "16d": ("bert", {"pipe": 2, "data": 2}, 1)}
+#: each rank's launches a step, by the rule the schedule follows (idle ticks
+#: skipped: a rank runs its chunks R = M·V times a step, lpc = L/(S·V)
+#: layers a chunk): the flash forward 2·R·lpc (each tick's recompute
+#: under torch.utils.checkpoint), dK/dV and dQ R·lpc each; at model=1 with
+#: fused_ln_matmul the LN+matmul forward 8·R·lpc (q, k, v and mlp_in, and
+#: the recompute), dx and dw 4·R·lpc each. R·lpc = M·L/S = 4·12/2 = 24 in
+#: every case (16d: the 4 microbatches of each data shard's rows)
+T16_LAUNCHES = {
+    "16a": {"flash_fwd": 48, "flash_bwd_dkv": 24, "flash_bwd_dq": 24, "ln_matmul": 192,
+            "ln_matmul_bwd_dx": 96, "ln_matmul_bwd_dw": 96},
+    "16b": {"flash_fwd": 48, "flash_bwd_dkv": 24, "flash_bwd_dq": 24, "ln_matmul": 192,
+            "ln_matmul_bwd_dx": 96, "ln_matmul_bwd_dw": 96},
+    "16c": {"flash_fwd": 48, "flash_bwd_dkv": 24, "flash_bwd_dq": 24, "ln_matmul": 0,
+            "ln_matmul_bwd_dx": 0, "ln_matmul_bwd_dw": 0},
+    "16d": {"flash_fwd": 48, "flash_bwd_dkv": 24, "flash_bwd_dq": 24, "ln_matmul": 0,
+            "ln_matmul_bwd_dx": 0, "ln_matmul_bwd_dw": 0},
+}
+#: the kernels line's pipeline rows: the flash kernels at 16a's microbatch
+#: (B=2 of S=1024, 12 heads, causal, bf16) and the LN+matmul pair at its
+#: rows (M = 2·1024, d 768, n 3072)
+T16_FLASH = dict(B=2, H=12, S=1024, D=64)
+T16_LN = (2048, 768, 3072)
+#: the other shapes phase 16 gives the kernels, checked against their plain
+#: versions but not timed: flash at 16c's 6 local heads (causal) and at
+#: 16d's BERT microbatch (B=2 of S=512, non-causal, padded keys); the
+#: LN+matmul pair at q, k and v's n=768
+T16_FLASH_CHECKS = {"16c": (dict(B=2, H=6, S=1024, D=64), True, False),
+                    "16d": (dict(B=2, H=12, S=512, D=64), False, "padded")}
+T16_LN_CHECKS = [(2048, 768, 768)]
+T16_ENV = {"DTF_FUSED_BWD": "pallas"}
+
+
+def pp_models():
+    """Phase 16's configurations: gpt_small (bf16, flash, dropout 0) with
+    and without the fused LN+matmul, and bert_base at dropout 0 (the
+    pipeline draws its own dropout masks, which one process does not)."""
+    import dataclasses
+
+    from distributed_tensorflow_tpu_torch.models import transformer as tfm
+
+    gpt = dataclasses.replace(tfm.gpt_small(), dropout=0.0, xent_chunk=T16_GPT["chunk"])
+    return {"gpt_fused": dataclasses.replace(gpt, fused_ln_matmul=True), "gpt": gpt,
+            "bert": dataclasses.replace(tfm.bert_base(), dropout=0.0)}
+
+
+def pp_batches(np, cfgs) -> dict:
+    from distributed_tensorflow_tpu_torch.data import text
+
+    rng = np.random.default_rng(160)
+    g, b = T16_GPT, T16_BERT
+    gpt = [{"input_ids": rng.integers(0, cfgs["gpt"].vocab_size, (
+        g["global_batch"], cfgs["gpt"].max_len)).astype(np.int32)} for _ in range(g["steps"])]
+    bcfg = cfgs["bert"]
+    stream = text.make_text_dataset(text.TextDataConfig(
+        dataset="synthetic_mlm", global_batch_size=b["global_batch"], seq_len=bcfg.max_len,
+        vocab_size=bcfg.vocab_size, max_predictions=-1), shard=(0, 1))
+    bert = []
+    for i in range(b["steps"]):
+        bt = dict(stream.batch(i))
+        lens = rng.integers(b["pad"][0], b["pad"][1] + 1, b["global_batch"])
+        bt["attention_mask"] = (np.arange(bcfg.max_len)[None] < lens[:, None]).astype(np.int32)
+        bert.append(bt)
+    return {"gpt_fused": gpt, "gpt": gpt, "bert": bert}
+
+
+def pp_case(tag, cfg, mesh, V, micro) -> dict:
+    import dataclasses
+
+    return dict(tag=tag, seed=0, cfg=dataclasses.asdict(cfg), mesh=mesh,
+                optimizer=dict(name="adamw", learning_rate=1e-4, weight_decay=0.01),
+                options={}, whole="params", mlm=not cfg.causal, chunk=cfg.xent_chunk,
+                save=False, env=T16_ENV, pipeline=dict(virtual=V, microbatches=micro))
+
+
+def pp_kernel_rows(torch, np, F) -> tuple[dict, dict]:
+    """The kernels line's pipeline rows: the three flash kernels at
+    ``T16_FLASH`` (``check_flash``'s gates and controls, ``time_flash``)
+    and the LN+matmul forward, dx and dw at ``T16_LN`` (bf16, phase 2e's
+    gates; timed beside their plain versions and the library's layer_norm
+    + linear and products); the same gates, untimed, at
+    ``T16_FLASH_CHECKS`` and ``T16_LN_CHECKS``. Their comparison launches
+    are not counted. Returns (the rows, the untimed checks' max abs
+    errors)."""
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+    from distributed_tensorflow_tpu_torch.ops import fused_ln_matmul as fln
+
+    rng = np.random.default_rng(16)
+    before = {n: getattr(fa, n).launches for n in FLASH_NAMES}
+    before.update({n: k.launches for n, k in fln.KERNELS.items()})
+    dn = "bfloat16"
+    c = flash_case(torch, np, rng, torch.bfloat16, False, **T16_FLASH)
+    errs = check_flash(torch, fa, c, True, "bfloat16 pipeline microbatch", dn)
+    rows = time_flash(torch, np, F, fa, rng, c, True, dn, T16_FLASH, iters=20)
+    out = {f"{n}_pipe": dict(rows[n], err=max(errs[n])) for n in FLASH_NAMES}
+    del c
+    checks = {}
+    for t, (shape, causal, masked) in T16_FLASH_CHECKS.items():
+        c = flash_case(torch, np, rng, torch.bfloat16, masked, pad_lengths=T16_BERT["pad"],
+                       **shape)
+        e = check_flash(torch, fa, c, causal, f"bfloat16 {t} microbatch {shape}", dn)
+        checks[f"flash {t}"] = {n: max(e[n]) for n in FLASH_NAMES}
+        del c
+    for shape in T16_LN_CHECKS:
+        checks[f"ln_matmul {shape}"] = pp_ln_check(torch, np, fln, rng, *shape)[1]
+    log(f"    checked against the plain versions, not timed (max abs errors): {checks}")
+    M, d, n = T16_LN
+    c, errs = pp_ln_check(torch, np, fln, rng, M, d, n)
+    nbytes = c["x"].numel() * 2 * 2 + c["dy"].numel() * 2
+    sets = [c] + [ln_bwd_case(torch, np, rng, M, d, n, torch.bfloat16)
+                  for _ in range(copies_for(nbytes) - 1)]
+    for st in sets:
+        st["stats"] = fln.ln_matmul_bwd_dx(st["x"], st["gamma"], st["w"], st["dy"])[4:]
+        mu, rs = (t[:, None] for t in st["stats"])
+        st["h"] = ((st["x"].float() - mu) * rs * st["gamma"] + st["beta"]).to(torch.bfloat16)
+    kern = {"ln_matmul_train": [lambda s=s: fln.ln_matmul(s["x"], s["gamma"], s["beta"], s["w"],
+                                                           s["bias"]) for s in sets],
+            "ln_matmul_bwd_dx": [lambda s=s: fln.ln_matmul_bwd_dx(s["x"], s["gamma"], s["w"],
+                                                                  s["dy"]) for s in sets],
+            "ln_matmul_bwd_dw": [lambda s=s: fln.ln_matmul_bwd_dw(
+                s["x"], s["gamma"], s["beta"], s["dy"], *s["stats"]) for s in sets]}
+    plain = {"fwd": [lambda s=s: fln.ln_matmul_plain(s["x"], s["gamma"], s["beta"], s["w"],
+                                                     s["bias"]) for s in sets],
+             "bwd": [lambda s=s: fln.ln_matmul_bwd_plain(s["x"], s["gamma"], s["beta"], s["w"],
+                                                         s["dy"]) for s in sets]}
+    bf = torch.bfloat16
+    lib = {"ln_matmul_train": [lambda s=s: F.linear(F.layer_norm(
+               s["x"], (d,), s["gamma"].to(bf), s["beta"].to(bf), 1e-6), s["w"].t(),
+               s["bias"].to(bf)) for s in sets],
+           "ln_matmul_bwd_dx": [lambda s=s: torch.mm(s["dy"], s["w"].t()) for s in sets],
+           "ln_matmul_bwd_dw": [lambda s=s: torch.mm(s["h"].t(), s["dy"]) for s in sets]}
+    t_plain = {k: plain_time(torch, v) for k, v in plain.items()}
+    for k in kern:
+        tk, tl = cuda_ms(torch, kern[k], iters=20), cuda_ms(torch, lib[k], iters=20)
+        bound = (ln_bound_ms(c, dn) if k == "ln_matmul_train"
+                 else ln_bwd_bound_ms(c, k.split("_")[-1], dn))
+        out[f"{k}_pipe"] = dict(ms=tk["device_ms"], library_ms=tl["device_ms"],
+                                plain_ms=t_plain["fwd" if k == "ln_matmul_train" else "bwd"][
+                                    "device_ms"], bound_ms=bound[0], bound_by=bound[1],
+                                err=errs[k])
+        r = out[f"{k}_pipe"]
+        log(f"    {k} M={M} n={n}: kernel_ms={r['ms']:.5f} plain_ms={r['plain_ms']:.5f} "
+            f"library_ms={r['library_ms']:.5f} bound_ms={r['bound_ms']:.5f} ({r['bound_by']})")
+    del sets, kern, plain, lib, c
+    for name, k in fln.KERNELS.items():  # comparison launches do not count
+        k.launches = before[name]
+    for name in FLASH_NAMES:
+        getattr(fa, name).launches = before[name]
+    torch.cuda.empty_cache()
+    return out, checks
+
+
+def pp_ln_check(torch, np, fln, rng, M, d, n) -> tuple[dict, dict]:
+    """The LN+matmul forward, dx and dw (bf16) at ``M x d -> n`` against
+    their plain versions (phase 2e's gates). Returns (the case, each
+    kernel's max abs error)."""
+    dn = "bfloat16"
+    c = ln_bwd_case(torch, np, rng, M, d, n, torch.bfloat16)
+    y = fln.ln_matmul(c["x"], c["gamma"], c["beta"], c["w"], c["bias"])
+    dx, dg, db, dbias, mean, rstd = fln.ln_matmul_bwd_dx(c["x"], c["gamma"], c["w"], c["dy"])
+    dw = fln.ln_matmul_bwd_dw(c["x"], c["gamma"], c["beta"], c["dy"], mean, rstd)
+    want_y = fln.ln_matmul_plain(c["x"], c["gamma"], c["beta"], c["w"], c["bias"])
+    want = fln.ln_matmul_bwd_plain(c["x"], c["gamma"], c["beta"], c["w"], c["dy"])
+    tag = f"{dn} M={M} d={d} n={n}"
+    err_y = check_close(torch, f"ln_matmul/y {tag}", y, want_y, TOL[f"ln_matmul/{dn}"])
+    err_dx = check_close(torch, f"ln_matmul_bwd_dx/dx {tag}", dx, want[0], TOL[f"ln_bwd/{dn}"])
+    reds = {"dgamma": rel_l2(dg, want[1]), "dbeta": rel_l2(db, want[2]),
+            "dbias": rel_l2(dbias, want[4]), "dw": rel_l2(dw, want[3])}
+    if max(reds.values()) > TOL[f"ln_bwd/reduction/{dn}"]:
+        raise SmokeFailure(f"16 ln_matmul backward {tag}: a sum is off: {reds}")
+    return c, {"ln_matmul_train": err_y, "ln_matmul_bwd_dx": err_dx,
+               "ln_matmul_bwd_dw": float((dw.float() - want[3].float()).abs().max())}
+
+
+def pp_setup(np) -> dict:
+    """Phase 16's configurations, batches and ``tp`` cases (by tag), and
+    the (case, batches) that phase 14's launches of two and four ranks
+    run for it (by world size; ``shared_launches``)."""
+    cfgs = pp_models()
+    batches = pp_batches(np, cfgs)
+    g, b = T16_GPT, T16_BERT
+    cases = {t: pp_case(t, cfgs[m], mesh, V, (g if m != "bert" else b)["microbatches"])
+             for t, (m, mesh, V) in T16_CASES.items()}
+    more = {w: [(cases[t], batches[T16_CASES[t][0]]) for t in tags]
+            for w, tags in ((2, ("16a", "16b")), (4, ("16c", "16d")))}
+    return dict(cfgs=cfgs, batches=batches, cases=cases, more=more)
+
+
+def phase_pp(torch, np, F, smi, setup, ranks) -> dict:
+    """Phase 16: pipeline parallelism — 16a and 16b (gpt_small, fused
+    LN+matmul with the pallas backward, flash, pipe=2, V=1 and 2) run by
+    phase 14a's two gloo ranks on this card, 16c (pipe=2 x model=2, flash)
+    and 16d (bert_base, data=2 x pipe=2, padded, the gathered MLM head) by
+    14b's four (``tests/torch_dp_worker.py``'s ``tp`` job; ``ranks``: tag
+    -> the ranks' results), each held against the dense model's same steps
+    in one process (phase 14's gates, ``TOL["tp/bf16/*"]``, with their
+    controls), its launches against ``T16_LAUNCHES``, its step ms and peak
+    GiB a rank printed; then the kernels line's pipeline rows
+    (``pp_kernel_rows``)."""
+    from distributed_tensorflow_tpu_torch.models import transformer as tfm
+
+    worker = load_dp_worker()
+    t1 = time.perf_counter()
+    cfgs, batches, cases = setup["cfgs"], setup["batches"], setup["cases"]
+    g, b = T16_GPT, T16_BERT
+    log(f"phase 16: pipeline parallelism, gloo ranks on this card (the permute emulated by "
+        f"an all-reduce; run by phase 14's launches): 16a/16b gpt_small B={g['global_batch']} "
+        f"S=1024 bf16, fused LN+matmul (pallas backward), flash, pipe=2, "
+        f"M={g['microbatches']}, V=1 / 2, {g['steps']} steps; 16c the same unfused at pipe=2 "
+        f"x model=2; 16d bert_base B={b['global_batch']} S=512, padded ({b['pad'][0]}-"
+        f"{b['pad'][1]} keys), gathered MLM head, at data=2 x pipe=2, {b['steps']} step")
+    ranks_s = sum(max(float(r[f"{t}/wall_s"]) for r in ranks[t]) for t in T16_CASES)
+    old = {k: os.environ.get(k) for k in T16_ENV}
+    os.environ.update(T16_ENV)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    refs = {}
+    try:
+        for m in ("gpt_fused", "gpt", "bert"):
+            case = dict(next(c for t, c in cases.items() if T16_CASES[t][0] == m))
+            half = [{k: v[:len(v) // 2] for k, v in bt.items()} for bt in batches[m]]
+            ref = worker.tp_steps(case, None, batches[m], [], DEVICE)
+            ctl = worker.tp_steps(case, None, half, [], DEVICE)
+            ref.pop("model")
+            ctl.pop("model")
+            refs[m] = (ref, ctl)
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    res = {}
+    for t, (m, mesh, V) in T16_CASES.items():
+        init = {k: v.float().cpu().numpy() for k, v in tfm.init_params(
+            cfgs[m], seed=0, device=DEVICE, trainable=True).items()}
+        ref, ctl = refs[m]
+        res[t] = tp_gates(np, t, ranks[t], ref, ctl, init, phase="16")
+        del init
+        steps = len(batches[m])
+        want = {n: c * steps for n, c in T16_LAUNCHES[t].items()}
+        got = [{n: int(r[f"{t}/launches/{n}"]) for n in want} for r in ranks[t]]
+        if any(per != want for per in got):
+            raise SmokeFailure(f"{t}: launches {got}, T16_LAUNCHES over {steps} steps {want}")
+        res[t].update(launches_per_step=T16_LAUNCHES[t],
+                      step_ms=[[float(x) for x in r[f"{t}/step_ms"]] for r in ranks[t]],
+                      peak_gib=[float(r.get(f"{t}/peak_gib", np.nan)) for r in ranks[t]],
+                      ref_step_ms=[float(x) for x in ref["step_ms"]],
+                      ref_peak_gib=float(ref.get("peak_gib", np.nan)))
+        log(f"  {t} ({m}, {mesh}, V={V}): rank step ms {res[t]['step_ms']}, peak GiB "
+            f"{[round(x, 3) for x in res[t]['peak_gib']]} (gloo, {len(ranks[t])} ranks on one "
+            f"card: not pipeline throughput; {smi}); one process step ms "
+            f"{[round(x, 2) for x in res[t]['ref_step_ms']]}, peak {res[t]['ref_peak_gib']:.3f} "
+            f"GiB; launches a step a rank {T16_LAUNCHES[t]} (T16_LAUNCHES)")
+    t2 = time.perf_counter()
+    res["kernels"], res["checks"] = pp_kernel_rows(torch, np, F)
+    res["launches"] = {f"{n}_pipe": int(ranks["16a"][0][f"16a/launches/{n}"])
+                       for n in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")}
+    res["launches"].update({f"{k}_pipe": int(ranks["16a"][0][f"16a/launches/{n}"])
+                            for k, n in (("ln_matmul_train", "ln_matmul"),
+                                         ("ln_matmul_bwd_dx", "ln_matmul_bwd_dx"),
+                                         ("ln_matmul_bwd_dw", "ln_matmul_bwd_dw"))})
+    res.update(ranks_s=ranks_s, gates_s=t2 - t1, kernels_s=time.perf_counter() - t2)
+    res["wall_s"] = ranks_s + time.perf_counter() - t1
+    log(f"  phase 16 wall {res['wall_s']:.1f} s: its cases in phase 14's ranks "
+        f"{res['ranks_s']:.1f} (the slowest rank's, summed over the cases), references and "
+        f"gates {res['gates_s']:.1f}, kernel rows {res['kernels_s']:.1f}")
     return res
 
 
@@ -5646,9 +6007,16 @@ def main() -> int:
         small = timed(walls, "12", phase_small, torch, np, smi)
         launches.update({f"{n}_d32": c for n, c in small["flash_d32_launches"].items()})
         t13 = timed(walls, "13", phase_transformer, torch, np, smi)
-        tp = timed(walls, "14", phase_tp, torch, np, smi)
+        # phase 14's launches of two and four ranks run phases 15's and
+        # 16's work too; that work is timed in their walls, not in 14's
+        sp_in, pp_in = sp_setup(np), pp_setup(np)
+        tp = timed(walls, "14", phase_tp, torch, np, smi, shared_launches(pp_in, sp_in))
         launches.update({f"{n}_d256": c for n, c in tp["14c"].items()})
-        sp = timed(walls, "15", phase_sp, torch, np, smi)
+        sp = timed(walls, "15", phase_sp, torch, np, smi, sp_in, tp["more"]["15a"])
+        pp = timed(walls, "16", phase_pp, torch, np, F, smi, pp_in, tp["more"])
+        for name, part in (("15", sp), ("16", pp)):
+            walls["14"] -= part["ranks_s"]
+            walls[name] += part["ranks_s"]
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -5681,6 +6049,24 @@ def main() -> int:
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches[name], "max_abs_err": kern[name]["err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+        })
+    # this slice's path: the pipelined gpt_small step's microbatch shapes,
+    # the launches 16a's rank 0 made over its steps
+    for name, src, line in (
+            ("flash_fwd_pipe", "flash_attention.cu", "flash_attention.py:75"),
+            ("flash_bwd_dkv_pipe", "flash_attention.cu", "flash_attention.py:205"),
+            ("flash_bwd_dq_pipe", "flash_attention.cu", "flash_attention.py:241"),
+            ("ln_matmul_train_pipe", "ln_matmul.cu", "fused_ln_matmul.py:53"),
+            ("ln_matmul_bwd_dx_pipe", "ln_matmul_bwd.cu", "fused_ln_matmul.py:87"),
+            ("ln_matmul_bwd_dw_pipe", "ln_matmul_bwd.cu", "fused_ln_matmul.py:156")):
+        row = pp["kernels"][name]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"distributed_tensorflow_tpu_torch/ops/csrc/{src}",
+            "replaces": f"distributed_tensorflow_tpu/ops/{line}",
+            "launches": pp["launches"][name], "max_abs_err": row["err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })
     log(f"card: {smi}")
@@ -5863,9 +6249,21 @@ def main() -> int:
             + (f"{x['library_ms']:.5f} ({x['sdpa_backend']})" if x["library_ms"] is not None
                else "null") for n, x in kern["f32_d256"]["timed"]["causal"].items())
         + f", max abs errors {kern['f32_d256']['err']}")
+    log(f"pipeline parallelism (phase 16, {walls['16']:.1f} s; {smi}): " + "; ".join(
+        f"{t} {T16_CASES[t][0]} {T16_CASES[t][1]} V={T16_CASES[t][2]} vs one process "
+        + str({k: v for k, v in pp[t].items() if k not in ('step_ms', 'peak_gib')})
+        + f", rank step ms {pp[t]['step_ms']}, peak GiB {pp[t]['peak_gib']}"
+        for t in T16_CASES)
+        + "; step ms are gloo-on-one-card numbers, not pipeline throughput; the *_pipe rows "
+        f"of the kernels line: flash at {T16_FLASH} causal bf16, LN+matmul at M={T16_LN[0]} "
+        f"d={T16_LN[1]} n={T16_LN[2]} bf16, their launches 16a rank 0's over "
+        f"{T16_GPT['steps']} steps; checked untimed at the other shapes (max abs errors): "
+        f"{pp['checks']}")
     log(f"cuda_ms traces kept {PAD_RECORDS[0]} of the {PAD_RECORDS[1]} spin-kernel records "
         f"that opened them; {BLANK_TRACES[0]} blank traces retaken")
     log("phase walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
+    log("the longest stretches between log lines (s, the line that opened each): " + "; ".join(
+        f"{gap:.1f} after {line.strip()[:90]!r}" for gap, line in sorted(LOG_GAPS)[::-1][:12]))
     log(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s (builds included)")
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -55,8 +55,8 @@ and replayed in the recompute (``_remat_block``): the recompute draws the
 same masks, and the caller's generator is left where a forward without
 remat leaves it. ``fused_qkv=True`` projects q/k/v with one ``qkv`` Dense
 ``[3·H·D, d]`` whose rows are HEAD-major (``[H, 3, D]``), as the JAX
-model's; refused with ``fused_ln_matmul``. MoE and pipelining come in
-later slices; a config that asks for one of them is refused.
+model's; refused with ``fused_ln_matmul``. MoE comes in a later slice
+(ROADMAP Queue A item 6c); a config that asks for it is refused.
 
 **Sequence parallelism** (``seq_impl`` = ``"ring"``, ``"ulysses"`` or
 ``"allgather"``, on a ``mesh`` whose ``seq`` axis exceeds 1): the
@@ -92,6 +92,32 @@ shards (gpt_small's ``pos_embed``, BERT's and its ``mlm_transform``
 kernel) is all-gathered at each use by ``gather_fsdp``, whose backward
 reduce-scatters its gradient. ``model=1`` and ``fsdp=1`` run the code
 path of one process.
+
+**Pipeline parallelism** (``PipelinedTransformer``, ``mesh`` with ``pipe``
+S above 1; JAX's pipelined family): the same ``Block`` runs inside
+``parallel/pipeline.py``'s schedule. The JAX package stacks every block
+leaf ``[S, (V,) layers, ...]`` sharded over ``pipe``
+(``to_pipeline_params``, ``pipeline_param_specs``); here that stacked tree
+is the interchange layout, from which each rank's model takes its stage's
+rows (``build_pipelined``): it holds the ends (embeddings, LayerNorms, the
+MLM head, ``mlm_bias``, replicated) and only its own V chunks of ``L /
+(S·V)`` Blocks, chunk c = v·S + d on rank d, each Block named by its
+GLOBAL layer (``layers.<i>``), so that its names are the dense model's
+(``jax_view``, the checkpoint, ``weights.py``). The embedding (and
+``embed_ln`` and the embedding dropout) runs before the island, the final
+LayerNorm, the MLM head on ``positions`` and the tied head after it; the
+attention mask rides along as the schedule's aux input; ``seq_impl`` is
+None inside the stages; the losses and eval statistics are the dense ones
+(``lm_loss_fn`` — never chunked, as JAX's pipelined path ignores
+``xent_chunk`` — ``mlm_loss_fn``, ``transformer_eval_fn``). Under PP×TP
+(``model`` above 1 too) each rank holds its ``[pipe slice × model
+slice]`` of every block leaf and the Blocks are the megatron ones above;
+the ends stay replicated (JAX's ``pipeline_param_specs``), and
+``fused_ln_matmul`` and ``fused_qkv`` are refused there, as JAX's manual
+TP Block refuses them. Dropout draws from a generator seeded by (the
+step's seed, microbatch, global layer, batch shard) — the embedding's by
+(seed, ``num_layers``), over the global batch's rows — so any (S, V) at
+one batch sharding draws the same masks, and the recompute replays them.
 """
 
 from __future__ import annotations
@@ -116,9 +142,10 @@ from ..parallel.collectives import (
     gather_fsdp,
     sum_over_axis,
 )
-from ..parallel.mesh import EXPERT, FSDP, MODEL, SEQ, Mesh
+from ..parallel.mesh import BATCH_AXES, EXPERT, FSDP, MODEL, PIPE, SEQ, Mesh, mesh_axis_size
 from ..parallel.ring_attention import IMPLS as SEQ_IMPLS
 from ..parallel.ring_attention import sequence_parallel_attention
+from ..parallel.pipeline import microbatch, pipeline_apply, unmicrobatch
 from ..parallel.sharding import RowGenerator, rand_rows
 from ..utils import flops as flops_lib
 from ..utils.device import resolve_device
@@ -151,7 +178,7 @@ class TransformerConfig:
     # sequence parallelism over the mesh's seq axis: None | "ring" |
     # "ulysses" | "allgather" (parallel/ring_attention.py)
     seq_impl: str | None = None
-    # not ported yet (ROADMAP Queue A item 6): above 0 is refused when the
+    # not ported yet (ROADMAP Queue A item 6c): above 0 is refused when the
     # model is built
     num_experts: int = 0
     # each Block recomputed in the backward (torch.utils.checkpoint): one
@@ -248,7 +275,7 @@ TRANSFORMER_RULES = sh.partition_rules(
 def transformer_rules(cfg: "TransformerConfig") -> sh.PartitionRules:
     """The exact table for ``cfg``'s parameter tree (split or fused QKV,
     the dense MLP), so that the strict match holds."""
-    check_supported(cfg)  # num_experts: the MoE rows wait for item 6
+    check_supported(cfg)  # num_experts: the MoE rows wait for item 6c
     return TRANSFORMER_RULES.select("fused_qkv" if cfg.fused_qkv else "split_qkv",
                                     "dense_mlp")
 
@@ -492,6 +519,23 @@ class Block(nn.Module):
         return x + self._mlp_tail(self._mlp_in(self.ln2(x).to(dt)), train, generator)
 
 
+def flax_path(name: str) -> tuple[str, bool]:
+    """The flax tree's path of the port's parameter ``name`` and whether
+    its (last two) dims are the flax layout's reversed: ``layers.i`` is
+    ``layer_i``, a LayerNorm's weight its ``scale``, a Dense weight its
+    ``kernel`` ``[in, out]``, the token table ``tok_embed/embedding``."""
+    if name == "tok_embed.weight":
+        return "tok_embed/embedding", False
+    parts = name.split(".")
+    if parts[0] == "layers":
+        parts = [f"layer_{parts[1]}", *parts[2:]]
+    if len(parts) > 1 and parts[-2] in LN_NAMES:
+        return "/".join(parts[:-1] + ["scale" if parts[-1] == "weight" else "bias"]), False
+    if parts[-1] == "weight":
+        return "/".join(parts[:-1] + ["kernel"]), True
+    return "/".join(parts), False
+
+
 def check_supported(cfg: TransformerConfig) -> None:
     """Refuse what the model cannot run (as the JAX model does) or the
     port does not have yet (naming the ROADMAP item)."""
@@ -506,7 +550,7 @@ def check_supported(cfg: TransformerConfig) -> None:
                          f"{cfg.seq_impl!r}")
     if cfg.num_experts != 0:
         raise ValueError(f"model.num_experts={cfg.num_experts!r} is not ported yet "
-                         f"(ROADMAP Queue A item 6, ops/moe.py)")
+                         f"(ROADMAP Queue A item 6c, ops/moe.py)")
 
 
 class Transformer(nn.Module):
@@ -533,10 +577,11 @@ class Transformer(nn.Module):
     docstring). ``mesh`` and ``specs`` (``transformer_specs``): this rank's
     shards of the parameters, the tensor- and fully-sharded-parallel
     forward (module docstring); the logits are then this rank's vocab
-    columns (``vocab_shard``)."""
+    columns (``vocab_shard``). ``layer_ids``: build only those global
+    layers, named ``layers.<i>`` (a pipeline stage's, ``PipelinedTransformer``)."""
 
     def __init__(self, cfg: TransformerConfig, device=None, trainable: bool = False,
-                 mesh: Mesh | None = None, specs: dict | None = None):
+                 mesh: Mesh | None = None, specs: dict | None = None, layer_ids=None):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
@@ -548,7 +593,9 @@ class Transformer(nn.Module):
         self.pos_embed = _param(cfg.max_len, cfg.d_model, device=device)
         if not cfg.pre_ln:
             self.embed_ln = LayerNorm(cfg.d_model, device)
-        self.layers = nn.ModuleList(Block(cfg, device, pdt) for _ in range(cfg.num_layers))
+        self.layers = (nn.ModuleList(Block(cfg, device, pdt) for _ in range(cfg.num_layers))
+                       if layer_ids is None else
+                       nn.ModuleDict({str(i): Block(cfg, device, pdt) for i in layer_ids}))
         if cfg.pre_ln:
             self.final_ln = LayerNorm(cfg.d_model, device)
         if not cfg.causal:
@@ -561,8 +608,14 @@ class Transformer(nn.Module):
         if any(self.specs.values()):
             self._shard(mesh)
         if cfg.seq_impl is not None and mesh is not None and mesh.shape[SEQ] > 1:
-            for block in self.layers:
+            for block in self.blocks:
                 block.attn.seq_mesh = mesh
+
+    @property
+    def blocks(self) -> list[Block]:
+        """The Blocks this model holds, in layer order."""
+        return list(self.layers.values() if isinstance(self.layers, nn.ModuleDict)
+                    else self.layers)
 
     def _shard(self, mesh: Mesh) -> None:
         """Each parameter with a sharding spec replaced by this rank's
@@ -586,7 +639,7 @@ class Transformer(nn.Module):
                     owner.fsdp_dims[leaf] = d
         if n > 1:
             self.tp_mesh = mesh
-            for block in self.layers:
+            for block in self.blocks:
                 block.mesh = block.attn.mesh = mesh
                 block.attn.heads = cfg.num_heads // n
                 block.attn.attn_out.row_parallel = block.mlp_out.row_parallel = mesh
@@ -609,22 +662,10 @@ class Transformer(nn.Module):
 
     def jax_view(self, name: str) -> tuple[str, tuple, bool]:
         """The flax tree's ``(path, shape, transposed)`` of parameter
-        ``name`` (``parallel/sharding.param_specs``): ``layers.i`` is
-        ``layer_i``, a LayerNorm's weight its ``scale``, a Dense weight
-        its ``kernel`` ``[in, out]``, the token table ``tok_embed/
-        embedding``."""
+        ``name`` (``parallel/sharding.param_specs``; ``flax_path``)."""
         shape = self.global_shapes[name]
-        if name == "tok_embed.weight":
-            return "tok_embed/embedding", shape, False
-        parts = name.split(".")
-        if parts[0] == "layers":
-            parts = [f"layer_{parts[1]}", *parts[2:]]
-        if len(parts) > 1 and parts[-2] in LN_NAMES:
-            return "/".join(parts[:-1] + ["scale" if parts[-1] == "weight" else "bias"]), \
-                shape, False
-        if parts[-1] == "weight":
-            return "/".join(parts[:-1] + ["kernel"]), shape[::-1], True
-        return "/".join(parts), shape, False
+        path, transposed = flax_path(name)
+        return path, shape[::-1] if transposed else shape, transposed
 
     def embed(self, input_ids) -> torch.Tensor:
         """The token embeddings (f32), over the vocab shards when sharded."""
@@ -664,13 +705,7 @@ class Transformer(nn.Module):
             if cfg.pre_ln:
                 x = self.final_ln(x).to(dt)
             return self.head(x), kv_cache
-        S = input_ids.shape[1]
-        if S > cfg.max_len:
-            raise ValueError(f"sequence length {S} exceeds max_len={cfg.max_len}")
-        x = (self.embed(input_ids) + _full(self, "pos_embed")[None, :S]).to(dt)
-        if not cfg.pre_ln:
-            x = self.embed_ln(x).to(dt)
-        x = dropout(x, cfg.dropout, train, generator)
+        x = dropout(self._stream(input_ids), cfg.dropout, train, generator)
         mask = attention_mask.to(torch.bool) if attention_mask is not None else None
         for block in self.layers:
             if cfg.remat:
@@ -682,15 +717,32 @@ class Transformer(nn.Module):
         if return_hidden:
             # the chunked loss applies the same tied projection per chunk
             return x
+        return self._logits(x, positions)
+
+    def _stream(self, input_ids) -> torch.Tensor:
+        """The uncached forward's residual stream before the Blocks: the
+        embeddings summed in f32, cast to ``cfg.dtype``, and ``embed_ln``
+        (post-LN)."""
+        cfg = self.cfg
+        S = input_ids.shape[1]
+        if S > cfg.max_len:
+            raise ValueError(f"sequence length {S} exceeds max_len={cfg.max_len}")
+        x = (self.embed(input_ids) + _full(self, "pos_embed")[None, :S]).to(
+            torch_dtype(cfg.dtype))
+        return x if cfg.pre_ln else self.embed_ln(x).to(x.dtype)
+
+    def _logits(self, x, positions) -> torch.Tensor:
+        """The uncached forward after the final LayerNorm: the ``positions``
+        gathered, the MLM head (non-causal models) and the tied head."""
         if positions is not None:
-            if cfg.causal:
+            if self.cfg.causal:
                 raise ValueError("positions gather is the MLM head path; causal LMs "
                                  "predict every position")
             idx = positions.long()[..., None].expand(-1, -1, x.shape[-1])
             x = torch.gather(x, 1, idx)  # [B, K, d]
-        if not cfg.causal:
+        if not self.cfg.causal:
             x = F.gelu(self.mlm_transform(x), approximate="tanh")
-            x = self.mlm_ln(x).to(dt)
+            x = self.mlm_ln(x).to(x.dtype)
         return self.head(x)
 
 
@@ -739,7 +791,7 @@ def head_projection(x: torch.Tensor, embedding: torch.Tensor,
 
 
 def init_params(cfg: TransformerConfig, seed: int = 0, device="cuda",
-                trainable: bool = False) -> dict[str, torch.Tensor]:
+                trainable: bool = False, keep=None) -> dict[str, torch.Tensor]:
     """Random weights as flax initialises them: normal(0.02) for Dense
     kernels and both embeddings, zeros for biases and ``mlm_bias``,
     ones/zeros for every LayerNorm (``LN_NAMES``) — drawn in f32 from a
@@ -747,7 +799,9 @@ def init_params(cfg: TransformerConfig, seed: int = 0, device="cuda",
     ``device="cpu"``) seeded with ``seed``, then cast to each parameter's
     dtype (Dense weights stay f32 with ``trainable``). Returns a state
     dict for ``Transformer(cfg)``. The numbers differ from
-    ``jax.random``'s for the same seed."""
+    ``jax.random``'s for the same seed. ``keep(name)`` False: that tensor
+    is drawn and dropped (the stream moves past it, so the kept ones are
+    the whole model's), and left out of the dict."""
     device = resolve_device(device)
     model = Transformer(cfg, device="meta", trainable=trainable)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -756,6 +810,10 @@ def init_params(cfg: TransformerConfig, seed: int = 0, device="cuda",
         parts = name.split(".")
         leaf = parts[-1]
         is_ln = len(parts) > 1 and parts[-2] in LN_NAMES
+        if keep is not None and not keep(name):
+            if not is_ln and leaf != "bias" and name != "mlm_bias":
+                torch.empty(p.shape, device=device).normal_(0.0, 0.02, generator=gen)
+            continue
         if is_ln and leaf == "weight":
             t = torch.ones(p.shape, device=device)
         elif leaf == "bias" or name == "mlm_bias":
@@ -783,19 +841,320 @@ def build(cfg: TransformerConfig, params, device, trainable: bool = False,
     if isinstance(params, nn.Module):
         params = params.state_dict()
     model = Transformer(cfg, device="meta", trainable=trainable, mesh=mesh, specs=specs)
+    specs = model.specs
+    return _load(model, {k: sh.shard_tensor(v, specs[k], mesh) if specs.get(k) else v
+                         for k, v in params.items()}, device, trainable)
+
+
+def _load(model: Transformer, state: dict, device, trainable: bool) -> Transformer:
+    """``model`` (built on ``meta``) holding ``state`` (this rank's tensors
+    by name) on ``device``, as ``build`` describes."""
     want = model.state_dict()
-    missing = set(want) - set(params)
-    extra = set(params) - set(want)
+    missing = set(want) - set(state)
+    extra = set(state) - set(want)
     if missing or extra:
         raise KeyError(f"state dict mismatch: missing {sorted(missing)}, "
                        f"unexpected {sorted(extra)}")
-    specs = model.specs
-    state = {k: (sh.shard_tensor(params[k], specs[k], mesh) if specs.get(k) else params[k])
-             .to(device=device, dtype=v.dtype, copy=trainable) for k, v in want.items()}
-    model.load_state_dict(state, assign=True)
+    model.load_state_dict({k: state[k].to(device=device, dtype=v.dtype, copy=trainable)
+                           for k, v in want.items()}, assign=True)
     for p in model.parameters():
         p.requires_grad_(trainable)
     return model
+
+
+# ---------------------------------------------------------------------------
+# The pipelined family (module docstring; JAX models/transformer.py:700-1024)
+# ---------------------------------------------------------------------------
+
+
+def check_pipelineable(cfg: TransformerConfig, n_stages: int, n_virtual: int = 1) -> None:
+    """Refuse what the pipelined family cannot stack (JAX's
+    ``_check_pipelineable``)."""
+    if cfg.num_experts > 0:
+        raise ValueError("pipelined Transformer requires homogeneous blocks; num_experts > 0 "
+                         "interleaves MoE layers (stack would be ragged; MoE itself is ROADMAP "
+                         "Queue A item 6c)")
+    if cfg.num_layers % (n_stages * n_virtual):
+        raise ValueError(f"num_layers={cfg.num_layers} not divisible by "
+                         f"n_stages*n_virtual={n_stages}*{n_virtual}")
+
+
+def stage_layers(cfg: TransformerConfig, n_stages: int, n_virtual: int, stage: int
+                 ) -> list[int]:
+    """The global layers of stage ``stage``, in order: its chunks v·S +
+    stage for v < V, each ``L / (S·V)`` consecutive layers."""
+    lpc = cfg.num_layers // (n_stages * n_virtual)
+    return [(v * n_stages + stage) * lpc + i for v in range(n_virtual) for i in range(lpc)]
+
+
+def _stacking(n_virtual: int) -> int:
+    """How many leading dims a stacked block leaf has: ``[S, layers]`` or
+    ``[S, V, layers]``."""
+    return 2 if n_virtual == 1 else 3
+
+
+def to_pipeline_params(params: dict, cfg: TransformerConfig, n_stages: int,
+                       n_virtual: int = 1) -> dict:
+    """A dense state dict -> ``{"ends": the non-block tensors, "blocks":
+    {a Block's parameter name: every layer's stacked [S, L/S, ...]}}``; with
+    ``n_virtual`` > 1 ``[S, V, L/(S·V), ...]``, row d's v-th chunk the
+    layers of global chunk v·S + d (JAX's ``to_pipeline_params``)."""
+    check_pipelineable(cfg, n_stages, n_virtual)
+    S, V, L = n_stages, n_virtual, cfg.num_layers
+    lpc = L // (S * V)
+    head = "layers.0."
+    blocks = {}
+    for rel in (k[len(head):] for k in params if k.startswith(head)):
+        x = torch.stack([params[f"layers.{i}.{rel}"] for i in range(L)])
+        blocks[rel] = (x.reshape(S, lpc, *x.shape[1:]) if V == 1 else
+                       x.reshape(V, S, lpc, *x.shape[1:]).transpose(0, 1).contiguous())
+    ends = {k: v for k, v in params.items() if not k.startswith("layers.")}
+    return {"ends": ends, "blocks": blocks}
+
+
+def from_pipeline_params(pparams: dict, cfg: TransformerConfig, n_virtual: int = 1) -> dict:
+    """Inverse of :func:`to_pipeline_params`: the dense state dict."""
+    out = dict(pparams["ends"])
+    k = _stacking(n_virtual)
+    for rel, x in pparams["blocks"].items():
+        flat = (x if n_virtual == 1 else x.transpose(0, 1)).reshape(-1, *x.shape[k:])
+        for i in range(cfg.num_layers):
+            out[f"layers.{i}.{rel}"] = flat[i]
+    return out
+
+
+def pipeline_param_specs(pparams: dict, *, tp: bool = False) -> dict:
+    """The specs of a pipelined tree in the port's layout: every block leaf
+    over ``pipe`` on its leading dim, the ends replicated (JAX's
+    ``pipeline_param_specs``). ``tp=True`` places ``model`` too, megatron's
+    layout shifted past the stacking dims: q, k, v and ``mlp_in`` weights
+    and biases column-parallel (their output dim), ``attn_out`` and
+    ``mlp_out`` weights row-parallel (their input dim); the row-parallel
+    biases and the LayerNorms replicated."""
+    return {"ends": sh.replicated_specs(pparams["ends"]),
+            "blocks": _stacked_specs({k: tuple(v.shape) for k, v in pparams["blocks"].items()},
+                                     tp)}
+
+
+def _stacked_specs(shapes: dict, tp: bool) -> dict:
+    """``pipeline_param_specs``' specs of stacked block leaves by shape."""
+    return sh.stacked_stage_specs(
+        shapes, col=r"(query|key|value|mlp_in)/(kernel|bias)$" if tp else None,
+        row=r"(attn_out|mlp_out)/kernel$" if tp else None, path=flax_path)
+
+
+def make_pipelined_init_fn(cfg: TransformerConfig, n_stages: int, n_virtual: int = 1):
+    """``init_fn(seed, device) -> the pipelined tree`` (``to_pipeline_params``
+    of ``init_params``' trainable weights: the dense model's of the same
+    seed)."""
+    check_pipelineable(cfg, n_stages, n_virtual)
+
+    def init_fn(seed: int = 0, device="cuda"):
+        return to_pipeline_params(init_params(cfg, seed=seed, device=device, trainable=True),
+                                  cfg, n_stages, n_virtual)
+
+    return init_fn
+
+
+def init_pipelined(cfg: TransformerConfig, seed: int = 0, device="cuda", *,
+                   trainable: bool = False, mesh: Mesh | None = None, n_virtual: int = 1,
+                   n_microbatches: int = 1) -> "PipelinedTransformer":
+    """This rank's stage (``build_pipelined``) with the weights of the dense
+    model of ``seed`` (``init_params``), of which only the ends and this
+    stage's layers are made on ``device``: a stage never holds the whole
+    model, as JAX's init straight into the shardings does not."""
+    S = 1 if mesh is None else mesh.shape[PIPE]
+    check_pipelineable(cfg, S, n_virtual)
+    own = set(stage_layers(cfg, S, n_virtual, 0 if mesh is None else axis_index(PIPE, mesh)))
+    params = init_params(cfg, seed=seed, device=device, trainable=trainable,
+                         keep=lambda n: not n.startswith("layers.")
+                         or int(n.split(".")[1]) in own)
+    return build_pipelined(cfg, params, device, trainable=trainable, mesh=mesh,
+                           n_virtual=n_virtual, n_microbatches=n_microbatches)
+
+
+_M64 = (1 << 64) - 1
+
+
+def _draw_seed(*parts: int) -> int:
+    """A generator seed from a tuple of integers (splitmix64 folded over
+    them): the pipelined dropout's (step seed, microbatch, global layer,
+    batch shard) keys."""
+    h = 0
+    for x in parts:
+        h = (h ^ (int(x) & _M64)) + 0x9E3779B97F4A7C15 & _M64
+        h = (h ^ (h >> 30)) * 0xBF58476D1CE4E5B9 & _M64
+        h = (h ^ (h >> 27)) * 0x94D049BB133111EB & _M64
+        h ^= h >> 31
+    return h & 0x7FFF_FFFF_FFFF_FFFF
+
+
+def _seed_of(generator) -> int:
+    """The seed a step set on its generator (``train/step.py``), or on a
+    ``RowGenerator``'s underlying one."""
+    gen = generator.generator if isinstance(generator, RowGenerator) else generator
+    return gen.initial_seed()
+
+
+class PipelinedTransformer(Transformer):
+    """This rank's stage of the pipelined Transformer (module docstring):
+    the ends and the Blocks of ``stage_layers``, run through
+    ``parallel/pipeline.py``'s schedule over ``mesh``'s ``pipe`` axis (S
+    stages; 1 without a mesh) in ``n_microbatches`` microbatches of this
+    rank's rows, ``n_virtual`` chunks a stage. ``block_specs``: a Block
+    parameter's name to its tensor-parallel spec (``pipeline_param_specs``
+    past the stacking dims), under PP×TP. ``forward(input_ids,
+    attention_mask, *, train, generator, positions)`` -> logits, the
+    uncached forward of ``Transformer``; every rank returns the same.
+
+    For the train step and the checkpoint: ``specs`` gives each of this
+    stage's Block parameters a ``sharding.StageSpec`` (its own over
+    ``pipe``, not replicated there: what ``sharding.place`` and the
+    optimizer's ``Layout.stage`` read); ``dense_state_names`` /
+    ``dense_param_names`` are the dense model's, in order;
+    ``stage_of(layer)`` is the stage that holds a layer."""
+
+    def __init__(self, cfg: TransformerConfig, device=None, trainable: bool = False,
+                 mesh: Mesh | None = None, block_specs: dict | None = None, *,
+                 n_virtual: int = 1, n_microbatches: int = 1):
+        S = 1 if mesh is None else mesh.shape[PIPE]
+        check_pipelineable(cfg, S, n_virtual)
+        if mesh is not None and mesh.shape[MODEL] > 1:
+            if S == 1:
+                raise ValueError("model axis without a pipe axis: use the dense Transformer "
+                                 "with transformer_specs (tensor parallelism) instead of the "
+                                 "pipelined path")
+            for flag in ("fused_ln_matmul", "fused_qkv"):
+                if getattr(cfg, flag):
+                    raise ValueError(f"{flag} inside a PP×TP stage: the JAX package's "
+                                     f"manually tensor-parallel Block refuses it "
+                                     f"(tp_shards > 1), so the pipelined path does too")
+        cfg = dataclasses.replace(cfg, seq_impl=None)
+        self_stage = 0 if mesh is None else axis_index(PIPE, mesh)
+        ids = stage_layers(cfg, S, n_virtual, self_stage)
+        specs = {f"layers.{i}.{rel}": tuple(spec) for i in ids
+                 for rel, spec in (block_specs or {}).items() if any(spec)}
+        super().__init__(cfg, device, trainable, mesh, specs, layer_ids=ids)
+        self.tp_mesh = None  # the ends are replicated: every rank holds the whole vocab
+        self.stages, self.stage, self.n_virtual = S, self_stage, n_virtual
+        self.n_microbatches = n_microbatches
+        self.layers_per_chunk = cfg.num_layers // (S * n_virtual)
+        lpc, blocks = self.layers_per_chunk, self.blocks
+        # the chunks the schedule runs, kept out of the module tree (their
+        # Blocks are registered under ``layers``)
+        self.__dict__["chunks"] = nn.ModuleList(
+            nn.ModuleList(blocks[v * lpc:(v + 1) * lpc]) for v in range(n_virtual))
+        self.specs.update({n: sh.StageSpec(self.specs.get(n, ()))
+                           for n, _ in self.named_parameters() if n.startswith("layers.")})
+        dense = Transformer(cfg, device="meta", trainable=trainable)
+        self.dense_state_names = list(dense.state_dict())
+        self.dense_param_names = [n for n, _ in dense.named_parameters()]
+
+    def stage_of(self, layer: int) -> int:
+        return (layer // self.layers_per_chunk) % self.stages
+
+    def forward(self, input_ids, attention_mask=None, *, train: bool = False,
+                generator=None, positions=None):
+        cfg, mesh, M = self.cfg, self.mesh, self.n_microbatches
+        B = input_ids.shape[0]
+        if B % M:
+            shards = 1 if mesh is None else mesh_axis_size(mesh, BATCH_AXES)
+            raise ValueError(f"this rank's {B} rows of a global batch of {B * shards} (split "
+                             f"over data×fsdp={shards}) do not make {M} microbatches; use "
+                             f"fewer microbatches or a larger global batch")
+        use_dropout = train and cfg.dropout > 0.0
+        if use_dropout and generator is None:
+            raise ValueError("train=True with dropout > 0 needs a torch.Generator")
+        x = self._stream(input_ids)
+        seed = None
+        if use_dropout:
+            seed = _seed_of(generator)
+            x = dropout(x, cfg.dropout, True, self._rows(torch.Generator(
+                device=x.device).manual_seed(_draw_seed(seed, cfg.num_layers))))
+        mask = attention_mask.to(torch.bool) if attention_mask is not None else None
+        y = pipeline_apply(self._stage_fn(seed, mask is not None), self.chunks,
+                           microbatch(x, M), mesh,
+                           aux_mb=None if mask is None else microbatch(mask, M),
+                           n_virtual=self.n_virtual, generator=seed)
+        y = unmicrobatch(y)
+        if cfg.pre_ln:
+            y = self.final_ln(y).to(y.dtype)
+        return self._logits(y, positions)
+
+    def _batch_shard(self) -> tuple[int, int]:
+        mesh = self.mesh
+        if mesh is None:
+            return 0, 1
+        return axis_index(BATCH_AXES, mesh), mesh_axis_size(mesh, BATCH_AXES)
+
+    def _rows(self, gen: torch.Generator):
+        """``gen`` drawing this rank's rows of the global batch's noise."""
+        index, shards = self._batch_shard()
+        return gen if shards == 1 else RowGenerator(gen, shards, index)
+
+    def _stage_fn(self, seed, masked: bool):
+        """The schedule's stage fn: a chunk's Blocks in order; with
+        ``seed``, layer c·lpc + i of microbatch m drawing from a generator
+        seeded by (seed, m, that global layer, the batch shard)."""
+        lpc, shard = self.layers_per_chunk, self._batch_shard()[0]
+        train = seed is not None
+
+        def run(blocks, x, *rest):
+            mask = rest[0] if masked else None
+            for i, block in enumerate(blocks):
+                gen = None
+                if train:
+                    m, c = rest[-2:]
+                    gen = torch.Generator(device=x.device).manual_seed(
+                        _draw_seed(seed, m, c * lpc + i, shard))
+                x = block.forward_uncached(x, mask, train=train, generator=gen)
+            return x
+
+        return run
+
+
+def build_pipelined(cfg: TransformerConfig, params: dict, device, *, trainable: bool = False,
+                    mesh: Mesh | None = None, n_virtual: int = 1,
+                    n_microbatches: int = 1) -> PipelinedTransformer:
+    """This rank's ``PipelinedTransformer`` on ``device`` from ``params``:
+    a dense state dict that holds the ends and at least this stage's
+    layers (``init_pipelined``'s, or the whole model's), or the whole
+    pipelined tree (``to_pipeline_params``). Each of this stage's Block
+    tensors is its shard over ``model`` where the mesh's exceeds 1
+    (PP×TP, ``pipeline_param_specs``), the ends whole. ``trainable`` as
+    ``build``."""
+    S = 1 if mesh is None else mesh.shape[PIPE]
+    tp = mesh is not None and mesh.shape[MODEL] > 1
+    ids = stage_layers(cfg, S, n_virtual, 0 if mesh is None else axis_index(PIPE, mesh))
+    stacked = "blocks" in params
+    if stacked:
+        specs = pipeline_param_specs(params, tp=tp)
+        k = _stacking(n_virtual)
+        block_specs = {rel: spec[k:] for rel, spec in specs["blocks"].items()}
+    else:  # one layer's specs, stacked [S, 1, ...] and the stacking dims dropped
+        head = f"layers.{ids[0]}."
+        block_specs = {rel: spec[2:] for rel, spec in _stacked_specs(
+            {k[len(head):]: (S, 1, *v.shape) for k, v in params.items() if k.startswith(head)},
+            tp).items()}
+    model = PipelinedTransformer(cfg, "meta", trainable, mesh, block_specs=block_specs,
+                                 n_virtual=n_virtual, n_microbatches=n_microbatches)
+    if stacked:
+        state = dict(params["ends"])
+        lpc = model.layers_per_chunk
+        for rel, x in params["blocks"].items():
+            rows = (sh.shard_tensor(x, specs["blocks"][rel], mesh) if mesh is not None
+                    else x)[0]
+            if n_virtual == 1:
+                rows = rows[None]
+            for n, i in enumerate(ids):
+                state[f"layers.{i}.{rel}"] = rows[n // lpc, n % lpc]
+    else:
+        own = set(ids)
+        state = {k: v for k, v in params.items() if not k.startswith("layers.")}
+        state.update({k: sh.shard_tensor(v, model.specs[k], mesh) if any(model.specs[k]) else v
+                      for k, v in params.items()
+                      if k.startswith("layers.") and int(k.split(".")[1]) in own})
+    return _load(model, state, device, trainable)
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,10 @@
-"""Data, fully-sharded, tensor and sequence parallelism over
+"""Data, fully-sharded, tensor, sequence and pipeline parallelism over
 ``torch.distributed`` — the mesh, cluster, collectives, placement,
-spec-engine and ring-attention subset of ``distributed_tensorflow_tpu/
-parallel`` (the pipeline and the stacked stage specs: ROADMAP Queue A
-item 6)."""
+spec-engine, ring-attention and pipeline subset of
+``distributed_tensorflow_tpu/parallel`` (the pod topology and the
+multislice mesh: ROADMAP Queue A item 6d)."""
 
-from . import cluster, collectives, sharding  # noqa: F401
+from . import cluster, collectives, pipeline, sharding  # noqa: F401
 from .mesh import (  # noqa: F401
     AXIS_NAMES,
     BATCH_AXES,

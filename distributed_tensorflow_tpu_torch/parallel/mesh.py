@@ -19,8 +19,10 @@ megatron tensor parallelism: ``parallel/sharding.py``; the runner
 refuses a workload that places nothing there), and ``seq``, over which
 attention splits the sequence (``parallel/ring_attention.py``; no
 parameter is sharded over it, and the runner refuses it for a model
-without ``seq_impl``); ``pipe`` and ``expert`` above 1, and the DCN
-factors of a multislice mesh, raise with their ROADMAP item. A
+without ``seq_impl``), and ``pipe``, over which the pipeline's stages
+split a transformer's layers (``parallel/pipeline.py``); ``expert``
+above 1 (item 6c) and the DCN factors of a multislice mesh (item 6d)
+raise with their ROADMAP item. A
 collective over several axes of the mesh together
 (``BATCH_AXES`` on a data x fsdp x model mesh) runs over a process group
 of those axes' ranks, made when the mesh is built.
@@ -49,8 +51,7 @@ BATCH_AXES: tuple[str, ...] = (DATA, FSDP)
 
 #: what brings each of the axes not ported yet past 1 (ROADMAP Queue A)
 _NOT_PORTED = {
-    PIPE: "pipeline parallelism, item 6 (parallel/pipeline.py)",
-    EXPERT: "expert parallelism, item 6 (ops/moe.py)",
+    EXPERT: "expert parallelism, item 6c (ops/moe.py)",
 }
 
 
@@ -169,12 +170,12 @@ def build_mesh(spec: MeshSpec | Mapping[str, int] | None = None, device="cuda") 
     if spec.num_slices > 1:
         raise NotImplementedError(
             f"dcn_data={spec.dcn_data} dcn_pipe={spec.dcn_pipe}: multislice meshes are not "
-            f"ported yet (ROADMAP Queue A item 6)")
+            f"ported yet (ROADMAP Queue A item 6d)")
     big = {a: v for a, v in spec.sizes().items() if v > 1 and a in _NOT_PORTED}
     if big:
         raise NotImplementedError(
-            f"mesh {big}: only the data, fsdp, seq and model axes may exceed 1 in the port so "
-            f"far; " + "; ".join(f"{a}: {_NOT_PORTED[a]}" for a in big) + " (ROADMAP Queue A)")
+            f"mesh {big}: only the pipe, data, fsdp, seq and model axes may exceed 1 in the "
+            f"port so far; " + "; ".join(f"{a}: {_NOT_PORTED[a]}" for a in big) + " (ROADMAP Queue A)")
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())

@@ -18,17 +18,22 @@ one entry a leading dim: ``()`` is replicated.
 
 **Placement** (``check_spec``, ``shard_tensor``, ``place``,
 ``gather_tensor``): a spec gives each dim of a tensor at most one of the
-axes ``fsdp`` and ``model`` (or None), and no axis twice. Along a dim
+axes ``pipe``, ``fsdp`` and ``model`` (or None), and no axis twice. Along a dim
 sharded over an axis of n ranks, rank r holds rows ``[r·rows,
 (r+1)·rows)`` of the dim padded with zeros to ``n·rows`` (``rows =
 shard_vocab(size, n)``, ``ops/embedding.py``): the contiguous slice GSPMD
 gives, the vocabulary's range shards padded as ``shard_vocab`` pads. ``()``
 is whole on every rank. ``place`` sets each tensor to the value of the
 rank that holds the same shard at index 0 of every other axis;
-``gather_tensor`` reassembles a whole tensor from the shards. A spec
-naming ``pipe`` or ``expert`` (the stacked stage specs, MoE) is ROADMAP
-Queue A item 6; ``data`` and ``seq`` never shard a parameter (the JAX
-package puts none on them: ``seq`` splits attention's sequence).
+``gather_tensor`` reassembles a whole tensor from the shards. ``pipe``
+shards the leading (stage) dim of a pipeline-stacked leaf alone
+(``stacked_stage_specs``: ``[S, (V,) layers, ...]``, ``model`` beside it
+under PP×TP); a pipelined model's own parameters are its stage's rows of
+those leaves, whose specs are ``StageSpec``s: ``place`` broadcasts them
+over every other axis but ``pipe``, and the optimizer's ``Layout`` counts
+them once a stage. A spec naming ``expert`` (MoE) is ROADMAP Queue
+A item 6c; ``data`` and ``seq`` never shard a parameter (the JAX package
+puts none on them: ``seq`` splits attention's sequence).
 
 **The spec engine** (JAX ``init_train_state``'s order): the table's specs
 (``specs_from_rules``), then, with ``fsdp``, ``auto_fsdp_specs`` merged in
@@ -53,7 +58,7 @@ import numpy as np
 import torch
 
 from .collectives import all_gather, axis_index, axis_size, broadcast
-from .mesh import AXIS_NAMES, BATCH_AXES, DATA, FSDP, MODEL, SEQ, Mesh
+from .mesh import AXIS_NAMES, BATCH_AXES, DATA, FSDP, MODEL, PIPE, SEQ, Mesh
 
 #: a spec: one entry a leading dim, each a mesh axis name, a tuple of
 #: names or None
@@ -136,16 +141,19 @@ def spec_axes(spec: Spec) -> tuple[str, ...]:
 
 def check_spec(spec: Spec, name: str = "") -> Spec:
     """``spec`` if the port can place it (module docstring), else raise:
-    ``pipe`` and ``expert`` naming ROADMAP item 6, ``data`` and ``seq``
-    because no parameter is sharded over them."""
+    ``expert`` naming ROADMAP item 6c, ``pipe`` on any dim but the leading
+    one, ``data`` and ``seq`` because no parameter is sharded over them."""
     spec = tuple(spec)
     what = name or "a tensor"
     axes = spec_axes(spec)
-    later = [a for a in axes if a not in PARAM_AXES and a not in (DATA, SEQ)]
+    later = [a for a in axes if a not in PARAM_AXES and a not in (DATA, SEQ, PIPE)]
     if later:
         raise NotImplementedError(
-            f"{what}: spec {spec} shards over {later}: the pipeline's stacked stage specs "
-            f"and MoE are ROADMAP Queue A item 6")
+            f"{what}: spec {spec} shards over {later}: MoE's expert axis is ROADMAP Queue A "
+            f"item 6c")
+    if PIPE in axes and spec[0] != PIPE:
+        raise ValueError(f"{what}: spec {spec}: {PIPE!r} shards the leading (stage) dim of "
+                         f"a pipeline-stacked leaf alone (stacked_stage_specs)")
     if DATA in axes:
         raise ValueError(f"{what}: spec {spec}: no parameter is sharded over the batch "
                          f"axis {DATA!r}")
@@ -155,8 +163,42 @@ def check_spec(spec: Spec, name: str = "") -> Spec:
                          f"holds every parameter, as in the JAX package)")
     if len(set(axes)) != len(axes) or any(isinstance(e, tuple) and len(e) > 1 for e in spec):
         raise NotImplementedError(f"{what}: spec {spec}: the port shards a dim over at most "
-                                  f"one of {PARAM_AXES}, and each axis over one dim")
+                                  f"one of {(PIPE, *PARAM_AXES)}, and each axis over one dim")
     return spec
+
+
+def stacked_stage_specs(shapes: Mapping[str, tuple], *, col: str | None = None,
+                        row: str | None = None, path=None) -> dict[str, Spec]:
+    """The specs of a pipeline-stacked tree (JAX's ``stacked_stage_specs``):
+    every leaf's leading (stage) dim over ``pipe``, the stacking dims
+    (``[S, (V,) layers]``) and the rest whole. ``col`` / ``row``: path
+    regexes of megatron's column- and row-parallel leaves, whose last /
+    second-to-last dim of the JAX layout is sharded over ``model``.
+    ``shapes``: name -> stacked shape; ``path(name) -> (flax path,
+    transposed)`` names a leaf's JAX path and whether its last two dims
+    are the flax layout's reversed (a ``Dense`` weight ``[out, in]``),
+    whose spec entries are then swapped into the port's layout."""
+    col_rx = re.compile(col) if col else None
+    row_rx = re.compile(row) if row else None
+    out = {}
+    for name, shape in shapes.items():
+        jpath, transposed = path(name) if path is not None else (param_path(name), False)
+        spec = [PIPE] + [None] * (len(shape) - 1)
+        if col_rx is not None and col_rx.search(jpath):
+            spec[-1] = MODEL
+        elif row_rx is not None and row_rx.search(jpath):
+            spec[-2] = MODEL
+        if transposed:
+            spec[-2], spec[-1] = spec[-1], spec[-2]
+        out[name] = check_spec(tuple(spec), name)
+    return out
+
+
+class StageSpec(tuple):
+    """The spec of a pipeline stage's own tensor: its placement over the
+    other axes (a spec, ``model`` under PP×TP), the tensor this ``pipe``
+    rank's alone — its row of a stacked ``[S, ...]`` leaf — and not a copy
+    or a shard of one that the other ``pipe`` ranks hold."""
 
 
 def _dims(spec: Spec) -> list[tuple[int, str]]:
@@ -233,13 +275,15 @@ def place(module: torch.nn.Module, mesh: Mesh,
     """Every parameter and buffer of ``module`` (which holds this rank's
     shard of each sharded tensor) set to the value of the rank that holds
     the same shard at index 0 of every other axis (module docstring); not
-    in ``specs``: replicated. Returns ``module``."""
+    in ``specs``: replicated. A pipeline stage's own tensor (a
+    ``StageSpec``) is not broadcast over ``pipe``. Returns ``module``."""
     specs = specs or {}
     for name, t in [*module.named_parameters(), *module.named_buffers()]:
-        spec = check_spec(specs.get(name, REPLICATED), name)
+        spec = specs.get(name, REPLICATED)
+        held = {*spec_axes(check_spec(spec, name)),
+                *((PIPE,) if isinstance(spec, StageSpec) else ())}
         # the ranks that hold this shard: every axis it is not sharded over
-        t.copy_(broadcast(t, tuple(a for a in AXIS_NAMES if a not in spec_axes(spec)), mesh,
-                          src=0))
+        t.copy_(broadcast(t, tuple(a for a in AXIS_NAMES if a not in held), mesh, src=0))
     return module
 
 

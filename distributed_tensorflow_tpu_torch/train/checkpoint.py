@@ -36,7 +36,12 @@ barrier follows each synchronous commit. A state sharded over ``model``
 or ``fsdp`` is gathered whole to every rank first (``step.whole_leaves``,
 collective), so the chief writes the layout one process writes and a
 step dir restores at any mesh, as the JAX package's orbax checkpoints
-do; on restore each rank keeps its shard of every leaf. The chief walks the steps and
+do; on restore each rank keeps its shard of every leaf. A pipelined
+state (``pipe`` above 1) is saved in the dense model's layout too, every
+stage's layers (and their ``model`` shards) gathered to the chief
+(``step.whole_leaves``): it restores in one process and at any other
+(S, V). The JAX package's orbax writes the stacked ``[S, (V,) layers,
+...]`` layout there instead (ROADMAP Queue C). The chief walks the steps and
 picks the one to restore; the others take its choice. The SIGTERM flag is
 agreed by an all-reduce MAX over the process group every
 ``preemption_check_every`` steps (gloo on the CPU, NCCL on the card).
@@ -652,13 +657,15 @@ class Checkpointer:
             arrays = list(pool.map(load, range(len(names))))
         out = {}
         for i, (name, arr) in enumerate(zip(names, arrays)):
-            if name in targets:
-                shape, dtype = targets[name]
+            # a pipeline stage's template of another stage's leaf (leaf_names)
+            k = step_lib.leaf_template(state, name)
+            if k in targets:
+                shape, dtype = targets[k]
             elif name.endswith("/step"):  # an optimizer leaf the state has no tensor of yet
                 shape, dtype = (), torch.float32
             else:
-                p = params[int(name.split("/")[1])]
-                shape, dtype = step_lib.opt_leaf_shape(state, name), p.dtype
+                p = params[int(k.split("/")[1])]
+                shape, dtype = step_lib.opt_leaf_shape(state, k), p.dtype
             if dtype == torch.bfloat16 and arr.dtype == np.uint16:
                 t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
             else:

@@ -26,7 +26,11 @@ CPU tensors), and a float's bits survive it. The partials leave the card
 once a batch; that read is the evaluator's only synchronisation.
 
 Each process's stream gives it its rows of the global batch, as in
-training. The JAX evaluator has a fallback, outside its contract, for a
+training. The gather runs over the batch axes (``data`` x ``fsdp``)
+alone: the ``model``, ``seq`` and ``pipe`` ranks of a data shard read the
+same rows and end with the same statistics (a pipeline's output is
+broadcast to every stage), so each data shard is counted once and every
+rank holds the totals. The JAX evaluator has a fallback, outside its contract, for a
 batch whose rows do not divide by the mesh's batch shards: one process
 holds the whole batch for several devices and evaluates it whole. Here a
 process is a shard and holds only its own rows (``data.pipeline.

@@ -159,16 +159,21 @@ def make_schedule(cfg: OptimizerConfig) -> Schedule:
 class Layout:
     """How a tensor is split over a mesh: ``dims[i]`` is ``(global size,
     axis)`` of its dim i (axis None: whole). A shard's rows past the global
-    size are padding (``sharding.shard_tensor``)."""
+    size are padding (``sharding.shard_tensor``). ``stage``: the axis
+    (``pipe``) over which the tensor is one rank's own — a pipeline stage's
+    parameter, its row of the stacked ``[S, ...]`` leaf, whose pipe dim the
+    rank's tensor no longer has: the other ranks of that axis hold other
+    tensors, not shards of this one."""
 
     dims: tuple
     mesh: object
+    stage: str | None = None
 
     @classmethod
-    def of(cls, spec, shape, mesh) -> "Layout":
+    def of(cls, spec, shape, mesh, stage: str | None = None) -> "Layout":
         spec = tuple(spec) + (None,) * (len(shape) - len(spec))
         return cls(tuple((n, e if isinstance(e, str) and mesh.shape[e] > 1 else None)
-                         for n, e in zip(shape, spec)), mesh)
+                         for n, e in zip(shape, spec)), mesh, stage)
 
     @property
     def spec(self) -> tuple:
@@ -192,15 +197,16 @@ class Layout:
 
     @property
     def axes(self) -> tuple[str, ...]:
-        """The axes that shard it, in mesh order."""
-        return tuple(a for a in AXIS_NAMES if a in {ax for _, ax in self.dims})
+        """The axes that shard it (its ``stage`` axis among them), in mesh
+        order."""
+        return tuple(a for a in AXIS_NAMES if a in {self.stage, *(ax for _, ax in self.dims)})
 
     @property
     def numel(self) -> int:
         return math.prod(n for n, _ in self.dims)
 
     def drop(self, dim: int) -> "Layout":
-        return Layout(self.dims[:dim] + self.dims[dim + 1:], self.mesh)
+        return Layout(self.dims[:dim] + self.dims[dim + 1:], self.mesh, self.stage)
 
     def mask(self, t: torch.Tensor) -> torch.Tensor | None:
         """True on the shard's real (unpadded) entries; None when none is
@@ -247,7 +253,9 @@ def global_norm(tensors: Iterable[torch.Tensor], layouts: Sequence["Layout | Non
     Where ``layouts[i]`` shards ``tensors[i]`` (``Layout.axes``), it is this
     rank's shard: the squares of the shards over each set of axes are
     summed over those axes and the others' counted once, so every rank gets
-    the norm of the whole tree."""
+    the norm of the whole tree. A pipeline stage's own tensors (``stage``)
+    are summed over ``pipe`` so (and over ``model`` too where they are
+    tensor-parallel shards), the replicated ends counted once."""
     tensors = list(tensors)
     axes = [() if lay is None else lay.axes for lay in layouts] or [()] * len(tensors)
     if not any(axes) or mesh is None:
@@ -268,22 +276,26 @@ def _layouts(params: Sequence[torch.nn.Parameter], specs, model, mesh
     (``specs``: ``model``'s parameter names to their placement,
     ``parallel/sharding.py``; the whole shapes are the model's
     ``global_shapes`` where it has them, else the shard's times the axis
-    sizes), else None."""
-    from ..parallel.sharding import spec_axes
+    sizes) or a pipeline stage's own (a ``StageSpec``, over ``pipe``
+    above 1), else None."""
+    from ..parallel.mesh import PIPE
+    from ..parallel.sharding import StageSpec, spec_axes
 
     names = {id(p): n for n, p in model.named_parameters()}
     shapes = getattr(model, "global_shapes", {})
     out = []
     for p in params:
         name = names.get(id(p))
-        spec = tuple(specs.get(name, ()))
-        if not any(mesh.shape[a] > 1 for a in spec_axes(spec)):
+        spec = specs.get(name, ())
+        stage = PIPE if isinstance(spec, StageSpec) and mesh.shape[PIPE] > 1 else None
+        spec = tuple(spec)
+        if not stage and not any(mesh.shape[a] > 1 for a in spec_axes(spec)):
             out.append(None)
             continue
         shape = shapes.get(name) or tuple(
             n * (mesh.shape[e] if isinstance(e, str) else 1)
             for n, e in zip(p.shape, spec + (None,) * (p.dim() - len(spec))))
-        out.append(Layout.of(spec, shape, mesh))
+        out.append(Layout.of(spec, shape, mesh, stage))
     return out
 
 

@@ -59,6 +59,19 @@ model and are updated in place by its optimizer.
   (collective: every rank calls it), what a checkpoint writes, so a step
   dir restores at any mesh; ``load_state_leaves`` takes whole leaves and
   keeps this rank's shard of each.
+- **Pipeline stages** (a ``PipelinedTransformer`` over ``pipe`` above 1):
+  each rank holds the replicated ends and its stage's own Blocks, whose
+  gradients are its own — the step reduces over the batch axes alone, and
+  the global norm sums the stages' squares over ``pipe``
+  (``Layout.stage``). A step decides ``skip_nonfinite`` on every rank
+  alike (the flag all-reduced over the axes that shard parameters). The
+  checkpoint leaves of such a state (its optimizer placed with a
+  ``Layout.stage``) are the DENSE model's
+  (``leaf_names``: every layer's, each optimizer leaf under the dense
+  model's parameter index): ``whole_leaves`` broadcasts each layer's
+  tensors from the stage that holds them (gathered over ``model`` there),
+  and ``load_state_leaves`` keeps this stage's, so a step dir saved at one
+  (S, V) restores in one process and at any other.
 """
 
 from __future__ import annotations
@@ -68,9 +81,9 @@ from typing import Any, Callable
 
 import torch
 
-from ..parallel.collectives import all_reduce, all_reduce_mean
+from ..parallel.collectives import all_reduce, all_reduce_mean, all_reduce_min, broadcast
 from ..parallel.collectives import axis_index
-from ..parallel.mesh import BATCH_AXES, DATA, FSDP, MODEL, mesh_axis_size
+from ..parallel.mesh import BATCH_AXES, DATA, FSDP, MODEL, PIPE, mesh_axis_size
 from ..parallel.sharding import RowGenerator
 from .optimizers import Layout, Optimizer, state_layout
 
@@ -141,14 +154,17 @@ def make_train_step(loss_fn: LossFn, options: StepOptions = StepOptions(), mesh=
     shards = 1 if mesh is None else mesh_axis_size(mesh, BATCH_AXES)
     data_parallel = shards > 1
     shard = axis_index(BATCH_AXES, mesh) if data_parallel else 0
-    model_sharded = mesh is not None and (mesh.shape[MODEL] > 1 or mesh.shape[FSDP] > 1)
+    #: the axes over which parameters (or a pipeline's stages) differ
+    param_axes = () if mesh is None else tuple(a for a in (PIPE, FSDP, MODEL)
+                                               if mesh.shape[a] > 1)
+    model_sharded = bool(param_axes)
 
     def train_step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         params = state.optimizer.params
         if model_sharded and state.optimizer.mesh is not mesh:
-            raise ValueError("the mesh's model or fsdp axis exceeds 1 but the optimizer was "
-                             "not placed on it (Optimizer.place): its gradient reduction and "
-                             "global norms would miss the other ranks' shards")
+            raise ValueError("the mesh's pipe, model or fsdp axis exceeds 1 but the optimizer "
+                             "was not placed on it (Optimizer.place): its gradient reduction "
+                             "and global norms would miss the other ranks' shards")
         state.generator.manual_seed(step_seed(state.seed, state.step))
         gen = (RowGenerator(state.generator, shards, shard) if data_parallel
                else state.generator)
@@ -196,14 +212,15 @@ def make_train_step(loss_fn: LossFn, options: StepOptions = StepOptions(), mesh=
             scale = torch.clamp(options.clip_grad_norm / (gnorm + 1e-9), max=1.0)
             grads = [g * scale.to(g.dtype) for g in grads]
         if options.check_grads_finite:
-            metrics["grads_finite"] = torch.stack(
-                [torch.isfinite(g).all() for g in grads]).all().float()
+            metrics["grads_finite"] = _agreed(torch.stack(
+                [torch.isfinite(g).all() for g in grads]).all().float(), param_axes, mesh)
         elif options.compute_grad_norm or options.clip_grad_norm:
             # one non-finite gradient poisons the norm: free same-step signal
             metrics["grads_finite"] = torch.isfinite(gnorm).float()
         if options.skip_nonfinite:
-            ok = torch.stack([torch.isfinite(loss)]
-                             + [torch.isfinite(g).all() for g in grads]).all()
+            ok = _agreed(torch.stack([torch.isfinite(loss)]
+                                     + [torch.isfinite(g).all() for g in grads]).all().float(),
+                         param_axes, mesh) > 0
             metrics["nonfinite"] = 1.0 - ok.float()
             if not bool(ok):
                 with torch.no_grad():
@@ -218,6 +235,12 @@ def make_train_step(loss_fn: LossFn, options: StepOptions = StepOptions(), mesh=
         return state, metrics
 
     return train_step
+
+
+def _agreed(flag: torch.Tensor, axes, mesh) -> torch.Tensor:
+    """A 0/1 flag of this rank's gradients made every rank's: its minimum
+    over the axes over which the gradients differ."""
+    return all_reduce_min(flag, axes, mesh) if axes else flag
 
 
 def step_nonfinite(metrics) -> bool:
@@ -266,9 +289,70 @@ def leaf_layouts(state: TrainState) -> dict[str, Layout]:
 
 def whole_leaves(state: TrainState) -> list[tuple[str, torch.Tensor]]:
     """``state_leaves`` with each shard gathered whole (module docstring);
-    the live tensors themselves where nothing is sharded."""
+    the live tensors themselves where nothing is sharded. A pipeline
+    stage's state: the dense model's leaves (``leaf_names``), each layer's
+    broadcast from its stage (collective over ``pipe``)."""
     lays = leaf_layouts(state)
-    return [(k, lays[k].gather(v) if k in lays else v) for k, v in state_leaves(state)]
+    model = _staged(state)
+    if model is None:
+        return [(k, lays[k].gather(v) if k in lays else v) for k, v in state_leaves(state)]
+    local = dict(state_leaves(state))
+    out = []
+    for name in leaf_names(state, state.optimizer.count):
+        k = leaf_template(state, name)
+        v = lays[k].gather(local[k]) if k in lays else local[k]
+        layer = _layer_of(state, name)
+        if layer is not None:  # a non-owner's template only lends its shape
+            v = broadcast(v.to(model.mesh.device), PIPE, model.mesh,
+                          src=model.stage_of(layer)).to(v.device)
+        out.append((name, v))
+    return out
+
+
+def _staged(state: TrainState):
+    """The state's model when its optimizer was placed as one stage of a
+    pipeline over ``pipe`` above 1 (a ``Layout.stage``: a
+    ``models/transformer.PipelinedTransformer``), else None."""
+    lays = getattr(state.optimizer, "layouts", None) or ()
+    return state.model if any(lay is not None and lay.stage for lay in lays) else None
+
+
+def _param_names(state: TrainState) -> list[str]:
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    return [names[id(p)] for p in state.optimizer.params]
+
+
+def _layer_of(state: TrainState, name: str) -> int | None:
+    """The global layer of a dense leaf name, None for the ends."""
+    parts = name.split("/")
+    if parts[0] == "optimizer" and len(parts) == 3:
+        parts = ["model", state.model.dense_param_names[int(parts[1])]]
+    if parts[0] != "model" or not parts[1].startswith("layers."):
+        return None
+    return int(parts[1].split(".")[1])
+
+
+def leaf_template(state: TrainState, name: str) -> str:
+    """The leaf of ``state_leaves`` of the same whole shape and dtype as
+    the checkpoint leaf ``name``: itself, but for a pipeline stage's state
+    (``leaf_names``'s dense names) this stage's — its own layer's, or for
+    another stage's layer the same tensor of this stage's first one — and
+    an optimizer leaf under this state's parameter index."""
+    model = _staged(state)
+    if model is None:
+        return name
+    parts = name.split("/")
+    opt = parts[0] == "optimizer" and len(parts) == 3
+    if parts[0] != "model" and not opt:
+        return name
+    pname = model.dense_param_names[int(parts[1])] if opt else parts[1]
+    if pname.startswith("layers."):
+        _, layer, rest = pname.split(".", 2)
+        if layer not in model.layers:
+            pname = f"layers.{next(iter(model.layers))}.{rest}"
+    if not opt:
+        return f"model/{pname}"
+    return f"optimizer/{_param_names(state).index(pname)}/{parts[2]}"
 
 
 def whole_shape(state: TrainState, name: str, local) -> tuple[int, ...]:
@@ -287,15 +371,35 @@ def opt_leaf_shape(state: TrainState, name: str) -> tuple[int, ...]:
 
 
 def leaf_names(state: TrainState, count: int) -> list[str]:
-    """The names ``state_leaves`` gives for this state's model and
-    optimizer after ``count`` updates (the optimizer holds no state before
-    its first)."""
+    """The names of this state's checkpoint leaves after ``count`` updates:
+    ``state_leaves``' (the optimizer holds no state before its first); a
+    pipeline stage's, the dense model's (module docstring)."""
+    model = _staged(state)
+    if model is None:
+        return _local_leaf_names(state, count)
+    names = [*HEADER_LEAVES, *(f"model/{k}" for k in model.dense_state_names)]
+    if count > 0:
+        keys = state.optimizer.param_state_keys()
+        for j in range(len(model.dense_param_names)):
+            i = int(leaf_template(state, f"optimizer/{j}/-").split("/")[1])
+            names += [f"optimizer/{j}/{k}" for k in sorted(keys[i])]
+    return names
+
+
+def _local_leaf_names(state: TrainState, count: int) -> list[str]:
+    """The names ``state_leaves`` gives after ``count`` updates."""
     names = [*HEADER_LEAVES, *(f"model/{k}" for k in state.model.state_dict())]
     if count > 0:
         names += [f"optimizer/{i}/{k}"
                   for i, keys in enumerate(state.optimizer.param_state_keys())
                   for k in sorted(keys)]
     return names
+
+
+def _owns(state: TrainState, name: str) -> bool:
+    """Whether this stage holds the dense leaf ``name``."""
+    layer = _layer_of(state, name)
+    return layer is None or state.model.stage_of(layer) == state.model.stage
 
 
 def load_state_leaves(state: TrainState, leaves: dict[str, torch.Tensor]) -> TrainState:
@@ -309,6 +413,9 @@ def load_state_leaves(state: TrainState, leaves: dict[str, torch.Tensor]) -> Tra
     if sorted(leaves) != sorted(want):
         raise ValueError(f"checkpoint leaves {sorted(set(leaves) ^ set(want))[:8]} do not "
                          f"match the state's")
+    if _staged(state) is not None:  # this stage's of the dense leaves
+        dense = {leaf_template(state, n): n for n in want if _owns(state, n)}
+        leaves = {k: leaves[dense[k]] for k in _local_leaf_names(state, count)}
     lays = leaf_layouts(state)
     leaves = {k: lays[k].shard(v) if k in lays else v for k, v in leaves.items()}
     with torch.no_grad():

@@ -17,7 +17,12 @@ With ``mesh=`` (tensor and fully-sharded data parallelism,
 (``sharding.shard_tensor`` of the whole tensors, by
 ``transformer_specs``); ``transformer_to_jax`` takes the ranks' state
 dicts (``mesh_shape=``) and reassembles each sharded tensor
-(``sharding.assemble``).
+(``sharding.assemble``). ``pipelined_from_jax(params_np, cfg, mesh=,
+n_virtual=)`` gives this rank's stage of a
+``models.transformer.PipelinedTransformer`` from the JAX package's
+pipelined tree (``{"ends", "blocks"}``, every block leaf stacked ``[S,
+(V,) layers, ...]``: its ``to_pipeline_params``) or from the dense flax
+tree (stacked at the mesh's ``pipe`` size).
 
 ``resnet_from_jax(params_np, batch_stats_np, cfg)`` does the same for a
 ``distributed_tensorflow_tpu.models.resnet.ResNet`` (``block_impl``
@@ -61,7 +66,13 @@ import torch
 
 from .models import cnn, mlp, resnet
 from .models import wide_deep as wd
-from .models.transformer import Transformer, TransformerConfig, build
+from .models.transformer import (
+    PipelinedTransformer,
+    Transformer,
+    TransformerConfig,
+    build,
+    build_pipelined,
+)
 from .utils.device import resolve_device
 
 
@@ -199,6 +210,39 @@ def from_jax_params(params_np: Mapping, cfg: TransformerConfig,
         specs = transformer_specs(cfg, mesh)
     return build(cfg, _state_dict_from_jax(params_np, cfg), device, trainable=trainable,
                  mesh=mesh, specs=specs)
+
+
+def _unstack_jax_pipeline(pparams_np: Mapping, cfg: TransformerConfig,
+                          n_virtual: int) -> dict:
+    """JAX's ``from_pipeline_params`` on numpy: the pipelined tree's
+    stacked blocks back into one ``layer_<i>`` subtree a layer."""
+
+    def per_layer(node, i):
+        if isinstance(node, Mapping):
+            return {k: per_layer(v, i) for k, v in node.items()}
+        x = np.asarray(node)
+        flat = (x.reshape(-1, *x.shape[2:]) if n_virtual == 1
+                else x.swapaxes(0, 1).reshape(-1, *x.shape[3:]))
+        return flat[i]
+
+    out = dict(pparams_np["ends"])
+    out.update({f"layer_{i}": per_layer(pparams_np["blocks"], i)
+                for i in range(cfg.num_layers)})
+    return out
+
+
+def pipelined_from_jax(params_np: Mapping, cfg: TransformerConfig, device="cuda", *,
+                       trainable: bool = False, mesh=None, n_virtual: int = 1,
+                       n_microbatches: int = 1) -> PipelinedTransformer:
+    """This rank's ``PipelinedTransformer`` on ``device`` (the card by
+    default) with the weights of the JAX package's pipelined tree
+    (``{"ends", "blocks"}``, laid out for ``n_virtual``) or of its dense
+    flax tree (module docstring); ``trainable`` as ``from_jax_params``."""
+    if "blocks" in params_np:
+        params_np = _unstack_jax_pipeline(params_np, cfg, n_virtual)
+    return build_pipelined(cfg, _state_dict_from_jax(params_np, cfg), resolve_device(device),
+                           trainable=trainable, mesh=mesh, n_virtual=n_virtual,
+                           n_microbatches=n_microbatches)
 
 
 def resnet_state_dict_from_jax(params_np: Mapping, cfg: resnet.ResNetConfig,

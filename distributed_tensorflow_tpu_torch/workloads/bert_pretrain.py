@@ -6,8 +6,9 @@ linear warmup), data-parallel over the processes of the mesh (one per
 card; the step's gradient all-reduce is generic). Attention runs through
 the flash kernels, non-causal, with a ``kv_mask`` when a batch carries an
 ``attention_mask``; with ``model.seq_impl`` and ``mesh.seq`` above 1,
-through ``parallel/ring_attention.py``. The pipelined family is ROADMAP
-Queue A item 6."""
+through ``parallel/ring_attention.py``; with ``mesh.pipe`` above 1, the
+pipelined family (``parallel/pipeline.py``, the padded mask riding the
+schedule as its aux input, the gathered MLM head after the island)."""
 
 from __future__ import annotations
 

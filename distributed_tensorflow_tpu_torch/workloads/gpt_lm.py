@@ -3,7 +3,9 @@
 (data-parallel over the processes there are) and ``long_context`` (ring
 attention over the ``seq`` axis with remat at S=8192), same values.
 ``python -m distributed_tensorflow_tpu_torch.train gpt_lm
---preset=long_context`` picks the second (``PRESETS``)."""
+--preset=long_context`` picks the second (``PRESETS``). ``--mesh.pipe=S``
+runs the pipelined family over S stages (with ``--mesh.model`` PP×TP;
+``--train.pipeline_microbatches``, ``--train.pipeline_virtual``)."""
 
 from __future__ import annotations
 

@@ -35,17 +35,25 @@ above 1: its parameters stay as their rules place them, and the batch is
 split over ``data`` x ``fsdp`` as JAX's ``batch_spec`` splits it. A
 transformer whose ``model.seq_impl`` is set runs with ``mesh.seq`` above
 1 (``parallel/ring_attention.py``): every ``seq`` rank of a data shard
-reads that shard's rows and ends each step with the same gradients.
+reads that shard's rows and ends each step with the same gradients. The
+two transformer workloads run with ``mesh.pipe`` above 1 as the JAX
+package's pipelined family (``parallel/pipeline.py``, PP×TP with
+``mesh.model``): ``train.pipeline_microbatches`` microbatches a step (0:
+2·pipe·``train.pipeline_virtual``) and ``train.pipeline_virtual`` chunks
+a stage; every ``pipe`` rank of a data shard reads its rows.
 
 The config tree keeps the JAX package's section names, so the same
 ``--section.key=value`` overrides parse; a config that asks for what the
-port does not have yet raises with the ROADMAP item named: ``expert`` or
-``pipe`` above 1 (item 6), a fleet, the anomaly defense, MoE. Refused
-too, because the ranks would only repeat each other's work (JAX runs
-them): ``model`` above 1 for a workload that shards nothing over it, and
-``seq`` above 1 for a model without ``seq_impl`` or a workload without
-attention. An explicit ``data.eval_dataset`` a workload does not consume
-raises too.
+port does not have yet raises with the ROADMAP item named: ``expert``
+above 1 and MoE (item 6c), a fleet and the anomaly defense (item 6e).
+Refused too, because the ranks would only repeat each other's work (JAX
+runs them): ``model`` above 1 for a workload that shards nothing over
+it, ``seq`` above 1 for a model without ``seq_impl`` or a workload
+without attention, ``pipe`` above 1 for a workload with no pipelined
+family (``wide_deep``, ``resnet50_imagenet``, ``mnist_mlp``,
+``cifar10_cnn``) or together with ``seq`` above 1 (the stages run no
+sequence parallelism). An explicit ``data.eval_dataset`` a workload does
+not consume raises too.
 """
 
 from __future__ import annotations
@@ -62,7 +70,7 @@ from ..data.pipeline import DevicePut, Prefetcher
 from ..data.text import TextDataConfig
 from ..parallel import cluster
 from ..parallel.cluster import ClusterConfig
-from ..parallel.mesh import FSDP, MODEL, SEQ, MeshSpec, build_mesh, describe
+from ..parallel.mesh import FSDP, MODEL, PIPE, SEQ, MeshSpec, build_mesh, describe
 from ..parallel import sharding
 from ..train import (
     OptimizerConfig,
@@ -88,6 +96,14 @@ class TrainSection:
     grad_accum_steps: int = 1
     seed: int = 0
     eval_every: int = 0  # 0 = no mid-train eval
+    # the pipeline schedule (mesh.pipe above 1, the transformer workloads):
+    # microbatches a step (0 = 2·pipe·pipeline_virtual) and the chunks a
+    # stage holds (1 = GPipe, above 1 the interleaved schedule)
+    pipeline_microbatches: int = 0
+    pipeline_virtual: int = 1
+    # the JAX package's pipeline-memory estimate before a pipelined run on
+    # the accelerator (not ported: ROADMAP Queue A item 6g; logged once)
+    check_pipeline_memory: bool = True
     eval_batches: int = 16  # a pass's batches; 0 = no eval at all
     # Adds grad_norm + grads_finite to the step metrics (an extra pass
     # over every gradient per step)
@@ -165,17 +181,30 @@ class RunResult:
     preempted: bool = False  # the run stopped on a preemption save
 
 
+#: the workloads with a pipelined family (``mesh.pipe`` above 1)
+PIPELINED_WORKLOADS = ("gpt_lm", "bert_pretrain")
+
+
 def check_supported(cfg: RunConfig) -> None:
     """Refuse what this slice does not have, naming the ROADMAP item."""
-    if cfg.mesh.pipe > 1:
-        raise ValueError(f"mesh.pipe={cfg.mesh.pipe}: pipeline parallelism is not ported "
-                         f"yet (ROADMAP Queue A item 6, parallel/pipeline.py)")
     axes = cfg.mesh.sizes()
-    big = {k: v for k, v in axes.items() if k not in ("data", FSDP, SEQ, MODEL) and v != 1}
+    big = {k: v for k, v in axes.items() if k not in (PIPE, "data", FSDP, SEQ, MODEL)
+           and v != 1}
     if big:
-        raise ValueError(f"mesh {big}: no axis but data, fsdp, seq and model may span more "
-                         f"than one process in the port so far (expert: MoE, ROADMAP Queue A "
-                         f"item 6)")
+        raise ValueError(f"mesh {big}: no axis but pipe, data, fsdp, seq and model may span "
+                         f"more than one process in the port so far (expert: MoE, ROADMAP "
+                         f"Queue A item 6c)")
+    if cfg.mesh.pipe > 1:
+        if cfg.workload not in PIPELINED_WORKLOADS:
+            raise ValueError(f"mesh.pipe={cfg.mesh.pipe}: workload {cfg.workload!r} has no "
+                             f"pipelined family (only {PIPELINED_WORKLOADS} do: ROADMAP Queue "
+                             f"A item 6b), so its pipe ranks would only repeat each other's "
+                             f"work; spread its batch over mesh.data")
+        if cfg.mesh.seq > 1:
+            raise ValueError(f"mesh.pipe={cfg.mesh.pipe} with mesh.seq={cfg.mesh.seq}: the "
+                             f"pipeline's stages run no sequence parallelism (seq_impl is "
+                             f"None inside them, as in the JAX package), so the seq ranks "
+                             f"would only repeat each other's work")
     if cfg.mesh.seq != 1:
         if not hasattr(cfg.model, "seq_impl"):
             raise ValueError(f"mesh.seq={cfg.mesh.seq}: workload {cfg.workload!r} has no "
@@ -217,11 +246,15 @@ def setup(cfg: RunConfig, build, device="cuda"):
             f"under torchrun --nproc_per_node={math.prod(spans.values())} (or set "
             f"cluster.coordinator_address, cluster.num_processes and cluster.process_id)"
             + ("; or pass --mesh.data=-1 to let the data axis take the processes there are"
-               if "data" in spans else ""))
+               if "data" in spans else "")
+            + ("; each pipeline stage is a process of its own" if PIPE in spans else ""))
     mesh = build_mesh(cfg.mesh, dev)
     if cluster.is_chief():
         logger.info("mesh: %s", describe(mesh))
         logger.info("config:\n%s", config_lib.to_json(cfg))
+        if mesh.shape[PIPE] > 1 and cfg.train.check_pipeline_memory and dev.type == "cuda":
+            logger.info("train.check_pipeline_memory: the pipeline-memory estimate is not "
+                        "ported (ROADMAP Queue A item 6g); running without it")
     parts = build(cfg, dev, mesh)
     return dev, mesh, parts, prepare(cfg, parts, mesh)
 

@@ -1881,3 +1881,79 @@ def test_tp_gpt_steps_on_card_equal_one_process(card, tmp_path):
         name = k[len("whole/model/"):]
         du, dw = ranks[0]["tp/" + k] - init[name], v - init[name]
         assert np.linalg.norm(du - dw) / max(np.linalg.norm(dw), 1e-30) <= 1e-3, name
+
+
+#: the shapes the pipelined gpt_small step gives the flash kernels (global
+#: B=8 in M=4 microbatches over pipe=2: B=2 a call; H=6 under model=2) and
+#: bert_base's (16 rows over data=2 in M=4 microbatches: B=2 a call at
+#: S=512, padded keys)
+FLASH_PIPE_CASES = [
+    (2, 12, 1024, 1024, 64, True, False),
+    (2, 6, 1024, 1024, 64, True, False),
+    (2, 12, 512, 512, 64, False, "padded"),
+]
+#: the LN+matmul shapes of the pipelined gpt_small step at model=1: M = 2
+#: rows of S=1024, d 768, the q/k/v and mlp_in widths
+LN_PIPE_CASES = [(2048, 768, 768), (2048, 768, 3072)]
+
+
+@pytest.mark.cuda
+def test_kernels_at_the_pipeline_microbatch_shapes_match_plain_on_card(card):
+    """The flash kernels (bf16) at ``FLASH_PIPE_CASES`` and the LN+matmul
+    forward and backward (bf16) at ``LN_PIPE_CASES`` against their plain
+    versions, at the gates of the tests above."""
+    rng = np.random.default_rng(27)
+    atol, rtol = TOLS[torch.bfloat16]
+    for B, H, Sq, Sk, D, causal, masked in FLASH_PIPE_CASES:
+        q, k, v, mask, dout = _flash_inputs(rng, card, torch.bfloat16, B, H, Sq, Sk, D, masked)
+        case = (B, H, Sq, Sk, D, causal, masked)
+        out, lse = fa.flash_fwd(q, k, v, mask, causal=causal)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, mask, out, lse, dout, causal=causal)
+        dq = fa.flash_bwd_dq(q, k, v, mask, out, lse, dout, causal=causal)
+        want_out, _ = fa.flash_attention_plain(q, k, v, mask, causal=causal)
+        want = fa.flash_attention_bwd_plain(q, k, v, mask, out, lse, dout, causal=causal)
+        torch.testing.assert_close(out.float(), want_out.float(), atol=atol, rtol=rtol,
+                                   msg=lambda m: f"out {case}: {m}")
+        assert _rel_l2(out, want_out) <= FLASH_FWD_REL_L2[torch.bfloat16], case
+        for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+            assert _rel_l2(got, w) <= FLASH_REL_L2[torch.bfloat16], (name, case)
+    for M, d, n in LN_PIPE_CASES:
+        x, g, b, w_nd, bias = _ln_fwd_inputs(rng, card, torch.bfloat16, M, d, n)
+        got = ln_matmul(x, g, b, w_nd.t(), bias, out_dtype=torch.bfloat16)
+        want = ln_matmul_plain(x, g, b, w_nd.t(), bias, out_dtype=torch.bfloat16)
+        torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+        x, g, b, w, dy = _ln_bwd_inputs(rng, card, torch.bfloat16, M, d, n, True)
+        dx, dg, db, dbias, mean, rstd = fln.ln_matmul_bwd_dx(x, g, w, dy)
+        dw = fln.ln_matmul_bwd_dw(x, g, b, dy, mean, rstd)
+        want = fln.ln_matmul_bwd_plain(x, g, b, w, dy)
+        torch.testing.assert_close(dx.float(), want[0].float(), atol=atol, rtol=rtol)
+        for name, got_, ref in (("dgamma", dg, want[1]), ("dbeta", db, want[2]),
+                                ("dw", dw, want[3]), ("dbias", dbias, want[4])):
+            assert _rel_l2(got_, ref) < 2e-3, (name, (M, d, n))
+
+
+@pytest.mark.cuda
+def test_pipeline_at_pipe1_on_card_matches_cpu(card):
+    """``pipeline_apply``'s pipe=1 path through a tiny f32 pipelined
+    decoder (head_dim 64: the flash kernels on the card, two virtual
+    chunks, four microbatches) on the card against the CPU (the plain
+    versions) from the same weights: the logits and every gradient of
+    their mean square (f32, another summation order: 1e-4)."""
+    cfg = tfm.TransformerConfig(vocab_size=256, max_len=128, num_layers=4, d_model=128,
+                                num_heads=2, d_ff=256, dropout=0.0, dtype="float32",
+                                causal=True, pre_ln=True)
+    params = tfm.init_params(cfg, seed=5, device="cpu", trainable=True)
+    ids = torch.from_numpy(np.random.default_rng(5).integers(0, 256, (8, 128)))
+    runs = []
+    for device in (card, torch.device("cpu")):
+        model = tfm.build_pipelined(cfg, params, device, trainable=True, n_virtual=2,
+                                    n_microbatches=4)
+        before = fa.flash_fwd.launches
+        logits = model(ids.to(device))
+        grads = torch.autograd.grad((logits ** 2).mean(), list(model.parameters()))
+        runs.append((fa.flash_fwd.launches - before, logits.detach().cpu(),
+                     [g.cpu() for g in grads]))
+    assert runs[0][0] == 4 * 4 and runs[1][0] == 0  # 4 microbatches x 4 layers
+    torch.testing.assert_close(runs[0][1], runs[1][1], atol=1e-4, rtol=1e-4)
+    for a, b in zip(runs[0][2], runs[1][2]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)

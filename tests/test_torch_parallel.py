@@ -205,10 +205,10 @@ def test_divergence_check_broadcast_from_chief_and_replicate(ranks):
 
 
 def test_mesh_refuses_other_axes_and_collectives_not_ported(ranks):
-    """fsdp and tensor-parallel specs, an fsdp mesh and a seq mesh with its
-    verbs are admitted now: a pipeline stage spec, an expert or pipe axis
-    and the subgroup collectives (the all-reduce's, the all-to-all's)
-    name item 6."""
+    """fsdp and tensor-parallel specs, an fsdp mesh, a seq mesh with its
+    verbs and a pipe mesh with its stage specs are admitted now: an expert
+    spec, an expert axis, a multislice pipe mesh and the subgroup
+    collectives (the all-reduce's, the all-to-all's) name item 6."""
     want = ["item 6", "item 6", "item 6", "item 6", "item 6"]
     for r in ranks:
         for msg, item in zip(r["refusals"].tolist(), want):

@@ -131,21 +131,30 @@ def test_port_table_is_the_jax_table_row_for_row():
 @pytest.mark.parametrize("override", ["--mesh.seq=2", "--mesh.expert=2", "--mesh.pipe=2",
                                       "--model.num_experts=4"])
 def test_later_parallelisms_still_name_item_6(override):
-    """The pipeline and MoE name item 6; a seq axis is ported (item 6a),
-    and without ``model.seq_impl`` its ranks would only repeat each other,
-    which is refused (ROADMAP Queue C's deliberate differences)."""
+    """MoE names item 6; a seq axis (item 6a) and a pipe axis (item 6b)
+    are ported, and where their ranks would only repeat each other — seq
+    without ``model.seq_impl``, pipe together with seq (the stages run no
+    sequence parallelism) — they are refused (ROADMAP Queue C's deliberate
+    differences)."""
     tiny = ["--model.num_layers=1", "--model.d_model=32", "--model.num_heads=2",
             "--model.d_ff=64", "--model.vocab_size=64", "--data.vocab_size=64",
             "--model.max_len=16", "--data.seq_len=16", "--train.num_steps=1"]
-    match = "seq_impl is unset.*repeat" if override == "--mesh.seq=2" else "item 6"
+    extra = {"--mesh.pipe=2": ["--mesh.seq=2", "--model.seq_impl=ring"]}.get(override, [])
+    match = {"--mesh.seq=2": "seq_impl is unset.*repeat",
+             "--mesh.pipe=2": "no sequence parallelism.*repeat"}.get(override, "item 6")
     with pytest.raises((ValueError, NotImplementedError), match=match):
-        run_workload("gpt_lm", tiny + [override], device="cpu")
+        run_workload("gpt_lm", tiny + [override] + extra, device="cpu")
 
 
 def test_stage_specs_and_expert_specs_are_refused_naming_item_6():
-    for spec in (("pipe", None, "model"), ("expert", None, "model")):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            tsh.check_spec(spec, "w")
+    """A stacked stage leaf's spec (``pipe`` on its leading dim, ``model``
+    beside it under PP×TP) is admitted now (item 6b); ``pipe`` on another
+    dim and an expert spec are not."""
+    assert tsh.check_spec(("pipe", None, "model"), "w") == ("pipe", None, "model")
+    with pytest.raises(ValueError, match="leading"):
+        tsh.check_spec((None, "pipe"), "w")
+    with pytest.raises(NotImplementedError, match="item 6"):
+        tsh.check_spec(("expert", None, "model"), "w")
     with pytest.raises(ValueError, match="no parameter is sharded over 'seq'"):
         tsh.check_spec(("seq", None), "w")
     with pytest.raises(ValueError, match="item 6"):

@@ -308,16 +308,19 @@ def test_coverage_and_dead_rule_errors_are_raised_alike():
 
 def test_placement_refuses_what_the_port_cannot_place():
     """fsdp and tensor-parallel specs are placeable now (a dim over one of
-    fsdp and model); the stacked stage and MoE axes name item 6, and the
-    batch axis, the seq axis (no parameter lives on it), two axes on one
-    dim or one axis on two dims raise."""
+    fsdp and model), and a stacked stage leaf's (pipe on its leading dim);
+    the MoE axis names item 6, and pipe on another dim, the batch axis, the
+    seq axis (no parameter lives on it), two axes on one dim or one axis on
+    two dims raise."""
     assert tsh.check_spec(["model", None]) == ("model", None)
     assert tsh.check_spec(("fsdp", None), "w") == ("fsdp", None)
     assert tsh.check_spec((None, "model"), "w") == (None, "model")
     assert tsh.check_spec(("fsdp", "model"), "w") == ("fsdp", "model")
-    for axis in ("pipe", "expert"):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            tsh.check_spec((axis, None), "w")
+    assert tsh.check_spec(("pipe", None), "w") == ("pipe", None)
+    with pytest.raises(ValueError, match="leading"):
+        tsh.check_spec((None, "pipe"), "w")
+    with pytest.raises(NotImplementedError, match="item 6"):
+        tsh.check_spec(("expert", None), "w")
     with pytest.raises(ValueError, match="no parameter is sharded over 'seq'"):
         tsh.check_spec(("seq", None), "w")
     with pytest.raises(ValueError, match="batch axis"):

@@ -31,7 +31,7 @@ exits non-zero on any failure. The spec's ``job``:
   megatron pair and ``gather_fsdp`` (on a model=2 and an fsdp=2 mesh of
   the two ranks), sequence parallelism's verbs (on a seq=2 mesh, native
   and emulated), the divergence check, ``broadcast_from_chief``,
-  ``replicate`` and the refusals (a stage spec, the mesh's, the
+  ``replicate`` and the refusals (an expert spec, the mesh's, the
   collectives'), each result saved for the test to hold against numpy.
 - ``"ckpt"``: ``run_workload(workload, overrides)`` (its
   ``--checkpoint.directory`` among them) once per entry of ``runs``, each
@@ -108,6 +108,21 @@ exits non-zero on any failure. The spec's ``job``:
   the permute emulated by all-reduces (as under gloo on CUDA tensors). Then
   ``cases`` and ``runner`` as the ``tp`` job runs them.
 
+- ``"pipe"``: pipeline parallelism: for each of ``apply`` (a tag, a mesh
+  such as ``{"pipe": 2, "data": 2}`` and ``virtual``), ``pipeline_apply``
+  of the toy stage ``tanh(x @ w + b)`` on the npz's stacked ``<tag>/w``,
+  ``<tag>/b`` and this rank's rows of ``<tag>/x`` (``[M, mb, d]``): the
+  output and the gradients of ``sum(out ** 2)`` summed over the ranks
+  (``dw``, ``db``); for each of ``forward`` (a tag, a mesh, a config,
+  ``virtual``, ``microbatches``, the npz's ``sd_<tag>/`` state dict and
+  ``<tag>/ids``, ``mask``, ``positions``), a ``PipelinedTransformer``'s
+  logits of this rank's rows and the gradients of the mean of the
+  squared global logits, each of its parameters' summed over the batch
+  shards and gathered over ``model`` (``grad/<name>``). Then ``cases``
+  (``tp_steps`` with a ``pipeline``: ``{"virtual", "microbatches"}``; a
+  ``restore`` names the step dir of an earlier case, restored before the
+  case's steps) and ``runner`` as the ``tp`` job runs them.
+
 ``train_steps``, ``bert_steps``, ``wide_deep_steps``, ``cnn_steps`` and
 ``tp_steps`` are also what the one-process references run (no mesh);
 ``launch`` starts the ranks of a spec, ``wait`` collects them and
@@ -134,6 +149,7 @@ from distributed_tensorflow_tpu_torch.ops import fused_conv_bn as fcb  # noqa: E
 from distributed_tensorflow_tpu_torch.parallel import cluster  # noqa: E402
 from distributed_tensorflow_tpu_torch.parallel.mesh import MeshSpec, build_mesh  # noqa: E402
 from distributed_tensorflow_tpu_torch.parallel.sharding import (  # noqa: E402
+    StageSpec,
     check_spec,
     match_partition_rules,
     shard_host_batch,
@@ -395,12 +411,12 @@ def job_parallel(spec: dict, dev, mesh) -> dict:
         finally:
             col._native_p2p = native
     refusals = []
-    for call in (lambda: check_spec(("pipe", None), "kernel"),
+    for call in (lambda: check_spec(("expert", None), "kernel"),
                  lambda: build_mesh(MeshSpec(data=1, expert=2), dev),
                  lambda: col.all_reduce(x, "data", mesh, groups=[[0, 1]]),
                  lambda: col.all_to_all(x, "data", mesh, split_axis=0, concat_axis=1,
                                         groups=[[0, 1]]),
-                 lambda: build_mesh(MeshSpec(data=1, pipe=2), dev)):
+                 lambda: build_mesh(MeshSpec(data=1, pipe=2, dcn_pipe=2), dev)):
         try:
             call()
             refusals.append("no error")
@@ -724,7 +740,12 @@ def tp_steps(case: dict, sd: dict, batches: list[dict], evals: list[dict], devic
     ``peak_gib``). ``case["whole"]``: ``"params"`` keeps only the
     gathered parameters, on rank 0 alone, and every rank a SHA-256 of each
     gathered leaf's bytes (``digest/``; none in one process), for states
-    too large to save whole on every rank."""
+    too large to save whole on every rank. ``case["pipeline"]`` (on a
+    mesh): the pipelined family instead (this rank's stage made by
+    ``init_pipelined`` from the case's seed, or by ``build_pipelined``
+    from ``sd``, with its ``virtual`` chunks and ``microbatches``; the
+    LM loss never chunked, as JAX's pipelined path); ``case["restore"]``:
+    a step dir restored into the state before the steps."""
     from distributed_tensorflow_tpu_torch.models import transformer as ttfm
     from distributed_tensorflow_tpu_torch.obs.registry import Registry
     from distributed_tensorflow_tpu_torch.parallel import collectives as col
@@ -733,26 +754,42 @@ def tp_steps(case: dict, sd: dict, batches: list[dict], evals: list[dict], devic
 
     device = torch.device(device)
     cfg = ttfm.TransformerConfig(**case["cfg"])
-    specs = {} if mesh is None else ttfm.transformer_specs(cfg, mesh)
-    if sd is None:  # random weights from the case's seed, made on the device
+    pipe = case.get("pipeline") if mesh is not None else None
+    if sd is None and not pipe:  # random weights from the case's seed, made on the device
         sd = ttfm.init_params(cfg, seed=case["seed"], device=device, trainable=True)
 
     def fresh():
-        model = ttfm.build(cfg, {k: torch.as_tensor(v) for k, v in sd.items()}, device,
-                           trainable=True, mesh=mesh, specs=specs)
+        if pipe:  # this stage's of the case's seed, or of ``sd``
+            kw = dict(trainable=True, mesh=mesh, n_virtual=pipe["virtual"],
+                      n_microbatches=pipe["microbatches"])
+            model = (ttfm.init_pipelined(cfg, case["seed"], device, **kw) if sd is None else
+                     ttfm.build_pipelined(cfg, {k: torch.as_tensor(v) for k, v in sd.items()},
+                                          device, **kw))
+        else:
+            params = {k: torch.as_tensor(v) for k, v in sd.items()}
+            model = ttfm.build(cfg, params, device, trainable=True, mesh=mesh,
+                               specs={} if mesh is None else ttfm.transformer_specs(cfg, mesh))
         opt = topt.make_optimizer(topt.OptimizerConfig(**case["optimizer"]),
                                   model.parameters())
         if mesh is not None:
-            opt.place(mesh, specs, model)
+            opt.place(mesh, model.specs, model)
         return tstep.init_train_state(model, opt)
 
     state = fresh()
     model = state.model
-    loss_fn = (ttfm.mlm_loss_fn(model) if case.get("mlm")
+    specs = model.specs
+    if case.get("restore"):
+        ck = tck.Checkpointer(tck.CheckpointConfig(directory=case["restore"], async_save=False))
+        try:
+            ck.restore(state)
+        finally:
+            ck.close()
+    loss_fn = (ttfm.mlm_loss_fn(model) if case.get("mlm") else ttfm.lm_loss_fn(model) if pipe
                else ttfm.causal_lm_loss(model, case.get("chunk", 0)))
     step = tstep.make_train_step(loss_fn, tstep.StepOptions(**case.get("options", {})),
                                  mesh=mesh)
-    replicated = [n for n, _ in model.named_parameters() if not any(specs.get(n, ()))]
+    replicated = [n for n, _ in model.named_parameters()
+                  if not any(specs.get(n, ())) and not isinstance(specs.get(n), StageSpec)]
     from distributed_tensorflow_tpu_torch.ops import fused_ln_matmul as lnm
     from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
 
@@ -777,8 +814,8 @@ def tp_steps(case: dict, sd: dict, batches: list[dict], evals: list[dict], devic
         norms.append(float(m.get("grad_norm", np.nan)))
         if mesh is not None:
             flat = torch.cat([model.get_parameter(n).detach().reshape(-1) for n in replicated])
-            lo = col.all_reduce_min(flat, ("data", "fsdp", "seq", "model"), mesh)
-            hi = col.all_reduce_max(flat, ("data", "fsdp", "seq", "model"), mesh)
+            lo = col.all_reduce_min(flat, ("pipe", "data", "fsdp", "seq", "model"), mesh)
+            hi = col.all_reduce_max(flat, ("pipe", "data", "fsdp", "seq", "model"), mesh)
             drift.append(float((hi - lo).abs().max()))
     out = {"losses": np.asarray(losses), "grad_norms": np.asarray(norms),
            "drift": np.asarray(drift), "step_ms": np.asarray(step_ms)}
@@ -800,7 +837,7 @@ def tp_steps(case: dict, sd: dict, batches: list[dict], evals: list[dict], devic
         out.update({f"whole/{k}": v.detach().float().cpu().numpy() for k, v in whole})
     del whole
     eval_fn = (ttfm.mlm_eval_fn(model) if case.get("mlm")
-               else ttfm.lm_eval_fn(model, case.get("chunk", 0)))
+               else ttfm.lm_eval_fn(model, 0 if pipe else case.get("chunk", 0)))
     totals = ShardedEvaluator(eval_fn, mesh, registry=Registry()).run(
         state, [shard_host_batch(b, mesh) if mesh is not None else b for b in evals])
     out.update({f"eval/{k}": np.asarray(v) for k, v in totals.items()})
@@ -826,7 +863,8 @@ def tp_steps(case: dict, sd: dict, batches: list[dict], evals: list[dict], devic
 def job_tp(spec: dict, dev, mesh) -> dict:
     """Each of ``cases`` (``tp_steps``) on its ``mesh`` from the ``sd/``,
     ``<tag>/train<i>/<key>`` and ``<tag>/eval<i>/<key>`` arrays of
-    ``inputs``, saved under its tag; with ``runner`` (workload ->
+    ``inputs``, saved under its tag (and the case's wall seconds,
+    ``wall_s``); with ``runner`` (workload ->
     overrides) also ``run_workload``'s losses, mesh and gathered weights
     (``runner/<workload>/``)."""
     data = np.load(spec["inputs"])
@@ -846,10 +884,14 @@ def job_tp(spec: dict, dev, mesh) -> dict:
         cmesh = build_mesh(MeshSpec(**case["mesh"]), dev)
         if case.get("env"):
             os.environ.update(case["env"])
+        if case.get("restore"):
+            case = dict(case, restore=os.path.join(spec["out"], case["restore"]))
+        t0 = time.perf_counter()
         res = tp_steps(case, sd, batches("train"), batches("eval"), dev, cmesh,
                        os.path.join(spec["out"], f"ck_{tag}") if case.get("save", True)
                        else None)
         res.pop("model")
+        res["wall_s"] = np.asarray(time.perf_counter() - t0)
         out.update({f"{tag}/{k}": v for k, v in res.items()})
     for workload, over in spec.get("runner", {}).items():
         from distributed_tensorflow_tpu_torch.train import step as tstep_
@@ -860,6 +902,7 @@ def job_tp(spec: dict, dev, mesh) -> dict:
         out[f"runner/{workload}/mesh"] = np.asarray([res.mesh.shape[a] for a in
                                                      ("data", "fsdp", "model")])
         out[f"runner/{workload}/seq"] = np.asarray(res.mesh.shape["seq"])
+        out[f"runner/{workload}/pipe"] = np.asarray(res.mesh.shape["pipe"])
         out.update({f"runner/{workload}/whole/{k}": v.detach().float().cpu().numpy()
                     for k, v in tstep_.whole_leaves(res.state) if k.startswith("model/")})
     return out
@@ -867,8 +910,8 @@ def job_tp(spec: dict, dev, mesh) -> dict:
 
 def job_seq(spec: dict, dev, mesh) -> dict:
     """Each of ``attention`` through every schedule of
-    ``sequence_parallel_attention`` (module docstring), then ``job_tp``'s
-    ``cases`` and ``runner``."""
+    ``sequence_parallel_attention`` (module docstring; their wall seconds
+    ``attention/wall_s``), then ``job_tp``'s ``cases`` and ``runner``."""
     from distributed_tensorflow_tpu_torch.parallel import collectives as col
     from distributed_tensorflow_tpu_torch.parallel.ring_attention import (
         IMPLS, sequence_parallel_attention)
@@ -897,6 +940,7 @@ def job_seq(spec: dict, dev, mesh) -> dict:
         return {"out": o, **{f"d{n_}": t.grad for n_, t in zip("qkv", leaves)},
                 "launches": launches}
 
+    t0 = time.perf_counter()
     for a in spec["attention"]:
         tag, amesh = a["tag"], build_mesh(MeshSpec(**a["mesh"]), dev)
         dtype = getattr(torch, a.get("dtype", "float32"))
@@ -915,6 +959,55 @@ def job_seq(spec: dict, dev, mesh) -> dict:
                                 v.detach().float().cpu().numpy() for k, v in res.items()})
             finally:
                 col._native_p2p = native
+    out["attention/wall_s"] = np.asarray(time.perf_counter() - t0)
+    out.update(job_tp(dict(spec, cases=spec.get("cases", [])), dev, mesh))
+    return out
+
+
+def job_pipe(spec: dict, dev, mesh) -> dict:
+    """``apply`` and ``forward`` (module docstring), then ``job_tp``'s
+    ``cases`` and ``runner``."""
+    from distributed_tensorflow_tpu_torch.models import transformer as ttfm
+    from distributed_tensorflow_tpu_torch.parallel import collectives as col
+    from distributed_tensorflow_tpu_torch.parallel.pipeline import pipeline_apply
+    from distributed_tensorflow_tpu_torch.parallel.sharding import gather_tensor, local_rows
+
+    torch.set_num_threads(1)  # four ranks of tiny tensors: threads only contend
+    data = np.load(spec["inputs"])
+    out = {}
+    batch = ("data", "fsdp")
+    for a in spec.get("apply", []):
+        tag, amesh = a["tag"], build_mesh(MeshSpec(**a["mesh"]), dev)
+        w, b = (torch.as_tensor(data[f"{tag}/{n}"]).to(dev).requires_grad_() for n in "wb")
+        x = torch.as_tensor(data[f"{tag}/x"]).to(dev)
+        y = pipeline_apply(lambda p, x: torch.tanh(x @ p["w"] + p["b"]), {"w": w, "b": b},
+                           x[:, local_rows(x.shape[1], amesh)], amesh, n_virtual=a["virtual"])
+        grads = torch.autograd.grad((y ** 2).sum(), [w, b])
+        out[f"{tag}/out"] = y.detach().cpu().numpy()
+        for n, g in zip(("dw", "db"), grads):
+            out[f"{tag}/{n}"] = col.all_reduce(g, ("pipe", *batch), amesh).cpu().numpy()
+    for f in spec.get("forward", []):
+        tag, fmesh = f["tag"], build_mesh(MeshSpec(**f["mesh"]), dev)
+        cfg = ttfm.TransformerConfig(**f["cfg"])
+        sd = {k[len(f"sd_{tag}/"):]: torch.as_tensor(data[k]) for k in data.files
+              if k.startswith(f"sd_{tag}/")}
+        model = ttfm.build_pipelined(cfg, sd, dev, trainable=True, mesh=fmesh,
+                                     n_virtual=f["virtual"], n_microbatches=f["microbatches"])
+        ids = torch.as_tensor(data[f"{tag}/ids"])
+        rows = local_rows(ids.shape[0], fmesh)
+        opt = {k: torch.as_tensor(data[f"{tag}/{k}"])[rows].to(dev)
+               for k in ("mask", "positions") if f"{tag}/{k}" in data.files}
+        logits = model(ids[rows].to(dev), opt.get("mask"), positions=opt.get("positions"))
+        numel = logits.numel() * col.axis_size(batch, fmesh)  # the global logits'
+        names = [n for n, _ in model.named_parameters()]
+        grads = torch.autograd.grad((logits ** 2).sum() / numel, list(model.parameters()))
+        out[f"{tag}/logits"] = logits.detach().cpu().numpy()
+        for n, g in zip(names, grads):
+            g = col.all_reduce(g, batch, fmesh)
+            spec_ = model.specs.get(n, ())
+            if spec_:
+                g = gather_tensor(g, spec_, fmesh, model.global_shapes[n])
+            out[f"{tag}/grad/{n}"] = g.cpu().numpy()
     out.update(job_tp(dict(spec, cases=spec.get("cases", [])), dev, mesh))
     return out
 
@@ -999,7 +1092,7 @@ def main(spec_path: str) -> int:
         jobs = {"job_resnet": job_resnet, "job_bert": job_bert, "job_parallel": job_parallel,
                 "job_ckpt": job_ckpt, "job_ckpt_fallback": job_ckpt_fallback,
                 "job_wide_deep": job_wide_deep, "job_cnn": job_cnn, "job_gpt": job_gpt,
-                "job_tp": job_tp, "job_seq": job_seq}
+                "job_tp": job_tp, "job_seq": job_seq, "job_pipe": job_pipe}
         out = jobs[f"job_{spec['job']}"](spec, dev, mesh)
         np.savez(os.path.join(spec["out"], f"rank{cluster.process_index()}.npz"), **out)
     finally:
